@@ -1,15 +1,20 @@
-"""Serve model=small on one NVIDIA GPU through the PyTorch/CUDA port.
+"""Serve and train model=small on one NVIDIA GPU through the PyTorch/CUDA port.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/ops/csrc`` (at
-first use, with nvcc), holds each against its plain PyTorch version on the
-card, then drives the port's serving path — ``PredictServer`` ->
-``PredictEngine`` -> ``LstmEncoder`` -> kernels — on requests made from the
-synthetic DGP, and checks the answers against the same engine on the CPU.
-Each phase prints one JSON line; the last line is
-``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
-non-zero; without CUDA the script exits 2 before doing anything.
+first use, with nvcc) and holds each against its plain PyTorch version on the
+card. Then it drives the port's two paths: serving (``PredictServer`` ->
+``PredictEngine`` -> ``LstmEncoder`` -> forward kernels) on requests made
+from the synthetic DGP, checked against the same engine on the CPU; and
+training (``Trainer.fit`` -> ``train_epoch`` -> ``LstmEncoder`` in training
+mode -> forward and backward kernels) on synthetic windows, followed by
+``Trainer.test`` and serving the ``best`` checkpoint. A 20-step trajectory
+and a 3-layer model's gradients are held against the CPU port. Each phase
+prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises, so the exit code is non-zero; without CUDA the script
+exits 2 before doing anything. The training data is generated under
+``data/chip_smoke/<stocks>x<samples>/`` next to this script.
 
 Imports only torch, numpy and the port (never JAX or the JAX package).
 """
@@ -17,15 +22,22 @@ Imports only torch, numpy and the port (never JAX or the JAX package).
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from masters_thesis_tpu_torch.data.pipeline import (
+    Batch,
+    FinancialWindowDataModule,
+    bootstrap_synthetic,
+)
 from masters_thesis_tpu_torch.data.synthetic import SyntheticLogReturns
-from masters_thesis_tpu_torch.models.objectives import ModelSpec
+from masters_thesis_tpu_torch.models.objectives import ModelSpec, batched_objective
 from masters_thesis_tpu_torch.ops import _build
 from masters_thesis_tpu_torch.ops import lstm_kernel as lk
 from masters_thesis_tpu_torch.ops.windows import (
@@ -34,6 +46,15 @@ from masters_thesis_tpu_torch.ops.windows import (
 )
 from masters_thesis_tpu_torch.serve.engine import PredictEngine
 from masters_thesis_tpu_torch.serve.server import PredictServer
+from masters_thesis_tpu_torch.train.checkpoint import load_checkpoint
+from masters_thesis_tpu_torch.train.optim import make_optimizer
+from masters_thesis_tpu_torch.train.steps import (
+    evaluate,
+    forward_rows,
+    metric_means,
+    train_step,
+)
+from masters_thesis_tpu_torch.train.trainer import Trainer, device_split
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the kernels
 # run f32 products on the CUDA cores, so the f32 rate without tensor cores.
@@ -41,35 +62,114 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SOURCE = "H100 SXM data sheet: 67 TFLOP/s f32 (no tensor cores), 3.35 TB/s"
 
-KERNEL_TOL = 2e-5  # f32, summation order differs over 60 dependent steps
+# Forwards: 2e-5 abs (f32, summation order differs over 60 dependent steps).
+# Backward sweeps and weight gradients: 2e-5 of the largest entry (at least
+# 2e-5 abs): their entries grow with the cotangents summed over the steps
+# and, for the weight gradients, over T * rows terms.
+KERNEL_TOL = 2e-5
 SERVE_TOL = 5e-5  # f32 end to end: input projection, recurrence, heads
 T, H = 60, 64
 K_STOCKS = 100
-SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_fwd.cu"
-REPLACES = {
-    "lstm_pair_fwd": "masters_thesis_tpu/ops/lstm_kernel.py:719",
-    "lstm_fwd": "masters_thesis_tpu/ops/lstm_kernel.py:140",
+FWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_fwd.cu"
+BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_bwd.cu"
+TPU = "masters_thesis_tpu/ops/lstm_kernel.py"
+# Each kernel of the port: (its source, the TPU kernel it replaces).
+KERNELS = {
+    "lstm_pair_fwd": (FWD_SOURCE, f"{TPU}:719"),
+    "lstm_fwd": (FWD_SOURCE, f"{TPU}:140"),
+    "lstm_pair_fwd_masked": (FWD_SOURCE, f"{TPU}:719"),
+    "lstm_pair_bwd": (BWD_SOURCE, f"{TPU}:845"),
+    "lstm_wgrad": (BWD_SOURCE, f"{TPU}:845"),
+    "lstm_bwd": (BWD_SOURCE, f"{TPU}:204"),
 }
+
+# Training: configs/model/small.yaml, configs/loss/mse.yaml and
+# configs/trainer/fast.yaml (clip 5.0), on configs/datamodule/synthetic.yaml
+# windows cut from 100 stocks x 200,000 samples instead of 1,000,000.
+TRAIN_SAMPLES = 200_000
+TRAIN_EPOCHS = 2
+CLIP, LR, WD = 5.0, 1e-4, 1e-5
+PARITY_STEPS = 20
+# Card against CPU over the same steps from the same weights. Losses: 1e-5
+# relative (f32 sums over 3,000 terms in another order). Parameters: 1e-5
+# abs, a tenth of one Adam step (lr): equal gradients up to f32 rounding
+# move both copies alike, while a wrong gradient entry moves its weight by
+# about lr a step in another direction. Gradients: 1e-4 of the step's
+# largest entry (sums over 6,000 row-steps in another order reach ~1e-6).
+PARITY_LOSS_RTOL = 1e-5
+PARITY_PARAM_TOL = 1e-5
+GRAD_RTOL = 1e-4
+DEVICE = "cuda"  # the card the training phases run on
+# Keyed by the generation parameters, so a set made at another size is never
+# reused and never blocks a run.
+DATA_DIR = (Path(__file__).resolve().parent / "data" / "chip_smoke"
+            / f"{K_STOCKS}x{TRAIN_SAMPLES}")
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, from CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+def cuda_ms(fn, iters: int = 20, loops: int = 5,
+            warmup: int = 3) -> tuple[float, float, float]:
+    """Milliseconds per call from CUDA events around each of ``loops`` loops
+    of ``iters`` back-to-back calls, after ``warmup`` calls: the median over
+    the loops, its min and its max. Where the host takes longer to launch a
+    call than the card takes to run it, this is the host's rate."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    per_loop = []
+    for _ in range(loops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per_loop.append(start.elapsed_time(end) / iters)
+    return float(np.median(per_loop)), min(per_loop), max(per_loop)
+
+
+def device_ops(call, calls: int = 10) -> list[dict]:
+    """Device time per call by operation, from a torch.profiler trace of
+    ``calls`` calls: device-side events only (kernels, copies), so an
+    operator's time is its kernels' time, counted once. Largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    device = sorted(
+        ((e.key, e.self_device_time_total / 1e3 / calls)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda kv: -kv[1],
+    )
+    return [{"name": name[:80], "ms": ms} for name, ms in device]
+
+
+def timed(key: str, fn, calls: int = 10, **loop) -> dict:
+    """``key`` (ms a call over back-to-back loops, the median), its spread
+    ``[min, max]`` over the loops, and the card's own time a call (the
+    profiler's device time, which no host delay enters)."""
+    median, low, high = cuda_ms(fn, **loop)
+    busy = sum(op["ms"] for op in device_ops(fn, calls))
+    return {key: median, f"{key}_spread": [low, high],
+            key.replace("ms", "device_ms"): busy}
+
+
+def host_probe_ms() -> float:
+    """Host milliseconds of a fixed pure-Python loop, which touches neither
+    torch nor the card: its spread over a run is the host's own."""
+    t0 = time.perf_counter()
+    total = 0
+    for i in range(20_000):
+        total += i
+    return 1e3 * (time.perf_counter() - t0)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -100,6 +200,7 @@ def phase_device() -> dict:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "allow_tf32": False,
+        "host_cpus": os.cpu_count(),
     }
     emit(info)
     return info
@@ -132,8 +233,8 @@ def _kernel_case(rows: int, seed: int):
     return x, w1, wi2, b2, w2
 
 
-def _cudnn_lstm(x, layers):
-    """torch.nn.LSTM (cuDNN) computing the kernel's function: layer 1's
+def _cudnn_module(layers) -> torch.nn.LSTM:
+    """torch.nn.LSTM (cuDNN) computing the kernels' function: layer 1's
     input weight is the identity on the 4H-wide projections (one extra
     (T*B, 4H) @ (4H, 4H) product), all of layer 1's bias sits in x."""
     four_h = 4 * H
@@ -149,7 +250,43 @@ def _cudnn_lstm(x, layers):
             lstm.bias_ih_l1.copy_(b2)
             lstm.bias_hh_l1.zero_()
             lstm.weight_hh_l1.copy_(w2.T)
-    return lambda: lstm(x)[0]
+    return lstm
+
+
+def _cudnn_forward(x, layers):
+    """cuDNN's forward on a copy of x that asks for a gradient: under
+    inference mode the inference forward, else the forward as training runs
+    it (it keeps what its backward needs)."""
+    lstm = _cudnn_module(layers)
+    xg = x.detach().clone().requires_grad_(True)
+    return lambda: lstm(xg)[0]
+
+
+def _cudnn_backward(x, layers, dh, weights: bool):
+    """torch.autograd.grad through cuDNN's backward, the forward run once
+    outside the timed calls: the gradient of x (which, through the identity
+    input weight, is layer 1's d_pre), and with ``weights`` every weight
+    gradient too."""
+    lstm = _cudnn_module(layers)
+    for p in lstm.parameters():
+        p.requires_grad_(weights)
+    xg = x.detach().clone().requires_grad_(True)
+    out = lstm(xg)[0]
+    inputs = [xg] + (list(lstm.parameters()) if weights else [])
+    return lambda: torch.autograd.grad(out, inputs, dh, retain_graph=True)
+
+
+def _as_tuple(t):
+    return (t,) if torch.is_tensor(t) else tuple(t)
+
+
+def _max_abs_err(got, want) -> float:
+    return max(float((g - w).abs().max())
+               for g, w in zip(_as_tuple(got), _as_tuple(want)))
+
+
+def _largest(want) -> float:
+    return max(float(w.abs().max()) for w in _as_tuple(want))
 
 
 def phase_kernels() -> dict:
@@ -160,14 +297,14 @@ def phase_kernels() -> dict:
             "lstm_pair_fwd": (
                 lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2),
                 lambda: lk.lstm_pair_ref(x, w1, wi2, b2, w2),
-                _cudnn_lstm(x, [(w1,), (w2, wi2, b2)]),
+                _cudnn_forward(x, [(w1,), (w2, wi2, b2)]),
                 3 * 2 * T * rows * H * 4 * H,
                 4 * (x.numel() + 3 * H * 4 * H + 4 * H + T * rows * H),
             ),
             "lstm_fwd": (
                 lambda: lk.lstm_fwd_cuda(x, w1),
                 lambda: lk.lstm_recurrence_ref(x, w1),
-                _cudnn_lstm(x, [(w1,)]),
+                _cudnn_forward(x, [(w1,)]),
                 2 * T * rows * H * 4 * H,
                 4 * (x.numel() + H * 4 * H + T * rows * H),
             ),
@@ -193,9 +330,10 @@ def phase_kernels() -> dict:
                     "H": H,
                     "max_abs_err": err,
                     "tol": KERNEL_TOL,
-                    "ms": cuda_ms(kernel),
-                    "plain_ms": cuda_ms(plain, iters=5),
-                    "library_ms": cuda_ms(library),
+                    **timed("ms", kernel),
+                    **timed("plain_ms", plain, calls=3, iters=3, loops=3,
+                            warmup=1),
+                    **timed("library_ms", library),
                     "library_max_abs_err": lib_err,
                     "bound_ms": bound_ms,
                     "bound_by": bound_by,
@@ -209,6 +347,150 @@ def phase_kernels() -> dict:
                         f"{name} at rows={rows}: max abs err {err} > {KERNEL_TOL}"
                     )
                 results[(name, rows)] = row
+    return results
+
+
+def _wgrad_library(dx1, d_pre2, h1s, h2s, mask):
+    """The pair's weight gradients as PyTorch computes them: one cuBLAS
+    product a weight on the stashes' shifted views (the mask applied once),
+    and the bias sum."""
+    def rows_of(t):
+        return t.reshape(-1, t.shape[-1])
+
+    return lambda: (
+        rows_of(h1s[:-1]).T @ rows_of(dx1[1:]),
+        rows_of(h1s * mask).T @ rows_of(d_pre2),
+        d_pre2.sum(dim=(0, 1)),
+        rows_of(h2s[:-1]).T @ rows_of(d_pre2[1:]),
+    )
+
+
+def _training_inputs(rows: int):
+    """The kernel case plus a pre-scaled keep-mask (p = 0.2), a cotangent of
+    h at every step, and the stashes and d_pre planes the plain versions
+    make from them."""
+    x, w1, wi2, b2, w2 = _kernel_case(rows, seed=rows)
+    rng = np.random.default_rng(rows + 1)
+    mask = torch.from_numpy(
+        ((rng.random((T, rows, H)) >= 0.2) / 0.8).astype(np.float32)).cuda()
+    dh = torch.from_numpy(
+        (0.1 * rng.standard_normal((T, rows, H))).astype(np.float32)).cuda()
+    with torch.no_grad():
+        h2s, h1s, c1s, c2s = lk.lstm_pair_ref(x, w1, wi2, b2, w2, mask,
+                                              return_stash=True)
+        dx1, d_pre2 = lk.lstm_pair_bwd_ref(dh, x, mask, h1s, c1s, h2s, c2s,
+                                           w1, wi2, b2, w2)
+        hs, cs = lk.lstm_recurrence_ref(x, w1, return_c=True)
+        dx = lk.lstm_bwd_ref(dh, x, hs, cs, w1)
+    return dict(x=x, w1=w1, wi2=wi2, b2=b2, w2=w2, mask=mask, dh=dh, h1s=h1s,
+                c1s=c1s, h2s=h2s, c2s=c2s, dx1=dx1, d_pre2=d_pre2, hs=hs,
+                cs=cs, dx=dx)
+
+
+def phase_training_kernels() -> dict:
+    """The training kernels against their plain versions at the shapes of
+    the training path (100 rows: one window a step) and of 8 windows.
+
+    FLOPs count each (rows, H) @ (H, 4H) product of a step as 2*H*4H a row:
+    3 in the masked pair forward, 6 in the pair's backward sweep (both
+    layers' gates, layer 2's input projection, three transposed products),
+    3 in the pair's weight-gradient pass, 2 and 1 for the single layer.
+    Bytes count each input read once and each output written once."""
+    results = {}
+    for rows in (100, 800):
+        v = _training_inputs(rows)
+        x, w1, wi2, b2, w2, mask, dh = (v[k] for k in (
+            "x", "w1", "wi2", "b2", "w2", "mask", "dh"))
+        product = 2 * T * rows * H * 4 * H
+        plane_h = 4 * T * rows * H
+        plane_x = 4 * T * rows * 4 * H
+        weight = 4 * H * 4 * H
+        pair = [(w1,), (w2, wi2, b2)]
+        bwd_args = (dh, x, mask, v["h1s"], v["c1s"], v["h2s"], v["c2s"], w1,
+                    wi2, b2, w2)
+        wgrad_args = (v["dx1"], v["d_pre2"], v["h1s"], v["h2s"], mask)
+        cases = {
+            # name: (kernel, plain, library, library computes the same
+            #        function, FLOPs, bytes, relative tolerance)
+            "lstm_pair_fwd_masked": (
+                lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2, mask,
+                                              stash=True),
+                lambda: lk.lstm_pair_ref(x, w1, wi2, b2, w2, mask,
+                                         return_stash=True),
+                _cudnn_forward(x, pair), False,
+                3 * product, plane_x + plane_h + 3 * weight + 4 * 4 * H
+                + 4 * plane_h, False,
+            ),
+            "lstm_pair_bwd": (
+                lambda: lk.lstm_pair_bwd_cuda(*bwd_args),
+                lambda: lk.lstm_pair_bwd_ref(*bwd_args),
+                _cudnn_backward(x, pair, dh, weights=False), False,
+                6 * product, 6 * plane_h + plane_x + 3 * weight + 4 * 4 * H
+                + 2 * plane_x, True,
+            ),
+            "lstm_wgrad": (
+                lambda: lk.lstm_pair_wgrad(*wgrad_args),
+                lambda: lk.lstm_pair_wgrad_ref(*wgrad_args),
+                _wgrad_library(*wgrad_args), True,
+                3 * product, 2 * plane_x + 3 * plane_h + 3 * weight + 4 * 4 * H,
+                True,
+            ),
+            "lstm_bwd": (
+                lambda: lk.lstm_bwd_cuda(dh, x, v["hs"], v["cs"], w1),
+                lambda: lk.lstm_bwd_ref(dh, x, v["hs"], v["cs"], w1),
+                _cudnn_backward(x, [(w1,)], dh, weights=False), True,
+                2 * product, 3 * plane_h + plane_x + weight + plane_x, True,
+            ),
+        }
+        # The whole backward through cuDNN (data and weight gradients), for
+        # comparison with the sweep plus the weight-gradient pass.
+        full = {
+            "lstm_pair_bwd": _cudnn_backward(x, pair, dh, weights=True),
+            "lstm_bwd": _cudnn_backward(x, [(w1,)], dh, weights=True),
+        }
+        for name, (kernel, plain, library, same, flops, nbytes,
+                   relative) in cases.items():
+            with torch.no_grad():
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+            err = _max_abs_err(got, want)
+            if name == "lstm_wgrad":
+                # The single-layer job of the same pass.
+                single = lk.lstm_single_wgrad(v["dx"], v["hs"])
+                single_ref = lk.lstm_wgrad_ref(v["dx"], v["hs"], 1)
+                err = max(err, _max_abs_err(single, single_ref))
+                want = _as_tuple(want) + (single_ref,)
+            tol = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
+            row = {
+                "phase": "kernel",
+                "name": name,
+                "rows": rows,
+                "T": T,
+                "H": H,
+                "max_abs_err": err,
+                "tol": tol,
+                **timed("ms", kernel),
+                **timed("plain_ms", plain, calls=3, iters=3, loops=3, warmup=1),
+                **timed("library_ms", library),
+                "library_same_function": same,
+            }
+            if not same:
+                row["library_note"] = "cuDNN takes no seam mask: the maskless pair"
+            else:
+                # cuDNN's backward gives x's gradient only, held against the
+                # sweep's first output; the products give every weight's.
+                with torch.no_grad():
+                    row["library_max_abs_err"] = _max_abs_err(library(), want)
+            if name in full:
+                row["library_full_backward_ms"] = cuda_ms(full[name])[0]
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+            row.update({"flops": flops, "bytes": nbytes, "peaks": PEAK_SOURCE})
+            emit(row)
+            if not err <= tol:
+                raise AssertionError(
+                    f"{name} at rows={rows}: max abs err {err} > {tol}")
+            results[(name, rows)] = row
     return results
 
 
@@ -335,48 +617,324 @@ def phase_breakdown(windows: np.ndarray) -> list[dict]:
     """Where one predict call's time goes, at buckets 1 and 8: host wall
     clock per call (numpy in, numpy out, so it ends synchronized) beside
     the device time by kernel from a torch.profiler trace of 10 calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     gpu, _ = _engines(_small_spec(), seed=0)
     rows = []
     for bucket in (1, 8):
         x = windows[:bucket]
-        for _ in range(3):
-            gpu.predict(x)
-        walls = []
-        for _ in range(30):
-            t0 = time.perf_counter()
-            gpu.predict(x)
-            walls.append(time.perf_counter() - t0)
-        calls = 10
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                gpu.predict(x)
-        # Device-side events only (kernels, copies): an operator's device
-        # time is its kernels' time, counted once.
-        device = sorted(
-            ((e.key, e.self_device_time_total / 1e3 / calls)
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-            key=lambda kv: -kv[1],
-        )
-        busy_ms = sum(ms for _, ms in device)
-        wall_ms = float(np.median(walls) * 1e3)
+        host, busy_ms, device = _wall_and_device(lambda: gpu.predict(x))
         row = {
             "phase": "breakdown",
             "bucket": bucket,
             "rows": bucket * K_STOCKS,
-            "predict_wall_ms_p50": wall_ms,
+            "predict_wall_ms_p50": host["wall_ms_p50"],
+            "predict_wall_ms_spread": host["wall_ms_spread"],
+            "host_probe_ms_p50": host["host_probe_ms_p50"],
+            "host_probe_ms_spread": host["host_probe_ms_spread"],
             "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_ms_by_kernel": [
-                {"name": name[:80], "ms": ms} for name, ms in device[:8]
-            ],
+            "device_idle_share": 1.0 - busy_ms / host["wall_ms_p50"],
+            "device_ms_by_kernel": device[:8],
         }
         emit(row)
         rows.append(row)
     return rows
+
+
+def _wall_and_device(call, calls: int = 10):
+    """Host clock over 30 calls of ``call`` (each ends synchronized), after
+    3 warm-up calls, each followed by a ``host_probe_ms``: the wall ms
+    median and spread ``[min, max]``, and the probe's; then the device time
+    per call by kernel from a torch.profiler trace of ``calls`` calls:
+    ``(host, busy_ms, [{name, ms}, ...])``."""
+    for _ in range(3):
+        call()
+    walls, probes = [], []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        call()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        probes.append(host_probe_ms())
+    host = {
+        "wall_ms_p50": float(np.median(walls)),
+        "wall_ms_spread": [min(walls), max(walls)],
+        "host_probe_ms_p50": float(np.median(probes)),
+        "host_probe_ms_spread": [min(probes), max(probes)],
+    }
+    device = device_ops(call, calls)
+    return host, sum(op["ms"] for op in device), device
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_datamodule() -> FinancialWindowDataModule:
+    """configs/datamodule/synthetic.yaml windows (lookback 60, target 30,
+    stride 90, interaction-only, batch_size 1) from 100 stocks x 200,000
+    samples of the DGP with dgp_seed 0, generated next to this script."""
+    t0 = time.perf_counter()
+    bootstrap_synthetic(DATA_DIR, n_stocks=K_STOCKS, n_samples=TRAIN_SAMPLES,
+                        seed=0)
+    dm = FinancialWindowDataModule(DATA_DIR, lookback_window=T,
+                                   target_window=30, stride=90, batch_size=1)
+    dm.prepare_data()
+    dm.setup()
+    emit({"phase": "train_data", "seconds": time.perf_counter() - t0,
+          "windows": {"train": len(dm.train_range), "val": len(dm.val_range),
+                      "test": len(dm.test_range)},
+          "stocks": K_STOCKS, "samples": TRAIN_SAMPLES})
+    return dm
+
+
+def _train_spec(num_layers: int = 2, dropout: float = 0.2) -> ModelSpec:
+    # configs/model/small.yaml with configs/loss/mse.yaml.
+    return ModelSpec(objective="mse", input_size=3, hidden_size=H,
+                     num_layers=num_layers, dropout=dropout,
+                     learning_rate=LR, weight_decay=WD)
+
+
+def _run_steps(spec, state, batches, device, masks=None):
+    """``len(batches)`` train_step updates of a model with ``state`` on
+    ``device``: per-step losses, per-step flat gradients (CPU) and the
+    final parameters (CPU)."""
+    module = spec.build_module(device=device)
+    module.load_state_dict(state)
+    optimizer = make_optimizer(module, CLIP, spec.weight_decay)
+    loss_fn = batched_objective(spec.window_objective())
+    losses, grads = [], []
+    for i, arrays in enumerate(batches):
+        batch = Batch(*(torch.from_numpy(a).to(device) for a in arrays))
+        step_masks = None if masks is None else [m.to(device) for m in masks[i]]
+        sums = train_step(module, optimizer, loss_fn, batch, spec.learning_rate,
+                          masks=step_masks)
+        losses.append(float(sums["total"][0] / sums["total"][1]))
+        grads.append(optimizer.grads.detach().cpu().clone())
+    state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    return losses, grads, state
+
+
+def _grad_gap(got: list, want: list) -> float:
+    """Largest gradient difference of any step, relative to that step's
+    largest entry."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _window_batches(dm, n: int) -> list:
+    train = dm.train_arrays()
+    return [tuple(np.ascontiguousarray(a[i:i + 1]) for a in train)
+            for i in range(n)]
+
+
+def phase_train_parity(dm) -> dict:
+    """model=small at full width with dropout 0: 20 steps on the same
+    windows, in the same order, from the same weights, on the card and on
+    the CPU (plain versions)."""
+    spec = _train_spec(dropout=0.0)
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    batches = _window_batches(dm, PARITY_STEPS)
+    lk.reset_launch_counts()
+    gpu_losses, gpu_grads, gpu_state = _run_steps(spec, state, batches, DEVICE)
+    launches = dict(lk.LAUNCHES)
+    cpu_losses, cpu_grads, cpu_state = _run_steps(spec, state, batches, "cpu")
+    loss_gap = max(abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses))
+    param_gap = max(float((gpu_state[k] - cpu_state[k]).abs().max())
+                    for k in cpu_state)
+    grad_gap = _grad_gap(gpu_grads, cpu_grads)
+    moved = max(float((cpu_state[k] - state[k]).abs().max()) for k in state)
+    out = {
+        "phase": "train_parity",
+        "steps": PARITY_STEPS,
+        "rows_per_step": K_STOCKS,
+        "loss_first": cpu_losses[0],
+        "loss_last": cpu_losses[-1],
+        "max_loss_rel_gap": loss_gap,
+        "loss_rtol": PARITY_LOSS_RTOL,
+        "max_param_abs_gap": param_gap,
+        "param_tol": PARITY_PARAM_TOL,
+        "max_param_move": moved,
+        "max_grad_rel_gap": grad_gap,
+        "grad_rtol": GRAD_RTOL,
+        "launches": launches,
+    }
+    emit(out)
+    if not (loss_gap <= PARITY_LOSS_RTOL and param_gap <= PARITY_PARAM_TOL
+            and grad_gap <= GRAD_RTOL):
+        raise AssertionError(f"card and CPU trajectories differ: {out}")
+    if launches["lstm_pair_bwd"] != PARITY_STEPS:
+        raise AssertionError(f"parity run missed the pair backward: {launches}")
+    return out
+
+
+def phase_train(dm) -> dict:
+    """Trainer.fit for 2 epochs with the configs' defaults, Trainer.test,
+    and the best checkpoint served by PredictEngine."""
+    spec = _train_spec()
+    ckpt_dir = Path(dm.data_dir) / "ckpt"
+    trainer = Trainer(max_epochs=TRAIN_EPOCHS, gradient_clip_val=CLIP,
+                      check_val_every_n_epoch=1, ckpt_dir=ckpt_dir, seed=0,
+                      device=DEVICE)
+    module = trainer.build(spec)
+    val = device_split(dm.val_arrays(), DEVICE)
+    init_val = metric_means(evaluate(module, spec.window_objective(), val))["total"]
+    lk.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.fit(spec, dm, module=module)
+    fit_s = time.perf_counter() - t0
+    launches = dict(lk.LAUNCHES)
+    steps = TRAIN_EPOCHS * len(dm.train_range)
+    for row in result.history:
+        emit({"phase": "train_epoch", "epoch": row["epoch"],
+              "train_loss": row["loss/total/train"],
+              "val_loss": row["loss/total/val"], "lr": row["lr-Adam"]})
+    test_metrics = trainer.test(spec, result.state, dm)
+
+    best, *_ = load_checkpoint(ckpt_dir, "best")
+    engine = PredictEngine(spec, best, n_stocks=K_STOCKS, lookback=T,
+                           device=DEVICE, buckets=(1, 2, 4, 8))
+    x = dm.test_arrays().x[:8]
+    reference = spec.build_module(device=DEVICE)
+    reference.load_state_dict(best)
+    reference.eval()
+    with torch.no_grad():
+        alpha, beta = forward_rows(reference, torch.from_numpy(x).to(DEVICE))
+    served_err = _max_err(engine.predict(x), (alpha[..., 0].cpu().numpy(),
+                                              beta[..., 0].cpu().numpy()))
+    losses = [v for row in result.history for k, v in row.items()
+              if k.startswith("loss/")] + list(test_metrics.values())
+    final_val = result.history[-1]["loss/total/val"]
+    out = {
+        "phase": "train",
+        "model": "small",
+        "epochs": TRAIN_EPOCHS,
+        "steps": steps,
+        "rows_per_step": K_STOCKS,
+        "fit_seconds": fit_s,
+        "steps_per_s": result.steps_per_sec,
+        "windows_per_s": result.windows_per_sec,
+        "step_wall_ms": 1e3 / result.steps_per_sec,
+        "val_loss_initial": init_val,
+        "val_loss_final": final_val,
+        "best_val_loss": result.best_val_loss,
+        "test": test_metrics,
+        "served_best_max_abs_err": served_err,
+        "served_tol": SERVE_TOL,
+        "launches": launches,
+    }
+    emit(out)
+    if not all(np.isfinite(losses)) or len(test_metrics) != 4:
+        raise AssertionError(f"non-finite or missing losses: {out}")
+    if not final_val < init_val:
+        raise AssertionError(f"val loss did not fall: {init_val} -> {final_val}")
+    for name in ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad"):
+        if launches[name] < steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{steps} steps")
+    if not served_err <= SERVE_TOL:
+        raise AssertionError(f"served best checkpoint differs: {served_err}")
+    return out
+
+
+def phase_train_odd_layers(dm) -> dict:
+    """A 3-layer model (pair, then one) with dropout 0.2 on injected masks:
+    5 steps on the card and on the CPU, gradients compared at every step."""
+    spec = _train_spec(num_layers=3)
+    init = spec.build_module(device="cpu",
+                             generator=torch.Generator().manual_seed(1))
+    steps = 5
+    masks = [init.draw_masks(T, K_STOCKS, torch.Generator().manual_seed(10 + i))
+             for i in range(steps)]
+    batches = _window_batches(dm, steps)
+    lk.reset_launch_counts()
+    _, gpu_grads, _ = _run_steps(spec, init.state_dict(), batches, DEVICE, masks)
+    launches = dict(lk.LAUNCHES)
+    _, cpu_grads, _ = _run_steps(spec, init.state_dict(), batches, "cpu", masks)
+    gap = _grad_gap(gpu_grads, cpu_grads)
+    out = {
+        "phase": "train_odd_layers",
+        "num_layers": 3,
+        "steps": steps,
+        "max_grad_rel_gap": gap,
+        "grad_rtol": GRAD_RTOL,
+        "launches": launches,
+    }
+    emit(out)
+    if not gap <= GRAD_RTOL:
+        raise AssertionError(f"3-layer gradients differ from the CPU: {gap}")
+    if launches["lstm_bwd"] < steps or launches["lstm_pair_fwd_masked"] < steps:
+        raise AssertionError(f"3-layer training missed a kernel: {launches}")
+    return out
+
+
+def phase_train_breakdown(dm) -> dict:
+    """Where one training step's time goes (batch_size 1, 100 rows,
+    dropout 0.2): host wall clock per step, ending synchronized, split into
+    the host's time to queue each part and its wait for the card, beside
+    the device time by kernel from a torch.profiler trace of 10 steps."""
+    spec = _train_spec()
+    module = spec.build_module(device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    optimizer = make_optimizer(module, CLIP, spec.weight_decay)
+    loss_fn = batched_objective(spec.window_objective())
+    data = device_split(Batch(*(a[:64] for a in dm.train_arrays())), DEVICE)
+    generator = torch.Generator(device=DEVICE).manual_seed(0)
+    position = [0]
+
+    def next_batch() -> Batch:
+        i = position[0] % data.x.shape[0]
+        position[0] += 1
+        return Batch(*(a[i:i + 1] for a in data))
+
+    def step():
+        train_step(module, optimizer, loss_fn, next_batch(), LR, generator)
+        torch.cuda.synchronize()
+
+    def timed_step() -> list:
+        """train_step's parts, each timed on the host clock: the time to
+        queue the forward and loss, the backward and the optimizer update,
+        then the wait for the card to finish."""
+        batch = next_batch()
+        t = [time.perf_counter()]
+        alpha, beta = forward_rows(module, batch.x, deterministic=False,
+                                   generator=generator)
+        loss, _ = loss_fn(alpha, beta, batch.y, batch.factor, batch.inv_psi)
+        t.append(time.perf_counter())
+        optimizer.zero_grad()
+        loss.backward()
+        t.append(time.perf_counter())
+        optimizer.step(LR)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return [1e3 * (b - a) for a, b in zip(t, t[1:])]
+
+    host, busy_ms, device = _wall_and_device(step)
+    parts = np.median([timed_step() for _ in range(30)], axis=0)
+    # One more step with PyTorch's synchronisation check set to raise: the
+    # step waits on the card nowhere (the epoch reads its sums once).
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = Batch(*(a[:1] for a in data))
+        train_step(module, optimizer, loss_fn, batch, LR, generator)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out = {
+        "phase": "train_breakdown",
+        "rows": K_STOCKS,
+        "host_syncs_per_step": 0,
+        "step_wall_ms_p50": host["wall_ms_p50"],
+        "step_wall_ms_spread": host["wall_ms_spread"],
+        "host_probe_ms_p50": host["host_probe_ms_p50"],
+        "host_probe_ms_spread": host["host_probe_ms_spread"],
+        "host_ms_p50": dict(zip(
+            ("queue_forward_and_loss", "queue_backward", "queue_optimizer",
+             "wait_for_card"), map(float, parts))),
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / host["wall_ms_p50"],
+        "device_ms_by_kernel": device[:12],
+        "distinct_device_ops": len(device),
+    }
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -387,29 +945,48 @@ def main() -> int:
     device = phase_device()
     phase_build()
     kernels = phase_kernels()
+    kernels.update(phase_training_kernels())
     windows = _synthetic_windows()
     serve = phase_serve(windows)
     odd = phase_odd_layers(windows)
     phase_breakdown(windows)
-    path_launches = {
-        "lstm_pair_fwd": serve["launches"]["lstm_pair_fwd"],
-        "lstm_fwd": odd["launches"]["lstm_fwd"],
+    dm = _train_datamodule()
+    phase_train_parity(dm)
+    train = phase_train(dm)
+    train_odd = phase_train_odd_layers(dm)
+    phase_train_breakdown(dm)
+    # Each kernel's launches on the path it serves, and its times at the
+    # shape of that path: serving at 8 windows (800 rows), training at one
+    # window a step (100 rows).
+    paths = {
+        "lstm_pair_fwd": (serve, 800),
+        "lstm_fwd": (odd, 800),
+        "lstm_pair_fwd_masked": (train, 100),
+        "lstm_pair_bwd": (train, 100),
+        "lstm_wgrad": (train, 100),
+        "lstm_bwd": (train_odd, 100),
     }
     summary = []
-    for name in ("lstm_pair_fwd", "lstm_fwd"):
-        row = kernels[(name, 800)]
+    for name, (path, rows) in paths.items():
+        row = kernels[(name, rows)]
+        source, replaces = KERNELS[name]
         summary.append({
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[name],
-            "launches": path_launches[name],
+            "source": source,
+            "replaces": replaces,
+            "launches": path["launches"][name],
+            "rows": rows,
             "max_abs_err": max(kernels[(name, r)]["max_abs_err"] for r in (100, 800)),
             "ms": row["ms"],
+            "ms_spread": row["ms_spread"],
+            "device_ms": row["device_ms"],
             "plain_ms": row["plain_ms"],
+            "plain_device_ms": row["plain_device_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
         })
     emit({"kernels": summary})
     emit({"ok": True, "device": {

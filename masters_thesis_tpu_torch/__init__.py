@@ -5,12 +5,16 @@ per-stock alpha/beta from lookback windows of returns), written for an NVIDIA
 Hopper card. Module names mirror the JAX package so each part's counterpart is
 easy to find:
 
-- ``ops``    — the LSTM recurrences (hand-written CUDA kernels for ``sm_90a``
-               plus their plain PyTorch versions) and the window functions
-- ``data``   — the synthetic data-generating processes (numpy)
-- ``models`` — the ``LstmEncoder`` module, ``ModelSpec`` and the weight
-               converter from the JAX package's parameter tree
-- ``train``  — ``forward_rows``
+- ``ops``    — the LSTM recurrences forward and backward (hand-written CUDA
+               kernels for ``sm_90a`` plus their plain PyTorch versions),
+               the window functions, OLS and the losses
+- ``data``   — the synthetic data-generating processes (numpy) and the
+               windowed data module (bootstrap, cache, 70/20/10 split)
+- ``models`` — the ``LstmEncoder`` module, the window objectives,
+               ``ModelSpec`` and the weight converter from the JAX
+               package's parameter tree
+- ``train``  — the step functions, ``FlatAdam``, the plateau scheduler,
+               checkpoints and the ``Trainer``
 - ``serve``  — the micro-batching queue, ``PredictEngine`` and
                ``PredictServer``
 

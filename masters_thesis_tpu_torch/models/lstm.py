@@ -10,14 +10,19 @@ module's names and shapes — ``w_ih_l{n}`` ``(4H, in)``, ``w_hh_l{n}``
 
 Per group of layers, the input projection for every time step is one
 ``torch.matmul`` (the JAX package leaves it to XLA likewise); the serial part
-runs through ``ops/lstm_kernel.py``. Consecutive layers pair into the
-wavefront kernel and a trailing odd layer runs the single-layer kernel. The
-CUDA kernels are row-tiled, so every row count fits and the grouping is
-simply "pairs, then one" — the JAX package's VMEM byte model has no
-counterpart here.
+runs through ``ops/lstm_kernel.py``, differentiable through the hand-written
+backward kernels. Consecutive layers pair into the wavefront kernel and a
+trailing odd layer runs the single-layer kernel. The CUDA kernels are
+row-tiled, so every row count fits and the grouping is simply "pairs, then
+one" — the JAX package's VMEM byte model has no counterpart here.
 
-This slice serves: the deterministic forward only. Dropout in training mode
-comes with the training slice (masked pair kernel and backward kernels).
+Dropout in training mode follows the JAX encoder: torch semantics (every
+layer's output except the last), as pre-scaled ``(T, B, H)`` keep-masks — one
+per pair seam, applied inside the pair kernel, and one between groups,
+multiplied outside. The masks are drawn with ``torch.bernoulli`` from an
+explicit generator on the module's device, or injected with ``masks=``. The
+JAX and torch generators give different bits, so cross-framework parity
+with dropout on holds only for injected masks.
 """
 
 from __future__ import annotations
@@ -91,25 +96,61 @@ class LstmEncoder(nn.Module):
             getattr(self, f"b_hh_l{layer}"),
         )
 
+    @property
+    def n_masks(self) -> int:
+        """Dropout planes a training forward uses: one per pair seam, then
+        one per boundary between groups ("pairs, then one")."""
+        pairs, odd = divmod(self.num_layers, 2)
+        return pairs + (pairs + odd - 1)
+
+    def draw_masks(self, n_t: int, rows: int,
+                   generator: torch.Generator | None = None) -> list:
+        """The ``n_masks`` pre-scaled keep-masks ``(T, rows, H)`` of one
+        training forward: bernoulli(1 - p) / (1 - p), drawn on the module's
+        device from ``generator`` (torch's default generator when None)."""
+        device = self.w_hh_l0.device
+        keep = 1.0 - self.dropout
+        return [
+            torch.empty((n_t, rows, self.hidden_size), device=device)
+            .bernoulli_(keep, generator=generator) / keep
+            for _ in range(self.n_masks)
+        ]
+
     def forward(
-        self, x: torch.Tensor, *, deterministic: bool = True
+        self,
+        x: torch.Tensor,
+        *,
+        deterministic: bool = True,
+        generator: torch.Generator | None = None,
+        masks: list | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Encode lookback windows into per-row (alpha, beta) estimates.
 
         Args:
             x: ``(batch, time, features)`` feature-expanded lookback windows.
-            deterministic: must stay True when ``dropout > 0`` in this slice.
+            deterministic: disables inter-layer dropout (eval mode).
+            generator: the ``torch.Generator`` (on the module's device) the
+                training masks are drawn from.
+            masks: the ``n_masks`` time-major ``(time, batch, hidden)``
+                pre-scaled keep-masks to use instead of drawing them (in the
+                order: each pair's seam, then the boundary after it).
 
         Returns:
             ``(alpha, beta)``: ``(batch, 1)`` and ``(batch, n_factors)``.
         """
-        if not deterministic and self.dropout > 0.0:
-            raise NotImplementedError(
-                "dropout in training mode needs the masked pair kernel, "
-                "which comes with the training slice"
-            )
         # Time-major throughout, the kernels' layout: (T, B, ·).
         inputs = x.transpose(0, 1)
+        n_t, rows = inputs.shape[:2]
+        if deterministic or self.dropout <= 0.0:
+            masks = None
+        elif masks is None:
+            masks = self.draw_masks(n_t, rows, generator)
+        elif len(masks) != self.n_masks:
+            raise ValueError(
+                f"{self.num_layers} layers take {self.n_masks} masks, "
+                f"got {len(masks)}"
+            )
+        pending = iter(masks or ())
         layer = 0
         while layer < self.num_layers:
             w_ih, w_hh, b_ih, b_hh = self._layer(layer)
@@ -124,10 +165,13 @@ class LstmEncoder(nn.Module):
                     w_ih2.T.contiguous(),
                     (b_ih2 + b_hh2).contiguous(),
                     w_hh2.T.contiguous(),
+                    next(pending) if masks else None,
                 )
                 layer += 2
             else:
                 inputs = lstm_recurrence(x_proj, w_hh.T.contiguous())
                 layer += 1
+            if masks and layer < self.num_layers:
+                inputs = inputs * next(pending)
         final_hidden = inputs[-1]
         return self.alpha_head(final_hidden), self.beta_head(final_hidden)

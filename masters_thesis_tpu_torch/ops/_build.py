@@ -2,7 +2,7 @@
 
 Each ``csrc/*.cu`` file compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), named
-by a hash of the source and the flags:
+by a hash of the source, the shared headers ``csrc/*.cuh`` and the flags:
 ``ops/_build/lib<stem>-<hash>.so``. A changed source or flag therefore gets a
 fresh build, and an unchanged one is reused. Stale sources compile in
 parallel, one ``nvcc`` each. A failed build raises with ``nvcc``'s output;
@@ -59,8 +59,9 @@ def sources() -> list[Path]:
 
 
 def library_path(source: Path) -> Path:
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        source.read_bytes() + headers + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 

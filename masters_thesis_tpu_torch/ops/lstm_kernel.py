@@ -1,20 +1,24 @@
-"""LSTM recurrences over precomputed input projections: CUDA kernels and
-their plain PyTorch versions.
+"""LSTM recurrences over precomputed input projections: CUDA kernels, their
+plain PyTorch versions, and the autograd functions that tie them together.
 
 Counterpart of ``masters_thesis_tpu/ops/lstm_kernel.py``. The same split
 holds: the input projection for every time step is one large matmul done by
 the caller, and only the serial part — the per-step recurrent product plus
-the gate math — is a kernel. Layout is the JAX functions' own: time-major
-``(T, B, 4H)`` projections (``x @ w_ihᵀ`` plus both biases), gate order
-i, f, g, o, and transposed ``(H, 4H)`` weights.
+the gate math — is a kernel, forward and backward. Layout is the JAX
+functions' own: time-major ``(T, B, 4H)`` projections (``x @ w_ihᵀ`` plus
+both biases), gate order i, f, g, o, and transposed ``(H, 4H)`` weights.
 
 Dispatch is on the tensors' device and nothing else: a CUDA tensor goes to
-the hand-written kernel in ``csrc/lstm_fwd.cu`` (or raises), a CPU tensor to
-the plain version. Each kernel counts its launches in ``LAUNCHES`` so a run
-can show that its main path went through the kernel.
+the hand-written kernels in ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu`` (or
+raises), a CPU tensor to the plain versions. When an input needs a
+gradient, the recurrence runs as a ``torch.autograd.Function`` whose forward
+also writes the stashes (h and c planes) and whose backward recomputes the
+gates from them, as the TPU kernels do: the serial sweep
+(``lstm_pair_bwd`` / ``lstm_bwd``), then the weight-gradient reduction
+(``lstm_wgrad``). Each kernel counts its launches in ``LAUNCHES`` so a run
+can show that its main path went through it.
 
-The CUDA kernels are forward only and f32 only: the backward kernels, the
-masked pair and bf16 compute come with the training slice.
+The CUDA kernels take f32 only and H <= 64; bf16 compute is not ported.
 """
 
 from __future__ import annotations
@@ -26,13 +30,23 @@ import torch
 
 from masters_thesis_tpu_torch.ops._build import load_library
 
-#: Largest hidden size the kernels take (``kMaxHidden`` in csrc/lstm_fwd.cu):
+#: Largest hidden size the kernels take (``kMaxHidden`` in csrc/lstm_common.cuh):
 #: the pair stages three (H, 4H) f32 weights in one block's shared memory,
 #: 192 KiB at H=64, the width of every model in configs/model.
 MAX_HIDDEN = 64
 
-#: Launches of each CUDA kernel since the last reset_launch_counts().
-LAUNCHES: dict[str, int] = {"lstm_pair_fwd": 0, "lstm_fwd": 0}
+#: Launches of each CUDA kernel since the last reset_launch_counts():
+#: ``lstm_pair_fwd`` counts the maskless pair forward (serving, dropout 0),
+#: ``lstm_pair_fwd_masked`` the instance with a seam mask (training with
+#: dropout); ``lstm_wgrad`` is one call of the weight-gradient pass.
+LAUNCHES: dict[str, int] = {
+    "lstm_pair_fwd": 0,
+    "lstm_pair_fwd_masked": 0,
+    "lstm_fwd": 0,
+    "lstm_pair_bwd": 0,
+    "lstm_bwd": 0,
+    "lstm_wgrad": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -69,38 +83,141 @@ def lstm_recurrence_ref(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return (hs, torch.stack(cs)) if return_c else hs
 
 
-def lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t) -> torch.Tensor:
-    """Plain version of the maskless layer pair: two loops and a projection.
+def lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
+                  return_stash: bool = False):
+    """Plain version of the layer pair: two loops and a projection.
 
-    Mirrors ``lstm_pair_xla`` in the JAX package; returns layer 2's ``h2s``
-    ``(T, B, H)``.
+    Mirrors ``lstm_pair_xla`` in the JAX package: ``mask`` (optional,
+    ``(T, B, H)``, pre-scaled) multiplies layer 1's output at the seam.
+    Returns layer 2's ``h2s`` ``(T, B, H)``, or with ``return_stash``
+    ``(h2s, h1s, c1s, c2s)``, the planes the backward recomputes from.
     """
-    h1s = lstm_recurrence_ref(x1_proj, w_hh1_t)
-    return lstm_recurrence_ref(h1s @ w_ih2_t + bias2, w_hh2_t)
+    h1s, c1s = lstm_recurrence_ref(x1_proj, w_hh1_t, return_c=True)
+    seam = h1s if mask is None else h1s * mask
+    h2s, c2s = lstm_recurrence_ref(seam @ w_ih2_t + bias2, w_hh2_t,
+                                   return_c=True)
+    return (h2s, h1s, c1s, c2s) if return_stash else h2s
+
+
+def lstm_bwd_ref(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
+    """Plain version of the single-layer backward sweep.
+
+    Recomputes each step's gates from ``x_proj[t] + h[t-1] @ w_hh_t`` (the
+    stashed ``hs``/``cs``, as ``_bwd_kernel`` does) and returns the
+    pre-activation gradients ``d_pre`` ``(T, B, 4H)``, which are the
+    gradient of ``x_proj``.
+    """
+    n_t = x_proj.shape[0]
+    dh_rec = torch.zeros_like(hs[0])
+    dc = torch.zeros_like(hs[0])
+    d_pre = torch.empty_like(x_proj)
+    for t in range(n_t - 1, -1, -1):
+        h_prev = hs[t - 1] if t > 0 else torch.zeros_like(hs[0])
+        c_prev = cs[t - 1] if t > 0 else torch.zeros_like(cs[0])
+        i, f, g, o = (x_proj[t] + h_prev @ w_hh_t).chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        tanh_c = torch.tanh(cs[t])
+        dh = dhs[t] + dh_rec
+        d_o = dh * tanh_c
+        dc = dh * o * (1.0 - tanh_c * tanh_c) + dc
+        di, dg, df = dc * g, dc * i, dc * c_prev
+        dc = dc * f
+        d_pre[t] = torch.cat(
+            [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
+             d_o * o * (1.0 - o)], dim=-1,
+        )
+        dh_rec = d_pre[t] @ w_hh_t.T
+    return d_pre
+
+
+def lstm_pair_bwd_ref(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                      w_ih2_t, bias2, w_hh2_t):
+    """Plain version of the pair's backward sweep: ``(dx1, d_pre2)``.
+
+    Layer 2's input projection is recomputed from the stashed (masked) h1,
+    its sweep gives ``d_pre2``; the cotangent into h1 is
+    ``(d_pre2 @ w_ih2ᵀ) ⊙ mask``, and layer 1's sweep gives ``d_pre1``,
+    the gradient of ``x1_proj``. The same math as ``_pair_bwd_kernel``, one
+    layer after the other instead of one step apart.
+    """
+    seam = h1s if mask is None else h1s * mask
+    d_pre2 = lstm_bwd_ref(dh2s, seam @ w_ih2_t + bias2, h2s, c2s, w_hh2_t)
+    dh1 = d_pre2 @ w_ih2_t.T
+    if mask is not None:
+        dh1 = dh1 * mask
+    return lstm_bwd_ref(dh1, x1_proj, h1s, c1s, w_hh1_t), d_pre2
+
+
+def lstm_wgrad_ref(d_pre, src, shift: int, mask=None) -> torch.Tensor:
+    """Plain version of one weight gradient of the reduction pass:
+    ``sum_rows a[row]ᵀ d_pre[row]`` ``(H, 4H)`` with ``a = src[t - shift]``
+    (zero before the first step), times ``mask`` when given."""
+    a = src
+    if shift:
+        a = torch.cat([torch.zeros_like(src[:shift]), src[:-shift]])
+    if mask is not None:
+        a = a * mask
+    return a.reshape(-1, a.shape[-1]).T @ d_pre.reshape(-1, d_pre.shape[-1])
+
+
+def lstm_pair_wgrad_ref(dx1, d_pre2, h1s, h2s, mask=None):
+    """Plain version of the pair's weight gradients:
+    ``(dW_hh1, dW_ih2, db2, dW_hh2)``."""
+    return (
+        lstm_wgrad_ref(dx1, h1s, 1),
+        lstm_wgrad_ref(d_pre2, h1s, 0, mask),
+        d_pre2.sum(dim=(0, 1)),
+        lstm_wgrad_ref(d_pre2, h2s, 1),
+    )
 
 
 # ----------------------------------------------------------- CUDA wrappers
+
+
+def _declare(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int) -> None:
+    """``name(n_ptr pointers, n_int ints, stream) -> int`` (a CUDA error)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, name)
+    fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+    fn.restype = i32
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     """csrc/lstm_fwd.cu, built at first use, with its functions' types."""
     lib = load_library("lstm_fwd")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.lstm_fwd.restype = i32
-    lib.lstm_pair_fwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.lstm_pair_fwd.restype = i32
-    lib.lstm_error_string.argtypes = [i32]
+    _declare(lib, "lstm_fwd", 4, 4)
+    _declare(lib, "lstm_pair_fwd", 10, 4)
+    lib.lstm_error_string.argtypes = [ctypes.c_int]
     lib.lstm_error_string.restype = ctypes.c_char_p
     lib.lstm_max_hidden.argtypes = []
-    lib.lstm_max_hidden.restype = i32
-    if lib.lstm_max_hidden() != MAX_HIDDEN:
-        raise RuntimeError(
-            f"csrc/lstm_fwd.cu takes H <= {lib.lstm_max_hidden()}, "
-            f"the wrapper assumes {MAX_HIDDEN}"
-        )
+    lib.lstm_max_hidden.restype = ctypes.c_int
+    _check_max_hidden("lstm_fwd", lib.lstm_max_hidden())
     return lib
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """csrc/lstm_bwd.cu, built at first use, with its functions' types."""
+    lib = load_library("lstm_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    _declare(lib, "lstm_pair_bwd", 13, 4)
+    _declare(lib, "lstm_bwd", 6, 4)
+    lib.lstm_wgrad_splits.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+    lib.lstm_wgrad_splits.restype = i32
+    lib.lstm_wgrad.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.lstm_wgrad.restype = i32
+    lib.lstm_bwd_max_hidden.argtypes = []
+    lib.lstm_bwd_max_hidden.restype = i32
+    _check_max_hidden("lstm_bwd", lib.lstm_bwd_max_hidden())
+    return lib
+
+
+def _check_max_hidden(name: str, got: int) -> None:
+    if got != MAX_HIDDEN:
+        raise RuntimeError(
+            f"csrc/{name}.cu takes H <= {got}, the wrapper assumes {MAX_HIDDEN}"
+        )
 
 
 def _check_operand(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -123,60 +240,259 @@ def _check_sizes(n_t: int, b: int, hidden: int) -> None:
         )
 
 
-def _raise_on_error(lib: ctypes.CDLL, kernel: str, err: int) -> None:
+def _raise_on_error(kernel: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(
             f"{kernel} launch failed: CUDA error {err} "
-            f"({lib.lstm_error_string(err).decode()})"
+            f"({_library().lstm_error_string(err).decode()})"
         )
+
+
+def _shapes(x_proj: torch.Tensor) -> tuple[int, int, int]:
+    n_t, b, four_h = x_proj.shape
+    _check_sizes(n_t, b, four_h // 4)
+    return n_t, b, four_h // 4
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def lstm_fwd_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                   return_c: bool = False):
     """Launch the single-layer kernel; ``hs`` or ``(hs, cs)`` as the plain
     version returns them."""
-    n_t, b, four_h = x_proj.shape
-    hidden = four_h // 4
-    _check_sizes(n_t, b, hidden)
+    n_t, b, hidden = _shapes(x_proj)
     dev = x_proj.device
     _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
     _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
     lib = _library()
     hs = torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
     cs = torch.empty_like(hs) if return_c else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.lstm_fwd(
-        x_proj.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(),
-        None if cs is None else cs.data_ptr(), n_t, b, hidden, dev.index,
-        stream,
+        x_proj.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), _ptr(cs),
+        n_t, b, hidden, dev.index, _stream(dev),
     )
-    _raise_on_error(lib, "lstm_fwd", err)
+    _raise_on_error("lstm_fwd", err)
     LAUNCHES["lstm_fwd"] += 1
     return (hs, cs) if return_c else hs
 
 
-def lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t):
-    """Launch the maskless pair kernel; returns ``h2s`` ``(T, B, H)``."""
-    n_t, b, four_h = x1_proj.shape
-    hidden = four_h // 4
-    _check_sizes(n_t, b, hidden)
-    dev = x1_proj.device
-    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev)
+def _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev):
     for name, w in (("w_hh1_t", w_hh1_t), ("w_ih2_t", w_ih2_t),
                     ("w_hh2_t", w_hh2_t)):
         _check_operand(name, w, (hidden, 4 * hidden), dev)
     _check_operand("bias2", bias2, (4 * hidden,), dev)
+
+
+def lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
+                       stash: bool = False):
+    """Launch the pair kernel; returns ``h2s`` ``(T, B, H)``, or with
+    ``stash`` ``(h2s, h1s, c1s, c2s)``. ``mask`` selects the masked
+    instance (counted as ``lstm_pair_fwd_masked``)."""
+    n_t, b, hidden = _shapes(x1_proj)
+    dev = x1_proj.device
+    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev)
+    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev)
+    if mask is not None:
+        _check_operand("mask", mask, (n_t, b, hidden), dev)
     lib = _library()
-    h2s = torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    planes = [torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
+              for _ in range(4 if stash else 1)]
+    h1s, c1s, c2s = planes[1:] if stash else (None, None, None)
     err = lib.lstm_pair_fwd(
-        x1_proj.data_ptr(), w_hh1_t.data_ptr(), w_ih2_t.data_ptr(),
-        bias2.data_ptr(), w_hh2_t.data_ptr(), h2s.data_ptr(),
-        n_t, b, hidden, dev.index, stream,
+        x1_proj.data_ptr(), _ptr(mask), w_hh1_t.data_ptr(), w_ih2_t.data_ptr(),
+        bias2.data_ptr(), w_hh2_t.data_ptr(), planes[0].data_ptr(), _ptr(h1s),
+        _ptr(c1s), _ptr(c2s), n_t, b, hidden, dev.index, _stream(dev),
     )
-    _raise_on_error(lib, "lstm_pair_fwd", err)
-    LAUNCHES["lstm_pair_fwd"] += 1
-    return h2s
+    name = "lstm_pair_fwd" if mask is None else "lstm_pair_fwd_masked"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return tuple(planes) if stash else planes[0]
+
+
+def lstm_pair_bwd_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                       w_ih2_t, bias2, w_hh2_t):
+    """Launch the pair's backward sweep; returns ``(dx1, d_pre2)``
+    ``(T, B, 4H)`` as ``lstm_pair_bwd_ref`` does."""
+    n_t, b, hidden = _shapes(x1_proj)
+    dev = x1_proj.device
+    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev)
+    for name, t in (("dh2s", dh2s), ("h1s", h1s), ("c1s", c1s), ("h2s", h2s),
+                    ("c2s", c2s)) + ((("mask", mask),) if mask is not None else ()):
+        _check_operand(name, t, (n_t, b, hidden), dev)
+    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev)
+    lib = _bwd_library()
+    dx1 = torch.empty_like(x1_proj)
+    d_pre2 = torch.empty_like(x1_proj)
+    err = lib.lstm_pair_bwd(
+        dh2s.data_ptr(), x1_proj.data_ptr(), _ptr(mask), h1s.data_ptr(),
+        c1s.data_ptr(), h2s.data_ptr(), c2s.data_ptr(), w_hh1_t.data_ptr(),
+        w_ih2_t.data_ptr(), bias2.data_ptr(), w_hh2_t.data_ptr(),
+        dx1.data_ptr(), d_pre2.data_ptr(), n_t, b, hidden, dev.index,
+        _stream(dev),
+    )
+    _raise_on_error("lstm_pair_bwd", err)
+    LAUNCHES["lstm_pair_bwd"] += 1
+    return dx1, d_pre2
+
+
+def lstm_bwd_cuda(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
+    """Launch the single-layer backward sweep; returns ``d_pre``
+    ``(T, B, 4H)`` as ``lstm_bwd_ref`` does."""
+    n_t, b, hidden = _shapes(x_proj)
+    dev = x_proj.device
+    _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
+    for name, t in (("dhs", dhs), ("hs", hs), ("cs", cs)):
+        _check_operand(name, t, (n_t, b, hidden), dev)
+    _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
+    lib = _bwd_library()
+    dx = torch.empty_like(x_proj)
+    err = lib.lstm_bwd(
+        dhs.data_ptr(), x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        w_hh_t.data_ptr(), dx.data_ptr(), n_t, b, hidden, dev.index,
+        _stream(dev),
+    )
+    _raise_on_error("lstm_bwd", err)
+    LAUNCHES["lstm_bwd"] += 1
+    return dx
+
+
+def lstm_wgrad_cuda(jobs) -> list:
+    """Launch the weight-gradient pass for up to three jobs
+    ``(d_pre, src, shift, mask, with_bias)`` over the same (T, B) rows.
+
+    Returns one ``(dW (H, 4H), db (4H,) or None)`` per job, each as
+    ``lstm_wgrad_ref`` (and ``d_pre.sum((0, 1))``) computes it.
+    """
+    n_t, b, hidden = _shapes(jobs[0][0])
+    dev = jobs[0][0].device
+    for d_pre, src, _, mask, _ in jobs:
+        _check_operand("d_pre", d_pre, (n_t, b, 4 * hidden), dev)
+        _check_operand("src", src, (n_t, b, hidden), dev)
+        if mask is not None:
+            _check_operand("mask", mask, (n_t, b, hidden), dev)
+    lib = _bwd_library()
+    n = len(jobs)
+    splits = ctypes.c_int(0)
+    _raise_on_error("lstm_wgrad", lib.lstm_wgrad_splits(
+        n, n_t, b, hidden, dev.index, ctypes.byref(splits)))
+    part = torch.empty((n * splits.value * (hidden + 1) * 4 * hidden,),
+                       device=dev, dtype=torch.float32)
+    outs = [torch.empty((hidden, 4 * hidden), device=dev, dtype=torch.float32)
+            for _ in jobs]
+    biases = [torch.empty((4 * hidden,), device=dev, dtype=torch.float32)
+              if job[4] else None for job in jobs]
+
+    def array(values, ctype=ctypes.c_void_p):
+        return (ctype * n)(*values)
+
+    err = lib.lstm_wgrad(
+        n,
+        array(_ptr(job[1]) for job in jobs),
+        array(_ptr(job[3]) for job in jobs),
+        array(_ptr(job[0]) for job in jobs),
+        array(_ptr(o) for o in outs),
+        array(_ptr(bias) for bias in biases),
+        array((job[2] for job in jobs), ctypes.c_int),
+        part.data_ptr(), splits.value, n_t, b, hidden, dev.index, _stream(dev),
+    )
+    _raise_on_error("lstm_wgrad", err)
+    LAUNCHES["lstm_wgrad"] += 1
+    return list(zip(outs, biases))
+
+
+def lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask=None):
+    """The pair's weight gradients ``(dW_hh1, dW_ih2, db2, dW_hh2)``: one
+    launch of the reduction pass for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    if _device_type(dx1) == "cpu":
+        return lstm_pair_wgrad_ref(dx1, d_pre2, h1s, h2s, mask)
+    (dw1, _), (dwi2, db2), (dw2, _) = lstm_wgrad_cuda([
+        (dx1, h1s, 1, None, False),
+        (d_pre2, h1s, 0, mask, True),
+        (d_pre2, h2s, 1, None, False),
+    ])
+    return dw1, dwi2, db2, dw2
+
+
+def lstm_single_wgrad(dx, hs) -> torch.Tensor:
+    """One layer's recurrent weight gradient ``sum h[t-1]ᵀ dx[t]``."""
+    if _device_type(dx) == "cpu":
+        return lstm_wgrad_ref(dx, hs, 1)
+    return lstm_wgrad_cuda([(dx, hs, 1, None, False)])[0][0]
+
+
+# ------------------------------------------------------ autograd functions
+
+
+def _device_type(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+class _PairFunction(torch.autograd.Function):
+    """The layer pair with its hand-written backward; the mask gets no
+    gradient. Forward saves the stashes, backward recomputes from them."""
+
+    @staticmethod
+    def forward(ctx, x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask):
+        if _device_type(x1_proj) == "cuda":
+            h2s, h1s, c1s, c2s = lstm_pair_fwd_cuda(
+                x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask, stash=True
+            )
+        else:
+            h2s, h1s, c1s, c2s = lstm_pair_ref(
+                x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask,
+                return_stash=True,
+            )
+        ctx.save_for_backward(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask,
+                              h1s, c1s, h2s, c2s)
+        return h2s
+
+    @staticmethod
+    def backward(ctx, dh2s):
+        x1_proj, w1, wi2, b2, w2, mask, h1s, c1s, h2s, c2s = ctx.saved_tensors
+        dh2s = dh2s.contiguous()
+        args = (dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w1, wi2, b2, w2)
+        if _device_type(x1_proj) == "cuda":
+            dx1, d_pre2 = lstm_pair_bwd_cuda(*args)
+        else:
+            dx1, d_pre2 = lstm_pair_bwd_ref(*args)
+        dw1, dwi2, db2, dw2 = lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask)
+        return dx1, dw1, dwi2, db2, dw2, None
+
+
+class _SingleFunction(torch.autograd.Function):
+    """One layer with its hand-written backward (odd layer counts)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh_t):
+        if _device_type(x_proj) == "cuda":
+            hs, cs = lstm_fwd_cuda(x_proj, w_hh_t, return_c=True)
+        else:
+            hs, cs = lstm_recurrence_ref(x_proj, w_hh_t, return_c=True)
+        ctx.save_for_backward(x_proj, w_hh_t, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x_proj, w_hh_t, hs, cs = ctx.saved_tensors
+        args = (dhs.contiguous(), x_proj, hs, cs, w_hh_t)
+        if _device_type(x_proj) == "cuda":
+            dx = lstm_bwd_cuda(*args)
+        else:
+            dx = lstm_bwd_ref(*args)
+        return dx, lstm_single_wgrad(dx, hs)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 # -------------------------------------------------------------- public API
@@ -191,18 +507,20 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
         w_hh_t: ``(H, 4H)`` transposed recurrent weight.
 
     Returns:
-        ``(T, B, H)`` hidden states: the CUDA kernel for a CUDA tensor, the
-        plain version for a CPU tensor.
+        ``(T, B, H)`` hidden states: the CUDA kernels for a CUDA tensor, the
+        plain versions for a CPU tensor; differentiable through the
+        hand-written backward when an input needs a gradient.
     """
-    if x_proj.device.type == "cuda":
+    if _needs_grad(x_proj, w_hh_t):
+        return _SingleFunction.apply(x_proj, w_hh_t)
+    if _device_type(x_proj) == "cuda":
         return lstm_fwd_cuda(x_proj, w_hh_t)
-    if x_proj.device.type == "cpu":
-        return lstm_recurrence_ref(x_proj, w_hh_t)
-    raise ValueError(f"unsupported device {x_proj.device}")
+    return lstm_recurrence_ref(x_proj, w_hh_t)
 
 
-def lstm_pair_recurrence(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t):
-    """Run two stacked LSTM layers as one wavefront recurrence (no dropout).
+def lstm_pair_recurrence(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                         mask=None):
+    """Run two stacked LSTM layers as one wavefront recurrence.
 
     Args:
         x1_proj: ``(T, B, 4H)`` layer-1 input projections plus both biases.
@@ -210,13 +528,20 @@ def lstm_pair_recurrence(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t):
         w_ih2_t: ``(H, 4H)`` transposed layer-2 input weight.
         bias2: ``(4H,)`` layer-2 combined bias (``b_ih + b_hh``).
         w_hh2_t: ``(H, 4H)`` transposed layer-2 recurrent weight.
+        mask: optional ``(T, B, H)`` inter-layer dropout mask, already
+            scaled by ``1/(1-p)``, applied to layer 1's outputs before the
+            layer-2 projection. It gets no gradient.
 
     Returns:
-        ``(T, B, H)`` layer-2 hidden states: the CUDA kernel for a CUDA
-        tensor, the plain version for a CPU tensor.
+        ``(T, B, H)`` layer-2 hidden states: the CUDA kernels for a CUDA
+        tensor, the plain versions for a CPU tensor. Without a gradient to
+        take, the stash-free forward runs; otherwise the autograd function
+        with the hand-written backward.
     """
-    if x1_proj.device.type == "cuda":
-        return lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t)
-    if x1_proj.device.type == "cpu":
-        return lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t)
-    raise ValueError(f"unsupported device {x1_proj.device}")
+    if _needs_grad(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t):
+        return _PairFunction.apply(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                                   mask)
+    if _device_type(x1_proj) == "cuda":
+        return lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                                  mask)
+    return lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask)

@@ -2,13 +2,15 @@
 
 Counterpart of ``masters_thesis_tpu/ops/windows.py``. Windows are gathered
 with precomputed start indices, op for op as in the JAX functions, so the
-results are equal to theirs bit for bit. ``ols_features`` comes with the
-training slice.
+results are equal to theirs bit for bit. ``ols_features`` takes the scalar
+market series (F=1); its multi-factor branch is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+
+from masters_thesis_tpu_torch.ops.linalg import ols
 
 
 def lookback_target_split(
@@ -92,3 +94,36 @@ def add_quadratic_features(
     if include_bias:
         features.append(torch.ones_like(r_stock))
     return torch.stack(features, dim=-1)
+
+
+def ols_features(target: torch.Tensor):
+    """Per-window OLS supervision features from the target window.
+
+    Fits ``r_stock ≈ alpha + beta * r_market`` on each target window, then
+    summarizes the factor (mean and unbiased variance of the market returns)
+    and the inverse idiosyncratic variance of the fit residuals (unbiased).
+
+    Args:
+        target: ``(n_windows, n_stocks, target_window, 2)`` with channels
+            ``[r_stock, r_market]``.
+
+    Returns:
+        ``alphas``, ``betas`` ``(n_windows, n_stocks)``, ``factor``
+        ``(n_windows, 2)`` = (market mean, market var) and ``inv_psi``
+        ``(n_windows, n_stocks)`` = 1 / var(residuals).
+    """
+    if target.shape[-1] != 2:
+        raise NotImplementedError(
+            "ols_features takes one market channel; the multi-factor branch "
+            "(ols_k) is not ported"
+        )
+    r_stocks = target[:, :, :, 0]
+    r_market = target[:, 0, :, 1]  # market identical across stocks
+    alphas, betas = ols(r_market, r_stocks)
+    r_pred = alphas[..., None] + betas[..., None] * r_market[:, None, :]
+    residuals = r_stocks - r_pred
+    factor = torch.stack(
+        [r_market.mean(dim=-1), r_market.var(dim=-1, correction=1)], dim=-1
+    )
+    inv_psi = 1.0 / residuals.var(dim=-1, correction=1)
+    return alphas, betas, factor, inv_psi

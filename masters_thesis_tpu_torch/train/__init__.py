@@ -1,1 +1,1 @@
-"""Step functions shared by serving and, later, training."""
+"""Training: step functions, optimizer, scheduler, checkpoints, trainer."""

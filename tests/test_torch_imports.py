@@ -31,7 +31,10 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_with_jax_blocked():
     modules = _port_modules() + ["chip_smoke"]
-    assert "masters_thesis_tpu_torch.serve.server" in modules
+    for name in ("serve.server", "train.trainer", "train.checkpoint",
+                 "train.flatparams", "data.pipeline", "ops.losses",
+                 "ops.linalg"):
+        assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'masters_thesis_tpu'):\n"
@@ -73,12 +76,21 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
         _build.build_all()
 
 
-def test_build_covers_every_cuda_source():
+def test_build_covers_every_cuda_source(monkeypatch, tmp_path):
     names = {src.stem for src in _build.sources()}
-    assert names == {"lstm_fwd"}
+    assert names == {"lstm_fwd", "lstm_bwd"}
     for src in _build.sources():
         lib = _build.library_path(src)
         assert lib.parent == _build.BUILD_DIR and src.stem in lib.name
+    # The shared header is part of every library's name: editing it rebuilds.
+    src = _build.CSRC_DIR / "lstm_bwd.cu"
+    before = _build.library_path(src)
+    for path in [src] + sorted(_build.CSRC_DIR.glob("*.cuh")):
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    assert _build.library_path(tmp_path / src.name) == before
+    (tmp_path / "lstm_common.cuh").write_text("// changed\n")
+    assert _build.library_path(tmp_path / src.name) != before
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -91,13 +91,66 @@ def test_init_is_seeded_and_torch_scaled():
 
 
 def test_training_mode_dropout_raises():
-    x = torch.zeros((3, T, F))
+    """Training mode with dropout draws its masks (seeded by the generator)
+    and raises on a wrong number of injected masks."""
+    x = torch.randn((3, T, F), generator=torch.Generator().manual_seed(0))
     enc = LstmEncoder(hidden_size=H, num_layers=2, dropout=0.2, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        enc(x, deterministic=False)
+    with pytest.raises(ValueError, match="take 1 masks, got 2"):
+        enc(x, deterministic=False, masks=enc.draw_masks(T, 3) * 2)
+    a = enc(x, deterministic=False, generator=torch.Generator().manual_seed(1))
+    b = enc(x, deterministic=False, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert not torch.allclose(a[0], enc(x)[0])
     # Without dropout, training mode computes the same deterministic forward.
     enc0 = LstmEncoder(hidden_size=H, num_layers=2, dropout=0.0, device="cpu")
     torch.testing.assert_close(enc0(x, deterministic=False), enc0(x))
+
+
+@pytest.mark.parametrize("num_layers", [1, 2, 3, 4])
+def test_dropout_masks_follow_torch_semantics(num_layers):
+    """One mask per pair seam and per group boundary (none after the last
+    layer), each {0, 1/(1-p)} with keep rate 1-p."""
+    enc = LstmEncoder(hidden_size=H, num_layers=num_layers, dropout=0.25,
+                      device="cpu")
+    assert enc.n_masks == {1: 0, 2: 1, 3: 2, 4: 3}[num_layers]
+    masks = enc.draw_masks(50, 40, torch.Generator().manual_seed(num_layers))
+    for m in masks:
+        assert m.shape == (50, 40, H)
+        assert set(torch.unique(m).tolist()) <= {0.0, float(np.float32(1.0 / 0.75))}
+        assert abs(float((m > 0).float().mean()) - 0.75) < 0.02
+
+
+def test_training_forward_with_injected_masks_matches_jax():
+    """A 3-layer training forward with injected masks against the JAX
+    package's layer functions (interpret-mode Pallas pair with the seam
+    mask, the boundary mask, the single layer) on the same weights."""
+    from masters_thesis_tpu.ops.lstm_kernel import (
+        lstm_pair_recurrence as jax_pair,
+        lstm_recurrence as jax_recurrence,
+    )
+
+    _, params, port = _jax_pair(3, 1, seed=4)
+    port.dropout = 0.2  # masks are used in training mode with dropout on
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(6, T, F)).astype(np.float32)
+    masks = [((rng.random((T, 6, H)) >= 0.2) / 0.8).astype(np.float32)
+             for _ in range(2)]
+
+    def proj(inputs, n):
+        return (inputs @ params[f"w_ih_l{n}"].T
+                + params[f"b_ih_l{n}"] + params[f"b_hh_l{n}"])
+
+    h = jax_pair(
+        proj(jnp.swapaxes(jnp.asarray(x), 0, 1), 0), params["w_hh_l0"].T,
+        params["w_ih_l1"].T, params["b_ih_l1"] + params["b_hh_l1"],
+        params["w_hh_l1"].T, mask=jnp.asarray(masks[0]), impl="interpret",
+    ) * masks[1]
+    h = jax_recurrence(proj(h, 2), params["w_hh_l2"].T, impl="interpret")[-1]
+    want_a = h @ params["alpha_head"]["kernel"] + params["alpha_head"]["bias"]
+    with torch.no_grad():
+        got_a, _ = port(torch.from_numpy(x), deterministic=False,
+                        masks=[torch.from_numpy(m) for m in masks])
+    np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), atol=ATOL, rtol=0)
 
 
 def test_model_registry():
