@@ -1,26 +1,33 @@
-"""Serve and train model=small on one NVIDIA GPU through the PyTorch/CUDA port.
+"""Serve and train model=small and model=medium on one NVIDIA GPU through the
+PyTorch/CUDA port.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``masters_thesis_tpu_torch/ops/csrc`` (at
-first use, with nvcc) and holds each against its plain PyTorch version on the
-card. Then it drives the port's two paths: serving (``PredictServer`` ->
-``PredictEngine`` -> ``LstmEncoder`` -> forward kernels) on requests made
-from the synthetic DGP, checked against the same engine on the CPU; and
-training (``Trainer.fit`` -> ``train_epoch`` -> ``LstmEncoder`` in training
-mode -> forward and backward kernels) on synthetic windows, followed by
-``Trainer.test`` and serving the ``best`` checkpoint. A 20-step trajectory
-and a 3-layer model's gradients are held against the CPU port. Each phase
-prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
-Any failure raises, so the exit code is non-zero; without CUDA the script
-exits 2 before doing anything. The training data is generated under
-``data/chip_smoke/<stocks>x<samples>/`` next to this script.
+first use, with nvcc, one process a source) and holds each against its plain
+PyTorch version on the card. Then it drives the port's paths: serving
+(``PredictServer`` -> ``PredictEngine`` -> ``LstmEncoder`` -> forward
+kernels) on requests made from the synthetic DGP, checked against the same
+engine on the CPU; and training (``Trainer.fit`` -> ``train_epoch`` ->
+``LstmEncoder`` in training mode -> forward and backward kernels) on
+synthetic windows, followed by ``Trainer.test`` and serving the ``best``
+checkpoint. model=small runs on 100-row windows (pairs); model=medium on
+25-row windows, the shape of the 25 Fama-French portfolios, where the
+encoder groups its 4 layers into one 4-deep stack; model=large at that shape
+runs the 7- and 8-deep stacks. Trajectories and gradients are held against
+the CPU port. Each phase prints one JSON line; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
+non-zero; without CUDA the script exits 2 before doing anything. The
+training data is generated under ``data/chip_smoke/<stocks>x<samples>/``
+next to this script.
 
 Imports only torch, numpy and the port (never JAX or the JAX package).
 """
 
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -70,10 +77,15 @@ KERNEL_TOL = 2e-5
 SERVE_TOL = 5e-5  # f32 end to end: input projection, recurrence, heads
 T, H = 60, 64
 K_STOCKS = 100
+K_MEDIUM = 25  # stocks a window for model=medium and model=large
+STACK_LAYERS = 4  # model=medium: one 4-deep stack at 25 rows
 FWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_fwd.cu"
 BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_bwd.cu"
+STACK_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack.cu"
 TPU = "masters_thesis_tpu/ops/lstm_kernel.py"
 # Each kernel of the port: (its source, the TPU kernel it replaces).
+# lstm_wgrad_stack is lstm_wgrad at a stack's 2L - 1 jobs; its launches
+# count under lstm_wgrad.
 KERNELS = {
     "lstm_pair_fwd": (FWD_SOURCE, f"{TPU}:719"),
     "lstm_fwd": (FWD_SOURCE, f"{TPU}:140"),
@@ -81,6 +93,10 @@ KERNELS = {
     "lstm_pair_bwd": (BWD_SOURCE, f"{TPU}:845"),
     "lstm_wgrad": (BWD_SOURCE, f"{TPU}:845"),
     "lstm_bwd": (BWD_SOURCE, f"{TPU}:204"),
+    "lstm_stack_fwd": (STACK_SOURCE, f"{TPU}:1118"),
+    "lstm_stack_fwd_masked": (STACK_SOURCE, f"{TPU}:1118"),
+    "lstm_stack_bwd": (STACK_SOURCE, f"{TPU}:1239"),
+    "lstm_wgrad_stack": (BWD_SOURCE, f"{TPU}:1239"),
 }
 
 # Training: configs/model/small.yaml, configs/loss/mse.yaml and
@@ -99,11 +115,14 @@ PARITY_STEPS = 20
 PARITY_LOSS_RTOL = 1e-5
 PARITY_PARAM_TOL = 1e-5
 GRAD_RTOL = 1e-4
-DEVICE = "cuda"  # the card the training phases run on
-# Keyed by the generation parameters, so a set made at another size is never
-# reused and never blocks a run.
-DATA_DIR = (Path(__file__).resolve().parent / "data" / "chip_smoke"
-            / f"{K_STOCKS}x{TRAIN_SAMPLES}")
+DEVICE = "cuda"  # the card the phases run on
+
+
+def data_dir(stocks: int) -> Path:
+    """The training data's directory, keyed by the generation parameters, so
+    a set made at another size is never reused and never blocks a run."""
+    return (Path(__file__).resolve().parent / "data" / "chip_smoke"
+            / f"{stocks}x{TRAIN_SAMPLES}")
 
 
 def emit(obj: dict) -> None:
@@ -132,32 +151,69 @@ def cuda_ms(fn, iters: int = 20, loops: int = 5,
     return float(np.median(per_loop)), min(per_loop), max(per_loop)
 
 
-def device_ops(call, calls: int = 10) -> list[dict]:
+def device_ops(call, calls: int = 10, attempts: int = 3) -> list[dict]:
     """Device time per call by operation, from a torch.profiler trace of
     ``calls`` calls: device-side events only (kernels, copies), so an
-    operator's time is its kernels' time, counted once. Largest first."""
+    operator's time is its kernels' time, counted once. Largest first. A
+    trace that holds no device event is taken again (up to ``attempts``
+    traces), then raises: a call on the card takes device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    device = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / calls)
-         for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda kv: -kv[1],
-    )
-    return [{"name": name[:80], "ms": ms} for name, ms in device]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        device = sorted(
+            ((e.key, e.self_device_time_total / 1e3 / calls)
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+            key=lambda kv: -kv[1],
+        )
+        if device:
+            return [{"name": name[:80], "ms": ms} for name, ms in device]
+    raise RuntimeError(f"{attempts} profiler traces recorded no device time")
 
 
-def timed(key: str, fn, calls: int = 10, **loop) -> dict:
+def spin_ms(fn, calls: int = 5) -> float:
+    """The card's milliseconds for one call, with no host delay in them: CUDA
+    events around the call, queued behind a spin kernel
+    (``torch.cuda._sleep``) that outlasts the host's time to queue the call,
+    so the events bracket only the call's work on the card. The median of
+    ``calls`` calls. For calls of a few kernels: a plain version's
+    thousands of launches would fill the launch queue during the spin.
+    Unlike the profiler's, its readings hold over a long run."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # About twice the host's time at the card's clock (<= 2 GHz).
+    cycles = int(4e9 * max(host_s, 1e-4))
+    per_call = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end))
+    return float(np.median(per_call))
+
+
+def timed(key: str, fn, calls: int = 10, spin: bool = True, **loop) -> dict:
     """``key`` (ms a call over back-to-back loops, the median), its spread
-    ``[min, max]`` over the loops, and the card's own time a call (the
-    profiler's device time, which no host delay enters)."""
+    ``[min, max]`` over the loops, and the card's own time a call, which no
+    host delay enters: ``spin_ms`` for a call of a few kernels, the
+    profiler's device time of ``calls`` calls for a plain version
+    (``spin=False``)."""
     median, low, high = cuda_ms(fn, **loop)
-    busy = sum(op["ms"] for op in device_ops(fn, calls))
+    busy = (spin_ms(fn) if spin
+            else sum(op["ms"] for op in device_ops(fn, calls)))
     return {key: median, f"{key}_spread": [low, high],
             key.replace("ms", "device_ms"): busy}
 
@@ -236,7 +292,8 @@ def _kernel_case(rows: int, seed: int):
 def _cudnn_module(layers) -> torch.nn.LSTM:
     """torch.nn.LSTM (cuDNN) computing the kernels' function: layer 1's
     input weight is the identity on the 4H-wide projections (one extra
-    (T*B, 4H) @ (4H, 4H) product), all of layer 1's bias sits in x."""
+    (T*B, 4H) @ (4H, 4H) product), all of layer 1's bias sits in x.
+    ``layers``: ``[(w_hh,), (w_hh, w_in, bias), ...]``, bottom first."""
     four_h = 4 * H
     lstm = torch.nn.LSTM(four_h, H, num_layers=len(layers)).cuda()
     with torch.no_grad():
@@ -244,12 +301,11 @@ def _cudnn_module(layers) -> torch.nn.LSTM:
         lstm.bias_ih_l0.zero_()
         lstm.bias_hh_l0.zero_()
         lstm.weight_hh_l0.copy_(layers[0][0].T)
-        if len(layers) == 2:
-            (w2, wi2, b2) = layers[1]
-            lstm.weight_ih_l1.copy_(wi2.T)
-            lstm.bias_ih_l1.copy_(b2)
-            lstm.bias_hh_l1.zero_()
-            lstm.weight_hh_l1.copy_(w2.T)
+        for n, (w_hh, w_in, bias) in enumerate(layers[1:], start=1):
+            getattr(lstm, f"weight_ih_l{n}").copy_(w_in.T)
+            getattr(lstm, f"bias_ih_l{n}").copy_(bias)
+            getattr(lstm, f"bias_hh_l{n}").zero_()
+            getattr(lstm, f"weight_hh_l{n}").copy_(w_hh.T)
     return lstm
 
 
@@ -260,6 +316,15 @@ def _cudnn_forward(x, layers):
     lstm = _cudnn_module(layers)
     xg = x.detach().clone().requires_grad_(True)
     return lambda: lstm(xg)[0]
+
+
+def _inference(fn):
+    """``fn`` called under inference mode: cuDNN's inference forward, the
+    yardstick of a serving kernel."""
+    def call():
+        with torch.inference_mode():
+            return fn()
+    return call
 
 
 def _cudnn_backward(x, layers, dh, weights: bool):
@@ -276,8 +341,11 @@ def _cudnn_backward(x, layers, dh, weights: bool):
     return lambda: torch.autograd.grad(out, inputs, dh, retain_graph=True)
 
 
-def _as_tuple(t):
-    return (t,) if torch.is_tensor(t) else tuple(t)
+def _as_tuple(t) -> tuple:
+    """The tensors of ``t``: a tensor, or nested tuples and lists of them."""
+    if torch.is_tensor(t):
+        return (t,)
+    return tuple(x for part in t for x in _as_tuple(part))
 
 
 def _max_abs_err(got, want) -> float:
@@ -331,8 +399,8 @@ def phase_kernels() -> dict:
                     "max_abs_err": err,
                     "tol": KERNEL_TOL,
                     **timed("ms", kernel),
-                    **timed("plain_ms", plain, calls=3, iters=3, loops=3,
-                            warmup=1),
+                    **timed("plain_ms", plain, calls=3, spin=False, iters=3,
+                            loops=3, warmup=1),
                     **timed("library_ms", library),
                     "library_max_abs_err": lib_err,
                     "bound_ms": bound_ms,
@@ -387,6 +455,55 @@ def _training_inputs(rows: int):
                 cs=cs, dx=dx)
 
 
+def _measure(name: str, rows: int, kernel, plain, library, same: bool,
+             flops: float, nbytes: float, relative: bool, full=None,
+             note: str | None = None, check=None) -> dict:
+    """One kernel row: the kernel against its plain version on the same
+    inputs, then the kernel's, the plain version's and the library call's
+    times, and the bound. ``same`` says whether the library call computes
+    the same function (then its own error is reported); ``relative`` holds
+    the error to KERNEL_TOL of the largest entry instead of KERNEL_TOL abs;
+    ``full`` is the whole cuDNN backward (data and weight gradients);
+    ``check`` returns ``(got, want)`` of further outputs to hold."""
+    with torch.no_grad():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+    err = _max_abs_err(got, want)
+    if check is not None:
+        extra_got, extra_want = check()
+        err = max(err, _max_abs_err(extra_got, extra_want))
+        want = _as_tuple(want) + _as_tuple(extra_want)
+    tol = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
+    row = {
+        "phase": "kernel",
+        "name": name,
+        "rows": rows,
+        "T": T,
+        "H": H,
+        "max_abs_err": err,
+        "tol": tol,
+        **timed("ms", kernel),
+        **timed("plain_ms", plain, calls=3, spin=False, iters=3, loops=3,
+                warmup=1),
+        **timed("library_ms", library),
+        "library_same_function": same,
+    }
+    if note is not None:
+        row["library_note"] = note
+    if same:
+        with torch.no_grad():
+            row["library_max_abs_err"] = _max_abs_err(library(), want)
+    if full is not None:
+        row["library_full_backward_ms"] = cuda_ms(full)[0]
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
+    row.update({"flops": flops, "bytes": nbytes, "peaks": PEAK_SOURCE})
+    emit(row)
+    if not err <= tol:
+        raise AssertionError(f"{name} at rows={rows}: max abs err {err} > {tol}")
+    return row
+
+
 def phase_training_kernels() -> dict:
     """The training kernels against their plain versions at the shapes of
     the training path (100 rows: one window a step) and of 8 windows.
@@ -409,96 +526,252 @@ def phase_training_kernels() -> dict:
         bwd_args = (dh, x, mask, v["h1s"], v["c1s"], v["h2s"], v["c2s"], w1,
                     wi2, b2, w2)
         wgrad_args = (v["dx1"], v["d_pre2"], v["h1s"], v["h2s"], mask)
-        cases = {
-            # name: (kernel, plain, library, library computes the same
-            #        function, FLOPs, bytes, relative tolerance)
-            "lstm_pair_fwd_masked": (
+        no_mask = "cuDNN takes no seam mask: the maskless pair"
+        rows_out = [
+            _measure(
+                "lstm_pair_fwd_masked", rows,
                 lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2, mask,
                                               stash=True),
                 lambda: lk.lstm_pair_ref(x, w1, wi2, b2, w2, mask,
                                          return_stash=True),
                 _cudnn_forward(x, pair), False,
                 3 * product, plane_x + plane_h + 3 * weight + 4 * 4 * H
-                + 4 * plane_h, False,
+                + 4 * plane_h, False, note=no_mask,
             ),
-            "lstm_pair_bwd": (
+            # cuDNN's backward gives x's gradient only, held against the
+            # sweep's first output; the whole cuDNN backward (data and weight
+            # gradients) is timed beside it.
+            _measure(
+                "lstm_pair_bwd", rows,
                 lambda: lk.lstm_pair_bwd_cuda(*bwd_args),
                 lambda: lk.lstm_pair_bwd_ref(*bwd_args),
                 _cudnn_backward(x, pair, dh, weights=False), False,
                 6 * product, 6 * plane_h + plane_x + 3 * weight + 4 * 4 * H
                 + 2 * plane_x, True,
+                full=_cudnn_backward(x, pair, dh, weights=True), note=no_mask,
             ),
-            "lstm_wgrad": (
+            _measure(
+                "lstm_wgrad", rows,
                 lambda: lk.lstm_pair_wgrad(*wgrad_args),
                 lambda: lk.lstm_pair_wgrad_ref(*wgrad_args),
                 _wgrad_library(*wgrad_args), True,
                 3 * product, 2 * plane_x + 3 * plane_h + 3 * weight + 4 * 4 * H,
                 True,
+                # The single-layer job of the same pass.
+                check=lambda: (lk.lstm_single_wgrad(v["dx"], v["hs"]),
+                               lk.lstm_wgrad_ref(v["dx"], v["hs"], 1)),
             ),
-            "lstm_bwd": (
+            _measure(
+                "lstm_bwd", rows,
                 lambda: lk.lstm_bwd_cuda(dh, x, v["hs"], v["cs"], w1),
                 lambda: lk.lstm_bwd_ref(dh, x, v["hs"], v["cs"], w1),
                 _cudnn_backward(x, [(w1,)], dh, weights=False), True,
                 2 * product, 3 * plane_h + plane_x + weight + plane_x, True,
+                full=_cudnn_backward(x, [(w1,)], dh, weights=True),
             ),
-        }
-        # The whole backward through cuDNN (data and weight gradients), for
-        # comparison with the sweep plus the weight-gradient pass.
-        full = {
-            "lstm_pair_bwd": _cudnn_backward(x, pair, dh, weights=True),
-            "lstm_bwd": _cudnn_backward(x, [(w1,)], dh, weights=True),
-        }
-        for name, (kernel, plain, library, same, flops, nbytes,
-                   relative) in cases.items():
-            with torch.no_grad():
-                got = kernel()
-                torch.cuda.synchronize()
-                want = plain()
-            err = _max_abs_err(got, want)
-            if name == "lstm_wgrad":
-                # The single-layer job of the same pass.
-                single = lk.lstm_single_wgrad(v["dx"], v["hs"])
-                single_ref = lk.lstm_wgrad_ref(v["dx"], v["hs"], 1)
-                err = max(err, _max_abs_err(single, single_ref))
-                want = _as_tuple(want) + (single_ref,)
-            tol = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
-            row = {
-                "phase": "kernel",
-                "name": name,
-                "rows": rows,
-                "T": T,
-                "H": H,
-                "max_abs_err": err,
-                "tol": tol,
-                **timed("ms", kernel),
-                **timed("plain_ms", plain, calls=3, iters=3, loops=3, warmup=1),
-                **timed("library_ms", library),
-                "library_same_function": same,
-            }
-            if not same:
-                row["library_note"] = "cuDNN takes no seam mask: the maskless pair"
-            else:
-                # cuDNN's backward gives x's gradient only, held against the
-                # sweep's first output; the products give every weight's.
-                with torch.no_grad():
-                    row["library_max_abs_err"] = _max_abs_err(library(), want)
-            if name in full:
-                row["library_full_backward_ms"] = cuda_ms(full[name])[0]
-            row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
-            row.update({"flops": flops, "bytes": nbytes, "peaks": PEAK_SOURCE})
-            emit(row)
-            if not err <= tol:
-                raise AssertionError(
-                    f"{name} at rows={rows}: max abs err {err} > {tol}")
-            results[(name, rows)] = row
+        ]
+        for row in rows_out:
+            results[(row["name"], rows)] = row
     return results
 
 
-def _synthetic_windows() -> np.ndarray:
+# ------------------------------------------------------------ stack kernels
+
+
+def _stack_inputs(n_layers: int, rows: int, seed: int) -> dict:
+    """An L-deep stack at T=60, H=64: x1_proj, the weights, pre-scaled
+    keep-masks (p = 0.3, model=medium's dropout), a cotangent of the top
+    layer's h, and the stashes and d_pre planes the plain versions make."""
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(H)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(DEVICE)
+
+    v = {
+        "x": t(rng.standard_normal((T, rows, 4 * H))),
+        "w_hh": [t(rng.uniform(-scale, scale, (H, 4 * H)))
+                 for _ in range(n_layers)],
+        "w_in": [t(rng.uniform(-scale, scale, (H, 4 * H)))
+                 for _ in range(n_layers - 1)],
+        "biases": [t(rng.uniform(-scale, scale, (4 * H,)))
+                   for _ in range(n_layers - 1)],
+        "masks": [t((rng.random((T, rows, H)) >= 0.3) / 0.7)
+                  for _ in range(n_layers - 1)],
+        "dh": t(0.1 * rng.standard_normal((T, rows, H))),
+    }
+    weights = (v["w_hh"], v["w_in"], v["biases"])
+    with torch.no_grad():
+        v["hs"], v["cs"] = lk.lstm_stack_ref(v["x"], *weights, v["masks"],
+                                             return_stash=True)
+        v["d_pres"] = lk.lstm_stack_bwd_ref(v["dh"], v["x"], v["masks"],
+                                            v["hs"], v["cs"], *weights)
+    v["layers"] = [(v["w_hh"][0],)] + list(zip(v["w_hh"][1:], v["w_in"],
+                                               v["biases"]))
+    return v
+
+
+def _stack_wgrad_library(d_pres, hs, masks):
+    """The stack's weight gradients as PyTorch computes them: one cuBLAS
+    product a job on the stashes' shifted views (the mask applied once), and
+    the bias sums."""
+    def rows_of(t):
+        return t.reshape(-1, t.shape[-1])
+
+    n = len(d_pres)
+    return lambda: (
+        [rows_of(hs[l][:-1]).T @ rows_of(d_pres[l][1:]) for l in range(n)]
+        + [rows_of(hs[l - 1] * masks[l - 1]).T @ rows_of(d_pres[l])
+           for l in range(1, n)]
+        + [d_pres[l].sum(dim=(0, 1)) for l in range(1, n)]
+    )
+
+
+def phase_stack_kernels() -> dict:
+    """The stack kernels at model=medium's depth against their plain versions
+    at one 25-row window (training, serving bucket 1) and at 8 windows
+    (serving's bucket 8, 200 rows).
+
+    FLOPs per row and step, each (rows, H) @ (H, 4H) product 2*H*4H: 2L - 1
+    products forward (L recurrent, L - 1 seam projections), 4L - 2 in the
+    backward sweep (the recomputed gates and the transposed products), 2L - 1
+    in the weight-gradient pass. Bytes: each input read once, each output
+    written once."""
+    results = {}
+    n = STACK_LAYERS
+    for rows in (K_MEDIUM, 8 * K_MEDIUM):
+        v = _stack_inputs(n, rows, seed=rows)
+        x, masks, dh = v["x"], v["masks"], v["dh"]
+        weights = (v["w_hh"], v["w_in"], v["biases"])
+        product = 2 * T * rows * H * 4 * H
+        plane_h = 4 * T * rows * H
+        plane_x = 4 * T * rows * 4 * H
+        params = 4 * ((2 * n - 1) * H * 4 * H + (n - 1) * 4 * H)
+        bwd_args = (dh, x, masks, v["hs"], v["cs"], *weights)
+        wgrad_args = (v["d_pres"], v["hs"], masks)
+        no_mask = "cuDNN takes no seam mask: the maskless stack"
+        rows_out = [
+            _measure(
+                "lstm_stack_fwd", rows,
+                lambda: lk.lstm_stack_fwd_cuda(x, *weights),
+                lambda: lk.lstm_stack_ref(x, *weights),
+                _inference(_cudnn_forward(x, v["layers"])), True,
+                (2 * n - 1) * product, plane_x + params + plane_h, False,
+            ),
+            _measure(
+                "lstm_stack_fwd_masked", rows,
+                lambda: lk.lstm_stack_fwd_cuda(x, *weights, masks, stash=True),
+                lambda: lk.lstm_stack_ref(x, *weights, masks, return_stash=True),
+                _cudnn_forward(x, v["layers"]), False,
+                (2 * n - 1) * product,
+                plane_x + (n - 1) * plane_h + params + 2 * n * plane_h, False,
+                note=no_mask,
+            ),
+            _measure(
+                "lstm_stack_bwd", rows,
+                lambda: lk.lstm_stack_bwd_cuda(*bwd_args),
+                lambda: lk.lstm_stack_bwd_ref(*bwd_args),
+                _cudnn_backward(x, v["layers"], dh, weights=False), False,
+                (4 * n - 2) * product,
+                plane_h + plane_x + (n - 1) * plane_h + 2 * n * plane_h + params
+                + n * plane_x, True,
+                full=_cudnn_backward(x, v["layers"], dh, weights=True),
+                note=no_mask,
+            ),
+            _measure(
+                "lstm_wgrad_stack", rows,
+                lambda: lk.lstm_stack_wgrad(*wgrad_args),
+                lambda: lk.lstm_stack_wgrad_ref(*wgrad_args),
+                _stack_wgrad_library(*wgrad_args), True,
+                (2 * n - 1) * product,
+                n * plane_x + n * plane_h + (n - 1) * plane_h + params, True,
+            ),
+        ]
+        for row in rows_out:
+            results[(row["name"], rows)] = row
+    return results
+
+
+def phase_stack_depths() -> list[dict]:
+    """The other depths the encoder runs (3 at a 3-layer model, 7 and 8 at
+    model=large) at one 25-row window: every stack kernel against its plain
+    version, correctness only."""
+    out = []
+    for n in (3, 7, 8):
+        v = _stack_inputs(n, K_MEDIUM, seed=100 + n)
+        weights = (v["w_hh"], v["w_in"], v["biases"])
+        masks = v["masks"]
+        bwd_args = (v["dh"], v["x"], masks, v["hs"], v["cs"], *weights)
+        with torch.no_grad():
+            checks = {
+                "lstm_stack_fwd": (lk.lstm_stack_fwd_cuda(v["x"], *weights),
+                                   lk.lstm_stack_ref(v["x"], *weights), False),
+                "lstm_stack_fwd_masked": (
+                    lk.lstm_stack_fwd_cuda(v["x"], *weights, masks, stash=True),
+                    (v["hs"], v["cs"]), False),
+                "lstm_stack_bwd": (lk.lstm_stack_bwd_cuda(*bwd_args),
+                                   v["d_pres"], True),
+                "lstm_wgrad_stack": (
+                    lk.lstm_stack_wgrad(v["d_pres"], v["hs"], masks),
+                    lk.lstm_stack_wgrad_ref(v["d_pres"], v["hs"], masks), True),
+            }
+        torch.cuda.synchronize()
+        errs, tols = {}, {}
+        for name, (got, want, relative) in checks.items():
+            got, want = _as_tuple(got), _as_tuple(want)
+            errs[name] = _max_abs_err(got, want)
+            tols[name] = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
+        row = {"phase": "stack_check", "n_layers": n, "rows": K_MEDIUM, "T": T,
+               "H": H, "max_abs_err": errs, "tol": tols}
+        emit(row)
+        bad = {k: e for k, e in errs.items() if not e <= tols[k]}
+        if bad:
+            raise AssertionError(f"{n}-deep stack differs from plain: {bad}")
+        out.append(row)
+    return out
+
+
+def phase_stack_vs_pairs() -> list[dict]:
+    """Device time (``spin_ms``) of one 4-deep stack forward against the
+    same 4 layers as pair + pair (the port's own kernels and the seam
+    projection between them, maskless, the same weights), at 25 and 100
+    rows, with the profiler's operations of each. A measurement for a later
+    routing decision: the encoder follows the reference's grouping."""
+    out = []
+    for rows in (K_MEDIUM, 100):
+        v = _stack_inputs(STACK_LAYERS, rows, seed=200 + rows)
+        x, (w0, w1, w2, w3), (i1, i2, i3), (b1, b2, b3) = (
+            v["x"], v["w_hh"], v["w_in"], v["biases"])
+
+        def pairs():
+            low = lk.lstm_pair_fwd_cuda(x, w0, i1, b1, w1)
+            return lk.lstm_pair_fwd_cuda(torch.matmul(low, i2) + b2, w2, i3, b3, w3)
+
+        def stack():
+            return lk.lstm_stack_fwd_cuda(x, v["w_hh"], v["w_in"], v["biases"])
+
+        with torch.no_grad():
+            diff = _max_abs_err(stack(), pairs())
+            row = {"phase": "stack_vs_pairs", "rows": rows, "n_layers": STACK_LAYERS,
+                   "max_abs_diff": diff}
+            for name, fn in (("stack", stack), ("pair_pair", pairs)):
+                row[name] = {"device_ms": spin_ms(fn), "ops": device_ops(fn)}
+        emit(row)
+        if not diff <= KERNEL_TOL:
+            raise AssertionError(f"stack and pair + pair differ: {diff}")
+        out.append(row)
+    return out
+
+
+# ----------------------------------------------------------------- serving
+
+
+def _synthetic_windows(stocks: int = K_STOCKS) -> np.ndarray:
     """configs/datamodule/synthetic.yaml windows: lookback 60, target 30,
-    stride 90, interaction-only features, from 100 stocks x 20,000 samples."""
+    stride 90, interaction-only features, from ``stocks`` stocks x 20,000
+    samples."""
     r_stocks, r_market, _, _ = SyntheticLogReturns.generate(
-        K_STOCKS, 20_000, seed=0
+        stocks, 20_000, seed=0
     )
     x, _ = lookback_target_split(
         torch.from_numpy(r_stocks), torch.from_numpy(r_market),
@@ -515,13 +788,22 @@ def _small_spec(num_layers: int = 2):
     )
 
 
-def _engines(spec, seed: int):
+def _medium_spec(num_layers: int = STACK_LAYERS, dropout: float = 0.3):
+    # configs/model/medium.yaml (large.yaml with 8 layers): H=64, dropout
+    # 0.3, 3 inputs, with configs/loss/mse.yaml.
+    return ModelSpec(
+        objective="mse", input_size=3, hidden_size=H, num_layers=num_layers,
+        dropout=dropout, learning_rate=LR, weight_decay=WD,
+    )
+
+
+def _engines(spec, seed: int, stocks: int = K_STOCKS):
     state = spec.build_module(
         device="cpu", generator=torch.Generator().manual_seed(seed)
     ).state_dict()
-    kw = dict(n_stocks=K_STOCKS, lookback=T, n_features=3, buckets=(1, 2, 4, 8))
+    kw = dict(n_stocks=stocks, lookback=T, n_features=3, buckets=(1, 2, 4, 8))
     return (
-        PredictEngine(spec, state, device="cuda", **kw),
+        PredictEngine(spec, state, device=DEVICE, **kw),
         PredictEngine(spec, state, device="cpu", **kw),
     )
 
@@ -530,8 +812,12 @@ def _max_err(got, want) -> float:
     return float(max(np.abs(g - w).max() for g, w in zip(got, want)))
 
 
-def phase_serve(windows: np.ndarray) -> dict:
-    gpu, cpu = _engines(_small_spec(), seed=0)
+def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
+           kernel: str, absent: tuple = ()) -> dict:
+    """Bursts of requests through PredictServer on the card, every answer
+    held against the CPU engine; ``kernel`` must launch, ``absent`` must
+    not."""
+    gpu, cpu = _engines(spec, seed=0, stocks=stocks)
     server = PredictServer(gpu, max_wait_s=0.002)
     bursts = (1, 2, 4, 8, 3, 8, 5, 1, 6, 8, 2, 7, 4, 1, 8)
     sent, responses = [], []
@@ -564,8 +850,11 @@ def phase_serve(windows: np.ndarray) -> dict:
     err = _max_err((alpha, beta), (np.concatenate(ref_a), np.concatenate(ref_b)))
     buckets = sorted({gpu.bucket_for(n) for n in stats["batch_size_counts"]})
     out = {
-        "phase": "serve",
-        "model": "small",
+        "phase": phase,
+        "model": model,
+        "stocks": stocks,
+        "layer_groups": {b: gpu._module.layer_groups(T, b * stocks, False, stocks)
+                         for b in buckets},
         "requests": len(responses),
         "ok": statuses.count("ok"),
         "max_abs_err_vs_cpu": err,
@@ -583,11 +872,27 @@ def phase_serve(windows: np.ndarray) -> dict:
         raise AssertionError(f"served answers differ from the CPU engine: {err}")
     if stats["late_deliveries"] != 0:
         raise AssertionError(f"late deliveries: {stats['late_deliveries']}")
-    if launches["lstm_pair_fwd"] < 1:
-        raise AssertionError("the serving path never launched lstm_pair_fwd")
+    if launches[kernel] < stats["dispatches"]:
+        raise AssertionError(f"{kernel} launched {launches[kernel]} times for "
+                             f"{stats['dispatches']} dispatches")
+    if any(launches[name] for name in absent):
+        raise AssertionError(f"the serving path launched one of {absent}: "
+                             f"{launches}")
     if len(responses) < 32 or len(buckets) < 2:
         raise AssertionError(f"too little traffic: {len(responses)}, {buckets}")
     return out
+
+
+def phase_serve(windows: np.ndarray) -> dict:
+    return _serve(_small_spec(), windows, K_STOCKS, "serve", "small",
+                  "lstm_pair_fwd")
+
+
+def phase_serve_medium(windows: np.ndarray) -> dict:
+    """model=medium on 25-stock windows: every request through the maskless
+    4-deep stack, no pair kernel."""
+    return _serve(_medium_spec(), windows, K_MEDIUM, "serve_medium", "medium",
+                  "lstm_stack_fwd", absent=("lstm_pair_fwd", "lstm_fwd"))
 
 
 def phase_odd_layers(windows: np.ndarray) -> dict:
@@ -601,6 +906,7 @@ def phase_odd_layers(windows: np.ndarray) -> dict:
         "phase": "odd_layers",
         "num_layers": 3,
         "windows": len(batch),
+        "layer_groups": gpu._module.layer_groups(T, 8 * K_STOCKS, False, K_STOCKS),
         "max_abs_err_vs_cpu": err,
         "tol": SERVE_TOL,
         "launches": launches,
@@ -666,21 +972,22 @@ def _wall_and_device(call, calls: int = 10):
 # ---------------------------------------------------------------- training
 
 
-def _train_datamodule() -> FinancialWindowDataModule:
+def _train_datamodule(stocks: int = K_STOCKS) -> FinancialWindowDataModule:
     """configs/datamodule/synthetic.yaml windows (lookback 60, target 30,
-    stride 90, interaction-only, batch_size 1) from 100 stocks x 200,000
-    samples of the DGP with dgp_seed 0, generated next to this script."""
+    stride 90, interaction-only, batch_size 1) from ``stocks`` stocks x
+    200,000 samples of the DGP with dgp_seed 0, generated next to this
+    script."""
     t0 = time.perf_counter()
-    bootstrap_synthetic(DATA_DIR, n_stocks=K_STOCKS, n_samples=TRAIN_SAMPLES,
-                        seed=0)
-    dm = FinancialWindowDataModule(DATA_DIR, lookback_window=T,
-                                   target_window=30, stride=90, batch_size=1)
+    root = data_dir(stocks)
+    bootstrap_synthetic(root, n_stocks=stocks, n_samples=TRAIN_SAMPLES, seed=0)
+    dm = FinancialWindowDataModule(root, lookback_window=T, target_window=30,
+                                   stride=90, batch_size=1)
     dm.prepare_data()
     dm.setup()
     emit({"phase": "train_data", "seconds": time.perf_counter() - t0,
           "windows": {"train": len(dm.train_range), "val": len(dm.val_range),
                       "test": len(dm.test_range)},
-          "stocks": K_STOCKS, "samples": TRAIN_SAMPLES})
+          "stocks": stocks, "samples": TRAIN_SAMPLES})
     return dm
 
 
@@ -708,7 +1015,7 @@ def _run_steps(spec, state, batches, device, masks=None):
         losses.append(float(sums["total"][0] / sums["total"][1]))
         grads.append(optimizer.grads.detach().cpu().clone())
     state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
-    return losses, grads, state
+    return losses, grads, state, module
 
 
 def _grad_gap(got: list, want: list) -> float:
@@ -724,27 +1031,28 @@ def _window_batches(dm, n: int) -> list:
             for i in range(n)]
 
 
-def phase_train_parity(dm) -> dict:
-    """model=small at full width with dropout 0: 20 steps on the same
-    windows, in the same order, from the same weights, on the card and on
-    the CPU (plain versions)."""
-    spec = _train_spec(dropout=0.0)
+def _train_parity(dm, spec, phase: str, kernels: tuple) -> dict:
+    """``spec`` with dropout 0: PARITY_STEPS steps on the same windows, in
+    the same order, from the same weights, on the card and on the CPU (plain
+    versions); each of ``kernels`` launches once a step on the card."""
     state = spec.build_module(
         device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
     batches = _window_batches(dm, PARITY_STEPS)
     lk.reset_launch_counts()
-    gpu_losses, gpu_grads, gpu_state = _run_steps(spec, state, batches, DEVICE)
+    gpu_losses, gpu_grads, gpu_state, _ = _run_steps(spec, state, batches, DEVICE)
     launches = dict(lk.LAUNCHES)
-    cpu_losses, cpu_grads, cpu_state = _run_steps(spec, state, batches, "cpu")
+    cpu_losses, cpu_grads, cpu_state, _ = _run_steps(spec, state, batches, "cpu")
     loss_gap = max(abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses))
     param_gap = max(float((gpu_state[k] - cpu_state[k]).abs().max())
                     for k in cpu_state)
     grad_gap = _grad_gap(gpu_grads, cpu_grads)
     moved = max(float((cpu_state[k] - state[k]).abs().max()) for k in state)
+    rows = dm.train_arrays().x.shape[1]
     out = {
-        "phase": "train_parity",
+        "phase": phase,
+        "num_layers": spec.num_layers,
         "steps": PARITY_STEPS,
-        "rows_per_step": K_STOCKS,
+        "rows_per_step": rows,
         "loss_first": cpu_losses[0],
         "loss_last": cpu_losses[-1],
         "max_loss_rel_gap": loss_gap,
@@ -760,16 +1068,31 @@ def phase_train_parity(dm) -> dict:
     if not (loss_gap <= PARITY_LOSS_RTOL and param_gap <= PARITY_PARAM_TOL
             and grad_gap <= GRAD_RTOL):
         raise AssertionError(f"card and CPU trajectories differ: {out}")
-    if launches["lstm_pair_bwd"] != PARITY_STEPS:
-        raise AssertionError(f"parity run missed the pair backward: {launches}")
+    missed = {k: launches[k] for k in kernels if launches[k] != PARITY_STEPS}
+    if missed:
+        raise AssertionError(f"{phase}: not once a step: {missed}")
     return out
 
 
-def phase_train(dm) -> dict:
+def phase_train_parity(dm) -> dict:
+    """model=small at full width with dropout 0 on 100-row windows."""
+    return _train_parity(dm, _train_spec(dropout=0.0), "train_parity",
+                         ("lstm_pair_fwd", "lstm_pair_bwd", "lstm_wgrad"))
+
+
+def phase_train_medium_parity(dm) -> dict:
+    """model=medium at full width with dropout 0 on 25-row windows: one
+    4-deep stack (its maskless instance with stashes) a step."""
+    return _train_parity(dm, _medium_spec(dropout=0.0), "train_medium_parity",
+                         ("lstm_stack_fwd", "lstm_stack_bwd", "lstm_wgrad"))
+
+
+def _train(dm, spec, phase: str, model: str, kernels: tuple) -> dict:
     """Trainer.fit for 2 epochs with the configs' defaults, Trainer.test,
-    and the best checkpoint served by PredictEngine."""
-    spec = _train_spec()
-    ckpt_dir = Path(dm.data_dir) / "ckpt"
+    and the best checkpoint served by PredictEngine; each of ``kernels``
+    launches once a training step."""
+    stocks = dm.train_arrays().x.shape[1]
+    ckpt_dir = Path(dm.data_dir) / f"ckpt_{model}"
     trainer = Trainer(max_epochs=TRAIN_EPOCHS, gradient_clip_val=CLIP,
                       check_val_every_n_epoch=1, ckpt_dir=ckpt_dir, seed=0,
                       device=DEVICE)
@@ -783,13 +1106,13 @@ def phase_train(dm) -> dict:
     launches = dict(lk.LAUNCHES)
     steps = TRAIN_EPOCHS * len(dm.train_range)
     for row in result.history:
-        emit({"phase": "train_epoch", "epoch": row["epoch"],
+        emit({"phase": f"{phase}_epoch", "epoch": row["epoch"],
               "train_loss": row["loss/total/train"],
               "val_loss": row["loss/total/val"], "lr": row["lr-Adam"]})
     test_metrics = trainer.test(spec, result.state, dm)
 
     best, *_ = load_checkpoint(ckpt_dir, "best")
-    engine = PredictEngine(spec, best, n_stocks=K_STOCKS, lookback=T,
+    engine = PredictEngine(spec, best, n_stocks=stocks, lookback=T,
                            device=DEVICE, buckets=(1, 2, 4, 8))
     x = dm.test_arrays().x[:8]
     reference = spec.build_module(device=DEVICE)
@@ -803,11 +1126,16 @@ def phase_train(dm) -> dict:
               if k.startswith("loss/")] + list(test_metrics.values())
     final_val = result.history[-1]["loss/total/val"]
     out = {
-        "phase": "train",
-        "model": "small",
+        "phase": phase,
+        "model": model,
+        "num_layers": spec.num_layers,
+        "layer_groups": {
+            "train": module.layer_groups(T, stocks, True, stocks),
+            "eval": module.layer_groups(T, stocks, False, stocks),
+        },
         "epochs": TRAIN_EPOCHS,
         "steps": steps,
-        "rows_per_step": K_STOCKS,
+        "rows_per_step": stocks,
         "fit_seconds": fit_s,
         "steps_per_s": result.steps_per_sec,
         "windows_per_s": result.windows_per_sec,
@@ -825,52 +1153,115 @@ def phase_train(dm) -> dict:
         raise AssertionError(f"non-finite or missing losses: {out}")
     if not final_val < init_val:
         raise AssertionError(f"val loss did not fall: {init_val} -> {final_val}")
-    for name in ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad"):
-        if launches[name] < steps:
-            raise AssertionError(f"{name} launched {launches[name]} times in "
-                                 f"{steps} steps")
+    missed = {k: launches[k] for k in kernels if launches[k] != steps}
+    if missed:
+        raise AssertionError(f"{phase}: not once in each of {steps} steps: "
+                             f"{missed}")
     if not served_err <= SERVE_TOL:
         raise AssertionError(f"served best checkpoint differs: {served_err}")
     return out
 
 
-def phase_train_odd_layers(dm) -> dict:
-    """A 3-layer model (pair, then one) with dropout 0.2 on injected masks:
-    5 steps on the card and on the CPU, gradients compared at every step."""
-    spec = _train_spec(num_layers=3)
+def phase_train(dm) -> dict:
+    return _train(dm, _train_spec(), "train", "small",
+                  ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad"))
+
+
+def phase_train_medium(dm) -> dict:
+    """model=medium (dropout 0.3) on 25-row windows: the masked 4-deep
+    stack, its sweep and one weight-gradient pass each step."""
+    return _train(dm, _medium_spec(), "train_medium", "medium",
+                  ("lstm_stack_fwd_masked", "lstm_stack_bwd", "lstm_wgrad"))
+
+
+def _grad_parity(dm, spec, seed: int, phase: str, steps: int = 5):
+    """``spec`` with its dropout on injected masks: ``steps`` steps on the
+    card and on the CPU, gradients compared at every step."""
+    stocks = dm.train_arrays().x.shape[1]
     init = spec.build_module(device="cpu",
-                             generator=torch.Generator().manual_seed(1))
-    steps = 5
-    masks = [init.draw_masks(T, K_STOCKS, torch.Generator().manual_seed(10 + i))
+                             generator=torch.Generator().manual_seed(seed))
+    masks = [init.draw_masks(T, stocks, torch.Generator().manual_seed(10 + i))
              for i in range(steps)]
     batches = _window_batches(dm, steps)
     lk.reset_launch_counts()
-    _, gpu_grads, _ = _run_steps(spec, init.state_dict(), batches, DEVICE, masks)
+    _, gpu_grads, _, module = _run_steps(spec, init.state_dict(), batches,
+                                         DEVICE, masks)
     launches = dict(lk.LAUNCHES)
-    _, cpu_grads, _ = _run_steps(spec, init.state_dict(), batches, "cpu", masks)
+    _, cpu_grads, _, _ = _run_steps(spec, init.state_dict(), batches, "cpu", masks)
     gap = _grad_gap(gpu_grads, cpu_grads)
     out = {
-        "phase": "train_odd_layers",
-        "num_layers": 3,
+        "phase": phase,
+        "num_layers": spec.num_layers,
         "steps": steps,
+        "layer_groups": module.layer_groups(T, stocks, True, stocks),
         "max_grad_rel_gap": gap,
         "grad_rtol": GRAD_RTOL,
         "launches": launches,
     }
-    emit(out)
     if not gap <= GRAD_RTOL:
-        raise AssertionError(f"3-layer gradients differ from the CPU: {gap}")
+        emit(out)
+        raise AssertionError(f"{phase}: gradients differ from the CPU: {gap}")
+    return out, module, steps
+
+
+def phase_train_odd_layers(dm) -> dict:
+    """A 3-layer model (pair, then one) with dropout 0.2 on injected masks:
+    5 steps on the card and on the CPU, gradients compared at every step."""
+    out, _, steps = _grad_parity(dm, _train_spec(num_layers=3), 1,
+                                 "train_odd_layers")
+    emit(out)
+    launches = out["launches"]
     if launches["lstm_bwd"] < steps or launches["lstm_pair_fwd_masked"] < steps:
         raise AssertionError(f"3-layer training missed a kernel: {launches}")
     return out
 
 
-def phase_train_breakdown(dm) -> dict:
-    """Where one training step's time goes (batch_size 1, 100 rows,
-    dropout 0.2): host wall clock per step, ending synchronized, split into
-    the host's time to queue each part and its wait for the card, beside
-    the device time by kernel from a torch.profiler trace of 10 steps."""
-    spec = _train_spec()
+def phase_train_large(dm) -> dict:
+    """model=large (8 layers, dropout 0.3) on 25-row windows: 5 training
+    steps (a 7-deep stack, then one layer) on the card and on the CPU,
+    gradients compared at every step; then one eval forward (one 8-deep
+    stack) on the card against the CPU."""
+    spec = _medium_spec(num_layers=8)
+    out, module, steps = _grad_parity(dm, spec, 2, "train_large")
+    x = torch.from_numpy(dm.test_arrays().x[:1])
+    module.eval()
+    lk.reset_launch_counts()
+    with torch.no_grad():
+        got = forward_rows(module, x.to(DEVICE))
+    eval_launches = dict(lk.LAUNCHES)
+    cpu = spec.build_module(device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+    cpu.eval()
+    with torch.no_grad():
+        want = forward_rows(cpu, x)
+    err = _max_abs_err(tuple(g.cpu() for g in got), want)
+    out.update({
+        "eval_layer_groups": module.layer_groups(T, x.shape[1], False,
+                                                 x.shape[1]),
+        "eval_max_abs_err_vs_cpu": err,
+        "eval_tol": SERVE_TOL,
+        "eval_launches": eval_launches,
+    })
+    emit(out)
+    train, ev = out["launches"], eval_launches
+    if out["layer_groups"] != [7, 1] or out["eval_layer_groups"] != [8]:
+        raise AssertionError(f"model=large grouped otherwise: {out}")
+    if not (train["lstm_stack_fwd_masked"] == train["lstm_stack_bwd"]
+            == train["lstm_bwd"] == train["lstm_fwd"] == steps):
+        raise AssertionError(f"model=large training missed a kernel: {train}")
+    if ev["lstm_stack_fwd"] != 1 or ev["lstm_fwd"] or ev["lstm_pair_fwd"]:
+        raise AssertionError(f"model=large eval missed the 8-deep stack: {ev}")
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"model=large eval differs from the CPU: {err}")
+    return out
+
+
+def _train_breakdown(dm, spec, phase: str) -> dict:
+    """Where one training step's time goes (batch_size 1, one window,
+    ``spec``'s dropout): host wall clock per step, ending synchronized,
+    split into the host's time to queue each part and its wait for the card,
+    beside the device time by kernel from a torch.profiler trace of 10
+    steps."""
     module = spec.build_module(device=DEVICE,
                                generator=torch.Generator().manual_seed(0))
     optimizer = make_optimizer(module, CLIP, spec.weight_decay)
@@ -918,8 +1309,9 @@ def phase_train_breakdown(dm) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     out = {
-        "phase": "train_breakdown",
-        "rows": K_STOCKS,
+        "phase": phase,
+        "num_layers": spec.num_layers,
+        "rows": data.x.shape[1],
         "host_syncs_per_step": 0,
         "step_wall_ms_p50": host["wall_ms_p50"],
         "step_wall_ms_spread": host["wall_ms_spread"],
@@ -937,37 +1329,104 @@ def phase_train_breakdown(dm) -> dict:
     return out
 
 
+def phase_train_breakdown(dm) -> dict:
+    return _train_breakdown(dm, _train_spec(), "train_breakdown")
+
+
+def phase_train_medium_breakdown(dm) -> dict:
+    return _train_breakdown(dm, _medium_spec(), "train_medium_breakdown")
+
+
+def phase_ab(label: str) -> None:
+    """The pair and single-layer kernels of whatever checkout this copy of
+    the script sits in, for comparing two checkouts on one card: each
+    call's device time (``spin_ms``) and a sha256 digest of its outputs on
+    the training inputs, at 100 and 800 rows. Copy the script into each
+    checkout's root and run ``python3 chip_smoke.py --ab <label>`` there in
+    turns (parent, change, change, parent) in one call: equal digests mean
+    bit-equal outputs."""
+    for rows in (100, 800):
+        v = _training_inputs(rows)
+        pair = (v["x"], v["w1"], v["wi2"], v["b2"], v["w2"])
+        bwd = (v["dh"], v["x"], v["mask"], v["h1s"], v["c1s"], v["h2s"],
+               v["c2s"], v["w1"], v["wi2"], v["b2"], v["w2"])
+        calls = {
+            "lstm_pair_fwd": lambda: lk.lstm_pair_fwd_cuda(*pair),
+            "lstm_pair_fwd_masked": lambda: lk.lstm_pair_fwd_cuda(
+                *pair, v["mask"], stash=True),
+            "lstm_fwd": lambda: lk.lstm_fwd_cuda(v["x"], v["w1"], return_c=True),
+            "lstm_pair_bwd": lambda: lk.lstm_pair_bwd_cuda(*bwd),
+            "lstm_bwd": lambda: lk.lstm_bwd_cuda(v["dh"], v["x"], v["hs"],
+                                                 v["cs"], v["w1"]),
+            "lstm_wgrad": lambda: lk.lstm_pair_wgrad(
+                v["dx1"], v["d_pre2"], v["h1s"], v["h2s"], v["mask"]),
+            "lstm_wgrad_single": lambda: lk.lstm_single_wgrad(v["dx"], v["hs"]),
+        }
+        with torch.no_grad():
+            for name, call in calls.items():
+                digest = hashlib.sha256()
+                for t in _as_tuple(call()):
+                    digest.update(t.cpu().numpy().tobytes())
+                emit({"phase": "ab", "label": label, "kernel": name,
+                      "rows": rows, "device_ms": spin_ms(call),
+                      "digest": digest.hexdigest()[:16]})
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ab", metavar="LABEL",
+                        help="only time and digest the pair and single-layer "
+                             "kernels (phase_ab), labelled LABEL")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
+    if args.ab is not None:
+        phase_device()
+        phase_ab(args.ab)
+        return 0
+    t0 = time.perf_counter()
     device = phase_device()
     phase_build()
     kernels = phase_kernels()
     kernels.update(phase_training_kernels())
+    kernels.update(phase_stack_kernels())
+    phase_stack_depths()
+    phase_stack_vs_pairs()
     windows = _synthetic_windows()
     serve = phase_serve(windows)
     odd = phase_odd_layers(windows)
     phase_breakdown(windows)
+    serve_medium = phase_serve_medium(_synthetic_windows(K_MEDIUM))
     dm = _train_datamodule()
     phase_train_parity(dm)
     train = phase_train(dm)
     train_odd = phase_train_odd_layers(dm)
     phase_train_breakdown(dm)
+    dm_medium = _train_datamodule(K_MEDIUM)
+    phase_train_medium_parity(dm_medium)
+    train_medium = phase_train_medium(dm_medium)
+    phase_train_large(dm_medium)
+    phase_train_medium_breakdown(dm_medium)
     # Each kernel's launches on the path it serves, and its times at the
-    # shape of that path: serving at 8 windows (800 rows), training at one
-    # window a step (100 rows).
+    # shape of that path: model=small serving at 8 windows (800 rows) and
+    # training at one window a step (100 rows); model=medium serving at 8
+    # windows (200 rows) and training at one window a step (25 rows).
     paths = {
-        "lstm_pair_fwd": (serve, 800),
-        "lstm_fwd": (odd, 800),
-        "lstm_pair_fwd_masked": (train, 100),
-        "lstm_pair_bwd": (train, 100),
-        "lstm_wgrad": (train, 100),
-        "lstm_bwd": (train_odd, 100),
+        "lstm_pair_fwd": (serve, "lstm_pair_fwd", 800),
+        "lstm_fwd": (odd, "lstm_fwd", 800),
+        "lstm_pair_fwd_masked": (train, "lstm_pair_fwd_masked", 100),
+        "lstm_pair_bwd": (train, "lstm_pair_bwd", 100),
+        "lstm_wgrad": (train, "lstm_wgrad", 100),
+        "lstm_bwd": (train_odd, "lstm_bwd", 100),
+        "lstm_stack_fwd": (serve_medium, "lstm_stack_fwd", 8 * K_MEDIUM),
+        "lstm_stack_fwd_masked": (train_medium, "lstm_stack_fwd_masked", K_MEDIUM),
+        "lstm_stack_bwd": (train_medium, "lstm_stack_bwd", K_MEDIUM),
+        "lstm_wgrad_stack": (train_medium, "lstm_wgrad", K_MEDIUM),
     }
     summary = []
-    for name, (path, rows) in paths.items():
+    for name, (path, counter, rows) in paths.items():
         row = kernels[(name, rows)]
         source, replaces = KERNELS[name]
         summary.append({
@@ -975,9 +1434,11 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": path["launches"][name],
+            "launches": path["launches"][counter],
+            "path": path["phase"],
             "rows": rows,
-            "max_abs_err": max(kernels[(name, r)]["max_abs_err"] for r in (100, 800)),
+            "max_abs_err": max(v["max_abs_err"] for (n, _), v in kernels.items()
+                               if n == name),
             "ms": row["ms"],
             "ms_spread": row["ms_spread"],
             "device_ms": row["device_ms"],
@@ -988,6 +1449,7 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"],
         })
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": summary})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"],

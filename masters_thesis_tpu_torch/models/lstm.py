@@ -11,14 +11,17 @@ module's names and shapes — ``w_ih_l{n}`` ``(4H, in)``, ``w_hh_l{n}``
 Per group of layers, the input projection for every time step is one
 ``torch.matmul`` (the JAX package leaves it to XLA likewise); the serial part
 runs through ``ops/lstm_kernel.py``, differentiable through the hand-written
-backward kernels. Consecutive layers pair into the wavefront kernel and a
-trailing odd layer runs the single-layer kernel. The CUDA kernels are
-row-tiled, so every row count fits and the grouping is simply "pairs, then
-one" — the JAX package's VMEM byte model has no counterpart here.
+backward kernels. Consecutive layers group into wavefronts exactly as the
+JAX encoder groups them (``fused_depth``, its rule over the reference's
+byte budget, ``window_rows`` included): a group of 3 to 8 layers runs the
+stack kernel, 2 the pair kernel, 1 the single-layer kernel. At the
+canonical window (T=60, 100 rows, H=64) that is pairs then one; at 25-row
+windows a 4-layer model is one 4-deep stack.
 
 Dropout in training mode follows the JAX encoder: torch semantics (every
-layer's output except the last), as pre-scaled ``(T, B, H)`` keep-masks — one
-per pair seam, applied inside the pair kernel, and one between groups,
+layer's output except the last), as pre-scaled ``(T, B, H)`` keep-masks,
+one per layer but the last, in layer order — those at a seam inside a group
+are applied inside its kernel, those at a boundary between groups
 multiplied outside. The masks are drawn with ``torch.bernoulli`` from an
 explicit generator on the module's device, or injected with ``masks=``. The
 JAX and torch generators give different bits, so cross-framework parity
@@ -34,9 +37,36 @@ from torch import nn
 
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.ops.lstm_kernel import (
+    MAX_STACK_LAYERS,
     lstm_pair_recurrence,
     lstm_recurrence,
+    lstm_stack_recurrence,
+    stack_fits,
+    window_schedulable,
 )
+
+
+def fused_depth(layers_left: int, n_t: int, rows: int, hidden: int,
+                has_mask: bool, window_rows: int | None = None) -> int:
+    """Layers the next group takes: the JAX encoder's ``fused_depth``.
+
+    The deepest wavefront, of at most ``layers_left`` layers, that the
+    reference fuses over ``rows`` rows, or over one window of
+    ``window_rows`` when the rows are whole windows (f32, the port's only
+    compute type).
+    """
+    def depth_fits(depth: int) -> bool:
+        return stack_fits(n_t, rows, hidden, depth, has_mask) or (
+            window_schedulable(rows, window_rows)
+            and stack_fits(n_t, window_rows, hidden, depth, has_mask)
+        )
+
+    # The stack kernel's limit; no config in configs/model goes deeper.
+    limit = min(layers_left, MAX_STACK_LAYERS)
+    depth = 1
+    while depth < limit and depth_fits(depth + 1):
+        depth += 1
+    return depth
 
 
 class LstmEncoder(nn.Module):
@@ -98,10 +128,22 @@ class LstmEncoder(nn.Module):
 
     @property
     def n_masks(self) -> int:
-        """Dropout planes a training forward uses: one per pair seam, then
-        one per boundary between groups ("pairs, then one")."""
-        pairs, odd = divmod(self.num_layers, 2)
-        return pairs + (pairs + odd - 1)
+        """Dropout planes a training forward uses: one per seam inside each
+        group and one per boundary between groups, one per layer but the
+        last whatever the grouping."""
+        return self.num_layers - 1
+
+    def layer_groups(self, n_t: int, rows: int, has_mask: bool,
+                     window_rows: int | None = None) -> list[int]:
+        """The depths of the wavefronts a forward over ``rows`` rows runs,
+        bottom layer first (``fused_depth`` from each group's first
+        layer)."""
+        groups, layer = [], 0
+        while layer < self.num_layers:
+            groups.append(fused_depth(self.num_layers - layer, n_t, rows,
+                                      self.hidden_size, has_mask, window_rows))
+            layer += groups[-1]
+        return groups
 
     def draw_masks(self, n_t: int, rows: int,
                    generator: torch.Generator | None = None) -> list:
@@ -123,6 +165,7 @@ class LstmEncoder(nn.Module):
         deterministic: bool = True,
         generator: torch.Generator | None = None,
         masks: list | None = None,
+        window_rows: int | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Encode lookback windows into per-row (alpha, beta) estimates.
 
@@ -132,8 +175,12 @@ class LstmEncoder(nn.Module):
             generator: the ``torch.Generator`` (on the module's device) the
                 training masks are drawn from.
             masks: the ``n_masks`` time-major ``(time, batch, hidden)``
-                pre-scaled keep-masks to use instead of drawing them (in the
-                order: each pair's seam, then the boundary after it).
+                pre-scaled keep-masks to use instead of drawing them, in
+                layer order (mask l multiplies layer l's output).
+            window_rows: rows per window when ``batch`` is a flattened stack
+                of independent windows (``forward_rows`` passes it); the
+                grouping rule then also considers one window's rows, as the
+                JAX encoder's does.
 
         Returns:
             ``(alpha, beta)``: ``(batch, 1)`` and ``(batch, n_factors)``.
@@ -152,25 +199,28 @@ class LstmEncoder(nn.Module):
             )
         pending = iter(masks or ())
         layer = 0
-        while layer < self.num_layers:
+        for depth in self.layer_groups(n_t, rows, masks is not None, window_rows):
             w_ih, w_hh, b_ih, b_hh = self._layer(layer)
             # One matmul for every time step's input projection.
             x_proj = torch.matmul(inputs, w_ih.T) + (b_ih + b_hh)  # (T, B, 4H)
             x_proj = x_proj.contiguous()
-            if layer + 1 < self.num_layers:
-                w_ih2, w_hh2, b_ih2, b_hh2 = self._layer(layer + 1)
-                inputs = lstm_pair_recurrence(
-                    x_proj,
-                    w_hh.T.contiguous(),
-                    w_ih2.T.contiguous(),
-                    (b_ih2 + b_hh2).contiguous(),
-                    w_hh2.T.contiguous(),
-                    next(pending) if masks else None,
-                )
-                layer += 2
+            w_hhs, w_ins, biases = [w_hh.T.contiguous()], [], []
+            for above in range(layer + 1, layer + depth):
+                w_ih_a, w_hh_a, b_ih_a, b_hh_a = self._layer(above)
+                w_hhs.append(w_hh_a.T.contiguous())
+                w_ins.append(w_ih_a.T.contiguous())
+                biases.append((b_ih_a + b_hh_a).contiguous())
+            seams = [next(pending) for _ in range(depth - 1)] if masks else None
+            if depth >= 3:
+                inputs = lstm_stack_recurrence(x_proj, (w_hhs, w_ins, biases),
+                                               seams)
+            elif depth == 2:
+                inputs = lstm_pair_recurrence(x_proj, w_hhs[0], w_ins[0],
+                                              biases[0], w_hhs[1],
+                                              seams[0] if seams else None)
             else:
-                inputs = lstm_recurrence(x_proj, w_hh.T.contiguous())
-                layer += 1
+                inputs = lstm_recurrence(x_proj, w_hhs[0])
+            layer += depth
             if masks and layer < self.num_layers:
                 inputs = inputs * next(pending)
         final_hidden = inputs[-1]

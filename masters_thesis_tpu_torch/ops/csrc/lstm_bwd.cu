@@ -18,6 +18,9 @@
 //   + lstm_wgrad_sum_kernel  as a second pass: dW = sum over the T*B rows of
 //                         a[row]ᵀ d_pre[row], where a is h[t-1] (zero at t=0)
 //                         or (m ⊙ h1)[t], and db2 = sum of d_pre2 rows.
+//                         One launch also takes the L-deep stack's 2L - 1
+//                         weight gradients (lstm_stack.cu writes the d_pre
+//                         planes they reduce).
 //
 // Why the split. The pair's serial sweep needs its three (64, 256) f32
 // weights in shared memory for both the forward products and the transposed
@@ -55,87 +58,6 @@
 #include "lstm_common.cuh"
 
 namespace {
-
-// Pre-activation gradients (gate order i, f, g, o) of one cell step from its
-// gate pre-activations, c[t], c[t-1], the incoming dh and the dc carried
-// from step t+1; the carry becomes dc * f for step t-1. The formulas of the
-// TPU kernels' body, term for term.
-template <int RPT>
-__device__ __forceinline__ void cell_backward(const float (&gates)[4][RPT],
-                                              const float (&c)[RPT],
-                                              const float (&c_prev)[RPT],
-                                              const float (&dh)[RPT],
-                                              float (&dc_carry)[RPT],
-                                              float (&d_pre)[4][RPT]) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const float i = sigmoid(gates[0][r]);
-    const float f = sigmoid(gates[1][r]);
-    const float g = tanhf(gates[2][r]);
-    const float o = sigmoid(gates[3][r]);
-    const float tanh_c = tanhf(c[r]);
-    const float d_o = dh[r] * tanh_c;
-    const float dc = dh[r] * o * (1.0f - tanh_c * tanh_c) + dc_carry[r];
-    const float di = dc * g;
-    const float dg = dc * i;
-    const float df = dc * c_prev[r];
-    dc_carry[r] = dc * f;
-    d_pre[0][r] = di * i * (1.0f - i);
-    d_pre[1][r] = df * f * (1.0f - f);
-    d_pre[2][r] = dg * (1.0f - g * g);
-    d_pre[3][r] = d_o * o * (1.0f - o);
-  }
-}
-
-// out[l][r] = sum_{j', g} dp_s[l][row r][j'].g * w_s[l][j * H + j'].g for L
-// products: the cotangent of h (unit j of the thread) through
-// gates = h @ w_t. Thread j starts at j' = j and wraps, so that across a warp
-// the float4 reads of w_s[j * H + j'] are H + 1 float4 apart: distinct banks.
-template <int RPT, int L>
-__device__ __forceinline__ void transposed_products(
-    const float4* const (&dp_s)[L], const float4* const (&w_s)[L], int lrow0,
-    int hidden, int j, float (&out)[L][RPT]) {
-#pragma unroll
-  for (int l = 0; l < L; ++l)
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) out[l][r] = 0.0f;
-  int jp = j;
-  for (int n = 0; n < hidden; ++n) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float4 w = w_s[l][j * hidden + jp];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float4 d = dp_s[l][(lrow0 + r) * hidden + jp];
-        float s = out[l][r];
-        s = fmaf(d.x, w.x, s);
-        s = fmaf(d.y, w.y, s);
-        s = fmaf(d.z, w.z, s);
-        s = fmaf(d.w, w.w, s);
-        out[l][r] = s;
-      }
-    }
-    jp = jp + 1 == hidden ? 0 : jp + 1;
-  }
-}
-
-// d_pre rows of this thread into device memory (when on) and shared memory.
-template <int RPT>
-__device__ __forceinline__ void store_d_pre(const float (&d)[4][RPT], bool on,
-                                            float* __restrict__ plane, int t,
-                                            int n_rows, int hidden, int row0,
-                                            int lrow0, int j, float4* dp_s) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r;
-    if (on && row < n_rows) {
-      float* out = plane + (static_cast<size_t>(t) * n_rows + row) * 4 * hidden + j;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) out[g * hidden] = d[g][r];
-    }
-    dp_s[(lrow0 + r) * hidden + j] = make_float4(d[0][r], d[1][r], d[2][r], d[3][r]);
-  }
-}
 
 // Serial part of the pair backward. Replaces the sweep of _pair_bwd_kernel
 // (masters_thesis_tpu/ops/lstm_kernel.py). Iteration k runs layer 1 at
@@ -342,7 +264,8 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
 
 // ------------------------------------------------------ weight gradients
 
-constexpr int kMaxJobs = 3;
+// Jobs of one launch: at most the L-deep stack's 2L - 1 (L = 8).
+constexpr int kMaxJobs = 15;
 constexpr int kTile = 64;            // output tile: kTile x kTile
 constexpr int kChunk = 16;           // rows staged in shared memory at once
 constexpr int kWgradThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each

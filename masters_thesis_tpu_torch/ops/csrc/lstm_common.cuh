@@ -1,8 +1,9 @@
-// Helpers shared by the forward (lstm_fwd.cu) and backward (lstm_bwd.cu)
-// LSTM kernels: the staged weight layout, the gate products over h rows held
-// in shared memory, the row-tile choice and the launch with dynamic shared
-// memory. Each .cu file compiles into its own library, so everything here
-// has internal linkage.
+// Helpers shared by the forward (lstm_fwd.cu), backward (lstm_bwd.cu) and
+// stack (lstm_stack.cu) LSTM kernels: the staged weight layout, the gate
+// products over h rows held in shared memory, the cell's backward, the
+// transposed products, the row-tile choice and the launch with dynamic
+// shared memory. Each .cu file compiles into its own library, so everything
+// here has internal linkage.
 //
 // Layout is the JAX functions' own: time-major planes (T, B, ·), gate order
 // i, f, g, o, and transposed weights w_t (H, 4H) so that
@@ -132,6 +133,87 @@ __device__ __forceinline__ void cell_update(const float (&acc)[4][RPT],
     const float o = sigmoid(acc[3][r]);
     c[r] = f * c[r] + i * g;
     h[r] = o * tanhf(c[r]);
+  }
+}
+
+// Pre-activation gradients (gate order i, f, g, o) of one cell step from its
+// gate pre-activations, c[t], c[t-1], the incoming dh and the dc carried
+// from step t+1; the carry becomes dc * f for step t-1. The formulas of the
+// TPU kernels' body, term for term.
+template <int RPT>
+__device__ __forceinline__ void cell_backward(const float (&gates)[4][RPT],
+                                              const float (&c)[RPT],
+                                              const float (&c_prev)[RPT],
+                                              const float (&dh)[RPT],
+                                              float (&dc_carry)[RPT],
+                                              float (&d_pre)[4][RPT]) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const float i = sigmoid(gates[0][r]);
+    const float f = sigmoid(gates[1][r]);
+    const float g = tanhf(gates[2][r]);
+    const float o = sigmoid(gates[3][r]);
+    const float tanh_c = tanhf(c[r]);
+    const float d_o = dh[r] * tanh_c;
+    const float dc = dh[r] * o * (1.0f - tanh_c * tanh_c) + dc_carry[r];
+    const float di = dc * g;
+    const float dg = dc * i;
+    const float df = dc * c_prev[r];
+    dc_carry[r] = dc * f;
+    d_pre[0][r] = di * i * (1.0f - i);
+    d_pre[1][r] = df * f * (1.0f - f);
+    d_pre[2][r] = dg * (1.0f - g * g);
+    d_pre[3][r] = d_o * o * (1.0f - o);
+  }
+}
+
+// out[l][r] = sum_{j', g} dp_s[l][row r][j'].g * w_s[l][j * H + j'].g for L
+// products: the cotangent of h (unit j of the thread) through
+// gates = h @ w_t. Thread j starts at j' = j and wraps, so that across a warp
+// the float4 reads of w_s[j * H + j'] are H + 1 float4 apart: distinct banks.
+template <int RPT, int L>
+__device__ __forceinline__ void transposed_products(
+    const float4* const (&dp_s)[L], const float4* const (&w_s)[L], int lrow0,
+    int hidden, int j, float (&out)[L][RPT]) {
+#pragma unroll
+  for (int l = 0; l < L; ++l)
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) out[l][r] = 0.0f;
+  int jp = j;
+  for (int n = 0; n < hidden; ++n) {
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const float4 w = w_s[l][j * hidden + jp];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const float4 d = dp_s[l][(lrow0 + r) * hidden + jp];
+        float s = out[l][r];
+        s = fmaf(d.x, w.x, s);
+        s = fmaf(d.y, w.y, s);
+        s = fmaf(d.z, w.z, s);
+        s = fmaf(d.w, w.w, s);
+        out[l][r] = s;
+      }
+    }
+    jp = jp + 1 == hidden ? 0 : jp + 1;
+  }
+}
+
+// d_pre rows of this thread into device memory (when on) and shared memory.
+template <int RPT>
+__device__ __forceinline__ void store_d_pre(const float (&d)[4][RPT], bool on,
+                                            float* __restrict__ plane, int t,
+                                            int n_rows, int hidden, int row0,
+                                            int lrow0, int j, float4* dp_s) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int row = row0 + r;
+    if (on && row < n_rows) {
+      float* out = plane + (static_cast<size_t>(t) * n_rows + row) * 4 * hidden + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) out[g * hidden] = d[g][r];
+    }
+    dp_s[(lrow0 + r) * hidden + j] = make_float4(d[0][r], d[1][r], d[2][r], d[3][r]);
   }
 }
 

@@ -8,15 +8,18 @@ the gate math — is a kernel, forward and backward. Layout is the JAX
 functions' own: time-major ``(T, B, 4H)`` projections (``x @ w_ihᵀ`` plus
 both biases), gate order i, f, g, o, and transposed ``(H, 4H)`` weights.
 
-Dispatch is on the tensors' device and nothing else: a CUDA tensor goes to
-the hand-written kernels in ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu`` (or
-raises), a CPU tensor to the plain versions. When an input needs a
-gradient, the recurrence runs as a ``torch.autograd.Function`` whose forward
-also writes the stashes (h and c planes) and whose backward recomputes the
-gates from them, as the TPU kernels do: the serial sweep
-(``lstm_pair_bwd`` / ``lstm_bwd``), then the weight-gradient reduction
-(``lstm_wgrad``). Each kernel counts its launches in ``LAUNCHES`` so a run
-can show that its main path went through it.
+Three recurrences, as in the JAX package: one layer, the layer pair, and
+the L-deep stack (``lstm_stack_recurrence``, 3 <= L <= 8 layers in one
+wavefront). Dispatch is on the tensors' device and nothing else: a CUDA
+tensor goes to the hand-written kernels in ``csrc/lstm_fwd.cu``,
+``csrc/lstm_bwd.cu`` and ``csrc/lstm_stack.cu`` (or raises), a CPU tensor to
+the plain versions. When an input needs a gradient, the recurrence runs as a
+``torch.autograd.Function`` whose forward also writes the stashes (h and c
+planes) and whose backward recomputes the gates from them, as the TPU
+kernels do: the serial sweep (``lstm_pair_bwd`` / ``lstm_bwd`` /
+``lstm_stack_bwd``), then the weight-gradient reduction (``lstm_wgrad``).
+Each kernel counts its launches in ``LAUNCHES`` so a run can show that its
+main path went through it.
 
 The CUDA kernels take f32 only and H <= 64; bf16 compute is not ported.
 """
@@ -35,10 +38,16 @@ from masters_thesis_tpu_torch.ops._build import load_library
 #: 192 KiB at H=64, the width of every model in configs/model.
 MAX_HIDDEN = 64
 
+#: Depths the stack kernels take: the pair kernel is the 2-deep wavefront,
+#: and a cluster holds at most 8 CTAs, one a layer (``kMinLayers`` and
+#: ``kMaxLayers`` in csrc/lstm_stack.cu).
+MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
+
 #: Launches of each CUDA kernel since the last reset_launch_counts():
 #: ``lstm_pair_fwd`` counts the maskless pair forward (serving, dropout 0),
 #: ``lstm_pair_fwd_masked`` the instance with a seam mask (training with
-#: dropout); ``lstm_wgrad`` is one call of the weight-gradient pass.
+#: dropout), and likewise for the stack; ``lstm_wgrad`` is one call of the
+#: weight-gradient pass.
 LAUNCHES: dict[str, int] = {
     "lstm_pair_fwd": 0,
     "lstm_pair_fwd_masked": 0,
@@ -46,6 +55,9 @@ LAUNCHES: dict[str, int] = {
     "lstm_pair_bwd": 0,
     "lstm_bwd": 0,
     "lstm_wgrad": 0,
+    "lstm_stack_fwd": 0,
+    "lstm_stack_fwd_masked": 0,
+    "lstm_stack_bwd": 0,
 }
 
 
@@ -171,6 +183,120 @@ def lstm_pair_wgrad_ref(dx1, d_pre2, h1s, h2s, mask=None):
     )
 
 
+def lstm_stack_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
+                   return_stash: bool = False):
+    """Plain version of the L-deep stack: chained loops and projections.
+
+    Mirrors ``lstm_stack_xla`` in the JAX package: layer 0 runs over
+    ``x1_proj``; layer l >= 1 over ``(m ⊙ h_{l-1}) @ w_in_ts[l-1] +
+    biases[l-1]``, with ``masks[l-1]`` (optional, pre-scaled) multiplying
+    layer l-1's output. Returns the top layer's ``hs`` ``(T, B, H)``, or with
+    ``return_stash`` ``(hs, cs)``, the lists of every layer's h and c planes.
+    """
+    hs, cs = lstm_recurrence_ref(x1_proj, w_hh_ts[0], return_c=True)
+    h_all, c_all = [hs], [cs]
+    for layer in range(1, len(w_hh_ts)):
+        seam = hs if masks is None else hs * masks[layer - 1]
+        hs, cs = lstm_recurrence_ref(seam @ w_in_ts[layer - 1] + biases[layer - 1],
+                                     w_hh_ts[layer], return_c=True)
+        h_all.append(hs)
+        c_all.append(cs)
+    return (h_all, c_all) if return_stash else hs
+
+
+def lstm_stack_bwd_ref(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
+                       biases) -> list:
+    """Plain version of the stack's backward sweep: every layer's ``d_pre``
+    ``(T, B, 4H)``, layer 0's being the gradient of ``x1_proj``.
+
+    Per-layer ``lstm_bwd_ref`` sweeps from the top down, each layer's input
+    projection recomputed from the stashes; the cotangent into the layer
+    below is ``(d_pre_l @ w_inᵀ) ⊙ m``. The same math as
+    ``_stack_bwd_kernel``, one layer after the other instead of one step
+    apart.
+    """
+    n_layers = len(w_hh_ts)
+    d_pres = [None] * n_layers
+    dh = dh_top
+    for layer in range(n_layers - 1, 0, -1):
+        seam = hs[layer - 1] if masks is None else hs[layer - 1] * masks[layer - 1]
+        x_proj = seam @ w_in_ts[layer - 1] + biases[layer - 1]
+        d_pres[layer] = lstm_bwd_ref(dh, x_proj, hs[layer], cs[layer],
+                                     w_hh_ts[layer])
+        dh = d_pres[layer] @ w_in_ts[layer - 1].T
+        if masks is not None:
+            dh = dh * masks[layer - 1]
+    d_pres[0] = lstm_bwd_ref(dh, x1_proj, hs[0], cs[0], w_hh_ts[0])
+    return d_pres
+
+
+def _stack_wgrad_jobs(d_pres, hs, masks):
+    """The stack's 2L - 1 weight gradients as ``(d_pre, src, shift, mask,
+    with_bias)`` jobs: dW_hh[l] = sum h_l[t-1]ᵀ d_pre_l[t], then
+    dW_in[l-1] = sum (m ⊙ h_{l-1})[t]ᵀ d_pre_l[t] with db[l-1] its row sum."""
+    n_layers = len(d_pres)
+    return (
+        [(d_pres[layer], hs[layer], 1, None, False) for layer in range(n_layers)]
+        + [(d_pres[layer], hs[layer - 1], 0,
+            None if masks is None else masks[layer - 1], True)
+           for layer in range(1, n_layers)]
+    )
+
+
+def lstm_stack_wgrad_ref(d_pres, hs, masks=None):
+    """Plain version of the stack's weight gradients:
+    ``(dW_hh list[L], dW_in list[L-1], db list[L-1])``."""
+    jobs = _stack_wgrad_jobs(d_pres, hs, masks)
+    n_layers = len(d_pres)
+    dw = [lstm_wgrad_ref(d_pre, src, shift, mask)
+          for d_pre, src, shift, mask, _ in jobs]
+    db = [d_pre.sum(dim=(0, 1)) for d_pre, *_ in jobs[n_layers:]]
+    return dw[:n_layers], dw[n_layers:], db
+
+
+# ------------------------------------------- the reference's grouping rule
+#
+# The JAX encoder groups consecutive layers into the deepest wavefront whose
+# backward program fits a TPU VMEM byte budget (``stack_fits`` and
+# ``window_schedulable`` in masters_thesis_tpu/ops/lstm_kernel.py). The
+# port's copy of that integer arithmetic is kept so that both packages fuse
+# the same layers at every shape, and the port's kernels run the routes the
+# reference runs. It is the reference's rule, not a model of this card: the
+# CUDA kernels take any row count.
+
+
+def _stack_bwd_vmem_bytes(n_t: int, b_pad: int, hidden: int, n_layers: int,
+                          has_mask: bool) -> int:
+    """The reference's byte count of an L-layer wavefront backward program,
+    in f32 (the port's only compute type)."""
+    four_h = 4 * hidden
+    ell = n_layers
+    planes = n_t * b_pad * hidden * (1 + 2 * ell + (ell - 1) * int(has_mask))
+    planes += n_t * b_pad * four_h
+    weights = 2 * ((2 * ell - 1) * hidden * four_h + (ell - 1) * four_h)
+    scratch = (3 * ell - 1) * b_pad * hidden + (
+        (2 * ell - 1) * hidden * four_h + (ell - 1) * four_h
+    )
+    return (planes + weights + scratch) * 4
+
+
+#: The reference's budget: the canonical pair (T=60, 104 rows, H=64, masked).
+_PAIR_VMEM_BUDGET = _stack_bwd_vmem_bytes(60, 104, 64, 2, True)
+
+
+def stack_fits(n_t: int, b: int, hidden: int, n_layers: int,
+               has_mask: bool) -> bool:
+    """True when the reference fuses ``n_layers`` layers over ``b`` rows."""
+    b_pad = -(-b // 8) * 8
+    return (_stack_bwd_vmem_bytes(n_t, b_pad, hidden, n_layers, has_mask)
+            <= _PAIR_VMEM_BUDGET)
+
+
+def window_schedulable(b: int, window_rows: int | None) -> bool:
+    """True when ``b`` rows are several whole windows of ``window_rows``."""
+    return window_rows is not None and 0 < window_rows < b and b % window_rows == 0
+
+
 # ----------------------------------------------------------- CUDA wrappers
 
 
@@ -210,6 +336,28 @@ def _bwd_library() -> ctypes.CDLL:
     lib.lstm_bwd_max_hidden.argtypes = []
     lib.lstm_bwd_max_hidden.restype = i32
     _check_max_hidden("lstm_bwd", lib.lstm_bwd_max_hidden())
+    return lib
+
+
+@functools.cache
+def _stack_library() -> ctypes.CDLL:
+    """csrc/lstm_stack.cu, built at first use, with its functions' types."""
+    lib = load_library("lstm_stack")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    arr = ctypes.POINTER(ctypes.c_void_p)
+    lib.lstm_stack_fwd.argtypes = [ptr] + [arr] * 6 + [i32] * 5 + [ptr]
+    lib.lstm_stack_fwd.restype = i32
+    lib.lstm_stack_bwd.argtypes = [ptr, ptr] + [arr] * 7 + [i32] * 5 + [ptr]
+    lib.lstm_stack_bwd.restype = i32
+    for name in ("lstm_stack_max_layers", "lstm_stack_max_hidden"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    _check_max_hidden("lstm_stack", lib.lstm_stack_max_hidden())
+    if lib.lstm_stack_max_layers() != MAX_STACK_LAYERS:
+        raise RuntimeError(
+            f"csrc/lstm_stack.cu takes L <= {lib.lstm_stack_max_layers()}, "
+            f"the wrapper assumes {MAX_STACK_LAYERS}"
+        )
     return lib
 
 
@@ -363,8 +511,9 @@ def lstm_bwd_cuda(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
 
 
 def lstm_wgrad_cuda(jobs) -> list:
-    """Launch the weight-gradient pass for up to three jobs
-    ``(d_pre, src, shift, mask, with_bias)`` over the same (T, B) rows.
+    """Launch the weight-gradient pass for up to 15 jobs (a stack of 8's
+    2L - 1) ``(d_pre, src, shift, mask, with_bias)`` over the same (T, B)
+    rows.
 
     Returns one ``(dW (H, 4H), db (4H,) or None)`` per job, each as
     ``lstm_wgrad_ref`` (and ``d_pre.sum((0, 1))``) computes it.
@@ -404,6 +553,100 @@ def lstm_wgrad_cuda(jobs) -> list:
     _raise_on_error("lstm_wgrad", err)
     LAUNCHES["lstm_wgrad"] += 1
     return list(zip(outs, biases))
+
+
+def _pointers(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * max(1, len(tensors)))(*map(_ptr, tensors))
+
+
+def _check_stack(x1_proj, w_hh_ts, w_in_ts, biases, masks, planes=()):
+    """Shapes, device, dtype and contiguity of a stack call; its sizes."""
+    n_t, b, hidden = _shapes(x1_proj)
+    n_layers = len(w_hh_ts)
+    if not MIN_STACK_LAYERS <= n_layers <= MAX_STACK_LAYERS:
+        raise ValueError(
+            f"the stack kernels take {MIN_STACK_LAYERS}..{MAX_STACK_LAYERS} "
+            f"layers, got {n_layers}"
+        )
+    seams = n_layers - 1
+    if len(w_in_ts) != seams or len(biases) != seams or (
+            masks is not None and len(masks) != seams):
+        raise ValueError(f"{n_layers} layers take {seams} seam weights, "
+                         f"biases and masks each")
+    dev = x1_proj.device
+    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev)
+    for name, group in (("w_hh_ts", w_hh_ts), ("w_in_ts", w_in_ts)):
+        for i, w in enumerate(group):
+            _check_operand(f"{name}[{i}]", w, (hidden, 4 * hidden), dev)
+    for i, bias in enumerate(biases):
+        _check_operand(f"biases[{i}]", bias, (4 * hidden,), dev)
+    for name, group in (("masks", masks or ()),) + tuple(planes):
+        for i, t in enumerate(group):
+            _check_operand(f"{name}[{i}]", t, (n_t, b, hidden), dev)
+    return n_t, b, hidden, n_layers, dev
+
+
+def lstm_stack_fwd_cuda(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
+                        stash: bool = False):
+    """Launch the stack's forward kernel; returns the top layer's ``hs``
+    ``(T, B, H)``, or with ``stash`` ``(hs, cs)`` as ``lstm_stack_ref``
+    returns them. ``masks`` selects the masked instance (counted as
+    ``lstm_stack_fwd_masked``)."""
+    n_t, b, hidden, n_layers, dev = _check_stack(x1_proj, w_hh_ts, w_in_ts,
+                                                 biases, masks)
+    lib = _stack_library()
+
+    def plane():
+        return torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
+
+    hs = [plane() if stash or layer == n_layers - 1 else None
+          for layer in range(n_layers)]
+    cs = [plane() if stash else None for _ in range(n_layers)]
+    err = lib.lstm_stack_fwd(
+        x1_proj.data_ptr(), None if masks is None else _pointers(masks),
+        _pointers(w_hh_ts), _pointers(w_in_ts), _pointers(biases),
+        _pointers(hs), _pointers(cs), n_layers, n_t, b, hidden, dev.index,
+        _stream(dev),
+    )
+    name = "lstm_stack_fwd" if masks is None else "lstm_stack_fwd_masked"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return (hs, cs) if stash else hs[-1]
+
+
+def lstm_stack_bwd_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
+                        biases) -> list:
+    """Launch the stack's backward sweep; returns every layer's ``d_pre``
+    ``(T, B, 4H)`` as ``lstm_stack_bwd_ref`` does."""
+    n_t, b, hidden, n_layers, dev = _check_stack(
+        x1_proj, w_hh_ts, w_in_ts, biases, masks,
+        planes=(("dh_top", (dh_top,)), ("hs", hs), ("cs", cs)))
+    if len(hs) != n_layers or len(cs) != n_layers:
+        raise ValueError(f"{n_layers} layers take {n_layers} h and c stashes")
+    lib = _stack_library()
+    d_pres = [torch.empty_like(x1_proj) for _ in range(n_layers)]
+    err = lib.lstm_stack_bwd(
+        dh_top.data_ptr(), x1_proj.data_ptr(),
+        None if masks is None else _pointers(masks), _pointers(hs),
+        _pointers(cs), _pointers(w_hh_ts), _pointers(w_in_ts),
+        _pointers(biases), _pointers(d_pres), n_layers, n_t, b, hidden,
+        dev.index, _stream(dev),
+    )
+    _raise_on_error("lstm_stack_bwd", err)
+    LAUNCHES["lstm_stack_bwd"] += 1
+    return d_pres
+
+
+def lstm_stack_wgrad(d_pres, hs, masks=None):
+    """The stack's weight gradients ``(dW_hh list[L], dW_in list[L-1],
+    db list[L-1])``: one launch of the reduction pass over its 2L - 1 jobs
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if _device_type(d_pres[0]) == "cpu":
+        return lstm_stack_wgrad_ref(d_pres, hs, masks)
+    n_layers = len(d_pres)
+    outs = lstm_wgrad_cuda(_stack_wgrad_jobs(d_pres, hs, masks))
+    return ([dw for dw, _ in outs[:n_layers]], [dw for dw, _ in outs[n_layers:]],
+            [db for _, db in outs[n_layers:]])
 
 
 def lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask=None):
@@ -491,6 +734,53 @@ class _SingleFunction(torch.autograd.Function):
         return dx, lstm_single_wgrad(dx, hs)
 
 
+class _StackFunction(torch.autograd.Function):
+    """The L-deep stack with its hand-written backward; the masks get no
+    gradient. Arguments after ``has_mask``: the L recurrent weights, the
+    L - 1 seam weights, the L - 1 seam biases, then the L - 1 masks (with
+    ``has_mask``). Forward saves the stashes, backward recomputes from them."""
+
+    @staticmethod
+    def forward(ctx, x1_proj, n_layers, has_mask, *tensors):
+        w_hh, w_in, biases, masks = _split_stack(tensors, n_layers, has_mask)
+        if _device_type(x1_proj) == "cuda":
+            hs, cs = lstm_stack_fwd_cuda(x1_proj, w_hh, w_in, biases, masks,
+                                         stash=True)
+        else:
+            hs, cs = lstm_stack_ref(x1_proj, w_hh, w_in, biases, masks,
+                                    return_stash=True)
+        ctx.n_layers, ctx.has_mask = n_layers, has_mask
+        ctx.save_for_backward(x1_proj, *tensors, *hs, *cs)
+        return hs[-1]
+
+    @staticmethod
+    def backward(ctx, dh_top):
+        n_layers = ctx.n_layers
+        x1_proj, *rest = ctx.saved_tensors
+        n_in = len(rest) - 2 * n_layers
+        w_hh, w_in, biases, masks = _split_stack(rest[:n_in], n_layers,
+                                                 ctx.has_mask)
+        hs, cs = rest[n_in:n_in + n_layers], rest[n_in + n_layers:]
+        args = (dh_top.contiguous(), x1_proj, masks, hs, cs, w_hh, w_in, biases)
+        if _device_type(x1_proj) == "cuda":
+            d_pres = lstm_stack_bwd_cuda(*args)
+        else:
+            d_pres = lstm_stack_bwd_ref(*args)
+        dw_hh, dw_in, db = lstm_stack_wgrad(d_pres, hs, masks)
+        no_masks = [None] * (n_layers - 1 if ctx.has_mask else 0)
+        return (d_pres[0], None, None, *dw_hh, *dw_in, *db, *no_masks)
+
+
+def _split_stack(tensors, n_layers: int, has_mask: bool):
+    """``(w_hh, w_in, biases, masks or None)`` from the flat tensor list."""
+    seams = n_layers - 1
+    w_hh = tuple(tensors[:n_layers])
+    w_in = tuple(tensors[n_layers:n_layers + seams])
+    biases = tuple(tensors[n_layers + seams:n_layers + 2 * seams])
+    masks = tuple(tensors[n_layers + 2 * seams:]) if has_mask else None
+    return w_hh, w_in, biases, masks
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -545,3 +835,32 @@ def lstm_pair_recurrence(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
         return lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
                                   mask)
     return lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask)
+
+
+def lstm_stack_recurrence(x1_proj, weights, masks=None):
+    """Run L stacked LSTM layers as one wavefront recurrence.
+
+    Args:
+        x1_proj: ``(T, B, 4H)`` layer-0 input projections plus both biases.
+        weights: ``(w_hh_ts, w_in_ts, biases)``: the L transposed recurrent
+            weights ``(H, 4H)``, the L - 1 transposed seam input weights
+            ``(H, 4H)`` of layers 1..L-1, and their L - 1 combined biases
+            ``(4H,)`` (``b_ih + b_hh``), the JAX function's layout.
+        masks: optional L - 1 ``(T, B, H)`` inter-layer dropout masks,
+            already scaled by ``1/(1-p)``; mask l multiplies layer l's
+            output where it enters layer l + 1. They get no gradient.
+
+    Returns:
+        ``(T, B, H)`` top-layer hidden states: the CUDA kernels for a CUDA
+        tensor (3 <= L <= 8), the plain versions for a CPU tensor. Without a
+        gradient to take, the stash-free forward runs; otherwise the
+        autograd function with the hand-written backward.
+    """
+    w_hh_ts, w_in_ts, biases = (tuple(part) for part in weights)
+    masks = None if masks is None else tuple(masks)
+    if _needs_grad(x1_proj, *w_hh_ts, *w_in_ts, *biases):
+        return _StackFunction.apply(x1_proj, len(w_hh_ts), masks is not None,
+                                    *w_hh_ts, *w_in_ts, *biases, *(masks or ()))
+    if _device_type(x1_proj) == "cuda":
+        return lstm_stack_fwd_cuda(x1_proj, w_hh_ts, w_in_ts, biases, masks)
+    return lstm_stack_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks)

@@ -27,15 +27,16 @@ def forward_rows(module, x: torch.Tensor, *, deterministic: bool = True,
     """Apply the encoder to a window batch: ``(B, K, T, F) -> (B, K, 1)``
     alpha and ``(B, K, n_factors)`` beta.
 
-    Flattens (batch, stocks) into rows like the reference's ``flatten(0, 1)``.
-    The row-tiled kernels need no window boundaries, so unlike the JAX
-    function there is no ``window_rows``. ``deterministic=False`` is the
-    training forward: dropout masks drawn from ``generator`` (or ``masks``).
+    Flattens (batch, stocks) into rows like the reference's ``flatten(0, 1)``
+    and passes ``window_rows=k``, as the JAX function does, so the encoder
+    groups its layers as the JAX encoder does at this window shape.
+    ``deterministic=False`` is the training forward: dropout masks drawn
+    from ``generator`` (or ``masks``).
     """
     b, k = x.shape[:2]
     alpha, beta = module(x.reshape(b * k, *x.shape[2:]),
                          deterministic=deterministic, generator=generator,
-                         masks=masks)
+                         masks=masks, window_rows=k)
     return alpha.reshape(b, k, 1), beta.reshape(b, k, -1)
 
 

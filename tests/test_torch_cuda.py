@@ -5,11 +5,12 @@ no JAX, so on a machine with a card and no JAX it runs on its own:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
-Tolerance 2e-5 abs for a kernel against its plain version (f32, the sums
-taken in another order over up to 12 dependent steps), 5e-5 for the
-encoder and engine end to end (input projection and heads added). The
-weight gradients are sums over up to 12 * 803 rows and are held at 2e-5
-relative to the largest entry.
+Tolerance 2e-5 abs for a forward against its plain version (f32, the sums
+taken in another order over up to 12 dependent steps, 19 wavefront
+iterations for an 8-deep stack), 5e-5 for the encoder and engine end to
+end (input projection and heads added). Backward sweeps and weight
+gradients (sums over up to 12 * 803 rows) are held at 2e-5 relative to the
+largest entry.
 """
 
 import numpy as np
@@ -141,6 +142,9 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
         "lstm_pair_bwd": 1,
         "lstm_bwd": 1,
         "lstm_wgrad": 2,
+        "lstm_stack_fwd": 0,
+        "lstm_stack_fwd_masked": 0,
+        "lstm_stack_bwd": 0,
     }
     ref = [t.clone().requires_grad_(True) for t in base]
     plain = lk.lstm_pair_ref(*ref, mask)
@@ -189,8 +193,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     assert lk.LAUNCHES == before
 
 
-@pytest.mark.parametrize("num_layers", [1, 2, 3])
+@pytest.mark.parametrize("num_layers", [1, 2, 3, 4, 8])
 def test_engine_on_the_card_matches_the_cpu(cuda_device, num_layers):
+    """The engine on the card, each layer group through its kernel (at this
+    small shape the reference's rule fuses every layer, up to 8)."""
     spec = ModelSpec(objective="mse", hidden_size=32, num_layers=num_layers,
                      dropout=0.0)
     state = spec.build_module(
@@ -202,7 +208,181 @@ def test_engine_on_the_card_matches_the_cpu(cuda_device, num_layers):
     x = np.random.default_rng(0).normal(size=(3, 7, 10, 3)).astype(np.float32)
     lk.reset_launch_counts()
     got = gpu.predict(x)
-    assert lk.LAUNCHES["lstm_pair_fwd"] == num_layers // 2
-    assert lk.LAUNCHES["lstm_fwd"] == num_layers % 2
+    groups = gpu._module.layer_groups(10, 4 * 7, False, 7)
+    assert groups == [num_layers]
+    assert lk.LAUNCHES["lstm_fwd"] == int(num_layers == 1)
+    assert lk.LAUNCHES["lstm_pair_fwd"] == int(num_layers == 2)
+    assert lk.LAUNCHES["lstm_stack_fwd"] == int(num_layers >= 3)
     for g, w in zip(got, cpu.predict(x)):
         np.testing.assert_allclose(g, w, atol=5e-5, rtol=0)
+
+
+# The mixed routes the encoder takes at T=60, H=64: pair + single, pair +
+# pair, a stack then a single (model=large training: 7 + 1).
+@pytest.mark.parametrize("groups", [[2, 1], [2, 2], [3, 1], [7, 1]])
+def test_mixed_groups_on_the_card_match_the_cpu(cuda_device, monkeypatch,
+                                                groups):
+    """A training forward and backward with injected masks, the layers
+    grouped as ``groups`` on both sides (set: at this small shape the rule
+    fuses every layer), each group through its kernel on the card and its
+    plain version on the CPU; outputs and every parameter gradient agree."""
+    spec = ModelSpec(objective="mse", hidden_size=32, num_layers=sum(groups),
+                     dropout=0.3)
+    rng = np.random.default_rng(len(groups))
+    x = torch.tensor(rng.normal(size=(25, 10, 3)), dtype=torch.float32)
+    masks = [torch.tensor((rng.random((10, 25, 32)) >= 0.3) / 0.7,
+                          dtype=torch.float32) for _ in range(sum(groups) - 1)]
+    results = []
+    for device in ("cpu", cuda_device):
+        module = spec.build_module(
+            device=device, generator=torch.Generator().manual_seed(5))
+        monkeypatch.setattr(module, "layer_groups", lambda *a, **k: list(groups))
+        lk.reset_launch_counts()
+        alpha, beta = module(x.to(device), deterministic=False,
+                             masks=[m.to(device) for m in masks])
+        (alpha.sum() + beta.sum()).backward()
+        results.append(([alpha, beta], [p.grad for p in module.parameters()]))
+    torch.cuda.synchronize()
+    stacks = sum(d >= 3 for d in groups)
+    assert lk.LAUNCHES == dict.fromkeys(lk.LAUNCHES, 0) | {
+        "lstm_fwd": groups.count(1),
+        "lstm_bwd": groups.count(1),
+        "lstm_pair_fwd_masked": groups.count(2),
+        "lstm_pair_bwd": groups.count(2),
+        "lstm_stack_fwd_masked": stacks,
+        "lstm_stack_bwd": stacks,
+        "lstm_wgrad": len(groups),
+    }
+    (cpu_out, cpu_grads), (gpu_out, gpu_grads) = results
+    for g, w in zip(gpu_out, cpu_out):
+        torch.testing.assert_close(g.cpu(), w.detach(), atol=5e-5, rtol=0)
+    for g, w in zip(gpu_grads, cpu_grads):
+        _close_rel(g.cpu(), w)
+
+
+def _stack_case(seed, n_layers, rows, hidden, n_t=12, masked=True,
+                device="cpu"):
+    """x1_proj, the weights ``(w_hh, w_in, biases)``, the masks (or None) and
+    a cotangent of the top layer's h."""
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(hidden)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    x = t(rng.normal(size=(n_t, rows, 4 * hidden)))
+    w_hh = [t(rng.uniform(-scale, scale, (hidden, 4 * hidden)))
+            for _ in range(n_layers)]
+    w_in = [t(rng.uniform(-scale, scale, (hidden, 4 * hidden)))
+            for _ in range(n_layers - 1)]
+    biases = [t(rng.uniform(-scale, scale, (4 * hidden,)))
+              for _ in range(n_layers - 1)]
+    masks = [t((rng.random((n_t, rows, hidden)) >= 0.2) / 0.8)
+             for _ in range(n_layers - 1)] if masked else None
+    return x, (w_hh, w_in, biases), masks, t(rng.normal(size=(n_t, rows, hidden)))
+
+
+# Depths 3, 4, 7 (not a power of two) and 8; rows 1 to 203 (each row tile,
+# ragged tiles); H not a multiple of 4.
+STACK_CASES = [(3, 1, 5), (3, 9, 16), (4, 25, 64), (4, 200, 64), (7, 37, 13),
+               (7, 25, 64), (8, 203, 64), (8, 2, 64)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_layers,rows,hidden", STACK_CASES)
+def test_stack_kernels_match_plain(cuda_device, n_layers, rows, hidden, masked):
+    """The stack forward (with and without its stashes), its backward sweep
+    and its 2L - 1 weight gradients, each against its plain version."""
+    x, (w_hh, w_in, biases), masks, dh = _stack_case(
+        rows + n_layers, n_layers, rows, hidden, masked=masked,
+        device=cuda_device)
+    want_hs, want_cs = lk.lstm_stack_ref(x, w_hh, w_in, biases, masks,
+                                         return_stash=True)
+    got_hs, got_cs = lk.lstm_stack_fwd_cuda(x, w_hh, w_in, biases, masks,
+                                            stash=True)
+    for g, w in zip(got_hs + got_cs, want_hs + want_cs):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+    top = lk.lstm_stack_fwd_cuda(x, w_hh, w_in, biases, masks)
+    torch.testing.assert_close(top, want_hs[-1], atol=2e-5, rtol=0)
+    args = (dh, x, masks, want_hs, want_cs, w_hh, w_in, biases)
+    want = lk.lstm_stack_bwd_ref(*args)
+    for g, w in zip(lk.lstm_stack_bwd_cuda(*args), want):
+        _close_rel(g, w)
+    for got_group, want_group in zip(lk.lstm_stack_wgrad(want, want_hs, masks),
+                                     lk.lstm_stack_wgrad_ref(want, want_hs, masks)):
+        for g, w in zip(got_group, want_group):
+            _close_rel(g, w)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_stack_gradients_go_through_the_kernels(cuda_device, monkeypatch,
+                                                masked):
+    """A CUDA tensor that needs a gradient runs the stack's stash forward,
+    its sweep and one weight-gradient pass, never a plain version, and its
+    gradients match autograd through the plain forward."""
+    for name in ("lstm_stack_bwd_ref", "lstm_stack_wgrad_ref", "lstm_bwd_ref",
+                 "lstm_stack_ref"):
+        monkeypatch.setattr(lk, name, _refuse)
+    x, weights, masks, dh = _stack_case(11, 4, 25, 64, masked=masked,
+                                        device=cuda_device)
+    flat = [x, *weights[0], *weights[1], *weights[2]]
+    leaves = [t.clone().requires_grad_(True) for t in flat]
+    lk.reset_launch_counts()
+    out = lk.lstm_stack_recurrence(
+        leaves[0], (leaves[1:5], leaves[5:8], leaves[8:11]), masks)
+    (out * dh).sum().backward()
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == dict.fromkeys(lk.LAUNCHES, 0) | {
+        "lstm_stack_fwd_masked" if masked else "lstm_stack_fwd": 1,
+        "lstm_stack_bwd": 1,
+        "lstm_wgrad": 1,
+    }
+    monkeypatch.undo()
+    ref = [t.clone().requires_grad_(True) for t in flat]
+    plain = lk.lstm_stack_ref(ref[0], ref[1:5], ref[5:8], ref[8:11], masks)
+    (plain * dh).sum().backward()
+    for got, want in zip(leaves, ref):
+        _close_rel(got.grad, want.grad)
+
+
+def test_stack_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x, (w_hh, w_in, biases), masks, dh = _stack_case(2, 9, 4, 8,
+                                                     device=cuda_device)
+    before = dict(lk.LAUNCHES)
+    with pytest.raises(ValueError, match="3..8 layers, got 9"):
+        lk.lstm_stack_recurrence(x, (w_hh, w_in, biases), masks)
+    w_hh, w_in, biases, masks = w_hh[:4], w_in[:3], biases[:3], masks[:3]
+    with pytest.raises(ValueError, match="3..8 layers, got 2"):
+        lk.lstm_stack_fwd_cuda(x, w_hh[:2], w_in[:1], biases[:1])
+    with pytest.raises(TypeError):
+        lk.lstm_stack_recurrence(x.double(), ([w.double() for w in w_hh],
+                                              [w.double() for w in w_in],
+                                              [b.double() for b in biases]))
+    with pytest.raises(TypeError):
+        lk.lstm_stack_recurrence(*_grad_leaves(x.double(), w_hh, w_in, biases))
+    strided = masks[1].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.lstm_stack_recurrence(x, (w_hh, w_in, biases),
+                                 [masks[0], strided, masks[2]])
+    with pytest.raises(ValueError, match="masks\\[2\\] has shape"):
+        lk.lstm_stack_fwd_cuda(x, w_hh, w_in, biases,
+                               masks[:2] + [masks[2][:, :, :4].contiguous()])
+    wide = lk.MAX_HIDDEN + 1
+    big = torch.zeros((2, 3, 4 * wide), device=cuda_device)
+    wide_w = [torch.zeros((wide, 4 * wide), device=cuda_device) for _ in range(3)]
+    wide_b = [torch.zeros((4 * wide,), device=cuda_device) for _ in range(2)]
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        lk.lstm_stack_recurrence(big, (wide_w, wide_w[:2], wide_b))
+    hs, cs = lk.lstm_stack_ref(x, w_hh, w_in, biases, masks, return_stash=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.lstm_stack_bwd_cuda(dh.transpose(0, 1).contiguous().transpose(0, 1),
+                               x, masks, hs, cs, w_hh, w_in, biases)
+    assert lk.LAUNCHES == before
+
+
+def _grad_leaves(x, w_hh, w_in, biases):
+    """Leaves that need a gradient, in f64: the training path."""
+    return (x.requires_grad_(True),
+            ([w.double().requires_grad_(True) for w in w_hh],
+             [w.double().requires_grad_(True) for w in w_in],
+             [b.double().requires_grad_(True) for b in biases]))

@@ -78,7 +78,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 def test_build_covers_every_cuda_source(monkeypatch, tmp_path):
     names = {src.stem for src in _build.sources()}
-    assert names == {"lstm_fwd", "lstm_bwd"}
+    assert names == {"lstm_fwd", "lstm_bwd", "lstm_stack"}
     for src in _build.sources():
         lib = _build.library_path(src)
         assert lib.parent == _build.BUILD_DIR and src.stem in lib.name

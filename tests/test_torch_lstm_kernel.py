@@ -93,9 +93,15 @@ def test_cpu_dispatch_launches_no_kernel():
     leaves = [a.requires_grad_(True) for a in args]
     lk.lstm_pair_recurrence(*leaves).sum().backward()
     lk.lstm_recurrence(leaves[0], leaves[1]).sum().backward()
+    x, w1, wi2, b2, w2 = leaves
+    stack = (x, ([w1, w2, w1], [wi2, wi2], [b2, b2]))
+    lk.lstm_stack_recurrence(*stack).sum().backward()
+    with torch.no_grad():
+        lk.lstm_stack_recurrence(*stack)
     assert set(lk.LAUNCHES) == {
         "lstm_pair_fwd", "lstm_pair_fwd_masked", "lstm_fwd", "lstm_pair_bwd",
-        "lstm_bwd", "lstm_wgrad",
+        "lstm_bwd", "lstm_wgrad", "lstm_stack_fwd", "lstm_stack_fwd_masked",
+        "lstm_stack_bwd",
     }
     assert not any(lk.LAUNCHES.values())
 

@@ -120,10 +120,13 @@ def test_dropout_masks_follow_torch_semantics(num_layers):
         assert abs(float((m > 0).float().mean()) - 0.75) < 0.02
 
 
-def test_training_forward_with_injected_masks_matches_jax():
-    """A 3-layer training forward with injected masks against the JAX
+def test_training_forward_with_injected_masks_matches_jax(monkeypatch):
+    """A 3-layer training forward with injected masks, its layers grouped as
+    pair + single (the grouping at T=60, H=64, 100 rows; at this toy shape
+    the rule would fuse all three, so the groups are set), against the JAX
     package's layer functions (interpret-mode Pallas pair with the seam
     mask, the boundary mask, the single layer) on the same weights."""
+    import masters_thesis_tpu_torch.models.lstm as port_lstm
     from masters_thesis_tpu.ops.lstm_kernel import (
         lstm_pair_recurrence as jax_pair,
         lstm_recurrence as jax_recurrence,
@@ -131,6 +134,13 @@ def test_training_forward_with_injected_masks_matches_jax():
 
     _, params, port = _jax_pair(3, 1, seed=4)
     port.dropout = 0.2  # masks are used in training mode with dropout on
+    monkeypatch.setattr(port, "layer_groups", lambda *a, **k: [2, 1])
+    ran = []
+    for name, depth in (("lstm_pair_recurrence", 2), ("lstm_recurrence", 1)):
+        def spy(*a, _f=getattr(port_lstm, name), _d=depth, **k):
+            ran.append(_d)
+            return _f(*a, **k)
+        monkeypatch.setattr(port_lstm, name, spy)
     rng = np.random.default_rng(4)
     x = rng.normal(size=(6, T, F)).astype(np.float32)
     masks = [((rng.random((T, 6, H)) >= 0.2) / 0.8).astype(np.float32)
@@ -150,6 +160,7 @@ def test_training_forward_with_injected_masks_matches_jax():
     with torch.no_grad():
         got_a, _ = port(torch.from_numpy(x), deterministic=False,
                         masks=[torch.from_numpy(m) for m in masks])
+    assert ran == [2, 1]
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a), atol=ATOL, rtol=0)
 
 
