@@ -1,5 +1,5 @@
 """Serve and train model=small and model=medium on one NVIDIA GPU through the
-PyTorch/CUDA port.
+PyTorch/CUDA port, and model=small at a one-year lookback.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,10 @@ synthetic windows, followed by ``Trainer.test`` and serving the ``best``
 checkpoint. model=small runs on 100-row windows (pairs); model=medium on
 25-row windows, the shape of the 25 Fama-French portfolios, where the
 encoder groups its 4 layers into one 4-deep stack; model=large at that shape
-runs the 7- and 8-deep stacks. Trajectories and gradients are held against
-the CPU port. Each phase prints one JSON line; the last line is
+runs the 7- and 8-deep stacks. At a 252-day lookback model=small runs every
+layer alone through the time-blocked kernels, as the reference routes it:
+served, trained (with and without remat) and evaluated (the ΔL table).
+Trajectories and gradients are held against the CPU port. Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
 training data is generated under ``data/chip_smoke/<stocks>x<samples>/``
@@ -27,6 +29,7 @@ Imports only torch, numpy and the port (never JAX or the JAX package).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -43,6 +46,7 @@ from masters_thesis_tpu_torch.data.pipeline import (
     FinancialWindowDataModule,
     bootstrap_synthetic,
 )
+from masters_thesis_tpu_torch import evaluation
 from masters_thesis_tpu_torch.data.synthetic import SyntheticLogReturns
 from masters_thesis_tpu_torch.models.objectives import ModelSpec, batched_objective
 from masters_thesis_tpu_torch.ops import _build
@@ -61,7 +65,7 @@ from masters_thesis_tpu_torch.train.steps import (
     metric_means,
     train_step,
 )
-from masters_thesis_tpu_torch.train.trainer import Trainer, device_split
+from masters_thesis_tpu_torch.train.trainer import EVAL_CHUNK, Trainer, device_split
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the kernels
 # run f32 products on the CUDA cores, so the f32 rate without tensor cores.
@@ -82,6 +86,7 @@ STACK_LAYERS = 4  # model=medium: one 4-deep stack at 25 rows
 FWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_fwd.cu"
 BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_bwd.cu"
 STACK_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack.cu"
+TB_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_tb.cu"
 TPU = "masters_thesis_tpu/ops/lstm_kernel.py"
 # Each kernel of the port: (its source, the TPU kernel it replaces).
 # lstm_wgrad_stack is lstm_wgrad at a stack's 2L - 1 jobs; its launches
@@ -97,7 +102,12 @@ KERNELS = {
     "lstm_stack_fwd_masked": (STACK_SOURCE, f"{TPU}:1118"),
     "lstm_stack_bwd": (STACK_SOURCE, f"{TPU}:1239"),
     "lstm_wgrad_stack": (BWD_SOURCE, f"{TPU}:1239"),
+    "lstm_tb_fwd": (TB_SOURCE, f"{TPU}:339"),
+    "lstm_tb_bwd": (TB_SOURCE, f"{TPU}:404"),
 }
+# The long lookback: datamodule.lookback_window=252 (one trading year),
+# target 30, stride 282 (non-overlapping windows, as the default's 60 + 30).
+T_LONG, STRIDE_LONG = 252, 282
 
 # Training: configs/model/small.yaml, configs/loss/mse.yaml and
 # configs/trainer/fast.yaml (clip 5.0), on configs/datamodule/synthetic.yaml
@@ -156,7 +166,9 @@ def device_ops(call, calls: int = 10, attempts: int = 3) -> list[dict]:
     ``calls`` calls: device-side events only (kernels, copies), so an
     operator's time is its kernels' time, counted once. Largest first. A
     trace that holds no device event is taken again (up to ``attempts``
-    traces), then raises: a call on the card takes device time."""
+    traces); late in a long run the profiler can record none at all, and
+    then the card's time a call comes from CUDA events (``spin_ms``), as
+    one entry without the split by operation."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -174,7 +186,8 @@ def device_ops(call, calls: int = 10, attempts: int = 3) -> list[dict]:
         )
         if device:
             return [{"name": name[:80], "ms": ms} for name, ms in device]
-    raise RuntimeError(f"{attempts} profiler traces recorded no device time")
+    return [{"name": f"all operations (CUDA events: {attempts} profiler "
+                     "traces recorded no device time)", "ms": spin_ms(call)}]
 
 
 def spin_ms(fn, calls: int = 5) -> float:
@@ -457,14 +470,16 @@ def _training_inputs(rows: int):
 
 def _measure(name: str, rows: int, kernel, plain, library, same: bool,
              flops: float, nbytes: float, relative: bool, full=None,
-             note: str | None = None, check=None) -> dict:
+             note: str | None = None, check=None, n_t: int = T,
+             extra: dict | None = None) -> dict:
     """One kernel row: the kernel against its plain version on the same
     inputs, then the kernel's, the plain version's and the library call's
     times, and the bound. ``same`` says whether the library call computes
     the same function (then its own error is reported); ``relative`` holds
     the error to KERNEL_TOL of the largest entry instead of KERNEL_TOL abs;
     ``full`` is the whole cuDNN backward (data and weight gradients);
-    ``check`` returns ``(got, want)`` of further outputs to hold."""
+    ``check`` returns ``(got, want)`` of further outputs to hold; ``extra``
+    fields join the row."""
     with torch.no_grad():
         got = kernel()
         torch.cuda.synchronize()
@@ -479,10 +494,11 @@ def _measure(name: str, rows: int, kernel, plain, library, same: bool,
         "phase": "kernel",
         "name": name,
         "rows": rows,
-        "T": T,
+        "T": n_t,
         "H": H,
         "max_abs_err": err,
         "tol": tol,
+        **(extra or {}),
         **timed("ms", kernel),
         **timed("plain_ms", plain, calls=3, spin=False, iters=3, loops=3,
                 warmup=1),
@@ -763,21 +779,135 @@ def phase_stack_vs_pairs() -> list[dict]:
     return out
 
 
+# -------------------------------------------------- time-blocked kernels
+
+
+def _long_inputs(rows: int, seed: int) -> dict:
+    """One layer at T=252, H=64: x_proj, the weight, a cotangent of h at
+    every step, and the stashes the plain forward makes."""
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(H)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(DEVICE)
+
+    v = {"x": t(rng.standard_normal((T_LONG, rows, 4 * H))),
+         "w": t(rng.uniform(-scale, scale, (H, 4 * H))),
+         "dh": t(0.1 * rng.standard_normal((T_LONG, rows, H)))}
+    dev = torch.device(DEVICE)
+    v["fwd_chunk"] = lk.lstm_tb_time_chunk_cuda(T_LONG, rows, H, dev, False)
+    v["bwd_chunk"] = lk.lstm_tb_time_chunk_cuda(T_LONG, rows, H, dev, True)
+    with torch.no_grad():
+        v["hs"], v["cs"] = lk.lstm_tb_fwd_ref(v["x"], v["w"], v["fwd_chunk"])
+    return v
+
+
+def _cudnn_backward_hh(x, w, dh):
+    """torch.autograd.grad through cuDNN's one-layer backward for x and the
+    recurrent weight, the forward run once outside the timed calls: x's
+    gradient (layer 0's d_pre, through the identity input weight) and
+    dW_hh, transposed to the kernels' (H, 4H)."""
+    lstm = _cudnn_module([(w,)])
+    for p in lstm.parameters():
+        p.requires_grad_(p is lstm.weight_hh_l0)
+    xg = x.detach().clone().requires_grad_(True)
+    out = lstm(xg)[0]
+
+    def call():
+        gx, gw = torch.autograd.grad(out, [xg, lstm.weight_hh_l0], dh,
+                                     retain_graph=True)
+        return gx, gw.T
+    return call
+
+
+def phase_tblocked_kernels() -> dict:
+    """The time-blocked kernels against their plain versions at a one-year
+    lookback (T=252, H=64), on one 100-row window (training) and on 800
+    rows (serving's bucket 8), each beside the resident kernels on the same
+    inputs (``resident_ms``: lstm_fwd; lstm_bwd and the single weight-
+    gradient job) and cuDNN.
+
+    FLOPs: one (rows, H) @ (H, 4H) product a step forward, three backward
+    (the recomputed gates, the transposed product, the dw update). Bytes:
+    each input read once, each output written once (dw the summed
+    (H, 4H))."""
+    results = {}
+    for rows in (100, 800):
+        v = _long_inputs(rows, seed=rows)
+        x, w, dh, hs, cs = (v[k] for k in ("x", "w", "dh", "hs", "cs"))
+        product = 2 * T_LONG * rows * H * 4 * H
+        plane_h = 4 * T_LONG * rows * H
+        plane_x = 4 * T_LONG * rows * 4 * H
+        weight = 4 * H * 4 * H
+        with torch.no_grad():
+            same_as_resident = (
+                all(map(torch.equal, lk.lstm_tb_fwd_cuda(x, w, return_c=True),
+                        lk.lstm_fwd_cuda(x, w, return_c=True))),
+                torch.equal(lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w)[0],
+                            lk.lstm_bwd_cuda(dh, x, hs, cs, w)))
+
+        def resident_bwd():
+            dx = lk.lstm_bwd_cuda(dh, x, hs, cs, w)
+            return dx, lk.lstm_single_wgrad(dx, hs)
+
+        rows_out = [
+            _measure(
+                "lstm_tb_fwd", rows,
+                lambda: lk.lstm_tb_fwd_cuda(x, w),
+                lambda: lk.lstm_tb_fwd_ref(x, w, v["fwd_chunk"])[0],
+                _inference(_cudnn_forward(x, [(w,)])), True,
+                product, plane_x + weight + plane_h, False,
+                check=lambda: (lk.lstm_tb_fwd_cuda(x, w, return_c=True)[1], cs),
+                n_t=T_LONG,
+                extra={"time_chunk": v["fwd_chunk"],
+                       "bit_equal_to_resident": same_as_resident[0],
+                       **timed("resident_ms", lambda: lk.lstm_fwd_cuda(x, w))},
+            ),
+            _measure(
+                "lstm_tb_bwd", rows,
+                lambda: lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w),
+                lambda: lk.lstm_tb_bwd_ref(dh, x, hs, cs, w, v["bwd_chunk"],
+                                           lk._row_tile(rows)),
+                _cudnn_backward_hh(x, w, dh), True,
+                3 * product, 3 * plane_h + 2 * plane_x + 2 * weight, True,
+                note="cuDNN's weight backward also forms the identity input "
+                     "weight's (4H, 4H) gradient and the biases'",
+                n_t=T_LONG,
+                extra={"time_chunk": v["bwd_chunk"],
+                       "dx_bit_equal_to_resident": same_as_resident[1],
+                       **timed("resident_ms", resident_bwd)},
+            ),
+        ]
+        for row in rows_out:
+            results[(row["name"], rows)] = row
+    return results
+
+
 # ----------------------------------------------------------------- serving
 
 
-def _synthetic_windows(stocks: int = K_STOCKS) -> np.ndarray:
+def _synthetic_windows(stocks: int = K_STOCKS, lookback: int = T,
+                       stride: int = 90) -> np.ndarray:
     """configs/datamodule/synthetic.yaml windows: lookback 60, target 30,
-    stride 90, interaction-only features, from ``stocks`` stocks x 20,000
-    samples."""
+    stride 90 (or ``lookback`` and ``stride``), interaction-only features,
+    from ``stocks`` stocks x 20,000 samples."""
     r_stocks, r_market, _, _ = SyntheticLogReturns.generate(
         stocks, 20_000, seed=0
     )
     x, _ = lookback_target_split(
         torch.from_numpy(r_stocks), torch.from_numpy(r_market),
-        lookback_window=T, target_window=30, stride=90,
+        lookback_window=lookback, target_window=30, stride=stride,
     )
     return add_quadratic_features(x, interaction_only=True).numpy()
+
+
+def _routes(module, n_t: int, rows: int, has_mask: bool,
+            window_rows: int | None) -> list:
+    """The route of each layer group of a forward: ``stack``, ``pair``, or
+    the reference's single-layer route."""
+    return [lk.single_layer_route(n_t, rows, H, window_rows) if depth == 1
+            else ("pair" if depth == 2 else "stack")
+            for depth in module.layer_groups(n_t, rows, has_mask, window_rows)]
 
 
 def _small_spec(num_layers: int = 2):
@@ -797,11 +927,12 @@ def _medium_spec(num_layers: int = STACK_LAYERS, dropout: float = 0.3):
     )
 
 
-def _engines(spec, seed: int, stocks: int = K_STOCKS):
+def _engines(spec, seed: int, stocks: int = K_STOCKS, lookback: int = T):
     state = spec.build_module(
         device="cpu", generator=torch.Generator().manual_seed(seed)
     ).state_dict()
-    kw = dict(n_stocks=stocks, lookback=T, n_features=3, buckets=(1, 2, 4, 8))
+    kw = dict(n_stocks=stocks, lookback=lookback, n_features=3,
+              buckets=(1, 2, 4, 8))
     return (
         PredictEngine(spec, state, device=DEVICE, **kw),
         PredictEngine(spec, state, device="cpu", **kw),
@@ -817,7 +948,8 @@ def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
     """Bursts of requests through PredictServer on the card, every answer
     held against the CPU engine; ``kernel`` must launch, ``absent`` must
     not."""
-    gpu, cpu = _engines(spec, seed=0, stocks=stocks)
+    lookback = windows.shape[2]
+    gpu, cpu = _engines(spec, seed=0, stocks=stocks, lookback=lookback)
     server = PredictServer(gpu, max_wait_s=0.002)
     bursts = (1, 2, 4, 8, 3, 8, 5, 1, 6, 8, 2, 7, 4, 1, 8)
     sent, responses = [], []
@@ -853,8 +985,12 @@ def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
         "phase": phase,
         "model": model,
         "stocks": stocks,
-        "layer_groups": {b: gpu._module.layer_groups(T, b * stocks, False, stocks)
+        "lookback": lookback,
+        "layer_groups": {b: gpu._module.layer_groups(lookback, b * stocks, False,
+                                                     stocks)
                          for b in buckets},
+        "routes": {b: _routes(gpu._module, lookback, b * stocks, False, stocks)
+                   for b in buckets},
         "requests": len(responses),
         "ok": statuses.count("ok"),
         "max_abs_err_vs_cpu": err,
@@ -893,6 +1029,13 @@ def phase_serve_medium(windows: np.ndarray) -> dict:
     4-deep stack, no pair kernel."""
     return _serve(_medium_spec(), windows, K_MEDIUM, "serve_medium", "medium",
                   "lstm_stack_fwd", absent=("lstm_pair_fwd", "lstm_fwd"))
+
+
+def phase_serve_long(windows: np.ndarray) -> dict:
+    """model=small at a 252-day lookback: every layer alone through the
+    time-blocked forward at every bucket, no resident kernel."""
+    return _serve(_small_spec(), windows, K_STOCKS, "serve_long", "small",
+                  "lstm_tb_fwd", absent=("lstm_fwd", "lstm_pair_fwd"))
 
 
 def phase_odd_layers(windows: np.ndarray) -> dict:
@@ -972,19 +1115,21 @@ def _wall_and_device(call, calls: int = 10):
 # ---------------------------------------------------------------- training
 
 
-def _train_datamodule(stocks: int = K_STOCKS) -> FinancialWindowDataModule:
+def _train_datamodule(stocks: int = K_STOCKS, lookback: int = T,
+                      stride: int = 90) -> FinancialWindowDataModule:
     """configs/datamodule/synthetic.yaml windows (lookback 60, target 30,
-    stride 90, interaction-only, batch_size 1) from ``stocks`` stocks x
-    200,000 samples of the DGP with dgp_seed 0, generated next to this
-    script."""
+    stride 90, interaction-only, batch_size 1; or ``lookback`` and
+    ``stride``) from ``stocks`` stocks x 200,000 samples of the DGP with
+    dgp_seed 0, generated next to this script."""
     t0 = time.perf_counter()
     root = data_dir(stocks)
     bootstrap_synthetic(root, n_stocks=stocks, n_samples=TRAIN_SAMPLES, seed=0)
-    dm = FinancialWindowDataModule(root, lookback_window=T, target_window=30,
-                                   stride=90, batch_size=1)
+    dm = FinancialWindowDataModule(root, lookback_window=lookback,
+                                   target_window=30, stride=stride, batch_size=1)
     dm.prepare_data()
     dm.setup()
     emit({"phase": "train_data", "seconds": time.perf_counter() - t0,
+          "lookback": lookback, "stride": stride,
           "windows": {"train": len(dm.train_range), "val": len(dm.val_range),
                       "test": len(dm.test_range)},
           "stocks": stocks, "samples": TRAIN_SAMPLES})
@@ -1031,10 +1176,11 @@ def _window_batches(dm, n: int) -> list:
             for i in range(n)]
 
 
-def _train_parity(dm, spec, phase: str, kernels: tuple) -> dict:
+def _train_parity(dm, spec, phase: str, kernels: tuple, per_step: int = 1) -> dict:
     """``spec`` with dropout 0: PARITY_STEPS steps on the same windows, in
     the same order, from the same weights, on the card and on the CPU (plain
-    versions); each of ``kernels`` launches once a step on the card."""
+    versions); each of ``kernels`` launches ``per_step`` times a step on the
+    card."""
     state = spec.build_module(
         device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
     batches = _window_batches(dm, PARITY_STEPS)
@@ -1051,6 +1197,7 @@ def _train_parity(dm, spec, phase: str, kernels: tuple) -> dict:
     out = {
         "phase": phase,
         "num_layers": spec.num_layers,
+        "lookback": dm.lookback_window,
         "steps": PARITY_STEPS,
         "rows_per_step": rows,
         "loss_first": cpu_losses[0],
@@ -1068,9 +1215,10 @@ def _train_parity(dm, spec, phase: str, kernels: tuple) -> dict:
     if not (loss_gap <= PARITY_LOSS_RTOL and param_gap <= PARITY_PARAM_TOL
             and grad_gap <= GRAD_RTOL):
         raise AssertionError(f"card and CPU trajectories differ: {out}")
-    missed = {k: launches[k] for k in kernels if launches[k] != PARITY_STEPS}
+    missed = {k: launches[k] for k in kernels
+              if launches[k] != per_step * PARITY_STEPS}
     if missed:
-        raise AssertionError(f"{phase}: not once a step: {missed}")
+        raise AssertionError(f"{phase}: not {per_step} a step: {missed}")
     return out
 
 
@@ -1087,12 +1235,14 @@ def phase_train_medium_parity(dm) -> dict:
                          ("lstm_stack_fwd", "lstm_stack_bwd", "lstm_wgrad"))
 
 
-def _train(dm, spec, phase: str, model: str, kernels: tuple) -> dict:
+def _train(dm, spec, phase: str, model: str, kernels: tuple,
+           per_step: int = 1) -> dict:
     """Trainer.fit for 2 epochs with the configs' defaults, Trainer.test,
     and the best checkpoint served by PredictEngine; each of ``kernels``
-    launches once a training step."""
+    launches ``per_step`` times a training step."""
     stocks = dm.train_arrays().x.shape[1]
-    ckpt_dir = Path(dm.data_dir) / f"ckpt_{model}"
+    lookback = dm.lookback_window
+    ckpt_dir = Path(dm.data_dir) / f"ckpt_{phase}"
     trainer = Trainer(max_epochs=TRAIN_EPOCHS, gradient_clip_val=CLIP,
                       check_val_every_n_epoch=1, ckpt_dir=ckpt_dir, seed=0,
                       device=DEVICE)
@@ -1112,7 +1262,7 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple) -> dict:
     test_metrics = trainer.test(spec, result.state, dm)
 
     best, *_ = load_checkpoint(ckpt_dir, "best")
-    engine = PredictEngine(spec, best, n_stocks=stocks, lookback=T,
+    engine = PredictEngine(spec, best, n_stocks=stocks, lookback=lookback,
                            device=DEVICE, buckets=(1, 2, 4, 8))
     x = dm.test_arrays().x[:8]
     reference = spec.build_module(device=DEVICE)
@@ -1129,9 +1279,15 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple) -> dict:
         "phase": phase,
         "model": model,
         "num_layers": spec.num_layers,
+        "lookback": lookback,
         "layer_groups": {
-            "train": module.layer_groups(T, stocks, True, stocks),
-            "eval": module.layer_groups(T, stocks, False, stocks),
+            "train": module.layer_groups(lookback, stocks, True, stocks),
+            "eval": module.layer_groups(lookback, stocks, False, stocks),
+        },
+        "routes": {
+            "train": _routes(module, lookback, stocks, True, stocks),
+            "eval": _routes(module, lookback, EVAL_CHUNK * stocks, False,
+                            stocks),
         },
         "epochs": TRAIN_EPOCHS,
         "steps": steps,
@@ -1146,6 +1302,7 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple) -> dict:
         "test": test_metrics,
         "served_best_max_abs_err": served_err,
         "served_tol": SERVE_TOL,
+        "checkpoints": str(ckpt_dir),
         "launches": launches,
     }
     emit(out)
@@ -1153,10 +1310,10 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple) -> dict:
         raise AssertionError(f"non-finite or missing losses: {out}")
     if not final_val < init_val:
         raise AssertionError(f"val loss did not fall: {init_val} -> {final_val}")
-    missed = {k: launches[k] for k in kernels if launches[k] != steps}
+    missed = {k: launches[k] for k in kernels if launches[k] != per_step * steps}
     if missed:
-        raise AssertionError(f"{phase}: not once in each of {steps} steps: "
-                             f"{missed}")
+        raise AssertionError(f"{phase}: not {per_step} in each of {steps} "
+                             f"steps: {missed}")
     if not served_err <= SERVE_TOL:
         raise AssertionError(f"served best checkpoint differs: {served_err}")
     return out
@@ -1172,6 +1329,119 @@ def phase_train_medium(dm) -> dict:
     stack, its sweep and one weight-gradient pass each step."""
     return _train(dm, _medium_spec(), "train_medium", "medium",
                   ("lstm_stack_fwd_masked", "lstm_stack_bwd", "lstm_wgrad"))
+
+
+def phase_train_long_parity(dm) -> dict:
+    """model=small at full width with dropout 0 on 100-row windows of 252
+    days: both layers alone, each through the time-blocked forward and
+    backward once a step."""
+    return _train_parity(dm, _train_spec(dropout=0.0), "train_long_parity",
+                         ("lstm_tb_fwd", "lstm_tb_bwd"), per_step=2)
+
+
+def _print_delta_table(delta: dict) -> None:
+    print("ΔL on the test split, above the target-window OLS "
+          f"(ζ = {delta['zeta']:g}):", flush=True)
+    print(f"{'':8}{'ΔL_MSE':>16}{'ΔL_NLL':>16}{'ΔL_MIX':>16}", flush=True)
+    for key in ("model", "ols"):
+        d = delta[key]
+        print(f"{key:8}{d['delta_mse']:16.6e}{d['delta_nll']:16.6e}"
+              f"{d['delta_mix']:16.6e}", flush=True)
+
+
+def phase_train_long(dm) -> dict:
+    """model=small (dropout 0.2) at a 252-day lookback: Trainer.fit (every
+    step two time-blocked forwards and backwards, validation through the
+    forward), Trainer.test, the best checkpoint served, evaluation's ΔL
+    table on it, and where one step's time goes."""
+    spec = _train_spec()
+    out = _train(dm, spec, "train_long", "small", ("lstm_tb_bwd",), per_step=2)
+    launches = out["launches"]
+    if launches["lstm_tb_fwd"] < 2 * out["steps"] or any(
+            launches[k] for k in ("lstm_fwd", "lstm_bwd", "lstm_pair_fwd",
+                                  "lstm_pair_fwd_masked", "lstm_pair_bwd",
+                                  "lstm_wgrad")):
+        raise AssertionError(f"train_long left the time-blocked kernels: "
+                             f"{launches}")
+    best, *_ = load_checkpoint(out["checkpoints"], "best")
+    t0 = time.perf_counter()
+    estimates = evaluation.collect_test_results(spec, best, dm, device=DEVICE)
+    delta = evaluation.delta_losses(spec, best, dm, estimates=estimates,
+                                    device=DEVICE)
+    eval_s = time.perf_counter() - t0
+    _print_delta_table(delta)
+    values = [v for key in ("model", "ols") for v in delta[key].values()]
+    values += list(delta["baseline"].values())
+    emit({"phase": "train_long_delta_losses", "windows": len(dm.test_range),
+          "seconds": eval_s, "delta_losses": delta,
+          "alpha_model_shape": list(estimates["alpha"]["model"].shape)})
+    if not np.isfinite(values).all():
+        raise AssertionError(f"non-finite ΔL: {delta}")
+    breakdown = _train_breakdown(dm, spec, "train_long_breakdown")
+    out.update(delta_losses=delta, device_idle_share=breakdown["device_idle_share"],
+               step_wall_ms_p50=breakdown["step_wall_ms_p50"])
+    return out
+
+
+def _remat_run(spec, state, batches, masks) -> dict:
+    """``len(batches)`` train steps on the card with injected masks: the
+    losses, the launches, and the device memory the first step allocated
+    at its peak above what was allocated before it."""
+    module = spec.build_module(device=DEVICE)
+    module.load_state_dict(state)
+    optimizer = make_optimizer(module, CLIP, spec.weight_decay)
+    loss_fn = batched_objective(spec.window_objective())
+    losses = []
+    lk.reset_launch_counts()
+    for i, arrays in enumerate(batches):
+        batch = Batch(*(torch.from_numpy(a).to(DEVICE) for a in arrays))
+        step_masks = [m.to(DEVICE) for m in masks[i]]
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        sums = train_step(module, optimizer, loss_fn, batch, spec.learning_rate,
+                          masks=step_masks)
+        losses.append(float(sums["total"][0] / sums["total"][1]))
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() - before
+    return {"losses": losses, "launches": dict(lk.LAUNCHES),
+            "step_peak_bytes": peak}
+
+
+def phase_train_long_remat(dm, steps: int = 5) -> dict:
+    """model=small (dropout 0.2, injected masks) at a 252-day lookback:
+    ``steps`` steps with remat against the same steps without it. The
+    losses are bit-equal, the forward runs twice a layer with remat."""
+    plain_spec = _train_spec()
+    stocks = dm.train_arrays().x.shape[1]
+    init = plain_spec.build_module(device="cpu",
+                                   generator=torch.Generator().manual_seed(3))
+    masks = [init.draw_masks(T_LONG, stocks, torch.Generator().manual_seed(20 + i))
+             for i in range(steps)]
+    batches = _window_batches(dm, steps)
+    runs = {remat: _remat_run(dataclasses.replace(plain_spec, remat=remat),
+                              init.state_dict(), batches, masks)
+            for remat in (False, True)}
+    out = {
+        "phase": "train_long_remat",
+        "steps": steps,
+        "losses": runs[False]["losses"],
+        "losses_bit_equal": runs[True]["losses"] == runs[False]["losses"],
+        "tb_fwd_launches": {str(k): r["launches"]["lstm_tb_fwd"]
+                            for k, r in runs.items()},
+        "tb_bwd_launches": {str(k): r["launches"]["lstm_tb_bwd"]
+                            for k, r in runs.items()},
+        "step_peak_bytes": {str(k): r["step_peak_bytes"] for k, r in runs.items()},
+    }
+    emit(out)
+    if not out["losses_bit_equal"]:
+        raise AssertionError(f"remat changed the losses: {runs}")
+    fwd = out["tb_fwd_launches"]
+    if fwd["True"] != 2 * fwd["False"] or fwd["False"] != 2 * steps or (
+            out["tb_bwd_launches"]["True"] != 2 * steps):
+        raise AssertionError(f"remat did not recompute the forward: {out}")
+    return out
 
 
 def _grad_parity(dm, spec, seed: int, phase: str, steps: int = 5):
@@ -1394,6 +1664,7 @@ def main() -> int:
     kernels.update(phase_stack_kernels())
     phase_stack_depths()
     phase_stack_vs_pairs()
+    kernels.update(phase_tblocked_kernels())
     windows = _synthetic_windows()
     serve = phase_serve(windows)
     odd = phase_odd_layers(windows)
@@ -1409,10 +1680,17 @@ def main() -> int:
     train_medium = phase_train_medium(dm_medium)
     phase_train_large(dm_medium)
     phase_train_medium_breakdown(dm_medium)
+    serve_long = phase_serve_long(_synthetic_windows(lookback=T_LONG,
+                                                     stride=STRIDE_LONG))
+    dm_long = _train_datamodule(lookback=T_LONG, stride=STRIDE_LONG)
+    phase_train_long_parity(dm_long)
+    train_long = phase_train_long(dm_long)
+    phase_train_long_remat(dm_long)
     # Each kernel's launches on the path it serves, and its times at the
     # shape of that path: model=small serving at 8 windows (800 rows) and
     # training at one window a step (100 rows); model=medium serving at 8
-    # windows (200 rows) and training at one window a step (25 rows).
+    # windows (200 rows) and training at one window a step (25 rows);
+    # model=small at T=252 serving at 8 windows and training at one.
     paths = {
         "lstm_pair_fwd": (serve, "lstm_pair_fwd", 800),
         "lstm_fwd": (odd, "lstm_fwd", 800),
@@ -1424,6 +1702,8 @@ def main() -> int:
         "lstm_stack_fwd_masked": (train_medium, "lstm_stack_fwd_masked", K_MEDIUM),
         "lstm_stack_bwd": (train_medium, "lstm_stack_bwd", K_MEDIUM),
         "lstm_wgrad_stack": (train_medium, "lstm_wgrad", K_MEDIUM),
+        "lstm_tb_fwd": (serve_long, "lstm_tb_fwd", 800),
+        "lstm_tb_bwd": (train_long, "lstm_tb_bwd", 100),
     }
     summary = []
     for name, (path, counter, rows) in paths.items():

@@ -14,9 +14,15 @@ runs through ``ops/lstm_kernel.py``, differentiable through the hand-written
 backward kernels. Consecutive layers group into wavefronts exactly as the
 JAX encoder groups them (``fused_depth``, its rule over the reference's
 byte budget, ``window_rows`` included): a group of 3 to 8 layers runs the
-stack kernel, 2 the pair kernel, 1 the single-layer kernel. At the
-canonical window (T=60, 100 rows, H=64) that is pairs then one; at 25-row
-windows a 4-layer model is one 4-deep stack.
+stack kernel, 2 the pair kernel, 1 the single-layer kernels (resident, or
+time-blocked where the reference's route says so: ``single_layer_route``).
+At the canonical window (T=60, 100 rows, H=64) that is pairs then one; at
+25-row windows a 4-layer model is one 4-deep stack; at a one-year lookback
+(T=252) on 100-row windows every layer runs alone, time-blocked.
+
+``remat`` recomputes each group's recurrence in the backward pass
+(``torch.utils.checkpoint``, the counterpart of the JAX encoder's
+``jax.checkpoint``): only the group's inputs are kept, not its h/c stashes.
 
 Dropout in training mode follows the JAX encoder: torch semantics (every
 layer's output except the last), as pre-scaled ``(T, B, H)`` keep-masks,
@@ -30,10 +36,12 @@ with dropout on holds only for injected masks.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.ops.lstm_kernel import (
@@ -82,10 +90,12 @@ class LstmEncoder(nn.Module):
         *,
         device=None,
         generator: torch.Generator | None = None,
+        remat: bool = False,
     ):
         """Weights are drawn uniform(-1/sqrt(H), 1/sqrt(H)) on the CPU from
         ``generator`` (torch.nn.LSTM's and Linear's init), then moved to
-        ``device`` (``cuda`` unless told otherwise)."""
+        ``device`` (``cuda`` unless told otherwise). ``remat`` recomputes
+        each layer group's recurrence in the backward pass."""
         super().__init__()
         if num_layers < 1:
             raise ValueError(f"num_layers must be >= 1, got {num_layers}")
@@ -94,6 +104,7 @@ class LstmEncoder(nn.Module):
         self.num_layers = num_layers
         self.dropout = dropout
         self.n_factors = n_factors
+        self.remat = remat
         device = resolve_device(device)
         hidden = hidden_size
         for layer in range(num_layers):
@@ -212,14 +223,23 @@ class LstmEncoder(nn.Module):
                 biases.append((b_ih_a + b_hh_a).contiguous())
             seams = [next(pending) for _ in range(depth - 1)] if masks else None
             if depth >= 3:
-                inputs = lstm_stack_recurrence(x_proj, (w_hhs, w_ins, biases),
-                                               seams)
+                run, args = lstm_stack_recurrence, (x_proj, (w_hhs, w_ins, biases),
+                                                    seams)
             elif depth == 2:
-                inputs = lstm_pair_recurrence(x_proj, w_hhs[0], w_ins[0],
-                                              biases[0], w_hhs[1],
-                                              seams[0] if seams else None)
+                run, args = lstm_pair_recurrence, (x_proj, w_hhs[0], w_ins[0],
+                                                   biases[0], w_hhs[1],
+                                                   seams[0] if seams else None)
             else:
-                inputs = lstm_recurrence(x_proj, w_hhs[0])
+                run = functools.partial(lstm_recurrence, window_rows=window_rows)
+                args = (x_proj, w_hhs[0])
+            if self.remat and torch.is_grad_enabled():
+                # The masks were drawn above and are arguments, so the
+                # recomputation sees the same ones; the recurrence draws no
+                # random numbers, so no RNG state needs keeping.
+                inputs = checkpoint(run, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                inputs = run(*args)
             layer += depth
             if masks and layer < self.num_layers:
                 inputs = inputs * next(pending)

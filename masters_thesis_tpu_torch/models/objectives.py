@@ -117,6 +117,7 @@ class ModelSpec:
     learning_rate: float = 1e-4
     weight_decay: float = 1e-5
     mse_weight: float = 1e2
+    remat: bool = False  # recompute recurrences in the backward (memory)
 
     def build_module(self, device=None, generator: torch.Generator | None = None):
         from masters_thesis_tpu_torch.models.lstm import LstmEncoder
@@ -129,6 +130,7 @@ class ModelSpec:
             n_factors=self.n_factors,
             device=device,
             generator=generator,
+            remat=self.remat,
         )
 
     @property

@@ -10,10 +10,14 @@ both biases), gate order i, f, g, o, and transposed ``(H, 4H)`` weights.
 
 Three recurrences, as in the JAX package: one layer, the layer pair, and
 the L-deep stack (``lstm_stack_recurrence``, 3 <= L <= 8 layers in one
-wavefront). Dispatch is on the tensors' device and nothing else: a CUDA
+wavefront). One layer takes the reference's route (``single_layer_route``,
+a copy of its rule): the resident kernels, or at long lookbacks the
+time-blocked ones (``csrc/lstm_tb.cu``: h and c carried from one time chunk
+to the next, the recurrent weight gradient accumulated inside the sweep).
+Otherwise dispatch is on the tensors' device and nothing else: a CUDA
 tensor goes to the hand-written kernels in ``csrc/lstm_fwd.cu``,
-``csrc/lstm_bwd.cu`` and ``csrc/lstm_stack.cu`` (or raises), a CPU tensor to
-the plain versions. When an input needs a gradient, the recurrence runs as a
+``csrc/lstm_bwd.cu``, ``csrc/lstm_stack.cu`` and ``csrc/lstm_tb.cu`` (or
+raises), a CPU tensor to the plain versions. When an input needs a gradient, the recurrence runs as a
 ``torch.autograd.Function`` whose forward also writes the stashes (h and c
 planes) and whose backward recomputes the gates from them, as the TPU
 kernels do: the serial sweep (``lstm_pair_bwd`` / ``lstm_bwd`` /
@@ -47,7 +51,8 @@ MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 #: ``lstm_pair_fwd`` counts the maskless pair forward (serving, dropout 0),
 #: ``lstm_pair_fwd_masked`` the instance with a seam mask (training with
 #: dropout), and likewise for the stack; ``lstm_wgrad`` is one call of the
-#: weight-gradient pass.
+#: weight-gradient pass; ``lstm_tb_fwd`` and ``lstm_tb_bwd`` the time-blocked
+#: forward and backward (its weight gradient included).
 LAUNCHES: dict[str, int] = {
     "lstm_pair_fwd": 0,
     "lstm_pair_fwd_masked": 0,
@@ -58,6 +63,8 @@ LAUNCHES: dict[str, int] = {
     "lstm_stack_fwd": 0,
     "lstm_stack_fwd_masked": 0,
     "lstm_stack_bwd": 0,
+    "lstm_tb_fwd": 0,
+    "lstm_tb_bwd": 0,
 }
 
 
@@ -111,6 +118,23 @@ def lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
     return (h2s, h1s, c1s, c2s) if return_stash else h2s
 
 
+def _bwd_step(x_t, h_prev, c_prev, c_t, dh, dc, w_hh_t):
+    """One step of the single-layer backward sweep: the gates recomputed
+    from ``x_t + h_prev @ w_hh_t``, then ``(d_pre (B, 4H), dc carried to
+    step t - 1)`` from the incoming ``dh`` and ``dc``."""
+    i, f, g, o = (x_t + h_prev @ w_hh_t).chunk(4, dim=-1)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    tanh_c = torch.tanh(c_t)
+    d_o = dh * tanh_c
+    dc = dh * o * (1.0 - tanh_c * tanh_c) + dc
+    di, dg, df = dc * g, dc * i, dc * c_prev
+    d_pre = torch.cat(
+        [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
+         d_o * o * (1.0 - o)], dim=-1,
+    )
+    return d_pre, dc * f
+
+
 def lstm_bwd_ref(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
     """Plain version of the single-layer backward sweep.
 
@@ -126,20 +150,64 @@ def lstm_bwd_ref(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
     for t in range(n_t - 1, -1, -1):
         h_prev = hs[t - 1] if t > 0 else torch.zeros_like(hs[0])
         c_prev = cs[t - 1] if t > 0 else torch.zeros_like(cs[0])
-        i, f, g, o = (x_proj[t] + h_prev @ w_hh_t).chunk(4, dim=-1)
-        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
-        tanh_c = torch.tanh(cs[t])
-        dh = dhs[t] + dh_rec
-        d_o = dh * tanh_c
-        dc = dh * o * (1.0 - tanh_c * tanh_c) + dc
-        di, dg, df = dc * g, dc * i, dc * c_prev
-        dc = dc * f
-        d_pre[t] = torch.cat(
-            [di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
-             d_o * o * (1.0 - o)], dim=-1,
-        )
+        d_pre[t], dc = _bwd_step(x_proj[t], h_prev, c_prev, cs[t],
+                                 dhs[t] + dh_rec, dc, w_hh_t)
         dh_rec = d_pre[t] @ w_hh_t.T
     return d_pre
+
+
+def lstm_tb_fwd_ref(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                    time_chunk: int):
+    """Plain version of the time-blocked forward: the time axis walked in
+    chunks of ``time_chunk`` steps, h and c carried from one chunk to the
+    next (``_tb_fwd_kernel``). Returns ``(hs, cs)`` ``(T, B, H)``; every
+    step does the same arithmetic as ``lstm_recurrence_ref``'s."""
+    n_t, b, _ = x_proj.shape
+    hidden = w_hh_t.shape[0]
+    h = x_proj.new_zeros((b, hidden))
+    c = x_proj.new_zeros((b, hidden))
+    hs, cs = [], []
+    for t0 in range(0, n_t, time_chunk):
+        for t in range(t0, min(t0 + time_chunk, n_t)):
+            h, c = _cell(x_proj[t] + h @ w_hh_t, c)
+            hs.append(h)
+            cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def lstm_tb_bwd_ref(dhs, x_proj, hs, cs, w_hh_t, time_chunk: int,
+                    row_tile: int):
+    """Plain version of the time-blocked backward: ``(dx (T, B, 4H),
+    dw (H, 4H))`` as ``_tb_bwd_kernel`` computes them.
+
+    The chunks are walked in reverse, each step's gates recomputed from
+    ``h[t-1]`` and ``c[t-1]`` (read from the stash across a chunk's first
+    step), ``dx`` (= d_pre) written as its own plane, and ``dw += h[t-1]ᵀ
+    d_pre[t]`` accumulated inside the sweep, one partial per tile of
+    ``row_tile`` rows (the last one zero-padded); the partials are summed
+    over the tiles at the end, as the JAX wrapper sums its kernel's.
+    """
+    n_t, b, four_h = x_proj.shape
+    hidden = four_h // 4
+    n_tiles = -(-b // row_tile)
+
+    def tiles(a):  # (B, n) -> (n_tiles, row_tile, n), rows past B zero
+        return torch.nn.functional.pad(a, (0, 0, 0, n_tiles * row_tile - b)
+                                       ).view(n_tiles, row_tile, -1)
+
+    zeros = torch.zeros_like(hs[0])
+    dh_rec, dc = zeros, zeros
+    dx = torch.empty_like(x_proj)
+    dw_part = x_proj.new_zeros((n_tiles, hidden, four_h))
+    for t0 in reversed(range(0, n_t, time_chunk)):
+        for t in range(min(t0 + time_chunk, n_t) - 1, t0 - 1, -1):
+            h_prev = hs[t - 1] if t > 0 else zeros
+            c_prev = cs[t - 1] if t > 0 else zeros
+            dx[t], dc = _bwd_step(x_proj[t], h_prev, c_prev, cs[t],
+                                  dhs[t] + dh_rec, dc, w_hh_t)
+            dh_rec = dx[t] @ w_hh_t.T
+            dw_part += tiles(h_prev).transpose(1, 2) @ tiles(dx[t])
+    return dx, dw_part.sum(dim=0)
 
 
 def lstm_pair_bwd_ref(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
@@ -297,6 +365,75 @@ def window_schedulable(b: int, window_rows: int | None) -> bool:
     return window_rows is not None and 0 < window_rows < b and b % window_rows == 0
 
 
+# The reference's single-layer route. The JAX ``lstm_recurrence`` runs one
+# layer as one resident program when its backward's planes fit the VMEM
+# budget (``single_layer_fits``), as window-packed resident programs when
+# whole windows do, and otherwise as the time-blocked kernels. This copy of
+# its arithmetic (``route_plan`` for ``n_layers == 1`` on a TPU, f32, without
+# the ``MT_LSTM_ROW_TILE`` knob) keeps the port on the reference's routes; it
+# is the reference's rule, not a model of this card, whose kernels stream
+# x_proj and hold no T-sized plane on chip. The packed route runs the
+# resident kernel over all rows in one launch: rows are independent.
+
+#: The reference's single-program row limit and its row tile beyond it.
+SINGLE_TILE_MAX_ROWS = 104
+ROW_TILE = 32
+
+
+def _row_tile(b: int) -> int:
+    b_pad8 = -(-b // 8) * 8
+    return b_pad8 if b_pad8 <= SINGLE_TILE_MAX_ROWS else ROW_TILE
+
+
+def _single_layer_vmem_bytes(n_t: int, b: int, hidden: int) -> int:
+    """The reference's byte count of the single-layer backward program, in
+    f32: one aliased x/dx plane, three (T, tile, H) planes, the weight and
+    its gradient, and scratch; separate x and dx planes, double-buffered,
+    when the rows span more than one tile."""
+    four_h = 4 * hidden
+    tile = _row_tile(b)
+    b_pad = -(-b // 8) * 8
+    if b_pad <= tile:
+        planes = n_t * tile * (four_h + 3 * hidden)
+    else:
+        planes = n_t * tile * (2 * four_h + 3 * hidden) * 2
+    scratch = 2 * tile * hidden + hidden * four_h
+    weights = 2 * hidden * four_h
+    return (planes + weights + scratch) * 4
+
+
+def single_layer_fits(n_t: int, b: int, hidden: int) -> bool:
+    """True when the reference runs one layer over ``b`` rows resident."""
+    return _single_layer_vmem_bytes(n_t, b, hidden) <= _PAIR_VMEM_BUDGET
+
+
+def single_layer_route(n_t: int, b: int, hidden: int,
+                       window_rows: int | None = None) -> str:
+    """The reference's route for one layer over ``b`` rows:
+    ``"pallas-packed"``, ``"pallas-single"`` or ``"pallas-timeblocked"``."""
+    def pad8(rows):
+        return -(-rows // 8) * 8
+
+    if (pad8(b) > SINGLE_TILE_MAX_ROWS and window_schedulable(b, window_rows)
+            and pad8(window_rows) <= SINGLE_TILE_MAX_ROWS
+            and single_layer_fits(n_t, window_rows, hidden)):
+        return "pallas-packed"
+    if single_layer_fits(n_t, b, hidden):
+        return "pallas-single"
+    return "pallas-timeblocked"
+
+
+def tb_time_chunk(b: int, hidden: int) -> int:
+    """The reference's time chunk over ``b`` rows (``_tb_time_chunk`` at its
+    row tile, f32): the plain versions walk the same chunks and row tiles."""
+    four_h = 4 * hidden
+    tile = _row_tile(b)
+    fixed = (2 * tile * hidden + 2 * hidden * four_h + hidden * four_h
+             + 2 * 2 * tile * hidden) * 4
+    per_step = 2 * 4 * tile * (2 * four_h + 3 * hidden)
+    return max(1, (_PAIR_VMEM_BUDGET - fixed) // per_step)
+
+
 # ----------------------------------------------------------- CUDA wrappers
 
 
@@ -358,6 +495,23 @@ def _stack_library() -> ctypes.CDLL:
             f"csrc/lstm_stack.cu takes L <= {lib.lstm_stack_max_layers()}, "
             f"the wrapper assumes {MAX_STACK_LAYERS}"
         )
+    return lib
+
+
+@functools.cache
+def _tb_library() -> ctypes.CDLL:
+    """csrc/lstm_tb.cu, built at first use, with its functions' types."""
+    lib = load_library("lstm_tb")
+    i32, out = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    _declare(lib, "lstm_tb_fwd", 4, 4)
+    _declare(lib, "lstm_tb_bwd", 7, 4)
+    lib.lstm_tb_row_tiles.argtypes = [i32, i32, out]
+    lib.lstm_tb_row_tiles.restype = i32
+    lib.lstm_tb_time_chunk.argtypes = [i32] * 5 + [out]
+    lib.lstm_tb_time_chunk.restype = i32
+    lib.lstm_tb_max_hidden.argtypes = []
+    lib.lstm_tb_max_hidden.restype = i32
+    _check_max_hidden("lstm_tb", lib.lstm_tb_max_hidden())
     return lib
 
 
@@ -428,6 +582,66 @@ def lstm_fwd_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     _raise_on_error("lstm_fwd", err)
     LAUNCHES["lstm_fwd"] += 1
     return (hs, cs) if return_c else hs
+
+
+def lstm_tb_fwd_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                     return_c: bool = False):
+    """Launch the time-blocked forward; ``hs`` or ``(hs, cs)`` as
+    ``lstm_tb_fwd_ref`` returns them."""
+    n_t, b, hidden = _shapes(x_proj)
+    dev = x_proj.device
+    _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
+    _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
+    lib = _tb_library()
+    hs = torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
+    cs = torch.empty_like(hs) if return_c else None
+    err = lib.lstm_tb_fwd(
+        x_proj.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), _ptr(cs),
+        n_t, b, hidden, dev.index, _stream(dev),
+    )
+    _raise_on_error("lstm_tb_fwd", err)
+    LAUNCHES["lstm_tb_fwd"] += 1
+    return (hs, cs) if return_c else hs
+
+
+def lstm_tb_bwd_cuda(dhs, x_proj, hs, cs, w_hh_t):
+    """Launch the time-blocked backward; returns ``(dx (T, B, 4H), dw
+    (H, 4H))`` as ``lstm_tb_bwd_ref`` does. The kernel writes one dw partial
+    per row tile; they are summed here, in a fixed order."""
+    n_t, b, hidden = _shapes(x_proj)
+    dev = x_proj.device
+    _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
+    for name, t in (("dhs", dhs), ("hs", hs), ("cs", cs)):
+        _check_operand(name, t, (n_t, b, hidden), dev)
+    _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
+    lib = _tb_library()
+    tiles = ctypes.c_int(0)
+    _raise_on_error("lstm_tb_bwd", lib.lstm_tb_row_tiles(
+        b, dev.index, ctypes.byref(tiles)))
+    dx = torch.empty_like(x_proj)
+    dw_part = torch.empty((tiles.value, hidden, 4 * hidden), device=dev,
+                          dtype=torch.float32)
+    err = lib.lstm_tb_bwd(
+        dhs.data_ptr(), x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        w_hh_t.data_ptr(), dx.data_ptr(), dw_part.data_ptr(), n_t, b, hidden,
+        dev.index, _stream(dev),
+    )
+    _raise_on_error("lstm_tb_bwd", err)
+    LAUNCHES["lstm_tb_bwd"] += 1
+    return dx, dw_part.sum(dim=0)
+
+
+def lstm_tb_time_chunk_cuda(n_t: int, rows: int, hidden: int,
+                            device: torch.device, backward: bool) -> int:
+    """The time chunk the time-blocked forward (or backward) kernel takes
+    at this shape on ``device``: the longest whose buffers fit a block's
+    shared memory."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    tc = ctypes.c_int(0)
+    _raise_on_error("lstm_tb_time_chunk", _tb_library().lstm_tb_time_chunk(
+        n_t, rows, hidden, int(backward), index, ctypes.byref(tc)))
+    return tc.value
 
 
 def _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev):
@@ -734,6 +948,32 @@ class _SingleFunction(torch.autograd.Function):
         return dx, lstm_single_wgrad(dx, hs)
 
 
+class _TimeBlockedFunction(torch.autograd.Function):
+    """One layer through the time-blocked kernels (long lookbacks): the
+    forward writes the c stash, the backward recomputes the gates from it
+    and returns the weight gradient its sweep accumulated."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh_t):
+        if _device_type(x_proj) == "cuda":
+            hs, cs = lstm_tb_fwd_cuda(x_proj, w_hh_t, return_c=True)
+        else:
+            hs, cs = lstm_tb_fwd_ref(
+                x_proj, w_hh_t, tb_time_chunk(x_proj.shape[1], w_hh_t.shape[0]))
+        ctx.save_for_backward(x_proj, w_hh_t, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x_proj, w_hh_t, hs, cs = ctx.saved_tensors
+        args = (dhs.contiguous(), x_proj, hs, cs, w_hh_t)
+        if _device_type(x_proj) == "cuda":
+            return lstm_tb_bwd_cuda(*args)
+        b = x_proj.shape[1]
+        return lstm_tb_bwd_ref(*args, tb_time_chunk(b, w_hh_t.shape[0]),
+                               _row_tile(b))
+
+
 class _StackFunction(torch.autograd.Function):
     """The L-deep stack with its hand-written backward; the masks get no
     gradient. Arguments after ``has_mask``: the L recurrent weights, the
@@ -788,19 +1028,33 @@ def _needs_grad(*tensors) -> bool:
 # -------------------------------------------------------------- public API
 
 
-def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor) -> torch.Tensor:
+def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                    window_rows: int | None = None) -> torch.Tensor:
     """Run one LSTM layer's time recurrence over pre-projected inputs.
 
     Args:
         x_proj: ``(T, B, 4H)`` time-major input projections (``x @ w_ihᵀ``
             plus both biases), gate order i, f, g, o.
         w_hh_t: ``(H, 4H)`` transposed recurrent weight.
+        window_rows: rows per window when the B axis is a flattened stack
+            of independent windows; it enters the route as in the JAX
+            function.
 
     Returns:
         ``(T, B, H)`` hidden states: the CUDA kernels for a CUDA tensor, the
         plain versions for a CPU tensor; differentiable through the
-        hand-written backward when an input needs a gradient.
+        hand-written backward when an input needs a gradient. Where the
+        reference takes its time-blocked kernels (``single_layer_route``),
+        so does the port; otherwise the resident ones.
     """
+    n_t, b = x_proj.shape[:2]
+    hidden = w_hh_t.shape[0]
+    if single_layer_route(n_t, b, hidden, window_rows) == "pallas-timeblocked":
+        if _needs_grad(x_proj, w_hh_t):
+            return _TimeBlockedFunction.apply(x_proj, w_hh_t)
+        if _device_type(x_proj) == "cuda":
+            return lstm_tb_fwd_cuda(x_proj, w_hh_t)
+        return lstm_tb_fwd_ref(x_proj, w_hh_t, tb_time_chunk(b, hidden))[0]
     if _needs_grad(x_proj, w_hh_t):
         return _SingleFunction.apply(x_proj, w_hh_t)
     if _device_type(x_proj) == "cuda":

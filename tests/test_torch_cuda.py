@@ -7,10 +7,10 @@ no JAX, so on a machine with a card and no JAX it runs on its own:
 
 Tolerance 2e-5 abs for a forward against its plain version (f32, the sums
 taken in another order over up to 12 dependent steps, 19 wavefront
-iterations for an 8-deep stack), 5e-5 for the encoder and engine end to
-end (input projection and heads added). Backward sweeps and weight
-gradients (sums over up to 12 * 803 rows) are held at 2e-5 relative to the
-largest entry.
+iterations for an 8-deep stack, 252 steps for the time-blocked kernels),
+5e-5 for the encoder and engine end to end (input projection and heads
+added). Backward sweeps and weight gradients (sums over up to 12 * 803 or
+252 * 203 rows) are held at 2e-5 relative to the largest entry.
 """
 
 import numpy as np
@@ -145,6 +145,8 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
         "lstm_stack_fwd": 0,
         "lstm_stack_fwd_masked": 0,
         "lstm_stack_bwd": 0,
+        "lstm_tb_fwd": 0,
+        "lstm_tb_bwd": 0,
     }
     ref = [t.clone().requires_grad_(True) for t in base]
     plain = lk.lstm_pair_ref(*ref, mask)
@@ -386,3 +388,106 @@ def _grad_leaves(x, w_hh, w_in, biases):
             ([w.double().requires_grad_(True) for w in w_hh],
              [w.double().requires_grad_(True) for w in w_in],
              [b.double().requires_grad_(True) for b in biases]))
+
+
+# ------------------------------------------------------ time-blocked kernels
+
+LENGTHS = ["chunk-1", "chunk", "chunk+1", "252"]
+
+
+def _length(name, chunk):
+    """A time length around the kernel's chunk: one chunk cut short, exactly
+    one, one and a step (a ragged last chunk), or a one-year lookback."""
+    return {"chunk-1": max(1, chunk - 1), "chunk": chunk, "chunk+1": chunk + 1,
+            "252": 252}[name]
+
+
+# Rows 1 and 3 (one ragged tile), 100 (2-row tiles, the training shape) and
+# 203 (4-row tiles, a ragged last one); H not a multiple of 4, and H=64.
+@pytest.mark.parametrize("length", LENGTHS)
+@pytest.mark.parametrize("hidden", [5, 13, 64])
+@pytest.mark.parametrize("rows", [1, 3, 100, 203])
+def test_time_blocked_kernels_match_plain(cuda_device, rows, hidden, length):
+    """The time-blocked forward (h and c) and backward (dx and dw) against
+    their plain versions, at lengths around each kernel's own time chunk."""
+    for backward in (False, True):
+        chunk = lk.lstm_tb_time_chunk_cuda(252, rows, hidden, cuda_device,
+                                           backward)
+        n_t = _length(length, chunk)
+        x, w1, *_ = _case(rows * hidden + n_t, rows, hidden, n_t=n_t,
+                          device=cuda_device)
+        _, dh = _mask_and_cotangent(rows + n_t, n_t, rows, hidden, cuda_device)
+        hs, cs = lk.lstm_tb_fwd_ref(x, w1, chunk)
+        if not backward:
+            got_hs, got_cs = lk.lstm_tb_fwd_cuda(x, w1, return_c=True)
+            torch.testing.assert_close(got_hs, hs, atol=2e-5, rtol=0)
+            torch.testing.assert_close(got_cs, cs, atol=2e-5, rtol=0)
+            torch.testing.assert_close(lk.lstm_tb_fwd_cuda(x, w1), got_hs,
+                                       atol=0, rtol=0)
+            continue
+        dx, dw = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
+        want_dx, want_dw = lk.lstm_tb_bwd_ref(dh, x, hs, cs, w1, chunk,
+                                              lk._row_tile(rows))
+        _close_rel(dx, want_dx)
+        _close_rel(dw, want_dw)
+
+
+def test_time_blocked_weight_gradient_repeats_bit_for_bit(cuda_device):
+    x, w1, *_ = _case(4, 203, 64, n_t=252, device=cuda_device)
+    _, dh = _mask_and_cotangent(4, 252, 203, 64, cuda_device)
+    hs, cs = lk.lstm_tb_fwd_cuda(x, w1, return_c=True)
+    first = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
+    second = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_long_lookback_goes_through_the_time_blocked_kernels(cuda_device,
+                                                             monkeypatch):
+    """lstm_recurrence at T=252 on 100 rows, as the reference routes it:
+    the time-blocked forward and backward, never the resident kernels or a
+    plain version; gradients as autograd through the plain forward."""
+    assert lk.single_layer_route(252, 100, 64) == "pallas-timeblocked"
+    for name in ("lstm_tb_fwd_ref", "lstm_tb_bwd_ref", "lstm_bwd_ref"):
+        monkeypatch.setattr(lk, name, _refuse)
+    x, w1, *_ = _case(6, 100, 64, n_t=252, device=cuda_device)
+    _, dh = _mask_and_cotangent(6, 252, 100, 64, cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1)]
+    lk.reset_launch_counts()
+    (lk.lstm_recurrence(*leaves) * dh).sum().backward()
+    with torch.no_grad():
+        served = lk.lstm_recurrence(x, w1, window_rows=100)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == dict.fromkeys(lk.LAUNCHES, 0) | {
+        "lstm_tb_fwd": 2, "lstm_tb_bwd": 1}
+    monkeypatch.undo()
+    ref = [t.clone().requires_grad_(True) for t in (x, w1)]
+    plain = lk.lstm_recurrence_ref(*ref)
+    (plain * dh).sum().backward()
+    torch.testing.assert_close(served, plain.detach(), atol=2e-5, rtol=0)
+    for got, want in zip(leaves, ref):
+        _close_rel(got.grad, want.grad)
+
+
+def test_time_blocked_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x, w1, *_ = _case(1, 4, 8, n_t=20, device=cuda_device)
+    h = torch.zeros(x.shape[:2] + (8,), device=cuda_device)
+    before = dict(lk.LAUNCHES)
+    with pytest.raises(TypeError):
+        lk.lstm_tb_fwd_cuda(x.double(), w1.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.lstm_tb_fwd_cuda(x.transpose(0, 1).contiguous().transpose(0, 1), w1)
+    with pytest.raises(TypeError):
+        lk.lstm_tb_bwd_cuda(h.double(), x, h, h, w1)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.lstm_tb_bwd_cuda(h, x, h.transpose(0, 1).contiguous().transpose(0, 1),
+                            h, w1)
+    wide = lk.MAX_HIDDEN + 1
+    big = torch.zeros((2, 3, 4 * wide), device=cuda_device)
+    big_w = torch.zeros((wide, 4 * wide), device=cuda_device)
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        lk.lstm_tb_fwd_cuda(big, big_w)
+    big_h = torch.zeros((2, 3, wide), device=cuda_device)
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        lk.lstm_tb_bwd_cuda(big_h, big, big_h, big_h, big_w)
+    assert lk.LAUNCHES == before

@@ -33,7 +33,7 @@ def test_port_imports_with_jax_blocked():
     modules = _port_modules() + ["chip_smoke"]
     for name in ("serve.server", "train.trainer", "train.checkpoint",
                  "train.flatparams", "data.pipeline", "ops.losses",
-                 "ops.linalg"):
+                 "ops.linalg", "evaluation"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -78,7 +78,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 def test_build_covers_every_cuda_source(monkeypatch, tmp_path):
     names = {src.stem for src in _build.sources()}
-    assert names == {"lstm_fwd", "lstm_bwd", "lstm_stack"}
+    assert names == {"lstm_fwd", "lstm_bwd", "lstm_stack", "lstm_tb"}
     for src in _build.sources():
         lib = _build.library_path(src)
         assert lib.parent == _build.BUILD_DIR and src.stem in lib.name

@@ -98,10 +98,15 @@ def test_cpu_dispatch_launches_no_kernel():
     lk.lstm_stack_recurrence(*stack).sum().backward()
     with torch.no_grad():
         lk.lstm_stack_recurrence(*stack)
+    # A long lookback takes the time-blocked route, plain on the CPU.
+    long_x = torch.zeros((90, 100, 4 * 64), requires_grad=True)
+    long_w = torch.zeros((64, 4 * 64), requires_grad=True)
+    assert lk.single_layer_route(90, 100, 64) == "pallas-timeblocked"
+    lk.lstm_recurrence(long_x, long_w).sum().backward()
     assert set(lk.LAUNCHES) == {
         "lstm_pair_fwd", "lstm_pair_fwd_masked", "lstm_fwd", "lstm_pair_bwd",
         "lstm_bwd", "lstm_wgrad", "lstm_stack_fwd", "lstm_stack_fwd_masked",
-        "lstm_stack_bwd",
+        "lstm_stack_bwd", "lstm_tb_fwd", "lstm_tb_bwd",
     }
     assert not any(lk.LAUNCHES.values())
 
