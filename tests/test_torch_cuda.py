@@ -119,6 +119,39 @@ def test_weight_gradients_repeat_bit_for_bit(cuda_device):
         assert torch.equal(a, b)
 
 
+# The pair's sweep takes 1, 2, 4 or 8 rows a block, the fewest that keep its
+# grid in one wave of an H100's 132 SMs: rows at the edges of each tile
+# (1-2: one row a block; 3, 7, 8, 9 and 133: ragged tiles; 100: the training
+# shape; 800 and 803: 8 rows a block). H 1, 5 and 13 pad the contraction to
+# 16 with zeros; T 1 and 2 are the shortest wavefronts.
+@pytest.mark.parametrize("n_t", [1, 2, 60])
+@pytest.mark.parametrize("hidden", [1, 5, 13, 64])
+@pytest.mark.parametrize("rows", [1, 2, 3, 7, 8, 9, 100, 133, 800, 803])
+def test_pair_sweep_matches_plain(cuda_device, rows, hidden, n_t):
+    x, w1, wi2, b2, w2 = _case(rows * hidden + n_t, rows, hidden, n_t=n_t,
+                               device=cuda_device)
+    mask, dh = _mask_and_cotangent(rows + n_t, n_t, rows, hidden, cuda_device)
+    for m in (None, mask):
+        h2s, h1s, c1s, c2s = lk.lstm_pair_ref(x, w1, wi2, b2, w2, m,
+                                              return_stash=True)
+        args = (dh, x, m, h1s, c1s, h2s, c2s, w1, wi2, b2, w2)
+        for got, want in zip(lk.lstm_pair_bwd_cuda(*args),
+                             lk.lstm_pair_bwd_ref(*args)):
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+def test_pair_sweep_repeats_bit_for_bit(cuda_device):
+    x, w1, wi2, b2, w2 = _case(8, 803, 64, n_t=60, device=cuda_device)
+    mask, dh = _mask_and_cotangent(8, 60, 803, 64, cuda_device)
+    h2s, h1s, c1s, c2s = lk.lstm_pair_ref(x, w1, wi2, b2, w2, mask,
+                                          return_stash=True)
+    args = (dh, x, mask, h1s, c1s, h2s, c2s, w1, wi2, b2, w2)
+    first = lk.lstm_pair_bwd_cuda(*args)
+    second = lk.lstm_pair_bwd_cuda(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
                                                masked):
