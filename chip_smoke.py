@@ -880,6 +880,11 @@ def phase_tblocked_kernels() -> dict:
         ]
         for row in rows_out:
             results[(row["name"], rows)] = row
+        # Both single-layer sweeps run one step on one tile: a route between
+        # them changes time, not results.
+        if not same_as_resident[1]:
+            raise AssertionError(
+                f"lstm_tb_bwd at rows={rows}: dx differs from lstm_bwd's")
     return results
 
 
@@ -1608,13 +1613,14 @@ def phase_train_medium_breakdown(dm) -> dict:
 
 
 def phase_ab(label: str) -> None:
-    """The pair and single-layer kernels of whatever checkout this copy of
-    the script sits in, for comparing two checkouts on one card: each
-    call's device time (``spin_ms``) and a sha256 digest of its outputs on
-    the training inputs, at 100 and 800 rows. Copy the script into each
-    checkout's root and run ``python3 chip_smoke.py --ab <label>`` there in
-    turns (parent, change, change, parent) in one call: equal digests mean
-    bit-equal outputs."""
+    """The pair, single-layer and time-blocked kernels of whatever checkout
+    this copy of the script sits in, for comparing two checkouts on one
+    card: each call's device time (``spin_ms``) and a sha256 digest of its
+    outputs, at 100 and 800 rows, on the training inputs (T=60) and, for
+    the time-blocked forward and backward, on ``_long_inputs`` (T=252).
+    Copy the script into each checkout's root and run ``python3
+    chip_smoke.py --ab <label>`` there in turns (parent, change, change,
+    parent) in one call: equal digests mean bit-equal outputs."""
     for rows in (100, 800):
         v = _training_inputs(rows)
         pair = (v["x"], v["w1"], v["wi2"], v["b2"], v["w2"])
@@ -1632,6 +1638,11 @@ def phase_ab(label: str) -> None:
                 v["dx1"], v["d_pre2"], v["h1s"], v["h2s"], v["mask"]),
             "lstm_wgrad_single": lambda: lk.lstm_single_wgrad(v["dx"], v["hs"]),
         }
+        long = _long_inputs(rows, seed=rows)
+        calls["lstm_tb_fwd"] = lambda: lk.lstm_tb_fwd_cuda(
+            long["x"], long["w"], return_c=True)
+        calls["lstm_tb_bwd"] = lambda: lk.lstm_tb_bwd_cuda(
+            long["dh"], long["x"], long["hs"], long["cs"], long["w"])
         with torch.no_grad():
             for name, call in calls.items():
                 digest = hashlib.sha256()
@@ -1645,8 +1656,9 @@ def phase_ab(label: str) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab", metavar="LABEL",
-                        help="only time and digest the pair and single-layer "
-                             "kernels (phase_ab), labelled LABEL")
+                        help="only time and digest the pair, single-layer "
+                             "and time-blocked kernels (phase_ab), labelled "
+                             "LABEL")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",

@@ -61,229 +61,45 @@
 // registers of the lane that owns the row; the next step's h loads are in
 // flight during this one.
 //
-// The single sweep and the pass: what bounds them. The single sweep is the
-// forward's chain run backwards: T dependent steps of two (rows, H) x (H, 4H)
-// products, f32 on the CUDA cores; latency of the step chain, not bandwidth,
-// limits it, as in the forward. The reduction does 2*H*4H FLOPs per row for
-// each weight over (T*B, H) and (T*B, 4H) planes read once per tile: at T=60,
-// 800 rows, H=64 that is 4.7 GFLOP over ~40 MB for the pair, bound by f32
-// arithmetic.
+// The single sweep: what bounds it. The forward's chain run backwards: T
+// dependent steps of two (rows, H) x (H, 4H) products (the recomputed gates
+// and the transposed product d_pre @ wᵀ), f32 on the CUDA cores, every
+// operand in shared memory. The first design gave each of two row groups a
+// thread per unit (128 threads, 1 row a thread at 100 rows): both groups read
+// every staged weight, the skewed transposed product made each d_pre read 4
+// wavefronts, and a step had two barriers with the gate product between
+// them. About 3,140 wavefronts a block and step at H = 64 (512 clocks of
+// FMAs a scheduler), 55-62% of the 2.89 us a step measured at 100 rows on an
+// H100, with one warp a scheduler to hide the rest.
 //
-// What the design does about it. The single sweep keeps the forward's
-// layout: a block owns a tile of rows and walks the whole sweep; the
-// weights are staged once in shared memory as a float4 of the four gates per
-// (k, j); thread (group, j) owns unit j of its rows. The forward products
-// read the h rows from shared memory as in the forward. The transposed
-// product out[row][k] = sum_j dot(d_pre[row][j], w_s[k][j]) reads the same
-// staged weights: thread k walks j from a skew of k, so that the float4
-// reads of a warp fall in distinct shared-memory banks. dh, dc stay in
-// registers; the d_pre rows go through shared memory. The
-// reduction is a tiled f32 product (64 x 64 output tile a block, 4 x 4
-// outputs a thread, 16-row chunks staged in shared memory) split over row
-// ranges to fill the card, and a second kernel sums the splits in a fixed
-// order: no atomics, so a run repeats bit for bit. Accurate expf/tanhf.
+// What the design does about it. The pair's block (lstm_sweep.cuh): 256
+// threads a tile of 1-8 rows, each staged weight float4 read by one lane a
+// product and step: 1,024 weight wavefronts a block and step plus about
+// 160 x rows of operand reads (1,184 at 1 row, 2,304 at 8), and 256 clocks
+// of FMAs a scheduler at 1 row, 2,048 at 8. The gates of step s depend only
+// on stashes (x[s], h[s-1]), not on the sweep, so only d_pre[s+1] @ wᵀ ->
+// dh -> step s's cell is serial: the iteration that consumes d_pre[s+1]
+// runs that transposed product and step s's gate product in one pass over
+// the weight, sums their quarters in one quarter_sum, and has one barrier.
+// lstm_tb_bwd_kernel (lstm_tb.cu) runs the same step on the same tile, so
+// the two kernels' dx is bit-equal.
+//
+// The pass: what bounds it. The reduction does 2*H*4H FLOPs per row for
+// each weight over (T*B, H) and (T*B, 4H) planes read once per tile: at
+// T=60, 800 rows, H=64 that is 4.7 GFLOP over ~40 MB for the pair, bound by
+// f32 arithmetic. It is a tiled f32 product (64 x 64 output tile a block,
+// 4 x 4 outputs a thread, 16-row chunks staged in shared memory) split over
+// row ranges to fill the card, and a second kernel sums the splits in a
+// fixed order: no atomics, so a run repeats bit for bit. Accurate
+// expf/tanhf.
 
 #include <algorithm>
 
-#include "lstm_common.cuh"
+#include "lstm_sweep.cuh"
 
 namespace {
 
 // ------------------------------------------------ the pair's backward sweep
-
-constexpr int kSweepThreads = 256;  // 8 warps: 8 units x 4 quarters a warp
-constexpr int kSweepMaxRows = 8;    // the largest row tile
-
-// The contraction padded to 4 quarters of a multiple of 4 (zero weights and
-// zero operands beyond H), so that every lane reads its quarter 4 at a time.
-__host__ __device__ __forceinline__ int sweep_pad(int hidden) {
-  return (hidden + 15) & ~15;
-}
-
-// w (H, 4H) row-major in device memory -> w_s[k * (p + 1) + j] = the four
-// gate weights of unit j at k, for k, j < p = sweep_pad(H), zero beyond H.
-// The row stride p + 1 (odd) puts the 8 lanes of a quarter-warp on 8
-// distinct bank slots whether they walk j (gate products) or k (transposed
-// products) with the other index fixed.
-__device__ void stage_weight_padded(const float* __restrict__ w, float4* w_s,
-                                    int hidden, int p) {
-  const int four_h = 4 * hidden;
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < p * p; idx += blockDim.x) {
-    const int k = idx / p;
-    const int j = idx - k * p;
-    const float* src = w + k * four_h + j;
-    w_s[k * (p + 1) + j] =
-        k < hidden && j < hidden
-            ? make_float4(__ldg(src), __ldg(src + hidden),
-                          __ldg(src + 2 * hidden), __ldg(src + 3 * hidden))
-            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-}
-
-// Where unit k sits in a row of an h plane (floats): quarter k / kq starts at
-// (k / kq) * (kq + 4), so the 4 quarters' float4 reads of a warp fall on
-// distinct bank slots.
-__device__ __forceinline__ int h_col(int k, int kq) { return k + (k / kq) * 4; }
-
-// Where unit j sits in a row of a d_pre plane (float4): quarter j / kq starts
-// at (j / kq) * (kq + 1), for the same reason.
-__device__ __forceinline__ int dp_col(int j, int kq) { return j + j / kq; }
-
-// v[r] = plane[t][tile0 + q + 4 i][j] for the rows i a lane owns (q + 4 i <
-// ROWS), zero outside the plane, past the tile or for j >= H.
-template <int ROWS>
-__device__ __forceinline__ void load_owned(const float* __restrict__ plane,
-                                           int t, int n_t, int n_rows,
-                                           int hidden, int tile0, int q, int j,
-                                           float (&v)[(ROWS + 3) / 4]) {
-  const bool in = t >= 0 && t < n_t && j < hidden;
-#pragma unroll
-  for (int i = 0; i < (ROWS + 3) / 4; ++i) {
-    const int lrow = q + 4 * i;
-    const int row = tile0 + lrow;
-    v[i] = in && lrow < ROWS && row < n_rows
-               ? __ldg(plane + (static_cast<size_t>(t) * n_rows + row) * hidden + j)
-               : 0.0f;
-  }
-}
-
-// xv[g][i] = x[t][tile0 + q + 4 i][g * H + j], as load_owned.
-template <int ROWS>
-__device__ __forceinline__ void load_owned_x(const float* __restrict__ x, int t,
-                                             int n_t, int n_rows, int hidden,
-                                             int tile0, int q, int j,
-                                             float (&xv)[4][(ROWS + 3) / 4]) {
-  const bool in = t >= 0 && t < n_t && j < hidden;
-  const int four_h = 4 * hidden;
-#pragma unroll
-  for (int i = 0; i < (ROWS + 3) / 4; ++i) {
-    const int lrow = q + 4 * i;
-    const int row = tile0 + lrow;
-    const bool ok = in && lrow < ROWS && row < n_rows;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      xv[g][i] = ok ? __ldg(x + (static_cast<size_t>(t) * n_rows + row) * four_h +
-                            g * hidden + j)
-                    : 0.0f;
-    }
-  }
-}
-
-// Sums v over the 4 quarter lanes of a unit (lane bits 3 and 4); afterwards
-// lane q holds in out[i] the sum for row q + 4 i. From 4 rows on a
-// reduce-scatter (each lane sends the half it does not keep, twice); for 1
-// or 2 rows a butterfly, and lane q < ROWS keeps row q. The whole warp calls.
-template <int ROWS, int N>
-__device__ __forceinline__ void quarter_sum(float (&v)[ROWS][N], int q,
-                                            float (&out)[(ROWS + 3) / 4][N]) {
-  constexpr unsigned kAll = 0xffffffffu;
-  if constexpr (ROWS >= 4) {
-    const bool b1 = q & 2;
-#pragma unroll
-    for (int a = 0; a < ROWS; a += 4)
-#pragma unroll
-      for (int r = a; r < a + 2; ++r)
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-          const float send = b1 ? v[r][n] : v[r + 2][n];
-          const float keep = b1 ? v[r + 2][n] : v[r][n];
-          v[r][n] = keep + __shfl_xor_sync(kAll, send, 16);
-        }
-    const bool b0 = q & 1;
-#pragma unroll
-    for (int a = 0; a < ROWS; a += 4)
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float send = b0 ? v[a][n] : v[a + 1][n];
-        const float keep = b0 ? v[a + 1][n] : v[a][n];
-        out[a / 4][n] = keep + __shfl_xor_sync(kAll, send, 8);
-      }
-  } else {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        float s = v[r][n];
-        s += __shfl_xor_sync(kAll, s, 8);
-        s += __shfl_xor_sync(kAll, s, 16);
-        v[r][n] = s;
-      }
-#pragma unroll
-    for (int n = 0; n < N; ++n) out[0][n] = q == 1 ? v[ROWS - 1][n] : v[0][n];
-  }
-}
-
-// This lane's share of L gate products h @ w for unit j: acc[r][4 o + g] +=
-// sum over k in quarter q of h_s[l][r][k] * w_s[l][k][j].g, product l adding
-// into output o = min(l, O - 1). Each staged weight float4 is read by one
-// lane of the block; the 8 lanes of a quarter-warp read 8 consecutive j.
-template <int ROWS, int L, int O>
-__device__ __forceinline__ void quarter_gate_products(
-    const float* const (&h_s)[L], const float4* const (&w_s)[L], int kq,
-    int h_row, int q, int j, float (&acc)[ROWS][4 * O]) {
-  const int stride = 4 * kq + 1;
-  const int h0 = q * (kq + 4);
-#pragma unroll 4
-  for (int m = 0; m < kq; m += 4) {
-    const int k0 = q * kq + m;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      constexpr int kLast = O - 1;
-      const int o = l < kLast ? l : kLast;
-      float4 w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) w[e] = w_s[l][(k0 + e) * stride + j];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 h4 =
-            *reinterpret_cast<const float4*>(h_s[l] + r * h_row + h0 + m);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float h = lane(h4, e);
-          acc[r][4 * o + 0] = fmaf(h, w[e].x, acc[r][4 * o + 0]);
-          acc[r][4 * o + 1] = fmaf(h, w[e].y, acc[r][4 * o + 1]);
-          acc[r][4 * o + 2] = fmaf(h, w[e].z, acc[r][4 * o + 2]);
-          acc[r][4 * o + 3] = fmaf(h, w[e].w, acc[r][4 * o + 3]);
-        }
-      }
-    }
-  }
-}
-
-// This lane's share of L transposed products d_pre @ wᵀ for unit k:
-// out[r][l] = sum over j in quarter q, g of dp_s[l][r][j].g * w_s[l][k][j].g.
-// Each staged weight float4 is read by one lane; the 8 lanes of a
-// quarter-warp read 8 rows k (p + 1 apart) and share one d_pre read.
-template <int ROWS, int L>
-__device__ __forceinline__ void quarter_transposed_products(
-    const float4* const (&dp_s)[L], const float4* const (&w_s)[L], int kq,
-    int dp_row, int q, int k, float (&out)[ROWS][L]) {
-  const int stride = 4 * kq + 1;
-  const int d0 = q * (kq + 1);
-  const int w0 = k * stride + q * kq;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int l = 0; l < L; ++l) out[r][l] = 0.0f;
-#pragma unroll 8
-  for (int m = 0; m < kq; ++m) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float4 w = w_s[l][w0 + m];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 d = dp_s[l][r * dp_row + d0 + m];
-        float s = out[r][l];
-        s = fmaf(d.x, w.x, s);
-        s = fmaf(d.y, w.y, s);
-        s = fmaf(d.z, w.z, s);
-        s = fmaf(d.w, w.w, s);
-        out[r][l] = s;
-      }
-    }
-  }
-}
 
 // Serial part of the pair backward. Replaces the sweep of _pair_bwd_kernel
 // (masters_thesis_tpu/ops/lstm_kernel.py). Iteration k runs layer 1 at
@@ -466,62 +282,71 @@ lstm_pair_bwd_kernel(const float* __restrict__ dh2s, const float* __restrict__ x
 
 // Serial part of the single-layer backward. Replaces the sweep of
 // _bwd_kernel (masters_thesis_tpu/ops/lstm_kernel.py): t = T-1 .. 0, gates
-// recomputed from x[t] + h[t-1] @ w, d_pre written into dx[t].
-// Shared memory: w_s [padded(H)][H] float4, hp_s [rows][padded(H)],
-// dp_s [rows][H] float4.
-template <int RPT>
-__global__ void __launch_bounds__(kMaxThreads)
+// recomputed from x[t] + h[t-1] @ w, d_pre written into dx[t]. Iteration s
+// runs single_sweep_step (lstm_sweep.cuh): d_pre[s+1] @ wᵀ and step s's
+// gates in one pass, then step s's cell; d_pre[T] is a zero plane. One
+// barrier an iteration. Each lane's operands of the next iteration (x, c,
+// dh and the h rows it stages) are loaded from device memory one iteration
+// ahead. Shared memory: w_s [p][p + 1] float4, then the planes of
+// single_planes.
+template <int ROWS>
+__global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
                 const float* __restrict__ hs, const float* __restrict__ cs,
                 const float* __restrict__ w, float* __restrict__ dx, int n_t,
                 int n_rows, int hidden) {
+  constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
   extern __shared__ float4 smem[];
-  const int kp = padded(hidden);
-  const int rows = kGroups * RPT;
+  const int p = sweep_pad(hidden);
+  const int kq = p / 4;
   float4* w_s = smem;
-  float4* hp_s4 = w_s + kp * hidden;
-  float4* dp_s = hp_s4 + rows * kp / 4;
-  float* hp_s = reinterpret_cast<float*>(hp_s4);
-  stage_weight(w, w_s, hidden);
-  for (int idx = threadIdx.x; idx < rows * kp; idx += blockDim.x) {
-    hp_s[idx] = 0.0f;
+  const SinglePlanes pl = single_planes(w_s + p * (p + 1), p, ROWS);
+  stage_weight_padded(w, w_s, hidden, p);
+  for (int idx = threadIdx.x; idx < 2 * pl.dp_size; idx += blockDim.x) {
+    pl.dp[idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // d_pre[T] is zero
   }
-  const int j = threadIdx.x % hidden;
-  const int lrow0 = (threadIdx.x / hidden) * RPT;
-  const int row0 = blockIdx.x * rows + lrow0;
-  const float4* const h_in[1] = {hp_s4};
-  const float4* const w_in[1] = {w_s};
-  const float4* const dp_in[1] = {dp_s};
+  const int q = (threadIdx.x & 31) >> 3;
+  const int j = (threadIdx.x >> 5) * 8 + (threadIdx.x & 7);
+  const bool active = (threadIdx.x >> 5) * 8 < p;  // the same for a warp
+  const int tile0 = blockIdx.x * ROWS;
 
-  float dh_rec[RPT], dc[RPT];
+  // h[T-2] into its plane; step T-1's operands.
+  float hv[NR], xn[4][NR], cn[NR], cpn[NR], dhn[NR], hn[NR], dc[NR];
+  load_owned<ROWS>(hs, n_t - 2, n_t, n_rows, hidden, tile0, q, j, hv);
+  if (active) stage_h<ROWS>(hv, pl.h_of(n_t - 2), kq, q, j);
+  load_owned_x<ROWS>(x, n_t - 1, n_t, n_rows, hidden, tile0, q, j, xn);
+  load_owned<ROWS>(cs, n_t - 1, n_t, n_rows, hidden, tile0, q, j, cn);
+  load_owned<ROWS>(cs, n_t - 2, n_t, n_rows, hidden, tile0, q, j, cpn);
+  load_owned<ROWS>(dhs, n_t - 1, n_t, n_rows, hidden, tile0, q, j, dhn);
+  load_owned<ROWS>(hs, n_t - 3, n_t, n_rows, hidden, tile0, q, j, hn);
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) dh_rec[r] = dc[r] = 0.0f;
-  __syncthreads();
+  for (int i = 0; i < NR; ++i) dc[i] = 0.0f;
+  __syncthreads();  // the weight and h[T-2] are staged, d_pre[T] is zero
 
-  for (int t = n_t - 1; t >= 0; --t) {
-    float hv[RPT];
-    load_h(hs, t - 1, n_t, n_rows, hidden, row0, j, hv);
+  for (int s = n_t - 1; s >= 0; --s) {
+    float xv[4][NR], cv[NR], cpv[NR], dhv[NR];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) hp_s[(lrow0 + r) * kp + j] = hv[r];
-    float acc[1][4][RPT], cv[RPT], cp[RPT], dhv[RPT];
-    load_x(x, t, n_t, n_rows, hidden, row0, j, acc[0]);
-    load_h(cs, t, n_t, n_rows, hidden, row0, j, cv);
-    load_h(cs, t - 1, n_t, n_rows, hidden, row0, j, cp);
-    load_h(dhs, t, n_t, n_rows, hidden, row0, j, dhv);
-    __syncthreads();  // hp_s holds h[t-1]
-
-    gate_products<RPT, 1>(h_in, w_in, lrow0, hidden, j, acc);
-    float dh[RPT], d[4][RPT];
+    for (int i = 0; i < NR; ++i) {
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) dh[r] = dhv[r] + dh_rec[r];
-    cell_backward(acc[0], cv, cp, dh, dc, d);
-    store_d_pre(d, true, dx, t, n_rows, hidden, row0, lrow0, j, dp_s);
-    __syncthreads();  // dp_s holds this step's d_pre rows
-
-    float tr[1][RPT];
-    transposed_products<RPT, 1>(dp_in, w_in, lrow0, hidden, j, tr);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) dh_rec[r] = tr[0][r];
+      for (int g = 0; g < 4; ++g) xv[g][i] = xn[g][i];
+      cv[i] = cn[i];
+      cpv[i] = cpn[i];
+      dhv[i] = dhn[i];
+      hv[i] = hn[i];  // h[s-2]
+    }
+    load_owned_x<ROWS>(x, s - 1, n_t, n_rows, hidden, tile0, q, j, xn);
+    load_owned<ROWS>(cs, s - 1, n_t, n_rows, hidden, tile0, q, j, cn);
+    load_owned<ROWS>(cs, s - 2, n_t, n_rows, hidden, tile0, q, j, cpn);
+    load_owned<ROWS>(dhs, s - 1, n_t, n_rows, hidden, tile0, q, j, dhn);
+    load_owned<ROWS>(hs, s - 3, n_t, n_rows, hidden, tile0, q, j, hn);
+    if (active) {
+      float d[4][NR];
+      single_sweep_step<ROWS>(pl.h_of(s - 1), pl.d_pre(s + 1), w_s, kq, q, j,
+                              xv, cv, cpv, dhv, dc, d);
+      single_sweep_store<ROWS>(d, hv, dx, s, n_rows, hidden, tile0, q, j, kq,
+                               pl.d_pre(s), pl.h_of(s - 2));
+    }
+    __syncthreads();  // d_pre[s] and h[s-2] are in their planes
   }
 }
 
@@ -658,26 +483,6 @@ lstm_wgrad_sum_kernel(WgradJobs jobs, const float* __restrict__ part,
   }
 }
 
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// Rows a block of the pair's sweep: the smallest of 1, 2, 4, 8 whose grid
-// fits one wave of SMs. A block reads its staged weights once a product and
-// step whatever its rows, so the tile only sets how many SMs work.
-cudaError_t sweep_rows(int n_rows, int device, int* rows) {
-  int sms = 0;
-  const cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  *rows = kSweepMaxRows;
-  for (int r = 1; r < kSweepMaxRows; r *= 2) {
-    if (ceil_div(n_rows, r) <= sms) {
-      *rows = r;
-      break;
-    }
-  }
-  return cudaSuccess;
-}
-
 // The sweep's dynamic shared memory: three padded weights, two or three h
 // planes and two d_pre planes (lstm_pair_bwd_kernel). 224,768 bytes at
 // H = 64, 8 rows, masked.
@@ -707,33 +512,15 @@ int lstm_pair_bwd(const float* dh2s, const float* x1, const float* mask,
                   int n_t, int n_rows, int hidden, int device,
                   cudaStream_t stream) {
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  int rows = 0;
-  if (err == cudaSuccess) err = sweep_rows(n_rows, device, &rows);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto run = [&](auto rows_c) {
+  return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
     const auto kernel = mask != nullptr ? lstm_pair_bwd_kernel<kRows, true>
                                         : lstm_pair_bwd_kernel<kRows, false>;
-    const size_t smem = sweep_smem(hidden, kRows, mask != nullptr);
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    kernel<<<ceil_div(n_rows, kRows), kSweepThreads, smem, stream>>>(
-        dh2s, x1, mask, h1s, c1s, h2s, c2s, w1_t, wi2_t, b2, w2_t, dx1, dpre2,
-        n_t, n_rows, hidden);
-    return cudaGetLastError();
-  };
-  switch (rows) {
-    case 1:
-      return static_cast<int>(run(std::integral_constant<int, 1>{}));
-    case 2:
-      return static_cast<int>(run(std::integral_constant<int, 2>{}));
-    case 4:
-      return static_cast<int>(run(std::integral_constant<int, 4>{}));
-    default:
-      return static_cast<int>(run(std::integral_constant<int, kSweepMaxRows>{}));
-  }
+    return launch_sweep(kernel, n_rows, kRows,
+                        sweep_smem(hidden, kRows, mask != nullptr), stream, dh2s,
+                        x1, mask, h1s, c1s, h2s, c2s, w1_t, wi2_t, b2, w2_t, dx1,
+                        dpre2, n_t, n_rows, hidden);
+  }));
 }
 
 // dx = d_pre (T, B, 4H) from dhs, hs, cs (T, B, H), x (T, B, 4H), w_t (H, 4H).
@@ -741,11 +528,11 @@ int lstm_bwd(const float* dhs, const float* x, const float* hs, const float* cs,
              const float* w_t, float* dx, int n_t, int n_rows, int hidden,
              int device, cudaStream_t stream) {
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_rpt(n_rows, device, [&](auto rpt_c) {
-    constexpr int kRpt = decltype(rpt_c)::value;
-    return launch(lstm_bwd_kernel<kRpt>, n_rows, hidden, kRpt,
-                  smem_bytes(hidden, kRpt, 1, 1, 1), stream, dhs, x, hs, cs,
-                  w_t, dx, n_t, n_rows, hidden);
+  return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
+    constexpr int kRows = decltype(rows_c)::value;
+    return launch_sweep(lstm_bwd_kernel<kRows>, n_rows, kRows,
+                        single_sweep_smem(hidden, kRows), stream, dhs, x, hs,
+                        cs, w_t, dx, n_t, n_rows, hidden);
   }));
 }
 

@@ -27,7 +27,8 @@
 // computes, the counterpart of the BlockSpec pipeline. The backward needs
 // h[t0-1] and c[t0-1] for a chunk's first step t0: the TPU kernel reads them
 // from per-chunk boundary slivers only because a BlockSpec cannot read across
-// blocks; here the chunk's copy simply starts one step earlier in the stash.
+// blocks; here the chunk's copy simply starts earlier in the stash (c one
+// step, h two: an iteration also stages the h of the step after it).
 //
 // What bounds them on this card. Each step is a (rows, H) @ (H, 4H) product
 // (and, backward, its transpose and the rank-rows dw update) whose next step
@@ -35,30 +36,42 @@
 // independent. At T=252, 100 rows, H=64 the forward does 826 MFLOP of f32
 // products over 39 MB (x in; h, c out): 12.3 us by f32 arithmetic (no TF32,
 // to keep the JAX package's f32 numerics), 11.6 us by bytes; the backward
-// three products a step, 37 us by arithmetic. The step chain's latency, not
-// either roofline term, limits both.
+// three products a step, 37 us by arithmetic. The step chain's latency and
+// each step's shared-memory reads, not either roofline term, limit both.
+// The backward's first design ran the resident sweep's old step (two row
+// groups each reading every weight, two barriers a step) plus a 64 KiB dw
+// in shared memory that each thread read and wrote every step: about 4,450
+// wavefronts a block and step at H = 64, against the 4.01 us a step
+// measured at 100 rows on an H100.
 //
-// What the design does about it. The per-step arithmetic is the resident
-// kernels' own (lstm_fwd.cu, lstm_bwd.cu, through lstm_common.cuh): the
-// weight staged once in shared memory as one float4 of the four gates per
-// (k, j), thread (group, j) owning hidden unit j of its rows, h (and d_pre)
-// through shared memory, c, dh and dc in registers, the row tile (2, 4 or 8
-// rows) the smallest that keeps the grid in one wave. So the forward's h and
-// c and the backward's dx are bit-equal to those kernels'; the chunked copy
-// takes every load of the step chain off device memory. The backward keeps
-// the tile's dw (64 KiB at H=64) in shared memory: thread (group, j) owns
-// the four gates of unit j for half of the k rows, so the update needs no
-// exchange and no atomics, and a run repeats bit for bit. The chunk length
-// is the longest (at most kMaxChunk steps) whose two buffers fit the block's
-// shared memory beside the weight (and dw): at H=64, 8-row tiles, 10 steps
-// forward and 2 backward; at 2-row tiles 16 and 13. The ragged last chunk
-// and the ragged last row tile are masked, not padded: rows past the last
-// stay zero in shared memory, so their d_pre is zero and adds nothing to dw.
-// Accurate expf/tanhf, no fast math.
+// What the design does about it. The forward's per-step arithmetic is the
+// resident forward's own (lstm_fwd.cu, through lstm_common.cuh): the weight
+// staged once as one float4 of the four gates per (k, j), thread (group, j)
+// owning hidden unit j of its rows, h through shared memory, c in
+// registers, so its h and c are bit-equal to lstm_fwd_kernel's. The
+// backward runs lstm_bwd_kernel's step (single_sweep_step, lstm_sweep.cuh)
+// on the same tile (sweep_rows), so its dx is bit-equal to that kernel's:
+// 256 threads, each weight float4 read by one lane a product and step, and
+// the gates of step s, which depend on stashes only, in the same pass and
+// behind the same one barrier as d_pre[s+1] @ wᵀ. dw lives in registers:
+// lane (j, q) owns dw[k][g H + j] for the 16 k of its quarter (64 floats)
+// and adds the tile's rows of h[s]ᵀ d_pre[s+1] in the iteration that
+// consumes d_pre[s+1], 5 wavefronts a row and warp (1,224 wavefronts a
+// block and step at 1 row, 2,624 at 8; 384 and 3,072 clocks of FMAs a
+// scheduler). Each lane writes only its own entries: no dw in shared
+// memory, no barrier for it, no atomics, and a run repeats bit for bit. The
+// chunked copy takes every load of the step chain off device memory. The
+// chunk length is the longest (at most kMaxChunk steps) whose two buffers
+// fit the block's shared memory beside the weight (and the sweep's planes):
+// at H=64 16 steps at 100 rows, forward and backward; at 800 rows 10
+// forward (8-row tiles) and 4 backward. The ragged last chunk and the
+// ragged last row tile are masked, not padded: rows past the last stay zero
+// in shared memory, so their d_pre is zero and adds nothing to dw. Accurate
+// expf/tanhf, no fast math.
 
 #include <cstdint>
 
-#include "lstm_common.cuh"
+#include "lstm_sweep.cuh"
 
 namespace {
 
@@ -120,11 +133,12 @@ __device__ __forceinline__ void zero_rows(float* p, int valid, int width) {
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 // The backward's chunk buffer, in floats: x [tc][rows][4H], dh [tc][rows][H],
-// h [tc][rows][H] (h[t-1] of the chunk's steps), c [tc + 1][rows][H]
-// (c[t0 - 1] .. c[t0 + tc - 1]), rounded up to whole float4s.
+// h [tc][rows][H] (h[t0 - 2] .. h[t0 + tc - 3]: the h[s-2] that the
+// iteration of step s stages), c [tc + 1][rows][H] (c[t0 - 1] ..
+// c[t0 + tc - 1]), rounded up to whole float4s.
 __host__ __device__ __forceinline__ int bwd_buffer_floats(int hidden, int rows,
                                                           int tc) {
-  return round4(tc * rows * 6 * hidden + (tc + 1) * rows * hidden);
+  return round4(tc * rows * 5 * hidden + (2 * tc + 1) * rows * hidden);
 }
 
 // Where dh, h and c start in a backward chunk buffer, in floats.
@@ -152,8 +166,9 @@ __device__ __forceinline__ void stage_fwd_chunk(float* dst, const float* __restr
 }
 
 // The planes of steps t0 .. t0 + len - 1 into the backward chunk buffer
-// `base`, as one cp.async group: x and dh at t, h at t - 1 and c at
-// t0 - 1 .. t0 + len - 1, read from the stash (zero before the first step).
+// `base`, as one cp.async group: x and dh at t, h at t0 - 2 .. t0 + len - 3
+// and c at t0 - 1 .. t0 + len - 1, read from the stash (zero before the
+// first step).
 __device__ __forceinline__ void stage_bwd_chunk(
     float* base, BwdSections at, const float* __restrict__ x,
     const float* __restrict__ dhs, const float* __restrict__ hs,
@@ -169,17 +184,20 @@ __device__ __forceinline__ void stage_bwd_chunk(
                valid * hidden);
   }
   for (int i = 0; i <= len; ++i) {
-    const int t = t0 - 1 + i;
-    float* c_slot = base + at.c + i * rows * hidden;
-    float* h_slot = base + at.h + i * rows * hidden;  // a slot for i < len
-    if (t < 0) {
-      zero_rows(c_slot, valid, hidden);
-      zero_rows(h_slot, valid, hidden);
-      continue;
+    const int steps[2] = {t0 - 1 + i, t0 - 2 + i};  // c, h
+    float* const slots[2] = {base + at.c + i * rows * hidden,
+                             base + at.h + i * rows * hidden};
+    const float* const planes[2] = {cs, hs};
+    for (int e = 0; e < 2; ++e) {
+      if (e == 1 && i == len) break;  // no step reads h[t0 + len - 2]
+      if (steps[e] < 0) {
+        zero_rows(slots[e], valid, hidden);
+      } else {
+        copy_async(slots[e],
+                   planes[e] + static_cast<size_t>(steps[e]) * n_rows * hidden + tile_h,
+                   valid * hidden);
+      }
     }
-    const size_t from = static_cast<size_t>(t) * n_rows * hidden + tile_h;
-    copy_async(c_slot, cs + from, valid * hidden);
-    if (i < len) copy_async(h_slot, hs + from, valid * hidden);
   }
   cp_async_commit();
 }
@@ -190,13 +208,11 @@ size_t fwd_smem_bytes(int hidden, int rpt, int tc) {
   return (kp * hidden * 4 + rows * kp + 2 * tc * rows * 4 * hidden) * sizeof(float);
 }
 
-size_t bwd_smem_bytes(int hidden, int rpt, int tc) {
-  const size_t kp = padded(hidden);
-  const size_t rows = kGroups * rpt;
-  return (kp * hidden * 4 + static_cast<size_t>(hidden) * hidden * 4 +
-          rows * hidden * 4 + 2 * rows * kp +
-          2 * static_cast<size_t>(bwd_buffer_floats(hidden, rows, tc))) *
-         sizeof(float);
+// The weight and planes of the single-layer sweep, and two chunk buffers:
+// 210,432 bytes at H=64, 8 rows, tc = 4.
+size_t bwd_smem_bytes(int hidden, int rows, int tc) {
+  return single_sweep_smem(hidden, rows) +
+         2 * static_cast<size_t>(bwd_buffer_floats(hidden, rows, tc)) * sizeof(float);
 }
 
 // Forward. Replaces _tb_fwd_kernel (masters_thesis_tpu/ops/lstm_kernel.py).
@@ -275,65 +291,114 @@ lstm_tb_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// This lane's entries of the tile's dw: dw[m][g] is dw[q kq + m][g H + j],
+// the k of quarter q and the gates of unit j. dw += h[s]ᵀ d_pre[s+1] over the
+// tile's rows, in the order 0 .. ROWS - 1; h_s holds h[s], dp_s d_pre[s+1].
+template <int ROWS>
+__device__ __forceinline__ void add_dw(const float* __restrict__ h_s,
+                                       const float4* __restrict__ dp_s, int kq,
+                                       int q, int j, float (&dw)[kMaxHidden / 4][4]) {
+  const int h0 = q * (kq + 4);
+  const int dpc = dp_col(j, kq);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const float4 d = dp_s[r * (4 * kq + 4) + dpc];
+#pragma unroll
+    for (int m = 0; m < kMaxHidden / 4; m += 4) {
+      if (m >= kq) break;
+      const float4 h4 =
+          *reinterpret_cast<const float4*>(h_s + r * (4 * kq + 16) + h0 + m);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float h = lane(h4, e);
+        dw[m + e][0] = fmaf(h, d.x, dw[m + e][0]);
+        dw[m + e][1] = fmaf(h, d.y, dw[m + e][1]);
+        dw[m + e][2] = fmaf(h, d.z, dw[m + e][2]);
+        dw[m + e][3] = fmaf(h, d.w, dw[m + e][3]);
+      }
+    }
+  }
+}
+
+// v[i] = slot k of a [tc][ROWS][H] section for row q + 4 i and unit j, zero
+// past the tile or for j >= H.
+template <int ROWS>
+__device__ __forceinline__ void owned_from(const float* section, int k,
+                                           int hidden, int q, int j,
+                                           float (&v)[(ROWS + 3) / 4]) {
+#pragma unroll
+  for (int i = 0; i < (ROWS + 3) / 4; ++i) {
+    const int lrow = q + 4 * i;
+    v[i] = lrow < ROWS && j < hidden ? section[(k * ROWS + lrow) * hidden + j] : 0.0f;
+  }
+}
+
 // Backward. Replaces _tb_bwd_kernel (masters_thesis_tpu/ops/lstm_kernel.py):
 // chunks in reverse, t = T-1 .. 0 within each, gates recomputed from
 // x[t] + h[t-1] @ w, d_pre written into dx[t], dw += h[t-1]ᵀ d_pre[t] over
 // the tile's rows; the tile's dw goes to dw_part[blockIdx.x] (H, 4H).
-// Shared memory: w_s [padded(H)][H] float4; dw_s [H][H] float4 (the gates of
-// unit j at k); dp_s [rows][H] float4; hp_s two [rows][padded(H)] (h[t-1],
-// by the parity of t: the dw update still reads step t's while step t-1
-// writes its own); then two chunk buffers (bwd_buffer_floats).
-template <int RPT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// Iteration s is lstm_bwd_kernel's (lstm_bwd.cu), the same single_sweep_step
+// on the same tile (sweep_rows), so dx is bit-equal to it; its operands
+// come from the chunk buffer instead of device memory, and after the step
+// each lane adds d_pre[s+1]'s rows into its 64 dw entries, kept in
+// registers: no shared dw, no barrier for it, no atomics. (Placed after the
+// step, the update's FMAs fill the step's serial tail: 4-5% faster at 100
+// rows than before it, on an H100.)
+// Shared memory: w_s [p][p + 1] float4, the planes of single_planes, then
+// two chunk buffers (bwd_buffer_floats).
+template <int ROWS>
+__global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_tb_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
                    const float* __restrict__ hs, const float* __restrict__ cs,
                    const float* __restrict__ w, float* __restrict__ dx,
                    float* __restrict__ dw_part, int n_t, int n_rows, int hidden,
                    int tc) {
+  constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
   extern __shared__ float4 smem[];
-  const int kp = padded(hidden);
-  const int rows = kGroups * RPT;
+  const int p = sweep_pad(hidden);
+  const int kq = p / 4;
   const int four_h = 4 * hidden;
   float4* w_s = smem;
-  float4* dw_s = w_s + kp * hidden;
-  float4* dp_s = dw_s + hidden * hidden;
-  float* hp_s = reinterpret_cast<float*>(dp_s + rows * hidden);
-  float* stage_s = hp_s + 2 * rows * kp;
-  const int buf = bwd_buffer_floats(hidden, rows, tc);
-  const BwdSections at = bwd_sections(hidden, rows, tc);
-  const int tile0 = blockIdx.x * rows;
-  const int valid = min(rows, n_rows - tile0);
+  const SinglePlanes pl = single_planes(w_s + p * (p + 1), p, ROWS);
+  float* stage_s = pl.h + 3 * pl.h_size;
+  const int buf = bwd_buffer_floats(hidden, ROWS, tc);
+  const BwdSections at = bwd_sections(hidden, ROWS, tc);
+  const int tile0 = blockIdx.x * ROWS;
+  const int valid = min(ROWS, n_rows - tile0);
   const int n_chunks = (n_t + tc - 1) / tc;
   const int last0 = (n_chunks - 1) * tc;
 
   stage_bwd_chunk(stage_s + ((n_chunks - 1) & 1) * buf, at, x, dhs, hs, cs,
-                  last0, n_t - last0, n_rows, rows, hidden, tile0, valid);
-  stage_weight(w, w_s, hidden);
-  for (int idx = threadIdx.x; idx < hidden * hidden; idx += blockDim.x) {
-    dw_s[idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                  last0, n_t - last0, n_rows, ROWS, hidden, tile0, valid);
+  stage_weight_padded(w, w_s, hidden, p);
+  for (int idx = threadIdx.x; idx < 2 * pl.dp_size; idx += blockDim.x) {
+    pl.dp[idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // d_pre[T] is zero
   }
-  for (int idx = threadIdx.x; idx < 2 * rows * kp; idx += blockDim.x) {
-    hp_s[idx] = 0.0f;  // the padded k columns stay zero
-  }
+  // The plane of h[T-1], which the first dw update reads (times the zero
+  // d_pre[T]) before any step writes it: zero, not what an earlier kernel
+  // left in shared memory (0 x NaN is NaN).
+  float* const h_last = pl.h_of(n_t - 1);
+  for (int idx = threadIdx.x; idx < pl.h_size; idx += blockDim.x) h_last[idx] = 0.0f;
   for (int b = 0; b < 2; ++b) {  // no copy writes the rows past the last
     float* base = stage_s + b * buf;
-    zero_tail_rows(base, tc, rows, valid, four_h);
-    zero_tail_rows(base + at.dh, 3 * tc + 1, rows, valid, hidden);
+    zero_tail_rows(base, tc, ROWS, valid, four_h);
+    zero_tail_rows(base + at.dh, 3 * tc + 1, ROWS, valid, hidden);
   }
-  const int j = threadIdx.x % hidden;
-  const int group = threadIdx.x / hidden;
-  const int lrow0 = group * RPT;
-  const int row0 = tile0 + lrow0;
-  // This thread's rows k of dw (the four gates of unit j at each).
-  const int k_half = (hidden + kGroups - 1) / kGroups;
-  const int k_begin = group * k_half;
-  const int k_end = min(hidden, k_begin + k_half);
-  const float4* const w_in[1] = {w_s};
-  const float4* const dp_in[1] = {dp_s};
+  const int q = (threadIdx.x & 31) >> 3;
+  const int j = (threadIdx.x >> 5) * 8 + (threadIdx.x & 7);
+  const bool active = (threadIdx.x >> 5) * 8 < p;  // the same for a warp
 
-  float dh_rec[RPT], dc[RPT];
+  // h[T-2] into its plane.
+  float hv[NR], dc[NR];
+  load_owned<ROWS>(hs, n_t - 2, n_t, n_rows, hidden, tile0, q, j, hv);
+  if (active) stage_h<ROWS>(hv, pl.h_of(n_t - 2), kq, q, j);
+  float dw[kMaxHidden / 4][4];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) dh_rec[r] = dc[r] = 0.0f;
+  for (int m = 0; m < kMaxHidden / 4; ++m)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) dw[m][g] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) dc[i] = 0.0f;
 
   for (int chunk = n_chunks - 1; chunk >= 0; --chunk) {
     const int t0 = chunk * tc;
@@ -345,70 +410,47 @@ lstm_tb_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
     __syncthreads();
     if (chunk > 0) {
       stage_bwd_chunk(stage_s + ((chunk - 1) & 1) * buf, at, x, dhs, hs, cs,
-                      t0 - tc, tc, n_rows, rows, hidden, tile0, valid);
+                      t0 - tc, tc, n_rows, ROWS, hidden, tile0, valid);
     }
     for (int k = len - 1; k >= 0; --k) {
-      const int t = t0 + k;
-      float* hp = hp_s + (t & 1) * rows * kp;
-      float acc[1][4][RPT], cv[RPT], cp[RPT], dhv[RPT];
+      const int s = t0 + k;
+      float xv[4][NR], cv[NR], cpv[NR], dhv[NR];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int e = (k * rows + lrow0 + r) * hidden + j;
-        hp[(lrow0 + r) * kp + j] = base[at.h + e];
-        cp[r] = base[at.c + e];
-        cv[r] = base[at.c + rows * hidden + e];
-        dhv[r] = base[at.dh + e];
+      for (int i = 0; i < NR; ++i) {
+        const int lrow = q + 4 * i;
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
-          acc[0][g][r] = base[(k * rows + lrow0 + r) * four_h + g * hidden + j];
+          xv[g][i] = lrow < ROWS && j < hidden
+                         ? base[(k * ROWS + lrow) * four_h + g * hidden + j]
+                         : 0.0f;
         }
       }
-      __syncthreads();  // hp holds h[t-1]
-      const float4* const h_in[1] = {reinterpret_cast<const float4*>(hp)};
-      gate_products<RPT, 1>(h_in, w_in, lrow0, hidden, j, acc);
-      float dh[RPT], d[4][RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) dh[r] = dhv[r] + dh_rec[r];
-      cell_backward(acc[0], cv, cp, dh, dc, d);
-      store_d_pre(d, true, dx, t, n_rows, hidden, row0, lrow0, j, dp_s);
-      __syncthreads();  // dp_s holds this step's d_pre rows
-
-      float tr[1][RPT];
-      transposed_products<RPT, 1>(dp_in, w_in, lrow0, hidden, j, tr);
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) dh_rec[r] = tr[0][r];
-      // dw[k][g*H + j] += sum over the tile's rows of h[t-1][k] d_pre[t][g*H + j],
-      // at most four rows a pass (their d_pre in registers, no spills).
-      constexpr int kDwRows = kGroups * RPT < 4 ? kGroups * RPT : 4;
-#pragma unroll 1
-      for (int r0 = 0; r0 < kGroups * RPT; r0 += kDwRows) {
-        float4 dpv[kDwRows];
-#pragma unroll
-        for (int rr = 0; rr < kDwRows; ++rr) dpv[rr] = dp_s[(r0 + rr) * hidden + j];
-        for (int kk = k_begin; kk < k_end; ++kk) {
-          float4 s = dw_s[kk * hidden + j];
-#pragma unroll
-          for (int rr = 0; rr < kDwRows; ++rr) {
-            const float hk = hp[(r0 + rr) * kp + kk];
-            s.x = fmaf(hk, dpv[rr].x, s.x);
-            s.y = fmaf(hk, dpv[rr].y, s.y);
-            s.z = fmaf(hk, dpv[rr].z, s.z);
-            s.w = fmaf(hk, dpv[rr].w, s.w);
-          }
-          dw_s[kk * hidden + j] = s;
-        }
+      owned_from<ROWS>(base + at.dh, k, hidden, q, j, dhv);
+      owned_from<ROWS>(base + at.c, k + 1, hidden, q, j, cv);
+      owned_from<ROWS>(base + at.c, k, hidden, q, j, cpv);
+      owned_from<ROWS>(base + at.h, k, hidden, q, j, hv);  // h[s-2]
+      if (active) {
+        float d[4][NR];
+        single_sweep_step<ROWS>(pl.h_of(s - 1), pl.d_pre(s + 1), w_s, kq, q, j,
+                                xv, cv, cpv, dhv, dc, d);
+        // Unconditional: d_pre[T] and the plane of h[T-1] are zeroed
+        // above, so the first iteration adds 0.
+        add_dw<ROWS>(pl.h_of(s), pl.d_pre(s + 1), kq, q, j, dw);
+        single_sweep_store<ROWS>(d, hv, dx, s, n_rows, hidden, tile0, q, j, kq,
+                                 pl.d_pre(s), pl.h_of(s - 2));
       }
+      __syncthreads();  // d_pre[s] and h[s-2] are in their planes
     }
   }
-  // Each thread wrote only its own dw_s entries: no barrier needed.
-  float* out = dw_part + static_cast<size_t>(blockIdx.x) * hidden * four_h;
-  for (int kk = k_begin; kk < k_end; ++kk) {
-    const float4 s = dw_s[kk * hidden + j];
-    float* o = out + kk * four_h + j;
-    o[0] = s.x;
-    o[hidden] = s.y;
-    o[2 * hidden] = s.z;
-    o[3 * hidden] = s.w;
+  if (!active || j >= hidden) return;
+  float* out = dw_part + static_cast<size_t>(blockIdx.x) * hidden * four_h + j;
+#pragma unroll
+  for (int m = 0; m < kMaxHidden / 4; ++m) {
+    const int kk = q * kq + m;
+    if (m < kq && kk < hidden) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) out[kk * four_h + g * hidden] = dw[m][g];
+    }
   }
 }
 
@@ -439,11 +481,11 @@ int lstm_tb_max_hidden() { return kMaxHidden; }
 // Row tiles of n_rows rows: the number of dw partials lstm_tb_bwd writes.
 int lstm_tb_row_tiles(int n_rows, int device, int* tiles) {
   if (n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int rpt = 0;
+  int rows = 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = rows_per_thread(n_rows, device, &rpt);
+  if (err == cudaSuccess) err = sweep_rows(n_rows, device, &rows);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *tiles = (n_rows + kGroups * rpt - 1) / (kGroups * rpt);
+  *tiles = ceil_div(n_rows, rows);
   return 0;
 }
 
@@ -451,12 +493,15 @@ int lstm_tb_row_tiles(int n_rows, int device, int* tiles) {
 int lstm_tb_time_chunk(int n_t, int n_rows, int hidden, int backward, int device,
                        int* tc) {
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  int rpt = 0;
+  int rows = 0;  // the backward's row tile, or the forward's rows a thread
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = rows_per_thread(n_rows, device, &rpt);
+  if (err == cudaSuccess) {
+    err = backward ? sweep_rows(n_rows, device, &rows)
+                   : rows_per_thread(n_rows, device, &rows);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(time_chunk(n_t, device, [&](int c) {
-    return backward ? bwd_smem_bytes(hidden, rpt, c) : fwd_smem_bytes(hidden, rpt, c);
+    return backward ? bwd_smem_bytes(hidden, rows, c) : fwd_smem_bytes(hidden, rows, c);
   }, tc));
 }
 
@@ -484,16 +529,16 @@ int lstm_tb_bwd(const float* dhs, const float* x, const float* hs, const float* 
                 const float* w_t, float* dx, float* dw_part, int n_t, int n_rows,
                 int hidden, int device, cudaStream_t stream) {
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_rpt(n_rows, device, [&](auto rpt_c) {
-    constexpr int kRpt = decltype(rpt_c)::value;
+  return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
+    constexpr int kRows = decltype(rows_c)::value;
     int tc = 0;
     const cudaError_t err = time_chunk(n_t, device, [&](int c) {
-      return bwd_smem_bytes(hidden, kRpt, c);
+      return bwd_smem_bytes(hidden, kRows, c);
     }, &tc);
     if (err != cudaSuccess) return err;
-    return launch(lstm_tb_bwd_kernel<kRpt>, n_rows, hidden, kRpt,
-                  bwd_smem_bytes(hidden, kRpt, tc), stream, dhs, x, hs, cs, w_t,
-                  dx, dw_part, n_t, n_rows, hidden, tc);
+    return launch_sweep(lstm_tb_bwd_kernel<kRows>, n_rows, kRows,
+                        bwd_smem_bytes(hidden, kRows, tc), stream, dhs, x, hs,
+                        cs, w_t, dx, dw_part, n_t, n_rows, hidden, tc);
   }));
 }
 

@@ -9,8 +9,8 @@ Tolerance 2e-5 abs for a forward against its plain version (f32, the sums
 taken in another order over up to 12 dependent steps, 19 wavefront
 iterations for an 8-deep stack, 252 steps for the time-blocked kernels),
 5e-5 for the encoder and engine end to end (input projection and heads
-added). Backward sweeps and weight gradients (sums over up to 12 * 803 or
-252 * 203 rows) are held at 2e-5 relative to the largest entry.
+added). Backward sweeps and weight gradients (sums over up to 60 * 803 or
+252 * 803 rows) are held at 2e-5 relative to the largest entry.
 """
 
 import numpy as np
@@ -119,14 +119,18 @@ def test_weight_gradients_repeat_bit_for_bit(cuda_device):
         assert torch.equal(a, b)
 
 
-# The pair's sweep takes 1, 2, 4 or 8 rows a block, the fewest that keep its
-# grid in one wave of an H100's 132 SMs: rows at the edges of each tile
-# (1-2: one row a block; 3, 7, 8, 9 and 133: ragged tiles; 100: the training
-# shape; 800 and 803: 8 rows a block). H 1, 5 and 13 pad the contraction to
-# 16 with zeros; T 1 and 2 are the shortest wavefronts.
+# The 256-thread sweeps (the pair's and both single-layer ones) take 1, 2, 4
+# or 8 rows a block, the fewest that keep the grid in one wave of an H100's
+# 132 SMs: rows at the edges of each tile (1-2: one row a block; 3, 7, 8, 9
+# and 133: ragged tiles; 100: the training shape; 800 and 803: 8 rows a
+# block). H 1, 5 and 13 pad the contraction to 16 with zeros; T 1 and 2 are
+# the shortest sweeps.
+SWEEP_ROWS = [1, 2, 3, 7, 8, 9, 100, 133, 800, 803]
+
+
 @pytest.mark.parametrize("n_t", [1, 2, 60])
 @pytest.mark.parametrize("hidden", [1, 5, 13, 64])
-@pytest.mark.parametrize("rows", [1, 2, 3, 7, 8, 9, 100, 133, 800, 803])
+@pytest.mark.parametrize("rows", SWEEP_ROWS)
 def test_pair_sweep_matches_plain(cuda_device, rows, hidden, n_t):
     x, w1, wi2, b2, w2 = _case(rows * hidden + n_t, rows, hidden, n_t=n_t,
                                device=cuda_device)
@@ -150,6 +154,27 @@ def test_pair_sweep_repeats_bit_for_bit(cuda_device):
     second = lk.lstm_pair_bwd_cuda(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_t", [1, 2, 60])
+@pytest.mark.parametrize("hidden", [1, 5, 13, 64])
+@pytest.mark.parametrize("rows", SWEEP_ROWS)
+def test_single_sweep_matches_plain(cuda_device, rows, hidden, n_t):
+    x, w1, *_ = _case(rows * hidden + n_t + 1, rows, hidden, n_t=n_t,
+                      device=cuda_device)
+    _, dh = _mask_and_cotangent(rows + n_t + 1, n_t, rows, hidden, cuda_device)
+    hs, cs = lk.lstm_recurrence_ref(x, w1, return_c=True)
+    torch.testing.assert_close(lk.lstm_bwd_cuda(dh, x, hs, cs, w1),
+                               lk.lstm_bwd_ref(dh, x, hs, cs, w1),
+                               atol=2e-5, rtol=0)
+
+
+def test_single_sweep_repeats_bit_for_bit(cuda_device):
+    x, w1, *_ = _case(9, 803, 64, n_t=60, device=cuda_device)
+    _, dh = _mask_and_cotangent(9, 60, 803, 64, cuda_device)
+    hs, cs = lk.lstm_recurrence_ref(x, w1, return_c=True)
+    assert torch.equal(lk.lstm_bwd_cuda(dh, x, hs, cs, w1),
+                       lk.lstm_bwd_cuda(dh, x, hs, cs, w1))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -435,14 +460,18 @@ def _length(name, chunk):
             "252": 252}[name]
 
 
-# Rows 1 and 3 (one ragged tile), 100 (2-row tiles, the training shape) and
-# 203 (4-row tiles, a ragged last one); H not a multiple of 4, and H=64.
+# The sweeps' rows and 203: the forward takes 2-row tiles at each (ragged at
+# 1, 3, 7, 9, 133, 203 and 803), the backward the sweeps' tiles (1 row at up
+# to 100 rows, 2 at 133 and 203, 8 at 800 and 803; ragged at 203 and 803);
+# H 1, 5 and 13 padded, and H=64.
 @pytest.mark.parametrize("length", LENGTHS)
-@pytest.mark.parametrize("hidden", [5, 13, 64])
-@pytest.mark.parametrize("rows", [1, 3, 100, 203])
+@pytest.mark.parametrize("hidden", [1, 5, 13, 64])
+@pytest.mark.parametrize("rows", SWEEP_ROWS + [203])
 def test_time_blocked_kernels_match_plain(cuda_device, rows, hidden, length):
     """The time-blocked forward (h and c) and backward (dx and dw) against
-    their plain versions, at lengths around each kernel's own time chunk."""
+    their plain versions, at lengths around each kernel's own time chunk,
+    and the backward's dx bit-equal to the resident sweep's: both run the
+    same step on the same tile."""
     for backward in (False, True):
         chunk = lk.lstm_tb_time_chunk_cuda(252, rows, hidden, cuda_device,
                                            backward)
@@ -463,6 +492,84 @@ def test_time_blocked_kernels_match_plain(cuda_device, rows, hidden, length):
                                               lk._row_tile(rows))
         _close_rel(dx, want_dx)
         _close_rel(dw, want_dw)
+        assert torch.equal(dx, lk.lstm_bwd_cuda(dh, x, hs, cs, w1))
+
+
+# A kernel that leaves NaN in all of every SM's shared memory, built from
+# this source with the port's own nvcc flags.
+_NAN_FILL_SOURCE = r"""
+#include <cuda_runtime.h>
+
+__global__ void nan_fill_kernel(int n) {
+  extern __shared__ float smem[];
+  volatile float* s = smem;  // stores that nothing reads are kept
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = __int_as_float(0x7fffffff);
+}
+
+extern "C" int fill_shared_with_nan(int device, cudaStream_t stream) {
+  int limit = 0, sms = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(nan_fill_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nan_fill_kernel<<<4 * sms, 1024, limit, stream>>>(limit / 4);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def fill_shared_with_nan(tmp_path_factory):
+    import ctypes
+    import subprocess
+
+    from masters_thesis_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    folder = tmp_path_factory.mktemp("nan_fill")
+    src, lib = folder / "nan_fill.cu", folder / "libnan_fill.so"
+    src.write_text(_NAN_FILL_SOURCE)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fill = ctypes.CDLL(str(lib)).fill_shared_with_nan
+    fill.argtypes = [ctypes.c_int, ctypes.c_void_p]
+
+    def run(device):
+        index = torch.cuda.current_device() if device.index is None else device.index
+        assert fill(index, torch.cuda.current_stream(device).cuda_stream) == 0
+
+    return run
+
+
+@pytest.mark.parametrize("rows,n_t", [(1, 1), (3, 2), (100, 252), (803, 60)])
+def test_backward_sweeps_read_no_shared_memory_they_did_not_write(
+        cuda_device, fill_shared_with_nan, rows, n_t):
+    """Both single-layer backward sweeps, each launched right after a kernel
+    that leaves NaN in every SM's shared memory, give what they give after
+    a clean run, bit for bit: no step reads a plane it has not written (a
+    read times zero is NaN all the same)."""
+    x, w1, *_ = _case(rows + n_t + 3, rows, 64, n_t=n_t, device=cuda_device)
+    _, dh = _mask_and_cotangent(rows + n_t + 3, n_t, rows, 64, cuda_device)
+    hs, cs = lk.lstm_tb_fwd_ref(x, w1, 16)
+    want_tb = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
+    want_dx = lk.lstm_bwd_cuda(dh, x, hs, cs, w1)
+    fill_shared_with_nan(cuda_device)
+    got_tb = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
+    fill_shared_with_nan(cuda_device)
+    got_dx = lk.lstm_bwd_cuda(dh, x, hs, cs, w1)
+    for got, want in zip((*got_tb, got_dx), (*want_tb, want_dx)):
+        assert bool(torch.isfinite(want).all())
+        assert torch.equal(got, want)
 
 
 def test_time_blocked_weight_gradient_repeats_bit_for_bit(cuda_device):

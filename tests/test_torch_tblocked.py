@@ -106,8 +106,33 @@ def test_plain_time_blocked_matches_interpret_pallas(monkeypatch, n_t, rows,
                                atol=GRAD_ATOL * scale, rtol=0)
 
 
+# (5, 1, 8): one row, one tile a row; (11, 9, 16): ragged tiles of 2 and 4.
+@pytest.mark.parametrize("n_t,rows,hidden", [(5, 1, 8), (11, 9, 16), (13, 40, 8)])
+def test_plain_time_blocked_dw_at_card_tiles_matches_interpret_pallas(
+        monkeypatch, n_t, rows, hidden):
+    """lstm_tb_bwd_ref's dw with the card kernel's row tiles (1, 2 and 4
+    rows, one (H, 4H) partial each, summed at the end) against the
+    interpret-mode time-blocked kernel's jax.grad, in chunks of 4 steps:
+    the card's per-tile partials compute the JAX package's dw."""
+    monkeypatch.setattr(jax_lk, "_tb_time_chunk", lambda *a: 4)
+    x, w, ct = _case(n_t * rows + 1, n_t, rows, hidden)
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    want_dw = np.asarray(jax.grad(
+        lambda b: jnp.sum(jax_lk._lstm_recurrence_tblocked(jx, b, True) * ct))(jw))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    hs, cs = lk.lstm_tb_fwd_ref(tx, tw, 4)
+    scale = float(np.abs(want_dw).max())
+    for tile in (1, 2, 4):
+        _, dw = lk.lstm_tb_bwd_ref(torch.from_numpy(ct), tx, hs, cs, tw, 4, tile)
+        np.testing.assert_allclose(dw.numpy(), want_dw, atol=GRAD_ATOL * scale,
+                                   rtol=0)
+
+
+# Tiles 8, 16 and 32 as the reference cuts its rows; 1, 2 and 4 as the card
+# kernel does (sweep_rows), 4 with a ragged last tile.
 @pytest.mark.parametrize("n_t,rows,hidden,chunk,tile", [
-    (9, 4, 8, 4, 8), (13, 120, 8, 5, 32), (30, 33, 16, 7, 16)])
+    (9, 4, 8, 4, 8), (13, 120, 8, 5, 32), (30, 33, 16, 7, 16),
+    (9, 4, 8, 4, 1), (13, 7, 8, 5, 2), (30, 33, 16, 7, 4)])
 def test_plain_time_blocked_is_the_resident_function(n_t, rows, hidden, chunk,
                                                      tile):
     """The time-blocked plain versions compute the resident ones' function:
