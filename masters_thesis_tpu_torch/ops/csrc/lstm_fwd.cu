@@ -13,7 +13,8 @@
 //                         (odd layer counts); its optional cs output is the
 //                         single-layer backward's stash.
 //
-// Layout and helpers: lstm_common.cuh.
+// Layout and helpers: lstm_common.cuh (the single layer), lstm_fwd_step.cuh
+// and lstm_sweep.cuh (the pair).
 //
 // What bounds them on this card. Each time step is a chain of small
 // (rows, H) @ (H, 4H) products whose next step needs this step's h, so the
@@ -21,25 +22,39 @@
 // At the serving shape (T=60, 800 rows, H=64) the pair does ~4.7 GFLOP of f32
 // products over ~61 MB of input and output, so f32 arithmetic (no TF32, to
 // keep the JAX package's f32 numerics) bounds it, and the step chain bounds
-// its latency.
+// its latency: every operand of a step sits in shared memory, which serves
+// one 128-byte wavefront a clock, so what a step reads there sets its time.
 //
 // What the design does about it. A block owns a tile of rows and runs the
 // whole time loop itself, so no state crosses blocks. Its weights are staged
-// once into shared memory — three (64, 256) f32 weights are 192 KiB, which a
-// block's 227 KB holds beside the state — re-laid so that one 16-byte load
-// gives a thread the four gate weights (i, f, g, o) of its hidden unit j at
-// one k. Thread (group, j) owns hidden unit j of kRowsPerThread rows: the
-// gate math needs no exchange between threads, and each weight load feeds
-// kRowsPerThread rows. h lives in shared memory (every thread of a row reads
-// all of it), c and the layer-2 seam in registers, and the next step's
-// x_proj (and mask) is loaded into registers while this step computes. The
-// row tile (kGroups * kRowsPerThread rows) is the smallest of 2, 4 and 8
-// rows that keeps the grid within one wave of the card's SMs: small batches
-// spread over more SMs, large ones reuse each weight load over more rows.
-// The ragged last tile is masked here (no padding of B to a multiple of 8 as
-// on the TPU). Accurate expf/tanhf, no fast math.
+// once into shared memory, re-laid so that one 16-byte load gives a thread
+// the four gate weights (i, f, g, o) of its hidden unit j at one k.
+//
+// The pair runs the forward step of lstm_fwd_step.cuh: 256 threads a tile of
+// 1, 2, 4 or 8 rows (the fewest that keep the grid in one wave of SMs), lane
+// u + 8 q of warp w serving unit j = 8 w + u and quarter q of the
+// contraction for all the tile's rows. Layer 1's product and layer 2's two
+// (its seam input and its recurrence) all read h planes that the previous
+// iteration wrote, so they share one pass and one barrier; the planes are
+// double buffered, so that barrier is the step's only one. wi2 and w2 are
+// staged, each float4 read by one lane a product and step; w1 sits in the
+// lanes' registers (64 floats a lane) below 8 rows and is staged at 8 rows,
+// where the accumulators need the registers: 1,024 or 1,536 weight
+// wavefronts a block and step at H = 64 whatever the rows, where the first
+// design (two row groups of 64 threads, each reading every weight, two
+// barriers a step, the seam product a serial phase of its own) read 3,072.
+// Three padded (64, 256) f32 weights are 199,680 bytes, the two buffers of
+// three 8-row planes 15,360, within a block's 227 KB.
+//
+// The single layer keeps the first design: thread (group, j) of a 2 x H
+// block owns hidden unit j of kRowsPerThread rows, h in shared memory, c in
+// registers, two barriers a step, the next step's x_proj loaded into
+// registers during this one; its row tile is the smallest of 2, 4 and 8
+// rows that keeps the grid within one wave. The ragged last tile is masked
+// here (no padding of B to a multiple of 8 as on the TPU). Accurate
+// expf/tanhf, no fast math.
 
-#include "lstm_common.cuh"
+#include "lstm_fwd_step.cuh"
 
 namespace {
 
@@ -97,128 +112,149 @@ lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// Weights a pair block stages in shared memory: wi2 and w2, and w1 as well
+// at 8 rows, where a lane's 64 accumulators leave no room for w1 in
+// registers (ptxas spills); below 8 rows w1 sits in registers
+// (load_quarter_weight). The sums are taken in the same order either way.
+__host__ __device__ constexpr int pair_staged_weights(int rows) {
+  return rows == kSweepMaxRows ? 3 : 2;
+}
+
 // Two-layer wavefront. Replaces _pair_fwd_kernel
 // (masters_thesis_tpu/ops/lstm_kernel.py).
-// Iteration s runs layer 2 at step s-1 (reading the seam made from h1[s-1])
-// and layer 1 at step s, then makes the seam b2 + (m ⊙ h1)[s] @ wi2 for the
-// next iteration — the same order as the TPU kernel, so layer 2 reads the
-// seam before layer 1 replaces it. Both layers' products share one loop.
-// HAS_MASK: mask (T, B, H) multiplies h1 at the seam only (h1s and the
-// layer-1 recurrence keep the unmasked h1). STASH: h1s, c1s, c2s are written.
-// Shared memory: w1_s, w2_s, wi2_s [padded(H)][H] float4 each, then
-// h1_s, h2_s (and hm_s, the masked h1, with HAS_MASK) [rows][padded(H)].
-template <int RPT, bool HAS_MASK, bool STASH>
-__global__ void __launch_bounds__(kMaxThreads)
+// Iteration s runs layer 1 at step s and layer 2 at step s-1, the TPU
+// kernel's order. Layer 1's gates are x1[s] + h1[s-1] @ w1, layer 2's
+// b2 + hm[s-1] @ wi2 + h2[s-2] @ w2 (hm = m ⊙ h1 with HAS_MASK, else h1):
+// all three products read planes the previous iteration wrote, so they run
+// in one pass of the forward step (lstm_fwd_step.cuh), wi2's and w2's
+// products adding into layer 2's sums. The step that is not run (layer 2 at
+// s = 0, layer 1 at s = n_t) is computed and discarded: uniform control
+// flow; h2[-1] is written as zero. HAS_MASK: mask (T, B, H) multiplies h1
+// at the seam only (h1s and the layer-1 recurrence keep the unmasked h1).
+// STASH: h1s, c1s, c2s are written. Each lane's x1 (and mask) of the next
+// iteration is loaded during this one (FwdLane: clamped, branch-free
+// reads). Warps with 8 w >= p only take part in the barriers.
+// Shared memory (p = sweep_pad(H)): w1_s (8 rows only), wi2_s, w2_s
+// [p][p + 1] float4, then two buffers of the h1, h2 (and, with HAS_MASK, hm)
+// planes [ROWS][p + 16] floats.
+template <int ROWS, bool HAS_MASK, bool STASH>
+__global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_pair_fwd_kernel(const float* __restrict__ x1, const float* __restrict__ mask,
                      const float* __restrict__ w1, const float* __restrict__ wi2,
                      const float* __restrict__ b2, const float* __restrict__ w2,
                      float* __restrict__ h2s, float* __restrict__ h1s,
                      float* __restrict__ c1s, float* __restrict__ c2s,
                      int n_t, int n_rows, int hidden) {
+  constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
+  constexpr bool kStaged = pair_staged_weights(ROWS) == 3;  // w1 too
   extern __shared__ float4 smem[];
-  const int kp = padded(hidden);
-  const int rows = kGroups * RPT;
-  float4* w1_s = smem;
-  float4* w2_s = w1_s + kp * hidden;
-  float4* wi2_s = w2_s + kp * hidden;
-  float4* h1_s4 = wi2_s + kp * hidden;
-  float4* h2_s4 = h1_s4 + rows * kp / 4;
-  float4* hm_s4 = h2_s4 + rows * kp / 4;  // used with HAS_MASK only
-  float* h1_s = reinterpret_cast<float*>(h1_s4);
-  float* h2_s = reinterpret_cast<float*>(h2_s4);
-  float* hm_s = reinterpret_cast<float*>(hm_s4);
-  stage_weight(w1, w1_s, hidden);
-  stage_weight(w2, w2_s, hidden);
-  stage_weight(wi2, wi2_s, hidden);
-  for (int idx = threadIdx.x; idx < (HAS_MASK ? 3 : 2) * rows * kp;
-       idx += blockDim.x) {
-    h1_s[idx] = 0.0f;  // h1_s, h2_s (and hm_s)
-  }
-  const int j = threadIdx.x % hidden;
-  const int lrow0 = (threadIdx.x / hidden) * RPT;
-  const int row0 = blockIdx.x * rows + lrow0;
-  const float4* const h_both[2] = {h1_s4, h2_s4};
-  const float4* const w_both[2] = {w1_s, w2_s};
-  const float4* const h_seam[1] = {HAS_MASK ? hm_s4 : h1_s4};
-  const float4* const w_seam[1] = {wi2_s};
+  const int p = sweep_pad(hidden);
+  const int kq = p / 4;
+  float4* w1_s = smem;  // with kStaged only
+  float4* wi2_s = w1_s + (kStaged ? p * (p + 1) : 0);
+  float4* w2_s = wi2_s + p * (p + 1);
+  const FwdPlanes pl = fwd_planes(w2_s + p * (p + 1), p, ROWS, HAS_MASK ? 3 : 2);
+  if constexpr (kStaged) stage_weight_padded(w1, w1_s, hidden, p);
+  stage_weight_padded(wi2, wi2_s, hidden, p);
+  stage_weight_padded(w2, w2_s, hidden, p);
+  pl.zero();
+  const FwdLane<ROWS> ln(n_rows, hidden, kq, blockIdx.x * ROWS);
+  const bool active = (threadIdx.x >> 5) * 8 < p;  // the same for a warp
+  float wr1[kStaged ? 1 : kMaxHidden / 4][4];
+  if constexpr (!kStaged) load_quarter_weight(w1, hidden, kq, ln.q, ln.j, wr1);
 
-  float c1[RPT], c2[RPT], seam[1][4][RPT], x_next[4][RPT], m_next[RPT];
+  float b2v[4], c1[NR], c2[NR], xn[4][NR], mn[NR];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    c1[r] = 0.0f;
-    c2[r] = 0.0f;
-    m_next[r] = 1.0f;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) seam[0][g][r] = 0.0f;
+  for (int g = 0; g < 4; ++g) {
+    b2v[g] = ln.j < hidden ? __ldg(b2 + g * hidden + ln.j) : 0.0f;
   }
-  load_x(x1, 0, n_t, n_rows, hidden, row0, j, x_next);
-  if constexpr (HAS_MASK) load_h(mask, 0, n_t, n_rows, hidden, row0, j, m_next);
-  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    c1[i] = 0.0f;
+    c2[i] = 0.0f;
+    mn[i] = 1.0f;
+  }
+  ln.load_x(x1, 0, n_t, n_rows, hidden, xn);
+  if constexpr (HAS_MASK) ln.load_h(mask, 0, n_t, n_rows, hidden, mn);
+  __syncthreads();  // the weights are staged, the first buffer is zero
 
   for (int s = 0; s <= n_t; ++s) {
     const bool run1 = s < n_t;  // layer 1 at step s
     const bool run2 = s > 0;    // layer 2 at step s-1
-    float acc[2][4][RPT], m[RPT];
+    float add[2][4][NR], m[NR];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      m[r] = m_next[r];
+    for (int i = 0; i < NR; ++i) {
+      m[i] = mn[i];
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        acc[0][g][r] = x_next[g][r];
-        acc[1][g][r] = seam[0][g][r];
+        add[0][g][i] = xn[g][i];
+        add[1][g][i] = b2v[g];
       }
     }
-    load_x(x1, s + 1, n_t, n_rows, hidden, row0, j, x_next);
-    if constexpr (HAS_MASK) {
-      load_h(mask, s + 1, n_t, n_rows, hidden, row0, j, m_next);
-    }
-    // The step that is not run this iteration (layer 2 at s=0, layer 1 at
-    // s=n_t) is computed on zeros and discarded: uniform control flow.
-    gate_products<RPT, 2>(h_both, w_both, lrow0, hidden, j, acc);
-    float h1[RPT], h2[RPT], c1n[RPT], c2n[RPT];
+    ln.load_x(x1, s + 1, n_t, n_rows, hidden, xn);
+    if constexpr (HAS_MASK) ln.load_h(mask, s + 1, n_t, n_rows, hidden, mn);
+    if (active) {
+      const float* h1_s = pl.at(s, 0);
+      const float* hm_s = HAS_MASK ? pl.at(s, 2) : h1_s;
+      float acc[ROWS][8];
+      if constexpr (kStaged) {
+        const float* const h_in[3] = {h1_s, hm_s, pl.at(s, 1)};
+        const float4* const w_in[3] = {w1_s, wi2_s, w2_s};
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      c1n[r] = c1[r];
-      c2n[r] = c2[r];
-    }
-    cell_update(acc[0], c1n, h1);
-    cell_update(acc[1], c2n, h2);
-    __syncthreads();  // every thread has finished reading h1_s and h2_s
+        for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = row0 + r;
-      if (run1) {
-        c1[r] = c1n[r];
-        h1_s[(lrow0 + r) * kp + j] = h1[r];
-        if constexpr (HAS_MASK) hm_s[(lrow0 + r) * kp + j] = h1[r] * m[r];
-        if constexpr (STASH) {
-          if (row < n_rows) {
-            const size_t out = (static_cast<size_t>(s) * n_rows + row) * hidden + j;
-            h1s[out] = h1[r];
-            c1s[out] = c1[r];
+          for (int n = 0; n < 8; ++n) acc[r][n] = 0.0f;
+        quarter_gate_products<ROWS, 3, 2>(h_in, w_in, kq, 4 * kq + 16, ln.q, ln.j, acc);
+      } else {
+        const float* const h_in[2] = {hm_s, pl.at(s, 1)};
+        const float4* const w_in[2] = {wi2_s, w2_s};
+        float acc1[ROWS][4], acc2[ROWS][4];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc1[r][g] = acc2[r][g] = 0.0f;
+        register_gate_product<ROWS>(h1_s, wr1, kq, ln.q, acc1);
+        quarter_gate_products<ROWS, 2, 1>(h_in, w_in, kq, 4 * kq + 16, ln.q, ln.j, acc2);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            acc[r][g] = acc1[r][g];
+            acc[r][4 + g] = acc2[r][g];
           }
+      }
+      float gates[2][4][NR], h1[NR], h2[NR], c1n[NR], c2n[NR], hm[NR];
+      quarter_gates<ROWS, 2>(acc, ln.q, add, gates);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        c1n[i] = c1[i];
+        c2n[i] = c2[i];
+      }
+      cell_update(gates[0], c1n, h1);
+      cell_update(gates[1], c2n, h2);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        if (run1) c1[i] = c1n[i];
+        if (run2) {
+          c2[i] = c2n[i];
+        } else {
+          h2[i] = 0.0f;  // h2[-1], which layer 2 reads at s = 1
         }
+        hm[i] = h1[i] * m[i];
+      }
+      ln.stage(h1, pl.at(s + 1, 0), kq);
+      ln.stage(h2, pl.at(s + 1, 1), kq);
+      if constexpr (HAS_MASK) ln.stage(hm, pl.at(s + 1, 2), kq);
+      if (run1 && STASH) {
+        ln.store(h1, h1s, s, n_rows, hidden);
+        ln.store(c1, c1s, s, n_rows, hidden);
       }
       if (run2) {
-        c2[r] = c2n[r];
-        h2_s[(lrow0 + r) * kp + j] = h2[r];
-        if (row < n_rows) {
-          const size_t out = (static_cast<size_t>(s - 1) * n_rows + row) * hidden + j;
-          h2s[out] = h2[r];
-          if constexpr (STASH) c2s[out] = c2[r];
-        }
+        ln.store(h2, h2s, s - 1, n_rows, hidden);
+        if constexpr (STASH) ln.store(c2, c2s, s - 1, n_rows, hidden);
       }
     }
-    __syncthreads();  // h1_s (hm_s) holds h1[s] for every row of the tile
-    if (run1) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float bias = __ldg(b2 + g * hidden + j);
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) seam[0][g][r] = bias;
-      }
-      gate_products<RPT, 1>(h_seam, w_seam, lrow0, hidden, j, seam);
-    }
+    __syncthreads();  // the next buffer holds h1[s], h2[s-1] (and hm[s])
   }
 }
 
@@ -228,12 +264,13 @@ cudaError_t launch_pair(const float* x1, const float* mask, const float* w1,
                         float* h2s, float* h1s, float* c1s, float* c2s,
                         int n_t, int n_rows, int hidden, int device,
                         cudaStream_t stream) {
-  return with_rpt(n_rows, device, [&](auto rpt_c) {
-    constexpr int kRpt = decltype(rpt_c)::value;
-    const size_t smem = smem_bytes(hidden, kRpt, 3, HAS_MASK ? 3 : 2);
-    return launch(lstm_pair_fwd_kernel<kRpt, HAS_MASK, STASH>, n_rows, hidden,
-                  kRpt, smem, stream, x1, mask, w1, wi2, b2, w2, h2s, h1s, c1s,
-                  c2s, n_t, n_rows, hidden);
+  return with_sweep_rows(n_rows, device, [&](auto rows_c) {
+    constexpr int kRows = decltype(rows_c)::value;
+    const size_t smem = pair_staged_weights(kRows) * padded_weight_bytes(hidden) +
+                        fwd_planes_bytes(hidden, kRows, HAS_MASK ? 3 : 2);
+    return launch_sweep(lstm_pair_fwd_kernel<kRows, HAS_MASK, STASH>, n_rows,
+                        kRows, smem, stream, x1, mask, w1, wi2, b2, w2, h2s,
+                        h1s, c1s, c2s, n_t, n_rows, hidden);
   });
 }
 

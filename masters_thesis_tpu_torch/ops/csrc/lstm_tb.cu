@@ -44,13 +44,23 @@
 // wavefronts a block and step at H = 64, against the 4.01 us a step
 // measured at 100 rows on an H100.
 //
-// What the design does about it. The forward's per-step arithmetic is the
-// resident forward's own (lstm_fwd.cu, through lstm_common.cuh): the weight
-// staged once as one float4 of the four gates per (k, j), thread (group, j)
-// owning hidden unit j of its rows, h through shared memory, c in
-// registers, so its h and c are bit-equal to lstm_fwd_kernel's. The
-// backward runs lstm_bwd_kernel's step (single_sweep_step, lstm_sweep.cuh)
-// on the same tile (sweep_rows), so its dx is bit-equal to that kernel's:
+// What the design does about it. The forward runs the pair forward's step
+// (lstm_fwd_step.cuh) with one product: 256 threads a tile of 1-8 rows
+// (sweep_rows, the backward's tile), the weight in the registers of the
+// lanes that multiply it (lane (j, q) holds the 16 x 4 floats of its
+// quarter and unit), so a step reads no weight from shared memory (the
+// first design's two row groups each read every staged weight: 1,024
+// wavefronts a block and step at H = 64); the quarters summed with
+// shuffles, h double buffered in shared memory so that a step has one
+// barrier, c in the registers of the lane that owns the row. Its h and c
+// are therefore no longer bit-equal to the resident lstm_fwd_kernel's
+// (which keeps the first design, summing in another order), only within
+// tolerance of them; chip_smoke.py reports which (bit_equal_to_resident).
+// The x chunk's rows are padded to 4H + 8 floats, so that a warp's reads of
+// its rows' x fall on distinct banks.
+//
+// The backward runs lstm_bwd_kernel's step (single_sweep_step,
+// lstm_sweep.cuh) on the same tile, so its dx is bit-equal to that kernel's:
 // 256 threads, each weight float4 read by one lane a product and step, and
 // the gates of step s, which depend on stashes only, in the same pass and
 // behind the same one barrier as d_pre[s+1] @ wᵀ. dw lives in registers:
@@ -62,16 +72,16 @@
 // memory, no barrier for it, no atomics, and a run repeats bit for bit. The
 // chunked copy takes every load of the step chain off device memory. The
 // chunk length is the longest (at most kMaxChunk steps) whose two buffers
-// fit the block's shared memory beside the weight (and the sweep's planes):
-// at H=64 16 steps at 100 rows, forward and backward; at 800 rows 10
-// forward (8-row tiles) and 4 backward. The ragged last chunk and the
+// fit the block's shared memory beside the planes (and the backward's
+// weight): at H=64 16 steps at 100 rows, forward and backward; at 800 rows
+// (8-row tiles) 13 forward and 4 backward. The ragged last chunk and the
 // ragged last row tile are masked, not padded: rows past the last stay zero
 // in shared memory, so their d_pre is zero and adds nothing to dw. Accurate
 // expf/tanhf, no fast math.
 
 #include <cstdint>
 
-#include "lstm_sweep.cuh"
+#include "lstm_fwd_step.cuh"
 
 namespace {
 
@@ -151,16 +161,39 @@ __device__ __forceinline__ BwdSections bwd_sections(int hidden, int rows, int tc
   return {dh, dh + tc * rows * hidden, dh + 2 * tc * rows * hidden};
 }
 
-// x[t0 .. t0 + len) of the tile's rows into dst [len][rows][4H], as one
-// cp.async group; a step's rows are contiguous in x.
+// Floats a row of the forward's x chunk: 4H and 8 of padding, so that the
+// 4 quarters of a warp, reading rows q (and q + 4) at 8 consecutive units,
+// fall on distinct banks.
+__host__ __device__ __forceinline__ int x_row(int hidden) { return 4 * hidden + 8; }
+
+// x[t0 .. t0 + len) of the tile's valid rows into dst [len][ROWS][x_row],
+// as one cp.async group, a warp a row: 16 bytes a copy where x and dst are
+// 16-byte aligned (rows are 16 H bytes apart in x, 16 H + 32 in dst), else
+// 4.
+template <int ROWS>
 __device__ __forceinline__ void stage_fwd_chunk(float* dst, const float* __restrict__ x,
                                                 int t0, int len, int n_rows,
-                                                int rows, int four_h, int tile0,
-                                                int valid) {
-  for (int k = 0; k < len; ++k) {
-    copy_async(dst + k * rows * four_h,
-               x + (static_cast<size_t>(t0 + k) * n_rows + tile0) * four_h,
-               valid * four_h);
+                                                int hidden, int tile0, int valid) {
+  const int four_h = 4 * hidden;
+  const int xr = x_row(hidden);
+  const bool vec =
+      ((reinterpret_cast<uintptr_t>(x) |
+        static_cast<uintptr_t>(__cvta_generic_to_shared(dst))) & 15) == 0;
+  const int width = vec ? hidden : four_h;  // copies a row
+  const float* src = x + (static_cast<size_t>(t0) * n_rows + tile0) * four_h;
+  for (int kr = threadIdx.x >> 5; kr < len * ROWS; kr += blockDim.x >> 5) {
+    const int k = kr / ROWS;
+    const int r = kr - k * ROWS;
+    if (r >= valid) continue;
+    const float* from = src + (static_cast<size_t>(k) * n_rows + r) * four_h;
+    float* to = dst + kr * xr;
+    for (int e = threadIdx.x & 31; e < width; e += 32) {
+      if (vec) {
+        cp_async16(to + 4 * e, from + 4 * e);
+      } else {
+        cp_async4(to + e, from + e);
+      }
+    }
   }
   cp_async_commit();
 }
@@ -202,10 +235,11 @@ __device__ __forceinline__ void stage_bwd_chunk(
   cp_async_commit();
 }
 
-size_t fwd_smem_bytes(int hidden, int rpt, int tc) {
-  const size_t kp = padded(hidden);
-  const size_t rows = kGroups * rpt;
-  return (kp * hidden * 4 + rows * kp + 2 * tc * rows * 4 * hidden) * sizeof(float);
+// Two buffers of one h plane and two x chunk buffers: 34,432 bytes at
+// H=64, 1 row, tc = 16; 224,768 at 8 rows, tc = 13.
+size_t fwd_smem_bytes(int hidden, int rows, int tc) {
+  return fwd_planes_bytes(hidden, rows, 1) +
+         2 * static_cast<size_t>(tc) * rows * x_row(hidden) * sizeof(float);
 }
 
 // The weight and planes of the single-layer sweep, and two chunk buffers:
@@ -216,40 +250,43 @@ size_t bwd_smem_bytes(int hidden, int rows, int tc) {
 }
 
 // Forward. Replaces _tb_fwd_kernel (masters_thesis_tpu/ops/lstm_kernel.py).
-// cs may be null (the forward-only caller does not keep c).
-// Shared memory: w_s [padded(H)][H] float4, h_s [rows][padded(H)], then two
-// x buffers [tc][rows][4H].
-template <int RPT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// cs may be null (the forward-only caller does not keep c). Each step t is
+// the forward step of lstm_fwd_step.cuh with one product, gates x[t] +
+// h[t-1] @ w, its weight in registers: lane (j, q) holds the 16 x 4 floats
+// of w it multiplies (load_quarter_weight), so a step reads only h, from
+// the plane buffer t & 1, and x, from the chunk buffer, and writes h[t]
+// into the other plane buffer; one barrier a step and one a chunk. Warps
+// with 8 w >= p only take part in the barriers and the copies.
+// Shared memory: two buffers of one h plane [ROWS][p + 16] floats, then
+// two x chunk buffers [tc][ROWS][x_row].
+template <int ROWS>
+__global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_tb_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    float* __restrict__ hs, float* __restrict__ cs, int n_t,
                    int n_rows, int hidden, int tc) {
+  constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
   extern __shared__ float4 smem[];
-  const int kp = padded(hidden);
-  const int rows = kGroups * RPT;
-  const int four_h = 4 * hidden;
-  float4* w_s = smem;
-  float4* h_s4 = w_s + kp * hidden;
-  float* h_s = reinterpret_cast<float*>(h_s4);
-  float* x_s = h_s + rows * kp;
-  const int buf = tc * rows * four_h;
-  const int tile0 = blockIdx.x * rows;
-  const int valid = min(rows, n_rows - tile0);
+  const int p = sweep_pad(hidden);
+  const int kq = p / 4;
+  const int xr = x_row(hidden);
+  const FwdPlanes pl = fwd_planes(smem, p, ROWS, 1);
+  float* x_s = pl.end();
+  const int buf = tc * ROWS * xr;
+  const int tile0 = blockIdx.x * ROWS;
+  const int valid = min(ROWS, n_rows - tile0);
   const int n_chunks = (n_t + tc - 1) / tc;
 
-  stage_fwd_chunk(x_s, x, 0, min(tc, n_t), n_rows, rows, four_h, tile0, valid);
-  stage_weight(w, w_s, hidden);
-  for (int idx = threadIdx.x; idx < rows * kp; idx += blockDim.x) h_s[idx] = 0.0f;
-  zero_tail_rows(x_s, 2 * tc, rows, valid, four_h);  // no copy writes them
-  const int j = threadIdx.x % hidden;
-  const int lrow0 = (threadIdx.x / hidden) * RPT;
-  const int row0 = tile0 + lrow0;
-  const float4* const h_in[1] = {h_s4};
-  const float4* const w_in[1] = {w_s};
+  stage_fwd_chunk<ROWS>(x_s, x, 0, min(tc, n_t), n_rows, hidden, tile0, valid);
+  pl.zero();
+  zero_tail_rows(x_s, 2 * tc, ROWS, valid, xr);  // no copy writes them
+  const FwdLane<ROWS> ln(n_rows, hidden, kq, tile0);
+  const bool active = (threadIdx.x >> 5) * 8 < p;  // the same for a warp
+  float wr[kMaxHidden / 4][4];
+  load_quarter_weight(w, hidden, kq, ln.q, ln.j, wr);
 
-  float c[RPT];
+  float c[NR];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) c[r] = 0.0f;
+  for (int i = 0; i < NR; ++i) c[i] = 0.0f;
 
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     const int t0 = chunk * tc;
@@ -260,33 +297,31 @@ lstm_tb_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     // other buffer (last read in the previous chunk): refill it.
     __syncthreads();
     if (chunk + 1 < n_chunks) {
-      stage_fwd_chunk(x_s + ((chunk + 1) & 1) * buf, x, t0 + tc,
-                      min(tc, n_t - t0 - tc), n_rows, rows, four_h, tile0, valid);
+      stage_fwd_chunk<ROWS>(x_s + ((chunk + 1) & 1) * buf, x, t0 + tc,
+                            min(tc, n_t - t0 - tc), n_rows, hidden, tile0, valid);
     }
     for (int k = 0; k < len; ++k) {
       const int t = t0 + k;
-      float acc[1][4][RPT];
+      if (active) {
+        float acc[ROWS][4], add[1][4][NR], gates[1][4][NR], h[NR];
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
+        for (int i = 0; i < NR; ++i) {
+          const float* xv = xb + (k * ROWS + ln.lrow[i]) * xr + ln.col;
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          acc[0][g][r] = xb[(k * rows + lrow0 + r) * four_h + g * hidden + j];
+          for (int g = 0; g < 4; ++g) add[0][g][i] = xv[g * hidden];
         }
-      gate_products<RPT, 1>(h_in, w_in, lrow0, hidden, j, acc);
-      float h[RPT];
-      cell_update(acc[0], c, h);
-      __syncthreads();  // every thread has finished reading h_s for step t
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        h_s[(lrow0 + r) * kp + j] = h[r];
-        const int row = row0 + r;
-        if (row < n_rows) {
-          const size_t out = (static_cast<size_t>(t) * n_rows + row) * hidden + j;
-          hs[out] = h[r];
-          if (cs != nullptr) cs[out] = c[r];
-        }
+        for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
+        register_gate_product<ROWS>(pl.at(t, 0), wr, kq, ln.q, acc);
+        quarter_gates<ROWS, 1>(acc, ln.q, add, gates);
+        cell_update(gates[0], c, h);
+        ln.stage(h, pl.at(t + 1, 0), kq);
+        ln.store(h, hs, t, n_rows, hidden);
+        if (cs != nullptr) ln.store(c, cs, t, n_rows, hidden);
       }
-      __syncthreads();  // h_s holds step t for every row of the tile
+      __syncthreads();  // the next buffer holds h[t] for every row of the tile
     }
   }
 }
@@ -493,12 +528,9 @@ int lstm_tb_row_tiles(int n_rows, int device, int* tiles) {
 int lstm_tb_time_chunk(int n_t, int n_rows, int hidden, int backward, int device,
                        int* tc) {
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  int rows = 0;  // the backward's row tile, or the forward's rows a thread
+  int rows = 0;  // the row tile, the same forward and backward
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) {
-    err = backward ? sweep_rows(n_rows, device, &rows)
-                   : rows_per_thread(n_rows, device, &rows);
-  }
+  if (err == cudaSuccess) err = sweep_rows(n_rows, device, &rows);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(time_chunk(n_t, device, [&](int c) {
     return backward ? bwd_smem_bytes(hidden, rows, c) : fwd_smem_bytes(hidden, rows, c);
@@ -509,16 +541,16 @@ int lstm_tb_time_chunk(int n_t, int n_rows, int hidden, int backward, int device
 int lstm_tb_fwd(const float* x, const float* w_t, float* hs, float* cs, int n_t,
                 int n_rows, int hidden, int device, cudaStream_t stream) {
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_rpt(n_rows, device, [&](auto rpt_c) {
-    constexpr int kRpt = decltype(rpt_c)::value;
+  return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
+    constexpr int kRows = decltype(rows_c)::value;
     int tc = 0;
     const cudaError_t err = time_chunk(n_t, device, [&](int c) {
-      return fwd_smem_bytes(hidden, kRpt, c);
+      return fwd_smem_bytes(hidden, kRows, c);
     }, &tc);
     if (err != cudaSuccess) return err;
-    return launch(lstm_tb_fwd_kernel<kRpt>, n_rows, hidden, kRpt,
-                  fwd_smem_bytes(hidden, kRpt, tc), stream, x, w_t, hs, cs, n_t,
-                  n_rows, hidden, tc);
+    return launch_sweep(lstm_tb_fwd_kernel<kRows>, n_rows, kRows,
+                        fwd_smem_bytes(hidden, kRows, tc), stream, x, w_t, hs,
+                        cs, n_t, n_rows, hidden, tc);
   }));
 }
 

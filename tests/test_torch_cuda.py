@@ -119,25 +119,40 @@ def test_weight_gradients_repeat_bit_for_bit(cuda_device):
         assert torch.equal(a, b)
 
 
-# The 256-thread sweeps (the pair's and both single-layer ones) take 1, 2, 4
-# or 8 rows a block, the fewest that keep the grid in one wave of an H100's
-# 132 SMs: rows at the edges of each tile (1-2: one row a block; 3, 7, 8, 9
-# and 133: ragged tiles; 100: the training shape; 800 and 803: 8 rows a
-# block). H 1, 5 and 13 pad the contraction to 16 with zeros; T 1 and 2 are
-# the shortest sweeps.
-SWEEP_ROWS = [1, 2, 3, 7, 8, 9, 100, 133, 800, 803]
+# The 256-thread kernels (the pair's forward and sweep, both single-layer
+# sweeps, the time-blocked forward) take 1, 2, 4 or 8 rows a block, the
+# fewest that keep the grid in one wave of an H100's 132 SMs: rows at the
+# edges of each tile (1-2: one row a block; 3, 7, 8, 9, 133 and 203: ragged
+# tiles; 100: the training shape; 800 and 803: 8 rows a block, where the
+# pair forward stages w1 instead of holding it in registers). H 1, 5 and 13
+# pad the contraction to 16 with zeros; T 1 and 2 are the shortest sweeps.
+SWEEP_ROWS = [1, 2, 3, 7, 8, 9, 100, 133, 203, 800, 803]
+
+
+def _as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
 
 
 @pytest.mark.parametrize("n_t", [1, 2, 60])
 @pytest.mark.parametrize("hidden", [1, 5, 13, 64])
 @pytest.mark.parametrize("rows", SWEEP_ROWS)
 def test_pair_sweep_matches_plain(cuda_device, rows, hidden, n_t):
+    """The pair forward, every instance (maskless, masked, each with and
+    without its stashes) and again bit for bit, and the pair's sweep, each
+    against its plain version."""
     x, w1, wi2, b2, w2 = _case(rows * hidden + n_t, rows, hidden, n_t=n_t,
                                device=cuda_device)
     mask, dh = _mask_and_cotangent(rows + n_t, n_t, rows, hidden, cuda_device)
     for m in (None, mask):
-        h2s, h1s, c1s, c2s = lk.lstm_pair_ref(x, w1, wi2, b2, w2, m,
-                                              return_stash=True)
+        want = lk.lstm_pair_ref(x, w1, wi2, b2, w2, m, return_stash=True)
+        for stash in (False, True):
+            got = _as_tuple(lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2, m, stash))
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+            again = _as_tuple(lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2, m, stash))
+            for a, b in zip(got, again):
+                assert torch.equal(a, b)
+        h2s, h1s, c1s, c2s = want
         args = (dh, x, m, h1s, c1s, h2s, c2s, w1, wi2, b2, w2)
         for got, want in zip(lk.lstm_pair_bwd_cuda(*args),
                              lk.lstm_pair_bwd_ref(*args)):
@@ -460,18 +475,17 @@ def _length(name, chunk):
             "252": 252}[name]
 
 
-# The sweeps' rows and 203: the forward takes 2-row tiles at each (ragged at
-# 1, 3, 7, 9, 133, 203 and 803), the backward the sweeps' tiles (1 row at up
-# to 100 rows, 2 at 133 and 203, 8 at 800 and 803; ragged at 203 and 803);
-# H 1, 5 and 13 padded, and H=64.
+# The sweeps' rows: both kernels take the sweeps' tiles (1 row at up to 100
+# rows, 2 at 133 and 203, 8 at 800 and 803; ragged at 203 and 803); H 1, 5
+# and 13 padded, and H=64.
 @pytest.mark.parametrize("length", LENGTHS)
 @pytest.mark.parametrize("hidden", [1, 5, 13, 64])
-@pytest.mark.parametrize("rows", SWEEP_ROWS + [203])
+@pytest.mark.parametrize("rows", SWEEP_ROWS)
 def test_time_blocked_kernels_match_plain(cuda_device, rows, hidden, length):
-    """The time-blocked forward (h and c) and backward (dx and dw) against
-    their plain versions, at lengths around each kernel's own time chunk,
-    and the backward's dx bit-equal to the resident sweep's: both run the
-    same step on the same tile."""
+    """The time-blocked forward (h and c, and again bit for bit) and
+    backward (dx and dw) against their plain versions, at lengths around
+    each kernel's own time chunk, and the backward's dx bit-equal to the
+    resident sweep's: both run the same step on the same tile."""
     for backward in (False, True):
         chunk = lk.lstm_tb_time_chunk_cuda(252, rows, hidden, cuda_device,
                                            backward)
@@ -486,6 +500,9 @@ def test_time_blocked_kernels_match_plain(cuda_device, rows, hidden, length):
             torch.testing.assert_close(got_cs, cs, atol=2e-5, rtol=0)
             torch.testing.assert_close(lk.lstm_tb_fwd_cuda(x, w1), got_hs,
                                        atol=0, rtol=0)
+            for a, b in zip(lk.lstm_tb_fwd_cuda(x, w1, return_c=True),
+                            (got_hs, got_cs)):
+                assert torch.equal(a, b)
             continue
         dx, dw = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
         want_dx, want_dw = lk.lstm_tb_bwd_ref(dh, x, hs, cs, w1, chunk,
@@ -554,22 +571,30 @@ def fill_shared_with_nan(tmp_path_factory):
 @pytest.mark.parametrize("rows,n_t", [(1, 1), (3, 2), (100, 252), (803, 60)])
 def test_backward_sweeps_read_no_shared_memory_they_did_not_write(
         cuda_device, fill_shared_with_nan, rows, n_t):
-    """Both single-layer backward sweeps, each launched right after a kernel
-    that leaves NaN in every SM's shared memory, give what they give after
-    a clean run, bit for bit: no step reads a plane it has not written (a
-    read times zero is NaN all the same)."""
-    x, w1, *_ = _case(rows + n_t + 3, rows, 64, n_t=n_t, device=cuda_device)
-    _, dh = _mask_and_cotangent(rows + n_t + 3, n_t, rows, 64, cuda_device)
+    """Both single-layer backward sweeps, the time-blocked forward and the
+    pair forward (maskless, and masked with its stashes), each launched
+    right after a kernel that leaves NaN in every SM's shared memory, give
+    what they give after a clean run, bit for bit: no step reads a plane it
+    has not written (a read times zero is NaN all the same); the forwards'
+    double-buffered h planes are what could."""
+    x, w1, wi2, b2, w2 = _case(rows + n_t + 3, rows, 64, n_t=n_t,
+                               device=cuda_device)
+    mask, dh = _mask_and_cotangent(rows + n_t + 3, n_t, rows, 64, cuda_device)
     hs, cs = lk.lstm_tb_fwd_ref(x, w1, 16)
-    want_tb = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
-    want_dx = lk.lstm_bwd_cuda(dh, x, hs, cs, w1)
-    fill_shared_with_nan(cuda_device)
-    got_tb = lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1)
-    fill_shared_with_nan(cuda_device)
-    got_dx = lk.lstm_bwd_cuda(dh, x, hs, cs, w1)
-    for got, want in zip((*got_tb, got_dx), (*want_tb, want_dx)):
-        assert bool(torch.isfinite(want).all())
-        assert torch.equal(got, want)
+    calls = [
+        lambda: lk.lstm_tb_bwd_cuda(dh, x, hs, cs, w1),
+        lambda: lk.lstm_bwd_cuda(dh, x, hs, cs, w1),
+        lambda: lk.lstm_tb_fwd_cuda(x, w1, return_c=True),
+        lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2),
+        lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2, mask, stash=True),
+    ]
+    for call in calls:
+        want = _as_tuple(call())
+        fill_shared_with_nan(cuda_device)
+        got = _as_tuple(call())
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(w).all())
+            assert torch.equal(g, w)
 
 
 def test_time_blocked_weight_gradient_repeats_bit_for_bit(cuda_device):
