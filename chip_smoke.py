@@ -666,6 +666,12 @@ def phase_stack_kernels() -> dict:
         bwd_args = (dh, x, masks, v["hs"], v["cs"], *weights)
         wgrad_args = (v["d_pres"], v["hs"], masks)
         no_mask = "cuDNN takes no seam mask: the maskless stack"
+        dev = torch.device(DEVICE)
+
+        def tile(backward, masked, stash=False):
+            return {"tile": lk.lstm_stack_row_tile_cuda(
+                n, rows, H, dev, backward, masked, stash)}
+
         rows_out = [
             _measure(
                 "lstm_stack_fwd", rows,
@@ -673,6 +679,7 @@ def phase_stack_kernels() -> dict:
                 lambda: lk.lstm_stack_ref(x, *weights),
                 _inference(_cudnn_forward(x, v["layers"])), True,
                 (2 * n - 1) * product, plane_x + params + plane_h, False,
+                extra=tile(False, False),
             ),
             _measure(
                 "lstm_stack_fwd_masked", rows,
@@ -681,7 +688,7 @@ def phase_stack_kernels() -> dict:
                 _cudnn_forward(x, v["layers"]), False,
                 (2 * n - 1) * product,
                 plane_x + (n - 1) * plane_h + params + 2 * n * plane_h, False,
-                note=no_mask,
+                note=no_mask, extra=tile(False, True, stash=True),
             ),
             _measure(
                 "lstm_stack_bwd", rows,
@@ -692,7 +699,7 @@ def phase_stack_kernels() -> dict:
                 plane_h + plane_x + (n - 1) * plane_h + 2 * n * plane_h + params
                 + n * plane_x, True,
                 full=_cudnn_backward(x, v["layers"], dh, weights=True),
-                note=no_mask,
+                note=no_mask, extra=tile(True, True),
             ),
             _measure(
                 "lstm_wgrad_stack", rows,
@@ -737,8 +744,13 @@ def phase_stack_depths() -> list[dict]:
             got, want = _as_tuple(got), _as_tuple(want)
             errs[name] = _max_abs_err(got, want)
             tols[name] = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
+        dev = torch.device(DEVICE)
         row = {"phase": "stack_check", "n_layers": n, "rows": K_MEDIUM, "T": T,
-               "H": H, "max_abs_err": errs, "tol": tols}
+               "H": H, "max_abs_err": errs, "tol": tols,
+               "tile": {"lstm_stack_fwd": lk.lstm_stack_row_tile_cuda(
+                            n, K_MEDIUM, H, dev, False, False),
+                        "lstm_stack_bwd": lk.lstm_stack_row_tile_cuda(
+                            n, K_MEDIUM, H, dev, True, True)}}
         emit(row)
         bad = {k: e for k, e in errs.items() if not e <= tols[k]}
         if bad:
@@ -840,9 +852,8 @@ def phase_tblocked_kernels() -> dict:
         plane_x = 4 * T_LONG * rows * 4 * H
         weight = 4 * H * 4 * H
         with torch.no_grad():
-            # The two forwards run different steps (the resident one keeps
-            # the first design), so they agree within tolerance, not bit
-            # for bit; the two sweeps run one step.
+            # The resident and time-blocked kernels run one step on one
+            # tile, forward and backward, so they agree bit for bit.
             tb_hc = lk.lstm_tb_fwd_cuda(x, w, return_c=True)
             resident_hc = lk.lstm_fwd_cuda(x, w, return_c=True)
             same_as_resident = (
@@ -886,8 +897,12 @@ def phase_tblocked_kernels() -> dict:
         ]
         for row in rows_out:
             results[(row["name"], rows)] = row
-        # Both single-layer sweeps run one step on one tile: a route between
-        # them changes time, not results.
+        # The single-layer forwards, and the sweeps, run one step on one
+        # tile: a route between them changes time, not results.
+        if not same_as_resident[0]:
+            raise AssertionError(
+                f"lstm_tb_fwd at rows={rows}: h or c differs from lstm_fwd's "
+                f"(max abs diff {resident_gap})")
         if not same_as_resident[1]:
             raise AssertionError(
                 f"lstm_tb_bwd at rows={rows}: dx differs from lstm_bwd's")
@@ -1618,12 +1633,20 @@ def phase_train_medium_breakdown(dm) -> dict:
     return _train_breakdown(dm, _medium_spec(), "train_medium_breakdown")
 
 
+def phase_train_large_breakdown(dm) -> dict:
+    """model=large's step: the 7-deep stack and the single layer."""
+    return _train_breakdown(dm, _medium_spec(num_layers=8),
+                            "train_large_breakdown")
+
+
 def phase_ab(label: str) -> None:
-    """The pair, single-layer and time-blocked kernels of whatever checkout
-    this copy of the script sits in, for comparing two checkouts on one
-    card: each call's device time (``spin_ms``) and a sha256 digest of its
-    outputs, at 100 and 800 rows, on the training inputs (T=60) and, for
-    the time-blocked forward and backward, on ``_long_inputs`` (T=252).
+    """The pair, single-layer, time-blocked and stack kernels of whatever
+    checkout this copy of the script sits in, for comparing two checkouts
+    on one card: each call's device time (``spin_ms``) and a sha256 digest
+    of its outputs, at 100 and 800 rows, on the training inputs (T=60) and,
+    for the time-blocked forward and backward and the resident forward
+    beside them, on ``_long_inputs`` (T=252); the 4-deep stack's masked
+    forward and sweep at 25 and 200 rows on ``_stack_inputs``.
     Copy the script into each checkout's root and run ``python3
     chip_smoke.py --ab <label>`` there in turns (parent, change, change,
     parent) in one call: equal digests mean bit-equal outputs."""
@@ -1649,22 +1672,38 @@ def phase_ab(label: str) -> None:
             long["x"], long["w"], return_c=True)
         calls["lstm_tb_bwd"] = lambda: lk.lstm_tb_bwd_cuda(
             long["dh"], long["x"], long["hs"], long["cs"], long["w"])
-        with torch.no_grad():
-            for name, call in calls.items():
-                digest = hashlib.sha256()
-                for t in _as_tuple(call()):
-                    digest.update(t.cpu().numpy().tobytes())
-                emit({"phase": "ab", "label": label, "kernel": name,
-                      "rows": rows, "device_ms": spin_ms(call),
-                      "digest": digest.hexdigest()[:16]})
+        calls["lstm_fwd_long"] = lambda: lk.lstm_fwd_cuda(
+            long["x"], long["w"], return_c=True)
+        _ab_rows(label, rows, calls)
+    for rows in (K_MEDIUM, 8 * K_MEDIUM):
+        v = _stack_inputs(STACK_LAYERS, rows, seed=rows)
+        weights = (v["w_hh"], v["w_in"], v["biases"])
+        _ab_rows(label, rows, {
+            "lstm_stack_fwd_masked": lambda: lk.lstm_stack_fwd_cuda(
+                v["x"], *weights, v["masks"], stash=True),
+            "lstm_stack_bwd": lambda: lk.lstm_stack_bwd_cuda(
+                v["dh"], v["x"], v["masks"], v["hs"], v["cs"], *weights),
+        })
+
+
+def _ab_rows(label: str, rows: int, calls: dict) -> None:
+    """One ``"phase": "ab"`` line a call: its device time and digest."""
+    with torch.no_grad():
+        for name, call in calls.items():
+            digest = hashlib.sha256()
+            for t in _as_tuple(call()):
+                digest.update(t.cpu().numpy().tobytes())
+            emit({"phase": "ab", "label": label, "kernel": name,
+                  "rows": rows, "device_ms": spin_ms(call),
+                  "digest": digest.hexdigest()[:16]})
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab", metavar="LABEL",
-                        help="only time and digest the pair, single-layer "
-                             "and time-blocked kernels (phase_ab), labelled "
-                             "LABEL")
+                        help="only time and digest the pair, single-layer, "
+                             "time-blocked and stack kernels (phase_ab), "
+                             "labelled LABEL")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1698,6 +1737,7 @@ def main() -> int:
     train_medium = phase_train_medium(dm_medium)
     phase_train_large(dm_medium)
     phase_train_medium_breakdown(dm_medium)
+    phase_train_large_breakdown(dm_medium)
     serve_long = phase_serve_long(_synthetic_windows(lookback=T_LONG,
                                                      stride=STRIDE_LONG))
     dm_long = _train_datamodule(lookback=T_LONG, stride=STRIDE_LONG)

@@ -1,9 +1,8 @@
-// Helpers shared by the forward (lstm_fwd.cu), backward (lstm_bwd.cu) and
-// stack (lstm_stack.cu) LSTM kernels: the staged weight layout, the gate
-// products over h rows held in shared memory, the cell's backward, the
-// transposed products, the row-tile choice and the launch with dynamic
-// shared memory. Each .cu file compiles into its own library, so everything
-// here has internal linkage.
+// Helpers shared by every LSTM kernel of the port: the cell's forward and
+// backward, the shape check, and the first design's staged weight layout,
+// loads and gate products over h rows held in shared memory, which the
+// stack's forward (lstm_stack.cu) still runs. Each .cu file compiles into
+// its own library, so everything here has internal linkage.
 //
 // Layout is the JAX functions' own: time-major planes (T, B, ·), gate order
 // i, f, g, o, and transposed weights w_t (H, 4H) so that
@@ -12,8 +11,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -136,6 +133,22 @@ __device__ __forceinline__ void cell_update(const float (&acc)[4][RPT],
   }
 }
 
+// One row's pre-activation gradients (gate order i, f, g, o) from its gate
+// activations i, f, g, o, tanh(c[t]), c[t-1], the incoming dh and the dc
+// carried from step t+1; the carry becomes dc * f for step t-1.
+__device__ __forceinline__ float4 cell_grads(float i, float f, float g, float o,
+                                             float tanh_c, float c_prev, float dh,
+                                             float& dc_carry) {
+  const float d_o = dh * tanh_c;
+  const float dc = dh * o * (1.0f - tanh_c * tanh_c) + dc_carry;
+  const float di = dc * g;
+  const float dg = dc * i;
+  const float df = dc * c_prev;
+  dc_carry = dc * f;
+  return make_float4(di * i * (1.0f - i), df * f * (1.0f - f), dg * (1.0f - g * g),
+                     d_o * o * (1.0f - o));
+}
+
 // Pre-activation gradients (gate order i, f, g, o) of one cell step from its
 // gate pre-activations, c[t], c[t-1], the incoming dh and the dc carried
 // from step t+1; the carry becomes dc * f for step t-1. The formulas of the
@@ -149,71 +162,13 @@ __device__ __forceinline__ void cell_backward(const float (&gates)[4][RPT],
                                               float (&d_pre)[4][RPT]) {
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
-    const float i = sigmoid(gates[0][r]);
-    const float f = sigmoid(gates[1][r]);
-    const float g = tanhf(gates[2][r]);
-    const float o = sigmoid(gates[3][r]);
-    const float tanh_c = tanhf(c[r]);
-    const float d_o = dh[r] * tanh_c;
-    const float dc = dh[r] * o * (1.0f - tanh_c * tanh_c) + dc_carry[r];
-    const float di = dc * g;
-    const float dg = dc * i;
-    const float df = dc * c_prev[r];
-    dc_carry[r] = dc * f;
-    d_pre[0][r] = di * i * (1.0f - i);
-    d_pre[1][r] = df * f * (1.0f - f);
-    d_pre[2][r] = dg * (1.0f - g * g);
-    d_pre[3][r] = d_o * o * (1.0f - o);
-  }
-}
-
-// out[l][r] = sum_{j', g} dp_s[l][row r][j'].g * w_s[l][j * H + j'].g for L
-// products: the cotangent of h (unit j of the thread) through
-// gates = h @ w_t. Thread j starts at j' = j and wraps, so that across a warp
-// the float4 reads of w_s[j * H + j'] are H + 1 float4 apart: distinct banks.
-template <int RPT, int L>
-__device__ __forceinline__ void transposed_products(
-    const float4* const (&dp_s)[L], const float4* const (&w_s)[L], int lrow0,
-    int hidden, int j, float (&out)[L][RPT]) {
-#pragma unroll
-  for (int l = 0; l < L; ++l)
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) out[l][r] = 0.0f;
-  int jp = j;
-  for (int n = 0; n < hidden; ++n) {
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const float4 w = w_s[l][j * hidden + jp];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float4 d = dp_s[l][(lrow0 + r) * hidden + jp];
-        float s = out[l][r];
-        s = fmaf(d.x, w.x, s);
-        s = fmaf(d.y, w.y, s);
-        s = fmaf(d.z, w.z, s);
-        s = fmaf(d.w, w.w, s);
-        out[l][r] = s;
-      }
-    }
-    jp = jp + 1 == hidden ? 0 : jp + 1;
-  }
-}
-
-// d_pre rows of this thread into device memory (when on) and shared memory.
-template <int RPT>
-__device__ __forceinline__ void store_d_pre(const float (&d)[4][RPT], bool on,
-                                            float* __restrict__ plane, int t,
-                                            int n_rows, int hidden, int row0,
-                                            int lrow0, int j, float4* dp_s) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = row0 + r;
-    if (on && row < n_rows) {
-      float* out = plane + (static_cast<size_t>(t) * n_rows + row) * 4 * hidden + j;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) out[g * hidden] = d[g][r];
-    }
-    dp_s[(lrow0 + r) * hidden + j] = make_float4(d[0][r], d[1][r], d[2][r], d[3][r]);
+    const float4 d = cell_grads(sigmoid(gates[0][r]), sigmoid(gates[1][r]),
+                                tanhf(gates[2][r]), sigmoid(gates[3][r]),
+                                tanhf(c[r]), c_prev[r], dh[r], dc_carry[r]);
+    d_pre[0][r] = d.x;
+    d_pre[1][r] = d.y;
+    d_pre[2][r] = d.z;
+    d_pre[3][r] = d.w;
   }
 }
 
@@ -221,60 +176,12 @@ bool bad_shape(int n_t, int n_rows, int hidden) {
   return n_t < 1 || n_rows < 1 || hidden < 1 || hidden > kMaxHidden;
 }
 
-// Rows a thread: the smallest of 1, 2, 4 whose grid fits one wave of SMs.
-cudaError_t rows_per_thread(int n_rows, int device, int* rpt) {
-  int sms = 0;
-  const cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  *rpt = 4;
-  for (int r = 1; r < 4; r *= 2) {
-    if ((n_rows + kGroups * r - 1) / (kGroups * r) <= sms) {
-      *rpt = r;
-      break;
-    }
-  }
-  return cudaSuccess;
-}
-
-// Dynamic shared memory: n_weights staged weights, n_state h planes of
-// (rows, padded(H)) floats, n_vec4 planes of (rows, H) float4.
-size_t smem_bytes(int hidden, int rpt, int n_weights, int n_state,
-                  int n_vec4 = 0) {
+// Dynamic shared memory: n_weights staged weights and n_state h planes of
+// (rows, padded(H)) floats.
+size_t smem_bytes(int hidden, int rpt, int n_weights, int n_state) {
   const size_t kp = padded(hidden);
   const size_t rows = kGroups * rpt;
-  return (n_weights * kp * hidden * 4 + n_state * rows * kp +
-          n_vec4 * rows * hidden * 4) * sizeof(float);
-}
-
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int n_rows, int hidden, int rpt, size_t smem,
-                   cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int rows = kGroups * rpt;
-  kernel<<<(n_rows + rows - 1) / rows, kGroups * hidden, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// Sets the device, picks the rows a thread and calls
-// f(std::integral_constant<int, RPT>{}) so that f can name the kernel
-// instance for that RPT.
-template <typename F>
-cudaError_t with_rpt(int n_rows, int device, F f) {
-  int rpt = 0;
-  cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = rows_per_thread(n_rows, device, &rpt);
-  if (err != cudaSuccess) return err;
-  switch (rpt) {
-    case 1:
-      return f(std::integral_constant<int, 1>{});
-    case 2:
-      return f(std::integral_constant<int, 2>{});
-    default:
-      return f(std::integral_constant<int, 4>{});
-  }
+  return (n_weights * kp * hidden * 4 + n_state * rows * kp) * sizeof(float);
 }
 
 }  // namespace

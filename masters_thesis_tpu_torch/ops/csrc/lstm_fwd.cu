@@ -13,8 +13,7 @@
 //                         (odd layer counts); its optional cs output is the
 //                         single-layer backward's stash.
 //
-// Layout and helpers: lstm_common.cuh (the single layer), lstm_fwd_step.cuh
-// and lstm_sweep.cuh (the pair).
+// Layout and helpers: lstm_fwd_step.cuh and lstm_sweep.cuh.
 //
 // What bounds them on this card. Each time step is a chain of small
 // (rows, H) @ (H, 4H) products whose next step needs this step's h, so the
@@ -46,69 +45,76 @@
 // Three padded (64, 256) f32 weights are 199,680 bytes, the two buffers of
 // three 8-row planes 15,360, within a block's 227 KB.
 //
-// The single layer keeps the first design: thread (group, j) of a 2 x H
-// block owns hidden unit j of kRowsPerThread rows, h in shared memory, c in
-// registers, two barriers a step, the next step's x_proj loaded into
-// registers during this one; its row tile is the smallest of 2, 4 and 8
-// rows that keeps the grid within one wave. The ragged last tile is masked
-// here (no padding of B to a multiple of 8 as on the TPU). Accurate
-// expf/tanhf, no fast math.
+// The single layer runs the time-blocked forward's step (lstm_tb.cu) on the
+// same tile, so its h and c are bit-equal to that kernel's: the weight in
+// the lanes' registers, so a step reads no weight from shared memory, h
+// double buffered, one barrier a step, the next step's x loaded into
+// registers during this one. Its first design gave each of two row groups
+// of 64 threads every staged weight float4 (1,024 wavefronts a block and
+// step at H = 64) and two barriers a step, on tiles of 2, 4 or 8 rows, and
+// summed in another order than the time-blocked forward. The ragged last
+// tile is masked here (no padding of B to a multiple of 8 as on the TPU).
+// Accurate expf/tanhf, no fast math.
 
 #include "lstm_fwd_step.cuh"
 
 namespace {
 
 // Single layer. Replaces _fwd_kernel (masters_thesis_tpu/ops/lstm_kernel.py).
-// cs may be null (the forward-only caller does not keep c).
-// Shared memory: w_s [padded(H)][H] float4, then h_s [rows][padded(H)].
-template <int RPT>
-__global__ void __launch_bounds__(kMaxThreads)
+// cs may be null (the forward-only caller does not keep c). Step t is
+// lstm_tb_fwd_kernel's (lstm_tb.cu) on the same tile (sweep_rows): gates
+// x[t] + h[t-1] @ w, the weight in the lanes' registers
+// (load_quarter_weight), h read from the plane buffer t & 1 and written
+// into the other, c in registers, one barrier a step, the sums taken in the
+// same order, so h and c are bit-equal to that kernel's. Only x differs: a
+// lane reads its rows' x[t+1] from device memory into registers during step
+// t (FwdLane::load_x, clamped, branch-free), where the time-blocked kernel
+// copies chunks of x into shared memory. Warps with 8 w >= p only take part
+// in the barriers. Shared memory: two buffers of one h plane [ROWS][p + 16]
+// floats.
+template <int ROWS>
+__global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 float* __restrict__ hs, float* __restrict__ cs,
                 int n_t, int n_rows, int hidden) {
+  constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
   extern __shared__ float4 smem[];
-  const int kp = padded(hidden);
-  float4* w_s = smem;
-  float4* h_s4 = w_s + kp * hidden;
-  float* h_s = reinterpret_cast<float*>(h_s4);
-  stage_weight(w, w_s, hidden);
-  for (int idx = threadIdx.x; idx < kGroups * RPT * kp; idx += blockDim.x) {
-    h_s[idx] = 0.0f;
-  }
-  const int j = threadIdx.x % hidden;
-  const int lrow0 = (threadIdx.x / hidden) * RPT;
-  const int row0 = blockIdx.x * kGroups * RPT + lrow0;
-  const float4* const h_in[1] = {h_s4};
-  const float4* const w_in[1] = {w_s};
+  const int p = sweep_pad(hidden);
+  const int kq = p / 4;
+  const FwdPlanes pl = fwd_planes(smem, p, ROWS, 1);
+  pl.zero();
+  const FwdLane<ROWS> ln(n_rows, hidden, kq, blockIdx.x * ROWS);
+  const bool active = (threadIdx.x >> 5) * 8 < p;  // the same for a warp
+  float wr[kMaxHidden / 4][4];
+  load_quarter_weight(w, hidden, kq, ln.q, ln.j, wr);
 
-  float c[RPT], x_next[4][RPT];
+  float c[NR], xn[4][NR];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) c[r] = 0.0f;
-  load_x(x, 0, n_t, n_rows, hidden, row0, j, x_next);
-  __syncthreads();
+  for (int i = 0; i < NR; ++i) c[i] = 0.0f;
+  ln.load_x(x, 0, n_t, n_rows, hidden, xn);
+  __syncthreads();  // both h buffers are zero
 
   for (int t = 0; t < n_t; ++t) {
-    float acc[1][4][RPT];
+    float add[1][4][NR];
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
+    for (int i = 0; i < NR; ++i)
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) acc[0][g][r] = x_next[g][r];
-    load_x(x, t + 1, n_t, n_rows, hidden, row0, j, x_next);
-    gate_products<RPT, 1>(h_in, w_in, lrow0, hidden, j, acc);
-    float h[RPT];
-    cell_update(acc[0], c, h);
-    __syncthreads();  // every thread has finished reading h_s for step t
+      for (int g = 0; g < 4; ++g) add[0][g][i] = xn[g][i];
+    ln.load_x(x, t + 1, n_t, n_rows, hidden, xn);
+    if (active) {
+      float acc[ROWS][4], gates[1][4][NR], h[NR];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      h_s[(lrow0 + r) * kp + j] = h[r];
-      const int row = row0 + r;
-      if (row < n_rows) {
-        const size_t out = (static_cast<size_t>(t) * n_rows + row) * hidden + j;
-        hs[out] = h[r];
-        if (cs != nullptr) cs[out] = c[r];
-      }
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
+      register_gate_product<ROWS>(pl.at(t, 0), wr, kq, ln.q, acc);
+      quarter_gates<ROWS, 1>(acc, ln.q, add, gates);
+      cell_update(gates[0], c, h);
+      ln.stage(h, pl.at(t + 1, 0), kq);
+      ln.store(h, hs, t, n_rows, hidden);
+      if (cs != nullptr) ln.store(c, cs, t, n_rows, hidden);
     }
-    __syncthreads();  // h_s holds step t for every row of the tile
+    __syncthreads();  // the next buffer holds h[t] for every row of the tile
   }
 }
 
@@ -291,11 +297,11 @@ const char* lstm_error_string(int err) {
 int lstm_fwd(const float* x, const float* w_t, float* hs, float* cs, int n_t,
              int n_rows, int hidden, int device, cudaStream_t stream) {
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(with_rpt(n_rows, device, [&](auto rpt_c) {
-    constexpr int kRpt = decltype(rpt_c)::value;
-    return launch(lstm_fwd_kernel<kRpt>, n_rows, hidden, kRpt,
-                  smem_bytes(hidden, kRpt, 1, 1), stream, x, w_t, hs, cs, n_t,
-                  n_rows, hidden);
+  return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
+    constexpr int kRows = decltype(rows_c)::value;
+    return launch_sweep(lstm_fwd_kernel<kRows>, n_rows, kRows,
+                        fwd_planes_bytes(hidden, kRows, 1), stream, x, w_t, hs,
+                        cs, n_t, n_rows, hidden);
   }));
 }
 

@@ -1,7 +1,9 @@
 // The 256-thread forward step: helpers shared by the pair's forward
-// (lstm_pair_fwd_kernel, lstm_fwd.cu) and the time-blocked forward
-// (lstm_tb_fwd_kernel, lstm_tb.cu), on the block and lane layout of the
-// backward sweeps (lstm_sweep.cuh).
+// (lstm_pair_fwd_kernel, lstm_fwd.cu) and both single-layer forwards
+// (lstm_fwd_kernel, lstm_fwd.cu; lstm_tb_fwd_kernel, lstm_tb.cu), on the
+// block and lane layout of the backward sweeps (lstm_sweep.cuh); the
+// stack's backward sweep (lstm_stack.cu) takes its lanes, planes and
+// register weight too.
 //
 // A block of 256 threads (8 warps) owns a tile of 1, 2, 4 or 8 rows
 // (sweep_rows). Lane u + 8 q of warp w serves unit j = 8 w + u and quarter
@@ -155,10 +157,10 @@ struct FwdLane {
     }
   }
 
-  // xv[g][i] = x[t][row i][g H + col], t clamped below n_t.
+  // xv[g][i] = x[t][row i][g H + col], t clamped into 0 .. n_t - 1.
   __device__ void load_x(const float* __restrict__ x, int t, int n_t, int n_rows,
                          int hidden, float (&xv)[4][NR]) const {
-    const float* xt = x + static_cast<size_t>(min(t, n_t - 1)) * n_rows * 4 * hidden;
+    const float* xt = x + static_cast<size_t>(min(max(t, 0), n_t - 1)) * n_rows * 4 * hidden;
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const float* xr = xt + static_cast<size_t>(row[i]) * 4 * hidden + col;
@@ -167,10 +169,11 @@ struct FwdLane {
     }
   }
 
-  // v[i] = plane[t][row i][col] for a (T, B, H) plane, t clamped below n_t.
+  // v[i] = plane[t][row i][col] for a (T, B, H) plane, t clamped into
+  // 0 .. n_t - 1.
   __device__ void load_h(const float* __restrict__ plane, int t, int n_t,
                          int n_rows, int hidden, float (&v)[NR]) const {
-    const float* pt = plane + static_cast<size_t>(min(t, n_t - 1)) * n_rows * hidden;
+    const float* pt = plane + static_cast<size_t>(min(max(t, 0), n_t - 1)) * n_rows * hidden;
 #pragma unroll
     for (int i = 0; i < NR; ++i) v[i] = __ldg(pt + row[i] * hidden + col);
   }

@@ -52,10 +52,9 @@
 // first design's two row groups each read every staged weight: 1,024
 // wavefronts a block and step at H = 64); the quarters summed with
 // shuffles, h double buffered in shared memory so that a step has one
-// barrier, c in the registers of the lane that owns the row. Its h and c
-// are therefore no longer bit-equal to the resident lstm_fwd_kernel's
-// (which keeps the first design, summing in another order), only within
-// tolerance of them; chip_smoke.py reports which (bit_equal_to_resident).
+// barrier, c in the registers of the lane that owns the row. The resident
+// lstm_fwd_kernel (lstm_fwd.cu) runs the same step on the same tile, so
+// their h and c are bit-equal (chip_smoke.py fails if they are not).
 // The x chunk's rows are padded to 4H + 8 floats, so that a warp's reads of
 // its rows' x fall on distinct banks.
 //

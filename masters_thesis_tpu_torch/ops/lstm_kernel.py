@@ -486,6 +486,8 @@ def _stack_library() -> ctypes.CDLL:
     lib.lstm_stack_fwd.restype = i32
     lib.lstm_stack_bwd.argtypes = [ptr, ptr] + [arr] * 7 + [i32] * 5 + [ptr]
     lib.lstm_stack_bwd.restype = i32
+    lib.lstm_stack_row_tile.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
+    lib.lstm_stack_row_tile.restype = i32
     for name in ("lstm_stack_max_layers", "lstm_stack_max_hidden"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
@@ -849,6 +851,22 @@ def lstm_stack_bwd_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
     _raise_on_error("lstm_stack_bwd", err)
     LAUNCHES["lstm_stack_bwd"] += 1
     return d_pres
+
+
+def lstm_stack_row_tile_cuda(n_layers: int, rows: int, hidden: int,
+                             device: torch.device, backward: bool,
+                             masked: bool = False, stash: bool = False) -> int:
+    """The row tile a stack launch of ``n_layers`` layers on ``rows`` rows
+    takes on ``device``: the forward's (with or without the mask and the
+    stash) or the backward sweep's (with or without the mask)."""
+    _check_sizes(1, rows, hidden)
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    tile = ctypes.c_int(0)
+    _raise_on_error("lstm_stack_row_tile", _stack_library().lstm_stack_row_tile(
+        n_layers, rows, hidden, int(backward), int(masked), int(stash), index,
+        ctypes.byref(tile)))
+    return tile.value
 
 
 def lstm_stack_wgrad(d_pres, hs, masks=None):

@@ -59,8 +59,8 @@ def _close_rel(got, want, rtol=2e-5):
 CASES = [(1, 1), (9, 5), (12, 16), (100, 64), (400, 64), (803, 64), (37, 64)]
 
 
-# Ragged row tiles, H not a multiple of 4, and each row tile of the launch
-# heuristic (2, 4 and 8 rows at 100, 400 and 803 rows).
+# Ragged row tiles, H not a multiple of 4, and the row tiles of the
+# 256-thread forwards (1, 4 and 8 rows at 100, 400 and 803 rows).
 @pytest.mark.parametrize("rows,hidden", CASES)
 def test_kernels_match_plain(cuda_device, rows, hidden):
     x, w1, wi2, b2, w2 = _case(rows, rows, hidden, device=cuda_device)
@@ -120,7 +120,7 @@ def test_weight_gradients_repeat_bit_for_bit(cuda_device):
 
 
 # The 256-thread kernels (the pair's forward and sweep, both single-layer
-# sweeps, the time-blocked forward) take 1, 2, 4 or 8 rows a block, the
+# sweeps, both single-layer forwards) take 1, 2, 4 or 8 rows a block, the
 # fewest that keep the grid in one wave of an H100's 132 SMs: rows at the
 # edges of each tile (1-2: one row a block; 3, 7, 8, 9, 133 and 203: ragged
 # tiles; 100: the training shape; 800 and 803: 8 rows a block, where the
@@ -357,17 +357,21 @@ def _stack_case(seed, n_layers, rows, hidden, n_t=12, masked=True,
     return x, (w_hh, w_in, biases), masks, t(rng.normal(size=(n_t, rows, hidden)))
 
 
-# Depths 3, 4, 7 (not a power of two) and 8; rows 1 to 203 (each row tile,
-# ragged tiles); H not a multiple of 4.
+# Depths 3, 4, 7 (not a power of two) and 8; rows 1 to 803, so that the
+# backward sweep takes each of its row tiles (1, 2, 4 and 8 rows: the fewest
+# whose clusters all fit on the card at once), ragged ones included; H not a
+# multiple of 4.
 STACK_CASES = [(3, 1, 5), (3, 9, 16), (4, 25, 64), (4, 200, 64), (7, 37, 13),
-               (7, 25, 64), (8, 203, 64), (8, 2, 64)]
+               (7, 25, 64), (8, 203, 64), (8, 2, 64), (4, 1, 64), (4, 9, 64),
+               (4, 100, 64), (4, 203, 64), (3, 803, 64)]
 
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n_layers,rows,hidden", STACK_CASES)
 def test_stack_kernels_match_plain(cuda_device, n_layers, rows, hidden, masked):
     """The stack forward (with and without its stashes), its backward sweep
-    and its 2L - 1 weight gradients, each against its plain version."""
+    (and a second sweep launch, bit for bit) and its 2L - 1 weight
+    gradients, each against its plain version."""
     x, (w_hh, w_in, biases), masks, dh = _stack_case(
         rows + n_layers, n_layers, rows, hidden, masked=masked,
         device=cuda_device)
@@ -381,12 +385,26 @@ def test_stack_kernels_match_plain(cuda_device, n_layers, rows, hidden, masked):
     torch.testing.assert_close(top, want_hs[-1], atol=2e-5, rtol=0)
     args = (dh, x, masks, want_hs, want_cs, w_hh, w_in, biases)
     want = lk.lstm_stack_bwd_ref(*args)
-    for g, w in zip(lk.lstm_stack_bwd_cuda(*args), want):
+    got = lk.lstm_stack_bwd_cuda(*args)
+    for g, w in zip(got, want):
         _close_rel(g, w)
+    for a, b in zip(lk.lstm_stack_bwd_cuda(*args), got):
+        assert torch.equal(a, b)
     for got_group, want_group in zip(lk.lstm_stack_wgrad(want, want_hs, masks),
                                      lk.lstm_stack_wgrad_ref(want, want_hs, masks)):
         for g, w in zip(got_group, want_group):
             _close_rel(g, w)
+
+
+def test_stack_cases_take_every_sweep_tile(cuda_device):
+    """STACK_CASES reach every row tile of the stack's backward sweep."""
+    tiles = {n_layers: set() for n_layers, _, _ in STACK_CASES}
+    for n_layers, rows, hidden in STACK_CASES:
+        for masked in (False, True):
+            tiles[n_layers].add(lk.lstm_stack_row_tile_cuda(
+                n_layers, rows, hidden, cuda_device, backward=True,
+                masked=masked))
+    assert set().union(*tiles.values()) == {1, 2, 4, 8}, tiles
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -484,8 +502,9 @@ def _length(name, chunk):
 def test_time_blocked_kernels_match_plain(cuda_device, rows, hidden, length):
     """The time-blocked forward (h and c, and again bit for bit) and
     backward (dx and dw) against their plain versions, at lengths around
-    each kernel's own time chunk, and the backward's dx bit-equal to the
-    resident sweep's: both run the same step on the same tile."""
+    each kernel's own time chunk; the forward's h and c bit-equal to the
+    resident forward's, and the backward's dx to the resident sweep's: each
+    pair runs one step on one tile."""
     for backward in (False, True):
         chunk = lk.lstm_tb_time_chunk_cuda(252, rows, hidden, cuda_device,
                                            backward)
@@ -501,6 +520,9 @@ def test_time_blocked_kernels_match_plain(cuda_device, rows, hidden, length):
             torch.testing.assert_close(lk.lstm_tb_fwd_cuda(x, w1), got_hs,
                                        atol=0, rtol=0)
             for a, b in zip(lk.lstm_tb_fwd_cuda(x, w1, return_c=True),
+                            (got_hs, got_cs)):
+                assert torch.equal(a, b)
+            for a, b in zip(lk.lstm_fwd_cuda(x, w1, return_c=True),
                             (got_hs, got_cs)):
                 assert torch.equal(a, b)
             continue
@@ -571,12 +593,13 @@ def fill_shared_with_nan(tmp_path_factory):
 @pytest.mark.parametrize("rows,n_t", [(1, 1), (3, 2), (100, 252), (803, 60)])
 def test_backward_sweeps_read_no_shared_memory_they_did_not_write(
         cuda_device, fill_shared_with_nan, rows, n_t):
-    """Both single-layer backward sweeps, the time-blocked forward and the
-    pair forward (maskless, and masked with its stashes), each launched
+    """Both single-layer backward sweeps, both single-layer forwards, the
+    pair forward (maskless, and masked with its stashes) and the stack's
+    backward sweep (maskless and masked, 4 and 8 layers), each launched
     right after a kernel that leaves NaN in every SM's shared memory, give
     what they give after a clean run, bit for bit: no step reads a plane it
-    has not written (a read times zero is NaN all the same); the forwards'
-    double-buffered h planes are what could."""
+    has not written (a read times zero is NaN all the same); the
+    double-buffered planes and the stack's inboxes are what could."""
     x, w1, wi2, b2, w2 = _case(rows + n_t + 3, rows, 64, n_t=n_t,
                                device=cuda_device)
     mask, dh = _mask_and_cotangent(rows + n_t + 3, n_t, rows, 64, cuda_device)
@@ -587,7 +610,17 @@ def test_backward_sweeps_read_no_shared_memory_they_did_not_write(
         lambda: lk.lstm_tb_fwd_cuda(x, w1, return_c=True),
         lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2),
         lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2, mask, stash=True),
+        lambda: lk.lstm_fwd_cuda(x, w1, return_c=True),
     ]
+    for n_layers in (4, 8):
+        for masked in (False, True):
+            sx, weights, masks, sdh = _stack_case(rows + n_layers, n_layers,
+                                                  rows, 64, n_t=n_t,
+                                                  masked=masked,
+                                                  device=cuda_device)
+            shs, scs = lk.lstm_stack_ref(sx, *weights, masks, return_stash=True)
+            calls.append(lambda a=(sdh, sx, masks, shs, scs, *weights):
+                         tuple(lk.lstm_stack_bwd_cuda(*a)))
     for call in calls:
         want = _as_tuple(call())
         fill_shared_with_nan(cuda_device)
