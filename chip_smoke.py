@@ -1645,8 +1645,10 @@ def phase_ab(label: str) -> None:
     on one card: each call's device time (``spin_ms``) and a sha256 digest
     of its outputs, at 100 and 800 rows, on the training inputs (T=60) and,
     for the time-blocked forward and backward and the resident forward
-    beside them, on ``_long_inputs`` (T=252); the 4-deep stack's masked
-    forward and sweep at 25 and 200 rows on ``_stack_inputs``.
+    beside them, on ``_long_inputs`` (T=252); the 4-deep stack's
+    forward (maskless, and masked with its stashes), sweep and
+    weight-gradient pass at 25 and 200 rows on ``_stack_inputs``, and the
+    8-deep masked forward at 25 rows.
     Copy the script into each checkout's root and run ``python3
     chip_smoke.py --ab <label>`` there in turns (parent, change, change,
     parent) in one call: equal digests mean bit-equal outputs."""
@@ -1679,11 +1681,20 @@ def phase_ab(label: str) -> None:
         v = _stack_inputs(STACK_LAYERS, rows, seed=rows)
         weights = (v["w_hh"], v["w_in"], v["biases"])
         _ab_rows(label, rows, {
+            "lstm_stack_fwd": lambda: lk.lstm_stack_fwd_cuda(v["x"], *weights),
             "lstm_stack_fwd_masked": lambda: lk.lstm_stack_fwd_cuda(
                 v["x"], *weights, v["masks"], stash=True),
             "lstm_stack_bwd": lambda: lk.lstm_stack_bwd_cuda(
                 v["dh"], v["x"], v["masks"], v["hs"], v["cs"], *weights),
+            "lstm_wgrad_stack": lambda: lk.lstm_stack_wgrad(
+                v["d_pres"], v["hs"], v["masks"]),
         })
+    deep = _stack_inputs(8, K_MEDIUM, seed=108)
+    _ab_rows(label, K_MEDIUM, {
+        "lstm_stack_fwd_masked_8": lambda: lk.lstm_stack_fwd_cuda(
+            deep["x"], deep["w_hh"], deep["w_in"], deep["biases"],
+            deep["masks"], stash=True),
+    })
 
 
 def _ab_rows(label: str, rows: int, calls: dict) -> None:

@@ -17,7 +17,8 @@
 //   lstm_wgrad_kernel     the weight gradients both TPU kernels accumulate,
 //   + lstm_wgrad_sum_kernel  as a second pass: dW = sum over the T*B rows of
 //                         a[row]ᵀ d_pre[row], where a is h[t-1] (zero at t=0)
-//                         or (m ⊙ h1)[t], and db2 = sum of d_pre2 rows.
+//                         or (m ⊙ h1)[t], and db2 = sum of d_pre2 rows; the
+//                         second kernel sums the row splits in a fixed order.
 //                         One launch also takes the L-deep stack's 2L - 1
 //                         weight gradients (lstm_stack.cu writes the d_pre
 //                         planes they reduce).
@@ -85,15 +86,30 @@
 // the two kernels' dx is bit-equal.
 //
 // The pass: what bounds it. The reduction does 2*H*4H FLOPs per row for
-// each weight over (T*B, H) and (T*B, 4H) planes read once per tile: at
-// T=60, 800 rows, H=64 that is 4.7 GFLOP over ~40 MB for the pair, bound by
-// f32 arithmetic. It is a tiled f32 product (64 x 64 output tile a block,
-// 4 x 4 outputs a thread, 16-row chunks staged in shared memory) split over
-// row ranges to fill the card, and a second kernel sums the splits in a
-// fixed order: no atomics, so a run repeats bit for bit. Accurate
-// expf/tanhf.
+// each weight over (T*B, H) and (T*B, 4H) planes read once: at T=60, 800
+// rows, H=64 that is 4.7 GFLOP over ~134 MB for the pair, bound by f32
+// arithmetic (0.070 ms at an H100's 67 TFLOP/s without tensor cores; TF32
+// would change the numerics).
+//
+// What the design does about it. A block of 256 threads owns one job's whole
+// (64, 256) output, 8 x 8 outputs a thread (4 FMAs a float read from shared
+// memory), over a range of rows (a split). Its operands arrive through a ring
+// of 4 stages of 16 rows, copied with 16-byte cp.async (source size 0 where a
+// row is past the end or before the first step, or a column past H or 4H:
+// zeros, and no branch), 3 stages in flight while one is multiplied, one
+// barrier a stage; the mask multiplies a where it is read, and a row's
+// operands are loaded during the row before. The splits make one wave of one
+// block an SM (about 150 registers a thread); each writes its (H + 1, 4H)
+// partial plane and a second kernel sums the planes in split order: no
+// atomics, so a run repeats bit for bit. Measured on an H100
+// (ops/profile_wgrad.py, and copies of the kernel with a part removed): the
+// products alone run at about half the FFMA rate, the staging adds a sixth,
+// the sum 5-7 us; two blocks an SM (128 registers: spills), 128-thread blocks
+// (2 or 3 an SM), 8 x 16 outputs a thread and two jobs on one d_pre in one
+// block were each slower, 32-row stages no faster. Accurate expf/tanhf.
 
 #include <algorithm>
+#include <cstdint>
 
 #include "lstm_sweep.cuh"
 
@@ -354,9 +370,14 @@ lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
 
 // Jobs of one launch: at most the L-deep stack's 2L - 1 (L = 8).
 constexpr int kMaxJobs = 15;
-constexpr int kTile = 64;            // output tile: kTile x kTile
-constexpr int kChunk = 16;           // rows staged in shared memory at once
-constexpr int kWgradThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
+// A block owns one job's whole (64, 256) output (H and 4H padded): thread
+// (ty, tx) = (warp, lane) the 8 rows ty*4 + i and 32 + ty*4 + i (i < 4) and
+// the 8 columns tx*4 + e and 128 + tx*4 + e (e < 4).
+constexpr int kWgradThreads = 256;
+constexpr int kWgradRows = 16;               // rows a stage of the ring
+constexpr int kWgradStages = 4;              // the ring: 3 stages in flight
+// A stage: a and the mask [kWgradRows][64], d_pre [kWgradRows][256] floats.
+constexpr int kWgradStageFloats = kWgradRows * 384;
 constexpr int kSumThreads = 256;
 
 // One weight gradient out[k][n] = sum_rows a[row][k] * dpre[row][n] over the
@@ -376,111 +397,255 @@ struct WgradJobs {
   WgradJob job[kMaxJobs];
 };
 
-// Partial sums of each (job, split): part[job * splits + split] is an
-// (H + 1, 4H) plane, rows < H the weight gradient over the split's rows and
-// row H the bias sum. grid: (4H tiles, H tiles, jobs * splits).
-__global__ void __launch_bounds__(kWgradThreads)
-lstm_wgrad_kernel(WgradJobs jobs, float* __restrict__ part, int splits,
-                  int n_t, int n_rows, int hidden) {
-  const WgradJob jb = jobs.job[blockIdx.z / splits];
-  const int split = blockIdx.z % splits;
-  const int four_h = 4 * hidden;
-  const int n0 = blockIdx.x * kTile;
-  const int m0 = blockIdx.y * kTile;
-  const int total = n_t * n_rows;
-  const int per = (total + splits - 1) / splits;
-  const int begin = split * per;
-  const int end = min(total, begin + per);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const bool bias = jb.bias_out != nullptr && blockIdx.y == 0 && ty == 0;
-  __shared__ __align__(16) float a_s[kChunk][kTile];
-  __shared__ __align__(16) float d_s[kChunk][kTile];
+// A copy of W = 4 or 1 floats from device memory into shared memory at
+// `dst`, or W zeros where `ok` is false (src is then any valid address):
+// cp.async's source size 0 fills the destination with zeros, so rows past
+// the end, before the first step and columns past H or 4H need no branch.
+template <int W>
+__device__ __forceinline__ void copy_or_zero(uint32_t dst, const float* src, bool ok) {
+  if constexpr (W == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
 
-  float acc[4][4], bacc[4];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Queues one stage of the ring: rows row0 .. row0 + kWgradRows - 1 of the
+// job's a [kWgradRows][64], its mask in the same layout (MASK) and d_pre
+// [kWgradRows][256] into st. W floats a copy: 4 where H is a multiple of 4
+// and every operand 16-byte aligned, else 1.
+template <int W, bool MASK>
+__device__ __forceinline__ void wgrad_stage(float* st, const WgradJob& jb, int row0,
+                                            int end, int n_rows, int hidden) {
+  const uint32_t a_s = static_cast<uint32_t>(__cvta_generic_to_shared(st));
+  const uint32_t m_s = a_s + 4 * kWgradRows * 64;
+  const uint32_t d_s = m_s + 4 * kWgradRows * 64;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    bacc[i] = 0.0f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
-  }
-  for (int chunk = begin; chunk < end; chunk += kChunk) {
-    for (int e = threadIdx.x; e < kChunk * kTile; e += kWgradThreads) {
-      const int rr = e / kTile;
-      const int cc = e - rr * kTile;
-      const int row = chunk + rr;
-      const int m = m0 + cc;
-      const int n = n0 + cc;
-      float a = 0.0f, d = 0.0f;
-      if (row < end) {
-        const int src_row = row - jb.shift * n_rows;
-        if (m < hidden && src_row >= 0) {
-          a = __ldg(jb.src + static_cast<size_t>(src_row) * hidden + m);
-          if (jb.mask != nullptr) {
-            a *= __ldg(jb.mask + static_cast<size_t>(row) * hidden + m);
-          }
-        }
-        if (n < four_h) d = __ldg(jb.dpre + static_cast<size_t>(row) * four_h + n);
-      }
-      a_s[rr][cc] = a;
-      d_s[rr][cc] = d;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 d4 = *reinterpret_cast<const float4*>(&d_s[kk][tx * 4]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], dv[q], acc[i][q]);
-      if (bias) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bacc[q] += dv[q];
-      }
-    }
-    __syncthreads();
-  }
-  float* p = part + static_cast<size_t>(blockIdx.z) * (hidden + 1) * four_h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (m < hidden && n < four_h) p[m * four_h + n] = acc[i][q];
+  for (int idx = threadIdx.x; idx < kWgradRows * 64 / W; idx += kWgradThreads) {
+    const int r = idx / (64 / W);
+    const int m = (idx - r * (64 / W)) * W;
+    const int row = row0 + r;
+    const int src_row = row - jb.shift * n_rows;
+    const bool ok = row < end && src_row >= 0 && m < hidden;
+    copy_or_zero<W>(a_s + 4 * (r * 64 + m),
+                    ok ? jb.src + static_cast<size_t>(src_row) * hidden + m : jb.src, ok);
+    if constexpr (MASK) {
+      const bool in = row < end && m < hidden;
+      copy_or_zero<W>(m_s + 4 * (r * 64 + m),
+                      in ? jb.mask + static_cast<size_t>(row) * hidden + m : jb.mask, in);
     }
   }
-  if (bias) {
+  const int four_h = 4 * hidden;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n < four_h) p[hidden * four_h + n] = bacc[q];
+  for (int idx = threadIdx.x; idx < kWgradRows * 256 / W; idx += kWgradThreads) {
+    const int r = idx / (256 / W);
+    const int n = (idx - r * (256 / W)) * W;
+    const int row = row0 + r;
+    const bool ok = row < end && n < four_h;
+    copy_or_zero<W>(d_s + 4 * (r * 256 + n),
+                    ok ? jb.dpre + static_cast<size_t>(row) * four_h + n : jb.dpre, ok);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 mul4(const float4& a, const float4& b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+// acc[i][e] += sum over the stage's rows of a[row][m_i] * d[row][n_e] for
+// thread (ty, tx): m_i = ty*4 + i and 32 + ty*4 + i - 4, n_e = tx*4 + e and
+// 128 + tx*4 + e - 4. A warp (one ty) reads each a float4 as a broadcast and
+// 32 consecutive d float4: 64 FMAs a thread for 16 floats read from shared
+// memory. Row k + 1's operands are loaded before row k's FMAs. (A warp over
+// 8 ty x 4 tx, which reads 4 wavefronts a row instead of 10, measured
+// slower on an H100.)
+template <bool MASK>
+__device__ __forceinline__ void wgrad_products(const float* st, int ty, int tx,
+                                               float (&acc)[8][8]) {
+  const float* a_s = st + ty * 4;
+  const float* m_s = a_s + kWgradRows * 64;
+  const float* d_s = st + 2 * kWgradRows * 64 + tx * 4;
+  float4 a[2] = {ld4(a_s), ld4(a_s + 32)}, d[2] = {ld4(d_s), ld4(d_s + 128)}, m[2];
+  if constexpr (MASK) {
+    m[0] = ld4(m_s);
+    m[1] = ld4(m_s + 32);
+  }
+#pragma unroll
+  for (int k = 0; k < kWgradRows; ++k) {
+    const int kn = k + 1 < kWgradRows ? k + 1 : k;  // the last row loads itself
+    const float4 na[2] = {ld4(a_s + kn * 64), ld4(a_s + kn * 64 + 32)};
+    const float4 nd[2] = {ld4(d_s + kn * 256), ld4(d_s + kn * 256 + 128)};
+    float4 nm[2];
+    if constexpr (MASK) {
+      nm[0] = ld4(m_s + kn * 64);
+      nm[1] = ld4(m_s + kn * 64 + 32);
+      a[0] = mul4(a[0], m[0]);
+      a[1] = mul4(a[1], m[1]);
+    }
+    const float av[8] = {a[0].x, a[0].y, a[0].z, a[0].w, a[1].x, a[1].y, a[1].z, a[1].w};
+    const float dv[8] = {d[0].x, d[0].y, d[0].z, d[0].w, d[1].x, d[1].y, d[1].z, d[1].w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(av[i], dv[e], acc[i][e]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      a[h] = na[h];
+      d[h] = nd[h];
+      if constexpr (MASK) m[h] = nm[h];
     }
   }
 }
 
-// out = sum over splits s = 0, 1, ... of the partial planes, in that order.
-// grid: ((H + 1) * 4H / kSumThreads, jobs).
-__global__ void __launch_bounds__(kSumThreads)
-lstm_wgrad_sum_kernel(WgradJobs jobs, const float* __restrict__ part,
-                      int splits, int hidden) {
-  const WgradJob jb = jobs.job[blockIdx.y];
+// The bias sums: thread (ty, tx) adds its 8 columns of the stage's rows ty
+// and ty + 8: 8 partial sums a column, one row in 8 each.
+__device__ __forceinline__ void wgrad_bias(const float* st, int ty, int tx,
+                                           float (&bacc)[8]) {
+  const float* d_s = st + 2 * kWgradRows * 64 + tx * 4;
+#pragma unroll
+  for (int row = ty; row < kWgradRows; row += 8) {
+    const float4 d0 = ld4(d_s + row * 256), d1 = ld4(d_s + row * 256 + 128);
+    const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) bacc[e] += dv[e];
+  }
+}
+
+// One block: the job's whole (64, 256) output over the rows of its split,
+// its partial sums into the plane part[job * splits + split] ((H + 1, 4H):
+// rows < H the weight gradient, row H the bias sum). The stages go round a
+// ring of kWgradStages: the copies of stage c + 3 are queued while stage c
+// is multiplied, and one barrier a stage both publishes stage c and frees
+// the slot stage c - 1 held.
+template <int W, bool MASK>
+__device__ __forceinline__ void wgrad_tile(float* ring, const WgradJob& jb, int job,
+                                           float* __restrict__ part, int split,
+                                           int splits, int per, int n_t, int n_rows,
+                                           int hidden) {
+  const int tx = threadIdx.x % 32;
+  const int ty = threadIdx.x / 32;
+  const int total = n_t * n_rows;
+  const int begin = min(total, split * per);
+  const int end = min(total, begin + per);
+  const int n_chunks = (end - begin + kWgradRows - 1) / kWgradRows;
+  const bool bias = jb.bias_out != nullptr;
+  float acc[8][8], bacc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    bacc[e] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][e] = 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < kWgradStages - 1; ++c) {
+    if (c < n_chunks) {
+      wgrad_stage<W, MASK>(ring + c * kWgradStageFloats, jb, begin + c * kWgradRows,
+                           end, n_rows, hidden);
+    }
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kWgradStages - 2>();  // this thread's copies of stage c
+    __syncthreads();  // everyone's; and stage c - 1 is multiplied
+    const int next = c + kWgradStages - 1;
+    if (next < n_chunks) {
+      wgrad_stage<W, MASK>(ring + (next % kWgradStages) * kWgradStageFloats, jb,
+                           begin + next * kWgradRows, end, n_rows, hidden);
+    }
+    cp_async_commit();  // empty groups too, so the count above holds
+    const float* st = ring + (c % kWgradStages) * kWgradStageFloats;
+    wgrad_products<MASK>(st, ty, tx, acc);
+    if (bias) wgrad_bias(st, ty, tx, bacc);
+  }
+
   const int four_h = 4 * hidden;
-  const int idx = blockIdx.x * kSumThreads + threadIdx.x;
+  const size_t plane = static_cast<size_t>(hidden + 1) * four_h;
+  float* p = part + (static_cast<size_t>(job) * splits + split) * plane;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = (i / 4) * 32 + ty * 4 + i % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = h * 128 + tx * 4;
+      if (m < hidden && n < four_h) {
+        *reinterpret_cast<float4*>(p + m * four_h + n) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+      }
+    }
+  }
+  if (bias) {  // the same for the whole block
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: the bias partials of each ty
+#pragma unroll
+    for (int e = 0; e < 8; ++e) ring[ty * 256 + (e / 4) * 128 + tx * 4 + e % 4] = bacc[e];
+    __syncthreads();
+    for (int n = threadIdx.x; n < four_h; n += kWgradThreads) {
+      float s = 0.0f;
+      for (int t = 0; t < 8; ++t) s += ring[t * 256 + n];
+      p[hidden * four_h + n] = s;
+    }
+  }
+}
+
+// The pass: block (job, split), blockIdx.x = job * splits + split.
+template <bool VEC>
+__global__ void __launch_bounds__(kWgradThreads, 1)
+lstm_wgrad_kernel(const __grid_constant__ WgradJobs jobs, float* __restrict__ part,
+                  int splits, int per, int n_t, int n_rows, int hidden) {
+  extern __shared__ float4 wgrad_smem[];
+  float* ring = reinterpret_cast<float*>(wgrad_smem);
+  constexpr int W = VEC ? 4 : 1;
+  const int job = blockIdx.x / splits;
+  const int split = blockIdx.x % splits;
+  const WgradJob& jb = jobs.job[job];
+  if (jb.mask != nullptr) {
+    wgrad_tile<W, true>(ring, jb, job, part, split, splits, per, n_t, n_rows, hidden);
+  } else {
+    wgrad_tile<W, false>(ring, jb, job, part, split, splits, per, n_t, n_rows, hidden);
+  }
+}
+
+// out = sum over splits s = 0, 1, ... of the partial planes, in that order,
+// 4 columns a thread. grid: ((H + 1) * 4H / 4 / kSumThreads, jobs).
+__global__ void __launch_bounds__(kSumThreads)
+lstm_wgrad_sum_kernel(const __grid_constant__ WgradJobs jobs,
+                      const float* __restrict__ part, int splits, int hidden) {
+  const WgradJob& jb = jobs.job[blockIdx.y];
+  const int four_h = 4 * hidden;
+  const int idx = 4 * (blockIdx.x * kSumThreads + threadIdx.x);
   const bool is_bias = idx >= hidden * four_h;
   if (idx >= (hidden + 1) * four_h || (is_bias && jb.bias_out == nullptr)) return;
   const size_t plane = static_cast<size_t>(hidden + 1) * four_h;
   const float* p = part + blockIdx.y * splits * plane + idx;
-  float s = 0.0f;
-  for (int sp = 0; sp < splits; ++sp) s += p[sp * plane];
-  if (is_bias) {
-    jb.bias_out[idx - hidden * four_h] = s;
-  } else {
-    jb.out[idx] = s;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 8
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4 v = ld4(p + sp * plane);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
   }
+  float* out = is_bias ? jb.bias_out + (idx - hidden * four_h) : jb.out + idx;
+  *reinterpret_cast<float4*>(out) = s;
 }
 
 // The sweep's dynamic shared memory: three padded weights, two or three h
@@ -536,9 +701,9 @@ int lstm_bwd(const float* dhs, const float* x, const float* hs, const float* cs,
   }));
 }
 
-// Splits of the row range for n_jobs weight gradients: enough blocks for
-// about two a streaming multiprocessor, each split at least 256 rows. The
-// caller allocates n_jobs * splits * (H + 1) * 4H floats of partial sums.
+// Splits of the row range for n_jobs weight gradients: one wave of one
+// block an SM (n_jobs * splits blocks), no split left empty. The caller
+// allocates n_jobs * splits * (H + 1) * 4H floats of partial sums.
 int lstm_wgrad_splits(int n_jobs, int n_t, int n_rows, int hidden, int device,
                       int* splits) {
   if (bad_shape(n_t, n_rows, hidden) || n_jobs < 1 || n_jobs > kMaxJobs) {
@@ -548,10 +713,8 @@ int lstm_wgrad_splits(int n_jobs, int n_t, int n_rows, int hidden, int device,
   const cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = n_jobs * ceil_div(4 * hidden, kTile) * ceil_div(hidden, kTile);
-  int s = ceil_div(2 * sms, tiles);
-  s = std::min(s, ceil_div(n_t * n_rows, 256));
-  *splits = std::max(1, std::min(s, 64));
+  const int chunks = ceil_div(n_t * n_rows, kWgradRows);
+  *splits = ceil_div(chunks, ceil_div(chunks, std::max(1, sms / n_jobs)));
   return 0;
 }
 
@@ -568,19 +731,33 @@ int lstm_wgrad(int n_jobs, const float* const* src, const float* const* mask,
       splits < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
   WgradJobs jobs{};
+  bool vec = hidden % 4 == 0;
   for (int i = 0; i < n_jobs; ++i) {
     jobs.job[i] = WgradJob{src[i], mask[i], dpre[i], out[i], bias_out[i], shift[i]};
+    // The sum writes 4 floats at a time into every output.
+    if (!aligned(out[i]) || (bias_out[i] != nullptr && !aligned(bias_out[i]))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    vec = vec && aligned(src[i]) && aligned(dpre[i]) &&
+          (mask[i] == nullptr || aligned(mask[i]));
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int four_h = 4 * hidden;
-  const dim3 grid(ceil_div(four_h, kTile), ceil_div(hidden, kTile), n_jobs * splits);
-  lstm_wgrad_kernel<<<grid, kWgradThreads, 0, stream>>>(jobs, part, splits, n_t,
-                                                        n_rows, hidden);
+  const int per = ceil_div(ceil_div(n_t * n_rows, kWgradRows), splits) * kWgradRows;
+  const size_t smem = kWgradStages * kWgradStageFloats * sizeof(float);
+  const auto kernel = vec ? lstm_wgrad_kernel<true> : lstm_wgrad_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_jobs * splits, kWgradThreads, smem, stream>>>(
+      jobs, part, splits, per, n_t, n_rows, hidden);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 sum_grid(ceil_div((hidden + 1) * four_h, kSumThreads), n_jobs);
+  const dim3 sum_grid(ceil_div((hidden + 1) * hidden, kSumThreads), n_jobs);
   lstm_wgrad_sum_kernel<<<sum_grid, kSumThreads, 0, stream>>>(jobs, part, splits,
                                                                hidden);
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,10 @@
 // The 256-thread forward step: helpers shared by the pair's forward
-// (lstm_pair_fwd_kernel, lstm_fwd.cu) and both single-layer forwards
-// (lstm_fwd_kernel, lstm_fwd.cu; lstm_tb_fwd_kernel, lstm_tb.cu), on the
-// block and lane layout of the backward sweeps (lstm_sweep.cuh); the
-// stack's backward sweep (lstm_stack.cu) takes its lanes, planes and
-// register weight too.
+// (lstm_pair_fwd_kernel, lstm_fwd.cu), both single-layer forwards
+// (lstm_fwd_kernel, lstm_fwd.cu; lstm_tb_fwd_kernel, lstm_tb.cu) and the
+// stack's forward (lstm_stack_fwd_kernel, lstm_stack.cu), on the block and
+// lane layout of the backward sweeps (lstm_sweep.cuh); the stack's
+// backward sweep (lstm_stack.cu) takes its lanes, planes and register
+// weight too.
 //
 // A block of 256 threads (8 warps) owns a tile of 1, 2, 4 or 8 rows
 // (sweep_rows). Lane u + 8 q of warp w serves unit j = 8 w + u and quarter

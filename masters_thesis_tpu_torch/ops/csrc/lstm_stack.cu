@@ -32,19 +32,37 @@
 // What the design does about it. The TPU kernel keeps all 2L - 1 weights in
 // one program's VMEM; here a 4-deep stack's seven (64, 256) f32 weights are
 // 448 KiB against a block's 227 KB. So the stack runs as a thread block
-// cluster of L CTAs a row tile, CTA l owning layer l: it stages its own
-// w_hh[l] and, for l >= 1, the seam weight w_in[l-1] in its shared memory,
+// cluster of L CTAs a row tile, CTA l owning layer l: it stages (or holds
+// in registers) its own w_hh[l] and, for l >= 1, the seam weight w_in[l-1],
 // and layers hand h forward (and the seam cotangent backward) through
-// distributed shared memory, with one cluster barrier an iteration. Every
-// CTA arrives at every barrier, idle or not (the first and
-// last iterations leave some layers idle). The row tile is the smallest whose
-// clusters all fit on the card at once (cudaOccupancyMaxActiveClusters); a
-// launch whose cluster cannot be placed at all is refused.
+// distributed shared memory, pushed by the producer with st.async onto the
+// consumer's mbarrier, with one relaxed cluster barrier an iteration. Every
+// CTA arrives at every barrier, idle or not (the first and last iterations
+// leave some layers idle). Both directions run 256 threads a CTA on tiles
+// of 1, 2, 4 or 8 rows, the smallest whose clusters all fit on the card at
+// once (cudaOccupancyMaxActiveClusters: 1 row for L = 4 at 25 rows, 2 for
+// L = 7 and 8, 8 at 200 rows); a launch whose cluster cannot be placed at
+// all is refused.
 //
-// The forward keeps the first design: thread (group, j) of a 2 x H block
-// owns unit j of its rows (tiles of 2, 4 or 8 rows), weights staged one
-// float4 of the four gates per (k, j), each CTA reading the layer below's h
-// of the previous iteration from the neighbour's buffer.
+// The forward runs the forward step of lstm_fwd_step.cuh, as the pair's
+// forward does: lane u + 8 q of warp w serves unit j = 8 w + u and quarter
+// q of the contraction for all the tile's rows. w_hh[l] and w_in[l-1] sit
+// in the lanes' registers at 1 and 2 rows, where the accumulators leave
+// room for them and reading them from shared memory would cost about a
+// quarter of an iteration; at 4 and 8 rows the accumulators need those
+// registers, so the weights are staged, each staged float4 read by one
+// lane a product and step. Both products and the addend (x1 or the bias)
+// run in one pass and one quarter_gates, h double buffered, one CTA
+// barrier a step. CTA l pushes m_l ⊙ h_l[t] into CTA l + 1's
+// double-buffered inbox as soon as its cell is done, the consumer waits on
+// the inbox's mbarrier before its pass (no remote pull, no release fence),
+// x1 and the mask are loaded a step ahead, and the h and c stores are
+// issued after the arrive. The lag is one step (T + L - 1 iterations):
+// nothing stands between the producer's cell and the consumer's product.
+// An iteration on an H100 at 25 rows, L = 4 (clock64, thread 0 of layer 1;
+// ops/profile_stack_sweep.py): 1,765 cycles, of which the pass 456, the
+// quarter sums and the cell 550, the x1 and mask loads 173, the push 160,
+// the stores and the CTA barrier 140, the inbox wait 121.
 //
 // The backward runs on the 256-thread sweep block of lstm_sweep.cuh (tiles
 // of 1, 2, 4 or 8 rows: 1 for L = 4 at 25 rows, 8 at 200): lane u + 8 q of
@@ -68,7 +86,8 @@
 // stashes of step s - 1 are loaded during step s (clamped, branch-free
 // reads, zeroed where used) and staged at its end.
 //
-// The exchange. The seam cotangent is pushed: the producing CTA stores it
+// The exchange (both directions). The seam value is pushed: the producing
+// CTA stores it
 // into the consumer's inbox (st.async), each store counting its bytes on
 // the consumer's mbarrier, which the consumer waits on before it reads.
 // One cluster barrier an iteration, relaxed, keeps the CTAs within an
@@ -83,15 +102,15 @@
 // 3,979 now: the pass 2,506, the cell 436, the exchange 275, the stash
 // loads 230, the stores and the CTA barrier 274.
 //
-// The schedule: layer l lags layer l + 1 by two steps, not one. Layer l + 1
-// makes d_pre_{l+1}[t] in one iteration; its pass of the next iteration
-// makes (d_pre_{l+1}[t] @ w_inᵀ) ⊙ m[t], the cotangent layer l needs at
-// step t, and layer l consumes it in the iteration after that. A one-step
-// lag would put that transposed product on the chain between the cell of
-// layer l + 1 and that of layer l, behind a second barrier an iteration.
-// The price is T + 2 (L - 1) iterations instead of T + L - 1 (66 against 63
-// at L = 4, T = 60), and seam layers run one more pass, at t = -1, for the
-// cotangent of the step 0 below them. Accurate expf/tanhf, no fast math.
+// The backward's schedule: layer l lags layer l + 1 by two steps, not one.
+// Layer l + 1 makes d_pre_{l+1}[t] in one iteration; its pass of the next
+// iteration makes (d_pre_{l+1}[t] @ w_inᵀ) ⊙ m[t], the cotangent layer l needs
+// at step t, and layer l consumes it in the iteration after that. A one-step
+// lag would put that transposed product on the chain between the cell of layer
+// l + 1 and that of layer l, behind a second barrier an iteration. The price is
+// T + 2 (L - 1) iterations instead of T + L - 1 (66 against 63 at L = 4, T =
+// 60), and seam layers run one more pass, at t = -1, for the cotangent of the
+// step 0 below them. Accurate expf/tanhf, no fast math.
 
 #include <cooperative_groups.h>
 
@@ -122,6 +141,11 @@ __device__ int stamp_cta = -1;
 constexpr int kMinLayers = 3;
 constexpr int kMaxLayers = 8;
 
+// The forward holds both its weights in the registers of the lanes that
+// multiply them at tiles of 1 and 2 rows, and stages them at 4 and 8, where
+// the accumulators need those registers.
+__host__ __device__ constexpr bool stack_fwd_in_registers(int rows) { return rows <= 2; }
+
 // Pointers of one launch. Seam i joins layer i to layer i + 1 (i < L - 1):
 // w_in[i] (H, 4H), bias[i] (4H) and, when masked, mask[i] (T, B, H).
 struct StackFwdArgs {
@@ -147,116 +171,6 @@ struct StackBwdArgs {
   float* d_pre[kMaxLayers];  // (T, B, 4H) per layer; d_pre[0] is dx1
   int n_layers, n_t, n_rows, hidden;
 };
-
-// Forward. Iteration s, CTA l (layer l) at t = s - l: copies the layer
-// below's h[t] (its buffer of iteration s - 1), times the seam mask, into
-// hm_s; gates = (bias + hm @ w_in) + h[t-1] @ w_hh for l >= 1, x1[t] +
-// h[t-1] @ w_hh for layer 0; writes h[t] into its buffer of parity s & 1.
-// Shared memory: whh_s, win_s [padded(H)][H] float4; hbuf 2 x [rows][padded(H)]
-// (this layer's h by iteration parity); hm_s [rows][padded(H)].
-template <int RPT, bool HAS_MASK, bool STASH>
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_stack_fwd_kernel(const StackFwdArgs a) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int layer = static_cast<int>(cluster.block_rank());
-  const int n_layers = a.n_layers, n_t = a.n_t, n_rows = a.n_rows;
-  const int hidden = a.hidden;
-  const bool seam = layer > 0;
-  extern __shared__ float4 smem[];
-  const int kp = padded(hidden);
-  const int rows = kGroups * RPT;
-  float4* whh_s = smem;
-  float4* win_s = whh_s + kp * hidden;
-  float* hbuf = reinterpret_cast<float*>(win_s + kp * hidden);
-  float* hm_s = hbuf + 2 * rows * kp;
-  stage_weight(a.w_hh[layer], whh_s, hidden);
-  if (seam) stage_weight(a.w_in[layer - 1], win_s, hidden);
-  for (int idx = threadIdx.x; idx < 3 * rows * kp; idx += blockDim.x) {
-    hbuf[idx] = 0.0f;  // both h buffers and hm_s; the padded k stay zero
-  }
-  const int j = threadIdx.x % hidden;
-  const int lrow0 = (threadIdx.x / hidden) * RPT;
-  const int row0 = (blockIdx.x / n_layers) * rows + lrow0;
-  const float* mask = HAS_MASK && seam ? a.mask[layer - 1] : nullptr;
-  float* hs = STASH || layer == n_layers - 1 ? a.hs[layer] : nullptr;
-  float* cs = STASH ? a.cs[layer] : nullptr;
-  const float* below = seam ? cluster.map_shared_rank(hbuf, layer - 1) : nullptr;
-  float bias[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (seam) {
-#pragma unroll
-    for (int g = 0; g < 4; ++g) bias[g] = __ldg(a.bias[layer - 1] + g * hidden + j);
-  }
-
-  float c[RPT], x_next[4][RPT], m_next[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    c[r] = 0.0f;
-    m_next[r] = 1.0f;
-  }
-  if (!seam) load_x(a.x1, 0, n_t, n_rows, hidden, row0, j, x_next);
-  if (HAS_MASK && seam) load_h(mask, 0, n_t, n_rows, hidden, row0, j, m_next);
-  cluster.sync();  // every CTA's buffers are zero before any remote read
-
-  for (int s = 0; s < n_t + n_layers - 1; ++s) {
-    const int t = s - layer;
-    if (t >= 0 && t < n_t) {  // the same for every thread of the CTA
-      const float4* h_prev = reinterpret_cast<const float4*>(
-          hbuf + ((s + 1) & 1) * rows * kp);
-      float* h_out = hbuf + (s & 1) * rows * kp;
-      float acc[2][4][RPT], h[RPT];
-      if (seam) {
-        const float* src = below + ((s + 1) & 1) * rows * kp;
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const int at = (lrow0 + r) * kp + j;
-          hm_s[at] = HAS_MASK ? src[at] * m_next[r] : src[at];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            acc[0][g][r] = bias[g];
-            acc[1][g][r] = 0.0f;
-          }
-        }
-        if constexpr (HAS_MASK) load_h(mask, t + 1, n_t, n_rows, hidden, row0, j, m_next);
-        __syncthreads();  // hm_s holds the seam input of every row
-        const float4* const h_in[2] = {reinterpret_cast<const float4*>(hm_s), h_prev};
-        const float4* const w_in[2] = {win_s, whh_s};
-        gate_products<RPT, 2>(h_in, w_in, lrow0, hidden, j, acc);
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) acc[0][g][r] += acc[1][g][r];
-      } else {
-        float acc0[1][4][RPT];
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) acc0[0][g][r] = x_next[g][r];
-        load_x(a.x1, t + 1, n_t, n_rows, hidden, row0, j, x_next);
-        const float4* const h_in[1] = {h_prev};
-        const float4* const w_in[1] = {whh_s};
-        gate_products<RPT, 1>(h_in, w_in, lrow0, hidden, j, acc0);
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-#pragma unroll
-          for (int r = 0; r < RPT; ++r) acc[0][g][r] = acc0[0][g][r];
-      }
-      cell_update(acc[0], c, h);
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        h_out[(lrow0 + r) * kp + j] = h[r];
-        const int row = row0 + r;
-        if (row < n_rows) {
-          const size_t out = (static_cast<size_t>(t) * n_rows + row) * hidden + j;
-          if (hs != nullptr) hs[out] = h[r];
-          if constexpr (STASH) cs[out] = c[r];
-        }
-      }
-    }
-    // h[t] of every layer is in its buffer; every read of the buffers of
-    // parity (s + 1) & 1 is done, so iteration s + 1 may overwrite them.
-    cluster.sync();
-  }
-}
 
 // v[i] = 0 where keep is false. A value of a step before the first is
 // loaded from a clamped step (FwdLane) and zeroed here, where it is used:
@@ -345,6 +259,215 @@ __device__ __forceinline__ float dot4(float s, const float4& d, const float4& w)
   s = fmaf(d.y, w.y, s);
   s = fmaf(d.z, w.z, s);
   return fmaf(d.w, w.w, s);
+}
+
+// cell_update for a tile of one row, whose four gates every quarter lane of
+// the unit holds after the quarter sums: lane q takes gate q's activation,
+// and the shuffles gather them, so a lane has two transcendentals on the
+// chain instead of five. The same functions and formula as cell_update.
+// The whole warp calls.
+__device__ __forceinline__ void one_row_cell(const float (&gates)[4][1], int q,
+                                             float& c, float& h) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const float pre = q == 0 ? gates[0][0]
+                           : (q == 1 ? gates[1][0] : (q == 2 ? gates[2][0] : gates[3][0]));
+  const float sg = sigmoid(pre);
+  const float th = tanhf(pre);
+  const float act = q == 2 ? th : sg;  // no branch: both in flight at once
+  const int unit = threadIdx.x & 7;
+  const float i = __shfl_sync(kAll, act, unit);
+  const float f = __shfl_sync(kAll, act, unit | 8);
+  const float g = __shfl_sync(kAll, act, unit | 16);
+  const float o = __shfl_sync(kAll, act, unit | 24);
+  c = f * c + i * g;
+  h = o * tanhf(c);
+}
+
+// Forward. Iteration k, CTA l runs layer l at step t = k - l on the forward
+// step of lstm_fwd_step.cuh: gates = x1[t] + h_l[t-1] @ w_hh (layer 0) or
+// bias + hm[t] @ w_in + h_l[t-1] @ w_hh (hm = m ⊙ h_{l-1}, which CTA l - 1
+// pushed into this CTA's inbox in iteration k - 1), both products in one
+// pass and one quarter_gates, then the cell. It stages h_l[t] into its own
+// plane for step t + 1 and, after the cluster barrier's wait, pushes
+// m_l[t] ⊙ h_l[t] (h_l[t] maskless) into CTA l + 1's inbox with st.async,
+// each store counted on CTA l + 1's mbarrier; then it arrives at the
+// cluster barrier (relaxed: its own inbox reads are done) and writes h and
+// c into device memory. Every CTA but the top pushes at every iteration
+// (zeros where its layer does not run), so every inbox phase completes.
+// x1 (layer 0) and the mask plane are loaded a step ahead (FwdLane:
+// clamped, branch-free). At tiles of 1 and 2 rows both weights sit in the
+// registers of the lanes that multiply them (load_quarter_weight: 128
+// floats a lane), so a step reads no weight from shared memory; at 4 and 8
+// rows, where the accumulators need those registers, both are staged
+// (stage_weight_padded), each float4 read by one lane a product and step.
+// A tile of one row runs its cell over the quarter lanes (one_row_cell).
+// Warps with 8 w >= p only take part in the barriers.
+// Shared memory (p = sweep_pad(H)): at 4 or 8 rows win_s, whh_s [p][p + 1]
+// float4; two buffers of the own h plane and the inbox [ROWS][p + 16]
+// floats; the inbox buffers' two mbarriers.
+template <int ROWS, bool HAS_MASK, bool STASH>
+__global__ void __launch_bounds__(kSweepThreads, 1)
+lstm_stack_fwd_kernel(const StackFwdArgs a) {
+  constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
+  constexpr bool kRegs = stack_fwd_in_registers(ROWS);  // else staged
+  cg::cluster_group cluster = cg::this_cluster();
+  const int layer = static_cast<int>(cluster.block_rank());
+  const int n_layers = a.n_layers, n_t = a.n_t, n_rows = a.n_rows;
+  const int hidden = a.hidden;
+  const bool seam = layer > 0;
+  const bool top = layer == n_layers - 1;
+  extern __shared__ float4 smem[];
+  const int p = sweep_pad(hidden);
+  const int kq = p / 4;
+  float4* win_s = smem;  // win_s, whh_s: !kRegs only
+  float4* whh_s = win_s + (kRegs ? 0 : p * (p + 1));
+  const FwdPlanes pl = fwd_planes(whh_s + (kRegs ? 0 : p * (p + 1)), p, ROWS, 2);
+  // One mbarrier an inbox buffer: its phase completes when the layer below
+  // has pushed that iteration's ROWS x p values into it.
+  const uint32_t full = smem_addr(pl.end());
+  if constexpr (!kRegs) {
+    if (seam) stage_weight_padded(a.w_in[layer - 1], win_s, hidden, p);
+    stage_weight_padded(a.w_hh[layer], whh_s, hidden, p);
+  }
+  // Both buffers of the own plane (h[-1] = 0) and of the inbox to zero:
+  // no NaN an earlier kernel left reaches a product through padding.
+  pl.zero();
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int tile0 = (blockIdx.x / n_layers) * ROWS;
+  const FwdLane<ROWS> ln(n_rows, hidden, kq, tile0);
+  const bool active = (threadIdx.x >> 5) * 8 < p;  // the same for a warp
+  float wr[kRegs ? kMaxHidden / 4 : 1][4], wi[kRegs ? kMaxHidden / 4 : 1][4];
+  if constexpr (kRegs) {
+    load_quarter_weight(a.w_hh[layer], hidden, kq, ln.q, ln.j, wr);
+    if (seam) load_quarter_weight(a.w_in[layer - 1], hidden, kq, ln.q, ln.j, wi);
+  }
+  float bias[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    bias[g] = seam ? __ldg(a.bias[layer - 1] + g * hidden + ln.col) : 0.0f;
+  }
+  // m_l, the seam mask on this layer's h where it enters layer l + 1.
+  const float* mask = HAS_MASK && !top ? a.mask[layer] : nullptr;
+  float* hs = STASH || top ? a.hs[layer] : nullptr;
+  float* cs = STASH ? a.cs[layer] : nullptr;
+  // Where this CTA pushes: plane 1 (the inbox) of CTA l + 1 and its mbarriers.
+  const int to = top ? layer : layer + 1;
+  const uint32_t push = cluster_addr(smem_addr(pl.base), to);
+  const uint32_t push_full = cluster_addr(full, to);
+  const int push_bytes = ROWS * p * static_cast<int>(sizeof(float));
+
+  float c[NR], xn[4][NR], mn[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    c[i] = 0.0f;
+    mn[i] = 1.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xn[g][i] = 0.0f;
+  }
+  if (!seam) ln.load_x(a.x1, 0, n_t, n_rows, hidden, xn);
+  if constexpr (HAS_MASK) {
+    if (mask != nullptr) ln.load_h(mask, -layer, n_t, n_rows, hidden, mn);
+  }
+  __syncthreads();  // the weights are staged, the planes zero
+  // Every CTA's planes and mbarriers are ready before any CTA pushes.
+  cluster_arrive_release();
+#ifdef LSTM_STACK_STAMPS
+  const bool stamp_on = blockIdx.x == stamp_cta && threadIdx.x == 0;
+#endif
+
+  const int n_iter = n_t + n_layers - 1;
+  for (int k = 0; k < n_iter; ++k) {
+    const int t = k - layer;
+    const bool run = t >= 0 && t < n_t;  // the same for the whole CTA
+    STAMP(0)
+    // Iteration k's push from the layer below lands in buffer (k + 1) & 1:
+    // its phase k >> 1.
+    if (seam && threadIdx.x == 0) mbar_expect(full + 8 * ((k + 1) & 1), push_bytes);
+    float add[1][4][NR], m[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      m[i] = mn[i];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) add[0][g][i] = seam ? bias[g] : xn[g][i];
+    }
+    if (!seam) ln.load_x(a.x1, t + 1, n_t, n_rows, hidden, xn);
+    if constexpr (HAS_MASK) {
+      if (mask != nullptr) ln.load_h(mask, t + 1, n_t, n_rows, hidden, mn);
+    }
+    STAMP(1)
+    // hm[t], pushed in iteration k - 1, has landed in buffer k & 1.
+    if (seam && k > 0) mbar_wait(full + 8 * (k & 1), ((k - 1) >> 1) & 1);
+    STAMP(2)
+    float h[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) h[i] = 0.0f;
+    if (run && active) {
+      float acc[ROWS][4];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[r][g] = 0.0f;
+      const float* own = pl.at(k, 0);
+      const float* inbox = pl.at(k, 1);
+      if constexpr (!kRegs) {
+        if (seam) {
+          const float* const h_in[2] = {inbox, own};
+          const float4* const w_in[2] = {win_s, whh_s};
+          quarter_gate_products<ROWS, 2, 1>(h_in, w_in, kq, 4 * kq + 16, ln.q, ln.j, acc);
+        } else {
+          const float* const h_in[1] = {own};
+          const float4* const w_in[1] = {whh_s};
+          quarter_gate_products<ROWS, 1, 1>(h_in, w_in, kq, 4 * kq + 16, ln.q, ln.j, acc);
+        }
+      } else {
+        register_gate_product<ROWS>(own, wr, kq, ln.q, acc);
+        if (seam) register_gate_product<ROWS>(inbox, wi, kq, ln.q, acc);
+      }
+      STAMP(3)
+      float gates[1][4][NR];
+      quarter_gates<ROWS, 1>(acc, ln.q, add, gates);
+      if constexpr (ROWS == 1) {
+        one_row_cell(gates[0], ln.q, c[0], h[0]);
+      } else {
+        cell_update(gates[0], c, h);
+      }
+      ln.stage(h, pl.at(k + 1, 0), kq);
+    }
+    STAMP(4)
+    // Every CTA is done reading the inbox buffer this iteration pushes into
+    // (it read it in iteration k - 1).
+    cluster_wait();
+    if (!top && active) {
+      const uint32_t at = push + 4 * (((k + 1) & 1) * 2 + 1) * pl.size;
+      const uint32_t bar = push_full + 8 * ((k + 1) & 1);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        if (ln.q + 4 * i < ROWS) {
+          store_remote(at + 4 * ((ln.q + 4 * i) * (4 * kq + 16) + ln.hc),
+                       run ? h[i] * m[i] : 0.0f, bar);
+        }
+      }
+    }
+    STAMP(5)
+    // Done with this iteration's inbox buffer: its values are used.
+    cluster_arrive_relaxed();
+    STAMP(6)
+    if (run && active) {
+      if (hs != nullptr) ln.store(h, hs, t, n_rows, hidden);
+      if constexpr (STASH) ln.store(c, cs, t, n_rows, hidden);
+    }
+    // The own plane holds h[t] for step t + 1, and every read of the
+    // buffers the next iteration writes is done.
+    __syncthreads();
+    STAMP(7)
+  }
+  // The last push has landed: no CTA writes into this one any more.
+  if (seam) mbar_wait(full + 8 * (n_iter & 1), ((n_iter - 1) >> 1) & 1);
+  cluster_wait();
 }
 
 // The four products of a seam layer's iteration in one pass over its two
@@ -723,7 +846,13 @@ lstm_stack_bwd_kernel(const StackBwdArgs a) {
   cluster_wait();
 }
 
-size_t fwd_smem(int hidden, int rpt) { return smem_bytes(hidden, rpt, 2, 3); }
+// The forward's staged weights (at 4 or 8 rows), two buffers of the own h
+// plane and the inbox, and two mbarriers: 1,280 + 16 bytes at H = 64 and 1
+// row; 133,120 + 10,240 + 16 at 8 rows.
+size_t fwd_smem(int hidden, int rows) {
+  return (stack_fwd_in_registers(rows) ? 0 : 2) * padded_weight_bytes(hidden) +
+         fwd_planes_bytes(hidden, rows, 2) + 2 * sizeof(uint64_t);
+}
 
 // The two padded weights, two d_pre planes, two buffers of two h planes and
 // two inboxes: 133,120 + 2,176 + 1,280 + 576 bytes at H = 64 and 1 row;
@@ -768,17 +897,16 @@ cudaError_t cluster_capacity(void (*kernel)(Args), size_t max_smem,
   return cudaSuccess;
 }
 
-// A kernel instance and its launch shape (Fwd, Bwd): At::get() the kernel,
-// At::kRows the rows of its tile, At::threads(H) a CTA's threads and
-// At::smem(H) its dynamic shared memory.
+// A kernel instance and its launch shape (Fwd, Bwd; kSweepThreads a CTA):
+// At::get() the kernel, At::kRows the rows of its tile and At::smem(H) its
+// dynamic shared memory.
 template <bool HAS_MASK, bool STASH>
 struct Fwd {
-  template <int RPT>
+  template <int ROWS>
   struct At {
-    static constexpr int kRows = kGroups * RPT;
-    static auto get() { return lstm_stack_fwd_kernel<RPT, HAS_MASK, STASH>; }
-    static int threads(int hidden) { return kGroups * hidden; }
-    static size_t smem(int hidden) { return fwd_smem(hidden, RPT); }
+    static constexpr int kRows = ROWS;
+    static auto get() { return lstm_stack_fwd_kernel<ROWS, HAS_MASK, STASH>; }
+    static size_t smem(int hidden) { return fwd_smem(hidden, ROWS); }
   };
 };
 
@@ -788,7 +916,6 @@ struct Bwd {
   struct At {
     static constexpr int kRows = ROWS;
     static auto get() { return lstm_stack_bwd_kernel<ROWS, HAS_MASK>; }
-    static int threads(int) { return kSweepThreads; }
     static size_t smem(int hidden) { return bwd_smem(hidden, ROWS); }
   };
 };
@@ -804,7 +931,7 @@ cudaLaunchConfig_t cluster_config(const Args& args, cudaLaunchAttribute* attr,
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(static_cast<unsigned>(
       ceil_div(args.n_rows, At::kRows) * args.n_layers));
-  config.blockDim = dim3(static_cast<unsigned>(At::threads(args.hidden)));
+  config.blockDim = dim3(kSweepThreads);
   config.dynamicSmemBytes = At::smem(args.hidden);
   config.stream = stream;
   config.attrs = attr;
@@ -843,11 +970,10 @@ cudaError_t launch_tile(const Args& args, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The forward's tiles: 2, 4 or 8 rows (RPT 1, 2, 4); the backward's: 1, 2,
-// 4 or 8.
+// Both directions take tiles of 1, 2, 4 or 8 rows.
 template <bool HAS_MASK, bool STASH, typename F>
 cudaError_t with_fwd_tile(const StackFwdArgs& args, int device, F f) {
-  return with_stack_tile<Fwd<HAS_MASK, STASH>::template At, 1, 2, 4>(args, device, f);
+  return with_stack_tile<Fwd<HAS_MASK, STASH>::template At, 1, 2, 4, 8>(args, device, f);
 }
 
 template <bool HAS_MASK, typename F>

@@ -1,18 +1,18 @@
-"""Where an iteration of the stack's backward sweep spends its time, in
-clock64 cycles, on the card.
+"""Where an iteration of the stack's backward sweep and of its forward
+spends its time, in clock64 cycles, on the card.
 
     python3 -m masters_thesis_tpu_torch.ops.profile_stack_sweep
 
 Builds ``csrc/lstm_stack.cu`` once more with ``-DLSTM_STACK_STAMPS`` (a
 library of its own under ``ops/_build/``), in which thread 0 of one CTA
 stamps ``clock64`` at eight points of every iteration, and runs the sweep
-through the usual wrapper on that library: at L=4 on 25 and 200 rows and
-L=8 on 25 rows (T=60, H=64, masked), stamping layer 0's CTA, layer 1's and
-the top layer's in turn. Prints the card's name, power limit and clocks,
-then one JSON line a case: the median cycles an iteration and of each
-segment between stamps, over the iterations where the layer runs. The
-stamps cost a few instructions each, so the total reads a little above an
-unstamped launch.
+and the forward (masked, with the stashes) through the usual wrappers on
+that library: at L=4 on 25 and 200 rows and L=8 on 25 rows (T=60, H=64,
+masked), stamping layer 0's CTA, layer 1's and the top layer's in turn.
+Prints the card's name, power limit and clocks, then one JSON line a case:
+the median cycles an iteration and of each segment between stamps, over
+the iterations where the layer runs. The stamps cost a few instructions
+each, so the total reads a little above an unstamped launch.
 """
 
 from __future__ import annotations
@@ -31,8 +31,15 @@ from masters_thesis_tpu_torch.ops import lstm_kernel as lk
 
 FLAGS = (*_build.NVCC_FLAGS, "-DLSTM_STACK_STAMPS")
 STAMP_ITERS = 512  # kStampIters in csrc/lstm_stack.cu
-SEGMENTS = ("stash loads", "pass", "cluster wait, push, inbox wait", "cell",
-            "d_pre plane", "arrive", "device stores, staging, CTA barrier")
+SEGMENTS = {
+    "sweep": ("stash loads", "pass", "cluster wait, push, inbox wait", "cell",
+              "d_pre plane", "arrive", "device stores, staging, CTA barrier"),
+    "forward": ("arm, x1 and mask loads", "inbox wait", "pass",
+                "quarter sums, cell, staging", "cluster wait, push", "arrive",
+                "device stores, CTA barrier"),
+}
+# The stamp that only an iteration in which the layer runs records.
+RUN_STAMP = {"sweep": 1, "forward": 3}
 T, H = 60, 64
 
 
@@ -52,6 +59,8 @@ def build() -> ctypes.CDLL:
     arr = ctypes.POINTER(ctypes.c_void_p)
     lib.lstm_stack_bwd.argtypes = [ptr, ptr] + [arr] * 7 + [i32] * 5 + [ptr]
     lib.lstm_stack_bwd.restype = i32
+    lib.lstm_stack_fwd.argtypes = [ptr] + [arr] * 6 + [i32] * 5 + [ptr]
+    lib.lstm_stack_fwd.restype = i32
     lib.lstm_stack_stamps.argtypes = [i32, ptr]
     lib.lstm_stack_stamps.restype = i32
     return lib
@@ -89,25 +98,32 @@ def main() -> int:
     stamps = np.zeros((STAMP_ITERS, 8), dtype=np.int64)
     for n_layers, rows in ((4, 25), (4, 200), (8, 25)):
         args = inputs(n_layers, rows, seed=rows)
-        iters = T + 2 * (n_layers - 1)
-        for layer in (0, 1, n_layers - 1):
-            # The CTA of `layer` in the first cluster is block `layer`.
-            if lib.lstm_stack_stamps(layer, stamps.ctypes.data) != 0:
-                raise RuntimeError("lstm_stack_stamps failed")
-            for _ in range(3):
-                lk.lstm_stack_bwd_cuda(*args)
-            if lib.lstm_stack_stamps(-1, stamps.ctypes.data) != 0:
-                raise RuntimeError("lstm_stack_stamps failed")
-            got = stamps[:iters].astype(np.float64)
-            ran = got[:, 1] != 0  # stamp 1 sits where the layer runs
-            parts = np.diff(got, axis=1)[ran]
-            print(json.dumps({
-                "n_layers": n_layers, "rows": rows, "layer": layer,
-                "iterations_run": int(ran.sum()),
-                "cycles_per_iteration": float(np.median(np.diff(got[:, 0]))),
-                "segments": {name: float(np.median(parts[:, i]))
-                             for i, name in enumerate(SEGMENTS)},
-            }), flush=True)
+        dh, x, masks, hs, cs, w_hh, w_in, biases = args
+        calls = {
+            "sweep": (lambda: lk.lstm_stack_bwd_cuda(*args), T + 2 * (n_layers - 1)),
+            "forward": (lambda: lk.lstm_stack_fwd_cuda(x, w_hh, w_in, biases, masks,
+                                                       stash=True),
+                        T + n_layers - 1),
+        }
+        for kernel, (call, iters) in calls.items():
+            for layer in (0, 1, n_layers - 1):
+                # The CTA of `layer` in the first cluster is block `layer`.
+                if lib.lstm_stack_stamps(layer, stamps.ctypes.data) != 0:
+                    raise RuntimeError("lstm_stack_stamps failed")
+                for _ in range(3):
+                    call()
+                if lib.lstm_stack_stamps(-1, stamps.ctypes.data) != 0:
+                    raise RuntimeError("lstm_stack_stamps failed")
+                got = stamps[:iters].astype(np.float64)
+                ran = got[:, RUN_STAMP[kernel]] != 0
+                parts = np.diff(got, axis=1)[ran]
+                print(json.dumps({
+                    "kernel": kernel, "n_layers": n_layers, "rows": rows,
+                    "layer": layer, "iterations_run": int(ran.sum()),
+                    "cycles_per_iteration": float(np.median(np.diff(got[:, 0]))),
+                    "segments": {name: float(np.median(parts[:, i]))
+                                 for i, name in enumerate(SEGMENTS[kernel])},
+                }), flush=True)
     return 0
 
 

@@ -107,6 +107,8 @@ def test_training_kernels_match_plain(cuda_device, rows, hidden, masked):
 
 
 def test_weight_gradients_repeat_bit_for_bit(cuda_device):
+    """The pair's 3 jobs and an 8-deep stack's 15, each launched twice:
+    the splits are summed in a fixed order, so the results are equal."""
     x, w1, wi2, b2, w2 = _case(3, 803, 64, device=cuda_device)
     mask, dh = _mask_and_cotangent(3, x.shape[0], 803, 64, cuda_device)
     h2s, h1s, c1s, c2s = lk.lstm_pair_ref(x, w1, wi2, b2, w2, mask,
@@ -117,6 +119,64 @@ def test_weight_gradients_repeat_bit_for_bit(cuda_device):
     second = lk.lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    sx, weights, masks, sdh = _stack_case(5, 8, 203, 64, n_t=60,
+                                          device=cuda_device)
+    shs, scs = lk.lstm_stack_ref(sx, *weights, masks, return_stash=True)
+    d_pres = lk.lstm_stack_bwd_cuda(sdh, sx, masks, shs, scs, *weights)
+    first = lk.lstm_stack_wgrad(d_pres, shs, masks)
+    second = lk.lstm_stack_wgrad(d_pres, shs, masks)
+    assert sum(len(group) for group in first) == 15 + 7
+    for group_a, group_b in zip(first, second):
+        for a, b in zip(group_a, group_b):
+            assert torch.equal(a, b)
+
+
+def _pass_jobs(seed, n_jobs, n_t, rows, hidden, device):
+    """``n_jobs`` jobs of the weight-gradient pass: job i reads d_pre plane
+    i // 2 (so jobs 2k and 2k + 1 share one, as the pair's and the stacks'
+    jobs do), shift i % 2; a mask on jobs 0, 3, 4, 7, 8, 9, 12 and 13 (so
+    every combination of shift, mask and bias occurs from 8 jobs on); the
+    bias on jobs 4-7 and 12-15."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=device)
+
+    d_pres = [t((n_t, rows, 4 * hidden)) for _ in range((n_jobs + 1) // 2)]
+    jobs = []
+    for i in range(n_jobs):
+        masked = i % 4 in ((0, 3) if i < 8 else (0, 1))
+        mask = (torch.tensor((rng.random((n_t, rows, hidden)) >= 0.2) / 0.8,
+                             dtype=torch.float32, device=device)
+                if masked else None)
+        jobs.append((d_pres[i // 2], t((n_t, rows, hidden)), i % 2, mask,
+                     (i // 4) % 2 == 1))
+    return jobs
+
+
+# Jobs 1, 3, 7 and 15 (the pair's 3, the stacks' 2L - 1); H that pad the
+# 64-row tile (1, 5, 13: no 16-byte copies) and the models' 64; T * rows
+# from 1 row to 48,180 (803 rows: no multiple of the 16-row stage or of a
+# split).
+@pytest.mark.parametrize("n_t,rows", [(1, 1), (1, 3), (1, 803), (2, 1), (2, 3),
+                                      (2, 803), (60, 1), (60, 3), (60, 803)])
+@pytest.mark.parametrize("hidden", [1, 5, 13, 64])
+@pytest.mark.parametrize("n_jobs", [1, 3, 7, 15])
+def test_weight_gradient_pass_matches_plain(cuda_device, n_jobs, hidden, n_t,
+                                            rows):
+    """Every job of one launch of the pass against lstm_wgrad_ref (and its
+    bias against the row sum)."""
+    jobs = _pass_jobs(n_jobs * 100 + hidden + rows, n_jobs, n_t, rows, hidden,
+                      cuda_device)
+    got = lk.lstm_wgrad_cuda(jobs)
+    torch.cuda.synchronize()
+    for (d_pre, src, shift, mask, with_bias), (dw, db) in zip(jobs, got):
+        _close_rel(dw, lk.lstm_wgrad_ref(d_pre, src, shift, mask))
+        if with_bias:
+            _close_rel(db, d_pre.sum(dim=(0, 1)))
+        else:
+            assert db is None
 
 
 # The 256-thread kernels (the pair's forward and sweep, both single-layer
@@ -358,9 +418,9 @@ def _stack_case(seed, n_layers, rows, hidden, n_t=12, masked=True,
 
 
 # Depths 3, 4, 7 (not a power of two) and 8; rows 1 to 803, so that the
-# backward sweep takes each of its row tiles (1, 2, 4 and 8 rows: the fewest
-# whose clusters all fit on the card at once), ragged ones included; H not a
-# multiple of 4.
+# forward and the backward sweep take each of their row tiles (1, 2, 4 and 8
+# rows: the fewest whose clusters all fit on the card at once), ragged ones
+# included; H not a multiple of 4.
 STACK_CASES = [(3, 1, 5), (3, 9, 16), (4, 25, 64), (4, 200, 64), (7, 37, 13),
                (7, 25, 64), (8, 203, 64), (8, 2, 64), (4, 1, 64), (4, 9, 64),
                (4, 100, 64), (4, 203, 64), (3, 803, 64)]
@@ -369,9 +429,10 @@ STACK_CASES = [(3, 1, 5), (3, 9, 16), (4, 25, 64), (4, 200, 64), (7, 37, 13),
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n_layers,rows,hidden", STACK_CASES)
 def test_stack_kernels_match_plain(cuda_device, n_layers, rows, hidden, masked):
-    """The stack forward (with and without its stashes), its backward sweep
-    (and a second sweep launch, bit for bit) and its 2L - 1 weight
-    gradients, each against its plain version."""
+    """The stack forward (with and without its stashes, and a second
+    stashed launch, bit for bit), its backward sweep (and a second sweep
+    launch, bit for bit) and its 2L - 1 weight gradients, each against its
+    plain version."""
     x, (w_hh, w_in, biases), masks, dh = _stack_case(
         rows + n_layers, n_layers, rows, hidden, masked=masked,
         device=cuda_device)
@@ -381,6 +442,10 @@ def test_stack_kernels_match_plain(cuda_device, n_layers, rows, hidden, masked):
                                             stash=True)
     for g, w in zip(got_hs + got_cs, want_hs + want_cs):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+    again_hs, again_cs = lk.lstm_stack_fwd_cuda(x, w_hh, w_in, biases, masks,
+                                                stash=True)
+    for a, b in zip(again_hs + again_cs, got_hs + got_cs):
+        assert torch.equal(a, b)
     top = lk.lstm_stack_fwd_cuda(x, w_hh, w_in, biases, masks)
     torch.testing.assert_close(top, want_hs[-1], atol=2e-5, rtol=0)
     args = (dh, x, masks, want_hs, want_cs, w_hh, w_in, biases)
@@ -397,14 +462,15 @@ def test_stack_kernels_match_plain(cuda_device, n_layers, rows, hidden, masked):
 
 
 def test_stack_cases_take_every_sweep_tile(cuda_device):
-    """STACK_CASES reach every row tile of the stack's backward sweep."""
-    tiles = {n_layers: set() for n_layers, _, _ in STACK_CASES}
-    for n_layers, rows, hidden in STACK_CASES:
-        for masked in (False, True):
-            tiles[n_layers].add(lk.lstm_stack_row_tile_cuda(
-                n_layers, rows, hidden, cuda_device, backward=True,
-                masked=masked))
-    assert set().union(*tiles.values()) == {1, 2, 4, 8}, tiles
+    """STACK_CASES reach every row tile of the stack's backward sweep and
+    of both instances of its forward (maskless; masked with the stashes)."""
+    for backward, masked, stash in ((True, False, False), (True, True, False),
+                                    (False, False, False), (False, True, True)):
+        tiles = {lk.lstm_stack_row_tile_cuda(n_layers, rows, hidden,
+                                             cuda_device, backward=backward,
+                                             masked=masked, stash=stash)
+                 for n_layers, rows, hidden in STACK_CASES}
+        assert tiles == {1, 2, 4, 8}, (backward, masked, stash, tiles)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -594,12 +660,14 @@ def fill_shared_with_nan(tmp_path_factory):
 def test_backward_sweeps_read_no_shared_memory_they_did_not_write(
         cuda_device, fill_shared_with_nan, rows, n_t):
     """Both single-layer backward sweeps, both single-layer forwards, the
-    pair forward (maskless, and masked with its stashes) and the stack's
-    backward sweep (maskless and masked, 4 and 8 layers), each launched
-    right after a kernel that leaves NaN in every SM's shared memory, give
-    what they give after a clean run, bit for bit: no step reads a plane it
-    has not written (a read times zero is NaN all the same); the
-    double-buffered planes and the stack's inboxes are what could."""
+    pair forward (maskless, and masked with its stashes), the stack's
+    forward (maskless, and masked with its stashes) and backward sweep
+    (maskless and masked, 4 and 8 layers) and the weight-gradient pass (the
+    pair's 3 jobs, a stack's 2L - 1), each launched right after a kernel
+    that leaves NaN in every SM's shared memory, give what they give after a
+    clean run, bit for bit: no step reads a plane it has not written (a read
+    times zero is NaN all the same); the double-buffered planes, the stack's
+    inboxes and the pass's ring of stages are what could."""
     x, w1, wi2, b2, w2 = _case(rows + n_t + 3, rows, 64, n_t=n_t,
                                device=cuda_device)
     mask, dh = _mask_and_cotangent(rows + n_t + 3, n_t, rows, 64, cuda_device)
@@ -612,6 +680,11 @@ def test_backward_sweeps_read_no_shared_memory_they_did_not_write(
         lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2, mask, stash=True),
         lambda: lk.lstm_fwd_cuda(x, w1, return_c=True),
     ]
+    h2s, h1s, c1s, c2s = lk.lstm_pair_ref(x, w1, wi2, b2, w2, mask,
+                                          return_stash=True)
+    dx1, d_pre2 = lk.lstm_pair_bwd_ref(dh, x, mask, h1s, c1s, h2s, c2s, w1,
+                                       wi2, b2, w2)
+    calls.append(lambda: lk.lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask))
     for n_layers in (4, 8):
         for masked in (False, True):
             sx, weights, masks, sdh = _stack_case(rows + n_layers, n_layers,
@@ -621,6 +694,16 @@ def test_backward_sweeps_read_no_shared_memory_they_did_not_write(
             shs, scs = lk.lstm_stack_ref(sx, *weights, masks, return_stash=True)
             calls.append(lambda a=(sdh, sx, masks, shs, scs, *weights):
                          tuple(lk.lstm_stack_bwd_cuda(*a)))
+            fwd = (sx, *weights, masks)
+            if masked:
+                calls.append(lambda a=fwd: tuple(
+                    t for plane in lk.lstm_stack_fwd_cuda(*a, stash=True)
+                    for t in plane))
+            else:
+                calls.append(lambda a=fwd: lk.lstm_stack_fwd_cuda(*a))
+            d_pres = lk.lstm_stack_bwd_ref(sdh, sx, masks, shs, scs, *weights)
+            calls.append(lambda a=(d_pres, shs, masks): tuple(
+                t for group in lk.lstm_stack_wgrad(*a) for t in group))
     for call in calls:
         want = _as_tuple(call())
         fill_shared_with_nan(cuda_device)
