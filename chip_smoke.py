@@ -17,7 +17,11 @@ encoder groups its 4 layers into one 4-deep stack; model=large at that shape
 runs the 7- and 8-deep stacks. At a 252-day lookback model=small runs every
 layer alone through the time-blocked kernels, as the reference routes it:
 served, trained (with and without remat) and evaluated (the ΔL table).
-Trajectories and gradients are held against the CPU port. Each phase prints one JSON line; the last line is
+Trajectories and gradients are held against the CPU port. After
+model=small's training phases the default composition goes through the
+port's own entry point, ``python -m masters_thesis_tpu_torch train``, then
+``test`` and a warm start, each in a child process (``phase_driver``).
+Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
 training data is generated under ``data/chip_smoke/<stocks>x<samples>/``
@@ -33,8 +37,11 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,6 +65,7 @@ from masters_thesis_tpu_torch.ops.windows import (
 from masters_thesis_tpu_torch.serve.engine import PredictEngine
 from masters_thesis_tpu_torch.serve.server import PredictServer
 from masters_thesis_tpu_torch.train.checkpoint import load_checkpoint
+from masters_thesis_tpu_torch.train.logging import read_records
 from masters_thesis_tpu_torch.train.optim import make_optimizer
 from masters_thesis_tpu_torch.train.steps import (
     evaluate,
@@ -1277,7 +1285,7 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple,
     init_val = metric_means(evaluate(module, spec.window_objective(), val))["total"]
     lk.reset_launch_counts()
     t0 = time.perf_counter()
-    result = trainer.fit(spec, dm, module=module)
+    result = trainer.fit(spec, dm)  # from build(spec)'s seeded weights
     fit_s = time.perf_counter() - t0
     launches = dict(lk.LAUNCHES)
     steps = TRAIN_EPOCHS * len(dm.train_range)
@@ -1639,6 +1647,138 @@ def phase_train_large_breakdown(dm) -> dict:
                             "train_large_breakdown")
 
 
+# The entry point in a child process, as `python -m` runs it (runpy), which
+# prints its kernels' launch counts as its last line when it exits.
+_CLI_CHILD = (
+    "import atexit, json, runpy\n"
+    "from masters_thesis_tpu_torch.ops import lstm_kernel as lk\n"
+    "atexit.register(lambda: print(json.dumps({'launches': dict(lk.LAUNCHES)}),"
+    " flush=True))\n"
+    "runpy.run_module('masters_thesis_tpu_torch', run_name='__main__',"
+    " alter_sys=True)\n"
+)
+DRIVER_RTOL = 1e-4
+DONE_LINE = re.compile(r"done: best_val=(\S+) test_mae=(\S+) test_nll=(\S+) "
+                       r"steps/sec=(\S+)")
+DELTA_LINE = re.compile(r"\s*(model|ols): dL_MSE\(x1e-5\)=\s*(\S+)\s+"
+                        r"dL_NLL=\s*(\S+)\s+dL_MIX\(zeta=1e5\)=\s*(\S+)")
+
+
+def _cli(command: str, *overrides: str) -> tuple[list[str], dict, float]:
+    """``python -m masters_thesis_tpu_torch <command> --device <DEVICE>
+    <overrides>`` from the repo root: its output lines, its launch counts
+    and its seconds; raises unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_CHILD, command, "--device", DEVICE,
+         *overrides],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{command} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    return lines[:-1], json.loads(lines[-1])["launches"], seconds
+
+
+def _done(lines: list[str]) -> dict:
+    match = next(m for m in map(DONE_LINE.fullmatch, lines) if m)
+    return dict(zip(("best_val", "test_mae", "test_nll", "steps_per_s"),
+                    map(float, match.groups())))
+
+
+def phase_driver(train: dict) -> dict:
+    """The default composition (datamodule=synthetic, model=small, loss=mse,
+    trainer=fast) through the port's entry point, each run a child process:
+    ``train`` for 2 epochs on the 100 x 200,000 set the earlier phases
+    made, ``test`` on its checkpoint root (the ΔL table), and a warm start
+    (``checkpoint_mode=params``) from its ``best`` for 1 epoch into another
+    version. ``train`` is phase_train's run of ``Trainer.fit``, for the
+    windows/s the driver costs on top of the trainer and the val loss of
+    the same initial weights."""
+    root = Path(__file__).resolve().parent / "data" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    save_dir = Path(tempfile.mkdtemp(prefix="driver_", dir=root))
+    common = [f"datamodule.data_dir={data_dir(K_STOCKS)}",
+              f"datamodule.n_samples={TRAIN_SAMPLES}",
+              f"logger.save_dir={save_dir}"]
+    try:
+        run_lines, run_launches, run_s = _cli(
+            "train", *common, f"trainer.max_epochs={TRAIN_EPOCHS}")
+        run_dir = save_dir / "FinancialLstm" / "synthetic" / "mse_small_lr0.0001_fast"
+        ckpts = run_dir / "checkpoints"
+        test_lines, test_launches, test_s = _cli(
+            "test", *common, f"checkpoint={ckpts}")
+        warm_lines, warm_launches, warm_s = _cli(
+            "train", *common, f"checkpoint={ckpts / 'best'}",
+            "checkpoint_mode=params", "trainer.max_epochs=1",
+            "logger.version=warm_start")
+        warm_dir = run_dir.parent / "warm_start"
+        done, warm_done = _done(run_lines), _done(warm_lines)
+        delta = {m.group(1): dict(zip(("delta_mse_x1e5", "delta_nll",
+                                       "delta_mix"), map(float, m.groups()[1:])))
+                 for m in map(DELTA_LINE.fullmatch, test_lines) if m}
+        first_train = {
+            name: [r for r in read_records(d) if "lr-Adam" in r][0]["loss/total/train"]
+            for name, d in (("run", run_dir), ("warm_start", warm_dir))}
+        files = {f"{d.name}/{tag}.pt": (d / "checkpoints" / f"{tag}.pt").is_file()
+                 for d in (run_dir, warm_dir) for tag in ("best", "last")}
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    out = {
+        "phase": "driver",
+        "seconds": {"train": run_s, "test": test_s, "warm_start": warm_s},
+        "windows_per_s": {"train": done["steps_per_s"],
+                          "warm_start": warm_done["steps_per_s"],
+                          "trainer_fit": train["windows_per_s"]},
+        "done": {"train": done, "warm_start": warm_done},
+        "val_loss_initial": train["val_loss_initial"],
+        "best_val_trainer_fit": train["best_val_loss"],
+        "best_val_rel_gap": abs(done["best_val"] - train["best_val_loss"])
+        / train["best_val_loss"],
+        "first_epoch_train_loss": first_train,
+        "delta_losses": delta,
+        "checkpoints": files,
+        "launches": {"train": run_launches, "test": test_launches,
+                     "warm_start": warm_launches},
+    }
+    emit(out)
+    values = [*done.values(), *warm_done.values(), *first_train.values(),
+              *(v for row in delta.values() for v in row.values())]
+    if sorted(delta) != ["model", "ols"] or not np.isfinite(values).all():
+        raise AssertionError(f"driver: missing or non-finite results: {out}")
+    if not all(files.values()):
+        raise AssertionError(f"driver: checkpoint missing: {files}")
+    # The composed default is phase_train's spec, seed and data, and each
+    # epoch's draws follow (seed, epoch): the driver's run is phase_train's
+    # (its done line rounds to 6 digits; a wrong lr or dropout moves the
+    # best val by far more than DRIVER_RTOL).
+    if not out["best_val_rel_gap"] <= DRIVER_RTOL:
+        raise AssertionError(f"driver: best val {done['best_val']} is not "
+                             f"Trainer.fit's {train['best_val_loss']}")
+    if not done["best_val"] < train["val_loss_initial"]:
+        raise AssertionError("driver: val loss did not fall below the initial "
+                             f"weights': {done['best_val']}")
+    if not first_train["warm_start"] < first_train["run"]:
+        raise AssertionError(f"driver: the warm start did not start lower: "
+                             f"{first_train}")
+    # Each training step of model=small runs the masked pair forward, its
+    # sweep and its pass; val, test and the ΔL table the maskless pair.
+    path = ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad")
+    missed = {k: run_launches[k] for k in path
+              if run_launches[k] != train["steps"]}
+    missed.update({f"warm_start/{k}": warm_launches[k] for k in path
+                   if warm_launches[k] != train["steps"] // TRAIN_EPOCHS})
+    missed.update({f"{name}/lstm_pair_fwd": counts["lstm_pair_fwd"]
+                   for name, counts in (("train", run_launches),
+                                        ("test", test_launches))
+                   if counts["lstm_pair_fwd"] == 0})
+    if missed:
+        raise AssertionError(f"driver: kernels off the path: {missed}")
+    return out
+
+
 def phase_ab(label: str) -> None:
     """The pair, single-layer, time-blocked and stack kernels of whatever
     checkout this copy of the script sits in, for comparing two checkouts
@@ -1743,6 +1883,7 @@ def main() -> int:
     train = phase_train(dm)
     train_odd = phase_train_odd_layers(dm)
     phase_train_breakdown(dm)
+    phase_driver(train)
     dm_medium = _train_datamodule(K_MEDIUM)
     phase_train_medium_parity(dm_medium)
     train_medium = phase_train_medium(dm_medium)

@@ -1,0 +1,32 @@
+"""``python -m masters_thesis_tpu_torch train|test [-m] [--device cpu] [overrides]``
+
+``train`` is the port's ``train.py`` (``cli/train.py``), ``test`` its
+``test.py`` (``cli/test.py``). Both run on CUDA unless given
+``--device cpu``; a failure exits non-zero.
+"""
+
+from __future__ import annotations
+
+import sys
+
+USAGE = ("usage: python -m masters_thesis_tpu_torch {train,test} [-m] "
+         "[--device cpu] [key=value ...]")
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] not in ("train", "test"):
+        print(USAGE, file=sys.stderr)
+        return 2
+    if argv[0] == "train":
+        from masters_thesis_tpu_torch.cli.train import main as train_main
+
+        train_main(argv[1:])
+        return 0
+    from masters_thesis_tpu_torch.cli.test import main as test_main
+
+    return test_main(argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

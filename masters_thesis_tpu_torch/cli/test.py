@@ -1,0 +1,134 @@
+"""Evaluation driver: the port's counterpart of ``test.py``.
+
+    python -m masters_thesis_tpu_torch test checkpoint=<log_dir>/checkpoints
+    python -m masters_thesis_tpu_torch test checkpoint=<...>/checkpoints/best
+    python -m masters_thesis_tpu_torch test --device cpu checkpoint=...
+
+Restores a checkpoint of the port (the root picks ``best``; a tag path
+names one), windows the data as the checkpoint was trained (its datamodule
+sidecar), compares model against OLS against ground truth on the test split
+(``collect_test_results``), and prints the thesis's ΔL table
+(``delta_losses``): the model's row and the lookback-OLS row, in
+``test.py``'s format. It writes ``results.json`` (the ΔL table and the
+test-split metrics of ``Trainer.test``) and ``results.npz`` (the arrays of
+``collect_test_results``, keyed ``<quantity>/<source>``) into the run's log
+dir, and logs the ΔL scalars there (``metrics.jsonl``). ``test.py``'s
+figures are not drawn: the card's machine has no matplotlib. A JAX package
+(orbax) checkpoint is refused.
+
+It runs on CUDA unless given ``--device cpu``, and raises without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from masters_thesis_tpu_torch.cli.train import (
+    bootstrap,
+    build_datamodule,
+    check_data_supported,
+    compose_config,
+)
+from masters_thesis_tpu_torch.config import Config
+
+
+def derive_logger_dirs(checkpoint: Path, cfg: Config) -> tuple[str, str, str]:
+    """Recover (save_dir, name, version) from the checkpoint path layout
+    ``<save_dir>/<name...>/<version>/checkpoints[/tag]``."""
+    parts = list(Path(checkpoint).resolve().parts)
+    if "checkpoints" in parts:
+        i = parts.index("checkpoints")
+        version = parts[i - 1]
+        save_root = Path(cfg.logger.save_dir).resolve()
+        try:
+            # name = whatever sits between save_dir and version
+            rel = Path(*parts[: i - 1]).relative_to(save_root)
+            return str(save_root), str(rel), version
+        except ValueError:
+            pass
+    return cfg.logger.save_dir, cfg.logger.name, cfg.logger.version
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(value)
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m masters_thesis_tpu_torch test",
+        description=__doc__.split("\n\n")[0],
+    )
+    parser.add_argument("overrides", nargs="*", help="key=value config overrides")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu")
+    args = parser.parse_intermixed_args(argv)
+    cfg = compose_config(args.overrides)
+    if not cfg.checkpoint:
+        print("No model checkpoint found, exiting...", file=sys.stderr)
+        return 1
+
+    from masters_thesis_tpu_torch import resolve_device
+    from masters_thesis_tpu_torch.evaluation import (
+        collect_test_results,
+        delta_losses,
+    )
+    from masters_thesis_tpu_torch.train.checkpoint import (
+        apply_datamodule_sidecar,
+        restore_checkpoint,
+    )
+    from masters_thesis_tpu_torch.train.logging import RunLogger
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    check_data_supported(cfg)
+    state, _, spec, meta = restore_checkpoint(Path(cfg.checkpoint))
+    # Evaluate on the SAME windowing the checkpoint was trained with.
+    apply_datamodule_sidecar(cfg, meta)
+    bootstrap(cfg)
+    dm = build_datamodule(cfg)
+    dm.prepare_data()
+
+    results = collect_test_results(spec, state, dm, device=device)
+    deltas = delta_losses(spec, state, dm, estimates=results, device=device)
+    metrics = Trainer(max_epochs=0, device=device).test(spec, state, dm)
+
+    save_dir, name, version = derive_logger_dirs(Path(cfg.checkpoint), cfg)
+    logger = RunLogger(save_dir, name, version)
+    # Thesis results-table metrics: losses above the OLS-on-target
+    # baseline (ΔL_MSE ×1e-5, ΔL_NLL, ΔL_MIX at ζ=1e5), model and
+    # lookback-OLS rows.
+    scalars = {}
+    for key in ("model", "ols"):
+        d = deltas[key]
+        scalars.update({
+            f"delta/{key}/mse": d["delta_mse"],
+            f"delta/{key}/nll": d["delta_nll"],
+            f"delta/{key}/mix": d["delta_mix"],
+        })
+        print(
+            f"{key:>6}: dL_MSE(x1e-5)={d['delta_mse'] * 1e5:7.3f}  "
+            f"dL_NLL={d['delta_nll']:7.3f}  "
+            f"dL_MIX(zeta=1e5)={d['delta_mix']:7.3f}",
+            flush=True,
+        )
+    logger.log_scalars(scalars, 0)
+    logger.close()
+    (logger.log_dir / "results.json").write_text(json.dumps(
+        {"checkpoint": str(cfg.checkpoint), "delta_losses": deltas,
+         "test": metrics},
+        indent=2,
+    ))
+    np.savez(logger.log_dir / "results.npz", **_flatten(results))
+    print(f"results written to {logger.log_dir}", flush=True)
+    return 0

@@ -1,0 +1,349 @@
+"""Training driver: the port's counterpart of ``train.py``.
+
+    python -m masters_thesis_tpu_torch train                        # defaults
+    python -m masters_thesis_tpu_torch train model=large loss=nll   # groups
+    python -m masters_thesis_tpu_torch train model.learning_rate=1e-3
+    python -m masters_thesis_tpu_torch train -m model.learning_rate=1e-3,1e-4
+    python -m masters_thesis_tpu_torch train --device cpu ...       # no card
+
+It composes ``configs/`` with the port's own composer, bootstraps the data,
+builds the data module and the model spec, trains with the port's
+``Trainer`` (best/last checkpoints under ``<log_dir>/checkpoints``), tests,
+logs the hparams with the test metrics, prints ``train.py``'s ``done:`` line
+and returns the best val loss. ``checkpoint=`` with ``checkpoint_mode=full``
+(weights and FlatAdam state; the checkpoint's spec wins) or ``params``
+(weights only, a fresh optimizer, the config's spec: the warm-up protocol)
+starts from a checkpoint; ``trainer.resume`` continues from ``last``. ``-m``
+runs the sweep's jobs one after another in this process, each in its
+numbered job dir (Hydra's multirun layout).
+
+It runs on CUDA unless given ``--device cpu``, and raises without a card. A
+config key the port cannot honour raises and names the key
+(:func:`check_supported`); a key that only turns on observation (telemetry,
+profiling, preflight, the hang watchdog) is ignored with one printed line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+from pathlib import Path
+
+from masters_thesis_tpu_torch.config import (
+    Config,
+    compose,
+    expand_multirun,
+    register_resolver,
+    to_flat_dict,
+)
+from masters_thesis_tpu_torch.config import yaml_subset
+
+CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
+
+# trainer keys that only turn on observation (telemetry, cost model,
+# profiler, preflight audit, hang watchdog): the port has none of it yet.
+OBSERVATION_KEYS = ("telemetry", "cost_profile", "profile", "profile_steps",
+                    "hang_timeout_s", "preflight")
+
+
+def register_resolvers() -> None:
+    """The derived-config resolvers of ``train.py``."""
+    register_resolver(
+        "input_size_from_interaction",
+        lambda interaction: 3 if interaction else 5,
+    )
+    # Features [r_stock, f_1..f_K, r_stock*f_k...] (2K+1) with
+    # interaction_only, plus the squared channels (3K+2) otherwise.
+    register_resolver(
+        "input_size_from_factors",
+        lambda interaction, n_factors: (
+            2 * int(n_factors) + 1 if interaction else 3 * int(n_factors) + 2
+        ),
+    )
+
+
+def compose_config(overrides: list[str]) -> Config:
+    """``configs/config.yaml`` composed with ``overrides``."""
+    register_resolvers()
+    return compose(CONFIG_DIR, overrides=overrides)
+
+
+def _refuse(key: str, value, why: str) -> None:
+    raise ValueError(f"{key}={value}: {why}; masters_thesis_tpu_torch cannot "
+                     "honour it yet")
+
+
+def check_data_supported(cfg: Config) -> None:
+    """Raise, naming the key, where the data config asks for what the port's
+    data module does not do."""
+    d = cfg.datamodule
+    if "n_stocks" not in d:
+        _refuse("datamodule", d.get("name"), "the real-data (Fama-French CSV) "
+                "loader is not ported; use datamodule=synthetic")
+    if d.get("n_factors", 1) != 1:
+        _refuse("datamodule.n_factors", d.n_factors,
+                "K-factor data is not ported (1 only)")
+    if d.get("store_shards") is not None:
+        _refuse("datamodule.store_shards", d.store_shards,
+                "the on-disk window store is not ported (null only)")
+    if d.get("engine", "auto") == "native":
+        _refuse("datamodule.engine", d.engine,
+                "the C++ window engine is not ported (auto or python)")
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise, naming the key, for every config value the port cannot
+    honour; nothing is dropped silently."""
+    check_data_supported(cfg)
+    t = cfg.trainer
+    if t.get("precision", "32-true") != "32-true":
+        _refuse("trainer.precision", t.precision, "the port trains in f32 "
+                "only (32-true)")
+    if (t.get("n_devices") or 1) > 1:
+        _refuse("trainer.n_devices", t.n_devices, "the port trains on one "
+                "device")
+    if t.get("strategy", "auto") not in ("auto", "single_device"):
+        _refuse("trainer.strategy", t.strategy, "the port trains on one "
+                "device (auto or single_device)")
+    if t.get("distributed", False):
+        _refuse("trainer.distributed", t.distributed, "multi-host training "
+                "is not ported")
+    if t.get("epoch_mode", "scan") != "scan":
+        _refuse("trainer.epoch_mode", t.epoch_mode, "only the device-resident "
+                "scan epoch is ported")
+    if t.get("shard_axis", "window") != "window":
+        _refuse("trainer.shard_axis", t.shard_axis, "asset sharding is not "
+                "ported")
+    m = cfg.model
+    if m.get("kernel_impl", "auto") != "auto":
+        _refuse("model.kernel_impl", m.kernel_impl, "the port picks its "
+                "kernels itself (auto only)")
+    if m.get("n_factors", 1) != 1:
+        _refuse("model.n_factors", m.n_factors, "K-factor models are not "
+                "ported (1 only)")
+
+
+def check_launcher(cfg: Config) -> None:
+    """Raise for a multirun launcher setting other than one sequential
+    process."""
+    launcher = cfg.launcher
+    if launcher.get("name", "sequential") != "sequential":
+        _refuse("launcher", launcher.name, "only the sequential launcher is "
+                "ported")
+    if int(launcher.get("n_jobs", 1)) > 1:
+        _refuse("launcher.n_jobs", launcher.n_jobs, "jobs run one after "
+                "another in one process")
+    num_hosts = int(os.environ.get("MT_NUM_HOSTS",
+                                   launcher.get("num_hosts", 1)))
+    if num_hosts > 1:
+        _refuse("launcher.num_hosts", num_hosts, "multi-host sweeps are not "
+                "ported")
+
+
+def report_ignored(cfg: Config) -> None:
+    """One line for each observation key that is set."""
+    for key in OBSERVATION_KEYS:
+        value = cfg.trainer.get(key)
+        if value:
+            print(f"note: trainer.{key}={value} only turns on observation, "
+                  "which masters_thesis_tpu_torch does not have; ignored",
+                  flush=True)
+
+
+def bootstrap(cfg: Config) -> None:
+    """Generate the synthetic source arrays of the selected data module
+    unless they are there (the DGP's seed is ``dgp_seed``, not ``seed``, so
+    a seed sweep shares one dataset)."""
+    from masters_thesis_tpu_torch.data.pipeline import bootstrap_synthetic
+
+    d = cfg.datamodule
+    bootstrap_synthetic(
+        Path(d.data_dir),
+        n_stocks=d.n_stocks,
+        n_samples=d.n_samples,
+        seed=d.get("dgp_seed", 0),
+        variant=d.get("dgp_variant", "no_outliers"),
+    )
+
+
+def build_datamodule(cfg: Config):
+    from masters_thesis_tpu_torch.data.pipeline import FinancialWindowDataModule
+
+    d = cfg.datamodule
+    return FinancialWindowDataModule(
+        Path(d.data_dir),
+        lookback_window=d.lookback_window,
+        target_window=d.target_window,
+        stride=d.stride,
+        prediction_task=d.prediction_task,
+        interaction_only=d.interaction_only,
+        batch_size=d.batch_size,
+    )
+
+
+def build_spec(cfg: Config):
+    """Model registry lookup + hparams."""
+    from masters_thesis_tpu_torch.models.objectives import get_model_spec
+
+    hparams = dict(
+        input_size=cfg.model.input_size,
+        hidden_size=cfg.model.hidden_size,
+        num_layers=cfg.model.num_layers,
+        dropout=cfg.model.dropout,
+        n_factors=cfg.model.get("n_factors", 1),
+        learning_rate=cfg.model.learning_rate,
+        weight_decay=cfg.model.weight_decay,
+        remat=cfg.model.get("remat", False),
+    )
+    if "mse_weight" in cfg.loss:
+        hparams["mse_weight"] = cfg.loss.mse_weight
+    return get_model_spec(cfg.loss.module_class, **hparams)
+
+
+def _init_state(cfg: Config, spec):
+    """``(spec, init_state)`` for ``Trainer.fit`` from ``cfg.checkpoint``
+    and ``cfg.checkpoint_mode``."""
+    from masters_thesis_tpu_torch.train.checkpoint import restore_checkpoint
+
+    mode = cfg.get("checkpoint_mode", "full")
+    if mode not in ("full", "params"):
+        raise ValueError(
+            f"checkpoint_mode must be 'full' or 'params', got {mode!r}"
+        )
+    state, opt_state, ckpt_spec, _ = restore_checkpoint(Path(cfg.checkpoint))
+    if mode == "full":
+        # Exact continuation: the checkpoint's spec (objective, lr, ...) wins.
+        return ckpt_spec, (state, opt_state)
+    # 'params' = the warm-up protocol: reuse the weights with a fresh
+    # optimizer, and the config keeps deciding the objective, lr and
+    # dropout. Only the weight shapes must match the checkpoint.
+    if (ckpt_spec.hidden_size, ckpt_spec.num_layers) != (
+        spec.hidden_size, spec.num_layers,
+    ):
+        raise ValueError(
+            "checkpoint_mode=params needs a matching architecture: "
+            f"checkpoint is hidden={ckpt_spec.hidden_size}/"
+            f"layers={ckpt_spec.num_layers}, config asks "
+            f"hidden={spec.hidden_size}/layers={spec.num_layers}"
+        )
+    return spec, (state, None)
+
+
+def run(cfg: Config, device=None) -> float:
+    """One training run; returns the best validation loss."""
+    from masters_thesis_tpu_torch import resolve_device
+    from masters_thesis_tpu_torch.train.logging import RunLogger
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    device = resolve_device(device)
+    check_supported(cfg)
+    report_ignored(cfg)
+    bootstrap(cfg)
+    dm = build_datamodule(cfg)
+    spec = build_spec(cfg)
+
+    logger = RunLogger(cfg.logger.save_dir, cfg.logger.name, cfg.logger.version)
+    t = cfg.trainer
+    resume = t.get("resume", False)
+    if isinstance(resume, str):
+        # 'auto' (the supervised-run setting) and true both mean "continue
+        # from <ckpt_dir>/last when it is there".
+        resume = resume.lower() in ("true", "auto", "1", "yes")
+    trainer = Trainer(
+        max_epochs=t.max_epochs,
+        gradient_clip_val=t.gradient_clip_val,
+        check_val_every_n_epoch=t.get("check_val_every_n_epoch", 1),
+        ckpt_dir=logger.log_dir / "checkpoints",
+        seed=cfg.seed,
+        device=device,
+        logger=logger,
+        resume=resume,
+        checkpoint_every_n_epochs=cfg.get("resilience", {}).get(
+            "checkpoint_every_n_epochs", None
+        ),
+        enable_progress_bar=t.get("enable_progress_bar", True),
+        enable_model_summary=t.get("enable_model_summary", True),
+    )
+    init_state = None
+    if cfg.checkpoint:
+        spec, init_state = _init_state(cfg, spec)
+
+    result = trainer.fit(spec, dm, init_state=init_state)
+    test_metrics = trainer.test(spec, result.state, dm)
+    logger.log_hparams(
+        to_flat_dict(cfg),
+        {
+            "test/mae": test_metrics.get("mae", float("nan")),
+            "test/nll": test_metrics.get("nll", float("nan")),
+            "test/best_val_loss": result.best_val_loss,
+        },
+    )
+    logger.close()
+    print(
+        f"done: best_val={result.best_val_loss:.6g} "
+        f"test_mae={test_metrics.get('mae', float('nan')):.6g} "
+        f"test_nll={test_metrics.get('nll', float('nan')):.6g} "
+        f"steps/sec={result.steps_per_sec:.1f}",
+        flush=True,
+    )
+    return result.best_val_loss
+
+
+def _write_job_metadata(job_dir: Path, cfg: Config, overrides: list[str]):
+    """Hydra-style per-job metadata: .hydra/config.yaml + overrides.yaml."""
+    meta_dir = job_dir / ".hydra"
+    meta_dir.mkdir(parents=True, exist_ok=True)
+    (meta_dir / "config.yaml").write_text(yaml_subset.dump(cfg))
+    (meta_dir / "overrides.yaml").write_text(yaml_subset.dump(list(overrides)))
+
+
+def _run_job(overrides: list[str], job_index: int | None = None,
+             sweep_dir: str | None = None, device=None) -> float:
+    cfg = compose_config(overrides)
+    if job_index is not None:
+        if sweep_dir is not None and not Path(cfg.logger.save_dir).is_absolute():
+            # Hydra's multirun layout: each sweep point owns a numbered job
+            # dir <sweep_dir>/<job_idx>/ with its logs, checkpoints and
+            # .hydra metadata.
+            job_dir = Path(sweep_dir) / str(job_index)
+            cfg.logger["save_dir"] = str(job_dir / cfg.logger.save_dir)
+            _write_job_metadata(job_dir, cfg, overrides)
+        else:
+            # An absolute save_dir pins the output location; a version
+            # suffix still gives every sweep point its own log dir.
+            cfg.logger["version"] = f"{cfg.logger.version}_job{job_index}"
+    return run(cfg, device=device)
+
+
+def main(argv: list[str] | None = None) -> None:
+    parser = argparse.ArgumentParser(
+        prog="python -m masters_thesis_tpu_torch train",
+        description=__doc__.split("\n\n")[0],
+    )
+    parser.add_argument("overrides", nargs="*", help="key=value config overrides")
+    parser.add_argument(
+        "-m", "--multirun", action="store_true",
+        help="expand comma-separated override values into a sweep",
+    )
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu")
+    args = parser.parse_intermixed_args(argv)
+
+    if not args.multirun:
+        _run_job(args.overrides, device=args.device)
+        return
+
+    jobs = expand_multirun(args.overrides)
+    cfg0 = compose_config(jobs[0])
+    check_launcher(cfg0)
+    # Numbered sweep output root (Hydra's multirun/<date>/<time>); pin it
+    # with launcher.sweep_dir or MT_SWEEP_DIR.
+    sweep_dir = os.environ.get("MT_SWEEP_DIR") or cfg0.launcher.get("sweep_dir")
+    if not sweep_dir:
+        now = datetime.datetime.now()
+        sweep_dir = f"multirun/{now:%Y-%m-%d}/{now:%H-%M-%S}"
+    print(f"multirun: {len(jobs)} jobs, n_jobs=1", flush=True)
+    for i, ov in enumerate(jobs):
+        print(f"--- job {i}: {ov}", flush=True)
+        _run_job(ov, job_index=i, sweep_dir=sweep_dir, device=args.device)

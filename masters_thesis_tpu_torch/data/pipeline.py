@@ -48,9 +48,11 @@ def bootstrap_synthetic(
     n_stocks: int = 100,
     n_samples: int = 1_000_000,
     seed: int = 0,
+    variant: str = "no_outliers",
 ) -> None:
-    """Generate and save the synthetic market history (the DGP's default
-    ``no_outliers`` variant) if not already there.
+    """Generate and save the synthetic market history of the DGP's
+    ``variant`` (``no_outliers``, the reference's, or ``outliers``) if not
+    already there.
 
     ``stocks.npy``, ``market.npy``, ``alphas.npy`` and ``betas.npy`` are
     written first, then the ``dgp.json`` sidecar with the generation
@@ -61,7 +63,7 @@ def bootstrap_synthetic(
     data_dir = Path(data_dir)
     requested = {
         "n_stocks": n_stocks, "n_samples": n_samples, "seed": seed,
-        "variant": "no_outliers",
+        "variant": variant,
     }
     meta_file = data_dir / "dgp.json"
     if meta_file.exists():
@@ -81,7 +83,7 @@ def bootstrap_synthetic(
         )
     data_dir.mkdir(parents=True, exist_ok=True)
     r_stocks, r_market, alphas, betas = SyntheticLogReturns.generate(
-        n_stocks, n_samples, seed
+        n_stocks, n_samples, seed, variant
     )
     for name, arr in (("stocks.npy", r_stocks), ("market.npy", r_market),
                       ("alphas.npy", alphas), ("betas.npy", betas)):

@@ -5,17 +5,28 @@ Counterpart of ``Trainer`` and ``TrainResult`` in
 one device-resident epoch (``train_epoch``), one host read of its metric
 sums; every ``check_val_every_n_epoch`` epochs an evaluation of the val
 split, a ``PlateauScheduler`` step on its loss, a ``best`` checkpoint when it
-improves and a ``last`` one; ``last`` again at the end. History rows use the
+improves and a ``last`` one; ``last`` also every
+``checkpoint_every_n_epochs`` epochs and at the end. History rows use the
 JAX trainer's keys (``loss/<metric>/train``, ``loss/<metric>/val``,
-``lr-Adam``); the trainer prints nothing, the caller reads them from
-``TrainResult.history``. The stream epoch mode, prefetch, resume, the
-divergence halt, telemetry, the profiler window, preflight, bf16,
-multi-device and stacked training are not ported.
+``lr-Adam``), go to the logger, and with ``enable_progress_bar`` print as
+the JAX trainer's ``epoch N | ...`` lines.
+
+As in the JAX trainer: ``fit(init_state=)`` starts from given weights (and
+optimizer state); ``resume`` continues from ``last`` at its epoch + 1 with
+its weights, FlatAdam state, scheduler and best val; a non-finite epoch
+loss halts the run before anything is saved from it, so ``last`` keeps the
+last finite weights. Each epoch's shuffle and dropout masks come from a
+generator seeded by ``(seed, epoch)``, the counterpart of
+``jax.random.fold_in(dropout_rng, epoch)``: a resumed run draws what an
+unbroken one draws. The stream epoch mode, prefetch, telemetry, the
+profiler window, preflight, bf16, multi-device and stacked training are not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import warnings
 from pathlib import Path
@@ -50,6 +61,13 @@ def device_split(arrays: Batch, device) -> Batch:
                    for a in arrays))
 
 
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The seed of epoch ``epoch``'s generator: a function of ``(seed,
+    epoch)`` only."""
+    return int(np.random.SeedSequence([seed & 0xFFFFFFFF, epoch])
+               .generate_state(1)[0])
+
+
 class Trainer:
     def __init__(
         self,
@@ -59,6 +77,11 @@ class Trainer:
         ckpt_dir: str | Path | None = None,
         seed: int = 0,
         device=None,
+        logger=None,
+        resume: bool = False,
+        checkpoint_every_n_epochs: int | None = None,
+        enable_progress_bar: bool = False,
+        enable_model_summary: bool = False,
     ):
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
@@ -66,9 +89,14 @@ class Trainer:
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
         self.seed = seed
         self.device = resolve_device(device)
-
-    def _generator(self, offset: int = 0) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(self.seed + offset)
+        self.logger = logger
+        self.resume = resume
+        self.checkpoint_every_n_epochs = (
+            max(1, int(checkpoint_every_n_epochs))
+            if checkpoint_every_n_epochs else None
+        )
+        self.enable_progress_bar = enable_progress_bar
+        self.enable_model_summary = enable_model_summary
 
     def build(self, spec: ModelSpec):
         """The encoder with its seeded initial weights, on the device."""
@@ -76,15 +104,40 @@ class Trainer:
         return spec.build_module(device=self.device, generator=init)
 
     def fit(self, spec: ModelSpec, dm: FinancialWindowDataModule,
-            module=None) -> TrainResult:
-        """Train ``module`` (default: ``build(spec)``) on ``dm``'s train
-        split, validating on its val split."""
+            init_state: tuple[dict, dict | None] | None = None) -> TrainResult:
+        """Train on ``dm``'s train split, validating on its val split.
+
+        ``init_state=(state_dict, opt_state)`` starts from those weights and
+        that FlatAdam state; ``(state_dict, None)`` warm-starts the weights
+        with a fresh optimizer. Either way the scheduler is fresh and
+        training starts at epoch 0. Without it, the weights are
+        ``build(spec)``'s.
+        """
         dm.prepare_data()
         dm.setup("fit")
-        module = self.build(spec) if module is None else module
+        module = self.build(spec)
+        if init_state is not None:
+            module.load_state_dict(init_state[0])
         optimizer = make_optimizer(module, self.gradient_clip_val,
                                    spec.weight_decay)
+        if init_state is not None and init_state[1] is not None:
+            optimizer.load_state_dict(init_state[1])
+        if self.enable_model_summary:
+            n_params = sum(p.numel() for p in module.parameters())
+            self._print(f"model: {spec.objective} | params: {n_params:,} "
+                        f"| device: {self.device}")
         scheduler = PlateauScheduler(spec.learning_rate)
+        start_epoch, best_val = 0, float("inf")
+        if self.resume and self.ckpt_dir and (self.ckpt_dir / "last.pt").is_file():
+            state, opt_state, sched_state, meta = ckpt_lib.load_checkpoint(
+                self.ckpt_dir, "last")
+            module.load_state_dict(state)
+            optimizer.load_state_dict(opt_state)
+            scheduler.load_state_dict(sched_state)
+            start_epoch = int(meta["epoch"]) + 1
+            best_val = float(meta["best_val"])
+            self._print(f"resuming from {self.ckpt_dir / 'last'} at epoch "
+                        f"{start_epoch}")
         objective = spec.window_objective()
         train = device_split(dm.train_arrays(), self.device)
         val = device_split(dm.val_arrays(), self.device)
@@ -92,23 +145,30 @@ class Trainer:
         if not has_val:
             warnings.warn("val split is empty — LR plateau scheduling is "
                           "inactive and 'best' is the final checkpoint")
-        # One generator drives the epoch shuffles and the dropout masks.
-        generator = self._generator()
         history: list[dict] = []
-        best_val = float("inf")
-        steady_steps, steady_s, total_steps = 0, 0.0, 0
-        for epoch in range(self.max_epochs):
+        diverged = False
+        steady_steps, steady_s = 0, 0.0
+        for epoch in range(start_epoch, self.max_epochs):
             row = {"epoch": epoch, "lr-Adam": scheduler.lr}
             t0 = time.perf_counter()
             sums, n_steps = train_epoch(module, optimizer, objective, train,
-                                        dm.batch_size, scheduler.lr, generator)
+                                        dm.batch_size, scheduler.lr,
+                                        self._epoch_generator(epoch))
             row.update({f"loss/{k}/train": v
                         for k, v in metric_means(sums).items()})
             elapsed = time.perf_counter() - t0  # the read above synchronised
-            total_steps += n_steps
-            if epoch > 0 or self.max_epochs == 1:
+            if epoch > start_epoch or self.max_epochs - start_epoch == 1:
                 steady_steps += n_steps
                 steady_s += elapsed
+            if not math.isfinite(row["loss/total/train"]):
+                # Divergence halts the run before anything is saved from
+                # it; the poisoned row is still logged, so the curve shows
+                # why it ends.
+                self._emit(row, history)
+                self._print(f"epoch {epoch}: non-finite training loss "
+                            f"({row['loss/total/train']}); halting (diverged)")
+                diverged = True
+                break
             if has_val and (epoch + 1) % self.check_val_every_n_epoch == 0:
                 val_metrics = metric_means(
                     evaluate(module, objective, val, EVAL_CHUNK))
@@ -118,16 +178,21 @@ class Trainer:
                 if val_loss < best_val:
                     best_val = val_loss
                     self._save("best", module, optimizer, scheduler, epoch,
-                               val_loss, best_val, dm)
+                               val_loss, best_val, dm, spec)
                 self._save("last", module, optimizer, scheduler, epoch,
-                           val_loss, best_val, dm)
-            history.append(row)
-        if not has_val and history:
+                           val_loss, best_val, dm, spec)
+            elif (self.checkpoint_every_n_epochs
+                  and (epoch + 1) % self.checkpoint_every_n_epochs == 0):
+                self._save("last", module, optimizer, scheduler, epoch,
+                           row["loss/total/train"], best_val, dm, spec)
+            self._emit(row, history)
+        if not has_val and history and not diverged:
             best_val = history[-1]["loss/total/train"]
             self._save("best", module, optimizer, scheduler,
-                       self.max_epochs - 1, best_val, best_val, dm)
-        self._save("last", module, optimizer, scheduler, self.max_epochs - 1,
-                   best_val, best_val, dm)
+                       self.max_epochs - 1, best_val, best_val, dm, spec)
+        if not diverged:
+            self._save("last", module, optimizer, scheduler,
+                       self.max_epochs - 1, best_val, best_val, dm, spec)
         steps_per_sec = steady_steps / steady_s if steady_s > 0 else 0.0
         return TrainResult(
             state={k: v.detach().cpu().clone()
@@ -149,11 +214,34 @@ class Trainer:
         test = device_split(dm.test_arrays(), self.device)
         if test.x.shape[0] == 0:
             return {}
-        return metric_means(evaluate(module, spec.window_objective(), test,
-                                     EVAL_CHUNK))
+        metrics = metric_means(evaluate(module, spec.window_objective(), test,
+                                        EVAL_CHUNK))
+        if self.logger:
+            self.logger.log_scalars({f"test/{k}": v for k, v in metrics.items()},
+                                    0)
+        return metrics
+
+    def _epoch_generator(self, epoch: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            epoch_seed(self.seed, epoch))
+
+    def _emit(self, row: dict, history: list) -> None:
+        if self.logger:
+            self.logger.log_scalars(
+                {k: v for k, v in row.items() if k != "epoch"}, row["epoch"])
+        history.append(row)
+        self._print(
+            f"epoch {row['epoch']:4d} | "
+            + " | ".join(f"{k.split('/')[1]}/{k.split('/')[2]} {v:.5g}"
+                         for k, v in row.items() if k.startswith("loss/"))
+        )
+
+    def _print(self, msg: str) -> None:
+        if self.enable_progress_bar:
+            print(msg, flush=True)
 
     def _save(self, tag, module, optimizer, scheduler, epoch, val_loss,
-              best_val, dm) -> None:
+              best_val, dm, spec) -> None:
         if not self.ckpt_dir:
             return
         ckpt_lib.save_checkpoint(
@@ -172,4 +260,5 @@ class Trainer:
                     "batch_size": dm.batch_size,
                 },
             },
+            spec=spec,
         )

@@ -772,3 +772,32 @@ def test_time_blocked_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="outside the kernels' range"):
         lk.lstm_tb_bwd_cuda(big_h, big, big_h, big_h, big_w)
     assert lk.LAUNCHES == before
+
+
+def test_train_entry_point_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """``python -m masters_thesis_tpu_torch train`` at toy shape (4 stocks x
+    1,200 samples, lookback 10, target 5, H=8) on the card against the same
+    run with ``--device cpu``. Dropout 0 and batch_size the whole train split
+    (56 windows) make the epoch one step whatever the shuffle, so the first
+    epoch's train loss (the initial weights') and val loss (after one step
+    through the forward and backward kernels and FlatAdam) agree within
+    1e-5 relative."""
+    from masters_thesis_tpu_torch.cli.train import main as train_main
+    from masters_thesis_tpu_torch.train.logging import read_records
+
+    common = ["datamodule.n_stocks=4", "datamodule.n_samples=1200",
+              "datamodule.lookback_window=10", "datamodule.target_window=5",
+              "datamodule.stride=15", "datamodule.batch_size=56",
+              "model.hidden_size=8", "model.dropout=0.0",
+              "trainer.max_epochs=1", f"datamodule.data_dir={tmp_path / 'data'}",
+              f"logger.save_dir={tmp_path}"]
+    lk.reset_launch_counts()
+    train_main([*common, "logger.version=card"])
+    assert sum(lk.LAUNCHES.values()) > 0
+    train_main(["--device", "cpu", *common, "logger.version=cpu"])
+    rows = {}
+    for version in ("card", "cpu"):
+        records = read_records(tmp_path / "FinancialLstm" / "synthetic" / version)
+        rows[version] = [r for r in records if "lr-Adam" in r][0]
+    for key in ("loss/total/train", "loss/total/val"):
+        assert rows["card"][key] == pytest.approx(rows["cpu"][key], rel=1e-5)

@@ -33,6 +33,27 @@ def test_dgp_is_bitwise_the_jax_packages(variant):
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("variant", ["no_outliers", "outliers"])
+def test_bootstrap_is_bitwise_the_jax_packages(tmp_path, variant):
+    """Both bootstraps of a variant write the same arrays and the same
+    dgp.json; a directory made for one variant refuses the other."""
+    from masters_thesis_tpu.data.pipeline import bootstrap_synthetic as jax_boot
+    from masters_thesis_tpu_torch.data.pipeline import bootstrap_synthetic
+
+    jax_boot(tmp_path / "jax", n_stocks=5, n_samples=300, seed=2, variant=variant)
+    bootstrap_synthetic(tmp_path / "port", n_stocks=5, n_samples=300, seed=2,
+                        variant=variant)
+    for name in ("stocks.npy", "market.npy", "alphas.npy", "betas.npy"):
+        np.testing.assert_array_equal(np.load(tmp_path / "port" / name),
+                                      np.load(tmp_path / "jax" / name))
+    assert ((tmp_path / "port" / "dgp.json").read_text()
+            == (tmp_path / "jax" / "dgp.json").read_text())
+    other = "outliers" if variant == "no_outliers" else "no_outliers"
+    with pytest.raises(ValueError, match="holds a synthetic dataset"):
+        bootstrap_synthetic(tmp_path / "port", n_stocks=5, n_samples=300,
+                            seed=2, variant=other)
+
+
 def test_kfactor_dgp_is_bitwise_the_jax_packages():
     got = SyntheticKFactorReturns.generate(9, 200, n_factors=3, seed=4)
     want = JaxKFactor.generate(9, 200, n_factors=3, seed=4)

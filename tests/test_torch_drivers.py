@@ -1,0 +1,308 @@
+"""The port's drivers end to end on the CPU at toy shape: ``python -m
+masters_thesis_tpu_torch train`` then ``test``, checkpoint modes, the sweep
+layout, the refused config keys, resume and the divergence halt.
+
+Toy shape: 4 stocks x 1,200 samples of the synthetic DGP, lookback 10,
+target 5, stride 15 (56 train windows), H=8, 2 layers, dropout 0.2. The
+resumed run is held bit for bit against the unbroken one: the same weights,
+the same optimizer state, the same per-epoch draws.
+"""
+
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from masters_thesis_tpu_torch.__main__ import main as entry_main
+from masters_thesis_tpu_torch.cli import train as cli_train
+from masters_thesis_tpu_torch.cli import test as cli_test
+from masters_thesis_tpu_torch.cli.train import main as train_main
+from masters_thesis_tpu_torch.train import trainer as trainer_mod
+from masters_thesis_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    restore_checkpoint,
+)
+from masters_thesis_tpu_torch.train.logging import read_records
+
+REPO = Path(__file__).resolve().parent.parent
+RUN_DIR = ("FinancialLstm", "synthetic")
+TOY = [
+    "datamodule.n_stocks=4",
+    "datamodule.n_samples=1200",
+    "datamodule.lookback_window=10",
+    "datamodule.target_window=5",
+    "datamodule.stride=15",
+    "model.hidden_size=8",
+    "trainer.enable_progress_bar=false",
+]
+N_TRAIN = 56  # train windows of the toy shape (70% of 81)
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("data") / "toy"
+
+
+def _args(data_dir, save_dir, *extra):
+    return ["--device", "cpu", *TOY, f"datamodule.data_dir={data_dir}",
+            f"logger.save_dir={save_dir}", *extra]
+
+
+def _log_dir(save_dir, version):
+    return Path(save_dir, *RUN_DIR, version)
+
+
+def _epoch_rows(log_dir) -> list[dict]:
+    return [r for r in read_records(log_dir) if "lr-Adam" in r]
+
+
+def test_train_then_test_through_the_entry_point(data_dir, tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    train = subprocess.run(
+        [sys.executable, "-m", "masters_thesis_tpu_torch", "train",
+         *_args(data_dir, tmp_path, "trainer.max_epochs=2",
+                "trainer.enable_progress_bar=true", "logger.version=run")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert train.returncode == 0, train.stderr
+    lines = train.stdout.splitlines()
+    assert "note: trainer.telemetry=auto only turns on observation" in lines[0]
+    assert len([ln for ln in lines if ln.startswith("epoch ")]) == 2
+    done = re.fullmatch(r"done: best_val=(\S+) test_mae=(\S+) test_nll=(\S+) "
+                        r"steps/sec=(\S+)", lines[-1])
+    assert done and all(math.isfinite(float(v)) for v in done.groups())
+    log_dir = _log_dir(tmp_path, "run")
+    assert {p.name for p in (log_dir / "checkpoints").iterdir()} == {
+        "best.pt", "best.json", "last.pt", "last.json"}
+    rows = _epoch_rows(log_dir)
+    assert [r["step"] for r in rows] == [0, 1]
+    assert float(done.group(1)) == pytest.approx(
+        min(r["loss/total/val"] for r in rows), rel=1e-5)
+
+    test = subprocess.run(
+        [sys.executable, "-m", "masters_thesis_tpu_torch", "test",
+         *_args(data_dir, tmp_path, f"checkpoint={log_dir / 'checkpoints'}")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert test.returncode == 0, test.stderr
+    table = [ln for ln in test.stdout.splitlines() if "dL_MSE" in ln]
+    assert [ln.split(":")[0].strip() for ln in table] == ["model", "ols"]
+    for line in table:
+        values = re.search(r"dL_MSE\(x1e-5\)=\s*(\S+)\s+dL_NLL=\s*(\S+)\s+"
+                           r"dL_MIX\(zeta=1e5\)=\s*(\S+)$", line).groups()
+        assert all(math.isfinite(float(v)) for v in values)
+    results = json.loads((log_dir / "results.json").read_text())
+    assert set(results["test"]) == {"mse", "nll", "mae", "total"}
+    numbers = [v for key in ("model", "ols")
+               for v in results["delta_losses"][key].values()]
+    numbers += list(results["test"].values())
+    assert all(math.isfinite(v) for v in numbers)
+    with np.load(log_dir / "results.npz") as arrays:
+        assert arrays["alpha/model"].shape == (len(arrays["alpha/true"]), 4)
+        assert {"recon_residuals/model", "beta/ols", "beta_residuals/model"} \
+            <= set(arrays.files)
+
+
+def test_test_driver_takes_a_tag_path_and_refuses_orbax(data_dir, tmp_path,
+                                                         capsys):
+    train_main(_args(data_dir, tmp_path, "trainer.max_epochs=1",
+                     "logger.version=run"))
+    ckpt = _log_dir(tmp_path, "run") / "checkpoints"
+    capsys.readouterr()
+    assert cli_test.main(_args(data_dir, tmp_path, f"checkpoint={ckpt / 'best'}")) == 0
+    root_table = capsys.readouterr().out
+    assert cli_test.main(_args(data_dir, tmp_path, f"checkpoint={ckpt}")) == 0
+    assert capsys.readouterr().out == root_table
+    # The JAX package's layout: <root>/best/ an orbax tree, best.json beside.
+    orbax = tmp_path / "orbax" / "checkpoints"
+    (orbax / "best").mkdir(parents=True)
+    (orbax / "best.json").write_text("{}")
+    for path in (orbax, orbax / "best"):
+        with pytest.raises(ValueError, match="orbax checkpoint of the JAX package"):
+            cli_test.main(_args(data_dir, tmp_path, f"checkpoint={path}"))
+    assert cli_test.main(["--device", "cpu"]) == 1  # no checkpoint= given
+
+
+def test_entry_points_need_cuda_unless_told_cpu(monkeypatch, data_dir, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _args(data_dir, tmp_path)[2:]  # without --device cpu
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_test.main(args + [f"checkpoint={tmp_path}"])
+    assert not (tmp_path / RUN_DIR[0]).exists()
+    assert entry_main([]) == 2 and entry_main(["serve"]) == 2
+
+
+def _run(data_dir, save_dir, version, *extra):
+    train_main(_args(data_dir, save_dir, f"logger.version={version}", *extra))
+    return _log_dir(save_dir, version)
+
+
+@pytest.mark.parametrize("mode", ["full", "params"])
+def test_checkpoint_modes(data_dir, tmp_path, mode):
+    first = _run(data_dir, tmp_path, "first", "trainer.max_epochs=2")
+    _, first_opt, _, _ = load_checkpoint(first / "checkpoints", "last")
+    assert first_opt["count"] == 2 * N_TRAIN
+    second = _run(data_dir, tmp_path, "second", "trainer.max_epochs=1",
+                  "loss=nll", f"checkpoint={first / 'checkpoints' / 'last'}",
+                  f"checkpoint_mode={mode}")
+    state, opt_state, spec, meta = restore_checkpoint(second / "checkpoints", "last")
+    if mode == "full":
+        # The FlatAdam state goes on from the checkpoint's; its spec wins.
+        assert opt_state["count"] == 3 * N_TRAIN and spec.objective == "mse"
+    else:
+        # A fresh optimizer; the config decides the objective.
+        assert opt_state["count"] == N_TRAIN and spec.objective == "nll"
+    assert meta["epoch"] == 0 and meta["scheduler"]["lr"] == spec.learning_rate
+
+
+def test_warm_start_needs_a_matching_architecture(data_dir, tmp_path):
+    first = _run(data_dir, tmp_path, "first", "trainer.max_epochs=1")
+    with pytest.raises(ValueError) as info:
+        _run(data_dir, tmp_path, "second", "model.hidden_size=16",
+             f"checkpoint={first / 'checkpoints'}", "checkpoint_mode=params")
+    assert str(info.value) == (
+        "checkpoint_mode=params needs a matching architecture: checkpoint is "
+        "hidden=8/layers=2, config asks hidden=16/layers=2")
+    with pytest.raises(ValueError, match="checkpoint_mode must be"):
+        _run(data_dir, tmp_path, "third", f"checkpoint={first / 'checkpoints'}",
+             "checkpoint_mode=weights")
+
+
+def test_multirun_writes_numbered_job_dirs(data_dir, tmp_path):
+    sweep = tmp_path / "sweep"
+    train_main(["-m", "--device", "cpu", *TOY, f"datamodule.data_dir={data_dir}",
+                "trainer.max_epochs=1", "model.learning_rate=1e-3,1e-4",
+                f"launcher.sweep_dir={sweep}"])
+    assert sorted(p.name for p in sweep.iterdir()) == ["0", "1"]
+    for index, lr in ((0, 0.001), (1, 0.0001)):
+        job = sweep / str(index)
+        cfg = yaml.safe_load((job / ".hydra" / "config.yaml").read_text())
+        overrides = yaml.safe_load((job / ".hydra" / "overrides.yaml").read_text())
+        assert cfg["model"]["learning_rate"] == lr
+        assert overrides[-3:] == ["trainer.max_epochs=1",
+                                  f"model.learning_rate={['1e-3', '1e-4'][index]}",
+                                  f"launcher.sweep_dir={sweep}"]
+        version = f"mse_small_lr{lr}_fast"
+        assert cfg["logger"] == {"save_dir": str(job / "logs"),
+                                 "name": "FinancialLstm/synthetic",
+                                 "version": version}
+        assert (_log_dir(job / "logs", version) / "checkpoints" / "best.pt").is_file()
+
+
+REFUSED = [
+    ("trainer.precision", ["trainer.precision=bf16-mixed"]),
+    ("trainer.n_devices", ["+trainer.n_devices=2"]),
+    ("trainer.strategy", ["trainer.strategy=tpu_xla"]),
+    ("trainer.distributed", ["trainer.distributed=true"]),
+    ("trainer.epoch_mode", ["trainer.epoch_mode=stream"]),
+    ("trainer.shard_axis", ["trainer.shard_axis=asset"]),
+    ("datamodule.n_factors", ["datamodule.n_factors=3"]),
+    ("datamodule.store_shards", ["datamodule.store_shards=8"]),
+    ("datamodule.engine", ["datamodule.engine=native"]),
+    ("datamodule", ["datamodule=real"]),
+    ("model.kernel_impl", ["model.kernel_impl=pallas"]),
+    ("model.n_factors", ["model=kfactor", "model.n_factors=2"]),
+    ("launcher", ["-m", "launcher=joblib"]),
+    ("launcher.n_jobs", ["-m", "launcher.n_jobs=2"]),
+    ("launcher.num_hosts", ["-m", "launcher.num_hosts=2"]),
+]
+
+
+@pytest.mark.parametrize("key,overrides", REFUSED, ids=[k for k, _ in REFUSED])
+def test_refused_keys_raise_and_name_themselves(data_dir, tmp_path, key,
+                                                overrides):
+    with pytest.raises(ValueError, match=rf"^{re.escape(key)}=\S+: .*cannot "
+                                         "honour it"):
+        if "datamodule=real" in overrides:  # the toy keys are synthetic's
+            train_main(["--device", "cpu", *overrides,
+                        f"logger.save_dir={tmp_path}"])
+        else:
+            train_main(_args(data_dir, tmp_path, *overrides))
+    assert not (tmp_path / RUN_DIR[0]).exists()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("telemetry", "auto"), ("cost_profile", "true"), ("profile", "true"),
+    ("profile_steps", "[1, 2]"), ("hang_timeout_s", "60"), ("preflight", "true"),
+])
+def test_observation_keys_are_named_and_ignored(capsys, key, value):
+    cfg = cli_train.compose_config(["trainer.telemetry=null",
+                                    f"+trainer.{key}={value}"])
+    cli_train.check_supported(cfg)
+    cli_train.report_ignored(cfg)
+    out = capsys.readouterr().out.splitlines()
+    assert out == [f"note: trainer.{key}={cfg.trainer[key]} only turns on "
+                   "observation, which masters_thesis_tpu_torch does not have; "
+                   "ignored"]
+
+
+def test_resume_is_bit_equal_to_an_unbroken_run(data_dir, tmp_path):
+    whole = _run(data_dir, tmp_path, "whole", "trainer.max_epochs=3")
+    split = _run(data_dir, tmp_path, "split", "trainer.max_epochs=2")
+    _run(data_dir, tmp_path, "split", "trainer.max_epochs=3", "trainer.resume=true")
+    assert [r["step"] for r in _epoch_rows(split)] == [0, 1, 2]
+    assert _epoch_rows(split) == _epoch_rows(whole)
+    for tag in ("best", "last"):
+        got = load_checkpoint(split / "checkpoints", tag)
+        want = load_checkpoint(whole / "checkpoints", tag)
+        for name, value in want[0].items():
+            assert torch.equal(got[0][name], value), (tag, name)
+        assert got[1]["count"] == want[1]["count"] == 3 * N_TRAIN
+        assert torch.equal(got[1]["mu"], want[1]["mu"])
+        assert torch.equal(got[1]["nu"], want[1]["nu"])
+        assert got[2:] == want[2:]
+
+
+def test_checkpoint_every_n_epochs_refreshes_last(data_dir, tmp_path, monkeypatch):
+    saves = []
+    real_save = trainer_mod.ckpt_lib.save_checkpoint
+
+    def spy(ckpt_dir, tag, *args, meta, **kwargs):
+        saves.append((tag, meta["epoch"]))
+        return real_save(ckpt_dir, tag, *args, meta=meta, **kwargs)
+
+    monkeypatch.setattr(trainer_mod.ckpt_lib, "save_checkpoint", spy)
+    common = ("trainer.max_epochs=3", "trainer.check_val_every_n_epoch=2")
+    _run(data_dir, tmp_path, "every", *common,
+         "resilience.checkpoint_every_n_epochs=1")
+    assert saves == [("last", 0), ("best", 1), ("last", 1), ("last", 2),
+                     ("last", 2)]
+    saves.clear()
+    _run(data_dir, tmp_path, "default", *common)
+    assert saves == [("best", 1), ("last", 1), ("last", 2)]
+
+
+def test_nan_halts_the_run_and_last_stays_finite(data_dir, tmp_path,
+                                                 monkeypatch, capsys):
+    real_epoch = trainer_mod.train_epoch
+    calls = []
+
+    def poisoned(module, optimizer, *args, **kwargs):
+        sums, n_steps = real_epoch(module, optimizer, *args, **kwargs)
+        calls.append(1)
+        if len(calls) == 2:  # epoch 1 blows up
+            optimizer.params.fill_(float("nan"))
+            sums = {k: (v * float("nan"), w) for k, (v, w) in sums.items()}
+        return sums, n_steps
+
+    monkeypatch.setattr(trainer_mod, "train_epoch", poisoned)
+    run = _run(data_dir, tmp_path, "halt", "trainer.max_epochs=4",
+               "trainer.enable_progress_bar=true")
+    assert len(calls) == 2
+    out = capsys.readouterr().out
+    assert "epoch 1: non-finite training loss (nan); halting (diverged)" in out
+    rows = _epoch_rows(run)
+    assert [r["step"] for r in rows] == [0, 1]
+    assert math.isnan(rows[1]["loss/total/train"]) and "loss/total/val" not in rows[1]
+    for tag in ("best", "last"):
+        state, _, _, meta = load_checkpoint(run / "checkpoints", tag)
+        assert meta["epoch"] == 0
+        assert all(torch.isfinite(v).all() for v in state.values())

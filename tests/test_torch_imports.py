@@ -32,16 +32,19 @@ def _port_modules() -> list[str]:
 def test_port_imports_with_jax_blocked():
     modules = _port_modules() + ["chip_smoke"]
     for name in ("serve.server", "train.trainer", "train.checkpoint",
-                 "train.flatparams", "data.pipeline", "ops.losses",
-                 "ops.linalg", "evaluation"):
+                 "train.flatparams", "train.logging", "data.pipeline",
+                 "ops.losses", "ops.linalg", "evaluation", "config.compose",
+                 "config.yaml_subset", "cli.train", "cli.test", "__main__"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'masters_thesis_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'yaml',\n"
+        "             'masters_thesis_tpu'):\n"
         "    sys.modules[name] = None\n"
         f"import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'masters_thesis_tpu') and sys.modules[m]]\n"
+        "       ('jax', 'jaxlib', 'flax', 'yaml', 'masters_thesis_tpu')\n"
+        "       and sys.modules[m]]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -6,7 +6,8 @@ sides; the clip norm is one flat sum here against per-leaf sums there). The
 10-step trajectory 1e-5 relative on losses and 1e-6 abs on parameters: the
 recurrence's f32 sums run in another order on the two sides, and Adam
 normalises each gradient, so those ~1e-7 differences reach the parameters
-at up to lr times their relative size.
+at up to lr times their relative size. ``Trainer.fit``'s epoch curve and
+``Trainer.test``'s metrics: 1e-5 relative.
 """
 
 import jax
@@ -17,6 +18,10 @@ import torch
 from torch import nn
 
 from masters_thesis_tpu.data.pipeline import Batch as JaxBatch
+from masters_thesis_tpu.data.pipeline import (
+    FinancialWindowDataModule as JaxDataModule,
+)
+from masters_thesis_tpu.data.pipeline import bootstrap_synthetic as jax_bootstrap
 from masters_thesis_tpu.models.lstm import LstmEncoder as JaxEncoder
 from masters_thesis_tpu.models.objectives import ModelSpec as JaxSpec
 from masters_thesis_tpu.parallel import make_data_mesh
@@ -24,6 +29,7 @@ from masters_thesis_tpu.train.flatparams import FlatAdam as JaxFlatAdam
 from masters_thesis_tpu.train.flatparams import flatten_spec
 from masters_thesis_tpu.train.optim import PlateauScheduler as JaxPlateau
 from masters_thesis_tpu.train.steps import make_train_step
+from masters_thesis_tpu.train.trainer import Trainer as JaxTrainer
 from masters_thesis_tpu_torch.data.pipeline import (
     Batch,
     FinancialWindowDataModule,
@@ -244,3 +250,50 @@ def test_failed_publish_keeps_the_previous_file(tmp_path):
         publish(target, torn)
     assert target.read_bytes() == b"old"
     assert [p.name for p in tmp_path.iterdir()] == ["dataset.npz"]
+
+
+@pytest.mark.parametrize("objective", ["mse", "combined"])
+def test_fit_and_test_match_the_jax_trainer(tmp_path, objective):
+    """Trainer.fit's epoch curve (3 epochs) and Trainer.test's four metrics
+    against the JAX Trainer: the same windows, the same initial weights
+    (JAX init -> params_from_jax, given to both as init_state with a fresh
+    optimizer), dropout 0, one device, and batch_size = the number of train
+    windows, so each epoch is one full-batch step whose sum does not depend
+    on the two sides' different shuffles."""
+    windows = dict(lookback_window=10, target_window=5, stride=15)
+    jax_bootstrap(tmp_path / "jax", n_stocks=4, n_samples=1200, seed=0)
+    bootstrap_synthetic(tmp_path / "port", n_stocks=4, n_samples=1200, seed=0)
+    dm = FinancialWindowDataModule(tmp_path / "port", **windows)
+    dm.prepare_data()
+    dm.setup("fit")
+    n_train = len(dm.train_range)
+    dm.batch_size = n_train
+    jdm = JaxDataModule(tmp_path / "jax", batch_size=n_train, engine="python",
+                        **windows)
+
+    hparams = dict(objective=objective, hidden_size=H, num_layers=2,
+                   dropout=0.0, learning_rate=1e-3)
+    jspec, spec = JaxSpec(**hparams), ModelSpec(**hparams)
+    params = jspec.build_module().init(
+        jax.random.key(1), jnp.zeros((1, windows["lookback_window"], 3)))["params"]
+    init = jax.tree_util.tree_map(np.asarray, params)
+    jtrainer = JaxTrainer(max_epochs=3, gradient_clip_val=CLIP,
+                          strategy="single_device", enable_progress_bar=False,
+                          enable_model_summary=False)
+    want = jtrainer.fit(jspec, jdm, init_state=(init, None))
+    trainer = Trainer(max_epochs=3, gradient_clip_val=CLIP, device="cpu")
+    got = trainer.fit(spec, dm, init_state=(params_from_jax(init), None))
+
+    assert len(got.history) == len(want.history) == 3
+    for g, w in zip(got.history, want.history):
+        assert set(g) == set(w)
+        for key in g:
+            assert g[key] == pytest.approx(w[key], rel=1e-5, abs=0), key
+    assert got.best_val_loss == pytest.approx(want.best_val_loss, rel=1e-5)
+
+    final = jax.tree_util.tree_map(np.asarray, want.params)
+    got_test = trainer.test(spec, params_from_jax(final), dm)
+    want_test = jtrainer.test(jspec, want.params, jdm)
+    assert set(got_test) == set(want_test) == {"mse", "nll", "mae", "total"}
+    for key, value in want_test.items():
+        assert got_test[key] == pytest.approx(value, rel=1e-5, abs=0), key
