@@ -21,6 +21,12 @@ Trajectories and gradients are held against the CPU port. After
 model=small's training phases the default composition goes through the
 port's own entry point, ``python -m masters_thesis_tpu_torch train``, then
 ``test`` and a warm start, each in a child process (``phase_driver``).
+The training step, the evaluation chunk and each serving bucket run as
+CUDA graphs by default; the ``graphs_*`` phases hold 20 graphed training
+steps of small, medium, large (7 + 1) and long bit for bit against the
+same steps run eagerly, the val split's graphed sums against eager ones,
+and time ``Trainer.fit`` both ways; the serve phases hold every bucket's
+graph against the eager engine, and the breakdowns time both.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -68,6 +74,8 @@ from masters_thesis_tpu_torch.train.checkpoint import load_checkpoint
 from masters_thesis_tpu_torch.train.logging import read_records
 from masters_thesis_tpu_torch.train.optim import make_optimizer
 from masters_thesis_tpu_torch.train.steps import (
+    EvalProgram,
+    TrainProgram,
     evaluate,
     forward_rows,
     metric_means,
@@ -962,6 +970,8 @@ def _medium_spec(num_layers: int = STACK_LAYERS, dropout: float = 0.3):
 
 
 def _engines(spec, seed: int, stocks: int = K_STOCKS, lookback: int = T):
+    """The engine on the card (a CUDA graph a bucket), the same engine run
+    eagerly on the card (``cuda_graphs=False``) and on the CPU."""
     state = spec.build_module(
         device="cpu", generator=torch.Generator().manual_seed(seed)
     ).state_dict()
@@ -970,6 +980,7 @@ def _engines(spec, seed: int, stocks: int = K_STOCKS, lookback: int = T):
     return (
         PredictEngine(spec, state, device=DEVICE, **kw),
         PredictEngine(spec, state, device="cpu", **kw),
+        PredictEngine(spec, state, device=DEVICE, cuda_graphs=False, **kw),
     )
 
 
@@ -977,17 +988,12 @@ def _max_err(got, want) -> float:
     return float(max(np.abs(g - w).max() for g, w in zip(got, want)))
 
 
-def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
-           kernel: str, absent: tuple = ()) -> dict:
-    """Bursts of requests through PredictServer on the card, every answer
-    held against the CPU engine; ``kernel`` must launch, ``absent`` must
-    not."""
-    lookback = windows.shape[2]
-    gpu, cpu = _engines(spec, seed=0, stocks=stocks, lookback=lookback)
-    server = PredictServer(gpu, max_wait_s=0.002)
+def _burst(engine, windows: np.ndarray) -> tuple[list, list, dict, float]:
+    """Bursts of requests through a PredictServer on ``engine``: the
+    responses, the windows sent, the server's stats and the seconds."""
+    server = PredictServer(engine, max_wait_s=0.002)
     bursts = (1, 2, 4, 8, 3, 8, 5, 1, 6, 8, 2, 7, 4, 1, 8)
     sent, responses = [], []
-    lk.reset_launch_counts()
     server.start()
     t0 = time.perf_counter()
     try:
@@ -999,7 +1005,33 @@ def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
         serve_s = time.perf_counter() - t0
     finally:
         stats = server.stop()
+    return responses, sent, stats, serve_s
+
+
+def _bucket_gaps(graphed, eager, windows: np.ndarray) -> dict:
+    """Each bucket's graph against the eager engine on the same batch, full
+    and, below the bucket, padded: the largest difference (0 when
+    bit-equal)."""
+    gaps = {}
+    for n in (1, 2, 3, 4, 5, 8):
+        x = windows[:n]
+        gaps[n] = _max_err(graphed.predict(x), eager.predict(x))
+    return gaps
+
+
+def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
+           kernel: str, absent: tuple = ()) -> dict:
+    """Bursts of requests through PredictServer on the card, each bucket a
+    CUDA graph, every answer held against the CPU engine; each bucket's
+    graph bit-equal to the eager engine; the same bursts through the eager
+    engine for its latencies. ``kernel`` must launch, ``absent`` must
+    not."""
+    lookback = windows.shape[2]
+    gpu, cpu, eager = _engines(spec, seed=0, stocks=stocks, lookback=lookback)
+    lk.reset_launch_counts()
+    responses, sent, stats, serve_s = _burst(gpu, windows)
     launches = dict(lk.LAUNCHES)
+    _, _, eager_stats, eager_s = _burst(eager, windows)
 
     statuses = [r.status for r in responses]
     if any(not r.ok for r in responses):
@@ -1014,6 +1046,7 @@ def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
         ref_a.append(a)
         ref_b.append(b)
     err = _max_err((alpha, beta), (np.concatenate(ref_a), np.concatenate(ref_b)))
+    gaps = _bucket_gaps(gpu, eager, windows)
     buckets = sorted({gpu.bucket_for(n) for n in stats["batch_size_counts"]})
     out = {
         "phase": phase,
@@ -1029,17 +1062,28 @@ def _serve(spec, windows: np.ndarray, stocks: int, phase: str, model: str,
         "ok": statuses.count("ok"),
         "max_abs_err_vs_cpu": err,
         "tol": SERVE_TOL,
+        "graphed_vs_eager_max_abs_gap": gaps,
+        "compile_events": gpu.compile_events,
         "late_deliveries": stats["late_deliveries"],
         "dispatches": stats["dispatches"],
         "buckets_used": buckets,
         "p50_ms": stats["p50_ms"],
         "p99_ms": stats["p99_ms"],
         "answers_per_s": len(responses) / serve_s,
+        "eager": {"p50_ms": eager_stats["p50_ms"], "p99_ms": eager_stats["p99_ms"],
+                  "answers_per_s": len(responses) / eager_s,
+                  "late_deliveries": eager_stats["late_deliveries"]},
         "launches": launches,
     }
     emit(out)
     if not err <= SERVE_TOL:
         raise AssertionError(f"served answers differ from the CPU engine: {err}")
+    if any(gaps.values()):
+        raise AssertionError(f"a bucket's graph differs from the eager engine: "
+                             f"{gaps}")
+    if gpu.compile_events != len(gpu.buckets):
+        raise AssertionError(f"{gpu.compile_events} buckets captured, not "
+                             f"{len(gpu.buckets)}")
     if stats["late_deliveries"] != 0:
         raise AssertionError(f"late deliveries: {stats['late_deliveries']}")
     if launches[kernel] < stats["dispatches"]:
@@ -1073,12 +1117,13 @@ def phase_serve_long(windows: np.ndarray) -> dict:
 
 
 def phase_odd_layers(windows: np.ndarray) -> dict:
-    gpu, cpu = _engines(_small_spec(num_layers=3), seed=1)
+    gpu, cpu, eager = _engines(_small_spec(num_layers=3), seed=1)
     batch = windows[:8]
     lk.reset_launch_counts()
     got = gpu.predict(batch)
     launches = dict(lk.LAUNCHES)
     err = _max_err(got, cpu.predict(batch))
+    gaps = _bucket_gaps(gpu, eager, windows)
     out = {
         "phase": "odd_layers",
         "num_layers": 3,
@@ -1086,37 +1131,41 @@ def phase_odd_layers(windows: np.ndarray) -> dict:
         "layer_groups": gpu._module.layer_groups(T, 8 * K_STOCKS, False, K_STOCKS),
         "max_abs_err_vs_cpu": err,
         "tol": SERVE_TOL,
+        "graphed_vs_eager_max_abs_gap": gaps,
         "launches": launches,
     }
     emit(out)
     if not err <= SERVE_TOL:
         raise AssertionError(f"3-layer encoder differs from the CPU: {err}")
+    if any(gaps.values()):
+        raise AssertionError(f"a bucket's graph differs from the eager engine: "
+                             f"{gaps}")
     if launches["lstm_fwd"] < 1 or launches["lstm_pair_fwd"] < 1:
         raise AssertionError(f"3-layer path missed a kernel: {launches}")
     return out
 
 
 def phase_breakdown(windows: np.ndarray) -> list[dict]:
-    """Where one predict call's time goes, at buckets 1 and 8: host wall
-    clock per call (numpy in, numpy out, so it ends synchronized) beside
-    the device time by kernel from a torch.profiler trace of 10 calls."""
-    gpu, _ = _engines(_small_spec(), seed=0)
+    """Where one predict call's time goes, at buckets 1 and 8, for the
+    graphed engine and the eager one: host wall clock per call (numpy in,
+    numpy out, so it ends synchronized) beside the device time by kernel
+    from a torch.profiler trace of 10 calls."""
+    gpu, _, eager = _engines(_small_spec(), seed=0)
     rows = []
     for bucket in (1, 8):
         x = windows[:bucket]
-        host, busy_ms, device = _wall_and_device(lambda: gpu.predict(x))
-        row = {
-            "phase": "breakdown",
-            "bucket": bucket,
-            "rows": bucket * K_STOCKS,
-            "predict_wall_ms_p50": host["wall_ms_p50"],
-            "predict_wall_ms_spread": host["wall_ms_spread"],
-            "host_probe_ms_p50": host["host_probe_ms_p50"],
-            "host_probe_ms_spread": host["host_probe_ms_spread"],
-            "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / host["wall_ms_p50"],
-            "device_ms_by_kernel": device[:8],
-        }
+        row = {"phase": "breakdown", "bucket": bucket, "rows": bucket * K_STOCKS}
+        for name, engine in (("graphed", gpu), ("eager", eager)):
+            host, busy_ms, device = _wall_and_device(lambda: engine.predict(x))
+            row[name] = {
+                "predict_wall_ms_p50": host["wall_ms_p50"],
+                "predict_wall_ms_spread": host["wall_ms_spread"],
+                "host_probe_ms_p50": host["host_probe_ms_p50"],
+                "host_probe_ms_spread": host["host_probe_ms_spread"],
+                "device_busy_ms": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / host["wall_ms_p50"],
+                "device_ms_by_kernel": device[:8],
+            }
         emit(row)
         rows.append(row)
     return rows
@@ -1612,6 +1661,7 @@ def _train_breakdown(dm, spec, phase: str) -> dict:
         train_step(module, optimizer, loss_fn, batch, LR, generator)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    graphed = _graphed_step_breakdown(dm, spec)
     out = {
         "phase": phase,
         "num_layers": spec.num_layers,
@@ -1628,8 +1678,166 @@ def _train_breakdown(dm, spec, phase: str) -> dict:
         "device_idle_share": 1.0 - busy_ms / host["wall_ms_p50"],
         "device_ms_by_kernel": device[:12],
         "distinct_device_ops": len(device),
+        "graphed": graphed,
     }
     emit(out)
+    return out
+
+
+def _graphed_step_breakdown(dm, spec) -> dict:
+    """The same step as ``TrainProgram``'s CUDA graph (128 windows, one a
+    step, re-shuffled when they run out): host wall clock per step, ending
+    synchronized, split into the host's time to replay and its wait for
+    the card, and the device time by kernel; one replay under the
+    synchronisation check set to raise."""
+    module = spec.build_module(device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    optimizer = make_optimizer(module, CLIP, spec.weight_decay)
+    data = device_split(Batch(*(a[:128] for a in dm.train_arrays())), DEVICE)
+    program = TrainProgram(module, optimizer, spec.window_objective(), data, 1,
+                           torch.Generator(device=DEVICE).manual_seed(0),
+                           graphed=True)
+    taken = [0]
+
+    def replay() -> None:
+        if taken[0] % program.n_steps == 0:
+            program.begin_epoch(LR)
+        taken[0] += 1
+        program.step()
+
+    def step():
+        replay()
+        torch.cuda.synchronize()
+
+    def timed_step() -> list:
+        t = [time.perf_counter()]
+        replay()
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return [1e3 * (b - a) for a, b in zip(t, t[1:])]
+
+    host, busy_ms, device = _wall_and_device(step)  # its warm-up captures
+    parts = np.median([timed_step() for _ in range(30)], axis=0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return {
+        "host_syncs_per_step": 0,
+        "step_wall_ms_p50": host["wall_ms_p50"],
+        "step_wall_ms_spread": host["wall_ms_spread"],
+        "host_probe_ms_p50": host["host_probe_ms_p50"],
+        "host_ms_p50": dict(zip(("replay", "wait_for_card"), map(float, parts))),
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / host["wall_ms_p50"],
+        "device_ms_by_kernel": device[:12],
+        "launches_per_step": program.step.launches,
+    }
+
+
+# ---------------------------------------------------------------- graphs
+
+GRAPH_STEPS = 20
+
+
+def _program_steps(spec, state, data, graphed: bool) -> dict:
+    """GRAPH_STEPS steps of ``TrainProgram`` (graphed or eager) from
+    ``state`` on ``data``'s windows, one a step, shuffled and masked from
+    a generator seeded 7: each step's loss sum and weight, the parameters,
+    the Adam moments and the launch counts."""
+    module = spec.build_module(device=DEVICE)
+    module.load_state_dict(state)
+    optimizer = make_optimizer(module, CLIP, spec.weight_decay)
+    program = TrainProgram(module, optimizer, spec.window_objective(), data, 1,
+                           torch.Generator(device=DEVICE).manual_seed(7),
+                           graphed)
+    lk.reset_launch_counts()
+    program.begin_epoch(LR)
+    losses = []
+    for _ in range(program.n_steps):
+        program.step()
+        losses.append(program.step_total.clone())
+    torch.cuda.synchronize()
+    return {"module": module, "optimizer": optimizer,
+            "losses": torch.stack(losses), "launches": dict(lk.LAUNCHES)}
+
+
+def _fit_rate(spec, dm, graphed: bool) -> float:
+    """``Trainer.fit`` windows/s, 2 epochs (the second timed), no
+    checkpoints, graphed or eager."""
+    trainer = Trainer(max_epochs=TRAIN_EPOCHS, gradient_clip_val=CLIP, seed=0,
+                      device=DEVICE, cuda_graphs=graphed)
+    return trainer.fit(spec, dm).windows_per_sec
+
+
+def phase_graphs(dm, spec, phase: str, kernels: dict) -> dict:
+    """``spec`` with its own dropout: GRAPH_STEPS steps of the training
+    step as one CUDA graph against the same steps run eagerly, from the
+    same weights, windows and generator seed: every loss, parameter and
+    Adam moment bit-equal (``torch.equal``), and each of ``kernels``
+    launched its count a step in both, replays counted. Then the val split's metric sums,
+    graphed (full chunks and the short tail, each its own graph) against
+    eager, bit-equal, on a second pass too; and ``Trainer.fit``'s
+    windows/s, eager then graphed."""
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(5)).state_dict()
+    data = device_split(Batch(*(a[:GRAPH_STEPS] for a in dm.train_arrays())),
+                        DEVICE)
+    t0 = time.perf_counter()
+    runs = {g: _program_steps(spec, state, data, g) for g in (True, False)}
+    steps_s = time.perf_counter() - t0
+    graphed, eager = runs[True], runs[False]
+    params_equal = all(
+        torch.equal(a, b) for a, b in zip(graphed["module"].parameters(),
+                                          eager["module"].parameters()))
+    moments_equal = all(
+        torch.equal(getattr(graphed["optimizer"], k), getattr(eager["optimizer"], k))
+        for k in ("mu", "nu", "count_t"))
+    losses_equal = torch.equal(graphed["losses"], eager["losses"])
+    val = device_split(dm.val_arrays(), DEVICE)
+    objective = spec.window_objective()
+    module = eager["module"]
+    want = EvalProgram(module, objective, val, EVAL_CHUNK).run()
+    program = EvalProgram(module, objective, val, EVAL_CHUNK, graphed=True)
+    passes = [program.run(), program.run()]  # capture, then replays only
+    eval_equal = all(torch.equal(got[k][i], want[k][i]) for got in passes
+                     for k in want for i in (0, 1))
+    rates = {"eager": _fit_rate(spec, dm, False), "graphed": _fit_rate(spec, dm, True)}
+    n_rows = dm.train_arrays().x.shape[1]
+    out = {
+        "phase": phase,
+        "num_layers": spec.num_layers,
+        "dropout": spec.dropout,
+        "lookback": dm.lookback_window,
+        "layer_groups": {
+            "train": module.layer_groups(dm.lookback_window, n_rows, True, n_rows),
+            "eval": module.layer_groups(dm.lookback_window, EVAL_CHUNK * n_rows,
+                                        False, n_rows),
+        },
+        "steps": GRAPH_STEPS,
+        "losses": (eager["losses"][:, 0] / eager["losses"][:, 1]).tolist(),
+        "losses_bit_equal": losses_equal,
+        "params_bit_equal": params_equal,
+        "adam_moments_bit_equal": moments_equal,
+        "launches": {"graphed": graphed["launches"], "eager": eager["launches"]},
+        "eval_windows": val.x.shape[0],
+        "eval_programs": [(runs_, p.launches) for runs_, p, _ in program.parts],
+        "eval_sums_bit_equal": eval_equal,
+        "eval_total": metric_means(want)["total"],
+        "steps_seconds": steps_s,
+        "trainer_fit_windows_per_s": rates,
+    }
+    emit(out)
+    if not (losses_equal and params_equal and moments_equal and eval_equal):
+        raise AssertionError(f"{phase}: graphed and eager differ: {out}")
+    if graphed["launches"] != eager["launches"] or any(
+            graphed["launches"][k] != n * GRAPH_STEPS for k, n in kernels.items()):
+        raise AssertionError(f"{phase}: launches not {kernels} a step: "
+                             f"{out['launches']}")
+    if val.x.shape[0] % EVAL_CHUNK == 0 or len(program.parts) != 2:
+        raise AssertionError(f"{phase}: the val split has no short tail")
     return out
 
 
@@ -1883,6 +2091,8 @@ def main() -> int:
     train = phase_train(dm)
     train_odd = phase_train_odd_layers(dm)
     phase_train_breakdown(dm)
+    phase_graphs(dm, _train_spec(), "graphs_small",
+                 {"lstm_pair_fwd_masked": 1, "lstm_pair_bwd": 1, "lstm_wgrad": 1})
     phase_driver(train)
     dm_medium = _train_datamodule(K_MEDIUM)
     phase_train_medium_parity(dm_medium)
@@ -1890,12 +2100,20 @@ def main() -> int:
     phase_train_large(dm_medium)
     phase_train_medium_breakdown(dm_medium)
     phase_train_large_breakdown(dm_medium)
+    phase_graphs(dm_medium, _medium_spec(), "graphs_medium",
+                 {"lstm_stack_fwd_masked": 1, "lstm_stack_bwd": 1,
+                  "lstm_wgrad": 1})
+    phase_graphs(dm_medium, _medium_spec(num_layers=8), "graphs_large",
+                 {"lstm_stack_fwd_masked": 1, "lstm_stack_bwd": 1,
+                  "lstm_fwd": 1, "lstm_bwd": 1, "lstm_wgrad": 2})
     serve_long = phase_serve_long(_synthetic_windows(lookback=T_LONG,
                                                      stride=STRIDE_LONG))
     dm_long = _train_datamodule(lookback=T_LONG, stride=STRIDE_LONG)
     phase_train_long_parity(dm_long)
     train_long = phase_train_long(dm_long)
     phase_train_long_remat(dm_long)
+    phase_graphs(dm_long, _train_spec(), "graphs_long",
+                 {"lstm_tb_fwd": 2, "lstm_tb_bwd": 2})
     # Each kernel's launches on the path it serves, and its times at the
     # shape of that path: model=small serving at 8 windows (800 rows) and
     # training at one window a step (100 rows); model=medium serving at 8

@@ -750,8 +750,7 @@ int lstm_wgrad(int n_jobs, const float* const* src, const float* const* mask,
   const int per = ceil_div(ceil_div(n_t * n_rows, kWgradRows), splits) * kWgradRows;
   const size_t smem = kWgradStages * kWgradStageFloats * sizeof(float);
   const auto kernel = vec ? lstm_wgrad_kernel<true> : lstm_wgrad_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<n_jobs * splits, kWgradThreads, smem, stream>>>(
       jobs, part, splits, per, n_t, n_rows, hidden);

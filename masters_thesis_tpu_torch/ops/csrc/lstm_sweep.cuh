@@ -13,7 +13,9 @@
 
 #pragma once
 
+#include <mutex>
 #include <type_traits>
+#include <vector>
 
 #include "lstm_common.cuh"
 
@@ -254,11 +256,44 @@ cudaError_t with_sweep_rows(int n_rows, int device, F f) {
   }
 }
 
+// Raises kernel's dynamic shared memory limit on the current device to smem.
+// The limit each (kernel, device) was given is kept, and a launch that needs
+// no more makes no runtime call here: a launch at a shape already run is the
+// launch alone, which is what a CUDA graph captures.
+template <typename Kernel>
+cudaError_t reserve_smem(Kernel kernel, size_t smem) {
+  struct Limit {
+    const void* kernel;
+    int device;
+    size_t smem;
+  };
+  static std::mutex mutex;
+  static std::vector<Limit> limits;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mutex);
+  Limit* known = nullptr;
+  for (Limit& l : limits) {
+    if (l.kernel == key && l.device == device) known = &l;
+  }
+  if (known != nullptr && known->smem >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (known != nullptr) {
+    known->smem = smem;
+  } else {
+    limits.push_back(Limit{key, device, smem});
+  }
+  return cudaSuccess;
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch_sweep(Kernel kernel, int n_rows, int rows, size_t smem,
                          cudaStream_t stream, Args... args) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<ceil_div(n_rows, rows), kSweepThreads, smem, stream>>>(args...);
   return cudaGetLastError();

@@ -30,6 +30,7 @@ The CUDA kernels take f32 only and H <= 64; bf16 compute is not ported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -52,7 +53,9 @@ MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 #: ``lstm_pair_fwd_masked`` the instance with a seam mask (training with
 #: dropout), and likewise for the stack; ``lstm_wgrad`` is one call of the
 #: weight-gradient pass; ``lstm_tb_fwd`` and ``lstm_tb_bwd`` the time-blocked
-#: forward and backward (its weight gradient included).
+#: forward and backward (its weight gradient included). A wrapper counts when
+#: it launches; a CUDA graph's replay adds the counts of its capture
+#: (``utils/cuda_graph.py``).
 LAUNCHES: dict[str, int] = {
     "lstm_pair_fwd": 0,
     "lstm_pair_fwd_masked": 0,
@@ -562,8 +565,32 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+#: The streams a CUDA graph capture is underway on (``capturing``).
+_CAPTURE_STREAMS: set[int] = set()
+
+
+@contextlib.contextmanager
+def capturing(stream):
+    """Mark a CUDA graph capture on ``stream`` as underway: until it ends, a
+    kernel wrapper whose current stream is another one raises instead of
+    launching outside the graph (a backward run by the autograd engine
+    launches on the stream its forward ran on, the capture's)."""
+    _CAPTURE_STREAMS.add(stream.cuda_stream)
+    try:
+        yield
+    finally:
+        _CAPTURE_STREAMS.discard(stream.cuda_stream)
+
+
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if _CAPTURE_STREAMS and stream not in _CAPTURE_STREAMS:
+        raise RuntimeError(
+            "a kernel would launch outside the CUDA graph being captured "
+            f"(stream {stream:#x}, capturing on "
+            f"{sorted(map(hex, _CAPTURE_STREAMS))})"
+        )
+    return stream
 
 
 def lstm_fwd_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,

@@ -6,10 +6,15 @@ Counterpart of ``masters_thesis_tpu/serve/engine.py`` with the same contract:
 ``n`` up to the nearest bucket by repeating the first window, and refusing a
 batch past the largest bucket with :class:`BucketOverflowError`.
 
-PyTorch runs eagerly, so nothing is compiled (``compile_events`` stays 0) and
-a bucket is only a batch shape; the padding keeps the shapes the kernels see
-to the bucket ladder, as in the JAX engine. The mesh, the program cache, cost
-profiles, hot-swap and CPU degradation of the JAX engine are not ported.
+A bucket is one program, as in the JAX engine: on the card the forward at
+the bucket's shape is one CUDA graph over a static input buffer, captured by
+``warmup`` (or at the bucket's first use) and replayed for every batch
+(``compile_events`` counts the captures); the padding keeps the shapes the
+kernels see to the bucket ladder. On the CPU, or with ``cuda_graphs=False``,
+the same forward runs eagerly over the same static buffer and nothing is
+captured. The mesh, the program cache (a CUDA graph cannot be written to
+disk), cost profiles, hot-swap and CPU degradation of the JAX engine are not
+ported.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.train.steps import forward_rows
+from masters_thesis_tpu_torch.utils.cuda_graph import GraphedCall
 
 DEFAULT_BUCKETS = (1, 2, 4, 8)
 
@@ -45,6 +51,7 @@ class PredictEngine:
         n_features: int = 3,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         device=None,
+        cuda_graphs: bool = True,
     ):
         self.spec = spec
         self.n_stocks = n_stocks
@@ -57,9 +64,9 @@ class PredictEngine:
         self._module = spec.build_module(device=self.device)
         self._module.load_state_dict(state_dict)
         self._module.eval()
-        #: Program compilations: always 0, PyTorch runs eagerly.
-        self.compile_events = 0
+        self.graphed = cuda_graphs and self.device.type == "cuda"
         self._lock = threading.Lock()
+        self._programs: dict[int, _BucketProgram] = {}
 
     @property
     def window_shape(self) -> tuple[int, int, int]:
@@ -82,15 +89,36 @@ class PredictEngine:
             f"{self.max_bucket} (buckets: {self.buckets})"
         )
 
+    @property
+    def compile_events(self) -> int:
+        """Buckets captured as CUDA graphs (0 on the CPU and without
+        graphs): ``len(buckets)`` after ``warmup`` on the card."""
+        return sum(1 for p in self._programs.values() if p.captured)
+
     def warmup(self) -> float:
-        """Run the largest bucket twice; returns the wall seconds of the
-        second run (seeds the queue's service-time model)."""
+        """Capture every bucket's graph on the card (each after one eager run
+        on a zero batch), as the JAX engine compiles every bucket, then run
+        the largest bucket twice; returns the wall seconds of the second
+        run (seeds the queue's service-time model)."""
+        if self.graphed:
+            with self._lock, torch.inference_mode():
+                for b in self.buckets:
+                    self._program(b).run()
         k, t, f = self.window_shape
         x = np.zeros((self.max_bucket, k, t, f), np.float32)
         self.predict(x)
         t0 = time.perf_counter()
         self.predict(x)
         return time.perf_counter() - t0
+
+    def _program(self, bucket: int) -> "_BucketProgram":
+        """The bucket's program, made at its first use; under ``_lock``."""
+        program = self._programs.get(bucket)
+        if program is None:
+            program = _BucketProgram(self._module, (bucket, *self.window_shape),
+                                     self.device, self.graphed)
+            self._programs[bucket] = program
+        return program
 
     def predict(self, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Run one micro-batch, padded to its bucket; numpy in and out."""
@@ -108,9 +136,41 @@ class PredictEngine:
             # sliced off before returning.
             pad = np.broadcast_to(x[:1], (b - n,) + x.shape[1:])
             x = np.concatenate([x, pad], axis=0)
-        xd = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         with self._lock, torch.inference_mode():
-            alpha, beta = forward_rows(self._module, xd)
-            alpha = alpha[..., 0].cpu().numpy()
-            beta = beta[..., 0].cpu().numpy()
+            program = self._program(b)
+            program.x.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+            # A bucket's first run on the card is its eager warm-up (this
+            # batch's answer) and its capture; every later one a replay.
+            program.run()
+            # Copied out before the lock is released: the next batch of
+            # this bucket overwrites the outputs (on the CPU too, where
+            # .cpu() would return the buffer itself).
+            alpha = program.alpha[..., 0].to("cpu", copy=True).numpy()
+            beta = program.beta[..., 0].to("cpu", copy=True).numpy()
         return alpha[:n], beta[:n]
+
+
+class _BucketProgram:
+    """The deterministic forward at one bucket's shape, from the static input
+    ``x`` into the static outputs ``alpha`` and ``beta``. ``run`` is the
+    eager forward, or its CUDA graph, captured in a thread-local mode so
+    that a server's other threads keep running."""
+
+    def __init__(self, module, shape: tuple, device, graphed: bool):
+        self.module = module
+        self.x = torch.zeros(shape, device=device)
+        self.alpha = torch.zeros(shape[:2] + (1,), device=device)
+        self.beta = torch.zeros(shape[:2] + (module.n_factors,), device=device)
+        self.run = (GraphedCall(self._forward, device=device,
+                                name=f"bucket {shape[0]}",
+                                capture_error_mode="thread_local")
+                    if graphed else self._forward)
+
+    @property
+    def captured(self) -> bool:
+        return isinstance(self.run, GraphedCall) and self.run.captured
+
+    def _forward(self) -> None:
+        alpha, beta = forward_rows(self.module, self.x)
+        self.alpha.copy_(alpha)
+        self.beta.copy_(beta)

@@ -16,6 +16,16 @@ Semantics, term for term as in the JAX class (and so optax's chain):
 - Adam moments with bias correction, ``eps`` outside the square root
   (optax's defaults ``B1``, ``B2``, ``EPS``, which every configuration uses);
 - the caller's learning rate: ``p ← p − lr · update``.
+
+The step count and the learning rate live on the device (``count_t``, an
+int64, and ``lr``, an f32), and the step reads nothing from the host, so a
+CUDA graph that captures it replays a correct update: the step increments
+the count, the trainer fills ``lr`` between epochs (``set_lr``). The bias
+corrections ``1 - B ** count`` are taken in f64 on the device and applied as
+PyTorch applies a Python double divisor to an f32 tensor: on the CPU it
+divides by the double rounded to f32, on the card it multiplies by the
+double's reciprocal rounded to f32. So the update is bit for bit the one a
+Python-scalar step gives on either device.
 """
 
 from __future__ import annotations
@@ -51,7 +61,10 @@ class FlatAdam:
         self.grads = torch.zeros(n, device=device)
         self.mu = torch.zeros(n, device=device)
         self.nu = torch.zeros(n, device=device)
-        self.count = 0
+        #: Updates taken, on the device.
+        self.count_t = torch.zeros((), dtype=torch.int64, device=device)
+        #: The learning rate the next update applies, on the device.
+        self.lr = torch.zeros((), device=device)
         #: (name, offset, shape) of each parameter in the flat buffers.
         self.views: list[tuple[str, int, torch.Size]] = []
         offset = 0
@@ -68,9 +81,21 @@ class FlatAdam:
         """Zero the flat gradient in place; the views stay attached."""
         self.grads.zero_()
 
+    @property
+    def count(self) -> int:
+        """Updates taken (reads the device)."""
+        return int(self.count_t)
+
+    def set_lr(self, lr: float) -> None:
+        """The learning rate of the updates from now on (a device fill)."""
+        self.lr.fill_(lr)
+
     @torch.no_grad()
-    def step(self, lr: float) -> None:
-        """One fused clip → L2 → Adam update of the flat buffer."""
+    def step(self, lr: float | None = None) -> None:
+        """One fused clip → L2 → Adam update of the flat buffer, at ``lr``
+        when given (it stays the rate), else at the rate ``set_lr`` gave."""
+        if lr is not None:
+            self.set_lr(lr)
         g = self.grads
         if self.gradient_clip_val is not None:
             max_norm = self.gradient_clip_val
@@ -80,16 +105,27 @@ class FlatAdam:
             g = g + self.weight_decay * self.params
         self.mu.mul_(B1).add_((1 - B1) * g)
         self.nu.mul_(B2).add_((1 - B2) * (g * g))
-        self.count += 1
-        mu_hat = self.mu / (1 - B1 ** self.count)
-        nu_hat = self.nu / (1 - B2 ** self.count)
+        self.count_t.add_(1)
+        count = self.count_t.double()
+        mu_hat = _divide(self.mu, 1 - torch.pow(B1, count))
+        nu_hat = _divide(self.nu, 1 - torch.pow(B2, count))
         update = mu_hat / (torch.sqrt(nu_hat) + EPS)
-        self.params.sub_(lr * update)
+        self.params.sub_(update * self.lr)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu.clone(), "nu": self.nu.clone()}
 
     def load_state_dict(self, state: dict) -> None:
-        self.count = int(state["count"])
+        self.count_t.fill_(int(state["count"]))
         self.mu.copy_(state["mu"])
         self.nu.copy_(state["nu"])
+
+
+def _divide(t: torch.Tensor, divisor: torch.Tensor) -> torch.Tensor:
+    """``t / divisor`` for an f64 0-dim ``divisor`` on ``t``'s device, as
+    PyTorch computes ``t / d`` for a Python double ``d``: on the card as
+    ``t * float(1 / d)`` (its kernel's reciprocal of a host scalar), on the
+    CPU as ``t / float(d)``."""
+    if t.device.type == "cuda":
+        return t * (1 / divisor).float()
+    return t / divisor.float()

@@ -1,16 +1,23 @@
-"""Step functions: the encoder on a window batch, the training epoch and the
-evaluation pass.
+"""Step functions: the encoder on a window batch, the training step and
+epoch, and the evaluation pass.
 
 Counterpart of ``forward_rows``, the scan epoch (``_flat_epoch_body``),
 ``window_eval_metrics`` and ``make_eval_fn`` in
 ``masters_thesis_tpu/train/steps.py``. The JAX package compiles an epoch into
-one program; the port runs it eagerly, with the same discipline: the train
-split lives on the device, the epoch's shuffle is drawn there, metric sums
-stay there, and the host reads them once per epoch. The mesh, the pmean and
-the stacked replicas are not ported (single device).
+one program; the port writes the training step and the evaluation chunk as
+programs over static buffers (``TrainProgram``, ``EvalProgram``): a step
+reads its windows' indices from a device table through a device cursor that
+it advances itself, and adds its metric sums into device accumulators in
+place. On the card each program is one CUDA graph, captured once and
+replayed (``utils/cuda_graph.py``); on the CPU, or with ``graphed=False``,
+the same body runs eagerly. The train split lives on the device, the
+epoch's shuffle is drawn there, and the host reads the sums once per epoch.
+The mesh, the pmean and the stacked replicas are not ported (single device).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,6 +27,7 @@ from masters_thesis_tpu_torch.models.objectives import (
     mse_window,
     nll_window,
 )
+from masters_thesis_tpu_torch.utils.cuda_graph import GraphedCall
 
 
 def forward_rows(module, x: torch.Tensor, *, deterministic: bool = True,
@@ -40,10 +48,31 @@ def forward_rows(module, x: torch.Tensor, *, deterministic: bool = True,
     return alpha.reshape(b, k, 1), beta.reshape(b, k, -1)
 
 
-def _accumulate(sums: dict | None, new: dict) -> dict:
+def _add_into(sums: dict | None, new: dict) -> dict:
+    """Add ``new``'s (value, weight) sums into the accumulators ``sums`` in
+    place (made as zeros by the first call): adding into zeros keeps every
+    value as it was, so the total is the eager chain's ``s + new``."""
     if sums is None:
-        return new
-    return {k: (sums[k][0] + new[k][0], sums[k][1] + new[k][1]) for k in sums}
+        sums = {k: (torch.zeros_like(v), torch.zeros_like(w))
+                for k, (v, w) in new.items()}
+    for k, (v, w) in new.items():
+        sums[k][0].add_(v)
+        sums[k][1].add_(w)
+    return sums
+
+
+def _copies(sums: dict | None) -> dict | None:
+    if sums is None:
+        return None
+    return {k: (v.clone(), w.clone()) for k, (v, w) in sums.items()}
+
+
+def _gather(data: Batch, table: torch.Tensor, cursor: torch.Tensor) -> Batch:
+    """The windows of row ``cursor`` of ``table``, gathered on the device;
+    the cursor moves to the next row."""
+    idx = table.index_select(0, cursor).view(-1)
+    cursor.add_(1)
+    return Batch(*(a.index_select(0, idx) for a in data))
 
 
 def metric_means(sums: dict) -> dict:
@@ -52,10 +81,11 @@ def metric_means(sums: dict) -> dict:
     return {k: float(vw[0]) / max(float(vw[1]), 1e-30) for k, vw in host.items()}
 
 
-def train_step(module, optimizer, loss_fn, batch: Batch, lr: float,
+def train_step(module, optimizer, loss_fn, batch: Batch, lr: float | None,
                generator: torch.Generator | None = None, masks=None) -> dict:
     """One update: training forward, loss, backward through the kernels, the
-    flat optimizer step. Returns the step's metric sums (on the device).
+    flat optimizer step (at ``lr``, or at the rate ``optimizer.set_lr``
+    gave when None). Returns the step's metric sums (on the device).
     ``masks`` injects the dropout planes instead of drawing them."""
     alpha, beta = forward_rows(module, batch.x, deterministic=False,
                                generator=generator, masks=masks)
@@ -66,29 +96,92 @@ def train_step(module, optimizer, loss_fn, batch: Batch, lr: float,
     return {k: (v.detach(), w.detach()) for k, (v, w) in sums.items()}
 
 
+class TrainProgram:
+    """The training step over static buffers, for every epoch of a run.
+
+    A step reads row ``cursor`` of ``order`` (the epoch's shuffle, one row
+    of ``batch_size`` window indices a step), gathers those windows from
+    the device-resident ``data``, runs ``train_step`` with the dropout
+    masks drawn from ``generator`` and the rate in ``optimizer.lr``, and
+    adds its metric sums into ``sums``. With ``graphed`` (the card) the
+    step is one CUDA graph: the first step run is its warm-up and capture,
+    every later one a replay that draws the same Philox stream from
+    ``generator`` as the eager step would. Nothing may replace the
+    module's parameters or the optimizer's buffers afterwards: the graph
+    holds their addresses (loading copies in place).
+    """
+
+    def __init__(self, module, optimizer, window_objective, data: Batch,
+                 batch_size: int, generator: torch.Generator | None = None,
+                 graphed: bool = False):
+        self.module = module
+        self.optimizer = optimizer
+        self.data = data
+        self.batch_size = batch_size
+        self.generator = generator
+        self.loss_fn = batched_objective(window_objective)
+        device = data.x.device
+        self.n_steps = data.x.shape[0] // batch_size
+        #: The epoch's window indices, one row a step.
+        self.order = torch.zeros((self.n_steps, batch_size),
+                                 dtype=torch.int64, device=device)
+        #: The row of ``order`` the next step takes.
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        #: The epoch's metric sums, made by the first step.
+        self.sums: dict | None = None
+        #: The last step's loss sum and its weight (written in place).
+        self.step_total = torch.zeros(2, device=device)
+        self.step = (GraphedCall(self._step, device=device, name="train step",
+                                 generator=generator)
+                     if graphed else self._step)
+
+    def _step(self) -> None:
+        batch = _gather(self.data, self.order, self.cursor)
+        sums = train_step(self.module, self.optimizer, self.loss_fn, batch,
+                          None, self.generator)
+        torch.stack(sums["total"], out=self.step_total)
+        self.sums = _add_into(self.sums, sums)
+
+    def epoch(self, lr: float) -> tuple[dict | None, int]:
+        """One epoch at ``lr``: ``begin_epoch``, then ``n // batch_size``
+        steps (the tail dropped, as in scan mode). Returns the epoch's
+        metric sums, still on the device, and the number of steps."""
+        self.begin_epoch(lr)
+        for _ in range(self.n_steps):
+            self.step()
+        return _copies(self.sums), self.n_steps
+
+    def begin_epoch(self, lr: float) -> None:
+        """Set the rate, draw the epoch's shuffle (one ``torch.randperm`` on
+        the device from the generator, in its state as the epoch starts)
+        into ``order``, and reset the cursor and the sums."""
+        self.optimizer.set_lr(lr)
+        perm = torch.randperm(self.data.x.shape[0], generator=self.generator,
+                              device=self.order.device)
+        self.order.copy_(perm[: self.n_steps * self.batch_size]
+                         .view(-1, self.batch_size))
+        self.cursor.zero_()
+        for v, w in (self.sums or {}).values():
+            v.zero_()
+            w.zero_()
+        self.module.train()
+
+
 def train_epoch(module, optimizer, window_objective, data: Batch,
                 batch_size: int, lr: float,
-                generator: torch.Generator | None = None) -> tuple[dict, int]:
+                generator: torch.Generator | None = None, *,
+                program: TrainProgram | None = None) -> tuple[dict, int]:
     """One epoch over the device-resident train split.
 
-    The counterpart of the scan epoch: one ``torch.randperm`` on the device
-    from ``generator``, ``n // batch_size`` steps (the tail dropped, as in
-    scan mode), each gathering its windows on the device; the dropout masks
-    are drawn from the same generator. Returns the epoch's metric sums,
-    still on the device, and the number of steps.
+    The counterpart of the scan epoch: ``program.epoch(lr)`` of the run's
+    ``TrainProgram`` (built over these arguments), or of an eager one made
+    for this epoch. Returns the epoch's metric sums, still on the device,
+    and the number of steps.
     """
-    loss_fn = batched_objective(window_objective)
-    n = data.x.shape[0]
-    n_steps = n // batch_size
-    perm = torch.randperm(n, generator=generator, device=data.x.device)
-    idx = perm[: n_steps * batch_size].view(n_steps, batch_size)
-    module.train()
-    sums = None
-    for i in range(n_steps):
-        batch = Batch(*(a.index_select(0, idx[i]) for a in data))
-        sums = _accumulate(sums, train_step(module, optimizer, loss_fn, batch,
-                                            lr, generator))
-    return sums, n_steps
+    if program is None:
+        program = TrainProgram(module, optimizer, window_objective, data,
+                               batch_size, generator)
+    return program.epoch(lr)
 
 
 def window_eval_metrics(alpha, beta, y, factor, inv_psi) -> dict:
@@ -106,20 +199,66 @@ def window_eval_metrics(alpha, beta, y, factor, inv_psi) -> dict:
     }
 
 
-@torch.no_grad()
-def evaluate(module, window_objective, data: Batch, chunk: int = 32) -> dict:
-    """Metric sums (``mse``, ``nll``, ``mae``, ``total``) over a split on the
-    device, ``chunk`` windows a forward, deterministic. The sums stay on the
-    device; ``metric_means`` reads them."""
-    module.eval()
-    sums = None
-    for start in range(0, data.x.shape[0], chunk):
-        batch = Batch(*(a[start:start + chunk] for a in data))
-        alpha, beta = forward_rows(module, batch.x)
+class EvalProgram:
+    """The evaluation pass over a split on the device, ``chunk`` windows a
+    forward, deterministic, as programs over static buffers: one for the
+    full chunks and one for the short tail (the JAX package pads the tail
+    with zero-weight windows; the port runs it at its own length). Each
+    reads its rows through a device cursor and adds its sums into ``sums``;
+    with ``graphed`` (the card) each is one CUDA graph, captured at its
+    first run."""
+
+    def __init__(self, module, window_objective, data: Batch, chunk: int = 32,
+                 graphed: bool = False):
+        self.module = module
+        self.window_objective = window_objective
+        self.data = data
+        self.sums: dict | None = None
+        n = data.x.shape[0]
+        device = data.x.device
+        rows = torch.arange(n, dtype=torch.int64, device=device)
+        n_full = n // chunk
+        tables = [(n_full, rows[: n_full * chunk].view(n_full, chunk), "chunk"),
+                  (1, rows[n_full * chunk:].view(1, -1), "tail")]
+        #: (runs a pass, program, cursor) of the full chunks and the tail.
+        self.parts = []
+        for runs, table, name in tables:
+            if runs == 0 or table.shape[1] == 0:
+                continue
+            cursor = torch.zeros(1, dtype=torch.int64, device=device)
+            body = functools.partial(self._chunk, table, cursor)
+            program = (GraphedCall(body, device=device, name=f"eval {name}")
+                       if graphed else body)
+            self.parts.append((runs, program, cursor))
+
+    def _chunk(self, table: torch.Tensor, cursor: torch.Tensor) -> None:
+        batch = _gather(self.data, table, cursor)
+        alpha, beta = forward_rows(self.module, batch.x)
         args = (alpha, beta, batch.y, batch.factor, batch.inv_psi)
         metrics = window_eval_metrics(*args)
-        loss, _ = window_objective(*args)
+        loss, _ = self.window_objective(*args)
         metrics["total"] = (loss, torch.ones_like(loss))
-        sums = _accumulate(sums, {k: (v.sum(), w.sum())
-                                  for k, (v, w) in metrics.items()})
-    return sums
+        self.sums = _add_into(self.sums, {k: (v.sum(), w.sum())
+                                          for k, (v, w) in metrics.items()})
+
+    @torch.no_grad()
+    def run(self) -> dict | None:
+        """Metric sums (``mse``, ``nll``, ``mae``, ``total``) over the split,
+        on the device; ``metric_means`` reads them."""
+        self.module.eval()
+        for v, w in (self.sums or {}).values():
+            v.zero_()
+            w.zero_()
+        for runs, program, cursor in self.parts:
+            cursor.zero_()
+            for _ in range(runs):
+                program()
+        return _copies(self.sums)
+
+
+def evaluate(module, window_objective, data: Batch, chunk: int = 32) -> dict:
+    """Metric sums (``mse``, ``nll``, ``mae``, ``total``) over a split on the
+    device, ``chunk`` windows a forward, deterministic: an eager
+    ``EvalProgram``. The sums stay on the device; ``metric_means`` reads
+    them."""
+    return EvalProgram(module, window_objective, data, chunk).run()

@@ -9,7 +9,10 @@ improves and a ``last`` one; ``last`` also every
 ``checkpoint_every_n_epochs`` epochs and at the end. History rows use the
 JAX trainer's keys (``loss/<metric>/train``, ``loss/<metric>/val``,
 ``lr-Adam``), go to the logger, and with ``enable_progress_bar`` print as
-the JAX trainer's ``epoch N | ...`` lines.
+the JAX trainer's ``epoch N | ...`` lines. On the card the training step
+and the evaluation chunk each run as one CUDA graph (``TrainProgram``,
+``EvalProgram``), captured in the first epoch; ``cuda_graphs=False`` runs the
+same steps eagerly, the reference the graphs are held to bit for bit.
 
 As in the JAX trainer: ``fit(init_state=)`` starts from given weights (and
 optimizer state); ``resume`` continues from ``last`` at its epoch + 1 with
@@ -39,7 +42,12 @@ from masters_thesis_tpu_torch.data.pipeline import Batch, FinancialWindowDataMod
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.train import checkpoint as ckpt_lib
 from masters_thesis_tpu_torch.train.optim import PlateauScheduler, make_optimizer
-from masters_thesis_tpu_torch.train.steps import evaluate, metric_means, train_epoch
+from masters_thesis_tpu_torch.train.steps import (
+    EvalProgram,
+    TrainProgram,
+    metric_means,
+    train_epoch,
+)
 
 EVAL_CHUNK = 32
 
@@ -82,6 +90,7 @@ class Trainer:
         checkpoint_every_n_epochs: int | None = None,
         enable_progress_bar: bool = False,
         enable_model_summary: bool = False,
+        cuda_graphs: bool = True,
     ):
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
@@ -97,6 +106,8 @@ class Trainer:
         )
         self.enable_progress_bar = enable_progress_bar
         self.enable_model_summary = enable_model_summary
+        #: Run the steps as CUDA graphs on the card (never on the CPU).
+        self.graphed = cuda_graphs and self.device.type == "cuda"
 
     def build(self, spec: ModelSpec):
         """The encoder with its seeded initial weights, on the device."""
@@ -145,15 +156,23 @@ class Trainer:
         if not has_val:
             warnings.warn("val split is empty — LR plateau scheduling is "
                           "inactive and 'best' is the final checkpoint")
+        # One generator for the run, re-seeded each epoch: a CUDA graph
+        # holds the state of the generator it was captured with.
+        generator = torch.Generator(device=self.device)
+        program = TrainProgram(module, optimizer, objective, train,
+                               dm.batch_size, generator, self.graphed)
+        validation = (EvalProgram(module, objective, val, EVAL_CHUNK,
+                                  self.graphed) if has_val else None)
         history: list[dict] = []
         diverged = False
         steady_steps, steady_s = 0, 0.0
         for epoch in range(start_epoch, self.max_epochs):
             row = {"epoch": epoch, "lr-Adam": scheduler.lr}
             t0 = time.perf_counter()
+            generator.manual_seed(epoch_seed(self.seed, epoch))
             sums, n_steps = train_epoch(module, optimizer, objective, train,
                                         dm.batch_size, scheduler.lr,
-                                        self._epoch_generator(epoch))
+                                        generator, program=program)
             row.update({f"loss/{k}/train": v
                         for k, v in metric_means(sums).items()})
             elapsed = time.perf_counter() - t0  # the read above synchronised
@@ -170,8 +189,7 @@ class Trainer:
                 diverged = True
                 break
             if has_val and (epoch + 1) % self.check_val_every_n_epoch == 0:
-                val_metrics = metric_means(
-                    evaluate(module, objective, val, EVAL_CHUNK))
+                val_metrics = metric_means(validation.run())
                 row.update({f"loss/{k}/val": v for k, v in val_metrics.items()})
                 val_loss = val_metrics["total"]
                 row["lr-Adam"] = scheduler.step(val_loss)
@@ -214,16 +232,12 @@ class Trainer:
         test = device_split(dm.test_arrays(), self.device)
         if test.x.shape[0] == 0:
             return {}
-        metrics = metric_means(evaluate(module, spec.window_objective(), test,
-                                        EVAL_CHUNK))
+        metrics = metric_means(EvalProgram(module, spec.window_objective(),
+                                           test, EVAL_CHUNK, self.graphed).run())
         if self.logger:
             self.logger.log_scalars({f"test/{k}": v for k, v in metrics.items()},
                                     0)
         return metrics
-
-    def _epoch_generator(self, epoch: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            epoch_seed(self.seed, epoch))
 
     def _emit(self, row: dict, history: list) -> None:
         if self.logger:

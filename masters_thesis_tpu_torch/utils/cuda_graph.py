@@ -1,0 +1,118 @@
+"""A call captured once as a CUDA graph and replayed: the card's counterpart
+of ``jit(...).lower(...).compile()``.
+
+The JAX package compiles each step function into one program (the training
+epoch, the evaluation pass, each serving bucket). The port's counterpart is
+:class:`GraphedCall`: its first call runs ``body`` once eagerly on the real
+state (the warm-up, whose work counts: every kernel instance and library
+handle it needs is made there, outside the capture), then captures ``body``
+into a CUDA graph with its own memory pool; every later call replays the
+graph. ``body`` takes no arguments and returns nothing: it reads static
+buffers and writes static buffers in place, which is what a replay does.
+
+The kernels count their launches in ``ops.lstm_kernel.LAUNCHES`` from
+Python, so a capture, which runs the wrappers but no kernel, would count
+launches that never ran, and a replay, which runs no Python, none. A
+``GraphedCall`` takes the capture's counts back out and adds them again on
+every replay.
+
+Nothing falls back: a failed capture raises :class:`CaptureError`, and a
+kernel wrapper that finds a capture underway but its own stream not
+capturing raises too (``lstm_kernel.capturing``). Importing this module
+touches no CUDA state.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from masters_thesis_tpu_torch.ops import lstm_kernel as lk
+
+
+class CaptureError(RuntimeError):
+    """A CUDA graph capture failed; nothing was run in its place."""
+
+
+class GraphedCall:
+    """``body`` as one replayed CUDA graph on ``device``.
+
+    ``generator`` is a CUDA generator ``body`` draws from: the graph
+    registers its state, so each replay draws from where the generator
+    stands, as an eager call would, and advances it as far.
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: "global" also
+    refuses unsafe CUDA calls from other threads (the autograd engine's
+    included), "thread_local" only from the capturing thread (for a server
+    whose other threads keep running).
+    """
+
+    def __init__(self, body: Callable[[], None], *, device, name: str,
+                 generator: torch.Generator | None = None,
+                 capture_error_mode: str = "global"):
+        self.body = body
+        self.device = torch.device(device)
+        self.name = name
+        self.generator = generator
+        self.capture_error_mode = capture_error_mode
+        self.graph = None
+        #: Kernel launches in one run of ``body`` (the capture's counts).
+        self.launches: dict[str, int] = {}
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self.capture()
+        else:
+            self.graph.replay()
+            for name, n in self.launches.items():
+                lk.LAUNCHES[name] += n
+
+    def capture(self) -> None:
+        """The warm-up run of ``body`` (real, counted), then its capture
+        (nothing runs, nothing is counted)."""
+        stream = self._warm_up()
+        before = dict(lk.LAUNCHES)
+        try:
+            self.graph = self._record(stream)
+        except Exception as err:
+            raise CaptureError(f"capturing {self.name} failed: {err}") from err
+        finally:
+            delta = {k: lk.LAUNCHES[k] - before[k] for k in before}
+            lk.LAUNCHES.update(before)
+        self.launches = {k: n for k, n in delta.items() if n}
+
+    def _warm_up(self):
+        """Run ``body`` on a side stream, the one the capture then uses, so
+        that per-stream state (cuBLAS workspaces) exists before it."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self.body()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        return stream
+
+    def _record(self, stream):
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        failed = []
+        try:
+            with lk.capturing(stream), torch.cuda.graph(
+                    graph, stream=stream,
+                    capture_error_mode=self.capture_error_mode):
+                try:
+                    self.body()
+                except Exception as err:
+                    failed.append(err)
+                    raise
+        except Exception:
+            # An error inside the capture makes its end fail too; the first
+            # error is the one that says why.
+            if failed:
+                raise failed[0] from None
+            raise
+        return graph

@@ -801,3 +801,160 @@ def test_train_entry_point_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         rows[version] = [r for r in records if "lr-Adam" in r][0]
     for key in ("loss/total/train", "loss/total/val"):
         assert rows["card"][key] == pytest.approx(rows["cpu"][key], rel=1e-5)
+
+
+# ------------------------------------------------------------- CUDA graphs
+
+
+def test_flat_adam_device_scalars_equal_the_python_scalar_update(cuda_device):
+    """On the card, FlatAdam's device count and rate against its update with
+    Python scalars: 10 steps, some clipped, the rate halved after 5,
+    bit-equal after every step."""
+    from test_torch_graphs import PythonScalarAdam, _Vector
+
+    from masters_thesis_tpu_torch.train.flatparams import FlatAdam
+
+    rng = np.random.default_rng(0)
+    p0 = rng.normal(size=4099).astype(np.float32)
+    ref = PythonScalarAdam(_Vector(p0).to(cuda_device), 5.0, 1e-5)
+    got = FlatAdam(_Vector(p0).to(cuda_device), 5.0, 1e-5)
+    for i in range(10):
+        g = rng.normal(0, 0.1 if i not in (2, 7) else 10.0, size=p0.shape)
+        for opt in (ref, got):
+            opt.grads.copy_(torch.tensor(g, dtype=torch.float32))
+        lr = 1e-2 if i < 5 else 5e-3
+        ref.step(lr)
+        got.step(lr)
+        for a, b in ((got.params, ref.params), (got.mu, ref.mu),
+                     (got.nu, ref.nu)):
+            assert torch.equal(a, b), i
+
+
+def _toy_datamodule(tmp_path, stocks=4):
+    from masters_thesis_tpu_torch.data.pipeline import (
+        FinancialWindowDataModule,
+        bootstrap_synthetic,
+    )
+
+    bootstrap_synthetic(tmp_path / "data", n_stocks=stocks, n_samples=1200,
+                        seed=0)
+    return FinancialWindowDataModule(tmp_path / "data", lookback_window=10,
+                                     target_window=5, stride=15)
+
+
+@pytest.mark.parametrize("num_layers", [2, 4])
+def test_graphed_fit_equals_eager_fit(cuda_device, tmp_path, num_layers):
+    """Trainer.fit for 2 epochs with CUDA graphs (the default) against
+    cuda_graphs=False from the same seed, dropout on (a pair at 2 layers,
+    a 4-deep stack at 4): every history value, parameter and Adam moment
+    bit-equal, the same launch counts (replays counted), and
+    Trainer.test's metrics equal."""
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    dm = _toy_datamodule(tmp_path)
+    spec = ModelSpec(objective="combined", hidden_size=16,
+                     num_layers=num_layers, dropout=0.3, learning_rate=1e-3)
+    runs, launches, tests = {}, {}, {}
+    for graphs in (True, False):
+        trainer = Trainer(max_epochs=2, gradient_clip_val=5.0, seed=3,
+                          device=cuda_device, cuda_graphs=graphs)
+        lk.reset_launch_counts()
+        runs[graphs] = trainer.fit(spec, dm)
+        launches[graphs] = dict(lk.LAUNCHES)
+        tests[graphs] = trainer.test(spec, runs[graphs].state, dm)
+    masked = "lstm_pair_fwd_masked" if num_layers == 2 else "lstm_stack_fwd_masked"
+    assert launches[True] == launches[False]
+    assert launches[True][masked] == 2 * len(dm.train_range)
+    assert runs[True].history == runs[False].history
+    for name, value in runs[False].state.items():
+        assert torch.equal(runs[True].state[name], value), name
+    for key in ("mu", "nu"):
+        assert torch.equal(runs[True].opt_state[key], runs[False].opt_state[key])
+    assert runs[True].opt_state["count"] == runs[False].opt_state["count"]
+    assert tests[True] == tests[False]
+
+
+def test_graphed_engine_equals_the_eager_engine_per_bucket(cuda_device):
+    """Every bucket's graph against the same engine with cuda_graphs=False,
+    full and padded batches, bit-equal; warmup captures every bucket."""
+    spec = ModelSpec(objective="mse", hidden_size=32, num_layers=2,
+                     dropout=0.0)
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    kw = dict(n_stocks=7, lookback=10, n_features=3, buckets=(1, 2, 4, 8),
+              device=cuda_device)
+    graphed = PredictEngine(spec, state, **kw)
+    eager = PredictEngine(spec, state, cuda_graphs=False, **kw)
+    graphed.warmup()
+    eager.warmup()
+    assert graphed.compile_events == 4 and eager.compile_events == 0
+    rng = np.random.default_rng(1)
+    lk.reset_launch_counts()
+    for n in (1, 2, 3, 4, 5, 8, 8, 1):
+        x = rng.normal(size=(n, 7, 10, 3)).astype(np.float32)
+        for g, e in zip(graphed.predict(x), eager.predict(x)):
+            np.testing.assert_array_equal(g, e)
+    assert lk.LAUNCHES["lstm_pair_fwd"] == 2 * 8  # replays counted
+    assert graphed.compile_events == 4
+
+
+def test_a_launch_off_the_capturing_stream_fails_the_capture(cuda_device):
+    """With a capture underway on another stream, a kernel wrapper raises
+    before it launches (the guard alone); inside a real capture, work on a
+    second stream fails the capture (CUDA's own checks may refuse it
+    first), and nothing runs it eagerly instead."""
+    from masters_thesis_tpu_torch.utils.cuda_graph import CaptureError, GraphedCall
+
+    x, w1, *_ = _case(0, 9, 16, device=cuda_device)
+    other = torch.cuda.Stream(cuda_device)
+    before = dict(lk.LAUNCHES)
+    with lk.capturing(other):
+        with pytest.raises(RuntimeError, match="outside the CUDA graph"):
+            lk.lstm_fwd_cuda(x, w1)
+    assert lk.LAUNCHES == before
+
+    def body():
+        lk.lstm_fwd_cuda(x, w1)
+        with torch.cuda.stream(other):
+            lk.lstm_fwd_cuda(x, w1)
+
+    call = GraphedCall(body, device=cuda_device, name="two streams")
+    with pytest.raises(CaptureError, match="capturing two streams failed"):
+        call()
+    assert not call.captured
+    torch.cuda.synchronize()
+
+
+def test_a_sync_inside_the_step_fails_the_capture(cuda_device, monkeypatch):
+    """A kernel wrapper that synchronises (monkeypatched) makes the training
+    step's capture raise; nothing runs the step eagerly instead."""
+    from masters_thesis_tpu_torch.data.pipeline import Batch
+    from masters_thesis_tpu_torch.train.flatparams import FlatAdam
+    from masters_thesis_tpu_torch.train.steps import TrainProgram
+    from masters_thesis_tpu_torch.utils.cuda_graph import CaptureError
+
+    real = lk.lstm_pair_fwd_cuda
+
+    def syncing(*args, **kwargs):
+        torch.cuda.synchronize()
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(lk, "lstm_pair_fwd_cuda", syncing)
+    spec = ModelSpec(objective="mse", hidden_size=16, num_layers=2, dropout=0.2)
+    module = spec.build_module(device=cuda_device)
+    rng = np.random.default_rng(0)
+    data = Batch(*(torch.tensor(rng.normal(size=s), dtype=torch.float32,
+                                device=cuda_device)
+                   for s in ((4, 5, 8, 3), (4, 5, 6, 4), (4, 2), (4, 5))))
+    data.inv_psi.abs_().add_(1.0)
+    data.factor[:, 1].abs_().add_(0.5)
+    program = TrainProgram(module, FlatAdam(module, 5.0, 1e-5),
+                           spec.window_objective(), data, 1,
+                           torch.Generator(device=cuda_device).manual_seed(0),
+                           graphed=True)
+    program.begin_epoch(1e-3)
+    with pytest.raises(CaptureError):
+        program.step()
+    assert not program.step.captured
+    monkeypatch.undo()
+    torch.cuda.synchronize()
