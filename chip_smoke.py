@@ -1,5 +1,6 @@
 """Serve and train model=small and model=medium on one NVIDIA GPU through the
-PyTorch/CUDA port, and model=small at a one-year lookback.
+PyTorch/CUDA port, model=small at a one-year lookback, and model=medium on
+Fama-French data through the stream epoch.
 
     python3 chip_smoke.py
 
@@ -27,6 +28,18 @@ steps of small, medium, large (7 + 1) and long bit for bit against the
 same steps run eagerly, the val split's graphed sums against eager ones,
 and time ``Trainer.fit`` both ways; the serve phases hold every bucket's
 graph against the eager engine, and the breakdowns time both.
+The stream epoch (host batches, the pinned-memory prefetcher, the padded
+tail, one graphed weighted step) runs in ``stream`` (model=small, batch 3:
+prefetch two ahead against none and graphed against eager bit for bit, the
+card against the CPU port) and in ``real_medium``: the slice's path, ``train
+datamodule=real model=medium trainer.epoch_mode=stream`` on Fama-French
+CSVs in the data library's layout written here from a seed, then ``test``
+and a warm start from the synthetic model=medium checkpoint, each a child
+process, and the best checkpoint served through
+``PredictEngine.from_checkpoint``. ``resilience`` kills a run in the middle
+of a checkpoint's publish (``MTT_FAULT_PLAN``) and resumes it bit for bit,
+and corrupts a published checkpoint, which the restore and the server must
+catch.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -39,8 +52,10 @@ Imports only torch, numpy and the port (never JAX or the JAX package).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import re
@@ -70,16 +85,30 @@ from masters_thesis_tpu_torch.ops.windows import (
 )
 from masters_thesis_tpu_torch.serve.engine import PredictEngine
 from masters_thesis_tpu_torch.serve.server import PredictServer
-from masters_thesis_tpu_torch.train.checkpoint import load_checkpoint
+from masters_thesis_tpu_torch.cli import train as cli_train
+from masters_thesis_tpu_torch.data.fama_french import FamaFrench25Portfolios
+from masters_thesis_tpu_torch.data.prefetch import prefetch_to_device
+from masters_thesis_tpu_torch.resilience import faults
+from masters_thesis_tpu_torch.train.checkpoint import (
+    CorruptCheckpointError,
+    load_checkpoint,
+    restore_checkpoint,
+)
+from masters_thesis_tpu_torch.train.manifest import (
+    last_verified_checkpoint,
+    verify_checkpoint,
+)
 from masters_thesis_tpu_torch.train.logging import read_records
 from masters_thesis_tpu_torch.train.optim import make_optimizer
 from masters_thesis_tpu_torch.train.steps import (
     EvalProgram,
+    StreamProgram,
     TrainProgram,
     evaluate,
     forward_rows,
     metric_means,
     train_step,
+    weighted_batches,
 )
 from masters_thesis_tpu_torch.train.trainer import EVAL_CHUNK, Trainer, device_split
 
@@ -121,6 +150,13 @@ KERNELS = {
     "lstm_tb_fwd": (TB_SOURCE, f"{TPU}:339"),
     "lstm_tb_bwd": (TB_SOURCE, f"{TPU}:404"),
 }
+# The kernels the stream epoch's phases run, by phase.
+STREAM_PATHS = {
+    "lstm_pair_fwd": "stream", "lstm_pair_fwd_masked": "stream",
+    "lstm_pair_bwd": "stream", "lstm_wgrad": "stream",
+    "lstm_stack_fwd": "real_medium", "lstm_stack_fwd_masked": "real_medium",
+    "lstm_stack_bwd": "real_medium", "lstm_wgrad_stack": "real_medium",
+}
 # The long lookback: datamodule.lookback_window=252 (one trading year),
 # target 30, stride 282 (non-overlapping windows, as the default's 60 + 30).
 T_LONG, STRIDE_LONG = 252, 282
@@ -151,7 +187,14 @@ def data_dir(stocks: int) -> Path:
             / f"{stocks}x{TRAIN_SAMPLES}")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the script's seconds
+    so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -428,7 +471,7 @@ def phase_kernels() -> dict:
                     "max_abs_err": err,
                     "tol": KERNEL_TOL,
                     **timed("ms", kernel),
-                    **timed("plain_ms", plain, calls=3, spin=False, iters=3,
+                    **timed("plain_ms", plain, calls=1, spin=False, iters=3,
                             loops=3, warmup=1),
                     **timed("library_ms", library),
                     "library_max_abs_err": lib_err,
@@ -516,7 +559,7 @@ def _measure(name: str, rows: int, kernel, plain, library, same: bool,
         "tol": tol,
         **(extra or {}),
         **timed("ms", kernel),
-        **timed("plain_ms", plain, calls=3, spin=False, iters=3, loops=3,
+        **timed("plain_ms", plain, calls=1, spin=False, iters=3, loops=3,
                 warmup=1),
         **timed("library_ms", library),
         "library_same_function": same,
@@ -1765,10 +1808,12 @@ def _program_steps(spec, state, data, graphed: bool) -> dict:
 
 
 def _fit_rate(spec, dm, graphed: bool) -> float:
-    """``Trainer.fit`` windows/s, 2 epochs (the second timed), no
-    checkpoints, graphed or eager."""
-    trainer = Trainer(max_epochs=TRAIN_EPOCHS, gradient_clip_val=CLIP, seed=0,
-                      device=DEVICE, cuda_graphs=graphed)
+    """``Trainer.fit`` windows/s, no checkpoints: graphed, 2 epochs (the
+    second timed); eager, 1 epoch (timed whole: there is no capture to
+    leave out, and the eager fit is the slowest part of its phase)."""
+    trainer = Trainer(max_epochs=TRAIN_EPOCHS if graphed else 1,
+                      gradient_clip_val=CLIP, seed=0, device=DEVICE,
+                      cuda_graphs=graphed)
     return trainer.fit(spec, dm).windows_per_sec
 
 
@@ -1872,22 +1917,80 @@ DELTA_LINE = re.compile(r"\s*(model|ols): dL_MSE\(x1e-5\)=\s*(\S+)\s+"
                         r"dL_NLL=\s*(\S+)\s+dL_MIX\(zeta=1e5\)=\s*(\S+)")
 
 
-def _cli(command: str, *overrides: str) -> tuple[list[str], dict, float]:
+class _Child:
     """``python -m masters_thesis_tpu_torch <command> --device <DEVICE>
-    <overrides>`` from the repo root: its output lines, its launch counts
-    and its seconds; raises unless it exits 0."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", _CLI_CHILD, command, "--device", DEVICE,
-         *overrides],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=600)
-    seconds = time.perf_counter() - t0
+    <overrides>`` started from the repo root as a child process, through
+    ``_CLI_CHILD``, with ``MTT_FAULT_PLAN`` set to ``plan`` or unset. Its
+    output goes to files, so children can run side by side
+    (``side_by_side`` of them)."""
+
+    def __init__(self, command: str, *overrides: str, plan: str | None = None,
+                 side_by_side: int = 1):
+        env = {k: v for k, v in os.environ.items()
+               if k not in (faults.FAULT_PLAN_ENV, faults.ATTEMPT_ENV)}
+        if plan is not None:
+            env[faults.FAULT_PLAN_ENV] = plan
+        if side_by_side > 1:
+            # The host's cores shared out: busy-waiting thread pools of
+            # several children on every core slow them all many times over.
+            env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1)
+                                             // side_by_side))
+        self.command = command
+        self.out = tempfile.TemporaryFile("w+")
+        self.err = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _CLI_CHILD, command, "--device", DEVICE,
+             *overrides],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=self.out,
+            stderr=self.err, text=True)
+
+    def wait(self, timeout: float = 600) -> tuple[subprocess.CompletedProcess,
+                                                  float]:
+        """Its exit (killed at ``timeout``) and its seconds."""
+        try:
+            code = self.proc.wait(timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        done = subprocess.CompletedProcess(self.proc.args, code,
+                                           self.out.read(), self.err.read())
+        self.out.close()
+        self.err.close()
+        return done, seconds
+
+
+def _wait_all(children: list) -> list:
+    """``wait()`` of each child; any child still running when one fails is
+    killed."""
+    try:
+        return [child.wait() for child in children]
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait()
+
+
+def _cli_result(child_result) -> tuple[list[str], dict, float]:
+    """A child's output lines, its launch counts and its seconds; raises
+    unless it exited 0."""
+    proc, seconds = child_result
     if proc.returncode != 0:
-        raise AssertionError(f"{command} exited {proc.returncode}: "
+        raise AssertionError(f"{proc.args[3]} exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
     lines = proc.stdout.splitlines()
     return lines[:-1], json.loads(lines[-1])["launches"], seconds
+
+
+def _cli(command: str, *overrides: str) -> tuple[list[str], dict, float]:
+    """One child (``_Child``) run to its end: its output lines, its launch
+    counts and its seconds; raises unless it exits 0."""
+    return _cli_result(_Child(command, *overrides).wait())
 
 
 def _done(lines: list[str]) -> dict:
@@ -1930,7 +2033,8 @@ def phase_driver(train: dict) -> dict:
         first_train = {
             name: [r for r in read_records(d) if "lr-Adam" in r][0]["loss/total/train"]
             for name, d in (("run", run_dir), ("warm_start", warm_dir))}
-        files = {f"{d.name}/{tag}.pt": (d / "checkpoints" / f"{tag}.pt").is_file()
+        files = {f"{d.name}/{tag}": verify_checkpoint(d / "checkpoints" / tag,
+                                                     require_manifest=True)
                  for d in (run_dir, warm_dir) for tag in ("best", "last")}
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
@@ -1984,6 +2088,441 @@ def phase_driver(train: dict) -> dict:
                    if counts["lstm_pair_fwd"] == 0})
     if missed:
         raise AssertionError(f"driver: kernels off the path: {missed}")
+    return out
+
+
+# ------------------------------------------------- stream epoch, real data
+
+STREAM_BATCH = 3  # three windows a step: 1,553 train windows leave a tail
+STREAM_CPU_SAMPLES = 5_000  # the CPU comparison's set: 38 train windows
+
+
+def _stream_fit(spec, dm, device, epoch_mode="stream", epochs=TRAIN_EPOCHS,
+                **kw):
+    """``Trainer.fit`` for ``epochs`` epochs, no checkpoints: the result and
+    the kernels' launches."""
+    trainer = Trainer(max_epochs=epochs, gradient_clip_val=CLIP, seed=0,
+                      device=device, epoch_mode=epoch_mode, **kw)
+    lk.reset_launch_counts()
+    result = trainer.fit(spec, dm)
+    return result, dict(lk.LAUNCHES)
+
+
+def _bit_equal(got, want) -> dict:
+    """Which of the losses, the parameters and the Adam moments of two
+    ``TrainResult``s are equal bit for bit (``torch.equal``)."""
+    keys = ("loss/total/train", "loss/total/val")
+    return {
+        "losses": all(torch.equal(torch.tensor([g[k] for k in keys]),
+                                  torch.tensor([w[k] for k in keys]))
+                      for g, w in zip(got.history, want.history)),
+        "params": all(torch.equal(got.state[k], v)
+                      for k, v in want.state.items()),
+        "adam_moments": all(torch.equal(got.opt_state[k], want.opt_state[k])
+                            for k in ("mu", "nu")),
+    }
+
+
+def _stream_step_share(spec, dm, steps: int = 300) -> dict:
+    """``steps`` stream steps (the epoch's first batches through the
+    prefetcher, two ahead, into the graphed ``StreamProgram``), ending
+    synchronized: the host wall clock a step, and the device's busy time
+    a step from a torch.profiler trace of the same run; the idle share is
+    what the card waits for the host. Then the same steps once more under
+    the synchronisation check set to raise: no step waits for the card."""
+    module = spec.build_module(device=DEVICE,
+                               generator=torch.Generator().manual_seed(0))
+    optimizer = make_optimizer(module, CLIP, spec.weight_decay)
+    program = StreamProgram(module, optimizer, spec.window_objective(),
+                            dm.train_arrays(), dm.batch_size,
+                            torch.Generator(device=DEVICE).manual_seed(0),
+                            graphed=True)
+
+    def queue() -> int:
+        batches = weighted_batches(dm.train_batches(0, seed=0), dm.batch_size)
+        return program.epoch(LR, prefetch_to_device(
+            (b for _, b in zip(range(steps), batches)), 2, DEVICE))[1]
+
+    def run() -> int:
+        n_steps = queue()
+        torch.cuda.synchronize()
+        return n_steps
+
+    steps = run()  # the capture
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        walls.append(1e3 * (time.perf_counter() - t0) / steps)
+    busy = sum(op["ms"] for op in device_ops(run, calls=1)) / steps
+    wall = float(np.median(walls))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        queue()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"steps": steps, "host_syncs_per_step": 0,
+            "step_wall_ms_p50": wall,
+            "step_wall_ms_spread": [min(walls), max(walls)],
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall}
+
+
+def phase_stream(dm) -> dict:
+    """model=small (dropout 0.2) on the 100-stock set with batch_size 3:
+    the stream epoch (host batches in the ``(seed, epoch)`` shuffle, the
+    prefetcher, the tail padded with a zero-weight copy, one graphed
+    weighted step) for 2 epochs with the prefetcher two batches ahead
+    against none, and graphed against ``cuda_graphs=False``: losses,
+    parameters and Adam moments bit-equal. With dropout 0, on a smaller
+    set of the same DGP (100 x 5,000: the CPU's steps take ~0.2 s), the
+    card's stream epoch against the CPU port's. Beside it the scan epoch's
+    windows/s at the same batch, and where a stream step's time goes."""
+    spec = _train_spec()
+    dm3 = FinancialWindowDataModule(dm.data_dir, lookback_window=T,
+                                    target_window=30, stride=90,
+                                    batch_size=STREAM_BATCH)
+    deep, deep_launches = _stream_fit(spec, dm3, DEVICE, prefetch=2)
+    flat, flat_launches = _stream_fit(spec, dm3, DEVICE, prefetch=0)
+    eager, eager_launches = _stream_fit(spec, dm3, DEVICE, cuda_graphs=False)
+    scan, _ = _stream_fit(spec, dm3, DEVICE, epoch_mode="scan")
+    n_train = len(dm3.train_range)
+    steps = TRAIN_EPOCHS * -(-n_train // STREAM_BATCH)
+
+    root = data_dir(K_STOCKS).parent / f"{K_STOCKS}x{STREAM_CPU_SAMPLES}"
+    bootstrap_synthetic(root, n_stocks=K_STOCKS, n_samples=STREAM_CPU_SAMPLES,
+                        seed=0)
+    small = FinancialWindowDataModule(root, lookback_window=T, target_window=30,
+                                      stride=90, batch_size=STREAM_BATCH)
+    spec0 = _train_spec(dropout=0.0)
+    t0 = time.perf_counter()
+    card, _ = _stream_fit(spec0, small, DEVICE)
+    cpu, _ = _stream_fit(spec0, small, "cpu")
+    cpu_s = time.perf_counter() - t0
+    loss_gap = max(abs(g[k] - w[k]) / abs(w[k])
+                   for g, w in zip(card.history, cpu.history)
+                   for k in ("loss/total/train", "loss/total/val"))
+    param_gap = max(float((card.state[k] - v).abs().max())
+                    for k, v in cpu.state.items())
+    share = _stream_step_share(spec, dm3)
+    out = {
+        "phase": "stream",
+        "batch_size": STREAM_BATCH,
+        "train_windows": n_train,
+        "tail": n_train % STREAM_BATCH,
+        "steps": steps,
+        "depth2_vs_depth0_bit_equal": _bit_equal(deep, flat),
+        "graphed_vs_eager_bit_equal": _bit_equal(deep, eager),
+        "launches": {"depth2": deep_launches, "depth0": flat_launches,
+                     "eager": eager_launches},
+        "prefetch": [{k: r[k] for k in ("data/get_wait_s",
+                                        "data/prefetch_mean_depth")}
+                     for r in deep.history],
+        "windows_per_s": {"stream": deep.windows_per_sec,
+                          "stream_depth0": flat.windows_per_sec,
+                          "stream_eager": eager.windows_per_sec,
+                          "scan": scan.windows_per_sec},
+        "val_loss": {"stream": deep.history[-1]["loss/total/val"],
+                     "scan": scan.history[-1]["loss/total/val"]},
+        "card_vs_cpu": {"windows": len(small.train_range),
+                        "loss_rel_gap": loss_gap, "param_abs_gap": param_gap,
+                        "loss_rtol": PARITY_LOSS_RTOL,
+                        "param_atol": PARITY_PARAM_TOL, "seconds": cpu_s},
+        "stream_step": share,
+    }
+    emit(out)
+    for name in ("depth2_vs_depth0_bit_equal", "graphed_vs_eager_bit_equal"):
+        if not all(out[name].values()):
+            raise AssertionError(f"stream: {name} fails: {out[name]}")
+    if deep_launches != flat_launches or deep_launches != eager_launches:
+        raise AssertionError(f"stream: launches differ: {out['launches']}")
+    path = ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad")
+    missed = {k: deep_launches[k] for k in path if deep_launches[k] != steps}
+    if missed:
+        raise AssertionError(f"stream: not once in each of {steps} steps: "
+                             f"{missed}")
+    if not (loss_gap <= PARITY_LOSS_RTOL and param_gap <= PARITY_PARAM_TOL):
+        raise AssertionError(f"stream: the card is not the CPU: {loss_gap}, "
+                             f"{param_gap}")
+    if not np.isfinite([r["loss/total/val"] for r in deep.history]).all():
+        raise AssertionError("stream: non-finite losses")
+    return out
+
+
+FF_SENTINEL_DAYS = (9_000, 15_000, 21_000)  # inside the kept rows
+
+
+def write_fama_french_csvs(raw_dir: Path, seed: int = 0) -> None:
+    """``F-F_Research_Data_Factors_daily.csv`` and
+    ``25_Portfolios_5x5_Daily.csv`` in the Ken French data library's
+    layout, from a seeded generator: preambles of 4 and 18 lines (each
+    closed by a blank line), a header, the published 26,129 daily rows in
+    percent (two decimals, the risk-free rate three), -99.99 in every
+    portfolio on a few days, and a footer. Returns follow a one-factor
+    market model: a daily market excess return ~ N(0.03, 1.0), each
+    portfolio's beta in [0.8, 1.3], alpha ~ N(0, 0.01), noise sd 0.3-0.9."""
+    ff = FamaFrench25Portfolios
+    n = ff.n_samples
+    rng = np.random.default_rng(seed)
+    market = rng.normal(0.03, 1.0, n)
+    rf = rng.uniform(0.0, 0.03, n)
+    betas = rng.uniform(0.8, 1.3, 25)
+    alphas = rng.normal(0.0, 0.01, 25)
+    noise = rng.uniform(0.3, 0.9, 25) * rng.standard_normal((n, 25))
+    p25 = alphas + market[:, None] * betas + noise + rf[:, None]
+    dates = 19260701 + np.arange(n)
+    ff3 = ["This file was created by CMPT_ME_BEME_RETS_DAILY from a seeded",
+           "generator in the layout of the Fama-French daily factors file.",
+           "The Tbill return is the simple daily rate.", "",
+           "," + ",".join(ff.ff3_cols[1:])]
+    smb_hml = rng.normal(0.0, 0.5, (n, 2))
+    ff3 += [f"{d},{m:8.2f},{a:8.2f},{b:8.2f},{r:9.3f}"
+            for d, m, (a, b), r in zip(dates, market, smb_hml, rf)]
+    ff3 += ["", "Copyright 2024 Kenneth R. French"]
+    lines = ["This file was created by CMPT_ME_BEME_RETS_DAILY from a seeded"]
+    lines += (["generator in the layout of the 25 portfolios file."]
+              * (ff.p25_skip - 3))
+    lines += ["  Average Value Weighted Returns -- Daily", "",
+              "," + ",".join(ff.p25_cols[1:])]
+    sentinel = ",".join(["  -99.99"] * 25)
+    for i, d in enumerate(dates):
+        values = (sentinel if i in FF_SENTINEL_DAYS
+                  else ",".join(f"{v:8.2f}" for v in p25[i]))
+        lines.append(f"{d},{values}")
+    lines += ["", "  Average Equal Weighted Returns -- Daily"]
+    raw_dir.mkdir(parents=True, exist_ok=True)
+    (raw_dir / ff.ff3_filename).write_text("\n".join(ff3) + "\n")
+    (raw_dir / ff.p25_filename).write_text("\n".join(lines) + "\n")
+
+
+def phase_real_medium(train_medium: dict) -> dict:
+    """The slice's path at full width: ``python -m masters_thesis_tpu_torch
+    train datamodule=real model=medium trainer.epoch_mode=stream`` for 2
+    epochs on Ken-French-format CSVs written here (26,129 rows, 25
+    portfolios), then ``test`` on its checkpoint root, and the thesis's
+    warm start (``checkpoint_mode=params``, 1 epoch) from the synthetic
+    model=medium ``best`` of ``train_medium``, each a child process. In
+    this process: the initial weights' val loss, the best checkpoint served
+    through ``PredictEngine.from_checkpoint`` on the card and on the CPU,
+    and the stream epoch against the scan epoch at this shape, with where
+    a stream step's time goes."""
+    root = Path(__file__).resolve().parent / "data" / "chip_smoke"
+    raw, data = root / "ff_raw", root / "ff_real"
+    shutil.rmtree(data, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_fama_french_csvs(raw)
+    write_s = time.perf_counter() - t0
+    save_dir = Path(tempfile.mkdtemp(prefix="real_", dir=root))
+    common = ["datamodule=real", "model=medium", "trainer.epoch_mode=stream",
+              f"datamodule.raw_dir={raw}", f"datamodule.data_dir={data}",
+              f"logger.save_dir={save_dir}"]
+    try:
+        run_lines, run_launches, run_s = _cli(
+            "train", *common, f"trainer.max_epochs={TRAIN_EPOCHS}")
+        run_dir = save_dir / "FinancialLstm" / "real" / "mse_medium_lr0.0001_fast"
+        ckpts = run_dir / "checkpoints"
+        # The test and the warm start side by side (they share nothing).
+        test_run, warm_run = _wait_all([
+            _Child("test", *common, f"checkpoint={ckpts}", side_by_side=2),
+            _Child("train", *common,
+                   f"checkpoint={Path(train_medium['checkpoints']) / 'best'}",
+                   "checkpoint_mode=params", "trainer.max_epochs=1",
+                   "logger.version=warm_start", side_by_side=2)])
+        test_lines, test_launches, test_s = _cli_result(test_run)
+        warm_lines, warm_launches, warm_s = _cli_result(warm_run)
+        warm_dir = run_dir.parent / "warm_start"
+        done, warm_done = _done(run_lines), _done(warm_lines)
+        delta = {m.group(1): dict(zip(("delta_mse_x1e5", "delta_nll",
+                                       "delta_mix"), map(float, m.groups()[1:])))
+                 for m in map(DELTA_LINE.fullmatch, test_lines) if m}
+        rows = {name: [r for r in read_records(d) if "lr-Adam" in r]
+                for name, d in (("run", run_dir), ("warm_start", warm_dir))}
+        trees = {f"{name}/{tag}": verify_checkpoint(d / "checkpoints" / tag,
+                                                    require_manifest=True)
+                 for name, d in (("run", run_dir), ("warm_start", warm_dir))
+                 for tag in ("best", "last")}
+
+        cfg = cli_train.compose_config(common)
+        spec = cli_train.build_spec(cfg)
+        dm = cli_train.build_datamodule(cfg)
+        dm.prepare_data()
+        dm.setup()
+        n_train = len(dm.train_range)
+        module = Trainer(max_epochs=0, seed=cfg.seed, device=DEVICE).build(spec)
+        val = device_split(dm.val_arrays(), DEVICE)
+        init_val = metric_means(evaluate(module, spec.window_objective(),
+                                         val))["total"]
+        x = dm.test_arrays().x[:8]
+        served = [PredictEngine.from_checkpoint(ckpts, "best", n_stocks=K_MEDIUM,
+                                                device=device)
+                  for device in (DEVICE, "cpu")]
+        served_err = _max_err(served[0].predict(x), served[1].predict(x))
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    # One epoch each (timed whole, the capture included: ~1 ms of ~1.5 s).
+    stream, stream_launches = _stream_fit(spec, dm, DEVICE, epochs=1)
+    scan, _ = _stream_fit(spec, dm, DEVICE, epoch_mode="scan", epochs=1)
+    share = _stream_step_share(spec, dm)
+    steps = TRAIN_EPOCHS * n_train  # batch_size 1: no tail to pad
+    out = {
+        "phase": "real_medium",
+        "csv_rows": FamaFrench25Portfolios.n_samples,
+        "days": int(np.load(data / "market.npy").shape[0]),
+        "windows": {"train": n_train, "val": len(dm.val_range),
+                    "test": len(dm.test_range)},
+        "x_mb": sum(getattr(dm, f"{split}_arrays")().x.nbytes
+                    for split in ("train", "val", "test")) / 2**20,
+        "csv_write_seconds": write_s,
+        "seconds": {"train": run_s, "test": test_s, "warm_start": warm_s},
+        "done": {"train": done, "warm_start": warm_done},
+        "windows_per_s": {"driver_stream": done["steps_per_s"],
+                          "trainer_fit_stream": stream.windows_per_sec,
+                          "trainer_fit_scan": scan.windows_per_sec},
+        "stream_step": share,
+        "val_loss_initial": init_val,
+        "epochs": {name: [{k: r[k] for k in r if k.startswith(("loss/total",
+                                                               "data/"))}
+                          for r in rs] for name, rs in rows.items()},
+        "delta_losses": delta,
+        "checkpoints_verified": trees,
+        "served_best_max_abs_err": served_err,
+        "served_tol": SERVE_TOL,
+        "steps": steps,
+        "launches": {"train": run_launches, "test": test_launches,
+                     "warm_start": warm_launches,
+                     "trainer_fit_stream": stream_launches},
+    }
+    emit(out)
+    values = [*done.values(), *warm_done.values(),
+              *(v for row in delta.values() for v in row.values())]
+    if sorted(delta) != ["model", "ols"] or not np.isfinite(values).all():
+        raise AssertionError(f"real_medium: missing or non-finite results: {out}")
+    if not all(trees.values()):
+        raise AssertionError(f"real_medium: a checkpoint does not verify: {trees}")
+    if not done["best_val"] < init_val:
+        raise AssertionError(f"real_medium: val loss {done['best_val']} not "
+                             f"below the initial weights' {init_val}")
+    path = ("lstm_stack_fwd_masked", "lstm_stack_bwd", "lstm_wgrad")
+    missed = {f"train/{k}": run_launches[k] for k in path
+              if run_launches[k] != steps}
+    missed.update({f"warm_start/{k}": warm_launches[k] for k in path
+                   if warm_launches[k] != n_train})
+    missed.update({f"trainer_fit_stream/{k}": stream_launches[k] for k in path
+                   if stream_launches[k] != n_train})
+    missed.update({f"{name}/lstm_stack_fwd": counts["lstm_stack_fwd"]
+                   for name, counts in (("train", run_launches),
+                                        ("test", test_launches))
+                   if counts["lstm_stack_fwd"] == 0})
+    if missed:
+        raise AssertionError(f"real_medium: kernels off the path: {missed}")
+    if not served_err <= SERVE_TOL:
+        raise AssertionError(f"real_medium: from_checkpoint on the card is "
+                             f"not the CPU engine: {served_err}")
+    return out
+
+
+RESILIENCE_SAMPLES = 20_000  # 155 train windows: short child runs
+
+
+def phase_resilience() -> dict:
+    """Crash-safe checkpoints through the entry point (model=small, 100
+    stocks x 20,000 samples, child processes): an unbroken 3-epoch run; a
+    run killed by ``MTT_FAULT_PLAN`` (SIGKILL) at ``checkpoint.mid_publish``
+    of the epoch-1 save of ``last``, relaunched with ``trainer.resume=true``,
+    whose final ``best`` and ``last`` must equal the unbroken run's bit for
+    bit; and a run whose last save of ``last`` (epoch 2; validation every
+    2 epochs, so ``last.prev`` is epoch 1's) is corrupted after its
+    publish, after which the restore falls back to ``last.prev`` with its
+    stderr line and ``PredictEngine.from_checkpoint`` refuses the tree.
+    The data is made first; then the three runs go side by side, and the
+    relaunch after the kill."""
+    root = Path(__file__).resolve().parent / "data" / "chip_smoke"
+    data = root / f"{K_STOCKS}x{RESILIENCE_SAMPLES}"
+    bootstrap_synthetic(data, n_stocks=K_STOCKS, n_samples=RESILIENCE_SAMPLES,
+                        seed=0)
+    FinancialWindowDataModule(data, lookback_window=T, target_window=30,
+                              stride=90).prepare_data()
+    save_dir = Path(tempfile.mkdtemp(prefix="resilience_", dir=root))
+    common = [f"datamodule.data_dir={data}",
+              f"datamodule.n_samples={RESILIENCE_SAMPLES}",
+              f"logger.save_dir={save_dir}", "trainer.max_epochs=3"]
+    runs = save_dir / "FinancialLstm" / "synthetic"
+    kill = json.dumps([{"point": "checkpoint.mid_publish", "kind": "kill",
+                        "match": {"tag": "last", "epoch": 1}}])
+    corrupt = json.dumps({"seed": 7, "faults": [
+        {"point": "checkpoint.post_publish", "kind": "corrupt",
+         "match": {"tag": "last", "epoch": 2}}]})
+    try:
+        (whole, whole_s), (killed, killed_s), (corrupted, corrupted_s) = \
+            _wait_all([
+                _Child("train", *common, "logger.version=whole",
+                       side_by_side=3),
+                _Child("train", *common, "logger.version=split", plan=kill,
+                       side_by_side=3),
+                _Child("train", *common, "logger.version=corrupt",
+                       "trainer.check_val_every_n_epoch=2", plan=corrupt,
+                       side_by_side=3)])
+        split = runs / "split" / "checkpoints"
+        torn = sorted(p.name for p in split.iterdir())
+        # With the unbroken run's threads: a CPU op's sums follow them.
+        resumed, resumed_s = _Child("train", *common, "logger.version=split",
+                                    "trainer.resume=true",
+                                    side_by_side=3).wait()
+        for name, proc in (("unbroken", whole), ("corrupted", corrupted),
+                           ("relaunched", resumed)):
+            if proc.returncode != 0:
+                raise AssertionError(f"resilience: the {name} run exited "
+                                     f"{proc.returncode}: {proc.stderr[-3000:]}")
+        equal = {}
+        for tag in ("best", "last"):
+            got = load_checkpoint(split, tag)
+            want = load_checkpoint(runs / "whole" / "checkpoints", tag)
+            equal[tag] = (
+                all(torch.equal(got[0][k], v) for k, v in want[0].items())
+                and all(torch.equal(got[1][k], v) if torch.is_tensor(v)
+                        else got[1][k] == v for k, v in want[1].items())
+                and got[2:] == want[2:])
+        ckpts = runs / "corrupt" / "checkpoints"
+        picked = last_verified_checkpoint(ckpts)
+        stderr = io.StringIO()
+        with contextlib.redirect_stderr(stderr):
+            _, _, _, meta = restore_checkpoint(ckpts, "last")
+        try:
+            PredictEngine.from_checkpoint(ckpts, "last", n_stocks=K_STOCKS,
+                                          device=DEVICE)
+            refused = False
+        except CorruptCheckpointError:
+            refused = True
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    seconds = {"unbroken": whole_s, "killed": killed_s,
+               "corrupted": corrupted_s, "relaunched": resumed_s}
+    out = {
+        "phase": "resilience",
+        "seconds": seconds,
+        "killed_exit": killed.returncode,
+        "killed_fired": "[faults] firing kind=kill at point=checkpoint.mid_publish"
+        in killed.stderr,
+        "torn_layout": torn,
+        "resumed_bit_equal": equal,
+        "corrupt_fired": "[faults] firing kind=corrupt" in corrupted.stderr,
+        "last_verified_checkpoint": picked and Path(picked).name,
+        "restored_epoch": meta["epoch"],
+        "fallback_line": stderr.getvalue().strip(),
+        "from_checkpoint_refused": refused,
+    }
+    emit(out)
+    if killed.returncode != -9 or not out["killed_fired"] or "last" in torn \
+            or "last.new" not in torn:
+        raise AssertionError(f"resilience: the kill did not tear the publish: "
+                             f"{out}")
+    if not all(equal.values()):
+        raise AssertionError(f"resilience: the resumed run is not the "
+                             f"unbroken one: {equal}")
+    if not (out["corrupt_fired"] and out["last_verified_checkpoint"] == "last.prev"
+            and meta["epoch"] == 1 and "restoring previous good"
+            in out["fallback_line"] and refused):
+        raise AssertionError(f"resilience: corruption not caught: {out}")
     return out
 
 
@@ -2094,6 +2633,7 @@ def main() -> int:
     phase_graphs(dm, _train_spec(), "graphs_small",
                  {"lstm_pair_fwd_masked": 1, "lstm_pair_bwd": 1, "lstm_wgrad": 1})
     phase_driver(train)
+    stream = phase_stream(dm)
     dm_medium = _train_datamodule(K_MEDIUM)
     phase_train_medium_parity(dm_medium)
     train_medium = phase_train_medium(dm_medium)
@@ -2106,6 +2646,8 @@ def main() -> int:
     phase_graphs(dm_medium, _medium_spec(num_layers=8), "graphs_large",
                  {"lstm_stack_fwd_masked": 1, "lstm_stack_bwd": 1,
                   "lstm_fwd": 1, "lstm_bwd": 1, "lstm_wgrad": 2})
+    real = phase_real_medium(train_medium)
+    phase_resilience()
     serve_long = phase_serve_long(_synthetic_windows(lookback=T_LONG,
                                                      stride=STRIDE_LONG))
     dm_long = _train_datamodule(lookback=T_LONG, stride=STRIDE_LONG)
@@ -2157,6 +2699,14 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"],
         })
+        if name in STREAM_PATHS:
+            # Its launches on the stream epoch's path: ``stream``
+            # (model=small, batch 3, the prefetcher two ahead) or
+            # ``real_medium`` (the train child, 2 epochs).
+            counts = {"stream": stream["launches"]["depth2"],
+                      "real_medium": real["launches"]["train"]}
+            summary[-1]["launches_by_path"] = {
+                STREAM_PATHS[name]: counts[STREAM_PATHS[name]][counter]}
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -5,7 +5,8 @@
     python -m masters_thesis_tpu_torch test --device cpu checkpoint=...
 
 Restores a checkpoint of the port (the root picks ``best``; a tag path
-names one), windows the data as the checkpoint was trained (its datamodule
+names one; a checkpoint of the port's older ``<tag>.pt`` form is read
+too), windows the data as the checkpoint was trained (its datamodule
 sidecar), compares model against OLS against ground truth on the test split
 (``collect_test_results``), and prints the thesis's ΔL table
 (``delta_losses``): the model's row and the lookback-OLS row, in
@@ -95,7 +96,8 @@ def main(argv: list[str] | None = None) -> int:
     state, _, spec, meta = restore_checkpoint(Path(cfg.checkpoint))
     # Evaluate on the SAME windowing the checkpoint was trained with.
     apply_datamodule_sidecar(cfg, meta)
-    bootstrap(cfg)
+    if not bootstrap(cfg):
+        return 1
     dm = build_datamodule(cfg)
     dm.prepare_data()
 

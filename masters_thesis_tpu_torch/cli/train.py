@@ -6,9 +6,12 @@
     python -m masters_thesis_tpu_torch train -m model.learning_rate=1e-3,1e-4
     python -m masters_thesis_tpu_torch train --device cpu ...       # no card
 
-It composes ``configs/`` with the port's own composer, bootstraps the data,
-builds the data module and the model spec, trains with the port's
-``Trainer`` (best/last checkpoints under ``<log_dir>/checkpoints``), tests,
+It composes ``configs/`` with the port's own composer, bootstraps the data
+(the synthetic DGP, or ``datamodule=real``'s Fama-French CSVs under
+``datamodule.raw_dir``: without them it prints ``train.py``'s message and
+trains nothing), builds the data module and the model spec, trains with
+the port's ``Trainer`` (``trainer.epoch_mode`` scan or stream; best/last
+checkpoints under ``<log_dir>/checkpoints``), tests,
 logs the hparams with the test metrics, prints ``train.py``'s ``done:`` line
 and returns the best val loss. ``checkpoint=`` with ``checkpoint_mode=full``
 (weights and FlatAdam state; the checkpoint's spec wins) or ``params``
@@ -28,6 +31,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import os
+import sys
 from pathlib import Path
 
 from masters_thesis_tpu_torch.config import (
@@ -78,9 +82,9 @@ def check_data_supported(cfg: Config) -> None:
     """Raise, naming the key, where the data config asks for what the port's
     data module does not do."""
     d = cfg.datamodule
-    if "n_stocks" not in d:
-        _refuse("datamodule", d.get("name"), "the real-data (Fama-French CSV) "
-                "loader is not ported; use datamodule=synthetic")
+    if "n_stocks" not in d and "raw_dir" not in d:
+        _refuse("datamodule", d.get("name"), "it has neither n_stocks (the "
+                "synthetic DGP) nor raw_dir (the Fama-French CSVs)")
     if d.get("n_factors", 1) != 1:
         _refuse("datamodule.n_factors", d.n_factors,
                 "K-factor data is not ported (1 only)")
@@ -109,9 +113,9 @@ def check_supported(cfg: Config) -> None:
     if t.get("distributed", False):
         _refuse("trainer.distributed", t.distributed, "multi-host training "
                 "is not ported")
-    if t.get("epoch_mode", "scan") != "scan":
-        _refuse("trainer.epoch_mode", t.epoch_mode, "only the device-resident "
-                "scan epoch is ported")
+    if t.get("epoch_mode", "scan") not in ("scan", "stream"):
+        _refuse("trainer.epoch_mode", t.epoch_mode, "the epochs are scan and "
+                "stream")
     if t.get("shard_axis", "window") != "window":
         _refuse("trainer.shard_axis", t.shard_axis, "asset sharding is not "
                 "ported")
@@ -151,20 +155,33 @@ def report_ignored(cfg: Config) -> None:
                   flush=True)
 
 
-def bootstrap(cfg: Config) -> None:
-    """Generate the synthetic source arrays of the selected data module
-    unless they are there (the DGP's seed is ``dgp_seed``, not ``seed``, so
-    a seed sweep shares one dataset)."""
-    from masters_thesis_tpu_torch.data.pipeline import bootstrap_synthetic
+def bootstrap(cfg: Config) -> bool:
+    """Make the source arrays of the selected data module unless they are
+    there: the synthetic DGP's for a data module with ``n_stocks`` (its
+    seed is ``dgp_seed``, not ``seed``, so a seed sweep shares one
+    dataset), else the Fama-French CSVs' under ``raw_dir``. False, with
+    ``train.py``'s message on stderr, when the CSVs are missing."""
+    from masters_thesis_tpu_torch.data.pipeline import (
+        bootstrap_real,
+        bootstrap_synthetic,
+    )
 
     d = cfg.datamodule
-    bootstrap_synthetic(
-        Path(d.data_dir),
-        n_stocks=d.n_stocks,
-        n_samples=d.n_samples,
-        seed=d.get("dgp_seed", 0),
-        variant=d.get("dgp_variant", "no_outliers"),
-    )
+    if "n_stocks" in d:
+        bootstrap_synthetic(
+            Path(d.data_dir),
+            n_stocks=d.n_stocks,
+            n_samples=d.n_samples,
+            seed=d.get("dgp_seed", 0),
+            variant=d.get("dgp_variant", "no_outliers"),
+        )
+        return True
+    if not bootstrap_real(Path(d.raw_dir), Path(d.data_dir)):
+        print(f"Real data CSVs not found under {d.raw_dir}; download the "
+              "Fama-French daily factors + 25 portfolios files first.",
+              file=sys.stderr)
+        return False
+    return True
 
 
 def build_datamodule(cfg: Config):
@@ -239,7 +256,8 @@ def run(cfg: Config, device=None) -> float:
     device = resolve_device(device)
     check_supported(cfg)
     report_ignored(cfg)
-    bootstrap(cfg)
+    if not bootstrap(cfg):
+        return float("inf")
     dm = build_datamodule(cfg)
     spec = build_spec(cfg)
 
@@ -264,6 +282,7 @@ def run(cfg: Config, device=None) -> float:
         ),
         enable_progress_bar=t.get("enable_progress_bar", True),
         enable_model_summary=t.get("enable_model_summary", True),
+        epoch_mode=t.get("epoch_mode", "scan"),
     )
     init_state = None
     if cfg.checkpoint:

@@ -4,11 +4,14 @@ Counterpart of ``masters_thesis_tpu/data/pipeline.py`` for the scalar
 market series. The prepared dataset is cached as ``<data_dir>/datasets/
 dataset.npz`` keyed by a SHA-256 of the window hyperparameters and a
 fingerprint of the source files (the JAX package's scheme), split
-chronologically 70/20/10 and served as whole-split arrays, which the trainer
-moves to the device once. Windows are built with the port's own
-``ops/windows.py`` (torch on the CPU). The C++ window engine, the on-disk
-window store, the K-factor source, the multi-host rendezvous and the
-per-batch iterators are not ported.
+chronologically 70/20/10 and served as whole-split arrays, which the scan
+epoch moves to the device once, or as host batches (``train_batches``,
+shuffled by ``(seed, epoch)`` as the JAX package shuffles them), which the
+stream epoch prefetches. The source is the synthetic DGP
+(``bootstrap_synthetic``) or the Fama-French CSVs (``bootstrap_real``).
+Windows are built with the port's own ``ops/windows.py`` (torch on the
+CPU). The C++ window engine, the on-disk window store, the K-factor source
+and the multi-host rendezvous are not ported.
 """
 
 from __future__ import annotations
@@ -16,18 +19,19 @@ from __future__ import annotations
 import hashlib
 import json
 from pathlib import Path
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
 
+from masters_thesis_tpu_torch.data.fama_french import FamaFrench25Portfolios
 from masters_thesis_tpu_torch.data.synthetic import SyntheticLogReturns
 from masters_thesis_tpu_torch.ops.windows import (
     add_quadratic_features,
     lookback_target_split,
     ols_features,
 )
-from masters_thesis_tpu_torch.utils.io import publish
+from masters_thesis_tpu_torch.utils.io import atomic_write_text, publish
 
 
 class Batch(NamedTuple):
@@ -88,7 +92,28 @@ def bootstrap_synthetic(
     for name, arr in (("stocks.npy", r_stocks), ("market.npy", r_market),
                       ("alphas.npy", alphas), ("betas.npy", betas)):
         publish(data_dir / name, lambda f, a=arr: np.save(f, a))
-    publish(meta_file, lambda f: f.write(json.dumps(requested, indent=2).encode()))
+    atomic_write_text(meta_file, json.dumps(requested, indent=2))
+
+
+def bootstrap_real(raw_dir: Path, data_dir: Path) -> bool:
+    """Convert the Fama-French CSVs under ``raw_dir`` into ``stocks.npy``
+    (25 portfolios) and ``market.npy`` under ``data_dir`` unless they are
+    there; False when a CSV is missing (downloading them is a manual step,
+    as in the reference). ``stocks.npy``, published last, marks the set
+    complete."""
+    data_dir = Path(data_dir)
+    if (data_dir / "stocks.npy").exists():
+        return True
+    raw_dir = Path(raw_dir)
+    if not all((raw_dir / name).exists()
+               for name in (FamaFrench25Portfolios.ff3_filename,
+                            FamaFrench25Portfolios.p25_filename)):
+        return False
+    data_dir.mkdir(parents=True, exist_ok=True)
+    p25, mkt = FamaFrench25Portfolios.load(raw_dir)
+    publish(data_dir / "market.npy", lambda f: np.save(f, mkt))
+    publish(data_dir / "stocks.npy", lambda f: np.save(f, p25))
+    return True
 
 
 def append_label_channels(y, t_alphas, t_betas, alphas, betas) -> np.ndarray:
@@ -202,7 +227,7 @@ class FinancialWindowDataModule:
         y = append_label_channels(y, t_alphas, t_betas, alphas, betas)
         publish(dataset_file, lambda f: np.savez(
             f, x=x, y=y, factor=factor, inv_psi=inv_psi))
-        publish(hash_file, lambda f: f.write(hparams_hash.encode()))
+        atomic_write_text(hash_file, hparams_hash)
 
     def build_windows(self, r_stocks: np.ndarray, r_market: np.ndarray):
         """Window, feature-expand and OLS-label the series: numpy
@@ -237,6 +262,40 @@ class FinancialWindowDataModule:
             raise RuntimeError(f"call setup({stage!r}) first")
         idx = slice(window_range.start, window_range.stop)
         return Batch(*(a[idx] for a in self._arrays))
+
+    def _iterate(self, window_range: range, batch_size: int,
+                 shuffle_seed) -> Iterator[Batch]:
+        """Host batches of ``batch_size`` windows of ``window_range`` (the
+        last one short), in order or permuted by
+        ``np.random.default_rng(shuffle_seed)``."""
+        if self._arrays is None:
+            raise RuntimeError("call setup() first")
+        order = np.asarray(window_range)
+        if shuffle_seed is not None:
+            order = np.random.default_rng(shuffle_seed).permutation(order)
+        for start in range(0, len(order), batch_size):
+            idx = order[start:start + batch_size]
+            yield Batch(*(a[idx] for a in self._arrays))
+
+    def train_batches(self, epoch: int = 0, seed: int = 0,
+                      shuffle: bool = True) -> Iterator[Batch]:
+        """Train batches of ``batch_size`` windows, shuffled by ``(seed,
+        epoch)`` (a sequence seed, not ``hash``: reproducible across Python
+        versions), or in order with ``shuffle=False``."""
+        if self.train_range is None:
+            raise RuntimeError("call setup('fit') first")
+        return self._iterate(self.train_range, self.batch_size,
+                             (seed, epoch) if shuffle else None)
+
+    def val_batches(self) -> Iterator[Batch]:
+        if self.val_range is None:
+            raise RuntimeError("call setup('fit') first")
+        return self._iterate(self.val_range, 1, None)
+
+    def test_batches(self) -> Iterator[Batch]:
+        if self.test_range is None:
+            raise RuntimeError("call setup('test') first")
+        return self._iterate(self.test_range, 1, None)
 
     def train_arrays(self) -> Batch:
         return self._slice(self.train_range, "fit")

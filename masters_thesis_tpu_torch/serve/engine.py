@@ -12,15 +12,17 @@ the bucket's shape is one CUDA graph over a static input buffer, captured by
 (``compile_events`` counts the captures); the padding keeps the shapes the
 kernels see to the bucket ladder. On the CPU, or with ``cuda_graphs=False``,
 the same forward runs eagerly over the same static buffer and nothing is
-captured. The mesh, the program cache (a CUDA graph cannot be written to
-disk), cost profiles, hot-swap and CPU degradation of the JAX engine are not
-ported.
+captured. ``from_checkpoint`` boots an engine from a published checkpoint
+after verifying it strictly. The mesh, the program cache (a CUDA graph
+cannot be written to disk), cost profiles, hot-swap and CPU degradation of
+the JAX engine are not ported.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from pathlib import Path
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -28,6 +30,11 @@ import torch
 
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
+from masters_thesis_tpu_torch.train.checkpoint import (
+    CorruptCheckpointError,
+    restore_checkpoint,
+)
+from masters_thesis_tpu_torch.train.manifest import verify_checkpoint
 from masters_thesis_tpu_torch.train.steps import forward_rows
 from masters_thesis_tpu_torch.utils.cuda_graph import GraphedCall
 
@@ -67,6 +74,31 @@ class PredictEngine:
         self.graphed = cuda_graphs and self.device.type == "cuda"
         self._lock = threading.Lock()
         self._programs: dict[int, _BucketProgram] = {}
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir, tag: str = "best", *, n_stocks: int,
+                        n_features: int = 3,
+                        buckets: Sequence[int] = DEFAULT_BUCKETS, device=None,
+                        cuda_graphs: bool = True) -> "PredictEngine":
+        """An engine on ``<ckpt_dir>/<tag>``, verified STRICTLY first:
+        serving never starts from a tree whose content cannot be proven (a
+        missing or mismatched manifest, a pre-manifest ``<tag>.pt``
+        included), and raises :class:`CorruptCheckpointError` instead. The
+        programs are sized by the sidecar's ``datamodule.lookback_window``."""
+        path = Path(ckpt_dir) / tag
+        if not verify_checkpoint(path, require_manifest=True):
+            raise CorruptCheckpointError(
+                f"refusing to serve from {path}: strict manifest "
+                "verification failed (missing or mismatched MANIFEST.json)")
+        state, _, spec, meta = restore_checkpoint(ckpt_dir, tag)
+        lookback = meta.get("datamodule", {}).get("lookback_window")
+        if lookback is None:
+            raise ValueError(f"checkpoint sidecar for {path} has no "
+                             "datamodule.lookback_window; cannot size "
+                             "predict programs")
+        return cls(spec, state, n_stocks=n_stocks, lookback=int(lookback),
+                   n_features=n_features, buckets=buckets, device=device,
+                   cuda_graphs=cuda_graphs)
 
     @property
     def window_shape(self) -> tuple[int, int, int]:

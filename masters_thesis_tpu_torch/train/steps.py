@@ -12,13 +12,19 @@ place. On the card each program is one CUDA graph, captured once and
 replayed (``utils/cuda_graph.py``); on the CPU, or with ``graphed=False``,
 the same body runs eagerly. The train split lives on the device, the
 epoch's shuffle is drawn there, and the host reads the sums once per epoch.
-The mesh, the pmean and the stacked replicas are not ported (single device).
+The stream epoch's step (``StreamProgram``, the counterpart of
+``make_train_step(weighted=True)``) reads instead a host batch that the
+prefetcher has put on the device, padded to the batch shape with
+zero-weight windows (``weighted_batches``). The mesh, the pmean and the
+stacked replicas are not ported (single device).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Iterable, Iterator
 
+import numpy as np
 import torch
 
 from masters_thesis_tpu_torch.data.pipeline import Batch
@@ -82,14 +88,17 @@ def metric_means(sums: dict) -> dict:
 
 
 def train_step(module, optimizer, loss_fn, batch: Batch, lr: float | None,
-               generator: torch.Generator | None = None, masks=None) -> dict:
+               generator: torch.Generator | None = None, masks=None,
+               weights: torch.Tensor | None = None) -> dict:
     """One update: training forward, loss, backward through the kernels, the
     flat optimizer step (at ``lr``, or at the rate ``optimizer.set_lr``
     gave when None). Returns the step's metric sums (on the device).
-    ``masks`` injects the dropout planes instead of drawing them."""
+    ``masks`` injects the dropout planes instead of drawing them;
+    ``weights`` ``(B,)`` makes the loss and the sums weighted."""
     alpha, beta = forward_rows(module, batch.x, deterministic=False,
                                generator=generator, masks=masks)
-    loss, sums = loss_fn(alpha, beta, batch.y, batch.factor, batch.inv_psi)
+    loss, sums = loss_fn(alpha, beta, batch.y, batch.factor, batch.inv_psi,
+                         weights)
     optimizer.zero_grad()
     loss.backward()
     optimizer.step(lr)
@@ -161,10 +170,91 @@ class TrainProgram:
         self.order.copy_(perm[: self.n_steps * self.batch_size]
                          .view(-1, self.batch_size))
         self.cursor.zero_()
-        for v, w in (self.sums or {}).values():
-            v.zero_()
-            w.zero_()
+        _zero(self.sums)
         self.module.train()
+
+
+def _zero(sums: dict | None) -> None:
+    for v, w in (sums or {}).values():
+        v.zero_()
+        w.zero_()
+
+
+def weighted_batches(batches: Iterable[Batch], batch_size: int
+                     ) -> Iterator[tuple[Batch, np.ndarray]]:
+    """``(batch, weights)`` of every host batch, each of ``batch_size``
+    windows: a full batch with unit weights; the short tail padded back to
+    ``batch_size`` by cycling its own windows (finite data: ``0 * nan`` is
+    nan) with zero weight, so every step has one shape."""
+    full = np.ones((batch_size,), np.float32)
+    for b in batches:
+        n = b.x.shape[0]
+        if n == batch_size:
+            yield b, full
+        else:
+            idx = np.arange(batch_size) % n
+            yield (Batch(*(np.asarray(a)[idx] for a in b)),
+                   (np.arange(batch_size) < n).astype(np.float32))
+
+
+class StreamProgram:
+    """The weighted training step over static device inputs, for the stream
+    epoch: the counterpart of ``make_train_step(weighted=True)``.
+
+    ``inputs`` (``x, y, factor, inv_psi`` of ``batch_size`` windows shaped
+    as ``example``'s) and ``weights`` are the step's static buffers: ``step``
+    fills them from a prefetched batch already on the device, one copy each
+    on the current stream, then runs ``train_step`` on them with the masks
+    drawn from ``generator`` and the rate in ``optimizer.lr``, adding its
+    metric sums into ``sums``. With ``graphed`` (the card) the step is one
+    CUDA graph, captured at the first step of the run and replayed for
+    every later one, the padded tail included (its shape is the same). No
+    step synchronises with the host.
+    """
+
+    def __init__(self, module, optimizer, window_objective, example: Batch,
+                 batch_size: int, generator: torch.Generator | None = None,
+                 graphed: bool = False):
+        self.module = module
+        self.optimizer = optimizer
+        self.generator = generator
+        self.loss_fn = batched_objective(window_objective)
+        device = optimizer.params.device
+        self.inputs = Batch(*(torch.zeros((batch_size, *a.shape[1:]),
+                                          device=device) for a in example))
+        self.weights = torch.zeros(batch_size, device=device)
+        #: The epoch's metric sums, made by the first step.
+        self.sums: dict | None = None
+        self.run = (GraphedCall(self._step, device=device, name="stream step",
+                                generator=generator)
+                    if graphed else self._step)
+
+    def _step(self) -> None:
+        sums = train_step(self.module, self.optimizer, self.loss_fn,
+                          self.inputs, None, self.generator,
+                          weights=self.weights)
+        self.sums = _add_into(self.sums, sums)
+
+    def step(self, batch: Batch, weights: torch.Tensor) -> None:
+        """One step on ``batch`` and ``weights``, tensors on the device."""
+        for dst, src in zip(self.inputs, batch):
+            dst.copy_(src)
+        self.weights.copy_(weights)
+        self.run()
+
+    def epoch(self, lr: float, batches: Iterable[tuple[Batch, torch.Tensor]]
+              ) -> tuple[dict | None, int]:
+        """One epoch at ``lr`` over ``batches`` (``(batch, weights)`` on the
+        device, as the prefetcher yields them). Returns the epoch's metric
+        sums, still on the device, and the number of steps."""
+        self.optimizer.set_lr(lr)
+        _zero(self.sums)
+        self.module.train()
+        n_steps = 0
+        for batch, weights in batches:
+            self.step(batch, weights)
+            n_steps += 1
+        return _copies(self.sums), n_steps
 
 
 def train_epoch(module, optimizer, window_objective, data: Batch,
@@ -246,9 +336,7 @@ class EvalProgram:
         """Metric sums (``mse``, ``nll``, ``mae``, ``total``) over the split,
         on the device; ``metric_means`` reads them."""
         self.module.eval()
-        for v, w in (self.sums or {}).values():
-            v.zero_()
-            w.zero_()
+        _zero(self.sums)
         for runs, program, cursor in self.parts:
             cursor.zero_()
             for _ in range(runs):

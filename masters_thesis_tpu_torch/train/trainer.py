@@ -2,11 +2,17 @@
 
 Counterpart of ``Trainer`` and ``TrainResult`` in
 ``masters_thesis_tpu/train/trainer.py``, on one device, f32 only. Per epoch:
-one device-resident epoch (``train_epoch``), one host read of its metric
-sums; every ``check_val_every_n_epoch`` epochs an evaluation of the val
-split, a ``PlateauScheduler`` step on its loss, a ``best`` checkpoint when it
-improves and a ``last`` one; ``last`` also every
-``checkpoint_every_n_epochs`` epochs and at the end. History rows use the
+one epoch of training steps, then one host read of its metric sums. The
+``scan`` epoch (the default) trains on the device-resident train split
+(``train_epoch``), ``n // batch_size`` steps, the tail dropped; the
+``stream`` epoch draws host batches in the ``(seed, epoch)`` shuffle
+(``train_batches``), prefetches them to the device (``prefetch_to_device``,
+whose wait and depth go into the epoch row) and runs ``ceil(n /
+batch_size)`` weighted steps (``StreamProgram``), the tail padded with
+zero-weight windows. Every ``check_val_every_n_epoch`` epochs: an
+evaluation of the val split, a ``PlateauScheduler`` step on its loss, a
+``best`` checkpoint when it improves and a ``last`` one; ``last`` also
+every ``checkpoint_every_n_epochs`` epochs and at the end. History rows use the
 JAX trainer's keys (``loss/<metric>/train``, ``loss/<metric>/val``,
 ``lr-Adam``), go to the logger, and with ``enable_progress_bar`` print as
 the JAX trainer's ``epoch N | ...`` lines. On the card the training step
@@ -15,15 +21,17 @@ and the evaluation chunk each run as one CUDA graph (``TrainProgram``,
 same steps eagerly, the reference the graphs are held to bit for bit.
 
 As in the JAX trainer: ``fit(init_state=)`` starts from given weights (and
-optimizer state); ``resume`` continues from ``last`` at its epoch + 1 with
-its weights, FlatAdam state, scheduler and best val; a non-finite epoch
-loss halts the run before anything is saved from it, so ``last`` keeps the
-last finite weights. Each epoch's shuffle and dropout masks come from a
-generator seeded by ``(seed, epoch)``, the counterpart of
-``jax.random.fold_in(dropout_rng, epoch)``: a resumed run draws what an
-unbroken one draws. The stream epoch mode, prefetch, telemetry, the
-profiler window, preflight, bf16, multi-device and stacked training are not
-ported.
+optimizer state); ``resume`` continues from the ``last`` checkpoint that
+verifies (``checkpoint_restorable``, which also finishes an interrupted
+publish) at its epoch + 1 with its weights, FlatAdam state, scheduler and
+best val; a non-finite epoch loss halts the run before anything is saved
+from it, so ``last`` keeps the last finite weights. Each epoch's shuffle
+and dropout masks come from a generator seeded by ``(seed, epoch)``, the
+counterpart of ``jax.random.fold_in(dropout_rng, epoch)``: a resumed run
+draws what an unbroken one draws. The fault points
+``trainer.epoch_dispatched`` and ``trainer.loss`` fire as in the JAX
+trainer. Telemetry, the profiler window, preflight, bf16, multi-device and
+stacked training are not ported.
 """
 
 from __future__ import annotations
@@ -39,15 +47,21 @@ import torch
 
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.data.pipeline import Batch, FinancialWindowDataModule
+from masters_thesis_tpu_torch.data.prefetch import PrefetchStats, prefetch_to_device
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
+from masters_thesis_tpu_torch.resilience import faults
 from masters_thesis_tpu_torch.train import checkpoint as ckpt_lib
 from masters_thesis_tpu_torch.train.optim import PlateauScheduler, make_optimizer
 from masters_thesis_tpu_torch.train.steps import (
     EvalProgram,
+    StreamProgram,
     TrainProgram,
     metric_means,
     train_epoch,
+    weighted_batches,
 )
+
+EPOCH_MODES = ("scan", "stream")
 
 EVAL_CHUNK = 32
 
@@ -59,7 +73,7 @@ class TrainResult:
     best_val_loss: float
     history: list
     steps_per_sec: float  # train steps per second, first epoch excluded
-    windows_per_sec: float
+    windows_per_sec: float  # real windows (a padded tail's copies excluded)
     test_metrics: dict | None = None
 
 
@@ -91,7 +105,12 @@ class Trainer:
         enable_progress_bar: bool = False,
         enable_model_summary: bool = False,
         cuda_graphs: bool = True,
+        epoch_mode: str = "scan",
+        prefetch: int = 2,
     ):
+        if epoch_mode not in EPOCH_MODES:
+            raise ValueError(f"unknown epoch_mode: {epoch_mode!r} "
+                             f"(expected one of {EPOCH_MODES})")
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
         self.check_val_every_n_epoch = max(1, int(check_val_every_n_epoch))
@@ -108,6 +127,9 @@ class Trainer:
         self.enable_model_summary = enable_model_summary
         #: Run the steps as CUDA graphs on the card (never on the CPU).
         self.graphed = cuda_graphs and self.device.type == "cuda"
+        self.epoch_mode = epoch_mode
+        #: Batches the stream epoch keeps dispatched ahead of its step.
+        self.prefetch = prefetch
 
     def build(self, spec: ModelSpec):
         """The encoder with its seeded initial weights, on the device."""
@@ -139,18 +161,18 @@ class Trainer:
                         f"| device: {self.device}")
         scheduler = PlateauScheduler(spec.learning_rate)
         start_epoch, best_val = 0, float("inf")
-        if self.resume and self.ckpt_dir and (self.ckpt_dir / "last.pt").is_file():
-            state, opt_state, sched_state, meta = ckpt_lib.load_checkpoint(
+        if (self.resume and self.ckpt_dir
+                and ckpt_lib.checkpoint_restorable(self.ckpt_dir, "last")):
+            state, opt_state, _, meta = ckpt_lib.restore_checkpoint(
                 self.ckpt_dir, "last")
             module.load_state_dict(state)
             optimizer.load_state_dict(opt_state)
-            scheduler.load_state_dict(sched_state)
+            scheduler.load_state_dict(meta["scheduler"])
             start_epoch = int(meta["epoch"]) + 1
             best_val = float(meta["best_val"])
             self._print(f"resuming from {self.ckpt_dir / 'last'} at epoch "
                         f"{start_epoch}")
         objective = spec.window_objective()
-        train = device_split(dm.train_arrays(), self.device)
         val = device_split(dm.val_arrays(), self.device)
         has_val = val.x.shape[0] > 0
         if not has_val:
@@ -159,25 +181,51 @@ class Trainer:
         # One generator for the run, re-seeded each epoch: a CUDA graph
         # holds the state of the generator it was captured with.
         generator = torch.Generator(device=self.device)
-        program = TrainProgram(module, optimizer, objective, train,
-                               dm.batch_size, generator, self.graphed)
+        if self.epoch_mode == "stream":
+            n_windows = len(dm.train_range)
+            if n_windows == 0:
+                raise ValueError("train split has 0 windows")
+            program = StreamProgram(module, optimizer, objective,
+                                    dm.train_arrays(), dm.batch_size,
+                                    generator, self.graphed)
+        else:
+            train = device_split(dm.train_arrays(), self.device)
+            program = TrainProgram(module, optimizer, objective, train,
+                                   dm.batch_size, generator, self.graphed)
+            n_windows = program.n_steps * dm.batch_size
         validation = (EvalProgram(module, objective, val, EVAL_CHUNK,
                                   self.graphed) if has_val else None)
         history: list[dict] = []
         diverged = False
-        steady_steps, steady_s = 0, 0.0
+        steady_steps, steady_windows, steady_s = 0, 0, 0.0
         for epoch in range(start_epoch, self.max_epochs):
             row = {"epoch": epoch, "lr-Adam": scheduler.lr}
             t0 = time.perf_counter()
             generator.manual_seed(epoch_seed(self.seed, epoch))
-            sums, n_steps = train_epoch(module, optimizer, objective, train,
-                                        dm.batch_size, scheduler.lr,
-                                        generator, program=program)
+            if self.epoch_mode == "stream":
+                stats = PrefetchStats()
+                batches = weighted_batches(
+                    dm.train_batches(epoch, self.seed), dm.batch_size)
+                sums, n_steps = program.epoch(scheduler.lr, prefetch_to_device(
+                    batches, self.prefetch, self.device, stats))
+            else:
+                sums, n_steps = train_epoch(module, optimizer, objective,
+                                            train, dm.batch_size, scheduler.lr,
+                                            generator, program=program)
+            # The epoch is queued, nothing of it read or saved: a kill here
+            # loses exactly this epoch.
+            faults.fire("trainer.epoch_dispatched", epoch=epoch)
             row.update({f"loss/{k}/train": v
                         for k, v in metric_means(sums).items()})
             elapsed = time.perf_counter() - t0  # the read above synchronised
+            if self.epoch_mode == "stream":
+                row["data/get_wait_s"] = stats.get_wait_s
+                row["data/prefetch_mean_depth"] = stats.mean_depth
+            if faults.fire("trainer.loss", epoch=epoch) == "nan":
+                row["loss/total/train"] = float("nan")
             if epoch > start_epoch or self.max_epochs - start_epoch == 1:
                 steady_steps += n_steps
+                steady_windows += n_windows
                 steady_s += elapsed
             if not math.isfinite(row["loss/total/train"]):
                 # Divergence halts the run before anything is saved from
@@ -212,6 +260,7 @@ class Trainer:
             self._save("last", module, optimizer, scheduler,
                        self.max_epochs - 1, best_val, best_val, dm, spec)
         steps_per_sec = steady_steps / steady_s if steady_s > 0 else 0.0
+        windows_per_sec = steady_windows / steady_s if steady_s > 0 else 0.0
         return TrainResult(
             state={k: v.detach().cpu().clone()
                    for k, v in module.state_dict().items()},
@@ -219,7 +268,7 @@ class Trainer:
             best_val_loss=best_val,
             history=history,
             steps_per_sec=steps_per_sec,
-            windows_per_sec=steps_per_sec * dm.batch_size,
+            windows_per_sec=windows_per_sec,
         )
 
     def test(self, spec: ModelSpec, state: dict,

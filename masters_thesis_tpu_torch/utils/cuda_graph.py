@@ -18,12 +18,14 @@ every replay.
 
 Nothing falls back: a failed capture raises :class:`CaptureError`, and a
 kernel wrapper that finds a capture underway but its own stream not
-capturing raises too (``lstm_kernel.capturing``). Importing this module
-touches no CUDA state.
+capturing raises too (``lstm_kernel.capturing``). Python's cyclic garbage
+collector is off while a capture runs (it would free dead graphs there).
+Importing this module touches no CUDA state.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -100,6 +102,12 @@ class GraphedCall:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         failed = []
+        # The cyclic collector stays off during the capture. A program and
+        # its GraphedCall refer to each other, so a dead program's graph is
+        # freed by the collector, whenever it runs; destroying a graph inside
+        # a capture invalidates the capture.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with lk.capturing(stream), torch.cuda.graph(
                     graph, stream=stream,
@@ -115,4 +123,7 @@ class GraphedCall:
             if failed:
                 raise failed[0] from None
             raise
+        finally:
+            if collecting:
+                gc.enable()
         return graph

@@ -8,6 +8,7 @@ resumed run is held bit for bit against the unbroken one: the same weights,
 the same optimizer state, the same per-epoch draws.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -79,8 +80,15 @@ def test_train_then_test_through_the_entry_point(data_dir, tmp_path):
                         r"steps/sec=(\S+)", lines[-1])
     assert done and all(math.isfinite(float(v)) for v in done.groups())
     log_dir = _log_dir(tmp_path, "run")
-    assert {p.name for p in (log_dir / "checkpoints").iterdir()} == {
-        "best.pt", "best.json", "last.pt", "last.json"}
+    ckpts = log_dir / "checkpoints"
+    # Both epochs improve the val loss, so each tag was saved twice or more
+    # and its previous save rotated to .prev.
+    tags = ("best", "best.prev", "last", "last.prev")
+    assert {p.name for p in ckpts.iterdir()} == {
+        *tags, *(f"{tag}.json" for tag in tags)}
+    for tag in tags:
+        assert {p.name for p in (ckpts / tag).iterdir()} == {"state.pt",
+                                                             "MANIFEST.json"}
     rows = _epoch_rows(log_dir)
     assert [r["step"] for r in rows] == [0, 1]
     assert float(done.group(1)) == pytest.approx(
@@ -194,7 +202,8 @@ def test_multirun_writes_numbered_job_dirs(data_dir, tmp_path):
         assert cfg["logger"] == {"save_dir": str(job / "logs"),
                                  "name": "FinancialLstm/synthetic",
                                  "version": version}
-        assert (_log_dir(job / "logs", version) / "checkpoints" / "best.pt").is_file()
+        assert (_log_dir(job / "logs", version) / "checkpoints" / "best"
+                / "state.pt").is_file()
 
 
 REFUSED = [
@@ -202,12 +211,12 @@ REFUSED = [
     ("trainer.n_devices", ["+trainer.n_devices=2"]),
     ("trainer.strategy", ["trainer.strategy=tpu_xla"]),
     ("trainer.distributed", ["trainer.distributed=true"]),
-    ("trainer.epoch_mode", ["trainer.epoch_mode=stream"]),
+    ("trainer.epoch_mode", ["trainer.epoch_mode=pipelined"]),
     ("trainer.shard_axis", ["trainer.shard_axis=asset"]),
     ("datamodule.n_factors", ["datamodule.n_factors=3"]),
     ("datamodule.store_shards", ["datamodule.store_shards=8"]),
     ("datamodule.engine", ["datamodule.engine=native"]),
-    ("datamodule", ["datamodule=real"]),
+    ("datamodule", ["datamodule=real", "~datamodule.raw_dir"]),
     ("model.kernel_impl", ["model.kernel_impl=pallas"]),
     ("model.n_factors", ["model=kfactor", "model.n_factors=2"]),
     ("launcher", ["-m", "launcher=joblib"]),
@@ -306,3 +315,90 @@ def test_nan_halts_the_run_and_last_stays_finite(data_dir, tmp_path,
         state, _, _, meta = load_checkpoint(run / "checkpoints", tag)
         assert meta["epoch"] == 0
         assert all(torch.isfinite(v).all() for v in state.values())
+
+
+def _write_ken_french_csvs(raw_dir: Path, n_rows: int, seed: int = 0) -> None:
+    """Seeded daily returns in the Ken French data-library layout (the two
+    CSVs ``datamodule=real`` reads): a 4-line and an 18-line preamble, each
+    closed by a blank line, then the header and ``n_rows`` rows."""
+    from masters_thesis_tpu_torch.data.fama_french import FamaFrench25Portfolios as FF
+
+    rng = np.random.default_rng(seed)
+    market = rng.normal(0.03, 1.0, n_rows)
+    ff3 = ["created by CMPT_ME_BEME_RETS_DAILY"] * (FF.ff3_skip - 1) + [""]
+    ff3.append("," + ",".join(FF.ff3_cols[1:]))
+    p25 = ["created by CMPT_ME_BEME_RETS_DAILY"] * (FF.p25_skip - 1) + [""]
+    p25.append("," + ",".join(FF.p25_cols[1:]))
+    for i in range(n_rows):
+        date = 19260701 + i
+        ff3.append(f"{date},{market[i]:8.2f},{0.0:8.2f},{0.0:8.2f},{0.01:8.3f}")
+        values = 1.1 * market[i] + rng.normal(0.0, 0.8, 25)
+        p25.append(f"{date}," + ",".join(f"{v:8.2f}" for v in values))
+    raw_dir.mkdir(parents=True, exist_ok=True)
+    (raw_dir / FF.ff3_filename).write_text("\n".join(ff3) + "\n")
+    (raw_dir / FF.p25_filename).write_text("\n".join(p25) + "\n")
+
+
+def test_real_data_stream_epoch_then_test(tmp_path, capsys):
+    """``train datamodule=real trainer.epoch_mode=stream`` on CSVs in the
+    Ken French layout (3,125 old rows skipped, 400 kept: 63 windows, 44 to
+    train), then ``test`` on its checkpoint root, its ``best`` tree and a
+    pre-manifest copy of ``best`` as a ``.pt`` file."""
+    from masters_thesis_tpu_torch.data.fama_french import FamaFrench25Portfolios as FF
+
+    raw = tmp_path / "raw"
+    _write_ken_french_csvs(raw, FF.skip_old_data + 400)
+    common = ["--device", "cpu", "datamodule=real",
+              f"datamodule.raw_dir={raw}",
+              f"datamodule.data_dir={tmp_path / 'real'}",
+              f"logger.save_dir={tmp_path}", "model.hidden_size=8",
+              "trainer.enable_progress_bar=true"]
+    train_main([*common, "trainer.epoch_mode=stream", "trainer.max_epochs=2"])
+    out = capsys.readouterr().out.splitlines()
+    done = re.fullmatch(r"done: best_val=(\S+) test_mae=(\S+) test_nll=(\S+) "
+                        r"steps/sec=(\S+)", out[-1])
+    assert done and all(math.isfinite(float(v)) for v in done.groups())
+    assert len([ln for ln in out if ln.startswith("epoch ")]) == 2
+    assert np.load(tmp_path / "real" / "stocks.npy").shape == (25, 400)
+    log_dir = Path(tmp_path, "FinancialLstm", "real", "mse_small_lr0.0001_fast")
+    rows = _epoch_rows(log_dir)
+    assert [r["step"] for r in rows] == [0, 1]
+    assert all(r["data/prefetch_mean_depth"] > 0 and r["data/get_wait_s"] > 0
+               for r in rows)
+    ckpts = log_dir / "checkpoints"
+    state, opt_state, spec, meta = restore_checkpoint(ckpts, "last")
+    assert opt_state["count"] == 2 * 44  # batch_size 1: no tail to pad
+    assert meta["datamodule"] == {
+        "lookback_window": 60, "target_window": 30, "stride": 5,
+        "prediction_task": True, "interaction_only": True, "batch_size": 1}
+
+    legacy = tmp_path / "legacy"
+    legacy.mkdir()
+    best, best_opt, best_spec, best_meta = restore_checkpoint(ckpts, "best")
+    torch.save({"state_dict": best, "opt_state": best_opt,
+                "spec": dataclasses.asdict(best_spec),
+                "scheduler": best_meta.pop("scheduler"), "meta": best_meta},
+               legacy / "best.pt")
+    tables = []
+    for checkpoint in (ckpts, ckpts / "best", legacy / "best.pt"):
+        assert cli_test.main(["--device", "cpu", "datamodule=real",
+                              f"datamodule.raw_dir={raw}",
+                              f"datamodule.data_dir={tmp_path / 'real'}",
+                              f"logger.save_dir={tmp_path}",
+                              f"checkpoint={checkpoint}"]) == 0
+        table = [ln for ln in capsys.readouterr().out.splitlines()
+                 if "dL_MSE" in ln]
+        assert [ln.split(":")[0].strip() for ln in table] == ["model", "ols"]
+        tables.append(table)
+    assert tables[0] == tables[1] == tables[2]
+    results = json.loads((log_dir / "results.json").read_text())
+    assert all(math.isfinite(v) for key in ("model", "ols")
+               for v in results["delta_losses"][key].values())
+
+
+@pytest.mark.parametrize("overrides", [
+    ["trainer.epoch_mode=stream"],
+    ["datamodule=real"],
+], ids=["trainer.epoch_mode=stream", "datamodule=real"])
+def test_lifted_keys_are_accepted(overrides):
+    cli_train.check_supported(cli_train.compose_config(overrides))

@@ -34,7 +34,9 @@ def test_port_imports_with_jax_blocked():
     for name in ("serve.server", "train.trainer", "train.checkpoint",
                  "train.flatparams", "train.logging", "data.pipeline",
                  "ops.losses", "ops.linalg", "evaluation", "config.compose",
-                 "config.yaml_subset", "cli.train", "cli.test", "__main__"):
+                 "config.yaml_subset", "cli.train", "cli.test", "__main__",
+                 "resilience.faults", "train.manifest", "data.fama_french",
+                 "data.prefetch"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -227,13 +227,15 @@ def test_checkpoint_round_trip_is_atomic(tmp_path):
     state = {"w": torch.arange(6.0).reshape(2, 3)}
     path = save_checkpoint(tmp_path, "last", state, {"count": 3},
                            {"lr": 0.5}, {"epoch": 4})
-    assert path == tmp_path / "last.pt"
+    assert path == tmp_path / "last"
     save_checkpoint(tmp_path, "last", {"w": state["w"] + 1}, None, None,
                     {"epoch": 5})
     loaded, opt_state, sched, meta = load_checkpoint(tmp_path, "last")
     torch.testing.assert_close(loaded["w"], state["w"] + 1)
     assert opt_state is None and sched is None and meta == {"epoch": 5}
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["last.json", "last.pt"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "last", "last.json", "last.prev", "last.prev.json"]
+    assert sorted(p.name for p in path.iterdir()) == ["MANIFEST.json", "state.pt"]
 
 
 def test_failed_publish_keeps_the_previous_file(tmp_path):
