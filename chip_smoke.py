@@ -39,7 +39,16 @@ process, and the best checkpoint served through
 ``PredictEngine.from_checkpoint``. ``resilience`` kills a run in the middle
 of a checkpoint's publish (``MTT_FAULT_PLAN``) and resumes it bit for bit,
 and corrupts a published checkpoint, which the restore and the server must
-catch.
+catch. The rest of serving closes the run: ``serve_faults`` (a fault plan
+on ``serve.admit`` and ``serve.dispatch``, its counts held to the plan's),
+``serve_preflight`` (``python -m masters_thesis_tpu_torch.serve
+preflight`` as a child), ``serve_swap`` (the canaried hot-swap through the
+bucket graphs under steady load: the driver's trained ``best`` committed,
+then a corrupted, a NaN and a model=medium candidate refused, every answer
+bit-equal to an engine on the old or the new checkpoint; model=medium
+commits under load too) and ``serve_knee`` (an open-loop ramp with
+telemetry on: the knee, ``/metrics`` against ``stats()``, the request
+spans checked and attributed, telemetry on against off).
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -54,6 +63,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
@@ -63,7 +73,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -85,6 +97,14 @@ from masters_thesis_tpu_torch.ops.windows import (
 )
 from masters_thesis_tpu_torch.serve.engine import PredictEngine
 from masters_thesis_tpu_torch.serve.server import PredictServer
+from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
+from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+from masters_thesis_tpu_torch.telemetry.trace import (
+    SERVE_COMPONENTS,
+    collect_spans,
+    serve_attribution,
+    validate_spans,
+)
 from masters_thesis_tpu_torch.cli import train as cli_train
 from masters_thesis_tpu_torch.data.fama_french import FamaFrench25Portfolios
 from masters_thesis_tpu_torch.data.prefetch import prefetch_to_device
@@ -93,6 +113,7 @@ from masters_thesis_tpu_torch.train.checkpoint import (
     CorruptCheckpointError,
     load_checkpoint,
     restore_checkpoint,
+    save_checkpoint,
 )
 from masters_thesis_tpu_torch.train.manifest import (
     last_verified_checkpoint,
@@ -168,6 +189,7 @@ TRAIN_SAMPLES = 200_000
 TRAIN_EPOCHS = 2
 CLIP, LR, WD = 5.0, 1e-4, 1e-5
 PARITY_STEPS = 20
+LONG_PARITY_STEPS = 10  # at T=252 the CPU side dominates the script's time
 # Card against CPU over the same steps from the same weights. Losses: 1e-5
 # relative (f32 sums over 3,000 terms in another order). Parameters: 1e-5
 # abs, a tenth of one Adam step (lr): equal gradients up to f32 rounding
@@ -178,6 +200,12 @@ PARITY_LOSS_RTOL = 1e-5
 PARITY_PARAM_TOL = 1e-5
 GRAD_RTOL = 1e-4
 DEVICE = "cuda"  # the card the phases run on
+
+
+def swap_root() -> Path:
+    """Checkpoints of the serve_swap phase (the driver's ``best`` and
+    seeded saves), under the git-ignored data directory."""
+    return Path(__file__).resolve().parent / "data" / "chip_smoke" / "serve_swap"
 
 
 def data_dir(stocks: int) -> Path:
@@ -1031,10 +1059,12 @@ def _max_err(got, want) -> float:
     return float(max(np.abs(g - w).max() for g, w in zip(got, want)))
 
 
-def _burst(engine, windows: np.ndarray) -> tuple[list, list, dict, float]:
-    """Bursts of requests through a PredictServer on ``engine``: the
-    responses, the windows sent, the server's stats and the seconds."""
-    server = PredictServer(engine, max_wait_s=0.002)
+def _burst(engine, windows: np.ndarray,
+           telemetry=None) -> tuple[list, list, dict, float]:
+    """Bursts of requests through a PredictServer on ``engine`` (with
+    ``telemetry``, if given): the responses, the windows sent, the
+    server's stats and the seconds."""
+    server = PredictServer(engine, max_wait_s=0.002, telemetry=telemetry)
     bursts = (1, 2, 4, 8, 3, 8, 5, 1, 6, 8, 2, 7, 4, 1, 8)
     sent, responses = [], []
     server.start()
@@ -1302,14 +1332,15 @@ def _window_batches(dm, n: int) -> list:
             for i in range(n)]
 
 
-def _train_parity(dm, spec, phase: str, kernels: tuple, per_step: int = 1) -> dict:
-    """``spec`` with dropout 0: PARITY_STEPS steps on the same windows, in
+def _train_parity(dm, spec, phase: str, kernels: tuple, per_step: int = 1,
+                  steps: int = PARITY_STEPS) -> dict:
+    """``spec`` with dropout 0: ``steps`` steps on the same windows, in
     the same order, from the same weights, on the card and on the CPU (plain
     versions); each of ``kernels`` launches ``per_step`` times a step on the
     card."""
     state = spec.build_module(
         device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
-    batches = _window_batches(dm, PARITY_STEPS)
+    batches = _window_batches(dm, steps)
     lk.reset_launch_counts()
     gpu_losses, gpu_grads, gpu_state, _ = _run_steps(spec, state, batches, DEVICE)
     launches = dict(lk.LAUNCHES)
@@ -1324,7 +1355,7 @@ def _train_parity(dm, spec, phase: str, kernels: tuple, per_step: int = 1) -> di
         "phase": phase,
         "num_layers": spec.num_layers,
         "lookback": dm.lookback_window,
-        "steps": PARITY_STEPS,
+        "steps": steps,
         "rows_per_step": rows,
         "loss_first": cpu_losses[0],
         "loss_last": cpu_losses[-1],
@@ -1342,7 +1373,7 @@ def _train_parity(dm, spec, phase: str, kernels: tuple, per_step: int = 1) -> di
             and grad_gap <= GRAD_RTOL):
         raise AssertionError(f"card and CPU trajectories differ: {out}")
     missed = {k: launches[k] for k in kernels
-              if launches[k] != per_step * PARITY_STEPS}
+              if launches[k] != per_step * steps}
     if missed:
         raise AssertionError(f"{phase}: not {per_step} a step: {missed}")
     return out
@@ -1460,9 +1491,10 @@ def phase_train_medium(dm) -> dict:
 def phase_train_long_parity(dm) -> dict:
     """model=small at full width with dropout 0 on 100-row windows of 252
     days: both layers alone, each through the time-blocked forward and
-    backward once a step."""
+    backward once a step, LONG_PARITY_STEPS steps."""
     return _train_parity(dm, _train_spec(dropout=0.0), "train_long_parity",
-                         ("lstm_tb_fwd", "lstm_tb_bwd"), per_step=2)
+                         ("lstm_tb_fwd", "lstm_tb_bwd"), per_step=2,
+                         steps=LONG_PARITY_STEPS)
 
 
 def _print_delta_table(delta: dict) -> None:
@@ -2019,12 +2051,15 @@ def phase_driver(train: dict) -> dict:
             "train", *common, f"trainer.max_epochs={TRAIN_EPOCHS}")
         run_dir = save_dir / "FinancialLstm" / "synthetic" / "mse_small_lr0.0001_fast"
         ckpts = run_dir / "checkpoints"
-        test_lines, test_launches, test_s = _cli(
-            "test", *common, f"checkpoint={ckpts}")
-        warm_lines, warm_launches, warm_s = _cli(
-            "train", *common, f"checkpoint={ckpts / 'best'}",
-            "checkpoint_mode=params", "trainer.max_epochs=1",
-            "logger.version=warm_start")
+        # The test and the warm start side by side (both only read the
+        # run's checkpoints).
+        test_run, warm_run = _wait_all([
+            _Child("test", *common, f"checkpoint={ckpts}", side_by_side=2),
+            _Child("train", *common, f"checkpoint={ckpts / 'best'}",
+                   "checkpoint_mode=params", "trainer.max_epochs=1",
+                   "logger.version=warm_start", side_by_side=2)])
+        test_lines, test_launches, test_s = _cli_result(test_run)
+        warm_lines, warm_launches, warm_s = _cli_result(warm_run)
         warm_dir = run_dir.parent / "warm_start"
         done, warm_done = _done(run_lines), _done(warm_lines)
         delta = {m.group(1): dict(zip(("delta_mse_x1e5", "delta_nll",
@@ -2036,6 +2071,12 @@ def phase_driver(train: dict) -> dict:
         files = {f"{d.name}/{tag}": verify_checkpoint(d / "checkpoints" / tag,
                                                      require_manifest=True)
                  for d in (run_dir, warm_dir) for tag in ("best", "last")}
+        # The trained ``best`` is serve_swap's candidate.
+        kept = swap_root() / "driver"
+        shutil.rmtree(kept, ignore_errors=True)
+        kept.mkdir(parents=True)
+        shutil.copytree(ckpts / "best", kept / "best")
+        shutil.copy2(ckpts / "best.json", kept / "best.json")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
     out = {
@@ -2526,6 +2567,523 @@ def phase_resilience() -> dict:
     return out
 
 
+# ------------------------------------------------------- the rest of serving
+
+# The steady load under the swaps: open loop at 400 requests a second (the
+# knee phase runs later, so not half the knee), a generous deadline.
+SWAP_RATE = 400.0
+SWAP_DEADLINE_S = 0.25
+# The knee: bench.py's ramp (--serve-sustained) on one engine: stages of
+# 1.5 s from 25% of max_bucket / batch_s, x1.4 a stage, at most 7; a stage
+# is sustainable at <= 10% shed and p99 <= the deadline, max(50 ms, 20 x
+# batch_s); plus one light stage at 400 requests a second first. Two
+# departures, both because this server is bound by the host's Python and
+# not by the card, so max_bucket / batch_s overstates what it can carry:
+# "shed" counts every request not served (shed at admission, rejected late
+# at dispatch, errors), where bench.py counts only the first (the first
+# stage of the ramp, at 3,908 offered a second, answered half its requests
+# and shed 2.3% at admission; NVIDIA H100 80GB HBM3, 700.00 W); and when
+# the ramp's first stage is not sustainable, it steps down by 1.4 a stage
+# to the first one that is.
+KNEE_STAGE_S = 1.5
+KNEE_RAMP = 1.4
+KNEE_MAX_STAGES = 7
+KNEE_SHED_PCT_MAX = 10.0
+KNEE_LIGHT_RATE = 400.0
+COMPLETED_METRIC = re.compile(r"^mtt_serve_completed\{[^}]*\} (\S+)$", re.M)
+
+
+class _RecordingEngine(PredictEngine):
+    """The engine as served, keeping each batch the dispatch thread sent it
+    and the answers it gave (the other callers', the canary's and the
+    golden reads', are not kept): what the swap phases hold bit for bit
+    against an engine on each checkpoint."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dispatched: list[tuple] = []
+
+    def predict(self, x, params=None):
+        out = super().predict(x, params)
+        if threading.current_thread().name == "serve-dispatch":
+            self.dispatched.append((np.array(x, np.float32), *out))
+        return out
+
+
+def _paced(server, windows: np.ndarray, rate: float, deadline_s: float,
+           done) -> tuple[list, float, float]:
+    """Submit ``windows`` in turn at ``rate`` a second, open loop, until
+    ``done(seconds so far)``: the i-th request is due at i / rate from the
+    start and goes as soon as it is due (a late pacer catches up). Returns
+    the pending requests, the rate achieved and the seconds."""
+    pendings = []
+    t0 = time.perf_counter()
+    while True:
+        now = time.perf_counter()
+        if done(now - t0):
+            break
+        due = t0 + len(pendings) / rate
+        if due > now:
+            time.sleep(due - now)
+        pendings.append(server.submit(windows[len(pendings) % len(windows)],
+                                      deadline_s=deadline_s))
+    seconds = time.perf_counter() - t0
+    return pendings, len(pendings) / seconds, seconds
+
+
+def _latency_ms(responses: list) -> dict:
+    lat = np.array([1e3 * r.latency_s for r in responses if r.ok])
+    return {"p50_ms": float(np.percentile(lat, 50)) if lat.size else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat.size else None,
+            "max_ms": float(lat.max()) if lat.size else None,
+            "ok": int(lat.size)}
+
+
+def _seeded_save(ckpt_dir: Path, spec, seed: int, lookback: int = T,
+                 nan: bool = False) -> Path:
+    """A published ``best`` of seeded weights (the alpha head's bias NaN
+    with ``nan``)."""
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(seed)
+    ).state_dict()
+    if nan:
+        state["alpha_head.bias"] = torch.full_like(state["alpha_head.bias"],
+                                                   float("nan"))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    save_checkpoint(ckpt_dir, "best", state, spec=spec,
+                    meta={"epoch": 0, "datamodule": {"lookback_window": lookback}})
+    return ckpt_dir
+
+
+@contextlib.contextmanager
+def _fault_plan(plan: dict | None):
+    """``MTT_FAULT_PLAN`` set to ``plan`` (JSON) inside, as a run would be
+    given it; nothing set for ``None``."""
+    if plan is None:
+        yield
+        return
+    os.environ[faults.FAULT_PLAN_ENV] = json.dumps(plan)
+    try:
+        yield
+    finally:
+        del os.environ[faults.FAULT_PLAN_ENV]
+
+
+def _swap_under_load(phase: str, live: _RecordingEngine, refs: dict,
+                     windows: np.ndarray, swaps: list) -> dict:
+    """Steady open-loop load (SWAP_RATE, SWAP_DEADLINE_S) through a
+    PredictServer on ``live`` while each ``(name, ckpt_dir, plan, reason)``
+    of ``swaps`` is tried in turn, 0.2 s apart; then the gates: each swap's
+    reason; every request resolved and none late; no capture; every
+    dispatch's answers bit-equal to the ``old`` or the ``new`` reference
+    engine's on the same batch, and no old answer after the first new one;
+    the golden answers unchanged by a refusal and, after a commit, the new
+    engine's. ``launches`` counts the live engine's: the served batches,
+    the canaries and the golden reads (the reference engines run outside
+    the count). The few requests submitted inside the swaps' windows
+    (``during_swaps``) get their count, p50 and maximum, no p99."""
+    server = PredictServer(live, max_wait_s=0.002)
+    swapper = CheckpointSwapper(live)
+    golden = swapper.golden_x
+    new_golden = refs["new"].predict(golden)
+    server.start()
+    captures = live.compile_events
+    lk.reset_launch_counts()
+    live.dispatched.clear()
+    loaded: list = []
+    stop = threading.Event()
+    feeder = threading.Thread(target=lambda: loaded.append(_paced(
+        server, windows, SWAP_RATE, SWAP_DEADLINE_S, lambda _: stop.is_set())))
+    feeder.start()
+    results = []
+    try:
+        for name, ckpt_dir, plan, reason in swaps:
+            time.sleep(0.2)
+            before = live.predict(golden)
+            with _fault_plan(plan):
+                t_a = time.monotonic()
+                verdict = swapper.try_swap(ckpt_dir, "best")
+                t_b = time.monotonic()
+            after = live.predict(golden)
+            want = new_golden if verdict.ok else before
+            results.append({
+                "swap": name, "reason": verdict.reason, "expected": reason,
+                "detail": verdict.detail,
+                "step_s": dict(swapper.step_seconds),
+                "window_s": [t_a, t_b],
+                "golden_bit_equal": all(np.array_equal(g, w)
+                                        for g, w in zip(after, want)),
+            })
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        feeder.join(timeout=30.0)
+    pendings, achieved, load_s = loaded[0]
+    responses = [p.result(timeout=60.0) for p in pendings]
+    stats = server.stop()
+    launches = dict(lk.LAUNCHES)
+    # Each dispatch against both references on the same batch (the same
+    # bucket's graph): bit-equal to one of them.
+    labels, rows = [], {"old": set(), "new": set()}
+    for x, a, b in live.dispatched:
+        label = next((k for k in ("old", "new")
+                      if all(np.array_equal(g, w) for g, w in
+                             zip((a, b), refs[k].predict(x)))), "neither")
+        labels.append(label)
+        if label != "neither":
+            rows[label].update((ai.tobytes(), bi.tobytes())
+                               for ai, bi in zip(a, b))
+    answers = []
+    for p, r in sorted(zip(pendings, responses),
+                       key=lambda pr: pr[1].delivered_ts):
+        if r.ok:
+            key = (r.outputs[0].tobytes(), r.outputs[1].tobytes())
+            answers.append("old" if key in rows["old"] else
+                           "new" if key in rows["new"] else "neither")
+    first_new = answers.index("new") if "new" in answers else len(answers)
+    in_swap = [any(t_a <= p.request.submitted_ts <= t_b
+                   for t_a, t_b in (s["window_s"] for s in results))
+               for p in pendings]
+    during = [r for r, inside in zip(responses, in_swap) if inside]
+    outside = [r for r, inside in zip(responses, in_swap) if not inside]
+    out = {
+        "phase": phase,
+        "swaps": [{k: v for k, v in s.items() if k != "window_s"}
+                  for s in results],
+        "requests": len(responses),
+        "offered_per_s": SWAP_RATE, "achieved_per_s": achieved,
+        "load_s": load_s,
+        "statuses": {st: sum(r.status == st for r in responses)
+                     for st in sorted({r.status for r in responses})},
+        "late_deliveries": stats["late_deliveries"],
+        "handback_max_ms": stats["handback_max_ms"],
+        "late_ok_seen": sum(r.ok and r.delivered_ts > p.request.deadline_ts
+                            for p, r in zip(pendings, responses)),
+        "new_captures": live.compile_events - captures,
+        "dispatches": {k: labels.count(k) for k in ("old", "new", "neither")},
+        "answers": {k: answers.count(k) for k in ("old", "new", "neither")},
+        "old_after_new": answers[first_new:].count("old"),
+        "during_swaps": {"requests": len(during), **{
+            k: v for k, v in _latency_ms(during).items() if k != "p99_ms"}},
+        "outside_swaps": {"requests": len(outside), **_latency_ms(outside)},
+        "launches": launches,
+    }
+    emit(out)
+    bad = [s for s in results if s["reason"] != s["expected"]
+           or not s["golden_bit_equal"]]
+    if bad:
+        raise AssertionError(f"{phase}: swaps off their verdicts: {bad}")
+    if out["late_deliveries"] or out["late_ok_seen"]:
+        raise AssertionError(f"{phase}: late answers: {out}")
+    if out["new_captures"]:
+        raise AssertionError(f"{phase}: a swap captured a graph: {out}")
+    if out["dispatches"]["neither"] or out["answers"]["neither"]:
+        raise AssertionError(f"{phase}: answers of neither checkpoint: {out}")
+    if out["old_after_new"] or labels != sorted(labels, key=["old", "new"].index):
+        raise AssertionError(f"{phase}: an old answer after a new one: {out}")
+    if not out["answers"]["old"] or not out["answers"]["new"]:
+        raise AssertionError(f"{phase}: the load did not span the commit: {out}")
+    return out
+
+
+def phase_serve_swap(windows: np.ndarray, windows_medium: np.ndarray) -> dict:
+    """The canaried hot-swap on the card, graphs on, under steady load:
+    model=small (100 stocks) serving seeded weights takes the driver
+    phase's trained ``best``, then refuses the same checkpoint corrupted by
+    ``serve.pre_swap`` (verify_failed), a NaN save (canary_nonfinite) and a
+    model=medium save (shape_mismatch); model=medium (25 stocks) then
+    commits one seeded save for another under load."""
+    root = swap_root()
+    spec, spec_m = _small_spec(), _medium_spec()
+    old = _seeded_save(root / "small_seeded", spec, seed=11)
+    new = root / "driver"
+    corrupt = root / "driver_corrupt"
+    shutil.rmtree(corrupt, ignore_errors=True)
+    shutil.copytree(new, corrupt)
+    nan = _seeded_save(root / "small_nan", spec, seed=12, nan=True)
+    medium_old = _seeded_save(root / "medium_seeded", spec_m, seed=21)
+    medium_new = _seeded_save(root / "medium_other", spec_m, seed=22)
+
+    def engines(ckpt_old, ckpt_new, stocks):
+        kw = dict(n_stocks=stocks, device=DEVICE)
+        live = _RecordingEngine.from_checkpoint(ckpt_old, **kw)
+        return live, {"old": PredictEngine.from_checkpoint(ckpt_old, **kw),
+                      "new": PredictEngine.from_checkpoint(ckpt_new, **kw)}
+
+    live, refs = engines(old, new, K_STOCKS)
+    plan = {"seed": 3, "faults": [{"point": "serve.pre_swap",
+                                   "kind": "corrupt", "attempt": None}]}
+    small = _swap_under_load("serve_swap", live, refs, windows, [
+        ("driver_best", new, None, "committed"),
+        ("driver_best_corrupted", corrupt, plan, "verify_failed"),
+        ("nan", nan, None, "canary_nonfinite"),
+        ("medium", medium_old, None, "shape_mismatch"),
+    ])
+    live, refs = engines(medium_old, medium_new, K_MEDIUM)
+    medium = _swap_under_load("serve_swap_medium", live, refs, windows_medium,
+                              [("medium_other", medium_new, None, "committed")])
+    return {"small": small, "medium": medium}
+
+
+def phase_serve_faults(windows: np.ndarray, n: int = 32) -> dict:
+    """A fault plan (``MTT_FAULT_PLAN``) on the model=small server on the
+    card, ``n`` requests one at a time (one dispatch each, so the dispatch
+    numbers are the plan's): ``serve.admit`` wedge on rids 3, 7 and 11
+    (shed, category ``fault``); ``serve.dispatch`` wedge on dispatches 5,
+    6 and 7 (three ``error`` answers, one breaker trip at the default
+    threshold 3); ``serve.dispatch`` nan on dispatches 12 and 13 (two
+    answers withheld). The counts must equal the plan's."""
+    spec = _small_spec()
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    engine = PredictEngine(spec, state, n_stocks=K_STOCKS, lookback=T,
+                           n_features=3, device=DEVICE)
+    plan = {"seed": 0, "faults": (
+        [{"point": "serve.admit", "kind": "wedge", "attempt": None,
+          "match": {"rid": rid}} for rid in (3, 7, 11)]
+        + [{"point": "serve.dispatch", "kind": "wedge", "attempt": None,
+            "match": {"seq": seq}} for seq in (5, 6, 7)]
+        + [{"point": "serve.dispatch", "kind": "nan", "attempt": None,
+            "match": {"seq": seq}} for seq in (12, 13)])}
+    want = {"fault_sheds": 3, "injected_errors": 3, "withheld": 2,
+            "breaker_trips": 1, "ok": n - 8, "unresolved": 0,
+            "late_deliveries": 0}
+    server = PredictServer(engine, max_wait_s=0.002)
+    server.start()
+    lk.reset_launch_counts()
+    responses, unresolved = [], 0
+    with _fault_plan(plan):
+        try:
+            for i in range(n):
+                try:
+                    responses.append(server.submit(
+                        windows[i % len(windows)], deadline_s=5.0
+                    ).result(timeout=30.0))
+                except TimeoutError:
+                    unresolved += 1
+        finally:
+            stats = server.stop()
+    launches = dict(lk.LAUNCHES)
+    got = {
+        "fault_sheds": stats["shed_by_reason"].get("fault", 0),
+        "injected_errors": sum("InjectedDeviceError" in r.detail
+                               for r in responses if r.status == "error"),
+        "withheld": sum("non-finite" in r.detail
+                        for r in responses if r.status == "error"),
+        "breaker_trips": stats["breaker_trips"],
+        "ok": sum(r.ok for r in responses),
+        "unresolved": unresolved,
+        "late_deliveries": stats["late_deliveries"],
+    }
+    out = {"phase": "serve_faults", "plan": plan, "requests": n, "got": got,
+           "want": want, "shed_by_reason": stats["shed_by_reason"],
+           "dispatches": stats["dispatches"], "launches": launches}
+    emit(out)
+    if got != want:
+        raise AssertionError(f"serve_faults: counts off the plan: {got} != "
+                             f"{want}")
+    return out
+
+
+def _start_preflight() -> subprocess.Popen:
+    """``python -m masters_thesis_tpu_torch.serve preflight`` as a child on
+    the card, started now, waited for by ``phase_serve_preflight``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "masters_thesis_tpu_torch.serve", "preflight"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def phase_serve_preflight(child: subprocess.Popen) -> dict:
+    """The serve preflight's child (``_start_preflight``): exit 0, one
+    capture a bucket, every capture's peak within the card's memory (SV304
+    held against ``mem_get_info``), the swap under load committed."""
+    try:
+        stdout, stderr = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    facts = next((json.loads(line)["preflight"] for line in stdout.splitlines()
+                  if line.startswith('{"preflight"')), {})
+    out = {"phase": "serve_preflight", "exit": child.returncode,
+           "facts": facts, "report": stdout.splitlines()[-2:]}
+    emit(out)
+    if child.returncode != 0:
+        raise AssertionError(f"serve_preflight: exit {child.returncode}: "
+                             f"{stdout[-2000:]} {stderr[-2000:]}")
+    peaks = facts.get("capture_peak_bytes") or {}
+    if (facts.get("captures") != len(peaks) or not peaks
+            or not all(0 < v <= facts["device_total_bytes"]
+                       for v in peaks.values())):
+        raise AssertionError(f"serve_preflight: SV304 not held on the card: "
+                             f"{facts}")
+    if facts.get("swap", {}).get("reason") != "committed":
+        raise AssertionError(f"serve_preflight: the swap rule did not run: "
+                             f"{facts}")
+    return out
+
+
+def _scrape_completed(url: str) -> float:
+    body = urllib.request.urlopen(url + "/metrics", timeout=10).read().decode()
+    match = COMPLETED_METRIC.search(body)
+    return float(match.group(1)) if match else 0.0
+
+
+def _knee_stage(server, windows: np.ndarray, rate: float,
+                deadline_s: float) -> dict:
+    pendings, achieved, seconds = _paced(server, windows, rate, deadline_s,
+                                         lambda s: s >= KNEE_STAGE_S)
+    t0 = time.perf_counter() - seconds
+    responses = [p.result(timeout=60.0) for p in pendings]
+    wall = time.perf_counter() - t0
+    lat = _latency_ms(responses)
+    scraped = _scrape_completed(server.metrics_url)
+    completed = server.stats()["completed"]
+    n = max(1, len(responses))
+    shed = sum(r.status == "shed" for r in responses)
+    stage = {
+        "offered_per_s": rate, "achieved_per_s": achieved,
+        "requests": len(responses), "completed": lat["ok"],
+        "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+        "shed_pct": 100.0 * (len(responses) - lat["ok"]) / n,
+        "admission_shed_pct": 100.0 * shed / n,
+        "errors": sum(r.status == "error" for r in responses),
+        "rejected_late": sum(r.status == "rejected_late" for r in responses),
+        "delivered_per_s": lat["ok"] / wall,
+        "metrics_completed": scraped, "stats_completed": completed,
+        # The admission forecast's batch seconds at the stage's end.
+        "forecast_batch_ms": 1e3 * server.service_model.batch_s,
+    }
+    stage["sustainable"] = (
+        stage["completed"] > 0 and stage["shed_pct"] <= KNEE_SHED_PCT_MAX
+        and stage["p99_ms"] <= deadline_s * 1e3)
+    return stage
+
+
+def phase_serve_knee(windows: np.ndarray) -> dict:
+    """The serving knee of one model=small engine (graphs on) with
+    telemetry on and a /metrics endpoint: the light stage, then the ramp
+    (KNEE_*: up from its first stage while stages are sustainable, the
+    knee the last that is; or down while they are not, the knee the first
+    that is); the load comes from this process (``_paced``); each stage scrapes /metrics once, whose completed count must
+    equal ``stats()``'s; then every request span must validate and tile its
+    wall, and the attribution of the p50 and p99 request is printed. Last,
+    p50 and p99 of the same closed-loop bursts with telemetry off and on
+    (off, on, on, off), the cost of the spans."""
+    spec = _small_spec()
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    engine = PredictEngine(spec, state, n_stocks=K_STOCKS, lookback=T,
+                           n_features=3, device=DEVICE)
+    tel_dir = Path(tempfile.mkdtemp(prefix="serve_knee_"))
+    try:
+        tel = TelemetryRun(tel_dir / "knee", run_id="serve-knee")
+        server = PredictServer(engine, telemetry=tel, max_wait_s=0.002,
+                               metrics_port=0)
+        server.start()
+        batch_s = server.service_model.batch_s
+        deadline_s = max(0.05, 20.0 * batch_s)
+        capacity = engine.max_bucket / batch_s
+        lk.reset_launch_counts()
+        # The cyclic collector's passes during the ramp (generation and
+        # seconds): a pause stalls the dispatch thread with the rest.
+        collections, started = [], {}
+
+        def on_gc(stage, info):
+            if stage == "start":
+                started["t"] = time.perf_counter()
+            else:
+                collections.append((info["generation"],
+                                    time.perf_counter() - started["t"]))
+
+        gc.callbacks.append(on_gc)
+        try:
+            light = _knee_stage(server, windows, KNEE_LIGHT_RATE, deadline_s)
+            stages, knee = [], None
+            rate = 0.25 * capacity
+            for _ in range(KNEE_MAX_STAGES):
+                stage = _knee_stage(server, windows, rate, deadline_s)
+                stages.append(stage)
+                up = stages[0]["sustainable"]
+                if stage["sustainable"]:
+                    knee = stage
+                if stage["sustainable"] != up:
+                    break
+                rate = rate * KNEE_RAMP if up else rate / KNEE_RAMP
+        finally:
+            gc.callbacks.remove(on_gc)
+            stats = server.stop()
+            memory = tel.sample_memory("serve_knee")
+            tel.close()
+        launches = dict(lk.LAUNCHES)
+        spans = collect_spans(tel_dir / "knee")["spans"]
+        problems = validate_spans(spans)
+        requests = [s for s in spans if s["name"] == "serve.request"]
+        untiled = [s["span_id"] for s in requests if s["status"] == "ok"
+                   and abs(sum(s["attrs"][k] for k in SERVE_COMPONENTS)
+                           - s["dur_s"]) > 1e-9]
+        attribution = serve_attribution(spans)
+        device_ms = np.array([1e3 * s["dur_s"] for s in spans
+                              if s["name"] == "serve.device"])
+        bursts = {}
+        for label in ("off", "on", "on", "off"):
+            run = (TelemetryRun(tel_dir / f"burst_{len(bursts)}")
+                   if label == "on" else None)
+            _, _, burst, _ = _burst(engine, windows, telemetry=run)
+            if run is not None:
+                run.close()
+            bursts.setdefault(label, []).append(
+                {"p50_ms": burst["p50_ms"], "p99_ms": burst["p99_ms"]})
+    finally:
+        shutil.rmtree(tel_dir, ignore_errors=True)
+    out = {
+        "phase": "serve_knee", "batch_s": batch_s, "deadline_ms": deadline_s * 1e3,
+        "capacity_per_s": capacity, "light": light, "stages": stages,
+        "knee_offered_per_s": None if knee is None else knee["offered_per_s"],
+        "knee_achieved_per_s": None if knee is None else knee["achieved_per_s"],
+        "knee": knee,
+        "spans": {"requests": len(requests), "total": len(spans),
+                  "problems": problems[:5], "untiled": len(untiled)},
+        "attribution": None if attribution is None else {
+            "queue_wait_share": attribution["queue_wait_share"],
+            "compute_share": attribution["compute_share"],
+            "p50": attribution["p50"], "p99": attribution["p99"],
+            "shed_by_reason": attribution["shed_by_reason"]},
+        "stats": {k: stats[k] for k in ("requests", "completed", "shed",
+                                        "late_converted", "late_deliveries",
+                                        "handback_max_ms", "dispatches",
+                                        "queue_wait_share", "compute_share")},
+        "handback_guard_ms": 1e3 * server.handback_guard_s,
+        "telemetry_off_on": bursts,
+        # serve.device spans: the predict's wall a dispatch (what the
+        # admission forecast is fed).
+        "device_span_ms": {"p50": float(np.percentile(device_ms, 50)),
+                           "p99": float(np.percentile(device_ms, 99)),
+                           "max": float(device_ms.max()),
+                           "n": int(device_ms.size)},
+        "collections": {f"gen{g}": {"n": sum(c[0] == g for c in collections),
+                                    "max_s": max((c[1] for c in collections
+                                                  if c[0] == g), default=0.0)}
+                        for g in range(3)},
+        "memory": memory,
+        "launches": launches,
+    }
+    emit(out)
+    if knee is None:
+        raise AssertionError(f"serve_knee: no sustainable stage: {stages}")
+    scraped = [(s["metrics_completed"], s["stats_completed"])
+               for s in [light] + stages]
+    if any(m != c for m, c in scraped):
+        raise AssertionError(f"serve_knee: /metrics off stats(): {scraped}")
+    if problems or untiled or len(requests) != stats["requests"]:
+        raise AssertionError(f"serve_knee: request spans broken: "
+                             f"{out['spans']}, {stats['requests']} requests")
+    if stats["late_deliveries"]:
+        raise AssertionError(f"serve_knee: late answers: {stats}")
+    return out
+
+
 def phase_ab(label: str) -> None:
     """The pair, single-layer, time-blocked and stack kernels of whatever
     checkout this copy of the script sits in, for comparing two checkouts
@@ -2647,7 +3205,16 @@ def main() -> int:
                  {"lstm_stack_fwd_masked": 1, "lstm_stack_bwd": 1,
                   "lstm_fwd": 1, "lstm_bwd": 1, "lstm_wgrad": 2})
     real = phase_real_medium(train_medium)
-    phase_resilience()
+    # The serve preflight's child runs beside resilience's (neither is
+    # timed).
+    preflight = _start_preflight()
+    try:
+        phase_resilience()
+        phase_serve_preflight(preflight)
+    finally:
+        if preflight.poll() is None:
+            preflight.kill()
+            preflight.communicate()
     serve_long = phase_serve_long(_synthetic_windows(lookback=T_LONG,
                                                      stride=STRIDE_LONG))
     dm_long = _train_datamodule(lookback=T_LONG, stride=STRIDE_LONG)
@@ -2656,6 +3223,30 @@ def main() -> int:
     phase_train_long_remat(dm_long)
     phase_graphs(dm_long, _train_spec(), "graphs_long",
                  {"lstm_tb_fwd": 2, "lstm_tb_bwd": 2})
+    # The rest of serving: the fault plan, the swaps under load, the knee.
+    # They run as a serving process would, on a heap collected once and
+    # frozen (gc.freeze): the collector's passes then scan what serving
+    # allocates, not the objects the phases above left (generation-2
+    # passes over those took 0.23-0.87 s on an NVIDIA H100 80GB HBM3 host
+    # at 700.00 W, and stalled the load and the dispatch thread alike).
+    gc.collect()
+    gc.freeze()
+    serve_faults = phase_serve_faults(windows)
+    serve_swap = phase_serve_swap(windows, _synthetic_windows(K_MEDIUM))
+    serve_knee = phase_serve_knee(windows)
+    # The maskless pair forward's and the stack forward's launches on the
+    # serving phases of this slice.
+    serve_paths = {
+        "lstm_pair_fwd": {"serve_swap": serve_swap["small"],
+                          "serve_faults": serve_faults,
+                          "serve_knee": serve_knee},
+        "lstm_stack_fwd": {"serve_swap_medium": serve_swap["medium"]},
+    }
+    missed = {f"{phase}/{name}": path["launches"][name]
+              for name, paths in serve_paths.items()
+              for phase, path in paths.items() if not path["launches"][name]}
+    if missed:
+        raise AssertionError(f"serving phases missed their kernels: {missed}")
     # Each kernel's launches on the path it serves, and its times at the
     # shape of that path: model=small serving at 8 windows (800 rows) and
     # training at one window a step (100 rows); model=medium serving at 8
@@ -2707,6 +3298,10 @@ def main() -> int:
                       "real_medium": real["launches"]["train"]}
             summary[-1]["launches_by_path"] = {
                 STREAM_PATHS[name]: counts[STREAM_PATHS[name]][counter]}
+        if name in serve_paths:
+            summary[-1].setdefault("launches_by_path", {}).update(
+                {phase: path["launches"][name]
+                 for phase, path in serve_paths[name].items()})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -15,27 +15,31 @@ easy to find:
                package's parameter tree
 - ``train``  — the step functions, ``FlatAdam``, the plateau scheduler,
                checkpoints and the ``Trainer``
-- ``serve``  — the micro-batching queue, ``PredictEngine`` and
-               ``PredictServer``
+- ``serve``  — the micro-batching queue, ``PredictEngine``,
+               ``PredictServer``, the canaried hot-swap, the preflight
+               and the ``python -m masters_thesis_tpu_torch.serve`` CLI
+- ``telemetry`` — the event log, metrics registry, request spans and the
+               ``/metrics`` endpoint (stdlib only)
 
-The package imports ``torch`` and numpy only. Entry points run on the card
-unless the caller passes ``device="cpu"``.
+The package imports ``torch`` and numpy only, and this module imports
+neither, so the torch-free serving selfcheck can import the package. Entry
+points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless told otherwise.
 
     Raises when CUDA is asked for (explicitly or by default) and absent —
     the port never carries on on the CPU by itself; a caller that wants the
     CPU passes ``device="cpu"``.
     """
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -23,15 +23,21 @@ The port fires these points: ``checkpoint.pre_publish``,
 in ``train/checkpoint.py``, with the context ``tag`` (as the JAX package)
 and ``epoch`` (the save's, so that a plan can pick one save);
 ``trainer.epoch_dispatched`` and ``trainer.loss`` (``nan``) in
-``train/trainer.py``, with the context ``epoch``. The other points are
-accepted so that a plan written for the JAX package parses here too; they
-fire nowhere in the port yet.
+``train/trainer.py``, with the context ``epoch``; and, with the JAX
+package's context keys, ``serve.admit`` in ``serve/queue.py`` (``rid``,
+``depth``; ``wedge`` sheds the request, ``shift`` shifts its window by
+:func:`shift_params`), ``serve.dispatch`` in ``serve/server.py`` (``seq``,
+``n``; ``wedge`` fails the dispatch, ``nan`` withholds its answers) and
+``serve.pre_swap`` in ``serve/swap.py`` (``tag``; ``corrupt`` flips a byte
+of the candidate). The other points are accepted so that a plan written for
+the JAX package parses here too; they fire nowhere in the port yet.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import signal
 import sys
 import time
@@ -226,3 +232,10 @@ def corruption_seed(extra: int = 0) -> int:
     """Deterministic seed for a data-kind corruption at a call site."""
     plan = active_plan()
     return (plan.seed if plan is not None else 0) * 1_000_003 + extra
+
+
+def shift_params(extra: int = 0) -> tuple[float, float]:
+    """Seeded ``(scale, offset)`` for the ``shift`` kind, as the JAX
+    package draws them: scale in [1.25, 1.75), offset in [0.25, 0.75)."""
+    rng = random.Random(corruption_seed(extra))
+    return 1.0 + rng.uniform(0.25, 0.75), rng.uniform(0.25, 0.75)

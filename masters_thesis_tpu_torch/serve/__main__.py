@@ -1,0 +1,205 @@
+"""``python -m masters_thesis_tpu_torch.serve`` — the serving gates.
+
+    python -m masters_thesis_tpu_torch.serve selfcheck
+    python -m masters_thesis_tpu_torch.serve preflight [--device cpu] [--json]
+
+Counterpart of ``python -m masters_thesis_tpu.serve``:
+
+- ``selfcheck`` imports no torch. It drives the real queue, admission
+  control, dispatch loop and deadline enforcement with a fake engine, as
+  the JAX selfcheck's checks 1–4 do: the happy path, overload (explicit
+  sheds, no late answer), a shed forced by the ``serve.admit`` fault point
+  (category ``fault``), and the canary's verdict math; and the breaker half
+  of its check 5: scripted dispatch failures trip the breaker, the trip is
+  counted and traffic recovers on the same engine (the port has no CPU
+  degradation). Exit 1 on any failure.
+- ``preflight`` runs ``serve/preflight.py`` (SV301–SV304 and the one-engine
+  SV308) on the card, or on the CPU with ``--device cpu``: one JSON line
+  of what the rules measured, then the findings. Exit 1 on findings.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+import time
+
+
+class _FakeEngine:
+    """Torch-free engine stand-in: the engine protocol with a configurable
+    service time and failure script."""
+
+    def __init__(self, service_s: float = 0.001, buckets=(1, 2, 4)):
+        import numpy as np
+
+        self._np = np
+        self.service_s = service_s
+        self.buckets = tuple(buckets)
+        self.window_shape = (2, 3, 1)
+        self.max_bucket = self.buckets[-1]
+        self.compile_events = 0
+        self.platform = "fake"
+        self.fail_next = 0  # raise on the next N predict calls
+
+    def warmup(self) -> float:
+        return self.service_s
+
+    def predict(self, x, params=None):
+        time.sleep(self.service_s)
+        if self.fail_next > 0:
+            self.fail_next -= 1
+            raise RuntimeError("scripted device failure")
+        n, k = x.shape[0], self.window_shape[0]
+        return (self._np.zeros((n, k), self._np.float32),
+                self._np.zeros((n, k), self._np.float32))
+
+
+def _selfcheck(args) -> int:
+    import numpy as np
+
+    from masters_thesis_tpu_torch.resilience import faults
+    from masters_thesis_tpu_torch.serve.queue import STATUS_OK, STATUS_SHED
+    from masters_thesis_tpu_torch.serve.server import PredictServer
+    from masters_thesis_tpu_torch.serve.swap import canary_checks
+    from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+
+    failures: list[str] = []
+    window = np.zeros((2, 3, 1), np.float32)
+
+    # 1. Happy path: generous deadlines, everything completes before them.
+    server = PredictServer(_FakeEngine(service_s=0.001), max_wait_s=0.002)
+    server.start()
+    pending = [server.submit(window, deadline_s=5.0) for _ in range(10)]
+    results = [p.result(timeout=10.0) for p in pending]
+    server.stop()
+    if not all(r.status == STATUS_OK for r in results):
+        failures.append("happy path: statuses "
+                        f"{sorted({r.status for r in results})} != ['ok']")
+    if any(r.delivered_ts > p.request.deadline_ts
+           for p, r in zip(pending, results)):
+        failures.append("happy path: a response was delivered past its "
+                        "deadline")
+
+    # 2. Overload: slow engine + tight deadlines -> explicit sheds, zero
+    #    late ok-deliveries, every request resolved.
+    server = PredictServer(_FakeEngine(service_s=0.02, buckets=(1, 2)),
+                           max_wait_s=0.001)
+    server.start()
+    pending = [server.submit(window, deadline_s=0.05) for _ in range(20)]
+    results = [p.result(timeout=10.0) for p in pending]
+    stats = server.stop()
+    if stats["shed"] + stats["late_converted"] == 0:
+        failures.append(f"overload: nothing was shed or rejected ({stats})")
+    if stats["late_deliveries"] != 0:
+        failures.append(f"overload: {stats['late_deliveries']} late "
+                        "ok-deliveries")
+    if any(r.status == STATUS_OK and r.delivered_ts > p.request.deadline_ts
+           for p, r in zip(pending, results)):
+        failures.append("overload: ok response delivered late")
+
+    # 3. A shed forced by the serve.admit fault point.
+    faults.install_plan(faults.FaultPlan.parse(
+        '{"faults": [{"point": "serve.admit", "kind": "wedge",'
+        ' "attempt": null}]}'))
+    try:
+        server = PredictServer(_FakeEngine())
+        server.start()
+        r = server.submit(window, deadline_s=5.0).result(timeout=5.0)
+        stats = server.stop()
+    finally:
+        faults.clear_plan()
+    if r.status != STATUS_SHED or "fault" not in r.detail:
+        failures.append(f"fault shed: got status={r.status!r} "
+                        f"detail={r.detail!r}")
+    if stats["shed_by_reason"] != {"fault": 1}:
+        failures.append(f"fault shed: categories {stats['shed_by_reason']}")
+
+    # 4. Canary verdict math (the numpy core of the swap gate).
+    ok_pair = (np.zeros((1, 2)), np.zeros((1, 2)))
+    nan_pair = (np.full((1, 2), np.nan), np.zeros((1, 2)))
+    big_pair = (np.full((1, 2), 1e9), np.zeros((1, 2)))
+    if not canary_checks(ok_pair, ok_pair).ok:
+        failures.append("canary: identical outputs rejected")
+    if canary_checks(ok_pair, nan_pair).ok:
+        failures.append("canary: NaN candidate accepted")
+    if canary_checks(ok_pair, big_pair).ok:
+        failures.append("canary: exploded candidate accepted")
+    if canary_checks(ok_pair, (np.ones((1, 2)), np.zeros((1, 2))),
+                     max_drift=0.5).ok:
+        failures.append("canary: drift budget not enforced")
+
+    # 5. The breaker: two scripted failures trip it once; the same engine
+    #    then serves the next request.
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = TelemetryRun(tmp, run_id="serve-selfcheck")
+        engine = _FakeEngine(service_s=0.001)
+        server = PredictServer(engine, telemetry=tel, breaker_threshold=2,
+                               max_wait_s=0.001)
+        server.start()
+        engine.fail_next = 2
+        # Sequential submit/await: each failure is its own dispatch.
+        failed = [server.submit(window, deadline_s=5.0).result(timeout=10.0)
+                  for _ in range(2)]
+        ok_after = server.submit(window, deadline_s=5.0).result(timeout=10.0)
+        stats = server.stop()
+        tel.close()
+    if [r.status for r in failed] != ["error", "error"]:
+        failures.append(f"breaker: failed dispatches answered "
+                        f"{[r.status for r in failed]}")
+    if stats["breaker_trips"] != 1:
+        failures.append(f"breaker: {stats['breaker_trips']} trips (wanted 1)")
+    if ok_after.status != STATUS_OK:
+        failures.append(f"breaker: request after the trip {ok_after.status!r}")
+
+    if sys.modules.get("torch") is not None:
+        failures.append("the selfcheck imported torch")
+    if failures:
+        print("serve: selfcheck FAILED: " + "; ".join(failures))
+        return 1
+    print("serve: selfcheck ok")
+    return 0
+
+
+def _preflight(args) -> int:
+    from masters_thesis_tpu_torch.analysis.findings import format_report
+    from masters_thesis_tpu_torch.serve.preflight import run_serve_preflight
+
+    findings, facts = run_serve_preflight(device=args.device,
+                                          requests=args.requests)
+    print(json.dumps({"preflight": facts}, default=str))
+    print(format_report(findings, as_json=args.json))
+    if not findings and not args.json:
+        print("serve: preflight ok (one capture a bucket, none in steady "
+              "state, no implicit sync, captures fit the device, a swap "
+              "under load captures nothing and is never late)")
+    return 1 if findings else 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m masters_thesis_tpu_torch.serve",
+        description="serving gates: torch-free selfcheck + preflight")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p_check = sub.add_parser(
+        "selfcheck",
+        help="torch-free smoke of queue/admission/deadline/breaker/canary")
+    p_check.set_defaults(fn=_selfcheck)
+    p_pre = sub.add_parser(
+        "preflight", help="predict-path audit on the card (SV301-SV304, "
+        "SV308)")
+    p_pre.add_argument("--device", default=None,
+                       help="cpu to run on the CPU (default: the card)")
+    p_pre.add_argument("--requests", type=int, default=12, metavar="N",
+                       help="steady-state requests driven through the hot "
+                       "path")
+    p_pre.add_argument("--json", action="store_true",
+                       help="machine-readable findings")
+    p_pre.set_defaults(fn=_preflight)
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

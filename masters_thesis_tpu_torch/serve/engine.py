@@ -7,15 +7,31 @@ Counterpart of ``masters_thesis_tpu/serve/engine.py`` with the same contract:
 batch past the largest bucket with :class:`BucketOverflowError`.
 
 A bucket is one program, as in the JAX engine: on the card the forward at
-the bucket's shape is one CUDA graph over a static input buffer, captured by
+the bucket's shape is one CUDA graph over static buffers, captured by
 ``warmup`` (or at the bucket's first use) and replayed for every batch
 (``compile_events`` counts the captures); the padding keeps the shapes the
 kernels see to the bucket ladder. On the CPU, or with ``cuda_graphs=False``,
-the same forward runs eagerly over the same static buffer and nothing is
-captured. ``from_checkpoint`` boots an engine from a published checkpoint
+the same forward runs eagerly over the same static buffers and nothing is
+captured. A dispatch on the card makes one synchronisation, the explicit
+wait for its own answers: the batch goes in through a pinned buffer by a
+``non_blocking`` copy, the answers come back into pinned buffers the same
+way, and ``predict`` waits on a CUDA event recorded after them (the serve
+preflight's SV302 holds this under ``torch.cuda.set_sync_debug_mode``).
+
+Hot-swap (``serve/swap.py``): the graphs were captured on the module's own
+parameter tensors, so weights enter a graphed program only by an in-place
+``copy_`` into those tensors, under the lock ``predict`` holds: nothing
+rebinds a parameter (no ``load_state_dict(assign=True)``, no ``p.data =``),
+which would leave every graph reading freed memory. ``put_params`` stages a
+candidate on the device after checking its signature, ``set_params``
+commits it (an in-flight batch ends on the old weights, the next starts on
+the new) and returns the old weights, and ``predict(x, params=candidate)``
+runs a candidate through the SAME bucket program as live traffic, then
+copies the live weights back before it releases the lock. Neither captures
+anything. ``from_checkpoint`` boots an engine from a published checkpoint
 after verifying it strictly. The mesh, the program cache (a CUDA graph
-cannot be written to disk), cost profiles, hot-swap and CPU degradation of
-the JAX engine are not ported.
+cannot be written to disk), cost profiles and CPU degradation of the JAX
+engine are not ported.
 """
 
 from __future__ import annotations
@@ -74,6 +90,13 @@ class PredictEngine:
         self.graphed = cuda_graphs and self.device.type == "cuda"
         self._lock = threading.Lock()
         self._programs: dict[int, _BucketProgram] = {}
+        #: The tensors the programs read (and the graphs were captured on):
+        #: the module's parameters and buffers, by state-dict key.
+        self._live = self._module.state_dict(keep_vars=True)
+        #: Bytes the card's allocator peaked at during each bucket's
+        #: capture (``warmup`` on the card): SV304 holds them against the
+        #: card's memory.
+        self.capture_peak_bytes: dict[int, int] = {}
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir, tag: str = "best", *, n_stocks: int,
@@ -131,11 +154,19 @@ class PredictEngine:
         """Capture every bucket's graph on the card (each after one eager run
         on a zero batch), as the JAX engine compiles every bucket, then run
         the largest bucket twice; returns the wall seconds of the second
-        run (seeds the queue's service-time model)."""
+        run (seeds the queue's service-time model). Each capture's peak of
+        the allocator goes into ``capture_peak_bytes`` (the allocator's
+        peak statistic is reset before each)."""
         if self.graphed:
             with self._lock, torch.inference_mode():
                 for b in self.buckets:
-                    self._program(b).run()
+                    program = self._program(b)
+                    if program.captured:
+                        continue
+                    torch.cuda.reset_peak_memory_stats(self.device)
+                    program.run()
+                    self.capture_peak_bytes[b] = int(
+                        torch.cuda.max_memory_allocated(self.device))
         k, t, f = self.window_shape
         x = np.zeros((self.max_bucket, k, t, f), np.float32)
         self.predict(x)
@@ -152,8 +183,51 @@ class PredictEngine:
             self._programs[bucket] = program
         return program
 
-    def predict(self, x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Run one micro-batch, padded to its bucket; numpy in and out."""
+    def golden_batch(self, n: int = 1, seed: int = 0) -> np.ndarray:
+        """Deterministic canary input of this engine's window shape,
+        bitwise the JAX engine's."""
+        k, t, f = self.window_shape
+        rng = np.random.default_rng(seed)
+        return rng.standard_normal((n, k, t, f)).astype(np.float32)
+
+    def put_params(self, state_dict: Mapping[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+        """A candidate's tensors placed on the engine's device (canary
+        staging; swaps nothing). Raises ``ValueError`` unless its keys,
+        shapes and dtypes are the serving tensors'."""
+        got, want = state_signature(state_dict), state_signature(self._live)
+        if got != want:
+            raise ValueError(
+                "candidate state dict does not match the serving tensors: "
+                f"{sorted(set(got) ^ set(want))}")
+        return {k: torch.as_tensor(v).detach().to(self.device, copy=True)
+                for k, v in state_dict.items()}
+
+    def set_params(self, params: Mapping[str, torch.Tensor]
+                   ) -> dict[str, torch.Tensor]:
+        """Commit ``params`` (from ``put_params``) into the serving tensors,
+        in place, under the engine lock; returns a copy of the old
+        weights. A batch in flight finishes on the old weights, the next
+        one runs on the new."""
+        with self._lock, torch.inference_mode():
+            old = {k: v.detach().clone() for k, v in self._live.items()}
+            self._copy_in(params)
+        return old
+
+    def _copy_in(self, params: Mapping[str, torch.Tensor]) -> None:
+        """``params`` into the serving tensors by ``copy_``; under the
+        lock. The tensors stay the ones the graphs read."""
+        for k, v in self._live.items():
+            v.copy_(params[k])
+
+    def predict(self, x: np.ndarray, params: Mapping[str, torch.Tensor]
+                | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """Run one micro-batch, padded to its bucket; numpy in and out.
+
+        ``params`` (from ``put_params``) overrides the serving weights for
+        this call only: they are copied into the serving tensors, the
+        bucket's own program runs, and the serving weights are copied back
+        before the lock is released (the canary path)."""
         x = np.asarray(x, np.float32)
         if x.ndim != 4 or x.shape[1:] != self.window_shape:
             raise ValueError(
@@ -170,29 +244,50 @@ class PredictEngine:
             x = np.concatenate([x, pad], axis=0)
         with self._lock, torch.inference_mode():
             program = self._program(b)
-            program.x.copy_(torch.from_numpy(np.ascontiguousarray(x)))
-            # A bucket's first run on the card is its eager warm-up (this
-            # batch's answer) and its capture; every later one a replay.
-            program.run()
-            # Copied out before the lock is released: the next batch of
-            # this bucket overwrites the outputs (on the CPU too, where
-            # .cpu() would return the buffer itself).
-            alpha = program.alpha[..., 0].to("cpu", copy=True).numpy()
-            beta = program.beta[..., 0].to("cpu", copy=True).numpy()
+            program.load(x)
+            live = None
+            if params is not None:
+                live = {k: v.clone() for k, v in self._live.items()}
+                self._copy_in(params)
+            try:
+                # A bucket's first run on the card is its eager warm-up
+                # (this batch's answer) and its capture; every later one a
+                # replay.
+                program.run()
+            finally:
+                if live is not None:
+                    self._copy_in(live)
+            # Read before the lock is released: the next batch of this
+            # bucket overwrites the outputs and the staging buffers.
+            alpha, beta = program.read()
         return alpha[:n], beta[:n]
+
+
+def state_signature(state_dict: Mapping[str, torch.Tensor]
+                    ) -> list[tuple[str, tuple, str]]:
+    """(key, shape, dtype) of each tensor of a state dict, in key order:
+    what a candidate must share with the serving weights."""
+    return [(k, tuple(v.shape), str(v.dtype))
+            for k, v in sorted(state_dict.items())]
 
 
 class _BucketProgram:
     """The deterministic forward at one bucket's shape, from the static input
     ``x`` into the static outputs ``alpha`` and ``beta``. ``run`` is the
     eager forward, or its CUDA graph, captured in a thread-local mode so
-    that a server's other threads keep running."""
+    that a server's other threads keep running. On the card the batch and
+    the answers pass through pinned host buffers (``load``, ``read``)."""
 
     def __init__(self, module, shape: tuple, device, graphed: bool):
         self.module = module
+        self.device = device
         self.x = torch.zeros(shape, device=device)
         self.alpha = torch.zeros(shape[:2] + (1,), device=device)
         self.beta = torch.zeros(shape[:2] + (module.n_factors,), device=device)
+        if device.type == "cuda":
+            self.x_host = torch.zeros(shape, pin_memory=True)
+            self.alpha_host = torch.zeros(shape[:2], pin_memory=True)
+            self.beta_host = torch.zeros(shape[:2], pin_memory=True)
         self.run = (GraphedCall(self._forward, device=device,
                                 name=f"bucket {shape[0]}",
                                 capture_error_mode="thread_local")
@@ -206,3 +301,27 @@ class _BucketProgram:
         alpha, beta = forward_rows(self.module, self.x)
         self.alpha.copy_(alpha)
         self.beta.copy_(beta)
+
+    def load(self, x: np.ndarray) -> None:
+        """The padded batch into ``x``: on the card through the pinned
+        buffer, by a copy that does not wait."""
+        if self.device.type != "cuda":
+            self.x.copy_(torch.from_numpy(np.ascontiguousarray(x)))
+            return
+        self.x_host.numpy()[...] = x
+        self.x.copy_(self.x_host, non_blocking=True)
+
+    def read(self) -> tuple[np.ndarray, np.ndarray]:
+        """Copies of the answers (alpha and beta's first factor). On the card
+        they come back into pinned buffers by copies that do not wait,
+        then one wait on an event recorded after them: the dispatch's only
+        synchronisation."""
+        if self.device.type != "cuda":
+            return (self.alpha[..., 0].numpy().copy(),
+                    self.beta[..., 0].numpy().copy())
+        self.alpha_host.copy_(self.alpha[..., 0], non_blocking=True)
+        self.beta_host.copy_(self.beta[..., 0], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return self.alpha_host.numpy().copy(), self.beta_host.numpy().copy()

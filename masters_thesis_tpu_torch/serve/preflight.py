@@ -1,0 +1,238 @@
+"""Serve preflight: prove the predict hot path neither captures nor syncs.
+
+Counterpart of ``masters_thesis_tpu/serve/preflight.py`` for one engine on
+one device. It builds a hermetic engine (4 stocks, lookback 8, H=8, one
+layer, seeded weights), warms every bucket, drives a steady window of
+varied batch sizes and holds the serving contract:
+
+- **SV301**: ``warmup`` captures exactly one CUDA graph per bucket on the
+  card and none on the CPU, and ``compile_events`` grows by 0 over the
+  steady window.
+- **SV302**: the card's counterpart of ``transfer_guard("disallow")``. The
+  steady window runs under ``torch.cuda.set_sync_debug_mode("error")``,
+  which raises at any synchronising call PyTorch knows of: a copy from
+  pageable memory, ``.to("cpu")``, ``.item()``, a stream synchronise
+  (checked on the H100 with torch 2.11). A dispatch's one wait, for its
+  own answers, is on a CUDA event recorded after ``non_blocking`` copies
+  into pinned buffers, which the mode does not count. Skipped on the CPU,
+  where nothing is asynchronous.
+- **SV303**: the preflight could not run, or its answers are not finite.
+- **SV304**: each bucket's peak of the card's allocator during its
+  capture (``PredictEngine.capture_peak_bytes``) fits the card's memory
+  (``torch.cuda.mem_get_info``'s total). Skipped on the CPU.
+- **SV308**, for one engine: a ``CheckpointSwapper.try_swap`` that commits
+  while a server carries steady load captures nothing new
+  (``compile_events`` unchanged), resolves every request and delivers no
+  answer late.
+
+Not ported, each for its reason:
+
+- **SV305** (a warm program-cache boot compiles nothing): a CUDA graph
+  cannot be written to disk, so the port has no program cache to boot
+  from.
+- **SV306** (a fleet survives a replica's death): the fleet puts replicas
+  on disjoint devices and one card holds one replica; it waits for the
+  multi-device work.
+- **SV307** (stacked serving compiles one program per bucket whatever the
+  lane count): stacked lanes are not ported.
+"""
+
+from __future__ import annotations
+
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+from masters_thesis_tpu_torch.analysis.findings import Finding
+
+PREFLIGHT_STOCKS = 4
+PREFLIGHT_LOOKBACK = 8
+PREFLIGHT_FEATURES = 3
+PREFLIGHT_BUCKETS = (1, 2, 4, 8)
+PREFLIGHT_REQUESTS = 12
+
+
+def _preflight_spec():
+    from masters_thesis_tpu_torch.models.objectives import ModelSpec
+
+    return ModelSpec(objective="mse", hidden_size=8, num_layers=1,
+                     dropout=0.0)
+
+
+def _state(spec, seed: int) -> dict:
+    return spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(seed)
+    ).state_dict()
+
+
+def _engine(spec, state, device):
+    from masters_thesis_tpu_torch.serve.engine import PredictEngine
+
+    return PredictEngine(spec, state, n_stocks=PREFLIGHT_STOCKS,
+                         lookback=PREFLIGHT_LOOKBACK,
+                         n_features=PREFLIGHT_FEATURES,
+                         buckets=PREFLIGHT_BUCKETS,
+                         device=device)
+
+
+def run_serve_preflight(device=None, requests: int = PREFLIGHT_REQUESTS
+                        ) -> tuple[list[Finding], dict]:
+    """Build a hermetic engine on ``device`` (the card unless told
+    ``"cpu"``) and audit its hot path: ``(findings, facts)``, findings []
+    when clean; ``facts`` holds what the rules measured (captures, each
+    bucket's capture peak and the card's total bytes, the swap's verdict
+    and counts)."""
+    facts: dict = {}
+    try:
+        return _run(device, requests, facts), facts
+    except Exception as exc:  # noqa: BLE001 — SV303 carries the cause
+        return [Finding(rule="SV303", message="preflight could not run: "
+                        f"{type(exc).__name__}: {exc}")], facts
+
+
+def _run(device, requests, facts: dict) -> list[Finding]:
+    findings: list[Finding] = []
+    spec = _preflight_spec()
+    engine = _engine(spec, _state(spec, 0), device)
+    on_card = engine.device.type == "cuda"
+    facts["device"] = str(engine.device)
+    engine.warmup()
+    facts["captures"] = engine.compile_events
+    want = len(engine.buckets) if on_card and engine.graphed else 0
+    if engine.compile_events != want:
+        findings.append(Finding(
+            rule="SV301",
+            message=f"warmup captured {engine.compile_events} graphs for "
+            f"{len(engine.buckets)} buckets {engine.buckets} on "
+            f"{engine.device} (expected {want})"))
+
+    if on_card:
+        _, total = torch.cuda.mem_get_info(engine.device)
+        facts["device_total_bytes"] = total
+        facts["capture_peak_bytes"] = dict(engine.capture_peak_bytes)
+        for b in engine.buckets:
+            peak = engine.capture_peak_bytes.get(b)
+            if peak is not None and peak > total:
+                findings.append(Finding(
+                    rule="SV304",
+                    message=f"bucket {b} peaked at {peak} bytes during its "
+                    f"capture, past the card's {total} bytes — this bucket "
+                    "would run out of memory at its first request"))
+
+    # Steady window: request sizes sweep every bucket boundary (exact fits
+    # and pad-to-bucket), inputs made on the host beforehand.
+    rng = np.random.default_rng(0)
+    sizes = [1 + (i % engine.max_bucket) for i in range(requests)]
+    k, t, f = engine.window_shape
+    inputs = [rng.standard_normal((n, k, t, f)).astype(np.float32)
+              for n in sizes]
+    baseline = engine.compile_events
+    answers = []
+    if on_card:
+        torch.cuda.synchronize(engine.device)
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x in inputs:
+            answers.append(engine.predict(x))
+    except RuntimeError as exc:
+        if not on_card:
+            raise
+        findings.append(Finding(
+            rule="SV302",
+            message=f"implicit host synchronisation in the serve hot path: "
+            f"{exc}"))
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode("default")
+    delta = engine.compile_events - baseline
+    facts["steady_requests"] = len(answers)
+    facts["steady_new_captures"] = delta
+    if delta:
+        findings.append(Finding(
+            rule="SV301",
+            message=f"steady-state serving captured {delta} new graph(s) "
+            f"over {requests} varied-size requests (expected 0)"))
+    if not all(np.isfinite(a).all() and np.isfinite(b).all()
+               for a, b in answers):
+        findings.append(Finding(
+            rule="SV303",
+            message="preflight predictions are non-finite on random inputs "
+            "(engine wiring is broken)"))
+    findings += _swap_under_load(engine, spec, facts)
+    return findings
+
+
+def _swap_under_load(engine, spec, facts: dict, duration_s: float = 0.5,
+                     gap_s: float = 0.002) -> list[Finding]:
+    """SV308 for one engine: commit a swap while a server carries steady
+    load."""
+    from masters_thesis_tpu_torch.serve.server import PredictServer
+    from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
+    from masters_thesis_tpu_torch.train.checkpoint import save_checkpoint
+
+    findings: list[Finding] = []
+    k, t, f = engine.window_shape
+    windows = np.random.default_rng(1).standard_normal(
+        (16, k, t, f)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, "best", _state(spec, 1), spec=spec,
+                        meta={"epoch": 1,
+                              "datamodule": {"lookback_window": t}})
+        server = PredictServer(engine, max_wait_s=0.002)
+        swapper = CheckpointSwapper(engine)
+        pendings = []
+        stop = threading.Event()
+
+        def load() -> None:
+            i = 0
+            while not stop.is_set():
+                pendings.append(server.submit(windows[i % len(windows)],
+                                              deadline_s=2.0))
+                i += 1
+                time.sleep(gap_s)
+
+        server.start()
+        baseline = engine.compile_events
+        feeder = threading.Thread(target=load, name="preflight-load")
+        feeder.start()
+        try:
+            time.sleep(duration_s / 2)
+            verdict = swapper.try_swap(tmp, "best")
+            time.sleep(duration_s / 2)
+        finally:
+            stop.set()
+            feeder.join(timeout=10.0)
+            unresolved = 0
+            for p in pendings:
+                try:
+                    p.result(timeout=10.0)
+                except TimeoutError:
+                    unresolved += 1
+            stats = server.stop()
+    delta = engine.compile_events - baseline
+    facts["swap"] = {"reason": verdict.reason, "requests": len(pendings),
+                     "unresolved": unresolved, "new_captures": delta,
+                     "late_deliveries": stats["late_deliveries"],
+                     "completed": stats["completed"]}
+    if not verdict.ok:
+        findings.append(Finding(
+            rule="SV308",
+            message=f"the swap under load was refused: {verdict.reason} "
+            f"({verdict.detail})"))
+    if delta:
+        findings.append(Finding(
+            rule="SV308",
+            message=f"a hot-swap under load captured {delta} new graph(s) — "
+            "a swap is an in-place copy into the captured tensors and must "
+            "never capture"))
+    if unresolved or stats["late_deliveries"]:
+        findings.append(Finding(
+            rule="SV308",
+            message=f"across the swap {unresolved} request(s) did not "
+            f"resolve and {stats['late_deliveries']} ok answer(s) came late "
+            f"(of {len(pendings)})"))
+    return findings
+

@@ -1,7 +1,6 @@
 """Deadline-aware micro-batching queue with admission control.
 
-Counterpart of ``masters_thesis_tpu/serve/queue.py``, without its fault
-injection points (the chaos suite comes later). The request path's
+Counterpart of ``masters_thesis_tpu/serve/queue.py``. The request path's
 robustness rules live here, independent of the device:
 
 - every request carries an absolute deadline (monotonic clock);
@@ -10,12 +9,27 @@ robustness rules live here, independent of the device:
 - admission control sheds load EARLY: a request whose deadline the current
   backlog already makes infeasible (estimated via an EWMA of measured
   batch service time) is rejected at submit time with an explicit ``shed``
-  response instead of being served late;
+  response instead of being served late. Only a served batch updates the
+  EWMA, so once one slow batch had pushed the forecast past every
+  deadline, the JAX queue's rule would shed every later request and never
+  serve the batch that would correct it. Here, and only there, the port
+  departs from the JAX queue: a request the forecast would shed, at an
+  empty queue whose forecast no batch has refreshed for ``PROBE_AFTER_S``,
+  is admitted as a probe (``ServeRequest.probe``); the server's dispatch
+  re-check lets it run, and its batch's measurement replaces the forecasts
+  instead of being blended into them. Every other admission and update is
+  the JAX queue's;
 - the server converts any response that would still be delivered past its
   deadline into an explicit rejection (server.py);
 - admission is TENANT-aware: every request bills to a tenant
   (:class:`TenantClass`) with its own deadline class, shed accounting and
   EWMA service model, used for its forecasts once it has been served.
+
+Fault point ``serve.admit`` (context ``rid``, ``depth``): kind ``wedge``
+forces a shed at submit (category ``fault`` in the server's accounting);
+kind ``shift`` applies the plan's seeded scale and offset
+(``faults.shift_params``) to the admitted window instead. Imports no
+torch: the serving selfcheck drives this module without it.
 """
 
 from __future__ import annotations
@@ -24,6 +38,13 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
+
+from masters_thesis_tpu_torch.resilience import faults
+
+#: Seconds without a measured batch after which a service-time forecast
+#: is stale: a request it would shed at an empty queue is admitted as a
+#: probe (see ``MicroBatchQueue.submit``).
+PROBE_AFTER_S = 1.0
 
 #: Response statuses. ``shed`` and ``rejected_late`` are both explicit
 #: rejections — the difference is WHEN the server gave up: at admission
@@ -53,6 +74,11 @@ class ServeRequest:
     #: the lane owner). Pure accounting/admission metadata — dispatch
     #: fans every request across all lanes regardless.
     tenant: str = DEFAULT_TENANT
+    #: Set by the queue when it admits a request its forecast would shed,
+    #: at an empty queue whose forecast has gone stale: the server skips
+    #: its dispatch re-check and the batch's measurement replaces the
+    #: forecasts.
+    probe: bool = False
 
 
 @dataclass
@@ -108,6 +134,7 @@ class ServiceTimeModel:
     def __init__(self, alpha: float = 0.3, initial_s: float = 0.05):
         self.alpha = alpha
         self._batch_s = initial_s
+        self._updated_ts = time.monotonic()
         self._lock = threading.Lock()
 
     @property
@@ -119,13 +146,29 @@ class ServiceTimeModel:
         """Reset to a measured value (the engine's warmup timing)."""
         with self._lock:
             self._batch_s = max(1e-6, batch_s)
+            self._updated_ts = time.monotonic()
 
-    def update(self, batch_s: float) -> None:
+    def update(self, batch_s: float, replace: bool = False) -> None:
+        """Fold a measured batch into the EWMA; ``replace`` (a probe's
+        batch) sets the forecast to the measurement instead: the forecast
+        it would be blended with is the one that stopped the server
+        measuring."""
         with self._lock:
-            self._batch_s = (
-                self.alpha * max(1e-6, batch_s)
-                + (1.0 - self.alpha) * self._batch_s
-            )
+            if replace:
+                self._batch_s = max(1e-6, batch_s)
+            else:
+                self._batch_s = (
+                    self.alpha * max(1e-6, batch_s)
+                    + (1.0 - self.alpha) * self._batch_s
+                )
+            self._updated_ts = time.monotonic()
+
+    def stale(self, now: float) -> bool:
+        """True when no measurement has set or updated the model for
+        ``PROBE_AFTER_S`` (``MicroBatchQueue.submit`` then admits a
+        request the forecast would shed at an empty queue, as a probe)."""
+        with self._lock:
+            return now - self._updated_ts > PROBE_AFTER_S
 
     def estimate_completion_s(self, queue_depth: int, max_batch: int) -> float:
         """Seconds until a request admitted NOW would complete: the batches
@@ -235,9 +278,11 @@ class MicroBatchQueue:
             t = self._tenants.get(name)
             return t.deadline_s if t is not None else None
 
-    def note_service(self, tenants, batch_s: float) -> None:
+    def note_service(self, tenants, batch_s: float,
+                     replace: bool = False) -> None:
         """Fold one measured batch service time into each named tenant's
-        EWMA (called by the dispatch loop after compute)."""
+        EWMA (called by the dispatch loop after compute); ``replace`` for
+        a probe's batch (``ServiceTimeModel.update``)."""
         with self._cond:
             ts = [
                 self._tenants[n] for n in set(tenants) if n in self._tenants
@@ -245,7 +290,7 @@ class MicroBatchQueue:
             for t in ts:
                 t.observed += 1
         for t in ts:  # EWMA has its own lock; keep it out of _cond
-            t.model.update(batch_s)
+            t.model.update(batch_s, replace=replace)
 
     def tenant_stats(self) -> dict:
         """``{tenant: {admitted, shed, deadline_ms, batch_ms}}`` snapshot."""
@@ -290,6 +335,16 @@ class MicroBatchQueue:
             closed = self._closed
         if closed:
             return self._shed(pending, "server shutting down")
+        fired = faults.fire("serve.admit", rid=request.rid, depth=depth)
+        if fired == "wedge":
+            return self._shed(pending, "injected admission shed (fault)")
+        if fired == "shift":
+            # The request is still served, on a window from a shifted
+            # regime (the quality plane's deterministic trigger).
+            scale, offset = faults.shift_params()
+            request.x = (request.x * scale + offset).astype(
+                request.x.dtype, copy=False
+            )
         if depth >= self.max_depth:
             return self._shed(pending, f"queue full (depth {depth})")
         # Forecast with the tenant's OWN service model once it has seen a
@@ -298,7 +353,12 @@ class MicroBatchQueue:
         model = tenant.model if tenant.observed > 0 else self.service_model
         est = model.estimate_completion_s(depth, self.max_batch)
         now = time.monotonic()
-        if now + est > request.deadline_ts:
+        # Only a served batch refreshes the forecast, so a forecast that
+        # sheds every request would never come down again: an empty queue
+        # whose forecast has gone stale admits the request as a probe.
+        infeasible = now + est > request.deadline_ts
+        request.probe = infeasible and depth == 0 and model.stale(now)
+        if infeasible and not request.probe:
             budget_ms = (request.deadline_ts - now) * 1e3
             return self._shed(
                 pending,

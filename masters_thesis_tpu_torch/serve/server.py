@@ -1,32 +1,59 @@
 """The serving loop: queue -> engine dispatch and deadline enforcement.
 
 Counterpart of ``masters_thesis_tpu/serve/server.py``. The engine is
-injected. Invariants this module owns:
+injected (the selfcheck CLI drives this loop with a fake one, without
+torch). Invariants this module owns:
 
 - **No late answers.** A response is delivered as ``ok`` only if it is
   handed back BEFORE the request's deadline; a batch that finishes late
-  resolves those requests as explicit ``rejected_late`` rejections. The
-  ``late_deliveries`` counter (an ok delivered past its deadline) must
-  therefore stay 0 by construction.
+  resolves those requests as explicit ``rejected_late`` rejections. Each
+  answer of a batch is checked as it goes back, on a reading of the clock
+  taken after the batch's earlier answers went back (the JAX server checks
+  a batch once, before its answers go back), and goes back ``ok`` only if
+  ``handback_guard_s`` (two of the interpreter's thread-switch intervals)
+  remains before its deadline: a thread switch inside the hand-back holds
+  it for about one interval, so an answer decided ok just before its
+  deadline could otherwise go back after it. The dispatch re-check keeps
+  the same margin. The ``late_deliveries`` counter (an ok delivered past
+  its deadline, on a reading of the clock taken after the hand-back) must
+  stay 0; ``stats()["handback_max_ms"]`` is the longest hand-back seen.
 - **Failures are answers.** A dispatch that raises resolves its requests as
   explicit ``error`` responses and feeds a :class:`CircuitBreaker`, whose
-  trips are counted. There is no CPU failover in this port: after a trip
-  the server keeps dispatching to the same engine.
+  trips are counted (``breaker_trips``). There is no CPU failover in the
+  port: after a trip the server keeps the same engine, answers each failed
+  dispatch with ``error`` and serves again as soon as a dispatch succeeds.
 - **Non-finite outputs never leave.** A batch whose outputs contain
   NaN/inf resolves as ``error``.
 
-Telemetry, request spans, the metrics endpoint, the quality monitor and
-fault points of the JAX server are not ported.
+With ``telemetry=`` (a :class:`~masters_thesis_tpu_torch.telemetry.run.
+TelemetryRun`) the server writes the JAX server's events
+(``serve_started``, ``tenant_admitted``, ``request_shed``,
+``serve_finished``), mirrors its counters into ``serve/<name>`` of the
+registry, observes ``serve/latency_s``, and writes spans: one
+``serve.server`` span, one ``serve.request`` span a request whose
+components tile its wall (``serve/spans.py``) and one ``serve.device``
+span a dispatch. ``metrics_port=`` (0 for a free port) serves the registry
+at ``/metrics`` while the server runs. ``stats()`` carries
+``queue_wait_share`` and ``compute_share`` from the request spans.
+
+Fault points: ``serve.dispatch`` (context ``seq``, the dispatch's number,
+and ``n``, its live requests) kind ``wedge`` raises
+:class:`InjectedDeviceError` into the breaker; kind ``nan`` poisons the
+batch's answers, which the finite check then withholds. ``serve.admit`` is
+handled in ``queue.py``. The quality monitor and the ``/slo`` plane of the
+JAX server are not ported.
 """
 
 from __future__ import annotations
 
 import collections
+import sys
 import threading
 import time
 
 import numpy as np
 
+from masters_thesis_tpu_torch.resilience import faults
 from masters_thesis_tpu_torch.serve.queue import (
     DEFAULT_TENANT,
     STATUS_ERROR,
@@ -38,6 +65,11 @@ from masters_thesis_tpu_torch.serve.queue import (
     ServeResponse,
     ServiceTimeModel,
 )
+from masters_thesis_tpu_torch.serve.spans import RequestSpans
+
+
+class InjectedDeviceError(RuntimeError):
+    """Stand-in for a device failure (``serve.dispatch`` kind ``wedge``)."""
 
 
 class CircuitBreaker:
@@ -68,13 +100,20 @@ class CircuitBreaker:
 
 
 def shed_category(reason: str) -> str:
-    """Collapse the queue's free-text shed reasons into stable categories."""
+    """Collapse the queue's free-text shed reasons into the JAX server's
+    stable categories."""
     if reason.startswith("server shutting down"):
         return "shutdown"
+    if reason.startswith("injected admission shed"):
+        return "fault"
     if reason.startswith("queue full"):
         return "queue_full"
     if reason.startswith("deadline infeasible"):
         return "deadline_infeasible"
+    if reason.startswith("no live replicas"):
+        return "no_live_replicas"
+    if reason.startswith("replica"):
+        return "replica_death"
     return "other"
 
 
@@ -92,9 +131,14 @@ class PredictServer:
         max_batch: int | None = None,
         max_wait_s: float = 0.005,
         max_depth: int = 256,
+        telemetry=None,
         breaker_threshold: int = 3,
+        metrics_port: int | None = None,
     ):
         self.engine = engine
+        self.telemetry = telemetry
+        self.metrics_port = metrics_port
+        self._exposition = None
         self.breaker = CircuitBreaker(breaker_threshold)
         self.service_model = ServiceTimeModel()
         # The queue's micro-batch can never exceed the largest bucket.
@@ -117,8 +161,14 @@ class PredictServer:
         self.completed = 0
         self.errors = 0
         self.late_converted = 0
-        #: ok responses delivered past their deadline — 0 by construction.
+        #: ok responses delivered past their deadline; must stay 0.
         self.late_deliveries = 0
+        #: An answer goes back ok only if this much time remains before its
+        #: deadline (the module docstring says why).
+        self.handback_guard_s = 2.0 * sys.getswitchinterval()
+        #: The longest hand-back of an ok answer: from the clock reading
+        #: that decided it to the reading right after it went back.
+        self.handback_max_s = 0.0
         self.dispatches = 0
         self.shed_by_reason: dict[str, int] = {}
         #: Latencies of the most recent ok deliveries (p50/p99 in stats()).
@@ -127,32 +177,90 @@ class PredictServer:
         )
         #: Dispatches by batch size, before padding to a bucket.
         self.batch_size_counts: dict[int, int] = {}
+        self._serve_span = None
+        self.spans = RequestSpans(self._tracer)
+
+    # ------------------------------------------------------------ telemetry
+
+    def _event(self, kind: str, **payload) -> None:
+        if self.telemetry is not None:
+            self.telemetry.event(kind, **payload)
+
+    def _count(self, name: str, n: int = 1) -> None:
+        if self.telemetry is not None:
+            self.telemetry.counter(f"serve/{name}").inc(n)
 
     def _bump(self, name: str, n: int = 1) -> None:
+        """Locked increment of a stats counter, mirrored to telemetry."""
         with self._stats_lock:
             setattr(self, name, getattr(self, name) + n)
+        self._count(name, n)
+
+    def _tracer(self):
+        return self.telemetry.tracer if self.telemetry is not None else None
 
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> None:
         if self._thread is not None:
             raise RuntimeError("server already started")
-        self.service_model.seed(self.engine.warmup())
+        warm_s = self.engine.warmup()
+        self.service_model.seed(warm_s)
         self._started_ts = time.monotonic()
+        tracer = self._tracer()
+        if tracer is not None:
+            self._serve_span = tracer.start(
+                "serve.server", platform=self.engine.platform,
+                max_batch=self.max_batch,
+            )
+        if self.telemetry is not None:
+            self._event(
+                "serve_started",
+                platform=self.engine.platform,
+                buckets=list(self.engine.buckets),
+                max_batch=self.max_batch,
+                max_wait_ms=self.queue.max_wait_s * 1e3,
+                warmup_batch_ms=warm_s * 1e3,
+                compile_events=self.engine.compile_events,
+            )
         self._thread = threading.Thread(
             target=self._worker, name="serve-dispatch", daemon=True
         )
         self._thread.start()
+        if self.metrics_port is not None and self.telemetry is not None:
+            from masters_thesis_tpu_torch.telemetry.exposition import (
+                attach_exposition,
+            )
+
+            self._exposition = attach_exposition(self.telemetry,
+                                                 port=self.metrics_port)
+
+    @property
+    def metrics_url(self) -> str | None:
+        """``http://host:port`` of ``/metrics`` while the server runs."""
+        return None if self._exposition is None else self._exposition.url
 
     def stop(self) -> dict:
-        """Drain, stop the dispatch thread; returns the summary stats."""
+        """Drain, stop the dispatch thread, emit ``serve_finished``;
+        returns the summary stats the event carries."""
+        if self._exposition is not None:
+            self._exposition.close()
+            self._exposition = None
         self.queue.close()
         if self._thread is not None:
             self._thread.join(timeout=30.0)
             if self._thread.is_alive():
                 raise RuntimeError("dispatch thread did not stop within 30 s")
             self._thread = None
-        return self.stats()
+        stats = self.stats()
+        tracer = self._tracer()
+        if tracer is not None and self._serve_span is not None:
+            tracer.end(self._serve_span, status="ok",
+                       requests=stats["requests"],
+                       completed=stats["completed"], shed=stats["shed"])
+            self._serve_span = None
+        self._event("serve_finished", **stats)
+        return stats
 
     def stats(self) -> dict:
         span = (
@@ -160,9 +268,12 @@ class PredictServer:
             if self._started_ts is not None
             else 0.0
         )
+        queue_wait_share, compute_share = self.spans.shares()
         with self._stats_lock:
             lat = np.asarray(self._latencies_s)
             stats = {
+                "queue_wait_share": queue_wait_share,
+                "compute_share": compute_share,
                 "requests": self.queue.submitted,
                 "completed": self.completed,
                 "shed": self.queue.shed,
@@ -170,6 +281,7 @@ class PredictServer:
                 "errors": self.errors,
                 "late_converted": self.late_converted,
                 "late_deliveries": self.late_deliveries,
+                "handback_max_ms": 1e3 * self.handback_max_s,
                 "dispatches": self.dispatches,
                 "breaker_trips": self.breaker.trips,
                 "batch_size_counts": dict(self.batch_size_counts),
@@ -188,8 +300,14 @@ class PredictServer:
     def register_tenant(
         self, name: str, deadline_s: float | None = None
     ) -> None:
-        """Onboard (or re-class) a tenant: pins its deadline class."""
-        self.queue.tenant(name, deadline_s)
+        """Onboard (or re-class) a tenant: pins its deadline class and
+        emits ``tenant_admitted`` the first time the server sees it."""
+        _, created = self.queue.tenant(name, deadline_s)
+        if created:
+            self._event(
+                "tenant_admitted", tenant=name,
+                deadline_ms=None if deadline_s is None else deadline_s * 1e3,
+            )
 
     def submit(
         self,
@@ -200,7 +318,8 @@ class PredictServer:
         """Admit one window with a relative deadline budget in seconds.
 
         ``deadline_s=None`` falls back to ``tenant``'s deadline class
-        (register_tenant); a request with neither is a caller bug.
+        (register_tenant); a request with neither is a caller bug. An
+        unregistered tenant is onboarded at its first request.
         """
         x = np.asarray(x, np.float32)
         if x.shape != tuple(self.engine.window_shape):
@@ -215,22 +334,34 @@ class PredictServer:
                     f"request carries no deadline and tenant {tenant!r} "
                     "has no deadline class (register_tenant first)"
                 )
+        self.register_tenant(tenant)
         with self._rid_lock:
             self._rid += 1
             rid = self._rid
-        return self.queue.submit(
+        self._count("requests")
+        # The span must exist BEFORE queue.submit: a shed resolves
+        # synchronously inside it, and _on_shed closes the span.
+        self.spans.open(rid, "serve.request", parent=self._serve_span,
+                        deadline_ms=deadline_s * 1e3)
+        pending = self.queue.submit(
             ServeRequest(
                 rid=rid, x=x, deadline_ts=time.monotonic() + deadline_s,
                 tenant=tenant,
             )
         )
+        if not pending.done:
+            self.spans.stamp(rid, "t_admitted")
+        return pending
 
     def _on_shed(self, request: ServeRequest, reason: str) -> None:
+        self._count("shed")
         category = shed_category(reason)
         with self._stats_lock:
             self.shed_by_reason[category] = (
                 self.shed_by_reason.get(category, 0) + 1
             )
+        self._event("request_shed", rid=request.rid, reason=reason)
+        self.spans.close_shed(request.rid, category)
 
     # ------------------------------------------------------------- dispatch
 
@@ -241,31 +372,42 @@ class PredictServer:
                 if self.queue.closed and len(self.queue) == 0:
                     return
                 continue
+            self.spans.stamp_many([p.request.rid for p in batch], "t_pickup",
+                                  time.perf_counter())
             self._dispatch(batch)
 
     def _resolve(self, pending: PendingRequest, status: str, detail: str = "",
-                 outputs: tuple | None = None) -> None:
-        now = time.monotonic()
-        pending.resolve(
-            ServeResponse(
-                rid=pending.request.rid,
-                status=status,
-                outputs=outputs,
-                detail=detail,
-                delivered_ts=now,
-                latency_s=now - pending.request.submitted_ts,
-            )
-        )
+                 outputs: tuple | None = None,
+                 now: float | None = None) -> float:
+        """Resolve ``pending``, stamped ``now`` (a reading of the monotonic
+        clock taken here, just before the hand-back, if not given), then
+        close its span. Returns the clock read right after the hand-back."""
+        now = time.monotonic() if now is None else now
+        t_resolve = time.perf_counter()
+        pending.resolve(ServeResponse(
+            rid=pending.request.rid,
+            status=status,
+            outputs=outputs,
+            detail=detail,
+            delivered_ts=now,
+            latency_s=now - pending.request.submitted_ts,
+        ))
+        handed_back = time.monotonic()
+        self.spans.close(pending.request.rid, status, t_resolve)
+        return handed_back
 
     def _dispatch(self, batch: list[PendingRequest]) -> None:
         # Pre-dispatch feasibility re-check: queue wait may have eaten a
         # request's whole budget; spending device time on it would only
-        # produce a late answer — reject now, serve the rest.
-        est = self.service_model.batch_s
+        # produce a late answer — reject now, serve the rest. The answer
+        # must also leave handback_guard_s before the deadline (_deliver).
+        # A probe (queue.py, PROBE_AFTER_S) skips it: its batch is the one
+        # whose measurement replaces the stale forecast.
+        est = self.service_model.batch_s + self.handback_guard_s
         now = time.monotonic()
         live: list[PendingRequest] = []
         for p in batch:
-            if now + est > p.request.deadline_ts:
+            if now + est > p.request.deadline_ts and not p.request.probe:
                 self._bump("late_converted")
                 self._resolve(
                     p, STATUS_REJECTED_LATE,
@@ -277,16 +419,30 @@ class PredictServer:
         if not live:
             return
         with self._stats_lock:
+            seq = self.dispatches  # the dispatch's number, from 0
             self.dispatches += 1
             self.batch_size_counts[len(live)] = (
                 self.batch_size_counts.get(len(live), 0) + 1
             )
+        kind = faults.fire("serve.dispatch", seq=seq, n=len(live))
+        tracer = self._tracer()
+        live_rids = [p.request.rid for p in live]
+        t0_wall = time.time()
         t0 = time.perf_counter()
+        self.spans.stamp_many(live_rids, "t_predict0", t0)
         try:
+            if kind == "wedge":
+                raise InjectedDeviceError(
+                    f"injected device error at dispatch seq={seq}"
+                )
             alpha, beta = self.engine.predict(
                 np.stack([p.request.x for p in live])
             )
+            if kind == "nan":
+                alpha = np.full_like(alpha, np.nan)
         except Exception as exc:  # noqa: BLE001 — any dispatch failure
+            self.spans.stamp_many(live_rids, "t_predict_end",
+                                  time.perf_counter())
             self._bump("errors", len(live))
             for p in live:
                 self._resolve(
@@ -295,12 +451,17 @@ class PredictServer:
             self.breaker.record_failure()
             return
         device_s = time.perf_counter() - t0
-        self.service_model.update(device_s)
+        self.spans.stamp_many(live_rids, "t_predict_end", t0 + device_s)
+        if tracer is not None:
+            tracer.emit_span("serve.device", start_ts=t0_wall, dur_s=device_s,
+                             parent=self._serve_span, seq=seq, n=len(live))
+        probe = any(p.request.probe for p in live)
+        self.service_model.update(device_s, replace=probe)
         # Per-tenant EWMA: each tenant in this batch saw this service time.
-        self.queue.note_service({p.request.tenant for p in live}, device_s)
+        self.queue.note_service({p.request.tenant for p in live}, device_s,
+                                replace=probe)
         self.breaker.record_success()
         finite = bool(np.isfinite(alpha).all() and np.isfinite(beta).all())
-        now = time.monotonic()
         for i, p in enumerate(live):
             if not finite:
                 self._bump("errors")
@@ -308,20 +469,40 @@ class PredictServer:
                     p, STATUS_ERROR,
                     "non-finite predictions; response withheld",
                 )
-            elif now > p.request.deadline_ts:
-                self._bump("late_converted")
-                self._resolve(
-                    p, STATUS_REJECTED_LATE,
-                    "batch completed past the deadline; rejected rather "
-                    "than delivered late",
-                )
             else:
-                with self._stats_lock:
-                    self.completed += 1
-                    self._latencies_s.append(now - p.request.submitted_ts)
-                self._resolve(p, STATUS_OK, outputs=(alpha[i], beta[i]))
-                if time.monotonic() > p.request.deadline_ts:
-                    # The delivery itself slid past the deadline — this
-                    # must never happen (the check above runs against the
-                    # same clock); count it so a run can fail loudly.
-                    self._bump("late_deliveries")
+                self._deliver(p, (alpha[i], beta[i]))
+
+    def _deliver(self, pending: PendingRequest, outputs: tuple) -> None:
+        """Hand back an ``ok`` answer, or ``rejected_late`` once less than
+        ``handback_guard_s`` remains before its deadline. Each answer is
+        decided on its own reading of the clock, after the batch's earlier
+        answers went back (their span and event writes included). The
+        response is stamped on a fresh reading after this answer's own
+        bookkeeping, just before the hand-back, and ``late_deliveries``
+        counts an ``ok`` the clock reads past its deadline right after the
+        hand-back."""
+        request = pending.request
+        now = time.monotonic()
+        if now + self.handback_guard_s > request.deadline_ts:
+            self._bump("late_converted")
+            self._resolve(
+                pending, STATUS_REJECTED_LATE,
+                "batch completed too close to the deadline to be handed "
+                "back before it; rejected rather than delivered late",
+                now=now,
+            )
+            return
+        latency = now - request.submitted_ts
+        with self._stats_lock:
+            self.completed += 1
+            self._latencies_s.append(latency)
+        self._count("completed")
+        if self.telemetry is not None:
+            self.telemetry.histogram("serve/latency_s").observe(latency)
+        handed_back = self._resolve(pending, STATUS_OK, outputs=outputs)
+        with self._stats_lock:
+            self.handback_max_s = max(self.handback_max_s, handed_back - now)
+        if handed_back > request.deadline_ts:
+            # The delivery itself slid past the deadline: this must never
+            # happen; counted so that a run fails loudly.
+            self._bump("late_deliveries")

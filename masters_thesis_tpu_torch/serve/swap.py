@@ -1,0 +1,196 @@
+"""Canaried checkpoint hot-swap: verify, canary, then commit or refuse.
+
+Counterpart of ``CheckpointSwapper.try_swap`` in
+``masters_thesis_tpu/serve/swap.py``. A serving engine picks up newly
+trained weights without a restart, and a torn, bit-flipped or NaN
+checkpoint never reaches traffic. :meth:`CheckpointSwapper.try_swap` runs,
+in order, and refuses at the first failure without touching the serving
+weights:
+
+1. the fault point ``serve.pre_swap`` (context ``tag``; kind ``corrupt``
+   flips one byte of the candidate's tree, as ``train/checkpoint.py``'s
+   ``corrupt`` faults do);
+2. strict manifest verification (``verify_failed``): a tree whose content
+   does not prove itself against its ``MANIFEST.json``, or that has none,
+   is refused; no ``.prev`` fallback, which would serve stale weights while
+   reporting success;
+3. the restore (``restore_failed``);
+4. the signature: ``PredictEngine.put_params`` stages the candidate on
+   the engine's device and raises unless its state-dict keys, shapes and
+   dtypes are the serving tensors' (``shape_mismatch``), because the
+   bucket programs are shape-specialised CUDA graphs;
+5. the canary on the golden batch, run through the SAME bucket program as
+   live traffic (``PredictEngine.predict(x, params=...)``): finite,
+   bounded and, when ``max_drift`` is set, within that budget of the
+   serving weights' answers (:func:`canary_checks`, numpy in f64, the JAX
+   order of checks);
+6. the commit: ``PredictEngine.set_params``, an in-place copy under the
+   engine lock, with the event ``swap_committed`` (``swap_rejected`` for a
+   refusal).
+
+The JAX package's model-quality gate is not ported: a candidate that ships
+``quality.json`` is refused with reason ``quality_error`` (the port cannot
+score it yet) rather than swapped in unscored. Per-lane swaps of stacked
+engines are not ported. This module imports no torch at import: the
+serving selfcheck runs :func:`canary_checks` without it.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+
+from masters_thesis_tpu_torch.resilience import faults
+
+#: Default canary bound on |output|: alpha and beta are standardized-return
+#: quantities; anything this large is a blown-up tree even before NaN.
+DEFAULT_MAX_ABS = 1e3
+#: The JAX package's model-quality fingerprint inside a checkpoint tree.
+FINGERPRINT_FILENAME = "quality.json"
+
+
+@dataclass
+class SwapVerdict:
+    ok: bool
+    reason: str  # "committed" | "verify_failed" | "restore_failed" |
+    #              "shape_mismatch" | "canary_<check>" | "quality_error"
+    detail: str = ""
+    checks: dict = field(default_factory=dict)
+
+
+def canary_checks(
+    current: tuple,
+    candidate: tuple,
+    max_abs: float = DEFAULT_MAX_ABS,
+    max_drift: float | None = None,
+) -> SwapVerdict:
+    """Pure-numpy canary verdict over (alpha, beta) output pairs.
+
+    ``max_drift`` bounds the max elementwise |candidate - current|; None
+    disables the drift check (a retrain may move answers arbitrarily).
+    """
+    # f64 on purpose: the thresholds must not be blurred by the
+    # comparison's own f32 rounding.
+    cur = [np.asarray(a, np.float64) for a in current]
+    cand = [np.asarray(a, np.float64) for a in candidate]
+    checks: dict[str, float | bool] = {}
+    finite = all(bool(np.isfinite(a).all()) for a in cand)
+    checks["finite"] = finite
+    if not finite:
+        return SwapVerdict(
+            False, "canary_nonfinite",
+            "candidate produced NaN/inf on the golden batch", checks,
+        )
+    peak = max(float(np.abs(a).max()) for a in cand)
+    checks["max_abs"] = peak
+    if peak > max_abs:
+        return SwapVerdict(
+            False, "canary_abs",
+            f"candidate |output| {peak:.3g} exceeds bound {max_abs:.3g}",
+            checks,
+        )
+    drift = max(float(np.abs(a - b).max()) for a, b in zip(cand, cur))
+    checks["drift"] = drift
+    if max_drift is not None and drift > max_drift:
+        return SwapVerdict(
+            False, "canary_drift",
+            f"candidate drifted {drift:.3g} from serving outputs "
+            f"(budget {max_drift:.3g})",
+            checks,
+        )
+    return SwapVerdict(True, "committed", checks=checks)
+
+
+class CheckpointSwapper:
+    """Drives the swap protocol against one engine."""
+
+    def __init__(self, engine, *, telemetry=None,
+                 max_abs: float = DEFAULT_MAX_ABS,
+                 max_drift: float | None = None):
+        self.engine = engine
+        #: The canary's input: the engine's golden batch (one window).
+        self.golden_x = engine.golden_batch()
+        self.telemetry = telemetry
+        self.max_abs = max_abs
+        self.max_drift = max_drift
+        self.committed = 0
+        self.rejected = 0
+        #: Seconds of each step of the last ``try_swap``, in order.
+        self.step_seconds: dict[str, float] = {}
+
+    def _event(self, kind: str, **payload) -> None:
+        if self.telemetry is not None:
+            self.telemetry.event(kind, **payload)
+
+    def _reject(self, tag: str, verdict: SwapVerdict) -> SwapVerdict:
+        self.rejected += 1
+        self._event("swap_rejected", tag=tag, reason=verdict.reason,
+                    detail=verdict.detail, checks=verdict.checks)
+        return verdict
+
+    def try_swap(self, ckpt_dir, tag: str = "best") -> SwapVerdict:
+        """Verify and canary ``<ckpt_dir>/<tag>``; commit on a pass, keep
+        the serving weights (and say why) on any failure. Never raises for
+        a bad candidate: a broken checkpoint is refused, it does not take
+        the server down."""
+        from masters_thesis_tpu_torch.train import checkpoint as ckpt
+        from masters_thesis_tpu_torch.train.manifest import verify_checkpoint
+
+        self.step_seconds = steps = {}
+        clock = [time.perf_counter()]
+
+        def lap(step: str) -> None:
+            now = time.perf_counter()
+            steps[step] = now - clock[0]
+            clock[0] = now
+
+        ckpt_dir = Path(ckpt_dir)
+        path = ckpt_dir / tag
+        if faults.fire("serve.pre_swap", tag=tag) == "corrupt":
+            ckpt._corrupt_tree(path, seed=faults.corruption_seed())
+        lap("pre_swap")
+        verified = verify_checkpoint(path, require_manifest=True)
+        lap("verify")
+        if not verified:
+            return self._reject(tag, SwapVerdict(
+                False, "verify_failed",
+                f"strict manifest verification failed for {path} "
+                "(torn/corrupt tree, or no MANIFEST.json)"))
+        try:
+            state, _, _, meta = ckpt.restore_checkpoint(ckpt_dir, tag)
+        except Exception as exc:  # noqa: BLE001 — any restore failure rejects
+            return self._reject(tag, SwapVerdict(
+                False, "restore_failed", f"{type(exc).__name__}: {exc}"))
+        lap("restore")
+        try:
+            candidate, mismatch = self.engine.put_params(state), None
+        except ValueError as exc:
+            candidate, mismatch = None, exc
+        lap("signature")
+        if mismatch is not None:
+            return self._reject(tag, SwapVerdict(
+                False, "shape_mismatch",
+                f"{mismatch} (an architecture change needs a restart: the "
+                "bucket programs are shape-specialised)"))
+        current_out = self.engine.predict(self.golden_x)
+        candidate_out = self.engine.predict(self.golden_x, params=candidate)
+        verdict = canary_checks(current_out, candidate_out,
+                                max_abs=self.max_abs, max_drift=self.max_drift)
+        lap("canary")
+        if not verdict.ok:
+            return self._reject(tag, verdict)
+        if (path / FINGERPRINT_FILENAME).exists():
+            return self._reject(tag, SwapVerdict(
+                False, "quality_error",
+                f"candidate ships {FINGERPRINT_FILENAME}, which the port "
+                "cannot score yet (the quality gate is not ported); refused "
+                "rather than swapped in unscored", verdict.checks))
+        self.engine.set_params(candidate)
+        lap("commit")
+        self.committed += 1
+        self._event("swap_committed", tag=tag, epoch=meta.get("epoch"),
+                    checks=verdict.checks)
+        return verdict

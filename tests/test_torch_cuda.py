@@ -1141,3 +1141,116 @@ def test_stream_steps_do_not_synchronise(cuda_device, tmp_path):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert n_steps == -(-len(dm.train_range) // 3)
+
+
+# ------------------------------------------------------- hot-swap on the card
+
+
+def _swap_case(tmp_path, buckets=(1, 2, 4, 8)):
+    """A graphed engine on seeded weights, and published candidates: other
+    seeded weights, the same with a NaN bias, and a 3-layer model's."""
+    from masters_thesis_tpu_torch.train.checkpoint import save_checkpoint
+
+    spec = ModelSpec(objective="mse", hidden_size=32, num_layers=2,
+                     dropout=0.0)
+
+    def state(seed, s=spec):
+        return s.build_module(
+            device="cpu", generator=torch.Generator().manual_seed(seed)
+        ).state_dict()
+
+    meta = {"epoch": 0, "datamodule": {"lookback_window": 10}}
+    dirs = {}
+    for name, s, sd in (("live", spec, state(0)), ("good", spec, state(1)),
+                        ("nan", spec, {**state(2), "alpha_head.bias":
+                                       torch.tensor([float("nan")])}),
+                        ("deep", ModelSpec(objective="mse", hidden_size=32,
+                                           num_layers=3, dropout=0.0),
+                         None)):
+        dirs[name] = tmp_path / name
+        save_checkpoint(dirs[name], "best", state(3, s) if sd is None else sd,
+                        spec=s, meta=meta)
+    kw = dict(n_stocks=7, buckets=buckets, device="cuda")
+    return dirs, kw
+
+
+def test_committed_swap_equals_a_fresh_graphed_engine(cuda_device, tmp_path):
+    from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
+
+    dirs, kw = _swap_case(tmp_path)
+    live = PredictEngine.from_checkpoint(dirs["live"], **kw)
+    live.warmup()
+    captures = live.compile_events
+    verdict = CheckpointSwapper(live).try_swap(dirs["good"])
+    assert verdict.ok and verdict.reason == "committed"
+    fresh = PredictEngine.from_checkpoint(dirs["good"], **kw)
+    fresh.warmup()
+    rng = np.random.default_rng(3)
+    for n in (1, 2, 3, 8):
+        x = rng.normal(size=(n, 7, 10, 3)).astype(np.float32)
+        for got, want in zip(live.predict(x), fresh.predict(x)):
+            np.testing.assert_array_equal(got, want)
+    assert live.compile_events == captures == 4
+
+
+@pytest.mark.parametrize("candidate,reason", [
+    ("good", "committed"), ("nan", "canary_nonfinite"),
+    ("deep", "shape_mismatch")])
+def test_a_canary_captures_nothing_and_a_refusal_changes_nothing(
+        cuda_device, tmp_path, candidate, reason):
+    from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
+
+    dirs, kw = _swap_case(tmp_path)
+    live = PredictEngine.from_checkpoint(dirs["live"], **kw)
+    live.warmup()
+    swapper = CheckpointSwapper(live)
+    x = np.random.default_rng(4).normal(size=(5, 7, 10, 3)).astype(np.float32)
+    before = live.predict(x), live.predict(swapper.golden_x)
+    captures = live.compile_events
+    verdict = swapper.try_swap(dirs[candidate])
+    assert verdict.reason == reason
+    assert live.compile_events == captures
+    after = live.predict(x), live.predict(swapper.golden_x)
+    same = all(np.array_equal(g, w) for pair in zip(after, before)
+               for g, w in zip(*pair))
+    assert same == (not verdict.ok)
+
+
+def test_a_bucket_captured_after_a_swap_serves_the_new_weights(cuda_device,
+                                                                tmp_path):
+    from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
+
+    dirs, kw = _swap_case(tmp_path)
+    live = PredictEngine.from_checkpoint(dirs["live"], **kw)
+    # Only bucket 1 is captured (the canary's); bucket 8 after the commit.
+    assert CheckpointSwapper(live).try_swap(dirs["good"]).ok
+    assert live.compile_events == 1
+    fresh = PredictEngine.from_checkpoint(dirs["good"], **kw)
+    x = np.random.default_rng(5).normal(size=(8, 7, 10, 3)).astype(np.float32)
+    for got, want in zip(live.predict(x), fresh.predict(x)):
+        np.testing.assert_array_equal(got, want)
+    assert live.compile_events == 2
+
+
+def test_a_graphed_predict_makes_no_implicit_sync(cuda_device):
+    """After the captures, a predict's only wait is the event after its
+    answers' copies: nothing raises under the sync debug mode set to
+    raise, the canary path included."""
+    spec = ModelSpec(objective="mse", hidden_size=32, num_layers=2,
+                     dropout=0.0)
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    engine = PredictEngine(spec, state, n_stocks=7, lookback=10,
+                           device=cuda_device)
+    engine.warmup()
+    candidate = engine.put_params(state)
+    x = np.random.default_rng(6).normal(size=(3, 7, 10, 3)).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plain = engine.predict(x)
+        canary = engine.predict(x, params=candidate)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got, want in zip(canary, plain):
+        np.testing.assert_array_equal(got, want)

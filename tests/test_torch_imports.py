@@ -36,7 +36,10 @@ def test_port_imports_with_jax_blocked():
                  "ops.losses", "ops.linalg", "evaluation", "config.compose",
                  "config.yaml_subset", "cli.train", "cli.test", "__main__",
                  "resilience.faults", "train.manifest", "data.fama_french",
-                 "data.prefetch"):
+                 "data.prefetch", "serve.spans", "serve.swap",
+                 "serve.preflight", "serve.__main__", "analysis.findings",
+                 "telemetry.registry", "telemetry.events", "telemetry.trace",
+                 "telemetry.run", "telemetry.exposition"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -24,6 +24,7 @@ from masters_thesis_tpu_torch.serve.engine import (
 from masters_thesis_tpu_torch.serve.queue import (
     STATUS_ERROR,
     STATUS_OK,
+    STATUS_REJECTED_LATE,
     STATUS_SHED,
 )
 from masters_thesis_tpu_torch.serve.server import PredictServer
@@ -151,6 +152,49 @@ def test_infeasible_deadline_is_shed():
     assert stats["late_deliveries"] == 0
 
 
+def test_an_answer_without_time_to_go_back_is_rejected_late():
+    """A deadline inside the hand-back guard: admitted (the forecast fits),
+    then rejected late at the dispatch re-check, never served ok."""
+    server = PredictServer(_engine(), max_wait_s=0.0)
+    server.start()
+    try:
+        assert server.handback_guard_s > 0.002
+        server.service_model.seed(1e-6)  # the forecast fits the deadline
+        response = server.submit(
+            _windows(1)[0], deadline_s=0.5 * server.handback_guard_s
+        ).result(timeout=5.0)
+    finally:
+        stats = server.stop()
+    assert response.status == STATUS_REJECTED_LATE
+    assert stats["late_converted"] == 1 and stats["late_deliveries"] == 0
+
+
+def test_a_hand_back_that_slides_past_the_deadline_is_counted(monkeypatch):
+    """late_deliveries reads the clock after the hand-back: an ok answer
+    whose hand-back is held past its deadline is counted, and the longest
+    hand-back is reported."""
+    from masters_thesis_tpu_torch.serve.queue import PendingRequest
+
+    resolve = PendingRequest.resolve
+
+    def slow_resolve(self, response):
+        if response.ok:
+            time.sleep(0.3)
+        resolve(self, response)
+
+    monkeypatch.setattr(PendingRequest, "resolve", slow_resolve)
+    server = PredictServer(_engine(), max_wait_s=0.0)
+    server.start()
+    try:
+        response = server.submit(_windows(1)[0], deadline_s=0.2).result(
+            timeout=5.0)
+    finally:
+        stats = server.stop()
+    assert response.ok
+    assert stats["late_deliveries"] == 1
+    assert stats["handback_max_ms"] >= 300.0
+
+
 class _FailingEngine:
     window_shape = (K, T, F)
     max_bucket = 2
@@ -229,3 +273,225 @@ def test_concurrent_submitters_account_for_every_request():
     assert stats["completed"] == sum(r.ok for r in results)
     assert sum(n * c for n, c in stats["batch_size_counts"].items()) == stats["completed"]
     assert stats["late_deliveries"] == 0
+
+
+# ------------------------------------------------------------ fault points
+# The cases of tests/test_serve.py's fault-point tests, on the port.
+
+
+@pytest.fixture
+def fault_plan(monkeypatch):
+    from masters_thesis_tpu_torch.resilience import faults
+
+    monkeypatch.delenv(faults.FAULT_PLAN_ENV, raising=False)
+    monkeypatch.delenv(faults.ATTEMPT_ENV, raising=False)
+
+    def install(*specs, seed=0):
+        faults.install_plan(faults.FaultPlan(
+            faults=[faults.FaultSpec(**s) for s in specs], seed=seed))
+
+    yield install
+    faults.clear_plan()
+
+
+def test_admit_fault_forces_shed(fault_plan):
+    from masters_thesis_tpu_torch.serve.queue import MicroBatchQueue, ServeRequest
+
+    fault_plan({"point": "serve.admit", "kind": "wedge", "attempt": None})
+    q = MicroBatchQueue()
+    r = q.submit(ServeRequest(rid=1, x=np.zeros((K, T, F), np.float32),
+                              deadline_ts=time.monotonic() + 10.0)
+                 ).result(timeout=0)
+    assert r.status == STATUS_SHED and "fault" in r.detail
+
+
+def test_admit_shift_fault_shifts_the_window_as_the_jax_queue(fault_plan):
+    from masters_thesis_tpu.resilience import faults as jax_faults
+    from masters_thesis_tpu.serve.queue import MicroBatchQueue as JaxQueue
+    from masters_thesis_tpu.serve.queue import ServeRequest as JaxRequest
+    from masters_thesis_tpu_torch.serve.queue import MicroBatchQueue, ServeRequest
+
+    spec = {"point": "serve.admit", "kind": "shift", "attempt": None}
+    fault_plan(spec, seed=4)
+    jax_faults.install_plan(jax_faults.FaultPlan(
+        faults=[jax_faults.FaultSpec(**spec)], seed=4))
+    try:
+        x = _windows(1)[0]
+        got = ServeRequest(rid=1, x=x.copy(), deadline_ts=time.monotonic() + 9)
+        want = JaxRequest(rid=1, x=x.copy(), deadline_ts=time.monotonic() + 9)
+        MicroBatchQueue().submit(got)
+        JaxQueue().submit(want)
+    finally:
+        jax_faults.clear_plan()
+    np.testing.assert_array_equal(got.x, want.x)
+    assert not np.array_equal(got.x, x)
+
+
+def test_nan_fault_withholds_outputs(fault_plan):
+    fault_plan({"point": "serve.dispatch", "kind": "nan", "attempt": None})
+    engine = _engine()
+    server = PredictServer(engine, max_wait_s=0.001)
+    server.start()
+    r = server.submit(engine.golden_batch(1)[0], deadline_s=10.0).result(
+        timeout=30.0)
+    server.stop()
+    assert r.status == STATUS_ERROR and "non-finite" in r.detail
+    assert r.outputs is None
+
+
+def test_dispatch_wedge_is_an_error_that_trips_the_breaker(fault_plan):
+    """Three wedged dispatches in a row trip the default breaker once; the
+    same engine then answers: the port has no CPU failover."""
+    fault_plan(*({"point": "serve.dispatch", "kind": "wedge", "attempt": None,
+                  "match": {"seq": seq}} for seq in (1, 2, 3)))
+    server = PredictServer(_engine(), max_wait_s=0.0)
+    server.start()
+    try:
+        responses = [server.submit(w, deadline_s=30.0).result(timeout=30.0)
+                     for w in _windows(5)]
+    finally:
+        stats = server.stop()
+    assert [r.status for r in responses] == [
+        STATUS_OK, STATUS_ERROR, STATUS_ERROR, STATUS_ERROR, STATUS_OK]
+    assert all("InjectedDeviceError" in r.detail for r in responses[1:4])
+    assert stats["breaker_trips"] == 1 and stats["errors"] == 3
+
+
+def test_shed_categories_are_the_jax_ones():
+    from masters_thesis_tpu.serve.server import shed_category as jax_category
+    from masters_thesis_tpu_torch.serve.server import shed_category
+
+    for reason in ("server shutting down", "injected admission shed (fault)",
+                   "queue full (depth 9)", "deadline infeasible: est 3ms",
+                   "no live replicas", "replica r0 died", "something else"):
+        assert shed_category(reason) == jax_category(reason)
+
+
+def test_a_stale_forecast_admits_a_probe_at_an_empty_queue():
+    """A forecast past every deadline sheds; once no served batch has
+    refreshed it for PROBE_AFTER_S, an empty queue admits the request as a
+    probe, so the batch that corrects the forecast can run (the JAX queue
+    sheds forever there)."""
+    from masters_thesis_tpu.serve.queue import MicroBatchQueue as JaxQueue
+    from masters_thesis_tpu.serve.queue import ServeRequest as JaxRequest
+    from masters_thesis_tpu_torch.serve import queue
+
+    ours, theirs = queue.MicroBatchQueue(), JaxQueue()
+    for q in (ours, theirs):
+        q.service_model.seed(10.0)  # one pathological batch's worth
+    x = np.zeros((K, T, F), np.float32)
+
+    def submit(q, cls, rid):
+        return q.submit(cls(rid=rid, x=x, deadline_ts=time.monotonic() + 1.0))
+
+    assert submit(ours, queue.ServeRequest, 1).done  # shed: fresh forecast
+    ours.service_model._updated_ts -= queue.PROBE_AFTER_S + 0.5
+    probe = submit(ours, queue.ServeRequest, 2)
+    assert not probe.done and len(ours) == 1 and probe.request.probe
+    assert submit(ours, queue.ServeRequest, 3).done  # depth 1: forecast rules
+    assert submit(theirs, JaxRequest, 2).result(timeout=0).status == STATUS_SHED
+    # The probe's measurement replaces the stale forecast; a later one is
+    # blended as the JAX model blends it.
+    ours.service_model.update(0.002, replace=True)
+    assert ours.service_model.batch_s == 0.002
+    ours.service_model.update(0.004)
+    assert ours.service_model.batch_s == pytest.approx(0.3 * 0.004 + 0.7 * 0.002)
+
+
+class _Clock:
+    """A monotonic clock the test moves by hand."""
+
+    def __init__(self, t=1000.0):
+        self.t = t
+
+    def monotonic(self):
+        return self.t
+
+
+@pytest.mark.parametrize("gap_s", [0.2, 1.5, 4.0])
+def test_light_traffic_admits_and_forecasts_as_the_jax_queue(monkeypatch,
+                                                              gap_s):
+    """At light traffic, on the same clock stamps, the port's admission
+    decisions and forecasts (queue-wide and the tenant's) equal the JAX
+    queue's, also where the forecast has gone stale between requests
+    (gap_s past PROBE_AFTER_S): the probe departs from the JAX queue only
+    for a request the forecast would shed at an empty, stale queue, and no
+    request here is one. Infeasible requests come at depth 1, or right
+    after a measurement."""
+    import masters_thesis_tpu.serve.queue as jax_queue
+    from masters_thesis_tpu_torch.serve import queue as our_queue
+
+    clock = _Clock()
+    for mod in (jax_queue, our_queue):
+        monkeypatch.setattr(mod, "time", clock)
+    queues = {"jax": jax_queue.MicroBatchQueue(max_wait_s=0.0),
+              "ours": our_queue.MicroBatchQueue(max_wait_s=0.0)}
+    for q in queues.values():
+        q.service_model.seed(0.004)
+    x = np.zeros((K, T, F), np.float32)
+    measured = np.random.default_rng(0).uniform(0.001, 0.02, size=12)
+    rid = 0
+
+    def submit(budget_s):
+        nonlocal rid
+        rid += 1
+        out = {}
+        for name, q in queues.items():
+            mod = jax_queue if name == "jax" else our_queue
+            out[name] = q.submit(mod.ServeRequest(
+                rid=rid, x=x, deadline_ts=clock.t + budget_s,
+                submitted_ts=clock.t))
+        return out
+
+    def snapshot():
+        return {name: (q.service_model.batch_s, len(q),
+                       q.tenant_stats()["default"])
+                for name, q in queues.items()}
+
+    decisions = []
+    for i, batch_s in enumerate(measured):
+        clock.t += gap_s
+        pend = submit(0.05)
+        if i % 3 == 1:  # an infeasible request behind it, at depth 1
+            late = submit(0.0005)
+            decisions.append({n: p.done for n, p in late.items()})
+        decisions.append({n: p.done for n, p in pend.items()})
+        assert snapshot()["ours"] == snapshot()["jax"]
+        for name, q in queues.items():
+            batch = q.next_batch(timeout_s=0.0)
+            assert batch == [pend[name]]
+            clock.t += batch_s
+            q.service_model.update(batch_s)
+            q.note_service({"default"}, batch_s)
+            clock.t -= batch_s
+        clock.t += batch_s
+        assert snapshot()["ours"] == snapshot()["jax"]
+        # Right after a measurement the forecast is fresh: an infeasible
+        # request at an empty queue is shed by both.
+        tight = submit(0.0005)
+        decisions.append({n: p.done for n, p in tight.items()})
+    assert all(d["ours"] == d["jax"] for d in decisions)
+    assert any(d["ours"] for d in decisions) and not all(
+        d["ours"] for d in decisions)
+
+
+def test_a_server_whose_forecast_went_stale_serves_again():
+    """A forecast past every deadline (one pathological batch): the server
+    sheds, then, once the forecast is stale, serves the probe, re-measures
+    on it and answers what follows."""
+    from masters_thesis_tpu_torch.serve import queue
+
+    server = PredictServer(_engine(), max_wait_s=0.001)
+    server.start()
+    try:
+        server.service_model.seed(10.0)
+        window = _windows(1)[0]
+        assert server.submit(window, deadline_s=1.0).result(
+            timeout=5).status == STATUS_SHED
+        server.service_model._updated_ts -= queue.PROBE_AFTER_S + 0.5
+        probe = server.submit(window, deadline_s=1.0).result(timeout=5)
+        after = server.submit(window, deadline_s=1.0).result(timeout=5)
+    finally:
+        server.stop()
+    assert probe.status == STATUS_OK and after.status == STATUS_OK
+    assert server.service_model.batch_s < 1.0
