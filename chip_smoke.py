@@ -49,6 +49,19 @@ bit-equal to an engine on the old or the new checkpoint; model=medium
 commits under load too) and ``serve_knee`` (an open-loop ramp with
 telemetry on: the knee, ``/metrics`` against ``stats()``, the request
 spans checked and attributed, telemetry on against off).
+The universe path, ``datamodule=universe model=kfactor`` (2,048 assets,
+K=3 factors, 7 inputs, a 3-wide beta head; 12,000 samples), runs each
+layer alone through the single-layer kernels: ``universe_kernels`` holds
+them against their plain versions and cuDNN at 2,048 and 8,192 rows (the
+forward also at 131,072, serving's top bucket); ``universe_data`` builds
+the K-factor DGP's 8-shard window store (while nvcc builds) and opens it
+with every shard re-hashed; ``universe_train`` runs ``train
+datamodule=universe model=kfactor loss=combined`` (2 epochs, graphed)
+and ``test`` as children, a 5-step card-against-CPU trajectory
+(``universe_parity``) and a stream epoch over the memmapped store;
+``universe_serve`` serves the run's ``best`` on the ``serve=universe``
+ladder (1–64 windows, a graph a bucket) against the CPU engine, with
+bursts of 64 requests and the allocator's peak.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -61,8 +74,10 @@ Imports only torch, numpy and the port (never JAX or the JAX package).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import io
@@ -107,7 +122,7 @@ from masters_thesis_tpu_torch.telemetry.trace import (
 )
 from masters_thesis_tpu_torch.cli import train as cli_train
 from masters_thesis_tpu_torch.data.fama_french import FamaFrench25Portfolios
-from masters_thesis_tpu_torch.data.prefetch import prefetch_to_device
+from masters_thesis_tpu_torch.data.prefetch import PrefetchStats, prefetch_to_device
 from masters_thesis_tpu_torch.resilience import faults
 from masters_thesis_tpu_torch.train.checkpoint import (
     CorruptCheckpointError,
@@ -189,7 +204,7 @@ TRAIN_SAMPLES = 200_000
 TRAIN_EPOCHS = 2
 CLIP, LR, WD = 5.0, 1e-4, 1e-5
 PARITY_STEPS = 20
-LONG_PARITY_STEPS = 10  # at T=252 the CPU side dominates the script's time
+LONG_PARITY_STEPS = 5  # at T=252 the CPU side dominates the script's time
 # Card against CPU over the same steps from the same weights. Losses: 1e-5
 # relative (f32 sums over 3,000 terms in another order). Parameters: 1e-5
 # abs, a tenth of one Adam step (lr): equal gradients up to f32 rounding
@@ -260,8 +275,10 @@ def device_ops(call, calls: int = 10, attempts: int = 3) -> list[dict]:
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # Device activity only: the host's events are not read here, and
+        # recording them costs seconds on a plain version's thousands of
+        # operators.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 call()
             torch.cuda.synchronize()
@@ -558,7 +575,7 @@ def _training_inputs(rows: int):
 def _measure(name: str, rows: int, kernel, plain, library, same: bool,
              flops: float, nbytes: float, relative: bool, full=None,
              note: str | None = None, check=None, n_t: int = T,
-             extra: dict | None = None) -> dict:
+             extra: dict | None = None, loop: dict | None = None) -> dict:
     """One kernel row: the kernel against its plain version on the same
     inputs, then the kernel's, the plain version's and the library call's
     times, and the bound. ``same`` says whether the library call computes
@@ -566,7 +583,8 @@ def _measure(name: str, rows: int, kernel, plain, library, same: bool,
     the error to KERNEL_TOL of the largest entry instead of KERNEL_TOL abs;
     ``full`` is the whole cuDNN backward (data and weight gradients);
     ``check`` returns ``(got, want)`` of further outputs to hold; ``extra``
-    fields join the row."""
+    fields join the row; ``loop`` sets the kernel's and the library's
+    timing loops (``cuda_ms``'s keywords)."""
     with torch.no_grad():
         got = kernel()
         torch.cuda.synchronize()
@@ -586,10 +604,10 @@ def _measure(name: str, rows: int, kernel, plain, library, same: bool,
         "max_abs_err": err,
         "tol": tol,
         **(extra or {}),
-        **timed("ms", kernel),
+        **timed("ms", kernel, **(loop or {})),
         **timed("plain_ms", plain, calls=1, spin=False, iters=3, loops=3,
                 warmup=1),
-        **timed("library_ms", library),
+        **timed("library_ms", library, **(loop or {})),
         "library_same_function": same,
     }
     if note is not None:
@@ -1299,16 +1317,20 @@ def _train_spec(num_layers: int = 2, dropout: float = 0.2) -> ModelSpec:
                      learning_rate=LR, weight_decay=WD)
 
 
-def _run_steps(spec, state, batches, device, masks=None):
+def _run_steps(spec, state, batches, device, masks=None, before=None):
     """``len(batches)`` train_step updates of a model with ``state`` on
     ``device``: per-step losses, per-step flat gradients (CPU) and the
-    final parameters (CPU)."""
+    final parameters (CPU). ``before``, a list, gets each step's starting
+    weights (CPU)."""
     module = spec.build_module(device=device)
     module.load_state_dict(state)
     optimizer = make_optimizer(module, CLIP, spec.weight_decay)
     loss_fn = batched_objective(spec.window_objective())
     losses, grads = [], []
     for i, arrays in enumerate(batches):
+        if before is not None:
+            before.append({k: v.detach().cpu().clone()
+                           for k, v in module.state_dict().items()})
         batch = Batch(*(torch.from_numpy(a).to(device) for a in arrays))
         step_masks = None if masks is None else [m.to(device) for m in masks[i]]
         sums = train_step(module, optimizer, loss_fn, batch, spec.learning_rate,
@@ -1326,21 +1348,22 @@ def _grad_gap(got: list, want: list) -> float:
                for g, w in zip(got, want))
 
 
-def _window_batches(dm, n: int) -> list:
+def _window_batches(dm, n: int, batch: int = 1) -> list:
+    """The first ``n`` batches of ``batch`` train windows, in order."""
     train = dm.train_arrays()
-    return [tuple(np.ascontiguousarray(a[i:i + 1]) for a in train)
-            for i in range(n)]
+    return [tuple(np.ascontiguousarray(a[i * batch:(i + 1) * batch])
+                  for a in train) for i in range(n)]
 
 
 def _train_parity(dm, spec, phase: str, kernels: tuple, per_step: int = 1,
-                  steps: int = PARITY_STEPS) -> dict:
-    """``spec`` with dropout 0: ``steps`` steps on the same windows, in
-    the same order, from the same weights, on the card and on the CPU (plain
-    versions); each of ``kernels`` launches ``per_step`` times a step on the
-    card."""
+                  steps: int = PARITY_STEPS, batch: int = 1) -> dict:
+    """``spec`` with dropout 0: ``steps`` steps of ``batch`` windows, the
+    same windows in the same order, from the same weights, on the card and
+    on the CPU (plain versions); each of ``kernels`` launches ``per_step``
+    times a step on the card."""
     state = spec.build_module(
         device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
-    batches = _window_batches(dm, steps)
+    batches = _window_batches(dm, steps, batch)
     lk.reset_launch_counts()
     gpu_losses, gpu_grads, gpu_state, _ = _run_steps(spec, state, batches, DEVICE)
     launches = dict(lk.LAUNCHES)
@@ -1350,7 +1373,7 @@ def _train_parity(dm, spec, phase: str, kernels: tuple, per_step: int = 1,
                     for k in cpu_state)
     grad_gap = _grad_gap(gpu_grads, cpu_grads)
     moved = max(float((cpu_state[k] - state[k]).abs().max()) for k in state)
-    rows = dm.train_arrays().x.shape[1]
+    rows = batch * batches[0][0].shape[1]
     out = {
         "phase": phase,
         "num_layers": spec.num_layers,
@@ -1840,12 +1863,11 @@ def _program_steps(spec, state, data, graphed: bool) -> dict:
 
 
 def _fit_rate(spec, dm, graphed: bool) -> float:
-    """``Trainer.fit`` windows/s, no checkpoints: graphed, 2 epochs (the
-    second timed); eager, 1 epoch (timed whole: there is no capture to
-    leave out, and the eager fit is the slowest part of its phase)."""
-    trainer = Trainer(max_epochs=TRAIN_EPOCHS if graphed else 1,
-                      gradient_clip_val=CLIP, seed=0, device=DEVICE,
-                      cuda_graphs=graphed)
+    """``Trainer.fit`` windows/s over one epoch, no checkpoints, timed
+    whole (a graphed epoch's capture is ~1 ms of it; 2 graphed epochs,
+    the second timed, before PR 15)."""
+    trainer = Trainer(max_epochs=1, gradient_clip_val=CLIP, seed=0,
+                      device=DEVICE, cuda_graphs=graphed)
     return trainer.fit(spec, dm).windows_per_sec
 
 
@@ -2135,6 +2157,7 @@ def phase_driver(train: dict) -> dict:
 # ------------------------------------------------- stream epoch, real data
 
 STREAM_BATCH = 3  # three windows a step: 1,553 train windows leave a tail
+STREAM_EPOCHS = 1  # 518 steps, the last one padded (2 epochs before PR 15)
 STREAM_CPU_SAMPLES = 5_000  # the CPU comparison's set: 38 train windows
 
 
@@ -2213,7 +2236,7 @@ def phase_stream(dm) -> dict:
     """model=small (dropout 0.2) on the 100-stock set with batch_size 3:
     the stream epoch (host batches in the ``(seed, epoch)`` shuffle, the
     prefetcher, the tail padded with a zero-weight copy, one graphed
-    weighted step) for 2 epochs with the prefetcher two batches ahead
+    weighted step) for one epoch with the prefetcher two batches ahead
     against none, and graphed against ``cuda_graphs=False``: losses,
     parameters and Adam moments bit-equal. With dropout 0, on a smaller
     set of the same DGP (100 x 5,000: the CPU's steps take ~0.2 s), the
@@ -2223,12 +2246,13 @@ def phase_stream(dm) -> dict:
     dm3 = FinancialWindowDataModule(dm.data_dir, lookback_window=T,
                                     target_window=30, stride=90,
                                     batch_size=STREAM_BATCH)
-    deep, deep_launches = _stream_fit(spec, dm3, DEVICE, prefetch=2)
-    flat, flat_launches = _stream_fit(spec, dm3, DEVICE, prefetch=0)
-    eager, eager_launches = _stream_fit(spec, dm3, DEVICE, cuda_graphs=False)
-    scan, _ = _stream_fit(spec, dm3, DEVICE, epoch_mode="scan")
+    fit = functools.partial(_stream_fit, epochs=STREAM_EPOCHS)
+    deep, deep_launches = fit(spec, dm3, DEVICE, prefetch=2)
+    flat, flat_launches = fit(spec, dm3, DEVICE, prefetch=0)
+    eager, eager_launches = fit(spec, dm3, DEVICE, cuda_graphs=False)
+    scan, _ = fit(spec, dm3, DEVICE, epoch_mode="scan")
     n_train = len(dm3.train_range)
-    steps = TRAIN_EPOCHS * -(-n_train // STREAM_BATCH)
+    steps = STREAM_EPOCHS * -(-n_train // STREAM_BATCH)
 
     root = data_dir(K_STOCKS).parent / f"{K_STOCKS}x{STREAM_CPU_SAMPLES}"
     bootstrap_synthetic(root, n_stocks=K_STOCKS, n_samples=STREAM_CPU_SAMPLES,
@@ -2237,8 +2261,8 @@ def phase_stream(dm) -> dict:
                                       stride=90, batch_size=STREAM_BATCH)
     spec0 = _train_spec(dropout=0.0)
     t0 = time.perf_counter()
-    card, _ = _stream_fit(spec0, small, DEVICE)
-    cpu, _ = _stream_fit(spec0, small, "cpu")
+    card, _ = fit(spec0, small, DEVICE)
+    cpu, _ = fit(spec0, small, "cpu")
     cpu_s = time.perf_counter() - t0
     loss_gap = max(abs(g[k] - w[k]) / abs(w[k])
                    for g, w in zip(card.history, cpu.history)
@@ -3084,6 +3108,495 @@ def phase_serve_knee(windows: np.ndarray) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- universe
+
+# configs/datamodule/universe.yaml (2,048 synthetic assets, K=3 factors,
+# lookback 32, target 16, stride 48, batch 4, an 8-shard window store) with
+# configs/model/kfactor.yaml (H=64, 2 layers, 2K+1 = 7 inputs, a 3-wide beta
+# head) and configs/loss/combined.yaml: the widths as configured, the depth
+# cut from 50,000 samples to 12,000 (249 windows, 43 steps an epoch).
+U_STOCKS, U_FACTORS, U_SAMPLES = 2048, 3, 12_000
+U_T, U_TARGET, U_STRIDE, U_BATCH, U_SHARDS = 32, 16, 48, 4, 8
+U_FEATURES = 2 * U_FACTORS + 1
+U_BUCKETS = (1, 2, 4, 8, 16, 32, 64)  # configs/serve/universe.yaml
+U_PARITY_STEPS = 5
+U_BURSTS = 6  # bursts of 64 one-window requests through PredictServer
+U_KERNEL_ROWS = (2048, 8192, 131072)  # a window, a training step, bucket 64
+# The kernels a step of model=kfactor launches at 2,048-row windows: each
+# layer alone (the grouping rule fuses no pair there).
+U_PATH = ("lstm_fwd", "lstm_bwd", "lstm_wgrad")
+U_ABSENT = ("lstm_pair_fwd", "lstm_pair_fwd_masked", "lstm_pair_bwd",
+            "lstm_stack_fwd", "lstm_stack_fwd_masked", "lstm_stack_bwd",
+            "lstm_tb_fwd", "lstm_tb_bwd")
+
+
+def universe_dir() -> Path:
+    """The universe data's directory, keyed by the generation parameters."""
+    return (Path(__file__).resolve().parent / "data" / "chip_smoke"
+            / f"universe{U_STOCKS}x{U_SAMPLES}k{U_FACTORS}")
+
+
+def _kfactor_spec(dropout: float = 0.2) -> ModelSpec:
+    # configs/model/kfactor.yaml with configs/loss/combined.yaml.
+    return ModelSpec(objective="combined", input_size=U_FEATURES,
+                     hidden_size=H, num_layers=2, dropout=dropout,
+                     n_factors=U_FACTORS, learning_rate=LR, weight_decay=WD,
+                     mse_weight=100.0)
+
+
+def _universe_inputs(rows: int, seed: int):
+    """x (T, rows, 4H), the layer's weight and a cotangent of h, at T=32,
+    drawn on the card (numpy takes ~30 s for 131,072 rows' 10⁹ normals)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 1.0 / np.sqrt(H)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    w = (torch.rand((H, 4 * H), generator=gen, device="cuda") * 2 - 1) * scale
+    return normal(U_T, rows, 4 * H), w, 0.1 * normal(U_T, rows, H)
+
+
+def phase_universe_kernels() -> dict:
+    """Rows 1 and 2 of the kernel table at the universe path's shapes, T=32,
+    H=64, f32: the resident single-layer forward at 2,048 rows (a window:
+    validation, test, bucket 1), 8,192 (a training step of 4 windows) and
+    131,072 (bucket 64), its sweep and the sweep's one weight-gradient job
+    at 2,048 and 8,192. Each against its plain version (forwards 2e-5 abs,
+    h and c; dx and dW 2e-5 of the largest entry) and timed beside cuDNN's
+    single layer (TF32 off; its forward under inference mode)."""
+    results = {}
+    for rows in U_KERNEL_ROWS:
+        x, w1, dh = _universe_inputs(rows, seed=rows)
+        product = 2 * U_T * rows * H * 4 * H
+        plane_h = 4 * U_T * rows * H
+        plane_x = 4 * U_T * rows * 4 * H
+        weight = 4 * H * 4 * H
+        extra = {"phase": "universe_kernels"}
+        row = _measure(
+            "lstm_fwd", rows,
+            _inference(lambda: lk.lstm_fwd_cuda(x, w1)),
+            _inference(lambda: lk.lstm_recurrence_ref(x, w1)),
+            _inference(_cudnn_forward(x, [(w1,)])), True,
+            product, plane_x + weight + plane_h, False, n_t=U_T, extra=extra,
+            check=lambda: (lk.lstm_fwd_cuda(x, w1, return_c=True)[1],
+                           lk.lstm_recurrence_ref(x, w1, return_c=True)[1]),
+            # cuDNN takes ~29 ms a call at 131,072 rows: fewer loops there.
+            loop=dict(iters=5, loops=3) if rows > U_BATCH * U_STOCKS else None)
+        results[("lstm_fwd", rows)] = row
+        if rows > U_BATCH * U_STOCKS:
+            del x, w1, dh
+            torch.cuda.empty_cache()
+            continue  # serving only: no backward at 131,072 rows
+        with torch.no_grad():
+            hs, cs = lk.lstm_recurrence_ref(x, w1, return_c=True)
+            dx = lk.lstm_bwd_ref(dh, x, hs, cs, w1)
+        rows_out = [
+            _measure(
+                "lstm_bwd", rows,
+                lambda: lk.lstm_bwd_cuda(dh, x, hs, cs, w1),
+                lambda: lk.lstm_bwd_ref(dh, x, hs, cs, w1),
+                _cudnn_backward(x, [(w1,)], dh, weights=False), True,
+                2 * product, 3 * plane_h + plane_x + weight + plane_x, True,
+                full=_cudnn_backward(x, [(w1,)], dh, weights=True), n_t=U_T,
+                extra=extra),
+            _measure(
+                "lstm_wgrad_single", rows,
+                lambda: lk.lstm_single_wgrad(dx, hs),
+                lambda: lk.lstm_wgrad_ref(dx, hs, 1),
+                lambda: (hs[:-1].reshape(-1, H).T
+                         @ dx[1:].reshape(-1, 4 * H)), True,
+                product, plane_x + plane_h + weight, True, n_t=U_T,
+                extra=extra),
+        ]
+        for r in rows_out:
+            results[(r["name"], rows)] = r
+    return results
+
+
+def _universe_datamodule() -> FinancialWindowDataModule:
+    """The universe windows in the port's window store (8 shards), built
+    from the K-factor DGP (dgp_seed 0) next to this script, then opened
+    with every shard re-hashed (``verify=True``)."""
+    from masters_thesis_tpu_torch.data.window_store import WindowStore
+
+    t0 = time.perf_counter()
+    root = universe_dir()
+    bootstrap_synthetic(root, n_stocks=U_STOCKS, n_samples=U_SAMPLES, seed=0,
+                        n_factors=U_FACTORS)
+    generated = time.perf_counter()
+    dm = FinancialWindowDataModule(
+        root, lookback_window=U_T, target_window=U_TARGET, stride=U_STRIDE,
+        batch_size=U_BATCH, engine="python", store_shards=U_SHARDS)
+    dm.prepare_data()
+    built = time.perf_counter()
+    store = WindowStore.open(root / "datasets" / "window_store", verify=True)
+    verified = time.perf_counter()
+    dm.setup()
+    emit({"phase": "universe_data",
+          "seconds": {"generate": generated - t0, "store": built - generated,
+                      "verify": verified - built},
+          "stocks": U_STOCKS, "factors": dm.n_factors, "features": dm.n_features,
+          "samples": U_SAMPLES, "shards": store.n_shards,
+          "store_bytes": store.nbytes,
+          "windows": {"train": len(dm.train_range), "val": len(dm.val_range),
+                      "test": len(dm.test_range)},
+          "fields": {f: list(store.field_shape(f)) for f in
+                     ("x", "y", "factor", "inv_psi")}})
+    if (store.n_shards, dm.n_factors, dm.n_features) != (U_SHARDS, U_FACTORS,
+                                                         U_FEATURES):
+        raise AssertionError("the universe store is not the configured one")
+    return dm
+
+
+def phase_universe_train(dm) -> dict:
+    """``python -m masters_thesis_tpu_torch train datamodule=universe
+    model=kfactor loss=combined`` (2 epochs, graphed) and ``test`` on its
+    checkpoints, each a child process; a 5-step card-against-CPU
+    trajectory at full width (dropout 0, 4 windows a step); one stream
+    epoch over the memmapped store, prefetch 2 against 0 bit for bit, and
+    an in-order pass through the prefetcher for the page-ins. Returns the
+    run's checkpoint root (copied out for universe_serve)."""
+    root = Path(__file__).resolve().parent / "data" / "chip_smoke"
+    save_dir = Path(tempfile.mkdtemp(prefix="universe_", dir=root))
+    common = ["datamodule=universe", "model=kfactor", "loss=combined",
+              f"datamodule.data_dir={universe_dir()}",
+              f"datamodule.n_stocks={U_STOCKS}",
+              f"datamodule.n_samples={U_SAMPLES}",
+              f"logger.save_dir={save_dir}"]
+    steps = len(dm.train_range) // U_BATCH * TRAIN_EPOCHS
+    try:
+        run_lines, run_launches, run_s = _cli(
+            "train", *common, f"trainer.max_epochs={TRAIN_EPOCHS}")
+        ckpts = (save_dir / "FinancialLstm" / "universe"
+                 / "combined_kfactor_lr0.0001_fast" / "checkpoints")
+        # The test child beside the trajectory (neither is timed), each
+        # with half the host's cores: busy-waiting thread pools on every
+        # core slow both many times over.
+        test_child = _Child("test", *common, f"checkpoint={ckpts}",
+                            side_by_side=2)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            t0 = time.perf_counter()
+            parity = _universe_parity(dm)
+            parity_s = time.perf_counter() - t0
+        finally:
+            torch.set_num_threads(threads)
+            test_lines, test_launches, test_s = _cli_result(test_child.wait())
+        kept = root / "universe_best"
+        shutil.rmtree(kept, ignore_errors=True)
+        kept.mkdir(parents=True)
+        shutil.copytree(ckpts / "best", kept / "best")
+        shutil.copy2(ckpts / "best.json", kept / "best.json")
+        records = [r for r in read_records(ckpts.parent) if "lr-Adam" in r]
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # universe_serve's CPU reference, made beside the stream epoch.
+        reference = pool.submit(_universe_reference, kept, dm)
+        stream = _universe_stream(dm)
+        reference = reference.result()
+    done = _done(run_lines)
+    windows_per_s = done["steps_per_s"] * U_BATCH
+    test_line = next(line for line in test_lines if line.startswith("test: "))
+    test_metrics = {k: float(v) for k, v in
+                    (kv.split("=") for kv in test_line[6:].split())}
+    refusal = [line for line in test_lines if line.startswith("note: ")]
+    module = _kfactor_spec().build_module(device="cpu")
+    out = {
+        "phase": "universe_train",
+        "seconds": {"train": run_s, "test": test_s, "parity": parity_s},
+        "steps": steps,
+        "rows_per_step": U_BATCH * U_STOCKS,
+        "layer_groups": module.layer_groups(U_T, U_BATCH * U_STOCKS, True,
+                                            U_STOCKS),
+        "done": done,
+        "windows_per_s": windows_per_s,
+        "asset_rows_per_s": windows_per_s * U_STOCKS,
+        "epochs": [{k: v for k, v in r.items() if k.startswith("loss/")}
+                   for r in records],
+        "test": test_metrics,
+        "test_note": refusal,
+        "parity": {k: parity[k] for k in (
+            "max_loss_rel_gap", "max_same_weights_grad_rel_gap",
+            "max_param_abs_gap", "max_trajectory_grad_rel_gap")},
+        "stream": stream,
+        "launches": {"train": run_launches, "test": test_launches},
+    }
+    emit(out)
+    values = [*done.values(), *test_metrics.values()]
+    if not (np.isfinite(values).all() and len(records) == TRAIN_EPOCHS):
+        raise AssertionError(f"universe_train: missing or non-finite results: "
+                             f"{out}")
+    if out["layer_groups"] != [1, 1] or not refusal:
+        raise AssertionError(f"universe_train: {out['layer_groups']}, "
+                             f"{refusal}")
+    missed = {k: run_launches[k] for k in ("lstm_bwd", "lstm_wgrad")
+              if run_launches[k] != 2 * steps}
+    if run_launches["lstm_fwd"] < 2 * steps:
+        missed["lstm_fwd"] = run_launches["lstm_fwd"]
+    if test_launches["lstm_fwd"] == 0:
+        missed["test/lstm_fwd"] = 0
+    missed.update({k: run_launches[k] for k in U_ABSENT if run_launches[k]})
+    if missed:
+        raise AssertionError(f"universe_train: kernels off the path: {missed}")
+    return {**out, "checkpoints": kept, "reference": reference}
+
+
+# The universe trajectory's tolerances. Losses 1e-5 relative, as for the
+# other models. Gradients on both sides from the same weights (the CPU
+# trajectory's), 2e-4 of the step's largest entry: at 8,192 rows the beta
+# head's bias gradient is a sum of 8,192 rows' loadings gradients of both
+# signs, which the card's f32 reduction (PyTorch's, not a port kernel) and
+# the CPU's round apart; on an NVIDIA H100 80GB HBM3 at 700 W the two
+# parted by 1.23e-4 there (step 2 of 5), and at the first step the card
+# stood 2.0e-5 from float64, the CPU 6.4e-6 (``universe_parity`` prints
+# the worst step and parameter and the float64 gaps). Parameters along the
+# trajectories: 5e-5 abs, half an Adam step at lr 1e-4: summation order
+# alone can flip a near-zero gradient's sign, which Adam turns into a step
+# of lr in either direction (2.2e-5 on that card), while a wrong gradient
+# moves a weight by about lr every step.
+U_GRAD_RTOL = 2e-4
+U_PARAM_TOL = 5e-5
+
+
+def _f64_grads(spec, state, arrays) -> torch.Tensor:
+    """The flat gradient of one training step's loss in float64 on the CPU
+    (the plain versions), from ``state``: the rounding-free reference."""
+    module = spec.build_module(device="cpu")
+    module.load_state_dict(state)
+    module.double()
+    batch = Batch(*(torch.from_numpy(a).double() for a in arrays))
+    alpha, beta = forward_rows(module, batch.x, deterministic=False)
+    loss, _ = batched_objective(spec.window_objective())(
+        alpha, beta, batch.y, batch.factor, batch.inv_psi)
+    loss.backward()
+    return torch.cat([p.grad.reshape(-1) for p in module.parameters()]).float()
+
+
+def _universe_parity(dm) -> dict:
+    """model=kfactor with dropout 0, 5 steps of 4 windows (8,192 rows) from
+    the same weights on the card and on the CPU (plain versions): the
+    trajectories' losses and weights, and each step's gradients on the
+    card from the CPU trajectory's weights against the CPU's; each of the
+    single-layer kernels launches twice a step."""
+    spec = _kfactor_spec(dropout=0.0)
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    batches = _window_batches(dm, U_PARITY_STEPS, U_BATCH)
+    lk.reset_launch_counts()
+    gpu_losses, gpu_grads, gpu_state, _ = _run_steps(spec, state, batches,
+                                                     DEVICE)
+    launches = dict(lk.LAUNCHES)
+    starts: list = []
+    cpu_losses, cpu_grads, cpu_state, _ = _run_steps(spec, state, batches,
+                                                     "cpu", before=starts)
+    same = [_run_steps(spec, w, [b], DEVICE)[1][0]
+            for w, b in zip(starts, batches)]
+    exact = _f64_grads(spec, starts[0], batches[0])
+    names = [(n, p.numel()) for n, p in spec.build_module(
+        device="cpu").named_parameters()]
+    gaps = [((g - c).abs() / c.abs().max()) for g, c in zip(same, cpu_grads)]
+    worst = max(range(len(gaps)), key=lambda i: float(gaps[i].max()))
+    where = int(gaps[worst].argmax())
+    for name, size in names:
+        if where < size:
+            break
+        where -= size
+    loss_gap = max(abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses))
+    param_gap = max(float((gpu_state[k] - cpu_state[k]).abs().max())
+                    for k in cpu_state)
+    out = {
+        "phase": "universe_parity",
+        "steps": U_PARITY_STEPS,
+        "rows_per_step": U_BATCH * U_STOCKS,
+        "loss_first": cpu_losses[0],
+        "loss_last": cpu_losses[-1],
+        "max_loss_rel_gap": loss_gap,
+        "loss_rtol": PARITY_LOSS_RTOL,
+        "max_same_weights_grad_rel_gap": _grad_gap(same, cpu_grads),
+        "worst_step_and_parameter": [worst, name],
+        "first_step_vs_float64": {"card": _grad_gap(same[:1], [exact]),
+                                  "cpu": _grad_gap(cpu_grads[:1], [exact])},
+        "grad_rtol": U_GRAD_RTOL,
+        "max_param_abs_gap": param_gap,
+        "param_tol": U_PARAM_TOL,
+        "max_param_move": max(float((cpu_state[k] - state[k]).abs().max())
+                              for k in state),
+        "max_trajectory_grad_rel_gap": _grad_gap(gpu_grads, cpu_grads),
+        "launches": launches,
+    }
+    emit(out)
+    if not (loss_gap <= PARITY_LOSS_RTOL and param_gap <= U_PARAM_TOL
+            and out["max_same_weights_grad_rel_gap"] <= U_GRAD_RTOL):
+        raise AssertionError(f"universe: card and CPU differ: {out}")
+    missed = {k: launches[k] for k in U_PATH
+              if launches[k] != 2 * U_PARITY_STEPS}
+    missed.update({k: launches[k] for k in U_ABSENT if launches[k]})
+    if missed:
+        raise AssertionError(f"universe_parity: not 2 a step: {missed}")
+    return out
+
+
+def _universe_stream(dm) -> dict:
+    """One ``epoch_mode=stream`` epoch of model=kfactor over the store,
+    graphed, prefetch 2 and prefetch 0 from the same seed (bit-equal), and
+    the train split in order through the prefetcher (the memmap path)."""
+    spec = _kfactor_spec()
+    runs, seconds = {}, {}
+    for depth in (2, 0):
+        trainer = Trainer(max_epochs=1, gradient_clip_val=CLIP, seed=0,
+                          device=DEVICE, epoch_mode="stream", prefetch=depth)
+        t0 = time.perf_counter()
+        runs[depth] = trainer.fit(spec, dm)
+        seconds[depth] = time.perf_counter() - t0
+    def losses(run):
+        return [{k: v for k, v in r.items() if not k.startswith("data/")}
+                for r in run.history]
+
+    equal = (losses(runs[2]) == losses(runs[0])
+             and all(torch.equal(runs[2].state[k], v)
+                     for k, v in runs[0].state.items()))
+    stats = PrefetchStats()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in prefetch_to_device(dm.train_batches(shuffle=False), 2, DEVICE,
+                                stats):
+        n += 1
+    torch.cuda.synchronize()
+    in_order_s = time.perf_counter() - t0
+    row = runs[2].history[0]
+    out = {
+        "seconds": seconds,
+        "prefetch_2_equals_0": equal,
+        "shuffled_epoch": {k: row[k] for k in (
+            "data/mmap_bytes", "data/fault_wait_s", "data/get_wait_s",
+            "data/prefetch_mean_depth")},
+        "in_order": {"batches": n, "seconds": in_order_s,
+                     "mmap_bytes": stats.mmap_bytes,
+                     "fault_wait_s": stats.fault_wait_s,
+                     "get_wait_s": stats.get_wait_s},
+    }
+    print(f"universe stream: mmap_bytes={row['data/mmap_bytes']} "
+          f"fault_wait_s={row['data/fault_wait_s']:.6f} (shuffled epoch); "
+          f"mmap_bytes={stats.mmap_bytes} "
+          f"fault_wait_s={stats.fault_wait_s:.6f} (in order)", flush=True)
+    if not equal:
+        raise AssertionError("universe stream: prefetch 2 differs from 0")
+    if not np.isfinite(row["loss/total/train"]) or stats.mmap_bytes == 0:
+        raise AssertionError(f"universe stream: {out}")
+    return out
+
+
+U_DISTINCT = 16  # distinct windows of the serving check, tiled to 64
+
+
+def _universe_reference(ckpt_dir: Path, dm) -> dict:
+    """The CPU engine's answers on the ``best`` checkpoint for the first
+    ``U_DISTINCT`` val windows, and its seconds; ``windows`` tiles them to
+    the largest bucket (rows are independent, so every row of a 64-window
+    batch has its window's CPU answer; the CPU engine takes ~18 s for 64
+    distinct windows on the card's 8-core host)."""
+    distinct = np.asarray(dm.val_arrays().x[:U_DISTINCT])
+    state, _, spec, _ = restore_checkpoint(ckpt_dir, "best")
+    cpu = PredictEngine(spec, state, n_stocks=U_STOCKS, lookback=U_T,
+                        n_features=U_FEATURES, buckets=(len(distinct),),
+                        device="cpu")
+    t0 = time.perf_counter()
+    alpha, beta = cpu.predict(distinct)
+    reps = -(-max(U_BUCKETS) // len(distinct))
+    return {"windows": np.tile(distinct, (reps, 1, 1, 1))[:max(U_BUCKETS)],
+            "alpha": np.tile(alpha, (reps, 1))[:max(U_BUCKETS)],
+            "beta": np.tile(beta, (reps, 1))[:max(U_BUCKETS)],
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_universe_serve(ckpt_dir: Path, reference: dict) -> dict:
+    """The universe run's best checkpoint through
+    ``PredictEngine.from_checkpoint`` on the ``serve=universe`` ladder, a
+    CUDA graph a bucket: every bucket's answers, full and padded, within
+    SERVE_TOL of the CPU engine's (``reference``: 16 val windows, tiled);
+    bursts of 64 one-window requests through ``PredictServer``; the
+    allocator's peak over the captures."""
+    windows, ref_a, ref_b = (reference[k] for k in ("windows", "alpha",
+                                                    "beta"))
+    cpu_s = reference["seconds"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gpu = PredictEngine.from_checkpoint(ckpt_dir, "best", n_stocks=U_STOCKS,
+                                        n_features=U_FEATURES,
+                                        buckets=U_BUCKETS, device=DEVICE)
+    warm_s = gpu.warmup()
+    peak = torch.cuda.max_memory_allocated()
+    errs = {}
+    for n in (1, 2, 3, 4, 8, 16, 32, 48, 64):
+        a, b = gpu.predict(windows[:n])
+        errs[n] = _max_err((a, b), (ref_a[:n], ref_b[:n]))
+    server = PredictServer(gpu, max_wait_s=0.002)
+    lk.reset_launch_counts()
+    server.start()
+    responses = []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(U_BURSTS):
+            pending = [server.submit(w, deadline_s=5.0) for w in windows]
+            responses += [p.result(timeout=60.0) for p in pending]
+        serve_s = time.perf_counter() - t0
+    finally:
+        stats = server.stop()
+    launches = dict(lk.LAUNCHES)
+    alpha = np.stack([r.outputs[0] for r in responses if r.ok])
+    burst_err = _max_err((alpha,), (np.tile(ref_a, (U_BURSTS, 1)),))
+    answers_per_s = len(responses) / serve_s
+    out = {
+        "phase": "universe_serve",
+        "buckets": list(U_BUCKETS),
+        "layer_groups": {b: gpu._module.layer_groups(U_T, b * U_STOCKS, False,
+                                                     U_STOCKS)
+                         for b in U_BUCKETS},
+        "compile_events": gpu.compile_events,
+        "warmup_s": warm_s,
+        "cpu_reference_s": cpu_s,
+        "distinct_windows": U_DISTINCT,
+        "max_abs_err_vs_cpu": errs,
+        "burst_max_abs_err_vs_cpu": burst_err,
+        "tol": SERVE_TOL,
+        "requests": len(responses),
+        "ok": sum(r.ok for r in responses),
+        "dispatches": stats["dispatches"],
+        "batch_size_counts": stats["batch_size_counts"],
+        "late_deliveries": stats["late_deliveries"],
+        "p50_ms": stats["p50_ms"],
+        "p99_ms": stats["p99_ms"],
+        "answers_per_s": answers_per_s,
+        "asset_rows_per_s": answers_per_s * U_STOCKS,
+        "capture_peak_bytes": gpu.capture_peak_bytes,
+        "max_memory_allocated": peak,
+        "memory_allocated_before": before,
+        "memory_reserved": torch.cuda.memory_reserved(),
+        "launches": launches,
+    }
+    emit(out)
+    worst = max(errs.values())
+    if not (worst <= SERVE_TOL and burst_err <= SERVE_TOL):
+        raise AssertionError(f"universe_serve: answers differ from the CPU "
+                             f"engine: {errs}, {burst_err}")
+    if gpu.compile_events != len(U_BUCKETS) or out["ok"] != len(responses):
+        raise AssertionError(f"universe_serve: {gpu.compile_events} captures, "
+                             f"{out['ok']} of {len(responses)} ok")
+    if stats["late_deliveries"] or launches["lstm_fwd"] < 2 * stats["dispatches"]:
+        raise AssertionError(f"universe_serve: launches {launches}, stats "
+                             f"{stats}")
+    if any(launches[k] for k in U_ABSENT + ("lstm_bwd",)):
+        raise AssertionError(f"universe_serve left lstm_fwd: {launches}")
+    del gpu, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_ab(label: str) -> None:
     """The pair, single-layer, time-blocked and stack kernels of whatever
     checkout this copy of the script sits in, for comparing two checkouts
@@ -3171,13 +3684,21 @@ def main() -> int:
         return 0
     t0 = time.perf_counter()
     device = phase_device()
-    phase_build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        # While nvcc builds: the universe data is made on the host, and a
+        # first profiler trace sets up the profiler (~8 s on the card).
+        universe_data = pool.submit(_universe_datamodule)
+        profiler = pool.submit(device_ops, lambda: torch.ones(1, device=DEVICE) * 2)
+        phase_build()
+        profiler.result()
+        dm_universe = universe_data.result()
     kernels = phase_kernels()
     kernels.update(phase_training_kernels())
     kernels.update(phase_stack_kernels())
     phase_stack_depths()
     phase_stack_vs_pairs()
     kernels.update(phase_tblocked_kernels())
+    universe_kernels = phase_universe_kernels()
     windows = _synthetic_windows()
     serve = phase_serve(windows)
     odd = phase_odd_layers(windows)
@@ -3223,6 +3744,12 @@ def main() -> int:
     phase_train_long_remat(dm_long)
     phase_graphs(dm_long, _train_spec(), "graphs_long",
                  {"lstm_tb_fwd": 2, "lstm_tb_bwd": 2})
+    # The universe path: model=kfactor on 2,048-asset windows through the
+    # single-layer kernels, trained by the entry point and served.
+    universe_train = phase_universe_train(dm_universe)
+    universe_serve = phase_universe_serve(universe_train["checkpoints"],
+                                          universe_train["reference"])
+    del dm_universe
     # The rest of serving: the fault plan, the swaps under load, the knee.
     # They run as a serving process would, on a heap collected once and
     # frozen (gc.freeze): the collector's passes then scan what serving
@@ -3302,6 +3829,19 @@ def main() -> int:
             summary[-1].setdefault("launches_by_path", {}).update(
                 {phase: path["launches"][name]
                  for phase, path in serve_paths[name].items()})
+        if name in U_PATH:
+            # Its launches on the universe path (the train child, the
+            # serving bursts) and its rows at that path's shapes.
+            measured = "lstm_wgrad_single" if name == "lstm_wgrad" else name
+            summary[-1].setdefault("launches_by_path", {}).update({
+                "universe_train": universe_train["launches"]["train"][name],
+                "universe_serve": universe_serve["launches"][name]})
+            summary[-1]["universe"] = [
+                {k: r[k] for k in ("name", "rows", "T", "max_abs_err", "tol",
+                                   "ms", "ms_spread", "device_ms", "plain_ms",
+                                   "plain_device_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library_device_ms")}
+                for (n, _), r in universe_kernels.items() if n == measured]
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -17,6 +17,13 @@ dir, and logs the ΔL scalars there (``metrics.jsonl``). ``test.py``'s
 figures are not drawn: the card's machine has no matplotlib. A JAX package
 (orbax) checkpoint is refused.
 
+With ``datamodule.n_factors > 1`` it writes the test-split metrics of
+``Trainer.test`` alone, and says so in one printed line: the ΔL table and
+its arrays read the scalar market model's channels (the market, its true
+beta, one loading), and on K-factor windows they would read the first
+factor as the market and the last as the true beta. The JAX ``test.py``
+prints that table at K > 1 all the same.
+
 It runs on CUDA unless given ``--device cpu``, and raises without a card.
 """
 
@@ -34,6 +41,7 @@ from masters_thesis_tpu_torch.cli.train import (
     build_datamodule,
     check_data_supported,
     compose_config,
+    data_factors,
 )
 from masters_thesis_tpu_torch.config import Config
 
@@ -96,16 +104,24 @@ def main(argv: list[str] | None = None) -> int:
     state, _, spec, meta = restore_checkpoint(Path(cfg.checkpoint))
     # Evaluate on the SAME windowing the checkpoint was trained with.
     apply_datamodule_sidecar(cfg, meta)
+    if spec.n_factors != data_factors(cfg):
+        raise ValueError(
+            f"datamodule.n_factors={data_factors(cfg)}: the checkpoint's model "
+            f"has {spec.n_factors} loading(s); compose the data module it was "
+            "trained on")
     if not bootstrap(cfg):
         return 1
     dm = build_datamodule(cfg)
     dm.prepare_data()
+    save_dir, name, version = derive_logger_dirs(Path(cfg.checkpoint), cfg)
+    if spec.n_factors > 1:
+        return _test_kfactor(cfg, spec, state, dm, device,
+                             RunLogger(save_dir, name, version))
 
     results = collect_test_results(spec, state, dm, device=device)
     deltas = delta_losses(spec, state, dm, estimates=results, device=device)
     metrics = Trainer(max_epochs=0, device=device).test(spec, state, dm)
 
-    save_dir, name, version = derive_logger_dirs(Path(cfg.checkpoint), cfg)
     logger = RunLogger(save_dir, name, version)
     # Thesis results-table metrics: losses above the OLS-on-target
     # baseline (ΔL_MSE ×1e-5, ΔL_NLL, ΔL_MIX at ζ=1e5), model and
@@ -132,5 +148,25 @@ def main(argv: list[str] | None = None) -> int:
         indent=2,
     ))
     np.savez(logger.log_dir / "results.npz", **_flatten(results))
+    print(f"results written to {logger.log_dir}", flush=True)
+    return 0
+
+
+def _test_kfactor(cfg: Config, spec, state, dm, device, logger) -> int:
+    """The test-split metrics of a K-factor checkpoint, without the ΔL
+    table: ``results.json`` holds ``Trainer.test``'s metrics only."""
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    print(f"note: datamodule.n_factors={spec.n_factors}: the dL table and "
+          "results.npz compare with the scalar market model (one market "
+          "channel, one loading); masters_thesis_tpu_torch writes the test "
+          "metrics only", flush=True)
+    metrics = Trainer(max_epochs=0, device=device, logger=logger).test(
+        spec, state, dm)
+    print("test: " + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()),
+          flush=True)
+    logger.close()
+    (logger.log_dir / "results.json").write_text(json.dumps(
+        {"checkpoint": str(cfg.checkpoint), "test": metrics}, indent=2))
     print(f"results written to {logger.log_dir}", flush=True)
     return 0

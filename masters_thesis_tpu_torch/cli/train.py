@@ -7,13 +7,15 @@
     python -m masters_thesis_tpu_torch train --device cpu ...       # no card
 
 It composes ``configs/`` with the port's own composer, bootstraps the data
-(the synthetic DGP, or ``datamodule=real``'s Fama-French CSVs under
-``datamodule.raw_dir``: without them it prints ``train.py``'s message and
-trains nothing), builds the data module and the model spec, trains with
-the port's ``Trainer`` (``trainer.epoch_mode`` scan or stream; best/last
-checkpoints under ``<log_dir>/checkpoints``), tests,
-logs the hparams with the test metrics, prints ``train.py``'s ``done:`` line
-and returns the best val loss. ``checkpoint=`` with ``checkpoint_mode=full``
+(the synthetic DGP, scalar or with ``datamodule.n_factors`` factors, or
+``datamodule=real``'s Fama-French CSVs under ``datamodule.raw_dir``:
+without them it prints ``train.py``'s message and trains nothing), builds
+the data module (``datamodule.engine``, ``datamodule.store_shards``) and
+the model spec, trains with the port's ``Trainer`` (``trainer.epoch_mode``
+scan or stream; best/last checkpoints under ``<log_dir>/checkpoints``),
+tests, logs the hparams with the test metrics, prints ``train.py``'s
+``done:`` line and returns the best val loss. ``checkpoint=`` with
+``checkpoint_mode=full``
 (weights and FlatAdam state; the checkpoint's spec wins) or ``params``
 (weights only, a fresh optimizer, the config's spec: the warm-up protocol)
 starts from a checkpoint; ``trainer.resume`` continues from ``last``. ``-m``
@@ -85,15 +87,18 @@ def check_data_supported(cfg: Config) -> None:
     if "n_stocks" not in d and "raw_dir" not in d:
         _refuse("datamodule", d.get("name"), "it has neither n_stocks (the "
                 "synthetic DGP) nor raw_dir (the Fama-French CSVs)")
-    if d.get("n_factors", 1) != 1:
-        _refuse("datamodule.n_factors", d.n_factors,
-                "K-factor data is not ported (1 only)")
-    if d.get("store_shards") is not None:
-        _refuse("datamodule.store_shards", d.store_shards,
-                "the on-disk window store is not ported (null only)")
-    if d.get("engine", "auto") == "native":
-        _refuse("datamodule.engine", d.engine,
-                "the C++ window engine is not ported (auto or python)")
+    if (d.get("engine", "auto") == "native" and data_factors(cfg) > 1
+            and d.get("store_shards") is None):
+        _refuse("datamodule.engine", d.engine, "the C++ window engine takes "
+                "the scalar market series only; K-factor windows build "
+                "through the python engine (auto or python)")
+
+
+def data_factors(cfg: Config) -> int:
+    """Factors of the configured source: ``datamodule.n_factors`` of the
+    synthetic DGP; the Fama-French data has the market alone."""
+    d = cfg.datamodule
+    return int(d.get("n_factors", 1)) if "n_stocks" in d else 1
 
 
 def check_supported(cfg: Config) -> None:
@@ -123,9 +128,15 @@ def check_supported(cfg: Config) -> None:
     if m.get("kernel_impl", "auto") != "auto":
         _refuse("model.kernel_impl", m.kernel_impl, "the port picks its "
                 "kernels itself (auto only)")
-    if m.get("n_factors", 1) != 1:
-        _refuse("model.n_factors", m.n_factors, "K-factor models are not "
-                "ported (1 only)")
+    n_model, n_data = int(m.get("n_factors", 1)), data_factors(cfg)
+    if n_model != n_data:
+        # Name the side that left the scalar model.
+        if n_model != 1:
+            _refuse("model.n_factors", n_model, f"the data has {n_data} "
+                    "factor(s) and the beta head must match them")
+        _refuse("datamodule.n_factors", n_data, f"the model has {n_model} "
+                "loading(s) (model.n_factors); model=kfactor follows the "
+                "data")
 
 
 def check_launcher(cfg: Config) -> None:
@@ -174,6 +185,7 @@ def bootstrap(cfg: Config) -> bool:
             n_samples=d.n_samples,
             seed=d.get("dgp_seed", 0),
             variant=d.get("dgp_variant", "no_outliers"),
+            n_factors=d.get("n_factors", 1),
         )
         return True
     if not bootstrap_real(Path(d.raw_dir), Path(d.data_dir)):
@@ -196,6 +208,8 @@ def build_datamodule(cfg: Config):
         prediction_task=d.prediction_task,
         interaction_only=d.interaction_only,
         batch_size=d.batch_size,
+        engine=d.get("engine", "auto"),
+        store_shards=d.get("store_shards"),
     )
 
 
@@ -234,16 +248,19 @@ def _init_state(cfg: Config, spec):
         return ckpt_spec, (state, opt_state)
     # 'params' = the warm-up protocol: reuse the weights with a fresh
     # optimizer, and the config keeps deciding the objective, lr and
-    # dropout. Only the weight shapes must match the checkpoint.
-    if (ckpt_spec.hidden_size, ckpt_spec.num_layers) != (
-        spec.hidden_size, spec.num_layers,
-    ):
-        raise ValueError(
-            "checkpoint_mode=params needs a matching architecture: "
-            f"checkpoint is hidden={ckpt_spec.hidden_size}/"
-            f"layers={ckpt_spec.num_layers}, config asks "
-            f"hidden={spec.hidden_size}/layers={spec.num_layers}"
-        )
+    # dropout. Only the weight shapes must match the checkpoint: the
+    # layers, and the input and beta-head widths that the factor count sets.
+    for labels in ({"hidden_size": "hidden", "num_layers": "layers"},
+                   {"input_size": "inputs", "n_factors": "factors"}):
+        def shape(s) -> str:
+            return "/".join(f"{label}={getattr(s, key)}"
+                            for key, label in labels.items())
+
+        if shape(ckpt_spec) != shape(spec):
+            raise ValueError(
+                "checkpoint_mode=params needs a matching architecture: "
+                f"checkpoint is {shape(ckpt_spec)}, config asks {shape(spec)}"
+            )
     return spec, (state, None)
 
 

@@ -14,9 +14,14 @@ the consuming stream's work queued before its release has finished
 
 :class:`PrefetchStats` makes input starvation observable: the generator is
 synchronous, so the host time inside ``next(source)`` and the copy's
-dispatch is time that did not overlap the device's work. The memmap
-materialisation of the JAX prefetcher belongs to the window store, which is
-not ported.
+dispatch is time that did not overlap the device's work. Batches of the
+window store (``data/window_store.py``) may hold ``np.memmap`` views, whose
+reads happen as page faults when their bytes are first touched; the
+prefetcher copies each such view into memory on the producer side, timed
+(``fault_wait_s``, a part of ``get_wait_s``) and counted (``mmap_bytes``),
+before it stages the batch. A batch gathered across the store's windows is
+a fresh array already (its page-in falls in ``take``, inside
+``get_wait_s``), so it counts in neither.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ class PrefetchStats:
     depth_sum: int = 0       # queue depth observed at each yield
     min_depth: int | None = None
     exhausted: bool = False  # the source ran dry (the end of every epoch)
+    fault_wait_s: float = 0.0  # host time paging memmap views in
+    mmap_bytes: int = 0  # bytes of the memmap views paged in
 
     def observe_depth(self, depth: int) -> None:
         self.yields += 1
@@ -61,6 +68,8 @@ class PrefetchStats:
             "mean_depth": self.mean_depth,
             "min_depth": self.min_depth,
             "exhausted": self.exhausted,
+            "fault_wait_s": self.fault_wait_s,
+            "mmap_bytes": self.mmap_bytes,
         }
 
 
@@ -71,6 +80,25 @@ def _map(item, fn):
     if isinstance(item, (tuple, list)):
         return type(item)(_map(v, fn) for v in item)
     return fn(item)
+
+
+def _materialize_mmap(item, stats: PrefetchStats | None):
+    """``item`` with each ``np.memmap`` leaf copied into memory, the copy
+    timed into ``stats.fault_wait_s`` and its bytes into
+    ``stats.mmap_bytes``; other leaves untouched. (``np.ascontiguousarray``,
+    which the JAX prefetcher calls here, returns a contiguous memmap's
+    pages as a view without reading them; the copy reads them.)"""
+    def force(leaf):
+        if not isinstance(leaf, np.memmap):
+            return leaf
+        t0 = time.perf_counter()
+        out = np.array(leaf, order="C", copy=True)
+        if stats is not None:
+            stats.fault_wait_s += time.perf_counter() - t0
+            stats.mmap_bytes += int(leaf.nbytes)
+        return out
+
+    return _map(item, force)
 
 
 def prefetch_to_device(iterator: Iterable[Any], size: int = 2, device=None,
@@ -124,7 +152,7 @@ def prefetch_to_device(iterator: Iterable[Any], size: int = 2, device=None,
                 stats.get_wait_s += time.perf_counter() - t0
                 stats.exhausted = True
             return False
-        queue.append(put(item))
+        queue.append(put(_materialize_mmap(item, stats)))
         if stats is not None:
             stats.get_wait_s += time.perf_counter() - t0
             stats.gets += 1

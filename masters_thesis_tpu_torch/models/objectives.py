@@ -8,9 +8,11 @@ per-window function with ``vmap``, the port writes the batch axis out: every
 function takes any leading batch dims and returns one value per window.
 
 Batch window schema (``data/pipeline.py`` ``Batch``): ``y``
-``(..., K, T, 4)`` channels ``[r_stock, r_market, alpha, beta]``; ``factor``
-``(..., 2)`` = (market mean, market var); ``inv_psi`` ``(..., K)``. The
-K-factor branches (F > 1 loadings) are not ported yet.
+``(..., K, T, 2F+2)`` channels ``[r_stock, f_1..f_F, alpha, beta_1..beta_F]``
+(``[r_stock, r_market, alpha, beta]`` at F=1); ``factor`` ``(..., 2)`` =
+(market mean, market var) at F=1, ``(..., F+F²)`` = ``[f_mean |
+f_cov.ravel()]`` above; ``inv_psi`` ``(..., K)``. The factor count F is
+``beta.shape[-1]``; the F=1 branches are the scalar code.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable
 import torch
 
 from masters_thesis_tpu_torch.ops.losses import (
+    kfactor_gaussian_nll,
     mean_squared_error,
     single_factor_gaussian_nll,
 )
@@ -30,36 +33,40 @@ from masters_thesis_tpu_torch.ops.losses import (
 WindowObjective = Callable[..., tuple[torch.Tensor, dict]]
 
 
-def _single_factor(beta: torch.Tensor) -> None:
-    if beta.shape[-1] != 1:
-        raise NotImplementedError(
-            f"{beta.shape[-1]} factor loadings: the K-factor objectives are "
-            "not ported"
-        )
-
-
-def _predicted_returns(alpha, beta, y):
-    _single_factor(beta)
-    return alpha + beta * y[..., 1]  # (..., K, 1) broadcast over (..., K, T)
+def predicted_returns(alpha, beta, y):
+    """``alpha + Σ_f beta_f · f`` over the target window: ``(..., K, T)``
+    from ``alpha`` ``(..., K, 1)``, ``beta`` ``(..., K, F)`` and the factor
+    channels ``y[..., 1:1+F]``."""
+    n_f = beta.shape[-1]
+    if n_f == 1:
+        return alpha + beta * y[..., 1]  # (..., K, 1) broadcast over T
+    return alpha + torch.einsum("...kf,...ktf->...kt", beta, y[..., 1:1 + n_f])
 
 
 def mse_window(alpha, beta, y, factor, inv_psi):
-    """MSE of ``alpha + beta · r_market`` against realized returns over each
+    """MSE of ``alpha + beta · factors`` against realized returns over each
     target window."""
     r_target = y[..., 0]
-    loss = mean_squared_error(_predicted_returns(alpha, beta, y), r_target,
+    loss = mean_squared_error(predicted_returns(alpha, beta, y), r_target,
                               dim=(-2, -1))
     n = torch.full_like(loss, float(r_target.shape[-2] * r_target.shape[-1]))
     return loss, {"mse": (loss * n, n)}
 
 
 def nll_window(alpha, beta, y, factor, inv_psi):
-    """Multivariate-Gaussian NLL with the single-factor Woodbury inverse
-    covariance, in the fused O(K·n) form."""
-    _single_factor(beta)
-    f_mean, f_var = factor[..., 0], factor[..., 1]
-    r_mean = alpha + beta * f_mean[..., None, None]  # (..., K, 1)
-    loss = single_factor_gaussian_nll(r_mean, beta, inv_psi, f_var, y[..., 0])
+    """Multivariate-Gaussian NLL with the Woodbury inverse covariance, in
+    the fused O(K·n) form: single-factor at F=1, rank-F above."""
+    n_f = beta.shape[-1]
+    if n_f == 1:
+        f_mean, f_var = factor[..., 0], factor[..., 1]
+        r_mean = alpha + beta * f_mean[..., None, None]  # (..., K, 1)
+        loss = single_factor_gaussian_nll(r_mean, beta, inv_psi, f_var,
+                                          y[..., 0])
+    else:
+        f_mean = factor[..., :n_f]
+        f_cov = factor[..., n_f:].reshape(*factor.shape[:-1], n_f, n_f)
+        r_mean = alpha + beta @ f_mean[..., None]  # (..., K, 1)
+        loss = kfactor_gaussian_nll(r_mean, beta, inv_psi, f_cov, y[..., 0])
     return loss, {"nll": (loss, torch.ones_like(loss))}
 
 
@@ -76,7 +83,7 @@ def make_combined_window(mse_weight: float) -> WindowObjective:
 
 def batched_objective(window_fn: WindowObjective):
     """Lift a window objective over a batch: ``fn(alpha (B,K,1), beta
-    (B,K,1), y, factor, inv_psi, weights=None) -> (mean loss, metric sums)``.
+    (B,K,F), y, factor, inv_psi, weights=None) -> (mean loss, metric sums)``.
 
     The metric sums aggregate over the batch and include ``"total"``, the
     objective itself. ``weights`` ``(B,)`` turns the mean into a weighted

@@ -1,10 +1,11 @@
-"""Batched linear algebra of the single-factor model.
+"""Batched linear algebra of the factor models.
 
-Counterpart of ``ols`` and ``inverse_returns_covariance`` in
+Counterpart of ``ols``, ``ols_k`` and ``inverse_returns_covariance`` in
 ``masters_thesis_tpu/ops/linalg.py``. The JAX functions pin these small,
 accuracy-sensitive contractions to full f32 (``precision="highest"``); the
 port's ``torch.matmul`` is full f32 as long as TF32 stays off, which the
-port never turns on. The multi-factor ``ols_k`` is not ported yet.
+port never turns on. They label windows on the host (the data pipeline),
+so ``torch.linalg.pinv`` never runs inside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -41,6 +42,37 @@ def _batched_ols(x: torch.Tensor, y: torch.Tensor):
     moment = design.mT @ y.mT  # (batch, 2, k)
     coef = torch.linalg.pinv(gram) @ moment
     return coef[:, 0, :], coef[:, 1, :]
+
+
+def ols_k(factors: torch.Tensor, y: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-factor least squares ``y ≈ alpha + factors @ beta``, batched.
+
+    The design is ``[1 | f_1 .. f_F]``; at ``F == 1`` it holds the values
+    :func:`ols` stacks, so the result is :func:`ols`'s.
+
+    Args:
+        factors: ``(n_samples, F)`` or ``(batch, n_samples, F)``.
+        y: ``(n_stocks, n_samples)`` or ``(batch, n_stocks, n_samples)``.
+
+    Returns:
+        ``(alphas, betas)``: ``(..., n_stocks)`` and ``(..., n_stocks, F)``.
+    """
+    if factors.ndim == 2 and y.ndim == 2:
+        alphas, betas = _batched_ols_k(factors[None], y[None])
+        return alphas[0], betas[0]
+    return _batched_ols_k(factors, y)
+
+
+def _batched_ols_k(factors: torch.Tensor, y: torch.Tensor):
+    """factors (batch, n, F), y (batch, k, n)."""
+    ones = torch.ones(factors.shape[:-1] + (1,), dtype=factors.dtype,
+                      device=factors.device)
+    design = torch.cat([ones, factors], dim=-1)  # (batch, n, F+1)
+    gram = design.mT @ design
+    moment = design.mT @ y.mT  # (batch, F+1, k)
+    coef = torch.linalg.pinv(gram) @ moment
+    return coef[:, 0, :], coef[:, 1:, :].transpose(-1, -2)
 
 
 def inverse_returns_covariance(

@@ -2,15 +2,15 @@
 
 Counterpart of ``masters_thesis_tpu/ops/windows.py``. Windows are gathered
 with precomputed start indices, op for op as in the JAX functions, so the
-results are equal to theirs bit for bit. ``ols_features`` takes the scalar
-market series (F=1); its multi-factor branch is not ported yet.
+results are equal to theirs bit for bit. ``ols_features`` fits the scalar
+market model at F=1 and the multi-factor regression (``ols_k``) above it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from masters_thesis_tpu_torch.ops.linalg import ols
+from masters_thesis_tpu_torch.ops.linalg import ols, ols_k
 
 
 def lookback_target_split(
@@ -102,28 +102,41 @@ def ols_features(target: torch.Tensor):
     Fits ``r_stock ≈ alpha + beta * r_market`` on each target window, then
     summarizes the factor (mean and unbiased variance of the market returns)
     and the inverse idiosyncratic variance of the fit residuals (unbiased).
+    With ``F > 1`` factor channels the fit is ``r_stock ≈ alpha + Σ_f
+    beta_f * f`` and the factor summary the mean vector and the flattened
+    (ddof=1) covariance; the F=1 branch is the scalar code, op for op.
 
     Args:
-        target: ``(n_windows, n_stocks, target_window, 2)`` with channels
-            ``[r_stock, r_market]``.
+        target: ``(n_windows, n_stocks, target_window, 1+F)`` with channels
+            ``[r_stock, f_1 .. f_F]``.
 
     Returns:
-        ``alphas``, ``betas`` ``(n_windows, n_stocks)``, ``factor``
-        ``(n_windows, 2)`` = (market mean, market var) and ``inv_psi``
-        ``(n_windows, n_stocks)`` = 1 / var(residuals).
+        ``alphas`` ``(n_windows, n_stocks)``, ``betas`` ``(n_windows,
+        n_stocks)`` at F=1 else ``(n_windows, n_stocks, F)``, ``factor``
+        ``(n_windows, 2)`` = (market mean, market var) at F=1 else
+        ``(n_windows, F + F²)`` = ``[f_mean | f_cov.ravel()]``, and
+        ``inv_psi`` ``(n_windows, n_stocks)`` = 1 / var(residuals).
     """
-    if target.shape[-1] != 2:
-        raise NotImplementedError(
-            "ols_features takes one market channel; the multi-factor branch "
-            "(ols_k) is not ported"
-        )
+    n_f = target.shape[-1] - 1
     r_stocks = target[:, :, :, 0]
-    r_market = target[:, 0, :, 1]  # market identical across stocks
-    alphas, betas = ols(r_market, r_stocks)
-    r_pred = alphas[..., None] + betas[..., None] * r_market[:, None, :]
+    if n_f == 1:
+        r_market = target[:, 0, :, 1]  # market identical across stocks
+        alphas, betas = ols(r_market, r_stocks)
+        r_pred = alphas[..., None] + betas[..., None] * r_market[:, None, :]
+        residuals = r_stocks - r_pred
+        factor = torch.stack(
+            [r_market.mean(dim=-1), r_market.var(dim=-1, correction=1)], dim=-1
+        )
+        inv_psi = 1.0 / residuals.var(dim=-1, correction=1)
+        return alphas, betas, factor, inv_psi
+
+    f = target[:, 0, :, 1:]  # (n_win, tw, F), identical across stocks
+    alphas, betas = ols_k(f, r_stocks)  # (n_win, k), (n_win, k, F)
+    r_pred = alphas[..., None] + torch.einsum("wkf,wtf->wkt", betas, f)
     residuals = r_stocks - r_pred
-    factor = torch.stack(
-        [r_market.mean(dim=-1), r_market.var(dim=-1, correction=1)], dim=-1
-    )
+    f_mean = f.mean(dim=1)  # (n_win, F)
+    centered = f - f_mean[:, None, :]
+    f_cov = torch.einsum("wtf,wtg->wfg", centered, centered) / (f.shape[1] - 1)
+    factor = torch.cat([f_mean, f_cov.reshape(f_cov.shape[0], -1)], dim=-1)
     inv_psi = 1.0 / residuals.var(dim=-1, correction=1)
     return alphas, betas, factor, inv_psi

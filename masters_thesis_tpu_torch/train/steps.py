@@ -32,6 +32,7 @@ from masters_thesis_tpu_torch.models.objectives import (
     batched_objective,
     mse_window,
     nll_window,
+    predicted_returns,
 )
 from masters_thesis_tpu_torch.utils.cuda_graph import GraphedCall
 
@@ -276,12 +277,13 @@ def train_epoch(module, optimizer, window_objective, data: Batch,
 
 def window_eval_metrics(alpha, beta, y, factor, inv_psi) -> dict:
     """Per-window evaluation metrics: the objective components plus the
-    MAE of ``alpha + beta · r_market`` against realized returns."""
+    MAE of ``alpha + beta · factors`` against realized returns."""
     r_target = y[..., 0]
     mse_loss, mse_metrics = mse_window(alpha, beta, y, factor, inv_psi)
     nll_loss, _ = nll_window(alpha, beta, y, factor, inv_psi)
     n = mse_metrics["mse"][1]
-    mae = torch.mean(torch.abs(alpha + beta * y[..., 1] - r_target), dim=(-2, -1))
+    mae = torch.mean(torch.abs(predicted_returns(alpha, beta, y) - r_target),
+                     dim=(-2, -1))
     return {
         "mse": (mse_loss * n, n),
         "nll": (nll_loss, torch.ones_like(nll_loss)),

@@ -9,10 +9,12 @@ one epoch of training steps, then one host read of its metric sums. The
 (``train_batches``), prefetches them to the device (``prefetch_to_device``,
 whose wait and depth go into the epoch row) and runs ``ceil(n /
 batch_size)`` weighted steps (``StreamProgram``), the tail padded with
-zero-weight windows. Every ``check_val_every_n_epoch`` epochs: an
-evaluation of the val split, a ``PlateauScheduler`` step on its loss, a
-``best`` checkpoint when it improves and a ``last`` one; ``last`` also
-every ``checkpoint_every_n_epochs`` epochs and at the end. History rows use the
+zero-weight windows; over a window store its rows also carry the page-in
+bytes and wait (``data/mmap_bytes``, ``data/fault_wait_s``). Every
+``check_val_every_n_epoch`` epochs: an evaluation of the val split, a
+``PlateauScheduler`` step on its loss, a ``best`` checkpoint when it
+improves and a ``last`` one; ``last`` also every
+``checkpoint_every_n_epochs`` epochs and at the end. History rows use the
 JAX trainer's keys (``loss/<metric>/train``, ``loss/<metric>/val``,
 ``lr-Adam``), go to the logger, and with ``enable_progress_bar`` print as
 the JAX trainer's ``epoch N | ...`` lines. On the card the training step
@@ -78,9 +80,13 @@ class TrainResult:
 
 
 def device_split(arrays: Batch, device) -> Batch:
-    """A split's arrays as f32 tensors on ``device``, moved once."""
-    return Batch(*(torch.as_tensor(np.asarray(a, np.float32)).to(device)
-                   for a in arrays))
+    """A split's arrays as f32 tensors on ``device``, moved once (a
+    read-only memmap of the window store is copied first)."""
+    def host(a) -> np.ndarray:
+        a = np.asarray(a, np.float32)
+        return a if a.flags.writeable else a.copy()
+
+    return Batch(*(torch.as_tensor(host(a)).to(device) for a in arrays))
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -221,6 +227,11 @@ class Trainer:
             if self.epoch_mode == "stream":
                 row["data/get_wait_s"] = stats.get_wait_s
                 row["data/prefetch_mean_depth"] = stats.mean_depth
+                if dm.store is not None:
+                    # The window store's page-ins (the JAX trainer's
+                    # window_store event).
+                    row["data/mmap_bytes"] = stats.mmap_bytes
+                    row["data/fault_wait_s"] = stats.fault_wait_s
             if faults.fire("trainer.loss", epoch=epoch) == "nan":
                 row["loss/total/train"] = float("nan")
             if epoch > start_epoch or self.max_epochs - start_epoch == 1:

@@ -1254,3 +1254,57 @@ def test_a_graphed_predict_makes_no_implicit_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     for got, want in zip(canary, plain):
         np.testing.assert_array_equal(got, want)
+
+
+# model=kfactor at datamodule=universe: 2,048-asset windows, T=32, H=64,
+# each layer alone (the grouping rule fuses no pair at 2,048-row windows).
+# Training takes 4 windows a step (8,192 rows), serving's top bucket 64
+# (131,072 rows: the forward alone).
+@pytest.mark.parametrize("rows", [2048, 8192, 131072])
+def test_single_layer_kernels_at_universe_rows(cuda_device, rows):
+    x, w1, *_ = _case(rows, rows, 64, n_t=32, device=cuda_device)
+    hs, cs = lk.lstm_recurrence_ref(x, w1, return_c=True)
+    got_hs, got_cs = lk.lstm_fwd_cuda(x, w1, return_c=True)
+    torch.testing.assert_close(got_hs, hs, atol=2e-5, rtol=0)
+    torch.testing.assert_close(got_cs, cs, atol=2e-5, rtol=0)
+    if rows > 8192:
+        return
+    _, dh = _mask_and_cotangent(rows + 1, 32, rows, 64, cuda_device)
+    dx = lk.lstm_bwd_cuda(dh, x, hs, cs, w1)
+    want_dx = lk.lstm_bwd_ref(dh, x, hs, cs, w1)
+    _close_rel(dx, want_dx)
+    _close_rel(lk.lstm_wgrad_cuda([(want_dx, hs, 1, None, False)])[0][0],
+               lk.lstm_wgrad_ref(want_dx, hs, 1))
+
+
+def test_graphed_kfactor_fit_equals_eager_fit(cuda_device, tmp_path):
+    """model=kfactor (F=3, input width 7, the combined objective: the rank-3
+    NLL's unrolled LU inside the graph) for 2 epochs with CUDA graphs
+    against cuda_graphs=False, bit-equal, and Trainer.test's metrics
+    equal."""
+    from masters_thesis_tpu_torch.data.pipeline import (
+        FinancialWindowDataModule,
+        bootstrap_synthetic,
+    )
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    bootstrap_synthetic(tmp_path / "data", n_stocks=64, n_samples=2000,
+                        seed=0, n_factors=3)
+    dm = FinancialWindowDataModule(tmp_path / "data", lookback_window=32,
+                                   target_window=16, stride=48, batch_size=4,
+                                   store_shards=8)
+    spec = ModelSpec(objective="combined", hidden_size=64, num_layers=2,
+                     dropout=0.2, learning_rate=1e-3, input_size=7,
+                     n_factors=3)
+    runs, tests = {}, {}
+    for graphs in (True, False):
+        trainer = Trainer(max_epochs=2, gradient_clip_val=5.0, seed=3,
+                          device=cuda_device, cuda_graphs=graphs)
+        runs[graphs] = trainer.fit(spec, dm)
+        tests[graphs] = trainer.test(spec, runs[graphs].state, dm)
+    assert runs[True].history == runs[False].history
+    assert all(np.isfinite(v) for row in runs[True].history
+               for v in row.values())
+    for name, value in runs[False].state.items():
+        assert torch.equal(runs[True].state[name], value), name
+    assert tests[True] == tests[False]

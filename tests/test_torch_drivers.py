@@ -214,8 +214,8 @@ REFUSED = [
     ("trainer.epoch_mode", ["trainer.epoch_mode=pipelined"]),
     ("trainer.shard_axis", ["trainer.shard_axis=asset"]),
     ("datamodule.n_factors", ["datamodule.n_factors=3"]),
-    ("datamodule.store_shards", ["datamodule.store_shards=8"]),
-    ("datamodule.engine", ["datamodule.engine=native"]),
+    ("datamodule.engine", ["datamodule.engine=native", "model=kfactor",
+                           "datamodule.n_factors=3"]),
     ("datamodule", ["datamodule=real", "~datamodule.raw_dir"]),
     ("model.kernel_impl", ["model.kernel_impl=pallas"]),
     ("model.n_factors", ["model=kfactor", "model.n_factors=2"]),

@@ -39,7 +39,9 @@ def test_port_imports_with_jax_blocked():
                  "data.prefetch", "serve.spans", "serve.swap",
                  "serve.preflight", "serve.__main__", "analysis.findings",
                  "telemetry.registry", "telemetry.events", "telemetry.trace",
-                 "telemetry.run", "telemetry.exposition"):
+                 "telemetry.run", "telemetry.exposition",
+                 "data.window_store", "native", "native.build",
+                 "native.engine"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -179,6 +179,11 @@ def test_spec_objectives_and_metric_keys():
         assert set(metrics) == set(keys)
     with pytest.raises(ValueError, match="unknown objective"):
         obj.ModelSpec(objective="nope").window_objective()
-    arrays = [torch.from_numpy(a) for a in _windows(8)]
-    with pytest.raises(NotImplementedError, match="K-factor"):
-        obj.mse_window(arrays[0], arrays[1].repeat(1, 1, 2), *arrays[2:])
+    # Two loadings read the factor channels y[..., 1:3] (the K-factor
+    # branch; tests/test_torch_kfactor.py holds it against the JAX package).
+    alpha, beta, y, factor, inv_psi = (torch.from_numpy(a) for a in _windows(8))
+    beta2 = beta.repeat(1, 1, 2)
+    loss, _ = obj.mse_window(alpha, beta2, y, factor, inv_psi)
+    pred = alpha + beta2[..., :1] * y[..., 1] + beta2[..., 1:] * y[..., 2]
+    torch.testing.assert_close(
+        loss, torch.square(pred - y[..., 0]).mean(dim=(-2, -1)))
