@@ -62,6 +62,17 @@ and ``test`` as children, a 5-step card-against-CPU trajectory
 ``universe_serve`` serves the run's ``best`` on the ``serve=universe``
 ladder (1–64 windows, a graph a bucket) against the CPU engine, with
 bursts of 64 requests and the allocator's peak.
+Stacked replicas run the pair kernels with a replica axis (grid (row
+tiles, R)): ``stacked_kernels`` holds the replica-axis pair forward,
+sweep and weight-gradient pass at R = 1, 2, 4, 8 against their plain
+versions and each replica against its solo launch bit for bit, and times
+one launch against R solo launches; ``stacked_train`` runs
+``StackedTrainer.fit`` at R = 1, 4, 8 on train small's data (replica 0
+bit for bit ``train``'s ``Trainer.fit``; a ``stacked.replica_loss``
+fault plan that masks a replica); ``stacked_driver`` runs ``python -m
+masters_thesis_tpu_torch stacked`` at R = 4 as a child; ``stacked_serve``
+serves its four ``best``s as the lanes of one ``StackedPredictEngine``
+(each lane bit for bit a solo engine, ``try_swap_lane`` under load).
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -112,6 +123,7 @@ from masters_thesis_tpu_torch.ops.windows import (
 )
 from masters_thesis_tpu_torch.serve.engine import PredictEngine
 from masters_thesis_tpu_torch.serve.server import PredictServer
+from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
 from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
 from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
 from masters_thesis_tpu_torch.telemetry.trace import (
@@ -135,9 +147,13 @@ from masters_thesis_tpu_torch.train.manifest import (
     verify_checkpoint,
 )
 from masters_thesis_tpu_torch.train.logging import read_records
+from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
+from masters_thesis_tpu_torch.train.flatparams import StackedFlatAdam
 from masters_thesis_tpu_torch.train.optim import make_optimizer
+from masters_thesis_tpu_torch.train.stacked import ReplicaSpec, StackedTrainer
 from masters_thesis_tpu_torch.train.steps import (
     EvalProgram,
+    StackedTrainProgram,
     StreamProgram,
     TrainProgram,
     evaluate,
@@ -1486,6 +1502,7 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple,
         "launches": launches,
     }
     emit(out)
+    out["fit"] = result  # not in the line: stacked_train's solo reference
     if not all(np.isfinite(losses)) or len(test_metrics) != 4:
         raise AssertionError(f"non-finite or missing losses: {out}")
     if not final_val < init_val:
@@ -2617,8 +2634,8 @@ KNEE_LIGHT_RATE = 400.0
 COMPLETED_METRIC = re.compile(r"^mtt_serve_completed\{[^}]*\} (\S+)$", re.M)
 
 
-class _RecordingEngine(PredictEngine):
-    """The engine as served, keeping each batch the dispatch thread sent it
+class _Recording:
+    """An engine as served, keeping each batch the dispatch thread sent it
     and the answers it gave (the other callers', the canary's and the
     golden reads', are not kept): what the swap phases hold bit for bit
     against an engine on each checkpoint."""
@@ -2632,6 +2649,10 @@ class _RecordingEngine(PredictEngine):
         if threading.current_thread().name == "serve-dispatch":
             self.dispatched.append((np.array(x, np.float32), *out))
         return out
+
+
+class _RecordingEngine(_Recording, PredictEngine):
+    pass
 
 
 def _paced(server, windows: np.ndarray, rate: float, deadline_s: float,
@@ -2945,6 +2966,20 @@ def phase_serve_preflight(child: subprocess.Popen) -> dict:
     if facts.get("swap", {}).get("reason") != "committed":
         raise AssertionError(f"serve_preflight: the swap rule did not run: "
                              f"{facts}")
+    # SV307: one capture a bucket and one replica-axis launch a graph at
+    # every lane count; SV308 for a lane.
+    stacked = facts.get("stacked", {})
+    lane = facts.get("lane_swap", {})
+    if (sorted(stacked) != ["R1", "R2", "R4"]
+            or any(r["captures"] != facts["captures"]
+                   or len(r["launches"]) != facts["captures"]
+                   or any(counts != {"lstm_pair_fwd_stacked": 1}
+                          for counts in r["launches"].values())
+                   for r in stacked.values())):
+        raise AssertionError(f"serve_preflight: SV307 not held: {stacked}")
+    if (lane.get("reason") != "committed" or lane.get("new_captures")
+            or lane.get("late_deliveries") or not lane.get("siblings_bitwise")):
+        raise AssertionError(f"serve_preflight: SV308 for a lane: {lane}")
     return out
 
 
@@ -3359,6 +3394,15 @@ def phase_universe_train(dm) -> dict:
 # moves a weight by about lr every step.
 U_GRAD_RTOL = 2e-4
 U_PARAM_TOL = 5e-5
+# The beta head's bias gradient, the entry whose card-CPU gap set
+# U_GRAD_RTOL, held on each side against float64 at steps 1 and 2: the CPU
+# (the reference trajectory) at a tenth of that bound, the card at the
+# bound itself. The gap's bound then cannot hide a drift of the reference
+# side, nor the card's past it. Measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: the card 2.05e-5 and 1.13e-4, the CPU 6.4e-6 and 8.7e-6: the
+# card's f32 sum of the bias gradient over 8,192 rows is the far side.
+U_F64_STEPS = 2
+U_F64_RTOL = {"card": U_GRAD_RTOL, "cpu": U_GRAD_RTOL / 10}
 
 
 def _f64_grads(spec, state, arrays) -> torch.Tensor:
@@ -3394,9 +3438,22 @@ def _universe_parity(dm) -> dict:
                                                      "cpu", before=starts)
     same = [_run_steps(spec, w, [b], DEVICE)[1][0]
             for w, b in zip(starts, batches)]
-    exact = _f64_grads(spec, starts[0], batches[0])
+    exact = [_f64_grads(spec, starts[i], batches[i])
+             for i in range(U_F64_STEPS)]
     names = [(n, p.numel()) for n, p in spec.build_module(
         device="cpu").named_parameters()]
+    # The beta head's bias gradient, each side against float64 at each of
+    # the first U_F64_STEPS steps (relative to the largest entry of the
+    # float64 gradient, as _grad_gap reads it).
+    offset = 0
+    for name, size in names:
+        if name == "beta_head.bias":
+            bias = slice(offset, offset + size)
+        offset += size
+    bias_vs_f64 = {
+        side: [float((grads[i][bias] - exact[i][bias]).abs().max()
+                     / exact[i].abs().max()) for i in range(U_F64_STEPS)]
+        for side, grads in (("card", same), ("cpu", cpu_grads))}
     gaps = [((g - c).abs() / c.abs().max()) for g, c in zip(same, cpu_grads)]
     worst = max(range(len(gaps)), key=lambda i: float(gaps[i].max()))
     where = int(gaps[worst].argmax())
@@ -3417,8 +3474,10 @@ def _universe_parity(dm) -> dict:
         "loss_rtol": PARITY_LOSS_RTOL,
         "max_same_weights_grad_rel_gap": _grad_gap(same, cpu_grads),
         "worst_step_and_parameter": [worst, name],
-        "first_step_vs_float64": {"card": _grad_gap(same[:1], [exact]),
-                                  "cpu": _grad_gap(cpu_grads[:1], [exact])},
+        "first_step_vs_float64": {"card": _grad_gap(same[:1], exact[:1]),
+                                  "cpu": _grad_gap(cpu_grads[:1], exact[:1])},
+        "beta_bias_grad_vs_float64_by_step": bias_vs_f64,
+        "beta_bias_f64_rtol": U_F64_RTOL,
         "grad_rtol": U_GRAD_RTOL,
         "max_param_abs_gap": param_gap,
         "param_tol": U_PARAM_TOL,
@@ -3431,6 +3490,9 @@ def _universe_parity(dm) -> dict:
     if not (loss_gap <= PARITY_LOSS_RTOL and param_gap <= U_PARAM_TOL
             and out["max_same_weights_grad_rel_gap"] <= U_GRAD_RTOL):
         raise AssertionError(f"universe: card and CPU differ: {out}")
+    if not all(max(v) <= U_F64_RTOL[side] for side, v in bias_vs_f64.items()):
+        raise AssertionError(f"universe: the beta head's bias gradient is off "
+                             f"float64: {bias_vs_f64}")
     missed = {k: launches[k] for k in U_PATH
               if launches[k] != 2 * U_PARITY_STEPS}
     missed.update({k: launches[k] for k in U_ABSENT if launches[k]})
@@ -3597,6 +3659,492 @@ def phase_universe_serve(ckpt_dir: Path, reference: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------- stacked replicas
+
+# R replicas of model=small in one program: the replica axis of the pair
+# kernels (stacked_kernels at R = 1, 2, 4, 8), StackedTrainer.fit on train
+# small's data (stacked_train at R = 1, 4, 8), the stacked entry point as a
+# child (stacked_driver, R = 4) and its four ``best``s served as four lanes
+# of one StackedPredictEngine (stacked_serve). Seeds 0 .. R - 1; rates cycle
+# over the thesis grid's (sweeps/experiment_thesis_grid.sh), replica 0 at
+# the configs' 1e-4, so that it is phase_train's run.
+STACK_RS = (1, 2, 4, 8)
+STACK_TRAIN_RS = (1, 4, 8)
+STACK_LRS = (1e-4, 1e-3, 1e-5, 1e-6)
+STACK_DRIVER_R = 4
+# Replica r of a stacked fit against the solo Trainer.fit of its seed and
+# rate: the target is bit for bit (the kernels give each replica its solo
+# bits); the bound held is the JAX package's stacked contract
+# (tests/test_stacked.py): epoch 0's sums bitwise, then sums 1e-5
+# relative, parameters 1e-4 relative + 1e-7 abs, moments 1e-3 relative.
+STACK_SUM_RTOL = 1e-5
+STACK_PARAM_RTOL, STACK_PARAM_ATOL = 1e-4, 1e-7
+STACK_MOMENT_RTOL = 1e-3
+# The pair rows of the kernels line and their replica-axis counters.
+STACKED_COUNTERS = {
+    "lstm_pair_fwd": "lstm_pair_fwd_stacked",
+    "lstm_pair_fwd_masked": "lstm_pair_fwd_masked_stacked",
+    "lstm_pair_bwd": "lstm_pair_bwd_stacked",
+    "lstm_wgrad": "lstm_wgrad_stacked",
+}
+
+
+def stacked_root() -> Path:
+    return Path(__file__).resolve().parent / "data" / "chip_smoke" / "stacked"
+
+
+def _stack_replicas(n: int) -> list:
+    return [ReplicaSpec(f"r{i}", i, STACK_LRS[i % len(STACK_LRS)])
+            for i in range(n)]
+
+
+def _stacked_kernel_inputs(rows: int) -> dict:
+    """max(STACK_RS) replicas' pair operands at ``rows`` rows, drawn on the
+    card (each replica its own x, weights, mask and cotangent), then the
+    stacked forward's stashes and the stacked sweep's d_pre planes as the
+    sweep's and the pass's inputs."""
+    n = max(STACK_RS)
+    gen = torch.Generator(device=DEVICE).manual_seed(rows)
+    scale = 1.0 / np.sqrt(H)
+
+    def uniform(*shape):
+        return (torch.rand(shape, generator=gen, device=DEVICE) * 2 - 1) * scale
+
+    v = {"x": torch.randn((n, T, rows, 4 * H), generator=gen, device=DEVICE),
+         "w1": uniform(n, H, 4 * H), "wi2": uniform(n, H, 4 * H),
+         "b2": uniform(n, 4 * H), "w2": uniform(n, H, 4 * H),
+         "mask": (torch.rand((n, T, rows, H), generator=gen, device=DEVICE)
+                  >= 0.2).float() / 0.8,
+         "dh": 0.1 * torch.randn((n, T, rows, H), generator=gen, device=DEVICE)}
+    with torch.no_grad():
+        v["h2s"], v["h1s"], v["c1s"], v["c2s"] = lk.lstm_pair_fwd_stacked_cuda(
+            v["x"], v["w1"], v["wi2"], v["b2"], v["w2"], v["mask"], stash=True)
+        v["dx1"], v["d_pre2"] = lk.lstm_pair_bwd_stacked_cuda(
+            v["dh"], v["x"], v["mask"], v["h1s"], v["c1s"], v["h2s"], v["c2s"],
+            v["w1"], v["wi2"], v["b2"], v["w2"])
+    return v
+
+
+def _stacked_calls(v: dict, n: int) -> dict:
+    """Each replica-axis kernel on the first ``n`` replicas: (the stacked
+    call, the ``n`` solo calls, the plain version, relative tolerance)."""
+    a = {k: t[:n] for k, t in v.items()}
+    pair = (a["x"], a["w1"], a["wi2"], a["b2"], a["w2"])
+    bwd = (a["dh"], a["x"], a["mask"], a["h1s"], a["c1s"], a["h2s"], a["c2s"],
+           a["w1"], a["wi2"], a["b2"], a["w2"])
+    wgrad = (a["dx1"], a["d_pre2"], a["h1s"], a["h2s"], a["mask"])
+
+    def solo(fn, args):
+        return lambda: [fn(*(t[r] for t in args)) for r in range(n)]
+
+    return {
+        "lstm_pair_fwd": (lambda: lk.lstm_pair_fwd_stacked_cuda(*pair),
+                          solo(lk.lstm_pair_fwd_cuda, pair),
+                          lambda: lk.lstm_pair_stacked_ref(*pair), False),
+        "lstm_pair_fwd_masked": (
+            lambda: lk.lstm_pair_fwd_stacked_cuda(*pair, a["mask"], stash=True),
+            solo(lambda *t: lk.lstm_pair_fwd_cuda(*t, stash=True),
+                 pair + (a["mask"],)),
+            lambda: lk.lstm_pair_stacked_ref(*pair, a["mask"], return_stash=True),
+            False),
+        "lstm_pair_bwd": (lambda: lk.lstm_pair_bwd_stacked_cuda(*bwd),
+                          solo(lk.lstm_pair_bwd_cuda, bwd),
+                          lambda: lk.lstm_pair_bwd_stacked_ref(*bwd), True),
+        "lstm_wgrad": (lambda: lk.lstm_pair_wgrad_stacked(*wgrad),
+                       solo(lk.lstm_pair_wgrad, wgrad),
+                       lambda: lk.lstm_pair_wgrad_stacked_ref(*wgrad), True),
+    }
+
+
+# The replica-axis launches at a named 8-row tile, on all of ``v``'s
+# replicas (phase_stacked_kernels, R = 8 at 100 rows).
+TILE8 = {
+    "lstm_pair_fwd": lambda v: lk.lstm_pair_fwd_stacked_cuda(
+        v["x"], v["w1"], v["wi2"], v["b2"], v["w2"], tile=8),
+    "lstm_pair_fwd_masked": lambda v: lk.lstm_pair_fwd_stacked_cuda(
+        v["x"], v["w1"], v["wi2"], v["b2"], v["w2"], v["mask"], stash=True,
+        tile=8),
+    "lstm_pair_bwd": lambda v: lk.lstm_pair_bwd_stacked_cuda(
+        v["dh"], v["x"], v["mask"], v["h1s"], v["c1s"], v["h2s"], v["c2s"],
+        v["w1"], v["wi2"], v["b2"], v["w2"], tile=8),
+}
+
+
+def _solo_flops_bytes(name: str, rows: int) -> tuple[float, float]:
+    """One replica's operations and bytes, as phase_kernels and
+    phase_training_kernels count them for the solo kernel."""
+    product = 2 * T * rows * H * 4 * H
+    plane_h = 4 * T * rows * H
+    plane_x = 4 * T * rows * 4 * H
+    weight = 4 * H * 4 * H
+    return {
+        "lstm_pair_fwd": (3 * product, plane_x + 3 * weight + 4 * 4 * H + plane_h),
+        "lstm_pair_fwd_masked": (3 * product, plane_x + plane_h + 3 * weight
+                                 + 4 * 4 * H + 4 * plane_h),
+        "lstm_pair_bwd": (6 * product, 6 * plane_h + plane_x + 3 * weight
+                          + 4 * 4 * H + 2 * plane_x),
+        "lstm_wgrad": (3 * product, 2 * plane_x + 3 * plane_h + 3 * weight
+                       + 4 * 4 * H),
+    }[name]
+
+
+def phase_stacked_kernels(kernels: dict) -> dict:
+    """Each replica-axis kernel (the pair forward maskless and masked with
+    its stashes, the sweep, the R x 3-job pass) at R = 1, 2, 4, 8 on 100
+    rows (a training step) and 800 (a serving bucket of 8 windows): one
+    launch against R solo launches of the same kernel, the plain version
+    (R solo plain versions), the bound (R x the solo bound) and R x the
+    library call's time (phase_kernels' and phase_training_kernels'); its
+    error against the plain version and each replica's slice bit for bit
+    against its solo launch. At 100 rows and R = 8 the forwards and the
+    sweep at 8-row tiles, which part from the solo bits, say what keeping
+    the solo tile's class costs (lstm_sweep.cuh sweep_rows)."""
+    results = {}
+    for rows in (100, 800):
+        v = _stacked_kernel_inputs(rows)
+        for n in STACK_RS:
+            for name, (stacked, solo, plain, relative) in _stacked_calls(v, n).items():
+                with torch.no_grad():
+                    got = stacked()
+                    singles = solo()
+                    torch.cuda.synchronize()
+                    want = plain()
+                err = _max_abs_err(got, want)
+                tol = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
+                parts = [_as_tuple(s) for s in singles]
+                bitwise = all(torch.equal(g[r], parts[r][i])
+                              for i, g in enumerate(_as_tuple(got))
+                              for r in range(n))
+                flops, nbytes = _solo_flops_bytes(name, rows)
+                bound_ms, bound_by = bound(n * flops, n * nbytes)
+                library = kernels.get((name, rows), {}).get("library_ms")
+                row = {
+                    "phase": "stacked_kernel", "name": name, "rows": rows,
+                    "replicas": n, "T": T, "H": H,
+                    "tile": lk.lstm_sweep_tile_cuda(rows, n),
+                    "solo_tile": lk.lstm_sweep_tile_cuda(rows, 1),
+                    "max_abs_err": err, "tol": tol,
+                    "replicas_bit_equal_to_solo": bitwise,
+                    **timed("ms", stacked, iters=10, loops=3),
+                    **timed("solo_ms", solo, iters=10, loops=3),
+                    "plain_ms": cuda_ms(plain, iters=1, loops=1, warmup=0)[0],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None if library is None else n * library,
+                    "flops": n * flops, "bytes": n * nbytes,
+                }
+                if rows == 100 and n == max(STACK_RS) and name in TILE8:
+                    # What keeping the solo tile's class costs: the same
+                    # launch at 8-row tiles (one wave), and its bits.
+                    tile8 = functools.partial(TILE8[name], v)
+                    with torch.no_grad():
+                        other = tile8()
+                    row["tile8_device_ms"] = spin_ms(tile8)
+                    row["tile8_bit_equal"] = all(
+                        torch.equal(a, b) for a, b in zip(_as_tuple(other),
+                                                          _as_tuple(got)))
+                emit(row)
+                if not err <= tol:
+                    raise AssertionError(f"stacked {name} R={n} rows={rows}: "
+                                         f"max abs err {err} > {tol}")
+                if not bitwise:
+                    raise AssertionError(f"stacked {name} R={n} rows={rows}: a "
+                                         "replica differs from its solo launch")
+                results[(name, rows, n)] = row
+        del v
+    return results
+
+
+def _stacked_step_breakdown(dm, spec, n: int) -> dict:
+    """The stacked training step of ``n`` replicas as its CUDA graph (128
+    windows, one a step each, re-shuffled when they run out): host wall
+    clock per step ending synchronized, the device time by kernel and the
+    idle share from a profiler trace, one replay under the synchronisation
+    check set to raise."""
+    replicas = _stack_replicas(n)
+    module = StackedLstmEncoder([
+        spec.build_module(device=DEVICE,
+                          generator=torch.Generator().manual_seed(r.seed))
+        for r in replicas])
+    optimizer = StackedFlatAdam(module.replicas, CLIP, spec.weight_decay)
+    data = device_split(Batch(*(a[:128] for a in dm.train_arrays())), DEVICE)
+    program = StackedTrainProgram(
+        module, optimizer, spec.window_objective(), data, 1,
+        [torch.Generator(device=DEVICE).manual_seed(r.seed) for r in replicas],
+        graphed=True)
+    taken = [0]
+
+    def replay() -> None:
+        if taken[0] % program.n_steps == 0:
+            program.begin_epoch([r.learning_rate for r in replicas])
+        taken[0] += 1
+        program.step()
+
+    def step():
+        replay()
+        torch.cuda.synchronize()
+
+    host, busy_ms, device = _wall_and_device(step)  # its warm-up captures
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return {"step_wall_ms_p50": host["wall_ms_p50"],
+            "step_wall_ms_spread": host["wall_ms_spread"],
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / host["wall_ms_p50"],
+            "device_ms_by_kernel": device[:8],
+            "launches_per_step": program.step.launches}
+
+
+def _against_solo(got, solo) -> dict:
+    """Replica ``got`` of a stacked fit against the solo ``TrainResult``:
+    bit for bit or not, and the JAX stacked contract's gaps."""
+    sums = [(g[k], s[k]) for g, s in zip(got.history, solo.history)
+            for k in s if k.startswith("loss/")]
+    epoch0 = all(g[k] == s[k] for g, s in zip(got.history[:1], solo.history[:1])
+                 for k in s if k.startswith("loss/"))
+    sum_gap = max(abs(a - b) / max(abs(b), 1e-30) for a, b in sums)
+    param_excess = max(float(((got.state[k] - v).abs()
+                              - STACK_PARAM_RTOL * v.abs()).max())
+                       for k, v in solo.state.items())
+    moment_gap = max(float(((got.opt_state[k] - solo.opt_state[k]).abs()
+                            / solo.opt_state[k].abs().clamp_min(1e-30)).max())
+                     for k in ("mu", "nu"))
+    bitwise = (got.history == solo.history
+               and all(torch.equal(got.state[k], v) for k, v in solo.state.items())
+               and all(torch.equal(got.opt_state[k], solo.opt_state[k])
+                       for k in ("mu", "nu")))
+    within = (epoch0 and sum_gap <= STACK_SUM_RTOL
+              and param_excess <= STACK_PARAM_ATOL
+              and moment_gap <= STACK_MOMENT_RTOL)
+    return {"bit_equal": bitwise, "epoch0_sums_bitwise": epoch0,
+            "max_sum_rel_gap": sum_gap,
+            "max_param_gap_past_rtol": param_excess,
+            "max_moment_rel_gap": moment_gap, "within_contract": within}
+
+
+def phase_stacked_train(dm, train: dict) -> dict:
+    """StackedTrainer.fit at model=small full width (dropout 0.2, mse, clip
+    5) on train small's data, graphed, for R = 1 (2 epochs, phase_train's
+    depth) and R = 4, 8 (1 epoch, timed whole, its capture included): its
+    steps/s and replica-windows/s against phase_train's solo Trainer.fit,
+    a step's wall and idle share, the launches; replica 0 (seed 0, lr 1e-4)
+    against phase_train's run (at R = 1 the whole run, at R = 4, 8 its
+    first epoch's row); then at R = 2 a ``stacked.replica_loss`` nan plan
+    on replica 1 that masks it while replica 0 matches the unfaulted run
+    (R = 1's) bit for bit."""
+    spec = _train_spec()
+    solo = train["fit"]
+    runs, out = {}, {"phase": "stacked_train", "lrs": list(STACK_LRS), "rs": {},
+                     "solo_windows_per_s": solo.windows_per_sec}
+    launches = {}
+    for n in STACK_TRAIN_RS:
+        epochs = TRAIN_EPOCHS if n == 1 else 1
+        trainer = StackedTrainer(max_epochs=epochs, gradient_clip_val=CLIP,
+                                 device=DEVICE)
+        lk.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[n] = trainer.fit(spec, dm, _stack_replicas(n))
+        fit_s = time.perf_counter() - t0
+        launches[n] = dict(lk.LAUNCHES)
+        result = runs[n]
+        first = result.replicas[0]
+        out["rs"][n] = {
+            "epochs": epochs,
+            "fit_seconds": fit_s,
+            "steps_per_s": result.steps_per_sec,
+            "replica_windows_per_s": result.replica_steps_per_sec,
+            "replica_windows_per_s_over_solo": result.replica_steps_per_sec
+            / solo.windows_per_sec,
+            "statuses": [r.status for r in result.replicas],
+            "best_val": [r.best_val_loss for r in result.replicas],
+            "replica0_against_solo": (
+                _against_solo(first, solo) if epochs == TRAIN_EPOCHS else
+                {"epoch0_row_bitwise": first.history[0] == solo.history[0]}),
+            "step": _stacked_step_breakdown(dm, spec, n),
+            "launches": {k: v for k, v in launches[n].items() if v},
+        }
+    plan = {"faults": [{"point": "stacked.replica_loss", "kind": "nan",
+                        "attempt": None, "match": {"replica": 1}}]}
+    faults.install_plan(faults.FaultPlan.parse(json.dumps(plan)))
+    try:
+        faulted = StackedTrainer(max_epochs=TRAIN_EPOCHS, gradient_clip_val=CLIP,
+                                 device=DEVICE).fit(spec, dm, _stack_replicas(2))
+    finally:
+        faults.clear_plan()
+    clean, kept = runs[1].replicas[0], faulted.replicas[0]
+    sibling = (kept.history == clean.history
+               and all(torch.equal(kept.state[k], v) for k, v in clean.state.items()))
+    out["fault"] = {"plan": plan,
+                    "statuses": [r.status for r in faulted.replicas],
+                    "rollbacks": [r.rollbacks for r in faulted.replicas],
+                    "sibling_bit_equal_to_unfaulted": sibling}
+    out["launches"] = launches[max(STACK_TRAIN_RS)]
+    emit({**out, "launches": {k: v for k, v in out["launches"].items() if v}})
+    for n in STACK_TRAIN_RS:
+        row = out["rs"][n]
+        check = row["replica0_against_solo"]
+        if row["statuses"] != ["active"] * n:
+            raise AssertionError(f"stacked_train R={n}: {row['statuses']}")
+        if not check.get("within_contract", check.get("epoch0_row_bitwise")):
+            raise AssertionError(f"stacked_train R={n}: replica 0 off the "
+                                 f"solo run: {check}")
+        steps = row["epochs"] * len(dm.train_range)
+        want = {c: steps for c in ("lstm_pair_fwd_masked_stacked",
+                                   "lstm_pair_bwd_stacked", "lstm_wgrad_stacked")}
+        got = {c: launches[n][c] for c in want}
+        if got != want or launches[n]["lstm_pair_fwd_masked"]:
+            raise AssertionError(f"stacked_train R={n}: the replica axis not "
+                                 f"once a step: {got}")
+    if out["fault"]["statuses"] != ["active", "masked"] or not sibling:
+        raise AssertionError(f"stacked_train: the fault plan: {out['fault']}")
+    return out
+
+
+def _start_stacked_driver() -> "_Child":
+    """``python -m masters_thesis_tpu_torch stacked`` as a child: R = 4 on
+    train small's data, 2 epochs, into ``stacked_root()/driver``, started
+    now (beside resilience's children) and waited for by
+    ``phase_stacked_driver``."""
+    ckpt_dir = stacked_root() / "driver"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    replicas = [{"name": r.name, "seed": r.seed, "lr": r.learning_rate}
+                for r in _stack_replicas(STACK_DRIVER_R)]
+    return _Child("stacked", f"datamodule.data_dir={data_dir(K_STOCKS)}",
+                  f"datamodule.n_stocks={K_STOCKS}",
+                  f"datamodule.n_samples={TRAIN_SAMPLES}",
+                  f"trainer.max_epochs={TRAIN_EPOCHS}",
+                  "--replicas", json.dumps(replicas),
+                  "--ckpt-dir", str(ckpt_dir), side_by_side=4)
+
+
+def phase_stacked_driver(child: "_Child") -> dict:
+    """The stacked entry point's child: its JSON line (every replica
+    active), each replica's manifest-verified ``best`` and ``last``, its
+    seconds and launches (the replica-axis kernels once a step)."""
+    lines, launches, seconds = _cli_result(child.wait())
+    line = json.loads(next(ln for ln in reversed(lines) if ln.startswith("{")))
+    ckpt_dir = stacked_root() / "driver"
+    files = {f"{r['name']}/{tag}": verify_checkpoint(ckpt_dir / r["name"] / tag,
+                                                    require_manifest=True)
+             for r in line["replicas"] for tag in ("best", "last")}
+    out = {"phase": "stacked_driver", "seconds": seconds, "result": line,
+           "checkpoints": files,
+           "launches": {k: v for k, v in launches.items() if v}}
+    emit(out)
+    if [r["status"] for r in line["replicas"]] != ["active"] * STACK_DRIVER_R:
+        raise AssertionError(f"stacked_driver: {line}")
+    if not all(files.values()) or line["epochs"] != TRAIN_EPOCHS:
+        raise AssertionError(f"stacked_driver: checkpoints: {files}")
+    if not launches["lstm_pair_fwd_masked_stacked"] or launches["lstm_pair_fwd_masked"]:
+        raise AssertionError(f"stacked_driver: off the replica axis: {launches}")
+    out["names"] = [r["name"] for r in line["replicas"]]
+    return out
+
+
+class _RecordingStacked(_Recording, StackedPredictEngine):
+    pass
+
+
+def phase_stacked_serve(driver: dict, windows: np.ndarray) -> dict:
+    """The stacked driver's four ``best``s as four lanes of one
+    StackedPredictEngine (``from_checkpoints``), graphed, through
+    PredictServer: bursts (p50, p99, answers/s and R x answers/s); each
+    lane bit for bit the solo engine on its checkpoint, every bucket and
+    padded; one capture a bucket; then ``try_swap_lane`` of lane 3 to lane
+    0's checkpoint under SWAP_RATE open-loop load, every dispatched batch's
+    other lanes bit for bit the unswapped stack's, no capture, no late
+    answer."""
+    root = stacked_root() / "driver"
+    ckpts = [root / name for name in driver["names"]]
+    kw = dict(n_stocks=K_STOCKS, device=DEVICE)
+    t0 = time.perf_counter()
+    live = _RecordingStacked.from_checkpoints(ckpts, lanes=driver["names"], **kw)
+    live.warmup()
+    warm_s = time.perf_counter() - t0
+    reference = StackedPredictEngine.from_checkpoints(ckpts, **kw)
+    solos = [PredictEngine.from_checkpoint(c, **kw) for c in ckpts]
+    lanes_bitwise = True
+    for n in (1, 2, 3, 4, 5, 8):
+        alpha, beta = live.predict(windows[:n])
+        for lane, solo in enumerate(solos):
+            a, b = solo.predict(windows[:n])
+            lanes_bitwise &= bool(np.array_equal(alpha[:, lane], a)
+                                  and np.array_equal(beta[:, lane], b))
+    lk.reset_launch_counts()
+    responses, _, stats, serve_s = _burst(live, windows)
+    burst_launches = dict(lk.LAUNCHES)
+    ok = [r for r in responses if r.ok]
+    # The lane swap under load.
+    server = PredictServer(live, max_wait_s=0.002)
+    swapper = CheckpointSwapper(live)
+    captures = live.compile_events
+    live.dispatched.clear()
+    server.start()
+    loaded: list = []
+    stop = threading.Event()
+    feeder = threading.Thread(target=lambda: loaded.append(_paced(
+        server, windows, SWAP_RATE, SWAP_DEADLINE_S, lambda _: stop.is_set())))
+    feeder.start()
+    try:
+        time.sleep(0.3)
+        verdict = swapper.try_swap_lane(3, ckpts[0], "best")
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        feeder.join(timeout=30.0)
+    pendings, achieved, _ = loaded[0]
+    swap_responses = [p.result(timeout=60.0) for p in pendings]
+    swap_stats = server.stop()
+    siblings = all(
+        np.array_equal(a[:, :3], ra[:, :3]) and np.array_equal(b[:, :3], rb[:, :3])
+        for (x, a, b), (ra, rb) in ((d, reference.predict(d[0]))
+                                    for d in live.dispatched))
+    swapped = live.predict(windows[:2])[0][:, 3]
+    out = {
+        "phase": "stacked_serve", "lanes": live.num_lanes,
+        "buckets": list(live.buckets), "captures": live.compile_events,
+        "warmup_s": warm_s,
+        "lanes_bit_equal_to_solo": lanes_bitwise,
+        "burst": {**_latency_ms(responses), "requests": len(responses),
+                  "answers_per_s": len(ok) / serve_s,
+                  "lane_answers_per_s": live.num_lanes * len(ok) / serve_s,
+                  "stats_lanes": stats["lanes"]},
+        "lane_swap": {"reason": verdict.reason,
+                      "step_s": dict(swapper.step_seconds),
+                      "siblings_bitwise_check": verdict.checks.get("siblings_bitwise"),
+                      "requests": len(swap_responses),
+                      "achieved_per_s": achieved,
+                      "dispatches": len(live.dispatched),
+                      "siblings_bit_equal_in_every_dispatch": siblings,
+                      "new_captures": live.compile_events - captures,
+                      "late_deliveries": swap_stats["late_deliveries"],
+                      "late_ok_seen": sum(
+                          r.ok and r.delivered_ts > p.request.deadline_ts
+                          for p, r in zip(pendings, swap_responses)),
+                      "statuses": {st: sum(r.status == st for r in swap_responses)
+                                   for st in sorted({r.status for r in swap_responses})},
+                      "swapped_lane_is_lane0": bool(np.array_equal(
+                          swapped, solos[0].predict(windows[:2])[0]))},
+        "launches": {k: v for k, v in burst_launches.items() if v},
+    }
+    emit(out)
+    swap = out["lane_swap"]
+    if not lanes_bitwise or out["captures"] != len(live.buckets):
+        raise AssertionError(f"stacked_serve: lanes or captures: {out}")
+    if len(ok) != len(responses) or stats["lanes"] != live.num_lanes:
+        raise AssertionError(f"stacked_serve: bursts: {out['burst']}")
+    if (swap["reason"] != "committed" or not siblings or swap["new_captures"]
+            or swap["late_deliveries"] or swap["late_ok_seen"]
+            or not swap["swapped_lane_is_lane0"] or not live.dispatched):
+        raise AssertionError(f"stacked_serve: the lane swap: {swap}")
+    if not burst_launches["lstm_pair_fwd_stacked"] or burst_launches["lstm_pair_fwd"]:
+        raise AssertionError(f"stacked_serve: off the replica axis: "
+                             f"{burst_launches}")
+    return out
+
+
 def phase_ab(label: str) -> None:
     """The pair, single-layer, time-blocked and stack kernels of whatever
     checkout this copy of the script sits in, for comparing two checkouts
@@ -3698,6 +4246,7 @@ def main() -> int:
     phase_stack_depths()
     phase_stack_vs_pairs()
     kernels.update(phase_tblocked_kernels())
+    stacked_kernels = phase_stacked_kernels(kernels)
     universe_kernels = phase_universe_kernels()
     windows = _synthetic_windows()
     serve = phase_serve(windows)
@@ -3712,6 +4261,7 @@ def main() -> int:
     phase_graphs(dm, _train_spec(), "graphs_small",
                  {"lstm_pair_fwd_masked": 1, "lstm_pair_bwd": 1, "lstm_wgrad": 1})
     phase_driver(train)
+    stacked_train = phase_stacked_train(dm, train)
     stream = phase_stream(dm)
     dm_medium = _train_datamodule(K_MEDIUM)
     phase_train_medium_parity(dm_medium)
@@ -3726,16 +4276,21 @@ def main() -> int:
                  {"lstm_stack_fwd_masked": 1, "lstm_stack_bwd": 1,
                   "lstm_fwd": 1, "lstm_bwd": 1, "lstm_wgrad": 2})
     real = phase_real_medium(train_medium)
-    # The serve preflight's child runs beside resilience's (neither is
-    # timed).
+    # The serve preflight's child and the stacked entry point's run beside
+    # resilience's (none of them is timed against another run).
     preflight = _start_preflight()
+    stacked_child = _start_stacked_driver()
     try:
         phase_resilience()
         phase_serve_preflight(preflight)
+        stacked_driver = phase_stacked_driver(stacked_child)
     finally:
         if preflight.poll() is None:
             preflight.kill()
             preflight.communicate()
+        if stacked_child.proc.poll() is None:
+            stacked_child.proc.kill()
+            stacked_child.proc.wait()
     serve_long = phase_serve_long(_synthetic_windows(lookback=T_LONG,
                                                      stride=STRIDE_LONG))
     dm_long = _train_datamodule(lookback=T_LONG, stride=STRIDE_LONG)
@@ -3761,6 +4316,7 @@ def main() -> int:
     serve_faults = phase_serve_faults(windows)
     serve_swap = phase_serve_swap(windows, _synthetic_windows(K_MEDIUM))
     serve_knee = phase_serve_knee(windows)
+    stacked_serve = phase_stacked_serve(stacked_driver, windows)
     # The maskless pair forward's and the stack forward's launches on the
     # serving phases of this slice.
     serve_paths = {
@@ -3829,6 +4385,24 @@ def main() -> int:
             summary[-1].setdefault("launches_by_path", {}).update(
                 {phase: path["launches"][name]
                  for phase, path in serve_paths[name].items()})
+        if name in STACKED_COUNTERS:
+            # The replica axis: its launches on the stacked paths (counted
+            # apart, STACKED_COUNTERS), and its R = 8 rows at 100 and 800
+            # rows against 8 solo launches.
+            counter = STACKED_COUNTERS[name]
+            by_path = {"stacked_train": stacked_train["launches"][counter],
+                       "stacked_driver": stacked_driver["launches"].get(counter, 0)}
+            if name == "lstm_pair_fwd":
+                by_path = {"stacked_serve": stacked_serve["launches"][counter]}
+            summary[-1].setdefault("launches_by_path", {}).update(by_path)
+            summary[-1]["replica_axis"] = [
+                {k: r[k] for k in ("rows", "replicas", "tile", "max_abs_err",
+                                   "ms", "device_ms", "solo_ms",
+                                   "solo_device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms",
+                                   "replicas_bit_equal_to_solo")}
+                for (n, _, reps), r in stacked_kernels.items()
+                if n == name and reps == max(STACK_RS)]
         if name in U_PATH:
             # Its launches on the universe path (the train child, the
             # serving bursts) and its rows at that path's shapes.

@@ -1,23 +1,28 @@
-"""``python -m masters_thesis_tpu_torch train|test [-m] [--device cpu] [overrides]``
+"""``python -m masters_thesis_tpu_torch train|test|stacked [--device cpu] ...``
 
 ``train`` is the port's ``train.py`` (``cli/train.py``), ``test`` its
-``test.py`` (``cli/test.py``). Both run on CUDA unless given
-``--device cpu``; a failure exits non-zero.
+``test.py`` (``cli/test.py``), ``stacked`` its ``sweeps/stacked_cell.py``
+(``cli/stacked.py``: R replicas in one program). Each runs on CUDA unless
+given ``--device cpu``; a failure exits non-zero.
 """
 
 from __future__ import annotations
 
 import sys
 
-USAGE = ("usage: python -m masters_thesis_tpu_torch {train,test} [-m] "
-         "[--device cpu] [key=value ...]")
+USAGE = ("usage: python -m masters_thesis_tpu_torch {train,test,stacked} "
+         "[-m] [--device cpu] [key=value ...]")
 
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if not argv or argv[0] not in ("train", "test"):
+    if not argv or argv[0] not in ("train", "test", "stacked"):
         print(USAGE, file=sys.stderr)
         return 2
+    if argv[0] == "stacked":
+        from masters_thesis_tpu_torch.cli.stacked import main as stacked_main
+
+        return stacked_main(argv[1:])
     if argv[0] == "train":
         from masters_thesis_tpu_torch.cli.train import main as train_main
 

@@ -2,7 +2,9 @@
 
 The flax tree, as numpy arrays, keeps the recurrent parameters under the same
 names the port uses; only the heads differ: a flax ``Dense`` holds
-``kernel (H, out)``, a torch ``Linear`` ``weight (out, H)``.
+``kernel (H, out)``, a torch ``Linear`` ``weight (out, H)``. R trees make a
+``StackedLstmEncoder``'s state (``stacked_params_from_jax``), and
+``replica_state`` takes replica r's solo state back out.
 """
 
 from __future__ import annotations
@@ -32,3 +34,19 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
         else:
             state[name] = tensor(value)
     return state
+
+
+def stacked_params_from_jax(trees) -> dict[str, torch.Tensor]:
+    """State dict for the port's ``StackedLstmEncoder`` from R flax param
+    dicts, replica r from ``trees[r]``."""
+    return {f"replicas.{r}.{name}": value
+            for r, tree in enumerate(trees)
+            for name, value in params_from_jax(tree).items()}
+
+
+def replica_state(stacked_state, r: int) -> dict[str, torch.Tensor]:
+    """Replica ``r``'s solo ``LstmEncoder`` state dict out of a
+    ``StackedLstmEncoder``'s (CPU copies)."""
+    prefix = f"replicas.{r}."
+    return {name[len(prefix):]: value.detach().cpu().clone()
+            for name, value in stacked_state.items() if name.startswith(prefix)}

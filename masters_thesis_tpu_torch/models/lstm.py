@@ -32,6 +32,15 @@ multiplied outside. The masks are drawn with ``torch.bernoulli`` from an
 explicit generator on the module's device, or injected with ``masks=``. The
 JAX and torch generators give different bits, so cross-framework parity
 with dropout on holds only for injected masks.
+
+``StackedLstmEncoder`` runs R encoders of one architecture as one (the
+counterpart of the JAX package's ``vmap`` over the encoder in its stacked
+epoch, and of its stacked engine's lanes): each replica's input projection
+and heads are its own products, exactly the solo encoder's, and the
+recurrence is one replica-axis pair (``lstm_pair_recurrence_stacked``). It
+takes the one grouping this slice stacks, a single depth-2 group, and
+refuses any other (ROADMAP queue 1 item 1 lists the replica axes still to
+add).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.ops.lstm_kernel import (
     MAX_STACK_LAYERS,
     lstm_pair_recurrence,
+    lstm_pair_recurrence_stacked,
     lstm_recurrence,
     lstm_stack_recurrence,
     stack_fits,
@@ -245,3 +255,123 @@ class LstmEncoder(nn.Module):
                 inputs = inputs * next(pending)
         final_hidden = inputs[-1]
         return self.alpha_head(final_hidden), self.beta_head(final_hidden)
+
+
+#: Where the groupings that do not stack yet are queued.
+STACKED_QUEUE = ("ROADMAP.md queue 1 item 1 (replica axes for the single-layer, "
+                 "stack and time-blocked kernels)")
+
+
+class GroupingNotStackedError(NotImplementedError):
+    """A stacked encoder asked to run a layer grouping other than one
+    depth-2 group (the pair), which is all this slice stacks."""
+
+
+class StackedLstmEncoder(nn.Module):
+    """R ``LstmEncoder`` replicas of one architecture as one module.
+
+    ``replicas`` are solo encoders (each drawn from its own generator, so
+    replica r's initial weights are exactly what ``LstmEncoder(...,
+    generator=<replica r's generator>)`` draws); their parameters stay
+    theirs (a stacked optimizer may make them views into ``[R, n]`` rows).
+    A forward runs, for replica r, the solo encoder's input projection and
+    heads on its own parameters, and one replica-axis pair recurrence for
+    all R.
+    """
+
+    def __init__(self, replicas):
+        super().__init__()
+        replicas = list(replicas)
+        if not replicas:
+            raise ValueError("a stacked encoder needs at least one replica")
+        first = replicas[0]
+        arch = self._architecture(first)
+        for r, enc in enumerate(replicas[1:], start=1):
+            if self._architecture(enc) != arch:
+                raise ValueError(f"replica {r} is {self._architecture(enc)}, "
+                                 f"replica 0 {arch}: a stack takes one "
+                                 "architecture")
+        if first.num_layers != 2:
+            raise GroupingNotStackedError(
+                f"num_layers={first.num_layers}: stacked replicas run the "
+                f"layer pair only (num_layers=2); see {STACKED_QUEUE}")
+        self.replicas = nn.ModuleList(replicas)
+
+    @staticmethod
+    def _architecture(enc: LstmEncoder) -> tuple:
+        return (enc.input_size, enc.hidden_size, enc.num_layers, enc.dropout,
+                enc.n_factors, enc.remat)
+
+    @property
+    def num_replicas(self) -> int:
+        return len(self.replicas)
+
+    def check_groups(self, n_t: int, rows: int, has_mask: bool,
+                     window_rows: int | None = None) -> None:
+        """Raise ``GroupingNotStackedError`` unless a forward over ``rows``
+        rows runs one depth-2 group (the solo encoder's rule)."""
+        groups = self.replicas[0].layer_groups(n_t, rows, has_mask, window_rows)
+        if groups != [2]:
+            raise GroupingNotStackedError(
+                f"layer groups {groups} at T={n_t}, {rows} rows: stacked "
+                f"replicas run one depth-2 group (the pair) only; see "
+                f"{STACKED_QUEUE}")
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True,
+                generators=None, masks=None,
+                window_rows: int | None = None):
+        """Encode each replica's windows.
+
+        Args:
+            x: ``(R, batch, time, features)``, replica r's windows in row r,
+                or ``(batch, time, features)`` shared by every replica.
+            deterministic: disables the dropout.
+            generators: one generator a replica (on the module's device),
+                each replica's masks drawn from its own, as the solo
+                encoder draws them.
+            masks: per replica, its list of masks instead of drawing them.
+            window_rows: as ``LstmEncoder.forward``.
+
+        Returns:
+            ``(alpha (R, batch, 1), beta (R, batch, n_factors))``; replica
+            r's rows are the solo encoder's on its windows and masks.
+        """
+        n_rep = self.num_replicas
+        shared = x.dim() == 3
+        inputs = [(x if shared else x[r]).transpose(0, 1) for r in range(n_rep)]
+        n_t, rows = inputs[0].shape[:2]
+        first = self.replicas[0]
+        seams = None
+        if not deterministic and first.dropout > 0.0:
+            if masks is None:
+                gens = generators if generators is not None else [None] * n_rep
+                masks = [enc.draw_masks(n_t, rows, gen)
+                         for enc, gen in zip(self.replicas, gens)]
+            if len(masks) != n_rep or any(len(m) != first.n_masks
+                                          for m in masks):
+                raise ValueError(f"{n_rep} replicas of {first.num_layers} "
+                                 f"layers take {n_rep} lists of "
+                                 f"{first.n_masks} masks")
+            seams = torch.stack([m[0] for m in masks])
+        self.check_groups(n_t, rows, seams is not None, window_rows)
+        x_proj, w_hh1, w_ih2, bias2, w_hh2 = [], [], [], [], []
+        for enc, inp in zip(self.replicas, inputs):
+            w_ih, w_hh, b_ih, b_hh = enc._layer(0)
+            x_proj.append((torch.matmul(inp, w_ih.T) + (b_ih + b_hh))
+                          .contiguous())
+            w_hh1.append(w_hh.T.contiguous())
+            w_ih_a, w_hh_a, b_ih_a, b_hh_a = enc._layer(1)
+            w_hh2.append(w_hh_a.T.contiguous())
+            w_ih2.append(w_ih_a.T.contiguous())
+            bias2.append((b_ih_a + b_hh_a).contiguous())
+        args = (torch.stack(x_proj), torch.stack(w_hh1), torch.stack(w_ih2),
+                torch.stack(bias2), torch.stack(w_hh2), seams)
+        if first.remat and torch.is_grad_enabled():
+            h2s = checkpoint(lstm_pair_recurrence_stacked, *args,
+                             use_reentrant=False, preserve_rng_state=False)
+        else:
+            h2s = lstm_pair_recurrence_stacked(*args)
+        final = h2s[:, -1]
+        alphas = [enc.alpha_head(final[r]) for r, enc in enumerate(self.replicas)]
+        betas = [enc.beta_head(final[r]) for r, enc in enumerate(self.replicas)]
+        return torch.stack(alphas), torch.stack(betas)

@@ -133,7 +133,11 @@ namespace {
 // [p][p + 1] float4; hp1_s (h1[t2]), hp2_s (h2[t2-1]) and, with HAS_MASK,
 // hm_s ((m ⊙ h1)[t2]) [ROWS][p + 16] floats; dp1_s, dp2_s [ROWS][p + 4]
 // float4.
-template <int ROWS, bool HAS_MASK>
+// The replica axis: block (tile, r) runs replica r on the r-th of R stacked
+// operands (planes (R, T, B, H) and (R, T, B, 4H), weights (R, H, 4H), b2
+// (R, 4H)), as lstm_pair_fwd_kernel does; STACKED compiles the offsets in,
+// and a solo launch takes the instance without them.
+template <int ROWS, bool HAS_MASK, bool STACKED>
 __global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_pair_bwd_kernel(const float* __restrict__ dh2s, const float* __restrict__ x1,
                      const float* __restrict__ mask, const float* __restrict__ h1s,
@@ -143,6 +147,24 @@ lstm_pair_bwd_kernel(const float* __restrict__ dh2s, const float* __restrict__ x
                      const float* __restrict__ w2, float* __restrict__ dx1,
                      float* __restrict__ dpre2, int n_t, int n_rows, int hidden) {
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
+  if constexpr (STACKED) {
+    const size_t rep = blockIdx.y;
+    const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
+    const size_t weight = static_cast<size_t>(hidden) * 4 * hidden;
+    dh2s += rep * plane;
+    x1 += rep * 4 * plane;
+    if constexpr (HAS_MASK) mask += rep * plane;
+    h1s += rep * plane;
+    c1s += rep * plane;
+    h2s += rep * plane;
+    c2s += rep * plane;
+    w1 += rep * weight;
+    wi2 += rep * weight;
+    w2 += rep * weight;
+    b2 += rep * 4 * hidden;
+    dx1 += rep * 4 * plane;
+    dpre2 += rep * 4 * plane;
+  }
   extern __shared__ float4 smem[];
   const int p = sweep_pad(hidden);
   const int kq = p / 4;
@@ -605,17 +627,29 @@ __device__ __forceinline__ void wgrad_tile(float* ring, const WgradJob& jb, int 
   }
 }
 
-// The pass: block (job, split), blockIdx.x = job * splits + split.
-template <bool VEC>
-__global__ void __launch_bounds__(kWgradThreads, 1)
-lstm_wgrad_kernel(const __grid_constant__ WgradJobs jobs, float* __restrict__ part,
-                  int splits, int per, int n_t, int n_rows, int hidden) {
-  extern __shared__ float4 wgrad_smem[];
-  float* ring = reinterpret_cast<float*>(wgrad_smem);
-  constexpr int W = VEC ? 4 : 1;
-  const int job = blockIdx.x / splits;
-  const int split = blockIdx.x % splits;
-  const WgradJob& jb = jobs.job[job];
+// A job of replica r: the job's operands offset to the r-th of R stacked
+// ones (src and mask (R, T, B, H), d_pre (R, T, B, 4H), out (R, H, 4H),
+// bias_out (R, 4H)).
+__device__ __forceinline__ WgradJob replica_job(const WgradJob& jb, size_t rep,
+                                                int n_t, int n_rows, int hidden) {
+  const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
+  const size_t weight = static_cast<size_t>(hidden) * 4 * hidden;
+  WgradJob r = jb;
+  r.src += rep * plane;
+  if (r.mask != nullptr) r.mask += rep * plane;
+  r.dpre += rep * 4 * plane;
+  r.out += rep * weight;
+  if (r.bias_out != nullptr) r.bias_out += rep * 4 * hidden;
+  return r;
+}
+
+// One block's share of the pass for job ``jb`` (its partial plane in
+// ``part``), by the job's mask.
+template <int W>
+__device__ __forceinline__ void wgrad_block(float* ring, const WgradJob& jb, int job,
+                                            float* __restrict__ part, int split,
+                                            int splits, int per, int n_t, int n_rows,
+                                            int hidden) {
   if (jb.mask != nullptr) {
     wgrad_tile<W, true>(ring, jb, job, part, split, splits, per, n_t, n_rows, hidden);
   } else {
@@ -623,18 +657,41 @@ lstm_wgrad_kernel(const __grid_constant__ WgradJobs jobs, float* __restrict__ pa
   }
 }
 
-// out = sum over splits s = 0, 1, ... of the partial planes, in that order,
-// 4 columns a thread. grid: ((H + 1) * 4H / 4 / kSumThreads, jobs).
-__global__ void __launch_bounds__(kSumThreads)
-lstm_wgrad_sum_kernel(const __grid_constant__ WgradJobs jobs,
-                      const float* __restrict__ part, int splits, int hidden) {
-  const WgradJob& jb = jobs.job[blockIdx.y];
+// The pass: block (job, split, replica), blockIdx.x = job * splits + split,
+// blockIdx.y = replica. The partial planes are replica-major: replica r's
+// jobs own planes r * n_jobs * splits onwards. The splits are the solo
+// pass's (lstm_wgrad_splits of the job count, not of R x jobs), so each
+// replica's sums are taken in the order of its solo pass. STACKED compiles
+// the replica offsets in; a solo pass reads its jobs as before the axis.
+template <bool VEC, bool STACKED>
+__global__ void __launch_bounds__(kWgradThreads, 1)
+lstm_wgrad_kernel(const __grid_constant__ WgradJobs jobs, float* __restrict__ part,
+                  int n_jobs, int splits, int per, int n_t, int n_rows, int hidden) {
+  extern __shared__ float4 wgrad_smem[];
+  float* ring = reinterpret_cast<float*>(wgrad_smem);
+  constexpr int W = VEC ? 4 : 1;
+  const int job = blockIdx.x / splits;
+  const int split = blockIdx.x % splits;
+  if constexpr (STACKED) {
+    const WgradJob jb = replica_job(jobs.job[job], blockIdx.y, n_t, n_rows, hidden);
+    part += static_cast<size_t>(blockIdx.y) * n_jobs * splits * (hidden + 1) * 4 * hidden;
+    wgrad_block<W>(ring, jb, job, part, split, splits, per, n_t, n_rows, hidden);
+  } else {
+    wgrad_block<W>(ring, jobs.job[job], job, part, split, splits, per, n_t, n_rows,
+                   hidden);
+  }
+}
+
+// out = sum over splits s = 0, 1, ... of the partial planes of job jb (plane
+// index ``plane_job``), in that order, 4 columns a thread.
+__device__ __forceinline__ void wgrad_sum(const WgradJob& jb, const float* __restrict__ part,
+                                          size_t plane_job, int splits, int hidden) {
   const int four_h = 4 * hidden;
   const int idx = 4 * (blockIdx.x * kSumThreads + threadIdx.x);
   const bool is_bias = idx >= hidden * four_h;
   if (idx >= (hidden + 1) * four_h || (is_bias && jb.bias_out == nullptr)) return;
   const size_t plane = static_cast<size_t>(hidden + 1) * four_h;
-  const float* p = part + blockIdx.y * splits * plane + idx;
+  const float* p = part + plane_job * splits * plane + idx;
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 8
   for (int sp = 0; sp < splits; ++sp) {
@@ -646,6 +703,22 @@ lstm_wgrad_sum_kernel(const __grid_constant__ WgradJobs jobs,
   }
   float* out = is_bias ? jb.bias_out + (idx - hidden * four_h) : jb.out + idx;
   *reinterpret_cast<float4*>(out) = s;
+}
+
+// grid: ((H + 1) * 4H / 4 / kSumThreads, replicas x jobs), blockIdx.y =
+// replica * n_jobs + job: the partial planes' order.
+template <bool STACKED>
+__global__ void __launch_bounds__(kSumThreads)
+lstm_wgrad_sum_kernel(const __grid_constant__ WgradJobs jobs,
+                      const float* __restrict__ part, int n_jobs, int splits,
+                      int n_t, int n_rows, int hidden) {
+  if constexpr (STACKED) {
+    const WgradJob jb = replica_job(jobs.job[blockIdx.y % n_jobs],
+                                    blockIdx.y / n_jobs, n_t, n_rows, hidden);
+    wgrad_sum(jb, part, blockIdx.y, splits, hidden);
+  } else {
+    wgrad_sum(jobs.job[blockIdx.y], part, blockIdx.y, splits, hidden);
+  }
 }
 
 // The sweep's dynamic shared memory: three padded weights, two or three h
@@ -667,25 +740,32 @@ int lstm_bwd_max_hidden() { return kMaxHidden; }
 // Every entry point takes the CUDA device index of its pointers and stream:
 // this library links its own CUDA runtime, whose current device is set here.
 
-// dx1 = d_pre1 and dpre2 (T, B, 4H) from dh2s (T, B, H), x1 (T, B, 4H), the
-// optional mask and the stashes h1s, c1s, h2s, c2s (T, B, H), the weights
-// w1_t, wi2_t, w2_t (H, 4H) and b2 (4H).
+// dx1 = d_pre1 and dpre2 (R, T, B, 4H) from dh2s (R, T, B, H), x1
+// (R, T, B, 4H), the optional mask and the stashes h1s, c1s, h2s, c2s
+// (R, T, B, H), the weights w1_t, wi2_t, w2_t (R, H, 4H) and b2 (R, 4H): R
+// replicas in one launch (R = 1: one pair). tile as in lstm_pair_fwd.
 int lstm_pair_bwd(const float* dh2s, const float* x1, const float* mask,
                   const float* h1s, const float* c1s, const float* h2s,
                   const float* c2s, const float* w1_t, const float* wi2_t,
                   const float* b2, const float* w2_t, float* dx1, float* dpre2,
-                  int n_t, int n_rows, int hidden, int device,
-                  cudaStream_t stream) {
-  if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+                  int n_t, int n_rows, int hidden, int replicas, int tile,
+                  int device, cudaStream_t stream) {
+  if (bad_shape(n_t, n_rows, hidden) || replicas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
-    const auto kernel = mask != nullptr ? lstm_pair_bwd_kernel<kRows, true>
-                                        : lstm_pair_bwd_kernel<kRows, false>;
-    return launch_sweep(kernel, n_rows, kRows,
+    const auto kernel =
+        mask != nullptr
+            ? (replicas > 1 ? lstm_pair_bwd_kernel<kRows, true, true>
+                            : lstm_pair_bwd_kernel<kRows, true, false>)
+            : (replicas > 1 ? lstm_pair_bwd_kernel<kRows, false, true>
+                            : lstm_pair_bwd_kernel<kRows, false, false>);
+    return launch_sweep(kernel, n_rows, kRows, replicas,
                         sweep_smem(hidden, kRows, mask != nullptr), stream, dh2s,
                         x1, mask, h1s, c1s, h2s, c2s, w1_t, wi2_t, b2, w2_t, dx1,
                         dpre2, n_t, n_rows, hidden);
-  }));
+  }, replicas, tile));
 }
 
 // dx = d_pre (T, B, 4H) from dhs, hs, cs (T, B, H), x (T, B, 4H), w_t (H, 4H).
@@ -695,7 +775,7 @@ int lstm_bwd(const float* dhs, const float* x, const float* hs, const float* cs,
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
-    return launch_sweep(lstm_bwd_kernel<kRows>, n_rows, kRows,
+    return launch_sweep(lstm_bwd_kernel<kRows>, n_rows, kRows, 1,
                         single_sweep_smem(hidden, kRows), stream, dhs, x, hs,
                         cs, w_t, dx, n_t, n_rows, hidden);
   }));
@@ -721,14 +801,17 @@ int lstm_wgrad_splits(int n_jobs, int n_t, int n_rows, int hidden, int device,
 // Job i: out[i] (H, 4H) = sum over rows of a_i[row]ᵀ dpre[i][row], with
 // a_i[row] = src[i][row - shift[i] * B] (zero for row < shift[i] * B) times
 // mask[i][row] when mask[i] is set; bias_out[i] (4H), when set, gets the
-// row sum of dpre[i]. part holds n_jobs * splits * (H + 1) * 4H floats.
+// row sum of dpre[i]. With R replicas every operand is R stacked ones
+// (src, mask (R, T, B, H), dpre (R, T, B, 4H), out (R, H, 4H), bias_out
+// (R, 4H)) and each replica's jobs run as one solo pass would (the same
+// splits). part holds R * n_jobs * splits * (H + 1) * 4H floats.
 int lstm_wgrad(int n_jobs, const float* const* src, const float* const* mask,
                const float* const* dpre, float* const* out,
                float* const* bias_out, const int* shift, float* part,
-               int splits, int n_t, int n_rows, int hidden, int device,
-               cudaStream_t stream) {
+               int splits, int n_t, int n_rows, int hidden, int replicas,
+               int device, cudaStream_t stream) {
   if (bad_shape(n_t, n_rows, hidden) || n_jobs < 1 || n_jobs > kMaxJobs ||
-      splits < 1) {
+      splits < 1 || replicas < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto aligned = [](const void* p) {
@@ -749,16 +832,21 @@ int lstm_wgrad(int n_jobs, const float* const* src, const float* const* mask,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int per = ceil_div(ceil_div(n_t * n_rows, kWgradRows), splits) * kWgradRows;
   const size_t smem = kWgradStages * kWgradStageFloats * sizeof(float);
-  const auto kernel = vec ? lstm_wgrad_kernel<true> : lstm_wgrad_kernel<false>;
+  const bool stacked = replicas > 1;
+  const auto kernel = vec ? (stacked ? lstm_wgrad_kernel<true, true>
+                                     : lstm_wgrad_kernel<true, false>)
+                          : (stacked ? lstm_wgrad_kernel<false, true>
+                                     : lstm_wgrad_kernel<false, false>);
   err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<n_jobs * splits, kWgradThreads, smem, stream>>>(
-      jobs, part, splits, per, n_t, n_rows, hidden);
+  kernel<<<dim3(n_jobs * splits, replicas), kWgradThreads, smem, stream>>>(
+      jobs, part, n_jobs, splits, per, n_t, n_rows, hidden);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 sum_grid(ceil_div((hidden + 1) * hidden, kSumThreads), n_jobs);
-  lstm_wgrad_sum_kernel<<<sum_grid, kSumThreads, 0, stream>>>(jobs, part, splits,
-                                                               hidden);
+  const dim3 sum_grid(ceil_div((hidden + 1) * hidden, kSumThreads), replicas * n_jobs);
+  const auto sum = stacked ? lstm_wgrad_sum_kernel<true> : lstm_wgrad_sum_kernel<false>;
+  sum<<<sum_grid, kSumThreads, 0, stream>>>(jobs, part, n_jobs, splits, n_t, n_rows,
+                                           hidden);
   return static_cast<int>(cudaGetLastError());
 }
 

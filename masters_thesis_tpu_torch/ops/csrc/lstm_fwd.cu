@@ -140,10 +140,18 @@ __host__ __device__ constexpr int pair_staged_weights(int rows) {
 // STASH: h1s, c1s, c2s are written. Each lane's x1 (and mask) of the next
 // iteration is loaded during this one (FwdLane: clamped, branch-free
 // reads). Warps with 8 w >= p only take part in the barriers.
+// The replica axis (the counterpart of vmap over the TPU kernel): block
+// (tile, r) runs replica r, whose operands are the r-th of R stacked ones,
+// x1 (R, T, B, 4H), mask and the planes (R, T, B, H), the weights
+// (R, H, 4H) and b2 (R, 4H); it reads and writes only its own slices, and
+// runs the same instructions on them as a solo launch. STACKED compiles
+// the offsets in; a solo launch (R = 1) takes the instance without them,
+// so its code is the kernel's before the axis (the offsets kept 14
+// pointers in registers and cost up to 6% at 800 rows on an H100).
 // Shared memory (p = sweep_pad(H)): w1_s (8 rows only), wi2_s, w2_s
 // [p][p + 1] float4, then two buffers of the h1, h2 (and, with HAS_MASK, hm)
 // planes [ROWS][p + 16] floats.
-template <int ROWS, bool HAS_MASK, bool STASH>
+template <int ROWS, bool HAS_MASK, bool STASH, bool STACKED>
 __global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_pair_fwd_kernel(const float* __restrict__ x1, const float* __restrict__ mask,
                      const float* __restrict__ w1, const float* __restrict__ wi2,
@@ -153,6 +161,23 @@ lstm_pair_fwd_kernel(const float* __restrict__ x1, const float* __restrict__ mas
                      int n_t, int n_rows, int hidden) {
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
   constexpr bool kStaged = pair_staged_weights(ROWS) == 3;  // w1 too
+  if constexpr (STACKED) {
+    const size_t rep = blockIdx.y;
+    const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
+    const size_t weight = static_cast<size_t>(hidden) * 4 * hidden;
+    x1 += rep * 4 * plane;
+    if constexpr (HAS_MASK) mask += rep * plane;
+    w1 += rep * weight;
+    wi2 += rep * weight;
+    w2 += rep * weight;
+    b2 += rep * 4 * hidden;
+    h2s += rep * plane;
+    if constexpr (STASH) {
+      h1s += rep * plane;
+      c1s += rep * plane;
+      c2s += rep * plane;
+    }
+  }
   extern __shared__ float4 smem[];
   const int p = sweep_pad(hidden);
   const int kq = p / 4;
@@ -268,16 +293,18 @@ template <bool HAS_MASK, bool STASH>
 cudaError_t launch_pair(const float* x1, const float* mask, const float* w1,
                         const float* wi2, const float* b2, const float* w2,
                         float* h2s, float* h1s, float* c1s, float* c2s,
-                        int n_t, int n_rows, int hidden, int device,
-                        cudaStream_t stream) {
+                        int n_t, int n_rows, int hidden, int replicas, int tile,
+                        int device, cudaStream_t stream) {
   return with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
     const size_t smem = pair_staged_weights(kRows) * padded_weight_bytes(hidden) +
                         fwd_planes_bytes(hidden, kRows, HAS_MASK ? 3 : 2);
-    return launch_sweep(lstm_pair_fwd_kernel<kRows, HAS_MASK, STASH>, n_rows,
-                        kRows, smem, stream, x1, mask, w1, wi2, b2, w2, h2s,
-                        h1s, c1s, c2s, n_t, n_rows, hidden);
-  });
+    const auto kernel = replicas > 1
+                            ? lstm_pair_fwd_kernel<kRows, HAS_MASK, STASH, true>
+                            : lstm_pair_fwd_kernel<kRows, HAS_MASK, STASH, false>;
+    return launch_sweep(kernel, n_rows, kRows, replicas, smem, stream, x1, mask,
+                        w1, wi2, b2, w2, h2s, h1s, c1s, c2s, n_t, n_rows, hidden);
+  }, replicas, tile);
 }
 
 }  // namespace
@@ -299,41 +326,50 @@ int lstm_fwd(const float* x, const float* w_t, float* hs, float* cs, int n_t,
   if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
-    return launch_sweep(lstm_fwd_kernel<kRows>, n_rows, kRows,
+    return launch_sweep(lstm_fwd_kernel<kRows>, n_rows, kRows, 1,
                         fwd_planes_bytes(hidden, kRows, 1), stream, x, w_t, hs,
                         cs, n_t, n_rows, hidden);
   }));
 }
 
-// h2s (T, B, H) from x1 (T, B, 4H), the optional mask (T, B, H), w1_t, wi2_t,
-// w2_t (H, 4H) and b2 (4H). h1s, c1s, c2s (T, B, H) are all null (no stash)
-// or all set.
+// h2s (R, T, B, H) from x1 (R, T, B, 4H), the optional mask (R, T, B, H),
+// w1_t, wi2_t, w2_t (R, H, 4H) and b2 (R, 4H): R replicas in one launch
+// (R = 1: one pair). h1s, c1s, c2s (R, T, B, H) are all null (no stash) or
+// all set. tile 0 takes the row tile from all R replicas' rows within the
+// solo tile's summation class (sweep_rows); 1, 2, 4 or 8 names it.
 int lstm_pair_fwd(const float* x1, const float* mask, const float* w1_t,
                   const float* wi2_t, const float* b2, const float* w2_t,
                   float* h2s, float* h1s, float* c1s, float* c2s, int n_t,
-                  int n_rows, int hidden, int device, cudaStream_t stream) {
-  if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+                  int n_rows, int hidden, int replicas, int tile, int device,
+                  cudaStream_t stream) {
+  if (bad_shape(n_t, n_rows, hidden) || replicas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool stash = h1s != nullptr;
   if (stash != (c1s != nullptr) || stash != (c2s != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto launch = [&](auto has_mask, auto write_stash) {
+    return launch_pair<decltype(has_mask)::value, decltype(write_stash)::value>(
+        x1, mask, w1_t, wi2_t, b2, w2_t, h2s, h1s, c1s, c2s, n_t, n_rows,
+        hidden, replicas, tile, device, stream);
+  };
+  using yes = std::true_type;
+  using no = std::false_type;
   cudaError_t err;
   if (mask != nullptr) {
-    err = stash ? launch_pair<true, true>(x1, mask, w1_t, wi2_t, b2, w2_t, h2s,
-                                          h1s, c1s, c2s, n_t, n_rows, hidden,
-                                          device, stream)
-                : launch_pair<true, false>(x1, mask, w1_t, wi2_t, b2, w2_t, h2s,
-                                           h1s, c1s, c2s, n_t, n_rows, hidden,
-                                           device, stream);
+    err = stash ? launch(yes{}, yes{}) : launch(yes{}, no{});
   } else {
-    err = stash ? launch_pair<false, true>(x1, mask, w1_t, wi2_t, b2, w2_t, h2s,
-                                           h1s, c1s, c2s, n_t, n_rows, hidden,
-                                           device, stream)
-                : launch_pair<false, false>(x1, mask, w1_t, wi2_t, b2, w2_t, h2s,
-                                            h1s, c1s, c2s, n_t, n_rows, hidden,
-                                            device, stream);
+    err = stash ? launch(no{}, yes{}) : launch(no{}, no{});
   }
   return static_cast<int>(err);
+}
+
+// The row tile a sweep or pair launch of R replicas of n_rows rows takes
+// (tile 0): what chip_smoke.py and the tests report beside the times.
+int lstm_sweep_tile(int n_rows, int replicas, int device, int* rows) {
+  if (n_rows < 1 || replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sweep_rows(n_rows, device, rows, replicas));
 }
 
 }  // extern "C"

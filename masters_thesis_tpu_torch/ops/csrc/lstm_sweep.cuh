@@ -220,29 +220,61 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // Rows a block of the 256-thread sweeps: the smallest of 1, 2, 4, 8 whose grid
 // fits one wave of SMs. A block reads its staged weights once a product and
 // step whatever its rows, so the tile only sets how many SMs work.
-cudaError_t sweep_rows(int n_rows, int device, int* rows) {
+//
+// A replica-axis launch (grid.y = replicas) must give each replica the bits
+// of its solo launch, and a row's bits are the same only at 1 and 2 rows:
+// below 4 rows quarter_sum adds a unit's quarters by a butterfly, (q0 + q1)
+// + (q2 + q3), and the sweeps split their transposed products into a chain
+// a gate; from 4 rows the reduce-scatter adds (q0 + q2) + (q1 + q3); and
+// the card tests found 4 and 8 rows apart as well. So R replicas
+// whose solo tile is 1 or 2 rows take the smaller of 1 and 2 whose grid of
+// R x row tiles fits one wave, else 2; a solo tile of 4 or 8 rows stays:
+// R = 8 replicas of 100 rows (solo: 1-row tiles) take 2-row tiles, 400
+// blocks, about three waves, where 8-row tiles would be one of 104.
+constexpr int kButterflyMaxRows = 2;
+
+cudaError_t sweep_rows(int n_rows, int device, int* rows, int replicas = 1) {
   int sms = 0;
   const cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  const auto fits = [&](int r, int copies) {
+    return static_cast<long long>(copies) * ceil_div(n_rows, r) <= sms;
+  };
   *rows = kSweepMaxRows;
   for (int r = 1; r < kSweepMaxRows; r *= 2) {
-    if (ceil_div(n_rows, r) <= sms) {
+    if (fits(r, 1)) {
       *rows = r;
       break;
     }
   }
+  if (replicas > 1 && *rows <= kButterflyMaxRows) {
+    *rows = fits(1, replicas) ? 1 : kButterflyMaxRows;
+  }
   return cudaSuccess;
 }
 
-// Sets the device, picks the sweep's row tile and calls
+// The tile a launch takes: `tile` when the caller names one (1, 2, 4 or 8:
+// the tests that hold a row's output against every tile), else sweep_rows.
+cudaError_t pick_sweep_rows(int n_rows, int replicas, int tile, int device,
+                            int* rows) {
+  if (tile == 0) return sweep_rows(n_rows, device, rows, replicas);
+  if (tile != 1 && tile != 2 && tile != 4 && tile != kSweepMaxRows) {
+    return cudaErrorInvalidValue;
+  }
+  *rows = tile;
+  return cudaSuccess;
+}
+
+// Sets the device, picks the sweep's row tile (pick_sweep_rows) and calls
 // f(std::integral_constant<int, ROWS>{}) so that f can name the kernel
 // instance for that tile.
 template <typename F>
-cudaError_t with_sweep_rows(int n_rows, int device, F f) {
+cudaError_t with_sweep_rows(int n_rows, int device, F f, int replicas = 1,
+                            int tile = 0) {
   int rows = 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = sweep_rows(n_rows, device, &rows);
+  if (err == cudaSuccess) err = pick_sweep_rows(n_rows, replicas, tile, device, &rows);
   if (err != cudaSuccess) return err;
   switch (rows) {
     case 1:
@@ -290,12 +322,17 @@ cudaError_t reserve_smem(Kernel kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// Launches one block of kSweepThreads a row tile of each replica: grid
+// (row tiles, replicas). A kernel with a replica axis offsets every operand
+// by blockIdx.y times the replica's stride; the solo wrappers launch one
+// replica, so a solo call is the replica-axis kernel at R = 1.
 template <typename Kernel, typename... Args>
-cudaError_t launch_sweep(Kernel kernel, int n_rows, int rows, size_t smem,
-                         cudaStream_t stream, Args... args) {
+cudaError_t launch_sweep(Kernel kernel, int n_rows, int rows, int replicas,
+                         size_t smem, cudaStream_t stream, Args... args) {
   const cudaError_t err = reserve_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<ceil_div(n_rows, rows), kSweepThreads, smem, stream>>>(args...);
+  const dim3 grid(ceil_div(n_rows, rows), replicas);
+  kernel<<<grid, kSweepThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -547,7 +547,7 @@ int lstm_tb_fwd(const float* x, const float* w_t, float* hs, float* cs, int n_t,
       return fwd_smem_bytes(hidden, kRows, c);
     }, &tc);
     if (err != cudaSuccess) return err;
-    return launch_sweep(lstm_tb_fwd_kernel<kRows>, n_rows, kRows,
+    return launch_sweep(lstm_tb_fwd_kernel<kRows>, n_rows, kRows, 1,
                         fwd_smem_bytes(hidden, kRows, tc), stream, x, w_t, hs,
                         cs, n_t, n_rows, hidden, tc);
   }));
@@ -567,7 +567,7 @@ int lstm_tb_bwd(const float* dhs, const float* x, const float* hs, const float* 
       return bwd_smem_bytes(hidden, kRows, c);
     }, &tc);
     if (err != cudaSuccess) return err;
-    return launch_sweep(lstm_tb_bwd_kernel<kRows>, n_rows, kRows,
+    return launch_sweep(lstm_tb_bwd_kernel<kRows>, n_rows, kRows, 1,
                         bwd_smem_bytes(hidden, kRows, tc), stream, dhs, x, hs,
                         cs, w_t, dx, dw_part, n_t, n_rows, hidden, tc);
   }));

@@ -25,6 +25,12 @@ kernels do: the serial sweep (``lstm_pair_bwd`` / ``lstm_bwd`` /
 Each kernel counts its launches in ``LAUNCHES`` so a run can show that its
 main path went through it.
 
+The pair also runs with a replica axis (``lstm_pair_recurrence_stacked``,
+the counterpart of ``vmap`` over the JAX pair, which stacked training and
+serving run): R replicas' operands stacked on a leading axis, one launch of
+each pair kernel for all R, replica r's slice of every output the solo
+kernel's on its slices.
+
 The CUDA kernels take f32 only and H <= 64; bf16 compute is not ported.
 """
 
@@ -55,7 +61,9 @@ MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 #: weight-gradient pass; ``lstm_tb_fwd`` and ``lstm_tb_bwd`` the time-blocked
 #: forward and backward (its weight gradient included). A wrapper counts when
 #: it launches; a CUDA graph's replay adds the counts of its capture
-#: (``utils/cuda_graph.py``).
+#: (``utils/cuda_graph.py``). The ``_stacked`` names count the replica-axis
+#: launches of the pair kernels (R replicas in one launch, stacked training
+#: and serving), apart from the solo launches of the same kernels.
 LAUNCHES: dict[str, int] = {
     "lstm_pair_fwd": 0,
     "lstm_pair_fwd_masked": 0,
@@ -63,6 +71,10 @@ LAUNCHES: dict[str, int] = {
     "lstm_pair_bwd": 0,
     "lstm_bwd": 0,
     "lstm_wgrad": 0,
+    "lstm_pair_fwd_stacked": 0,
+    "lstm_pair_fwd_masked_stacked": 0,
+    "lstm_pair_bwd_stacked": 0,
+    "lstm_wgrad_stacked": 0,
     "lstm_stack_fwd": 0,
     "lstm_stack_fwd_masked": 0,
     "lstm_stack_bwd": 0,
@@ -252,6 +264,45 @@ def lstm_pair_wgrad_ref(dx1, d_pre2, h1s, h2s, mask=None):
         d_pre2.sum(dim=(0, 1)),
         lstm_wgrad_ref(d_pre2, h2s, 1),
     )
+
+
+def _per_replica(fn, *stacked):
+    """``fn`` on each replica's slices of ``stacked`` (a leading R axis; a
+    None stays None), its outputs stacked back along R."""
+    n = next(t for t in stacked if t is not None).shape[0]
+    outs = [_as_tuple(fn(*(None if t is None else t[r] for t in stacked)))
+            for r in range(n)]
+    stacked_outs = tuple(torch.stack(parts) for parts in zip(*outs))
+    return stacked_outs if len(stacked_outs) > 1 else stacked_outs[0]
+
+
+def _as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def lstm_pair_stacked_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                          mask=None, return_stash: bool = False):
+    """Plain version of the replica-axis pair forward: ``lstm_pair_ref`` on
+    each replica's slices (``x1_proj (R, T, B, 4H)``, weights ``(R, H,
+    4H)``, ``bias2 (R, 4H)``, ``mask (R, T, B, H)``), stacked. The
+    counterpart of ``vmap`` over the JAX pair."""
+    return _per_replica(
+        lambda *a: lstm_pair_ref(*a, return_stash=return_stash),
+        x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask)
+
+
+def lstm_pair_bwd_stacked_ref(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s,
+                              w_hh1_t, w_ih2_t, bias2, w_hh2_t):
+    """Plain version of the replica-axis pair sweep: ``lstm_pair_bwd_ref``
+    replica by replica; ``(dx1, d_pre2)`` ``(R, T, B, 4H)``."""
+    return _per_replica(lstm_pair_bwd_ref, dh2s, x1_proj, mask, h1s, c1s,
+                        h2s, c2s, w_hh1_t, w_ih2_t, bias2, w_hh2_t)
+
+
+def lstm_pair_wgrad_stacked_ref(dx1, d_pre2, h1s, h2s, mask=None):
+    """Plain version of the replica-axis weight-gradient pass:
+    ``lstm_pair_wgrad_ref`` replica by replica, each gradient ``(R, ...)``."""
+    return _per_replica(lstm_pair_wgrad_ref, dx1, d_pre2, h1s, h2s, mask)
 
 
 def lstm_stack_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
@@ -453,7 +504,9 @@ def _library() -> ctypes.CDLL:
     """csrc/lstm_fwd.cu, built at first use, with its functions' types."""
     lib = load_library("lstm_fwd")
     _declare(lib, "lstm_fwd", 4, 4)
-    _declare(lib, "lstm_pair_fwd", 10, 4)
+    _declare(lib, "lstm_pair_fwd", 10, 6)
+    lib.lstm_sweep_tile.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.lstm_sweep_tile.restype = ctypes.c_int
     lib.lstm_error_string.argtypes = [ctypes.c_int]
     lib.lstm_error_string.restype = ctypes.c_char_p
     lib.lstm_max_hidden.argtypes = []
@@ -467,11 +520,11 @@ def _bwd_library() -> ctypes.CDLL:
     """csrc/lstm_bwd.cu, built at first use, with its functions' types."""
     lib = load_library("lstm_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    _declare(lib, "lstm_pair_bwd", 13, 4)
+    _declare(lib, "lstm_pair_bwd", 13, 6)
     _declare(lib, "lstm_bwd", 6, 4)
     lib.lstm_wgrad_splits.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.lstm_wgrad_splits.restype = i32
-    lib.lstm_wgrad.argtypes = [i32] + [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.lstm_wgrad.argtypes = [i32] + [ptr] * 7 + [i32] * 6 + [ptr]
     lib.lstm_wgrad.restype = i32
     lib.lstm_bwd_max_hidden.argtypes = []
     lib.lstm_bwd_max_hidden.restype = i32
@@ -673,11 +726,49 @@ def lstm_tb_time_chunk_cuda(n_t: int, rows: int, hidden: int,
     return tc.value
 
 
-def _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev):
+def _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev,
+                        lead: tuple = ()):
     for name, w in (("w_hh1_t", w_hh1_t), ("w_ih2_t", w_ih2_t),
                     ("w_hh2_t", w_hh2_t)):
-        _check_operand(name, w, (hidden, 4 * hidden), dev)
-    _check_operand("bias2", bias2, (4 * hidden,), dev)
+        _check_operand(name, w, lead + (hidden, 4 * hidden), dev)
+    _check_operand("bias2", bias2, lead + (4 * hidden,), dev)
+
+
+def _replicas(x1_proj: torch.Tensor) -> tuple[int, int, int, int]:
+    """``(R, T, B, H)`` of a stacked ``(R, T, B, 4H)`` projection."""
+    if x1_proj.dim() != 4 or x1_proj.shape[0] < 1:
+        raise ValueError("a replica-axis launch takes (R, T, B, 4H) inputs, "
+                         f"got {tuple(x1_proj.shape)}")
+    return (x1_proj.shape[0],) + _shapes(x1_proj[0])
+
+
+def _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask, stash,
+                     lead: tuple, tile: int):
+    """One launch of the pair forward over ``lead`` (``()`` or ``(R,)``)
+    replicas of ``(T, B)`` rows, after the wrappers' checks."""
+    n_t, b, hidden = _shapes(x1_proj[0] if lead else x1_proj)
+    dev = x1_proj.device
+    _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev)
+    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev, lead)
+    if mask is not None:
+        _check_operand("mask", mask, lead + (n_t, b, hidden), dev)
+    lib = _library()
+    planes = [torch.empty(lead + (n_t, b, hidden), device=dev,
+                          dtype=torch.float32)
+              for _ in range(4 if stash else 1)]
+    h1s, c1s, c2s = planes[1:] if stash else (None, None, None)
+    err = lib.lstm_pair_fwd(
+        x1_proj.data_ptr(), _ptr(mask), w_hh1_t.data_ptr(), w_ih2_t.data_ptr(),
+        bias2.data_ptr(), w_hh2_t.data_ptr(), planes[0].data_ptr(), _ptr(h1s),
+        _ptr(c1s), _ptr(c2s), n_t, b, hidden, lead[0] if lead else 1, tile,
+        dev.index, _stream(dev),
+    )
+    name = "lstm_pair_fwd" if mask is None else "lstm_pair_fwd_masked"
+    if lead:
+        name += "_stacked"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return tuple(planes) if stash else planes[0]
 
 
 def lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
@@ -685,38 +776,34 @@ def lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
     """Launch the pair kernel; returns ``h2s`` ``(T, B, H)``, or with
     ``stash`` ``(h2s, h1s, c1s, c2s)``. ``mask`` selects the masked
     instance (counted as ``lstm_pair_fwd_masked``)."""
-    n_t, b, hidden = _shapes(x1_proj)
-    dev = x1_proj.device
-    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev)
-    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev)
-    if mask is not None:
-        _check_operand("mask", mask, (n_t, b, hidden), dev)
-    lib = _library()
-    planes = [torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
-              for _ in range(4 if stash else 1)]
-    h1s, c1s, c2s = planes[1:] if stash else (None, None, None)
-    err = lib.lstm_pair_fwd(
-        x1_proj.data_ptr(), _ptr(mask), w_hh1_t.data_ptr(), w_ih2_t.data_ptr(),
-        bias2.data_ptr(), w_hh2_t.data_ptr(), planes[0].data_ptr(), _ptr(h1s),
-        _ptr(c1s), _ptr(c2s), n_t, b, hidden, dev.index, _stream(dev),
-    )
-    name = "lstm_pair_fwd" if mask is None else "lstm_pair_fwd_masked"
-    _raise_on_error(name, err)
-    LAUNCHES[name] += 1
-    return tuple(planes) if stash else planes[0]
+    return _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask,
+                            stash, (), 0)
 
 
-def lstm_pair_bwd_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
-                       w_ih2_t, bias2, w_hh2_t):
-    """Launch the pair's backward sweep; returns ``(dx1, d_pre2)``
-    ``(T, B, 4H)`` as ``lstm_pair_bwd_ref`` does."""
-    n_t, b, hidden = _shapes(x1_proj)
+def lstm_pair_fwd_stacked_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                               mask=None, stash: bool = False, tile: int = 0):
+    """Launch the pair kernel once for R replicas: every operand with a
+    leading R axis (``x1_proj (R, T, B, 4H)``, weights ``(R, H, 4H)``,
+    ``bias2 (R, 4H)``, ``mask (R, T, B, H)``); returns ``h2s (R, T, B, H)``
+    (and the stashes, likewise), each replica's slice the solo kernel's on
+    its slices. ``tile`` 0 takes the row tile from the R replicas' rows,
+    within the solo tile's summation class so that the bits stay the solo
+    ones (``lstm_sweep_tile_cuda``); 1, 2, 4 or 8 names it. Counted as
+    ``lstm_pair_fwd_stacked`` or ``lstm_pair_fwd_masked_stacked``."""
+    lead = _replicas(x1_proj)[:1]
+    return _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask,
+                            stash, lead, tile)
+
+
+def _launch_pair_bwd(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                     w_ih2_t, bias2, w_hh2_t, lead: tuple, tile: int):
+    n_t, b, hidden = _shapes(x1_proj[0] if lead else x1_proj)
     dev = x1_proj.device
-    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev)
+    _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev)
     for name, t in (("dh2s", dh2s), ("h1s", h1s), ("c1s", c1s), ("h2s", h2s),
                     ("c2s", c2s)) + ((("mask", mask),) if mask is not None else ()):
-        _check_operand(name, t, (n_t, b, hidden), dev)
-    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev)
+        _check_operand(name, t, lead + (n_t, b, hidden), dev)
+    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev, lead)
     lib = _bwd_library()
     dx1 = torch.empty_like(x1_proj)
     d_pre2 = torch.empty_like(x1_proj)
@@ -724,12 +811,43 @@ def lstm_pair_bwd_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
         dh2s.data_ptr(), x1_proj.data_ptr(), _ptr(mask), h1s.data_ptr(),
         c1s.data_ptr(), h2s.data_ptr(), c2s.data_ptr(), w_hh1_t.data_ptr(),
         w_ih2_t.data_ptr(), bias2.data_ptr(), w_hh2_t.data_ptr(),
-        dx1.data_ptr(), d_pre2.data_ptr(), n_t, b, hidden, dev.index,
-        _stream(dev),
+        dx1.data_ptr(), d_pre2.data_ptr(), n_t, b, hidden,
+        lead[0] if lead else 1, tile, dev.index, _stream(dev),
     )
-    _raise_on_error("lstm_pair_bwd", err)
-    LAUNCHES["lstm_pair_bwd"] += 1
+    name = "lstm_pair_bwd_stacked" if lead else "lstm_pair_bwd"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return dx1, d_pre2
+
+
+def lstm_pair_bwd_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                       w_ih2_t, bias2, w_hh2_t):
+    """Launch the pair's backward sweep; returns ``(dx1, d_pre2)``
+    ``(T, B, 4H)`` as ``lstm_pair_bwd_ref`` does."""
+    return _launch_pair_bwd(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                            w_ih2_t, bias2, w_hh2_t, (), 0)
+
+
+def lstm_pair_bwd_stacked_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s,
+                               w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                               tile: int = 0):
+    """Launch the pair's backward sweep once for R replicas (every operand
+    with a leading R axis); ``(dx1, d_pre2)`` ``(R, T, B, 4H)``, each
+    replica's slice the solo sweep's. ``tile`` as in
+    ``lstm_pair_fwd_stacked_cuda``; counted as ``lstm_pair_bwd_stacked``."""
+    lead = _replicas(x1_proj)[:1]
+    return _launch_pair_bwd(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                            w_ih2_t, bias2, w_hh2_t, lead, tile)
+
+
+def lstm_sweep_tile_cuda(rows: int, replicas: int = 1, device=None) -> int:
+    """The row tile (1, 2, 4 or 8 rows a block) a pair forward or sweep of
+    ``replicas`` replicas of ``rows`` rows takes on the card."""
+    dev = torch.device("cuda" if device is None else device)
+    tile = ctypes.c_int(0)
+    _raise_on_error("lstm_sweep_tile", _library().lstm_sweep_tile(
+        rows, replicas, dev.index or 0, ctypes.byref(tile)))
+    return tile.value
 
 
 def lstm_bwd_cuda(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
@@ -761,23 +879,32 @@ def lstm_wgrad_cuda(jobs) -> list:
     Returns one ``(dW (H, 4H), db (4H,) or None)`` per job, each as
     ``lstm_wgrad_ref`` (and ``d_pre.sum((0, 1))``) computes it.
     """
-    n_t, b, hidden = _shapes(jobs[0][0])
+    return _launch_wgrad(jobs, ())
+
+
+def _launch_wgrad(jobs, lead: tuple) -> list:
+    """One launch of the pass over ``lead`` (``()`` or ``(R,)``) replicas:
+    every operand of a job, and so every output, with the leading axis.
+    The splits are the solo pass's for this many jobs, so replica r's sums
+    run in its solo pass's order."""
+    n_t, b, hidden = _shapes(jobs[0][0][0] if lead else jobs[0][0])
     dev = jobs[0][0].device
     for d_pre, src, _, mask, _ in jobs:
-        _check_operand("d_pre", d_pre, (n_t, b, 4 * hidden), dev)
-        _check_operand("src", src, (n_t, b, hidden), dev)
+        _check_operand("d_pre", d_pre, lead + (n_t, b, 4 * hidden), dev)
+        _check_operand("src", src, lead + (n_t, b, hidden), dev)
         if mask is not None:
-            _check_operand("mask", mask, (n_t, b, hidden), dev)
+            _check_operand("mask", mask, lead + (n_t, b, hidden), dev)
     lib = _bwd_library()
     n = len(jobs)
+    replicas = lead[0] if lead else 1
     splits = ctypes.c_int(0)
     _raise_on_error("lstm_wgrad", lib.lstm_wgrad_splits(
         n, n_t, b, hidden, dev.index, ctypes.byref(splits)))
-    part = torch.empty((n * splits.value * (hidden + 1) * 4 * hidden,),
+    part = torch.empty((replicas * n * splits.value * (hidden + 1) * 4 * hidden,),
                        device=dev, dtype=torch.float32)
-    outs = [torch.empty((hidden, 4 * hidden), device=dev, dtype=torch.float32)
-            for _ in jobs]
-    biases = [torch.empty((4 * hidden,), device=dev, dtype=torch.float32)
+    outs = [torch.empty(lead + (hidden, 4 * hidden), device=dev,
+                        dtype=torch.float32) for _ in jobs]
+    biases = [torch.empty(lead + (4 * hidden,), device=dev, dtype=torch.float32)
               if job[4] else None for job in jobs]
 
     def array(values, ctype=ctypes.c_void_p):
@@ -791,10 +918,12 @@ def lstm_wgrad_cuda(jobs) -> list:
         array(_ptr(o) for o in outs),
         array(_ptr(bias) for bias in biases),
         array((job[2] for job in jobs), ctypes.c_int),
-        part.data_ptr(), splits.value, n_t, b, hidden, dev.index, _stream(dev),
+        part.data_ptr(), splits.value, n_t, b, hidden, replicas, dev.index,
+        _stream(dev),
     )
-    _raise_on_error("lstm_wgrad", err)
-    LAUNCHES["lstm_wgrad"] += 1
+    name = "lstm_wgrad_stacked" if lead else "lstm_wgrad"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return list(zip(outs, biases))
 
 
@@ -922,6 +1051,21 @@ def lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask=None):
     return dw1, dwi2, db2, dw2
 
 
+def lstm_pair_wgrad_stacked(dx1, d_pre2, h1s, h2s, mask=None):
+    """The pair's weight gradients for R replicas, every operand and
+    gradient with a leading R axis: one launch of the pass over R x 3 jobs
+    for a CUDA tensor (``lstm_wgrad_stacked``), the plain version replica
+    by replica for a CPU tensor."""
+    if _device_type(dx1) == "cpu":
+        return lstm_pair_wgrad_stacked_ref(dx1, d_pre2, h1s, h2s, mask)
+    (dw1, _), (dwi2, db2), (dw2, _) = _launch_wgrad([
+        (dx1, h1s, 1, None, False),
+        (d_pre2, h1s, 0, mask, True),
+        (d_pre2, h2s, 1, None, False),
+    ], _replicas(dx1)[:1])
+    return dw1, dwi2, db2, dw2
+
+
 def lstm_single_wgrad(dx, hs) -> torch.Tensor:
     """One layer's recurrent weight gradient ``sum h[t-1]ᵀ dx[t]``."""
     if _device_type(dx) == "cpu":
@@ -967,6 +1111,38 @@ class _PairFunction(torch.autograd.Function):
         else:
             dx1, d_pre2 = lstm_pair_bwd_ref(*args)
         dw1, dwi2, db2, dw2 = lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask)
+        return dx1, dw1, dwi2, db2, dw2, None
+
+
+class _StackedPairFunction(torch.autograd.Function):
+    """R layer pairs with a leading replica axis on every operand, each
+    replica's forward, sweep and weight gradients those of ``_PairFunction``
+    on its slices: one launch of each kernel for all R on the card."""
+
+    @staticmethod
+    def forward(ctx, x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask):
+        if _device_type(x1_proj) == "cuda":
+            h2s, h1s, c1s, c2s = lstm_pair_fwd_stacked_cuda(
+                x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask, stash=True)
+        else:
+            h2s, h1s, c1s, c2s = lstm_pair_stacked_ref(
+                x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask,
+                return_stash=True)
+        ctx.save_for_backward(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask,
+                              h1s, c1s, h2s, c2s)
+        return h2s
+
+    @staticmethod
+    def backward(ctx, dh2s):
+        x1_proj, w1, wi2, b2, w2, mask, h1s, c1s, h2s, c2s = ctx.saved_tensors
+        dh2s = dh2s.contiguous()
+        args = (dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w1, wi2, b2, w2)
+        if _device_type(x1_proj) == "cuda":
+            dx1, d_pre2 = lstm_pair_bwd_stacked_cuda(*args)
+        else:
+            dx1, d_pre2 = lstm_pair_bwd_stacked_ref(*args)
+        dw1, dwi2, db2, dw2 = lstm_pair_wgrad_stacked(dx1, d_pre2, h1s, h2s,
+                                                      mask)
         return dx1, dw1, dwi2, db2, dw2, None
 
 
@@ -1134,6 +1310,34 @@ def lstm_pair_recurrence(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
         return lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
                                   mask)
     return lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask)
+
+
+def lstm_pair_recurrence_stacked(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                                 mask=None):
+    """R independent layer pairs, one per replica, as one recurrence: the
+    counterpart of ``vmap`` over the JAX pair (``lstm_pair_recurrence``).
+
+    Args:
+        x1_proj: ``(R, T, B, 4H)`` each replica's layer-1 projections.
+        w_hh1_t, w_ih2_t, w_hh2_t: ``(R, H, 4H)`` each replica's weights.
+        bias2: ``(R, 4H)``.
+        mask: optional ``(R, T, B, H)`` each replica's pre-scaled seam mask.
+
+    Returns:
+        ``(R, T, B, H)`` layer-2 hidden states; replica r's slice is what
+        ``lstm_pair_recurrence`` gives on replica r's slices. On the card
+        each kernel launches once for all R replicas (the ``_stacked``
+        counts), or raises; a CPU tensor runs the plain versions replica by
+        replica.
+    """
+    if _needs_grad(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t):
+        return _StackedPairFunction.apply(x1_proj, w_hh1_t, w_ih2_t, bias2,
+                                          w_hh2_t, mask)
+    if _device_type(x1_proj) == "cuda":
+        return lstm_pair_fwd_stacked_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2,
+                                          w_hh2_t, mask)
+    return lstm_pair_stacked_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                                 mask)
 
 
 def lstm_stack_recurrence(x1_proj, weights, masks=None):

@@ -23,7 +23,9 @@ The port fires these points: ``checkpoint.pre_publish``,
 in ``train/checkpoint.py``, with the context ``tag`` (as the JAX package)
 and ``epoch`` (the save's, so that a plan can pick one save);
 ``trainer.epoch_dispatched`` and ``trainer.loss`` (``nan``) in
-``train/trainer.py``, with the context ``epoch``; and, with the JAX
+``train/trainer.py``, with the context ``epoch``; ``stacked.replica_loss``
+(``nan``) in ``train/stacked.py``, with the context ``epoch`` and
+``replica`` (the replica's index); and, with the JAX
 package's context keys, ``serve.admit`` in ``serve/queue.py`` (``rid``,
 ``depth``; ``wedge`` sheds the request, ``shift`` shifts its window by
 :func:`shift_params`), ``serve.dispatch`` in ``serve/server.py`` (``seq``,

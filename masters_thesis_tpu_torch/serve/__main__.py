@@ -12,10 +12,16 @@ Counterpart of ``python -m masters_thesis_tpu.serve``:
   (category ``fault``), and the canary's verdict math; and the breaker half
   of its check 5: scripted dispatch failures trip the breaker, the trip is
   counted and traffic recovers on the same engine (the port has no CPU
-  degradation). Exit 1 on any failure.
-- ``preflight`` runs ``serve/preflight.py`` (SV301–SV304 and the one-engine
-  SV308) on the card, or on the CPU with ``--device cpu``: one JSON line
-  of what the rules measured, then the findings. Exit 1 on findings.
+  degradation); and its check 7, multi-tenant stacked serving: a tenant
+  with a deadline class submits without a deadline, a second one rides
+  along, a deadline-less submit of an unclassed tenant is refused, the
+  per-tenant admission splits, and a stacked engine's ``(R, K)`` answer
+  per window comes back through the unchanged dispatch loop
+  (``stats()["lanes"]``). Exit 1 on any failure.
+- ``preflight`` runs ``serve/preflight.py`` (SV301–SV304, SV307 over lane
+  counts, and SV308 for one engine and for one lane of a stack) on the
+  card, or on the CPU with ``--device cpu``: one JSON line of what the
+  rules measured, then the findings. Exit 1 on findings.
 """
 
 from __future__ import annotations
@@ -54,6 +60,19 @@ class _FakeEngine:
         n, k = x.shape[0], self.window_shape[0]
         return (self._np.zeros((n, k), self._np.float32),
                 self._np.zeros((n, k), self._np.float32))
+
+
+class _FakeStackedEngine(_FakeEngine):
+    """Stacked-engine stand-in: per-lane ``(n, R, K)`` answers."""
+
+    def __init__(self, lanes: int = 3, **kw):
+        super().__init__(**kw)
+        self.num_lanes = lanes
+
+    def predict(self, x, params=None):
+        a, _ = super().predict(x, params)
+        a = self._np.repeat(a[:, None, :], self.num_lanes, axis=1)
+        return a, a.copy()
 
 
 def _selfcheck(args) -> int:
@@ -153,6 +172,39 @@ def _selfcheck(args) -> int:
     if ok_after.status != STATUS_OK:
         failures.append(f"breaker: request after the trip {ok_after.status!r}")
 
+    # 7. Multi-tenant stacked serving: a deadline-classed tenant submits
+    #    without a deadline, a second tenant rides along, accounting
+    #    splits by tenant, and (R, K) answers resolve through the dispatch
+    #    loop.
+    engine = _FakeStackedEngine(lanes=3, service_s=0.001)
+    server = PredictServer(engine, max_wait_s=0.002)
+    server.register_tenant("quant-a", deadline_s=5.0)
+    server.start()
+    pending = [server.submit(window, tenant="quant-a") for _ in range(6)]
+    pending += [server.submit(window, deadline_s=5.0, tenant="quant-b")
+                for _ in range(4)]
+    results = [p.result(timeout=10.0) for p in pending]
+    try:
+        server.submit(window, tenant="no-class")
+        failures.append("tenancy: a deadline-less submit for an unclassed "
+                        "tenant was admitted")
+    except ValueError:
+        pass
+    stats = server.stop()
+    if not all(r.status == STATUS_OK for r in results):
+        failures.append("tenancy: statuses "
+                        f"{sorted({r.status for r in results})} != ['ok']")
+    lane_shapes = {r.outputs[0].shape for r in results if r.outputs}
+    if lane_shapes != {(3, 2)}:
+        failures.append(f"tenancy: stacked per-request answers {lane_shapes} "
+                        "!= {(3, 2)} (lanes, stocks)")
+    tstats = stats.get("tenants", {})
+    if (tstats.get("quant-a", {}).get("admitted") != 6
+            or tstats.get("quant-b", {}).get("admitted") != 4):
+        failures.append(f"tenancy: per-tenant admission split {tstats}")
+    if stats.get("lanes") != 3:
+        failures.append(f"tenancy: stats lanes {stats.get('lanes')} != 3")
+
     if sys.modules.get("torch") is not None:
         failures.append("the selfcheck imported torch")
     if failures:
@@ -173,7 +225,10 @@ def _preflight(args) -> int:
     if not findings and not args.json:
         print("serve: preflight ok (one capture a bucket, none in steady "
               "state, no implicit sync, captures fit the device, a swap "
-              "under load captures nothing and is never late)")
+              "under load captures nothing and is never late; stacked: one "
+              "capture a bucket at every lane count, a lane swap under load "
+              "captures nothing, is never late and leaves its siblings "
+              "bitwise)")
     return 1 if findings else 0
 
 
@@ -188,7 +243,7 @@ def main(argv: list[str] | None = None) -> int:
     p_check.set_defaults(fn=_selfcheck)
     p_pre = sub.add_parser(
         "preflight", help="predict-path audit on the card (SV301-SV304, "
-        "SV308)")
+        "SV307, SV308)")
     p_pre.add_argument("--device", default=None,
                        help="cpu to run on the CPU (default: the card)")
     p_pre.add_argument("--requests", type=int, default=12, metavar="N",

@@ -24,6 +24,16 @@ varied batch sizes and holds the serving contract:
   while a server carries steady load captures nothing new
   (``compile_events`` unchanged), resolves every request and delivers no
   answer late.
+- **SV307** (stacked serving, a 2-layer pair at H=8): a
+  ``StackedPredictEngine``'s ``warmup`` captures exactly one graph per
+  bucket at every lane count (R = 1, 2, 4) on the card (none on the CPU),
+  and each bucket's graph launches the replica-axis pair forward once
+  whatever R: the lane count is a data dimension, never a program one
+  (the JAX rule reads the compiled HLO for the same).
+- **SV308**, per lane: ``try_swap_lane`` on the last lane of the R = 4
+  stack, committed while a server carries steady load, captures nothing,
+  resolves every request, delivers no answer late, and leaves every
+  sibling lane's answers on the golden batch bitwise as they were.
 
 Not ported, each for its reason:
 
@@ -33,8 +43,6 @@ Not ported, each for its reason:
 - **SV306** (a fleet survives a replica's death): the fleet puts replicas
   on disjoint devices and one card holds one replica; it waits for the
   multi-device work.
-- **SV307** (stacked serving compiles one program per bucket whatever the
-  lane count): stacked lanes are not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ PREFLIGHT_LOOKBACK = 8
 PREFLIGHT_FEATURES = 3
 PREFLIGHT_BUCKETS = (1, 2, 4, 8)
 PREFLIGHT_REQUESTS = 12
+PREFLIGHT_LANES = (1, 2, 4)
 
 
 def _preflight_spec():
@@ -162,23 +171,25 @@ def _run(device, requests, facts: dict) -> list[Finding]:
             message="preflight predictions are non-finite on random inputs "
             "(engine wiring is broken)"))
     findings += _swap_under_load(engine, spec, facts)
+    findings += _stacked(engine.device, facts)
     return findings
 
 
-def _swap_under_load(engine, spec, facts: dict, duration_s: float = 0.5,
-                     gap_s: float = 0.002) -> list[Finding]:
-    """SV308 for one engine: commit a swap while a server carries steady
-    load."""
+def _under_load(engine, spec, state: dict, swap, duration_s: float = 0.5,
+                gap_s: float = 0.002) -> dict:
+    """``swap(swapper, ckpt_dir)`` on a published ``best`` of ``state``
+    while a server on ``engine`` carries steady load: the verdict, the
+    requests, how many did not resolve, the server's stats and the new
+    captures."""
     from masters_thesis_tpu_torch.serve.server import PredictServer
     from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
     from masters_thesis_tpu_torch.train.checkpoint import save_checkpoint
 
-    findings: list[Finding] = []
     k, t, f = engine.window_shape
     windows = np.random.default_rng(1).standard_normal(
         (16, k, t, f)).astype(np.float32)
     with tempfile.TemporaryDirectory() as tmp:
-        save_checkpoint(tmp, "best", _state(spec, 1), spec=spec,
+        save_checkpoint(tmp, "best", state, spec=spec,
                         meta={"epoch": 1,
                               "datamodule": {"lookback_window": t}})
         server = PredictServer(engine, max_wait_s=0.002)
@@ -200,7 +211,7 @@ def _swap_under_load(engine, spec, facts: dict, duration_s: float = 0.5,
         feeder.start()
         try:
             time.sleep(duration_s / 2)
-            verdict = swapper.try_swap(tmp, "best")
+            verdict = swap(swapper, tmp)
             time.sleep(duration_s / 2)
         finally:
             stop.set()
@@ -212,27 +223,117 @@ def _swap_under_load(engine, spec, facts: dict, duration_s: float = 0.5,
                 except TimeoutError:
                     unresolved += 1
             stats = server.stop()
-    delta = engine.compile_events - baseline
-    facts["swap"] = {"reason": verdict.reason, "requests": len(pendings),
-                     "unresolved": unresolved, "new_captures": delta,
-                     "late_deliveries": stats["late_deliveries"],
-                     "completed": stats["completed"]}
+    return {"verdict": verdict, "requests": len(pendings),
+            "unresolved": unresolved, "stats": stats,
+            "new_captures": engine.compile_events - baseline}
+
+
+def _load_findings(what: str, run: dict) -> list[Finding]:
+    """SV308's findings for one swap under load (``_under_load``)."""
+    findings = []
+    verdict, stats = run["verdict"], run["stats"]
     if not verdict.ok:
         findings.append(Finding(
             rule="SV308",
-            message=f"the swap under load was refused: {verdict.reason} "
+            message=f"the {what} under load was refused: {verdict.reason} "
             f"({verdict.detail})"))
-    if delta:
+    if run["new_captures"]:
         findings.append(Finding(
             rule="SV308",
-            message=f"a hot-swap under load captured {delta} new graph(s) — "
-            "a swap is an in-place copy into the captured tensors and must "
-            "never capture"))
-    if unresolved or stats["late_deliveries"]:
+            message=f"a {what} under load captured {run['new_captures']} new "
+            "graph(s) — a swap is an in-place copy into the captured tensors "
+            "and must never capture"))
+    if run["unresolved"] or stats["late_deliveries"]:
         findings.append(Finding(
             rule="SV308",
-            message=f"across the swap {unresolved} request(s) did not "
-            f"resolve and {stats['late_deliveries']} ok answer(s) came late "
-            f"(of {len(pendings)})"))
+            message=f"across the {what} {run['unresolved']} request(s) did "
+            f"not resolve and {stats['late_deliveries']} ok answer(s) came "
+            f"late (of {run['requests']})"))
     return findings
 
+
+def _swap_under_load(engine, spec, facts: dict) -> list[Finding]:
+    """SV308 for one engine: commit a swap while a server carries steady
+    load."""
+    run = _under_load(engine, spec, _state(spec, 1),
+                      lambda swapper, tmp: swapper.try_swap(tmp, "best"))
+    facts["swap"] = {"reason": run["verdict"].reason,
+                     "requests": run["requests"],
+                     "unresolved": run["unresolved"],
+                     "new_captures": run["new_captures"],
+                     "late_deliveries": run["stats"]["late_deliveries"],
+                     "completed": run["stats"]["completed"]}
+    return _load_findings("swap", run)
+
+
+def _stacked_spec():
+    from masters_thesis_tpu_torch.models.objectives import ModelSpec
+
+    return ModelSpec(objective="mse", hidden_size=8, num_layers=2,
+                     dropout=0.0)
+
+
+def _stacked(device, facts: dict) -> list[Finding]:
+    """SV307 over lane counts, then SV308 for one lane of the largest."""
+    from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
+
+    findings: list[Finding] = []
+    spec = _stacked_spec()
+    states = [_state(spec, seed) for seed in range(max(PREFLIGHT_LANES) + 1)]
+    facts["stacked"] = stacked = {}
+    engine = None
+    for lanes in PREFLIGHT_LANES:
+        engine = StackedPredictEngine(
+            spec, states[:lanes], n_stocks=PREFLIGHT_STOCKS,
+            lookback=PREFLIGHT_LOOKBACK, n_features=PREFLIGHT_FEATURES,
+            buckets=PREFLIGHT_BUCKETS, device=device)
+        engine.warmup()
+        on_card = engine.device.type == "cuda" and engine.graphed
+        launches = {b: dict(p.run.launches) for b, p in engine._programs.items()
+                    if p.captured}
+        stacked[f"R{lanes}"] = {"captures": engine.compile_events,
+                                "launches": launches}
+        want = len(engine.buckets) if on_card else 0
+        if engine.compile_events != want:
+            findings.append(Finding(
+                rule="SV307",
+                message=f"R={lanes}: warmup captured {engine.compile_events} "
+                f"graphs for {len(engine.buckets)} buckets (expected {want}: "
+                "the lane count must not multiply programs)"))
+        for b, counts in launches.items():
+            if counts != {"lstm_pair_fwd_stacked": 1}:
+                findings.append(Finding(
+                    rule="SV307",
+                    message=f"R={lanes}, bucket {b}: the graph launches "
+                    f"{counts} (expected one replica-axis pair forward for "
+                    "all lanes)"))
+    findings += _lane_swap_under_load(engine, spec, states[-1], facts)
+    return findings
+
+
+def _lane_swap_under_load(engine, spec, candidate: dict, facts: dict
+                          ) -> list[Finding]:
+    """SV308 for the last lane of a stacked engine: the swap under load,
+    and the sibling lanes' golden answers bitwise as they were."""
+    lane = engine.num_lanes - 1
+    golden = engine.golden_batch(2, seed=5)
+    before = engine.predict(golden)
+    run = _under_load(engine, spec, candidate,
+                      lambda swapper, tmp: swapper.try_swap_lane(lane, tmp,
+                                                                 "best"))
+    after = engine.predict(golden)
+    siblings = all(np.array_equal(before[i][:, r], after[i][:, r])
+                   for i in range(2) for r in range(engine.num_lanes)
+                   if r != lane)
+    facts["lane_swap"] = {"lane": lane, "reason": run["verdict"].reason,
+                          "requests": run["requests"],
+                          "unresolved": run["unresolved"],
+                          "new_captures": run["new_captures"],
+                          "late_deliveries": run["stats"]["late_deliveries"],
+                          "siblings_bitwise": siblings,
+                          "lanes": run["stats"]["lanes"]}
+    findings = _load_findings("lane swap", run)
+    if not siblings:
+        findings.append(Finding(
+            rule="SV308", message="a lane swap moved a sibling lane's answers"))
+    return findings

@@ -288,6 +288,7 @@ class PredictServer:
             }
         stats.update(
             tenants=self.queue.tenant_stats(),
+            lanes=getattr(self.engine, "num_lanes", 1),
             p50_ms=float(np.percentile(lat, 50) * 1e3) if lat.size else None,
             p99_ms=float(np.percentile(lat, 99) * 1e3) if lat.size else None,
             qps=stats["completed"] / span if span > 0 else 0.0,

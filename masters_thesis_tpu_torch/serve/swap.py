@@ -30,9 +30,19 @@ weights:
 
 The JAX package's model-quality gate is not ported: a candidate that ships
 ``quality.json`` is refused with reason ``quality_error`` (the port cannot
-score it yet) rather than swapped in unscored. Per-lane swaps of stacked
-engines are not ported. This module imports no torch at import: the
-serving selfcheck runs :func:`canary_checks` without it.
+score it yet) rather than swapped in unscored.
+
+:meth:`CheckpointSwapper.try_swap_lane` swaps ONE lane of a
+``StackedPredictEngine`` (``serve/stacked.py``) through the same gate
+(fault point, strict verification, restore, the lane's signature, the
+canary on that lane), plus the JAX package's sibling-isolation check: the
+staged stack's answers on every OTHER lane must be bitwise the serving
+stack's, through the same bucket program (``sibling_perturbed``
+otherwise: a staged lane that moves a sibling is a fault, never noise).
+The commit is ``StackedPredictEngine.set_lane``, a copy into the lane's
+captured tensors (event ``lane_swap_committed``, ``lane_swap_rejected``
+for a refusal). This module imports no torch at import: the serving
+selfcheck runs :func:`canary_checks` without it.
 """
 
 from __future__ import annotations
@@ -118,6 +128,8 @@ class CheckpointSwapper:
         self.max_drift = max_drift
         self.committed = 0
         self.rejected = 0
+        self.lane_committed = 0
+        self.lane_rejected = 0
         #: Seconds of each step of the last ``try_swap``, in order.
         self.step_seconds: dict[str, float] = {}
 
@@ -192,5 +204,98 @@ class CheckpointSwapper:
         lap("commit")
         self.committed += 1
         self._event("swap_committed", tag=tag, epoch=meta.get("epoch"),
+                    checks=verdict.checks)
+        return verdict
+
+    def try_swap_lane(self, lane: int, ckpt_dir, tag: str = "best"
+                      ) -> SwapVerdict:
+        """Verify and canary ``<ckpt_dir>/<tag>`` on lane ``lane`` of a
+        ``StackedPredictEngine``; commit it on that lane on a pass, with
+        every sibling lane's answers proven bitwise unchanged. Never raises
+        for a bad candidate."""
+        from masters_thesis_tpu_torch.serve.engine import state_signature
+        from masters_thesis_tpu_torch.train import checkpoint as ckpt
+        from masters_thesis_tpu_torch.train.manifest import verify_checkpoint
+
+        if not hasattr(self.engine, "stage_lane"):
+            raise TypeError("try_swap_lane needs a StackedPredictEngine; "
+                            f"{type(self.engine).__name__} has no lanes")
+        lane = int(lane)
+        ckpt_dir = Path(ckpt_dir)
+        path = ckpt_dir / tag
+        self.step_seconds = steps = {}
+        clock = [time.perf_counter()]
+
+        def lap(step: str) -> None:
+            now = time.perf_counter()
+            steps[step] = now - clock[0]
+            clock[0] = now
+
+        if faults.fire("serve.pre_swap", tag=tag) == "corrupt":
+            ckpt._corrupt_tree(path, seed=faults.corruption_seed())
+        lap("pre_swap")
+        if not verify_checkpoint(path, require_manifest=True):
+            return self._reject_lane(tag, lane, SwapVerdict(
+                False, "verify_failed",
+                f"strict manifest verification failed for {path} "
+                "(torn/corrupt tree, or no MANIFEST.json)"))
+        lap("verify")
+        try:
+            state, _, _, meta = ckpt.restore_checkpoint(ckpt_dir, tag)
+        except Exception as exc:  # noqa: BLE001 — any restore failure rejects
+            return self._reject_lane(tag, lane, SwapVerdict(
+                False, "restore_failed", f"{type(exc).__name__}: {exc}"))
+        lap("restore")
+        if state_signature(state) != state_signature(
+                self.engine.lane_params(lane)):
+            return self._reject_lane(tag, lane, SwapVerdict(
+                False, "shape_mismatch",
+                "candidate does not match the lane's serving weights (a "
+                "lane swap cannot change the architecture: the bucket "
+                "programs are shape-specialised)"))
+        try:
+            staged = self.engine.stage_lane(lane, state)
+        except Exception as exc:  # noqa: BLE001 — a staging failure rejects
+            return self._reject_lane(tag, lane, SwapVerdict(
+                False, "stage_failed", f"{type(exc).__name__}: {exc}"))
+        lap("signature")
+        cur_a, cur_b = self.engine.predict(self.golden_x)
+        stg_a, stg_b = self.engine.predict(self.golden_x, params=staged)
+        verdict = canary_checks(
+            (cur_a[:, lane, :], cur_b[:, lane, :]),
+            (stg_a[:, lane, :], stg_b[:, lane, :]),
+            max_abs=self.max_abs, max_drift=self.max_drift)
+        lap("canary")
+        if not verdict.ok:
+            return self._reject_lane(tag, lane, verdict)
+        siblings_clean = all(
+            np.array_equal(cur_a[:, r, :], stg_a[:, r, :])
+            and np.array_equal(cur_b[:, r, :], stg_b[:, r, :])
+            for r in range(self.engine.num_lanes) if r != lane)
+        verdict.checks["siblings_bitwise"] = siblings_clean
+        if not siblings_clean:
+            return self._reject_lane(tag, lane, SwapVerdict(
+                False, "sibling_perturbed",
+                "staging the candidate moved a SIBLING lane's answers "
+                "through the same bucket program: lane isolation is broken; "
+                "refusing to commit", verdict.checks))
+        if (path / FINGERPRINT_FILENAME).exists():
+            return self._reject_lane(tag, lane, SwapVerdict(
+                False, "quality_error",
+                f"candidate ships {FINGERPRINT_FILENAME}, which the port "
+                "cannot score yet (the quality gate is not ported); refused "
+                "rather than swapped in unscored", verdict.checks))
+        digest = self.engine.set_lane(lane, state, staged=staged)
+        lap("commit")
+        self.lane_committed += 1
+        self._event("lane_swap_committed", tag=tag, lane=lane, digest=digest,
+                    epoch=meta.get("epoch"), checks=verdict.checks)
+        return verdict
+
+    def _reject_lane(self, tag: str, lane: int, verdict: SwapVerdict
+                     ) -> SwapVerdict:
+        self.lane_rejected += 1
+        self._event("lane_swap_rejected", tag=tag, lane=lane,
+                    reason=verdict.reason, detail=verdict.detail,
                     checks=verdict.checks)
         return verdict

@@ -1,0 +1,374 @@
+"""Stacked-replica training: R independent runs in one graphed step.
+
+Counterpart of ``masters_thesis_tpu/train/stacked.py``. R replicas (grid
+cells that differ in learning rate and seed, or ensemble members) train as
+one program over ``[R, n]`` buffers (``StackedTrainProgram``,
+``StackedFlatAdam``): on the card one CUDA graph a step, the recurrence one
+replica-axis launch of each pair kernel. Replicas share the model
+architecture, the loss, the gradient clip and the weight decay (one
+program); the learning rate and the seed are each replica's own.
+
+What stays per replica, as in the JAX trainer:
+
+- the initial weights, drawn from the replica's seed exactly as a solo
+  ``Trainer`` with that seed draws them, and each epoch's shuffle and
+  dropout masks from a generator seeded by ``(seed, epoch)``, the solo
+  trainer's streams: replica r's run is the solo run of its seed and rate;
+- the learning rate (each replica's ``PlateauScheduler``), Adam moments and
+  count, metric sums, history rows and checkpoints (``<ckpt_dir>/<name>/``
+  ``best`` and ``last``, the solo trainer's crash-safe trees, each a solo
+  checkpoint that ``Trainer``, ``PredictEngine`` and the stacked engine
+  restore);
+- divergence: a replica whose epoch loss is not finite is rolled back to
+  the last fenced snapshot and retried at half its rate; past
+  ``max_replica_rollbacks`` it is masked (its row frozen, parameters,
+  moments and count) while its siblings train on untouched. The fault
+  point ``stacked.replica_loss`` (kind ``nan``) fakes such a loss.
+
+Where the port differs, each noted in ROADMAP queue 3: a masked row is
+frozen whatever its gradient holds (the JAX update ``p - 0 * u`` turns a
+non-finite ``u`` into NaN, and its moments and count move on); the first
+snapshot is the initial state, so an epoch-0 divergence rolls back too
+(the JAX trainer has no snapshot before its first fenced epoch); every
+epoch's sums are read as it ends (the JAX trainer defers the read of a
+non-validation epoch by one epoch); and ``last`` is saved at each
+validation as the solo trainer saves it, so a killed run resumes at its
+last common epoch. Resume takes every replica's ``last`` only when all
+are restorable at one epoch, and starts fresh otherwise.
+
+The telemetry run, the preflight trace audit and the mesh are not ported
+(ROADMAP queue 1 item 2 and item 3): ``telemetry`` and ``preflight`` are
+reported as ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+import warnings
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+from masters_thesis_tpu_torch import resolve_device
+from masters_thesis_tpu_torch.data.pipeline import FinancialWindowDataModule
+from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
+from masters_thesis_tpu_torch.models.objectives import ModelSpec
+from masters_thesis_tpu_torch.resilience import faults
+from masters_thesis_tpu_torch.train import checkpoint as ckpt_lib
+from masters_thesis_tpu_torch.train.flatparams import StackedFlatAdam
+from masters_thesis_tpu_torch.train.optim import PlateauScheduler
+from masters_thesis_tpu_torch.train.steps import (
+    EvalProgram,
+    StackedTrainProgram,
+    metric_means,
+    stacked_metric_means,
+)
+from masters_thesis_tpu_torch.train.trainer import (
+    EVAL_CHUNK,
+    datamodule_meta,
+    device_split,
+    epoch_seed,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaSpec:
+    """One replica riding the stack: its name and free hyperparameters."""
+
+    name: str
+    seed: int
+    learning_rate: float
+
+
+@dataclasses.dataclass
+class ReplicaResult:
+    name: str
+    state: dict  # the replica's final encoder state dict (CPU tensors)
+    opt_state: dict  # its solo FlatAdam state
+    best_val_loss: float
+    history: list
+    status: str  # active | recovering | masked
+    rollbacks: int
+
+
+@dataclasses.dataclass
+class StackedResult:
+    replicas: list
+    steps_per_sec: float  # program steps a second, first epoch excluded
+    epochs: int
+
+    @property
+    def replica_steps_per_sec(self) -> float:
+        return self.steps_per_sec * len(self.replicas)
+
+
+class StackedTrainer:
+    """Drive one stacked training program over R replicas: scan epochs on
+    the device-resident train split, ``StackedFlatAdam``, no stream path
+    (as narrow as the JAX class)."""
+
+    def __init__(
+        self,
+        max_epochs: int,
+        gradient_clip_val: float | None = None,
+        check_val_every_n_epoch: int = 1,
+        ckpt_dir: str | Path | None = None,
+        device=None,
+        resume: bool | str = False,
+        enable_progress_bar: bool = False,
+        max_replica_rollbacks: int = 1,
+        cuda_graphs: bool = True,
+        telemetry=None,
+        preflight: bool = False,
+    ):
+        self.max_epochs = max_epochs
+        self.gradient_clip_val = gradient_clip_val
+        self.check_val_every_n_epoch = max(1, int(check_val_every_n_epoch))
+        self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
+        self.device = resolve_device(device)
+        if isinstance(resume, str):
+            resume = resume.lower() in ("true", "auto", "1", "yes")
+        self.resume = resume
+        self.enable_progress_bar = enable_progress_bar
+        #: Divergences a replica survives (each a rollback and a halved
+        #: rate) before it is masked.
+        self.max_replica_rollbacks = max(0, int(max_replica_rollbacks))
+        self.graphed = cuda_graphs and self.device.type == "cuda"
+        for name, value in (("telemetry", telemetry), ("preflight", preflight)):
+            if value:
+                print(f"note: StackedTrainer {name}={value} only turns on "
+                      "observation, which masters_thesis_tpu_torch does not "
+                      "have; ignored", flush=True)
+
+    def build(self, spec: ModelSpec, replicas: Sequence[ReplicaSpec]
+              ) -> StackedLstmEncoder:
+        """The stacked encoder, replica r drawn from its own seed as
+        ``Trainer.build`` draws a solo run's weights."""
+        return StackedLstmEncoder([
+            spec.build_module(device=self.device,
+                              generator=torch.Generator().manual_seed(rep.seed))
+            for rep in replicas])
+
+    def fit(self, spec: ModelSpec, dm: FinancialWindowDataModule,
+            replicas: Sequence[ReplicaSpec]) -> StackedResult:
+        if not replicas:
+            raise ValueError("a stacked fit needs at least one ReplicaSpec")
+        names = [r.name for r in replicas]
+        if len(set(names)) != len(names):
+            raise ValueError(f"replica names must be unique: {names}")
+        n_rep = len(replicas)
+        dm.prepare_data()
+        dm.setup("fit")
+        module = self.build(spec, replicas)
+        optimizer = StackedFlatAdam(module.replicas, self.gradient_clip_val,
+                                    spec.weight_decay)
+        schedulers = [PlateauScheduler(rep.learning_rate) for rep in replicas]
+        best_vals = [math.inf] * n_rep
+        start_epoch = self._try_resume(replicas, module, optimizer,
+                                       schedulers, best_vals)
+        objective = spec.window_objective()
+        train = device_split(dm.train_arrays(), self.device)
+        val = device_split(dm.val_arrays(), self.device)
+        n_stocks, n_t = train.x.shape[1:3]
+        # Refuse a grouping this slice does not stack before any work.
+        module.check_groups(n_t, dm.batch_size * n_stocks, spec.dropout > 0,
+                            n_stocks)
+        has_val = val.x.shape[0] > 0
+        if not has_val:
+            warnings.warn("val split is empty — LR plateau scheduling is "
+                          "inactive and 'best' is the final checkpoint")
+        # One generator a replica for the run, re-seeded each epoch: the
+        # step's graph holds their states.
+        generators = [torch.Generator(device=self.device) for _ in replicas]
+        program = StackedTrainProgram(module, optimizer, objective, train,
+                                      dm.batch_size, generators, self.graphed)
+        validations = ([EvalProgram(enc, objective, val, EVAL_CHUNK,
+                                    self.graphed) for enc in module.replicas]
+                       if has_val else [])
+        statuses = ["active"] * n_rep
+        rollbacks = [0] * n_rep
+        histories: list[list[dict]] = [[] for _ in replicas]
+        # Fenced snapshots: the state as the run starts, then after each
+        # validated epoch (and the first), every replica's row clean.
+        last_good = optimizer.snapshot()
+        steady_steps, steady_s = 0, 0.0
+        all_masked = False
+        for epoch in range(start_epoch, self.max_epochs):
+            for generator, rep in zip(generators, replicas):
+                generator.manual_seed(epoch_seed(rep.seed, epoch))
+            lrs = [0.0 if s == "masked" else sch.lr
+                   for s, sch in zip(statuses, schedulers)]
+            optimizer.set_active([s != "masked" for s in statuses])
+            t0 = time.perf_counter()
+            sums, n_steps = program.epoch(lrs)
+            means = stacked_metric_means(sums, n_rep)  # one device read
+            elapsed = time.perf_counter() - t0
+            if epoch > start_epoch or self.max_epochs - start_epoch == 1:
+                steady_steps += n_steps
+                steady_s += elapsed
+            rows = []
+            for r, rep in enumerate(replicas):
+                row = {"epoch": epoch, "lr-Adam": lrs[r]}
+                row.update({f"loss/{k}/train": v for k, v in means[r].items()})
+                rows.append(row)
+            all_masked = self._readback(epoch, rows, replicas, statuses,
+                                        rollbacks, schedulers, optimizer,
+                                        last_good)
+            if not all_masked:
+                is_val = has_val and (epoch + 1) % self.check_val_every_n_epoch == 0
+                if is_val or epoch == start_epoch:
+                    last_good = optimizer.snapshot()
+                if is_val:
+                    self._validate(epoch, rows, module, optimizer, replicas,
+                                   statuses, rollbacks, schedulers, best_vals,
+                                   validations, dm, spec)
+            for r, row in enumerate(rows):
+                histories[r].append(row)
+                self._print(f"epoch {epoch:4d} | {replicas[r].name} "
+                            f"[{statuses[r]}] | " + " | ".join(
+                                f"{k.split('/')[1]}/{k.split('/')[2]} {v:.5g}"
+                                for k, v in row.items() if k.startswith("loss/")))
+            if all_masked:
+                break
+        results = []
+        for r, rep in enumerate(replicas):
+            if not has_val and histories[r] and statuses[r] != "masked":
+                best_vals[r] = histories[r][-1]["loss/total/train"]
+                self._save(rep, "best", module, optimizer, r, schedulers[r],
+                           self.max_epochs - 1, best_vals[r], statuses[r],
+                           rollbacks[r], dm, spec)
+            self._save(rep, "last", module, optimizer, r, schedulers[r],
+                       self.max_epochs - 1, best_vals[r], statuses[r],
+                       rollbacks[r], dm, spec)
+            results.append(ReplicaResult(
+                name=rep.name,
+                state={k: v.detach().cpu().clone()
+                       for k, v in module.replicas[r].state_dict().items()},
+                opt_state=optimizer.replica_state_dict(r),
+                best_val_loss=best_vals[r],
+                history=histories[r],
+                status=statuses[r],
+                rollbacks=rollbacks[r],
+            ))
+        steps_per_sec = steady_steps / steady_s if steady_s > 0 else 0.0
+        return StackedResult(
+            replicas=results,
+            steps_per_sec=steps_per_sec,
+            epochs=self.max_epochs - start_epoch,
+        )
+
+    # ------------------------------------------------------------ helpers
+
+    def _readback(self, epoch, rows, replicas, statuses, rollbacks,
+                  schedulers, optimizer, last_good) -> bool:
+        """Each replica's divergence check on its epoch row; True when no
+        replica is left. A non-finite replica's row of the stack goes back
+        to ``last_good`` and its rate halves, or, past the rollback budget,
+        it is masked; its siblings' rows are not touched."""
+        for r, row in enumerate(rows):
+            if statuses[r] == "masked":
+                continue
+            if faults.fire("stacked.replica_loss", epoch=epoch,
+                           replica=r) == "nan":
+                row["loss/total/train"] = float("nan")
+            if math.isfinite(row.get("loss/total/train", math.nan)):
+                if statuses[r] == "recovering":
+                    self._status(replicas, statuses, rollbacks, r, "active",
+                                 epoch, "finite loss again")
+                continue
+            rollbacks[r] += 1
+            optimizer.restore_row(r, last_good)
+            if rollbacks[r] > self.max_replica_rollbacks:
+                self._status(replicas, statuses, rollbacks, r, "masked",
+                             epoch, "rollback budget exhausted; frozen at "
+                             "its last good state")
+            else:
+                schedulers[r].lr *= 0.5
+                self._status(replicas, statuses, rollbacks, r, "recovering",
+                             epoch, "non-finite loss; rolled back, lr "
+                             f"halved to {schedulers[r].lr:.3g}")
+        return all(s == "masked" for s in statuses)
+
+    def _status(self, replicas, statuses, rollbacks, r, status, epoch,
+                reason) -> None:
+        statuses[r] = status
+        self._print(f"epoch {epoch}: replica {replicas[r].name!r} -> "
+                    f"{status} ({reason}; rollbacks {rollbacks[r]})")
+
+    def _validate(self, epoch, rows, module, optimizer, replicas, statuses,
+                  rollbacks, schedulers, best_vals, validations, dm,
+                  spec) -> None:
+        """Each unmasked replica's val split through its own eval program:
+        its scheduler steps, ``best`` when it improves, ``last``."""
+        for r, rep in enumerate(replicas):
+            if statuses[r] == "masked":
+                continue
+            val_metrics = metric_means(validations[r].run())
+            rows[r].update({f"loss/{k}/val": v for k, v in val_metrics.items()})
+            val_loss = val_metrics["total"]
+            rows[r]["lr-Adam"] = schedulers[r].step(val_loss)
+            if val_loss < best_vals[r]:
+                best_vals[r] = val_loss
+                self._save(rep, "best", module, optimizer, r, schedulers[r],
+                           epoch, best_vals[r], statuses[r], rollbacks[r], dm,
+                           spec)
+            self._save(rep, "last", module, optimizer, r, schedulers[r], epoch,
+                       best_vals[r], statuses[r], rollbacks[r], dm, spec)
+
+    def replica_dir(self, rep: ReplicaSpec) -> Path:
+        return self.ckpt_dir / rep.name
+
+    def _try_resume(self, replicas, module, optimizer, schedulers,
+                    best_vals) -> int:
+        """The epoch to start at: every replica's ``last`` restored in place
+        when all are restorable at one epoch (then that epoch + 1), else 0
+        and nothing restored."""
+        if not (self.resume and self.ckpt_dir):
+            return 0
+        if not all(ckpt_lib.checkpoint_restorable(self.replica_dir(rep), "last")
+                   for rep in replicas):
+            return 0
+        restored = [ckpt_lib.restore_checkpoint(self.replica_dir(rep), "last")
+                    for rep in replicas]
+        epochs = {int(meta.get("epoch", -1)) for _, _, _, meta in restored}
+        if len(epochs) != 1:
+            self._print(f"resume skipped: replica checkpoints at mixed epochs "
+                        f"{sorted(epochs)}; starting fresh")
+            return 0
+        for r, (state, opt_state, _, meta) in enumerate(restored):
+            module.replicas[r].load_state_dict(state)
+            optimizer.load_replica_state_dict(r, opt_state)
+            if meta.get("scheduler"):
+                schedulers[r].load_state_dict(meta["scheduler"])
+            if meta.get("best_val") is not None:
+                best_vals[r] = float(meta["best_val"])
+        start = epochs.pop() + 1
+        self._print(f"resuming all {len(replicas)} replicas at epoch {start}")
+        return start
+
+    def _save(self, rep, tag, module, optimizer, r, scheduler, epoch,
+              best_val, status, rollbacks, dm, spec) -> None:
+        if not self.ckpt_dir:
+            return
+        ckpt_lib.save_checkpoint(
+            self.replica_dir(rep), tag, module.replicas[r].state_dict(),
+            optimizer.replica_state_dict(r), scheduler.state_dict(),
+            meta={
+                "epoch": epoch,
+                "val_loss": float(best_val),
+                "best_val": float(best_val) if math.isfinite(best_val) else None,
+                "trainer": "stacked",
+                "replica": dataclasses.asdict(rep),
+                "replica_status": status,
+                "rollbacks": rollbacks,
+                "datamodule": datamodule_meta(dm),
+            },
+            spec=spec,
+        )
+
+    def _print(self, msg: str) -> None:
+        if self.enable_progress_bar:
+            print(msg, flush=True)

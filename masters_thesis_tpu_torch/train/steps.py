@@ -15,8 +15,11 @@ epoch's shuffle is drawn there, and the host reads the sums once per epoch.
 The stream epoch's step (``StreamProgram``, the counterpart of
 ``make_train_step(weighted=True)``) reads instead a host batch that the
 prefetcher has put on the device, padded to the batch shape with
-zero-weight windows (``weighted_batches``). The mesh, the pmean and the
-stacked replicas are not ported (single device).
+zero-weight windows (``weighted_batches``). ``StackedTrainProgram`` is
+the counterpart of ``make_stacked_train_epoch``: R replicas' steps as one
+program over ``[R, n]`` buffers, each replica with its own shuffle and
+dropout stream, the recurrence one replica-axis launch. The mesh and the
+pmean are not ported (single device).
 """
 
 from __future__ import annotations
@@ -53,6 +56,21 @@ def forward_rows(module, x: torch.Tensor, *, deterministic: bool = True,
                          deterministic=deterministic, generator=generator,
                          masks=masks, window_rows=k)
     return alpha.reshape(b, k, 1), beta.reshape(b, k, -1)
+
+
+def forward_rows_stacked(module, x: torch.Tensor, *,
+                         deterministic: bool = True, generators=None,
+                         masks=None):
+    """``forward_rows`` for a ``StackedLstmEncoder``: ``x (R, B, K, T, F)``
+    (replica r's windows in row r) or ``(B, K, T, F)`` (shared) ->
+    ``alpha (R, B, K, 1)`` and ``beta (R, B, K, n_factors)``, replica r's
+    as ``forward_rows`` of its solo encoder gives them."""
+    b, k = x.shape[-4:-2]
+    rows = x.reshape(*x.shape[:-4], b * k, *x.shape[-2:])
+    alpha, beta = module(rows, deterministic=deterministic,
+                         generators=generators, masks=masks, window_rows=k)
+    n_rep = alpha.shape[0]
+    return alpha.reshape(n_rep, b, k, 1), beta.reshape(n_rep, b, k, -1)
 
 
 def _add_into(sums: dict | None, new: dict) -> dict:
@@ -256,6 +274,98 @@ class StreamProgram:
             self.step(batch, weights)
             n_steps += 1
         return _copies(self.sums), n_steps
+
+
+class StackedTrainProgram:
+    """The training step of R replicas over static buffers, for every epoch
+    of a stacked run: the counterpart of ``make_stacked_train_epoch``.
+
+    Replica r reads row ``cursor`` of ``order[r]`` (its own epoch shuffle,
+    drawn from ``generators[r]``), gathers its windows from the shared
+    device-resident ``data``, and runs the solo step's forward and loss
+    with its dropout masks drawn from ``generators[r]``; one backward takes
+    every replica's gradient (each loss enters with weight one, as a solo
+    ``backward`` does), the ``StackedFlatAdam`` step updates every active
+    row at its rate, and each replica's metric sums go into ``sums`` as
+    ``[R]`` vectors. With ``graphed`` (the card) the step is one CUDA
+    graph that registers all R generators.
+    """
+
+    def __init__(self, module, optimizer, window_objective, data: Batch,
+                 batch_size: int, generators, graphed: bool = False):
+        self.module = module
+        self.optimizer = optimizer
+        self.data = data
+        self.batch_size = batch_size
+        self.generators = list(generators)
+        self.loss_fn = batched_objective(window_objective)
+        device = data.x.device
+        self.n_steps = data.x.shape[0] // batch_size
+        #: Each replica's epoch shuffle, one row of window indices a step.
+        self.order = torch.zeros((module.num_replicas, self.n_steps,
+                                  batch_size), dtype=torch.int64,
+                                 device=device)
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        #: The epoch's metric sums, ``[R]`` each, made by the first step.
+        self.sums: dict | None = None
+        self.step = (GraphedCall(self._step, device=device,
+                                 name="stacked train step",
+                                 generator=self.generators)
+                     if graphed else self._step)
+
+    def _step(self) -> None:
+        batches = []
+        for table in self.order:
+            idx = table.index_select(0, self.cursor).view(-1)
+            batches.append(Batch(*(a.index_select(0, idx) for a in self.data)))
+        self.cursor.add_(1)
+        alpha, beta = forward_rows_stacked(
+            self.module, torch.stack([b.x for b in batches]),
+            deterministic=False, generators=self.generators)
+        losses, step_sums = [], []
+        for r, batch in enumerate(batches):
+            loss, sums = self.loss_fn(alpha[r], beta[r], batch.y,
+                                      batch.factor, batch.inv_psi)
+            losses.append(loss)
+            step_sums.append(sums)
+        self.optimizer.zero_grad()
+        torch.stack(losses).sum().backward()
+        self.optimizer.step()
+        self.sums = _add_into(self.sums, {
+            k: (torch.stack([s[k][0].detach() for s in step_sums]),
+                torch.stack([s[k][1].detach() for s in step_sums]))
+            for k in step_sums[0]})
+
+    def epoch(self, lrs) -> tuple[dict | None, int]:
+        """One epoch, replica r at ``lrs[r]``: ``begin_epoch``, then
+        ``n // batch_size`` steps. Returns the ``[R]`` metric sums, still on
+        the device, and the number of steps."""
+        self.begin_epoch(lrs)
+        for _ in range(self.n_steps):
+            self.step()
+        return _copies(self.sums), self.n_steps
+
+    def begin_epoch(self, lrs) -> None:
+        """Set the rates; draw each replica's shuffle (``torch.randperm``
+        from its generator, as the solo program draws it) into its row of
+        ``order``; reset the cursor and the sums."""
+        self.optimizer.set_lr(lrs)
+        n = self.data.x.shape[0]
+        for table, generator in zip(self.order, self.generators):
+            perm = torch.randperm(n, generator=generator, device=table.device)
+            table.copy_(perm[: self.n_steps * self.batch_size]
+                        .view(-1, self.batch_size))
+        self.cursor.zero_()
+        _zero(self.sums)
+        self.module.train()
+
+
+def stacked_metric_means(sums: dict, replicas: int) -> list[dict]:
+    """Host side: each replica's means from ``[R]`` (value, weight) sums.
+    One device read."""
+    host = {k: torch.stack([v, w]).double().cpu() for k, (v, w) in sums.items()}
+    return [{k: float(vw[0, r]) / max(float(vw[1, r]), 1e-30)
+             for k, vw in host.items()} for r in range(replicas)]
 
 
 def train_epoch(module, optimizer, window_objective, data: Batch,

@@ -32,8 +32,8 @@ and dropout masks come from a generator seeded by ``(seed, epoch)``, the
 counterpart of ``jax.random.fold_in(dropout_rng, epoch)``: a resumed run
 draws what an unbroken one draws. The fault points
 ``trainer.epoch_dispatched`` and ``trainer.loss`` fire as in the JAX
-trainer. Telemetry, the profiler window, preflight, bf16, multi-device and
-stacked training are not ported.
+trainer. Telemetry, the profiler window, preflight, bf16 and multi-device
+are not ported; stacked replicas are ``train/stacked.py``'s.
 """
 
 from __future__ import annotations
@@ -325,14 +325,20 @@ class Trainer:
                 "epoch": epoch,
                 "val_loss": float(val_loss),
                 "best_val": float(best_val),
-                "datamodule": {
-                    "lookback_window": dm.lookback_window,
-                    "target_window": dm.target_window,
-                    "stride": dm.stride,
-                    "prediction_task": dm.prediction_task,
-                    "interaction_only": dm.interaction_only,
-                    "batch_size": dm.batch_size,
-                },
+                "datamodule": datamodule_meta(dm),
             },
             spec=spec,
         )
+
+
+def datamodule_meta(dm) -> dict:
+    """The window keys a checkpoint's sidecar records (``test`` and the
+    engines size themselves from them)."""
+    return {
+        "lookback_window": dm.lookback_window,
+        "target_window": dm.target_window,
+        "stride": dm.stride,
+        "prediction_task": dm.prediction_task,
+        "interaction_only": dm.interaction_only,
+        "batch_size": dm.batch_size,
+    }

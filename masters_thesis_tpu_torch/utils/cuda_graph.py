@@ -26,7 +26,7 @@ Importing this module touches no CUDA state.
 from __future__ import annotations
 
 import gc
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -40,9 +40,10 @@ class CaptureError(RuntimeError):
 class GraphedCall:
     """``body`` as one replayed CUDA graph on ``device``.
 
-    ``generator`` is a CUDA generator ``body`` draws from: the graph
-    registers its state, so each replay draws from where the generator
-    stands, as an eager call would, and advances it as far.
+    ``generator`` is a CUDA generator ``body`` draws from, or a sequence
+    of them (a stacked step's, one a replica): the graph registers each
+    one's state, so each replay draws from where every generator stands,
+    as an eager call would, and advances each as far.
     ``capture_error_mode`` is ``torch.cuda.graph``'s: "global" also
     refuses unsafe CUDA calls from other threads (the autograd engine's
     included), "thread_local" only from the capturing thread (for a server
@@ -50,12 +51,18 @@ class GraphedCall:
     """
 
     def __init__(self, body: Callable[[], None], *, device, name: str,
-                 generator: torch.Generator | None = None,
+                 generator: torch.Generator | Sequence[torch.Generator]
+                 | None = None,
                  capture_error_mode: str = "global"):
         self.body = body
         self.device = torch.device(device)
         self.name = name
-        self.generator = generator
+        if generator is None:
+            self.generators: tuple = ()
+        elif isinstance(generator, torch.Generator):
+            self.generators = (generator,)
+        else:
+            self.generators = tuple(generator)
         self.capture_error_mode = capture_error_mode
         self.graph = None
         #: Kernel launches in one run of ``body`` (the capture's counts).
@@ -99,8 +106,8 @@ class GraphedCall:
 
     def _record(self, stream):
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         failed = []
         # The cyclic collector stays off during the capture. A program and
         # its GraphedCall refer to each other, so a dead program's graph is

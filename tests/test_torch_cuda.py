@@ -280,6 +280,10 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
         "lstm_stack_bwd": 0,
         "lstm_tb_fwd": 0,
         "lstm_tb_bwd": 0,
+        "lstm_pair_fwd_stacked": 0,
+        "lstm_pair_fwd_masked_stacked": 0,
+        "lstm_pair_bwd_stacked": 0,
+        "lstm_wgrad_stacked": 0,
     }
     ref = [t.clone().requires_grad_(True) for t in base]
     plain = lk.lstm_pair_ref(*ref, mask)
@@ -1308,3 +1312,236 @@ def test_graphed_kfactor_fit_equals_eager_fit(cuda_device, tmp_path):
     for name, value in runs[False].state.items():
         assert torch.equal(runs[True].state[name], value), name
     assert tests[True] == tests[False]
+
+
+# ------------------------------------------------------ the replica axis
+
+
+def _stacked_case(seed, replicas, rows, hidden, n_t=12, device="cuda"):
+    """R replicas' pair operands, each replica its own draw, stacked on a
+    leading axis, with a mask and a cotangent each."""
+    cases = [_case(seed + r, rows, hidden, n_t=n_t, device=device)
+             for r in range(replicas)]
+    extras = [_mask_and_cotangent(seed + 50 + r, n_t, rows, hidden, device)
+              for r in range(replicas)]
+    stacked = [torch.stack(parts) for parts in zip(*cases)]
+    mask = torch.stack([m for m, _ in extras])
+    dh = torch.stack([d for _, d in extras])
+    return stacked, mask, dh
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rows,hidden", [(100, 64), (37, 64), (9, 5)])
+@pytest.mark.parametrize("replicas", [1, 2, 3, 8])
+def test_replica_axis_kernels_match_plain_and_solo(cuda_device, replicas,
+                                                   rows, hidden, masked):
+    """The replica-axis pair forward (with and without its stashes), sweep
+    and weight-gradient pass: within their tolerance of the plain versions
+    (2e-5 abs; 2e-5 of the largest entry for the sweep's and the pass's
+    sums), and each replica's slice bit for bit the solo kernel's on that
+    replica's slices."""
+    (x, w1, wi2, b2, w2), mask, dh = _stacked_case(rows, replicas, rows,
+                                                   hidden, device=cuda_device)
+    mask = mask if masked else None
+    before = dict(lk.LAUNCHES)
+    h2s = lk.lstm_pair_fwd_stacked_cuda(x, w1, wi2, b2, w2, mask)
+    stash = lk.lstm_pair_fwd_stacked_cuda(x, w1, wi2, b2, w2, mask, stash=True)
+    want = lk.lstm_pair_stacked_ref(x, w1, wi2, b2, w2, mask, return_stash=True)
+    for g, w in zip((h2s,) + stash, (want[0],) + want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+    _, h1s, c1s, c2s = want
+    args = (dh, x, mask, h1s, c1s, want[0], c2s, w1, wi2, b2, w2)
+    dx1, d_pre2 = lk.lstm_pair_bwd_stacked_cuda(*args)
+    for g, w in zip((dx1, d_pre2), lk.lstm_pair_bwd_stacked_ref(*args)):
+        _close_rel(g, w)
+    grads = lk.lstm_pair_wgrad_stacked(dx1, d_pre2, h1s, want[0], mask)
+    for g, w in zip(grads, lk.lstm_pair_wgrad_stacked_ref(dx1, d_pre2, h1s,
+                                                          want[0], mask)):
+        _close_rel(g, w)
+    torch.cuda.synchronize()
+    name = "lstm_pair_fwd_masked_stacked" if masked else "lstm_pair_fwd_stacked"
+    assert lk.LAUNCHES[name] == before[name] + 2
+    assert lk.LAUNCHES["lstm_pair_bwd_stacked"] == before["lstm_pair_bwd_stacked"] + 1
+    assert lk.LAUNCHES["lstm_wgrad_stacked"] == before["lstm_wgrad_stacked"] + 1
+    for r in range(replicas):
+        m = None if mask is None else mask[r]
+        solo = lk.lstm_pair_fwd_cuda(x[r], w1[r], wi2[r], b2[r], w2[r], m,
+                                     stash=True)
+        for got, one in zip(stash, solo):
+            assert torch.equal(got[r], one)
+        assert torch.equal(h2s[r], lk.lstm_pair_fwd_cuda(x[r], w1[r], wi2[r],
+                                                         b2[r], w2[r], m))
+        solo_bwd = lk.lstm_pair_bwd_cuda(dh[r], x[r], m, h1s[r], c1s[r],
+                                         want[0][r], c2s[r], w1[r], wi2[r],
+                                         b2[r], w2[r])
+        assert torch.equal(dx1[r], solo_bwd[0]) and torch.equal(d_pre2[r], solo_bwd[1])
+        solo_grads = lk.lstm_pair_wgrad(dx1[r], d_pre2[r], h1s[r], want[0][r], m)
+        for got, one in zip(grads, solo_grads):
+            assert torch.equal(got[r], one)
+
+
+@pytest.mark.parametrize("rows", [1, 9, 100, 803])
+def test_a_row_is_bit_equal_at_one_and_two_row_tiles(cuda_device, rows):
+    """The pair forward (maskless; masked with stashes) and the sweep at a
+    named row tile of 1 and of 2 rows: bit for bit the same, so replicas
+    whose solo tile is 1 row may run 2-row tiles (lstm_sweep.cuh
+    sweep_rows; 4- and 8-row solo tiles are kept: the rows' bits part
+    there)."""
+    (x, w1, wi2, b2, w2), mask, dh = _stacked_case(rows, 2, rows, 64, n_t=20,
+                                                   device=cuda_device)
+    outs = {}
+    for tile in (1, 2):
+        fwd = lk.lstm_pair_fwd_stacked_cuda(x, w1, wi2, b2, w2, tile=tile)
+        stash = lk.lstm_pair_fwd_stacked_cuda(x, w1, wi2, b2, w2, mask,
+                                              stash=True, tile=tile)
+        bwd = lk.lstm_pair_bwd_stacked_cuda(dh, x, mask, stash[1], stash[2],
+                                            stash[0], stash[3], w1, wi2, b2,
+                                            w2, tile=tile)
+        outs[tile] = (fwd,) + stash + bwd
+    for a, b in zip(outs[1], outs[2]):
+        assert torch.equal(a, b)
+    assert lk.lstm_sweep_tile_cuda(100, 1) == 1
+    assert lk.lstm_sweep_tile_cuda(100, 8) == 2
+    assert lk.lstm_sweep_tile_cuda(37, 3) == 1
+    assert lk.lstm_sweep_tile_cuda(400, 4) == 4
+    assert lk.lstm_sweep_tile_cuda(800, 8) == 8
+
+
+def test_stacked_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    (x, w1, wi2, b2, w2), mask, dh = _stacked_case(0, 2, 9, 8,
+                                                   device=cuda_device)
+    with pytest.raises(ValueError, match="R, T, B, 4H"):
+        lk.lstm_pair_fwd_stacked_cuda(x[0], w1, wi2, b2, w2)
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_pair_fwd_stacked_cuda(x, w1[:1], wi2, b2, w2)
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_pair_fwd_stacked_cuda(x, w1, wi2, b2, w2, mask[:1])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lk.lstm_pair_fwd_stacked_cuda(x, w1, wi2, b2, w2, tile=3)
+
+
+def _stacked_fit(dm, device, graphs=True, epochs=2):
+    from masters_thesis_tpu_torch.train.stacked import ReplicaSpec, StackedTrainer
+
+    spec = ModelSpec(objective="combined", hidden_size=16, num_layers=2,
+                     dropout=0.3, learning_rate=1e-3)
+    trainer = StackedTrainer(max_epochs=epochs, gradient_clip_val=5.0,
+                             device=device, cuda_graphs=graphs)
+    replicas = [ReplicaSpec(f"s{s}", s, lr)
+                for s, lr in zip((0, 1, 2), (1e-2, 5e-3, 2e-2))]
+    return spec, replicas, trainer.fit(spec, dm, replicas)
+
+
+def test_graphed_stacked_fit_equals_eager_and_each_solo_run(cuda_device,
+                                                            tmp_path):
+    """A graphed stacked fit (3 replicas, dropout 0.3, 2 epochs) against
+    the same fit eager, and each replica against the graphed solo
+    Trainer.fit of its seed and rate: weights, moments and history bit for
+    bit; the stacked kernels launched once a step for all replicas."""
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    dm = _toy_datamodule(tmp_path)
+    runs, launches = {}, {}
+    for graphs in (True, False):
+        lk.reset_launch_counts()
+        spec, replicas, runs[graphs] = _stacked_fit(dm, cuda_device, graphs)
+        launches[graphs] = dict(lk.LAUNCHES)
+    assert launches[True] == launches[False]
+    steps = 2 * len(dm.train_range)
+    assert launches[True]["lstm_pair_fwd_masked_stacked"] == steps
+    assert launches[True]["lstm_pair_bwd_stacked"] == steps
+    assert launches[True]["lstm_wgrad_stacked"] == steps
+    assert launches[True]["lstm_pair_fwd_masked"] == 0
+    for got, want in zip(runs[True].replicas, runs[False].replicas):
+        assert got.history == want.history
+        for name, value in want.state.items():
+            assert torch.equal(got.state[name], value), name
+    for rep, got in zip(replicas, runs[True].replicas):
+        solo = Trainer(max_epochs=2, gradient_clip_val=5.0, seed=rep.seed,
+                       device=cuda_device).fit(
+            dataclasses_replace(spec, learning_rate=rep.learning_rate), dm)
+        assert got.history == solo.history
+        for name, value in solo.state.items():
+            assert torch.equal(got.state[name], value), name
+        for key in ("mu", "nu"):
+            assert torch.equal(got.opt_state[key], solo.opt_state[key])
+
+
+def dataclasses_replace(obj, **kw):
+    import dataclasses
+
+    return dataclasses.replace(obj, **kw)
+
+
+def test_stacked_steps_do_not_synchronise(cuda_device, tmp_path):
+    """Graphed stacked steps, after their capture, under the
+    synchronisation check set to raise."""
+    from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
+    from masters_thesis_tpu_torch.train.flatparams import StackedFlatAdam
+    from masters_thesis_tpu_torch.train.steps import StackedTrainProgram
+    from masters_thesis_tpu_torch.train.trainer import device_split
+
+    dm = _toy_datamodule(tmp_path)
+    dm.prepare_data()
+    dm.setup("fit")
+    spec = ModelSpec(objective="mse", hidden_size=16, num_layers=2,
+                     dropout=0.3)
+    module = StackedLstmEncoder([
+        spec.build_module(device=cuda_device,
+                          generator=torch.Generator().manual_seed(s))
+        for s in range(3)])
+    gens = [torch.Generator(device=cuda_device).manual_seed(s) for s in range(3)]
+    program = StackedTrainProgram(
+        module, StackedFlatAdam(module.replicas, 5.0, 1e-5),
+        spec.window_objective(), device_split(dm.train_arrays(), cuda_device),
+        1, gens, graphed=True)
+    program.begin_epoch([1e-3] * 3)
+    program.step()  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            program.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert program.step.launches["lstm_pair_fwd_masked_stacked"] == 1
+
+
+def test_stacked_engine_lanes_equal_solo_engines_on_the_card(cuda_device):
+    """Each lane of a graphed StackedPredictEngine bit for bit a graphed
+    solo PredictEngine on its weights, every bucket and padded; one
+    capture a bucket; a set_lane captures nothing and moves one lane."""
+    from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
+
+    spec = ModelSpec(objective="mse", hidden_size=64, num_layers=2,
+                     dropout=0.0)
+    states = [spec.build_module(device="cpu",
+                                generator=torch.Generator().manual_seed(s)
+                                ).state_dict() for s in range(4)]
+    kw = dict(n_stocks=100, lookback=60, n_features=3, buckets=(1, 2, 4, 8),
+              device=cuda_device)
+    engine = StackedPredictEngine(spec, states, **kw)
+    solos = [PredictEngine(spec, s, **kw) for s in states]
+    engine.warmup()
+    for solo in solos:
+        solo.warmup()
+    assert engine.compile_events == 4
+    rng = np.random.default_rng(2)
+    lk.reset_launch_counts()
+    for n in (1, 3, 8):
+        x = rng.normal(size=(n, 100, 60, 3)).astype(np.float32)
+        alpha, beta = engine.predict(x)
+        for lane, solo in enumerate(solos):
+            a, b = solo.predict(x)
+            np.testing.assert_array_equal(alpha[:, lane], a)
+            np.testing.assert_array_equal(beta[:, lane], b)
+    assert lk.LAUNCHES["lstm_pair_fwd_stacked"] == 3
+    x = rng.normal(size=(2, 100, 60, 3)).astype(np.float32)
+    before = engine.predict(x)
+    engine.set_lane(3, states[0])
+    after = engine.predict(x)
+    assert engine.compile_events == 4
+    for lane in range(3):
+        np.testing.assert_array_equal(after[0][:, lane], before[0][:, lane])
+    np.testing.assert_array_equal(after[0][:, 3], before[0][:, 0])

@@ -18,6 +18,8 @@ from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.ops import _build
 from masters_thesis_tpu_torch.serve.engine import PredictEngine
 from masters_thesis_tpu_torch.serve.server import PredictServer
+from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
+from masters_thesis_tpu_torch.train.stacked import StackedTrainer
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -41,7 +43,8 @@ def test_port_imports_with_jax_blocked():
                  "telemetry.registry", "telemetry.events", "telemetry.trace",
                  "telemetry.run", "telemetry.exposition",
                  "data.window_store", "native", "native.build",
-                 "native.engine"):
+                 "native.engine", "train.stacked", "serve.stacked",
+                 "cli.stacked"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -74,6 +77,15 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
         PredictEngine(spec, state, n_stocks=2, lookback=3)
     engine = PredictEngine(spec, state, n_stocks=2, lookback=3, device="cpu")
     assert engine.platform == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StackedTrainer(max_epochs=1)
+    pair = ModelSpec(objective="mse", hidden_size=4, num_layers=2)
+    lanes = [pair.build_module(device="cpu").state_dict()] * 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StackedPredictEngine(pair, lanes, n_stocks=2, lookback=3)
+    stacked = StackedPredictEngine(pair, lanes, n_stocks=2, lookback=3,
+                                   device="cpu")
+    assert stacked.platform == "cpu" and stacked.num_lanes == 2
     assert PredictServer(engine).max_batch == engine.max_bucket
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

@@ -103,10 +103,15 @@ def test_cpu_dispatch_launches_no_kernel():
     long_w = torch.zeros((64, 4 * 64), requires_grad=True)
     assert lk.single_layer_route(90, 100, 64) == "pallas-timeblocked"
     lk.lstm_recurrence(long_x, long_w).sum().backward()
+    # Two replicas of the pair through the replica-axis recurrence.
+    lk.lstm_pair_recurrence_stacked(
+        *(torch.stack([a, a]) for a in leaves)).sum().backward()
     assert set(lk.LAUNCHES) == {
         "lstm_pair_fwd", "lstm_pair_fwd_masked", "lstm_fwd", "lstm_pair_bwd",
         "lstm_bwd", "lstm_wgrad", "lstm_stack_fwd", "lstm_stack_fwd_masked",
         "lstm_stack_bwd", "lstm_tb_fwd", "lstm_tb_bwd",
+        "lstm_pair_fwd_stacked", "lstm_pair_fwd_masked_stacked",
+        "lstm_pair_bwd_stacked", "lstm_wgrad_stacked",
     }
     assert not any(lk.LAUNCHES.values())
 
