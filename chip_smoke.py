@@ -62,17 +62,24 @@ and ``test`` as children, a 5-step card-against-CPU trajectory
 ``universe_serve`` serves the run's ``best`` on the ``serve=universe``
 ladder (1–64 windows, a graph a bucket) against the CPU engine, with
 bursts of 64 requests and the allocator's peak.
-Stacked replicas run the pair kernels with a replica axis (grid (row
-tiles, R)): ``stacked_kernels`` holds the replica-axis pair forward,
-sweep and weight-gradient pass at R = 1, 2, 4, 8 against their plain
-versions and each replica against its solo launch bit for bit, and times
-one launch against R solo launches; ``stacked_train`` runs
-``StackedTrainer.fit`` at R = 1, 4, 8 on train small's data (replica 0
-bit for bit ``train``'s ``Trainer.fit``; a ``stacked.replica_loss``
-fault plan that masks a replica); ``stacked_driver`` runs ``python -m
-masters_thesis_tpu_torch stacked`` at R = 4 as a child; ``stacked_serve``
-serves its four ``best``s as the lanes of one ``StackedPredictEngine``
-(each lane bit for bit a solo engine, ``try_swap_lane`` under load).
+Stacked replicas run the pair, single-layer and stack kernels with a
+replica axis (grid (row tiles, R)): ``stacked_kernels`` holds each
+replica-axis kernel (the pair's forward, sweep and pass on 100 and 800
+rows; the single layer's on 100 and 800; the 4-deep stack's on 25 and
+200; the pair's at R = 1, 2, 4, 8, the others' at R = 1, 8) against
+its plain version and each replica
+against its solo launch bit for bit, and times one launch against R solo
+launches; ``stacked_train`` runs ``StackedTrainer.fit`` at R = 1, 8
+on train small's data (replica 0 bit for bit ``train``'s
+``Trainer.fit``; a ``stacked.replica_loss`` fault plan that masks a
+replica); ``stacked_groupings`` fits R = 4 replicas of one layer and of
+model=medium, and runs 5-step trajectories of R = 2 replicas of
+model=large and model=kfactor, each replica against its solo run;
+``stacked_driver`` runs ``python -m masters_thesis_tpu_torch stacked``
+at R = 4 as a child; ``stacked_serve`` serves its four ``best``s as the
+lanes of one ``StackedPredictEngine`` (each lane bit for bit a solo
+engine, ``try_swap_lane`` under load), then lanes of one layer and of
+model=medium.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -162,7 +169,12 @@ from masters_thesis_tpu_torch.train.steps import (
     train_step,
     weighted_batches,
 )
-from masters_thesis_tpu_torch.train.trainer import EVAL_CHUNK, Trainer, device_split
+from masters_thesis_tpu_torch.train.trainer import (
+    EVAL_CHUNK,
+    Trainer,
+    device_split,
+    epoch_seed,
+)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the kernels
 # run f32 products on the CUDA cores, so the f32 rate without tensor cores.
@@ -183,11 +195,13 @@ STACK_LAYERS = 4  # model=medium: one 4-deep stack at 25 rows
 FWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_fwd.cu"
 BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_bwd.cu"
 STACK_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack.cu"
+STACK_BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack_bwd.cu"
 TB_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_tb.cu"
 TPU = "masters_thesis_tpu/ops/lstm_kernel.py"
 # Each kernel of the port: (its source, the TPU kernel it replaces).
-# lstm_wgrad_stack is lstm_wgrad at a stack's 2L - 1 jobs; its launches
-# count under lstm_wgrad.
+# lstm_wgrad_stack is lstm_wgrad at a stack's 2L - 1 jobs, and
+# lstm_wgrad_single at one layer's one job; their launches count under
+# lstm_wgrad.
 KERNELS = {
     "lstm_pair_fwd": (FWD_SOURCE, f"{TPU}:719"),
     "lstm_fwd": (FWD_SOURCE, f"{TPU}:140"),
@@ -197,8 +211,9 @@ KERNELS = {
     "lstm_bwd": (BWD_SOURCE, f"{TPU}:204"),
     "lstm_stack_fwd": (STACK_SOURCE, f"{TPU}:1118"),
     "lstm_stack_fwd_masked": (STACK_SOURCE, f"{TPU}:1118"),
-    "lstm_stack_bwd": (STACK_SOURCE, f"{TPU}:1239"),
+    "lstm_stack_bwd": (STACK_BWD_SOURCE, f"{TPU}:1239"),
     "lstm_wgrad_stack": (BWD_SOURCE, f"{TPU}:1239"),
+    "lstm_wgrad_single": (BWD_SOURCE, f"{TPU}:204"),
     "lstm_tb_fwd": (TB_SOURCE, f"{TPU}:339"),
     "lstm_tb_bwd": (TB_SOURCE, f"{TPU}:404"),
 }
@@ -2977,6 +2992,16 @@ def phase_serve_preflight(child: subprocess.Popen) -> dict:
                           for counts in r["launches"].values())
                    for r in stacked.values())):
         raise AssertionError(f"serve_preflight: SV307 not held: {stacked}")
+    depths = facts.get("stacked_depths", {})
+    want = {"L1": "lstm_fwd_stacked", "L4": "lstm_stack_fwd_stacked"}
+    if (sorted(depths) != sorted(want)
+            or any(depths[k]["captures"] != facts["captures"]
+                   or len(depths[k]["launches"]) != facts["captures"]
+                   or any(counts != {counter: 1}
+                          for counts in depths[k]["launches"].values())
+                   for k, counter in want.items())):
+        raise AssertionError(f"serve_preflight: SV307 not held for the other "
+                             f"groupings: {depths}")
     if (lane.get("reason") != "committed" or lane.get("new_captures")
             or lane.get("late_deliveries") or not lane.get("siblings_bitwise")):
         raise AssertionError(f"serve_preflight: SV308 for a lane: {lane}")
@@ -3663,13 +3688,16 @@ def phase_universe_serve(ckpt_dir: Path, reference: dict) -> dict:
 
 # R replicas of model=small in one program: the replica axis of the pair
 # kernels (stacked_kernels at R = 1, 2, 4, 8), StackedTrainer.fit on train
-# small's data (stacked_train at R = 1, 4, 8), the stacked entry point as a
+# small's data (stacked_train at R = 1, 8), the stacked entry point as a
 # child (stacked_driver, R = 4) and its four ``best``s served as four lanes
 # of one StackedPredictEngine (stacked_serve). Seeds 0 .. R - 1; rates cycle
 # over the thesis grid's (sweeps/experiment_thesis_grid.sh), replica 0 at
 # the configs' 1e-4, so that it is phase_train's run.
 STACK_RS = (1, 2, 4, 8)
-STACK_TRAIN_RS = (1, 4, 8)
+# The single layer's and the stack's replica axes at R = 1 and 8 (PERF.md
+# keeps their times at R = 2, 4 from a run at STACK_RS).
+GROUPING_KERNEL_RS = (1, 8)
+STACK_TRAIN_RS = (1, 8)
 STACK_LRS = (1e-4, 1e-3, 1e-5, 1e-6)
 STACK_DRIVER_R = 4
 # Replica r of a stacked fit against the solo Trainer.fit of its seed and
@@ -3686,6 +3714,26 @@ STACKED_COUNTERS = {
     "lstm_pair_fwd_masked": "lstm_pair_fwd_masked_stacked",
     "lstm_pair_bwd": "lstm_pair_bwd_stacked",
     "lstm_wgrad": "lstm_wgrad_stacked",
+}
+# The replica axes of the single layer and the stack: each entry of
+# the kernels line, (its row in stacked_kernels, rows of the path it is
+# read at, its counter, the stacked path whose launches it reports).
+GROUPING_KERNELS = {
+    "lstm_fwd_stacked": ("lstm_fwd", 100, "lstm_fwd_stacked",
+                         "stacked_groupings"),
+    "lstm_bwd_stacked": ("lstm_bwd", 100, "lstm_bwd_stacked",
+                         "stacked_groupings"),
+    "lstm_wgrad_single_stacked": ("lstm_wgrad_single", 100,
+                                  "lstm_wgrad_stacked", "stacked_groupings"),
+    "lstm_stack_fwd_stacked": ("lstm_stack_fwd", 8 * K_MEDIUM,
+                               "lstm_stack_fwd_stacked", "stacked_serve"),
+    "lstm_stack_fwd_masked_stacked": ("lstm_stack_fwd_masked", K_MEDIUM,
+                                      "lstm_stack_fwd_masked_stacked",
+                                      "stacked_groupings"),
+    "lstm_stack_bwd_stacked": ("lstm_stack_bwd", K_MEDIUM,
+                               "lstm_stack_bwd_stacked", "stacked_groupings"),
+    "lstm_wgrad_stack_stacked": ("lstm_wgrad_stack", K_MEDIUM,
+                                 "lstm_wgrad_stacked", "stacked_groupings"),
 }
 
 
@@ -3723,6 +3771,108 @@ def _stacked_kernel_inputs(rows: int) -> dict:
             v["dh"], v["x"], v["mask"], v["h1s"], v["c1s"], v["h2s"], v["c2s"],
             v["w1"], v["wi2"], v["b2"], v["w2"])
     return v
+
+
+def _stacked_grouping_inputs(rows: int, stack: bool) -> dict:
+    """max(STACK_RS) replicas' single-layer operands (``stack`` False) or
+    4-deep stack operands at ``rows`` rows, drawn on the card, then their
+    replica-axis forward's stashes and sweep's d_pre planes as the sweep's
+    and the pass's inputs."""
+    n = max(STACK_RS)
+    gen = torch.Generator(device=DEVICE).manual_seed(1000 + rows)
+    scale = 1.0 / np.sqrt(H)
+
+    def uniform(*shape):
+        return (torch.rand(shape, generator=gen, device=DEVICE) * 2 - 1) * scale
+
+    def mask():
+        return (torch.rand((n, T, rows, H), generator=gen, device=DEVICE)
+                >= 0.3).float() / 0.7
+
+    v = {"x": torch.randn((n, T, rows, 4 * H), generator=gen, device=DEVICE),
+         "dh": 0.1 * torch.randn((n, T, rows, H), generator=gen, device=DEVICE)}
+    with torch.no_grad():
+        if not stack:
+            v["w"] = uniform(n, H, 4 * H)
+            v["hs"], v["cs"] = lk.lstm_fwd_stacked_cuda(v["x"], v["w"],
+                                                        return_c=True)
+            v["dx"] = lk.lstm_bwd_stacked_cuda(v["dh"], v["x"], v["hs"],
+                                               v["cs"], v["w"])
+            return v
+        seams = STACK_LAYERS - 1
+        v["w_hh"] = [uniform(n, H, 4 * H) for _ in range(STACK_LAYERS)]
+        v["w_in"] = [uniform(n, H, 4 * H) for _ in range(seams)]
+        v["biases"] = [uniform(n, 4 * H) for _ in range(seams)]
+        v["masks"] = [mask() for _ in range(seams)]
+        weights = (v["w_hh"], v["w_in"], v["biases"])
+        v["hs"], v["cs"] = lk.lstm_stack_fwd_stacked_cuda(
+            v["x"], *weights, v["masks"], stash=True)
+        v["d_pres"] = lk.lstm_stack_bwd_stacked_cuda(
+            v["dh"], v["x"], v["masks"], v["hs"], v["cs"], *weights)
+    return v
+
+
+def _grouping_calls(v: dict, n: int, stack: bool) -> dict:
+    """As ``_stacked_calls``, for the single layer's replica-axis kernels
+    (forward with its c stash, sweep, one-job pass) or the 4-deep
+    stack's (forward maskless and masked with its stashes, sweep, 7-job
+    pass)."""
+    def first(t):
+        return [u[:n] for u in t] if isinstance(t, list) else t[:n]
+
+    a = {k: first(t) for k, t in v.items()}
+
+    def solo(fn, *args):
+        def at(t, r):
+            return [u[r] for u in t] if isinstance(t, list) else t[r]
+        return lambda: [fn(*(at(t, r) for t in args)) for r in range(n)]
+
+    if not stack:
+        return {
+            "lstm_fwd": (
+                lambda: lk.lstm_fwd_stacked_cuda(a["x"], a["w"], return_c=True),
+                solo(lambda x, w: lk.lstm_fwd_cuda(x, w, return_c=True),
+                     a["x"], a["w"]),
+                lambda: lk.lstm_recurrence_stacked_ref(a["x"], a["w"],
+                                                       return_c=True), False),
+            "lstm_bwd": (
+                lambda: lk.lstm_bwd_stacked_cuda(a["dh"], a["x"], a["hs"],
+                                                 a["cs"], a["w"]),
+                solo(lk.lstm_bwd_cuda, a["dh"], a["x"], a["hs"], a["cs"],
+                     a["w"]),
+                lambda: lk.lstm_bwd_stacked_ref(a["dh"], a["x"], a["hs"],
+                                                a["cs"], a["w"]), True),
+            "lstm_wgrad_single": (
+                lambda: lk.lstm_single_wgrad_stacked(a["dx"], a["hs"]),
+                solo(lk.lstm_single_wgrad, a["dx"], a["hs"]),
+                lambda: lk.lstm_single_wgrad_stacked_ref(a["dx"], a["hs"]),
+                True),
+        }
+    weights = (a["w_hh"], a["w_in"], a["biases"])
+    bwd = (a["dh"], a["x"], a["masks"], a["hs"], a["cs"]) + weights
+    return {
+        "lstm_stack_fwd": (
+            lambda: lk.lstm_stack_fwd_stacked_cuda(a["x"], *weights),
+            solo(lk.lstm_stack_fwd_cuda, a["x"], *weights),
+            lambda: lk.lstm_stack_stacked_ref(a["x"], *weights), False),
+        "lstm_stack_fwd_masked": (
+            lambda: lk.lstm_stack_fwd_stacked_cuda(a["x"], *weights,
+                                                   a["masks"], stash=True),
+            solo(lambda *t: lk.lstm_stack_fwd_cuda(*t, stash=True), a["x"],
+                 *weights, a["masks"]),
+            lambda: lk.lstm_stack_stacked_ref(a["x"], *weights, a["masks"],
+                                              return_stash=True), False),
+        "lstm_stack_bwd": (
+            lambda: lk.lstm_stack_bwd_stacked_cuda(*bwd),
+            solo(lk.lstm_stack_bwd_cuda, *bwd),
+            lambda: lk.lstm_stack_bwd_stacked_ref(*bwd), True),
+        "lstm_wgrad_stack": (
+            lambda: lk.lstm_stack_wgrad_stacked(a["d_pres"], a["hs"],
+                                                a["masks"]),
+            solo(lk.lstm_stack_wgrad, a["d_pres"], a["hs"], a["masks"]),
+            lambda: lk.lstm_stack_wgrad_stacked_ref(a["d_pres"], a["hs"],
+                                                    a["masks"]), True),
+    }
 
 
 def _stacked_calls(v: dict, n: int) -> dict:
@@ -3772,12 +3922,32 @@ TILE8 = {
 
 def _solo_flops_bytes(name: str, rows: int) -> tuple[float, float]:
     """One replica's operations and bytes, as phase_kernels and
-    phase_training_kernels count them for the solo kernel."""
+    phase_training_kernels count them for the solo kernel (the single and
+    stack rows: their solo kernel rows' counts, the single forward with its
+    c plane written too)."""
     product = 2 * T * rows * H * 4 * H
     plane_h = 4 * T * rows * H
     plane_x = 4 * T * rows * 4 * H
     weight = 4 * H * 4 * H
-    return {
+    seams = STACK_LAYERS - 1
+    stack_weights = (2 * STACK_LAYERS - 1) * weight + seams * 4 * 4 * H
+    counts = {
+        "lstm_fwd": (product, plane_x + weight + 2 * plane_h),
+        "lstm_bwd": (2 * product, 3 * plane_h + plane_x + weight + plane_x),
+        "lstm_wgrad_single": (product, plane_x + plane_h + weight),
+        "lstm_stack_fwd": ((2 * STACK_LAYERS - 1) * product,
+                           plane_x + stack_weights + plane_h),
+        "lstm_stack_fwd_masked": ((2 * STACK_LAYERS - 1) * product,
+                                  plane_x + stack_weights + seams * plane_h
+                                  + 2 * STACK_LAYERS * plane_h),
+        "lstm_stack_bwd": (2 * (2 * STACK_LAYERS - 1) * product,
+                           plane_h + plane_x + seams * plane_h
+                           + 2 * STACK_LAYERS * plane_h + stack_weights
+                           + STACK_LAYERS * plane_x),
+        "lstm_wgrad_stack": ((2 * STACK_LAYERS - 1) * product,
+                             STACK_LAYERS * plane_x
+                             + STACK_LAYERS * plane_h + seams * plane_h
+                             + stack_weights),
         "lstm_pair_fwd": (3 * product, plane_x + 3 * weight + 4 * 4 * H + plane_h),
         "lstm_pair_fwd_masked": (3 * product, plane_x + plane_h + 3 * weight
                                  + 4 * 4 * H + 4 * plane_h),
@@ -3785,25 +3955,64 @@ def _solo_flops_bytes(name: str, rows: int) -> tuple[float, float]:
                           + 4 * 4 * H + 2 * plane_x),
         "lstm_wgrad": (3 * product, 2 * plane_x + 3 * plane_h + 3 * weight
                        + 4 * 4 * H),
-    }[name]
+    }
+    return counts[name]
+
+
+def _stacked_tiles(name: str, rows: int, n: int) -> dict:
+    """The row tile a replica-axis launch of ``name`` takes at ``n``
+    replicas, and the solo launch's (the weight-gradient pass has none)."""
+    if name.startswith("lstm_wgrad"):
+        return {"tile": None, "solo_tile": None}
+    if name.startswith("lstm_stack"):
+        backward = name == "lstm_stack_bwd"
+        masked = name != "lstm_stack_fwd"
+        tile = functools.partial(lk.lstm_stack_row_tile_cuda, STACK_LAYERS,
+                                 rows, H, DEVICE, backward, masked,
+                                 masked and not backward)
+        return {"tile": tile(replicas=n), "solo_tile": tile()}
+    return {"tile": lk.lstm_sweep_tile_cuda(rows, n),
+            "solo_tile": lk.lstm_sweep_tile_cuda(rows, 1)}
+
+
+def _single_wgrad_library_ms(v: dict, n: int) -> float:
+    """One cuBLAS call for ``n`` replicas' single-layer weight gradients:
+    a batched product of the shifted h planes (shifted beforehand, not
+    timed) with the d_pre planes."""
+    hs, dx = v["hs"][:n], v["dx"][:n]
+    shifted = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
+    a = shifted.reshape(n, -1, H).transpose(1, 2)
+    d = dx.reshape(n, -1, 4 * H)
+    return cuda_ms(lambda: torch.bmm(a, d), iters=10, loops=3)[0]
 
 
 def phase_stacked_kernels(kernels: dict) -> dict:
-    """Each replica-axis kernel (the pair forward maskless and masked with
-    its stashes, the sweep, the R x 3-job pass) at R = 1, 2, 4, 8 on 100
-    rows (a training step) and 800 (a serving bucket of 8 windows): one
+    """Each replica-axis kernel: the pair forward maskless and masked with
+    its stashes, the sweep, the R x 3-job pass at R = 1, 2, 4, 8 on 100
+    rows (a training step) and 800 (a serving bucket of 8 windows); the
+    single layer's forward, sweep and one-job pass on 100 and 800 rows and
+    the 4-deep stack's forward maskless and masked, sweep and 7-job pass on
+    25 and 200 rows at R = 1, 8 (GROUPING_KERNEL_RS): one
     launch against R solo launches of the same kernel, the plain version
     (R solo plain versions), the bound (R x the solo bound) and R x the
     library call's time (phase_kernels' and phase_training_kernels'); its
     error against the plain version and each replica's slice bit for bit
-    against its solo launch. At 100 rows and R = 8 the forwards and the
+    against its solo launch. At 100 rows and R = 8 the pair's forwards and
     sweep at 8-row tiles, which part from the solo bits, say what keeping
     the solo tile's class costs (lstm_sweep.cuh sweep_rows)."""
     results = {}
-    for rows in (100, 800):
-        v = _stacked_kernel_inputs(rows)
-        for n in STACK_RS:
-            for name, (stacked, solo, plain, relative) in _stacked_calls(v, n).items():
+    groups = [(rows, _stacked_kernel_inputs, _stacked_calls, STACK_RS)
+              for rows in (100, 800)]
+    groups += [(rows, functools.partial(_stacked_grouping_inputs, stack=stack),
+                functools.partial(_grouping_calls, stack=stack),
+                GROUPING_KERNEL_RS)
+               for stack, all_rows in ((False, (100, 800)),
+                                       (True, (K_MEDIUM, 8 * K_MEDIUM)))
+               for rows in all_rows]
+    for rows, inputs, calls, replica_counts in groups:
+        v = inputs(rows)
+        for n in replica_counts:
+            for name, (stacked, solo, plain, relative) in calls(v, n).items():
                 with torch.no_grad():
                     got = stacked()
                     singles = solo()
@@ -3818,18 +4027,21 @@ def phase_stacked_kernels(kernels: dict) -> dict:
                 flops, nbytes = _solo_flops_bytes(name, rows)
                 bound_ms, bound_by = bound(n * flops, n * nbytes)
                 library = kernels.get((name, rows), {}).get("library_ms")
+                if name == "lstm_wgrad_single":
+                    library = _single_wgrad_library_ms(v, n)
                 row = {
                     "phase": "stacked_kernel", "name": name, "rows": rows,
                     "replicas": n, "T": T, "H": H,
-                    "tile": lk.lstm_sweep_tile_cuda(rows, n),
-                    "solo_tile": lk.lstm_sweep_tile_cuda(rows, 1),
+                    **_stacked_tiles(name, rows, n),
                     "max_abs_err": err, "tol": tol,
                     "replicas_bit_equal_to_solo": bitwise,
                     **timed("ms", stacked, iters=10, loops=3),
                     **timed("solo_ms", solo, iters=10, loops=3),
                     "plain_ms": cuda_ms(plain, iters=1, loops=1, warmup=0)[0],
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None if library is None else n * library,
+                    "library_ms": (None if library is None else
+                                   library if name == "lstm_wgrad_single"
+                                   else n * library),
                     "flops": n * flops, "bytes": n * nbytes,
                 }
                 if rows == 100 and n == max(STACK_RS) and name in TILE8:
@@ -3927,10 +4139,10 @@ def _against_solo(got, solo) -> dict:
 def phase_stacked_train(dm, train: dict) -> dict:
     """StackedTrainer.fit at model=small full width (dropout 0.2, mse, clip
     5) on train small's data, graphed, for R = 1 (2 epochs, phase_train's
-    depth) and R = 4, 8 (1 epoch, timed whole, its capture included): its
+    depth) and R = 8 (1 epoch, timed whole, its capture included): its
     steps/s and replica-windows/s against phase_train's solo Trainer.fit,
     a step's wall and idle share, the launches; replica 0 (seed 0, lr 1e-4)
-    against phase_train's run (at R = 1 the whole run, at R = 4, 8 its
+    against phase_train's run (at R = 1 the whole run, at R = 8 its
     first epoch's row); then at R = 2 a ``stacked.replica_loss`` nan plan
     on replica 1 that masks it while replica 0 matches the unfaulted run
     (R = 1's) bit for bit."""
@@ -4002,6 +4214,155 @@ def phase_stacked_train(dm, train: dict) -> dict:
     return out
 
 
+# The other groupings stacked: one layer on train small's windows
+# and model=medium (one 4-deep stack on 25-row windows), each a graphed
+# StackedTrainer.fit of R = 4 for one epoch against the solo Trainer.fit
+# of replica 0's seed and rate; model=large (7 + 1) and model=kfactor (two
+# single layers at 8,192 rows a step) each a 5-step graphed stacked
+# trajectory of R = 2, every replica against its solo graphed program.
+GROUPING_FIT_R = 4
+GROUPING_STEP_RS = (1, 8)
+GROUPING_TRAJECTORY_R, GROUPING_TRAJECTORY_STEPS = 2, 5
+
+
+def _stacked_trajectory(spec, data: Batch, batch: int) -> dict:
+    """``GROUPING_TRAJECTORY_STEPS`` graphed steps of a stacked program of
+    R replicas (seeds 0 .. R - 1, rates STACK_LRS, each replica's shuffle
+    and masks from its epoch-0 generator) on ``data``, and of each
+    replica's solo graphed ``TrainProgram`` the same way: parameters and
+    Adam moments bit for bit, and the stacked launches."""
+    replicas = _stack_replicas(GROUPING_TRAJECTORY_R)
+    module = StackedLstmEncoder([
+        spec.build_module(device=DEVICE,
+                          generator=torch.Generator().manual_seed(r.seed))
+        for r in replicas])
+    optimizer = StackedFlatAdam(module.replicas, CLIP, spec.weight_decay)
+    gens = [torch.Generator(device=DEVICE).manual_seed(epoch_seed(r.seed, 0))
+            for r in replicas]
+    program = StackedTrainProgram(module, optimizer, spec.window_objective(),
+                                  data, batch, gens, graphed=True)
+    lk.reset_launch_counts()
+    t0 = time.perf_counter()
+    program.epoch([r.learning_rate for r in replicas])
+    torch.cuda.synchronize()
+    stacked_s = time.perf_counter() - t0
+    launches = dict(lk.LAUNCHES)
+    bitwise = []
+    for r, rep in enumerate(replicas):
+        solo_module = spec.build_module(
+            device=DEVICE, generator=torch.Generator().manual_seed(rep.seed))
+        solo_opt = make_optimizer(solo_module, CLIP, spec.weight_decay)
+        gen = torch.Generator(device=DEVICE).manual_seed(epoch_seed(rep.seed, 0))
+        solo = TrainProgram(solo_module, solo_opt, spec.window_objective(),
+                            data, batch, gen, graphed=True)
+        solo.epoch(rep.learning_rate)
+        bitwise.append(all(torch.equal(getattr(optimizer, k)[r],
+                                       getattr(solo_opt, k))
+                           for k in ("params", "mu", "nu")))
+    return {"replicas": len(replicas), "steps": program.n_steps,
+            "rows_per_step": batch * data.x.shape[1],
+            "layer_groups": module.replicas[0].layer_groups(
+                data.x.shape[2], batch * data.x.shape[1], True,
+                data.x.shape[1]),
+            "seconds_with_capture": stacked_s,
+            "replicas_bit_equal_to_solo": bitwise,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def phase_stacked_groupings(dm, dm_medium, dm_universe, train_medium) -> dict:
+    """The groupings beside the pair through the replica axis.
+    One layer (train small's data and spec, num_layers=1) and model=medium:
+    a graphed StackedTrainer.fit of R = 4, one epoch, its replica-windows/s
+    against the solo Trainer.fit of replica 0's seed and rate (one layer:
+    one epoch run here; medium: train_medium's run) and replica 0's epoch
+    row bit for bit that run's, each replica-axis kernel once a step; a
+    graphed stacked step at R = 1 and 8 (wall, idle share, kernels).
+    model=large and model=kfactor: a 5-step stacked trajectory of R = 2,
+    each replica bit for bit its solo graphed program."""
+    out = {"phase": "stacked_groupings", "fits": {}, "trajectories": {}}
+    launches: dict[str, int] = {}
+    fits = (("single", _train_spec(num_layers=1), dm, None,
+             ("lstm_fwd_stacked", "lstm_bwd_stacked", "lstm_wgrad_stacked")),
+            ("medium", _medium_spec(), dm_medium, train_medium["fit"],
+             ("lstm_stack_fwd_masked_stacked", "lstm_stack_bwd_stacked",
+              "lstm_wgrad_stacked")))
+    for label, spec, data, solo, counters in fits:
+        if solo is None:
+            solo = Trainer(max_epochs=1, gradient_clip_val=CLIP, seed=0,
+                           device=DEVICE).fit(spec, data)
+        trainer = StackedTrainer(max_epochs=1, gradient_clip_val=CLIP,
+                                 device=DEVICE)
+        lk.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.fit(spec, data, _stack_replicas(GROUPING_FIT_R))
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(lk.LAUNCHES)
+        for k, v in fit_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        stocks = data.train_arrays().x.shape[1]
+        steps = len(data.train_range)
+        out["fits"][label] = {
+            "replicas": GROUPING_FIT_R, "epochs": 1, "fit_seconds": fit_s,
+            "layer_groups": _step_groups(spec, stocks),
+            "steps_per_s": result.steps_per_sec,
+            "replica_windows_per_s": result.replica_steps_per_sec,
+            "solo_windows_per_s": solo.windows_per_sec,
+            "replica_windows_per_s_over_solo":
+                result.replica_steps_per_sec / solo.windows_per_sec,
+            "statuses": [r.status for r in result.replicas],
+            "replica0_epoch0_row_bitwise":
+                result.replicas[0].history[0] == solo.history[0],
+            "steps": {n: _stacked_step_breakdown(data, spec, n)
+                      for n in GROUPING_STEP_RS},
+            "launches": {k: v for k, v in fit_launches.items() if v},
+            "launched_once_a_step": {c: fit_launches[c] == steps
+                                     for c in counters},
+        }
+    for label, spec, data, batch in (
+            ("large", _medium_spec(num_layers=8), dm_medium, 1),
+            ("kfactor", _kfactor_spec(), dm_universe, U_BATCH)):
+        windows = _window_batches(data, 1, batch * GROUPING_TRAJECTORY_STEPS)[0]
+        out["trajectories"][label] = _stacked_trajectory(
+            spec, device_split(Batch(*windows), DEVICE), batch)
+    for t in out["trajectories"].values():
+        for k, v in t["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    emit(out)
+    for label, fit in out["fits"].items():
+        if (fit["statuses"] != ["active"] * GROUPING_FIT_R
+                or not fit["replica0_epoch0_row_bitwise"]
+                or not all(fit["launched_once_a_step"].values())):
+            raise AssertionError(f"stacked_groupings {label}: {fit}")
+    for label, t in out["trajectories"].items():
+        if (not all(t["replicas_bit_equal_to_solo"])
+                or t["launches"] != _stacked_step_launches(
+                    t["layer_groups"], GROUPING_TRAJECTORY_STEPS)):
+            raise AssertionError(f"stacked_groupings {label}: {t}")
+    return out
+
+
+def _stacked_step_launches(groups: list, steps: int) -> dict:
+    """The replica-axis launches of ``steps`` stacked training steps whose
+    forward runs ``groups`` (model=large: 7 + 1; model=kfactor at 2,048
+    rows a window: 1 + 1): a forward, a sweep and a pass a group."""
+    want: dict[str, int] = {}
+    for depth in groups:
+        kind = ("lstm_stack" if depth >= 3 else
+                "lstm_pair" if depth == 2 else "lstm")
+        masked = "_masked" if depth >= 2 else ""
+        for name in (f"{kind}_fwd{masked}_stacked", f"{kind}_bwd_stacked",
+                     "lstm_wgrad_stacked"):
+            want[name] = want.get(name, 0) + steps
+    return want
+
+
+def _step_groups(spec, stocks: int) -> list:
+    """The layer groups a training step of one window of ``stocks`` rows
+    runs at ``spec``."""
+    return spec.build_module(device="cpu").layer_groups(T, stocks, True, stocks)
+
+
 def _start_stacked_driver() -> "_Child":
     """``python -m masters_thesis_tpu_torch stacked`` as a child: R = 4 on
     train small's data, 2 epochs, into ``stacked_root()/driver``, started
@@ -4047,7 +4408,65 @@ class _RecordingStacked(_Recording, StackedPredictEngine):
     pass
 
 
-def phase_stacked_serve(driver: dict, windows: np.ndarray) -> dict:
+# Lanes of the other groupings: (spec, stocks a window, the replica-
+# axis forward a dispatch launches once): one layer on 100-stock windows
+# and model=medium (one 4-deep stack) on 25-stock windows, R = 4 lanes of
+# seeded weights.
+GROUPING_LANES = {
+    "single": (_small_spec(num_layers=1), K_STOCKS, "lstm_fwd_stacked"),
+    "medium": (_medium_spec(dropout=0.0), K_MEDIUM, "lstm_stack_fwd_stacked"),
+}
+
+
+def _grouping_lanes(windows: dict) -> dict:
+    """For each of GROUPING_LANES, a graphed StackedPredictEngine of 4
+    lanes and the 4 solo graphed engines: every lane bit for bit its solo
+    engine at 1, 3, 8 windows (every bucket, padded), one capture a
+    bucket, one replica-axis launch a dispatch; p50 and answers/s of a
+    burst beside the solo engine's."""
+    out = {}
+    for label, (spec, stocks, counter) in GROUPING_LANES.items():
+        states = [spec.build_module(
+            device="cpu", generator=torch.Generator().manual_seed(s)
+        ).state_dict() for s in range(4)]
+        kw = dict(n_stocks=stocks, lookback=T, device=DEVICE)
+        engine = StackedPredictEngine(spec, states, **kw)
+        engine.warmup()
+        solos = [PredictEngine(spec, state, **kw) for state in states]
+        for solo in solos:
+            solo.warmup()
+        x = windows[label]
+        lk.reset_launch_counts()
+        bitwise = True
+        for n in (1, 3, 8):
+            alpha, beta = engine.predict(x[:n])
+            for lane, solo in enumerate(solos):
+                a, b = solo.predict(x[:n])
+                bitwise &= bool(np.array_equal(alpha[:, lane], a)
+                                and np.array_equal(beta[:, lane], b))
+        launches = dict(lk.LAUNCHES)
+        responses, _, stats, serve_s = _burst(engine, x)
+        solo_responses, _, _, solo_s = _burst(solos[0], x)
+        out[label] = {
+            "lanes": engine.num_lanes, "stocks": stocks,
+            "layer_groups": engine._module.check_groups(T, 8 * stocks, False,
+                                                        stocks),
+            "captures": engine.compile_events,
+            "buckets": len(engine.buckets),
+            "lanes_bit_equal_to_solo": bitwise,
+            "burst": {**_latency_ms(responses),
+                      "lane_answers_per_s": engine.num_lanes * len(responses)
+                      / serve_s},
+            "solo_burst": {**_latency_ms(solo_responses),
+                           "answers_per_s": len(solo_responses) / solo_s},
+            "launches": {k: v for k, v in launches.items() if v},
+            "counter": counter,
+        }
+    return out
+
+
+def phase_stacked_serve(driver: dict, windows: np.ndarray,
+                        windows_medium: np.ndarray) -> dict:
     """The stacked driver's four ``best``s as four lanes of one
     StackedPredictEngine (``from_checkpoints``), graphed, through
     PredictServer: bursts (p50, p99, answers/s and R x answers/s); each
@@ -4055,7 +4474,8 @@ def phase_stacked_serve(driver: dict, windows: np.ndarray) -> dict:
     padded; one capture a bucket; then ``try_swap_lane`` of lane 3 to lane
     0's checkpoint under SWAP_RATE open-loop load, every dispatched batch's
     other lanes bit for bit the unswapped stack's, no capture, no late
-    answer."""
+    answer. Then lanes of one layer and of model=medium
+    (``_grouping_lanes``)."""
     root = stacked_root() / "driver"
     ckpts = [root / name for name in driver["names"]]
     kw = dict(n_stocks=K_STOCKS, device=DEVICE)
@@ -4128,8 +4548,15 @@ def phase_stacked_serve(driver: dict, windows: np.ndarray) -> dict:
                       "swapped_lane_is_lane0": bool(np.array_equal(
                           swapped, solos[0].predict(windows[:2])[0]))},
         "launches": {k: v for k, v in burst_launches.items() if v},
+        "groupings": _grouping_lanes({"single": windows,
+                                      "medium": windows_medium}),
     }
     emit(out)
+    for label, lanes in out["groupings"].items():
+        if (not lanes["lanes_bit_equal_to_solo"]
+                or lanes["captures"] != lanes["buckets"]
+                or lanes["launches"].get(lanes["counter"]) != 3):
+            raise AssertionError(f"stacked_serve {label} lanes: {lanes}")
     swap = out["lane_swap"]
     if not lanes_bitwise or out["captures"] != len(live.buckets):
         raise AssertionError(f"stacked_serve: lanes or captures: {out}")
@@ -4275,6 +4702,8 @@ def main() -> int:
     phase_graphs(dm_medium, _medium_spec(num_layers=8), "graphs_large",
                  {"lstm_stack_fwd_masked": 1, "lstm_stack_bwd": 1,
                   "lstm_fwd": 1, "lstm_bwd": 1, "lstm_wgrad": 2})
+    stacked_groupings = phase_stacked_groupings(dm, dm_medium, dm_universe,
+                                                train_medium)
     real = phase_real_medium(train_medium)
     # The serve preflight's child and the stacked entry point's run beside
     # resilience's (none of them is timed against another run).
@@ -4316,7 +4745,8 @@ def main() -> int:
     serve_faults = phase_serve_faults(windows)
     serve_swap = phase_serve_swap(windows, _synthetic_windows(K_MEDIUM))
     serve_knee = phase_serve_knee(windows)
-    stacked_serve = phase_stacked_serve(stacked_driver, windows)
+    stacked_serve = phase_stacked_serve(stacked_driver, windows,
+                                        _synthetic_windows(K_MEDIUM))
     # The maskless pair forward's and the stack forward's launches on the
     # serving phases of this slice.
     serve_paths = {
@@ -4416,6 +4846,42 @@ def main() -> int:
                                    "plain_device_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_device_ms")}
                 for (n, _), r in universe_kernels.items() if n == measured]
+    # The replica axes of the single layer and the stack: each its
+    # own entry, read at R = 8 on its path's rows; launches on the stacked
+    # paths (counted apart from the solo launches).
+    grouping_paths = {"stacked_groupings": stacked_groupings["launches"],
+                      "stacked_serve": {
+                          k: sum(g["launches"].get(k, 0)
+                                 for g in stacked_serve["groupings"].values())
+                          for k in lk.LAUNCHES}}
+    for name, (row_name, rows, counter, path) in GROUPING_KERNELS.items():
+        row = stacked_kernels[(row_name, rows, max(STACK_RS))]
+        source, replaces = KERNELS[row_name]
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": grouping_paths[path][counter],
+            "path": path,
+            "rows": rows,
+            "replicas": max(STACK_RS),
+            "tile": row["tile"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for (n, _, _), r in stacked_kernels.items()
+                               if n == row_name),
+            "ms": row["ms"],
+            "device_ms": row["device_ms"],
+            "solo_ms": row["solo_ms"],
+            "solo_device_ms": row["solo_device_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "replicas_bit_equal_to_solo": all(
+                r["replicas_bit_equal_to_solo"]
+                for (n, _, _), r in stacked_kernels.items() if n == row_name),
+        })
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": summary})
     emit({"ok": True, "device": {

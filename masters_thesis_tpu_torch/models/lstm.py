@@ -35,12 +35,13 @@ with dropout on holds only for injected masks.
 
 ``StackedLstmEncoder`` runs R encoders of one architecture as one (the
 counterpart of the JAX package's ``vmap`` over the encoder in its stacked
-epoch, and of its stacked engine's lanes): each replica's input projection
-and heads are its own products, exactly the solo encoder's, and the
-recurrence is one replica-axis pair (``lstm_pair_recurrence_stacked``). It
-takes the one grouping this slice stacks, a single depth-2 group, and
-refuses any other (ROADMAP queue 1 item 1 lists the replica axes still to
-add).
+epoch, and of its stacked engine's lanes): the solo encoder's group loop,
+each replica's input projections, dropout planes and heads its own
+products, exactly the solo encoder's, and each group's recurrence one
+replica-axis launch (``lstm_stack_recurrence_stacked``,
+``lstm_pair_recurrence_stacked``, ``lstm_recurrence_stacked``). It takes
+every grouping but one with a layer on the time-blocked route, whose
+kernels have no replica axis yet (ROADMAP queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -55,10 +56,14 @@ from torch.utils.checkpoint import checkpoint
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.ops.lstm_kernel import (
     MAX_STACK_LAYERS,
+    GroupingNotStackedError,
     lstm_pair_recurrence,
     lstm_pair_recurrence_stacked,
     lstm_recurrence,
+    lstm_recurrence_stacked,
     lstm_stack_recurrence,
+    lstm_stack_recurrence_stacked,
+    single_layer_route,
     stack_fits,
     window_schedulable,
 )
@@ -85,6 +90,20 @@ def fused_depth(layers_left: int, n_t: int, rows: int, hidden: int,
     while depth < limit and depth_fits(depth + 1):
         depth += 1
     return depth
+
+
+def _group_weights(layers: list, layer: int, depth: int):
+    """A group's recurrence weights from the per-layer ``(w_ih, w_hh, b_ih,
+    b_hh)`` of ``layers``: ``(w_hhs, w_ins, biases)``, the layout of the
+    kernels (transposed weights, combined seam biases)."""
+    w_hhs = [layers[layer][1].T.contiguous()]
+    w_ins, biases = [], []
+    for above in range(layer + 1, layer + depth):
+        w_ih_a, w_hh_a, b_ih_a, b_hh_a = layers[above]
+        w_hhs.append(w_hh_a.T.contiguous())
+        w_ins.append(w_ih_a.T.contiguous())
+        biases.append((b_ih_a + b_hh_a).contiguous())
+    return w_hhs, w_ins, biases
 
 
 class LstmEncoder(nn.Module):
@@ -219,18 +238,14 @@ class LstmEncoder(nn.Module):
                 f"got {len(masks)}"
             )
         pending = iter(masks or ())
+        layers = [self._layer(layer) for layer in range(self.num_layers)]
         layer = 0
         for depth in self.layer_groups(n_t, rows, masks is not None, window_rows):
-            w_ih, w_hh, b_ih, b_hh = self._layer(layer)
+            w_ih, _, b_ih, b_hh = layers[layer]
             # One matmul for every time step's input projection.
             x_proj = torch.matmul(inputs, w_ih.T) + (b_ih + b_hh)  # (T, B, 4H)
             x_proj = x_proj.contiguous()
-            w_hhs, w_ins, biases = [w_hh.T.contiguous()], [], []
-            for above in range(layer + 1, layer + depth):
-                w_ih_a, w_hh_a, b_ih_a, b_hh_a = self._layer(above)
-                w_hhs.append(w_hh_a.T.contiguous())
-                w_ins.append(w_ih_a.T.contiguous())
-                biases.append((b_ih_a + b_hh_a).contiguous())
+            w_hhs, w_ins, biases = _group_weights(layers, layer, depth)
             seams = [next(pending) for _ in range(depth - 1)] if masks else None
             if depth >= 3:
                 run, args = lstm_stack_recurrence, (x_proj, (w_hhs, w_ins, biases),
@@ -258,13 +273,8 @@ class LstmEncoder(nn.Module):
 
 
 #: Where the groupings that do not stack yet are queued.
-STACKED_QUEUE = ("ROADMAP.md queue 1 item 1 (replica axes for the single-layer, "
-                 "stack and time-blocked kernels)")
-
-
-class GroupingNotStackedError(NotImplementedError):
-    """A stacked encoder asked to run a layer grouping other than one
-    depth-2 group (the pair), which is all this slice stacks."""
+STACKED_QUEUE = ("ROADMAP.md queue 1 item 1 (the replica axis of the "
+                 "time-blocked kernels)")
 
 
 class StackedLstmEncoder(nn.Module):
@@ -274,9 +284,9 @@ class StackedLstmEncoder(nn.Module):
     replica r's initial weights are exactly what ``LstmEncoder(...,
     generator=<replica r's generator>)`` draws); their parameters stay
     theirs (a stacked optimizer may make them views into ``[R, n]`` rows).
-    A forward runs, for replica r, the solo encoder's input projection and
-    heads on its own parameters, and one replica-axis pair recurrence for
-    all R.
+    A forward runs the solo encoder's group loop: for replica r the solo
+    input projections, dropout planes and heads on its own parameters, and
+    for each group one replica-axis recurrence for all R.
     """
 
     def __init__(self, replicas):
@@ -291,10 +301,6 @@ class StackedLstmEncoder(nn.Module):
                 raise ValueError(f"replica {r} is {self._architecture(enc)}, "
                                  f"replica 0 {arch}: a stack takes one "
                                  "architecture")
-        if first.num_layers != 2:
-            raise GroupingNotStackedError(
-                f"num_layers={first.num_layers}: stacked replicas run the "
-                f"layer pair only (num_layers=2); see {STACKED_QUEUE}")
         self.replicas = nn.ModuleList(replicas)
 
     @staticmethod
@@ -307,15 +313,20 @@ class StackedLstmEncoder(nn.Module):
         return len(self.replicas)
 
     def check_groups(self, n_t: int, rows: int, has_mask: bool,
-                     window_rows: int | None = None) -> None:
-        """Raise ``GroupingNotStackedError`` unless a forward over ``rows``
-        rows runs one depth-2 group (the solo encoder's rule)."""
-        groups = self.replicas[0].layer_groups(n_t, rows, has_mask, window_rows)
-        if groups != [2]:
+                     window_rows: int | None = None) -> list[int]:
+        """The groups a forward over ``rows`` rows runs (the solo encoder's
+        rule); raise ``GroupingNotStackedError`` if one of them is a layer
+        on the time-blocked route, whose kernels have no replica axis."""
+        first = self.replicas[0]
+        groups = first.layer_groups(n_t, rows, has_mask, window_rows)
+        if 1 in groups and single_layer_route(
+                n_t, rows, first.hidden_size,
+                window_rows) == "pallas-timeblocked":
             raise GroupingNotStackedError(
-                f"layer groups {groups} at T={n_t}, {rows} rows: stacked "
-                f"replicas run one depth-2 group (the pair) only; see "
-                f"{STACKED_QUEUE}")
+                f"layer groups {groups} at T={n_t}, {rows} rows: a single "
+                "layer there takes the time-blocked kernels, which have no "
+                f"replica axis yet; see {STACKED_QUEUE}")
+        return groups
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generators=None, masks=None,
@@ -336,13 +347,29 @@ class StackedLstmEncoder(nn.Module):
             ``(alpha (R, batch, 1), beta (R, batch, n_factors))``; replica
             r's rows are the solo encoder's on its windows and masks.
         """
+        outs = self.replica_outputs(x, deterministic=deterministic,
+                                    generators=generators, masks=masks,
+                                    window_rows=window_rows)
+        return (torch.stack([a for a, _ in outs]),
+                torch.stack([b for _, b in outs]))
+
+    def replica_outputs(self, x: torch.Tensor, *, deterministic: bool = True,
+                        generators=None, masks=None,
+                        window_rows: int | None = None) -> list:
+        """``forward``'s answers as one ``(alpha, beta)`` pair a replica,
+        each the solo encoder's own tensors: a training step takes its
+        losses from these, so that each replica's gradients flow back into
+        its heads in the solo layout (a slice of a stacked output would
+        hand its heads a gradient of another layout, whose bias reduction
+        sums in another order)."""
         n_rep = self.num_replicas
         shared = x.dim() == 3
         inputs = [(x if shared else x[r]).transpose(0, 1) for r in range(n_rep)]
         n_t, rows = inputs[0].shape[:2]
         first = self.replicas[0]
-        seams = None
-        if not deterministic and first.dropout > 0.0:
+        if deterministic or first.dropout <= 0.0:
+            masks = None
+        else:
             if masks is None:
                 gens = generators if generators is not None else [None] * n_rep
                 masks = [enc.draw_masks(n_t, rows, gen)
@@ -352,26 +379,45 @@ class StackedLstmEncoder(nn.Module):
                 raise ValueError(f"{n_rep} replicas of {first.num_layers} "
                                  f"layers take {n_rep} lists of "
                                  f"{first.n_masks} masks")
-            seams = torch.stack([m[0] for m in masks])
-        self.check_groups(n_t, rows, seams is not None, window_rows)
-        x_proj, w_hh1, w_ih2, bias2, w_hh2 = [], [], [], [], []
-        for enc, inp in zip(self.replicas, inputs):
-            w_ih, w_hh, b_ih, b_hh = enc._layer(0)
-            x_proj.append((torch.matmul(inp, w_ih.T) + (b_ih + b_hh))
-                          .contiguous())
-            w_hh1.append(w_hh.T.contiguous())
-            w_ih_a, w_hh_a, b_ih_a, b_hh_a = enc._layer(1)
-            w_hh2.append(w_hh_a.T.contiguous())
-            w_ih2.append(w_ih_a.T.contiguous())
-            bias2.append((b_ih_a + b_hh_a).contiguous())
-        args = (torch.stack(x_proj), torch.stack(w_hh1), torch.stack(w_ih2),
-                torch.stack(bias2), torch.stack(w_hh2), seams)
-        if first.remat and torch.is_grad_enabled():
-            h2s = checkpoint(lstm_pair_recurrence_stacked, *args,
-                             use_reentrant=False, preserve_rng_state=False)
-        else:
-            h2s = lstm_pair_recurrence_stacked(*args)
-        final = h2s[:, -1]
-        alphas = [enc.alpha_head(final[r]) for r, enc in enumerate(self.replicas)]
-        betas = [enc.beta_head(final[r]) for r, enc in enumerate(self.replicas)]
-        return torch.stack(alphas), torch.stack(betas)
+        groups = self.check_groups(n_t, rows, masks is not None, window_rows)
+        layers = [[enc._layer(layer) for layer in range(first.num_layers)]
+                  for enc in self.replicas]
+        layer = 0
+        for depth in groups:
+            # Each replica's input projection, its own product as in the
+            # solo encoder, then the group's operands stacked along R.
+            x_proj = torch.stack([
+                (torch.matmul(inp, lay[layer][0].T)
+                 + (lay[layer][2] + lay[layer][3])).contiguous()
+                for inp, lay in zip(inputs, layers)])
+            w_hhs, w_ins, biases = (
+                [torch.stack(parts) for parts in zip(*group)]
+                for group in zip(*(_group_weights(lay, layer, depth)
+                                   for lay in layers)))
+            seams = ([torch.stack([m[layer + i] for m in masks])
+                      for i in range(depth - 1)] if masks else None)
+            if depth >= 3:
+                run, args = lstm_stack_recurrence_stacked, (
+                    x_proj, (w_hhs, w_ins, biases), seams)
+            elif depth == 2:
+                run, args = lstm_pair_recurrence_stacked, (
+                    x_proj, w_hhs[0], w_ins[0], biases[0], w_hhs[1],
+                    seams[0] if seams else None)
+            else:
+                run = functools.partial(lstm_recurrence_stacked,
+                                        window_rows=window_rows)
+                args = (x_proj, w_hhs[0])
+            if first.remat and torch.is_grad_enabled():
+                hs = checkpoint(run, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+            else:
+                hs = run(*args)
+            layer += depth
+            if masks and layer < first.num_layers:
+                # The mask at a boundary between groups, the solo encoder's
+                # product replica by replica.
+                inputs = [hs[r] * masks[r][layer - 1] for r in range(n_rep)]
+            else:
+                inputs = list(hs)
+        return [(enc.alpha_head(inp[-1]), enc.beta_head(inp[-1]))
+                for enc, inp in zip(self.replicas, inputs)]

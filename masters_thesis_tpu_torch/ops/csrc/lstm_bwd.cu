@@ -325,15 +325,28 @@ lstm_pair_bwd_kernel(const float* __restrict__ dh2s, const float* __restrict__ x
 // gates in one pass, then step s's cell; d_pre[T] is a zero plane. One
 // barrier an iteration. Each lane's operands of the next iteration (x, c,
 // dh and the h rows it stages) are loaded from device memory one iteration
-// ahead. Shared memory: w_s [p][p + 1] float4, then the planes of
-// single_planes.
-template <int ROWS>
+// ahead. The replica axis, as in the pair's sweep: block (tile, r) runs
+// replica r of R stacked ones (dhs, hs, cs (R, T, B, H), x and dx
+// (R, T, B, 4H), w (R, H, 4H)); STACKED compiles the offsets in, and a solo
+// launch takes the instance without them. Shared memory: w_s [p][p + 1]
+// float4, then the planes of single_planes.
+template <int ROWS, bool STACKED>
 __global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
                 const float* __restrict__ hs, const float* __restrict__ cs,
                 const float* __restrict__ w, float* __restrict__ dx, int n_t,
                 int n_rows, int hidden) {
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
+  if constexpr (STACKED) {
+    const size_t rep = blockIdx.y;
+    const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
+    dhs += rep * plane;
+    x += rep * 4 * plane;
+    hs += rep * plane;
+    cs += rep * plane;
+    w += rep * hidden * 4 * hidden;
+    dx += rep * 4 * plane;
+  }
   extern __shared__ float4 smem[];
   const int p = sweep_pad(hidden);
   const int kq = p / 4;
@@ -768,17 +781,23 @@ int lstm_pair_bwd(const float* dh2s, const float* x1, const float* mask,
   }, replicas, tile));
 }
 
-// dx = d_pre (T, B, 4H) from dhs, hs, cs (T, B, H), x (T, B, 4H), w_t (H, 4H).
+// dx = d_pre (R, T, B, 4H) from dhs, hs, cs (R, T, B, H), x (R, T, B, 4H),
+// w_t (R, H, 4H): R replicas in one launch (R = 1: one layer). tile as in
+// lstm_fwd.
 int lstm_bwd(const float* dhs, const float* x, const float* hs, const float* cs,
              const float* w_t, float* dx, int n_t, int n_rows, int hidden,
-             int device, cudaStream_t stream) {
-  if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+             int replicas, int tile, int device, cudaStream_t stream) {
+  if (bad_shape(n_t, n_rows, hidden) || replicas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
-    return launch_sweep(lstm_bwd_kernel<kRows>, n_rows, kRows, 1,
+    const auto kernel = replicas > 1 ? lstm_bwd_kernel<kRows, true>
+                                     : lstm_bwd_kernel<kRows, false>;
+    return launch_sweep(kernel, n_rows, kRows, replicas,
                         single_sweep_smem(hidden, kRows), stream, dhs, x, hs,
                         cs, w_t, dx, n_t, n_rows, hidden);
-  }));
+  }, replicas, tile));
 }
 
 // Splits of the row range for n_jobs weight gradients: one wave of one

@@ -70,14 +70,25 @@ namespace {
 // lane reads its rows' x[t+1] from device memory into registers during step
 // t (FwdLane::load_x, clamped, branch-free), where the time-blocked kernel
 // copies chunks of x into shared memory. Warps with 8 w >= p only take part
-// in the barriers. Shared memory: two buffers of one h plane [ROWS][p + 16]
-// floats.
-template <int ROWS>
+// in the barriers. The replica axis, as in the pair's forward: block
+// (tile, r) runs replica r of R stacked ones, x (R, T, B, 4H), w (R, H, 4H),
+// hs and cs (R, T, B, H); STACKED compiles the offsets in, and a solo launch
+// takes the instance without them. Shared memory: two buffers of one h
+// plane [ROWS][p + 16] floats.
+template <int ROWS, bool STACKED>
 __global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 float* __restrict__ hs, float* __restrict__ cs,
                 int n_t, int n_rows, int hidden) {
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
+  if constexpr (STACKED) {
+    const size_t rep = blockIdx.y;
+    const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
+    x += rep * 4 * plane;
+    w += rep * hidden * 4 * hidden;
+    hs += rep * plane;
+    if (cs != nullptr) cs += rep * plane;
+  }
   extern __shared__ float4 smem[];
   const int p = sweep_pad(hidden);
   const int kq = p / 4;
@@ -320,16 +331,24 @@ const char* lstm_error_string(int err) {
 // Every entry point takes the CUDA device index of its pointers and stream:
 // this library links its own CUDA runtime, whose current device is set here.
 
-// hs (T, B, H) and optional cs (T, B, H) from x (T, B, 4H), w_t (H, 4H).
+// hs (R, T, B, H) and optional cs (R, T, B, H) from x (R, T, B, 4H), w_t
+// (R, H, 4H): R replicas in one launch (R = 1: one layer). tile 0 takes the
+// row tile from all R replicas' rows within the solo tile's summation class
+// (sweep_rows, the pair's rule); 1, 2, 4 or 8 names it.
 int lstm_fwd(const float* x, const float* w_t, float* hs, float* cs, int n_t,
-             int n_rows, int hidden, int device, cudaStream_t stream) {
-  if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+             int n_rows, int hidden, int replicas, int tile, int device,
+             cudaStream_t stream) {
+  if (bad_shape(n_t, n_rows, hidden) || replicas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
-    return launch_sweep(lstm_fwd_kernel<kRows>, n_rows, kRows, 1,
+    const auto kernel = replicas > 1 ? lstm_fwd_kernel<kRows, true>
+                                     : lstm_fwd_kernel<kRows, false>;
+    return launch_sweep(kernel, n_rows, kRows, replicas,
                         fwd_planes_bytes(hidden, kRows, 1), stream, x, w_t, hs,
                         cs, n_t, n_rows, hidden);
-  }));
+  }, replicas, tile));
 }
 
 // h2s (R, T, B, H) from x1 (R, T, B, 4H), the optional mask (R, T, B, H),
@@ -365,8 +384,9 @@ int lstm_pair_fwd(const float* x1, const float* mask, const float* w1_t,
   return static_cast<int>(err);
 }
 
-// The row tile a sweep or pair launch of R replicas of n_rows rows takes
-// (tile 0): what chip_smoke.py and the tests report beside the times.
+// The row tile a pair or single-layer launch (forward or sweep) of R
+// replicas of n_rows rows takes (tile 0): what chip_smoke.py and the tests
+// report beside the times.
 int lstm_sweep_tile(int n_rows, int replicas, int device, int* rows) {
   if (n_rows < 1 || replicas < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(sweep_rows(n_rows, device, rows, replicas));

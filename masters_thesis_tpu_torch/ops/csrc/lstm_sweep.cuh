@@ -226,7 +226,8 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // below 4 rows quarter_sum adds a unit's quarters by a butterfly, (q0 + q1)
 // + (q2 + q3), and the sweeps split their transposed products into a chain
 // a gate; from 4 rows the reduce-scatter adds (q0 + q2) + (q1 + q3); and
-// the card tests found 4 and 8 rows apart as well. So R replicas
+// the card tests found 4 and 8 rows apart as well (the pair's kernels, and
+// the single layer's forward, whose code is the same at both). So R replicas
 // whose solo tile is 1 or 2 rows take the smaller of 1 and 2 whose grid of
 // R x row tiles fits one wave, else 2; a solo tile of 4 or 8 rows stays:
 // R = 8 replicas of 100 rows (solo: 1-row tiles) take 2-row tiles, 400

@@ -16,7 +16,8 @@ time-blocked ones (``csrc/lstm_tb.cu``: h and c carried from one time chunk
 to the next, the recurrent weight gradient accumulated inside the sweep).
 Otherwise dispatch is on the tensors' device and nothing else: a CUDA
 tensor goes to the hand-written kernels in ``csrc/lstm_fwd.cu``,
-``csrc/lstm_bwd.cu``, ``csrc/lstm_stack.cu`` and ``csrc/lstm_tb.cu`` (or
+``csrc/lstm_bwd.cu``, ``csrc/lstm_stack.cu``, ``csrc/lstm_stack_bwd.cu``
+and ``csrc/lstm_tb.cu`` (or
 raises), a CPU tensor to the plain versions. When an input needs a gradient, the recurrence runs as a
 ``torch.autograd.Function`` whose forward also writes the stashes (h and c
 planes) and whose backward recomputes the gates from them, as the TPU
@@ -25,11 +26,13 @@ kernels do: the serial sweep (``lstm_pair_bwd`` / ``lstm_bwd`` /
 Each kernel counts its launches in ``LAUNCHES`` so a run can show that its
 main path went through it.
 
-The pair also runs with a replica axis (``lstm_pair_recurrence_stacked``,
-the counterpart of ``vmap`` over the JAX pair, which stacked training and
-serving run): R replicas' operands stacked on a leading axis, one launch of
-each pair kernel for all R, replica r's slice of every output the solo
-kernel's on its slices.
+The single layer, the pair and the stack also run with a replica axis
+(``lstm_recurrence_stacked``, ``lstm_pair_recurrence_stacked``,
+``lstm_stack_recurrence_stacked``: the counterparts of ``vmap`` over the
+JAX recurrences, which stacked training and serving run): R replicas'
+operands stacked on a leading axis, one launch of each kernel for all R,
+replica r's slice of every output the solo kernel's on its slices. The
+time-blocked kernels have no replica axis yet (``GroupingNotStackedError``).
 
 The CUDA kernels take f32 only and H <= 64; bf16 compute is not ported.
 """
@@ -51,7 +54,7 @@ MAX_HIDDEN = 64
 
 #: Depths the stack kernels take: the pair kernel is the 2-deep wavefront,
 #: and a cluster holds at most 8 CTAs, one a layer (``kMinLayers`` and
-#: ``kMaxLayers`` in csrc/lstm_stack.cu).
+#: ``kMaxLayers`` in csrc/lstm_stack.cuh).
 MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 
 #: Launches of each CUDA kernel since the last reset_launch_counts():
@@ -62,8 +65,8 @@ MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 #: forward and backward (its weight gradient included). A wrapper counts when
 #: it launches; a CUDA graph's replay adds the counts of its capture
 #: (``utils/cuda_graph.py``). The ``_stacked`` names count the replica-axis
-#: launches of the pair kernels (R replicas in one launch, stacked training
-#: and serving), apart from the solo launches of the same kernels.
+#: launches of the same kernels (R replicas in one launch, stacked training
+#: and serving), apart from their solo launches.
 LAUNCHES: dict[str, int] = {
     "lstm_pair_fwd": 0,
     "lstm_pair_fwd_masked": 0,
@@ -75,12 +78,22 @@ LAUNCHES: dict[str, int] = {
     "lstm_pair_fwd_masked_stacked": 0,
     "lstm_pair_bwd_stacked": 0,
     "lstm_wgrad_stacked": 0,
+    "lstm_fwd_stacked": 0,
+    "lstm_bwd_stacked": 0,
     "lstm_stack_fwd": 0,
     "lstm_stack_fwd_masked": 0,
     "lstm_stack_bwd": 0,
+    "lstm_stack_fwd_stacked": 0,
+    "lstm_stack_fwd_masked_stacked": 0,
+    "lstm_stack_bwd_stacked": 0,
     "lstm_tb_fwd": 0,
     "lstm_tb_bwd": 0,
 }
+
+
+class GroupingNotStackedError(NotImplementedError):
+    """A replica-axis run of a layer group whose kernels have no replica
+    axis yet: one layer on the reference's time-blocked route."""
 
 
 def reset_launch_counts() -> None:
@@ -305,6 +318,26 @@ def lstm_pair_wgrad_stacked_ref(dx1, d_pre2, h1s, h2s, mask=None):
     return _per_replica(lstm_pair_wgrad_ref, dx1, d_pre2, h1s, h2s, mask)
 
 
+def lstm_recurrence_stacked_ref(x_proj, w_hh_t, return_c: bool = False):
+    """Plain version of the replica-axis single layer: ``lstm_recurrence_ref``
+    on each replica's slices (``x_proj (R, T, B, 4H)``, ``w_hh_t (R, H,
+    4H)``), stacked: ``hs`` or ``(hs, cs)`` ``(R, T, B, H)``."""
+    return _per_replica(
+        lambda *a: lstm_recurrence_ref(*a, return_c=return_c), x_proj, w_hh_t)
+
+
+def lstm_bwd_stacked_ref(dhs, x_proj, hs, cs, w_hh_t):
+    """Plain version of the replica-axis single-layer sweep:
+    ``lstm_bwd_ref`` replica by replica; ``d_pre (R, T, B, 4H)``."""
+    return _per_replica(lstm_bwd_ref, dhs, x_proj, hs, cs, w_hh_t)
+
+
+def lstm_single_wgrad_stacked_ref(dx, hs):
+    """Plain version of one layer's recurrent weight gradient for R
+    replicas: ``sum h[t-1]ᵀ dx[t]`` replica by replica, ``(R, H, 4H)``."""
+    return _per_replica(lambda d, h: lstm_wgrad_ref(d, h, 1), dx, hs)
+
+
 def lstm_stack_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
                    return_stash: bool = False):
     """Plain version of the L-deep stack: chained loops and projections.
@@ -374,6 +407,56 @@ def lstm_stack_wgrad_ref(d_pres, hs, masks=None):
           for d_pre, src, shift, mask, _ in jobs]
     db = [d_pre.sum(dim=(0, 1)) for d_pre, *_ in jobs[n_layers:]]
     return dw[:n_layers], dw[n_layers:], db
+
+
+def _replica(group, r: int):
+    """Replica r's slices of a list of stacked tensors (None stays None)."""
+    return None if group is None else [t[r] for t in group]
+
+
+def _stack_lists(per_replica: list) -> list:
+    """R lists of per-layer tensors -> one list of per-layer ``(R, ...)``
+    stacks."""
+    return [torch.stack(parts) for parts in zip(*per_replica)]
+
+
+def lstm_stack_stacked_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
+                           return_stash: bool = False):
+    """Plain version of the replica-axis stack: ``lstm_stack_ref`` on each
+    replica's slices (``x1_proj (R, T, B, 4H)``, every weight ``(R, H,
+    4H)``, bias ``(R, 4H)``, mask ``(R, T, B, H)``), stacked: the top
+    layer's ``hs (R, T, B, H)``, or with ``return_stash`` the lists of
+    every layer's ``(R, T, B, H)`` h and c planes."""
+    outs = [lstm_stack_ref(x1_proj[r], _replica(w_hh_ts, r),
+                           _replica(w_in_ts, r), _replica(biases, r),
+                           _replica(masks, r), return_stash=return_stash)
+            for r in range(x1_proj.shape[0])]
+    if not return_stash:
+        return torch.stack(outs)
+    return (_stack_lists([h for h, _ in outs]),
+            _stack_lists([c for _, c in outs]))
+
+
+def lstm_stack_bwd_stacked_ref(dh_top, x1_proj, masks, hs, cs, w_hh_ts,
+                               w_in_ts, biases) -> list:
+    """Plain version of the replica-axis stack sweep: ``lstm_stack_bwd_ref``
+    replica by replica; every layer's ``d_pre (R, T, B, 4H)``."""
+    return _stack_lists([
+        lstm_stack_bwd_ref(dh_top[r], x1_proj[r], _replica(masks, r),
+                           _replica(hs, r), _replica(cs, r),
+                           _replica(w_hh_ts, r), _replica(w_in_ts, r),
+                           _replica(biases, r))
+        for r in range(x1_proj.shape[0])])
+
+
+def lstm_stack_wgrad_stacked_ref(d_pres, hs, masks=None):
+    """Plain version of the stack's weight gradients for R replicas:
+    ``lstm_stack_wgrad_ref`` replica by replica, each gradient ``(R, ...)``
+    in its list."""
+    outs = [lstm_stack_wgrad_ref(_replica(d_pres, r), _replica(hs, r),
+                                 _replica(masks, r))
+            for r in range(d_pres[0].shape[0])]
+    return tuple(_stack_lists([o[i] for o in outs]) for i in range(3))
 
 
 # ------------------------------------------- the reference's grouping rule
@@ -503,7 +586,7 @@ def _declare(lib: ctypes.CDLL, name: str, n_ptr: int, n_int: int) -> None:
 def _library() -> ctypes.CDLL:
     """csrc/lstm_fwd.cu, built at first use, with its functions' types."""
     lib = load_library("lstm_fwd")
-    _declare(lib, "lstm_fwd", 4, 4)
+    _declare(lib, "lstm_fwd", 4, 6)
     _declare(lib, "lstm_pair_fwd", 10, 6)
     lib.lstm_sweep_tile.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.lstm_sweep_tile.restype = ctypes.c_int
@@ -521,7 +604,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = load_library("lstm_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     _declare(lib, "lstm_pair_bwd", 13, 6)
-    _declare(lib, "lstm_bwd", 6, 4)
+    _declare(lib, "lstm_bwd", 6, 6)
     lib.lstm_wgrad_splits.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.lstm_wgrad_splits.restype = i32
     lib.lstm_wgrad.argtypes = [i32] + [ptr] * 7 + [i32] * 6 + [ptr]
@@ -532,18 +615,28 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
+def _declare_stack(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The stack's entry points' types on ``lib`` (csrc/lstm_stack.cu's or
+    csrc/lstm_stack_bwd.cu's build), whichever it holds."""
+    ptr, i32, out = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    arr = ctypes.POINTER(ctypes.c_void_p)
+    for name, argtypes in (
+            ("lstm_stack_fwd", [ptr] + [arr] * 6 + [i32] * 7 + [ptr]),
+            ("lstm_stack_row_tile", [i32] * 7 + [out]),
+            ("lstm_stack_bwd", [ptr, ptr] + [arr] * 7 + [i32] * 7 + [ptr]),
+            ("lstm_stack_bwd_row_tile", [i32] * 6 + [out])):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i32
+    return lib
+
+
 @functools.cache
 def _stack_library() -> ctypes.CDLL:
-    """csrc/lstm_stack.cu, built at first use, with its functions' types."""
-    lib = load_library("lstm_stack")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.lstm_stack_fwd.argtypes = [ptr] + [arr] * 6 + [i32] * 5 + [ptr]
-    lib.lstm_stack_fwd.restype = i32
-    lib.lstm_stack_bwd.argtypes = [ptr, ptr] + [arr] * 7 + [i32] * 5 + [ptr]
-    lib.lstm_stack_bwd.restype = i32
-    lib.lstm_stack_row_tile.argtypes = [i32] * 7 + [ctypes.POINTER(i32)]
-    lib.lstm_stack_row_tile.restype = i32
+    """csrc/lstm_stack.cu (the forward), built at first use, with its
+    functions' types."""
+    lib = _declare_stack(load_library("lstm_stack"))
+    i32 = ctypes.c_int
     for name in ("lstm_stack_max_layers", "lstm_stack_max_hidden"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
@@ -554,6 +647,13 @@ def _stack_library() -> ctypes.CDLL:
             f"the wrapper assumes {MAX_STACK_LAYERS}"
         )
     return lib
+
+
+@functools.cache
+def _stack_bwd_library() -> ctypes.CDLL:
+    """csrc/lstm_stack_bwd.cu (the backward sweep), built at first use,
+    with its functions' types."""
+    return _declare_stack(load_library("lstm_stack_bwd"))
 
 
 @functools.cache
@@ -646,24 +746,43 @@ def _stream(dev: torch.device) -> int:
     return stream
 
 
+def _launch_fwd(x_proj, w_hh_t, return_c: bool, lead: tuple, tile: int):
+    """One launch of the single-layer forward over ``lead`` (``()`` or
+    ``(R,)``) replicas, after the wrappers' checks."""
+    n_t, b, hidden = _shapes(x_proj[0] if lead else x_proj)
+    dev = x_proj.device
+    _check_operand("x_proj", x_proj, lead + (n_t, b, 4 * hidden), dev)
+    _check_operand("w_hh_t", w_hh_t, lead + (hidden, 4 * hidden), dev)
+    lib = _library()
+    hs = torch.empty(lead + (n_t, b, hidden), device=dev, dtype=torch.float32)
+    cs = torch.empty_like(hs) if return_c else None
+    err = lib.lstm_fwd(
+        x_proj.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), _ptr(cs),
+        n_t, b, hidden, lead[0] if lead else 1, tile, dev.index, _stream(dev),
+    )
+    name = "lstm_fwd_stacked" if lead else "lstm_fwd"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return (hs, cs) if return_c else hs
+
+
 def lstm_fwd_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                   return_c: bool = False):
     """Launch the single-layer kernel; ``hs`` or ``(hs, cs)`` as the plain
     version returns them."""
-    n_t, b, hidden = _shapes(x_proj)
-    dev = x_proj.device
-    _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
-    _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
-    lib = _library()
-    hs = torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
-    cs = torch.empty_like(hs) if return_c else None
-    err = lib.lstm_fwd(
-        x_proj.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), _ptr(cs),
-        n_t, b, hidden, dev.index, _stream(dev),
-    )
-    _raise_on_error("lstm_fwd", err)
-    LAUNCHES["lstm_fwd"] += 1
-    return (hs, cs) if return_c else hs
+    return _launch_fwd(x_proj, w_hh_t, return_c, (), 0)
+
+
+def lstm_fwd_stacked_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                          return_c: bool = False, tile: int = 0):
+    """Launch the single-layer kernel once for R replicas (``x_proj (R, T,
+    B, 4H)``, ``w_hh_t (R, H, 4H)``); ``hs`` or ``(hs, cs)`` ``(R, T, B,
+    H)``, each replica's slice the solo kernel's on its slices. ``tile`` 0
+    takes the row tile from the R replicas' rows within the solo tile's
+    summation class (``lstm_sweep_tile_cuda``, the pair's rule); 1, 2, 4 or
+    8 names it.
+    Counted as ``lstm_fwd_stacked``."""
+    return _launch_fwd(x_proj, w_hh_t, return_c, _replicas(x_proj)[:1], tile)
 
 
 def lstm_tb_fwd_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
@@ -841,8 +960,9 @@ def lstm_pair_bwd_stacked_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s,
 
 
 def lstm_sweep_tile_cuda(rows: int, replicas: int = 1, device=None) -> int:
-    """The row tile (1, 2, 4 or 8 rows a block) a pair forward or sweep of
-    ``replicas`` replicas of ``rows`` rows takes on the card."""
+    """The row tile (1, 2, 4 or 8 rows a block) a pair or single-layer
+    forward or sweep of ``replicas`` replicas of ``rows`` rows takes on the
+    card."""
     dev = torch.device("cuda" if device is None else device)
     tile = ctypes.c_int(0)
     _raise_on_error("lstm_sweep_tile", _library().lstm_sweep_tile(
@@ -850,25 +970,40 @@ def lstm_sweep_tile_cuda(rows: int, replicas: int = 1, device=None) -> int:
     return tile.value
 
 
-def lstm_bwd_cuda(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
-    """Launch the single-layer backward sweep; returns ``d_pre``
-    ``(T, B, 4H)`` as ``lstm_bwd_ref`` does."""
-    n_t, b, hidden = _shapes(x_proj)
+def _launch_bwd(dhs, x_proj, hs, cs, w_hh_t, lead: tuple, tile: int):
+    n_t, b, hidden = _shapes(x_proj[0] if lead else x_proj)
     dev = x_proj.device
-    _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
+    _check_operand("x_proj", x_proj, lead + (n_t, b, 4 * hidden), dev)
     for name, t in (("dhs", dhs), ("hs", hs), ("cs", cs)):
-        _check_operand(name, t, (n_t, b, hidden), dev)
-    _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
+        _check_operand(name, t, lead + (n_t, b, hidden), dev)
+    _check_operand("w_hh_t", w_hh_t, lead + (hidden, 4 * hidden), dev)
     lib = _bwd_library()
     dx = torch.empty_like(x_proj)
     err = lib.lstm_bwd(
         dhs.data_ptr(), x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        w_hh_t.data_ptr(), dx.data_ptr(), n_t, b, hidden, dev.index,
-        _stream(dev),
+        w_hh_t.data_ptr(), dx.data_ptr(), n_t, b, hidden,
+        lead[0] if lead else 1, tile, dev.index, _stream(dev),
     )
-    _raise_on_error("lstm_bwd", err)
-    LAUNCHES["lstm_bwd"] += 1
+    name = "lstm_bwd_stacked" if lead else "lstm_bwd"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return dx
+
+
+def lstm_bwd_cuda(dhs, x_proj, hs, cs, w_hh_t) -> torch.Tensor:
+    """Launch the single-layer backward sweep; returns ``d_pre``
+    ``(T, B, 4H)`` as ``lstm_bwd_ref`` does."""
+    return _launch_bwd(dhs, x_proj, hs, cs, w_hh_t, (), 0)
+
+
+def lstm_bwd_stacked_cuda(dhs, x_proj, hs, cs, w_hh_t,
+                          tile: int = 0) -> torch.Tensor:
+    """Launch the single-layer sweep once for R replicas (every operand
+    with a leading R axis); ``d_pre (R, T, B, 4H)``, each replica's slice
+    the solo sweep's. ``tile`` as in ``lstm_fwd_stacked_cuda``; counted as
+    ``lstm_bwd_stacked``."""
+    return _launch_bwd(dhs, x_proj, hs, cs, w_hh_t, _replicas(x_proj)[:1],
+                       tile)
 
 
 def lstm_wgrad_cuda(jobs) -> list:
@@ -931,9 +1066,11 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * max(1, len(tensors)))(*map(_ptr, tensors))
 
 
-def _check_stack(x1_proj, w_hh_ts, w_in_ts, biases, masks, planes=()):
-    """Shapes, device, dtype and contiguity of a stack call; its sizes."""
-    n_t, b, hidden = _shapes(x1_proj)
+def _check_stack(x1_proj, w_hh_ts, w_in_ts, biases, masks, planes=(),
+                 lead: tuple = ()):
+    """Shapes, device, dtype and contiguity of a stack call over ``lead``
+    (``()`` or ``(R,)``) replicas; its sizes."""
+    n_t, b, hidden = _shapes(x1_proj[0] if lead else x1_proj)
     n_layers = len(w_hh_ts)
     if not MIN_STACK_LAYERS <= n_layers <= MAX_STACK_LAYERS:
         raise ValueError(
@@ -946,16 +1083,43 @@ def _check_stack(x1_proj, w_hh_ts, w_in_ts, biases, masks, planes=()):
         raise ValueError(f"{n_layers} layers take {seams} seam weights, "
                          f"biases and masks each")
     dev = x1_proj.device
-    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev)
+    _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev)
     for name, group in (("w_hh_ts", w_hh_ts), ("w_in_ts", w_in_ts)):
         for i, w in enumerate(group):
-            _check_operand(f"{name}[{i}]", w, (hidden, 4 * hidden), dev)
+            _check_operand(f"{name}[{i}]", w, lead + (hidden, 4 * hidden), dev)
     for i, bias in enumerate(biases):
-        _check_operand(f"biases[{i}]", bias, (4 * hidden,), dev)
+        _check_operand(f"biases[{i}]", bias, lead + (4 * hidden,), dev)
     for name, group in (("masks", masks or ()),) + tuple(planes):
         for i, t in enumerate(group):
-            _check_operand(f"{name}[{i}]", t, (n_t, b, hidden), dev)
+            _check_operand(f"{name}[{i}]", t, lead + (n_t, b, hidden), dev)
     return n_t, b, hidden, n_layers, dev
+
+
+def _launch_stack_fwd(x1_proj, w_hh_ts, w_in_ts, biases, masks, stash: bool,
+                      lead: tuple, tile: int):
+    n_t, b, hidden, n_layers, dev = _check_stack(x1_proj, w_hh_ts, w_in_ts,
+                                                 biases, masks, lead=lead)
+    lib = _stack_library()
+
+    def plane():
+        return torch.empty(lead + (n_t, b, hidden), device=dev,
+                           dtype=torch.float32)
+
+    hs = [plane() if stash or layer == n_layers - 1 else None
+          for layer in range(n_layers)]
+    cs = [plane() if stash else None for _ in range(n_layers)]
+    err = lib.lstm_stack_fwd(
+        x1_proj.data_ptr(), None if masks is None else _pointers(masks),
+        _pointers(w_hh_ts), _pointers(w_in_ts), _pointers(biases),
+        _pointers(hs), _pointers(cs), n_layers, n_t, b, hidden,
+        lead[0] if lead else 1, tile, dev.index, _stream(dev),
+    )
+    name = "lstm_stack_fwd" if masks is None else "lstm_stack_fwd_masked"
+    if lead:
+        name += "_stacked"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return (hs, cs) if stash else hs[-1]
 
 
 def lstm_stack_fwd_cuda(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
@@ -964,64 +1128,85 @@ def lstm_stack_fwd_cuda(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
     ``(T, B, H)``, or with ``stash`` ``(hs, cs)`` as ``lstm_stack_ref``
     returns them. ``masks`` selects the masked instance (counted as
     ``lstm_stack_fwd_masked``)."""
-    n_t, b, hidden, n_layers, dev = _check_stack(x1_proj, w_hh_ts, w_in_ts,
-                                                 biases, masks)
-    lib = _stack_library()
-
-    def plane():
-        return torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
-
-    hs = [plane() if stash or layer == n_layers - 1 else None
-          for layer in range(n_layers)]
-    cs = [plane() if stash else None for _ in range(n_layers)]
-    err = lib.lstm_stack_fwd(
-        x1_proj.data_ptr(), None if masks is None else _pointers(masks),
-        _pointers(w_hh_ts), _pointers(w_in_ts), _pointers(biases),
-        _pointers(hs), _pointers(cs), n_layers, n_t, b, hidden, dev.index,
-        _stream(dev),
-    )
-    name = "lstm_stack_fwd" if masks is None else "lstm_stack_fwd_masked"
-    _raise_on_error(name, err)
-    LAUNCHES[name] += 1
-    return (hs, cs) if stash else hs[-1]
+    return _launch_stack_fwd(x1_proj, w_hh_ts, w_in_ts, biases, masks, stash,
+                             (), 0)
 
 
-def lstm_stack_bwd_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
-                        biases) -> list:
-    """Launch the stack's backward sweep; returns every layer's ``d_pre``
-    ``(T, B, 4H)`` as ``lstm_stack_bwd_ref`` does."""
+def lstm_stack_fwd_stacked_cuda(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
+                                stash: bool = False, tile: int = 0):
+    """Launch the stack's forward once for R replicas: ``x1_proj (R, T, B,
+    4H)``, each layer's weight ``(R, H, 4H)``, each seam's bias ``(R, 4H)``
+    and mask ``(R, T, B, H)``; the top layer's ``hs (R, T, B, H)`` (and with
+    ``stash`` every layer's h and c, likewise), each replica's slice the
+    solo launch's. ``tile`` 0 takes the row tile from the R replicas' rows
+    within the solo tile's summation class; 1, 2, 4 or 8 names it. Counted
+    as ``lstm_stack_fwd_stacked`` or ``lstm_stack_fwd_masked_stacked``."""
+    return _launch_stack_fwd(x1_proj, w_hh_ts, w_in_ts, biases, masks, stash,
+                             _replicas(x1_proj)[:1], tile)
+
+
+def _launch_stack_bwd(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
+                      biases, lead: tuple, tile: int) -> list:
     n_t, b, hidden, n_layers, dev = _check_stack(
         x1_proj, w_hh_ts, w_in_ts, biases, masks,
-        planes=(("dh_top", (dh_top,)), ("hs", hs), ("cs", cs)))
+        planes=(("dh_top", (dh_top,)), ("hs", hs), ("cs", cs)), lead=lead)
     if len(hs) != n_layers or len(cs) != n_layers:
         raise ValueError(f"{n_layers} layers take {n_layers} h and c stashes")
-    lib = _stack_library()
+    lib = _stack_bwd_library()
     d_pres = [torch.empty_like(x1_proj) for _ in range(n_layers)]
     err = lib.lstm_stack_bwd(
         dh_top.data_ptr(), x1_proj.data_ptr(),
         None if masks is None else _pointers(masks), _pointers(hs),
         _pointers(cs), _pointers(w_hh_ts), _pointers(w_in_ts),
         _pointers(biases), _pointers(d_pres), n_layers, n_t, b, hidden,
-        dev.index, _stream(dev),
+        lead[0] if lead else 1, tile, dev.index, _stream(dev),
     )
-    _raise_on_error("lstm_stack_bwd", err)
-    LAUNCHES["lstm_stack_bwd"] += 1
+    name = "lstm_stack_bwd_stacked" if lead else "lstm_stack_bwd"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
     return d_pres
+
+
+def lstm_stack_bwd_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
+                        biases) -> list:
+    """Launch the stack's backward sweep; returns every layer's ``d_pre``
+    ``(T, B, 4H)`` as ``lstm_stack_bwd_ref`` does."""
+    return _launch_stack_bwd(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
+                             biases, (), 0)
+
+
+def lstm_stack_bwd_stacked_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts,
+                                w_in_ts, biases, tile: int = 0) -> list:
+    """Launch the stack's backward sweep once for R replicas (every operand
+    with a leading R axis, the per-layer ones in their lists); every layer's
+    ``d_pre (R, T, B, 4H)``, each replica's slice the solo sweep's. ``tile``
+    as in ``lstm_stack_fwd_stacked_cuda``; counted as
+    ``lstm_stack_bwd_stacked``."""
+    return _launch_stack_bwd(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
+                             biases, _replicas(x1_proj)[:1], tile)
 
 
 def lstm_stack_row_tile_cuda(n_layers: int, rows: int, hidden: int,
                              device: torch.device, backward: bool,
-                             masked: bool = False, stash: bool = False) -> int:
-    """The row tile a stack launch of ``n_layers`` layers on ``rows`` rows
-    takes on ``device``: the forward's (with or without the mask and the
-    stash) or the backward sweep's (with or without the mask)."""
+                             masked: bool = False, stash: bool = False,
+                             replicas: int = 1) -> int:
+    """The row tile a stack launch of ``n_layers`` layers on ``replicas``
+    replicas of ``rows`` rows takes on ``device``: the forward's (with or
+    without the mask and the stash) or the backward sweep's (with or
+    without the mask)."""
     _check_sizes(1, rows, hidden)
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
     tile = ctypes.c_int(0)
-    _raise_on_error("lstm_stack_row_tile", _stack_library().lstm_stack_row_tile(
-        n_layers, rows, hidden, int(backward), int(masked), int(stash), index,
-        ctypes.byref(tile)))
+    if backward:
+        err = _stack_bwd_library().lstm_stack_bwd_row_tile(
+            n_layers, rows, hidden, int(masked), replicas, index,
+            ctypes.byref(tile))
+    else:
+        err = _stack_library().lstm_stack_row_tile(
+            n_layers, rows, hidden, int(masked), int(stash), replicas, index,
+            ctypes.byref(tile))
+    _raise_on_error("lstm_stack_row_tile", err)
     return tile.value
 
 
@@ -1071,6 +1256,30 @@ def lstm_single_wgrad(dx, hs) -> torch.Tensor:
     if _device_type(dx) == "cpu":
         return lstm_wgrad_ref(dx, hs, 1)
     return lstm_wgrad_cuda([(dx, hs, 1, None, False)])[0][0]
+
+
+def lstm_single_wgrad_stacked(dx, hs) -> torch.Tensor:
+    """One layer's recurrent weight gradient for R replicas ``(R, H, 4H)``:
+    one launch of the pass over R x 1 job for a CUDA tensor
+    (``lstm_wgrad_stacked``), the plain version replica by replica for a
+    CPU tensor."""
+    if _device_type(dx) == "cpu":
+        return lstm_single_wgrad_stacked_ref(dx, hs)
+    return _launch_wgrad([(dx, hs, 1, None, False)], _replicas(dx)[:1])[0][0]
+
+
+def lstm_stack_wgrad_stacked(d_pres, hs, masks=None):
+    """The stack's weight gradients for R replicas, each ``(R, ...)`` in
+    its list: one launch of the pass over R x (2L - 1) jobs for a CUDA
+    tensor (``lstm_wgrad_stacked``), the plain version replica by replica
+    for a CPU tensor."""
+    if _device_type(d_pres[0]) == "cpu":
+        return lstm_stack_wgrad_stacked_ref(d_pres, hs, masks)
+    n_layers = len(d_pres)
+    outs = _launch_wgrad(_stack_wgrad_jobs(d_pres, hs, masks),
+                         _replicas(d_pres[0])[:1])
+    return ([dw for dw, _ in outs[:n_layers]], [dw for dw, _ in outs[n_layers:]],
+            [db for _, db in outs[n_layers:]])
 
 
 # ------------------------------------------------------ autograd functions
@@ -1169,6 +1378,32 @@ class _SingleFunction(torch.autograd.Function):
         return dx, lstm_single_wgrad(dx, hs)
 
 
+class _StackedSingleFunction(torch.autograd.Function):
+    """R single layers with a leading replica axis on every operand, each
+    replica's forward, sweep and weight gradient those of
+    ``_SingleFunction`` on its slices: one launch of each kernel for all R
+    on the card."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh_t):
+        if _device_type(x_proj) == "cuda":
+            hs, cs = lstm_fwd_stacked_cuda(x_proj, w_hh_t, return_c=True)
+        else:
+            hs, cs = lstm_recurrence_stacked_ref(x_proj, w_hh_t, return_c=True)
+        ctx.save_for_backward(x_proj, w_hh_t, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x_proj, w_hh_t, hs, cs = ctx.saved_tensors
+        args = (dhs.contiguous(), x_proj, hs, cs, w_hh_t)
+        if _device_type(x_proj) == "cuda":
+            dx = lstm_bwd_stacked_cuda(*args)
+        else:
+            dx = lstm_bwd_stacked_ref(*args)
+        return dx, lstm_single_wgrad_stacked(dx, hs)
+
+
 class _TimeBlockedFunction(torch.autograd.Function):
     """One layer through the time-blocked kernels (long lookbacks): the
     forward writes the c stash, the backward recomputes the gates from it
@@ -1232,6 +1467,43 @@ class _StackFunction(torch.autograd.Function):
         return (d_pres[0], None, None, *dw_hh, *dw_in, *db, *no_masks)
 
 
+class _StackedStackFunction(torch.autograd.Function):
+    """R L-deep stacks with a leading replica axis on every operand (the
+    flat argument layout of ``_StackFunction``), each replica's forward,
+    sweep and weight gradients those of ``_StackFunction`` on its slices:
+    one launch of each kernel for all R on the card."""
+
+    @staticmethod
+    def forward(ctx, x1_proj, n_layers, has_mask, *tensors):
+        w_hh, w_in, biases, masks = _split_stack(tensors, n_layers, has_mask)
+        if _device_type(x1_proj) == "cuda":
+            hs, cs = lstm_stack_fwd_stacked_cuda(x1_proj, w_hh, w_in, biases,
+                                                 masks, stash=True)
+        else:
+            hs, cs = lstm_stack_stacked_ref(x1_proj, w_hh, w_in, biases, masks,
+                                            return_stash=True)
+        ctx.n_layers, ctx.has_mask = n_layers, has_mask
+        ctx.save_for_backward(x1_proj, *tensors, *hs, *cs)
+        return hs[-1]
+
+    @staticmethod
+    def backward(ctx, dh_top):
+        n_layers = ctx.n_layers
+        x1_proj, *rest = ctx.saved_tensors
+        n_in = len(rest) - 2 * n_layers
+        w_hh, w_in, biases, masks = _split_stack(rest[:n_in], n_layers,
+                                                 ctx.has_mask)
+        hs, cs = rest[n_in:n_in + n_layers], rest[n_in + n_layers:]
+        args = (dh_top.contiguous(), x1_proj, masks, hs, cs, w_hh, w_in, biases)
+        if _device_type(x1_proj) == "cuda":
+            d_pres = lstm_stack_bwd_stacked_cuda(*args)
+        else:
+            d_pres = lstm_stack_bwd_stacked_ref(*args)
+        dw_hh, dw_in, db = lstm_stack_wgrad_stacked(d_pres, hs, masks)
+        no_masks = [None] * (n_layers - 1 if ctx.has_mask else 0)
+        return (d_pres[0], None, None, *dw_hh, *dw_in, *db, *no_masks)
+
+
 def _split_stack(tensors, n_layers: int, has_mask: bool):
     """``(w_hh, w_in, biases, masks or None)`` from the flat tensor list."""
     seams = n_layers - 1
@@ -1281,6 +1553,38 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     if _device_type(x_proj) == "cuda":
         return lstm_fwd_cuda(x_proj, w_hh_t)
     return lstm_recurrence_ref(x_proj, w_hh_t)
+
+
+def lstm_recurrence_stacked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                            window_rows: int | None = None) -> torch.Tensor:
+    """R independent single layers, one per replica, as one recurrence: the
+    counterpart of ``vmap`` over the JAX ``lstm_recurrence``.
+
+    Args:
+        x_proj: ``(R, T, B, 4H)`` each replica's input projections.
+        w_hh_t: ``(R, H, 4H)`` each replica's transposed recurrent weight.
+        window_rows: as in ``lstm_recurrence``; the route is taken on one
+            replica's ``(T, B)`` rows, as ``vmap`` keeps it.
+
+    Returns:
+        ``(R, T, B, H)`` hidden states; replica r's slice is what
+        ``lstm_recurrence`` gives on replica r's slices. On the card each
+        resident kernel launches once for all R replicas (the ``_stacked``
+        counts), or raises; a CPU tensor runs the plain versions replica by
+        replica. Where the reference takes its time-blocked kernels, which
+        have no replica axis yet, it raises ``GroupingNotStackedError``.
+    """
+    n_t, b = x_proj.shape[1:3]
+    hidden = w_hh_t.shape[-2]
+    if single_layer_route(n_t, b, hidden, window_rows) == "pallas-timeblocked":
+        raise GroupingNotStackedError(
+            f"one layer at T={n_t}, {b} rows, H={hidden} takes the "
+            "time-blocked kernels, which have no replica axis yet")
+    if _needs_grad(x_proj, w_hh_t):
+        return _StackedSingleFunction.apply(x_proj, w_hh_t)
+    if _device_type(x_proj) == "cuda":
+        return lstm_fwd_stacked_cuda(x_proj, w_hh_t)
+    return lstm_recurrence_stacked_ref(x_proj, w_hh_t)
 
 
 def lstm_pair_recurrence(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
@@ -1367,3 +1671,33 @@ def lstm_stack_recurrence(x1_proj, weights, masks=None):
     if _device_type(x1_proj) == "cuda":
         return lstm_stack_fwd_cuda(x1_proj, w_hh_ts, w_in_ts, biases, masks)
     return lstm_stack_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks)
+
+
+def lstm_stack_recurrence_stacked(x1_proj, weights, masks=None):
+    """R independent L-deep stacks, one per replica, as one recurrence: the
+    counterpart of ``vmap`` over the JAX ``lstm_stack_recurrence``.
+
+    Args:
+        x1_proj: ``(R, T, B, 4H)`` each replica's layer-0 projections.
+        weights: ``(w_hh_ts, w_in_ts, biases)`` as in
+            ``lstm_stack_recurrence``, each entry with a leading R axis:
+            ``(R, H, 4H)`` weights, ``(R, 4H)`` biases.
+        masks: optional L - 1 ``(R, T, B, H)`` pre-scaled seam masks.
+
+    Returns:
+        ``(R, T, B, H)`` top-layer hidden states; replica r's slice is what
+        ``lstm_stack_recurrence`` gives on replica r's slices. On the card
+        each kernel launches once for all R replicas (the ``_stacked``
+        counts), or raises; a CPU tensor runs the plain versions replica by
+        replica.
+    """
+    w_hh_ts, w_in_ts, biases = (tuple(part) for part in weights)
+    masks = None if masks is None else tuple(masks)
+    if _needs_grad(x1_proj, *w_hh_ts, *w_in_ts, *biases):
+        return _StackedStackFunction.apply(
+            x1_proj, len(w_hh_ts), masks is not None, *w_hh_ts, *w_in_ts,
+            *biases, *(masks or ()))
+    if _device_type(x1_proj) == "cuda":
+        return lstm_stack_fwd_stacked_cuda(x1_proj, w_hh_ts, w_in_ts, biases,
+                                           masks)
+    return lstm_stack_stacked_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks)

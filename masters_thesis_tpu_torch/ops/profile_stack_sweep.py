@@ -3,8 +3,9 @@ spends its time, in clock64 cycles, on the card.
 
     python3 -m masters_thesis_tpu_torch.ops.profile_stack_sweep
 
-Builds ``csrc/lstm_stack.cu`` once more with ``-DLSTM_STACK_STAMPS`` (a
-library of its own under ``ops/_build/``), in which thread 0 of one CTA
+Builds ``csrc/lstm_stack.cu`` and ``csrc/lstm_stack_bwd.cu`` once more
+with ``-DLSTM_STACK_STAMPS`` (libraries of their own under
+``ops/_build/``), in which thread 0 of one CTA
 stamps ``clock64`` at eight points of every iteration, and runs the sweep
 and the forward (masked, with the stashes) through the usual wrappers on
 that library: at L=4 on 25 and 200 rows and L=8 on 25 rows (T=60, H=64,
@@ -30,7 +31,7 @@ from masters_thesis_tpu_torch.ops import _build
 from masters_thesis_tpu_torch.ops import lstm_kernel as lk
 
 FLAGS = (*_build.NVCC_FLAGS, "-DLSTM_STACK_STAMPS")
-STAMP_ITERS = 512  # kStampIters in csrc/lstm_stack.cu
+STAMP_ITERS = 512  # kStampIters in csrc/lstm_stack.cuh
 SEGMENTS = {
     "sweep": ("stash loads", "pass", "cluster wait, push, inbox wait", "cell",
               "d_pre plane", "arrive", "device stores, staging, CTA barrier"),
@@ -43,26 +44,20 @@ RUN_STAMP = {"sweep": 1, "forward": 3}
 T, H = 60, 64
 
 
-def build() -> ctypes.CDLL:
-    """csrc/lstm_stack.cu with the stamps, with the wrapper's function types."""
-    source = _build.CSRC_DIR / "lstm_stack.cu"
+def build(stem: str) -> ctypes.CDLL:
+    """csrc/<stem>.cu with the stamps, with the wrapper's function types."""
+    source = _build.CSRC_DIR / f"{stem}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(_build.CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(source.read_bytes() + headers
                             + "\0".join(FLAGS).encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"liblstm_stack_stamps-{digest}.so"
+    out = _build.BUILD_DIR / f"lib{stem}_stamps-{digest}.so"
     if not out.is_file():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build.nvcc_path(), *FLAGS, "-o", str(out), str(source)],
                        check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    arr = ctypes.POINTER(ctypes.c_void_p)
-    lib.lstm_stack_bwd.argtypes = [ptr, ptr] + [arr] * 7 + [i32] * 5 + [ptr]
-    lib.lstm_stack_bwd.restype = i32
-    lib.lstm_stack_fwd.argtypes = [ptr] + [arr] * 6 + [i32] * 5 + [ptr]
-    lib.lstm_stack_fwd.restype = i32
-    lib.lstm_stack_stamps.argtypes = [i32, ptr]
-    lib.lstm_stack_stamps.restype = i32
+    lib = lk._declare_stack(ctypes.CDLL(str(out)))
+    lib.lstm_stack_stamps.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.lstm_stack_stamps.restype = ctypes.c_int
     return lib
 
 
@@ -93,8 +88,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    lib = build()
-    lk._stack_library = lambda: lib  # the wrapper launches the stamped build
+    libs = {"sweep": build("lstm_stack_bwd"), "forward": build("lstm_stack")}
+    # The wrappers launch the stamped builds.
+    lk._stack_bwd_library = lambda: libs["sweep"]
+    lk._stack_library = lambda: libs["forward"]
     stamps = np.zeros((STAMP_ITERS, 8), dtype=np.int64)
     for n_layers, rows in ((4, 25), (4, 200), (8, 25)):
         args = inputs(n_layers, rows, seed=rows)
@@ -106,6 +103,7 @@ def main() -> int:
                         T + n_layers - 1),
         }
         for kernel, (call, iters) in calls.items():
+            lib = libs[kernel]
             for layer in (0, 1, n_layers - 1):
                 # The CTA of `layer` in the first cluster is block `layer`.
                 if lib.lstm_stack_stamps(layer, stamps.ctypes.data) != 0:

@@ -29,7 +29,9 @@ varied batch sizes and holds the serving contract:
   bucket at every lane count (R = 1, 2, 4) on the card (none on the CPU),
   and each bucket's graph launches the replica-axis pair forward once
   whatever R: the lane count is a data dimension, never a program one
-  (the JAX rule reads the compiled HLO for the same).
+  (the JAX rule reads the compiled HLO for the same). The other groupings
+  the lanes take, one layer and a 4-deep stack, at R = 2: one graph a
+  bucket, each launching its group's replica-axis forward once.
 - **SV308**, per lane: ``try_swap_lane`` on the last lane of the R = 4
   stack, committed while a server carries steady load, captures nothing,
   resolves every request, delivers no answer late, and leaves every
@@ -62,6 +64,10 @@ PREFLIGHT_FEATURES = 3
 PREFLIGHT_BUCKETS = (1, 2, 4, 8)
 PREFLIGHT_REQUESTS = 12
 PREFLIGHT_LANES = (1, 2, 4)
+#: Depths of the other stacked groupings held by SV307 at R = 2 (H=8 and
+#: lookback 8 fuse up to 8 layers, so 4 layers are one 4-deep stack), and
+#: the replica-axis forward each bucket's graph launches once.
+PREFLIGHT_DEPTHS = {1: "lstm_fwd_stacked", 4: "lstm_stack_fwd_stacked"}
 
 
 def _preflight_spec():
@@ -266,47 +272,69 @@ def _swap_under_load(engine, spec, facts: dict) -> list[Finding]:
     return _load_findings("swap", run)
 
 
-def _stacked_spec():
+def _stacked_spec(num_layers: int = 2):
     from masters_thesis_tpu_torch.models.objectives import ModelSpec
 
-    return ModelSpec(objective="mse", hidden_size=8, num_layers=2,
+    return ModelSpec(objective="mse", hidden_size=8, num_layers=num_layers,
                      dropout=0.0)
 
 
-def _stacked(device, facts: dict) -> list[Finding]:
-    """SV307 over lane counts, then SV308 for one lane of the largest."""
+def _stacked_engine(spec, states, device):
     from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
 
+    engine = StackedPredictEngine(
+        spec, states, n_stocks=PREFLIGHT_STOCKS, lookback=PREFLIGHT_LOOKBACK,
+        n_features=PREFLIGHT_FEATURES, buckets=PREFLIGHT_BUCKETS,
+        device=device)
+    engine.warmup()
+    return engine
+
+
+def _graph_findings(engine, what: str, counter: str, facts: dict
+                    ) -> list[Finding]:
+    """SV307 for one warmed stacked engine: one capture a bucket on the
+    card (none on the CPU), each bucket's graph one launch of ``counter``
+    and nothing else."""
+    on_card = engine.device.type == "cuda" and engine.graphed
+    launches = {b: dict(p.run.launches) for b, p in engine._programs.items()
+                if p.captured}
+    facts[what] = {"captures": engine.compile_events, "launches": launches}
+    findings = []
+    want = len(engine.buckets) if on_card else 0
+    if engine.compile_events != want:
+        findings.append(Finding(
+            rule="SV307",
+            message=f"{what}: warmup captured {engine.compile_events} "
+            f"graphs for {len(engine.buckets)} buckets (expected {want}: "
+            "the lane count must not multiply programs)"))
+    for b, counts in launches.items():
+        if counts != {counter: 1}:
+            findings.append(Finding(
+                rule="SV307",
+                message=f"{what}, bucket {b}: the graph launches {counts} "
+                f"(expected one {counter} for all lanes)"))
+    return findings
+
+
+def _stacked(device, facts: dict) -> list[Finding]:
+    """SV307 over lane counts and groupings, then SV308 for one lane of
+    the largest pair stack."""
     findings: list[Finding] = []
     spec = _stacked_spec()
     states = [_state(spec, seed) for seed in range(max(PREFLIGHT_LANES) + 1)]
-    facts["stacked"] = stacked = {}
+    facts["stacked"] = {}
     engine = None
     for lanes in PREFLIGHT_LANES:
-        engine = StackedPredictEngine(
-            spec, states[:lanes], n_stocks=PREFLIGHT_STOCKS,
-            lookback=PREFLIGHT_LOOKBACK, n_features=PREFLIGHT_FEATURES,
-            buckets=PREFLIGHT_BUCKETS, device=device)
-        engine.warmup()
-        on_card = engine.device.type == "cuda" and engine.graphed
-        launches = {b: dict(p.run.launches) for b, p in engine._programs.items()
-                    if p.captured}
-        stacked[f"R{lanes}"] = {"captures": engine.compile_events,
-                                "launches": launches}
-        want = len(engine.buckets) if on_card else 0
-        if engine.compile_events != want:
-            findings.append(Finding(
-                rule="SV307",
-                message=f"R={lanes}: warmup captured {engine.compile_events} "
-                f"graphs for {len(engine.buckets)} buckets (expected {want}: "
-                "the lane count must not multiply programs)"))
-        for b, counts in launches.items():
-            if counts != {"lstm_pair_fwd_stacked": 1}:
-                findings.append(Finding(
-                    rule="SV307",
-                    message=f"R={lanes}, bucket {b}: the graph launches "
-                    f"{counts} (expected one replica-axis pair forward for "
-                    "all lanes)"))
+        engine = _stacked_engine(spec, states[:lanes], device)
+        findings += _graph_findings(engine, f"R{lanes}",
+                                    "lstm_pair_fwd_stacked", facts["stacked"])
+    facts["stacked_depths"] = {}
+    for depth, counter in PREFLIGHT_DEPTHS.items():
+        other = _stacked_spec(depth)
+        findings += _graph_findings(
+            _stacked_engine(other, [_state(other, seed) for seed in range(2)],
+                            device),
+            f"L{depth}", counter, facts["stacked_depths"])
     findings += _lane_swap_under_load(engine, spec, states[-1], facts)
     return findings
 

@@ -7,8 +7,9 @@ them at once: ``predict`` maps ``x (n, K, T, F)`` to batch-major
 ``(alpha (n, R, K), beta (n, R, K))``, so ``alpha[i]`` is request i's
 ``(R, K)`` fan-out, as the server's dispatch loop indexes a solo engine's
 answers. A bucket is one program, as in the solo engine: on the card one
-CUDA graph a bucket, captured by ``warmup`` and replayed, whose recurrence
-is one replica-axis launch of the maskless pair forward over all R lanes
+CUDA graph a bucket, captured by ``warmup`` and replayed, in which each
+layer group's recurrence is one replica-axis launch of its maskless
+forward (the pair's, the single layer's or the stack's) over all R lanes
 (``StackedLstmEncoder``).
 
 The lane contract is the JAX engine's: lane r's answers are **bit for

@@ -3,8 +3,10 @@
 Counterpart of ``masters_thesis_tpu/train/stacked.py``. R replicas (grid
 cells that differ in learning rate and seed, or ensemble members) train as
 one program over ``[R, n]`` buffers (``StackedTrainProgram``,
-``StackedFlatAdam``): on the card one CUDA graph a step, the recurrence one
-replica-axis launch of each pair kernel. Replicas share the model
+``StackedFlatAdam``): on the card one CUDA graph a step, each layer
+group's recurrence one replica-axis launch of each of its kernels (the
+pair's, the single layer's or the stack's; a grouping with a layer on the
+time-blocked route is refused before any work). Replicas share the model
 architecture, the loss, the gradient clip and the weight decay (one
 program); the learning rate and the seed are each replica's own.
 

@@ -65,12 +65,26 @@ def forward_rows_stacked(module, x: torch.Tensor, *,
     (replica r's windows in row r) or ``(B, K, T, F)`` (shared) ->
     ``alpha (R, B, K, 1)`` and ``beta (R, B, K, n_factors)``, replica r's
     as ``forward_rows`` of its solo encoder gives them."""
+    outs = forward_rows_replicas(module, x, deterministic=deterministic,
+                                 generators=generators, masks=masks)
+    return (torch.stack([a for a, _ in outs]),
+            torch.stack([b for _, b in outs]))
+
+
+def forward_rows_replicas(module, x: torch.Tensor, *,
+                          deterministic: bool = True, generators=None,
+                          masks=None) -> list:
+    """``forward_rows_stacked`` as one ``(alpha (B, K, 1), beta (B, K,
+    n_factors))`` pair a replica, each reshaped from the replica's own head
+    outputs as ``forward_rows`` reshapes the solo encoder's, so that the
+    losses a stacked step takes from them send each replica the solo
+    step's gradients (``StackedLstmEncoder.replica_outputs``)."""
     b, k = x.shape[-4:-2]
     rows = x.reshape(*x.shape[:-4], b * k, *x.shape[-2:])
-    alpha, beta = module(rows, deterministic=deterministic,
-                         generators=generators, masks=masks, window_rows=k)
-    n_rep = alpha.shape[0]
-    return alpha.reshape(n_rep, b, k, 1), beta.reshape(n_rep, b, k, -1)
+    outs = module.replica_outputs(rows, deterministic=deterministic,
+                                  generators=generators, masks=masks,
+                                  window_rows=k)
+    return [(a.reshape(b, k, 1), beta.reshape(b, k, -1)) for a, beta in outs]
 
 
 def _add_into(sums: dict | None, new: dict) -> dict:
@@ -319,13 +333,13 @@ class StackedTrainProgram:
             idx = table.index_select(0, self.cursor).view(-1)
             batches.append(Batch(*(a.index_select(0, idx) for a in self.data)))
         self.cursor.add_(1)
-        alpha, beta = forward_rows_stacked(
+        outs = forward_rows_replicas(
             self.module, torch.stack([b.x for b in batches]),
             deterministic=False, generators=self.generators)
         losses, step_sums = [], []
-        for r, batch in enumerate(batches):
-            loss, sums = self.loss_fn(alpha[r], beta[r], batch.y,
-                                      batch.factor, batch.inv_psi)
+        for (alpha, beta), batch in zip(outs, batches):
+            loss, sums = self.loss_fn(alpha, beta, batch.y, batch.factor,
+                                      batch.inv_psi)
             losses.append(loss)
             step_sums.append(sums)
         self.optimizer.zero_grad()

@@ -13,6 +13,8 @@ added). Backward sweeps and weight gradients (sums over up to 60 * 803 or
 252 * 803 rows) are held at 2e-5 relative to the largest entry.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -284,6 +286,11 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
         "lstm_pair_fwd_masked_stacked": 0,
         "lstm_pair_bwd_stacked": 0,
         "lstm_wgrad_stacked": 0,
+        "lstm_fwd_stacked": 0,
+        "lstm_bwd_stacked": 0,
+        "lstm_stack_fwd_stacked": 0,
+        "lstm_stack_fwd_masked_stacked": 0,
+        "lstm_stack_bwd_stacked": 0,
     }
     ref = [t.clone().requires_grad_(True) for t in base]
     plain = lk.lstm_pair_ref(*ref, mask)
@@ -1545,3 +1552,324 @@ def test_stacked_engine_lanes_equal_solo_engines_on_the_card(cuda_device):
     for lane in range(3):
         np.testing.assert_array_equal(after[0][:, lane], before[0][:, lane])
     np.testing.assert_array_equal(after[0][:, 3], before[0][:, 0])
+
+
+# ------------------------- the replica axis of the single layer and stack
+
+
+def _single_stacked_case(seed, replicas, rows, hidden, n_t=12, device="cuda"):
+    """R replicas' single-layer operands (x, w), cotangents, stacked."""
+    (x, w, *_), mask, dh = _stacked_case(seed, replicas, rows, hidden, n_t,
+                                         device)
+    return x, w, dh
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+@pytest.mark.parametrize("rows", [100, 37])
+@pytest.mark.parametrize("replicas", [1, 2, 4, 8])
+def test_single_layer_replica_axis_matches_plain_and_solo(
+        cuda_device, replicas, rows, hidden):
+    """The replica-axis single-layer forward (with and without c), sweep
+    and one-job pass: within their tolerance of the plain versions, each
+    replica's slice bit for bit its solo launch, one launch each."""
+    x, w, dh = _single_stacked_case(rows + hidden, replicas, rows, hidden,
+                                    device=cuda_device)
+    before = dict(lk.LAUNCHES)
+    hs_only = lk.lstm_fwd_stacked_cuda(x, w)
+    hs, cs = lk.lstm_fwd_stacked_cuda(x, w, return_c=True)
+    hs_ref, cs_ref = lk.lstm_recurrence_stacked_ref(x, w, return_c=True)
+    torch.testing.assert_close(hs, hs_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(cs, cs_ref, atol=2e-5, rtol=0)
+    assert torch.equal(hs_only, hs)
+    dx = lk.lstm_bwd_stacked_cuda(dh, x, hs_ref, cs_ref, w)
+    _close_rel(dx, lk.lstm_bwd_stacked_ref(dh, x, hs_ref, cs_ref, w))
+    dw = lk.lstm_single_wgrad_stacked(dx, hs_ref)
+    _close_rel(dw, lk.lstm_single_wgrad_stacked_ref(dx, hs_ref))
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["lstm_fwd_stacked"] == before["lstm_fwd_stacked"] + 2
+    assert lk.LAUNCHES["lstm_bwd_stacked"] == before["lstm_bwd_stacked"] + 1
+    assert lk.LAUNCHES["lstm_wgrad_stacked"] == before["lstm_wgrad_stacked"] + 1
+    for r in range(replicas):
+        solo_h, solo_c = lk.lstm_fwd_cuda(x[r], w[r], return_c=True)
+        assert torch.equal(hs[r], solo_h) and torch.equal(cs[r], solo_c)
+        solo_dx = lk.lstm_bwd_cuda(dh[r], x[r], hs_ref[r], cs_ref[r], w[r])
+        assert torch.equal(dx[r], solo_dx)
+        assert torch.equal(dw[r], lk.lstm_single_wgrad(dx[r], hs_ref[r]))
+
+
+def _stack_stacked_case(seed, replicas, n_layers, rows, hidden, n_t=12,
+                        device="cuda"):
+    """R replicas' stack operands: x1, the L recurrent and L - 1 seam
+    weights and biases, L - 1 masks and the top cotangent, each replica its
+    own draw, every entry with a leading R axis."""
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(hidden)
+
+    def t(*shape, uniform=False):
+        a = (rng.uniform(-scale, scale, size=(replicas,) + shape) if uniform
+             else rng.normal(size=(replicas,) + shape))
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    x = t(n_t, rows, 4 * hidden)
+    w_hh = [t(hidden, 4 * hidden, uniform=True) for _ in range(n_layers)]
+    w_in = [t(hidden, 4 * hidden, uniform=True) for _ in range(n_layers - 1)]
+    biases = [t(4 * hidden, uniform=True) for _ in range(n_layers - 1)]
+    masks = [torch.tensor((rng.random((replicas, n_t, rows, hidden)) >= 0.2)
+                          / 0.8, dtype=torch.float32, device=device)
+             for _ in range(n_layers - 1)]
+    return x, w_hh, w_in, biases, masks, t(n_t, rows, hidden)
+
+
+def _solo(group, r):
+    return None if group is None else [g[r] for g in group]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+@pytest.mark.parametrize("replicas", [1, 2, 4, 8])
+def test_stack_replica_axis_matches_plain_and_solo(cuda_device, replicas,
+                                                   hidden, masked):
+    """The replica-axis 4-deep stack on 25 rows (model=medium's window):
+    forward (stash-free and with the stashes), sweep and the 7-job pass
+    within their tolerance of the plain versions, each replica's slice bit
+    for bit its solo launch, one launch each."""
+    x, w_hh, w_in, biases, masks, dh = _stack_stacked_case(
+        hidden + replicas, replicas, 4, 25, hidden, device=cuda_device)
+    masks = masks if masked else None
+    weights = (w_hh, w_in, biases)
+    before = dict(lk.LAUNCHES)
+    top = lk.lstm_stack_fwd_stacked_cuda(x, *weights, masks)
+    hs, cs = lk.lstm_stack_fwd_stacked_cuda(x, *weights, masks, stash=True)
+    hs_ref, cs_ref = lk.lstm_stack_stacked_ref(x, *weights, masks,
+                                               return_stash=True)
+    for got, want in zip(hs + cs, hs_ref + cs_ref):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert torch.equal(top, hs[-1])
+    d_pres = lk.lstm_stack_bwd_stacked_cuda(dh, x, masks, hs_ref, cs_ref,
+                                            *weights)
+    for got, want in zip(d_pres, lk.lstm_stack_bwd_stacked_ref(
+            dh, x, masks, hs_ref, cs_ref, *weights)):
+        _close_rel(got, want)
+    grads = lk.lstm_stack_wgrad_stacked(d_pres, hs_ref, masks)
+    for got_part, want_part in zip(grads, lk.lstm_stack_wgrad_stacked_ref(
+            d_pres, hs_ref, masks)):
+        for got, want in zip(got_part, want_part):
+            _close_rel(got, want)
+    torch.cuda.synchronize()
+    name = "lstm_stack_fwd_masked_stacked" if masked else "lstm_stack_fwd_stacked"
+    assert lk.LAUNCHES[name] == before[name] + 2
+    assert lk.LAUNCHES["lstm_stack_bwd_stacked"] == before["lstm_stack_bwd_stacked"] + 1
+    assert lk.LAUNCHES["lstm_wgrad_stacked"] == before["lstm_wgrad_stacked"] + 1
+    for r in range(replicas):
+        solo_w = [_solo(g, r) for g in weights]
+        solo_m = _solo(masks, r)
+        solo_hs, solo_cs = lk.lstm_stack_fwd_cuda(x[r], *solo_w, solo_m,
+                                                  stash=True)
+        assert all(torch.equal(a[r], b) for a, b in
+                   zip(hs + cs, solo_hs + solo_cs))
+        solo_d = lk.lstm_stack_bwd_cuda(dh[r], x[r], solo_m, _solo(hs_ref, r),
+                                        _solo(cs_ref, r), *solo_w)
+        assert all(torch.equal(a[r], b) for a, b in zip(d_pres, solo_d))
+        solo_g = lk.lstm_stack_wgrad(_solo(d_pres, r), _solo(hs_ref, r), solo_m)
+        for got_part, solo_part in zip(grads, solo_g):
+            assert all(torch.equal(a[r], b) for a, b in zip(got_part, solo_part))
+
+
+@pytest.mark.parametrize("rows", [1, 25, 100, 400, 803])
+def test_new_replica_axes_sum_alike_within_their_tile_classes(cuda_device,
+                                                              rows):
+    """The tile class the replica-axis tile rule moves a replica within
+    (lstm_sweep.cuh sweep_rows, lstm_stack.cuh with_stack_tile): the
+    single-layer forward and sweep, and the 3-deep stack's forward (masked
+    with its stashes) and sweep, give a row the same bits at row tiles of 1
+    and 2 rows. (At 4 and 8 rows the single-layer forward's bits part, so
+    a solo tile of 4 or 8 rows is kept.)"""
+    x, w, dh = _single_stacked_case(rows, 2, rows, 64, n_t=20,
+                                    device=cuda_device)
+    sx, w_hh, w_in, biases, masks, sdh = _stack_stacked_case(
+        rows, 2, 3, rows, 64, n_t=20, device=cuda_device)
+    weights = (w_hh, w_in, biases)
+    outs = {}
+    for tile in (1, 2):
+        hs, cs = lk.lstm_fwd_stacked_cuda(x, w, return_c=True, tile=tile)
+        dx = lk.lstm_bwd_stacked_cuda(dh, x, hs, cs, w, tile=tile)
+        shs, scs = lk.lstm_stack_fwd_stacked_cuda(sx, *weights, masks,
+                                                  stash=True, tile=tile)
+        sd = lk.lstm_stack_bwd_stacked_cuda(sdh, sx, masks, shs, scs,
+                                            *weights, tile=tile)
+        outs[tile] = [hs, cs, dx] + shs + scs + sd
+    for i, (p, q) in enumerate(zip(outs[1], outs[2])):
+        assert torch.equal(p, q), i
+
+
+def test_replica_axis_tile_rule(cuda_device):
+    """A solo tile of 4 or 8 rows stays for R replicas; one of 1 or 2
+    rows becomes 1 when the R replicas' blocks (clusters) fit at once,
+    else 2."""
+    assert lk.lstm_sweep_tile_cuda(8192, 4) == 8
+    for backward in (False, True):
+        tile = functools.partial(lk.lstm_stack_row_tile_cuda, 4,
+                                 hidden=64, device=cuda_device,
+                                 backward=backward, masked=True,
+                                 stash=not backward)
+        assert tile(25) in (1, 2) and tile(25, replicas=8) in (1, 2)
+        assert tile(200, replicas=8) == tile(200)
+
+
+def test_new_stacked_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x, w, dh = _single_stacked_case(0, 2, 9, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="R, T, B, 4H"):
+        lk.lstm_fwd_stacked_cuda(x[0], w)
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_fwd_stacked_cuda(x, w[:1])
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_bwd_stacked_cuda(dh[:1], x, dh, dh, w)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lk.lstm_fwd_stacked_cuda(x, w, tile=3)
+    sx, w_hh, w_in, biases, masks, sdh = _stack_stacked_case(0, 2, 3, 9, 8,
+                                                             device=cuda_device)
+    with pytest.raises(ValueError, match="R, T, B, 4H"):
+        lk.lstm_stack_fwd_stacked_cuda(sx[0], w_hh, w_in, biases)
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_stack_fwd_stacked_cuda(sx, [w_hh[0][:1]] + w_hh[1:], w_in,
+                                       biases)
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_stack_fwd_stacked_cuda(sx, w_hh, w_in, biases,
+                                       [m[:1] for m in masks])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lk.lstm_stack_fwd_stacked_cuda(sx, w_hh, w_in, biases, tile=3)
+
+
+# The replica-axis counters a training step of each depth launches once
+# (the toy datamodule's 4-stock windows at H=16 fuse 4 layers into one
+# stack).
+DEPTH_COUNTERS = {
+    1: ("lstm_fwd_stacked", "lstm_bwd_stacked", "lstm_wgrad_stacked"),
+    4: ("lstm_stack_fwd_masked_stacked", "lstm_stack_bwd_stacked",
+        "lstm_wgrad_stacked"),
+}
+# Their solo counterparts, which a stacked step never launches (each
+# replica's validation runs its solo forward).
+SOLO_COUNTERS = {
+    1: ("lstm_bwd", "lstm_wgrad"),
+    4: ("lstm_stack_fwd_masked", "lstm_stack_bwd", "lstm_wgrad"),
+}
+
+
+@pytest.mark.parametrize("num_layers", [1, 4])
+def test_graphed_stacked_fit_at_one_and_four_layers(cuda_device, tmp_path,
+                                                    num_layers):
+    """A graphed stacked fit (3 replicas, dropout 0.3, 2 epochs) of one
+    layer and of one 4-deep stack against the same fit eager and each
+    replica's graphed solo Trainer.fit: weights, moments and history bit
+    for bit; each replica-axis kernel launched once a step for all
+    replicas, and no solo launch."""
+    from masters_thesis_tpu_torch.train.stacked import ReplicaSpec, StackedTrainer
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    dm = _toy_datamodule(tmp_path)
+    spec = ModelSpec(objective="combined", hidden_size=16,
+                     num_layers=num_layers, dropout=0.3, learning_rate=1e-3)
+    replicas = [ReplicaSpec(f"s{s}", s, lr)
+                for s, lr in zip((0, 1, 2), (1e-2, 5e-3, 2e-2))]
+    runs, launches = {}, {}
+    for graphs in (True, False):
+        lk.reset_launch_counts()
+        runs[graphs] = StackedTrainer(
+            max_epochs=2, gradient_clip_val=5.0, device=cuda_device,
+            cuda_graphs=graphs).fit(spec, dm, replicas)
+        launches[graphs] = dict(lk.LAUNCHES)
+    assert launches[True] == launches[False]
+    steps = 2 * len(dm.train_range)
+    for counter in DEPTH_COUNTERS[num_layers]:
+        assert launches[True][counter] == steps, counter
+    assert not any(launches[True][c] for c in SOLO_COUNTERS[num_layers])
+    for got, want in zip(runs[True].replicas, runs[False].replicas):
+        assert got.history == want.history
+        for name, value in want.state.items():
+            assert torch.equal(got.state[name], value), name
+    for rep, got in zip(replicas, runs[True].replicas):
+        solo = Trainer(max_epochs=2, gradient_clip_val=5.0, seed=rep.seed,
+                       device=cuda_device).fit(
+            dataclasses_replace(spec, learning_rate=rep.learning_rate), dm)
+        assert got.history == solo.history
+        for name, value in solo.state.items():
+            assert torch.equal(got.state[name], value), name
+        for key in ("mu", "nu"):
+            assert torch.equal(got.opt_state[key], solo.opt_state[key])
+
+
+@pytest.mark.parametrize("num_layers", [1, 4])
+def test_stacked_steps_of_other_groupings_do_not_synchronise(
+        cuda_device, tmp_path, num_layers):
+    """As test_stacked_steps_do_not_synchronise, one layer and one 4-deep
+    stack."""
+    from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
+    from masters_thesis_tpu_torch.train.flatparams import StackedFlatAdam
+    from masters_thesis_tpu_torch.train.steps import StackedTrainProgram
+    from masters_thesis_tpu_torch.train.trainer import device_split
+
+    dm = _toy_datamodule(tmp_path)
+    dm.prepare_data()
+    dm.setup("fit")
+    spec = ModelSpec(objective="mse", hidden_size=16, num_layers=num_layers,
+                     dropout=0.3)
+    module = StackedLstmEncoder([
+        spec.build_module(device=cuda_device,
+                          generator=torch.Generator().manual_seed(s))
+        for s in range(3)])
+    gens = [torch.Generator(device=cuda_device).manual_seed(s) for s in range(3)]
+    program = StackedTrainProgram(
+        module, StackedFlatAdam(module.replicas, 5.0, 1e-5),
+        spec.window_objective(), device_split(dm.train_arrays(), cuda_device),
+        1, gens, graphed=True)
+    program.begin_epoch([1e-3] * 3)
+    program.step()  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            program.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for counter in DEPTH_COUNTERS[num_layers]:
+        assert program.step.launches[counter] == 1, counter
+
+
+@pytest.mark.parametrize("num_layers,stocks,counter", [
+    (1, 100, "lstm_fwd_stacked"),
+    (4, 25, "lstm_stack_fwd_stacked"),
+])
+def test_stacked_engine_of_other_groupings_on_the_card(cuda_device,
+                                                       num_layers, stocks,
+                                                       counter):
+    """Lanes of one layer (100 stocks) and of model=medium (4 layers, 25
+    stocks: one 4-deep stack): each lane bit for bit a graphed solo
+    engine, every bucket and padded; one capture a bucket, one launch of
+    the group's replica-axis forward a dispatch."""
+    from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
+
+    spec = ModelSpec(objective="mse", hidden_size=64, num_layers=num_layers,
+                     dropout=0.0)
+    states = [spec.build_module(device="cpu",
+                                generator=torch.Generator().manual_seed(s)
+                                ).state_dict() for s in range(3)]
+    kw = dict(n_stocks=stocks, lookback=60, n_features=3, buckets=(1, 2, 4, 8),
+              device=cuda_device)
+    engine = StackedPredictEngine(spec, states, **kw)
+    solos = [PredictEngine(spec, s, **kw) for s in states]
+    engine.warmup()
+    for solo in solos:
+        solo.warmup()
+    assert engine.compile_events == 4
+    rng = np.random.default_rng(3)
+    lk.reset_launch_counts()
+    for n in (1, 3, 8):
+        x = rng.normal(size=(n, stocks, 60, 3)).astype(np.float32)
+        alpha, beta = engine.predict(x)
+        for lane, solo in enumerate(solos):
+            a, b = solo.predict(x)
+            np.testing.assert_array_equal(alpha[:, lane], a)
+            np.testing.assert_array_equal(beta[:, lane], b)
+    assert lk.LAUNCHES[counter] == 3

@@ -106,12 +106,21 @@ def test_cpu_dispatch_launches_no_kernel():
     # Two replicas of the pair through the replica-axis recurrence.
     lk.lstm_pair_recurrence_stacked(
         *(torch.stack([a, a]) for a in leaves)).sum().backward()
+    # ... and of the single layer and the stack.
+    lk.lstm_recurrence_stacked(torch.stack([x, x]),
+                               torch.stack([w1, w1])).sum().backward()
+    lk.lstm_stack_recurrence_stacked(
+        torch.stack([x, x]),
+        [[torch.stack([w, w]) for w in group] for group in stack[1]]
+    ).sum().backward()
     assert set(lk.LAUNCHES) == {
         "lstm_pair_fwd", "lstm_pair_fwd_masked", "lstm_fwd", "lstm_pair_bwd",
         "lstm_bwd", "lstm_wgrad", "lstm_stack_fwd", "lstm_stack_fwd_masked",
         "lstm_stack_bwd", "lstm_tb_fwd", "lstm_tb_bwd",
         "lstm_pair_fwd_stacked", "lstm_pair_fwd_masked_stacked",
-        "lstm_pair_bwd_stacked", "lstm_wgrad_stacked",
+        "lstm_pair_bwd_stacked", "lstm_wgrad_stacked", "lstm_fwd_stacked",
+        "lstm_bwd_stacked", "lstm_stack_fwd_stacked",
+        "lstm_stack_fwd_masked_stacked", "lstm_stack_bwd_stacked",
     }
     assert not any(lk.LAUNCHES.values())
 

@@ -20,9 +20,13 @@ nearly cancel).
 Against the port's solo path, bit for bit: each replica of a stacked run is
 the solo run of its seed and rate (dropout 0.2, its own masks and
 shuffles); siblings are isolated; a diverging replica is rolled back,
-slowed, masked and frozen while its siblings train on untouched.
+slowed, masked and frozen while its siblings train on untouched. Every
+grouping stacks (one layer, the pair, the L-deep stack and their mixes,
+``[2, 1]`` and model=large's ``[7, 1]``) but one with a layer on the
+time-blocked route, whose kernels have no replica axis yet.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -89,6 +93,16 @@ H = 8
 CLIP = 5.0
 WINDOWS = dict(lookback_window=10, target_window=5, stride=15)
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread for these tests of many small products: beside
+    the suite's other workers, more threads only wait on each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class _Vector(nn.Module):
@@ -241,19 +255,49 @@ def test_stacked_encoder_replica_is_the_solo_encoder_bitwise():
     assert set(replica_state(state, 1)) == set(solos[1].state_dict())
 
 
-@pytest.mark.parametrize("num_layers,n_t,rows,window_rows", [
-    (1, 8, 4, None),  # one layer: the single-layer kernels
-    (3, 8, 4, None),  # a 3-deep stack
-    (4, 60, 25, 25),  # model=medium at the Fama-French shape
-    (2, 252, 100, 100),  # model=small at a one-year lookback: two singles
-])
+@pytest.mark.parametrize("num_layers,n_t,rows,window_rows,groups", [
+    (1, 8, 4, None, [1]),  # one layer: the single-layer kernels
+    (3, 8, 4, None, [3]),  # a 3-deep stack
+    (4, 60, 25, 25, [4]),  # model=medium at the Fama-French shape
+    # model=small at a one-year lookback: two singles, time-blocked
+    (2, 252, 100, 100, None),
+], ids=["1-8-4-None", "3-8-4-None", "4-60-25-25", "2-252-100-100"])
 def test_groupings_other_than_one_pair_are_refused(num_layers, n_t, rows,
-                                                   window_rows):
-    with pytest.raises(GroupingNotStackedError, match="ROADMAP.md queue 1"):
-        stacked = StackedLstmEncoder([
-            LstmEncoder(3, 64 if n_t > 8 else H, num_layers, 0.0,
-                        device="cpu") for _ in range(2)])
+                                                   window_rows, groups):
+    """Since the single-layer and stack kernels have their replica axis,
+    only a grouping with a layer on the time-blocked route is refused (the
+    time-blocked kernels have none yet); the others stack."""
+    stacked = StackedLstmEncoder([
+        LstmEncoder(3, 64 if n_t > 8 else H, num_layers, 0.0, device="cpu")
+        for _ in range(2)])
+    if groups is not None:
+        assert stacked.check_groups(n_t, rows, False, window_rows) == groups
+        return
+    with pytest.raises(GroupingNotStackedError,
+                       match="time-blocked.*ROADMAP.md queue 1"):
         stacked.check_groups(n_t, rows, False, window_rows)
+
+
+@pytest.mark.parametrize("num_layers", [1, 4])
+def test_stacked_params_carry_any_depth_and_three_factors(num_layers):
+    """R JAX trees of one layer or of four, with three factors (the
+    kfactor heads), load into a stacked encoder; each replica's state
+    comes back out as its own tree's."""
+    jspec = JaxSpec(objective="combined", hidden_size=H, num_layers=num_layers,
+                    n_factors=3, input_size=7, kernel_impl="xla")
+    module = jspec.build_module()
+    trees = [jax.tree_util.tree_map(np.asarray, module.init(
+        jax.random.key(s), jnp.zeros((1, 8, 7)))["params"]) for s in SEEDS]
+    spec = ModelSpec(objective="combined", hidden_size=H,
+                     num_layers=num_layers, n_factors=3, input_size=7)
+    stacked = StackedLstmEncoder([spec.build_module(device="cpu")
+                                  for _ in SEEDS])
+    stacked.load_state_dict(stacked_params_from_jax(trees))
+    for r, tree in enumerate(trees):
+        got = replica_state(stacked.state_dict(), r)
+        want = params_from_jax(tree)
+        assert set(got) == set(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_a_stack_takes_one_architecture():
@@ -273,9 +317,21 @@ def test_stacked_epochs_match_jax_make_stacked_train_epoch(objective):
     """Two stacked epochs of R = 3 replicas against the JAX stacked epoch
     program on a 1-device mesh: dropout 0, batch_size = the split, so each
     epoch is one full-batch step and the shuffles do not enter."""
+    _stacked_epochs_against_jax(objective, num_layers=2)
+
+
+@pytest.mark.parametrize("num_layers", [1, 4])
+def test_stacked_epochs_at_one_and_four_layers_match_jax(num_layers):
+    """As above (mse) through the single-layer replica axis (one layer) and
+    the stack's (four layers fuse into one 4-deep stack at T=8, H=8); the
+    same tolerances, 1e-5 relative on the sums."""
+    _stacked_epochs_against_jax("mse", num_layers)
+
+
+def _stacked_epochs_against_jax(objective: str, num_layers: int) -> None:
     n, n_t = 6, 8
     split = _synthetic_split(n, np.random.default_rng(0))
-    hparams = dict(objective=objective, hidden_size=H, num_layers=2,
+    hparams = dict(objective=objective, hidden_size=H, num_layers=num_layers,
                    dropout=0.0)
     jspec = JaxSpec(kernel_impl="xla", **hparams)
     module, trees = _jax_trees(jspec, n_t)
@@ -298,6 +354,8 @@ def test_stacked_epochs_match_jax_make_stacked_train_epoch(objective):
     data = device_split(Batch(*(np.asarray(a) for a in split)), "cpu")
     program = StackedTrainProgram(stacked, opt, spec.window_objective(), data,
                                   n, [torch.Generator() for _ in SEEDS])
+    k = data.x.shape[1]
+    assert stacked.check_groups(n_t, n * k, False, k) == [num_layers]
     for epoch in range(2):
         keys = global_put(jnp.stack([jax.random.fold_in(jax.random.key(s), epoch)
                                      for s in SEEDS]), repl)
@@ -493,11 +551,18 @@ def test_mixed_epochs_start_fresh(data_dir, tmp_path):
     assert [len(r.history) for r in fresh.replicas] == [2, 2, 2]
 
 
-def test_stacked_trainer_refuses_a_grouping_before_training(data_dir):
+def test_stacked_trainer_refuses_a_grouping_before_training(data_dir,
+                                                            monkeypatch):
+    """One layer at H=64 over a one-year lookback on 10 windows of 4 stocks
+    (40 rows) takes the time-blocked route: refused before any step."""
+    monkeypatch.setattr(StackedTrainProgram, "epoch", lambda *a: pytest.fail(
+        "trained before refusing"))
     trainer = StackedTrainer(max_epochs=1, device="cpu")
-    spec = ModelSpec(objective="mse", hidden_size=H, num_layers=3)
-    with pytest.raises(GroupingNotStackedError, match="queue 1"):
-        trainer.fit(spec, _dm(data_dir), [ReplicaSpec("a", 0, 1e-3)])
+    spec = ModelSpec(objective="mse", hidden_size=64, num_layers=1)
+    dm = FinancialWindowDataModule(data_dir, batch_size=10, lookback_window=252,
+                                   target_window=5, stride=257)
+    with pytest.raises(GroupingNotStackedError, match="time-blocked.*queue 1"):
+        trainer.fit(spec, dm, [ReplicaSpec("a", 0, 1e-3)])
 
 
 def _child(args, tmp_path, env_extra=None):
@@ -543,6 +608,35 @@ def test_stacked_entry_point_on_the_cpu(tmp_path):
     assert [r["status"] for r in line["replicas"]] == ["masked", "masked"]
 
 
+@pytest.mark.parametrize("model", [["model=medium"],
+                                   ["model=small", "model.num_layers=1"]],
+                         ids=["medium", "one_layer"])
+def test_stacked_entry_point_takes_other_groupings(tmp_path, model):
+    """``stacked model=medium`` (one 4-deep stack at this toy width) and
+    ``model=small model.num_layers=1`` train every replica to the end."""
+    replicas = '[{"name": "s0", "seed": 0}, {"name": "s1", "seed": 1}]'
+    proc = _child(model + ["--replicas", replicas, "--ckpt-dir",
+                           str(tmp_path / "ck")], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [r["status"] for r in line["replicas"]] == ["active", "active"]
+    _, _, spec, _ = restore_checkpoint(tmp_path / "ck" / "s1", "best")
+    assert spec.num_layers == (4 if model == ["model=medium"] else 1)
+
+
+def test_stacked_entry_point_refuses_a_time_blocked_grouping(tmp_path):
+    """One layer at H=64 over a one-year lookback takes the time-blocked
+    route: refused before any training, the message naming the queue."""
+    proc = _child(["model.num_layers=1", "model.hidden_size=64",
+                   "datamodule.lookback_window=252", "datamodule.stride=257",
+                   "datamodule.batch_size=10", "--replicas",
+                   '[{"name": "a", "seed": 0}]', "--ckpt-dir",
+                   str(tmp_path / "ck")], tmp_path)
+    assert proc.returncode != 0
+    assert "time-blocked" in proc.stderr and "ROADMAP.md queue 1" in proc.stderr
+    assert not (tmp_path / "ck" / "a" / "last").exists()
+
+
 def test_stacked_entry_point_refuses_what_train_refuses(tmp_path):
     for override, key in (("trainer.epoch_mode=stream", "epoch_mode"),
                           ("trainer.n_devices=2", "n_devices")):
@@ -550,6 +644,200 @@ def test_stacked_entry_point_refuses_what_train_refuses(tmp_path):
                        "--ckpt-dir", str(tmp_path / "ck")], tmp_path)
         assert proc.returncode != 0
         assert key in proc.stderr
+
+
+def _t(rng, *shape, scale=1.0):
+    return torch.tensor(rng.normal(0, scale, shape), dtype=torch.float32)
+
+
+def _mask(rng, *shape):
+    return torch.tensor((rng.random(shape) > 0.2) / 0.8, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_stacked_single_layer_plain_versions_equal_the_solo_ones(n_rep):
+    """The replica-axis single layer on the CPU (its plain forward, sweep
+    and weight gradient, through autograd): each replica's slices the solo
+    layer's bit for bit."""
+    rng = np.random.default_rng(6)
+    t_, b_ = 5, 4
+    x = _t(rng, n_rep, t_, b_, 4 * H).requires_grad_()
+    w = _t(rng, n_rep, H, 4 * H, scale=0.3).requires_grad_()
+    h = lk.lstm_recurrence_stacked(x, w)
+    h.square().sum().backward()
+    hs, cs = lk.lstm_recurrence_stacked_ref(x.detach(), w.detach(),
+                                            return_c=True)
+    dh = torch.ones_like(hs)
+    d_pre = lk.lstm_bwd_stacked_ref(dh, x.detach(), hs, cs, w.detach())
+    dw = lk.lstm_single_wgrad_stacked(d_pre, hs)
+    for r in range(n_rep):
+        xs = x.detach()[r].clone().requires_grad_()
+        ws = w.detach()[r].clone().requires_grad_()
+        hr = lk.lstm_recurrence(xs, ws)
+        hr.square().sum().backward()
+        assert torch.equal(hr, h[r]) and torch.equal(hr, hs[r])
+        assert torch.equal(xs.grad, x.grad[r]) and torch.equal(ws.grad, w.grad[r])
+        hs_r, cs_r = lk.lstm_recurrence_ref(xs.detach(), ws.detach(),
+                                            return_c=True)
+        assert torch.equal(cs_r, cs[r])
+        d_r = lk.lstm_bwd_ref(dh[r], xs.detach(), hs_r, cs_r, ws.detach())
+        assert torch.equal(d_r, d_pre[r])
+        assert torch.equal(lk.lstm_single_wgrad(d_r, hs_r), dw[r])
+
+
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_stacked_stack_plain_versions_equal_the_solo_ones(n_rep):
+    """The replica-axis 3-deep stack on the CPU with seam masks (its plain
+    forward with the stashes, sweep and weight gradients, and through
+    autograd): each replica's slices the solo stack's bit for bit."""
+    rng = np.random.default_rng(7)
+    t_, b_, depth = 5, 4, 3
+    x = _t(rng, n_rep, t_, b_, 4 * H).requires_grad_()
+    w_hh = [_t(rng, n_rep, H, 4 * H, scale=0.3).requires_grad_()
+            for _ in range(depth)]
+    w_in = [_t(rng, n_rep, H, 4 * H, scale=0.3).requires_grad_()
+            for _ in range(depth - 1)]
+    bias = [_t(rng, n_rep, 4 * H, scale=0.1).requires_grad_()
+            for _ in range(depth - 1)]
+    masks = [_mask(rng, n_rep, t_, b_, H) for _ in range(depth - 1)]
+    h = lk.lstm_stack_recurrence_stacked(x, (w_hh, w_in, bias), masks)
+    h.square().sum().backward()
+    detached = [[t.detach() for t in g] for g in (w_hh, w_in, bias)]
+    hs, cs = lk.lstm_stack_stacked_ref(x.detach(), *detached, masks,
+                                       return_stash=True)
+    dh = torch.ones_like(hs[-1])
+    d_pres = lk.lstm_stack_bwd_stacked_ref(dh, x.detach(), masks, hs, cs,
+                                           *detached)
+    grads = lk.lstm_stack_wgrad_stacked(d_pres, hs, masks)
+    for r in range(n_rep):
+        xs = x.detach()[r].clone().requires_grad_()
+        groups = [[t.detach()[r].clone().requires_grad_() for t in g]
+                  for g in (w_hh, w_in, bias)]
+        mr = [m[r] for m in masks]
+        hr = lk.lstm_stack_recurrence(xs, groups, mr)
+        hr.square().sum().backward()
+        assert torch.equal(hr, h[r])
+        assert torch.equal(xs.grad, x.grad[r])
+        for solo_group, group in zip(groups, (w_hh, w_in, bias)):
+            for a, b in zip(solo_group, group):
+                assert torch.equal(a.grad, b.grad[r])
+        plain = [[t.detach() for t in g] for g in groups]
+        hs_r, cs_r = lk.lstm_stack_ref(xs.detach(), *plain, mr,
+                                       return_stash=True)
+        assert all(torch.equal(a, b[r]) for a, b in zip(hs_r + cs_r, hs + cs))
+        d_r = lk.lstm_stack_bwd_ref(dh[r], xs.detach(), mr, hs_r, cs_r, *plain)
+        assert all(torch.equal(a, b[r]) for a, b in zip(d_r, d_pres))
+        solo = lk.lstm_stack_wgrad_ref(d_r, hs_r, mr)
+        for solo_part, part in zip(solo, grads):
+            assert all(torch.equal(a, b[r]) for a, b in zip(solo_part, part))
+
+
+def test_time_blocked_single_layer_has_no_replica_axis():
+    x = torch.zeros(2, 252, 100, 4 * 64)
+    w = torch.zeros(2, 64, 4 * 64)
+    with pytest.raises(GroupingNotStackedError, match="time-blocked"):
+        lk.lstm_recurrence_stacked(x, w, window_rows=100)
+
+
+# Groupings of the stacked encoder at the shapes that give them: a single
+# layer and a 3-deep stack at toy width (T=8, H=8 fuse up to 8 layers), and
+# at H=64 model=medium's one 4-deep stack and model=large's 7 + 1 on 25-row
+# windows (T=60), and a 3-layer model's pair + single on 100 rows.
+GROUPINGS = {
+    "1": (1, 8, 8, 6, None, [1]),
+    "3": (3, 8, 8, 6, None, [3]),
+    "4": (4, 64, 60, 25, 25, [4]),
+    "7+1": (8, 64, 60, 25, 25, [7, 1]),
+    "2+1": (3, 64, 60, 100, 100, [2, 1]),
+}
+
+
+@pytest.mark.parametrize("injected", [False, True], ids=["drawn", "injected"])
+@pytest.mark.parametrize("grouping", list(GROUPINGS))
+def test_stacked_encoder_groupings_are_the_solo_encoders_bitwise(grouping,
+                                                                 injected):
+    """A training forward and backward of R = 3 replicas (dropout 0.2, the
+    masks drawn from each replica's generator or injected per replica)
+    against each solo encoder on its windows and masks: outputs and every
+    parameter's gradient bit for bit."""
+    num_layers, hidden, n_t, rows, window_rows, groups = GROUPINGS[grouping]
+
+    def encoder(seed):
+        return LstmEncoder(3, hidden, num_layers, 0.2, device="cpu",
+                           generator=torch.Generator().manual_seed(seed))
+
+    stacked = StackedLstmEncoder([encoder(s) for s in SEEDS])
+    solos = [encoder(s) for s in SEEDS]
+    assert stacked.check_groups(n_t, rows, True, window_rows) == groups
+    x = torch.randn(len(SEEDS), rows, n_t, 3,
+                    generator=torch.Generator().manual_seed(9))
+    rng = np.random.default_rng(11)
+    masks = ([[_mask(rng, n_t, rows, hidden)
+               for _ in range(num_layers - 1)] for _ in SEEDS]
+             if injected else None)
+    gens = [torch.Generator().manual_seed(40 + s) for s in SEEDS]
+    alpha, beta = stacked(x, deterministic=False, generators=gens,
+                          masks=masks, window_rows=window_rows)
+    (alpha.square().sum() + beta.sum()).backward()
+    for r, seed in enumerate(SEEDS):
+        a, b = solos[r](x[r], deterministic=False,
+                        generator=torch.Generator().manual_seed(40 + seed),
+                        masks=masks[r] if injected else None,
+                        window_rows=window_rows)
+        (a.square().sum() + b.sum()).backward()
+        assert torch.equal(a, alpha[r]) and torch.equal(b, beta[r])
+        for (name, p), q in zip(stacked.replicas[r].named_parameters(),
+                                solos[r].parameters()):
+            assert torch.equal(p.grad, q.grad), name
+
+
+@pytest.mark.parametrize("num_layers", [1, 4])
+def test_each_replica_is_its_solo_trainer_run_at_one_and_four_layers(
+        data_dir, num_layers):
+    """As ``test_each_replica_is_its_solo_trainer_run_bitwise`` (dropout
+    0.2, 2 epochs, R = 2) through the single-layer and the 4-deep stack's
+    replica axes: weights, moments and history rows bit for bit."""
+    spec = ModelSpec(objective="mse", hidden_size=H, num_layers=num_layers,
+                     dropout=0.2)
+    trainer = StackedTrainer(max_epochs=2, gradient_clip_val=CLIP, device="cpu")
+    result = trainer.fit(spec, _dm(data_dir), [
+        ReplicaSpec(f"s{i}", s, lr) for i, (s, lr) in
+        enumerate(zip(SEEDS[:2], LRS[:2]))])
+    for r, (seed, lr) in enumerate(zip(SEEDS[:2], LRS[:2])):
+        solo = Trainer(max_epochs=2, gradient_clip_val=CLIP, device="cpu",
+                       seed=seed).fit(dataclasses.replace(spec, learning_rate=lr),
+                                      _dm(data_dir))
+        _assert_replica_equal(result.replicas[r], solo.state, solo.opt_state)
+        assert result.replicas[r].history == solo.history
+
+
+def test_kfactor_stack_replicas_are_their_solo_trainer_runs(tmp_path):
+    """A toy model=kfactor stack: 3 factors (the rank-3 NLL, combined
+    objective), 256 assets a window, lookback 32, H=64, where the grouping
+    rule (``window_rows`` = the assets) runs two single layers; R = 2,
+    2 epochs, dropout 0.2: each replica its solo trainer run bit for bit."""
+    bootstrap_synthetic(tmp_path, n_stocks=256, n_samples=400, seed=0,
+                        n_factors=3)
+    windows = dict(lookback_window=32, target_window=16, stride=48)
+    spec = ModelSpec(objective="combined", hidden_size=64, num_layers=2,
+                     dropout=0.2, input_size=7, n_factors=3)
+
+    def dm():
+        return FinancialWindowDataModule(tmp_path, batch_size=1, **windows)
+
+    probe = dm()
+    assert probe.n_factors == 3 and probe.n_features == spec.input_size
+    stacked = StackedLstmEncoder([spec.build_module(device="cpu")])
+    assert stacked.check_groups(32, 256, True, 256) == [1, 1]
+    trainer = StackedTrainer(max_epochs=2, gradient_clip_val=CLIP, device="cpu")
+    reps = [ReplicaSpec("a", 0, 1e-3), ReplicaSpec("b", 1, 1e-4)]
+    result = trainer.fit(spec, dm(), reps)
+    for got, rep in zip(result.replicas, reps):
+        solo = Trainer(max_epochs=2, gradient_clip_val=CLIP, device="cpu",
+                       seed=rep.seed).fit(
+            dataclasses.replace(spec, learning_rate=rep.learning_rate), dm())
+        _assert_replica_equal(got, solo.state, solo.opt_state)
+        assert got.history == solo.history
 
 
 def test_stacked_pair_replicas_equal_the_solo_pair_bitwise():

@@ -251,3 +251,55 @@ def test_server_answers_each_request_on_every_lane():
         # CPU product's blocking.
         np.testing.assert_allclose(r.outputs[0], engine.predict(w[None])[0][0],
                                    atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("num_layers", [1, 4])
+def test_lanes_of_other_groupings_match_the_jax_engine_and_the_solo_engine(
+        num_layers):
+    """Lanes of one layer (the single-layer replica axis) and of four (one
+    4-deep stack at this toy shape) against the JAX stacked engine on the
+    same trees, within ATOL, every bucket and the pad path; each lane bit
+    for bit the port's solo engine."""
+    spec = JaxSpec(objective="mse", hidden_size=H, num_layers=num_layers,
+                   dropout=0.0, kernel_impl="xla")
+    module = spec.build_module()
+    trees = [module.init(jax.random.key(seed), jnp.zeros((1, T, F)))["params"]
+             for seed in range(LANES)]
+    jax_engine = JaxStacked(spec, trees, n_stocks=K, lookback=T, n_features=F,
+                            buckets=BUCKETS)
+    jax_engine.warmup()
+    states = [params_from_jax(jax.tree_util.tree_map(np.asarray, t))
+              for t in trees]
+    engine = StackedPredictEngine(_spec(num_layers), states, n_stocks=K,
+                                  lookback=T, n_features=F, buckets=BUCKETS,
+                                  device="cpu")
+    assert engine._module.check_groups(T, K, False, K) == [num_layers]
+    solos = [PredictEngine(_spec(num_layers), s, n_stocks=K, lookback=T,
+                           n_features=F, buckets=BUCKETS, device="cpu")
+             for s in states]
+    for n in (1, 3, 4):
+        x = _windows(n, seed=30 + n)
+        want_a, want_b = jax_engine.predict(x)
+        got_a, got_b = engine.predict(x)
+        np.testing.assert_allclose(got_a, want_a, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(got_b, want_b, atol=ATOL, rtol=0)
+        for lane, solo in enumerate(solos):
+            solo_a, solo_b = solo.predict(x)
+            np.testing.assert_array_equal(got_a[:, lane], solo_a)
+            np.testing.assert_array_equal(got_b[:, lane], solo_b)
+
+
+def test_a_four_layer_lane_swap_keeps_the_sibling_proof(tmp_path):
+    """try_swap_lane on a stack of 4-layer lanes: committed with its
+    sibling proof, the other lanes' answers unchanged bit for bit."""
+    engine = StackedPredictEngine(
+        _spec(4), [_state(seed, num_layers=4) for seed in range(LANES)],
+        n_stocks=K, lookback=T, n_features=F, buckets=BUCKETS, device="cpu")
+    golden = engine.golden_batch()
+    before_a, _ = engine.predict(golden)
+    path = _publish(tmp_path, "deep", _state(9, num_layers=4), _spec(4))
+    verdict = CheckpointSwapper(engine).try_swap_lane(0, path)
+    assert verdict.ok and verdict.checks["siblings_bitwise"] is True
+    after_a, _ = engine.predict(golden)
+    for lane in (1, 2):
+        np.testing.assert_array_equal(after_a[:, lane], before_a[:, lane])
