@@ -36,10 +36,18 @@ datamodule=real model=medium trainer.epoch_mode=stream`` on Fama-French
 CSVs in the data library's layout written here from a seed, then ``test``
 and a warm start from the synthetic model=medium checkpoint, each a child
 process, and the best checkpoint served through
-``PredictEngine.from_checkpoint``. ``resilience`` kills a run in the middle
-of a checkpoint's publish (``MTT_FAULT_PLAN``) and resumes it bit for bit,
-and corrupts a published checkpoint, which the restore and the server must
-catch. The rest of serving closes the run: ``serve_faults`` (a fault plan
+``PredictEngine.from_checkpoint``. ``resilience`` runs ``train`` under the
+run supervisor (``python -m masters_thesis_tpu_torch.resilience run``),
+whose attempt 1 is killed in the middle of a checkpoint's publish
+(``MTT_FAULT_PLAN``) and whose attempt 2 resumes it bit for bit, reads the
+child's ``events.jsonl`` back with ``telemetry summarize`` (one restart)
+and prints the time to recover; it also corrupts a published checkpoint,
+which the restore and the server must catch. Beside it
+``telemetry_profile`` runs a short ``train`` child with the profiler
+window on one epoch, whose trace must name the pair path's kernels. Every
+``train`` child writes its ``events.jsonl`` (``trainer.telemetry=auto``);
+``driver`` reads its child's back (one capture of the train program, a
+FLOP share of the card's peak). The rest of serving closes the run: ``serve_faults`` (a fault plan
 on ``serve.admit`` and ``serve.dispatch``, its counts held to the plan's),
 ``serve_preflight`` (``python -m masters_thesis_tpu_torch.serve
 preflight`` as a child), ``serve_swap`` (the canaried hot-swap through the
@@ -132,6 +140,12 @@ from masters_thesis_tpu_torch.serve.engine import PredictEngine
 from masters_thesis_tpu_torch.serve.server import PredictServer
 from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
 from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
+from masters_thesis_tpu_torch.telemetry import costs
+from masters_thesis_tpu_torch.telemetry.costs import (
+    PEAK_SOURCE,
+    bound_ms as bound,
+)
+from masters_thesis_tpu_torch.telemetry.events import read_events
 from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
 from masters_thesis_tpu_torch.telemetry.trace import (
     SERVE_COMPONENTS,
@@ -175,12 +189,6 @@ from masters_thesis_tpu_torch.train.trainer import (
     device_split,
     epoch_seed,
 )
-
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the kernels
-# run f32 products on the CUDA cores, so the f32 rate without tensor cores.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_SOURCE = "H100 SXM data sheet: 67 TFLOP/s f32 (no tensor cores), 3.35 TB/s"
 
 # Forwards: 2e-5 abs (f32, summation order differs over 60 dependent steps).
 # Backward sweeps and weight gradients: 2e-5 of the largest entry (at least
@@ -376,11 +384,13 @@ def host_probe_ms() -> float:
     return 1e3 * (time.perf_counter() - t0)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least milliseconds for the work: the larger of the two roofline terms."""
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+def cost(name: str, rows: int, n_t: int = T, n_layers: int = STACK_LAYERS,
+         with_c: bool = False) -> tuple[int, int]:
+    """A kernel row's operations and bytes at width H: the cost model of
+    the run report (``telemetry/costs.py`` ``kernel_cost``), behind every
+    row's ``bound_ms`` (at the H100 peaks, ``bound``)."""
+    return costs.kernel_cost(name, rows, n_t, H, n_layers=n_layers,
+                             with_c=with_c)
 
 
 # ------------------------------------------------------------------ phases
@@ -514,15 +524,13 @@ def phase_kernels() -> dict:
                 lambda: lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2),
                 lambda: lk.lstm_pair_ref(x, w1, wi2, b2, w2),
                 _cudnn_forward(x, [(w1,), (w2, wi2, b2)]),
-                3 * 2 * T * rows * H * 4 * H,
-                4 * (x.numel() + 3 * H * 4 * H + 4 * H + T * rows * H),
+                *cost("lstm_pair_fwd", rows),
             ),
             "lstm_fwd": (
                 lambda: lk.lstm_fwd_cuda(x, w1),
                 lambda: lk.lstm_recurrence_ref(x, w1),
                 _cudnn_forward(x, [(w1,)]),
-                2 * T * rows * H * 4 * H,
-                4 * (x.numel() + H * 4 * H + T * rows * H),
+                *cost("lstm_fwd", rows),
             ),
         }
         with torch.inference_mode():
@@ -660,7 +668,8 @@ def phase_training_kernels() -> dict:
     """The training kernels against their plain versions at the shapes of
     the training path (100 rows: one window a step) and of 8 windows.
 
-    FLOPs count each (rows, H) @ (H, 4H) product of a step as 2*H*4H a row:
+    FLOPs (``cost``, from telemetry/costs.py) count each (rows, H) @ (H, 4H)
+    product of a step as 2*H*4H a row:
     3 in the masked pair forward, 6 in the pair's backward sweep (both
     layers' gates, layer 2's input projection, three transposed products),
     3 in the pair's weight-gradient pass, 2 and 1 for the single layer.
@@ -670,10 +679,6 @@ def phase_training_kernels() -> dict:
         v = _training_inputs(rows)
         x, w1, wi2, b2, w2, mask, dh = (v[k] for k in (
             "x", "w1", "wi2", "b2", "w2", "mask", "dh"))
-        product = 2 * T * rows * H * 4 * H
-        plane_h = 4 * T * rows * H
-        plane_x = 4 * T * rows * 4 * H
-        weight = 4 * H * 4 * H
         pair = [(w1,), (w2, wi2, b2)]
         bwd_args = (dh, x, mask, v["h1s"], v["c1s"], v["h2s"], v["c2s"], w1,
                     wi2, b2, w2)
@@ -687,8 +692,7 @@ def phase_training_kernels() -> dict:
                 lambda: lk.lstm_pair_ref(x, w1, wi2, b2, w2, mask,
                                          return_stash=True),
                 _cudnn_forward(x, pair), False,
-                3 * product, plane_x + plane_h + 3 * weight + 4 * 4 * H
-                + 4 * plane_h, False, note=no_mask,
+                *cost("lstm_pair_fwd_masked", rows), False, note=no_mask,
             ),
             # cuDNN's backward gives x's gradient only, held against the
             # sweep's first output; the whole cuDNN backward (data and weight
@@ -698,8 +702,7 @@ def phase_training_kernels() -> dict:
                 lambda: lk.lstm_pair_bwd_cuda(*bwd_args),
                 lambda: lk.lstm_pair_bwd_ref(*bwd_args),
                 _cudnn_backward(x, pair, dh, weights=False), False,
-                6 * product, 6 * plane_h + plane_x + 3 * weight + 4 * 4 * H
-                + 2 * plane_x, True,
+                *cost("lstm_pair_bwd", rows), True,
                 full=_cudnn_backward(x, pair, dh, weights=True), note=no_mask,
             ),
             _measure(
@@ -707,8 +710,7 @@ def phase_training_kernels() -> dict:
                 lambda: lk.lstm_pair_wgrad(*wgrad_args),
                 lambda: lk.lstm_pair_wgrad_ref(*wgrad_args),
                 _wgrad_library(*wgrad_args), True,
-                3 * product, 2 * plane_x + 3 * plane_h + 3 * weight + 4 * 4 * H,
-                True,
+                *cost("lstm_wgrad", rows), True,
                 # The single-layer job of the same pass.
                 check=lambda: (lk.lstm_single_wgrad(v["dx"], v["hs"]),
                                lk.lstm_wgrad_ref(v["dx"], v["hs"], 1)),
@@ -718,7 +720,7 @@ def phase_training_kernels() -> dict:
                 lambda: lk.lstm_bwd_cuda(dh, x, v["hs"], v["cs"], w1),
                 lambda: lk.lstm_bwd_ref(dh, x, v["hs"], v["cs"], w1),
                 _cudnn_backward(x, [(w1,)], dh, weights=False), True,
-                2 * product, 3 * plane_h + plane_x + weight + plane_x, True,
+                *cost("lstm_bwd", rows), True,
                 full=_cudnn_backward(x, [(w1,)], dh, weights=True),
             ),
         ]
@@ -795,10 +797,6 @@ def phase_stack_kernels() -> dict:
         v = _stack_inputs(n, rows, seed=rows)
         x, masks, dh = v["x"], v["masks"], v["dh"]
         weights = (v["w_hh"], v["w_in"], v["biases"])
-        product = 2 * T * rows * H * 4 * H
-        plane_h = 4 * T * rows * H
-        plane_x = 4 * T * rows * 4 * H
-        params = 4 * ((2 * n - 1) * H * 4 * H + (n - 1) * 4 * H)
         bwd_args = (dh, x, masks, v["hs"], v["cs"], *weights)
         wgrad_args = (v["d_pres"], v["hs"], masks)
         no_mask = "cuDNN takes no seam mask: the maskless stack"
@@ -814,7 +812,7 @@ def phase_stack_kernels() -> dict:
                 lambda: lk.lstm_stack_fwd_cuda(x, *weights),
                 lambda: lk.lstm_stack_ref(x, *weights),
                 _inference(_cudnn_forward(x, v["layers"])), True,
-                (2 * n - 1) * product, plane_x + params + plane_h, False,
+                *cost("lstm_stack_fwd", rows, n_layers=n), False,
                 extra=tile(False, False),
             ),
             _measure(
@@ -822,8 +820,7 @@ def phase_stack_kernels() -> dict:
                 lambda: lk.lstm_stack_fwd_cuda(x, *weights, masks, stash=True),
                 lambda: lk.lstm_stack_ref(x, *weights, masks, return_stash=True),
                 _cudnn_forward(x, v["layers"]), False,
-                (2 * n - 1) * product,
-                plane_x + (n - 1) * plane_h + params + 2 * n * plane_h, False,
+                *cost("lstm_stack_fwd_masked", rows, n_layers=n), False,
                 note=no_mask, extra=tile(False, True, stash=True),
             ),
             _measure(
@@ -831,9 +828,7 @@ def phase_stack_kernels() -> dict:
                 lambda: lk.lstm_stack_bwd_cuda(*bwd_args),
                 lambda: lk.lstm_stack_bwd_ref(*bwd_args),
                 _cudnn_backward(x, v["layers"], dh, weights=False), False,
-                (4 * n - 2) * product,
-                plane_h + plane_x + (n - 1) * plane_h + 2 * n * plane_h + params
-                + n * plane_x, True,
+                *cost("lstm_stack_bwd", rows, n_layers=n), True,
                 full=_cudnn_backward(x, v["layers"], dh, weights=True),
                 note=no_mask, extra=tile(True, True),
             ),
@@ -842,8 +837,7 @@ def phase_stack_kernels() -> dict:
                 lambda: lk.lstm_stack_wgrad(*wgrad_args),
                 lambda: lk.lstm_stack_wgrad_ref(*wgrad_args),
                 _stack_wgrad_library(*wgrad_args), True,
-                (2 * n - 1) * product,
-                n * plane_x + n * plane_h + (n - 1) * plane_h + params, True,
+                *cost("lstm_wgrad_stack", rows, n_layers=n), True,
             ),
         ]
         for row in rows_out:
@@ -983,10 +977,6 @@ def phase_tblocked_kernels() -> dict:
     for rows in (100, 800):
         v = _long_inputs(rows, seed=rows)
         x, w, dh, hs, cs = (v[k] for k in ("x", "w", "dh", "hs", "cs"))
-        product = 2 * T_LONG * rows * H * 4 * H
-        plane_h = 4 * T_LONG * rows * H
-        plane_x = 4 * T_LONG * rows * 4 * H
-        weight = 4 * H * 4 * H
         with torch.no_grad():
             # The resident and time-blocked kernels run one step on one
             # tile, forward and backward, so they agree bit for bit.
@@ -1008,7 +998,7 @@ def phase_tblocked_kernels() -> dict:
                 lambda: lk.lstm_tb_fwd_cuda(x, w),
                 lambda: lk.lstm_tb_fwd_ref(x, w, v["fwd_chunk"])[0],
                 _inference(_cudnn_forward(x, [(w,)])), True,
-                product, plane_x + weight + plane_h, False,
+                *cost("lstm_tb_fwd", rows, T_LONG), False,
                 check=lambda: (lk.lstm_tb_fwd_cuda(x, w, return_c=True)[1], cs),
                 n_t=T_LONG,
                 extra={"time_chunk": v["fwd_chunk"],
@@ -1022,7 +1012,7 @@ def phase_tblocked_kernels() -> dict:
                 lambda: lk.lstm_tb_bwd_ref(dh, x, hs, cs, w, v["bwd_chunk"],
                                            lk._row_tile(rows)),
                 _cudnn_backward_hh(x, w, dh), True,
-                3 * product, 3 * plane_h + 2 * plane_x + 2 * weight, True,
+                *cost("lstm_tb_bwd", rows, T_LONG), True,
                 note="cuDNN's weight backward also forms the identity input "
                      "weight's (4H, 4H) gradient and the biases'",
                 n_t=T_LONG,
@@ -1997,6 +1987,10 @@ _CLI_CHILD = (
     " alter_sys=True)\n"
 )
 DRIVER_RTOL = 1e-4
+# `phase_driver`'s train child: its `done:` windows/s before run telemetry
+# was on by default (NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's.
+DRIVER_DONE_BEFORE = 1532.2
 DONE_LINE = re.compile(r"done: best_val=(\S+) test_mae=(\S+) test_nll=(\S+) "
                        r"steps/sec=(\S+)")
 DELTA_LINE = re.compile(r"\s*(model|ols): dL_MSE\(x1e-5\)=\s*(\S+)\s+"
@@ -2116,6 +2110,11 @@ def phase_driver(train: dict) -> dict:
         warm_lines, warm_launches, warm_s = _cli_result(warm_run)
         warm_dir = run_dir.parent / "warm_start"
         done, warm_done = _done(run_lines), _done(warm_lines)
+        # trainer.telemetry=auto: the train child's events, read back.
+        sum_code, sum_text, report = _summarize_cli(run_dir / "telemetry")
+        gauges = next(e["metrics"] for e in reversed(
+            read_events(run_dir / "telemetry" / "events.jsonl"))
+            if e["kind"] == "metrics")
         delta = {m.group(1): dict(zip(("delta_mse_x1e5", "delta_nll",
                                        "delta_mix"), map(float, m.groups()[1:])))
                  for m in map(DELTA_LINE.fullmatch, test_lines) if m}
@@ -2137,8 +2136,22 @@ def phase_driver(train: dict) -> dict:
         "phase": "driver",
         "seconds": {"train": run_s, "test": test_s, "warm_start": warm_s},
         "windows_per_s": {"train": done["steps_per_s"],
+                          "train_before_telemetry": DRIVER_DONE_BEFORE,
                           "warm_start": warm_done["steps_per_s"],
                           "trainer_fit": train["windows_per_s"]},
+        "telemetry": {
+            "summarize_exit": sum_code,
+            "compiles": report.get("compiles"),
+            "utilization": {k: (report.get("utilization") or {}).get(k)
+                            for k in ("program", "flops_per_step",
+                                      "bytes_per_step",
+                                      "flops_utilization_pct",
+                                      "bytes_utilization_pct", "regime")},
+            "utilization_line": next((ln for ln in sum_text.splitlines()
+                                      if ln.startswith("utilization")), None),
+            "host_s": gauges["telemetry/host_s"]["value"],
+            "memory_peak_bytes": (report.get("memory") or {}).get("peak_bytes"),
+        },
         "done": {"train": done, "warm_start": warm_done},
         "val_loss_initial": train["val_loss_initial"],
         "best_val_trainer_fit": train["best_val_loss"],
@@ -2157,6 +2170,10 @@ def phase_driver(train: dict) -> dict:
         raise AssertionError(f"driver: missing or non-finite results: {out}")
     if not all(files.values()):
         raise AssertionError(f"driver: checkpoint missing: {files}")
+    tel = out["telemetry"]
+    if (sum_code != 0 or (tel["compiles"] or {}).get("train_epoch") != 1
+            or not (tel["utilization"]["flops_utilization_pct"] or 0) > 0):
+        raise AssertionError(f"driver: telemetry: {tel} {sum_text}")
     # The composed default is phase_train's spec, seed and data, and each
     # epoch's draws follow (seed, epoch): the driver's run is phase_train's
     # (its done line rounds to 6 digits; a wrong lr or dropout moves the
@@ -2519,57 +2536,144 @@ def phase_real_medium(train_medium: dict) -> dict:
 
 
 RESILIENCE_SAMPLES = 20_000  # 155 train windows: short child runs
+RESILIENCE_RUN = ("FinancialLstm", "synthetic")
+RESTARTS_LINE = "restarts       : 1 (2 attempts)"
 
 
-def phase_resilience() -> dict:
-    """Crash-safe checkpoints through the entry point (model=small, 100
-    stocks x 20,000 samples, child processes): an unbroken 3-epoch run; a
-    run killed by ``MTT_FAULT_PLAN`` (SIGKILL) at ``checkpoint.mid_publish``
-    of the epoch-1 save of ``last``, relaunched with ``trainer.resume=true``,
-    whose final ``best`` and ``last`` must equal the unbroken run's bit for
-    bit; and a run whose last save of ``last`` (epoch 2; validation every
-    2 epochs, so ``last.prev`` is epoch 1's) is corrupted after its
-    publish, after which the restore falls back to ``last.prev`` with its
-    stderr line and ``PredictEngine.from_checkpoint`` refuses the tree.
-    The data is made first; then the three runs go side by side, and the
-    relaunch after the kill."""
-    root = Path(__file__).resolve().parent / "data" / "chip_smoke"
-    data = root / f"{K_STOCKS}x{RESILIENCE_SAMPLES}"
+def _resilience_data() -> Path:
+    """The resilience phase's data (100 stocks x 20,000 samples), made and
+    windowed once, before its children start."""
+    data = (Path(__file__).resolve().parent / "data" / "chip_smoke"
+            / f"{K_STOCKS}x{RESILIENCE_SAMPLES}")
     bootstrap_synthetic(data, n_stocks=K_STOCKS, n_samples=RESILIENCE_SAMPLES,
                         seed=0)
     FinancialWindowDataModule(data, lookback_window=T, target_window=30,
                               stride=90).prepare_data()
+    return data
+
+
+class _Supervised:
+    """``python -m masters_thesis_tpu_torch.resilience run`` around a train
+    child (``_CLI_CHILD``, as ``python -m masters_thesis_tpu_torch train``
+    runs) on the card, with ``plan`` in the environment (attempt 1 only):
+    its own ``events.jsonl`` and each attempt's output under ``run_dir``,
+    the child's telemetry under ``<log_dir>/telemetry``."""
+
+    def __init__(self, run_dir: Path, log_dir: Path, overrides: list,
+                 plan: str, side_by_side: int):
+        env = {k: v for k, v in os.environ.items()
+               if k not in (faults.FAULT_PLAN_ENV, faults.ATTEMPT_ENV,
+                            "MTT_LR_SCALE")}
+        env[faults.FAULT_PLAN_ENV] = plan
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1)
+                                         // side_by_side))
+        self.run_dir, self.log_dir = run_dir, log_dir
+        self.out = tempfile.TemporaryFile("w+")
+        self.err = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "masters_thesis_tpu_torch.resilience",
+             "run", "--run-dir", str(run_dir),
+             "--watch-dir", str(log_dir / "telemetry"),
+             "--ckpt-dir", str(log_dir / "checkpoints"),
+             "--backoff-s", "0.5", "--attempt-timeout-s", "300",
+             "--retry-budget-s", "600", "--quiet", "--",
+             sys.executable, "-c", _CLI_CHILD, "train", "--device", DEVICE,
+             *overrides, "trainer.resume=auto"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=self.out,
+            stderr=self.err, text=True)
+
+    def wait(self, timeout: float = 700) -> tuple[int, str, float]:
+        """The supervisor's exit code, its stderr and its seconds."""
+        try:
+            code = self.proc.wait(timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        seconds = time.perf_counter() - self.t0
+        self.err.seek(0)
+        err = self.err.read()
+        self.out.close()
+        self.err.close()
+        return code, err, seconds
+
+
+def _summarize_cli(run_dir: Path) -> tuple[int, str, dict]:
+    """``python -m masters_thesis_tpu_torch.telemetry summarize`` on
+    ``run_dir`` (a child that imports no torch): its exit code, its text
+    and its report (``--json``)."""
+    args = [sys.executable, "-m", "masters_thesis_tpu_torch.telemetry",
+            "summarize", str(run_dir)]
+    cwd = Path(__file__).resolve().parent
+    text = subprocess.run(args, cwd=cwd, capture_output=True, text=True,
+                          timeout=120)
+    report = subprocess.run(args + ["--json"], cwd=cwd, capture_output=True,
+                            text=True, timeout=120)
+    return text.returncode, text.stdout, json.loads(report.stdout or "{}")
+
+
+def phase_resilience(profile_child: "_Child | None" = None) -> dict:
+    """Crash-safe checkpoints and the run supervisor through the entry
+    point (model=small, 100 stocks x 20,000 samples, child processes side
+    by side): an unbroken 3-epoch run; a supervised run (``resilience
+    run``) whose attempt 1 is killed by ``MTT_FAULT_PLAN`` (SIGKILL) at
+    ``checkpoint.mid_publish`` of the epoch-1 save of ``last`` and which
+    the supervisor relaunches with ``trainer.resume=auto``: 2 attempts,
+    attempt 1 ``transient``, ``verdict=completed``, its final ``best`` and
+    ``last`` bit for bit the unbroken run's, ``telemetry summarize`` exit 0
+    with one restart; and a run whose last save of ``last`` (epoch 2;
+    validation every 2 epochs, so ``last.prev`` is epoch 1's) is corrupted
+    after its publish, after which the restore falls back to ``last.prev``
+    with its stderr line and ``PredictEngine.from_checkpoint`` refuses the
+    tree. The torn layout is the resumed child's report of what it found.
+    Printed: the time to recover (attempt 1's end to attempt 2's first
+    ``epoch`` event), the lost work as ``summarize`` reports it, and the
+    seconds of each ``checkpoint_saved``."""
+    root = Path(__file__).resolve().parent / "data" / "chip_smoke"
+    data = _resilience_data()
     save_dir = Path(tempfile.mkdtemp(prefix="resilience_", dir=root))
     common = [f"datamodule.data_dir={data}",
               f"datamodule.n_samples={RESILIENCE_SAMPLES}",
               f"logger.save_dir={save_dir}", "trainer.max_epochs=3"]
-    runs = save_dir / "FinancialLstm" / "synthetic"
+    runs = save_dir.joinpath(*RESILIENCE_RUN)
     kill = json.dumps([{"point": "checkpoint.mid_publish", "kind": "kill",
                         "match": {"tag": "last", "epoch": 1}}])
     corrupt = json.dumps({"seed": 7, "faults": [
         {"point": "checkpoint.post_publish", "kind": "corrupt",
          "match": {"tag": "last", "epoch": 2}}]})
     try:
-        (whole, whole_s), (killed, killed_s), (corrupted, corrupted_s) = \
-            _wait_all([
-                _Child("train", *common, "logger.version=whole",
-                       side_by_side=3),
-                _Child("train", *common, "logger.version=split", plan=kill,
-                       side_by_side=3),
-                _Child("train", *common, "logger.version=corrupt",
-                       "trainer.check_val_every_n_epoch=2", plan=corrupt,
-                       side_by_side=3)])
-        split = runs / "split" / "checkpoints"
-        torn = sorted(p.name for p in split.iterdir())
-        # With the unbroken run's threads: a CPU op's sums follow them.
-        resumed, resumed_s = _Child("train", *common, "logger.version=split",
-                                    "trainer.resume=true",
-                                    side_by_side=3).wait()
-        for name, proc in (("unbroken", whole), ("corrupted", corrupted),
-                           ("relaunched", resumed)):
+        supervised = _Supervised(save_dir / "supervisor", runs / "split",
+                                 [*common, "logger.version=split"], kill,
+                                 side_by_side=3)
+        (whole, whole_s), (corrupted, corrupted_s) = _wait_all([
+            _Child("train", *common, "logger.version=whole", side_by_side=3),
+            _Child("train", *common, "logger.version=corrupt",
+                   "trainer.check_val_every_n_epoch=2", plan=corrupt,
+                   side_by_side=3)])
+        sup_code, sup_err, sup_s = supervised.wait()
+        profile = (phase_telemetry_profile(profile_child)
+                   if profile_child is not None else None)
+        for name, proc in (("unbroken", whole), ("corrupted", corrupted)):
             if proc.returncode != 0:
                 raise AssertionError(f"resilience: the {name} run exited "
                                      f"{proc.returncode}: {proc.stderr[-3000:]}")
+        sup_dir = save_dir / "supervisor"
+        if sup_code != 0:
+            raise AssertionError(
+                f"resilience: the supervisor exited {sup_code}: "
+                f"{sup_err[-3000:]}")
+        sup_events = read_events(sup_dir / "events.jsonl")
+        attempts = [e for e in sup_events if e["kind"] == "attempt_finished"]
+        killed_err = (sup_dir / "attempt_1.err").read_text()
+        resumed_err = (sup_dir / "attempt_2.err").read_text()
+        resumed_lines = (sup_dir / "attempt_2.out").read_text().splitlines()
+        launches = json.loads(resumed_lines[-1])["launches"]
+        torn = next((line.split(": found ", 1)[1].rsplit(";", 1)[0].split()
+                     for line in resumed_err.splitlines()
+                     if line.startswith("[checkpoint] interrupted publish")
+                     and "/last:" in line), [])
+        split = runs / "split" / "checkpoints"
         equal = {}
         for tag in ("best", "last"):
             got = load_checkpoint(split, tag)
@@ -2579,6 +2683,18 @@ def phase_resilience() -> dict:
                 and all(torch.equal(got[1][k], v) if torch.is_tensor(v)
                         else got[1][k] == v for k, v in want[1].items())
                 and got[2:] == want[2:])
+        child_events = read_events(runs / "split" / "telemetry" / "events.jsonl")
+        attempt_1_end = next(e["ts"] for e in attempts if e["n"] == 1)
+        first_epoch = next(e["ts"] for e in child_events
+                           if e["kind"] == "epoch" and e["attempt"] == 2)
+        attempt_2_start = next(e["ts"] for e in sup_events
+                               if e["kind"] == "attempt_started" and e["n"] == 2)
+        run_started_2 = next(e["ts"] for e in child_events
+                             if e["kind"] == "run_started" and e["attempt"] == 2)
+        sum_code, sum_text, report = _summarize_cli(runs / "split" / "telemetry")
+        saves = [{"attempt": e["attempt"], "tag": e["tag"], "epoch": e["epoch"],
+                  "wall_s": e["wall_s"]}
+                 for e in child_events if e["kind"] == "checkpoint_saved"]
         ckpts = runs / "corrupt" / "checkpoints"
         picked = last_verified_checkpoint(ckpts)
         stderr = io.StringIO()
@@ -2592,16 +2708,33 @@ def phase_resilience() -> dict:
             refused = True
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
-    seconds = {"unbroken": whole_s, "killed": killed_s,
-               "corrupted": corrupted_s, "relaunched": resumed_s}
     out = {
         "phase": "resilience",
-        "seconds": seconds,
-        "killed_exit": killed.returncode,
+        "seconds": {"unbroken": whole_s, "corrupted": corrupted_s,
+                    "supervised": sup_s},
+        "verdict_line": next((ln for ln in sup_err.splitlines()
+                              if "verdict=" in ln), None),
+        "attempts": [{k: a[k] for k in ("n", "rc", "classification",
+                                        "wall_s", "lost_work_s")}
+                     for a in attempts],
         "killed_fired": "[faults] firing kind=kill at point=checkpoint.mid_publish"
-        in killed.stderr,
+        in killed_err,
         "torn_layout": torn,
         "resumed_bit_equal": equal,
+        "time_to_recover_s": first_epoch - attempt_1_end,
+        "time_to_recover_parts_s": {
+            "backoff_and_launch": attempt_2_start - attempt_1_end,
+            "start_to_run_started": run_started_2 - attempt_2_start,
+            "run_started_to_first_epoch": first_epoch - run_started_2},
+        "lost_work_s": report.get("restarts", {}).get("lost_work_s"),
+        "supervisor_lost_work_s": next(
+            (e["lost_work_s"] for e in sup_events
+             if e["kind"] == "supervisor_verdict"), None),
+        "checkpoint_saved": saves,
+        "summarize_exit": sum_code,
+        "summarize_restarts": next((ln for ln in sum_text.splitlines()
+                                    if ln.startswith("restarts")), None),
+        "launches": {k: v for k, v in launches.items() if v},
         "corrupt_fired": "[faults] firing kind=corrupt" in corrupted.stderr,
         "last_verified_checkpoint": picked and Path(picked).name,
         "restored_epoch": meta["epoch"],
@@ -2609,10 +2742,18 @@ def phase_resilience() -> dict:
         "from_checkpoint_refused": refused,
     }
     emit(out)
-    if killed.returncode != -9 or not out["killed_fired"] or "last" in torn \
-            or "last.new" not in torn:
+    if (not out["killed_fired"] or attempts[0]["rc"] != -9
+            or "last" in torn or "last.new" not in torn
+            or "last.prev" not in torn):
         raise AssertionError(f"resilience: the kill did not tear the publish: "
                              f"{out}")
+    if ("verdict=completed attempts=2" not in (out["verdict_line"] or "")
+            or [a["classification"] for a in attempts]
+            != ["transient", "success"]):
+        raise AssertionError(f"resilience: supervision: {out}")
+    if sum_code != 0 or out["summarize_restarts"] is None \
+            or not out["summarize_restarts"].startswith(RESTARTS_LINE):
+        raise AssertionError(f"resilience: summarize: {sum_code} {sum_text}")
     if not all(equal.values()):
         raise AssertionError(f"resilience: the resumed run is not the "
                              f"unbroken one: {equal}")
@@ -2620,6 +2761,80 @@ def phase_resilience() -> dict:
             and meta["epoch"] == 1 and "restoring previous good"
             in out["fallback_line"] and refused):
         raise AssertionError(f"resilience: corruption not caught: {out}")
+    # The resumed attempt trains epochs 1-2 through the pair's kernels.
+    path = ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad")
+    if not all(launches.get(k) for k in path):
+        raise AssertionError(f"resilience: kernels off the path: {launches}")
+    out["profile"] = profile
+    return out
+
+
+#: The pair path's kernels, as a profiler trace names them.
+PAIR_KERNEL_NAMES = ("lstm_pair_fwd_kernel", "lstm_pair_bwd_kernel",
+                     "lstm_wgrad_kernel")
+
+
+def _start_telemetry_profile() -> "_Child":
+    """A short ``train`` child with the profiler window on epoch 1 and the
+    hang watchdog armed, on the resilience data, started beside the
+    resilience phase's children."""
+    save_dir = Path(tempfile.mkdtemp(
+        prefix="profile_",
+        dir=Path(__file__).resolve().parent / "data" / "chip_smoke"))
+    child = _Child("train", f"datamodule.data_dir={_resilience_data()}",
+                   f"datamodule.n_samples={RESILIENCE_SAMPLES}",
+                   f"logger.save_dir={save_dir}", "trainer.max_epochs=2",
+                   "trainer.profile_steps=[1,1]", "trainer.hang_timeout_s=120",
+                   side_by_side=3)
+    child.save_dir = save_dir
+    return child
+
+
+def phase_telemetry_profile(child: "_Child") -> dict:
+    """The profiled child: its ``profile_window`` event points at a trace
+    that names the pair path's three kernels, its ``heartbeat.json`` is the
+    closed recorder's after a ``finished`` beat, and ``summarize`` exits
+    0."""
+    try:
+        lines, launches, seconds = _cli_result(child.wait())
+        tel_dir = child.save_dir.joinpath(*RESILIENCE_RUN,
+                                          "mse_small_lr0.0001_fast",
+                                          "telemetry")
+        events = read_events(tel_dir / "events.jsonl")
+        window = next(e for e in events if e["kind"] == "profile_window")
+        traces = sorted(Path(window["trace_dir"]).glob("*.json"))
+        names = set()
+        for trace in traces:
+            names.update(str(ev.get("name", ""))
+                         for ev in json.loads(trace.read_text())["traceEvents"]
+                         if ev.get("cat") == "kernel")
+        named = {k: sorted(n for n in names if k in n)[:2]
+                 for k in PAIR_KERNEL_NAMES}
+        heartbeat = json.loads((tel_dir / "heartbeat.json").read_text())
+        sum_code, _, report = _summarize_cli(tel_dir)
+    finally:
+        shutil.rmtree(child.save_dir, ignore_errors=True)
+    out = {
+        "phase": "telemetry_profile", "seconds": seconds,
+        "trace_files": [p.name for p in traces],
+        "trace_dir_is_run_dir": window["trace_dir"] == str(tel_dir / "profile"),
+        "kernels_named": named,
+        "kernel_events": len(names),
+        "heartbeat": {k: heartbeat.get(k) for k in ("phase", "closed",
+                                                     "hang_timeout_s", "beats")},
+        "run_finished": any(e["kind"] == "run_finished" for e in events),
+        "summarize_exit": sum_code,
+        "compiles": report.get("compiles"),
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    emit(out)
+    if not (traces and out["trace_dir_is_run_dir"]
+            and all(named.values())):
+        raise AssertionError(f"telemetry_profile: the trace misses the pair "
+                             f"kernels: {out}")
+    if not (heartbeat.get("closed") and heartbeat.get("hang_timeout_s") == 120
+            and out["run_finished"] and sum_code == 0):
+        raise AssertionError(f"telemetry_profile: {out}")
     return out
 
 
@@ -3098,7 +3313,7 @@ def phase_serve_knee(windows: np.ndarray) -> dict:
         finally:
             gc.callbacks.remove(on_gc)
             stats = server.stop()
-            memory = tel.sample_memory("serve_knee")
+            memory = tel.sample_memory("serve_knee", engine.device)
             tel.close()
         launches = dict(lk.LAUNCHES)
         spans = collect_spans(tel_dir / "knee")["spans"]
@@ -3228,17 +3443,13 @@ def phase_universe_kernels() -> dict:
     results = {}
     for rows in U_KERNEL_ROWS:
         x, w1, dh = _universe_inputs(rows, seed=rows)
-        product = 2 * U_T * rows * H * 4 * H
-        plane_h = 4 * U_T * rows * H
-        plane_x = 4 * U_T * rows * 4 * H
-        weight = 4 * H * 4 * H
         extra = {"phase": "universe_kernels"}
         row = _measure(
             "lstm_fwd", rows,
             _inference(lambda: lk.lstm_fwd_cuda(x, w1)),
             _inference(lambda: lk.lstm_recurrence_ref(x, w1)),
             _inference(_cudnn_forward(x, [(w1,)])), True,
-            product, plane_x + weight + plane_h, False, n_t=U_T, extra=extra,
+            *cost("lstm_fwd", rows, U_T), False, n_t=U_T, extra=extra,
             check=lambda: (lk.lstm_fwd_cuda(x, w1, return_c=True)[1],
                            lk.lstm_recurrence_ref(x, w1, return_c=True)[1]),
             # cuDNN takes ~29 ms a call at 131,072 rows: fewer loops there.
@@ -3257,7 +3468,7 @@ def phase_universe_kernels() -> dict:
                 lambda: lk.lstm_bwd_cuda(dh, x, hs, cs, w1),
                 lambda: lk.lstm_bwd_ref(dh, x, hs, cs, w1),
                 _cudnn_backward(x, [(w1,)], dh, weights=False), True,
-                2 * product, 3 * plane_h + plane_x + weight + plane_x, True,
+                *cost("lstm_bwd", rows, U_T), True,
                 full=_cudnn_backward(x, [(w1,)], dh, weights=True), n_t=U_T,
                 extra=extra),
             _measure(
@@ -3266,7 +3477,7 @@ def phase_universe_kernels() -> dict:
                 lambda: lk.lstm_wgrad_ref(dx, hs, 1),
                 lambda: (hs[:-1].reshape(-1, H).T
                          @ dx[1:].reshape(-1, 4 * H)), True,
-                product, plane_x + plane_h + weight, True, n_t=U_T,
+                *cost("lstm_wgrad_single", rows, U_T), True, n_t=U_T,
                 extra=extra),
         ]
         for r in rows_out:
@@ -3921,42 +4132,9 @@ TILE8 = {
 
 
 def _solo_flops_bytes(name: str, rows: int) -> tuple[float, float]:
-    """One replica's operations and bytes, as phase_kernels and
-    phase_training_kernels count them for the solo kernel (the single and
-    stack rows: their solo kernel rows' counts, the single forward with its
-    c plane written too)."""
-    product = 2 * T * rows * H * 4 * H
-    plane_h = 4 * T * rows * H
-    plane_x = 4 * T * rows * 4 * H
-    weight = 4 * H * 4 * H
-    seams = STACK_LAYERS - 1
-    stack_weights = (2 * STACK_LAYERS - 1) * weight + seams * 4 * 4 * H
-    counts = {
-        "lstm_fwd": (product, plane_x + weight + 2 * plane_h),
-        "lstm_bwd": (2 * product, 3 * plane_h + plane_x + weight + plane_x),
-        "lstm_wgrad_single": (product, plane_x + plane_h + weight),
-        "lstm_stack_fwd": ((2 * STACK_LAYERS - 1) * product,
-                           plane_x + stack_weights + plane_h),
-        "lstm_stack_fwd_masked": ((2 * STACK_LAYERS - 1) * product,
-                                  plane_x + stack_weights + seams * plane_h
-                                  + 2 * STACK_LAYERS * plane_h),
-        "lstm_stack_bwd": (2 * (2 * STACK_LAYERS - 1) * product,
-                           plane_h + plane_x + seams * plane_h
-                           + 2 * STACK_LAYERS * plane_h + stack_weights
-                           + STACK_LAYERS * plane_x),
-        "lstm_wgrad_stack": ((2 * STACK_LAYERS - 1) * product,
-                             STACK_LAYERS * plane_x
-                             + STACK_LAYERS * plane_h + seams * plane_h
-                             + stack_weights),
-        "lstm_pair_fwd": (3 * product, plane_x + 3 * weight + 4 * 4 * H + plane_h),
-        "lstm_pair_fwd_masked": (3 * product, plane_x + plane_h + 3 * weight
-                                 + 4 * 4 * H + 4 * plane_h),
-        "lstm_pair_bwd": (6 * product, 6 * plane_h + plane_x + 3 * weight
-                          + 4 * 4 * H + 2 * plane_x),
-        "lstm_wgrad": (3 * product, 2 * plane_x + 3 * plane_h + 3 * weight
-                       + 4 * 4 * H),
-    }
-    return counts[name]
+    """One replica's operations and bytes, as the solo kernel rows count
+    them (``cost``; the single forward with its c plane written too)."""
+    return cost(name, rows, with_c=name == "lstm_fwd")
 
 
 def _stacked_tiles(name: str, rows: int, n: int) -> dict:
@@ -4709,17 +4887,19 @@ def main() -> int:
     # resilience's (none of them is timed against another run).
     preflight = _start_preflight()
     stacked_child = _start_stacked_driver()
+    profile_child = _start_telemetry_profile()
     try:
-        phase_resilience()
+        phase_resilience(profile_child)
         phase_serve_preflight(preflight)
         stacked_driver = phase_stacked_driver(stacked_child)
     finally:
         if preflight.poll() is None:
             preflight.kill()
             preflight.communicate()
-        if stacked_child.proc.poll() is None:
-            stacked_child.proc.kill()
-            stacked_child.proc.wait()
+        for child in (stacked_child, profile_child):
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait()
     serve_long = phase_serve_long(_synthetic_windows(lookback=T_LONG,
                                                      stride=STRIDE_LONG))
     dm_long = _train_datamodule(lookback=T_LONG, stride=STRIDE_LONG)

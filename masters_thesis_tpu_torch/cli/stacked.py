@@ -17,7 +17,13 @@ refuses, and the stream epoch (stacked training runs scan epochs). It prints
 one JSON line, ``{"replicas": [{name, status, best_val, rollbacks,
 checkpoint}], "steps_per_sec", "epochs"}``, and exits 0 when at least one
 replica ends unmasked, 1 otherwise. It runs on CUDA unless given
-``--device cpu``.
+``--device cpu``. ``trainer.telemetry`` (``auto``: ``<ckpt-dir>/telemetry``,
+where ``sweeps/stacked_cell.py`` puts it; a path pins it; null turns it
+off) writes the stacked trainer's events there, with the flight recorder
+(``trainer.hang_timeout_s``), and the run ends with the ``telemetry:
+... summarize <dir>`` line; the profiler window and the cost profile are
+``train``'s only, and a set ``trainer.profile``, ``profile_steps`` or
+``cost_profile`` is named in a printed note.
 """
 
 from __future__ import annotations
@@ -63,6 +69,11 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     dm = cli_train.build_datamodule(cfg)
     spec = cli_train.build_spec(cfg)
+    for key in ("profile", "profile_steps", "cost_profile"):
+        if t.get(key):
+            print(f"note: trainer.{key}={t[key]} applies to the train "
+                  "command only; ignored here", flush=True)
+    telemetry = cli_train.make_telemetry(cfg, args.ckpt_dir)
     replicas = [
         ReplicaSpec(name=str(r["name"]), seed=int(r["seed"]),
                     learning_rate=float(r.get("lr") or spec.learning_rate))
@@ -77,8 +88,12 @@ def main(argv: list[str] | None = None) -> int:
         # A relaunch picks the group up at its last common 'last' epoch.
         resume=True,
         enable_progress_bar=t.get("enable_progress_bar", True),
+        telemetry=telemetry,
+        hang_timeout_s=t.get("hang_timeout_s", None),
     )
     result = trainer.fit(spec, dm, replicas)
+    if telemetry is not None:
+        cli_train.print_summarize_line(telemetry)
     rows = [
         {
             "name": r.name,

@@ -24,8 +24,15 @@ numbered job dir (Hydra's multirun layout).
 
 It runs on CUDA unless given ``--device cpu``, and raises without a card. A
 config key the port cannot honour raises and names the key
-(:func:`check_supported`); a key that only turns on observation (telemetry,
-profiling, preflight, the hang watchdog) is ignored with one printed line.
+(:func:`check_supported`). The observation keys reach the trainer as in
+``train.py``: ``trainer.telemetry`` (``auto``: ``<log_dir>/telemetry``; a
+path pins the run directory; null turns it off) writes ``events.jsonl``
+there, with the flight recorder (``trainer.hang_timeout_s``), the profiler
+window (``trainer.profile_steps``, ``trainer.profile``) and the analytic
+cost profile (``trainer.cost_profile``), and the run ends with the
+``telemetry: python -m masters_thesis_tpu_torch.telemetry summarize <dir>``
+line. ``trainer.preflight`` is ignored with one printed line
+(:func:`report_ignored`).
 """
 
 from __future__ import annotations
@@ -47,10 +54,11 @@ from masters_thesis_tpu_torch.config import yaml_subset
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
-# trainer keys that only turn on observation (telemetry, cost model,
-# profiler, preflight audit, hang watchdog): the port has none of it yet.
-OBSERVATION_KEYS = ("telemetry", "cost_profile", "profile", "profile_steps",
-                    "hang_timeout_s", "preflight")
+# trainer keys that only turn on observation which the port has not yet:
+# the trace-time preflight audit, with where it is queued.
+OBSERVATION_KEYS = {
+    "preflight": "ROADMAP.md queue 1 item 6 (the analysis passes)",
+}
 
 
 def register_resolvers() -> None:
@@ -157,13 +165,45 @@ def check_launcher(cfg: Config) -> None:
 
 
 def report_ignored(cfg: Config) -> None:
-    """One line for each observation key that is set."""
-    for key in OBSERVATION_KEYS:
+    """One line for each set observation key the port does not have."""
+    for key, queue in OBSERVATION_KEYS.items():
         value = cfg.trainer.get(key)
         if value:
             print(f"note: trainer.{key}={value} only turns on observation, "
-                  "which masters_thesis_tpu_torch does not have; ignored",
-                  flush=True)
+                  "which masters_thesis_tpu_torch does not have; ignored "
+                  f"({queue})", flush=True)
+
+
+def make_telemetry(cfg: Config, log_dir: Path):
+    """The run's ``TelemetryRun`` from ``trainer.telemetry``: ``auto`` puts
+    it under ``<log_dir>/telemetry``, a path pins it there, null or false
+    turns it off (None)."""
+    from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+
+    tel_cfg = cfg.trainer.get("telemetry", None)
+    if not tel_cfg:
+        return None
+    return TelemetryRun(log_dir / "telemetry" if tel_cfg == "auto"
+                        else Path(tel_cfg))
+
+
+def observation_kwargs(cfg: Config) -> dict:
+    """The trainer's observation keys as ``Trainer`` arguments."""
+    t = cfg.trainer
+    profile_steps = t.get("profile_steps", None)
+    return dict(
+        cost_profile=t.get("cost_profile", None),
+        profile=bool(t.get("profile", False)),
+        profile_steps=tuple(profile_steps) if profile_steps else None,
+        hang_timeout_s=t.get("hang_timeout_s", None),
+    )
+
+
+def print_summarize_line(telemetry) -> None:
+    """Close the run's telemetry and say how to read it."""
+    telemetry.close()
+    print("telemetry: python -m masters_thesis_tpu_torch.telemetry summarize "
+          f"{telemetry.run_dir}", flush=True)
 
 
 def bootstrap(cfg: Config) -> bool:
@@ -279,6 +319,7 @@ def run(cfg: Config, device=None) -> float:
     spec = build_spec(cfg)
 
     logger = RunLogger(cfg.logger.save_dir, cfg.logger.name, cfg.logger.version)
+    telemetry = make_telemetry(cfg, logger.log_dir)
     t = cfg.trainer
     resume = t.get("resume", False)
     if isinstance(resume, str):
@@ -300,6 +341,9 @@ def run(cfg: Config, device=None) -> float:
         enable_progress_bar=t.get("enable_progress_bar", True),
         enable_model_summary=t.get("enable_model_summary", True),
         epoch_mode=t.get("epoch_mode", "scan"),
+        name=t.get("name", "fast"),
+        telemetry=telemetry,
+        **observation_kwargs(cfg),
     )
     init_state = None
     if cfg.checkpoint:
@@ -316,6 +360,8 @@ def run(cfg: Config, device=None) -> float:
         },
     )
     logger.close()
+    if telemetry is not None:
+        print_summarize_line(telemetry)
     print(
         f"done: best_val={result.best_val_loss:.6g} "
         f"test_mae={test_metrics.get('mae', float('nan')):.6g} "

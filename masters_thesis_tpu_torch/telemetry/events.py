@@ -76,6 +76,27 @@ class EventSink:
         self._file = None
 
     def emit(self, kind: str, **payload) -> dict:
+        event = self._event(kind, payload)
+        # The sequence number and the append are one step under the lock:
+        # the lines of a stream are in ``seq`` order.
+        with self._lock:
+            return self._append(event)
+
+    def try_emit(self, kind: str, timeout: float = 0.25,
+                 **payload) -> dict | None:
+        """``emit`` with a bounded wait for the lock, for signal handlers:
+        a handler that interrupted a frame holding the lock gives up after
+        ``timeout`` instead of deadlocking the process. None when the
+        event was dropped."""
+        event = self._event(kind, payload)
+        if not self._lock.acquire(timeout=timeout):
+            return None
+        try:
+            return self._append(event)
+        finally:
+            self._lock.release()
+
+    def _event(self, kind: str, payload: dict) -> dict:
         clashes = [k for k in payload if k in RESERVED_KEYS]
         if clashes:
             raise ValueError(f"payload keys clash with envelope: {clashes}")
@@ -93,15 +114,15 @@ class EventSink:
         if self.generation is not None:
             event["generation"] = self.generation
         event.update(payload)
-        # The sequence number and the append are one step under the lock:
-        # the lines of a stream are in ``seq`` order.
-        with self._lock:
-            event["seq"] = self._seq
-            self._seq += 1
-            if self._file is None:
-                self._file = open(self.path, "a", encoding="utf-8")
-            self._file.write(json.dumps(event, default=_jsonable) + "\n")
-            self._file.flush()
+        return event
+
+    def _append(self, event: dict) -> dict:
+        event["seq"] = self._seq
+        self._seq += 1
+        if self._file is None:
+            self._file = open(self.path, "a", encoding="utf-8")
+        self._file.write(json.dumps(event, default=_jsonable) + "\n")
+        self._file.flush()
         return event
 
     def close(self) -> None:

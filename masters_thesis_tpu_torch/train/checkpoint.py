@@ -167,6 +167,11 @@ def _recover_staged(ckpt_dir: Path, tag: str) -> None:
     old = ckpt_dir / f"{tag}.old"
     staging = ckpt_dir / f"{tag}.new"
     staged_sidecar = ckpt_dir / f"{tag}.json.new"
+    if staging.exists() or staged_sidecar.exists():
+        # The torn layout, as a relaunch found it.
+        names = sorted(p.name for p in ckpt_dir.iterdir())
+        print(f"[checkpoint] interrupted publish of {path}: found "
+              f"{' '.join(names)}; recovering", file=sys.stderr, flush=True)
     if staging.exists():
         if staged_sidecar.exists():
             _publish(ckpt_dir, tag)

@@ -38,9 +38,17 @@ validation as the solo trainer saves it, so a killed run resumes at its
 last common epoch. Resume takes every replica's ``last`` only when all
 are restorable at one epoch, and starts fresh otherwise.
 
-The telemetry run, the preflight trace audit and the mesh are not ported
-(ROADMAP queue 1 item 2 and item 3): ``telemetry`` and ``preflight`` are
-reported as ignored.
+With ``telemetry`` (a ``TelemetryRun``, which the caller closes) ``fit``
+writes the JAX stacked trainer's events: ``run_started`` (with
+``stacked_replicas`` and ``replicas``), ``epoch`` through the
+``EpochRecorder`` (captures of the stacked step), ``memory``, the
+per-replica ``replica_epoch`` (loss, LR, status), ``replica_status`` (each
+transition, with the rollbacks so far) and ``replica_eval``,
+``checkpoint_saved`` a replica and tag, and ``run_finished`` (with each
+replica's final status), under a ``trainer.fit`` span, with the flight
+recorder's beats. The ``grad_sync`` event (collectives a step) waits for
+multi-device (ROADMAP queue 1 item 3); the preflight trace audit is not
+ported (item 6) and ``preflight`` is reported as ignored.
 """
 
 from __future__ import annotations
@@ -59,6 +67,11 @@ from masters_thesis_tpu_torch.data.pipeline import FinancialWindowDataModule
 from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.resilience import faults
+from masters_thesis_tpu_torch.telemetry.run import (
+    CaptureTracker,
+    EpochRecorder,
+    TelemetryRun,
+)
 from masters_thesis_tpu_torch.train import checkpoint as ckpt_lib
 from masters_thesis_tpu_torch.train.flatparams import StackedFlatAdam
 from masters_thesis_tpu_torch.train.optim import PlateauScheduler
@@ -70,6 +83,7 @@ from masters_thesis_tpu_torch.train.steps import (
 )
 from masters_thesis_tpu_torch.train.trainer import (
     EVAL_CHUNK,
+    SINGLE_PROCESS,
     datamodule_meta,
     device_split,
     epoch_seed,
@@ -123,8 +137,9 @@ class StackedTrainer:
         enable_progress_bar: bool = False,
         max_replica_rollbacks: int = 1,
         cuda_graphs: bool = True,
-        telemetry=None,
+        telemetry: TelemetryRun | None = None,
         preflight: bool = False,
+        hang_timeout_s: float | None = None,
     ):
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
@@ -139,11 +154,13 @@ class StackedTrainer:
         #: rate) before it is masked.
         self.max_replica_rollbacks = max(0, int(max_replica_rollbacks))
         self.graphed = cuda_graphs and self.device.type == "cuda"
-        for name, value in (("telemetry", telemetry), ("preflight", preflight)):
-            if value:
-                print(f"note: StackedTrainer {name}={value} only turns on "
-                      "observation, which masters_thesis_tpu_torch does not "
-                      "have; ignored", flush=True)
+        self.telemetry = telemetry
+        #: The flight recorder's hang watchdog (None: heartbeats only).
+        self.hang_timeout_s = hang_timeout_s
+        if preflight:
+            print(f"note: StackedTrainer preflight={preflight} only turns on "
+                  "observation, which masters_thesis_tpu_torch does not "
+                  "have; ignored (ROADMAP.md queue 1 item 6)", flush=True)
 
     def build(self, spec: ModelSpec, replicas: Sequence[ReplicaSpec]
               ) -> StackedLstmEncoder:
@@ -193,6 +210,35 @@ class StackedTrainer:
         statuses = ["active"] * n_rep
         rollbacks = [0] * n_rep
         histories: list[list[dict]] = [[] for _ in replicas]
+        tel = self.telemetry
+        flight = rec = fit_span = tracker = None
+        if tel:
+            flight = tel.attach_flight_recorder(
+                hang_timeout_s=self.hang_timeout_s)
+            flight.beat(phase="setup")
+            fit_span = tel.tracer.start("trainer.fit", trainer="stacked",
+                                        stacked_replicas=n_rep)
+            tel.event(
+                "run_started",
+                platform=self.device.type,
+                n_devices=1,
+                strategy="single_device",
+                epoch_mode="stacked_scan",
+                steps_per_epoch=program.n_steps,
+                max_epochs=self.max_epochs,
+                start_epoch=start_epoch,
+                objective=spec.objective,
+                trainer="stacked",
+                seed=replicas[0].seed,
+                resumed_from=(str(self.ckpt_dir) if start_epoch else None),
+                distributed=dict(SINGLE_PROCESS),
+                stacked_replicas=n_rep,
+                replicas=[dataclasses.asdict(r) for r in replicas],
+                trace_id=tel.tracer.trace_id,
+            )
+            tracker = CaptureTracker([program.step])
+            rec = EpochRecorder(tel, program.n_steps, span_parent=fit_span)
+        total_steps = 0
         # Fenced snapshots: the state as the run starts, then after each
         # validated epoch (and the first), every replica's row clean.
         last_good = optimizer.snapshot()
@@ -204,10 +250,20 @@ class StackedTrainer:
             lrs = [0.0 if s == "masked" else sch.lr
                    for s, sch in zip(statuses, schedulers)]
             optimizer.set_active([s != "masked" for s in statuses])
+            if tel:
+                flight.beat(phase="epoch", epoch=epoch)
+                rec.begin(epoch)
             t0 = time.perf_counter()
             sums, n_steps = program.epoch(lrs)
+            total_steps += n_steps
+            if tel:
+                rec.dispatched(compiles=tracker.poll())
+            t_read = time.perf_counter()
             means = stacked_metric_means(sums, n_rep)  # one device read
             elapsed = time.perf_counter() - t0
+            if tel:
+                rec.fenced(time.perf_counter() - t_read)
+                tel.sample_memory(epoch, self.device)
             if epoch > start_epoch or self.max_epochs - start_epoch == 1:
                 steady_steps += n_steps
                 steady_s += elapsed
@@ -229,6 +285,11 @@ class StackedTrainer:
                                    validations, dm, spec)
             for r, row in enumerate(rows):
                 histories[r].append(row)
+                if tel:
+                    tel.event("replica_epoch", epoch=epoch, replica=r,
+                              name=replicas[r].name,
+                              loss=row.get("loss/total/train"),
+                              lr=row["lr-Adam"], status=statuses[r])
                 self._print(f"epoch {epoch:4d} | {replicas[r].name} "
                             f"[{statuses[r]}] | " + " | ".join(
                                 f"{k.split('/')[1]}/{k.split('/')[2]} {v:.5g}"
@@ -256,6 +317,28 @@ class StackedTrainer:
                 rollbacks=rollbacks[r],
             ))
         steps_per_sec = steady_steps / steady_s if steady_s > 0 else 0.0
+        if tel:
+            rec.finish()
+            flight.beat(phase="finished")
+            tel.sample_memory(None, self.device)
+            epochs_run = max((len(h) for h in histories), default=0)
+            tel.tracer.end(fit_span, status="error" if all_masked else "ok",
+                           epochs=epochs_run)
+            finite = [v for v in best_vals if math.isfinite(v)]
+            tel.event(
+                "run_finished",
+                epochs=epochs_run,
+                total_steps=total_steps,
+                steps_per_sec=steps_per_sec,
+                diverged=all_masked,
+                best_val=min(finite) if finite else None,
+                epoch_compiles=tracker.total,
+                eval_compiles=0,
+                stacked_replicas=n_rep,
+                replica_status={rep.name: statuses[r]
+                                for r, rep in enumerate(replicas)},
+            )
+            tel.snapshot_metrics()
         return StackedResult(
             replicas=results,
             steps_per_sec=steps_per_sec,
@@ -299,6 +382,10 @@ class StackedTrainer:
         statuses[r] = status
         self._print(f"epoch {epoch}: replica {replicas[r].name!r} -> "
                     f"{status} ({reason}; rollbacks {rollbacks[r]})")
+        if self.telemetry:
+            self.telemetry.event("replica_status", epoch=epoch, replica=r,
+                                 name=replicas[r].name, status=status,
+                                 reason=reason, rollbacks=rollbacks[r])
 
     def _validate(self, epoch, rows, module, optimizer, replicas, statuses,
                   rollbacks, schedulers, best_vals, validations, dm,
@@ -311,6 +398,9 @@ class StackedTrainer:
             val_metrics = metric_means(validations[r].run())
             rows[r].update({f"loss/{k}/val": v for k, v in val_metrics.items()})
             val_loss = val_metrics["total"]
+            if self.telemetry:
+                self.telemetry.event("replica_eval", epoch=epoch, replica=r,
+                                     name=rep.name, val_loss=float(val_loss))
             rows[r]["lr-Adam"] = schedulers[r].step(val_loss)
             if val_loss < best_vals[r]:
                 best_vals[r] = val_loss
@@ -370,6 +460,10 @@ class StackedTrainer:
             },
             spec=spec,
         )
+        if self.telemetry:
+            self.telemetry.event("checkpoint_saved", tag=tag, epoch=epoch,
+                                 replica=rep.name,
+                                 path=str(self.replica_dir(rep) / tag))
 
     def _print(self, msg: str) -> None:
         if self.enable_progress_bar:

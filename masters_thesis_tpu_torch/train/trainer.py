@@ -30,16 +30,35 @@ best val; a non-finite epoch loss halts the run before anything is saved
 from it, so ``last`` keeps the last finite weights. Each epoch's shuffle
 and dropout masks come from a generator seeded by ``(seed, epoch)``, the
 counterpart of ``jax.random.fold_in(dropout_rng, epoch)``: a resumed run
-draws what an unbroken one draws. The fault points
-``trainer.epoch_dispatched`` and ``trainer.loss`` fire as in the JAX
-trainer. Telemetry, the profiler window, preflight, bf16 and multi-device
-are not ported; stacked replicas are ``train/stacked.py``'s.
+draws what an unbroken one draws; a relaunch by the run supervisor after a
+divergence carries ``MTT_LR_SCALE``, which scales the restored rate. The
+fault points ``trainer.epoch_dispatched`` and ``trainer.loss`` fire as in
+the JAX trainer.
+
+With ``telemetry`` (a ``TelemetryRun``, which the caller closes) ``fit``
+writes the JAX trainer's events (``run_started``, ``cost_profile``,
+``epoch`` through the ``EpochRecorder``, ``memory``, ``eval``,
+``checkpoint_saved`` with its seconds, ``run_finished``; ``test`` from
+``test``) and spans (``trainer.fit``, ``train.epoch``, ``train.eval``,
+``train.checkpoint``), and runs the flight recorder (beats ``setup``, ``epoch``, ``eval``,
+``checkpoint``, ``finished``; the loss and the LR as tracked scalars; the
+hang watchdog after ``hang_timeout_s``). None of it adds a read of the
+card: each epoch's ``device_s`` comes from two CUDA events around its
+work, read after the epoch's existing read of its sums, and compiles are
+the captures of the run's CUDA graphs. ``profile_steps=(N, M)`` (or
+``profile``: the first epoch after the capture) traces epochs N..M with
+``torch.profiler``; ``cost_profile`` (on with telemetry unless False)
+writes the analytic cost of the step (``telemetry/costs.py``). The seconds
+the host spends on all of this are summed in the ``telemetry/host_s``
+gauge. Preflight, bf16 and multi-device are not ported; stacked replicas
+are ``train/stacked.py``'s.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 import warnings
 from pathlib import Path
@@ -52,6 +71,13 @@ from masters_thesis_tpu_torch.data.pipeline import Batch, FinancialWindowDataMod
 from masters_thesis_tpu_torch.data.prefetch import PrefetchStats, prefetch_to_device
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.resilience import faults
+from masters_thesis_tpu_torch.telemetry import costs
+from masters_thesis_tpu_torch.telemetry.profiling import ProfilerWindow
+from masters_thesis_tpu_torch.telemetry.run import (
+    CaptureTracker,
+    EpochRecorder,
+    TelemetryRun,
+)
 from masters_thesis_tpu_torch.train import checkpoint as ckpt_lib
 from masters_thesis_tpu_torch.train.optim import PlateauScheduler, make_optimizer
 from masters_thesis_tpu_torch.train.steps import (
@@ -77,6 +103,7 @@ class TrainResult:
     steps_per_sec: float  # train steps per second, first epoch excluded
     windows_per_sec: float  # real windows (a padded tail's copies excluded)
     test_metrics: dict | None = None
+    cost_profile: dict | None = None  # the cost_profile event's payload
 
 
 def device_split(arrays: Batch, device) -> Batch:
@@ -87,6 +114,28 @@ def device_split(arrays: Batch, device) -> Batch:
         return a if a.flags.writeable else a.copy()
 
     return Batch(*(torch.as_tensor(host(a)).to(device) for a in arrays))
+
+
+#: The ``run_started`` event's ``distributed`` on one device, as the JAX
+#: trainer writes it outside a cluster.
+SINGLE_PROCESS = {"process_index": None, "process_count": None,
+                  "coordinator": None}
+
+
+class HostClock:
+    """Sums the host seconds spent inside ``with clock:`` blocks."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds += time.perf_counter() - self._t0
+        return False
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -113,6 +162,12 @@ class Trainer:
         cuda_graphs: bool = True,
         epoch_mode: str = "scan",
         prefetch: int = 2,
+        name: str = "fast",
+        telemetry: TelemetryRun | None = None,
+        cost_profile: bool | None = None,
+        profile: bool = False,
+        profile_steps: tuple[int, int] | None = None,
+        hang_timeout_s: float | None = None,
     ):
         if epoch_mode not in EPOCH_MODES:
             raise ValueError(f"unknown epoch_mode: {epoch_mode!r} "
@@ -136,6 +191,21 @@ class Trainer:
         self.epoch_mode = epoch_mode
         #: Batches the stream epoch keeps dispatched ahead of its step.
         self.prefetch = prefetch
+        #: The trainer config's name (``run_started``'s ``trainer``).
+        self.name = name
+        #: The caller's run (the caller closes it); None: no telemetry.
+        self.telemetry = telemetry
+        #: The analytic cost profile; None follows ``telemetry``.
+        self.cost_profile = cost_profile
+        self.profile = profile
+        self.profile_steps = (
+            (int(profile_steps[0]), int(profile_steps[1]))
+            if profile_steps is not None else None
+        )
+        #: The flight recorder's hang watchdog (None: heartbeats only).
+        self.hang_timeout_s = hang_timeout_s
+        self._fit_span = None
+        self._clock = HostClock()
 
     def build(self, spec: ModelSpec):
         """The encoder with its seeded initial weights, on the device."""
@@ -152,6 +222,22 @@ class Trainer:
         training starts at epoch 0. Without it, the weights are
         ``build(spec)``'s.
         """
+        tel = self.telemetry
+        clock = self._clock = HostClock()
+        flight = None
+        if self.logger is not None:
+            # Open TensorBoard's writer before the hang watch starts: its
+            # first use imports tensorboardX (seconds on some hosts), which
+            # would otherwise fall inside the first epoch, with no beat.
+            self.logger.writer
+        if tel:
+            with clock:
+                # Attached before the data loads, so that a hang or a
+                # signal there still leaves a crashdump, and the
+                # supervisor sees this attempt's heartbeat early.
+                flight = tel.attach_flight_recorder(
+                    hang_timeout_s=self.hang_timeout_s)
+                flight.beat(phase="setup")
         dm.prepare_data()
         dm.setup("fit")
         module = self.build(spec)
@@ -167,6 +253,7 @@ class Trainer:
                         f"| device: {self.device}")
         scheduler = PlateauScheduler(spec.learning_rate)
         start_epoch, best_val = 0, float("inf")
+        resumed_from = None
         if (self.resume and self.ckpt_dir
                 and ckpt_lib.checkpoint_restorable(self.ckpt_dir, "last")):
             state, opt_state, _, meta = ckpt_lib.restore_checkpoint(
@@ -176,7 +263,16 @@ class Trainer:
             scheduler.load_state_dict(meta["scheduler"])
             start_epoch = int(meta["epoch"]) + 1
             best_val = float(meta["best_val"])
-            self._print(f"resuming from {self.ckpt_dir / 'last'} at epoch "
+            # Divergence rollback: the supervisor's relaunch carries
+            # MTT_LR_SCALE, so the restored run retries the diverged
+            # stretch at a lower rate instead of replaying the blow-up.
+            lr_scale = float(os.environ.get("MTT_LR_SCALE", "1") or 1.0)
+            if lr_scale != 1.0:
+                scheduler.lr *= lr_scale
+                self._print(f"rollback: LR scaled by {lr_scale:g} -> "
+                            f"{scheduler.lr:.3g}")
+            resumed_from = str(self.ckpt_dir / "last")
+            self._print(f"resuming from {resumed_from} at epoch "
                         f"{start_epoch}")
         objective = spec.window_objective()
         val = device_split(dm.val_arrays(), self.device)
@@ -194,18 +290,83 @@ class Trainer:
             program = StreamProgram(module, optimizer, objective,
                                     dm.train_arrays(), dm.batch_size,
                                     generator, self.graphed)
+            steps_per_epoch = -(-n_windows // dm.batch_size)
+            train_call = program.run
         else:
             train = device_split(dm.train_arrays(), self.device)
             program = TrainProgram(module, optimizer, objective, train,
                                    dm.batch_size, generator, self.graphed)
             n_windows = program.n_steps * dm.batch_size
+            steps_per_epoch = program.n_steps
+            train_call = program.step
         validation = (EvalProgram(module, objective, val, EVAL_CHUNK,
                                   self.graphed) if has_val else None)
+        rec = fit_span = tracker = eval_tracker = None
+        cuda_events = tel is not None and self.device.type == "cuda"
+        if tel:
+            with clock:
+                fit_span = tel.tracer.start(
+                    "trainer.fit", trainer=self.name,
+                    attempt_resume=bool(resumed_from))
+                self._fit_span = fit_span
+                tel.event(
+                    "run_started",
+                    platform=self.device.type,
+                    n_devices=1,
+                    strategy="single_device",
+                    epoch_mode=self.epoch_mode,
+                    steps_per_epoch=steps_per_epoch,
+                    max_epochs=self.max_epochs,
+                    start_epoch=start_epoch,
+                    objective=spec.objective,
+                    trainer=self.name,
+                    seed=self.seed,
+                    resumed_from=resumed_from,
+                    distributed=dict(SINGLE_PROCESS),
+                    trace_id=tel.tracer.trace_id,
+                )
+                tracker = CaptureTracker([train_call])
+                eval_tracker = CaptureTracker(
+                    [part[1] for part in validation.parts]
+                    if validation else [])
+                rec = EpochRecorder(tel, steps_per_epoch,
+                                    on_epoch=self._mirror_epoch,
+                                    span_parent=fit_span)
+        cost_payload = None
+        if (self.cost_profile if self.cost_profile is not None
+                else bool(tel)):
+            with clock:
+                cost_payload = self._cost_profile(spec, dm, steps_per_epoch)
+        window = self.profile_steps
+        if window is None and self.profile:
+            # The legacy flag: the first epoch after the capture.
+            window = (start_epoch + 1, start_epoch + 1)
+        prof = ProfilerWindow(
+            window,
+            (tel.run_dir if tel else
+             (self.logger.log_dir if self.logger else Path("logs")))
+            / "profile",
+            telemetry=tel, cuda=self.device.type == "cuda")
+
+        def fence() -> None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
         history: list[dict] = []
         diverged = False
+        total_steps = 0
         steady_steps, steady_windows, steady_s = 0, 0, 0.0
         for epoch in range(start_epoch, self.max_epochs):
             row = {"epoch": epoch, "lr-Adam": scheduler.lr}
+            prof.maybe_start(epoch)
+            if tel:
+                with clock:
+                    flight.beat(phase="epoch", epoch=epoch)
+                    rec.begin(epoch)
+                    if cuda_events:
+                        started = torch.cuda.Event(enable_timing=True)
+                        ended = torch.cuda.Event(enable_timing=True)
+                        started.record()
             t0 = time.perf_counter()
             generator.manual_seed(epoch_seed(self.seed, epoch))
             if self.epoch_mode == "stream":
@@ -218,12 +379,35 @@ class Trainer:
                 sums, n_steps = train_epoch(module, optimizer, objective,
                                             train, dm.batch_size, scheduler.lr,
                                             generator, program=program)
+            if cuda_events:
+                with clock:
+                    ended.record()
             # The epoch is queued, nothing of it read or saved: a kill here
             # loses exactly this epoch.
             faults.fire("trainer.epoch_dispatched", epoch=epoch)
+            total_steps += n_steps
+            if tel:
+                with clock:
+                    compiles = tracker.poll()
+                    rec.dispatched(
+                        compiles=compiles,
+                        data_wait_s=(stats.get_wait_s
+                                     if self.epoch_mode == "stream" else 0.0))
+                    if compiles:
+                        flight.note(epoch_compiles=tracker.total,
+                                    last_compile_epoch=epoch)
+            t_read = time.perf_counter()
             row.update({f"loss/{k}/train": v
                         for k, v in metric_means(sums).items()})
             elapsed = time.perf_counter() - t0  # the read above synchronised
+            if tel:
+                with clock:
+                    # The read above waited for the epoch: its events are
+                    # complete, so reading them waits for nothing.
+                    rec.fenced(started.elapsed_time(ended) / 1e3
+                               if cuda_events
+                               else time.perf_counter() - t_read)
+                    tel.sample_memory(epoch, self.device)
             if self.epoch_mode == "stream":
                 row["data/get_wait_s"] = stats.get_wait_s
                 row["data/prefetch_mean_depth"] = stats.mean_depth
@@ -232,8 +416,21 @@ class Trainer:
                     # window_store event).
                     row["data/mmap_bytes"] = stats.mmap_bytes
                     row["data/fault_wait_s"] = stats.fault_wait_s
+                    if tel:
+                        with clock:
+                            tel.event(
+                                "window_store", epoch=epoch,
+                                bytes_read=stats.mmap_bytes,
+                                fault_wait_s=round(stats.fault_wait_s, 6),
+                                get_wait_s=round(stats.get_wait_s, 6))
             if faults.fire("trainer.loss", epoch=epoch) == "nan":
                 row["loss/total/train"] = float("nan")
+            if tel:
+                with clock:
+                    # The divergence context of a crashdump.
+                    flight.track_scalar("loss/total/train",
+                                        row["loss/total/train"])
+                    flight.track_scalar("lr", row["lr-Adam"])
             if epoch > start_epoch or self.max_epochs - start_epoch == 1:
                 steady_steps += n_steps
                 steady_windows += n_windows
@@ -248,9 +445,22 @@ class Trainer:
                 diverged = True
                 break
             if has_val and (epoch + 1) % self.check_val_every_n_epoch == 0:
+                if tel:
+                    with clock:
+                        flight.beat(phase="eval", epoch=epoch)
+                t_eval_wall, t_eval = time.time(), time.perf_counter()
                 val_metrics = metric_means(validation.run())
                 row.update({f"loss/{k}/val": v for k, v in val_metrics.items()})
                 val_loss = val_metrics["total"]
+                if tel:
+                    with clock:
+                        tel.event("eval", epoch=epoch,
+                                  compile_events=eval_tracker.poll(),
+                                  val_loss=float(val_loss))
+                        tel.tracer.emit_span(
+                            "train.eval", start_ts=t_eval_wall,
+                            dur_s=time.perf_counter() - t_eval,
+                            parent=fit_span, epoch=epoch)
                 row["lr-Adam"] = scheduler.step(val_loss)
                 if val_loss < best_val:
                     best_val = val_loss
@@ -263,6 +473,10 @@ class Trainer:
                 self._save("last", module, optimizer, scheduler, epoch,
                            row["loss/total/train"], best_val, dm, spec)
             self._emit(row, history)
+            prof.maybe_stop(epoch, fence)
+        # A divergence halt can leave a profiled window open: close it so
+        # the trace is written.
+        prof.close(fence)
         if not has_val and history and not diverged:
             best_val = history[-1]["loss/total/train"]
             self._save("best", module, optimizer, scheduler,
@@ -272,6 +486,31 @@ class Trainer:
                        self.max_epochs - 1, best_val, best_val, dm, spec)
         steps_per_sec = steady_steps / steady_s if steady_s > 0 else 0.0
         windows_per_sec = steady_windows / steady_s if steady_s > 0 else 0.0
+        if tel:
+            with clock:
+                rec.finish()
+                flight.beat(phase="finished")
+                tel.sample_memory(None, self.device)
+                tel.tracer.end(fit_span, status="error" if diverged else "ok",
+                               epochs=len(history), diverged=diverged)
+                self._fit_span = None
+                tel.event(
+                    "run_finished",
+                    epochs=len(history),
+                    total_steps=total_steps,
+                    steps_per_sec=steps_per_sec,
+                    diverged=diverged,
+                    best_val=float(best_val) if math.isfinite(best_val)
+                    else None,
+                    epoch_compiles=tracker.total,
+                    eval_compiles=eval_tracker.total,
+                )
+                if self.logger:
+                    self.logger.log_scalars(
+                        {"perf/steps_per_sec": steps_per_sec},
+                        self.max_epochs - 1)
+            tel.gauge("telemetry/host_s").set(clock.seconds)
+            tel.snapshot_metrics()
         return TrainResult(
             state={k: v.detach().cpu().clone()
                    for k, v in module.state_dict().items()},
@@ -280,7 +519,57 @@ class Trainer:
             history=history,
             steps_per_sec=steps_per_sec,
             windows_per_sec=windows_per_sec,
+            cost_profile=cost_payload,
         )
+
+    def _cost_profile(self, spec: ModelSpec, dm, steps_per_epoch: int
+                      ) -> dict | None:
+        """The analytic cost of the run's training program
+        (``telemetry/costs.py``) as a ``cost_profile`` event: an epoch of
+        ``train_epoch_scan`` steps, or one ``train_step_stream`` step, over
+        one batch of windows (their rows flattened, as ``forward_rows``
+        does). Never fails the run: a failure is printed and written as
+        ``cost_unavailable``."""
+        tel = self.telemetry
+        try:
+            stocks, n_t = dm.train_arrays().x.shape[1:3]
+            rows = dm.batch_size * stocks
+            scan = self.epoch_mode == "scan"
+            cost = costs.step_cost_model(
+                spec, rows, n_t, window_rows=stocks,
+                program="train_epoch_scan" if scan else "train_step_stream",
+                steps_per_execution=steps_per_epoch if scan else 1,
+                meta={
+                    "platform": self.device.type,
+                    "device": (torch.cuda.get_device_name(self.device)
+                               if self.device.type == "cuda" else None),
+                    "n_devices": 1,
+                    "epoch_mode": self.epoch_mode,
+                    "objective": spec.objective,
+                    "batch_size": dm.batch_size,
+                    "rows": rows,
+                    "n_t": n_t,
+                })
+            if tel:
+                costs.emit_cost_profile(tel, cost)
+            return cost.to_payload()
+        except Exception as exc:  # observation must never stop a run
+            self._print(f"cost profile failed: {exc!r}")
+            if tel:
+                tel.event("cost_unavailable", program="train",
+                          error=repr(exc))
+            return None
+
+    def _mirror_epoch(self, ev: dict) -> None:
+        """The epoch's perf scalars beside the loss curves. The logger's
+        time is its own (its first write opens the writer the loss rows
+        open otherwise): it leaves the telemetry clock."""
+        if self.logger and ev.get("steps_per_sec") is not None:
+            t0 = time.perf_counter()
+            self.logger.log_scalars(
+                {"perf/epoch_wall_s": ev["wall_s"],
+                 "perf/steps_per_sec": ev["steps_per_sec"]}, ev["epoch"])
+            self._clock.seconds -= time.perf_counter() - t0
 
     def test(self, spec: ModelSpec, state: dict,
              dm: FinancialWindowDataModule) -> dict:
@@ -297,6 +586,9 @@ class Trainer:
         if self.logger:
             self.logger.log_scalars({f"test/{k}": v for k, v in metrics.items()},
                                     0)
+        if self.telemetry:
+            self.telemetry.event(
+                "test", metrics={k: float(v) for k, v in metrics.items()})
         return metrics
 
     def _emit(self, row: dict, history: list) -> None:
@@ -318,6 +610,11 @@ class Trainer:
               best_val, dm, spec) -> None:
         if not self.ckpt_dir:
             return
+        tel = self.telemetry
+        if tel and tel.recorder is not None:
+            with self._clock:
+                tel.recorder.beat(phase="checkpoint", epoch=epoch)
+        t0_wall, t0 = time.time(), time.perf_counter()
         ckpt_lib.save_checkpoint(
             self.ckpt_dir, tag, module.state_dict(), optimizer.state_dict(),
             scheduler.state_dict(),
@@ -329,6 +626,16 @@ class Trainer:
             },
             spec=spec,
         )
+        if tel:
+            with self._clock:
+                # The save's seconds; the report's lost-work accounting
+                # reads these events.
+                wall_s = time.perf_counter() - t0
+                tel.event("checkpoint_saved", tag=tag, epoch=epoch,
+                          wall_s=wall_s, path=str(self.ckpt_dir / tag))
+                tel.tracer.emit_span("train.checkpoint", start_ts=t0_wall,
+                                     dur_s=wall_s, parent=self._fit_span,
+                                     tag=tag, epoch=epoch)
 
 
 def datamodule_meta(dm) -> dict:

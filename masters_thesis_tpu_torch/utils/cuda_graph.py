@@ -67,6 +67,8 @@ class GraphedCall:
         self.graph = None
         #: Kernel launches in one run of ``body`` (the capture's counts).
         self.launches: dict[str, int] = {}
+        #: Captures made (run telemetry counts them as compiles).
+        self.captures = 0
 
     @property
     def captured(self) -> bool:
@@ -84,6 +86,7 @@ class GraphedCall:
         """The warm-up run of ``body`` (real, counted), then its capture
         (nothing runs, nothing is counted)."""
         stream = self._warm_up()
+        self.captures += 1
         before = dict(lk.LAUNCHES)
         try:
             self.graph = self._record(stream)

@@ -1873,3 +1873,107 @@ def test_stacked_engine_of_other_groupings_on_the_card(cuda_device,
             np.testing.assert_array_equal(alpha[:, lane], a)
             np.testing.assert_array_equal(beta[:, lane], b)
     assert lk.LAUNCHES[counter] == 3
+
+
+# ---------------------------------------------------------- run telemetry
+
+
+def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
+                                                       monkeypatch):
+    """A graphed model=small Trainer.fit (H=64, 2 layers, dropout 0.2) for
+    3 epochs with telemetry and the flight recorder on: from the first
+    epoch's start to the run's last telemetry (its metrics snapshot) every
+    call runs under the synchronisation check set to raise, apart from the
+    reads the trainer makes without telemetry (each epoch's sums, the
+    validation sums, the checkpoint saves) and the captures; the train
+    program captures once; every epoch event carries a positive device_s
+    from its CUDA events; the history is bit for bit a run's with
+    telemetry off."""
+    from masters_thesis_tpu_torch.telemetry.events import read_events
+    from masters_thesis_tpu_torch.telemetry.report import summarize_path
+    from masters_thesis_tpu_torch.telemetry.run import (
+        EpochRecorder,
+        TelemetryRun,
+    )
+    from masters_thesis_tpu_torch.train import trainer as trainer_mod
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+    from masters_thesis_tpu_torch.utils.cuda_graph import GraphedCall
+
+    def allowed(fn):
+        # The trainer's own reads: the check is lifted for them alone.
+        def call(*args, **kwargs):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+
+    real_call = GraphedCall.__call__
+    checked = []
+
+    def checked_call(self):
+        if not self.captured:
+            return allowed(real_call)(self)
+        if torch.cuda.get_sync_debug_mode() == 2:  # "error"
+            checked.append(self.name)
+        return real_call(self)
+
+    real_begin = EpochRecorder.begin
+    real_snapshot = TelemetryRun.snapshot_metrics
+    epochs_checked = []
+
+    def begin(self, epoch):
+        real_begin(self, epoch)
+        torch.cuda.set_sync_debug_mode("error")
+        epochs_checked.append(epoch)
+
+    def snapshot_metrics(self):
+        try:
+            return real_snapshot(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    dm = _toy_datamodule(tmp_path)
+    spec = ModelSpec(objective="mse", input_size=3, hidden_size=64,
+                     num_layers=2, dropout=0.2, learning_rate=1e-3)
+    runs = {}
+    for label in ("off", "on"):
+        tel = (TelemetryRun(tmp_path / "tel", run_id="card")
+               if label == "on" else None)
+        if label == "on":
+            monkeypatch.setattr(GraphedCall, "__call__", checked_call)
+            monkeypatch.setattr(EpochRecorder, "begin", begin)
+            monkeypatch.setattr(TelemetryRun, "snapshot_metrics",
+                                snapshot_metrics)
+            monkeypatch.setattr(trainer_mod, "metric_means",
+                                allowed(trainer_mod.metric_means))
+            monkeypatch.setattr(Trainer, "_save", allowed(Trainer._save))
+        trainer = Trainer(max_epochs=3, gradient_clip_val=5.0, seed=3,
+                          device=cuda_device, telemetry=tel,
+                          hang_timeout_s=600, ckpt_dir=tmp_path / label)
+        try:
+            runs[label] = trainer.fit(spec, dm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if tel is not None:
+            tel.close()
+    assert epochs_checked == [0, 1, 2]
+    assert checked.count("train step") == 3 * len(dm.train_range) - 1
+    assert runs["on"].history == runs["off"].history
+    for name, value in runs["off"].state.items():
+        assert torch.equal(runs["on"].state[name], value), name
+    events = read_events(tmp_path / "tel" / "events.jsonl")
+    epochs = [e for e in events if e["kind"] == "epoch"]
+    assert [e["compile_events"] for e in epochs] == [1, 0, 0]
+    assert all(e["device_s"] > 0 for e in epochs)
+    report = summarize_path(tmp_path / "tel")
+    assert report["compiles"]["train_epoch"] == 1 and not report["violations"]
+    assert report["memory"]["peak_bytes"] > 0
+    assert report["utilization"]["available"]
+    if torch.cuda.get_device_name(cuda_device) == "NVIDIA H100 80GB HBM3":
+        assert report["utilization"]["flops_utilization_pct"] > 0
+    gauges = next(e["metrics"] for e in reversed(events)
+                  if e["kind"] == "metrics")
+    assert gauges["telemetry/host_s"]["value"] > 0

@@ -44,7 +44,11 @@ def test_port_imports_with_jax_blocked():
                  "telemetry.run", "telemetry.exposition",
                  "data.window_store", "native", "native.build",
                  "native.engine", "train.stacked", "serve.stacked",
-                 "cli.stacked"):
+                 "cli.stacked", "telemetry.flightrec", "telemetry.costs",
+                 "telemetry.profiling", "telemetry.report",
+                 "telemetry.quality", "telemetry.__main__",
+                 "resilience.backoff", "resilience.supervisor",
+                 "resilience.__main__"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
