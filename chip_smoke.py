@@ -51,12 +51,21 @@ FLOP share of the card's peak). The rest of serving closes the run: ``serve_faul
 on ``serve.admit`` and ``serve.dispatch``, its counts held to the plan's),
 ``serve_preflight`` (``python -m masters_thesis_tpu_torch.serve
 preflight`` as a child), ``serve_swap`` (the canaried hot-swap through the
-bucket graphs under steady load: the driver's trained ``best`` committed,
-then a corrupted, a NaN and a model=medium candidate refused, every answer
-bit-equal to an engine on the old or the new checkpoint; model=medium
-commits under load too) and ``serve_knee`` (an open-loop ramp with
-telemetry on: the knee, ``/metrics`` against ``stats()``, the request
-spans checked and attributed, telemetry on against off).
+bucket graphs under steady load: the ``driver`` phase's trained ``best``
+committed through the quality gate against its own fingerprint, then a
+corrupted, a NaN, a model=medium and a diverged candidate (heads scaled by
+50 under the old fingerprint) refused, every answer bit-equal to an engine
+on the old or the new checkpoint; model=medium commits under load too),
+``serve_knee``
+(an open-loop ramp with telemetry on: the knee, ``/metrics`` against
+``stats()``, the request spans checked and attributed, telemetry on
+against off), ``serve_quality`` (``PredictEngine.warmup()`` per bucket;
+the serving ``QualityMonitor``'s host seconds a sampled window, bursts with
+it off and on, the knee with it on) and ``serve_slo`` (the telemetry plane
+of a server: a burst of sheds fires a burn-rate alert, read on ``/slo``,
+``/metrics`` and ``/healthz``, which then resolves). Every ``train`` child's
+``best`` and ``last`` carry a manifest-covered ``quality.json``, whose
+seconds a save are printed.
 The universe path, ``datamodule=universe model=kfactor`` (2,048 assets,
 K=3 factors, 7 inputs, a 3-wide beta head; 12,000 samples), runs each
 layer alone through the single-layer kernels: ``universe_kernels`` holds
@@ -74,8 +83,9 @@ Stacked replicas run the pair, single-layer and stack kernels with a
 replica axis (grid (row tiles, R)): ``stacked_kernels`` holds each
 replica-axis kernel (the pair's forward, sweep and pass on 100 and 800
 rows; the single layer's on 100 and 800; the 4-deep stack's on 25 and
-200; the pair's at R = 1, 2, 4, 8, the others' at R = 1, 8) against
-its plain version and each replica
+200; the time-blocked forward and backward at T=252 on 100 and 800; the
+pair's at R = 1, 2, 4, 8, the others' at R = 1, 8) against its plain
+version and each replica
 against its solo launch bit for bit, and times one launch against R solo
 launches; ``stacked_train`` runs ``StackedTrainer.fit`` at R = 1, 8
 on train small's data (replica 0 bit for bit ``train``'s
@@ -83,11 +93,14 @@ on train small's data (replica 0 bit for bit ``train``'s
 replica); ``stacked_groupings`` fits R = 4 replicas of one layer and of
 model=medium, and runs 5-step trajectories of R = 2 replicas of
 model=large and model=kfactor, each replica against its solo run;
+``stacked_tblocked`` runs model=small at a one-year lookback (both layers
+time-blocked) through the replica axis: a 5-step trajectory of R = 2 and
+a one-epoch fit of R = 4, each replica against its solo run;
 ``stacked_driver`` runs ``python -m masters_thesis_tpu_torch stacked``
 at R = 4 as a child; ``stacked_serve`` serves its four ``best``s as the
 lanes of one ``StackedPredictEngine`` (each lane bit for bit a solo
-engine, ``try_swap_lane`` under load), then lanes of one layer and of
-model=medium.
+engine, ``try_swap_lane`` under load), then lanes of one layer, of
+model=medium and of model=small at a one-year lookback.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -145,6 +158,7 @@ from masters_thesis_tpu_torch.telemetry.costs import (
     PEAK_SOURCE,
     bound_ms as bound,
 )
+from masters_thesis_tpu_torch.telemetry import quality as quality_lib
 from masters_thesis_tpu_torch.telemetry.events import read_events
 from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
 from masters_thesis_tpu_torch.telemetry.trace import (
@@ -1098,12 +1112,13 @@ def _max_err(got, want) -> float:
     return float(max(np.abs(g - w).max() for g, w in zip(got, want)))
 
 
-def _burst(engine, windows: np.ndarray,
-           telemetry=None) -> tuple[list, list, dict, float]:
+def _burst(engine, windows: np.ndarray, telemetry=None,
+           quality_monitor=None) -> tuple[list, list, dict, float]:
     """Bursts of requests through a PredictServer on ``engine`` (with
-    ``telemetry``, if given): the responses, the windows sent, the
-    server's stats and the seconds."""
-    server = PredictServer(engine, max_wait_s=0.002, telemetry=telemetry)
+    ``telemetry`` and ``quality_monitor``, if given): the responses, the
+    windows sent, the server's stats and the seconds."""
+    server = PredictServer(engine, max_wait_s=0.002, telemetry=telemetry,
+                           quality_monitor=quality_monitor)
     bursts = (1, 2, 4, 8, 3, 8, 5, 1, 6, 8, 2, 7, 4, 1, 8)
     sent, responses = [], []
     server.start()
@@ -2073,6 +2088,39 @@ def _cli(command: str, *overrides: str) -> tuple[list[str], dict, float]:
     return _cli_result(_Child(command, *overrides).wait())
 
 
+def _quality_of_run(ckpts: Path, telemetry_dir: Path) -> dict:
+    """A train child's fingerprints: for ``best`` and ``last`` whether the
+    tree carries ``quality.json`` inside its verified manifest; the saves,
+    the ``quality_fingerprint`` events, and the fingerprint's seconds a
+    save (its ``quality/fingerprint_s`` histogram)."""
+    trees = {}
+    for tag in ("best", "last"):
+        manifest = json.loads((ckpts / tag / "MANIFEST.json").read_text())
+        trees[tag] = (quality_lib.read_fingerprint(ckpts / tag) is not None
+                      and quality_lib.FINGERPRINT_FILENAME in manifest["files"]
+                      and verify_checkpoint(ckpts / tag, require_manifest=True))
+    events = read_events(telemetry_dir / "events.jsonl")
+    prints = [e for e in events if e["kind"] == "quality_fingerprint"]
+    saves = [e for e in events if e["kind"] == "checkpoint_saved"]
+    timed = next(e["metrics"] for e in reversed(events)
+                 if e["kind"] == "metrics").get("quality/fingerprint_s") or {}
+    count = timed.get("count") or 0
+    return {"trees_carry_fingerprint": trees, "saves": len(saves),
+            "fingerprints": len(prints),
+            "windows": prints[-1]["windows"] if prints else None,
+            "fingerprint_s_mean": timed["sum"] / count if count else None,
+            "fingerprint_s_p50": timed.get("p50"),
+            "fingerprint_s_p99": timed.get("p99"),
+            "save_s": [e["wall_s"] for e in saves]}
+
+
+def _check_quality(phase: str, quality: dict) -> None:
+    if (not all(quality["trees_carry_fingerprint"].values())
+            or quality["fingerprints"] != quality["saves"]):
+        raise AssertionError(f"{phase}: checkpoints without a fingerprint: "
+                             f"{quality}")
+
+
 def _done(lines: list[str]) -> dict:
     match = next(m for m in map(DONE_LINE.fullmatch, lines) if m)
     return dict(zip(("best_val", "test_mae", "test_nll", "steps_per_s"),
@@ -2124,7 +2172,9 @@ def phase_driver(train: dict) -> dict:
         files = {f"{d.name}/{tag}": verify_checkpoint(d / "checkpoints" / tag,
                                                      require_manifest=True)
                  for d in (run_dir, warm_dir) for tag in ("best", "last")}
-        # The trained ``best`` is serve_swap's candidate.
+        quality = _quality_of_run(ckpts, run_dir / "telemetry")
+        # The trained ``best`` (its fingerprint with it) is serve_swap's
+        # candidate.
         kept = swap_root() / "driver"
         shutil.rmtree(kept, ignore_errors=True)
         kept.mkdir(parents=True)
@@ -2160,10 +2210,12 @@ def phase_driver(train: dict) -> dict:
         "first_epoch_train_loss": first_train,
         "delta_losses": delta,
         "checkpoints": files,
+        "quality": quality,
         "launches": {"train": run_launches, "test": test_launches,
                      "warm_start": warm_launches},
     }
     emit(out)
+    _check_quality("driver", quality)
     values = [*done.values(), *warm_done.values(), *first_train.values(),
               *(v for row in delta.values() for v in row.values())]
     if sorted(delta) != ["model", "ols"] or not np.isfinite(values).all():
@@ -2984,6 +3036,8 @@ def _swap_under_load(phase: str, live: _RecordingEngine, refs: dict,
             results.append({
                 "swap": name, "reason": verdict.reason, "expected": reason,
                 "detail": verdict.detail,
+                "checks": {k: v for k, v in verdict.checks.items()
+                           if k.startswith("quality_")},
                 "step_s": dict(swapper.step_seconds),
                 "window_s": [t_a, t_b],
                 "golden_bit_equal": all(np.array_equal(g, w)
@@ -3061,13 +3115,31 @@ def _swap_under_load(phase: str, live: _RecordingEngine, refs: dict,
     return out
 
 
+def _diverged_save(ckpt_dir: Path, source: Path) -> Path:
+    """``source``'s ``best`` with both heads' weights and biases scaled by
+    50, published with ``source``'s own fingerprint: finite and bounded,
+    but far from the outputs the fingerprint ships."""
+    state, _, spec, meta = restore_checkpoint(source, "best")
+    for name in ("alpha_head.weight", "alpha_head.bias", "beta_head.weight",
+                 "beta_head.bias"):
+        state[name] = state[name] * 50.0
+    fingerprint = (source / "best" / quality_lib.FINGERPRINT_FILENAME).read_text()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    save_checkpoint(ckpt_dir, "best", state, spec=spec, meta=meta,
+                    extra_files={quality_lib.FINGERPRINT_FILENAME: fingerprint})
+    return ckpt_dir
+
+
 def phase_serve_swap(windows: np.ndarray, windows_medium: np.ndarray) -> dict:
     """The canaried hot-swap on the card, graphs on, under steady load:
     model=small (100 stocks) serving seeded weights takes the driver
-    phase's trained ``best``, then refuses the same checkpoint corrupted by
-    ``serve.pre_swap`` (verify_failed), a NaN save (canary_nonfinite) and a
-    model=medium save (shape_mismatch); model=medium (25 stocks) then
-    commits one seeded save for another under load."""
+    phase's trained ``best`` through the quality gate against its own
+    fingerprint, then refuses the same checkpoint corrupted by
+    ``serve.pre_swap`` (verify_failed), a NaN save (canary_nonfinite), a
+    model=medium save (shape_mismatch) and the ``driver`` phase's ``best``
+    with its heads scaled by 50 under its old fingerprint (quality_self);
+    model=medium (25 stocks) then commits one seeded save for another
+    under load."""
     root = swap_root()
     spec, spec_m = _small_spec(), _medium_spec()
     old = _seeded_save(root / "small_seeded", spec, seed=11)
@@ -3075,6 +3147,7 @@ def phase_serve_swap(windows: np.ndarray, windows_medium: np.ndarray) -> dict:
     corrupt = root / "driver_corrupt"
     shutil.rmtree(corrupt, ignore_errors=True)
     shutil.copytree(new, corrupt)
+    diverged = _diverged_save(root / "driver_diverged", new)
     nan = _seeded_save(root / "small_nan", spec, seed=12, nan=True)
     medium_old = _seeded_save(root / "medium_seeded", spec_m, seed=21)
     medium_new = _seeded_save(root / "medium_other", spec_m, seed=22)
@@ -3093,7 +3166,12 @@ def phase_serve_swap(windows: np.ndarray, windows_medium: np.ndarray) -> dict:
         ("driver_best_corrupted", corrupt, plan, "verify_failed"),
         ("nan", nan, None, "canary_nonfinite"),
         ("medium", medium_old, None, "shape_mismatch"),
+        ("driver_best_diverged", diverged, None, "quality_self"),
     ])
+    committed = small["swaps"][0]
+    if "quality_self_ks" not in committed["checks"]:
+        raise AssertionError(f"serve_swap: the gate did not score the "
+                             f"fingerprinted candidate: {committed}")
     live, refs = engines(medium_old, medium_new, K_MEDIUM)
     medium = _swap_under_load("serve_swap_medium", live, refs, windows_medium,
                               [("medium_other", medium_new, None, "committed")])
@@ -3383,6 +3461,214 @@ def phase_serve_knee(windows: np.ndarray) -> dict:
     return out
 
 
+# The serving monitor at its default rate (1 in 16 delivered answers), and
+# the knee search with it on: down from serve_knee's knee by this factor a
+# stage, at most KNEE_MAX_STAGES stages.
+QUALITY_SAMPLE_EVERY = 16
+QUALITY_KNEE_RAMP = 3.0
+QUALITY_MONITOR_WINDOWS = 8
+
+
+def phase_serve_quality(windows: np.ndarray, knee: dict) -> dict:
+    """The serve side of the quality plane, on the ``driver`` phase's
+    ``best`` (its fingerprint the monitor's reference):
+    PredictEngine.warmup() per bucket (a fresh graphed engine's first call
+    of each bucket: its eager run and its capture, synchronized); the
+    monitor's host seconds a sampled window
+    (sample_every=1 over QUALITY_MONITOR_WINDOWS windows); closed-loop
+    bursts with the monitor off, on, on, off (1 in QUALITY_SAMPLE_EVERY),
+    their p50, p99 and answers/s; then the knee with the monitor on, from
+    serve_knee's knee down by QUALITY_KNEE_RAMP a stage until one is
+    sustainable (serve_knee's deadline and rule)."""
+    ckpt = swap_root() / "driver"
+    fingerprint = quality_lib.read_fingerprint(ckpt / "best")
+    engine = PredictEngine.from_checkpoint(ckpt, n_stocks=K_STOCKS,
+                                           device=DEVICE)
+    k, t, f = engine.window_shape
+    capture_s = {}
+    for b in engine.buckets:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict(np.zeros((b, k, t, f), np.float32))
+        torch.cuda.synchronize()
+        capture_s[b] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()  # every bucket captured: the two timed predicts
+    rest_s = time.perf_counter() - t0
+    probe = quality_lib.QualityMonitor(fingerprint, sample_every=1)
+    answers = engine.predict(windows[:QUALITY_MONITOR_WINDOWS])
+    t0 = time.perf_counter()
+    for i in range(QUALITY_MONITOR_WINDOWS):
+        probe.sample(windows[i], answers[0][i], answers[1][i])
+    sample_ms = 1e3 * (time.perf_counter() - t0) / QUALITY_MONITOR_WINDOWS
+    bursts: dict[str, list] = {}
+    monitors = []
+    for label in ("off", "on", "on", "off"):
+        monitor = (quality_lib.QualityMonitor(
+            fingerprint, sample_every=QUALITY_SAMPLE_EVERY)
+            if label == "on" else None)
+        responses, _, _, serve_s = _burst(engine, windows,
+                                          quality_monitor=monitor)
+        ok = [r for r in responses if r.ok]
+        bursts.setdefault(label, []).append(
+            {**_latency_ms(responses), "requests": len(responses),
+             "answers_per_s": len(ok) / serve_s,
+             "sampled": None if monitor is None else
+             (monitor.last_scores() or {}).get("sampled", 0)})
+        if monitor is not None:
+            monitors.append(monitor)
+    tel_dir = Path(tempfile.mkdtemp(prefix="serve_quality_"))
+    stages = []
+    try:
+        tel = TelemetryRun(tel_dir / "knee", run_id="serve-quality")
+        monitor = quality_lib.QualityMonitor(
+            fingerprint, sample_every=QUALITY_SAMPLE_EVERY, telemetry=tel)
+        server = PredictServer(engine, telemetry=tel, max_wait_s=0.002,
+                               metrics_port=0, quality_monitor=monitor)
+        server.start()
+        deadline_s = knee["deadline_ms"] / 1e3
+        rate = knee["knee_offered_per_s"]
+        try:
+            for _ in range(KNEE_MAX_STAGES):
+                stage = _knee_stage(server, windows, rate, deadline_s)
+                stage["sampled"] = (monitor.last_scores() or {}).get("sampled", 0)
+                stages.append(stage)
+                if stage["sustainable"]:
+                    break
+                rate /= QUALITY_KNEE_RAMP
+        finally:
+            stats = server.stop()
+            tel.close()
+        samples = [e for e in read_events(tel_dir / "knee" / "events.jsonl")
+                   if e["kind"] == "quality_sample"]
+    finally:
+        shutil.rmtree(tel_dir, ignore_errors=True)
+    sustained = [st for st in stages if st["sustainable"]]
+    out = {
+        "phase": "serve_quality",
+        "fingerprint_windows": fingerprint["windows"],
+        "warmup": {"capture_s_by_bucket": capture_s,
+                   "warmup_after_captures_s": rest_s},
+        "monitor_sample_ms": sample_ms,
+        "sample_every": QUALITY_SAMPLE_EVERY,
+        "bursts_monitor_off_on": bursts,
+        "knee_without_monitor_offered_per_s": knee["knee_offered_per_s"],
+        "knee_with_monitor_offered_per_s":
+            sustained[0]["offered_per_s"] if sustained else None,
+        "knee_with_monitor": sustained[0] if sustained else None,
+        "stages_with_monitor": stages,
+        "quality_samples": len(samples),
+        "last_scores": monitors[-1].last_scores() if monitors else None,
+        "late_deliveries": stats["late_deliveries"],
+    }
+    emit(out)
+    if fingerprint is None or stats["late_deliveries"]:
+        raise AssertionError(f"serve_quality: {out}")
+    if not samples or any(b["sampled"] == 0 for b in bursts["on"]):
+        raise AssertionError(f"serve_quality: the monitor sampled nothing: "
+                             f"{out}")
+    return out
+
+
+# One burn-rate rule with short windows, so that a burst of sheds fires it
+# and the plane resolves it within seconds: the engine ticks every 2 s, so
+# the fast window is longer than that (a tick always sees the burst).
+SLO_RULE = dict(threshold=2.0, target=0.99, fast_window_s=3.0,
+                slow_window_s=6.0, for_ticks=1, clear_ticks=2)
+SLO_BURST = 64
+SLO_WAIT_S = 20.0
+
+
+def _slo_state(url: str) -> tuple[dict, str, dict]:
+    """/slo, /metrics and /healthz of a server's plane."""
+    def get(path):
+        return urllib.request.urlopen(url + path, timeout=10).read().decode()
+    return json.loads(get("/slo")), get("/metrics"), json.loads(get("/healthz"))
+
+
+def phase_serve_slo(windows: np.ndarray) -> dict:
+    """The SLO plane of a serving process: a model=small PredictServer with
+    telemetry, metrics_port=0 and one burn-rate rule (SLO_RULE); answered
+    requests, then a burst of SLO_BURST requests whose 0.1 ms deadline no
+    batch can meet (shed at admission). /slo, /metrics and /healthz are read
+    every 0.1 s: the rule fires after the burst (``mtt_slo_firing`` 1 for it,
+    /healthz naming it) and resolves once the sheds leave its windows; the
+    stream holds alert_fired then alert_resolved, with their burn rates."""
+    from masters_thesis_tpu_torch.telemetry.slo import SLORule
+
+    spec = _small_spec()
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    engine = PredictEngine(spec, state, n_stocks=K_STOCKS, lookback=T,
+                           n_features=3, device=DEVICE)
+    tel_dir = Path(tempfile.mkdtemp(prefix="serve_slo_"))
+    seen = []
+    try:
+        tel = TelemetryRun(tel_dir / "serve", run_id="serve-slo")
+        server = PredictServer(engine, telemetry=tel, max_wait_s=0.002,
+                               metrics_port=0,
+                               slo_rules=[SLORule("burn", "burn_rate",
+                                                  **SLO_RULE)])
+        server.start()
+        try:
+            url = server.metrics_url
+            ok = [server.submit(windows[i % len(windows)], deadline_s=5.0)
+                  for i in range(16)]
+            ok = [p.result(timeout=60.0) for p in ok]
+            t_burst = time.monotonic()
+            shed = [server.submit(windows[i % len(windows)], deadline_s=1e-4)
+                    for i in range(SLO_BURST)]
+            shed = [p.result(timeout=60.0) for p in shed]
+            fired = resolved = None
+            firing_metric = healthz = None
+            while time.monotonic() - t_burst < SLO_WAIT_S:
+                state_now, metrics, health = _slo_state(url)
+                firing = "burn" in (state_now.get("firing") or [])
+                seen.append(firing)
+                if firing and fired is None:
+                    fired = time.monotonic() - t_burst
+                    firing_metric = next(
+                        (ln for ln in metrics.splitlines()
+                         if ln.startswith("mtt_slo_firing")
+                         and 'rule="burn"' in ln), None)
+                    healthz = health
+                if fired is not None and not firing:
+                    resolved = time.monotonic() - t_burst
+                    break
+                time.sleep(0.1)
+            final = state_now
+        finally:
+            stats = server.stop()
+            tel.close()
+        alerts = [{k: e.get(k) for k in ("kind", "rule", "burn_fast",
+                                         "burn_slow", "active_s")}
+                  for e in read_events(tel_dir / "serve" / "events.jsonl")
+                  if e["kind"] in ("alert_fired", "alert_resolved")]
+    finally:
+        shutil.rmtree(tel_dir, ignore_errors=True)
+    out = {
+        "phase": "serve_slo", "rule": SLO_RULE,
+        "answered": sum(r.ok for r in ok),
+        "not_served": sum(not r.ok for r in shed),
+        "statuses": {st: sum(r.status == st for r in shed)
+                     for st in sorted({r.status for r in shed})},
+        "fired_after_s": fired, "resolved_after_s": resolved,
+        "firing_metric": firing_metric,
+        "healthz_while_firing": healthz,
+        "polls": len(seen), "ticks": final.get("ticks"),
+        "alerts": alerts, "late_deliveries": stats["late_deliveries"],
+    }
+    emit(out)
+    if (fired is None or resolved is None or firing_metric is None
+            or not firing_metric.endswith(" 1")
+            or "burn" not in (healthz or {}).get("firing", [])
+            or [a["kind"] for a in alerts] != ["alert_fired", "alert_resolved"]
+            or out["not_served"] < SLO_BURST // 2
+            or stats["late_deliveries"]):
+        raise AssertionError(f"serve_slo: {out}")
+    return out
+
+
 # ---------------------------------------------------------------- universe
 
 # configs/datamodule/universe.yaml (2,048 synthetic assets, K=3 factors,
@@ -3561,6 +3847,7 @@ def phase_universe_train(dm) -> dict:
         shutil.copytree(ckpts / "best", kept / "best")
         shutil.copy2(ckpts / "best.json", kept / "best.json")
         records = [r for r in read_records(ckpts.parent) if "lr-Adam" in r]
+        quality = _quality_of_run(ckpts, ckpts.parent / "telemetry")
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -3593,9 +3880,11 @@ def phase_universe_train(dm) -> dict:
             "max_loss_rel_gap", "max_same_weights_grad_rel_gap",
             "max_param_abs_gap", "max_trajectory_grad_rel_gap")},
         "stream": stream,
+        "quality": quality,
         "launches": {"train": run_launches, "test": test_launches},
     }
     emit(out)
+    _check_quality("universe_train", quality)
     values = [*done.values(), *test_metrics.values()]
     if not (np.isfinite(values).all() and len(records) == TRAIN_EPOCHS):
         raise AssertionError(f"universe_train: missing or non-finite results: "
@@ -3945,6 +4234,10 @@ GROUPING_KERNELS = {
                                "lstm_stack_bwd_stacked", "stacked_groupings"),
     "lstm_wgrad_stack_stacked": ("lstm_wgrad_stack", K_MEDIUM,
                                  "lstm_wgrad_stacked", "stacked_groupings"),
+    "lstm_tb_fwd_stacked": ("lstm_tb_fwd", 100, "lstm_tb_fwd_stacked",
+                            "stacked_tblocked"),
+    "lstm_tb_bwd_stacked": ("lstm_tb_bwd", 100, "lstm_tb_bwd_stacked",
+                            "stacked_tblocked"),
 }
 
 
@@ -4086,6 +4379,50 @@ def _grouping_calls(v: dict, n: int, stack: bool) -> dict:
     }
 
 
+def _stacked_tb_inputs(rows: int) -> dict:
+    """max(STACK_RS) replicas' time-blocked operands at T=252 and ``rows``
+    rows, drawn on the card, with the replica-axis forward's stashes as the
+    backward's inputs."""
+    n = max(STACK_RS)
+    gen = torch.Generator(device=DEVICE).manual_seed(2000 + rows)
+    scale = 1.0 / np.sqrt(H)
+    v = {"x": torch.randn((n, T_LONG, rows, 4 * H), generator=gen,
+                          device=DEVICE),
+         "w": (torch.rand((n, H, 4 * H), generator=gen, device=DEVICE) * 2
+               - 1) * scale,
+         "dh": 0.1 * torch.randn((n, T_LONG, rows, H), generator=gen,
+                                 device=DEVICE)}
+    with torch.no_grad():
+        v["hs"], v["cs"] = lk.lstm_tb_fwd_stacked_cuda(v["x"], v["w"],
+                                                       return_c=True)
+    return v
+
+
+def _tb_calls(v: dict, n: int) -> dict:
+    """As ``_stacked_calls``, for the time-blocked replica axis: the
+    forward with its c stash and the backward (dx and the summed dw), the
+    plain versions in the reference's time chunks and row tiles."""
+    a = {k: t[:n] for k, t in v.items()}
+    rows = a["x"].shape[2]
+    chunk, tile = lk.tb_time_chunk(rows, H), lk._row_tile(rows)
+    bwd = (a["dh"], a["x"], a["hs"], a["cs"], a["w"])
+
+    def solo(fn, *args):
+        return lambda: [fn(*(t[r] for t in args)) for r in range(n)]
+
+    return {
+        "lstm_tb_fwd": (
+            lambda: lk.lstm_tb_fwd_stacked_cuda(a["x"], a["w"], return_c=True),
+            solo(lambda x, w: lk.lstm_tb_fwd_cuda(x, w, return_c=True),
+                 a["x"], a["w"]),
+            lambda: lk.lstm_tb_stacked_ref(a["x"], a["w"], chunk), False),
+        "lstm_tb_bwd": (
+            lambda: lk.lstm_tb_bwd_stacked_cuda(*bwd),
+            solo(lk.lstm_tb_bwd_cuda, *bwd),
+            lambda: lk.lstm_tb_bwd_stacked_ref(*bwd, chunk, tile), True),
+    }
+
+
 def _stacked_calls(v: dict, n: int) -> dict:
     """Each replica-axis kernel on the first ``n`` replicas: (the stacked
     call, the ``n`` solo calls, the plain version, relative tolerance)."""
@@ -4133,8 +4470,10 @@ TILE8 = {
 
 def _solo_flops_bytes(name: str, rows: int) -> tuple[float, float]:
     """One replica's operations and bytes, as the solo kernel rows count
-    them (``cost``; the single forward with its c plane written too)."""
-    return cost(name, rows, with_c=name == "lstm_fwd")
+    them (``cost``; the single forwards with their c plane written too, the
+    time-blocked kernels at T=252)."""
+    return cost(name, rows, n_t=T_LONG if name.startswith("lstm_tb") else T,
+                with_c=name in ("lstm_fwd", "lstm_tb_fwd"))
 
 
 def _stacked_tiles(name: str, rows: int, n: int) -> dict:
@@ -4177,7 +4516,10 @@ def phase_stacked_kernels(kernels: dict) -> dict:
     error against the plain version and each replica's slice bit for bit
     against its solo launch. At 100 rows and R = 8 the pair's forwards and
     sweep at 8-row tiles, which part from the solo bits, say what keeping
-    the solo tile's class costs (lstm_sweep.cuh sweep_rows)."""
+    the solo tile's class costs (lstm_sweep.cuh sweep_rows). The
+    time-blocked forward (with c) and backward at T=252 on 100 and 800 rows
+    at R = 1, 8 likewise (at 100 rows and R = 8 on 2-row tiles, one dw
+    partial a row)."""
     results = {}
     groups = [(rows, _stacked_kernel_inputs, _stacked_calls, STACK_RS)
               for rows in (100, 800)]
@@ -4187,6 +4529,8 @@ def phase_stacked_kernels(kernels: dict) -> dict:
                for stack, all_rows in ((False, (100, 800)),
                                        (True, (K_MEDIUM, 8 * K_MEDIUM)))
                for rows in all_rows]
+    groups += [(rows, _stacked_tb_inputs, _tb_calls, GROUPING_KERNEL_RS)
+               for rows in (100, 800)]
     for rows, inputs, calls, replica_counts in groups:
         v = inputs(rows)
         for n in replica_counts:
@@ -4209,7 +4553,8 @@ def phase_stacked_kernels(kernels: dict) -> dict:
                     library = _single_wgrad_library_ms(v, n)
                 row = {
                     "phase": "stacked_kernel", "name": name, "rows": rows,
-                    "replicas": n, "T": T, "H": H,
+                    "replicas": n, "H": H,
+                    "T": T_LONG if name.startswith("lstm_tb") else T,
                     **_stacked_tiles(name, rows, n),
                     "max_abs_err": err, "tol": tol,
                     "replicas_bit_equal_to_solo": bitwise,
@@ -4520,6 +4865,71 @@ def phase_stacked_groupings(dm, dm_medium, dm_universe, train_medium) -> dict:
     return out
 
 
+# model=small at a one-year lookback through the time-blocked replica axis:
+# a 5-step trajectory of R = 2 and a one-epoch fit of R = 4.
+STACKED_TB_FIT_R = 4
+
+
+def phase_stacked_tblocked(dm, train_long: dict) -> dict:
+    """model=small (dropout 0.2) at T=252 on 100-row windows, both layers
+    alone on the time-blocked route, through its replica axis: a 5-step
+    graphed trajectory of R = 2, each replica bit for bit its solo graphed
+    program and the replica-axis kernels twice a step (one a layer); a
+    graphed StackedTrainer.fit of R = 4 for one epoch, its
+    replica-windows/s against train_long's solo Trainer.fit of replica 0's
+    seed and rate, replica 0's epoch row bit for bit that run's first, the
+    replica-axis kernels twice a step and the solo ones never; a graphed
+    step of R = 4 (wall, idle share, kernels)."""
+    spec = _train_spec()
+    windows = _window_batches(dm, 1, GROUPING_TRAJECTORY_STEPS)[0]
+    trajectory = _stacked_trajectory(spec, device_split(Batch(*windows),
+                                                        DEVICE), 1)
+    solo = train_long["fit"]
+    trainer = StackedTrainer(max_epochs=1, gradient_clip_val=CLIP,
+                             device=DEVICE)
+    lk.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trainer.fit(spec, dm, _stack_replicas(STACKED_TB_FIT_R))
+    fit_s = time.perf_counter() - t0
+    launches = dict(lk.LAUNCHES)
+    steps = len(dm.train_range)
+    out = {
+        "phase": "stacked_tblocked", "T": T_LONG,
+        "layer_groups": trajectory["layer_groups"],
+        "routes": _routes(spec.build_module(device="cpu"), T_LONG, K_STOCKS,
+                          True, K_STOCKS),
+        "trajectory": trajectory,
+        "fit": {"replicas": STACKED_TB_FIT_R, "epochs": 1, "steps": steps,
+                "fit_seconds": fit_s, "steps_per_s": result.steps_per_sec,
+                "replica_windows_per_s": result.replica_steps_per_sec,
+                "solo_windows_per_s": solo.windows_per_sec,
+                "replica_windows_per_s_over_solo":
+                    result.replica_steps_per_sec / solo.windows_per_sec,
+                "statuses": [r.status for r in result.replicas],
+                "replica0_epoch0_row_bitwise":
+                    result.replicas[0].history[0] == solo.history[0],
+                "step": _stacked_step_breakdown(dm, spec, STACKED_TB_FIT_R)},
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    out["launches_total"] = {
+        k: launches.get(k, 0) + trajectory["launches"].get(k, 0)
+        for k in ("lstm_tb_fwd_stacked", "lstm_tb_bwd_stacked")}
+    emit(out)
+    want = {"lstm_tb_fwd_stacked": 2 * GROUPING_TRAJECTORY_STEPS,
+            "lstm_tb_bwd_stacked": 2 * GROUPING_TRAJECTORY_STEPS}
+    if (out["layer_groups"] != [1, 1] or trajectory["launches"] != want
+            or not all(trajectory["replicas_bit_equal_to_solo"])):
+        raise AssertionError(f"stacked_tblocked: the trajectory: {trajectory}")
+    fit = out["fit"]
+    if (fit["statuses"] != ["active"] * STACKED_TB_FIT_R
+            or not fit["replica0_epoch0_row_bitwise"]
+            or launches["lstm_tb_bwd_stacked"] != 2 * steps
+            or launches["lstm_tb_fwd_stacked"] < 2 * steps
+            or launches["lstm_tb_bwd"]):
+        raise AssertionError(f"stacked_tblocked: the fit: {fit} {launches}")
+    return out
+
+
 def _stacked_step_launches(groups: list, steps: int) -> dict:
     """The replica-axis launches of ``steps`` stacked training steps whose
     forward runs ``groups`` (model=large: 7 + 1; model=kfactor at 2,048
@@ -4586,13 +4996,16 @@ class _RecordingStacked(_Recording, StackedPredictEngine):
     pass
 
 
-# Lanes of the other groupings: (spec, stocks a window, the replica-
-# axis forward a dispatch launches once): one layer on 100-stock windows
-# and model=medium (one 4-deep stack) on 25-stock windows, R = 4 lanes of
-# seeded weights.
+# Lanes of the other groupings: (spec, stocks a window, lookback, the
+# replica-axis forward a dispatch launches, its launches a dispatch): one
+# layer on 100-stock windows, model=medium (one 4-deep stack) on 25-stock
+# windows and model=small at a one-year lookback (two time-blocked layers),
+# R = 4 lanes of seeded weights.
 GROUPING_LANES = {
-    "single": (_small_spec(num_layers=1), K_STOCKS, "lstm_fwd_stacked"),
-    "medium": (_medium_spec(dropout=0.0), K_MEDIUM, "lstm_stack_fwd_stacked"),
+    "single": (_small_spec(num_layers=1), K_STOCKS, T, "lstm_fwd_stacked", 1),
+    "medium": (_medium_spec(dropout=0.0), K_MEDIUM, T,
+               "lstm_stack_fwd_stacked", 1),
+    "long": (_small_spec(), K_STOCKS, T_LONG, "lstm_tb_fwd_stacked", 2),
 }
 
 
@@ -4603,11 +5016,12 @@ def _grouping_lanes(windows: dict) -> dict:
     bucket, one replica-axis launch a dispatch; p50 and answers/s of a
     burst beside the solo engine's."""
     out = {}
-    for label, (spec, stocks, counter) in GROUPING_LANES.items():
+    for label, (spec, stocks, lookback, counter, per_dispatch) in (
+            GROUPING_LANES.items()):
         states = [spec.build_module(
             device="cpu", generator=torch.Generator().manual_seed(s)
         ).state_dict() for s in range(4)]
-        kw = dict(n_stocks=stocks, lookback=T, device=DEVICE)
+        kw = dict(n_stocks=stocks, lookback=lookback, device=DEVICE)
         engine = StackedPredictEngine(spec, states, **kw)
         engine.warmup()
         solos = [PredictEngine(spec, state, **kw) for state in states]
@@ -4627,8 +5041,9 @@ def _grouping_lanes(windows: dict) -> dict:
         solo_responses, _, _, solo_s = _burst(solos[0], x)
         out[label] = {
             "lanes": engine.num_lanes, "stocks": stocks,
-            "layer_groups": engine._module.check_groups(T, 8 * stocks, False,
-                                                        stocks),
+            "lookback": lookback,
+            "layer_groups": engine._module.layer_groups(lookback, 8 * stocks,
+                                                        False, stocks),
             "captures": engine.compile_events,
             "buckets": len(engine.buckets),
             "lanes_bit_equal_to_solo": bitwise,
@@ -4639,12 +5054,14 @@ def _grouping_lanes(windows: dict) -> dict:
                            "answers_per_s": len(solo_responses) / solo_s},
             "launches": {k: v for k, v in launches.items() if v},
             "counter": counter,
+            "per_dispatch": per_dispatch,
         }
     return out
 
 
 def phase_stacked_serve(driver: dict, windows: np.ndarray,
-                        windows_medium: np.ndarray) -> dict:
+                        windows_medium: np.ndarray,
+                        windows_long: np.ndarray) -> dict:
     """The stacked driver's four ``best``s as four lanes of one
     StackedPredictEngine (``from_checkpoints``), graphed, through
     PredictServer: bursts (p50, p99, answers/s and R x answers/s); each
@@ -4652,8 +5069,8 @@ def phase_stacked_serve(driver: dict, windows: np.ndarray,
     padded; one capture a bucket; then ``try_swap_lane`` of lane 3 to lane
     0's checkpoint under SWAP_RATE open-loop load, every dispatched batch's
     other lanes bit for bit the unswapped stack's, no capture, no late
-    answer. Then lanes of one layer and of model=medium
-    (``_grouping_lanes``)."""
+    answer. Then lanes of one layer, of model=medium and of model=small at
+    a one-year lookback (``_grouping_lanes``)."""
     root = stacked_root() / "driver"
     ckpts = [root / name for name in driver["names"]]
     kw = dict(n_stocks=K_STOCKS, device=DEVICE)
@@ -4727,13 +5144,15 @@ def phase_stacked_serve(driver: dict, windows: np.ndarray,
                           swapped, solos[0].predict(windows[:2])[0]))},
         "launches": {k: v for k, v in burst_launches.items() if v},
         "groupings": _grouping_lanes({"single": windows,
-                                      "medium": windows_medium}),
+                                      "medium": windows_medium,
+                                      "long": windows_long}),
     }
     emit(out)
     for label, lanes in out["groupings"].items():
         if (not lanes["lanes_bit_equal_to_solo"]
                 or lanes["captures"] != lanes["buckets"]
-                or lanes["launches"].get(lanes["counter"]) != 3):
+                or lanes["launches"].get(lanes["counter"])
+                != 3 * lanes["per_dispatch"]):
             raise AssertionError(f"stacked_serve {label} lanes: {lanes}")
     swap = out["lane_swap"]
     if not lanes_bitwise or out["captures"] != len(live.buckets):
@@ -4756,7 +5175,9 @@ def phase_ab(label: str) -> None:
     on one card: each call's device time (``spin_ms``) and a sha256 digest
     of its outputs, at 100 and 800 rows, on the training inputs (T=60) and,
     for the time-blocked forward and backward and the resident forward
-    beside them, on ``_long_inputs`` (T=252); the 4-deep stack's
+    beside them, on ``_long_inputs`` (T=252), and the time-blocked replica
+    axis at R = 8 (``_stacked_tb_inputs``; in a checkout that has it); the
+    4-deep stack's
     forward (maskless, and masked with its stashes), sweep and
     weight-gradient pass at 25 and 200 rows on ``_stack_inputs``, and the
     8-deep masked forward at 25 rows.
@@ -4787,6 +5208,12 @@ def phase_ab(label: str) -> None:
             long["dh"], long["x"], long["hs"], long["cs"], long["w"])
         calls["lstm_fwd_long"] = lambda: lk.lstm_fwd_cuda(
             long["x"], long["w"], return_c=True)
+        if hasattr(lk, "lstm_tb_fwd_stacked_cuda"):  # not in a parent before it
+            sv = _stacked_tb_inputs(rows)
+            calls["lstm_tb_fwd_stacked"] = lambda: lk.lstm_tb_fwd_stacked_cuda(
+                sv["x"], sv["w"], return_c=True)
+            calls["lstm_tb_bwd_stacked"] = lambda: lk.lstm_tb_bwd_stacked_cuda(
+                sv["dh"], sv["x"], sv["hs"], sv["cs"], sv["w"])
         _ab_rows(label, rows, calls)
     for rows in (K_MEDIUM, 8 * K_MEDIUM):
         v = _stack_inputs(STACK_LAYERS, rows, seed=rows)
@@ -4908,6 +5335,7 @@ def main() -> int:
     phase_train_long_remat(dm_long)
     phase_graphs(dm_long, _train_spec(), "graphs_long",
                  {"lstm_tb_fwd": 2, "lstm_tb_bwd": 2})
+    stacked_tblocked = phase_stacked_tblocked(dm_long, train_long)
     # The universe path: model=kfactor on 2,048-asset windows through the
     # single-layer kernels, trained by the entry point and served.
     universe_train = phase_universe_train(dm_universe)
@@ -4925,8 +5353,11 @@ def main() -> int:
     serve_faults = phase_serve_faults(windows)
     serve_swap = phase_serve_swap(windows, _synthetic_windows(K_MEDIUM))
     serve_knee = phase_serve_knee(windows)
-    stacked_serve = phase_stacked_serve(stacked_driver, windows,
-                                        _synthetic_windows(K_MEDIUM))
+    phase_serve_quality(windows, serve_knee)
+    phase_serve_slo(windows)
+    stacked_serve = phase_stacked_serve(
+        stacked_driver, windows, _synthetic_windows(K_MEDIUM),
+        _synthetic_windows(lookback=T_LONG, stride=STRIDE_LONG))
     # The maskless pair forward's and the stack forward's launches on the
     # serving phases of this slice.
     serve_paths = {
@@ -5030,6 +5461,7 @@ def main() -> int:
     # own entry, read at R = 8 on its path's rows; launches on the stacked
     # paths (counted apart from the solo launches).
     grouping_paths = {"stacked_groupings": stacked_groupings["launches"],
+                      "stacked_tblocked": stacked_tblocked["launches_total"],
                       "stacked_serve": {
                           k: sum(g["launches"].get(k, 0)
                                  for g in stacked_serve["groupings"].values())
@@ -5062,6 +5494,10 @@ def main() -> int:
                 r["replicas_bit_equal_to_solo"]
                 for (n, _, _), r in stacked_kernels.items() if n == row_name),
         })
+        if path == "stacked_tblocked":
+            summary[-1]["launches_by_path"] = {
+                "stacked_tblocked": grouping_paths[path][counter],
+                "stacked_serve": grouping_paths["stacked_serve"][counter]}
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": summary})
     emit({"ok": True, "device": {

@@ -40,8 +40,8 @@ each replica's input projections, dropout planes and heads its own
 products, exactly the solo encoder's, and each group's recurrence one
 replica-axis launch (``lstm_stack_recurrence_stacked``,
 ``lstm_pair_recurrence_stacked``, ``lstm_recurrence_stacked``). It takes
-every grouping but one with a layer on the time-blocked route, whose
-kernels have no replica axis yet (ROADMAP queue 1 item 1).
+every grouping the solo encoder runs, a layer on the time-blocked route
+included.
 """
 
 from __future__ import annotations
@@ -56,14 +56,12 @@ from torch.utils.checkpoint import checkpoint
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.ops.lstm_kernel import (
     MAX_STACK_LAYERS,
-    GroupingNotStackedError,
     lstm_pair_recurrence,
     lstm_pair_recurrence_stacked,
     lstm_recurrence,
     lstm_recurrence_stacked,
     lstm_stack_recurrence,
     lstm_stack_recurrence_stacked,
-    single_layer_route,
     stack_fits,
     window_schedulable,
 )
@@ -272,11 +270,6 @@ class LstmEncoder(nn.Module):
         return self.alpha_head(final_hidden), self.beta_head(final_hidden)
 
 
-#: Where the groupings that do not stack yet are queued.
-STACKED_QUEUE = ("ROADMAP.md queue 1 item 1 (the replica axis of the "
-                 "time-blocked kernels)")
-
-
 class StackedLstmEncoder(nn.Module):
     """R ``LstmEncoder`` replicas of one architecture as one module.
 
@@ -312,21 +305,11 @@ class StackedLstmEncoder(nn.Module):
     def num_replicas(self) -> int:
         return len(self.replicas)
 
-    def check_groups(self, n_t: int, rows: int, has_mask: bool,
+    def layer_groups(self, n_t: int, rows: int, has_mask: bool,
                      window_rows: int | None = None) -> list[int]:
-        """The groups a forward over ``rows`` rows runs (the solo encoder's
-        rule); raise ``GroupingNotStackedError`` if one of them is a layer
-        on the time-blocked route, whose kernels have no replica axis."""
-        first = self.replicas[0]
-        groups = first.layer_groups(n_t, rows, has_mask, window_rows)
-        if 1 in groups and single_layer_route(
-                n_t, rows, first.hidden_size,
-                window_rows) == "pallas-timeblocked":
-            raise GroupingNotStackedError(
-                f"layer groups {groups} at T={n_t}, {rows} rows: a single "
-                "layer there takes the time-blocked kernels, which have no "
-                f"replica axis yet; see {STACKED_QUEUE}")
-        return groups
+        """The groups a forward over ``rows`` rows runs: the solo
+        encoder's rule, every one of them with a replica axis."""
+        return self.replicas[0].layer_groups(n_t, rows, has_mask, window_rows)
 
     def forward(self, x: torch.Tensor, *, deterministic: bool = True,
                 generators=None, masks=None,
@@ -379,7 +362,7 @@ class StackedLstmEncoder(nn.Module):
                 raise ValueError(f"{n_rep} replicas of {first.num_layers} "
                                  f"layers take {n_rep} lists of "
                                  f"{first.n_masks} masks")
-        groups = self.check_groups(n_t, rows, masks is not None, window_rows)
+        groups = self.layer_groups(n_t, rows, masks is not None, window_rows)
         layers = [[enc._layer(layer) for layer in range(first.num_layers)]
                   for enc in self.replicas]
         layer = 0

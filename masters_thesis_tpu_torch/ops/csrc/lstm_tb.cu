@@ -77,6 +77,18 @@
 // ragged last row tile are masked, not padded: rows past the last stay zero
 // in shared memory, so their d_pre is zero and adds nothing to dw. Accurate
 // expf/tanhf, no fast math.
+//
+// The replica axis (the counterpart of vmap over the JAX kernels, which
+// stacked training and serving run): block (tile, r) runs replica r of R
+// stacked ones, every operand (R, ...) and offset by blockIdx.y; STACKED
+// compiles the offsets in, and a solo launch takes the instance without
+// them. The tile keeps the solo tile's summation class (sweep_rows: a solo
+// 1-row tile may become 2 rows, 4 and 8 stay). Rows are independent in h, c
+// and dx, so those are bit-equal across the 1- and 2-row tiles; dw is not,
+// since a tile sums its rows' h[s]ᵀ d_pre[s+1] inside each step. So a 2-row
+// tile that stands in for two 1-row tiles keeps one dw per row (ROW_PARTS)
+// and writes two partials, each the 1-row tile's: the partials of a replica
+// are its solo launch's, and the caller sums them as the solo caller does.
 
 #include <cstdint>
 
@@ -257,13 +269,22 @@ size_t bwd_smem_bytes(int hidden, int rows, int tc) {
 // into the other plane buffer; one barrier a step and one a chunk. Warps
 // with 8 w >= p only take part in the barriers and the copies.
 // Shared memory: two buffers of one h plane [ROWS][p + 16] floats, then
-// two x chunk buffers [tc][ROWS][x_row].
-template <int ROWS>
+// two x chunk buffers [tc][ROWS][x_row]. STACKED: replica blockIdx.y of
+// x (R, T, B, 4H), w (R, H, 4H), hs and cs (R, T, B, H).
+template <int ROWS, bool STACKED>
 __global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_tb_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    float* __restrict__ hs, float* __restrict__ cs, int n_t,
                    int n_rows, int hidden, int tc) {
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
+  if constexpr (STACKED) {
+    const size_t rep = blockIdx.y;
+    const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
+    x += rep * 4 * plane;
+    w += rep * hidden * 4 * hidden;
+    hs += rep * plane;
+    if (cs != nullptr) cs += rep * plane;
+  }
   extern __shared__ float4 smem[];
   const int p = sweep_pad(hidden);
   const int kq = p / 4;
@@ -325,17 +346,21 @@ lstm_tb_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// This lane's entries of the tile's dw: dw[m][g] is dw[q kq + m][g H + j],
-// the k of quarter q and the gates of unit j. dw += h[s]ᵀ d_pre[s+1] over the
-// tile's rows, in the order 0 .. ROWS - 1; h_s holds h[s], dp_s d_pre[s+1].
-template <int ROWS>
+// This lane's entries of the tile's dw: dw[a][m][g] is dw[q kq + m][g H + j],
+// the k of quarter q and the gates of unit j, of accumulator a (PARTS = 1:
+// one for the tile's rows; PARTS = ROWS: one a row). dw += h[s]ᵀ d_pre[s+1]
+// over the tile's rows, in the order 0 .. ROWS - 1; h_s holds h[s], dp_s
+// d_pre[s+1].
+template <int ROWS, int PARTS>
 __device__ __forceinline__ void add_dw(const float* __restrict__ h_s,
                                        const float4* __restrict__ dp_s, int kq,
-                                       int q, int j, float (&dw)[kMaxHidden / 4][4]) {
+                                       int q, int j,
+                                       float (&dw)[PARTS][kMaxHidden / 4][4]) {
   const int h0 = q * (kq + 4);
   const int dpc = dp_col(j, kq);
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
+    float (&acc)[kMaxHidden / 4][4] = dw[PARTS == 1 ? 0 : r];
     const float4 d = dp_s[r * (4 * kq + 4) + dpc];
 #pragma unroll
     for (int m = 0; m < kMaxHidden / 4; m += 4) {
@@ -345,10 +370,10 @@ __device__ __forceinline__ void add_dw(const float* __restrict__ h_s,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float h = lane(h4, e);
-        dw[m + e][0] = fmaf(h, d.x, dw[m + e][0]);
-        dw[m + e][1] = fmaf(h, d.y, dw[m + e][1]);
-        dw[m + e][2] = fmaf(h, d.z, dw[m + e][2]);
-        dw[m + e][3] = fmaf(h, d.w, dw[m + e][3]);
+        acc[m + e][0] = fmaf(h, d.x, acc[m + e][0]);
+        acc[m + e][1] = fmaf(h, d.y, acc[m + e][1]);
+        acc[m + e][2] = fmaf(h, d.z, acc[m + e][2]);
+        acc[m + e][3] = fmaf(h, d.w, acc[m + e][3]);
       }
     }
   }
@@ -379,8 +404,11 @@ __device__ __forceinline__ void owned_from(const float* section, int k,
 // step, the update's FMAs fill the step's serial tail: 4-5% faster at 100
 // rows than before it, on an H100.)
 // Shared memory: w_s [p][p + 1] float4, the planes of single_planes, then
-// two chunk buffers (bwd_buffer_floats).
-template <int ROWS>
+// two chunk buffers (bwd_buffer_floats). STACKED: replica blockIdx.y of
+// every operand (R, ...), its partials dw_part[blockIdx.y]. ROW_PARTS: one
+// dw a row of the tile, written as the partials of rows tile0 ..
+// tile0 + valid - 1 (n_rows of them a replica), each the 1-row tile's.
+template <int ROWS, bool STACKED, bool ROW_PARTS>
 __global__ void __launch_bounds__(kSweepThreads, 1)
 lstm_tb_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
                    const float* __restrict__ hs, const float* __restrict__ cs,
@@ -388,6 +416,19 @@ lstm_tb_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
                    float* __restrict__ dw_part, int n_t, int n_rows, int hidden,
                    int tc) {
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
+  constexpr int PARTS = ROW_PARTS ? ROWS : 1;  // dw accumulators a lane
+  const int n_parts = ROW_PARTS ? n_rows : gridDim.x;  // partials a replica
+  if constexpr (STACKED) {
+    const size_t rep = blockIdx.y;
+    const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
+    dhs += rep * plane;
+    x += rep * 4 * plane;
+    hs += rep * plane;
+    cs += rep * plane;
+    w += rep * hidden * 4 * hidden;
+    dx += rep * 4 * plane;
+    dw_part += rep * n_parts * hidden * 4 * hidden;
+  }
   extern __shared__ float4 smem[];
   const int p = sweep_pad(hidden);
   const int kq = p / 4;
@@ -426,11 +467,13 @@ lstm_tb_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
   float hv[NR], dc[NR];
   load_owned<ROWS>(hs, n_t - 2, n_t, n_rows, hidden, tile0, q, j, hv);
   if (active) stage_h<ROWS>(hv, pl.h_of(n_t - 2), kq, q, j);
-  float dw[kMaxHidden / 4][4];
+  float dw[PARTS][kMaxHidden / 4][4];
 #pragma unroll
-  for (int m = 0; m < kMaxHidden / 4; ++m)
+  for (int a = 0; a < PARTS; ++a)
 #pragma unroll
-    for (int g = 0; g < 4; ++g) dw[m][g] = 0.0f;
+    for (int m = 0; m < kMaxHidden / 4; ++m)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dw[a][m][g] = 0.0f;
 #pragma unroll
   for (int i = 0; i < NR; ++i) dc[i] = 0.0f;
 
@@ -469,7 +512,7 @@ lstm_tb_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
                                 xv, cv, cpv, dhv, dc, d);
         // Unconditional: d_pre[T] and the plane of h[T-1] are zeroed
         // above, so the first iteration adds 0.
-        add_dw<ROWS>(pl.h_of(s), pl.d_pre(s + 1), kq, q, j, dw);
+        add_dw<ROWS, PARTS>(pl.h_of(s), pl.d_pre(s + 1), kq, q, j, dw);
         single_sweep_store<ROWS>(d, hv, dx, s, n_rows, hidden, tile0, q, j, kq,
                                  pl.d_pre(s), pl.h_of(s - 2));
       }
@@ -477,13 +520,18 @@ lstm_tb_bwd_kernel(const float* __restrict__ dhs, const float* __restrict__ x,
     }
   }
   if (!active || j >= hidden) return;
-  float* out = dw_part + static_cast<size_t>(blockIdx.x) * hidden * four_h + j;
 #pragma unroll
-  for (int m = 0; m < kMaxHidden / 4; ++m) {
-    const int kk = q * kq + m;
-    if (m < kq && kk < hidden) {
+  for (int a = 0; a < PARTS; ++a) {
+    if (a >= valid) break;  // a row past the last has no partial
+    const int part = ROW_PARTS ? tile0 + a : static_cast<int>(blockIdx.x);
+    float* out = dw_part + static_cast<size_t>(part) * hidden * four_h + j;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) out[kk * four_h + g * hidden] = dw[m][g];
+    for (int m = 0; m < kMaxHidden / 4; ++m) {
+      const int kk = q * kq + m;
+      if (m < kq && kk < hidden) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) out[kk * four_h + g * hidden] = dw[a][m][g];
+      }
     }
   }
 }
@@ -512,7 +560,8 @@ int lstm_tb_max_hidden() { return kMaxHidden; }
 // Every entry point takes the CUDA device index of its pointers and stream:
 // this library links its own CUDA runtime, whose current device is set here.
 
-// Row tiles of n_rows rows: the number of dw partials lstm_tb_bwd writes.
+// Row tiles of n_rows rows a solo launch takes: the number of dw partials
+// lstm_tb_bwd writes a replica, at any replica count.
 int lstm_tb_row_tiles(int n_rows, int device, int* tiles) {
   if (n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   int rows = 0;
@@ -523,23 +572,31 @@ int lstm_tb_row_tiles(int n_rows, int device, int* tiles) {
   return 0;
 }
 
-// The time chunk the forward (backward = 0) or the backward would take.
-int lstm_tb_time_chunk(int n_t, int n_rows, int hidden, int backward, int device,
-                       int* tc) {
-  if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+// The time chunk the forward (backward = 0) or the backward of R replicas
+// of n_rows rows would take: from one replica's rows, at the tile the
+// launch takes (sweep_rows).
+int lstm_tb_time_chunk(int n_t, int n_rows, int hidden, int replicas,
+                       int backward, int device, int* tc) {
+  if (bad_shape(n_t, n_rows, hidden) || replicas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int rows = 0;  // the row tile, the same forward and backward
   cudaError_t err = cudaSetDevice(device);
-  if (err == cudaSuccess) err = sweep_rows(n_rows, device, &rows);
+  if (err == cudaSuccess) err = sweep_rows(n_rows, device, &rows, replicas);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(time_chunk(n_t, device, [&](int c) {
     return backward ? bwd_smem_bytes(hidden, rows, c) : fwd_smem_bytes(hidden, rows, c);
   }, tc));
 }
 
-// hs (T, B, H) and optional cs (T, B, H) from x (T, B, 4H), w_t (H, 4H).
+// hs (R, T, B, H) and optional cs (R, T, B, H) from x (R, T, B, 4H), w_t
+// (R, H, 4H): R replicas in one launch (R = 1: one layer).
 int lstm_tb_fwd(const float* x, const float* w_t, float* hs, float* cs, int n_t,
-                int n_rows, int hidden, int device, cudaStream_t stream) {
-  if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+                int n_rows, int hidden, int replicas, int device,
+                cudaStream_t stream) {
+  if (bad_shape(n_t, n_rows, hidden) || replicas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
     int tc = 0;
@@ -547,30 +604,54 @@ int lstm_tb_fwd(const float* x, const float* w_t, float* hs, float* cs, int n_t,
       return fwd_smem_bytes(hidden, kRows, c);
     }, &tc);
     if (err != cudaSuccess) return err;
-    return launch_sweep(lstm_tb_fwd_kernel<kRows>, n_rows, kRows, 1,
+    const auto kernel = replicas > 1 ? lstm_tb_fwd_kernel<kRows, true>
+                                     : lstm_tb_fwd_kernel<kRows, false>;
+    return launch_sweep(kernel, n_rows, kRows, replicas,
                         fwd_smem_bytes(hidden, kRows, tc), stream, x, w_t, hs,
                         cs, n_t, n_rows, hidden, tc);
-  }));
+  }, replicas));
 }
 
-// dx = d_pre (T, B, 4H) and dw_part (tiles, H, 4H), one recurrent weight
-// gradient partial per row tile (lstm_tb_row_tiles), from dhs, hs, cs
-// (T, B, H), x (T, B, 4H) and w_t (H, 4H).
+// dx = d_pre (R, T, B, 4H) and dw_part (R, tiles, H, 4H), one recurrent
+// weight gradient partial per solo row tile (lstm_tb_row_tiles) and
+// replica, from dhs, hs, cs (R, T, B, H), x (R, T, B, 4H) and w_t
+// (R, H, 4H): R replicas in one launch (R = 1: one layer). Where R replicas
+// take 2-row tiles and a solo launch 1-row ones, each tile writes one
+// partial a row (ROW_PARTS).
 int lstm_tb_bwd(const float* dhs, const float* x, const float* hs, const float* cs,
                 const float* w_t, float* dx, float* dw_part, int n_t, int n_rows,
-                int hidden, int device, cudaStream_t stream) {
-  if (bad_shape(n_t, n_rows, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+                int hidden, int replicas, int device, cudaStream_t stream) {
+  if (bad_shape(n_t, n_rows, hidden) || replicas < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int solo = 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = sweep_rows(n_rows, device, &solo);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(with_sweep_rows(n_rows, device, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
     int tc = 0;
-    const cudaError_t err = time_chunk(n_t, device, [&](int c) {
+    const cudaError_t e = time_chunk(n_t, device, [&](int c) {
       return bwd_smem_bytes(hidden, kRows, c);
     }, &tc);
-    if (err != cudaSuccess) return err;
-    return launch_sweep(lstm_tb_bwd_kernel<kRows>, n_rows, kRows, 1,
-                        bwd_smem_bytes(hidden, kRows, tc), stream, dhs, x, hs,
-                        cs, w_t, dx, dw_part, n_t, n_rows, hidden, tc);
-  }));
+    if (e != cudaSuccess) return e;
+    const size_t smem = bwd_smem_bytes(hidden, kRows, tc);
+    if (replicas == 1) {
+      return launch_sweep(lstm_tb_bwd_kernel<kRows, false, false>, n_rows, kRows,
+                          1, smem, stream, dhs, x, hs, cs, w_t, dx, dw_part,
+                          n_t, n_rows, hidden, tc);
+    }
+    if constexpr (kRows == kButterflyMaxRows) {
+      if (solo == 1) {
+        return launch_sweep(lstm_tb_bwd_kernel<kRows, true, true>, n_rows, kRows,
+                            replicas, smem, stream, dhs, x, hs, cs, w_t, dx,
+                            dw_part, n_t, n_rows, hidden, tc);
+      }
+    }
+    return launch_sweep(lstm_tb_bwd_kernel<kRows, true, false>, n_rows, kRows,
+                        replicas, smem, stream, dhs, x, hs, cs, w_t, dx, dw_part,
+                        n_t, n_rows, hidden, tc);
+  }, replicas));
 }
 
 }  // extern "C"

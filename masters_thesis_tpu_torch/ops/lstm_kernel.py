@@ -31,8 +31,8 @@ The single layer, the pair and the stack also run with a replica axis
 ``lstm_stack_recurrence_stacked``: the counterparts of ``vmap`` over the
 JAX recurrences, which stacked training and serving run): R replicas'
 operands stacked on a leading axis, one launch of each kernel for all R,
-replica r's slice of every output the solo kernel's on its slices. The
-time-blocked kernels have no replica axis yet (``GroupingNotStackedError``).
+replica r's slice of every output the solo kernel's on its slices; so do
+the time-blocked kernels where the reference takes them.
 
 The CUDA kernels take f32 only and H <= 64; bf16 compute is not ported.
 """
@@ -88,12 +88,9 @@ LAUNCHES: dict[str, int] = {
     "lstm_stack_bwd_stacked": 0,
     "lstm_tb_fwd": 0,
     "lstm_tb_bwd": 0,
+    "lstm_tb_fwd_stacked": 0,
+    "lstm_tb_bwd_stacked": 0,
 }
-
-
-class GroupingNotStackedError(NotImplementedError):
-    """A replica-axis run of a layer group whose kernels have no replica
-    axis yet: one layer on the reference's time-blocked route."""
 
 
 def reset_launch_counts() -> None:
@@ -330,6 +327,24 @@ def lstm_bwd_stacked_ref(dhs, x_proj, hs, cs, w_hh_t):
     """Plain version of the replica-axis single-layer sweep:
     ``lstm_bwd_ref`` replica by replica; ``d_pre (R, T, B, 4H)``."""
     return _per_replica(lstm_bwd_ref, dhs, x_proj, hs, cs, w_hh_t)
+
+
+def lstm_tb_stacked_ref(x_proj, w_hh_t, time_chunk: int):
+    """Plain version of the replica-axis time-blocked forward:
+    ``lstm_tb_fwd_ref`` replica by replica (``x_proj (R, T, B, 4H)``,
+    ``w_hh_t (R, H, 4H)``); ``(hs, cs)`` ``(R, T, B, H)``."""
+    return _per_replica(lambda x, w: lstm_tb_fwd_ref(x, w, time_chunk),
+                        x_proj, w_hh_t)
+
+
+def lstm_tb_bwd_stacked_ref(dhs, x_proj, hs, cs, w_hh_t, time_chunk: int,
+                            row_tile: int):
+    """Plain version of the replica-axis time-blocked backward:
+    ``lstm_tb_bwd_ref`` replica by replica; ``(dx (R, T, B, 4H), dw (R, H,
+    4H))``."""
+    return _per_replica(
+        lambda *a: lstm_tb_bwd_ref(*a, time_chunk, row_tile),
+        dhs, x_proj, hs, cs, w_hh_t)
 
 
 def lstm_single_wgrad_stacked_ref(dx, hs):
@@ -661,11 +676,11 @@ def _tb_library() -> ctypes.CDLL:
     """csrc/lstm_tb.cu, built at first use, with its functions' types."""
     lib = load_library("lstm_tb")
     i32, out = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    _declare(lib, "lstm_tb_fwd", 4, 4)
-    _declare(lib, "lstm_tb_bwd", 7, 4)
+    _declare(lib, "lstm_tb_fwd", 4, 5)
+    _declare(lib, "lstm_tb_bwd", 7, 5)
     lib.lstm_tb_row_tiles.argtypes = [i32, i32, out]
     lib.lstm_tb_row_tiles.restype = i32
-    lib.lstm_tb_time_chunk.argtypes = [i32] * 5 + [out]
+    lib.lstm_tb_time_chunk.argtypes = [i32] * 6 + [out]
     lib.lstm_tb_time_chunk.restype = i32
     lib.lstm_tb_max_hidden.argtypes = []
     lib.lstm_tb_max_hidden.restype = i32
@@ -785,63 +800,99 @@ def lstm_fwd_stacked_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return _launch_fwd(x_proj, w_hh_t, return_c, _replicas(x_proj)[:1], tile)
 
 
+def _launch_tb_fwd(x_proj, w_hh_t, return_c: bool, lead: tuple):
+    """One launch of the time-blocked forward over ``lead`` (``()`` or
+    ``(R,)``) replicas, after the wrappers' checks."""
+    n_t, b, hidden = _shapes(x_proj[0] if lead else x_proj)
+    dev = x_proj.device
+    _check_operand("x_proj", x_proj, lead + (n_t, b, 4 * hidden), dev)
+    _check_operand("w_hh_t", w_hh_t, lead + (hidden, 4 * hidden), dev)
+    lib = _tb_library()
+    hs = torch.empty(lead + (n_t, b, hidden), device=dev, dtype=torch.float32)
+    cs = torch.empty_like(hs) if return_c else None
+    err = lib.lstm_tb_fwd(
+        x_proj.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), _ptr(cs),
+        n_t, b, hidden, lead[0] if lead else 1, dev.index, _stream(dev),
+    )
+    name = "lstm_tb_fwd_stacked" if lead else "lstm_tb_fwd"
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    return (hs, cs) if return_c else hs
+
+
 def lstm_tb_fwd_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
                      return_c: bool = False):
     """Launch the time-blocked forward; ``hs`` or ``(hs, cs)`` as
     ``lstm_tb_fwd_ref`` returns them."""
-    n_t, b, hidden = _shapes(x_proj)
+    return _launch_tb_fwd(x_proj, w_hh_t, return_c, ())
+
+
+def lstm_tb_fwd_stacked_cuda(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
+                             return_c: bool = False):
+    """Launch the time-blocked forward once for R replicas (``x_proj (R, T,
+    B, 4H)``, ``w_hh_t (R, H, 4H)``); ``hs`` or ``(hs, cs)`` ``(R, T, B,
+    H)``, each replica's slice the solo kernel's on its slices. The row tile
+    comes from the R replicas' rows within the solo tile's summation class
+    (``lstm_sweep_tile_cuda``). Counted as ``lstm_tb_fwd_stacked``."""
+    return _launch_tb_fwd(x_proj, w_hh_t, return_c, _replicas(x_proj)[:1])
+
+
+def _launch_tb_bwd(dhs, x_proj, hs, cs, w_hh_t, lead: tuple):
+    """One launch of the time-blocked backward over ``lead`` replicas; the
+    dw partials (one per solo row tile and replica) summed replica by
+    replica, each as the solo wrapper sums its own."""
+    n_t, b, hidden = _shapes(x_proj[0] if lead else x_proj)
     dev = x_proj.device
-    _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
-    _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
+    _check_operand("x_proj", x_proj, lead + (n_t, b, 4 * hidden), dev)
+    for name, t in (("dhs", dhs), ("hs", hs), ("cs", cs)):
+        _check_operand(name, t, lead + (n_t, b, hidden), dev)
+    _check_operand("w_hh_t", w_hh_t, lead + (hidden, 4 * hidden), dev)
     lib = _tb_library()
-    hs = torch.empty((n_t, b, hidden), device=dev, dtype=torch.float32)
-    cs = torch.empty_like(hs) if return_c else None
-    err = lib.lstm_tb_fwd(
-        x_proj.data_ptr(), w_hh_t.data_ptr(), hs.data_ptr(), _ptr(cs),
-        n_t, b, hidden, dev.index, _stream(dev),
+    name = "lstm_tb_bwd_stacked" if lead else "lstm_tb_bwd"
+    tiles = ctypes.c_int(0)
+    _raise_on_error(name, lib.lstm_tb_row_tiles(b, dev.index, ctypes.byref(tiles)))
+    dx = torch.empty_like(x_proj)
+    dw_part = torch.empty(lead + (tiles.value, hidden, 4 * hidden), device=dev,
+                          dtype=torch.float32)
+    err = lib.lstm_tb_bwd(
+        dhs.data_ptr(), x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        w_hh_t.data_ptr(), dx.data_ptr(), dw_part.data_ptr(), n_t, b, hidden,
+        lead[0] if lead else 1, dev.index, _stream(dev),
     )
-    _raise_on_error("lstm_tb_fwd", err)
-    LAUNCHES["lstm_tb_fwd"] += 1
-    return (hs, cs) if return_c else hs
+    _raise_on_error(name, err)
+    LAUNCHES[name] += 1
+    if not lead:
+        return dx, dw_part.sum(dim=0)
+    return dx, torch.stack([part.sum(dim=0) for part in dw_part])
 
 
 def lstm_tb_bwd_cuda(dhs, x_proj, hs, cs, w_hh_t):
     """Launch the time-blocked backward; returns ``(dx (T, B, 4H), dw
     (H, 4H))`` as ``lstm_tb_bwd_ref`` does. The kernel writes one dw partial
     per row tile; they are summed here, in a fixed order."""
-    n_t, b, hidden = _shapes(x_proj)
-    dev = x_proj.device
-    _check_operand("x_proj", x_proj, (n_t, b, 4 * hidden), dev)
-    for name, t in (("dhs", dhs), ("hs", hs), ("cs", cs)):
-        _check_operand(name, t, (n_t, b, hidden), dev)
-    _check_operand("w_hh_t", w_hh_t, (hidden, 4 * hidden), dev)
-    lib = _tb_library()
-    tiles = ctypes.c_int(0)
-    _raise_on_error("lstm_tb_bwd", lib.lstm_tb_row_tiles(
-        b, dev.index, ctypes.byref(tiles)))
-    dx = torch.empty_like(x_proj)
-    dw_part = torch.empty((tiles.value, hidden, 4 * hidden), device=dev,
-                          dtype=torch.float32)
-    err = lib.lstm_tb_bwd(
-        dhs.data_ptr(), x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-        w_hh_t.data_ptr(), dx.data_ptr(), dw_part.data_ptr(), n_t, b, hidden,
-        dev.index, _stream(dev),
-    )
-    _raise_on_error("lstm_tb_bwd", err)
-    LAUNCHES["lstm_tb_bwd"] += 1
-    return dx, dw_part.sum(dim=0)
+    return _launch_tb_bwd(dhs, x_proj, hs, cs, w_hh_t, ())
+
+
+def lstm_tb_bwd_stacked_cuda(dhs, x_proj, hs, cs, w_hh_t):
+    """Launch the time-blocked backward once for R replicas (every operand
+    with a leading R axis); ``(dx (R, T, B, 4H), dw (R, H, 4H))``, each
+    replica's slices the solo wrapper's. Counted as
+    ``lstm_tb_bwd_stacked``."""
+    return _launch_tb_bwd(dhs, x_proj, hs, cs, w_hh_t, _replicas(x_proj)[:1])
 
 
 def lstm_tb_time_chunk_cuda(n_t: int, rows: int, hidden: int,
-                            device: torch.device, backward: bool) -> int:
+                            device: torch.device, backward: bool,
+                            replicas: int = 1) -> int:
     """The time chunk the time-blocked forward (or backward) kernel takes
-    at this shape on ``device``: the longest whose buffers fit a block's
-    shared memory."""
+    at this shape on ``device`` for ``replicas`` replicas of ``rows`` rows
+    each: the longest whose buffers fit a block's shared memory at the
+    launch's row tile."""
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
     tc = ctypes.c_int(0)
     _raise_on_error("lstm_tb_time_chunk", _tb_library().lstm_tb_time_chunk(
-        n_t, rows, hidden, int(backward), index, ctypes.byref(tc)))
+        n_t, rows, hidden, replicas, int(backward), index, ctypes.byref(tc)))
     return tc.value
 
 
@@ -1430,6 +1481,32 @@ class _TimeBlockedFunction(torch.autograd.Function):
                                _row_tile(b))
 
 
+class _StackedTimeBlockedFunction(torch.autograd.Function):
+    """R single layers through the time-blocked kernels, each replica's
+    forward, sweep and weight gradient those of ``_TimeBlockedFunction`` on
+    its slices: one launch of each kernel for all R on the card."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh_t):
+        if _device_type(x_proj) == "cuda":
+            hs, cs = lstm_tb_fwd_stacked_cuda(x_proj, w_hh_t, return_c=True)
+        else:
+            hs, cs = lstm_tb_stacked_ref(
+                x_proj, w_hh_t, tb_time_chunk(x_proj.shape[2], w_hh_t.shape[-2]))
+        ctx.save_for_backward(x_proj, w_hh_t, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x_proj, w_hh_t, hs, cs = ctx.saved_tensors
+        args = (dhs.contiguous(), x_proj, hs, cs, w_hh_t)
+        if _device_type(x_proj) == "cuda":
+            return lstm_tb_bwd_stacked_cuda(*args)
+        b = x_proj.shape[2]
+        return lstm_tb_bwd_stacked_ref(*args, tb_time_chunk(b, w_hh_t.shape[-2]),
+                                       _row_tile(b))
+
+
 class _StackFunction(torch.autograd.Function):
     """The L-deep stack with its hand-written backward; the masks get no
     gradient. Arguments after ``has_mask``: the L recurrent weights, the
@@ -1569,17 +1646,18 @@ def lstm_recurrence_stacked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     Returns:
         ``(R, T, B, H)`` hidden states; replica r's slice is what
         ``lstm_recurrence`` gives on replica r's slices. On the card each
-        resident kernel launches once for all R replicas (the ``_stacked``
-        counts), or raises; a CPU tensor runs the plain versions replica by
-        replica. Where the reference takes its time-blocked kernels, which
-        have no replica axis yet, it raises ``GroupingNotStackedError``.
+        kernel launches once for all R replicas (the ``_stacked`` counts),
+        the time-blocked ones where the reference takes them, or raises; a
+        CPU tensor runs the plain versions replica by replica.
     """
     n_t, b = x_proj.shape[1:3]
     hidden = w_hh_t.shape[-2]
     if single_layer_route(n_t, b, hidden, window_rows) == "pallas-timeblocked":
-        raise GroupingNotStackedError(
-            f"one layer at T={n_t}, {b} rows, H={hidden} takes the "
-            "time-blocked kernels, which have no replica axis yet")
+        if _needs_grad(x_proj, w_hh_t):
+            return _StackedTimeBlockedFunction.apply(x_proj, w_hh_t)
+        if _device_type(x_proj) == "cuda":
+            return lstm_tb_fwd_stacked_cuda(x_proj, w_hh_t)
+        return lstm_tb_stacked_ref(x_proj, w_hh_t, tb_time_chunk(b, hidden))[0]
     if _needs_grad(x_proj, w_hh_t):
         return _StackedSingleFunction.apply(x_proj, w_hh_t)
     if _device_type(x_proj) == "cuda":

@@ -32,8 +32,12 @@ heartbeats written during the current attempt (a dead attempt's stale
 heartbeat left in the watch dir no longer counts against the next
 attempt while it starts); the backend probe and its CPU fallback are not
 ported (a child pinned to the CPU without a word is the fallback the port
-forbids; ROADMAP queue 1 item 5), nor ``ReplicaRestartPolicy`` and the
-``/metrics`` plane (item 4).
+forbids; ROADMAP queue 1 item 5), nor ``ReplicaRestartPolicy`` (item 4).
+``metrics_port`` starts the telemetry plane over the children's streams
+(``watch_dir``, else ``run_dir``): an SLO engine with ``slo_rules``
+(default ``default_train_rules()``) and the ``/metrics``, ``/healthz``
+and ``/slo`` server on the supervisor's own registry; a plane that fails
+to start or stop never stops the supervision.
 
 It imports no torch: it must work when the card's runtime is wedged.
 Checkpoints are read from the filesystem only; the child does the real
@@ -234,6 +238,8 @@ class RunSupervisor:
         watch_dir: Path | str | None = None,
         ckpt_dir: Path | str | None = None,
         passthrough: bool = False,
+        metrics_port: int | None = None,
+        slo_rules=None,
     ) -> None:
         self.cmd = list(cmd)
         self.run_dir = Path(run_dir)
@@ -243,6 +249,9 @@ class RunSupervisor:
         self.watch_dir = Path(watch_dir) if watch_dir else None
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
         self.passthrough = passthrough
+        self.metrics_port = metrics_port
+        self._slo_rules = slo_rules
+        self._exposition = self._slo_engine = None
         self._tel = None
         # One stable trace id for the WHOLE supervised run: adopted from
         # the caller's env when present (a grid runner tracing the cell),
@@ -586,6 +595,22 @@ class RunSupervisor:
             probe=False,
             trace_id=self.trace_id,
         )
+        if self.metrics_port is not None:
+            try:
+                from masters_thesis_tpu_torch.telemetry.exposition import (
+                    start_telemetry_plane,
+                )
+                from masters_thesis_tpu_torch.telemetry.slo import (
+                    default_train_rules,
+                )
+
+                self._exposition, self._slo_engine = start_telemetry_plane(
+                    self._telemetry(), self.metrics_port,
+                    rules=self._slo_rules or default_train_rules(),
+                    root=self.watch_dir or self.run_dir)
+            except Exception:
+                # Monitoring must never kill supervision.
+                self._exposition = self._slo_engine = None
         t_start = time.monotonic()
         attempt = 0
         retries = rollbacks = 0
@@ -701,6 +726,16 @@ class RunSupervisor:
             degraded=False,
             trace_id=self.trace_id,
         )
+        if self._exposition is not None or self._slo_engine is not None:
+            try:
+                from masters_thesis_tpu_torch.telemetry.exposition import (
+                    stop_telemetry_plane,
+                )
+
+                stop_telemetry_plane(self._exposition, self._slo_engine)
+            except Exception:
+                pass
+            self._exposition = self._slo_engine = None
         if self._tel is not None:
             try:
                 self._tel.close()

@@ -32,16 +32,22 @@ TelemetryRun`) the server writes the JAX server's events
 registry, observes ``serve/latency_s``, and writes spans: one
 ``serve.server`` span, one ``serve.request`` span a request whose
 components tile its wall (``serve/spans.py``) and one ``serve.device``
-span a dispatch. ``metrics_port=`` (0 for a free port) serves the registry
-at ``/metrics`` while the server runs. ``stats()`` carries
-``queue_wait_share`` and ``compute_share`` from the request spans.
+span a dispatch. ``metrics_port=`` (0 for a free port) starts the
+telemetry plane while the server runs: an SLO engine over the run's stream
+(``slo_rules``, default ``default_serve_rules()``) and the ``/metrics``,
+``/healthz`` and ``/slo`` server. ``stats()`` carries ``queue_wait_share``
+and ``compute_share`` from the request spans.
+
+``quality_monitor=`` (a ``telemetry.quality.QualityMonitor``) is handed
+each batch's delivered answers after their hand-back, with the host arrays
+already in hand (a lane-stacked engine's answer is the mean over its
+lanes); it samples 1 in K of them and touches no device.
 
 Fault points: ``serve.dispatch`` (context ``seq``, the dispatch's number,
 and ``n``, its live requests) kind ``wedge`` raises
 :class:`InjectedDeviceError` into the breaker; kind ``nan`` poisons the
 batch's answers, which the finite check then withholds. ``serve.admit`` is
-handled in ``queue.py``. The quality monitor and the ``/slo`` plane of the
-JAX server are not ported.
+handled in ``queue.py``.
 """
 
 from __future__ import annotations
@@ -134,11 +140,16 @@ class PredictServer:
         telemetry=None,
         breaker_threshold: int = 3,
         metrics_port: int | None = None,
+        slo_rules=None,
+        quality_monitor=None,
     ):
         self.engine = engine
         self.telemetry = telemetry
         self.metrics_port = metrics_port
-        self._exposition = None
+        self._slo_rules = slo_rules
+        self._exposition = self._slo_engine = None
+        #: Samples delivered answers after their hand-back (None: off).
+        self.quality = quality_monitor
         self.breaker = CircuitBreaker(breaker_threshold)
         self.service_model = ServiceTimeModel()
         # The queue's micro-batch can never exceed the largest bucket.
@@ -229,23 +240,33 @@ class PredictServer:
         self._thread.start()
         if self.metrics_port is not None and self.telemetry is not None:
             from masters_thesis_tpu_torch.telemetry.exposition import (
-                attach_exposition,
+                start_telemetry_plane,
             )
 
-            self._exposition = attach_exposition(self.telemetry,
-                                                 port=self.metrics_port)
+            self._exposition, self._slo_engine = start_telemetry_plane(
+                self.telemetry, self.metrics_port, rules=self._slo_rules)
 
     @property
     def metrics_url(self) -> str | None:
-        """``http://host:port`` of ``/metrics`` while the server runs."""
+        """``http://host:port`` of ``/metrics``, ``/healthz`` and ``/slo``
+        while the server runs."""
         return None if self._exposition is None else self._exposition.url
+
+    @property
+    def slo_engine(self):
+        """The plane's SLO engine while the server runs, else None."""
+        return self._slo_engine
 
     def stop(self) -> dict:
         """Drain, stop the dispatch thread, emit ``serve_finished``;
         returns the summary stats the event carries."""
-        if self._exposition is not None:
-            self._exposition.close()
-            self._exposition = None
+        if self._exposition is not None or self._slo_engine is not None:
+            from masters_thesis_tpu_torch.telemetry.exposition import (
+                stop_telemetry_plane,
+            )
+
+            stop_telemetry_plane(self._exposition, self._slo_engine)
+            self._exposition = self._slo_engine = None
         self.queue.close()
         if self._thread is not None:
             self._thread.join(timeout=30.0)
@@ -463,6 +484,7 @@ class PredictServer:
                                 replace=probe)
         self.breaker.record_success()
         finite = bool(np.isfinite(alpha).all() and np.isfinite(beta).all())
+        delivered = []
         for i, p in enumerate(live):
             if not finite:
                 self._bump("errors")
@@ -470,18 +492,25 @@ class PredictServer:
                     p, STATUS_ERROR,
                     "non-finite predictions; response withheld",
                 )
-            else:
-                self._deliver(p, (alpha[i], beta[i]))
+            elif self._deliver(p, (alpha[i], beta[i])):
+                delivered.append(i)
+        if self.quality is not None:
+            # After every answer of the batch went back: host arrays only.
+            for i in delivered:
+                a_i, b_i = alpha[i], beta[i]
+                if a_i.ndim == 2:  # lanes (R, K): the served answer's mean
+                    a_i, b_i = a_i.mean(axis=0), b_i.mean(axis=0)
+                self.quality.sample(live[i].request.x, a_i, b_i)
 
-    def _deliver(self, pending: PendingRequest, outputs: tuple) -> None:
-        """Hand back an ``ok`` answer, or ``rejected_late`` once less than
-        ``handback_guard_s`` remains before its deadline. Each answer is
-        decided on its own reading of the clock, after the batch's earlier
-        answers went back (their span and event writes included). The
-        response is stamped on a fresh reading after this answer's own
-        bookkeeping, just before the hand-back, and ``late_deliveries``
-        counts an ``ok`` the clock reads past its deadline right after the
-        hand-back."""
+    def _deliver(self, pending: PendingRequest, outputs: tuple) -> bool:
+        """Hand back an ``ok`` answer (returns True), or ``rejected_late``
+        (False) once less than ``handback_guard_s`` remains before its
+        deadline. Each answer is decided on its own reading of the clock,
+        after the batch's earlier answers went back (their span and event
+        writes included). The response is stamped on a fresh reading after
+        this answer's own bookkeeping, just before the hand-back, and
+        ``late_deliveries`` counts an ``ok`` the clock reads past its
+        deadline right after the hand-back."""
         request = pending.request
         now = time.monotonic()
         if now + self.handback_guard_s > request.deadline_ts:
@@ -492,7 +521,7 @@ class PredictServer:
                 "back before it; rejected rather than delivered late",
                 now=now,
             )
-            return
+            return False
         latency = now - request.submitted_ts
         with self._stats_lock:
             self.completed += 1
@@ -507,3 +536,4 @@ class PredictServer:
             # The delivery itself slid past the deadline: this must never
             # happen; counted so that a run fails loudly.
             self._bump("late_deliveries")
+        return True

@@ -24,13 +24,20 @@ weights:
    bounded and, when ``max_drift`` is set, within that budget of the
    serving weights' answers (:func:`canary_checks`, numpy in f64, the JAX
    order of checks);
-6. the commit: ``PredictEngine.set_params``, an in-place copy under the
+6. the model-quality gate (``telemetry/quality.py`` ``quality_gate``):
+   the candidate's outputs on the golden windows of its own fingerprint
+   (``quality.json`` in its tree, regenerated from the fingerprint's seed
+   and shape), run through the engine's bucket programs in chunks of its
+   largest bucket, scored against that fingerprint and, with a
+   ``quality_monitor``, against the live serving sketch (with no usable
+   fingerprint, the canary's outputs against the live sketch alone). A
+   failure is refused by name (``quality_self``, ``quality_shadow``,
+   ``quality_live``); a malformed fingerprint is refused as
+   ``quality_error`` and never takes the server down. A candidate with
+   neither a fingerprint nor a live sketch is not scored;
+7. the commit: ``PredictEngine.set_params``, an in-place copy under the
    engine lock, with the event ``swap_committed`` (``swap_rejected`` for a
-   refusal).
-
-The JAX package's model-quality gate is not ported: a candidate that ships
-``quality.json`` is refused with reason ``quality_error`` (the port cannot
-score it yet) rather than swapped in unscored.
+   refusal); the candidate's fingerprint becomes the monitor's reference.
 
 :meth:`CheckpointSwapper.try_swap_lane` swaps ONE lane of a
 ``StackedPredictEngine`` (``serve/stacked.py``) through the same gate
@@ -38,7 +45,9 @@ score it yet) rather than swapped in unscored.
 canary on that lane), plus the JAX package's sibling-isolation check: the
 staged stack's answers on every OTHER lane must be bitwise the serving
 stack's, through the same bucket program (``sibling_perturbed``
-otherwise: a staged lane that moves a sibling is a fault, never noise).
+otherwise: a staged lane that moves a sibling is a fault, never noise),
+and the quality gate against the candidate's own fingerprint on that lane
+(no live sketch: the monitor watches the ensemble's answer, not a lane).
 The commit is ``StackedPredictEngine.set_lane``, a copy into the lane's
 captured tensors (event ``lane_swap_committed``, ``lane_swap_rejected``
 for a refusal). This module imports no torch at import: the serving
@@ -54,19 +63,18 @@ from pathlib import Path
 import numpy as np
 
 from masters_thesis_tpu_torch.resilience import faults
+from masters_thesis_tpu_torch.telemetry import quality as quality_lib
 
 #: Default canary bound on |output|: alpha and beta are standardized-return
 #: quantities; anything this large is a blown-up tree even before NaN.
 DEFAULT_MAX_ABS = 1e3
-#: The JAX package's model-quality fingerprint inside a checkpoint tree.
-FINGERPRINT_FILENAME = "quality.json"
 
 
 @dataclass
 class SwapVerdict:
     ok: bool
     reason: str  # "committed" | "verify_failed" | "restore_failed" |
-    #              "shape_mismatch" | "canary_<check>" | "quality_error"
+    #              "shape_mismatch" | "canary_<check>" | "quality_<check>"
     detail: str = ""
     checks: dict = field(default_factory=dict)
 
@@ -119,8 +127,12 @@ class CheckpointSwapper:
 
     def __init__(self, engine, *, telemetry=None,
                  max_abs: float = DEFAULT_MAX_ABS,
-                 max_drift: float | None = None):
+                 max_drift: float | None = None, quality_monitor=None):
         self.engine = engine
+        #: The serving ``QualityMonitor``, or None: its live sketch enters
+        #: the gate, and a commit makes the candidate's fingerprint its
+        #: reference.
+        self.quality = quality_monitor
         #: The canary's input: the engine's golden batch (one window).
         self.golden_x = engine.golden_batch()
         self.telemetry = telemetry
@@ -194,13 +206,18 @@ class CheckpointSwapper:
         lap("canary")
         if not verdict.ok:
             return self._reject(tag, verdict)
-        if (path / FINGERPRINT_FILENAME).exists():
-            return self._reject(tag, SwapVerdict(
-                False, "quality_error",
-                f"candidate ships {FINGERPRINT_FILENAME}, which the port "
-                "cannot score yet (the quality gate is not ported); refused "
-                "rather than swapped in unscored", verdict.checks))
+        fp = quality_lib.read_fingerprint(path)
+        live = self.quality.live_summaries() if self.quality is not None else None
+        refusal = self._quality_gate(
+            fp, verdict, lambda x: self.engine.predict(x, params=candidate),
+            live, (self.golden_x, candidate_out))
+        lap("quality")
+        if refusal is not None:
+            return self._reject(tag, refusal)
         self.engine.set_params(candidate)
+        if self.quality is not None and fp is not None:
+            # The new weights' fingerprint is the drift baseline now.
+            self.quality.set_reference(fp)
         lap("commit")
         self.committed += 1
         self._event("swap_committed", tag=tag, epoch=meta.get("epoch"),
@@ -279,18 +296,56 @@ class CheckpointSwapper:
                 "staging the candidate moved a SIBLING lane's answers "
                 "through the same bucket program: lane isolation is broken; "
                 "refusing to commit", verdict.checks))
-        if (path / FINGERPRINT_FILENAME).exists():
-            return self._reject_lane(tag, lane, SwapVerdict(
-                False, "quality_error",
-                f"candidate ships {FINGERPRINT_FILENAME}, which the port "
-                "cannot score yet (the quality gate is not ported); refused "
-                "rather than swapped in unscored", verdict.checks))
+        refusal = self._quality_gate(
+            quality_lib.read_fingerprint(path), verdict,
+            lambda x: self.engine.predict_lane(x, lane, params=staged),
+            None, None)
+        lap("quality")
+        if refusal is not None:
+            return self._reject_lane(tag, lane, refusal)
         digest = self.engine.set_lane(lane, state, staged=staged)
         lap("commit")
         self.lane_committed += 1
         self._event("lane_swap_committed", tag=tag, lane=lane, digest=digest,
                     epoch=meta.get("epoch"), checks=verdict.checks)
         return verdict
+
+    def _quality_gate(self, fp, verdict: SwapVerdict, predict, live,
+                      fallback) -> SwapVerdict | None:
+        """The model-quality gate of a candidate that passed the canary:
+        None to go on, or the refusal. ``predict(x)`` runs the candidate on
+        at most ``max_bucket`` windows ``x`` (the fingerprint's golden
+        windows go through it in such chunks); ``fallback`` is ``(x,
+        outputs)`` of the canary, which the live sketch scores when the
+        candidate ships no usable fingerprint. The checks go into
+        ``verdict.checks``."""
+        try:
+            gold = (fp or {}).get("golden")
+            q_x = q_out = None
+            if gold is not None and tuple(gold["shape"][1:]) == tuple(
+                    self.engine.window_shape):
+                q_x = quality_lib.golden_windows(*gold["shape"],
+                                                 seed=gold.get("seed", 0))
+                cap = self.engine.max_bucket
+                outs = [predict(q_x[i:i + cap]) for i in range(0, len(q_x), cap)]
+                q_out = tuple(np.concatenate([np.asarray(o[k]) for o in outs])
+                              for k in (0, 1))
+            elif live and fallback is not None:
+                q_x, q_out = fallback
+            if q_out is None:
+                return None
+            ok, reason, detail, checks = quality_lib.quality_gate(
+                fp, q_x, q_out[0], q_out[1], live=live)
+            verdict.checks.update(checks)
+            if not ok:
+                return SwapVerdict(False, reason, detail, verdict.checks)
+        except Exception as exc:  # noqa: BLE001 — a malformed fingerprint
+            # is refused; it never takes the server down.
+            return SwapVerdict(
+                False, "quality_error",
+                "quality gate could not score the candidate: "
+                f"{type(exc).__name__}: {exc}", verdict.checks)
+        return None
 
     def _reject_lane(self, tag: str, lane: int, verdict: SwapVerdict
                      ) -> SwapVerdict:

@@ -63,8 +63,8 @@ def kernel_cost(name: str, rows: int, n_t: int = 60, hidden: int = 64,
                 n_layers: int = 4, with_c: bool = False) -> tuple[int, int]:
     """``(operations, bytes)`` of one launch of kernel ``name`` over
     ``rows`` rows and ``n_t`` steps at width ``hidden``; ``n_layers`` is a
-    stack kernel's depth, ``with_c`` a single-layer forward that also
-    writes its c plane.
+    stack kernel's depth, ``with_c`` a single-layer forward (resident or
+    time-blocked) that also writes its c plane.
 
     Forwards: 1 product a step for one layer, 3 for the pair (both
     recurrences and the seam projection), 2L - 1 for an L-deep stack.
@@ -84,7 +84,8 @@ def kernel_cost(name: str, rows: int, n_t: int = 60, hidden: int = 64,
     counts = {
         "lstm_fwd": (product,
                      plane_x + weight + (2 if with_c else 1) * plane_h),
-        "lstm_tb_fwd": (product, plane_x + weight + plane_h),
+        "lstm_tb_fwd": (product,
+                        plane_x + weight + (2 if with_c else 1) * plane_h),
         "lstm_bwd": (2 * product, 3 * plane_h + 2 * plane_x + weight),
         "lstm_wgrad_single": (product, plane_x + plane_h + weight),
         "lstm_tb_bwd": (3 * product, 3 * plane_h + 2 * plane_x + 2 * weight),

@@ -157,3 +157,47 @@ def read_events(path: str | Path) -> list[dict]:
             except json.JSONDecodeError:
                 continue  # torn tail from a killed writer
     return events
+
+
+def read_new_lines(
+    path: str | Path, cursor: int = 0
+) -> tuple[list[dict], int]:
+    """Incremental tail read: the events appended since ``cursor``.
+
+    Returns ``(events, new_cursor)`` where ``new_cursor`` is the byte
+    offset just past the last newline-terminated line. A torn final line
+    (a writer killed mid-append, or simply caught mid-write) is NOT
+    consumed: the cursor stays in front of it so the next call re-reads
+    the line once its newline lands — unlike :func:`read_events`, which
+    drops the torn tail, the incremental reader must not lose the event
+    a live writer is still flushing. A terminated-but-unparseable line
+    is skipped and consumed (it will never become valid). A file shorter
+    than the cursor (stream replaced or truncated) resets to the top.
+    A missing file returns ``([], cursor)`` unchanged.
+    """
+    cursor = max(0, int(cursor))
+    try:
+        f = open(path, "rb")
+    except OSError:
+        return [], cursor
+    with f:
+        size = f.seek(0, os.SEEK_END)
+        if cursor > size:
+            cursor = 0  # the stream shrank under us: re-read from the top
+        f.seek(cursor)
+        chunk = f.read()
+    end = chunk.rfind(b"\n")
+    if end < 0:
+        return [], cursor  # nothing terminated yet
+    events: list[dict] = []
+    for raw in chunk[:end].split(b"\n"):
+        raw = raw.strip()
+        if not raw:
+            continue
+        try:
+            ev = json.loads(raw.decode("utf-8"))
+        except (json.JSONDecodeError, UnicodeDecodeError):
+            continue  # terminated but corrupt: consumed, never retried
+        if isinstance(ev, dict):
+            events.append(ev)
+    return events, cursor + end + 1

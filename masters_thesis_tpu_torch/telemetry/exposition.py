@@ -1,17 +1,23 @@
-"""Stdlib-only HTTP exposition: ``/metrics`` and ``/healthz``.
+"""Stdlib-only HTTP exposition: ``/metrics``, ``/healthz`` and ``/slo``.
 
-Counterpart of ``masters_thesis_tpu/telemetry/exposition.py`` without the
-SLO plane (``/slo`` and the ``mtt_slo_*`` gauges wait for the port's SLO
-engine). ``/metrics`` renders a :class:`~.registry.MetricsRegistry`
-snapshot in the Prometheus text format, byte for byte as the JAX package
-renders the same contents: counters and gauges as they are, histograms as
-summaries with ``quantile`` labels plus ``_sum`` / ``_count``, the
-registry's host/pid identity as labels. ``/healthz`` answers liveness JSON.
+Counterpart of ``masters_thesis_tpu/telemetry/exposition.py``, copied
+whole. One ``ExpositionServer`` a process renders the run's live state:
+
+- ``/metrics``: a :class:`~.registry.MetricsRegistry` snapshot in the
+  Prometheus text format, byte for byte as the JAX package renders the
+  same contents (counters and gauges as they are, histograms as summaries
+  with ``quantile`` labels plus ``_sum`` / ``_count``, the registry's
+  host/pid identity as labels), then the SLO engine's rules as
+  ``mtt_slo_firing`` (1 while a rule fires) and ``mtt_slo_value`` gauges;
+- ``/healthz``: liveness JSON with the list of firing alerts;
+- ``/slo``: the :class:`~.slo.SLOEngine`'s whole published state.
 
 The listener thread starts in :meth:`ExpositionServer.start`, never in
 ``__init__``, and is joined with a bounded timeout in ``close``. Handlers
-hold no lock of ours: they take the registry's snapshot (which copies under
-its own short locks) and render on the handler thread.
+hold no lock of ours: they take the providers' snapshots (each copies
+under its own short lock) and render on the handler thread.
+``start_telemetry_plane`` is the one call that trainers, servers and the
+supervisor share to start an SLO engine and the server together.
 """
 
 from __future__ import annotations
@@ -77,9 +83,12 @@ def _num(value) -> str:
     return repr(value)
 
 
-def render_prometheus(snapshot: dict) -> str:
+def render_prometheus(
+    snapshot: dict, slo_state: dict | None = None
+) -> str:
     """The registry snapshot (``MetricsRegistry.snapshot()`` shape) as
-    Prometheus text exposition format."""
+    Prometheus text exposition format, plus ``mtt_slo_firing`` gauges
+    from an optional SLO state dict."""
     tags = snapshot.get("tags") or {}
     lines: list[str] = []
     for name, inst in sorted((snapshot.get("metrics") or {}).items()):
@@ -112,20 +121,45 @@ def render_prometheus(snapshot: dict) -> str:
                 f"{pname}_count{_labels(tags)} "
                 f"{_num(inst.get('count') or 0)}"
             )
+    if slo_state:
+        lines += [
+            "# HELP mtt_slo_firing 1 while the named SLO rule is firing",
+            "# TYPE mtt_slo_firing gauge",
+        ]
+        for rule, row in sorted((slo_state.get("rules") or {}).items()):
+            lines.append(
+                f"mtt_slo_firing{_labels(tags, {'rule': rule})} "
+                f"{1 if row.get('firing') else 0}"
+            )
+            if row.get("value") is not None:
+                lines.append(
+                    f"mtt_slo_value{_labels(tags, {'rule': rule})} "
+                    f"{_num(row.get('value'))}"
+                )
     return "\n".join(lines) + "\n"
 
 
 class ExpositionServer:
-    """Owns one listener thread serving /metrics and /healthz."""
+    """Owns one listener thread serving /metrics, /healthz, /slo."""
 
-    def __init__(self, registry=None, bind_host: str = "127.0.0.1",
-                 port: int = 0):
+    def __init__(
+        self,
+        registry=None,
+        slo=None,
+        bind_host: str = "127.0.0.1",
+        port: int = 0,
+    ):
         self._registry = registry
+        self._slo = slo
         self._bind_host = bind_host
         self._requested_port = port
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
         self.port: int | None = None
+
+    # ---------------------------------------------------------- handlers
+    # Called on http.server worker threads; they must copy state through
+    # the providers' own internal locks and render lock-free here.
 
     def _get(self, path: str) -> tuple[int, str, str]:
         path = path.split("?", 1)[0]
@@ -135,11 +169,26 @@ class ExpositionServer:
                 if self._registry is not None
                 else {"tags": {}, "metrics": {}}
             )
-            return 200, "text/plain; version=0.0.4", render_prometheus(snap)
+            state = self._slo.state() if self._slo is not None else None
+            return 200, "text/plain; version=0.0.4", render_prometheus(
+                snap, state
+            )
         if path == "/healthz":
-            return 200, "application/json", json.dumps(
-                {"ok": True, "ts": time.time(), "firing": []})
+            state = self._slo.state() if self._slo is not None else {}
+            body = json.dumps(
+                {
+                    "ok": True,
+                    "ts": time.time(),
+                    "firing": state.get("firing") or [],
+                }
+            )
+            return 200, "application/json", body
+        if path == "/slo":
+            state = self._slo.state() if self._slo is not None else {}
+            return 200, "application/json", json.dumps(state, default=str)
         return 404, "text/plain", f"no route {path!r}\n"
+
+    # --------------------------------------------------------- lifecycle
 
     def start(self) -> "ExpositionServer":
         if self._httpd is not None:
@@ -169,7 +218,8 @@ class ExpositionServer:
         self._httpd.daemon_threads = True
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="exposition-http",
+            target=self._httpd.serve_forever,
+            name="exposition-http",
             daemon=True,
         )
         self._thread.start()
@@ -190,14 +240,62 @@ class ExpositionServer:
         if thread is not None:
             thread.join(timeout=10.0)
 
+    def __enter__(self) -> "ExpositionServer":
+        return self.start()
 
-def attach_exposition(telemetry, port: int = 0,
-                      bind_host: str = "127.0.0.1") -> ExpositionServer:
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def start_telemetry_plane(
+    telemetry,
+    metrics_port: int | None,
+    rules=None,
+    slo_interval_s: float = 2.0,
+    root=None,
+):
+    """The one-call attach point components share: an SLO engine tailing
+    the run dir's streams plus an exposition server over the run's
+    registry. Returns ``(server, engine)`` — both ``None`` when the
+    component has no telemetry or no port was requested (``port=0``
+    binds an ephemeral port; ``None`` disables the plane). ``root``
+    points the SLO engine at a different stream tree than the run dir —
+    supervisors watch their CHILDREN's streams while exposing their own
+    registry."""
+    if telemetry is None or metrics_port is None:
+        return None, None
+    from masters_thesis_tpu_torch.telemetry.slo import SLOEngine
+
+    engine = SLOEngine(
+        root or telemetry.run_dir, rules=rules, sink=telemetry.sink
+    )
+    engine.start(interval_s=slo_interval_s)
+    server = attach_exposition(telemetry, port=metrics_port, slo=engine)
+    return server, engine
+
+
+def stop_telemetry_plane(server, engine) -> None:
+    """Tear down what :func:`start_telemetry_plane` built (idempotent)."""
+    if server is not None:
+        server.close()
+    if engine is not None:
+        engine.stop()
+
+
+def attach_exposition(
+    telemetry, port: int = 0, bind_host: str = "127.0.0.1", slo=None
+) -> ExpositionServer:
     """Start an exposition server over a :class:`~.run.TelemetryRun`'s
-    registry and record its URL in the event stream (``port=0`` binds a
-    free port)."""
-    server = ExpositionServer(registry=telemetry.registry,
-                              bind_host=bind_host, port=port).start()
-    telemetry.event("exposition_started", url=server.url, port=server.port,
-                    bind_host=bind_host)
+    registry (plus an optional SLO engine) and record the bound URL in
+    the event stream so operators and the watch console can find it."""
+    server = ExpositionServer(
+        registry=telemetry.registry, slo=slo, bind_host=bind_host,
+        port=port,
+    ).start()
+    telemetry.event(
+        "exposition_started",
+        url=server.url,
+        port=server.port,
+        bind_host=bind_host,
+    )
     return server

@@ -4,7 +4,8 @@ Counterpart of ``masters_thesis_tpu/train/checkpoint.py``, with its layout
 and its publish protocol around the port's own payload::
 
     <ckpt_dir>/
-      best/  last/           # state.pt + MANIFEST.json (sha256 a file)
+      best/  last/           # state.pt (+ quality.json) + MANIFEST.json
+                             # (sha256 a file)
       best.json  last.json   # the sidecar: spec, scheduler, meta
       last.prev/ + last.prev.json   # the previous good save (fallback)
 
@@ -24,8 +25,11 @@ A checkpoint of the port before the tree layout (a bare ``<tag>.pt``
 beside ``<tag>.json``) restores as a pre-manifest checkpoint, which the
 lenient rule trusts and the strict one (serving) refuses. An orbax tree
 of the JAX package (a ``<tag>/`` without ``state.pt``) is refused by name.
-There is one process, so there is no barrier; the quality fingerprint
-(``extra_files``) is not ported.
+``extra_files`` (the trainer's ``quality.json`` fingerprint) are written
+into the staged tree before its manifest, so the manifest covers them, they
+rotate to ``.prev`` with the pair, and a torn or doctored copy fails
+verification as a torn ``state.pt`` does. There is one process, so there is
+no barrier.
 """
 
 from __future__ import annotations
@@ -61,9 +65,11 @@ def save_checkpoint(ckpt_dir, tag: str, state_dict: dict,
                     opt_state: dict | None = None,
                     scheduler_state: dict | None = None,
                     meta: dict | None = None,
-                    spec: ModelSpec | None = None) -> Path:
-    """Publish ``<ckpt_dir>/<tag>/`` (``state.pt`` and its manifest) and
-    the ``<tag>.json`` sidecar; returns the tree's path.
+                    spec: ModelSpec | None = None,
+                    extra_files: dict[str, str] | None = None) -> Path:
+    """Publish ``<ckpt_dir>/<tag>/`` (``state.pt``, the ``extra_files``
+    (name -> text) and its manifest) and the ``<tag>.json`` sidecar;
+    returns the tree's path.
 
     The order: the staged sidecar is cleared before the staged tree (a
     kill in between leaves an orphan tree, which recovery drops, never an
@@ -95,6 +101,10 @@ def save_checkpoint(ckpt_dir, tag: str, state_dict: dict,
         **sidecar,
     }
     publish(staging / STATE_NAME, lambda f: torch.save(payload, f))
+    for name, text in (extra_files or {}).items():
+        target = staging / name
+        target.write_text(text)
+        fsync_path(target)
     write_manifest(staging)
     atomic_write_text(staged_sidecar, json.dumps(sidecar, indent=2), fsync=True)
     # The fault points' context: the tag, as in the JAX package, and the

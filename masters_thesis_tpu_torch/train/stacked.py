@@ -5,8 +5,8 @@ cells that differ in learning rate and seed, or ensemble members) train as
 one program over ``[R, n]`` buffers (``StackedTrainProgram``,
 ``StackedFlatAdam``): on the card one CUDA graph a step, each layer
 group's recurrence one replica-axis launch of each of its kernels (the
-pair's, the single layer's or the stack's; a grouping with a layer on the
-time-blocked route is refused before any work). Replicas share the model
+pair's, the single layer's, the time-blocked single layer's or the
+stack's). Replicas share the model
 architecture, the loss, the gradient clip and the weight decay (one
 program); the learning rate and the seed are each replica's own.
 
@@ -191,10 +191,6 @@ class StackedTrainer:
         objective = spec.window_objective()
         train = device_split(dm.train_arrays(), self.device)
         val = device_split(dm.val_arrays(), self.device)
-        n_stocks, n_t = train.x.shape[1:3]
-        # Refuse a grouping this slice does not stack before any work.
-        module.check_groups(n_t, dm.batch_size * n_stocks, spec.dropout > 0,
-                            n_stocks)
         has_val = val.x.shape[0] > 0
         if not has_val:
             warnings.warn("val split is empty — LR plateau scheduling is "

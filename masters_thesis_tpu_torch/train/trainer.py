@@ -50,8 +50,18 @@ the captures of the run's CUDA graphs. ``profile_steps=(N, M)`` (or
 ``torch.profiler``; ``cost_profile`` (on with telemetry unless False)
 writes the analytic cost of the step (``telemetry/costs.py``). The seconds
 the host spends on all of this are summed in the ``telemetry/host_s``
-gauge. Preflight, bf16 and multi-device are not ported; stacked replicas
-are ``train/stacked.py``'s.
+gauge. With a checkpoint directory and a val split, every save writes
+the model-quality fingerprint (``telemetry/quality.py``: the first 128
+val windows and 32 golden windows through the weights being saved, in
+chunks of ``EVAL_CHUNK`` windows, eagerly, outside every graph) as
+``quality.json`` inside the tree, covered by its manifest, a
+``quality_fingerprint`` event and its seconds in the
+``quality/fingerprint_s`` histogram; a fingerprint that fails
+prints one line and the save goes on without it. ``metrics_port`` (with
+telemetry) starts the telemetry plane: an SLO engine over the run's
+stream (``slo_rules``, default ``default_train_rules()``) and the
+``/metrics``, ``/healthz`` and ``/slo`` server. Preflight, bf16 and
+multi-device are not ported; stacked replicas are ``train/stacked.py``'s.
 """
 
 from __future__ import annotations
@@ -72,18 +82,25 @@ from masters_thesis_tpu_torch.data.prefetch import PrefetchStats, prefetch_to_de
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.resilience import faults
 from masters_thesis_tpu_torch.telemetry import costs
+from masters_thesis_tpu_torch.telemetry import quality as quality_lib
+from masters_thesis_tpu_torch.telemetry.exposition import (
+    start_telemetry_plane,
+    stop_telemetry_plane,
+)
 from masters_thesis_tpu_torch.telemetry.profiling import ProfilerWindow
 from masters_thesis_tpu_torch.telemetry.run import (
     CaptureTracker,
     EpochRecorder,
     TelemetryRun,
 )
+from masters_thesis_tpu_torch.telemetry.slo import default_train_rules
 from masters_thesis_tpu_torch.train import checkpoint as ckpt_lib
 from masters_thesis_tpu_torch.train.optim import PlateauScheduler, make_optimizer
 from masters_thesis_tpu_torch.train.steps import (
     EvalProgram,
     StreamProgram,
     TrainProgram,
+    forward_rows,
     metric_means,
     train_epoch,
     weighted_batches,
@@ -92,6 +109,10 @@ from masters_thesis_tpu_torch.train.steps import (
 EPOCH_MODES = ("scan", "stream")
 
 EVAL_CHUNK = 32
+
+#: The fingerprint's windows: the first val windows and the golden ones.
+FINGERPRINT_VAL_WINDOWS = 128
+FINGERPRINT_GOLDEN_WINDOWS = 32
 
 
 @dataclasses.dataclass
@@ -168,6 +189,8 @@ class Trainer:
         profile: bool = False,
         profile_steps: tuple[int, int] | None = None,
         hang_timeout_s: float | None = None,
+        metrics_port: int | None = None,
+        slo_rules=None,
     ):
         if epoch_mode not in EPOCH_MODES:
             raise ValueError(f"unknown epoch_mode: {epoch_mode!r} "
@@ -204,6 +227,12 @@ class Trainer:
         )
         #: The flight recorder's hang watchdog (None: heartbeats only).
         self.hang_timeout_s = hang_timeout_s
+        #: The telemetry plane's port (0: a free one; None: no plane).
+        self.metrics_port = metrics_port
+        self._slo_rules = slo_rules
+        self._exposition = self._slo_engine = None
+        #: (val windows, golden windows) a save fingerprints, or None.
+        self._quality_windows = None
         self._fit_span = None
         self._clock = HostClock()
 
@@ -280,6 +309,12 @@ class Trainer:
         if not has_val:
             warnings.warn("val split is empty — LR plateau scheduling is "
                           "inactive and 'best' is the final checkpoint")
+        self._quality_windows = None
+        if self.ckpt_dir and has_val:
+            qx = np.asarray(dm.val_arrays().x[:FINGERPRINT_VAL_WINDOWS],
+                            np.float32)
+            self._quality_windows = (qx, quality_lib.golden_windows(
+                FINGERPRINT_GOLDEN_WINDOWS, *qx.shape[1:], seed=0))
         # One generator for the run, re-seeded each epoch: a CUDA graph
         # holds the state of the generator it was captured with.
         generator = torch.Generator(device=self.device)
@@ -332,6 +367,11 @@ class Trainer:
                 rec = EpochRecorder(tel, steps_per_epoch,
                                     on_epoch=self._mirror_epoch,
                                     span_parent=fit_span)
+                if self.metrics_port is not None:
+                    self._exposition, self._slo_engine = (
+                        start_telemetry_plane(
+                            tel, self.metrics_port,
+                            rules=self._slo_rules or default_train_rules()))
         cost_payload = None
         if (self.cost_profile if self.cost_profile is not None
                 else bool(tel)):
@@ -511,6 +551,8 @@ class Trainer:
                         self.max_epochs - 1)
             tel.gauge("telemetry/host_s").set(clock.seconds)
             tel.snapshot_metrics()
+        stop_telemetry_plane(self._exposition, self._slo_engine)
+        self._exposition = self._slo_engine = None
         return TrainResult(
             state={k: v.detach().cpu().clone()
                    for k, v in module.state_dict().items()},
@@ -615,9 +657,19 @@ class Trainer:
             with self._clock:
                 tel.recorder.beat(phase="checkpoint", epoch=epoch)
         t0_wall, t0 = time.time(), time.perf_counter()
+        fp = extra = None
+        if self._quality_windows is not None:
+            try:
+                fp = fingerprint(module, *self._quality_windows)
+                extra = {quality_lib.FINGERPRINT_FILENAME:
+                         quality_lib.fingerprint_to_json(fp)}
+            except Exception as exc:  # noqa: BLE001 -- never lose the save
+                fp = extra = None
+                self._print(f"quality fingerprint failed for {tag!r}: {exc}")
+        fp_s = time.perf_counter() - t0
         ckpt_lib.save_checkpoint(
             self.ckpt_dir, tag, module.state_dict(), optimizer.state_dict(),
-            scheduler.state_dict(),
+            scheduler.state_dict(), extra_files=extra,
             meta={
                 "epoch": epoch,
                 "val_loss": float(val_loss),
@@ -633,9 +685,39 @@ class Trainer:
                 wall_s = time.perf_counter() - t0
                 tel.event("checkpoint_saved", tag=tag, epoch=epoch,
                           wall_s=wall_s, path=str(self.ckpt_dir / tag))
+                if fp is not None:
+                    tel.event("quality_fingerprint", tag=tag, epoch=int(epoch),
+                              windows=int(fp["windows"]),
+                              shadow_err=float(fp["shadow"]["err_mean"]))
+                    tel.histogram("quality/fingerprint_s").observe(fp_s)
                 tel.tracer.emit_span("train.checkpoint", start_ts=t0_wall,
                                      dur_s=wall_s, parent=self._fit_span,
                                      tag=tag, epoch=epoch)
+
+
+def predict_windows(module, x: np.ndarray, chunk: int = EVAL_CHUNK):
+    """The encoder's alpha and beta (the first factor's loading) on windows
+    ``x`` ``(n, K, T, F)`` as numpy ``(n, K)`` each: eager forwards of
+    ``chunk`` windows on the module's device, with no gradient."""
+    device = next(module.parameters()).device
+    alphas, betas = [], []
+    with torch.inference_mode():
+        for start in range(0, len(x), chunk):
+            piece = torch.as_tensor(x[start:start + chunk]).to(device)
+            alpha, beta = forward_rows(module, piece)
+            alphas.append(alpha[..., 0].cpu().numpy())
+            betas.append(beta[..., 0].cpu().numpy())
+    return np.concatenate(alphas), np.concatenate(betas)
+
+
+def fingerprint(module, qx: np.ndarray, gx: np.ndarray) -> dict:
+    """The model-quality fingerprint of ``module``'s weights: the val
+    windows ``qx`` and the golden windows ``gx`` (seed 0) through it, as
+    the JAX trainer builds it."""
+    a_v, b_v = predict_windows(module, qx)
+    a_g, b_g = predict_windows(module, gx)
+    return quality_lib.build_fingerprint(qx, a_v, b_v, golden=(gx, a_g, b_g),
+                                         golden_seed=0)
 
 
 def datamodule_meta(dm) -> dict:

@@ -291,6 +291,8 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
         "lstm_stack_fwd_stacked": 0,
         "lstm_stack_fwd_masked_stacked": 0,
         "lstm_stack_bwd_stacked": 0,
+        "lstm_tb_fwd_stacked": 0,
+        "lstm_tb_bwd_stacked": 0,
     }
     ref = [t.clone().requires_grad_(True) for t in base]
     plain = lk.lstm_pair_ref(*ref, mask)
@@ -1885,7 +1887,8 @@ def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
     epoch's start to the run's last telemetry (its metrics snapshot) every
     call runs under the synchronisation check set to raise, apart from the
     reads the trainer makes without telemetry (each epoch's sums, the
-    validation sums, the checkpoint saves) and the captures; the train
+    validation sums, the checkpoint saves with their quality fingerprints)
+    and the captures; the train
     program captures once; every epoch event carries a positive device_s
     from its CUDA events; the history is bit for bit a run's with
     telemetry off."""
@@ -1967,6 +1970,8 @@ def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
     events = read_events(tmp_path / "tel" / "events.jsonl")
     epochs = [e for e in events if e["kind"] == "epoch"]
     assert [e["compile_events"] for e in epochs] == [1, 0, 0]
+    assert (sum(e["kind"] == "quality_fingerprint" for e in events)
+            == sum(e["kind"] == "checkpoint_saved" for e in events) > 0)
     assert all(e["device_s"] > 0 for e in epochs)
     report = summarize_path(tmp_path / "tel")
     assert report["compiles"]["train_epoch"] == 1 and not report["violations"]
@@ -1977,3 +1982,168 @@ def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
     gauges = next(e["metrics"] for e in reversed(events)
                   if e["kind"] == "metrics")
     assert gauges["telemetry/host_s"]["value"] > 0
+
+
+# ------------------------------------- the replica axis of the time-blocked
+
+
+@pytest.mark.parametrize("rows", [1, 3, 100, 803])
+@pytest.mark.parametrize("replicas", [1, 2, 8])
+def test_time_blocked_replica_axis_matches_plain_and_solo(cuda_device,
+                                                          replicas, rows):
+    """The replica-axis time-blocked forward (h and c, and h alone) and
+    backward (dx and dw) at T=252, H=64: within their tolerance of the plain
+    versions, each replica's slices bit for bit its solo launch's, one
+    launch each. At 100 rows and R = 2 or 8 the launch takes 2-row tiles
+    where the solo one takes 1 (the dw partials kept a row)."""
+    x, w, dh = _single_stacked_case(rows + replicas, replicas, rows, 64,
+                                    n_t=252, device=cuda_device)
+    before = dict(lk.LAUNCHES)
+    hs, cs = lk.lstm_tb_fwd_stacked_cuda(x, w, return_c=True)
+    hs_only = lk.lstm_tb_fwd_stacked_cuda(x, w)
+    chunk, tile = lk.tb_time_chunk(rows, 64), lk._row_tile(rows)
+    hs_ref, cs_ref = lk.lstm_tb_stacked_ref(x, w, chunk)
+    torch.testing.assert_close(hs, hs_ref, atol=2e-5, rtol=0)
+    torch.testing.assert_close(cs, cs_ref, atol=2e-5, rtol=0)
+    assert torch.equal(hs_only, hs)
+    dx, dw = lk.lstm_tb_bwd_stacked_cuda(dh, x, hs_ref, cs_ref, w)
+    want_dx, want_dw = lk.lstm_tb_bwd_stacked_ref(dh, x, hs_ref, cs_ref, w,
+                                                  chunk, tile)
+    for r in range(replicas):
+        _close_rel(dx[r], want_dx[r])
+        _close_rel(dw[r], want_dw[r])
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["lstm_tb_fwd_stacked"] == before["lstm_tb_fwd_stacked"] + 2
+    assert lk.LAUNCHES["lstm_tb_bwd_stacked"] == before["lstm_tb_bwd_stacked"] + 1
+    for r in range(replicas):
+        solo_h, solo_c = lk.lstm_tb_fwd_cuda(x[r], w[r], return_c=True)
+        assert torch.equal(hs[r], solo_h) and torch.equal(cs[r], solo_c)
+        solo_dx, solo_dw = lk.lstm_tb_bwd_cuda(dh[r], x[r], hs_ref[r],
+                                               cs_ref[r], w[r])
+        assert torch.equal(dx[r], solo_dx) and torch.equal(dw[r], solo_dw)
+
+
+def test_time_blocked_replica_axis_tile_and_chunk(cuda_device):
+    """The tile rule the time-blocked launch shares with the single layer,
+    and its time chunk, taken at one replica's rows and the launch's
+    tile."""
+    assert lk.lstm_sweep_tile_cuda(100) == 1
+    assert lk.lstm_sweep_tile_cuda(100, 8) == 2
+    assert lk.lstm_sweep_tile_cuda(800, 8) == lk.lstm_sweep_tile_cuda(800) == 8
+    for backward in (False, True):
+        solo = lk.lstm_tb_time_chunk_cuda(252, 100, 64, cuda_device, backward)
+        eight = lk.lstm_tb_time_chunk_cuda(252, 100, 64, cuda_device, backward,
+                                           replicas=8)
+        assert 1 <= eight <= solo
+        assert lk.lstm_tb_time_chunk_cuda(252, 800, 64, cuda_device, backward,
+                                          replicas=8) == (
+            lk.lstm_tb_time_chunk_cuda(252, 800, 64, cuda_device, backward))
+
+
+def test_time_blocked_stacked_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda_device):
+    x, w, dh = _single_stacked_case(0, 2, 9, 8, n_t=20, device=cuda_device)
+    before = dict(lk.LAUNCHES)
+    with pytest.raises(ValueError, match="R, T, B, 4H"):
+        lk.lstm_tb_fwd_stacked_cuda(x[0], w)
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_tb_fwd_stacked_cuda(x, w[:1])
+    with pytest.raises(ValueError, match="shape"):
+        lk.lstm_tb_bwd_stacked_cuda(dh[:1], x, dh, dh, w)
+    with pytest.raises(TypeError):
+        lk.lstm_tb_fwd_stacked_cuda(x.double(), w.double())
+    assert lk.LAUNCHES == before
+
+
+def _long_datamodule(tmp_path, stocks=100):
+    from masters_thesis_tpu_torch.data.pipeline import (
+        FinancialWindowDataModule,
+        bootstrap_synthetic,
+    )
+
+    bootstrap_synthetic(tmp_path / "data", n_stocks=stocks, n_samples=3400,
+                        seed=0)
+    return FinancialWindowDataModule(tmp_path / "data", batch_size=1,
+                                     lookback_window=252, target_window=5,
+                                     stride=257)
+
+
+def test_graphed_stacked_time_blocked_fit_equals_each_solo_run(cuda_device,
+                                                               tmp_path):
+    """A graphed stacked fit of R = 2 model=small replicas at a one-year
+    lookback (T=252 on 100-row windows: both layers time-blocked) against
+    each replica's graphed solo Trainer.fit: weights, moments and history
+    bit for bit; the time-blocked replica-axis kernels launched twice a
+    step (one a layer), the solo ones never in the stacked steps."""
+    from masters_thesis_tpu_torch.train.stacked import ReplicaSpec, StackedTrainer
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    dm = _long_datamodule(tmp_path)
+    spec = ModelSpec(objective="combined", hidden_size=64, num_layers=2,
+                     dropout=0.2, learning_rate=1e-3)
+    replicas = [ReplicaSpec("s0", 0, 1e-3), ReplicaSpec("s1", 1, 5e-4)]
+    lk.reset_launch_counts()
+    stacked = StackedTrainer(max_epochs=2, gradient_clip_val=5.0,
+                             device=cuda_device).fit(spec, dm, replicas)
+    counts = dict(lk.LAUNCHES)
+    steps = 2 * len(dm.train_range)
+    assert counts["lstm_tb_fwd_stacked"] >= 2 * steps
+    assert counts["lstm_tb_bwd_stacked"] == 2 * steps
+    assert counts["lstm_tb_bwd"] == 0
+    for rep, got in zip(replicas, stacked.replicas):
+        solo = Trainer(max_epochs=2, gradient_clip_val=5.0, seed=rep.seed,
+                       device=cuda_device).fit(
+            dataclasses_replace(spec, learning_rate=rep.learning_rate), dm)
+        assert got.history == solo.history
+        for name, value in solo.state.items():
+            assert torch.equal(got.state[name], value), name
+        for key in ("mu", "nu"):
+            assert torch.equal(got.opt_state[key], solo.opt_state[key])
+
+
+# ------------------------------------------------ the quality gate, on the card
+
+
+def test_a_fingerprinted_swap_commits_through_the_bucket_graphs(cuda_device,
+                                                                tmp_path):
+    """A candidate shipping the fingerprint the trainer would write for it
+    (its outputs on 32 golden windows) commits through the quality gate:
+    the golden windows run through the captured bucket graphs in chunks of
+    the largest bucket, with no new capture, and the monitor takes the
+    candidate's fingerprint; the same weights with heads scaled by 50 under
+    that fingerprint are refused as quality_self, answers unchanged."""
+    from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
+    from masters_thesis_tpu_torch.telemetry import quality
+    from masters_thesis_tpu_torch.train.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from masters_thesis_tpu_torch.train.trainer import fingerprint
+
+    dirs, kw = _swap_case(tmp_path)
+    state, _, spec, meta = restore_checkpoint(dirs["good"], "best")
+    module = spec.build_module(device="cuda")
+    module.load_state_dict(state)
+    qx = np.random.default_rng(6).normal(size=(40, 7, 10, 3)).astype(np.float32)
+    fp = fingerprint(module, qx, quality.golden_windows(32, 7, 10, 3, seed=0))
+    extra = {quality.FINGERPRINT_FILENAME: quality.fingerprint_to_json(fp)}
+    save_checkpoint(tmp_path / "fp", "best", state, spec=spec, meta=meta,
+                    extra_files=extra)
+    scaled = {k: v * (50.0 if "head" in k else 1.0) for k, v in state.items()}
+    save_checkpoint(tmp_path / "diverged", "best", scaled, spec=spec,
+                    meta=meta, extra_files=extra)
+    live = PredictEngine.from_checkpoint(dirs["live"], **kw)
+    live.warmup()
+    captures = live.compile_events
+    monitor = quality.QualityMonitor(None)
+    swapper = CheckpointSwapper(live, quality_monitor=monitor)
+    x = np.random.default_rng(7).normal(size=(5, 7, 10, 3)).astype(np.float32)
+    before = live.predict(x)
+    refused = swapper.try_swap(tmp_path / "diverged")
+    assert refused.reason == "quality_self"
+    for got, want in zip(live.predict(x), before):
+        np.testing.assert_array_equal(got, want)
+    verdict = swapper.try_swap(tmp_path / "fp")
+    assert verdict.ok and verdict.checks["quality_self_ks"] < quality.GATE_MAX_SELF_KS
+    assert monitor.reference == fp
+    assert live.compile_events == captures == 4

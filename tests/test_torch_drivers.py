@@ -91,8 +91,8 @@ def test_train_then_test_through_the_entry_point(data_dir, tmp_path):
     assert {p.name for p in ckpts.iterdir()} == {
         *tags, *(f"{tag}.json" for tag in tags)}
     for tag in tags:
-        assert {p.name for p in (ckpts / tag).iterdir()} == {"state.pt",
-                                                             "MANIFEST.json"}
+        assert {p.name for p in (ckpts / tag).iterdir()} == {
+            "state.pt", "MANIFEST.json", "quality.json"}
     rows = _epoch_rows(log_dir)
     assert [r["step"] for r in rows] == [0, 1]
     assert float(done.group(1)) == pytest.approx(

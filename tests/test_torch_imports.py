@@ -46,7 +46,7 @@ def test_port_imports_with_jax_blocked():
                  "native.engine", "train.stacked", "serve.stacked",
                  "cli.stacked", "telemetry.flightrec", "telemetry.costs",
                  "telemetry.profiling", "telemetry.report",
-                 "telemetry.quality", "telemetry.__main__",
+                 "telemetry.quality", "telemetry.slo", "telemetry.__main__",
                  "resilience.backoff", "resilience.supervisor",
                  "resilience.__main__"):
         assert f"masters_thesis_tpu_torch.{name}" in modules

@@ -103,6 +103,8 @@ def test_cpu_dispatch_launches_no_kernel():
     long_w = torch.zeros((64, 4 * 64), requires_grad=True)
     assert lk.single_layer_route(90, 100, 64) == "pallas-timeblocked"
     lk.lstm_recurrence(long_x, long_w).sum().backward()
+    lk.lstm_recurrence_stacked(torch.stack([long_x, long_x]),
+                               torch.stack([long_w, long_w])).sum().backward()
     # Two replicas of the pair through the replica-axis recurrence.
     lk.lstm_pair_recurrence_stacked(
         *(torch.stack([a, a]) for a in leaves)).sum().backward()
@@ -121,6 +123,7 @@ def test_cpu_dispatch_launches_no_kernel():
         "lstm_pair_bwd_stacked", "lstm_wgrad_stacked", "lstm_fwd_stacked",
         "lstm_bwd_stacked", "lstm_stack_fwd_stacked",
         "lstm_stack_fwd_masked_stacked", "lstm_stack_bwd_stacked",
+        "lstm_tb_fwd_stacked", "lstm_tb_bwd_stacked",
     }
     assert not any(lk.LAUNCHES.values())
 

@@ -69,10 +69,9 @@ ENVELOPE = ("ts", "kind", "run", "seq", "host", "pid", "proc", "nproc",
             "attempt", "generation")
 #: Kinds only the JAX trainer writes in this run: the gradient all-reduce
 #: count (multi-device, ROADMAP queue 1 item 3), the collective-schedule
-#: chain (item 4), the quality fingerprint (item 5), and device memory (the
-#: port samples the card's allocator, and the CPU has none).
-JAX_ONLY_KINDS = {"grad_sync", "collective_schedule", "quality_fingerprint",
-                  "memory"}
+#: chain (item 4), and device memory (the port samples the card's
+#: allocator, and the CPU has none).
+JAX_ONLY_KINDS = {"grad_sync", "collective_schedule", "memory"}
 #: run_started keys with no meaning on one card, and the values the JAX
 #: trainer writes for one device.
 ONE_DEVICE = {"n_devices": 1, "strategy": "single_device",

@@ -34,7 +34,6 @@ from masters_thesis_tpu_torch.serve.preflight import run_serve_preflight
 from masters_thesis_tpu_torch.telemetry.events import read_events
 from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
 from masters_thesis_tpu_torch.train.checkpoint import save_checkpoint
-from masters_thesis_tpu_torch.train.manifest import write_manifest
 
 K, T, F, H = 4, 8, 3, 8
 BUCKETS = (1, 4)
@@ -93,14 +92,16 @@ def _params(seed, hidden=H, layers=2):
 META = {"epoch": 1, "datamodule": {"lookback_window": T}}
 
 
-def _save_both(root: Path, params, hidden=H, layers=2) -> tuple[Path, Path]:
-    """The same numpy weights published by each package: (jax dir, port
-    dir)."""
+def _save_both(root: Path, params, hidden=H, layers=2,
+               extra_files=None) -> tuple[Path, Path]:
+    """The same numpy weights (and extra files) published by each package:
+    (jax dir, port dir)."""
     jax_dir, port_dir = root / "jax", root / "port"
     jax_save(jax_dir, "best", params, {}, _jax_spec(hidden, layers),
-             meta=META)
+             meta=META, extra_files=extra_files)
     save_checkpoint(port_dir, "best", params_from_jax(params),
-                    spec=_spec(hidden, layers), meta=META)
+                    spec=_spec(hidden, layers), meta=META,
+                    extra_files=extra_files)
     return jax_dir, port_dir
 
 
@@ -191,12 +192,13 @@ def test_try_swap_gives_the_jax_swappers_reason(tmp_path, windows, case):
 
 
 def test_a_candidate_with_a_quality_fingerprint_is_refused(tmp_path, windows):
-    """The quality gate is not ported: a candidate that ships quality.json
-    is refused by name, never swapped in unscored."""
+    """A candidate whose quality.json is malformed (a golden section with
+    no sketches) is refused by name, as the JAX swapper refuses it, never
+    swapped in unscored; the serving answers stay as they were."""
+    bad = '{"golden": {"seed": 0, "shape": [3, %d, %d, %d]}}' % (K, T, F)
     _, live = _save_both(tmp_path / "live", _params(0))
-    _, cand = _save_both(tmp_path / "cand", _params(7))
-    (cand / "best" / swap.FINGERPRINT_FILENAME).write_text("{}")
-    write_manifest(cand / "best")
+    cand_jax, cand = _save_both(tmp_path / "cand", _params(7),
+                                extra_files={"quality.json": bad})
     engine = PredictEngine.from_checkpoint(live, n_stocks=K, device="cpu")
     tel = TelemetryRun(tmp_path / "tel", run_id="swap")
     swapper = swap.CheckpointSwapper(engine, telemetry=tel)
@@ -208,13 +210,18 @@ def test_a_candidate_with_a_quality_fingerprint_is_refused(tmp_path, windows):
     assert event["kind"] == "swap_rejected"
     assert event["reason"] == "quality_error" and event["tag"] == "best"
     assert not verdict.ok and verdict.reason == "quality_error"
-    assert "cannot score" in verdict.detail and verdict.checks["finite"]
+    assert "could not score" in verdict.detail and verdict.checks["finite"]
     for now, then in zip(_answers(engine, windows), before):
         for a, b in zip(now, then):
             np.testing.assert_array_equal(a, b)
     assert (swapper.committed, swapper.rejected) == (0, 1)
     assert list(swapper.step_seconds) == ["pre_swap", "verify", "restore",
-                                          "signature", "canary"]
+                                          "signature", "canary", "quality"]
+    theirs = JaxEngine.from_checkpoint(tmp_path / "live" / "jax", n_stocks=K,
+                                       buckets=(1,))
+    theirs.warmup()
+    want = jax_swap.CheckpointSwapper(theirs).try_swap(cand_jax)
+    assert want.reason == verdict.reason
 
 
 def test_put_params_checks_the_signature():

@@ -21,9 +21,12 @@ Against the port's solo path, bit for bit: each replica of a stacked run is
 the solo run of its seed and rate (dropout 0.2, its own masks and
 shuffles); siblings are isolated; a diverging replica is rolled back,
 slowed, masked and frozen while its siblings train on untouched. Every
-grouping stacks (one layer, the pair, the L-deep stack and their mixes,
-``[2, 1]`` and model=large's ``[7, 1]``) but one with a layer on the
-time-blocked route, whose kernels have no replica axis yet.
+grouping stacks: one layer, the pair, the L-deep stack and their mixes,
+``[2, 1]``, model=large's ``[7, 1]`` and layers on the time-blocked route
+(a one-year lookback), whose replica axis is held against the JAX
+package's ``vmap`` over its interpret-mode time-blocked kernel (1e-5 abs on
+h, 2e-5 of the largest entry on the gradients, ``test_torch_tblocked.py``'s
+tolerances).
 """
 
 import dataclasses
@@ -40,6 +43,7 @@ import pytest
 import torch
 from torch import nn
 
+import masters_thesis_tpu.ops.lstm_kernel as jax_lk
 from masters_thesis_tpu.analysis.traceaudit import _synthetic_split
 from masters_thesis_tpu.models.objectives import ModelSpec as JaxSpec
 from masters_thesis_tpu.parallel import global_put, make_data_mesh, replicated_sharding
@@ -60,11 +64,7 @@ from masters_thesis_tpu_torch.models.convert import (
     replica_state,
     stacked_params_from_jax,
 )
-from masters_thesis_tpu_torch.models.lstm import (
-    GroupingNotStackedError,
-    LstmEncoder,
-    StackedLstmEncoder,
-)
+from masters_thesis_tpu_torch.models.lstm import LstmEncoder, StackedLstmEncoder
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.ops import lstm_kernel as lk
 from masters_thesis_tpu_torch.resilience import faults
@@ -260,22 +260,27 @@ def test_stacked_encoder_replica_is_the_solo_encoder_bitwise():
     (3, 8, 4, None, [3]),  # a 3-deep stack
     (4, 60, 25, 25, [4]),  # model=medium at the Fama-French shape
     # model=small at a one-year lookback: two singles, time-blocked
-    (2, 252, 100, 100, None),
+    (2, 252, 100, 100, [1, 1]),
 ], ids=["1-8-4-None", "3-8-4-None", "4-60-25-25", "2-252-100-100"])
 def test_groupings_other_than_one_pair_are_refused(num_layers, n_t, rows,
                                                    window_rows, groups):
-    """Since the single-layer and stack kernels have their replica axis,
-    only a grouping with a layer on the time-blocked route is refused (the
-    time-blocked kernels have none yet); the others stack."""
-    stacked = StackedLstmEncoder([
-        LstmEncoder(3, 64 if n_t > 8 else H, num_layers, 0.0, device="cpu")
-        for _ in range(2)])
-    if groups is not None:
-        assert stacked.check_groups(n_t, rows, False, window_rows) == groups
-        return
-    with pytest.raises(GroupingNotStackedError,
-                       match="time-blocked.*ROADMAP.md queue 1"):
-        stacked.check_groups(n_t, rows, False, window_rows)
+    """No grouping is refused any more: each stacks, its groups the solo
+    encoder's, and the stacked forward's replica r is the solo encoder's
+    bit for bit (at a one-year lookback through the time-blocked replica
+    axis)."""
+    hidden = 64 if n_t > 8 else H
+    solos = [LstmEncoder(3, hidden, num_layers, 0.0, device="cpu",
+                         generator=torch.Generator().manual_seed(s))
+             for s in (0, 1)]
+    stacked = StackedLstmEncoder(solos)
+    assert stacked.layer_groups(n_t, rows, False, window_rows) == groups
+    assert solos[0].layer_groups(n_t, rows, False, window_rows) == groups
+    x = torch.randn(rows, n_t, 3, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        alpha, beta = stacked(x, window_rows=window_rows)
+        for r, solo in enumerate(solos):
+            a, b = solo(x, window_rows=window_rows)
+            assert torch.equal(a, alpha[r]) and torch.equal(b, beta[r])
 
 
 @pytest.mark.parametrize("num_layers", [1, 4])
@@ -355,7 +360,7 @@ def _stacked_epochs_against_jax(objective: str, num_layers: int) -> None:
     program = StackedTrainProgram(stacked, opt, spec.window_objective(), data,
                                   n, [torch.Generator() for _ in SEEDS])
     k = data.x.shape[1]
-    assert stacked.check_groups(n_t, n * k, False, k) == [num_layers]
+    assert stacked.layer_groups(n_t, n * k, False, k) == [num_layers]
     for epoch in range(2):
         keys = global_put(jnp.stack([jax.random.fold_in(jax.random.key(s), epoch)
                                      for s in SEEDS]), repl)
@@ -551,18 +556,37 @@ def test_mixed_epochs_start_fresh(data_dir, tmp_path):
     assert [len(r.history) for r in fresh.replicas] == [2, 2, 2]
 
 
-def test_stacked_trainer_refuses_a_grouping_before_training(data_dir,
-                                                            monkeypatch):
+@pytest.fixture(scope="module")
+def long_data_dir(tmp_path_factory):
+    """4 stocks, enough samples for 14 training windows of a one-year
+    lookback at stride 257."""
+    root = tmp_path_factory.mktemp("stacked_long_data")
+    bootstrap_synthetic(root, n_stocks=4, n_samples=5600, seed=0)
+    return root
+
+
+def test_stacked_trainer_refuses_a_grouping_before_training(long_data_dir):
     """One layer at H=64 over a one-year lookback on 10 windows of 4 stocks
-    (40 rows) takes the time-blocked route: refused before any step."""
-    monkeypatch.setattr(StackedTrainProgram, "epoch", lambda *a: pytest.fail(
-        "trained before refusing"))
-    trainer = StackedTrainer(max_epochs=1, device="cpu")
+    (40 rows) takes the time-blocked route, which now stacks: each of two
+    replicas is its solo Trainer run bit for bit (weights, moments,
+    history)."""
+    data_dir = long_data_dir
     spec = ModelSpec(objective="mse", hidden_size=64, num_layers=1)
-    dm = FinancialWindowDataModule(data_dir, batch_size=10, lookback_window=252,
-                                   target_window=5, stride=257)
-    with pytest.raises(GroupingNotStackedError, match="time-blocked.*queue 1"):
-        trainer.fit(spec, dm, [ReplicaSpec("a", 0, 1e-3)])
+    windows = dict(batch_size=10, lookback_window=252, target_window=5,
+                   stride=257)
+    module = StackedLstmEncoder([LstmEncoder(5, 64, 1, 0.0, device="cpu")])
+    assert module.layer_groups(252, 40, False, 4) == [1]
+    assert lk.single_layer_route(252, 40, 64, 4) == "pallas-timeblocked"
+    result = StackedTrainer(max_epochs=1, device="cpu").fit(
+        spec, FinancialWindowDataModule(data_dir, **windows),
+        [ReplicaSpec("a", 0, 1e-3), ReplicaSpec("b", 1, 1e-4)])
+    for got, (seed, lr) in zip(result.replicas, ((0, 1e-3), (1, 1e-4))):
+        solo = Trainer(max_epochs=1, device="cpu", seed=seed).fit(
+            dataclasses.replace(spec, learning_rate=lr),
+            FinancialWindowDataModule(data_dir, **windows))
+        assert got.status == "active"
+        _assert_replica_equal(got, solo.state, solo.opt_state)
+        assert got.history == solo.history
 
 
 def _child(args, tmp_path, env_extra=None):
@@ -626,15 +650,21 @@ def test_stacked_entry_point_takes_other_groupings(tmp_path, model):
 
 def test_stacked_entry_point_refuses_a_time_blocked_grouping(tmp_path):
     """One layer at H=64 over a one-year lookback takes the time-blocked
-    route: refused before any training, the message naming the queue."""
+    route, which the entry point now trains: every replica to the end, its
+    checkpoints those of a one-layer model."""
     proc = _child(["model.num_layers=1", "model.hidden_size=64",
                    "datamodule.lookback_window=252", "datamodule.stride=257",
-                   "datamodule.batch_size=10", "--replicas",
-                   '[{"name": "a", "seed": 0}]', "--ckpt-dir",
-                   str(tmp_path / "ck")], tmp_path)
-    assert proc.returncode != 0
-    assert "time-blocked" in proc.stderr and "ROADMAP.md queue 1" in proc.stderr
-    assert not (tmp_path / "ck" / "a" / "last").exists()
+                   "datamodule.batch_size=10", "datamodule.n_samples=5600",
+                   "--replicas",
+                   '[{"name": "a", "seed": 0}, {"name": "b", "seed": 1}]',
+                   "--ckpt-dir", str(tmp_path / "ck"), "--max-epochs", "1"],
+                  tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [r["status"] for r in line["replicas"]] == ["active", "active"]
+    for name in ("a", "b"):
+        _, _, spec, _ = restore_checkpoint(tmp_path / "ck" / name, "last")
+        assert spec.num_layers == 1 and spec.hidden_size == 64
 
 
 def test_stacked_entry_point_refuses_what_train_refuses(tmp_path):
@@ -732,11 +762,67 @@ def test_stacked_stack_plain_versions_equal_the_solo_ones(n_rep):
             assert all(torch.equal(a, b[r]) for a, b in zip(solo_part, part))
 
 
-def test_time_blocked_single_layer_has_no_replica_axis():
-    x = torch.zeros(2, 252, 100, 4 * 64)
-    w = torch.zeros(2, 64, 4 * 64)
-    with pytest.raises(GroupingNotStackedError, match="time-blocked"):
-        lk.lstm_recurrence_stacked(x, w, window_rows=100)
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_time_blocked_single_layer_has_no_replica_axis(n_rep):
+    """The replica-axis time-blocked layer on the CPU (its plain forward and
+    backward through autograd, T=252 on 100 rows at H=64, the reference's
+    route): each replica's h and gradients the solo layer's bit for bit,
+    and the stacked plain versions the solo ones replica by replica."""
+    rng = np.random.default_rng(7)
+    n_t, b_, hid = 252, 100, 64
+    assert lk.single_layer_route(n_t, b_, hid, 100) == "pallas-timeblocked"
+    x = _t(rng, n_rep, n_t, b_, 4 * hid).requires_grad_()
+    w = _t(rng, n_rep, hid, 4 * hid, scale=0.1).requires_grad_()
+    h = lk.lstm_recurrence_stacked(x, w, window_rows=100)
+    h.square().sum().backward()
+    chunk, tile = lk.tb_time_chunk(b_, hid), lk._row_tile(b_)
+    hs, cs = lk.lstm_tb_stacked_ref(x.detach(), w.detach(), chunk)
+    dx, dw = lk.lstm_tb_bwd_stacked_ref(2 * hs, x.detach(), hs, cs, w.detach(),
+                                        chunk, tile)
+    for r in range(n_rep):
+        xs = x.detach()[r].clone().requires_grad_()
+        ws = w.detach()[r].clone().requires_grad_()
+        hr = lk.lstm_recurrence(xs, ws, window_rows=100)
+        hr.square().sum().backward()
+        assert torch.equal(hr, h[r]) and torch.equal(hr, hs[r])
+        assert torch.equal(xs.grad, x.grad[r]) and torch.equal(ws.grad, w.grad[r])
+        hs_r, cs_r = lk.lstm_tb_fwd_ref(xs.detach(), ws.detach(), chunk)
+        assert torch.equal(cs_r, cs[r])
+        dx_r, dw_r = lk.lstm_tb_bwd_ref(2 * hs_r, xs.detach(), hs_r, cs_r,
+                                        ws.detach(), chunk, tile)
+        assert torch.equal(dx_r, dx[r]) and torch.equal(dw_r, dw[r])
+
+
+@pytest.mark.parametrize("n_t,rows,hidden", [(252, 100, 64), (252, 40, 64)])
+def test_time_blocked_replica_axis_matches_jax_vmap(n_t, rows, hidden):
+    """R = 2 replicas of lstm_recurrence_stacked at T=252 on the
+    time-blocked route against jax.vmap of the JAX lstm_recurrence in
+    interpret mode (its time-blocked Pallas kernel, batched by vmap), and
+    their gradients against jax.grad through it."""
+    rng = np.random.default_rng(rows)
+    x = rng.normal(size=(2, n_t, rows, 4 * hidden)).astype(np.float32)
+    w = (rng.normal(size=(2, hidden, 4 * hidden)) * 0.1).astype(np.float32)
+    ct = rng.normal(size=(2, n_t, rows, hidden)).astype(np.float32)
+    assert lk.single_layer_route(n_t, rows, hidden) == "pallas-timeblocked"
+
+    def run(a, b):
+        return jax.vmap(lambda xr, wr: jax_lk.lstm_recurrence(
+            xr, wr, impl="interpret"))(a, b)
+
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    want = np.asarray(run(jx, jw))
+    want_dx, want_dw = (np.asarray(g) for g in jax.grad(
+        lambda a, b: jnp.sum(run(a, b) * ct), argnums=(0, 1))(jx, jw))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    h = lk.lstm_recurrence_stacked(tx, tw)
+    (h * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(h.detach().numpy(), want, atol=1e-5, rtol=0)
+    for r in range(2):
+        for got, ref in ((tx.grad[r], want_dx[r]), (tw.grad[r], want_dw[r])):
+            scale = float(np.abs(ref).max())
+            np.testing.assert_allclose(got.numpy(), ref, atol=2e-5 * scale,
+                                       rtol=0)
 
 
 # Groupings of the stacked encoder at the shapes that give them: a single
@@ -768,7 +854,7 @@ def test_stacked_encoder_groupings_are_the_solo_encoders_bitwise(grouping,
 
     stacked = StackedLstmEncoder([encoder(s) for s in SEEDS])
     solos = [encoder(s) for s in SEEDS]
-    assert stacked.check_groups(n_t, rows, True, window_rows) == groups
+    assert stacked.layer_groups(n_t, rows, True, window_rows) == groups
     x = torch.randn(len(SEEDS), rows, n_t, 3,
                     generator=torch.Generator().manual_seed(9))
     rng = np.random.default_rng(11)
@@ -828,7 +914,7 @@ def test_kfactor_stack_replicas_are_their_solo_trainer_runs(tmp_path):
     probe = dm()
     assert probe.n_factors == 3 and probe.n_features == spec.input_size
     stacked = StackedLstmEncoder([spec.build_module(device="cpu")])
-    assert stacked.check_groups(32, 256, True, 256) == [1, 1]
+    assert stacked.layer_groups(32, 256, True, 256) == [1, 1]
     trainer = StackedTrainer(max_epochs=2, gradient_clip_val=CLIP, device="cpu")
     reps = [ReplicaSpec("a", 0, 1e-3), ReplicaSpec("b", 1, 1e-4)]
     result = trainer.fit(spec, dm(), reps)

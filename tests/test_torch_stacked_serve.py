@@ -273,7 +273,7 @@ def test_lanes_of_other_groupings_match_the_jax_engine_and_the_solo_engine(
     engine = StackedPredictEngine(_spec(num_layers), states, n_stocks=K,
                                   lookback=T, n_features=F, buckets=BUCKETS,
                                   device="cpu")
-    assert engine._module.check_groups(T, K, False, K) == [num_layers]
+    assert engine._module.layer_groups(T, K, False, K) == [num_layers]
     solos = [PredictEngine(_spec(num_layers), s, n_stocks=K, lookback=T,
                            n_features=F, buckets=BUCKETS, device="cpu")
              for s in states]
