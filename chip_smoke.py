@@ -101,6 +101,20 @@ at R = 4 as a child; ``stacked_serve`` serves its four ``best``s as the
 lanes of one ``StackedPredictEngine`` (each lane bit for bit a solo
 engine, ``try_swap_lane`` under load), then lanes of one layer, of
 model=medium and of model=small at a one-year lookback.
+Data-parallel training runs at world size 1 on NCCL (one card): the
+``data_parallel`` lines. ``world1`` is the driver's train command with
+``trainer.strategy=tpu_xla trainer.n_devices=1`` added (beside the
+driver's test and warm start), whose rows and ``best``/``last`` weights
+must be the driver child's bit for bit, with one capture, a ``grad_sync``
+event over the flat gradient's bytes, and one gradient all-reduce a step
+counted through the graph's replays (NCCL does an in-place SUM at one
+rank with no work on the card). ``asset_world1`` is the universe
+train command with ``trainer.shard_axis=asset`` at world size 1 (beside
+the universe test child), whose first row must be the universe child's bit
+for bit. ``sweeps`` (beside ``resilience``): ``-m seed=0,1`` through
+``launcher=joblib launcher.n_jobs=2`` (two children on the card at once)
+equal to the sequential launcher's jobs, and ``trainer.n_devices=2`` on
+the one card refused, naming the key.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -1996,8 +2010,9 @@ def phase_train_large_breakdown(dm) -> dict:
 _CLI_CHILD = (
     "import atexit, json, runpy\n"
     "from masters_thesis_tpu_torch.ops import lstm_kernel as lk\n"
-    "atexit.register(lambda: print(json.dumps({'launches': dict(lk.LAUNCHES)}),"
-    " flush=True))\n"
+    "from masters_thesis_tpu_torch.parallel import mesh\n"
+    "atexit.register(lambda: print(json.dumps({'launches': dict(lk.LAUNCHES),"
+    " 'collectives': dict(mesh.COLLECTIVES)}), flush=True))\n"
     "runpy.run_module('masters_thesis_tpu_torch', run_name='__main__',"
     " alter_sys=True)\n"
 )
@@ -2148,12 +2163,16 @@ def phase_driver(train: dict) -> dict:
         run_dir = save_dir / "FinancialLstm" / "synthetic" / "mse_small_lr0.0001_fast"
         ckpts = run_dir / "checkpoints"
         # The test and the warm start side by side (both only read the
-        # run's checkpoints).
-        test_run, warm_run = _wait_all([
-            _Child("test", *common, f"checkpoint={ckpts}", side_by_side=2),
+        # run's checkpoints), and the data-parallel run at world size 1.
+        dp_child = _start_data_parallel_world1(common)
+        test_run, warm_run, dp_run = _wait_all([
+            _Child("test", *common, f"checkpoint={ckpts}", side_by_side=3),
             _Child("train", *common, f"checkpoint={ckpts / 'best'}",
                    "checkpoint_mode=params", "trainer.max_epochs=1",
-                   "logger.version=warm_start", side_by_side=2)])
+                   "logger.version=warm_start", side_by_side=3),
+            dp_child])
+        phase_data_parallel_world1(dp_run, dp_child, run_dir, run_launches,
+                                   train["steps"])
         test_lines, test_launches, test_s = _cli_result(test_run)
         warm_lines, warm_launches, warm_s = _cli_result(warm_run)
         warm_dir = run_dir.parent / "warm_start"
@@ -2252,6 +2271,225 @@ def phase_driver(train: dict) -> dict:
                    if counts["lstm_pair_fwd"] == 0})
     if missed:
         raise AssertionError(f"driver: kernels off the path: {missed}")
+    return out
+
+
+# --------------------------------------- data-parallel training (one card)
+
+# The one card runs the data-parallel path at world size 1 on NCCL: the
+# driver's own train command with the strategy and the device count added,
+# whose rows and weights must be the driver child's bit for bit.
+DP_WORLD1 = ("trainer.strategy=tpu_xla", "+trainer.n_devices=1")
+
+
+def _tensors_equal(a: Path, b: Path) -> bool:
+    """The state dicts of two ``state.pt`` files, bit for bit."""
+    sa = torch.load(a, map_location="cpu", weights_only=True)["state_dict"]
+    sb = torch.load(b, map_location="cpu", weights_only=True)["state_dict"]
+    return sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def _history_rows(log_dir: Path) -> list:
+    return [r for r in read_records(log_dir) if "lr-Adam" in r]
+
+
+def _start_data_parallel_world1(common: list) -> "_Child":
+    """The driver's train command at world size 1 on NCCL, into its own save
+    dir; started beside the driver's test and warm start."""
+    save_dir = Path(tempfile.mkdtemp(
+        prefix="dp_", dir=Path(__file__).resolve().parent / "data" / "chip_smoke"))
+    overrides = [o for o in common if not o.startswith("logger.save_dir=")]
+    child = _Child("train", *overrides, f"logger.save_dir={save_dir}",
+                   f"trainer.max_epochs={TRAIN_EPOCHS}", *DP_WORLD1,
+                   side_by_side=3)
+    child.save_dir = save_dir
+    return child
+
+
+def phase_data_parallel_world1(child_result, child: "_Child", run_dir: Path,
+                               run_launches: dict, steps: int) -> dict:
+    """The world-1 NCCL child against the driver's train child (``run_dir``):
+    every history row and the ``best`` and ``last`` weights bit for bit;
+    one capture of the train program; a ``grad_sync`` event of one
+    collective over the flat gradient's bytes; one gradient all-reduce a
+    step, counted through the graph's replays, and one all-reduce of the
+    metric sums for each epoch's train and val splits and for the test
+    split."""
+    try:
+        lines, launches, seconds = _cli_result(child_result)
+        collectives = json.loads(
+            child_result[0].stdout.splitlines()[-1])["collectives"]
+        dp_dir = child.save_dir / "FinancialLstm" / "synthetic" / run_dir.name
+        tel_dir = dp_dir / "telemetry"
+        events = read_events(tel_dir / "events.jsonl")
+        started = next(e for e in events if e["kind"] == "run_started")
+        sync = next((e for e in events if e["kind"] == "grad_sync"), {})
+        epoch1 = next(e for e in events
+                      if e["kind"] == "epoch" and e.get("epoch") == 1)
+        sum_code, sum_text, report = _summarize_cli(tel_dir)
+        rows_equal = _history_rows(dp_dir) == _history_rows(run_dir)
+        weights_equal = {tag: _tensors_equal(
+            dp_dir / "checkpoints" / tag / "state.pt",
+            run_dir / "checkpoints" / tag / "state.pt")
+            for tag in ("best", "last")}
+        n_params = sum(p.numel() for p in _train_spec().build_module(
+            device="cpu").parameters())
+    finally:
+        shutil.rmtree(child.save_dir, ignore_errors=True)
+    steps_per_epoch = epoch1["steps"]
+    device_s = epoch1.get("device_s")
+    out = {
+        "phase": "data_parallel", "part": "world1", "seconds": seconds,
+        "backend": "nccl" if DEVICE == "cuda" else "gloo",
+        "world": started.get("n_devices"),
+        "strategy": started.get("strategy"),
+        "distributed": started.get("distributed"),
+        "rows_bit_equal_to_driver": rows_equal,
+        "weights_bit_equal_to_driver": weights_equal,
+        "grad_sync": {k: sync.get(k) for k in ("collectives_per_step",
+                                              "grad_reduce_bytes",
+                                              "flat_buffers")},
+        "flat_gradient_bytes": 4 * n_params,
+        "compiles": report.get("compiles"),
+        "summarize_exit": sum_code,
+        "steps_per_epoch": steps_per_epoch,
+        "collectives": collectives,
+        "epoch1_device_ms_per_step": (1e3 * device_s / steps_per_epoch
+                                      if device_s else None),
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    emit(out)
+    if not (rows_equal and all(weights_equal.values())):
+        raise AssertionError(f"data_parallel: the world-1 NCCL run is not the "
+                             f"driver's solo run: {out}")
+    if (started.get("strategy") != "tpu_xla" or started.get("n_devices") != 1
+            or sync.get("collectives_per_step") != 1
+            or sync.get("grad_reduce_bytes") != 4 * n_params
+            or sum_code != 0
+            or (report.get("compiles") or {}).get("train_epoch") != 1):
+        raise AssertionError(f"data_parallel: telemetry: {out} {sum_text}")
+    if (steps_per_epoch != steps // TRAIN_EPOCHS
+            or collectives["all_reduce_grad"] != steps
+            or collectives["all_reduce_sums"] != 2 * TRAIN_EPOCHS + 1):
+        raise AssertionError(f"data_parallel: not one gradient all-reduce a "
+                             f"graphed step: {collectives}")
+    path = ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad",
+            "lstm_pair_fwd")
+    missed = {k: (launches[k], run_launches[k]) for k in path
+              if launches[k] != run_launches[k]}
+    if missed:
+        raise AssertionError(f"data_parallel: kernels off the path: {missed}")
+    return out
+
+
+def phase_data_parallel_asset(child_result, child: "_Child",
+                              records: list) -> dict:
+    """The universe train child's command with asset sharding at world size
+    1 on NCCL and one epoch: its first history row bit for bit the
+    universe child's."""
+    try:
+        lines, launches, seconds = _cli_result(child_result)
+        run_dir = (child.save_dir / "FinancialLstm" / "universe"
+                   / "combined_kfactor_lr0.0001_fast")
+        rows = _history_rows(run_dir)
+        events = read_events(run_dir / "telemetry" / "events.jsonl")
+        started = next(e for e in events if e["kind"] == "run_started")
+        sync = next((e for e in events if e["kind"] == "grad_sync"), {})
+    finally:
+        shutil.rmtree(child.save_dir, ignore_errors=True)
+    out = {
+        "phase": "data_parallel", "part": "asset_world1", "seconds": seconds,
+        "first_row": rows[0] if rows else None,
+        "first_row_bit_equal_to_universe": bool(rows) and rows[0] == records[0],
+        "strategy": started.get("strategy"), "world": started.get("n_devices"),
+        "collectives_per_step": sync.get("collectives_per_step"),
+        "launches": {k: v for k, v in launches.items() if v},
+    }
+    emit(out)
+    if not (out["first_row_bit_equal_to_universe"] and len(rows) == 1
+            and out["collectives_per_step"] == 1
+            and out["strategy"] == "tpu_xla"):
+        raise AssertionError(f"data_parallel: asset sharding at world size 1 "
+                             f"is not the universe run: {out} {records[0]}")
+    if not launches["lstm_fwd"] or not launches["lstm_bwd"]:
+        raise AssertionError(f"data_parallel: asset run off the path: {out}")
+    return out
+
+
+def _start_data_parallel_sweeps() -> dict:
+    """Beside the resilience phase, on its data: ``-m seed=0,1`` through
+    ``launcher=joblib launcher.n_jobs=2`` (two child processes on the card
+    at once) and through the sequential launcher, one epoch each; and
+    ``trainer.n_devices=2`` on the one card, which must be refused."""
+    data = _resilience_data()
+    root = Path(tempfile.mkdtemp(
+        prefix="dp_sweeps_",
+        dir=Path(__file__).resolve().parent / "data" / "chip_smoke"))
+    common = [f"datamodule.data_dir={data}",
+              f"datamodule.n_samples={RESILIENCE_SAMPLES}",
+              "trainer.max_epochs=1"]
+    sweep = ["-m", "seed=0,1"]
+    return {
+        "root": root,
+        "pool": _Child("train", *common, *sweep, "launcher=joblib",
+                       "launcher.n_jobs=2", f"launcher.sweep_dir={root / 'pool'}",
+                       side_by_side=4),
+        "sequential": _Child("train", *common, *sweep,
+                             f"launcher.sweep_dir={root / 'sequential'}",
+                             side_by_side=4),
+        "refused": _Child("train", *common, "+trainer.n_devices=2",
+                          f"logger.save_dir={root / 'refused'}",
+                          side_by_side=4),
+    }
+
+
+def phase_data_parallel_sweeps(children: dict) -> dict:
+    """The two sweeps: each job's rows under ``joblib`` bit for bit its
+    sequential run's, the two ``joblib`` jobs' runs overlapping in time;
+    the two-card request on one card exits non-zero naming the key."""
+    root = children["root"]
+    try:
+        pool_lines, _, pool_s = _cli_result(children["pool"].wait())
+        _, _, seq_s = _cli_result(children["sequential"].wait())
+        refused, refused_s = children["refused"].wait()
+        run = ("logs", *RESILIENCE_RUN, "mse_small_lr0.0001_fast")
+        jobs, spans = {}, []
+        for job in ("0", "1"):
+            pool_dir = root.joinpath("pool", job, *run)
+            rows = _history_rows(pool_dir)
+            jobs[job] = {"rows": len(rows),
+                         "bit_equal_to_sequential":
+                         rows == _history_rows(root.joinpath("sequential", job,
+                                                             *run))}
+            events = read_events(pool_dir / "telemetry" / "events.jsonl")
+            spans.append((next(e["ts"] for e in events
+                               if e["kind"] == "run_started"),
+                          next(e["ts"] for e in events
+                               if e["kind"] == "run_finished")))
+        refused_written = (root / "refused").exists()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    overlap = min(end for _, end in spans) - max(start for start, _ in spans)
+    last_err = refused.stderr.strip().splitlines()[-1:] if refused.stderr else []
+    out = {
+        "phase": "data_parallel", "part": "sweeps",
+        "seconds": {"joblib": pool_s, "sequential": seq_s,
+                    "refused": refused_s},
+        "joblib_jobs": jobs, "joblib_overlap_s": overlap,
+        "joblib_line": next((ln for ln in pool_lines
+                             if ln.startswith("multirun: ")), None),
+        "two_devices_on_one_card": {"exit": refused.returncode,
+                                    "stderr": last_err,
+                                    "wrote": refused_written},
+    }
+    emit(out)
+    if not all(j["rows"] == 1 and j["bit_equal_to_sequential"]
+               for j in jobs.values()) or not overlap > 0:
+        raise AssertionError(f"data_parallel: joblib sweep: {out}")
+    if (refused.returncode == 0 or "trainer.n_devices=2" not in refused.stderr
+            or refused_written):
+        raise AssertionError(f"data_parallel: two devices on one card were "
+                             f"not refused: {out}")
     return out
 
 
@@ -3831,9 +4069,15 @@ def phase_universe_train(dm) -> dict:
         # with half the host's cores: busy-waiting thread pools on every
         # core slow both many times over.
         test_child = _Child("test", *common, f"checkpoint={ckpts}",
-                            side_by_side=2)
+                            side_by_side=3)
+        # Beside them, the same command with asset sharding at world size 1.
+        asset_child = _Child(
+            "train", *(o for o in common if not o.startswith("logger.")),
+            f"logger.save_dir={save_dir / 'asset'}", "trainer.max_epochs=1",
+            *DP_WORLD1, "trainer.shard_axis=asset", side_by_side=3)
+        asset_child.save_dir = save_dir / "asset"
         threads = torch.get_num_threads()
-        torch.set_num_threads(max(1, threads // 2))
+        torch.set_num_threads(max(1, threads // 3))
         try:
             t0 = time.perf_counter()
             parity = _universe_parity(dm)
@@ -3841,6 +4085,7 @@ def phase_universe_train(dm) -> dict:
         finally:
             torch.set_num_threads(threads)
             test_lines, test_launches, test_s = _cli_result(test_child.wait())
+            asset_run = asset_child.wait()
         kept = root / "universe_best"
         shutil.rmtree(kept, ignore_errors=True)
         kept.mkdir(parents=True)
@@ -3848,6 +4093,7 @@ def phase_universe_train(dm) -> dict:
         shutil.copy2(ckpts / "best.json", kept / "best.json")
         records = [r for r in read_records(ckpts.parent) if "lr-Adam" in r]
         quality = _quality_of_run(ckpts, ckpts.parent / "telemetry")
+        phase_data_parallel_asset(asset_run, asset_child, records)
     finally:
         shutil.rmtree(save_dir, ignore_errors=True)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -5315,15 +5561,18 @@ def main() -> int:
     preflight = _start_preflight()
     stacked_child = _start_stacked_driver()
     profile_child = _start_telemetry_profile()
+    sweeps = _start_data_parallel_sweeps()
     try:
         phase_resilience(profile_child)
         phase_serve_preflight(preflight)
         stacked_driver = phase_stacked_driver(stacked_child)
+        phase_data_parallel_sweeps(sweeps)
     finally:
         if preflight.poll() is None:
             preflight.kill()
             preflight.communicate()
-        for child in (stacked_child, profile_child):
+        for child in (stacked_child, profile_child, sweeps["pool"],
+                      sweeps["sequential"], sweeps["refused"]):
             if child.proc.poll() is None:
                 child.proc.kill()
                 child.proc.wait()

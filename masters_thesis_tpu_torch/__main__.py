@@ -3,7 +3,10 @@
 ``train`` is the port's ``train.py`` (``cli/train.py``), ``test`` its
 ``test.py`` (``cli/test.py``), ``stacked`` its ``sweeps/stacked_cell.py``
 (``cli/stacked.py``: R replicas in one program). Each runs on CUDA unless
-given ``--device cpu``; a failure exits non-zero.
+given ``--device cpu``; a failure exits non-zero. When
+``trainer.n_devices`` asks for more than one rank, each command starts
+itself again as that many ranks (``parallel/launch.py``) and exits as they
+do: non-zero, every rank stopped, when one of them fails.
 """
 
 from __future__ import annotations
@@ -26,8 +29,7 @@ def main(argv: list[str] | None = None) -> int:
     if argv[0] == "train":
         from masters_thesis_tpu_torch.cli.train import main as train_main
 
-        train_main(argv[1:])
-        return 0
+        return train_main(argv[1:])
     from masters_thesis_tpu_torch.cli.test import main as test_main
 
     return test_main(argv[1:])

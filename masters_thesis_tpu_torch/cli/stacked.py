@@ -23,7 +23,10 @@ off) writes the stacked trainer's events there, with the flight recorder
 (``trainer.hang_timeout_s``), and the run ends with the ``telemetry:
 ... summarize <dir>`` line; the profiler window and the cost profile are
 ``train``'s only, and a set ``trainer.profile``, ``profile_steps`` or
-``cost_profile`` is named in a printed note.
+``cost_profile`` is named in a printed note. ``trainer.strategy``,
+``trainer.n_devices`` and ``trainer.distributed`` act as in ``train``: the
+replicas train data-parallel over that many ranks (window sharding),
+which this command starts itself; rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -54,9 +57,13 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_intermixed_args(argv)
 
     from masters_thesis_tpu_torch import resolve_device
+    from masters_thesis_tpu_torch.parallel.launch import as_ranks
+    from masters_thesis_tpu_torch.parallel.mesh import (
+        data_mesh,
+        distributed_initialize,
+    )
     from masters_thesis_tpu_torch.train.stacked import ReplicaSpec, StackedTrainer
 
-    device = resolve_device(args.device)
     cfg = cli_train.compose_config(args.overrides)
     cli_train.check_supported(cfg)
     t = cfg.trainer
@@ -64,16 +71,33 @@ def main(argv: list[str] | None = None) -> int:
         raise ValueError(f"trainer.epoch_mode={t.epoch_mode}: stacked training "
                          "runs scan epochs only; masters_thesis_tpu_torch "
                          "cannot honour it yet")
-    cli_train.report_ignored(cfg)
+    if t.get("shard_axis", "window") != "window":
+        raise ValueError(f"trainer.shard_axis={t.shard_axis}: stacked "
+                         "training shards windows only; "
+                         "masters_thesis_tpu_torch cannot honour it yet")
+    world = cli_train.launches_ranks(cfg, args.device)
+    if world:
+        argv = [*args.overrides, "--replicas", args.replicas,
+                "--ckpt-dir", str(args.ckpt_dir)]
+        if args.max_epochs is not None:
+            argv += ["--max-epochs", str(args.max_epochs)]
+        return as_ranks("stacked", argv, world, args.device)
+    device = resolve_device(args.device)
+    if t.get("distributed", False):
+        distributed_initialize(required=True, device=device)
+    mesh = data_mesh(t.get("strategy", "auto"), t.get("n_devices", None),
+                     device)
+    if mesh.is_main:
+        cli_train.report_ignored(cfg)
     if not cli_train.bootstrap(cfg):
         return 1
     dm = cli_train.build_datamodule(cfg)
     spec = cli_train.build_spec(cfg)
     for key in ("profile", "profile_steps", "cost_profile"):
-        if t.get(key):
+        if t.get(key) and mesh.is_main:
             print(f"note: trainer.{key}={t[key]} applies to the train "
                   "command only; ignored here", flush=True)
-    telemetry = cli_train.make_telemetry(cfg, args.ckpt_dir)
+    telemetry = cli_train.make_telemetry(cfg, args.ckpt_dir, mesh.rank)
     replicas = [
         ReplicaSpec(name=str(r["name"]), seed=int(r["seed"]),
                     learning_rate=float(r.get("lr") or spec.learning_rate))
@@ -90,10 +114,16 @@ def main(argv: list[str] | None = None) -> int:
         enable_progress_bar=t.get("enable_progress_bar", True),
         telemetry=telemetry,
         hang_timeout_s=t.get("hang_timeout_s", None),
+        strategy=t.get("strategy", "auto"),
+        n_devices=t.get("n_devices", None),
     )
     result = trainer.fit(spec, dm, replicas)
+    mesh.shutdown()
     if telemetry is not None:
-        cli_train.print_summarize_line(telemetry)
+        if mesh.is_main:
+            cli_train.print_summarize_line(telemetry)
+        else:
+            telemetry.close()
     rows = [
         {
             "name": r.name,
@@ -105,6 +135,8 @@ def main(argv: list[str] | None = None) -> int:
         }
         for r in result.replicas
     ]
-    print(json.dumps({"replicas": rows, "steps_per_sec": result.steps_per_sec,
-                      "epochs": result.epochs}), flush=True)
+    if mesh.is_main:
+        print(json.dumps({"replicas": rows,
+                          "steps_per_sec": result.steps_per_sec,
+                          "epochs": result.epochs}), flush=True)
     return 0 if any(r.status != "masked" for r in result.replicas) else 1

@@ -25,6 +25,10 @@ factor as the market and the last as the true beta. The JAX ``test.py``
 prints that table at K > 1 all the same.
 
 It runs on CUDA unless given ``--device cpu``, and raises without a card.
+``trainer.strategy``, ``trainer.n_devices`` and ``trainer.distributed`` act
+as in ``train``: over N ranks (started by this command) each evaluates its
+slice of the test split and the metric sums are all-reduced; rank 0 alone
+computes the ΔL table, prints and writes.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from masters_thesis_tpu_torch.cli.train import (
     check_data_supported,
     compose_config,
     data_factors,
+    launches_ranks,
 )
 from masters_thesis_tpu_torch.config import Config
 
@@ -87,10 +92,20 @@ def main(argv: list[str] | None = None) -> int:
         print("No model checkpoint found, exiting...", file=sys.stderr)
         return 1
 
+    world = launches_ranks(cfg, args.device)
+    if world:
+        from masters_thesis_tpu_torch.parallel.launch import as_ranks
+
+        return as_ranks("test", args.overrides, world, args.device)
+
     from masters_thesis_tpu_torch import resolve_device
     from masters_thesis_tpu_torch.evaluation import (
         collect_test_results,
         delta_losses,
+    )
+    from masters_thesis_tpu_torch.parallel.mesh import (
+        data_mesh,
+        distributed_initialize,
     )
     from masters_thesis_tpu_torch.train.checkpoint import (
         apply_datamodule_sidecar,
@@ -101,6 +116,11 @@ def main(argv: list[str] | None = None) -> int:
 
     device = resolve_device(args.device)
     check_data_supported(cfg)
+    t = cfg.trainer
+    if t.get("distributed", False):
+        distributed_initialize(required=True, device=device)
+    mesh = data_mesh(t.get("strategy", "auto"), t.get("n_devices", None),
+                     device)
     state, _, spec, meta = restore_checkpoint(Path(cfg.checkpoint))
     # Evaluate on the SAME windowing the checkpoint was trained with.
     apply_datamodule_sidecar(cfg, meta)
@@ -114,13 +134,20 @@ def main(argv: list[str] | None = None) -> int:
     dm = build_datamodule(cfg)
     dm.prepare_data()
     save_dir, name, version = derive_logger_dirs(Path(cfg.checkpoint), cfg)
+    tester = Trainer(max_epochs=0, device=device, strategy=mesh.strategy,
+                     n_devices=mesh.world)
     if spec.n_factors > 1:
-        return _test_kfactor(cfg, spec, state, dm, device,
+        code = _test_kfactor(cfg, spec, state, dm, tester,
                              RunLogger(save_dir, name, version))
-
-    results = collect_test_results(spec, state, dm, device=device)
-    deltas = delta_losses(spec, state, dm, estimates=results, device=device)
-    metrics = Trainer(max_epochs=0, device=device).test(spec, state, dm)
+        mesh.shutdown()
+        return code
+    metrics = tester.test(spec, state, dm)
+    mesh.shutdown()
+    if not mesh.is_main:
+        return 0
+    results = collect_test_results(spec, state, dm, device=mesh.device)
+    deltas = delta_losses(spec, state, dm, estimates=results,
+                          device=mesh.device)
 
     logger = RunLogger(save_dir, name, version)
     # Thesis results-table metrics: losses above the OLS-on-target
@@ -152,17 +179,20 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _test_kfactor(cfg: Config, spec, state, dm, device, logger) -> int:
+def _test_kfactor(cfg: Config, spec, state, dm, tester, logger) -> int:
     """The test-split metrics of a K-factor checkpoint, without the ΔL
-    table: ``results.json`` holds ``Trainer.test``'s metrics only."""
-    from masters_thesis_tpu_torch.train.trainer import Trainer
-
-    print(f"note: datamodule.n_factors={spec.n_factors}: the dL table and "
-          "results.npz compare with the scalar market model (one market "
-          "channel, one loading); masters_thesis_tpu_torch writes the test "
-          "metrics only", flush=True)
-    metrics = Trainer(max_epochs=0, device=device, logger=logger).test(
-        spec, state, dm)
+    table: ``results.json`` holds ``Trainer.test``'s metrics only (rank 0
+    writes)."""
+    main = tester.mesh.is_main
+    if main:
+        print(f"note: datamodule.n_factors={spec.n_factors}: the dL table "
+              "and results.npz compare with the scalar market model (one "
+              "market channel, one loading); masters_thesis_tpu_torch writes "
+              "the test metrics only", flush=True)
+    tester.logger = logger if main else None
+    metrics = tester.test(spec, state, dm)
+    if not main:
+        return 0
     print("test: " + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()),
           flush=True)
     logger.close()

@@ -19,8 +19,26 @@ tests, logs the hparams with the test metrics, prints ``train.py``'s
 (weights and FlatAdam state; the checkpoint's spec wins) or ``params``
 (weights only, a fresh optimizer, the config's spec: the warm-up protocol)
 starts from a checkpoint; ``trainer.resume`` continues from ``last``. ``-m``
-runs the sweep's jobs one after another in this process, each in its
-numbered job dir (Hydra's multirun layout).
+runs the sweep's jobs, each in its numbered job dir (Hydra's multirun
+layout): one after another in this process (``launcher=sequential``), or
+one child process a job, at most ``launcher.n_jobs`` at once
+(``launcher=joblib`` with ``n_jobs`` >= 2; joblib runs ``n_jobs=1`` in
+process). ``launcher.num_hosts`` / ``MT_NUM_HOSTS`` and
+``launcher.host_index`` / ``MT_HOST_INDEX`` give this host every
+``num_hosts``-th job (``partition_jobs``), under its global job index.
+
+Data-parallel training (``parallel/``): ``trainer.strategy=tpu_xla``
+(``trainer=tpu_xla``) with ``trainer.n_devices=N`` trains as N ranks, one
+process each, which the entry point starts itself (``parallel/launch.py``):
+on the card rank r owns ``cuda:r`` over NCCL, and asking for more cards
+than are visible raises, naming ``trainer.n_devices``; with ``--device
+cpu`` the ranks are N gloo processes. ``trainer.shard_axis=asset`` shards
+the asset rows instead of the windows. ``trainer.distributed=true`` makes
+this process one rank of an outside launch (the coordinator and the
+process index and count from the environment ``parallel/mesh.py`` reads);
+initialisation is then required. Rank 0 prints, logs and writes the
+checkpoints; each rank's telemetry goes to its own stream (rank r > 0
+under ``<telemetry>/rank<r>``).
 
 It runs on CUDA unless given ``--device cpu``, and raises without a card. A
 config key the port cannot honour raises and names the key
@@ -41,6 +59,7 @@ import argparse
 import datetime
 import os
 import sys
+import time
 from pathlib import Path
 
 from masters_thesis_tpu_torch.config import (
@@ -112,26 +131,35 @@ def data_factors(cfg: Config) -> int:
 def check_supported(cfg: Config) -> None:
     """Raise, naming the key, for every config value the port cannot
     honour; nothing is dropped silently."""
+    from masters_thesis_tpu_torch.parallel.mesh import SHARD_AXES, STRATEGIES
+
     check_data_supported(cfg)
     t = cfg.trainer
     if t.get("precision", "32-true") != "32-true":
         _refuse("trainer.precision", t.precision, "the port trains in f32 "
                 "only (32-true)")
-    if (t.get("n_devices") or 1) > 1:
-        _refuse("trainer.n_devices", t.n_devices, "the port trains on one "
-                "device")
-    if t.get("strategy", "auto") not in ("auto", "single_device"):
-        _refuse("trainer.strategy", t.strategy, "the port trains on one "
-                "device (auto or single_device)")
-    if t.get("distributed", False):
-        _refuse("trainer.distributed", t.distributed, "multi-host training "
-                "is not ported")
+    if t.get("strategy", "auto") not in STRATEGIES:
+        _refuse("trainer.strategy", t.strategy, f"the strategies are "
+                f"{', '.join(STRATEGIES)}")
+    n_devices = t.get("n_devices", None)
+    if n_devices is not None and (not isinstance(n_devices, int)
+                                  or isinstance(n_devices, bool)
+                                  or n_devices < 1):
+        _refuse("trainer.n_devices", n_devices, "it counts ranks (an "
+                "integer >= 1, or null for every visible card)")
+    if t.get("distributed", False) not in (True, False):
+        _refuse("trainer.distributed", t.distributed, "it is true (join an "
+                "outside launch) or false")
     if t.get("epoch_mode", "scan") not in ("scan", "stream"):
         _refuse("trainer.epoch_mode", t.epoch_mode, "the epochs are scan and "
                 "stream")
-    if t.get("shard_axis", "window") != "window":
-        _refuse("trainer.shard_axis", t.shard_axis, "asset sharding is not "
-                "ported")
+    if t.get("shard_axis", "window") not in SHARD_AXES:
+        _refuse("trainer.shard_axis", t.shard_axis, "the shard axes are "
+                "window and asset")
+    if (t.get("shard_axis", "window") == "asset"
+            and t.get("epoch_mode", "scan") != "scan"):
+        _refuse("trainer.shard_axis", t.shard_axis, "asset sharding runs "
+                "scan epochs only (trainer.epoch_mode=scan)")
     m = cfg.model
     if m.get("kernel_impl", "auto") != "auto":
         _refuse("model.kernel_impl", m.kernel_impl, "the port picks its "
@@ -148,20 +176,58 @@ def check_supported(cfg: Config) -> None:
 
 
 def check_launcher(cfg: Config) -> None:
-    """Raise for a multirun launcher setting other than one sequential
-    process."""
+    """Raise for a multirun launcher the port does not have (sequential
+    and joblib are) or a count below one."""
     launcher = cfg.launcher
-    if launcher.get("name", "sequential") != "sequential":
-        _refuse("launcher", launcher.name, "only the sequential launcher is "
-                "ported")
-    if int(launcher.get("n_jobs", 1)) > 1:
-        _refuse("launcher.n_jobs", launcher.n_jobs, "jobs run one after "
-                "another in one process")
+    if launcher.get("name", "sequential") not in ("sequential", "joblib"):
+        _refuse("launcher", launcher.name, "the launchers are sequential and "
+                "joblib")
+    if int(launcher.get("n_jobs", 1)) < 1:
+        _refuse("launcher.n_jobs", launcher.n_jobs, "a sweep runs at least "
+                "one job at a time")
     num_hosts = int(os.environ.get("MT_NUM_HOSTS",
                                    launcher.get("num_hosts", 1)))
-    if num_hosts > 1:
-        _refuse("launcher.num_hosts", num_hosts, "multi-host sweeps are not "
-                "ported")
+    if num_hosts < 1:
+        _refuse("launcher.num_hosts", num_hosts, "a sweep runs on at least "
+                "one host")
+    host_index = int(os.environ.get("MT_HOST_INDEX",
+                                    launcher.get("host_index", 0)))
+    if not 0 <= host_index < num_hosts:
+        _refuse("launcher.host_index", host_index, f"the hosts are 0 .. "
+                f"{num_hosts - 1}")
+
+
+def partition_jobs(jobs: list, host_index: int, num_hosts: int) -> list:
+    """Round-robin shard of a sweep's jobs for multi-host dispatch: host
+    ``host_index`` of ``num_hosts`` runs every ``num_hosts``-th job,
+    starting at its own index (``train.py``'s rule)."""
+    if not 0 <= host_index < num_hosts:
+        raise ValueError(
+            f"host_index {host_index} out of range for {num_hosts} hosts")
+    return jobs[host_index::num_hosts]
+
+
+def run_world(cfg: Config, device) -> int:
+    """The number of ranks ``cfg`` trains as on ``device`` (``cuda`` when
+    None): raises, naming ``trainer.n_devices``, for more cards than are
+    visible."""
+    from masters_thesis_tpu_torch.parallel.mesh import resolve_world
+
+    t = cfg.trainer
+    return resolve_world(t.get("strategy", "auto"), t.get("n_devices", None),
+                         "cuda" if device is None else device)[1]
+
+
+def launches_ranks(cfg: Config, device) -> int:
+    """The world this process must start as ranks (``parallel/launch.py``),
+    or 0 when it runs the job itself: a process that is already a rank
+    (or joins an outside launch) and a world of one run in place."""
+    from masters_thesis_tpu_torch.parallel.mesh import launched_rank
+
+    if launched_rank() or cfg.trainer.get("distributed", False):
+        return 0
+    world = run_world(cfg, device)
+    return world if world > 1 else 0
 
 
 def report_ignored(cfg: Config) -> None:
@@ -174,17 +240,18 @@ def report_ignored(cfg: Config) -> None:
                   f"({queue})", flush=True)
 
 
-def make_telemetry(cfg: Config, log_dir: Path):
+def make_telemetry(cfg: Config, log_dir: Path, rank: int = 0):
     """The run's ``TelemetryRun`` from ``trainer.telemetry``: ``auto`` puts
     it under ``<log_dir>/telemetry``, a path pins it there, null or false
-    turns it off (None)."""
+    turns it off (None). Rank r > 0 of a launch writes its own stream, in
+    ``rank<r>`` under that directory."""
     from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
 
     tel_cfg = cfg.trainer.get("telemetry", None)
     if not tel_cfg:
         return None
-    return TelemetryRun(log_dir / "telemetry" if tel_cfg == "auto"
-                        else Path(tel_cfg))
+    run_dir = log_dir / "telemetry" if tel_cfg == "auto" else Path(tel_cfg)
+    return TelemetryRun(run_dir / f"rank{rank}" if rank else run_dir)
 
 
 def observation_kwargs(cfg: Config) -> dict:
@@ -310,17 +377,28 @@ def run(cfg: Config, device=None) -> float:
     from masters_thesis_tpu_torch.train.logging import RunLogger
     from masters_thesis_tpu_torch.train.trainer import Trainer
 
+    from masters_thesis_tpu_torch.parallel.mesh import (
+        data_mesh,
+        distributed_initialize,
+    )
+
     device = resolve_device(device)
     check_supported(cfg)
-    report_ignored(cfg)
+    t = cfg.trainer
+    if t.get("distributed", False):
+        # One rank of an outside launch: its coordinator must answer.
+        distributed_initialize(required=True, device=device)
+    mesh = data_mesh(t.get("strategy", "auto"), t.get("n_devices", None),
+                     device)
+    if mesh.is_main:
+        report_ignored(cfg)
     if not bootstrap(cfg):
         return float("inf")
     dm = build_datamodule(cfg)
     spec = build_spec(cfg)
 
     logger = RunLogger(cfg.logger.save_dir, cfg.logger.name, cfg.logger.version)
-    telemetry = make_telemetry(cfg, logger.log_dir)
-    t = cfg.trainer
+    telemetry = make_telemetry(cfg, logger.log_dir, mesh.rank)
     resume = t.get("resume", False)
     if isinstance(resume, str):
         # 'auto' (the supervised-run setting) and true both mean "continue
@@ -343,6 +421,9 @@ def run(cfg: Config, device=None) -> float:
         epoch_mode=t.get("epoch_mode", "scan"),
         name=t.get("name", "fast"),
         telemetry=telemetry,
+        strategy=t.get("strategy", "auto"),
+        n_devices=t.get("n_devices", None),
+        shard_axis=t.get("shard_axis", "window"),
         **observation_kwargs(cfg),
     )
     init_state = None
@@ -351,24 +432,30 @@ def run(cfg: Config, device=None) -> float:
 
     result = trainer.fit(spec, dm, init_state=init_state)
     test_metrics = trainer.test(spec, result.state, dm)
-    logger.log_hparams(
-        to_flat_dict(cfg),
-        {
-            "test/mae": test_metrics.get("mae", float("nan")),
-            "test/nll": test_metrics.get("nll", float("nan")),
-            "test/best_val_loss": result.best_val_loss,
-        },
-    )
+    if mesh.is_main:
+        logger.log_hparams(
+            to_flat_dict(cfg),
+            {
+                "test/mae": test_metrics.get("mae", float("nan")),
+                "test/nll": test_metrics.get("nll", float("nan")),
+                "test/best_val_loss": result.best_val_loss,
+            },
+        )
     logger.close()
     if telemetry is not None:
-        print_summarize_line(telemetry)
-    print(
-        f"done: best_val={result.best_val_loss:.6g} "
-        f"test_mae={test_metrics.get('mae', float('nan')):.6g} "
-        f"test_nll={test_metrics.get('nll', float('nan')):.6g} "
-        f"steps/sec={result.steps_per_sec:.1f}",
-        flush=True,
-    )
+        if mesh.is_main:
+            print_summarize_line(telemetry)
+        else:
+            telemetry.close()
+    if mesh.is_main:
+        print(
+            f"done: best_val={result.best_val_loss:.6g} "
+            f"test_mae={test_metrics.get('mae', float('nan')):.6g} "
+            f"test_nll={test_metrics.get('nll', float('nan')):.6g} "
+            f"steps/sec={result.steps_per_sec:.1f}",
+            flush=True,
+        )
+    mesh.shutdown()
     return result.best_val_loss
 
 
@@ -380,25 +467,88 @@ def _write_job_metadata(job_dir: Path, cfg: Config, overrides: list[str]):
     (meta_dir / "overrides.yaml").write_text(yaml_subset.dump(list(overrides)))
 
 
-def _run_job(overrides: list[str], job_index: int | None = None,
-             sweep_dir: str | None = None, device=None) -> float:
+def _job_overrides(overrides: list[str], job_index: int | None,
+                   sweep_dir: str | None) -> list[str]:
+    """A sweep job's overrides with its own output place: Hydra's multirun
+    layout (each job a numbered dir ``<sweep_dir>/<job>/`` with its logs,
+    checkpoints and ``.hydra`` metadata, written here), or, where
+    ``logger.save_dir`` is absolute and pins the output, a ``_job<N>``
+    version suffix."""
+    if job_index is None:
+        return list(overrides)
     cfg = compose_config(overrides)
-    if job_index is not None:
-        if sweep_dir is not None and not Path(cfg.logger.save_dir).is_absolute():
-            # Hydra's multirun layout: each sweep point owns a numbered job
-            # dir <sweep_dir>/<job_idx>/ with its logs, checkpoints and
-            # .hydra metadata.
-            job_dir = Path(sweep_dir) / str(job_index)
-            cfg.logger["save_dir"] = str(job_dir / cfg.logger.save_dir)
-            _write_job_metadata(job_dir, cfg, overrides)
-        else:
-            # An absolute save_dir pins the output location; a version
-            # suffix still gives every sweep point its own log dir.
-            cfg.logger["version"] = f"{cfg.logger.version}_job{job_index}"
-    return run(cfg, device=device)
+    if sweep_dir is not None and not Path(cfg.logger.save_dir).is_absolute():
+        job_dir = Path(sweep_dir) / str(job_index)
+        extra = [f"logger.save_dir={job_dir / cfg.logger.save_dir}"]
+        _write_job_metadata(job_dir, compose_config([*overrides, *extra]),
+                            overrides)
+    else:
+        extra = [f"logger.version={cfg.logger.version}_job{job_index}"]
+    return [*overrides, *extra]
 
 
-def main(argv: list[str] | None = None) -> None:
+def _run_job(overrides: list[str], job_index: int | None = None,
+             sweep_dir: str | None = None, device=None) -> int:
+    """One job: in this process, or as the ranks ``trainer.n_devices``
+    asks for (``parallel/launch.py``); returns the exit code."""
+    from masters_thesis_tpu_torch.parallel.launch import as_ranks
+
+    overrides = _job_overrides(overrides, job_index, sweep_dir)
+    cfg = compose_config(overrides)
+    check_supported(cfg)
+    world = launches_ranks(cfg, device)
+    if world:
+        return as_ranks("train", overrides, world, device)
+    run(cfg, device=device)
+    return 0
+
+
+def _pool(jobs: list[tuple[int, list[str]]], n_jobs: int, sweep_dir: str,
+          device) -> int:
+    """``launcher=joblib``: each job a child ``python -m
+    masters_thesis_tpu_torch train`` of its overrides (its job dir and
+    metadata made here), at most ``n_jobs`` at once, each the host's cores
+    shared out; returns the first failure's exit code (the others still
+    run to their end), else 0."""
+    import subprocess
+
+    from masters_thesis_tpu_torch.parallel.launch import exit_code
+
+    env = dict(os.environ)
+    if str(device) == "cpu" and "OMP_NUM_THREADS" not in env:
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // n_jobs))
+    command = [sys.executable, "-m", "masters_thesis_tpu_torch", "train"]
+    if device is not None:
+        command += ["--device", str(device)]
+    pending = list(jobs)
+    running: list[tuple[int, subprocess.Popen]] = []
+    failed = 0
+    try:
+        while pending or running:
+            while pending and len(running) < n_jobs:
+                i, ov = pending.pop(0)
+                print(f"--- job {i}: {ov}", flush=True)
+                running.append((i, subprocess.Popen(
+                    [*command, *_job_overrides(ov, i, sweep_dir)], env=env)))
+            for entry in list(running):
+                i, proc = entry
+                code = proc.poll()
+                if code is None:
+                    continue
+                running.remove(entry)
+                if code:
+                    print(f"--- job {i} exited {exit_code(code)}",
+                          file=sys.stderr, flush=True)
+                    failed = failed or exit_code(code)
+            time.sleep(0.05)
+    finally:
+        for _, proc in running:
+            proc.kill()
+            proc.wait()
+    return failed
+
+
+def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m masters_thesis_tpu_torch train",
         description=__doc__.split("\n\n")[0],
@@ -413,19 +563,37 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_intermixed_args(argv)
 
     if not args.multirun:
-        _run_job(args.overrides, device=args.device)
-        return
+        return _run_job(args.overrides, device=args.device)
 
     jobs = expand_multirun(args.overrides)
     cfg0 = compose_config(jobs[0])
     check_launcher(cfg0)
+    launcher = cfg0.launcher
+    n_jobs = int(launcher.get("n_jobs", 1))
+    num_hosts = int(os.environ.get("MT_NUM_HOSTS",
+                                   launcher.get("num_hosts", 1)))
+    host_index = int(os.environ.get("MT_HOST_INDEX",
+                                    launcher.get("host_index", 0)))
     # Numbered sweep output root (Hydra's multirun/<date>/<time>); pin it
-    # with launcher.sweep_dir or MT_SWEEP_DIR.
-    sweep_dir = os.environ.get("MT_SWEEP_DIR") or cfg0.launcher.get("sweep_dir")
+    # with launcher.sweep_dir or MT_SWEEP_DIR (across hosts, one tree).
+    sweep_dir = os.environ.get("MT_SWEEP_DIR") or launcher.get("sweep_dir")
     if not sweep_dir:
         now = datetime.datetime.now()
         sweep_dir = f"multirun/{now:%Y-%m-%d}/{now:%H-%M-%S}"
-    print(f"multirun: {len(jobs)} jobs, n_jobs=1", flush=True)
-    for i, ov in enumerate(jobs):
+    # Jobs keep their global sweep index across hosts, so job dirs do not
+    # collide.
+    indexed = list(enumerate(jobs))
+    if num_hosts > 1:
+        indexed = partition_jobs(indexed, host_index, num_hosts)
+        print(f"multirun: host {host_index}/{num_hosts} takes "
+              f"{len(indexed)}/{len(jobs)} jobs", flush=True)
+    print(f"multirun: {len(indexed)} jobs, n_jobs={n_jobs}", flush=True)
+    if n_jobs >= 2:
+        return _pool(indexed, n_jobs, sweep_dir, args.device)
+    for i, ov in indexed:
         print(f"--- job {i}: {ov}", flush=True)
-        _run_job(ov, job_index=i, sweep_dir=sweep_dir, device=args.device)
+        code = _run_job(ov, job_index=i, sweep_dir=sweep_dir,
+                        device=args.device)
+        if code:
+            return code
+    return 0

@@ -14,8 +14,11 @@ K-factor model with ``n_factors > 1``, which writes ``factors.npy``) or the
 Fama-French CSVs (``bootstrap_real``). Windows are built by the C++ engine
 (``native/``; ``engine="auto"`` takes it for the scalar series when it
 builds) or by the port's ``ops/windows.py`` (torch on the CPU, the python
-engine; K-factor windows and the store always). The multi-host rendezvous
-is not ported.
+engine; K-factor windows and the store always). Across the ranks of a
+launch (``utils/backend_probe.py`` ``multihost_rank``) rank 0 makes the
+synthetic arrays, the cache and the window store, and every other rank
+polls for the published marker (``utils/io.py`` ``wait_until``) before it
+builds a copy of its own (a host-local data directory).
 """
 
 from __future__ import annotations
@@ -43,7 +46,16 @@ from masters_thesis_tpu_torch.ops.windows import (
     lookback_target_split,
     ols_features,
 )
-from masters_thesis_tpu_torch.utils.io import atomic_write_text, publish
+from masters_thesis_tpu_torch.utils.backend_probe import multihost_rank
+from masters_thesis_tpu_torch.utils.io import (
+    atomic_write_text,
+    publish,
+    wait_until,
+)
+
+#: Seconds a rank other than 0 waits for rank 0's published data before it
+#: builds its own (the directory is then taken to be host-local).
+RENDEZVOUS_TIMEOUT_S = 600.0
 
 
 class Batch(NamedTuple):
@@ -67,6 +79,7 @@ def bootstrap_synthetic(
     seed: int = 0,
     variant: str = "no_outliers",
     n_factors: int = 1,
+    marker_grace_s: float = 60.0,
 ) -> None:
     """Generate and save the synthetic market history of the DGP's
     ``variant`` (``no_outliers``, the reference's, or ``outliers``) if not
@@ -77,8 +90,11 @@ def bootstrap_synthetic(
     first, then the ``dgp.json`` sidecar with the generation parameters,
     which marks the set complete (``n_factors`` is recorded only when it is
     not 1, so the sidecar is the JAX package's byte for byte). Asking for
-    other parameters in a directory that holds a dataset, or finding arrays
-    without the sidecar, raises instead of reusing or overwriting them.
+    other parameters in a directory that holds a dataset raises instead of
+    reusing or overwriting it; so do arrays whose sidecar has not appeared
+    within ``marker_grace_s`` (a concurrent writer, such as another job of
+    a parallel sweep, publishes the arrays first). Across the ranks of a
+    launch rank 0 generates and the others wait for its sidecar.
     """
     data_dir = Path(data_dir)
     requested = {
@@ -88,7 +104,10 @@ def bootstrap_synthetic(
     if n_factors != 1:
         requested["n_factors"] = n_factors
     meta_file = data_dir / "dgp.json"
-    if meta_file.exists():
+
+    def check_existing() -> bool:
+        if not (meta_file.exists() and (data_dir / "stocks.npy").exists()):
+            return False
         existing = json.loads(meta_file.read_text())
         if existing != requested:
             raise ValueError(
@@ -96,13 +115,22 @@ def bootstrap_synthetic(
                 f"{existing}, but {requested} was requested — use a "
                 "different data_dir or delete the old dataset"
             )
+        return True
+
+    if check_existing():
         return
     if (data_dir / "stocks.npy").exists():
+        if wait_until(check_existing, marker_grace_s):
+            return
         raise ValueError(
             f"{data_dir} contains arrays without a dgp.json sidecar (torn "
             "bootstrap or dataset of unknown provenance) — delete the "
             "directory to regenerate"
         )
+    rank, world = multihost_rank()
+    if world > 1 and rank != 0 and wait_until(check_existing,
+                                              RENDEZVOUS_TIMEOUT_S):
+        return
     data_dir.mkdir(parents=True, exist_ok=True)
     if n_factors == 1:
         r_stocks, r_market, alphas, betas = SyntheticLogReturns.generate(
@@ -257,9 +285,19 @@ class FinancialWindowDataModule:
         self._datasets_dir.mkdir(parents=True, exist_ok=True)
         hash_file = self._datasets_dir / "hparams_hash.txt"
         dataset_file = self._datasets_dir / "dataset.npz"
-        if (hash_file.exists() and dataset_file.exists()
-                and hash_file.read_text().strip() == hparams_hash):
+
+        def cache_ready() -> bool:
+            return (hash_file.exists() and dataset_file.exists()
+                    and hash_file.read_text().strip() == hparams_hash)
+
+        if cache_ready():
             return
+        rank, world = multihost_rank()
+        if world > 1 and rank != 0:
+            if wait_until(cache_ready, RENDEZVOUS_TIMEOUT_S):
+                return
+            print("no shared dataset cache appeared; building a host-local "
+                  "one", flush=True)
         r_stocks, factors, alphas, betas = self._load_source()
         x, y, t_alphas, t_betas, factor, inv_psi = self.build_windows(
             r_stocks, factors
@@ -287,14 +325,24 @@ class FinancialWindowDataModule:
         """Build the window store unless one of this source and shard count
         is there. It always builds through the python engine."""
         hparams_hash = self._hparams_hash()
-        try:
-            store = WindowStore.open(self._store_dir)
-            if (store.source_hash == hparams_hash
+
+        def cache_ready() -> bool:
+            try:
+                store = WindowStore.open(self._store_dir)
+            except WindowStoreError:
+                return False
+            return (store.source_hash == hparams_hash
                     and store.n_shards == min(self.store_shards,
-                                              store.n_windows)):
+                                              store.n_windows))
+
+        if cache_ready():
+            return
+        rank, world = multihost_rank()
+        if world > 1 and rank != 0:
+            if wait_until(cache_ready, RENDEZVOUS_TIMEOUT_S):
                 return
-        except WindowStoreError:
-            pass
+            print("no shared window store appeared; building a host-local "
+                  "one", flush=True)
         if self.engine == "native":
             print("window store builds use the python engine (the native "
                   "engine does not build stores)", flush=True)
@@ -392,16 +440,33 @@ class FinancialWindowDataModule:
         idx = slice(window_range.start, window_range.stop)
         return Batch(*(a[idx] for a in self._arrays))
 
+    def take(self, idx: np.ndarray) -> Batch:
+        """The windows at indices ``idx`` of the whole dataset."""
+        return self._take(idx)
+
+    @staticmethod
+    def _order(window_range: range, shuffle_seed) -> np.ndarray:
+        order = np.asarray(window_range)
+        if shuffle_seed is not None:
+            order = np.random.default_rng(shuffle_seed).permutation(order)
+        return order
+
     def _iterate(self, window_range: range, batch_size: int,
                  shuffle_seed) -> Iterator[Batch]:
         """Host batches of ``batch_size`` windows of ``window_range`` (the
         last one short), in order or permuted by
         ``np.random.default_rng(shuffle_seed)``."""
-        order = np.asarray(window_range)
-        if shuffle_seed is not None:
-            order = np.random.default_rng(shuffle_seed).permutation(order)
+        order = self._order(window_range, shuffle_seed)
         for start in range(0, len(order), batch_size):
             yield self._take(order[start:start + batch_size])
+
+    def train_order(self, epoch: int = 0, seed: int = 0) -> np.ndarray:
+        """The train windows' indices in ``train_batches``' order for
+        ``(seed, epoch)`` (a data-parallel stream epoch cuts its global
+        batches from it)."""
+        if self.train_range is None:
+            raise RuntimeError("call setup('fit') first")
+        return self._order(self.train_range, (seed, epoch))
 
     def train_batches(self, epoch: int = 0, seed: int = 0,
                       shuffle: bool = True) -> Iterator[Batch]:

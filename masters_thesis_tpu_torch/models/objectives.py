@@ -88,10 +88,14 @@ def batched_objective(window_fn: WindowObjective):
     The metric sums aggregate over the batch and include ``"total"``, the
     objective itself. ``weights`` ``(B,)`` turns the mean into a weighted
     mean; a zero-weight window adds nothing to the loss, its gradient or the
-    sums (its data must be finite: ``0 * nan`` is nan).
+    sums (its data must be finite: ``0 * nan`` is nan). ``wsum`` (a 0-dim
+    tensor, with ``weights``) divides in place of the clamped weight sum:
+    a rank of a data-parallel stream step holds one slice of the global
+    batch and divides by the global sum over the world size, so that the
+    mean of the ranks' gradients is the global weighted mean's.
     """
 
-    def fn(alpha, beta, y, factor, inv_psi, weights=None):
+    def fn(alpha, beta, y, factor, inv_psi, weights=None, wsum=None):
         losses, metrics = window_fn(alpha, beta, y, factor, inv_psi)
         if weights is None:
             loss = losses.mean()
@@ -101,7 +105,8 @@ def batched_objective(window_fn: WindowObjective):
             summed["total"] = (losses.sum(),
                                losses.new_full((), float(losses.shape[0])))
         else:
-            wsum = torch.clamp(weights.sum(), min=1.0)
+            if wsum is None:
+                wsum = torch.clamp(weights.sum(), min=1.0)
             loss = (weights * losses).sum() / wsum
             summed = {k: ((weights * v).sum(), (weights * w).sum())
                       for k, (v, w) in metrics.items()}

@@ -24,10 +24,17 @@ through ``torch.cuda`` (host-side allocator counters that make the card
 wait for nothing). This module imports no torch; it reads the card only
 where torch is already imported, so the supervisor and the report use it
 in a process without torch.
+
+A run of a data-parallel launch is tagged with its rank:
+:func:`process_identity` (the process group's rank and world where one is
+initialised, else the launch environment's) goes into every event's
+envelope (``proc``, ``nproc``) and into the registry's ``process_index``
+and ``process_count`` tags; each rank writes its own stream.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from pathlib import Path
@@ -37,17 +44,58 @@ from masters_thesis_tpu_torch.telemetry.events import EventSink
 from masters_thesis_tpu_torch.telemetry.registry import MetricsRegistry
 
 
+#: The identity's environment, in order: the launch's (``parallel/mesh.py``
+#: exports them to every rank), then the multi-host sweep's.
+_IDENTITY_ENV = (
+    ("JAX_PROCESS_INDEX", "JAX_PROCESS_COUNT"),
+    ("MT_HOST_INDEX", "MT_NUM_HOSTS"),
+)
+
+
+def process_identity() -> tuple[int | None, int | None]:
+    """``(process_index, process_count)`` to tag a telemetry stream with:
+    the process group's rank and world where torch is imported and a group
+    is initialised (never importing torch), else the environment's
+    (``JAX_PROCESS_INDEX``, then ``MT_HOST_INDEX``), else ``(None,
+    None)``."""
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        try:
+            dist = torch.distributed
+            if dist.is_available() and dist.is_initialized():
+                return dist.get_rank(), dist.get_world_size()
+        except (AttributeError, RuntimeError):
+            pass
+    for index_key, count_key in _IDENTITY_ENV:
+        index = os.environ.get(index_key)
+        if index is None:
+            continue
+        try:
+            count = os.environ.get(count_key)
+            return int(index), (int(count) if count else None)
+        except ValueError:
+            continue
+    return None, None
+
+
 class TelemetryRun:
     """One run's telemetry: ``<run_dir>/events.jsonl`` + a live registry."""
 
     def __init__(self, run_dir: str | Path, run_id: str | None = None):
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
+        proc, nproc = process_identity()
         if run_id is None:
-            run_id = time.strftime("%Y%m%d-%H%M%S") + "-p0"
+            run_id = time.strftime("%Y%m%d-%H%M%S") + f"-p{proc or 0}"
         self.run_id = run_id
-        self.registry = MetricsRegistry()
-        self.sink = EventSink(self.run_dir / "events.jsonl", run_id=run_id)
+        tags = {}
+        if proc is not None:
+            tags["process_index"] = proc
+        if nproc is not None:
+            tags["process_count"] = nproc
+        self.registry = MetricsRegistry(tags=tags)
+        self.sink = EventSink(self.run_dir / "events.jsonl", run_id=run_id,
+                              proc=proc, nproc=nproc)
         #: Events that could not be written (dropped, never raised).
         self.write_errors = 0
         # The flight recorder (attach_flight_recorder) mirrors every event

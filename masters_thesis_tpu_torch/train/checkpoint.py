@@ -28,8 +28,15 @@ of the JAX package (a ``<tag>/`` without ``state.pt``) is refused by name.
 ``extra_files`` (the trainer's ``quality.json`` fingerprint) are written
 into the staged tree before its manifest, so the manifest covers them, they
 rotate to ``.prev`` with the pair, and a torn or doctored copy fails
-verification as a torn ``state.pt`` does. There is one process, so there is
-no barrier.
+verification as a torn ``state.pt`` does.
+
+Across the ranks of a data-parallel launch (a shared checkpoint
+directory, as orbax assumes) rank 0 alone stages and publishes, and every
+rank then passes ``fleet_barrier("checkpoint.publish.<tag>")``, so no rank
+races ahead of a publish still under way. Recovery is rank 0's too; the
+others wait for the staged pair to go and pass
+``fleet_barrier("checkpoint.recover.<tag>")``, so every rank restores the
+same file. Outside a launch the barriers do nothing.
 """
 
 from __future__ import annotations
@@ -44,13 +51,20 @@ from pathlib import Path
 import torch
 
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
+from masters_thesis_tpu_torch.parallel.mesh import fleet_barrier
 from masters_thesis_tpu_torch.resilience import faults
 from masters_thesis_tpu_torch.train.manifest import (
     MANIFEST_NAME,
     verify_checkpoint,
     write_manifest,
 )
-from masters_thesis_tpu_torch.utils.io import atomic_write_text, fsync_path, publish
+from masters_thesis_tpu_torch.utils.backend_probe import multihost_rank
+from masters_thesis_tpu_torch.utils.io import (
+    atomic_write_text,
+    fsync_path,
+    publish,
+    wait_until,
+)
 
 #: The payload's file name inside a checkpoint tree.
 STATE_NAME = "state.pt"
@@ -75,9 +89,13 @@ def save_checkpoint(ckpt_dir, tag: str, state_dict: dict,
     kill in between leaves an orphan tree, which recovery drops, never an
     orphan sidecar that could pair with another save's tree); then the
     tree, its manifest (fsync'd), the staged sidecar (fsync'd), and the
-    publish (renames only).
+    publish (renames only). In a launch only rank 0 writes; every rank
+    passes the publish barrier.
     """
     ckpt_dir = Path(ckpt_dir).resolve()
+    if multihost_rank()[0] != 0:
+        fleet_barrier(f"checkpoint.publish.{tag}")
+        return ckpt_dir / tag
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     staging = ckpt_dir / f"{tag}.new"
     staged_sidecar = ckpt_dir / f"{tag}.json.new"
@@ -115,6 +133,7 @@ def save_checkpoint(ckpt_dir, tag: str, state_dict: dict,
     path = ckpt_dir / tag
     if faults.fire("checkpoint.post_publish", **ctx) == "corrupt":
         _corrupt_tree(path, seed=faults.corruption_seed())
+    fleet_barrier(f"checkpoint.publish.{tag}")
     return path
 
 
@@ -193,6 +212,21 @@ def _recover_staged(ckpt_dir: Path, tag: str) -> None:
         shutil.rmtree(old, ignore_errors=True)
 
 
+def _run_recovery(ckpt_dir: Path, tag: str) -> None:
+    """``_recover_staged`` on rank 0; every other rank waits for the
+    staged pair to go, then all pass the recovery barrier, so no rank
+    reads the tree before rank 0's recovery is done (one process: just
+    the recovery)."""
+    staging = ckpt_dir / f"{tag}.new"
+    staged_sidecar = ckpt_dir / f"{tag}.json.new"
+    if multihost_rank()[0] == 0:
+        _recover_staged(ckpt_dir, tag)
+    elif staging.exists() or staged_sidecar.exists():
+        wait_until(lambda: not staging.exists()
+                   and not staged_sidecar.exists(), 60.0)
+    fleet_barrier(f"checkpoint.recover.{tag}")
+
+
 def _candidates(ckpt_dir: Path, tag: str) -> list[tuple[Path, Path]]:
     """(tree, sidecar) pairs in restore order: the latest, then the
     previous good rotation."""
@@ -251,7 +285,7 @@ def checkpoint_restorable(ckpt_dir, tag: str) -> bool:
         return False
     if _is_legacy(ckpt_dir, tag):
         return True
-    _recover_staged(ckpt_dir, tag)
+    _run_recovery(ckpt_dir, tag)
     return _pick_restorable(ckpt_dir, tag) is not None
 
 
@@ -263,7 +297,7 @@ def _read(path, tag: str) -> dict:
     if _is_legacy(root, name):
         source = root / f"{name}.pt"
     else:
-        _recover_staged(root, name)
+        _run_recovery(root, name)
         chosen = _pick_restorable(root, name)
         if chosen is None:
             primary, primary_sidecar = _candidates(root, name)[0]

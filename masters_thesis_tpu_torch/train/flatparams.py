@@ -174,7 +174,10 @@ class StackedFlatAdam:
         shape = (self.replicas, n)
         stride = -(-n // self.ROW_ALIGN) * self.ROW_ALIGN
         self.params = torch.zeros((self.replicas, stride), device=device)[:, :n]
-        self.grads = torch.zeros((self.replicas, stride), device=device)[:, :n]
+        #: The gradient rows with their padding: one contiguous buffer, the
+        #: one a data-parallel step all-reduces.
+        self.grad_storage = torch.zeros((self.replicas, stride), device=device)
+        self.grads = self.grad_storage[:, :n]
         self.mu = torch.zeros(shape, device=device)
         self.nu = torch.zeros(shape, device=device)
         #: Updates each replica has taken, on the device.

@@ -46,9 +46,18 @@ per-replica ``replica_epoch`` (loss, LR, status), ``replica_status`` (each
 transition, with the rollbacks so far) and ``replica_eval``,
 ``checkpoint_saved`` a replica and tag, and ``run_finished`` (with each
 replica's final status), under a ``trainer.fit`` span, with the flight
-recorder's beats. The ``grad_sync`` event (collectives a step) waits for
-multi-device (ROADMAP queue 1 item 3); the preflight trace audit is not
-ported (item 6) and ``preflight`` is reported as ignored.
+recorder's beats; the preflight trace audit is not ported (ROADMAP queue
+1 item 6) and ``preflight`` is reported as ignored.
+
+Data-parallel (``strategy``, ``n_devices``, as in the JAX class): each
+rank holds its block of the train split's windows (window sharding only),
+every replica's shuffle and dropout are folded by rank (the identity at
+rank 0), the ``[R, n]`` gradient is all-reduced once a step (TA207) and
+the ``[R]`` metric sums once an epoch, so every rank reads the same
+losses and takes the same rollback and mask decisions; a replica masked
+on every rank stays frozen whatever another rank's gradient row holds.
+Rank 0 prints and writes the checkpoints; with telemetry a ``grad_sync``
+event gives the step's all-reduce.
 """
 
 from __future__ import annotations
@@ -62,10 +71,13 @@ from typing import Sequence
 
 import torch
 
-from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.data.pipeline import FinancialWindowDataModule
 from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
+from masters_thesis_tpu_torch.parallel.mesh import (
+    data_mesh,
+    distributed_run_context,
+)
 from masters_thesis_tpu_torch.resilience import faults
 from masters_thesis_tpu_torch.telemetry.run import (
     CaptureTracker,
@@ -83,10 +95,14 @@ from masters_thesis_tpu_torch.train.steps import (
 )
 from masters_thesis_tpu_torch.train.trainer import (
     EVAL_CHUNK,
+    EVAL_KEYS,
     SINGLE_PROCESS,
     datamodule_meta,
     device_split,
+    device_train_split,
     epoch_seed,
+    fold_rank,
+    prepare_eval_split,
 )
 
 
@@ -140,16 +156,22 @@ class StackedTrainer:
         telemetry: TelemetryRun | None = None,
         preflight: bool = False,
         hang_timeout_s: float | None = None,
+        strategy: str = "auto",
+        n_devices: int | None = None,
     ):
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
         self.check_val_every_n_epoch = max(1, int(check_val_every_n_epoch))
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
-        self.device = resolve_device(device)
+        #: The data axis: this rank, the world, the rank's device.
+        self.mesh = data_mesh(strategy, n_devices, device)
+        self.strategy = self.mesh.strategy
+        self.n_dev = self.mesh.world
+        self.device = self.mesh.device
         if isinstance(resume, str):
             resume = resume.lower() in ("true", "auto", "1", "yes")
         self.resume = resume
-        self.enable_progress_bar = enable_progress_bar
+        self.enable_progress_bar = enable_progress_bar and self.mesh.is_main
         #: Divergences a replica survives (each a rollback and a halved
         #: rate) before it is masked.
         self.max_replica_rollbacks = max(0, int(max_replica_rollbacks))
@@ -189,20 +211,24 @@ class StackedTrainer:
         start_epoch = self._try_resume(replicas, module, optimizer,
                                        schedulers, best_vals)
         objective = spec.window_objective()
-        train = device_split(dm.train_arrays(), self.device)
-        val = device_split(dm.val_arrays(), self.device)
-        has_val = val.x.shape[0] > 0
+        mesh = self.mesh
+        train = device_split(device_train_split(mesh, dm.train_arrays())[0],
+                             self.device)
+        val_arrays = dm.val_arrays()
+        has_val = val_arrays.x.shape[0] > 0
+        val = device_split(prepare_eval_split(mesh, val_arrays), self.device)
         if not has_val:
             warnings.warn("val split is empty — LR plateau scheduling is "
                           "inactive and 'best' is the final checkpoint")
         # One generator a replica for the run, re-seeded each epoch: the
         # step's graph holds their states.
         generators = [torch.Generator(device=self.device) for _ in replicas]
-        program = StackedTrainProgram(module, optimizer, objective, train,
-                                      dm.batch_size, generators, self.graphed)
+        program = StackedTrainProgram(
+            module, optimizer, objective, train, dm.batch_size, generators,
+            self.graphed, mesh=mesh if mesh.distributed else None)
         validations = ([EvalProgram(enc, objective, val, EVAL_CHUNK,
                                     self.graphed) for enc in module.replicas]
-                       if has_val else [])
+                       if val.x.shape[0] > 0 else [])
         statuses = ["active"] * n_rep
         rollbacks = [0] * n_rep
         histories: list[list[dict]] = [[] for _ in replicas]
@@ -217,8 +243,8 @@ class StackedTrainer:
             tel.event(
                 "run_started",
                 platform=self.device.type,
-                n_devices=1,
-                strategy="single_device",
+                n_devices=self.n_dev,
+                strategy=self.strategy,
                 epoch_mode="stacked_scan",
                 steps_per_epoch=program.n_steps,
                 max_epochs=self.max_epochs,
@@ -227,11 +253,21 @@ class StackedTrainer:
                 trainer="stacked",
                 seed=replicas[0].seed,
                 resumed_from=(str(self.ckpt_dir) if start_epoch else None),
-                distributed=dict(SINGLE_PROCESS),
+                distributed=(distributed_run_context() if mesh.distributed
+                             else dict(SINGLE_PROCESS)),
                 stacked_replicas=n_rep,
                 replicas=[dataclasses.asdict(r) for r in replicas],
                 trace_id=tel.tracer.trace_id,
             )
+            if mesh.distributed:
+                # One all-reduce of the [R, n] gradient a step (TA207), its
+                # rows with their alignment padding.
+                grad_bytes = optimizer.grad_storage.numel() * 4
+                tel.gauge("train/collectives_per_step").set(1)
+                tel.gauge("train/grad_reduce_bytes").set(grad_bytes)
+                tel.event("grad_sync", collectives_per_step=1,
+                          grad_reduce_bytes=grad_bytes, flat_buffers=1,
+                          stacked_replicas=n_rep)
             tracker = CaptureTracker([program.step])
             rec = EpochRecorder(tel, program.n_steps, span_parent=fit_span)
         total_steps = 0
@@ -242,7 +278,8 @@ class StackedTrainer:
         all_masked = False
         for epoch in range(start_epoch, self.max_epochs):
             for generator, rep in zip(generators, replicas):
-                generator.manual_seed(epoch_seed(rep.seed, epoch))
+                generator.manual_seed(fold_rank(epoch_seed(rep.seed, epoch),
+                                                mesh.rank))
             lrs = [0.0 if s == "masked" else sch.lr
                    for s, sch in zip(statuses, schedulers)]
             optimizer.set_active([s != "masked" for s in statuses])
@@ -255,6 +292,7 @@ class StackedTrainer:
             if tel:
                 rec.dispatched(compiles=tracker.poll())
             t_read = time.perf_counter()
+            sums = mesh.all_reduce_sums(sums)
             means = stacked_metric_means(sums, n_rep)  # one device read
             elapsed = time.perf_counter() - t0
             if tel:
@@ -391,7 +429,8 @@ class StackedTrainer:
         for r, rep in enumerate(replicas):
             if statuses[r] == "masked":
                 continue
-            val_metrics = metric_means(validations[r].run())
+            val_metrics = metric_means(self.mesh.all_reduce_sums(
+                validations[r].run() if validations else None, EVAL_KEYS))
             rows[r].update({f"loss/{k}/val": v for k, v in val_metrics.items()})
             val_loss = val_metrics["total"]
             if self.telemetry:
@@ -416,8 +455,10 @@ class StackedTrainer:
         and nothing restored."""
         if not (self.resume and self.ckpt_dir):
             return 0
-        if not all(ckpt_lib.checkpoint_restorable(self.replica_dir(rep), "last")
-                   for rep in replicas):
+        restorable = [ckpt_lib.checkpoint_restorable(self.replica_dir(rep),
+                                                     "last")
+                      for rep in replicas]
+        if not self.mesh.agree([all(restorable)])[0]:
             return 0
         restored = [ckpt_lib.restore_checkpoint(self.replica_dir(rep), "last")
                     for rep in replicas]

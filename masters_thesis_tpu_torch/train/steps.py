@@ -18,8 +18,18 @@ prefetcher has put on the device, padded to the batch shape with
 zero-weight windows (``weighted_batches``). ``StackedTrainProgram`` is
 the counterpart of ``make_stacked_train_epoch``: R replicas' steps as one
 program over ``[R, n]`` buffers, each replica with its own shuffle and
-dropout stream, the recurrence one replica-axis launch. The mesh and the
-pmean are not ported (single device).
+dropout stream, the recurrence one replica-axis launch.
+
+Data-parallel (``parallel/mesh.py``): each program takes the run's
+``DataMesh``. A step's gradient is all-reduced once, in the flat buffer,
+between ``backward`` and the optimizer's step (``lax.pmean`` of the flat
+gradient in ``_flat_epoch_body``; the ``[R, n]`` buffer in the stacked
+step), inside the step's CUDA graph on the card; the clip then acts on the
+averaged gradient, as the JAX step clips after its ``pmean``. The metric
+sums are all-reduced once an epoch, by the trainer, at the epoch's read.
+``begin_epoch``'s ``dropout_seed`` re-seeds the generator after the
+shuffle is drawn: under asset sharding the shuffle is common to every rank
+and only the dropout stream is the rank's own (``_epoch_rngs``).
 """
 
 from __future__ import annotations
@@ -122,18 +132,23 @@ def metric_means(sums: dict) -> dict:
 
 def train_step(module, optimizer, loss_fn, batch: Batch, lr: float | None,
                generator: torch.Generator | None = None, masks=None,
-               weights: torch.Tensor | None = None) -> dict:
+               weights: torch.Tensor | None = None, mesh=None,
+               wsum: torch.Tensor | None = None) -> dict:
     """One update: training forward, loss, backward through the kernels, the
-    flat optimizer step (at ``lr``, or at the rate ``optimizer.set_lr``
-    gave when None). Returns the step's metric sums (on the device).
-    ``masks`` injects the dropout planes instead of drawing them;
-    ``weights`` ``(B,)`` makes the loss and the sums weighted."""
+    gradient averaged over ``mesh``'s ranks (one all-reduce of the flat
+    buffer), the flat optimizer step (at ``lr``, or at the rate
+    ``optimizer.set_lr`` gave when None). Returns the step's metric sums
+    (on the device). ``masks`` injects the dropout planes instead of
+    drawing them; ``weights`` ``(B,)`` makes the loss and the sums
+    weighted, ``wsum`` their divisor (``batched_objective``)."""
     alpha, beta = forward_rows(module, batch.x, deterministic=False,
                                generator=generator, masks=masks)
     loss, sums = loss_fn(alpha, beta, batch.y, batch.factor, batch.inv_psi,
-                         weights)
+                         weights, wsum)
     optimizer.zero_grad()
     loss.backward()
+    if mesh is not None:
+        mesh.all_reduce_mean_(optimizer.grads)
     optimizer.step(lr)
     return {k: (v.detach(), w.detach()) for k, (v, w) in sums.items()}
 
@@ -150,14 +165,16 @@ class TrainProgram:
     every later one a replay that draws the same Philox stream from
     ``generator`` as the eager step would. Nothing may replace the
     module's parameters or the optimizer's buffers afterwards: the graph
-    holds their addresses (loading copies in place).
+    holds their addresses (loading copies in place). With ``mesh`` the
+    step all-reduces its gradient over the mesh's ranks, inside the graph.
     """
 
     def __init__(self, module, optimizer, window_objective, data: Batch,
                  batch_size: int, generator: torch.Generator | None = None,
-                 graphed: bool = False):
+                 graphed: bool = False, mesh=None):
         self.module = module
         self.optimizer = optimizer
+        self.mesh = mesh
         self.data = data
         self.batch_size = batch_size
         self.generator = generator
@@ -180,28 +197,32 @@ class TrainProgram:
     def _step(self) -> None:
         batch = _gather(self.data, self.order, self.cursor)
         sums = train_step(self.module, self.optimizer, self.loss_fn, batch,
-                          None, self.generator)
+                          None, self.generator, mesh=self.mesh)
         torch.stack(sums["total"], out=self.step_total)
         self.sums = _add_into(self.sums, sums)
 
-    def epoch(self, lr: float) -> tuple[dict | None, int]:
+    def epoch(self, lr: float, dropout_seed: int | None = None
+              ) -> tuple[dict | None, int]:
         """One epoch at ``lr``: ``begin_epoch``, then ``n // batch_size``
         steps (the tail dropped, as in scan mode). Returns the epoch's
         metric sums, still on the device, and the number of steps."""
-        self.begin_epoch(lr)
+        self.begin_epoch(lr, dropout_seed)
         for _ in range(self.n_steps):
             self.step()
         return _copies(self.sums), self.n_steps
 
-    def begin_epoch(self, lr: float) -> None:
+    def begin_epoch(self, lr: float, dropout_seed: int | None = None) -> None:
         """Set the rate, draw the epoch's shuffle (one ``torch.randperm`` on
         the device from the generator, in its state as the epoch starts)
-        into ``order``, and reset the cursor and the sums."""
+        into ``order``, re-seed the generator with ``dropout_seed`` when
+        given, and reset the cursor and the sums."""
         self.optimizer.set_lr(lr)
         perm = torch.randperm(self.data.x.shape[0], generator=self.generator,
                               device=self.order.device)
         self.order.copy_(perm[: self.n_steps * self.batch_size]
                          .view(-1, self.batch_size))
+        if dropout_seed is not None:
+            self.generator.manual_seed(dropout_seed)
         self.cursor.zero_()
         _zero(self.sums)
         self.module.train()
@@ -230,6 +251,27 @@ def weighted_batches(batches: Iterable[Batch], batch_size: int
                    (np.arange(batch_size) < n).astype(np.float32))
 
 
+def sharded_weighted_batches(order: np.ndarray, take, batch_size: int,
+                             world: int, rank: int
+                             ) -> Iterator[tuple[Batch, np.ndarray, np.ndarray]]:
+    """Rank ``rank``'s ``(batch, weights, wsum)`` of each global batch of
+    ``batch_size * world`` windows of ``order`` (every rank draws the same
+    sequence): the global batch padded as ``weighted_batches`` pads it,
+    then the rank's ``shard_bounds`` slice, its windows read by
+    ``take(idx)``; ``wsum`` (``(1,)``) is the global weight sum over the
+    world size, the divisor of the rank's loss."""
+    from masters_thesis_tpu_torch.parallel.mesh import shard_bounds
+
+    global_b = batch_size * world
+    lo, hi = shard_bounds(global_b, world, rank)
+    pos = np.arange(lo, hi)
+    for start in range(0, len(order), global_b):
+        chunk = order[start:start + global_b]
+        n = len(chunk)
+        yield (take(chunk[pos % n]), (pos < n).astype(np.float32),
+               np.asarray([max(n, 1) / world], np.float32))
+
+
 class StreamProgram:
     """The weighted training step over static device inputs, for the stream
     epoch: the counterpart of ``make_train_step(weighted=True)``.
@@ -242,20 +284,27 @@ class StreamProgram:
     metric sums into ``sums``. With ``graphed`` (the card) the step is one
     CUDA graph, captured at the first step of the run and replayed for
     every later one, the padded tail included (its shape is the same). No
-    step synchronises with the host.
+    step synchronises with the host. With ``mesh`` the step all-reduces
+    its gradient; above one rank a step holds the rank's slice of the
+    global batch, and its loss divides by the static ``wsum`` buffer
+    (``sharded_weighted_batches``).
     """
 
     def __init__(self, module, optimizer, window_objective, example: Batch,
                  batch_size: int, generator: torch.Generator | None = None,
-                 graphed: bool = False):
+                 graphed: bool = False, mesh=None):
         self.module = module
         self.optimizer = optimizer
+        self.mesh = mesh
         self.generator = generator
         self.loss_fn = batched_objective(window_objective)
         device = optimizer.params.device
         self.inputs = Batch(*(torch.zeros((batch_size, *a.shape[1:]),
                                           device=device) for a in example))
         self.weights = torch.zeros(batch_size, device=device)
+        #: The loss's divisor above one rank (None: the weights' own sum).
+        self.wsum = (torch.ones((), device=device)
+                     if mesh is not None and mesh.world > 1 else None)
         #: The epoch's metric sums, made by the first step.
         self.sums: dict | None = None
         self.run = (GraphedCall(self._step, device=device, name="stream step",
@@ -265,27 +314,33 @@ class StreamProgram:
     def _step(self) -> None:
         sums = train_step(self.module, self.optimizer, self.loss_fn,
                           self.inputs, None, self.generator,
-                          weights=self.weights)
+                          weights=self.weights, mesh=self.mesh,
+                          wsum=self.wsum)
         self.sums = _add_into(self.sums, sums)
 
-    def step(self, batch: Batch, weights: torch.Tensor) -> None:
-        """One step on ``batch`` and ``weights``, tensors on the device."""
+    def step(self, batch: Batch, weights: torch.Tensor,
+             wsum: torch.Tensor | None = None) -> None:
+        """One step on ``batch``, ``weights`` and (above one rank)
+        ``wsum``, tensors on the device."""
         for dst, src in zip(self.inputs, batch):
             dst.copy_(src)
         self.weights.copy_(weights)
+        if self.wsum is not None:
+            self.wsum.copy_(wsum.reshape(()))
         self.run()
 
-    def epoch(self, lr: float, batches: Iterable[tuple[Batch, torch.Tensor]]
+    def epoch(self, lr: float, batches: Iterable[tuple]
               ) -> tuple[dict | None, int]:
-        """One epoch at ``lr`` over ``batches`` (``(batch, weights)`` on the
-        device, as the prefetcher yields them). Returns the epoch's metric
-        sums, still on the device, and the number of steps."""
+        """One epoch at ``lr`` over ``batches`` (``(batch, weights)``, or
+        ``(batch, weights, wsum)`` above one rank, on the device, as the
+        prefetcher yields them). Returns the epoch's metric sums, still on
+        the device, and the number of steps."""
         self.optimizer.set_lr(lr)
         _zero(self.sums)
         self.module.train()
         n_steps = 0
-        for batch, weights in batches:
-            self.step(batch, weights)
+        for item in batches:
+            self.step(*item)
             n_steps += 1
         return _copies(self.sums), n_steps
 
@@ -302,13 +357,16 @@ class StackedTrainProgram:
     ``backward`` does), the ``StackedFlatAdam`` step updates every active
     row at its rate, and each replica's metric sums go into ``sums`` as
     ``[R]`` vectors. With ``graphed`` (the card) the step is one CUDA
-    graph that registers all R generators.
+    graph that registers all R generators. With ``mesh`` the ``[R, n]``
+    gradient is all-reduced in one collective a step (TA207).
     """
 
     def __init__(self, module, optimizer, window_objective, data: Batch,
-                 batch_size: int, generators, graphed: bool = False):
+                 batch_size: int, generators, graphed: bool = False,
+                 mesh=None):
         self.module = module
         self.optimizer = optimizer
+        self.mesh = mesh
         self.data = data
         self.batch_size = batch_size
         self.generators = list(generators)
@@ -344,6 +402,8 @@ class StackedTrainProgram:
             step_sums.append(sums)
         self.optimizer.zero_grad()
         torch.stack(losses).sum().backward()
+        if self.mesh is not None:
+            self.mesh.all_reduce_mean_(self.optimizer.grad_storage)
         self.optimizer.step()
         self.sums = _add_into(self.sums, {
             k: (torch.stack([s[k][0].detach() for s in step_sums]),
@@ -385,18 +445,19 @@ def stacked_metric_means(sums: dict, replicas: int) -> list[dict]:
 def train_epoch(module, optimizer, window_objective, data: Batch,
                 batch_size: int, lr: float,
                 generator: torch.Generator | None = None, *,
-                program: TrainProgram | None = None) -> tuple[dict, int]:
+                program: TrainProgram | None = None,
+                dropout_seed: int | None = None) -> tuple[dict, int]:
     """One epoch over the device-resident train split.
 
-    The counterpart of the scan epoch: ``program.epoch(lr)`` of the run's
-    ``TrainProgram`` (built over these arguments), or of an eager one made
-    for this epoch. Returns the epoch's metric sums, still on the device,
-    and the number of steps.
+    The counterpart of the scan epoch: ``program.epoch(lr, dropout_seed)``
+    of the run's ``TrainProgram`` (built over these arguments), or of an
+    eager one made for this epoch. Returns the epoch's metric sums, still
+    on the device, and the number of steps.
     """
     if program is None:
         program = TrainProgram(module, optimizer, window_objective, data,
                                batch_size, generator)
-    return program.epoch(lr)
+    return program.epoch(lr, dropout_seed)
 
 
 def window_eval_metrics(alpha, beta, y, factor, inv_psi) -> dict:

@@ -60,8 +60,30 @@ chunks of ``EVAL_CHUNK`` windows, eagerly, outside every graph) as
 prints one line and the save goes on without it. ``metrics_port`` (with
 telemetry) starts the telemetry plane: an SLO engine over the run's
 stream (``slo_rules``, default ``default_train_rules()``) and the
-``/metrics``, ``/healthz`` and ``/slo`` server. Preflight, bf16 and
-multi-device are not ported; stacked replicas are ``train/stacked.py``'s.
+``/metrics``, ``/healthz`` and ``/slo`` server. Preflight and bf16 are
+not ported; stacked replicas are ``train/stacked.py``'s.
+
+Data-parallel training (``strategy``, ``n_devices``, ``shard_axis``, the
+JAX trainer's arguments; ``parallel/mesh.py``): under ``tpu_xla`` this
+process is one rank of ``n_devices`` and holds only its shard of the train
+split on its device (``device_train_split``: a block of windows, the split
+truncated to a multiple of the world size, or with ``shard_axis="asset"``
+a block of asset rows of every window). Each step all-reduces its flat
+gradient once; each epoch's metric sums are all-reduced at its read, and
+each evaluation's (``prepare_eval_split``: a rank evaluates its
+``shard_bounds`` slice, an empty one joining with zero sums). Under window
+sharding both the shuffle and the dropout stream are the rank's own (the
+epoch's seed folded by rank, ``fold_rank``); under asset sharding the
+shuffle is common and only the dropout is folded. The fold is the
+identity at rank 0, so world size 1 is the solo run bit for bit. The
+stream epoch's global batch is ``batch_size × world``: every rank draws
+the same host sequence and trains its slice. Every host decision reads
+all-reduced values (the plateau schedule, ``best``, the divergence halt;
+resume agrees across ranks), so every rank takes the same branch. Rank 0
+alone prints, logs and writes checkpoints; with telemetry ``run_started``
+carries the world and the rank, and a ``grad_sync`` event and the
+``train/collectives_per_step`` and ``train/grad_reduce_bytes`` gauges give
+the step's all-reduce.
 """
 
 from __future__ import annotations
@@ -76,10 +98,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.data.pipeline import Batch, FinancialWindowDataModule
 from masters_thesis_tpu_torch.data.prefetch import PrefetchStats, prefetch_to_device
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
+from masters_thesis_tpu_torch.parallel.mesh import (
+    SHARD_AXES,
+    DataMesh,
+    data_mesh,
+    distributed_run_context,
+    shard_bounds,
+)
 from masters_thesis_tpu_torch.resilience import faults
 from masters_thesis_tpu_torch.telemetry import costs
 from masters_thesis_tpu_torch.telemetry import quality as quality_lib
@@ -102,6 +130,7 @@ from masters_thesis_tpu_torch.train.steps import (
     TrainProgram,
     forward_rows,
     metric_means,
+    sharded_weighted_batches,
     train_epoch,
     weighted_batches,
 )
@@ -141,6 +170,59 @@ def device_split(arrays: Batch, device) -> Batch:
 #: trainer writes it outside a cluster.
 SINGLE_PROCESS = {"process_index": None, "process_count": None,
                   "coordinator": None}
+
+#: The evaluation's metric sums (``EvalProgram``), which a rank with no
+#: windows to evaluate joins the all-reduce with as zeros.
+EVAL_KEYS = ("mae", "mse", "nll", "total")
+
+
+def device_train_split(mesh: DataMesh, arrays: Batch, axis: str = "window"
+                       ) -> tuple[Batch, int]:
+    """This rank's shard of the train split (numpy) and its window count.
+
+    ``window``: the split truncated to a multiple of the world size (at
+    most world − 1 windows dropped), then the rank's contiguous block of
+    ``n // world`` windows. ``asset``: every window, its asset rows
+    (``x``, ``y``, ``inv_psi`` on axis 1) truncated to a multiple of the
+    world size and the rank's block of them taken; the per-window
+    ``factor`` stats, which have no asset axis, whole. As the JAX
+    function shards them over its mesh."""
+    world, rank = mesh.world, mesh.rank
+    if axis == "asset":
+        n_assets = arrays.x.shape[1]
+        k_local = n_assets // world
+        if k_local == 0:
+            raise ValueError(f"train split has {n_assets} assets < mesh "
+                             f"size {world}")
+        lo, hi = rank * k_local, (rank + 1) * k_local
+        return (Batch(arrays.x[:, lo:hi], arrays.y[:, lo:hi], arrays.factor,
+                      arrays.inv_psi[:, lo:hi]), arrays.x.shape[0])
+    if axis != "window":
+        raise ValueError(f"unknown shard axis: {axis!r}")
+    n_local = arrays.x.shape[0] // world
+    if n_local == 0:
+        raise ValueError(f"train split has {arrays.x.shape[0]} windows < "
+                         f"mesh size {world}")
+    lo, hi = rank * n_local, (rank + 1) * n_local
+    return Batch(*(a[lo:hi] for a in arrays)), n_local
+
+
+def prepare_eval_split(mesh: DataMesh, arrays: Batch) -> Batch:
+    """This rank's slice of an evaluation split (``shard_bounds``: sizes
+    differ by at most one; a rank may get none). The ranks' metric sums
+    add up to the whole split's, as the JAX function's padded and masked
+    chunks do."""
+    lo, hi = shard_bounds(arrays.x.shape[0], mesh.world, mesh.rank)
+    return Batch(*(a[lo:hi] for a in arrays))
+
+
+def fold_rank(seed: int, rank: int) -> int:
+    """``seed`` folded by ``rank``, the counterpart of
+    ``jax.random.fold_in(rng, axis_index)``; the identity at rank 0."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed & 0xFFFFFFFF, 1 << 31, rank])
+               .generate_state(1)[0])
 
 
 class HostClock:
@@ -191,23 +273,37 @@ class Trainer:
         hang_timeout_s: float | None = None,
         metrics_port: int | None = None,
         slo_rules=None,
+        strategy: str = "auto",
+        n_devices: int | None = None,
+        shard_axis: str = "window",
     ):
         if epoch_mode not in EPOCH_MODES:
             raise ValueError(f"unknown epoch_mode: {epoch_mode!r} "
                              f"(expected one of {EPOCH_MODES})")
+        if shard_axis not in SHARD_AXES:
+            raise ValueError(f"unknown shard_axis: {shard_axis!r}")
+        if shard_axis == "asset" and epoch_mode != "scan":
+            raise ValueError(
+                "shard_axis='asset' requires epoch_mode='scan' (the stream "
+                "path prefetches window batches, which shard on windows)")
         self.max_epochs = max_epochs
         self.gradient_clip_val = gradient_clip_val
         self.check_val_every_n_epoch = max(1, int(check_val_every_n_epoch))
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
         self.seed = seed
-        self.device = resolve_device(device)
-        self.logger = logger
+        #: The data axis: this rank, the world, the rank's device.
+        self.mesh = data_mesh(strategy, n_devices, device)
+        self.strategy = self.mesh.strategy
+        self.n_dev = self.mesh.world
+        self.shard_axis = shard_axis
+        self.device = self.mesh.device
+        self.logger = logger if self.mesh.is_main else None
         self.resume = resume
         self.checkpoint_every_n_epochs = (
             max(1, int(checkpoint_every_n_epochs))
             if checkpoint_every_n_epochs else None
         )
-        self.enable_progress_bar = enable_progress_bar
+        self.enable_progress_bar = enable_progress_bar and self.mesh.is_main
         self.enable_model_summary = enable_model_summary
         #: Run the steps as CUDA graphs on the card (never on the CPU).
         self.graphed = cuda_graphs and self.device.type == "cuda"
@@ -279,12 +375,17 @@ class Trainer:
         if self.enable_model_summary:
             n_params = sum(p.numel() for p in module.parameters())
             self._print(f"model: {spec.objective} | params: {n_params:,} "
-                        f"| device: {self.device}")
+                        f"| device: {self.device}"
+                        + (f" | mesh: {self.n_dev}x{self.shard_axis} | "
+                           f"{self.strategy}" if self.mesh.distributed
+                           else ""))
+        mesh = self.mesh
+        step_mesh = mesh if mesh.distributed else None
         scheduler = PlateauScheduler(spec.learning_rate)
         start_epoch, best_val = 0, float("inf")
         resumed_from = None
-        if (self.resume and self.ckpt_dir
-                and ckpt_lib.checkpoint_restorable(self.ckpt_dir, "last")):
+        if (self.resume and self.ckpt_dir and mesh.agree(
+                [ckpt_lib.checkpoint_restorable(self.ckpt_dir, "last")])[0]):
             state, opt_state, _, meta = ckpt_lib.restore_checkpoint(
                 self.ckpt_dir, "last")
             module.load_state_dict(state)
@@ -304,13 +405,14 @@ class Trainer:
             self._print(f"resuming from {resumed_from} at epoch "
                         f"{start_epoch}")
         objective = spec.window_objective()
-        val = device_split(dm.val_arrays(), self.device)
-        has_val = val.x.shape[0] > 0
+        val_arrays = dm.val_arrays()
+        has_val = val_arrays.x.shape[0] > 0
+        val = device_split(prepare_eval_split(mesh, val_arrays), self.device)
         if not has_val:
             warnings.warn("val split is empty — LR plateau scheduling is "
                           "inactive and 'best' is the final checkpoint")
         self._quality_windows = None
-        if self.ckpt_dir and has_val:
+        if self.ckpt_dir and has_val and mesh.is_main:
             qx = np.asarray(dm.val_arrays().x[:FINGERPRINT_VAL_WINDOWS],
                             np.float32)
             self._quality_windows = (qx, quality_lib.golden_windows(
@@ -324,18 +426,23 @@ class Trainer:
                 raise ValueError("train split has 0 windows")
             program = StreamProgram(module, optimizer, objective,
                                     dm.train_arrays(), dm.batch_size,
-                                    generator, self.graphed)
-            steps_per_epoch = -(-n_windows // dm.batch_size)
+                                    generator, self.graphed, mesh=step_mesh)
+            steps_per_epoch = -(-n_windows // (dm.batch_size * self.n_dev))
             train_call = program.run
         else:
-            train = device_split(dm.train_arrays(), self.device)
+            shard, n_local = device_train_split(mesh, dm.train_arrays(),
+                                                self.shard_axis)
+            train = device_split(shard, self.device)
             program = TrainProgram(module, optimizer, objective, train,
-                                   dm.batch_size, generator, self.graphed)
-            n_windows = program.n_steps * dm.batch_size
+                                   dm.batch_size, generator, self.graphed,
+                                   mesh=step_mesh)
+            n_windows = program.n_steps * dm.batch_size * (
+                self.n_dev if self.shard_axis == "window" else 1)
             steps_per_epoch = program.n_steps
             train_call = program.step
         validation = (EvalProgram(module, objective, val, EVAL_CHUNK,
-                                  self.graphed) if has_val else None)
+                                  self.graphed)
+                      if val.x.shape[0] > 0 else None)
         rec = fit_span = tracker = eval_tracker = None
         cuda_events = tel is not None and self.device.type == "cuda"
         if tel:
@@ -347,8 +454,8 @@ class Trainer:
                 tel.event(
                     "run_started",
                     platform=self.device.type,
-                    n_devices=1,
-                    strategy="single_device",
+                    n_devices=self.n_dev,
+                    strategy=self.strategy,
                     epoch_mode=self.epoch_mode,
                     steps_per_epoch=steps_per_epoch,
                     max_epochs=self.max_epochs,
@@ -357,9 +464,19 @@ class Trainer:
                     trainer=self.name,
                     seed=self.seed,
                     resumed_from=resumed_from,
-                    distributed=dict(SINGLE_PROCESS),
+                    distributed=(distributed_run_context()
+                                 if mesh.distributed
+                                 else dict(SINGLE_PROCESS)),
                     trace_id=tel.tracer.trace_id,
                 )
+                if mesh.distributed:
+                    # One all-reduce of the flat gradient a step (TA206),
+                    # moving the whole flat buffer.
+                    grad_bytes = optimizer.grads.numel() * 4
+                    tel.gauge("train/collectives_per_step").set(1)
+                    tel.gauge("train/grad_reduce_bytes").set(grad_bytes)
+                    tel.event("grad_sync", collectives_per_step=1,
+                              grad_reduce_bytes=grad_bytes, flat_buffers=1)
                 tracker = CaptureTracker([train_call])
                 eval_tracker = CaptureTracker(
                     [part[1] for part in validation.parts]
@@ -408,17 +525,30 @@ class Trainer:
                         ended = torch.cuda.Event(enable_timing=True)
                         started.record()
             t0 = time.perf_counter()
-            generator.manual_seed(epoch_seed(self.seed, epoch))
+            seed = epoch_seed(self.seed, epoch)
+            if self.shard_axis == "asset":
+                # The shuffle common to every rank, the dropout the rank's.
+                generator.manual_seed(seed)
+                dropout_seed = fold_rank(seed, mesh.rank) if mesh.rank else None
+            else:
+                generator.manual_seed(fold_rank(seed, mesh.rank))
+                dropout_seed = None
             if self.epoch_mode == "stream":
                 stats = PrefetchStats()
-                batches = weighted_batches(
-                    dm.train_batches(epoch, self.seed), dm.batch_size)
+                if self.n_dev > 1:
+                    batches = sharded_weighted_batches(
+                        dm.train_order(epoch, self.seed), dm.take,
+                        dm.batch_size, self.n_dev, mesh.rank)
+                else:
+                    batches = weighted_batches(
+                        dm.train_batches(epoch, self.seed), dm.batch_size)
                 sums, n_steps = program.epoch(scheduler.lr, prefetch_to_device(
                     batches, self.prefetch, self.device, stats))
             else:
                 sums, n_steps = train_epoch(module, optimizer, objective,
                                             train, dm.batch_size, scheduler.lr,
-                                            generator, program=program)
+                                            generator, program=program,
+                                            dropout_seed=dropout_seed)
             if cuda_events:
                 with clock:
                     ended.record()
@@ -437,6 +567,7 @@ class Trainer:
                         flight.note(epoch_compiles=tracker.total,
                                     last_compile_epoch=epoch)
             t_read = time.perf_counter()
+            sums = mesh.all_reduce_sums(sums)
             row.update({f"loss/{k}/train": v
                         for k, v in metric_means(sums).items()})
             elapsed = time.perf_counter() - t0  # the read above synchronised
@@ -489,7 +620,8 @@ class Trainer:
                     with clock:
                         flight.beat(phase="eval", epoch=epoch)
                 t_eval_wall, t_eval = time.time(), time.perf_counter()
-                val_metrics = metric_means(validation.run())
+                val_metrics = metric_means(mesh.all_reduce_sums(
+                    validation.run() if validation else None, EVAL_KEYS))
                 row.update({f"loss/{k}/val": v for k, v in val_metrics.items()})
                 val_loss = val_metrics["total"]
                 if tel:
@@ -616,15 +748,19 @@ class Trainer:
     def test(self, spec: ModelSpec, state: dict,
              dm: FinancialWindowDataModule) -> dict:
         """Test-split metrics (``mse``, ``nll``, ``mae``, ``total``) of the
-        encoder with ``state``."""
+        encoder with ``state``; over a launch each rank evaluates its
+        slice and the sums are all-reduced."""
         dm.setup("test")
         module = spec.build_module(device=self.device)
         module.load_state_dict(state)
-        test = device_split(dm.test_arrays(), self.device)
-        if test.x.shape[0] == 0:
+        arrays = dm.test_arrays()
+        if arrays.x.shape[0] == 0:
             return {}
-        metrics = metric_means(EvalProgram(module, spec.window_objective(),
-                                           test, EVAL_CHUNK, self.graphed).run())
+        test = device_split(prepare_eval_split(self.mesh, arrays), self.device)
+        sums = (EvalProgram(module, spec.window_objective(), test, EVAL_CHUNK,
+                            self.graphed).run()
+                if test.x.shape[0] > 0 else None)
+        metrics = metric_means(self.mesh.all_reduce_sums(sums, EVAL_KEYS))
         if self.logger:
             self.logger.log_scalars({f"test/{k}": v for k, v in metrics.items()},
                                     0)
@@ -658,7 +794,7 @@ class Trainer:
                 tel.recorder.beat(phase="checkpoint", epoch=epoch)
         t0_wall, t0 = time.time(), time.perf_counter()
         fp = extra = None
-        if self._quality_windows is not None:
+        if self._quality_windows is not None and self.mesh.is_main:
             try:
                 fp = fingerprint(module, *self._quality_windows)
                 extra = {quality_lib.FINGERPRINT_FILENAME:

@@ -14,7 +14,10 @@ The kernels count their launches in ``ops.lstm_kernel.LAUNCHES`` from
 Python, so a capture, which runs the wrappers but no kernel, would count
 launches that never ran, and a replay, which runs no Python, none. A
 ``GraphedCall`` takes the capture's counts back out and adds them again on
-every replay.
+every replay; so too for the collectives in ``parallel.mesh.COLLECTIVES``
+(a data-parallel step captures its gradient all-reduce). The warm-up run
+is what creates an NCCL communicator that is made lazily, at its first
+collective: that cannot happen inside a capture.
 
 Nothing falls back: a failed capture raises :class:`CaptureError`, and a
 kernel wrapper that finds a capture underway but its own stream not
@@ -31,6 +34,10 @@ from typing import Callable, Sequence
 import torch
 
 from masters_thesis_tpu_torch.ops import lstm_kernel as lk
+from masters_thesis_tpu_torch.parallel.mesh import COLLECTIVES
+
+#: The counters a capture takes back and a replay adds again.
+COUNTERS = (lk.LAUNCHES, COLLECTIVES)
 
 
 class CaptureError(RuntimeError):
@@ -67,6 +74,8 @@ class GraphedCall:
         self.graph = None
         #: Kernel launches in one run of ``body`` (the capture's counts).
         self.launches: dict[str, int] = {}
+        #: Collectives in one run of ``body``.
+        self.collectives: dict[str, int] = {}
         #: Captures made (run telemetry counts them as compiles).
         self.captures = 0
 
@@ -79,23 +88,28 @@ class GraphedCall:
             self.capture()
         else:
             self.graph.replay()
-            for name, n in self.launches.items():
-                lk.LAUNCHES[name] += n
+            for counter, counts in zip(COUNTERS, (self.launches,
+                                                  self.collectives)):
+                for name, n in counts.items():
+                    counter[name] += n
 
     def capture(self) -> None:
         """The warm-up run of ``body`` (real, counted), then its capture
         (nothing runs, nothing is counted)."""
         stream = self._warm_up()
         self.captures += 1
-        before = dict(lk.LAUNCHES)
+        before = [dict(counter) for counter in COUNTERS]
         try:
             self.graph = self._record(stream)
         except Exception as err:
             raise CaptureError(f"capturing {self.name} failed: {err}") from err
         finally:
-            delta = {k: lk.LAUNCHES[k] - before[k] for k in before}
-            lk.LAUNCHES.update(before)
-        self.launches = {k: n for k, n in delta.items() if n}
+            deltas = []
+            for counter, old in zip(COUNTERS, before):
+                deltas.append({k: n for k in old
+                               if (n := counter[k] - old[k])})
+                counter.update(old)
+        self.launches, self.collectives = deltas
 
     def _warm_up(self):
         """Run ``body`` on a side stream, the one the capture then uses, so

@@ -4,12 +4,15 @@ Counterpart of ``masters_thesis_tpu/utils/io.py``: the dataset cache and the
 checkpoints are written to a private scratch name, flushed to stable storage
 and renamed into place, so a reader sees the previous file or the new one,
 never a torn one. The scratch name carries a uuid, so concurrent writers
-each use their own.
+each use their own. ``wait_until`` is the polling half of the multi-process
+rendezvous: a rank that does not write waits for the writer's published
+file.
 """
 
 from __future__ import annotations
 
 import os
+import time
 import uuid
 from pathlib import Path
 
@@ -53,3 +56,14 @@ def fsync_path(path: Path | str) -> None:
         pass
     finally:
         os.close(fd)
+
+
+def wait_until(predicate, timeout_s: float, interval_s: float = 0.5) -> bool:
+    """Poll ``predicate`` until it returns True; False on timeout (a rank
+    waiting for another rank's published file)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(interval_s)
+    return False

@@ -2147,3 +2147,159 @@ def test_a_fingerprinted_swap_commits_through_the_bucket_graphs(cuda_device,
     assert verdict.ok and verdict.checks["quality_self_ks"] < quality.GATE_MAX_SELF_KS
     assert monitor.reference == fp
     assert live.compile_events == captures == 4
+
+
+# ------------------------------------------- data-parallel at world size 1
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda_device):
+    """A world-1 NCCL group in this process (what ``tpu_xla`` at
+    ``n_devices=1`` makes), left behind by nothing."""
+    import torch.distributed as dist
+
+    from masters_thesis_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh("tpu_xla", 1, cuda_device)
+    yield mesh
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _world_one_programs(tmp_path, mesh, graphed_dp):
+    """Two ``TrainProgram``s from one seed on the toy windows, dropout on:
+    one with ``mesh`` (graphed when ``graphed_dp``), one solo and eager."""
+    from masters_thesis_tpu_torch.train.optim import make_optimizer
+    from masters_thesis_tpu_torch.train.steps import TrainProgram
+    from masters_thesis_tpu_torch.train.trainer import device_split
+
+    dm = _toy_datamodule(tmp_path)
+    dm.prepare_data()
+    dm.setup("fit")
+    spec = ModelSpec(objective="combined", hidden_size=16, num_layers=2,
+                     dropout=0.3)
+    data = device_split(dm.train_arrays(), mesh.device)
+    programs = []
+    for with_mesh in (True, False):
+        module = spec.build_module(device=mesh.device,
+                                   generator=torch.Generator().manual_seed(0))
+        programs.append(TrainProgram(
+            module, make_optimizer(module, 5.0, 1e-5), spec.window_objective(),
+            data, 2, torch.Generator(device=mesh.device).manual_seed(7),
+            graphed=graphed_dp and with_mesh,
+            mesh=mesh if with_mesh else None))
+    return programs
+
+
+def test_graphed_world_one_step_equals_the_ungraphed_solo_step(
+        nccl_world_of_one, tmp_path):
+    """``tpu_xla`` at world size 1 on NCCL: the graphed step, its gradient
+    all-reduced inside the graph (one capture), against the eager step with
+    no group, 2 epochs: parameters and Adam moments bit-equal, one
+    gradient all-reduce a step counted through the replays, and the
+    replays make no host synchronisation."""
+    from masters_thesis_tpu_torch.parallel.mesh import (
+        COLLECTIVES,
+        reset_collective_counts,
+    )
+
+    mesh = nccl_world_of_one
+    assert mesh.world == 1 and mesh.backend == "nccl"
+    dp, solo = _world_one_programs(tmp_path, mesh, graphed_dp=True)
+    reset_collective_counts()
+    steps = 0
+    for epoch in range(2):
+        for program in (dp, solo):
+            program.begin_epoch(1e-3)
+        for i in range(dp.n_steps):
+            if dp.step.captured:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                dp.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            solo.step()
+            steps += 1
+    torch.cuda.synchronize()
+    assert dp.step.captures == 1
+    assert COLLECTIVES["all_reduce_grad"] == steps
+    for a, b in ((dp.optimizer.params, solo.optimizer.params),
+                 (dp.optimizer.mu, solo.optimizer.mu),
+                 (dp.optimizer.nu, solo.optimizer.nu)):
+        assert torch.equal(a, b)
+
+
+def _all_reduce_events(prof) -> tuple[list, list]:
+    """A trace's host calls of an all-reduce (the ``c10d`` op and NCCL's
+    record) and its NCCL kernels on the card."""
+    calls, kernels = [], []
+    for e in prof.events():
+        name = e.name.lower()
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "nccl" in name:
+                kernels.append(e)
+        elif "allreduce" in name.replace("_", ""):
+            calls.append(e)
+    return calls, kernels
+
+
+def test_the_step_all_reduce_is_replayed_from_the_graph(nccl_world_of_one,
+                                                       tmp_path):
+    """5 replays of the graphed world-1 step: 5 gradient all-reduces
+    counted through the replays, one capture, and no all-reduce issued on
+    the host (an eager all-reduce of the same mesh shows one). NCCL does
+    an in-place SUM at one rank with no work on the card, so the replays
+    hold no NCCL kernel either."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from masters_thesis_tpu_torch.parallel.mesh import (
+        COLLECTIVES,
+        reset_collective_counts,
+    )
+
+    mesh = nccl_world_of_one
+    dp, _ = _world_one_programs(tmp_path, mesh, graphed_dp=True)
+    dp.begin_epoch(1e-3)
+    dp.step()  # the warm-up and the capture
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as eager:
+        mesh.all_reduce_mean_(torch.ones(8, device=mesh.device))
+        torch.cuda.synchronize()
+    assert _all_reduce_events(eager)[0]
+    reset_collective_counts()
+    with profile(activities=activities) as prof:
+        for _ in range(5):
+            dp.step()
+        torch.cuda.synchronize()
+    calls, kernels = _all_reduce_events(prof)
+    assert dp.step.captures == 1
+    assert COLLECTIVES["all_reduce_grad"] == 5
+    assert calls == [] and kernels == []
+
+
+def test_more_devices_than_the_card_are_refused(cuda_device, tmp_path):
+    """``trainer.n_devices`` above the visible cards raises, naming the key,
+    in the process and through the entry point (exit non-zero, never a
+    run at world size 1)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from masters_thesis_tpu_torch.parallel.mesh import resolve_world
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=rf"^trainer\.n_devices={n}: "):
+        resolve_world("tpu_xla", n, cuda_device)
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "masters_thesis_tpu_torch", "train",
+         "trainer=tpu_xla", f"trainer.n_devices={n}",
+         f"datamodule.data_dir={tmp_path / 'data'}",
+         f"logger.save_dir={tmp_path / 'logs'}"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert f"trainer.n_devices={n}" in proc.stderr
+    assert not (tmp_path / "logs").exists()

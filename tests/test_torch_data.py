@@ -160,4 +160,5 @@ def test_bootstrap_and_cache_refuse_and_reuse(tmp_path):
     assert other.train_arrays().x.shape[1:] == (3, 20, 3)
     (tmp_path / "dgp.json").unlink()
     with pytest.raises(ValueError, match="without a dgp.json"):
-        bootstrap_synthetic(tmp_path, n_stocks=3, n_samples=400, seed=0)
+        bootstrap_synthetic(tmp_path, n_stocks=3, n_samples=400, seed=0,
+                            marker_grace_s=0.1)

@@ -212,20 +212,20 @@ def test_multirun_writes_numbered_job_dirs(data_dir, tmp_path):
 
 REFUSED = [
     ("trainer.precision", ["trainer.precision=bf16-mixed"]),
-    ("trainer.n_devices", ["+trainer.n_devices=2"]),
-    ("trainer.strategy", ["trainer.strategy=tpu_xla"]),
-    ("trainer.distributed", ["trainer.distributed=true"]),
+    ("trainer.n_devices", ["+trainer.n_devices=0"]),
+    ("trainer.strategy", ["trainer.strategy=ddp"]),
+    ("trainer.distributed", ["trainer.distributed=sometimes"]),
     ("trainer.epoch_mode", ["trainer.epoch_mode=pipelined"]),
-    ("trainer.shard_axis", ["trainer.shard_axis=asset"]),
+    ("trainer.shard_axis", ["trainer.shard_axis=stock"]),
     ("datamodule.n_factors", ["datamodule.n_factors=3"]),
     ("datamodule.engine", ["datamodule.engine=native", "model=kfactor",
                            "datamodule.n_factors=3"]),
     ("datamodule", ["datamodule=real", "~datamodule.raw_dir"]),
     ("model.kernel_impl", ["model.kernel_impl=pallas"]),
     ("model.n_factors", ["model=kfactor", "model.n_factors=2"]),
-    ("launcher", ["-m", "launcher=joblib"]),
-    ("launcher.n_jobs", ["-m", "launcher.n_jobs=2"]),
-    ("launcher.num_hosts", ["-m", "launcher.num_hosts=2"]),
+    ("launcher", ["-m", "launcher.name=ray"]),
+    ("launcher.n_jobs", ["-m", "launcher.n_jobs=0"]),
+    ("launcher.num_hosts", ["-m", "launcher.num_hosts=0"]),
 ]
 
 

@@ -48,7 +48,9 @@ def test_port_imports_with_jax_blocked():
                  "telemetry.profiling", "telemetry.report",
                  "telemetry.quality", "telemetry.slo", "telemetry.__main__",
                  "resilience.backoff", "resilience.supervisor",
-                 "resilience.__main__"):
+                 "resilience.__main__", "parallel", "parallel.mesh",
+                 "parallel.launch", "utils.backend_probe", "utils.io",
+                 "utils.cuda_graph", "train.steps", "models.objectives"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -669,7 +669,7 @@ def test_stacked_entry_point_refuses_a_time_blocked_grouping(tmp_path):
 
 def test_stacked_entry_point_refuses_what_train_refuses(tmp_path):
     for override, key in (("trainer.epoch_mode=stream", "epoch_mode"),
-                          ("trainer.n_devices=2", "n_devices")):
+                          ("trainer.n_devices=0", "n_devices")):
         proc = _child([override, "--replicas", '[{"name": "a", "seed": 0}]',
                        "--ckpt-dir", str(tmp_path / "ck")], tmp_path)
         assert proc.returncode != 0
