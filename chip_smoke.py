@@ -42,7 +42,13 @@ whose attempt 1 is killed in the middle of a checkpoint's publish
 (``MTT_FAULT_PLAN``) and whose attempt 2 resumes it bit for bit, reads the
 child's ``events.jsonl`` back with ``telemetry summarize`` (one restart)
 and prints the time to recover; it also corrupts a published checkpoint,
-which the restore and the server must catch. Beside it
+which the restore and the server must catch. ``fleet``, beside those
+children, runs the training fleet (``python -m
+masters_thesis_tpu_torch.resilience fleet --nprocs 1``) around one NCCL
+rank of ``train``, kills generation 0 after epoch 1 and holds the
+relaunched generation 1 to the unbroken run bit for bit, its collective
+schedule, ``telemetry postmortem`` and ``aggregate``, and its kernels'
+launches. Beside it
 ``telemetry_profile`` runs a short ``train`` child with the profiler
 window on one epoch, whose trace must name the pair path's kernels. Every
 ``train`` child writes its ``events.jsonl`` (``trainer.telemetry=auto``);
@@ -424,14 +430,19 @@ def cost(name: str, rows: int, n_t: int = T, n_layers: int = STACK_LAYERS,
 # ------------------------------------------------------------------ phases
 
 
-def phase_device() -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
+
+
+def phase_device() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _card()
     # The card's name and power limit as nvidia-smi prints them.
     print(smi, flush=True)
     info = {
@@ -2903,6 +2914,189 @@ def _summarize_cli(run_dir: Path) -> tuple[int, str, dict]:
     return text.returncode, text.stdout, json.loads(report.stdout or "{}")
 
 
+class _Fleet:
+    """``python -m masters_thesis_tpu_torch.resilience fleet --nprocs 1``
+    around one NCCL rank of the train child (``_CLI_CHILD``, as ``python -m
+    masters_thesis_tpu_torch train`` runs) on the card, with ``plan`` in
+    the environment (attempt 1, so generation 0 only): the supervisor's
+    ``events.jsonl`` under ``<run_dir>/supervisor``, each generation's rank
+    output and telemetry under ``<run_dir>/g<gen>/p0``."""
+
+    def __init__(self, run_dir: Path, ckpt_dir: Path, overrides: list,
+                 plan: str, side_by_side: int):
+        env = {k: v for k, v in os.environ.items()
+               if k not in (faults.FAULT_PLAN_ENV, faults.ATTEMPT_ENV,
+                            "MTT_LR_SCALE", "MTT_GENERATION")}
+        env[faults.FAULT_PLAN_ENV] = plan
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1)
+                                         // side_by_side))
+        self.run_dir = run_dir
+        self.err = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "masters_thesis_tpu_torch.resilience",
+             "fleet", "--nprocs", "1", "--min-nprocs", "1",
+             "--run-dir", str(run_dir), "--ckpt-dir", str(ckpt_dir),
+             "--hang-timeout-s", "120", "--backoff-s", "0.5",
+             "--backoff-factor", "1", "--max-generations", "3", "--",
+             sys.executable, "-c", _CLI_CHILD, "train", "--device", DEVICE,
+             *overrides, *DP_WORLD1, "trainer.resume=auto",
+             "trainer.telemetry={out}"],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.DEVNULL, stderr=self.err, text=True)
+
+    def wait(self, timeout: float = 700) -> tuple[int, str, float]:
+        """The supervisor's exit code, its stderr and its seconds."""
+        try:
+            code = self.proc.wait(timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        seconds = time.perf_counter() - self.t0
+        self.err.seek(0)
+        err = self.err.read()
+        self.err.close()
+        return code, err, seconds
+
+
+def _same_checkpoints(got: Path, want: Path) -> dict:
+    """``best`` and ``last`` of two checkpoint dirs: weights, optimizer
+    state, scheduler and meta, bit for bit."""
+    equal = {}
+    for tag in ("best", "last"):
+        a, b = load_checkpoint(got, tag), load_checkpoint(want, tag)
+        equal[tag] = (
+            a[0].keys() == b[0].keys()
+            and all(torch.equal(a[0][k], v) for k, v in b[0].items())
+            and all(torch.equal(a[1][k], v) if torch.is_tensor(v)
+                    else a[1][k] == v for k, v in b[1].items())
+            and a[2:] == b[2:])
+    return equal
+
+
+def _fleet_view(command: str, run_dir: Path) -> tuple[int, str]:
+    """``python -m masters_thesis_tpu_torch.telemetry <command> <run_dir>``
+    (a child that imports no torch): its exit code and its text."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "masters_thesis_tpu_torch.telemetry", command,
+         str(run_dir)], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=120)
+    return proc.returncode, proc.stdout
+
+
+#: The training kernels (rows 5-6 of the port's table) on the fleet's path.
+FLEET_PATH = ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad")
+
+
+def phase_fleet(fleet: "_Fleet", runs: Path, whole_launches: dict,
+                resumed_launches: dict) -> dict:
+    """The training fleet (``resilience fleet``) on the card: one NCCL rank
+    of ``train`` at model=small's full width on the resilience phase's data
+    (3 epochs), run beside that phase's children, its generation 0 killed
+    right after epoch 1 is dispatched (``trainer.epoch_dispatched``).
+    Held: ``verdict=completed`` in 2 generations, not resized; generation
+    0's ``fleet_failure`` transient with rc 137; the relaunch resumed from
+    ``last`` or ``last.prev``; the final ``best`` and ``last`` bit for bit
+    the unbroken run's (``whole``); generation 1's ``run_started`` a rank
+    of a group of 1 on the card; its last heartbeat's collective schedule
+    the barriers and one ``pmean`` an epoch; ``telemetry postmortem`` and
+    ``aggregate`` exit 0 with generation 0 ``superseded``; generation 1's
+    launches of the pair's training kernels nonzero and equal to a run's
+    resumed at epoch 1 (which trains 2 epochs, the mean of the unbroken
+    run's 3 and the supervised run's resumed 1: a fit launches a fixed
+    number, plus the same number an epoch). Printed: the time to recover
+    (generation 0's failure to generation 1's first ``epoch`` event), the
+    lost work and the teardown's seconds, beside the card."""
+    code, err, seconds = fleet.wait()
+    run_dir = fleet.run_dir
+    if code != 0:
+        raise AssertionError(f"fleet: the supervisor exited {code}: "
+                             f"{err[-3000:]}")
+    events = read_events(run_dir / "supervisor" / "events.jsonl")
+    failures = [e for e in events if e["kind"] == "fleet_failure"]
+    relaunches = [e for e in events if e["kind"] == "fleet_relaunch"]
+    verdict = next(e for e in events if e["kind"] == "fleet_verdict")
+    rank_events = read_events(run_dir / "g1" / "p0" / "events.jsonl")
+    started = next(e for e in rank_events if e["kind"] == "run_started")
+    first_epoch = next(e["ts"] for e in rank_events if e["kind"] == "epoch")
+    heartbeat = json.loads((run_dir / "g1" / "p0" / "heartbeat.json")
+                           .read_text())
+    chain = heartbeat.get("collective_schedule") or {}
+    tail = chain.get("tail") or []
+    lines = (run_dir / "g1" / "p0.out").read_text().splitlines()
+    launches = json.loads(lines[-1])["launches"]
+    post_code, post_text = _fleet_view("postmortem", run_dir)
+    agg_code, _ = _fleet_view("aggregate", run_dir)
+    statuses = dict(re.findall(r"^\s+(g\d+/p\d+)\s+(\w+)", post_text,
+                               re.MULTILINE))
+    equal = _same_checkpoints(runs / "fleet" / "checkpoints",
+                              runs / "whole" / "checkpoints")
+    expected = {k: (whole_launches.get(k, 0) + resumed_launches.get(k, 0)) / 2
+                for k in FLEET_PATH}
+    fail = failures[0] if failures else {}
+    out = {
+        "phase": "fleet",
+        "card": _card(),
+        "seconds": seconds,
+        "verdict": {k: verdict[k] for k in ("verdict", "generations",
+                                            "final_nprocs", "resized")},
+        "failures": [{k: f.get(k) for k in ("gen", "rank", "rc",
+                                            "classification", "lost_work_s",
+                                            "teardown_s")}
+                     for f in failures],
+        "resumed_from": relaunches[0]["resumed_from"] if relaunches else None,
+        "time_to_recover_s": first_epoch - fail.get("failed_at_ts", first_epoch),
+        "lost_work_s": fail.get("lost_work_s"),
+        "teardown_s": fail.get("teardown_s"),
+        "backoff_s": relaunches[0]["backoff_s"] if relaunches else None,
+        "run_started": {k: started.get(k) for k in ("n_devices", "strategy",
+                                                    "platform", "start_epoch",
+                                                    "distributed")},
+        "schedule": {"n": chain.get("n"),
+                     "barriers": sum(e["kind"] == "barrier" for e in tail),
+                     "pmean_steps": [e["step"] for e in tail
+                                     if e["kind"] == "pmean"]},
+        "postmortem_exit": post_code,
+        "aggregate_exit": agg_code,
+        "statuses": statuses,
+        "bit_equal_to_unbroken": equal,
+        "launches": {k: v for k, v in launches.items() if v},
+        "launches_expected": expected,
+    }
+    emit(out)
+    if (verdict["verdict"] != "completed" or verdict["generations"] != 2
+            or verdict["resized"] or len(failures) != 1
+            or (fail["gen"], fail["rc"], fail["classification"])
+            != (0, 137, "transient")
+            or Path(out["resumed_from"] or "").name not in ("last",
+                                                            "last.prev")):
+        raise AssertionError(f"fleet: supervision: {out}")
+    dist = started.get("distributed") or {}
+    if (started.get("n_devices") != 1 or started.get("platform") != "cuda"
+            or started.get("start_epoch") != 1
+            or dist.get("process_count") != 1
+            or not str(dist.get("coordinator", "")).startswith("file://")):
+        raise AssertionError(f"fleet: generation 1 is no rank of a group of "
+                             f"1 on the card: {started}")
+    if (out["schedule"]["pmean_steps"] != [1, 2] or chain.get("n") != len(tail)
+            or chain["n"] != out["schedule"]["barriers"] + 2):
+        raise AssertionError(f"fleet: the collective schedule: {out['schedule']}")
+    if (post_code != 0 or agg_code != 0
+            or statuses.get("g0/p0") != "superseded"
+            or statuses.get("g1/p0") != "finished"):
+        raise AssertionError(f"fleet: postmortem {post_code} aggregate "
+                             f"{agg_code}: {post_text}")
+    if not all(equal.values()):
+        raise AssertionError(f"fleet: the relaunched fleet is not the "
+                             f"unbroken run: {equal}")
+    if not all(launches.get(k) for k in FLEET_PATH + ("lstm_pair_fwd",)) or \
+            any(launches[k] != expected[k] for k in FLEET_PATH):
+        raise AssertionError(f"fleet: generation 1's kernels: {launches} "
+                             f"against {expected}")
+    return out
+
+
 def phase_resilience(profile_child: "_Child | None" = None) -> dict:
     """Crash-safe checkpoints and the run supervisor through the entry
     point (model=small, 100 stocks x 20,000 samples, child processes side
@@ -2932,10 +3126,16 @@ def phase_resilience(profile_child: "_Child | None" = None) -> dict:
     corrupt = json.dumps({"seed": 7, "faults": [
         {"point": "checkpoint.post_publish", "kind": "corrupt",
          "match": {"tag": "last", "epoch": 2}}]})
+    fleet_kill = json.dumps([{"point": "trainer.epoch_dispatched",
+                              "kind": "kill", "match": {"epoch": 1}}])
+    fleet = None
     try:
         supervised = _Supervised(save_dir / "supervisor", runs / "split",
                                  [*common, "logger.version=split"], kill,
                                  side_by_side=3)
+        fleet = _Fleet(save_dir / "fleet_run", runs / "fleet" / "checkpoints",
+                       [*common, "logger.version=fleet"], fleet_kill,
+                       side_by_side=3)
         (whole, whole_s), (corrupted, corrupted_s) = _wait_all([
             _Child("train", *common, "logger.version=whole", side_by_side=3),
             _Child("train", *common, "logger.version=corrupt",
@@ -2963,16 +3163,8 @@ def phase_resilience(profile_child: "_Child | None" = None) -> dict:
                      for line in resumed_err.splitlines()
                      if line.startswith("[checkpoint] interrupted publish")
                      and "/last:" in line), [])
-        split = runs / "split" / "checkpoints"
-        equal = {}
-        for tag in ("best", "last"):
-            got = load_checkpoint(split, tag)
-            want = load_checkpoint(runs / "whole" / "checkpoints", tag)
-            equal[tag] = (
-                all(torch.equal(got[0][k], v) for k, v in want[0].items())
-                and all(torch.equal(got[1][k], v) if torch.is_tensor(v)
-                        else got[1][k] == v for k, v in want[1].items())
-                and got[2:] == want[2:])
+        equal = _same_checkpoints(runs / "split" / "checkpoints",
+                                  runs / "whole" / "checkpoints")
         child_events = read_events(runs / "split" / "telemetry" / "events.jsonl")
         attempt_1_end = next(e["ts"] for e in attempts if e["n"] == 1)
         first_epoch = next(e["ts"] for e in child_events
@@ -2996,7 +3188,13 @@ def phase_resilience(profile_child: "_Child | None" = None) -> dict:
             refused = False
         except CorruptCheckpointError:
             refused = True
+        fleet_out = phase_fleet(
+            fleet, runs, json.loads(whole.stdout.splitlines()[-1])["launches"],
+            launches)
     finally:
+        if fleet is not None and fleet.proc.poll() is None:
+            fleet.proc.kill()
+            fleet.proc.wait()
         shutil.rmtree(save_dir, ignore_errors=True)
     out = {
         "phase": "resilience",
@@ -3056,6 +3254,7 @@ def phase_resilience(profile_child: "_Child | None" = None) -> dict:
     if not all(launches.get(k) for k in path):
         raise AssertionError(f"resilience: kernels off the path: {launches}")
     out["profile"] = profile
+    out["fleet"] = fleet_out
     return out
 
 
@@ -5563,7 +5762,7 @@ def main() -> int:
     profile_child = _start_telemetry_profile()
     sweeps = _start_data_parallel_sweeps()
     try:
-        phase_resilience(profile_child)
+        fleet = phase_resilience(profile_child)["fleet"]
         phase_serve_preflight(preflight)
         stacked_driver = phase_stacked_driver(stacked_child)
         phase_data_parallel_sweeps(sweeps)
@@ -5671,6 +5870,12 @@ def main() -> int:
                       "real_medium": real["launches"]["train"]}
             summary[-1]["launches_by_path"] = {
                 STREAM_PATHS[name]: counts[STREAM_PATHS[name]][counter]}
+        if name in FLEET_PATH + ("lstm_pair_fwd",):
+            # Its launches in the training fleet's generation 1 (the NCCL
+            # rank resumed at epoch 1 by ``resilience fleet``; the maskless
+            # forward in its validation and fingerprints).
+            summary[-1].setdefault("launches_by_path", {})["fleet"] = \
+                fleet["launches"][counter]
         if name in serve_paths:
             summary[-1].setdefault("launches_by_path", {}).update(
                 {phase: path["launches"][name]

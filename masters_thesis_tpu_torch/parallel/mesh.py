@@ -15,7 +15,8 @@ ranks in collectives:
 - one all-reduce of the metric sums an epoch (``all_reduce_sums``, the
   ``psum`` of the JAX epoch and eval programs);
 - named barriers around a checkpoint's publish and recovery
-  (``fleet_barrier``, behind the ``dist.barrier`` fault point).
+  (``fleet_barrier``, behind the ``dist.barrier`` fault point), each
+  chained into the collective schedule (``telemetry/schedule.py``).
 
 ``shard_map``, ``global_put`` and ``batch_sharding`` have no torch
 meaning: a rank slices its own shard (``shard_bounds``, or the JAX
@@ -58,6 +59,9 @@ DEFAULT_TIMEOUT_S = 300.0
 
 STRATEGIES = ("auto", "single_device", "tpu_xla")
 SHARD_AXES = ("window", "asset")
+#: The data axis's name, as the JAX mesh calls it (its collective-schedule
+#: entries name it).
+DATA_AXIS = "data"
 
 #: All-reduces issued since the last ``reset_collective_counts()``:
 #: ``all_reduce_grad`` the step's gradient, ``all_reduce_sums`` an epoch's
@@ -212,11 +216,16 @@ def balanced_shard_sizes(n: int, world: int) -> list[int]:
 
 
 def fleet_barrier(name: str) -> None:
-    """Named sync point of every rank; nothing at world size 1 or outside
-    a group. The ``dist.barrier`` fault point fires first, so a plan can
-    wedge one rank inside the barrier, as a dead host does."""
+    """Named sync point of every rank; no wait at world size 1 or outside
+    a group. The barrier is first chained into the collective schedule (at
+    any world size, as in the JAX package), then the ``dist.barrier`` fault
+    point fires, so a plan can wedge one rank inside the barrier, as a dead
+    host does, and that rank's heartbeat already names the barrier it is
+    stuck in."""
     from masters_thesis_tpu_torch.resilience import faults
+    from masters_thesis_tpu_torch.telemetry.schedule import record_collective
 
+    record_collective("barrier", name=name)
     faults.fire("dist.barrier", name=name)
     dist = _dist()
     if not dist.is_initialized() or dist.get_world_size() <= 1:

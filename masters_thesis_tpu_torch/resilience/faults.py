@@ -31,8 +31,14 @@ package's context keys, ``serve.admit`` in ``serve/queue.py`` (``rid``,
 :func:`shift_params`), ``serve.dispatch`` in ``serve/server.py`` (``seq``,
 ``n``; ``wedge`` fails the dispatch, ``nan`` withholds its answers) and
 ``serve.pre_swap`` in ``serve/swap.py`` (``tag``; ``corrupt`` flips a byte
-of the candidate). The other points are accepted so that a plan written for
-the JAX package parses here too; they fire nowhere in the port yet.
+of the candidate), ``dist.barrier`` in ``parallel/mesh.py``
+``fleet_barrier`` (``name``; a ``hang`` wedges the rank inside the
+barrier), ``fleet.rank_heartbeat`` in ``resilience/fleetsup.py``, in the
+fleet supervisor's own process (``rank``, ``gen``; ``wedge`` makes the hang
+watchdog take that rank for hung) and ``worker.epoch`` in the simulated
+ranks of ``resilience/__main__.py`` (``epoch``, and ``rank`` in a fleet
+worker). The other points are accepted so that a plan written for the JAX
+package parses here too; they fire nowhere in the port yet.
 """
 
 from __future__ import annotations

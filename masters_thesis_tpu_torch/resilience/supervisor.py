@@ -32,7 +32,8 @@ heartbeats written during the current attempt (a dead attempt's stale
 heartbeat left in the watch dir no longer counts against the next
 attempt while it starts); the backend probe and its CPU fallback are not
 ported (a child pinned to the CPU without a word is the fallback the port
-forbids; ROADMAP queue 1 item 5), nor ``ReplicaRestartPolicy`` (item 4).
+forbids; ROADMAP queue 1 item 5), nor ``ReplicaRestartPolicy`` (the
+serving fleet's, item 4b). N ranks are ``resilience/fleetsup.py``'s.
 ``metrics_port`` starts the telemetry plane over the children's streams
 (``watch_dir``, else ``run_dir``): an SLO engine with ``slo_rules``
 (default ``default_train_rules()``) and the ``/metrics``, ``/healthz``
@@ -217,7 +218,163 @@ def classify_exit(
     )
 
 
-class RunSupervisor:
+def last_heartbeat_ts(root: Path | None, since_ts: float = 0.0) -> float | None:
+    """The newest progress beat among the flight-recorder heartbeats under
+    ``root`` written since ``since_ts`` (the attempt's or the generation's
+    start): a dead launch's heartbeat, stale by construction, does not
+    count against the next one."""
+    if root is None or not root.exists():
+        return None
+    from masters_thesis_tpu_torch.telemetry.flightrec import (
+        HEARTBEAT_FILENAME,
+    )
+
+    best = None
+    for hb in sorted(root.rglob(HEARTBEAT_FILENAME)):
+        obj = _read_json(hb)
+        try:
+            written = (obj or {}).get("ts") or hb.stat().st_mtime
+        except OSError:
+            continue
+        if written < since_ts:
+            continue
+        # last_beat_ts is the PROGRESS marker; the file's own ts keeps
+        # advancing while the main thread hangs (the heartbeat thread
+        # outlives it), so it must not count.
+        ts = obj.get("last_beat_ts") if obj else None
+        if ts is None:
+            ts = written
+        best = ts if best is None else max(best, ts)
+    return best
+
+
+def crash_context(root: Path | None,
+                  since_ts: float) -> tuple[str | None, int | None]:
+    """The phase and epoch of the newest crashdump under ``root`` written
+    since ``since_ts``: both feed the crash fingerprint."""
+    if root is None or not root.exists():
+        return None, None
+    from masters_thesis_tpu_torch.telemetry.flightrec import (
+        CRASHDUMP_FILENAME,
+    )
+
+    phase = epoch = None
+    for p in sorted(root.rglob(CRASHDUMP_FILENAME)):
+        dump = _read_json(p)
+        if dump and (dump.get("ts") or 0.0) >= since_ts:
+            phase, epoch = dump.get("phase"), dump.get("epoch")
+    return phase, epoch
+
+
+def last_publish(ckpt_dir: Path | None) -> tuple[str | None, float | None]:
+    """(resume path, publish time) of the last-good checkpoint, read from
+    the filesystem only.
+
+    The sidecar json is the publish's final rename, so its presence
+    means a complete pair, and its mtime is when the publish ended;
+    verification and recovery are the child trainer's job (it imports
+    the checkpoint machinery)."""
+    if ckpt_dir is None:
+        return None, None
+    for tag in ("last", "last.prev"):
+        tree = ckpt_dir / tag
+        sidecar = ckpt_dir / f"{tag}.json"
+        if tree.exists() and sidecar.exists():
+            try:
+                return str(tree), sidecar.stat().st_mtime
+            except OSError:
+                return str(tree), None
+    return None, None
+
+
+class SupervisorTelemetry:
+    """What both supervisors keep of their own: an event stream and spans
+    under the run's one trace id, and the telemetry plane (``/metrics``,
+    ``/healthz``, ``/slo`` and an SLO engine over the children's streams).
+    Nothing here may stop the supervision: a stream that cannot be
+    written, or a plane that fails to start or stop, is dropped."""
+
+    def _init_telemetry(self, tel_dir: Path, run_id: str,
+                        metrics_port: int | None, slo_rules,
+                        plane_root: Path) -> None:
+        self._tel_dir, self._tel_run_id = tel_dir, run_id
+        # None: no plane; 0: an ephemeral port.
+        self.metrics_port = metrics_port
+        self._slo_rules = slo_rules
+        self._plane_root = plane_root
+        self._tel = self._trace = None
+        self._exposition = self._slo_engine = None
+
+    def _telemetry(self):
+        if self._tel is None:
+            from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+
+            self._tel = TelemetryRun(self._tel_dir, run_id=self._tel_run_id)
+        return self._tel
+
+    def _event(self, kind: str, **payload) -> None:
+        try:
+            self._telemetry().event(kind, **payload)
+        except Exception:
+            # The supervisor's own telemetry must never kill supervision.
+            pass
+
+    def _tracer(self):
+        """Span writer on the supervisor's own stream, pinned to the
+        run's stable trace id (the supervisor's process env may not carry
+        it — it lives in base_env for the children)."""
+        if self._trace is None:
+            try:
+                from masters_thesis_tpu_torch.telemetry.trace import Tracer
+
+                tel = self._telemetry()
+                self._trace = Tracer(tel.sink, trace_id=self.trace_id)
+                # Share with the TelemetryRun so close() aborts leftovers.
+                tel._tracer = self._trace
+            except Exception:
+                return None
+        return self._trace
+
+    def _start_plane(self) -> None:
+        if self.metrics_port is None:
+            return
+        try:
+            from masters_thesis_tpu_torch.telemetry.exposition import (
+                start_telemetry_plane,
+            )
+            from masters_thesis_tpu_torch.telemetry.slo import (
+                default_train_rules,
+            )
+
+            self._exposition, self._slo_engine = start_telemetry_plane(
+                self._telemetry(), self.metrics_port,
+                rules=self._slo_rules or default_train_rules(),
+                root=self._plane_root)
+        except Exception:
+            # Monitoring must never kill supervision.
+            self._exposition = self._slo_engine = None
+
+    def _close_telemetry(self) -> None:
+        """Stop the plane (its engine ticks once more) and close the
+        stream."""
+        if self._exposition is not None or self._slo_engine is not None:
+            try:
+                from masters_thesis_tpu_torch.telemetry.exposition import (
+                    stop_telemetry_plane,
+                )
+
+                stop_telemetry_plane(self._exposition, self._slo_engine)
+            except Exception:
+                pass
+            self._exposition = self._slo_engine = None
+        if self._tel is not None:
+            try:
+                self._tel.close()
+            except Exception:
+                pass
+
+
+class RunSupervisor(SupervisorTelemetry):
     """Supervise ``cmd`` to completion, retrying/rolling back per policy.
 
     ``watch_dir`` is where the CHILD's telemetry lands (heartbeat.json for
@@ -249,10 +406,9 @@ class RunSupervisor:
         self.watch_dir = Path(watch_dir) if watch_dir else None
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
         self.passthrough = passthrough
-        self.metrics_port = metrics_port
-        self._slo_rules = slo_rules
-        self._exposition = self._slo_engine = None
-        self._tel = None
+        self._init_telemetry(
+            self.run_dir, f"supervisor-{self.run_dir.name}", metrics_port,
+            slo_rules, self.watch_dir or self.run_dir)
         # One stable trace id for the WHOLE supervised run: adopted from
         # the caller's env when present (a grid runner tracing the cell),
         # minted once otherwise — and propagated FORWARD to every attempt
@@ -260,89 +416,9 @@ class RunSupervisor:
         # being stitched together after the fact.
         self.trace_id = self.base_env.get(TRACE_ENV) or new_trace_id()
         self.base_env[TRACE_ENV] = self.trace_id
-        self._trace = None
         self._run_span = None
 
-    # ------------------------------------------------------------ telemetry
-
-    def _telemetry(self):
-        if self._tel is None:
-            from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
-
-            self._tel = TelemetryRun(
-                self.run_dir, run_id=f"supervisor-{self.run_dir.name}"
-            )
-        return self._tel
-
-    def _event(self, kind: str, **payload) -> None:
-        try:
-            self._telemetry().event(kind, **payload)
-        except Exception:
-            # The supervisor's own telemetry must never kill supervision.
-            pass
-
-    def _tracer(self):
-        """Span writer on the supervisor's own stream, pinned to the
-        run's stable trace id (the supervisor's process env may not carry
-        it — it lives in base_env for the children)."""
-        if self._trace is None:
-            try:
-                from masters_thesis_tpu_torch.telemetry.trace import Tracer
-
-                tel = self._telemetry()
-                self._trace = Tracer(tel.sink, trace_id=self.trace_id)
-                # Share with the TelemetryRun so close() aborts leftovers.
-                tel._tracer = self._trace
-            except Exception:
-                return None
-        return self._trace
-
     # ------------------------------------------------------------- evidence
-
-    def _heartbeats(self) -> list[Path]:
-        if self.watch_dir is None or not self.watch_dir.exists():
-            return []
-        from masters_thesis_tpu_torch.telemetry.flightrec import (
-            HEARTBEAT_FILENAME,
-        )
-
-        return sorted(self.watch_dir.rglob(HEARTBEAT_FILENAME))
-
-    def _last_heartbeat_ts(self, since_ts: float = 0.0) -> float | None:
-        """The newest progress beat among the heartbeats written since
-        ``since_ts`` (the attempt's start): a dead attempt's heartbeat,
-        stale by construction, does not count against the next one."""
-        best = None
-        for hb in self._heartbeats():
-            obj = _read_json(hb)
-            try:
-                written = (obj or {}).get("ts") or hb.stat().st_mtime
-            except OSError:
-                continue
-            if written < since_ts:
-                continue
-            # last_beat_ts is the PROGRESS marker; the file's own ts keeps
-            # advancing while the main thread hangs (the heartbeat thread
-            # outlives it), so it must not count.
-            ts = obj.get("last_beat_ts") if obj else None
-            if ts is None:
-                ts = written
-            best = ts if best is None else max(best, ts)
-        return best
-
-    def _crashdumps(self) -> list[dict]:
-        if self.watch_dir is None or not self.watch_dir.exists():
-            return []
-        from masters_thesis_tpu_torch.telemetry.flightrec import (
-            CRASHDUMP_FILENAME,
-        )
-
-        dumps = []
-        for p in sorted(self.watch_dir.rglob(CRASHDUMP_FILENAME)):
-            obj = _read_json(p)
-            if obj:
-                dumps.append(obj)
-        return dumps
 
     def _diverged_epoch(self, since_ts: float) -> int | None:
         """Did the child's event stream end in a divergence halt during
@@ -371,24 +447,6 @@ class RunSupervisor:
                     break
         return None
 
-    def _ckpt_state(self) -> tuple[str | None, float | None]:
-        """(resume path, mtime) of the last-good checkpoint, fs-only.
-
-        The sidecar json is the publish's final rename, so its presence
-        means a complete pair; verification/recovery is the child
-        trainer's job (it imports the checkpoint machinery)."""
-        if self.ckpt_dir is None:
-            return None, None
-        for tag in ("last", "last.prev"):
-            tree = self.ckpt_dir / tag
-            sidecar = self.ckpt_dir / f"{tag}.json"
-            if tree.exists() and sidecar.exists():
-                try:
-                    return str(tree), sidecar.stat().st_mtime
-                except OSError:
-                    return str(tree), None
-        return None, None
-
     # ------------------------------------------------------------ the child
 
     def _launch(self, attempt: int, lr_scale: float) -> AttemptOutcome:
@@ -400,7 +458,7 @@ class RunSupervisor:
         env[ATTEMPT_ENV] = str(attempt)
         if lr_scale != 1.0:
             env[LR_SCALE_ENV] = f"{lr_scale:g}"
-        resumed_from, _ = self._ckpt_state()
+        resumed_from, _ = last_publish(self.ckpt_dir)
 
         start_ts = time.time()
         t0 = time.monotonic()
@@ -466,7 +524,7 @@ class RunSupervisor:
                     rc = None  # timeout, not the child's own exit
                     break
                 if cfg.hang_timeout_s:
-                    hb = self._last_heartbeat_ts(start_ts)
+                    hb = last_heartbeat_ts(self.watch_dir, start_ts)
                     if (
                         hb is not None
                         and time.time() - hb > cfg.hang_timeout_s
@@ -495,7 +553,7 @@ class RunSupervisor:
         # managed (none -> the whole attempt), 0 for successes.
         lost = 0.0
         if classification.kind != "success":
-            _, ckpt_mtime_after = self._ckpt_state()
+            _, ckpt_mtime_after = last_publish(self.ckpt_dir)
             if ckpt_mtime_after and ckpt_mtime_after > start_ts:
                 lost = max(0.0, time.time() - ckpt_mtime_after)
             else:
@@ -563,10 +621,7 @@ class RunSupervisor:
         diverged_epoch = None
         if not timed_out and not hang_killed:
             diverged_epoch = self._diverged_epoch(start_ts)
-        phase = epoch = None
-        for dump in self._crashdumps():
-            if (dump.get("ts") or 0.0) >= start_ts:
-                phase, epoch = dump.get("phase"), dump.get("epoch")
+        phase, epoch = crash_context(self.watch_dir, start_ts)
         return classify_exit(
             rc,
             stderr_tail,
@@ -595,22 +650,7 @@ class RunSupervisor:
             probe=False,
             trace_id=self.trace_id,
         )
-        if self.metrics_port is not None:
-            try:
-                from masters_thesis_tpu_torch.telemetry.exposition import (
-                    start_telemetry_plane,
-                )
-                from masters_thesis_tpu_torch.telemetry.slo import (
-                    default_train_rules,
-                )
-
-                self._exposition, self._slo_engine = start_telemetry_plane(
-                    self._telemetry(), self.metrics_port,
-                    rules=self._slo_rules or default_train_rules(),
-                    root=self.watch_dir or self.run_dir)
-            except Exception:
-                # Monitoring must never kill supervision.
-                self._exposition = self._slo_engine = None
+        self._start_plane()
         t_start = time.monotonic()
         attempt = 0
         retries = rollbacks = 0
@@ -657,7 +697,7 @@ class RunSupervisor:
                     break
                 rollbacks += 1
                 lr_scale *= cfg.lr_factor
-                resume_from, _ = self._ckpt_state()
+                resume_from, _ = last_publish(self.ckpt_dir)
                 self._event(
                     "rollback",
                     n=rollbacks,
@@ -726,21 +766,7 @@ class RunSupervisor:
             degraded=False,
             trace_id=self.trace_id,
         )
-        if self._exposition is not None or self._slo_engine is not None:
-            try:
-                from masters_thesis_tpu_torch.telemetry.exposition import (
-                    stop_telemetry_plane,
-                )
-
-                stop_telemetry_plane(self._exposition, self._slo_engine)
-            except Exception:
-                pass
-            self._exposition = self._slo_engine = None
-        if self._tel is not None:
-            try:
-                self._tel.close()
-            except Exception:
-                pass
+        self._close_telemetry()
         return result
 
 

@@ -19,13 +19,23 @@ Counterpart of ``masters_thesis_tpu/telemetry/__main__.py``.
   a ``shadow_disagreement`` alert). Exit codes: 0 ok, 1 could not load, 2
   a detector breached or the contract is violated. ``--selfcheck`` runs
   the sketch, detector and gate fixture instead.
+- ``aggregate <root>`` — every rank's ``events.jsonl`` under a root (a
+  fleet supervisor's run dir: ``g<gen>/p<rank>/`` and ``supervisor/``)
+  folded into one fleet view (``telemetry/aggregate.py``): epoch-time skew,
+  the straggler, collective wait, heartbeat gaps, each rank's status, the
+  generations and the schedule audit. Exit codes: 0 ok, 1 could not load,
+  2 the fleet has failures.
+- ``postmortem <root>`` — the same view led by a one-line verdict on how
+  the run ended (which rank died, hung or straggled, and where). Exit 2
+  when a rank died, hung or stalled, or the schedules diverged.
+  ``--selfcheck`` runs a hermetic two-rank fixture instead (a healthy
+  fleet exits 0, one whose p1 hung and dumped exits 2 naming p1).
 - ``selfcheck`` — events -> report on a synthetic stream in a temporary
   directory, then the quality fixture and an SLO fixture (a burst of shed
   requests fires the burn-rate alert, which resolves once they stop).
 
-Not ported, each exiting 1 with the ROADMAP item that holds it:
-``postmortem``, ``aggregate`` and ``watch`` (fleet views, item 4),
-``ledger`` (item 6).
+Not ported, each exiting 1 with the ROADMAP item that holds it: ``watch``
+(the live fleet console, item 4b), ``ledger`` (item 6).
 """
 
 from __future__ import annotations
@@ -37,9 +47,7 @@ import tempfile
 
 #: The subcommands this package does not have yet, and where each waits.
 NOT_PORTED = {
-    "postmortem": "ROADMAP.md queue 1 item 4 (fleets)",
-    "aggregate": "ROADMAP.md queue 1 item 4 (fleets)",
-    "watch": "ROADMAP.md queue 1 item 4 (fleets)",
+    "watch": "ROADMAP.md queue 1 item 4b (the serving fleet)",
     "ledger": "ROADMAP.md queue 1 item 6 (with the first BENCHMARK.json)",
 }
 
@@ -58,6 +66,125 @@ def _summarize(args) -> int:
         return 1
     print(render_json(report) if args.json else render_text(report))
     return 2 if report["violations"] else 0
+
+
+def _aggregate(args) -> int:
+    from masters_thesis_tpu_torch.telemetry.aggregate import (
+        aggregate_path,
+        render_fleet_text,
+    )
+
+    try:
+        report = aggregate_path(args.root, grace_s=args.grace)
+    except FileNotFoundError as exc:
+        print(f"aggregate: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps(report, indent=2, default=str) if args.json
+          else render_fleet_text(report))
+    return 0 if report["healthy"] else 2
+
+
+def _postmortem(args) -> int:
+    if args.selfcheck:
+        return postmortem_selfcheck()
+    if args.root is None:
+        print("postmortem: a run root is required (or --selfcheck)",
+              file=sys.stderr)
+        return 1
+    from masters_thesis_tpu_torch.telemetry.aggregate import (
+        postmortem_path,
+        render_fleet_text,
+    )
+
+    try:
+        report = postmortem_path(args.root, grace_s=args.grace)
+    except FileNotFoundError as exc:
+        print(f"postmortem: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps(report, indent=2, default=str) if args.json
+          else render_fleet_text(report, postmortem=True))
+    return report["exit_code"]
+
+
+def postmortem_selfcheck() -> int:
+    """Two fabricated 2-rank runs: a healthy one must aggregate to exit 0
+    over 3 shared epochs, and one whose p1 hung and dumped must exit 2
+    with a headline naming p1, its status ``hung``."""
+    import os
+    from pathlib import Path
+
+    from masters_thesis_tpu_torch.telemetry.aggregate import postmortem_path
+    from masters_thesis_tpu_torch.telemetry.flightrec import FlightRecorder
+    from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+
+    def write_stream(root: Path, rank: int, epochs: int, finish: bool,
+                     wall: float) -> TelemetryRun:
+        os.environ["JAX_PROCESS_INDEX"] = str(rank)
+        os.environ["JAX_PROCESS_COUNT"] = "2"
+        tel = TelemetryRun(root / f"p{rank}", run_id=f"selfcheck-p{rank}")
+        tel.event("run_started", platform="cpu", n_devices=1,
+                  strategy="selfcheck", epoch_mode="scan", steps_per_epoch=4)
+        for epoch in range(epochs):
+            tel.event("epoch", epoch=epoch, steps=4, wall_s=wall,
+                      dispatch_s=0.01, device_s=None, data_wait_s=0.0,
+                      compile_events=0, compiled=False, fenced=False,
+                      steps_per_sec=4.0 / wall)
+        if finish:
+            tel.event("run_finished", epochs=epochs, total_steps=4 * epochs,
+                      steps_per_sec=4.0 / wall, diverged=False,
+                      best_val=0.5, epoch_compiles=1, eval_compiles=0)
+        return tel
+
+    saved = {k: os.environ.get(k)
+             for k in ("JAX_PROCESS_INDEX", "JAX_PROCESS_COUNT")}
+    failures: list[str] = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            healthy = Path(tmp) / "healthy"
+            for rank in range(2):
+                write_stream(healthy, rank, epochs=3, finish=True,
+                             wall=0.4 + 0.01 * rank).close()
+            report = postmortem_path(healthy)
+            if report["exit_code"] != 0:
+                failures.append(f"healthy fleet exited {report['exit_code']}"
+                                f": {report['failures']}")
+            if report["epoch_skew"]["epochs_compared"] != 3:
+                failures.append(
+                    f"expected 3 shared epochs, got {report['epoch_skew']}")
+
+            wedged = Path(tmp) / "wedged"
+            write_stream(wedged, 0, epochs=3, finish=True, wall=0.4).close()
+            tel = write_stream(wedged, 1, epochs=2, finish=False, wall=0.4)
+            rec = FlightRecorder(
+                tel.run_dir, run_id=tel.run_id, sink=tel.sink,
+                heartbeat_interval_s=60.0, install_signal_handlers=False,
+                enable_faulthandler=False,
+            )
+            rec.beat(phase="train", epoch=2)
+            rec.dump("hang: no progress beat for 9.9s (selfcheck)")
+            rec.close()
+            tel.close()
+            report = postmortem_path(wedged)
+            if report["exit_code"] != 2:
+                failures.append(
+                    f"wedged fleet exited {report['exit_code']}, wanted 2")
+            if "p1" not in report["headline"]:
+                failures.append(
+                    f"headline does not name p1: {report['headline']!r}")
+            statuses = {d["label"]: d["status"] for d in report["processes"]}
+            if statuses.get("p1") != "hung":
+                failures.append(f"p1 status {statuses.get('p1')!r} != 'hung'")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if failures:
+        print("telemetry: postmortem selfcheck FAILED: " + "; ".join(failures))
+        return 1
+    print("telemetry: postmortem selfcheck ok")
+    return 0
 
 
 def _trace(args) -> int:
@@ -214,6 +341,26 @@ def main(argv: list[str] | None = None) -> int:
     p_sum.add_argument("--json", action="store_true",
                        help="machine-readable report")
     p_sum.set_defaults(fn=_summarize)
+    p_agg = sub.add_parser(
+        "aggregate", help="every rank's event stream in one fleet view")
+    p_agg.add_argument("root", help="root holding the ranks' run dirs")
+    p_agg.add_argument("--json", action="store_true",
+                       help="machine-readable report")
+    p_agg.add_argument("--grace", type=float, default=30.0, metavar="S",
+                       help="a process active within S seconds is running")
+    p_agg.set_defaults(fn=_aggregate)
+    p_post = sub.add_parser(
+        "postmortem", help="the fleet's verdict on how the run ended; exit 2 "
+                           "on failures")
+    p_post.add_argument("root", nargs="?", default=None,
+                        help="root holding the ranks' run dirs")
+    p_post.add_argument("--json", action="store_true",
+                        help="machine-readable report")
+    p_post.add_argument("--grace", type=float, default=30.0, metavar="S",
+                        help="a process active within S seconds is running")
+    p_post.add_argument("--selfcheck", action="store_true",
+                        help="hermetic two-rank fixture instead of a run")
+    p_post.set_defaults(fn=_postmortem)
     p_trace = sub.add_parser(
         "trace", help="merged span timeline + attribution; exit 2 on a "
                       "broken span tree")

@@ -11,10 +11,14 @@ when the heartbeat watchdog sees no progress beat for ``hang_timeout_s``.
 A thread writes ``heartbeat.json`` (atomic replace) every few seconds, so
 the outside world (the run supervisor, ``resilience/supervisor.py``) can
 tell a live process from a dead or hung one even after SIGKILL, the one
-signal no handler survives. The JAX recorder's collective-schedule chain
-belongs to multi-device runs; one card has none, so the port's dumps and
-heartbeats carry no ``collective_schedule`` field, as the JAX recorder's
-do with an empty schedule.
+signal no handler survives. Each heartbeat and crashdump carries the
+process's collective-schedule chain (``telemetry/schedule.py``
+``GLOBAL_SCHEDULE``: the fleet barriers and one gradient all-reduce an
+epoch) as ``collective_schedule`` once it has an entry, and ``close``
+writes it into the stream as a ``collective_schedule`` event, as the JAX
+recorder does. The heartbeat thread goes on publishing the chain while the
+main thread is stuck in a collective, which is when ``telemetry
+postmortem``'s cross-rank audit needs it.
 
 Stdlib only. Everything the trainer calls on its loop (``beat``,
 ``record``, ``note``, ``track_scalar``) is a host-memory update: no device
@@ -36,6 +40,7 @@ import time
 import traceback
 from pathlib import Path
 
+from masters_thesis_tpu_torch.telemetry.schedule import GLOBAL_SCHEDULE
 
 CRASHDUMP_FILENAME = "crashdump.json"
 HEARTBEAT_FILENAME = "heartbeat.json"
@@ -107,8 +112,7 @@ class FlightRecorder:
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.run_id = run_id
         self.sink = sink
-        # One card, one process: the sink's identity (None unless a
-        # caller set one).
+        # The process's rank and world, as its sink's envelope carries them.
         self.proc = getattr(sink, "proc", None)
         self.nproc = getattr(sink, "nproc", None)
         self._host = socket.gethostname()
@@ -247,6 +251,9 @@ class FlightRecorder:
                 "threads": _all_thread_stacks(),
                 "ring": list(self._ring),
             }
+            sched = GLOBAL_SCHEDULE.snapshot()
+            if sched["n"]:
+                dump["collective_schedule"] = sched
             _atomic_write_json(self.crashdump_path, dump)
             self._write_heartbeat(crashdump=str(self.crashdump_path))
             if self.sink is not None:
@@ -281,6 +288,9 @@ class FlightRecorder:
 
     def _write_heartbeat(self, **extra) -> None:
         try:
+            sched = GLOBAL_SCHEDULE.snapshot()
+            if sched["n"]:
+                extra.setdefault("collective_schedule", sched)
             _atomic_write_json(
                 self.heartbeat_path,
                 {
@@ -374,6 +384,15 @@ class FlightRecorder:
         self._thread.join(timeout=2.0)
         self._phase = "closed"
         self._write_heartbeat(closed=True)
+        # The final chain into the flushed stream: the heartbeat file can be
+        # cleaned away, the event line stays for the postmortem's audit.
+        sched = GLOBAL_SCHEDULE.snapshot()
+        if sched["n"] and self.sink is not None:
+            try:
+                self.sink.try_emit("collective_schedule", n=sched["n"],
+                                   chain=sched["chain"], tail=sched["tail"])
+            except Exception:
+                pass  # forensics must never kill the run
         for signum, prev in self._prev_handlers.items():
             try:
                 signal.signal(signum, prev)

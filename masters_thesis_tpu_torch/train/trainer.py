@@ -33,7 +33,9 @@ counterpart of ``jax.random.fold_in(dropout_rng, epoch)``: a resumed run
 draws what an unbroken one draws; a relaunch by the run supervisor after a
 divergence carries ``MTT_LR_SCALE``, which scales the restored rate. The
 fault points ``trainer.epoch_dispatched`` and ``trainer.loss`` fire as in
-the JAX trainer.
+the JAX trainer, and each dispatched epoch chains one ``pmean`` entry
+(``grads.flat`` over the data axis) into the collective schedule
+(``telemetry/schedule.py``), at any world size, as the JAX trainer does.
 
 With ``telemetry`` (a ``TelemetryRun``, which the caller closes) ``fit``
 writes the JAX trainer's events (``run_started``, ``cost_profile``,
@@ -102,6 +104,7 @@ from masters_thesis_tpu_torch.data.pipeline import Batch, FinancialWindowDataMod
 from masters_thesis_tpu_torch.data.prefetch import PrefetchStats, prefetch_to_device
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     SHARD_AXES,
     DataMesh,
     data_mesh,
@@ -121,6 +124,7 @@ from masters_thesis_tpu_torch.telemetry.run import (
     EpochRecorder,
     TelemetryRun,
 )
+from masters_thesis_tpu_torch.telemetry.schedule import record_collective
 from masters_thesis_tpu_torch.telemetry.slo import default_train_rules
 from masters_thesis_tpu_torch.train import checkpoint as ckpt_lib
 from masters_thesis_tpu_torch.train.optim import PlateauScheduler, make_optimizer
@@ -555,6 +559,12 @@ class Trainer:
             # The epoch is queued, nothing of it read or saved: a kill here
             # loses exactly this epoch.
             faults.fire("trainer.epoch_dispatched", epoch=epoch)
+            # One schedule entry an epoch for its steps' gradient all-reduce,
+            # as the JAX trainer records its epoch program's pmean: a hash
+            # update in host memory, outside every graph (a replay runs no
+            # Python), no read of the card.
+            record_collective("pmean", name="grads.flat", axes=(DATA_AXIS,),
+                              step=epoch)
             total_steps += n_steps
             if tel:
                 with clock:

@@ -1891,7 +1891,13 @@ def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
     and the captures; the train
     program captures once; every epoch event carries a positive device_s
     from its CUDA events; the history is bit for bit a run's with
-    telemetry off."""
+    telemetry off. Each graphed epoch chains exactly one ``pmean`` entry
+    into the collective schedule, recorded while the check raises (so the
+    record reads nothing of the card), and the heartbeat and the stream
+    carry the chain."""
+    import json
+
+    from masters_thesis_tpu_torch.telemetry import schedule
     from masters_thesis_tpu_torch.telemetry.events import read_events
     from masters_thesis_tpu_torch.telemetry.report import summarize_path
     from masters_thesis_tpu_torch.telemetry.run import (
@@ -1938,6 +1944,14 @@ def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
+    real_record = trainer_mod.record_collective
+    recorded = []
+
+    def record(kind, **fields):
+        recorded.append((kind, fields.get("step"),
+                         torch.cuda.get_sync_debug_mode()))
+        return real_record(kind, **fields)
+
     dm = _toy_datamodule(tmp_path)
     spec = ModelSpec(objective="mse", input_size=3, hidden_size=64,
                      num_layers=2, dropout=0.2, learning_rate=1e-3)
@@ -1953,6 +1967,8 @@ def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
             monkeypatch.setattr(trainer_mod, "metric_means",
                                 allowed(trainer_mod.metric_means))
             monkeypatch.setattr(Trainer, "_save", allowed(Trainer._save))
+            monkeypatch.setattr(trainer_mod, "record_collective", record)
+            schedule.GLOBAL_SCHEDULE.reset()
         trainer = Trainer(max_epochs=3, gradient_clip_val=5.0, seed=3,
                           device=cuda_device, telemetry=tel,
                           hang_timeout_s=600, ckpt_dir=tmp_path / label)
@@ -1982,6 +1998,16 @@ def test_telemetry_adds_no_sync_and_counts_one_capture(cuda_device, tmp_path,
     gauges = next(e["metrics"] for e in reversed(events)
                   if e["kind"] == "metrics")
     assert gauges["telemetry/host_s"]["value"] > 0
+    # One schedule entry an epoch, recorded under the raising check.
+    assert recorded == [("pmean", epoch, 2) for epoch in range(3)]
+    chain = schedule.GLOBAL_SCHEDULE.snapshot()
+    assert [e["step"] for e in chain["tail"] if e["kind"] == "pmean"] == \
+        [0, 1, 2]
+    heartbeat = json.loads((tmp_path / "tel" / "heartbeat.json").read_text())
+    assert heartbeat["collective_schedule"] == chain
+    streamed = [e for e in events if e["kind"] == "collective_schedule"]
+    assert [(e["n"], e["chain"]) for e in streamed] == \
+        [(chain["n"], chain["chain"])]
 
 
 # ------------------------------------- the replica axis of the time-blocked

@@ -50,7 +50,9 @@ def test_port_imports_with_jax_blocked():
                  "resilience.backoff", "resilience.supervisor",
                  "resilience.__main__", "parallel", "parallel.mesh",
                  "parallel.launch", "utils.backend_probe", "utils.io",
-                 "utils.cuda_graph", "train.steps", "models.objectives"):
+                 "utils.cuda_graph", "train.steps", "models.objectives",
+                 "telemetry.schedule", "telemetry.aggregate",
+                 "resilience.fleetsup"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -140,3 +142,27 @@ def test_chip_smoke_alone_fails(tmp_path):
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_fleet_command_lines_import_no_torch():
+    """The fleet supervisor and the fleet views read runs where no torch
+    may be imported: both command lines' selfchecks with torch blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('torch', 'jax', 'jaxlib', 'flax', 'masters_thesis_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import masters_thesis_tpu_torch.resilience.fleetsup\n"
+        "import masters_thesis_tpu_torch.telemetry.aggregate\n"
+        "from masters_thesis_tpu_torch.telemetry.__main__ import main\n"
+        "assert main(['postmortem', '--selfcheck']) == 0\n"
+        "from masters_thesis_tpu_torch.resilience.__main__ import main\n"
+        "assert main(['fleet', '--selfcheck']) == 0\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MTT_FAULT_PLAN", "MTT_ATTEMPT")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "postmortem selfcheck ok" in proc.stdout
+    assert "fleet selfcheck: 2 scenarios OK" in proc.stdout

@@ -68,10 +68,10 @@ HPARAMS = dict(objective="mse", hidden_size=8, num_layers=2, dropout=0.2,
 ENVELOPE = ("ts", "kind", "run", "seq", "host", "pid", "proc", "nproc",
             "attempt", "generation")
 #: Kinds only the JAX trainer writes in this run: the gradient all-reduce
-#: count (multi-device, ROADMAP queue 1 item 3), the collective-schedule
-#: chain (item 4), and device memory (the port samples the card's
-#: allocator, and the CPU has none).
-JAX_ONLY_KINDS = {"grad_sync", "collective_schedule", "memory"}
+#: count (multi-device, ROADMAP queue 1 item 3) and device memory (the
+#: port samples the card's allocator, and the CPU has none). Both write
+#: the collective-schedule chain.
+JAX_ONLY_KINDS = {"grad_sync", "memory"}
 #: run_started keys with no meaning on one card, and the values the JAX
 #: trainer writes for one device.
 ONE_DEVICE = {"n_devices": 1, "strategy": "single_device",
@@ -526,14 +526,20 @@ def test_heartbeat_file_tracks_phase(tmp_path):
 
 def test_dump_and_heartbeat_keys_are_the_jax_recorders(tmp_path,
                                                        monkeypatch):
-    """The same events, notes and scalars through both recorders: the same
-    keys in ``crashdump.json`` and ``heartbeat.json``. The JAX recorder
-    writes a ``collective_schedule`` only for a non-empty schedule of
-    collectives, which one card never has: the JAX side runs here with an
-    empty one (a JAX fit earlier in this process filled the global one)."""
+    """The same events, notes, scalars and collective schedule through both
+    recorders: the same keys in ``crashdump.json`` and ``heartbeat.json``,
+    and the same ``collective_schedule`` in both. Each side runs on a fresh
+    schedule of the same two entries (fits earlier in this process filled
+    the global ones)."""
     from masters_thesis_tpu.telemetry.schedule import CollectiveSchedule
+    from masters_thesis_tpu_torch.telemetry import schedule
 
-    monkeypatch.setattr(jax_flightrec, "GLOBAL_SCHEDULE", CollectiveSchedule())
+    for module, cls in ((jax_flightrec, CollectiveSchedule),
+                        (flightrec, schedule.CollectiveSchedule)):
+        chain = cls()
+        chain.record("barrier", name="checkpoint.publish.last")
+        chain.record("pmean", name="grads.flat", axes=("data",), step=1)
+        monkeypatch.setattr(module, "GLOBAL_SCHEDULE", chain)
     files = {}
     for name, module in (("port", flightrec), ("jax", jax_flightrec)):
         rec = _quiet(module, tmp_path / name)
@@ -548,7 +554,9 @@ def test_dump_and_heartbeat_keys_are_the_jax_recorders(tmp_path,
                        for f in ("crashdump.json", "heartbeat.json")}
     for f in ("crashdump.json", "heartbeat.json"):
         assert set(files["port"][f]) == set(files["jax"][f]), f
-        assert "collective_schedule" not in files["jax"][f]
+        assert files["port"][f]["collective_schedule"] == \
+            files["jax"][f]["collective_schedule"], f
+        assert files["port"][f]["collective_schedule"]["n"] == 2
     assert files["port"]["crashdump.json"]["state"] == \
         files["jax"]["crashdump.json"]["state"]
 

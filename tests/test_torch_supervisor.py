@@ -266,11 +266,11 @@ def test_port_supervisor_imports_no_torch():
             "for m in ('torch', 'jax', 'masters_thesis_tpu'):\n"
             "    sys.modules[m] = None\n"
             "from masters_thesis_tpu_torch.resilience.__main__ import main\n"
-            "sys.exit(main(['fleet']))\n")
+            "sys.exit(main(['fleet', '--selfcheck']))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=60, env=_env())
-    assert proc.returncode == 1
-    assert "queue 1 item 4" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert "fleet selfcheck: 2 scenarios OK" in proc.stdout
 
 
 # ------------------------------------------------------ the real trainee
