@@ -119,8 +119,20 @@ train command with ``trainer.shard_axis=asset`` at world size 1 (beside
 the universe test child), whose first row must be the universe child's bit
 for bit. ``sweeps`` (beside ``resilience``): ``-m seed=0,1`` through
 ``launcher=joblib launcher.n_jobs=2`` (two children on the card at once)
-equal to the sequential launcher's jobs, and ``trainer.n_devices=2`` on
-the one card refused, naming the key.
+equal to the sequential launcher's jobs (a job that parts prints the
+first differing key, both values and the worst abs and relative error),
+and ``trainer.n_devices=2`` on the one card refused, naming the key.
+The serving fleet (``serve_fleet``, last): three model=small replicas
+share the card behind one ``FleetServer``; ``r0`` is crashed under
+closed-loop bursts and comes back at generation 2 (``boot_s``, its
+captures), then ``r0`` and ``r1`` together, so that two restarts boot at
+once while ``r2`` serves (their captures take turns); every request
+resolved explicitly, none late, every ok answer within 1e-5 of a solo
+engine, the launch counts exactly each graph's runs times its launches;
+two stacked replicas of R = 4 lanes the same way; and the fleet's
+answers/s, p50 and p99 against one
+``PredictServer`` (off / on / on / off). ``serve_preflight`` also holds
+SV306 (two replicas of the preflight engine on the card, ``r0`` crashed).
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -2304,6 +2316,26 @@ def _history_rows(log_dir: Path) -> list:
     return [r for r in read_records(log_dir) if "lr-Adam" in r]
 
 
+def _rows_mismatch(got: list, want: list) -> dict:
+    """Where two runs' history rows part: the first row and key that
+    differ, both values, and the worst abs and relative error over every
+    numeric key the rows share."""
+    out: dict = {"rows": [len(got), len(want)]}
+    worst_abs = worst_rel = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        for key in sorted(set(a) | set(b)):
+            va, vb = a.get(key), b.get(key)
+            if va != vb and "first" not in out:
+                out["first"] = {"row": i, "key": key, "got": va, "want": vb}
+            if (isinstance(va, (int, float)) and isinstance(vb, (int, float))
+                    and va != vb):
+                err = abs(float(va) - float(vb))
+                worst_abs = max(worst_abs, err)
+                worst_rel = max(worst_rel, err / max(abs(float(vb)), 1e-30))
+    out.update(worst_abs=worst_abs, worst_rel=worst_rel)
+    return out
+
+
 def _start_data_parallel_world1(common: list) -> "_Child":
     """The driver's train command at world size 1 on NCCL, into its own save
     dir; started beside the driver's test and warm start."""
@@ -2468,10 +2500,11 @@ def phase_data_parallel_sweeps(children: dict) -> dict:
         for job in ("0", "1"):
             pool_dir = root.joinpath("pool", job, *run)
             rows = _history_rows(pool_dir)
+            want = _history_rows(root.joinpath("sequential", job, *run))
             jobs[job] = {"rows": len(rows),
-                         "bit_equal_to_sequential":
-                         rows == _history_rows(root.joinpath("sequential", job,
-                                                             *run))}
+                         "bit_equal_to_sequential": rows == want}
+            if rows != want:
+                jobs[job]["mismatch"] = _rows_mismatch(rows, want)
             events = read_events(pool_dir / "telemetry" / "events.jsonl")
             spans.append((next(e["ts"] for e in events
                                if e["kind"] == "run_started"),
@@ -3735,6 +3768,12 @@ def phase_serve_preflight(child: subprocess.Popen) -> dict:
     if (lane.get("reason") != "committed" or lane.get("new_captures")
             or lane.get("late_deliveries") or not lane.get("siblings_bitwise")):
         raise AssertionError(f"serve_preflight: SV308 for a lane: {lane}")
+    # SV306: two replicas on the card, r0 crashed under traffic.
+    fleet = facts.get("fleet", {})
+    if (fleet.get("deaths", 0) < 1 or fleet.get("unresolved")
+            or fleet.get("late_deliveries") or not fleet.get("survivors")
+            or not fleet.get("launches", {}).get("lstm_fwd")):
+        raise AssertionError(f"serve_preflight: SV306 not held: {fleet}")
     return out
 
 
@@ -5614,6 +5653,363 @@ def phase_stacked_serve(driver: dict, windows: np.ndarray,
     return out
 
 
+# ------------------------------------------------------------- serving fleet
+
+FLEET_REPLICAS = 3
+FLEET_DEADLINE_S = 5.0
+FLEET_BURST = 32  # windows a closed-loop burst: four batches of 8
+FLEET_BURSTS = 40  # bursts a throughput run (off / on / on / off)
+FLEET_LANES = 4  # R of the stacked fleet's replicas
+FLEET_TOL = 1e-5  # an ok answer against the solo engine on its window
+FLEET_BUDGET_S = 25.0  # the phase's wall, printed against it
+
+
+class _TimedWarmup:
+    """An engine that keeps the wall window of its ``warmup`` (its
+    captures) and the error that failed it, if one did."""
+
+    warm_window: tuple | None = None
+    warm_error: str | None = None
+
+    def warmup(self):
+        t0 = time.perf_counter()
+        try:
+            return super().warmup()
+        except BaseException as exc:
+            self.warm_error = f"{type(exc).__name__}: {exc}"
+            raise
+        finally:
+            self.warm_window = (t0, time.perf_counter())
+
+
+class _FleetEngine(_TimedWarmup, PredictEngine):
+    pass
+
+
+class _FleetStacked(_TimedWarmup, StackedPredictEngine):
+    pass
+
+
+def _fleet_bursts(front, windows: np.ndarray, bursts: int,
+                  first: int = 0) -> tuple[list, float, int]:
+    """Closed loop through a server or fleet: ``bursts`` bursts of
+    FLEET_BURST windows, each submitted at once and awaited. Returns
+    ``(window index, response)`` pairs, the seconds and the requests that
+    did not resolve within 60 s."""
+    pairs, unresolved = [], 0
+    t0 = time.perf_counter()
+    for b in range(first, first + bursts):
+        idx = [(b * FLEET_BURST + i) % len(windows) for i in range(FLEET_BURST)]
+        pending = [(i, front.submit(windows[i], deadline_s=FLEET_DEADLINE_S))
+                   for i in idx]
+        for i, p in pending:
+            try:
+                pairs.append((i, p.result(timeout=60.0)))
+            except TimeoutError:
+                unresolved += 1
+    return pairs, time.perf_counter() - t0, unresolved
+
+
+def _kill(fleet, names: tuple, windows: np.ndarray, first: int) -> dict:
+    """``serve.replica_dispatch`` ``raise`` on each of ``names`` at its next
+    dispatch, under one closed-loop burst: the plan is cleared as soon as
+    each has died once (so that the restarts serve), then the burst's
+    answers and the deaths."""
+    deaths = fleet.deaths
+    plan = faults.FaultPlan(faults=[faults.FaultSpec(
+        point="serve.replica_dispatch", kind="raise", attempt=None,
+        match={"replica": name}) for name in names])
+    faults.install_plan(plan)
+    stop = threading.Event()
+
+    def clear() -> None:
+        while not stop.is_set() and fleet.deaths < deaths + len(names):
+            time.sleep(0.0005)
+        faults.clear_plan()
+
+    watcher = threading.Thread(target=clear, name="fleet-kill-watch")
+    watcher.start()
+    try:
+        pairs, seconds, unresolved = _fleet_bursts(fleet, windows, 1, first)
+    finally:
+        stop.set()
+        watcher.join()
+        faults.clear_plan()
+    return {"pairs": pairs, "seconds": seconds, "unresolved": unresolved,
+            "deaths": fleet.deaths - deaths}
+
+
+def _wait_generation(fleet, want: dict, timeout_s: float = 60.0) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if all(fleet.replicas[n].generation >= g
+               and fleet.replicas[n].state == "live" for n, g in want.items()):
+            return True
+        time.sleep(0.005)
+    return False
+
+
+def _graph_launches(engines: list) -> dict:
+    """The kernel launches the engines' graphs made: each graph's warm-up
+    run and replays times its own launches."""
+    out: dict = {}
+    for engine in engines:
+        for program in engine._programs.values():
+            runs = program.run.captures + program.run.replays
+            for name, k in program.run.launches.items():
+                out[name] = out.get(name, 0) + runs * k
+    return out
+
+
+def _answer_errors(pairs: list, reference: tuple) -> dict:
+    """Each ok answer against the reference's answer for its window: the
+    worst abs error, and the statuses."""
+    worst, statuses = 0.0, {}
+    for i, r in pairs:
+        statuses[r.status] = statuses.get(r.status, 0) + 1
+        if r.ok:
+            for got, want in zip(r.outputs, reference):
+                worst = max(worst, float(np.abs(got - want[i]).max()))
+    return {"statuses": statuses, "max_abs_err": worst}
+
+
+def _reference(engine, windows: np.ndarray) -> tuple:
+    """An engine's answers on every window, in batches of its largest
+    bucket."""
+    outs = [engine.predict(windows[i:i + engine.max_bucket])
+            for i in range(0, len(windows), engine.max_bucket)]
+    return tuple(np.concatenate([o[j] for o in outs]) for j in range(2))
+
+
+def _fleet_throughput(engine_factory, windows: np.ndarray) -> dict:
+    """Answers/s, p50 and p99 of one PredictServer and of a fleet of
+    FLEET_REPLICAS replicas under the same closed-loop bursts, in turns:
+    off / on / on / off."""
+    from masters_thesis_tpu_torch.serve.fleet import FleetServer
+
+    server = PredictServer(engine_factory(), max_wait_s=0.002)
+    fleet = FleetServer({f"r{i}": engine_factory
+                         for i in range(FLEET_REPLICAS)}, max_wait_s=0.002)
+    server.start()
+    fleet.start()
+    runs = []
+    try:
+        for label, front in (("off", server), ("on", fleet), ("on", fleet),
+                             ("off", server)):
+            pairs, seconds, unresolved = _fleet_bursts(front, windows,
+                                                       FLEET_BURSTS)
+            responses = [r for _, r in pairs]
+            runs.append({"fleet": label, "seconds": seconds,
+                         "answers_per_s": sum(r.ok for r in responses) / seconds,
+                         "unresolved": unresolved, **_latency_ms(responses)})
+    finally:
+        solo_stats = server.stop()
+        fleet_stats = fleet.stop()
+    return {"runs": runs,
+            "late_deliveries": {"off": solo_stats["late_deliveries"],
+                                "on": fleet_stats["late_deliveries"]}}
+
+
+def phase_serve_fleet(windows: np.ndarray) -> dict:
+    """The serving fleet on the card: model=small at full width, buckets
+    1-8, a 5 s deadline. Three replicas share the card (each factory names
+    it) behind one FleetServer, under closed-loop bursts:
+
+    - ``r0`` is crashed by an injected ``serve.replica_dispatch`` raise;
+      its batch is re-dispatched, it comes back at generation 2 on the card
+      (``boot_s``: its captures, the time to recover a replica) and serves;
+    - ``r0`` and ``r1`` are crashed together, so that their two restarts
+      boot at once while ``r2`` serves (their captures take turns with
+      each other and with ``r2``'s replays, ``utils/cuda_graph.py``): no
+      capture fails (no boot failure, each generation the expected one),
+      the boots overlap, the collector is on at the end, and the launches
+      counted over the phase are exactly each graph's warm-up run and
+      replays times its own launches;
+    - every request resolves explicitly, no ok answer is late, and every ok
+      answer is within FLEET_TOL of a solo engine's on its window;
+    - two replicas of R = 4 lanes (StackedPredictEngine), one crashed, the
+      same way, the lanes held against a solo stacked engine;
+    - printed, not claimed: answers/s, p50 and p99 of the fleet against
+      one PredictServer, off / on / on / off, and the phase's seconds
+      against FLEET_BUDGET_S."""
+    from masters_thesis_tpu_torch.resilience.supervisor import (
+        ReplicaRestartPolicy,
+    )
+    from masters_thesis_tpu_torch.serve.fleet import FleetServer
+
+    t0 = time.perf_counter()
+    spec = _small_spec()
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    kw = dict(n_stocks=K_STOCKS, lookback=T, n_features=3,
+              buckets=(1, 2, 4, 8), device=DEVICE)
+    reference = _reference(PredictEngine(spec, state, **kw), windows)
+    built: list = []
+
+    def factory():
+        engine = _FleetEngine(spec, state, **kw)
+        built.append(engine)
+        return engine
+
+    names = [f"r{i}" for i in range(FLEET_REPLICAS)]
+    # A backoff that does not grow, so that r0's second restart and r1's
+    # first start together (the default doubles r0's to 0.1 s, and the two
+    # boots of 40-100 ms did not overlap on the card).
+    fleet = FleetServer({n: factory for n in names}, max_wait_s=0.002,
+                        restart_policy=ReplicaRestartPolicy(
+                            backoff_factor=1.0))
+    lk.reset_launch_counts()
+    fleet.start()
+    pairs: list = []
+    try:
+        warm, _, unresolved = _fleet_bursts(fleet, windows, 2)
+        pairs += warm
+        one = _kill(fleet, ("r0",), windows, 2)
+        pairs += one["pairs"]
+        unresolved += one["unresolved"]
+        back = _wait_generation(fleet, {"r0": 2})
+        served_before = fleet.replicas["r0"].completed
+        more, _, lost = _fleet_bursts(fleet, windows, 3, 3)
+        pairs += more
+        unresolved += lost
+        r0_gen2 = {"boot_s": fleet.replicas["r0"].boot_s,
+                   "generation": fleet.replicas["r0"].generation,
+                   "served": fleet.replicas["r0"].completed - served_before,
+                   "platform": fleet.replicas["r0"].engine.platform,
+                   "device": str(fleet.replicas["r0"].engine.device)}
+        two = _kill(fleet, ("r0", "r1"), windows, 6)
+        pairs += two["pairs"]
+        unresolved += two["unresolved"]
+        # r2 serves while the two restarts capture.
+        during, _, lost = _fleet_bursts(fleet, windows, 2, 7)
+        pairs += during
+        unresolved += lost
+        back_two = _wait_generation(fleet, {"r0": 3, "r1": 2})
+        after, _, lost = _fleet_bursts(fleet, windows, 2, 9)
+        pairs += after
+        unresolved += lost
+    finally:
+        stats = fleet.stop()
+    launches = {k: v for k, v in lk.LAUNCHES.items() if v}
+    want_launches = _graph_launches(built)
+    boots = [e.warm_window for e in built[-2:]]
+    overlap_s = (min(b[1] for b in boots) - max(b[0] for b in boots)
+                 if all(boots) else None)
+    answers = _answer_errors(pairs, reference)
+    kills = {
+        "replicas": {n: {k: r[k] for k in ("state", "generation", "restarts",
+                                           "completed", "dispatches",
+                                           "boot_s")}
+                     for n, r in stats["replicas"].items()},
+        "one": {"deaths": one["deaths"], "r0_back": back, "r0_gen2": r0_gen2},
+        "two": {"deaths": two["deaths"], "back": back_two,
+                "boot_overlap_s": overlap_s,
+                "boot_s": {n: fleet.replicas[n].boot_s for n in ("r0", "r1")}},
+        "boot_errors": [e.warm_error for e in built if e.warm_error],
+        "engines_built": len(built),
+        "requests": stats["requests"], "unresolved": unresolved,
+        "redispatched": stats["redispatched"], "deaths": stats["deaths"],
+        "late_deliveries": stats["late_deliveries"],
+        "late_converted": stats["late_converted"],
+        "handback_max_ms": stats["handback_max_ms"],
+        "answers": answers, "collector_on": gc.isenabled(),
+        "launches": launches, "want_launches": want_launches,
+    }
+    stacked = _stacked_fleet(spec, windows)
+    throughput = _fleet_throughput(lambda: PredictEngine(spec, state, **kw),
+                                   windows)
+    seconds = time.perf_counter() - t0
+    out = {"phase": "serve_fleet", **kills, "stacked": stacked,
+           "throughput": throughput, "seconds": seconds,
+           "budget_s": FLEET_BUDGET_S, "card": _card()}
+    emit(out)
+    failed = []
+    if (unresolved or stats["late_deliveries"] or one["deaths"] != 1
+            or two["deaths"] != 2 or not back or not back_two):
+        failed.append("deaths, restarts or resolution")
+    if (r0_gen2["generation"] != 2 or not r0_gen2["served"]
+            or r0_gen2["platform"] != "gpu"):
+        failed.append("r0 at generation 2 on the card")
+    if kills["boot_errors"] or len(built) != FLEET_REPLICAS + 3:
+        failed.append("a boot failed (a capture error)")
+    if not (overlap_s or 0) > 0:
+        failed.append("the two restarts did not boot at once")
+    if not kills["collector_on"]:
+        failed.append("the collector is off")
+    if launches != want_launches or not launches.get("lstm_pair_fwd"):
+        failed.append("launch counts")
+    if set(answers["statuses"]) - {"ok", "shed", "rejected_late"} or \
+            answers["max_abs_err"] > FLEET_TOL or not answers["statuses"].get("ok"):
+        failed.append("answers")
+    if stacked["failed"]:
+        failed.append(f"stacked fleet: {stacked['failed']}")
+    if (any(r["unresolved"] for r in throughput["runs"])
+            or any(throughput["late_deliveries"].values())):
+        failed.append("throughput runs: unresolved or late answers")
+    if failed:
+        raise AssertionError(f"serve_fleet: {failed}")
+    return out
+
+
+def _stacked_fleet(spec, windows: np.ndarray) -> dict:
+    """Two replicas of R = FLEET_LANES lanes, ``r0`` crashed under bursts;
+    each ok ``(R, K)`` answer against a solo stacked engine's."""
+    from masters_thesis_tpu_torch.resilience.supervisor import (
+        ReplicaRestartPolicy,
+    )
+    from masters_thesis_tpu_torch.serve.fleet import FleetServer
+
+    states = [spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(seed)
+    ).state_dict() for seed in range(FLEET_LANES)]
+    kw = dict(n_stocks=K_STOCKS, lookback=T, n_features=3,
+              buckets=(1, 2, 4, 8), device=DEVICE)
+    reference = _reference(StackedPredictEngine(spec, states, **kw), windows)
+    built: list = []
+
+    def factory():
+        engine = _FleetStacked(spec, states, **kw)
+        built.append(engine)
+        return engine
+
+    fleet = FleetServer({"r0": factory, "r1": factory}, max_wait_s=0.002,
+                        restart_policy=ReplicaRestartPolicy())
+    lk.reset_launch_counts()
+    fleet.start()
+    try:
+        pairs, _, unresolved = _fleet_bursts(fleet, windows, 1)
+        kill = _kill(fleet, ("r0",), windows, 1)
+        back = _wait_generation(fleet, {"r0": 2})
+        more, _, lost = _fleet_bursts(fleet, windows, 2, 2)
+    finally:
+        stats = fleet.stop()
+    pairs += kill["pairs"] + more
+    unresolved += kill["unresolved"] + lost
+    launches = {k: v for k, v in lk.LAUNCHES.items() if v}
+    want_launches = _graph_launches(built)
+    answers = _answer_errors(pairs, reference)
+    shapes = sorted({tuple(r.outputs[0].shape) for _, r in pairs if r.ok})
+    failed = []
+    if unresolved or stats["late_deliveries"] or kill["deaths"] != 1 \
+            or not back:
+        failed.append("deaths, restarts or resolution")
+    if shapes != [(FLEET_LANES, K_STOCKS)] or stats["lanes"] != FLEET_LANES:
+        failed.append(f"answers of shape {shapes}")
+    if answers["max_abs_err"] > FLEET_TOL:
+        failed.append("lanes off the solo stacked engine")
+    if launches != want_launches or not launches.get("lstm_pair_fwd_stacked"):
+        failed.append("launch counts")
+    if [e.warm_error for e in built if e.warm_error]:
+        failed.append("a boot failed")
+    return {"lanes": stats["lanes"], "answers": answers, "shapes": shapes,
+            "deaths": stats["deaths"], "redispatched": stats["redispatched"],
+            "late_deliveries": stats["late_deliveries"],
+            "unresolved": unresolved, "r0_back": back,
+            "boot_s": stats["replicas"]["r0"]["boot_s"],
+            "launches": launches, "want_launches": want_launches,
+            "failed": failed}
+
+
 def phase_ab(label: str) -> None:
     """The pair, single-layer, time-blocked and stack kernels of whatever
     checkout this copy of the script sits in, for comparing two checkouts
@@ -5763,7 +6159,7 @@ def main() -> int:
     sweeps = _start_data_parallel_sweeps()
     try:
         fleet = phase_resilience(profile_child)["fleet"]
-        phase_serve_preflight(preflight)
+        preflight_out = phase_serve_preflight(preflight)
         stacked_driver = phase_stacked_driver(stacked_child)
         phase_data_parallel_sweeps(sweeps)
     finally:
@@ -5806,12 +6202,14 @@ def main() -> int:
     stacked_serve = phase_stacked_serve(
         stacked_driver, windows, _synthetic_windows(K_MEDIUM),
         _synthetic_windows(lookback=T_LONG, stride=STRIDE_LONG))
+    serve_fleet = phase_serve_fleet(windows)
     # The maskless pair forward's and the stack forward's launches on the
     # serving phases of this slice.
     serve_paths = {
         "lstm_pair_fwd": {"serve_swap": serve_swap["small"],
                           "serve_faults": serve_faults,
-                          "serve_knee": serve_knee},
+                          "serve_knee": serve_knee,
+                          "serve_fleet": serve_fleet},
         "lstm_stack_fwd": {"serve_swap_medium": serve_swap["medium"]},
     }
     missed = {f"{phase}/{name}": path["launches"][name]
@@ -5876,6 +6274,11 @@ def main() -> int:
             # forward in its validation and fingerprints).
             summary[-1].setdefault("launches_by_path", {})["fleet"] = \
                 fleet["launches"][counter]
+        if name == "lstm_fwd":
+            # SV306's two one-layer preflight engines on the card.
+            summary[-1].setdefault("launches_by_path", {})[
+                "serve_preflight_fleet"] = \
+                preflight_out["facts"]["fleet"]["launches"]["lstm_fwd"]
         if name in serve_paths:
             summary[-1].setdefault("launches_by_path", {}).update(
                 {phase: path["launches"][name]
@@ -5888,7 +6291,9 @@ def main() -> int:
             by_path = {"stacked_train": stacked_train["launches"][counter],
                        "stacked_driver": stacked_driver["launches"].get(counter, 0)}
             if name == "lstm_pair_fwd":
-                by_path = {"stacked_serve": stacked_serve["launches"][counter]}
+                by_path = {"stacked_serve": stacked_serve["launches"][counter],
+                           "stacked_serve_fleet":
+                           serve_fleet["stacked"]["launches"][counter]}
             summary[-1].setdefault("launches_by_path", {}).update(by_path)
             summary[-1]["replica_axis"] = [
                 {k: r[k] for k in ("rows", "replicas", "tile", "max_abs_err",

@@ -23,8 +23,9 @@ raises), a CPU tensor to the plain versions. When an input needs a gradient, the
 planes) and whose backward recomputes the gates from them, as the TPU
 kernels do: the serial sweep (``lstm_pair_bwd`` / ``lstm_bwd`` /
 ``lstm_stack_bwd``), then the weight-gradient reduction (``lstm_wgrad``).
-Each kernel counts its launches in ``LAUNCHES`` so a run can show that its
-main path went through it.
+Each kernel counts its launches in ``LAUNCHES`` (``utils/counts.py``:
+exact across threads, a capture's counts kept apart) so a run can show
+that its main path went through it.
 
 The single layer, the pair and the stack also run with a replica axis
 (``lstm_recurrence_stacked``, ``lstm_pair_recurrence_stacked``,
@@ -42,10 +43,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
 from masters_thesis_tpu_torch.ops._build import load_library
+from masters_thesis_tpu_torch.utils.counts import CallCounts
 
 #: Largest hidden size the kernels take (``kMaxHidden`` in csrc/lstm_common.cuh):
 #: the pair stages three (H, 4H) f32 weights in one block's shared memory,
@@ -67,35 +70,34 @@ MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 #: (``utils/cuda_graph.py``). The ``_stacked`` names count the replica-axis
 #: launches of the same kernels (R replicas in one launch, stacked training
 #: and serving), apart from their solo launches.
-LAUNCHES: dict[str, int] = {
-    "lstm_pair_fwd": 0,
-    "lstm_pair_fwd_masked": 0,
-    "lstm_fwd": 0,
-    "lstm_pair_bwd": 0,
-    "lstm_bwd": 0,
-    "lstm_wgrad": 0,
-    "lstm_pair_fwd_stacked": 0,
-    "lstm_pair_fwd_masked_stacked": 0,
-    "lstm_pair_bwd_stacked": 0,
-    "lstm_wgrad_stacked": 0,
-    "lstm_fwd_stacked": 0,
-    "lstm_bwd_stacked": 0,
-    "lstm_stack_fwd": 0,
-    "lstm_stack_fwd_masked": 0,
-    "lstm_stack_bwd": 0,
-    "lstm_stack_fwd_stacked": 0,
-    "lstm_stack_fwd_masked_stacked": 0,
-    "lstm_stack_bwd_stacked": 0,
-    "lstm_tb_fwd": 0,
-    "lstm_tb_bwd": 0,
-    "lstm_tb_fwd_stacked": 0,
-    "lstm_tb_bwd_stacked": 0,
-}
+LAUNCHES = CallCounts((
+    "lstm_pair_fwd",
+    "lstm_pair_fwd_masked",
+    "lstm_fwd",
+    "lstm_pair_bwd",
+    "lstm_bwd",
+    "lstm_wgrad",
+    "lstm_pair_fwd_stacked",
+    "lstm_pair_fwd_masked_stacked",
+    "lstm_pair_bwd_stacked",
+    "lstm_wgrad_stacked",
+    "lstm_fwd_stacked",
+    "lstm_bwd_stacked",
+    "lstm_stack_fwd",
+    "lstm_stack_fwd_masked",
+    "lstm_stack_bwd",
+    "lstm_stack_fwd_stacked",
+    "lstm_stack_fwd_masked_stacked",
+    "lstm_stack_bwd_stacked",
+    "lstm_tb_fwd",
+    "lstm_tb_bwd",
+    "lstm_tb_fwd_stacked",
+    "lstm_tb_bwd_stacked",
+))
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.reset()
 
 
 # ------------------------------------------------------------ plain versions
@@ -733,30 +735,44 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-#: The streams a CUDA graph capture is underway on (``capturing``).
+#: The streams a ``global`` CUDA graph capture is underway on
+#: (``capturing``): checked from every thread.
 _CAPTURE_STREAMS: set[int] = set()
+#: This thread's streams of ``thread_local`` captures: checked from it only.
+_LOCAL = threading.local()
 
 
 @contextlib.contextmanager
-def capturing(stream):
+def capturing(stream, mode: str = "global"):
     """Mark a CUDA graph capture on ``stream`` as underway: until it ends, a
     kernel wrapper whose current stream is another one raises instead of
-    launching outside the graph (a backward run by the autograd engine
-    launches on the stream its forward ran on, the capture's)."""
-    _CAPTURE_STREAMS.add(stream.cuda_stream)
+    launching outside the graph. A ``global`` capture (training) holds every
+    thread to it: a backward run by the autograd engine's thread launches
+    on the stream its forward ran on, the capture's. A ``thread_local`` one
+    (a serving bucket) holds only the capturing thread: another thread's
+    launches on its own stream (a sibling replica's warm-up run) are real,
+    and go on."""
+    key = stream.cuda_stream
+    if mode == "global":
+        streams = _CAPTURE_STREAMS
+    else:
+        streams = _LOCAL.__dict__.setdefault("streams", set())
+    streams.add(key)
     try:
         yield
     finally:
-        _CAPTURE_STREAMS.discard(stream.cuda_stream)
+        streams.discard(key)
 
 
 def _stream(dev: torch.device) -> int:
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if _CAPTURE_STREAMS and stream not in _CAPTURE_STREAMS:
+    local = getattr(_LOCAL, "streams", None) or set()
+    capturing_on = _CAPTURE_STREAMS | local
+    if capturing_on and stream not in capturing_on:
         raise RuntimeError(
             "a kernel would launch outside the CUDA graph being captured "
             f"(stream {stream:#x}, capturing on "
-            f"{sorted(map(hex, _CAPTURE_STREAMS))})"
+            f"{sorted(map(hex, capturing_on))})"
         )
     return stream
 
@@ -777,7 +793,7 @@ def _launch_fwd(x_proj, w_hh_t, return_c: bool, lead: tuple, tile: int):
     )
     name = "lstm_fwd_stacked" if lead else "lstm_fwd"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return (hs, cs) if return_c else hs
 
 
@@ -816,7 +832,7 @@ def _launch_tb_fwd(x_proj, w_hh_t, return_c: bool, lead: tuple):
     )
     name = "lstm_tb_fwd_stacked" if lead else "lstm_tb_fwd"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return (hs, cs) if return_c else hs
 
 
@@ -860,7 +876,7 @@ def _launch_tb_bwd(dhs, x_proj, hs, cs, w_hh_t, lead: tuple):
         lead[0] if lead else 1, dev.index, _stream(dev),
     )
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     if not lead:
         return dx, dw_part.sum(dim=0)
     return dx, torch.stack([part.sum(dim=0) for part in dw_part])
@@ -937,7 +953,7 @@ def _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask, stash,
     if lead:
         name += "_stacked"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return tuple(planes) if stash else planes[0]
 
 
@@ -986,7 +1002,7 @@ def _launch_pair_bwd(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
     )
     name = "lstm_pair_bwd_stacked" if lead else "lstm_pair_bwd"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return dx1, d_pre2
 
 
@@ -1037,7 +1053,7 @@ def _launch_bwd(dhs, x_proj, hs, cs, w_hh_t, lead: tuple, tile: int):
     )
     name = "lstm_bwd_stacked" if lead else "lstm_bwd"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return dx
 
 
@@ -1109,7 +1125,7 @@ def _launch_wgrad(jobs, lead: tuple) -> list:
     )
     name = "lstm_wgrad_stacked" if lead else "lstm_wgrad"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return list(zip(outs, biases))
 
 
@@ -1169,7 +1185,7 @@ def _launch_stack_fwd(x1_proj, w_hh_ts, w_in_ts, biases, masks, stash: bool,
     if lead:
         name += "_stacked"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return (hs, cs) if stash else hs[-1]
 
 
@@ -1214,7 +1230,7 @@ def _launch_stack_bwd(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
     )
     name = "lstm_stack_bwd_stacked" if lead else "lstm_stack_bwd"
     _raise_on_error(name, err)
-    LAUNCHES[name] += 1
+    LAUNCHES.count(name)
     return d_pres
 
 

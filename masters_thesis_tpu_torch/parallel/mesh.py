@@ -44,6 +44,8 @@ import dataclasses
 import datetime
 import os
 
+from masters_thesis_tpu_torch.utils.counts import CallCounts
+
 #: The coordinator a rank of a launch rendezvouses at (a ``file://`` or
 #: ``tcp://`` init method); the JAX package's fleet supervisor exports it.
 COORDINATOR_ENV = "MTT_COORDINATOR"
@@ -66,15 +68,11 @@ DATA_AXIS = "data"
 #: All-reduces issued since the last ``reset_collective_counts()``:
 #: ``all_reduce_grad`` the step's gradient, ``all_reduce_sums`` an epoch's
 #: (or an evaluation's) metric sums.
-COLLECTIVES: dict[str, int] = {
-    "all_reduce_grad": 0,
-    "all_reduce_sums": 0,
-}
+COLLECTIVES = CallCounts(("all_reduce_grad", "all_reduce_sums"))
 
 
 def reset_collective_counts() -> None:
-    for name in COLLECTIVES:
-        COLLECTIVES[name] = 0
+    COLLECTIVES.reset()
 
 
 def _dist():
@@ -315,7 +313,7 @@ class DataMesh:
         then ``div_(world)`` (``lax.pmean``). Nothing without a group."""
         if not self.distributed:
             return flat
-        COLLECTIVES["all_reduce_grad"] += 1
+        COLLECTIVES.count("all_reduce_grad")
         _dist().all_reduce(flat, op=_dist().ReduceOp.SUM)
         flat.div_(self.world)
         return flat
@@ -334,7 +332,7 @@ class DataMesh:
             sums = {k: (zero, zero) for k in keys}
         names = sorted(sums)
         flat = torch.stack([t for k in names for t in sums[k]])
-        COLLECTIVES["all_reduce_sums"] += 1
+        COLLECTIVES.count("all_reduce_sums")
         _dist().all_reduce(flat, op=_dist().ReduceOp.SUM)
         return {k: (flat[2 * i], flat[2 * i + 1]) for i, k in enumerate(names)}
 

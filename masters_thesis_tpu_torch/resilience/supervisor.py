@@ -32,8 +32,9 @@ heartbeats written during the current attempt (a dead attempt's stale
 heartbeat left in the watch dir no longer counts against the next
 attempt while it starts); the backend probe and its CPU fallback are not
 ported (a child pinned to the CPU without a word is the fallback the port
-forbids; ROADMAP queue 1 item 5), nor ``ReplicaRestartPolicy`` (the
-serving fleet's, item 4b). N ranks are ``resilience/fleetsup.py``'s.
+forbids; ROADMAP queue 1 item 5). :class:`ReplicaRestartPolicy` is the
+serving fleet's (``serve/fleet.py``). N ranks are
+``resilience/fleetsup.py``'s.
 ``metrics_port`` starts the telemetry plane over the children's streams
 (``watch_dir``, else ``run_dir``): an SLO engine with ``slo_rules``
 (default ``default_train_rules()``) and the ``/metrics``, ``/healthz``
@@ -112,6 +113,74 @@ class AttemptOutcome:
     classification: Classification
     lost_work_s: float = 0.0
     hang_killed: bool = False
+
+
+@dataclass
+class ReplicaVerdict:
+    """What the serving fleet does with a dead replica."""
+
+    action: str  # restart | halt
+    kind: str  # transient | deterministic | budget_exhausted
+    backoff_s: float
+    detail: str = ""
+
+
+class ReplicaRestartPolicy:
+    """Restart classification for the serving fleet's replicas, by evidence.
+
+    The supervisor's discipline applied in-process (a replica is a worker
+    thread and an engine, not a child process): a death is retriable until
+    the evidence says otherwise —
+
+    - the same failure fingerprint on two CONSECUTIVE deaths is
+      deterministic (a restart would replay the same failure);
+    - a per-replica restart budget bounds a flapping replica;
+    - restarts back off exponentially (milliseconds: a dead replica is
+      capacity, and the queue sheds what the survivors cannot cover).
+
+    A served batch resets the fingerprint chain (:meth:`note_healthy`): a
+    crash, clean traffic, then the same crash is a fresh incident. The
+    defaults are the JAX policy's.
+    """
+
+    def __init__(self, max_restarts: int = 3, backoff_s: float = 0.05,
+                 backoff_factor: float = 2.0, max_backoff_s: float = 2.0):
+        self.max_restarts = max_restarts
+        self.backoff_s = backoff_s
+        self.backoff_factor = backoff_factor
+        self.max_backoff_s = max_backoff_s
+        self._state: dict[str, dict] = {}
+
+    def _entry(self, replica: str) -> dict:
+        return self._state.setdefault(replica,
+                                      {"restarts": 0, "last_fp": None})
+
+    def note_healthy(self, replica: str) -> None:
+        entry = self._state.get(replica)
+        if entry is not None:
+            entry["last_fp"] = None
+
+    def restarts(self, replica: str) -> int:
+        return self._entry(replica)["restarts"]
+
+    def classify(self, replica: str, fingerprint: str,
+                 detail: str = "") -> ReplicaVerdict:
+        entry = self._entry(replica)
+        if fingerprint and entry["last_fp"] == fingerprint:
+            return ReplicaVerdict(
+                "halt", "deterministic", 0.0,
+                "identical failure fingerprint on consecutive deaths "
+                f"({fingerprint}): {detail}")
+        if entry["restarts"] >= self.max_restarts:
+            return ReplicaVerdict(
+                "halt", "budget_exhausted", 0.0,
+                f"restart budget exhausted ({self.max_restarts}): {detail}")
+        entry["last_fp"] = fingerprint
+        entry["restarts"] += 1
+        backoff = min(
+            self.backoff_s * self.backoff_factor ** (entry["restarts"] - 1),
+            self.max_backoff_s)
+        return ReplicaVerdict("restart", "transient", backoff, detail)
 
 
 @dataclass

@@ -12,14 +12,20 @@ Counterpart of ``python -m masters_thesis_tpu.serve``:
   (category ``fault``), and the canary's verdict math; and the breaker half
   of its check 5: scripted dispatch failures trip the breaker, the trip is
   counted and traffic recovers on the same engine (the port has no CPU
-  degradation); and its check 7, multi-tenant stacked serving: a tenant
+  degradation); its check 6, fleet failover: three fake replicas behind
+  one ``FleetServer``, one crashed mid-traffic by ``serve.replica_dispatch``
+  (every request resolved explicitly, none late, a survivor or a new
+  generation), and the port's breaker rule: a replica whose breaker trips
+  is dead (``cause="breaker"``) and a new generation serves, with no
+  degradation; and its check 7, multi-tenant stacked serving: a tenant
   with a deadline class submits without a deadline, a second one rides
   along, a deadline-less submit of an unclassed tenant is refused, the
   per-tenant admission splits, and a stacked engine's ``(R, K)`` answer
   per window comes back through the unchanged dispatch loop
   (``stats()["lanes"]``). Exit 1 on any failure.
-- ``preflight`` runs ``serve/preflight.py`` (SV301–SV304, SV307 over lane
-  counts, and SV308 for one engine and for one lane of a stack) on the
+- ``preflight`` runs ``serve/preflight.py`` (SV301–SV304, SV306 for a
+  fleet of two replicas on the device, SV307 over lane counts, and SV308
+  for one engine and for one lane of a stack) on the
   card, or on the CPU with ``--device cpu``: one JSON line of what the
   rules measured, then the findings. Exit 1 on findings.
 """
@@ -31,6 +37,7 @@ import json
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 
 class _FakeEngine:
@@ -82,6 +89,7 @@ def _selfcheck(args) -> int:
     from masters_thesis_tpu_torch.serve.queue import STATUS_OK, STATUS_SHED
     from masters_thesis_tpu_torch.serve.server import PredictServer
     from masters_thesis_tpu_torch.serve.swap import canary_checks
+    from masters_thesis_tpu_torch.telemetry.events import read_events
     from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
 
     failures: list[str] = []
@@ -172,6 +180,85 @@ def _selfcheck(args) -> int:
     if ok_after.status != STATUS_OK:
         failures.append(f"breaker: request after the trip {ok_after.status!r}")
 
+    # 6. Fleet failover: three fake replicas, one killed by an injected
+    #    dispatch crash mid-traffic; survivors absorb the re-dispatched
+    #    work, the dead replica restarts a new generation, and no answer is
+    #    late or silently dropped.
+    from masters_thesis_tpu_torch.resilience.supervisor import (
+        ReplicaRestartPolicy,
+    )
+    from masters_thesis_tpu_torch.serve.fleet import FleetServer
+
+    fleet = FleetServer(
+        {f"r{i}": (lambda: _FakeEngine(service_s=0.002)) for i in range(3)},
+        max_wait_s=0.002, hang_timeout_s=0.5,
+        restart_policy=ReplicaRestartPolicy(backoff_s=0.01))
+    fleet.start()
+    faults.install_plan(faults.FaultPlan.parse(
+        '{"faults": [{"point": "serve.replica_dispatch", "kind": "raise",'
+        ' "attempt": null, "match": {"replica": "r1"}}]}'))
+    try:
+        pending = [fleet.submit(window, deadline_s=2.0) for _ in range(30)]
+        deadline = time.monotonic() + 5.0
+        while (fleet.replicas["r1"].state != "dead"
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        results = [p.result(timeout=10.0) for p in pending]
+    finally:
+        faults.clear_plan()
+    stats = fleet.stop()
+    if stats["deaths"] < 1:
+        failures.append(f"fleet: injected crash never killed r1 ({stats})")
+    if stats["n_live"] < 1 and stats["replicas"]["r1"]["generation"] < 2:
+        failures.append(f"fleet: no survivor and no restart ({stats})")
+    if stats["late_deliveries"] != 0:
+        failures.append(f"fleet: {stats['late_deliveries']} late "
+                        "ok-deliveries")
+    bad = [r.status for r in results
+           if r.status not in ("ok", "shed", "rejected_late")]
+    if bad:
+        failures.append(f"fleet: non-explicit outcomes {sorted(set(bad))}")
+
+    #    The breaker kills its replica: two scripted failures trip r0's
+    #    breaker, r0 dies with cause "breaker", its next generation serves.
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = TelemetryRun(tmp, run_id="serve-selfcheck-fleet")
+        engines: list[_FakeEngine] = []
+
+        def failing_first():
+            engines.append(_FakeEngine(service_s=0.001))
+            engines[-1].fail_next = 2 if len(engines) == 1 else 0
+            return engines[-1]
+
+        fleet = FleetServer({"r0": failing_first}, telemetry=tel,
+                            breaker_threshold=2, max_wait_s=0.001,
+                            restart_policy=ReplicaRestartPolicy(
+                                backoff_s=0.01))
+        fleet.start()
+        failed = [fleet.submit(window, deadline_s=5.0).result(timeout=10.0)
+                  for _ in range(2)]
+        deadline = time.monotonic() + 5.0
+        while (fleet.replicas["r0"].state != "live"
+               or fleet.replicas["r0"].generation < 2) \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        ok_after = fleet.submit(window, deadline_s=5.0).result(timeout=10.0)
+        stats = fleet.stop()
+        tel.close()
+        dead = [e for e in read_events(Path(tmp) / "events.jsonl")
+                if e.get("kind") == "replica_dead"]
+    if [r.status for r in failed] != ["error", "error"]:
+        failures.append(f"fleet breaker: failed dispatches answered "
+                        f"{[r.status for r in failed]}")
+    if [e.get("cause") for e in dead] != ["breaker"]:
+        failures.append(f"fleet breaker: deaths {dead} (wanted one, cause "
+                        "breaker)")
+    if stats["degradations"] != 0 or stats["replicas"]["r0"]["generation"] < 2:
+        failures.append(f"fleet breaker: no new generation ({stats})")
+    if ok_after.status != STATUS_OK:
+        failures.append(f"fleet breaker: request after the trip "
+                        f"{ok_after.status!r}")
+
     # 7. Multi-tenant stacked serving: a deadline-classed tenant submits
     #    without a deadline, a second tenant rides along, accounting
     #    splits by tenant, and (R, K) answers resolve through the dispatch
@@ -228,7 +315,7 @@ def _preflight(args) -> int:
               "under load captures nothing and is never late; stacked: one "
               "capture a bucket at every lane count, a lane swap under load "
               "captures nothing, is never late and leaves its siblings "
-              "bitwise)")
+              "bitwise; a fleet survives a replica's death, nothing late)")
     return 1 if findings else 0
 
 
@@ -243,7 +330,7 @@ def main(argv: list[str] | None = None) -> int:
     p_check.set_defaults(fn=_selfcheck)
     p_pre = sub.add_parser(
         "preflight", help="predict-path audit on the card (SV301-SV304, "
-        "SV307, SV308)")
+        "SV306-SV308)")
     p_pre.add_argument("--device", default=None,
                        help="cpu to run on the CPU (default: the card)")
     p_pre.add_argument("--requests", type=int, default=12, metavar="N",

@@ -36,15 +36,16 @@ varied batch sizes and holds the serving contract:
   stack, committed while a server carries steady load, captures nothing,
   resolves every request, delivers no answer late, and leaves every
   sibling lane's answers on the golden batch bitwise as they were.
+- **SV306**: a ``FleetServer`` of two replicas of the preflight engine on
+  the preflight's device (the replicas share it; each factory names the
+  device) survives an injected ``serve.replica_dispatch`` crash of ``r0``
+  under traffic: the crash kills ``r0`` (whose restart captures its graphs
+  while ``r1`` serves, and dies again, and halts), a replica survives,
+  every request resolves explicitly and no ``ok`` answer comes late.
 
-Not ported, each for its reason:
-
-- **SV305** (a warm program-cache boot compiles nothing): a CUDA graph
-  cannot be written to disk, so the port has no program cache to boot
-  from.
-- **SV306** (a fleet survives a replica's death): the fleet puts replicas
-  on disjoint devices and one card holds one replica; it waits for the
-  multi-device work.
+Not ported: **SV305** (a warm program-cache boot compiles nothing): a CUDA
+graph cannot be written to disk, so the port has no program cache to boot
+from.
 """
 
 from __future__ import annotations
@@ -178,6 +179,7 @@ def _run(device, requests, facts: dict) -> list[Finding]:
             "(engine wiring is broken)"))
     findings += _swap_under_load(engine, spec, facts)
     findings += _stacked(engine.device, facts)
+    findings += _fleet(spec, engine.device, facts)
     return findings
 
 
@@ -364,4 +366,99 @@ def _lane_swap_under_load(engine, spec, candidate: dict, facts: dict
     if not siblings:
         findings.append(Finding(
             rule="SV308", message="a lane swap moved a sibling lane's answers"))
+    return findings
+
+
+#: SV306: the fleet's replicas, buckets and requests (the JAX rule's).
+FLEET_REPLICAS = 2
+FLEET_BUCKETS = (1, 2)
+FLEET_REQUESTS = 24
+
+
+def _fleet(spec, device, facts: dict) -> list[Finding]:
+    """SV306: two replicas on ``device``, ``r0`` crashed by an injected
+    ``serve.replica_dispatch`` fault under traffic."""
+    from masters_thesis_tpu_torch.ops import lstm_kernel as lk
+    from masters_thesis_tpu_torch.resilience import faults
+    from masters_thesis_tpu_torch.resilience.supervisor import (
+        ReplicaRestartPolicy,
+    )
+    from masters_thesis_tpu_torch.serve.engine import PredictEngine
+    from masters_thesis_tpu_torch.serve.fleet import FleetServer
+
+    state = _state(spec, 0)
+    before = dict(lk.LAUNCHES)
+
+    def factory():
+        return PredictEngine(spec, state, n_stocks=PREFLIGHT_STOCKS,
+                             lookback=PREFLIGHT_LOOKBACK,
+                             n_features=PREFLIGHT_FEATURES,
+                             buckets=FLEET_BUCKETS, device=device)
+
+    fleet = FleetServer({f"r{i}": factory for i in range(FLEET_REPLICAS)},
+                        max_wait_s=0.003, hang_timeout_s=2.0,
+                        restart_policy=ReplicaRestartPolicy(backoff_s=0.01))
+    victim = "r0"
+    plan = faults.FaultPlan(faults=[faults.FaultSpec(
+        point="serve.replica_dispatch", kind="raise", attempt=None,
+        match={"replica": victim})])
+    windows = np.random.default_rng(0).standard_normal(
+        (FLEET_REQUESTS, PREFLIGHT_STOCKS, PREFLIGHT_LOOKBACK,
+         PREFLIGHT_FEATURES)).astype(np.float32)
+    try:
+        fleet.start()
+        faults.install_plan(plan)
+        pendings = [fleet.submit(w, deadline_s=2.0) for w in windows]
+        deadline = time.monotonic() + 10.0
+        while (time.monotonic() < deadline
+               and fleet.replicas[victim].state != "dead"):
+            time.sleep(0.01)
+        faults.clear_plan()
+        unresolved = 0
+        statuses: dict[str, int] = {}
+        for p in pendings:
+            try:
+                status = p.result(timeout=10.0).status
+            except TimeoutError:
+                unresolved += 1
+            else:
+                statuses[status] = statuses.get(status, 0) + 1
+        # Liveness before stop(): draining is the shutdown state, not a
+        # failover outcome.
+        survivors = [r.name for r in fleet._serving()]
+        stats = fleet.stop()
+    finally:
+        faults.clear_plan()
+    facts["fleet"] = {
+        "requests": len(pendings), "statuses": statuses,
+        "unresolved": unresolved, "survivors": survivors,
+        "deaths": stats["deaths"], "redispatched": stats["redispatched"],
+        "late_deliveries": stats["late_deliveries"],
+        "replicas": {n: {k: r[k] for k in ("state", "generation", "restarts",
+                                            "completed", "boot_s")}
+                     for n, r in stats["replicas"].items()},
+        # The kernels the fleet's engines launched (none on the CPU).
+        "launches": {k: n - before[k] for k, n in lk.LAUNCHES.items()
+                     if n != before[k]}}
+    findings = []
+    if stats["deaths"] < 1:
+        findings.append(Finding(
+            rule="SV306", message="the injected dispatch crash never killed "
+            f"the victim replica ({victim}): the preflight did not exercise "
+            "failover"))
+    if not survivors:
+        states = {n: r["state"] for n, r in stats["replicas"].items()}
+        findings.append(Finding(
+            rule="SV306", message="no serving replica survived a single "
+            f"injected replica death (states: {states})"))
+    if unresolved:
+        findings.append(Finding(
+            rule="SV306", message=f"{unresolved} request(s) were silently "
+            "dropped after the replica death (every request must resolve "
+            "explicitly: ok, shed, or rejected_late)"))
+    if stats["late_deliveries"]:
+        findings.append(Finding(
+            rule="SV306", message=f"{stats['late_deliveries']} ok "
+            "response(s) delivered past their deadline during failover (no "
+            "late answers, fleet-wide)"))
     return findings

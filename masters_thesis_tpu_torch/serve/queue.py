@@ -21,6 +21,9 @@ robustness rules live here, independent of the device:
   the JAX queue's;
 - the server converts any response that would still be delivered past its
   deadline into an explicit rejection (server.py);
+- a ``feasibility`` hook (the serving fleet's, ``serve/fleet.py``)
+  replaces the forecast: it returns a shed reason or None, and owns the
+  probe rule for the models it reads;
 - admission is TENANT-aware: every request bills to a tenant
   (:class:`TenantClass`) with its own deadline class, shed accounting and
   EWMA service model, used for its forecasts once it has been served.
@@ -222,6 +225,7 @@ class MicroBatchQueue:
         max_depth: int = 256,
         service_model: ServiceTimeModel | None = None,
         on_shed: Callable[[ServeRequest, str], None] | None = None,
+        feasibility: Callable[[ServeRequest, int], str | None] | None = None,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1: {max_batch}")
@@ -230,6 +234,9 @@ class MicroBatchQueue:
         self.max_depth = max_depth
         self.service_model = service_model or ServiceTimeModel()
         self.on_shed = on_shed
+        #: ``feasibility(request, depth)`` -> a shed reason, or None to
+        #: admit; replaces the forecast below when given.
+        self.feasibility = feasibility
         self._items: list[PendingRequest] = []
         self._cond = threading.Condition()
         self._closed = False
@@ -347,6 +354,23 @@ class MicroBatchQueue:
             )
         if depth >= self.max_depth:
             return self._shed(pending, f"queue full (depth {depth})")
+        reason = (self.feasibility(request, depth)
+                  if self.feasibility is not None
+                  else self._forecast(request, tenant, depth))
+        if reason is not None:
+            return self._shed(pending, reason)
+        with self._cond:
+            if not self._closed:  # re-check under the lock (close() raced us)
+                self._items.append(pending)
+                tenant.admitted += 1
+                self._cond.notify_all()
+                return pending
+        return self._shed(pending, "server shutting down")
+
+    def _forecast(self, request: ServeRequest, tenant: TenantClass,
+                  depth: int) -> str | None:
+        """The shed reason of the queue's own forecast, or None to admit
+        (``request.probe`` set when it is admitted as a probe)."""
         # Forecast with the tenant's OWN service model once it has seen a
         # batch (its requests may systematically differ from the
         # aggregate); a fresh tenant uses the queue-wide EWMA.
@@ -360,18 +384,9 @@ class MicroBatchQueue:
         request.probe = infeasible and depth == 0 and model.stale(now)
         if infeasible and not request.probe:
             budget_ms = (request.deadline_ts - now) * 1e3
-            return self._shed(
-                pending,
-                f"deadline infeasible: est {est * 1e3:.1f}ms > "
-                f"budget {budget_ms:.1f}ms at depth {depth}",
-            )
-        with self._cond:
-            if not self._closed:  # re-check under the lock (close() raced us)
-                self._items.append(pending)
-                tenant.admitted += 1
-                self._cond.notify_all()
-                return pending
-        return self._shed(pending, "server shutting down")
+            return (f"deadline infeasible: est {est * 1e3:.1f}ms > "
+                    f"budget {budget_ms:.1f}ms at depth {depth}")
+        return None
 
     def next_batch(self, timeout_s: float = 0.1) -> list[PendingRequest]:
         """Block until a micro-batch is ready; [] on timeout or close.

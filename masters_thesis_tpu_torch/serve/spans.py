@@ -80,6 +80,14 @@ class RequestSpans:
                 if entry is not None:
                     entry[key] = t
 
+    def annotate(self, rid: int, **attrs) -> None:
+        """Attributes written when the span closes (the fleet marks a
+        re-dispatched request with ``redispatched_from=<replica>``)."""
+        with self._lock:
+            entry = self._entries.get(rid)
+            if entry is not None:
+                entry.setdefault("attrs", {}).update(attrs)
+
     def close(self, rid: int, status: str, t_resolve: float, **attrs) -> None:
         """End the span with tiling components (see module docstring)."""
         tracer = self._tracer()

@@ -34,8 +34,15 @@ Counterpart of ``masters_thesis_tpu/telemetry/__main__.py``.
   directory, then the quality fixture and an SLO fixture (a burst of shed
   requests fires the burn-rate alert, which resolves once they stop).
 
-Not ported, each exiting 1 with the ROADMAP item that holds it: ``watch``
-(the live fleet console, item 4b), ``ledger`` (item 6).
+- ``watch <root>`` — the live fleet console (``telemetry/watch.py``):
+  tails every ``events.jsonl`` under a root while it is written and
+  renders per-rank and per-replica status, the serving window (QPS, p99,
+  shed), the generation and the SLO alerts firing. ``--once`` renders one
+  frame, ``--json`` one snapshot; ``--selfcheck`` runs a hermetic
+  two-process fixture instead.
+
+Not ported, exiting 1 with the ROADMAP item that holds it: ``ledger``
+(item 6).
 """
 
 from __future__ import annotations
@@ -47,7 +54,6 @@ import tempfile
 
 #: The subcommands this package does not have yet, and where each waits.
 NOT_PORTED = {
-    "watch": "ROADMAP.md queue 1 item 4b (the serving fleet)",
     "ledger": "ROADMAP.md queue 1 item 6 (with the first BENCHMARK.json)",
 }
 
@@ -82,6 +88,23 @@ def _aggregate(args) -> int:
     print(json.dumps(report, indent=2, default=str) if args.json
           else render_fleet_text(report))
     return 0 if report["healthy"] else 2
+
+
+def _watch(args) -> int:
+    from masters_thesis_tpu_torch.telemetry import watch
+
+    if args.selfcheck:
+        return watch.selfcheck()
+    if args.root is None:
+        print("watch: a run root is required (or --selfcheck)",
+              file=sys.stderr)
+        return 1
+    if args.json:
+        w = watch.FleetWatch(args.root, grace_s=args.grace)
+        print(json.dumps(w.refresh(), indent=2, default=str))
+        return 0
+    return watch.run_watch(args.root, once=args.once,
+                           interval_s=args.interval, grace_s=args.grace)
 
 
 def _postmortem(args) -> int:
@@ -384,6 +407,21 @@ def main(argv: list[str] | None = None) -> int:
     p_quality.add_argument("--selfcheck", action="store_true",
                            help="hermetic sketch/detector/gate fixture")
     p_quality.set_defaults(fn=_quality)
+    p_watch = sub.add_parser(
+        "watch", help="live fleet console over running event streams")
+    p_watch.add_argument("root", nargs="?", default=None,
+                         help="root directory holding per-process run dirs")
+    p_watch.add_argument("--once", action="store_true",
+                         help="render one snapshot and exit")
+    p_watch.add_argument("--json", action="store_true",
+                         help="print one machine-readable snapshot and exit")
+    p_watch.add_argument("--interval", type=float, default=2.0, metavar="S",
+                         help="refresh interval in seconds (default 2)")
+    p_watch.add_argument("--grace", type=float, default=30.0, metavar="S",
+                         help="a process active within S seconds is running")
+    p_watch.add_argument("--selfcheck", action="store_true",
+                         help="hermetic 2-process fixture instead of a root")
+    p_watch.set_defaults(fn=_watch)
     p_check = sub.add_parser("selfcheck",
                              help="events -> report, quality and SLO smoke")
     p_check.set_defaults(fn=_selfcheck)

@@ -84,7 +84,7 @@ def digest_events(events: list[dict], path: Path, root: Path) -> dict:
     """The digest fold over already-loaded events.
 
     Split out of :func:`digest_stream` so that a reader holding events
-    already (a live console's tail, ROADMAP queue 1 item 4b) shares this
+    already (the live console's tail, ``telemetry/watch.py``) shares this
     reconstruction; ``path`` still names the stream's location, since the
     heartbeat and crashdump sidecars lie beside it.
     """

@@ -2329,3 +2329,82 @@ def test_more_devices_than_the_card_are_refused(cuda_device, tmp_path):
     assert proc.returncode != 0
     assert f"trainer.n_devices={n}" in proc.stderr
     assert not (tmp_path / "logs").exists()
+
+
+def _small_serving_engine(device, seed=0):
+    """model=small's serving engine at full width (100 stocks, T=60, H=64,
+    the 2 layers one pair), buckets 1-8, seeded weights."""
+    spec = ModelSpec(objective="mse", hidden_size=64, num_layers=2,
+                     dropout=0.0)
+    state = spec.build_module(
+        device="cpu",
+        generator=torch.Generator().manual_seed(seed)).state_dict()
+    return PredictEngine(spec, state, n_stocks=100, lookback=60,
+                         n_features=3, buckets=(1, 2, 4, 8), device=device)
+
+
+def test_engines_capture_while_a_sibling_replays_and_two_at_once(
+        cuda_device):
+    """The serving fleet on one card: new engines capture their buckets on
+    a thread while another engine replays in a loop (three rounds), then
+    two capture at once beside it. No capture fails, the collector is on
+    afterwards, each graph's own launches are a solo capture's, and the
+    launch counts are exactly each graph's runs (warm-up and replays)
+    times its launches."""
+    import gc
+    import threading
+
+    solo = _small_serving_engine(cuda_device)
+    solo.warmup()
+    solo_launches = {b: dict(p.run.launches)
+                     for b, p in solo._programs.items()}
+    assert all(v == {"lstm_pair_fwd": 1} for v in solo_launches.values())
+    server = _small_serving_engine(cuda_device, seed=1)
+    server.warmup()
+    x = np.random.default_rng(0).normal(size=(8, 100, 60, 3)).astype(
+        np.float32)
+    want = server.predict(x)
+    errors: list[BaseException] = []
+    booted: list[PredictEngine] = []
+    lk.reset_launch_counts()
+    base = {b: p.run.replays for b, p in server._programs.items()}
+    replays = 0
+
+    def boot(engine):
+        try:
+            engine.warmup()
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    for group in ([2], [3], [4], [5, 6]):
+        engines = [_small_serving_engine(cuda_device, seed=s) for s in group]
+        booted += engines
+        threads = [threading.Thread(target=boot, args=(e,)) for e in engines]
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            got = server.predict(x)
+            replays += 1
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        for t in threads:
+            t.join()
+    assert not errors, errors
+    assert gc.isenabled()
+    assert replays > 0
+    for engine in booted:
+        assert engine.compile_events == 4
+        for b, program in engine._programs.items():
+            assert program.run.launches == solo_launches[b]
+    # Since the reset: the server's replays, and each booted graph's
+    # warm-up run and replays.
+    runs = [(p.run.replays - base[b], p.run.launches)
+            for b, p in server._programs.items()]
+    runs += [(p.run.captures + p.run.replays, p.run.launches)
+             for e in booted for p in e._programs.values()]
+    want_launches = {}
+    for n, launches in runs:
+        for name, k in launches.items():
+            want_launches[name] = want_launches.get(name, 0) + n * k
+    assert server._programs[8].run.replays - base[8] == replays
+    assert {k: v for k, v in lk.LAUNCHES.items() if v} == want_launches

@@ -13,8 +13,11 @@ its Python-scalar update. The JAX side holds the same code through
 (``tests/test_torch_cuda.py``) hold graphed against eager there.
 """
 
+import gc
+import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -38,7 +41,11 @@ from masters_thesis_tpu_torch.train.steps import (
     window_eval_metrics,
 )
 from masters_thesis_tpu_torch.train.trainer import epoch_seed
-from masters_thesis_tpu_torch.utils.cuda_graph import CaptureError, GraphedCall
+from masters_thesis_tpu_torch.utils.cuda_graph import (
+    CaptureError,
+    GraphedCall,
+    collector_paused,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 CLIP, WD = 5.0, 1e-5
@@ -365,3 +372,114 @@ def test_engine_answers_outlive_the_next_batch():
     for got, want in zip(first, kept):
         np.testing.assert_array_equal(got, want)
     assert engine.compile_events == 0  # nothing is captured on the CPU
+
+
+# ------------------------------------------- several captures at once, on the CPU
+
+
+def test_the_collector_stays_off_until_the_last_capture_ends():
+    """Two captures that overlap: the first to start turns the collector
+    off, the first to end leaves it off, the last turns it back on."""
+    assert gc.isenabled()
+    first_in, second_in, first_out = (threading.Event() for _ in range(3))
+    seen = {}
+
+    def first():
+        with collector_paused():
+            first_in.set()
+            second_in.wait(5.0)
+        first_out.set()
+
+    def second():
+        first_in.wait(5.0)
+        with collector_paused():
+            second_in.set()
+            first_out.wait(5.0)
+            seen["after_first"] = gc.isenabled()
+
+    threads = [threading.Thread(target=f) for f in (first, second)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10.0)
+    assert not any(t.is_alive() for t in threads)
+    assert seen == {"after_first": False}
+    assert gc.isenabled()
+    gc.disable()
+    try:  # a collector that was off before stays off after
+        with collector_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_a_thread_local_capture_counts_only_its_own_thread():
+    """While one thread captures (``thread_local``), another thread's
+    launches and replays count as they run; the capture's own counts go to
+    its graph only, and every replay adds them once."""
+    lk.reset_launch_counts()
+    captured = threading.Event()
+    release = threading.Event()
+    sibling = _FakeGraphedCall(_counting_body, device="cpu", name="sibling")
+    sibling()  # warm-up + capture: 1 run counted
+    call = {}
+
+    class Held(_FakeGraphedCall):
+        def _record(self, stream):
+            self.body()
+            captured.set()
+            release.wait(5.0)
+            return _FakeGraph()
+
+    def capture():
+        call["c"] = Held(_counting_body, device="cpu", name="held",
+                         capture_error_mode="thread_local")
+        call["c"]()
+
+    t = threading.Thread(target=capture)
+    t.start()
+    assert captured.wait(5.0)
+    for _ in range(3):  # the sibling replays while the capture is open
+        sibling()
+    _counting_body()  # and a real eager run on this thread
+    release.set()
+    t.join(5.0)
+    assert not t.is_alive()
+    assert call["c"].launches == sibling.launches == {
+        "lstm_pair_fwd_masked": 1, "lstm_pair_bwd": 1, "lstm_wgrad": 2}
+    call["c"]()  # one replay of the new graph
+    # Runs: the sibling's warm-up and 3 replays, the eager run, the held
+    # call's warm-up and its replay.
+    runs = 1 + 3 + 1 + 1 + 1
+    assert lk.LAUNCHES == dict.fromkeys(lk.LAUNCHES, 0) | {
+        "lstm_pair_fwd_masked": runs, "lstm_pair_bwd": runs,
+        "lstm_wgrad": 2 * runs}
+    lk.reset_launch_counts()
+
+
+def test_launch_counts_lose_nothing_across_threads():
+    """More threads than cores, switching every microsecond: a lost
+    increment would show in the totals."""
+    lk.reset_launch_counts()
+    n_threads, n = 2 * (os.cpu_count() or 4), 2000
+
+    def launch():
+        for _ in range(n):
+            lk.LAUNCHES.count("lstm_fwd")
+            lk.LAUNCHES.add({"lstm_pair_fwd": 1})
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert (lk.LAUNCHES["lstm_fwd"] == lk.LAUNCHES["lstm_pair_fwd"]
+            == n_threads * n)
+    lk.reset_launch_counts()

@@ -52,7 +52,8 @@ def test_port_imports_with_jax_blocked():
                  "parallel.launch", "utils.backend_probe", "utils.io",
                  "utils.cuda_graph", "train.steps", "models.objectives",
                  "telemetry.schedule", "telemetry.aggregate",
-                 "resilience.fleetsup"):
+                 "resilience.fleetsup", "serve.fleet", "telemetry.watch",
+                 "telemetry.signals", "utils.counts"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -172,7 +172,10 @@ def test_an_answer_without_time_to_go_back_is_rejected_late():
 def test_a_hand_back_that_slides_past_the_deadline_is_counted(monkeypatch):
     """late_deliveries reads the clock after the hand-back: an ok answer
     whose hand-back is held past its deadline is counted, and the longest
-    hand-back is reported."""
+    hand-back is reported. The engine's service time is fixed (the
+    selfcheck's fake engine), so admission does not depend on how loaded
+    the machine is."""
+    from masters_thesis_tpu_torch.serve.__main__ import _FakeEngine
     from masters_thesis_tpu_torch.serve.queue import PendingRequest
 
     resolve = PendingRequest.resolve
@@ -183,11 +186,12 @@ def test_a_hand_back_that_slides_past_the_deadline_is_counted(monkeypatch):
         resolve(self, response)
 
     monkeypatch.setattr(PendingRequest, "resolve", slow_resolve)
-    server = PredictServer(_engine(), max_wait_s=0.0)
+    engine = _FakeEngine(service_s=0.001)
+    server = PredictServer(engine, max_wait_s=0.0)
     server.start()
     try:
-        response = server.submit(_windows(1)[0], deadline_s=0.2).result(
-            timeout=5.0)
+        response = server.submit(np.zeros(engine.window_shape, np.float32),
+                                 deadline_s=0.2).result(timeout=5.0)
     finally:
         stats = server.stop()
     assert response.ok
