@@ -133,6 +133,15 @@ two stacked replicas of R = 4 lanes the same way; and the fleet's
 answers/s, p50 and p99 against one
 ``PredictServer`` (off / on / on / off). ``serve_preflight`` also holds
 SV306 (two replicas of the preflight engine on the card, ``r0`` crashed).
+``preflight`` (after ``serve_fleet``) runs the trainer preflight
+(``analysis/traceaudit.py``) on the card at model=small and at R = 2
+stacked: one capture, every later step a replay under the raising sync
+check, one gradient all-reduce a step; a host read planted in the step
+fails it with TA202, and a capture that fails for another cause is TA205;
+beside it, the port's lint gate (``python -m
+masters_thesis_tpu_torch.analysis --concurrency --contracts --spmd``, and
+the default run: the graph-path lint and the audit on the card) as
+children, both exit 0.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -3777,6 +3786,103 @@ def phase_serve_preflight(child: subprocess.Popen) -> dict:
     return out
 
 
+def _start_analysis() -> dict:
+    """The port's lint gate as two children, started now and waited for by
+    ``phase_preflight``: the static passes (concurrency, event contract,
+    SPMD) on the host, and the default run (the graph-path lint, then the
+    trainer audit on the card, its default device)."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "masters_thesis_tpu_torch.analysis"]
+    return {name: subprocess.Popen(cmd + args, cwd=root, text=True,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT)
+            for name, args in (("static", ["--concurrency", "--contracts",
+                                           "--spmd"]),
+                               ("default", []))}
+
+
+def phase_preflight() -> dict:
+    """The trainer preflight on the card: ``assert_trace_clean`` at
+    model=small (one capture, every later step a replay under the raising
+    sync check, one gradient all-reduce a step) and at R = 2 stacked (one
+    capture, one ``[R, n]`` all-reduce a step); a planted host read in the
+    step fails it with TA202 and a planted capture failure with TA205; and
+    the lint gate's children exit 0."""
+    from masters_thesis_tpu_torch.analysis import traceaudit
+    from masters_thesis_tpu_torch.train import steps
+
+    t0 = time.perf_counter()
+    children = _start_analysis()
+    try:
+        before = dict(lk.LAUNCHES)
+        facts: dict = {}
+        traceaudit.assert_trace_clean(spec=_train_spec(), device=DEVICE,
+                                      stacked_replicas=2, facts=facts)
+        launches = {k: n - before[k] for k, n in lk.LAUNCHES.items()
+                    if n != before[k]}
+        real = steps.train_step
+
+        def reading(*args, **kwargs):
+            sums = real(*args, **kwargs)
+            sums["total"][0].item()  # the planted host read
+            return sums
+
+        def refusing(*args, **kwargs):
+            # A capture that fails for a cause that is no host read.
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("planted capture failure")
+            return real(*args, **kwargs)
+
+        planted = {}
+        for name, plant in (("host_read", reading),
+                            ("capture_failure", refusing)):
+            steps.train_step = plant
+            try:
+                planted[name] = traceaudit.run_trace_audit(
+                    spec=_train_spec(), device=DEVICE)
+            finally:
+                steps.train_step = real
+        lint = {}
+        for name, child in children.items():
+            out, _ = child.communicate(timeout=300)
+            lint[name] = {"exit": child.returncode,
+                          "last": out.strip().splitlines()[-1:]}
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+    stacked = facts["stacked"]
+    out = {"phase": "preflight", "card": _card(),
+           "seconds": time.perf_counter() - t0,
+           "TA201": {"captures": facts.get("captures"),
+                     "replays": facts.get("replays"),
+                     "steps": facts["steps"]},
+           "TA206": {"all_reduces_per_step": facts["all_reduces_per_step"]},
+           "TA207": {"captures": stacked.get("captures"),
+                     "replays": stacked.get("replays"),
+                     "all_reduces_per_step": stacked["all_reduces_per_step"]},
+           "launches": launches,
+           "planted": {name: sorted({f.rule for f in found})
+                       for name, found in planted.items()},
+           "lint": lint}
+    emit(out)
+    if (facts.get("captures") != 1 or facts.get("replays") != facts["steps"]
+            or stacked.get("captures") != 1):
+        raise AssertionError(f"preflight: the steps were not captured once: "
+                             f"{facts}")
+    if out["planted"] != {"host_read": ["TA202"],
+                          "capture_failure": ["TA205"]}:
+        raise AssertionError(
+            "preflight: a planted host read was not TA202 alone, or a "
+            "planted capture failure not TA205 alone: "
+            + str({name: [f.format() for f in found]
+                   for name, found in planted.items()}))
+    if any(v["exit"] != 0 for v in lint.values()):
+        raise AssertionError(f"preflight: the lint gate failed: {lint}")
+    return out
+
+
 def _scrape_completed(url: str) -> float:
     body = urllib.request.urlopen(url + "/metrics", timeout=10).read().decode()
     match = COMPLETED_METRIC.search(body)
@@ -6203,6 +6309,7 @@ def main() -> int:
         stacked_driver, windows, _synthetic_windows(K_MEDIUM),
         _synthetic_windows(lookback=T_LONG, stride=STRIDE_LONG))
     serve_fleet = phase_serve_fleet(windows)
+    phase_preflight()
     # The maskless pair forward's and the stack forward's launches on the
     # serving phases of this slice.
     serve_paths = {

@@ -87,8 +87,6 @@ def main(argv: list[str] | None = None) -> int:
         distributed_initialize(required=True, device=device)
     mesh = data_mesh(t.get("strategy", "auto"), t.get("n_devices", None),
                      device)
-    if mesh.is_main:
-        cli_train.report_ignored(cfg)
     if not cli_train.bootstrap(cfg):
         return 1
     dm = cli_train.build_datamodule(cfg)
@@ -116,6 +114,7 @@ def main(argv: list[str] | None = None) -> int:
         hang_timeout_s=t.get("hang_timeout_s", None),
         strategy=t.get("strategy", "auto"),
         n_devices=t.get("n_devices", None),
+        preflight=bool(t.get("preflight", False)),
     )
     result = trainer.fit(spec, dm, replicas)
     mesh.shutdown()

@@ -13,9 +13,13 @@ sidecar), compares model against OLS against ground truth on the test split
 ``test.py``'s format. It writes ``results.json`` (the ΔL table and the
 test-split metrics of ``Trainer.test``) and ``results.npz`` (the arrays of
 ``collect_test_results``, keyed ``<quantity>/<source>``) into the run's log
-dir, and logs the ΔL scalars there (``metrics.jsonl``). ``test.py``'s
-figures are not drawn: the card's machine has no matplotlib. A JAX package
-(orbax) checkpoint is refused.
+dir, and logs the ΔL scalars there (``metrics.jsonl``). Where matplotlib
+imports it draws ``test.py``'s figures under the same tags, as PNG files in
+``<log_dir>/figures/`` (``viz/plots.py``); the card's machine has no
+matplotlib, so there it prints one line naming ``python -m
+masters_thesis_tpu_torch plots <log_dir>``, which draws the same figures
+from ``results.npz`` on a machine that has it (:func:`plots_main`). A JAX
+package (orbax) checkpoint is refused.
 
 With ``datamodule.n_factors > 1`` it writes the test-split metrics of
 ``Trainer.test`` alone, and says so in one printed line: the ΔL table and
@@ -176,7 +180,42 @@ def main(argv: list[str] | None = None) -> int:
     ))
     np.savez(logger.log_dir / "results.npz", **_flatten(results))
     print(f"results written to {logger.log_dir}", flush=True)
+    draw_figures(logger.log_dir, results)
     return 0
+
+
+def draw_figures(log_dir: Path, results: dict) -> bool:
+    """``test.py``'s figures into ``<log_dir>/figures/``, or one line
+    saying where to draw them when matplotlib does not import here."""
+    from masters_thesis_tpu_torch.viz import plots
+
+    if not plots.matplotlib_available():
+        print("figures: not drawn (no matplotlib here); draw them from "
+              "results.npz with `python -m masters_thesis_tpu_torch plots "
+              f"{log_dir}` on a machine that has it", flush=True)
+        return False
+    sink = plots.FigureDir(Path(log_dir) / "figures")
+    plots.draw_test_figures(results, sink)
+    print(f"figures: {len(sink.written)} written to {sink.root}", flush=True)
+    return True
+
+
+def plots_main(argv: list[str] | None = None) -> int:
+    """``python -m masters_thesis_tpu_torch plots <log_dir>``: the figures
+    of a ``test`` run's ``results.npz`` into ``<log_dir>/figures/``."""
+    from masters_thesis_tpu_torch.viz.plots import results_from_npz
+
+    parser = argparse.ArgumentParser(
+        prog="python -m masters_thesis_tpu_torch plots",
+        description="draw the test figures of a run's results.npz")
+    parser.add_argument("log_dir", type=Path)
+    args = parser.parse_args(argv)
+    npz = args.log_dir / "results.npz"
+    if not npz.exists():
+        print(f"no results.npz under {args.log_dir}; run the test command "
+              "first", file=sys.stderr)
+        return 1
+    return 0 if draw_figures(args.log_dir, results_from_npz(npz)) else 1
 
 
 def _test_kfactor(cfg: Config, spec, state, dm, tester, logger) -> int:

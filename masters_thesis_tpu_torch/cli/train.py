@@ -49,8 +49,10 @@ there, with the flight recorder (``trainer.hang_timeout_s``), the profiler
 window (``trainer.profile_steps``, ``trainer.profile``) and the analytic
 cost profile (``trainer.cost_profile``), and the run ends with the
 ``telemetry: python -m masters_thesis_tpu_torch.telemetry summarize <dir>``
-line. ``trainer.preflight`` is ignored with one printed line
-(:func:`report_ignored`).
+line. ``trainer.preflight=true`` runs the trace audit of the configured
+model's training step (``analysis/traceaudit.py``, TA201–TA206) on the
+trainer's device before ``fit`` and writes its ``preflight`` event; a
+finding stops the run before any real epoch.
 """
 
 from __future__ import annotations
@@ -72,13 +74,6 @@ from masters_thesis_tpu_torch.config import (
 from masters_thesis_tpu_torch.config import yaml_subset
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
-
-# trainer keys that only turn on observation which the port has not yet:
-# the trace-time preflight audit, with where it is queued.
-OBSERVATION_KEYS = {
-    "preflight": "ROADMAP.md queue 1 item 6 (the analysis passes)",
-}
-
 
 def register_resolvers() -> None:
     """The derived-config resolvers of ``train.py``."""
@@ -230,16 +225,6 @@ def launches_ranks(cfg: Config, device) -> int:
     return world if world > 1 else 0
 
 
-def report_ignored(cfg: Config) -> None:
-    """One line for each set observation key the port does not have."""
-    for key, queue in OBSERVATION_KEYS.items():
-        value = cfg.trainer.get(key)
-        if value:
-            print(f"note: trainer.{key}={value} only turns on observation, "
-                  "which masters_thesis_tpu_torch does not have; ignored "
-                  f"({queue})", flush=True)
-
-
 def make_telemetry(cfg: Config, log_dir: Path, rank: int = 0):
     """The run's ``TelemetryRun`` from ``trainer.telemetry``: ``auto`` puts
     it under ``<log_dir>/telemetry``, a path pins it there, null or false
@@ -263,6 +248,7 @@ def observation_kwargs(cfg: Config) -> dict:
         profile=bool(t.get("profile", False)),
         profile_steps=tuple(profile_steps) if profile_steps else None,
         hang_timeout_s=t.get("hang_timeout_s", None),
+        preflight=bool(t.get("preflight", False)),
     )
 
 
@@ -390,8 +376,6 @@ def run(cfg: Config, device=None) -> float:
         distributed_initialize(required=True, device=device)
     mesh = data_mesh(t.get("strategy", "auto"), t.get("n_devices", None),
                      device)
-    if mesh.is_main:
-        report_ignored(cfg)
     if not bootstrap(cfg):
         return float("inf")
     dm = build_datamodule(cfg)

@@ -1134,7 +1134,7 @@ def _pointers(tensors) -> ctypes.Array:
 
 
 def _check_stack(x1_proj, w_hh_ts, w_in_ts, biases, masks, planes=(),
-                 lead: tuple = ()):
+                 lead: tuple = ()) -> tuple[int, int, int, int, torch.device]:
     """Shapes, device, dtype and contiguity of a stack call over ``lead``
     (``()`` or ``(R,)``) replicas; its sizes."""
     n_t, b, hidden = _shapes(x1_proj[0] if lead else x1_proj)

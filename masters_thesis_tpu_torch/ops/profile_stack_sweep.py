@@ -112,7 +112,7 @@ def main() -> int:
                     call()
                 if lib.lstm_stack_stamps(-1, stamps.ctypes.data) != 0:
                     raise RuntimeError("lstm_stack_stamps failed")
-                got = stamps[:iters].astype(np.float64)
+                got = stamps[:iters].astype(np.float64)  # mtt: disable=TL104 -- host-side statistics of clock stamps
                 ran = got[:, RUN_STAMP[kernel]] != 0
                 parts = np.diff(got, axis=1)[ran]
                 print(json.dumps({

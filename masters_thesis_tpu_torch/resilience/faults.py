@@ -221,8 +221,8 @@ def fire(point: str, **ctx: Any) -> str | None:
         os.kill(os.getpid(), signal.SIGTERM)
         # Time for a SIGTERM handler to run; without one the default action
         # has already ended the process.
-        deadline = time.monotonic() + 10.0
-        while time.monotonic() < deadline:
+        deadline = time.monotonic() + 10.0  # mtt: disable=DV704 -- chaos preempt path: the process is being killed, nothing it computes past here reaches a checkpoint
+        while time.monotonic() < deadline:  # mtt: disable=DV704 -- same dying-process grace loop; timing here cannot affect resume determinism
             time.sleep(0.1)
         os._exit(143)
     if spec.kind == "kill":

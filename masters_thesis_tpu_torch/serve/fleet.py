@@ -126,6 +126,9 @@ class Replica:
         self.state = STATE_DEAD  # not serving until booted
         self.halted = False
         self.generation = 0
+        #: The newest generation that booted, warmed up and went live
+        #: (0: none yet); a later death leaves it as it was.
+        self.live_generation = 0
         self.inbox: stdqueue.Queue = stdqueue.Queue()
         self.stop_event = threading.Event()
         self.thread: threading.Thread | None = None
@@ -141,7 +144,7 @@ class Replica:
 
     def backlog_estimate_s(self) -> float:
         """Seconds until a batch assigned NOW would complete here."""
-        waiting = self.inbox.qsize() + (1 if self.busy_since else 0)
+        waiting = self.inbox.qsize() + (1 if self.busy_since else 0)  # mtt: disable=CL502 -- advisory estimate; a stale busy_since only skews replica choice
         return (waiting + 1) * self.service_model.batch_s
 
 
@@ -278,7 +281,9 @@ class FleetServer(DeadlineServing):
             self._scheduler = None
         # A restart may be mid-boot: wait for it before the workers'
         # sentinels, so that its fresh worker receives one too.
-        for t in list(self._boot_threads):
+        with self._lock:
+            boots = list(self._boot_threads)
+        for t in boots:
             t.join(timeout=30.0)
         for r in self.replicas.values():
             if r.thread is not None:
@@ -294,7 +299,7 @@ class FleetServer(DeadlineServing):
             for r in self.replicas.values():
                 if r.span is not None:
                     tracer.end(r.span, status="ok", completed=r.completed,
-                               busy_s=r.busy_s)
+                               busy_s=r.busy_s)  # mtt: disable=CL502 -- workers joined above; no concurrent writer remains
                     r.span = None
             if self._root_span is not None:
                 tracer.end(self._root_span, status="ok",
@@ -530,7 +535,7 @@ class FleetServer(DeadlineServing):
         tracer = self._tracer()
         if tracer is not None and replica.span is not None:
             tracer.end(replica.span, status="dead", cause=cause,
-                       completed=replica.completed, busy_s=replica.busy_s)
+                       completed=replica.completed, busy_s=replica.busy_s)  # mtt: disable=CL502 -- span attribute of a replica already declared dead; a stale total only skews the span
             replica.span = None
         self._redispatch(replica, orphans)
         self._after_failure(replica, fingerprint, detail)
@@ -560,8 +565,10 @@ class FleetServer(DeadlineServing):
                                  args=(replica, verdict.backoff_s),
                                  name=f"fleet-boot-{replica.name}",
                                  daemon=True)
-        self._boot_threads.append(timer)
-        timer.start()
+        # Listed and started as one step: stop() joins only started ones.
+        with self._lock:
+            self._boot_threads.append(timer)
+            timer.start()
 
     def _redispatch(self, dead: Replica,
                     orphans: list[PendingRequest]) -> None:
@@ -631,6 +638,7 @@ class FleetServer(DeadlineServing):
             replica.busy_since = None
             replica.boot_s = boot_s
             replica.state = STATE_LIVE
+            replica.live_generation = generation
             replica.thread = threading.Thread(
                 target=self._worker_loop, args=(replica, generation),
                 name=f"fleet-{replica.name}-g{generation}", daemon=True)

@@ -39,9 +39,11 @@ varied batch sizes and holds the serving contract:
 - **SV306**: a ``FleetServer`` of two replicas of the preflight engine on
   the preflight's device (the replicas share it; each factory names the
   device) survives an injected ``serve.replica_dispatch`` crash of ``r0``
-  under traffic: the crash kills ``r0`` (whose restart captures its graphs
-  while ``r1`` serves, and dies again, and halts), a replica survives,
-  every request resolves explicitly and no ``ok`` answer comes late.
+  under traffic: the crash kills ``r0``, whose restart boots a second
+  generation (on the card: captures its graphs while ``r1`` serves) and
+  serves again within 10 s of the death, before the fleet stops; a replica
+  survives, every request resolves explicitly and no ``ok`` answer comes
+  late.
 
 Not ported: **SV305** (a warm program-cache boot compiles nothing): a CUDA
 graph cannot be written to disk, so the port has no program cache to boot
@@ -375,6 +377,21 @@ FLEET_BUCKETS = (1, 2)
 FLEET_REQUESTS = 24
 
 
+def _wait_restart(fleet, name: str, timeout_s: float) -> bool:
+    """Wait up to ``timeout_s`` for replica ``name``'s restart: True once a
+    generation >= 2 of that replica has booted and gone live to serve (its
+    own ``live_generation``, whatever it did after; never the fleet-wide
+    death count), False when none did in time."""
+    replica = fleet.replicas[name]
+    deadline = time.monotonic() + timeout_s
+    while True:
+        if replica.live_generation >= 2:
+            return True
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(0.01)
+
+
 def _fleet(spec, device, facts: dict) -> list[Finding]:
     """SV306: two replicas on ``device``, ``r0`` crashed by an injected
     ``serve.replica_dispatch`` fault under traffic."""
@@ -414,6 +431,7 @@ def _fleet(spec, device, facts: dict) -> list[Finding]:
                and fleet.replicas[victim].state != "dead"):
             time.sleep(0.01)
         faults.clear_plan()
+        restarted = _wait_restart(fleet, victim, timeout_s=10.0)
         unresolved = 0
         statuses: dict[str, int] = {}
         for p in pendings:
@@ -432,6 +450,7 @@ def _fleet(spec, device, facts: dict) -> list[Finding]:
     facts["fleet"] = {
         "requests": len(pendings), "statuses": statuses,
         "unresolved": unresolved, "survivors": survivors,
+        "restarted": restarted,
         "deaths": stats["deaths"], "redispatched": stats["redispatched"],
         "late_deliveries": stats["late_deliveries"],
         "replicas": {n: {k: r[k] for k in ("state", "generation", "restarts",
@@ -446,6 +465,11 @@ def _fleet(spec, device, facts: dict) -> list[Finding]:
             rule="SV306", message="the injected dispatch crash never killed "
             f"the victim replica ({victim}): the preflight did not exercise "
             "failover"))
+    if not restarted:
+        findings.append(Finding(
+            rule="SV306", message=f"the victim replica ({victim}) did not "
+            "serve again at generation >= 2 within 10 s of its death: its "
+            "restart never landed"))
     if not survivors:
         states = {n: r["state"] for n, r in stats["replicas"].items()}
         findings.append(Finding(

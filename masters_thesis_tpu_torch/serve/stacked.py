@@ -79,7 +79,7 @@ def ensemble_stats(alpha: np.ndarray, beta: np.ndarray) -> dict:
     the host statistics add no f32 rounding of their own."""
     out: dict[str, np.ndarray] = {}
     for name, v in (("alpha", alpha), ("beta", beta)):
-        a = np.asarray(v, np.float64)
+        a = np.asarray(v, np.float64)  # mtt: disable=TL104 -- host-only ensemble statistics; never in a graph
         if a.ndim != 3:
             raise ValueError(
                 f"{name} must be (n, R, K) per-lane outputs, got {a.shape}")

@@ -41,8 +41,8 @@ Counterpart of ``masters_thesis_tpu/telemetry/__main__.py``.
   frame, ``--json`` one snapshot; ``--selfcheck`` runs a hermetic
   two-process fixture instead.
 
-Not ported, exiting 1 with the ROADMAP item that holds it: ``ledger``
-(item 6).
+Not ported, exiting 1 with where it waits: ``ledger``, which comes with
+the PR that writes the port's first ``BENCHMARK.json``.
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ import tempfile
 
 #: The subcommands this package does not have yet, and where each waits.
 NOT_PORTED = {
-    "ledger": "ROADMAP.md queue 1 item 6 (with the first BENCHMARK.json)",
+    "ledger": "ROADMAP.md: the benchmark PR, with the port's first "
+              "BENCHMARK.json",
 }
 
 

@@ -80,7 +80,7 @@ class EventSink:
         # The sequence number and the append are one step under the lock:
         # the lines of a stream are in ``seq`` order.
         with self._lock:
-            return self._append(event)
+            return self._append(event)  # mtt: disable=CL503 -- the serialized append IS the sink's contract; the lock exists to order writers
 
     def try_emit(self, kind: str, timeout: float = 0.25,
                  **payload) -> dict | None:
@@ -92,7 +92,7 @@ class EventSink:
         if not self._lock.acquire(timeout=timeout):
             return None
         try:
-            return self._append(event)
+            return self._append(event)  # mtt: disable=CL503 -- bounded handler-path append; same serialized-writer contract as emit()
         finally:
             self._lock.release()
 
@@ -118,7 +118,7 @@ class EventSink:
 
     def _append(self, event: dict) -> dict:
         event["seq"] = self._seq
-        self._seq += 1
+        self._seq += 1  # mtt: disable=CL502 -- _append runs only with _lock held (emit/try_emit are the sole callers)
         if self._file is None:
             self._file = open(self.path, "a", encoding="utf-8")
         self._file.write(json.dumps(event, default=_jsonable) + "\n")

@@ -162,13 +162,13 @@ class FlightRecorder:
     # -------------------------------------------------------- hot-path API
 
     def beat(self, phase: str | None = None, epoch: int | None = None) -> None:
-        self._beats += 1
+        self._beats += 1  # mtt: disable=CL502 -- single writer: only the training thread beats; readers tolerate staleness
         self._last_beat_mono = time.monotonic()
         self._last_beat_ts = time.time()
         if phase is not None:
             self._phase = phase
         if epoch is not None:
-            self._epoch = epoch
+            self._epoch = epoch  # mtt: disable=CL502 -- single-writer int store from the training thread; dump/heartbeat tolerate staleness
         self._hang_dumped = False  # progress resets the hang latch
 
     def record(self, event: dict) -> None:
@@ -254,13 +254,13 @@ class FlightRecorder:
             sched = GLOBAL_SCHEDULE.snapshot()
             if sched["n"]:
                 dump["collective_schedule"] = sched
-            _atomic_write_json(self.crashdump_path, dump)
-            self._write_heartbeat(crashdump=str(self.crashdump_path))
+            _atomic_write_json(self.crashdump_path, dump)  # mtt: disable=CL503 -- _dump_lock exists precisely to serialize crashdump I/O
+            self._write_heartbeat(crashdump=str(self.crashdump_path))  # mtt: disable=CL503 -- same serialized-forensics contract as the dump write
             if self.sink is not None:
                 try:
                     # The stream flushes per line, so this survives the
                     # process dying right after the handler returns.
-                    self.sink.try_emit(
+                    self.sink.try_emit(  # mtt: disable=CL503 -- bounded handler-path emit; _dump_lock serializes forensics I/O by design
                         "crashdump",
                         reason=reason,
                         path=str(self.crashdump_path),
@@ -302,7 +302,7 @@ class FlightRecorder:
                     "proc": self.proc,
                     "nproc": self.nproc,
                     "phase": self._phase,
-                    "epoch": self._epoch,
+                    "epoch": self._epoch,  # mtt: disable=CL502 -- advisory heartbeat snapshot; a stale epoch is harmless
                     "beats": self._beats,
                     "interval_s": self.heartbeat_interval_s,
                     "hang_timeout_s": self.hang_timeout_s,

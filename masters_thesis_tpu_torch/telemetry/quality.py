@@ -153,7 +153,7 @@ class P2Quantile:
             return float(self._q[2])
         if not self._first:
             return math.nan
-        return float(np.quantile(np.asarray(self._first, dtype=np.float64), self.p))
+        return float(np.quantile(np.asarray(self._first, dtype=np.float64), self.p))  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
 
 
 class StreamSketch:
@@ -176,13 +176,13 @@ class StreamSketch:
         self._exact: list[float] | None = None
 
     def update(self, values) -> None:
-        arr = np.asarray(values, dtype=np.float64).ravel()
+        arr = np.asarray(values, dtype=np.float64).ravel()  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
         arr = arr[np.isfinite(arr)]
         for x in arr.tolist():
-            self.count += 1
+            self.count += 1  # mtt: disable=CL502 -- single-thread or guarded by the owning QualityMonitor._lock
             delta = x - self.mean
-            self.mean += delta / self.count
-            self._m2 += delta * (x - self.mean)
+            self.mean += delta / self.count  # mtt: disable=CL502 -- single-thread or guarded by the owning QualityMonitor._lock
+            self._m2 += delta * (x - self.mean)  # mtt: disable=CL502 -- single-thread or guarded by the owning QualityMonitor._lock
             if x < self.min:
                 self.min = x
             if x > self.max:
@@ -192,7 +192,7 @@ class StreamSketch:
 
     @classmethod
     def from_values(cls, values, grid=QUANTILE_GRID) -> "StreamSketch":
-        arr = np.asarray(values, dtype=np.float64).ravel()
+        arr = np.asarray(values, dtype=np.float64).ravel()  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
         arr = arr[np.isfinite(arr)]
         sk = cls(grid)
         if arr.size == 0:
@@ -243,9 +243,9 @@ def sketch_from_json(text: str) -> dict:
 def _cdf_points(summary: dict):
     """Monotone (x, F(x)) knots from a sketch summary."""
     xs = np.asarray(
-        [summary["min"], *summary["quantiles"], summary["max"]], dtype=np.float64
+        [summary["min"], *summary["quantiles"], summary["max"]], dtype=np.float64  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
     )
-    ps = np.asarray([0.0, *summary["grid"], 1.0], dtype=np.float64)
+    ps = np.asarray([0.0, *summary["grid"], 1.0], dtype=np.float64)  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
     xs = np.maximum.accumulate(xs)
     return xs, ps
 
@@ -314,7 +314,7 @@ def shadow_ols(x, n_factors: int | None = None):
     bitwise parity anchor) and ``(n, k, K)`` for K > 1 (one loading per
     factor, the numpy twin of ``ops/linalg._batched_ols_k``).
     """
-    x = np.asarray(x, dtype=np.float64)
+    x = np.asarray(x, dtype=np.float64)  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
     if x.ndim == 3:
         x = x[None]
     if n_factors is None:
@@ -347,8 +347,8 @@ def shadow_error(x, alpha, beta, n_factors: int | None = None) -> float:
     factor's loading (the market line — the K = 1 semantics).
     """
     sa, sb = shadow_ols(x, n_factors=n_factors)
-    a = np.asarray(alpha, dtype=np.float64).reshape(sa.shape)
-    b = np.asarray(beta, dtype=np.float64)
+    a = np.asarray(alpha, dtype=np.float64).reshape(sa.shape)  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
+    b = np.asarray(beta, dtype=np.float64)  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
     if b.size != sb.size and sb.ndim == 3:
         sb = sb[..., 0]
     b = b.reshape(sb.shape)
@@ -385,9 +385,9 @@ def build_fingerprint(
     ``golden_windows(..., seed=golden_seed)`` — the section the swap
     quality gate scores candidates against.
     """
-    x = np.asarray(x, dtype=np.float64)[:max_windows]
-    alpha = np.asarray(alpha, dtype=np.float64)[: x.shape[0]]
-    beta = np.asarray(beta, dtype=np.float64)[: x.shape[0]]
+    x = np.asarray(x, dtype=np.float64)[:max_windows]  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
+    alpha = np.asarray(alpha, dtype=np.float64)[: x.shape[0]]  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
+    beta = np.asarray(beta, dtype=np.float64)[: x.shape[0]]  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
     sa, sb = shadow_ols(x)
     if beta.size != sb.size and sb.ndim == 3:
         # Single-loading model under a K-factor window: fingerprint the
@@ -411,7 +411,7 @@ def build_fingerprint(
     }
     if golden is not None:
         gx, ga, gb = golden
-        gx = np.asarray(gx, dtype=np.float64)
+        gx = np.asarray(gx, dtype=np.float64)  # mtt: disable=TL104 -- host-only sketch/OLS math in f64; never in a graph
         fp["golden"] = {
             "seed": int(golden_seed),
             "shape": [int(s) for s in gx.shape],
@@ -477,14 +477,14 @@ class QualityMonitor:
         self._reset_locked()
 
     def _reset_locked(self) -> None:
-        self._seen = 0
+        self._seen = 0  # mtt: disable=CL502 -- _locked contract: callers hold self._lock (or __init__ pre-share)
         self._sampled = 0
         self._features: dict[int, StreamSketch] = {}
         self._alpha = StreamSketch()
         self._beta = StreamSketch()
         self._shadow = StreamSketch()
         self._shadow_ewm: float | None = None
-        self._last: dict | None = None
+        self._last: dict | None = None  # mtt: disable=CL502 -- _locked contract: callers hold self._lock (or __init__ pre-share)
 
     def set_reference(self, fingerprint: dict | None) -> None:
         """Swap in a new baseline (post-commit); live sketches restart."""
@@ -532,8 +532,8 @@ class QualityMonitor:
             self._shadow_ewm = err
         else:
             a = self._shadow_alpha
-            self._shadow_ewm = a * err + (1.0 - a) * self._shadow_ewm
-        self._sampled += 1
+            self._shadow_ewm = a * err + (1.0 - a) * self._shadow_ewm  # mtt: disable=CL502 -- _locked contract: sample() holds self._lock
+        self._sampled += 1  # mtt: disable=CL502 -- _locked contract: sample() holds self._lock
         scores = {
             "sampled": self._sampled,
             "scored": False,

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import os
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Sequence
@@ -98,6 +99,7 @@ class TelemetryRun:
                               proc=proc, nproc=nproc)
         #: Events that could not be written (dropped, never raised).
         self.write_errors = 0
+        self._errors_lock = threading.Lock()
         # The flight recorder (attach_flight_recorder) mirrors every event
         # into its ring, so a crashdump carries the run's recent history.
         self.recorder = None
@@ -107,7 +109,8 @@ class TelemetryRun:
         try:
             ev = self.sink.emit(kind, **payload)
         except OSError:
-            self.write_errors += 1
+            with self._errors_lock:  # event() runs on several threads
+                self.write_errors += 1
             return {}
         if self.recorder is not None:
             self.recorder.record(ev)

@@ -93,9 +93,19 @@ def save_checkpoint(ckpt_dir, tag: str, state_dict: dict,
     passes the publish barrier.
     """
     ckpt_dir = Path(ckpt_dir).resolve()
-    if multihost_rank()[0] != 0:
-        fleet_barrier(f"checkpoint.publish.{tag}")
-        return ckpt_dir / tag
+    if multihost_rank()[0] == 0:
+        _write_and_publish(ckpt_dir, tag, state_dict, opt_state,
+                           scheduler_state, meta, spec, extra_files)
+    fleet_barrier(f"checkpoint.publish.{tag}")
+    return ckpt_dir / tag
+
+
+def _write_and_publish(ckpt_dir: Path, tag: str, state_dict: dict,
+                       opt_state: dict | None, scheduler_state: dict | None,
+                       meta: dict | None, spec: ModelSpec | None,
+                       extra_files: dict[str, str] | None) -> None:
+    """Rank 0's part of :func:`save_checkpoint`: stage the tree and its
+    sidecar, then publish them."""
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     staging = ckpt_dir / f"{tag}.new"
     staged_sidecar = ckpt_dir / f"{tag}.json.new"
@@ -130,11 +140,8 @@ def save_checkpoint(ckpt_dir, tag: str, state_dict: dict,
     ctx = {"tag": tag, "epoch": sidecar["meta"].get("epoch")}
     faults.fire("checkpoint.pre_publish", **ctx)
     _publish(ckpt_dir, tag, ctx)
-    path = ckpt_dir / tag
     if faults.fire("checkpoint.post_publish", **ctx) == "corrupt":
-        _corrupt_tree(path, seed=faults.corruption_seed())
-    fleet_barrier(f"checkpoint.publish.{tag}")
-    return path
+        _corrupt_tree(ckpt_dir / tag, seed=faults.corruption_seed())
 
 
 def _corrupt_tree(path: Path, seed: int) -> None:

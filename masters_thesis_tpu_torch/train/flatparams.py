@@ -113,7 +113,7 @@ class FlatAdam:
         self.mu.mul_(B1).add_((1 - B1) * g)
         self.nu.mul_(B2).add_((1 - B2) * (g * g))
         self.count_t.add_(1)
-        count = self.count_t.double()
+        count = self.count_t.double()  # mtt: disable=TL104 -- the bias-correction scalar in f64, as the eager step's Python double; rounded to f32 before it touches a buffer
         mu_hat = _divide(self.mu, 1 - torch.pow(B1, count))
         nu_hat = _divide(self.nu, 1 - torch.pow(B2, count))
         update = mu_hat / (torch.sqrt(nu_hat) + EPS)
@@ -230,7 +230,7 @@ class StackedFlatAdam:
         self.nu.copy_(torch.where(active, self.nu * B2 + (1 - B2) * (g * g),
                                   self.nu))
         self.count_t.add_(self.active.long())
-        count = self.count_t.double()[:, None]
+        count = self.count_t.double()[:, None]  # mtt: disable=TL104 -- the bias-correction scalar in f64, as the eager step's Python double; rounded to f32 before it touches a buffer
         mu_hat = _divide(self.mu, 1 - torch.pow(B1, count))
         nu_hat = _divide(self.nu, 1 - torch.pow(B2, count))
         update = mu_hat / (torch.sqrt(nu_hat) + EPS)

@@ -46,8 +46,9 @@ per-replica ``replica_epoch`` (loss, LR, status), ``replica_status`` (each
 transition, with the rollbacks so far) and ``replica_eval``,
 ``checkpoint_saved`` a replica and tag, and ``run_finished`` (with each
 replica's final status), under a ``trainer.fit`` span, with the flight
-recorder's beats; the preflight trace audit is not ported (ROADMAP queue
-1 item 6) and ``preflight`` is reported as ignored.
+recorder's beats. ``preflight`` runs the trace audit of the solo and the
+stacked step (TA201–TA207, ``analysis/traceaudit.py``) before any real
+epoch, with the JAX stacked trainer's ``preflight`` event.
 
 Data-parallel (``strategy``, ``n_devices``, as in the JAX class): each
 rank holds its block of the train split's windows (window sharding only),
@@ -179,10 +180,8 @@ class StackedTrainer:
         self.telemetry = telemetry
         #: The flight recorder's hang watchdog (None: heartbeats only).
         self.hang_timeout_s = hang_timeout_s
-        if preflight:
-            print(f"note: StackedTrainer preflight={preflight} only turns on "
-                  "observation, which masters_thesis_tpu_torch does not "
-                  "have; ignored (ROADMAP.md queue 1 item 6)", flush=True)
+        #: Audit the single and the stacked step before ``fit``.
+        self.preflight = preflight
 
     def build(self, spec: ModelSpec, replicas: Sequence[ReplicaSpec]
               ) -> StackedLstmEncoder:
@@ -201,6 +200,14 @@ class StackedTrainer:
         if len(set(names)) != len(names):
             raise ValueError(f"replica names must be unique: {names}")
         n_rep = len(replicas)
+        if self.preflight:
+            from masters_thesis_tpu_torch.analysis.traceaudit import preflight
+
+            # The solo and the stacked step, before any real epoch.
+            preflight(self.telemetry, self._print, spec=spec, mesh=self.mesh,
+                      device=self.device, graphed=self.graphed,
+                      gradient_clip_val=self.gradient_clip_val,
+                      stacked_replicas=n_rep)
         dm.prepare_data()
         dm.setup("fit")
         module = self.build(spec, replicas)

@@ -126,7 +126,7 @@ def _gather(data: Batch, table: torch.Tensor, cursor: torch.Tensor) -> Batch:
 
 def metric_means(sums: dict) -> dict:
     """Host side: (value_sum, weight) pairs to means. One device read."""
-    host = {k: torch.stack([v, w]).double().cpu() for k, (v, w) in sums.items()}
+    host = {k: torch.stack([v, w]).double().cpu() for k, (v, w) in sums.items()}  # mtt: disable=TL104 -- host-side means of the sums after the epoch's one read; never in a graph
     return {k: float(vw[0]) / max(float(vw[1]), 1e-30) for k, vw in host.items()}
 
 
@@ -264,7 +264,7 @@ def sharded_weighted_batches(order: np.ndarray, take, batch_size: int,
 
     global_b = batch_size * world
     lo, hi = shard_bounds(global_b, world, rank)
-    pos = np.arange(lo, hi)
+    pos = np.arange(lo, hi)  # mtt: disable=DV703 -- the rank's slice of a global batch of batch_size * world windows is batch_size long on every rank; only its host offsets differ
     for start in range(0, len(order), global_b):
         chunk = order[start:start + global_b]
         n = len(chunk)
@@ -437,7 +437,7 @@ class StackedTrainProgram:
 def stacked_metric_means(sums: dict, replicas: int) -> list[dict]:
     """Host side: each replica's means from ``[R]`` (value, weight) sums.
     One device read."""
-    host = {k: torch.stack([v, w]).double().cpu() for k, (v, w) in sums.items()}
+    host = {k: torch.stack([v, w]).double().cpu() for k, (v, w) in sums.items()}  # mtt: disable=TL104 -- host-side means of the sums after the epoch's one read; never in a graph
     return [{k: float(vw[0, r]) / max(float(vw[1, r]), 1e-30)
              for k, vw in host.items()} for r in range(replicas)]
 

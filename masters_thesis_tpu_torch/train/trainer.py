@@ -62,8 +62,13 @@ chunks of ``EVAL_CHUNK`` windows, eagerly, outside every graph) as
 prints one line and the save goes on without it. ``metrics_port`` (with
 telemetry) starts the telemetry plane: an SLO engine over the run's
 stream (``slo_rules``, default ``default_train_rules()``) and the
-``/metrics``, ``/healthz`` and ``/slo`` server. Preflight and bf16 are
-not ported; stacked replicas are ``train/stacked.py``'s.
+``/metrics``, ``/healthz`` and ``/slo`` server. ``preflight`` runs the
+trace audit (``analysis/traceaudit.py``) of the configured model's step on
+this trainer's device and mesh before ``fit`` touches the data, writes the
+JAX trainer's ``preflight`` event (``ok``, ``failed`` with its rules and
+findings, or ``skipped`` for the stream epoch) and raises
+``PreflightError`` on a finding. bf16 is not ported; stacked replicas are
+``train/stacked.py``'s.
 
 Data-parallel training (``strategy``, ``n_devices``, ``shard_axis``, the
 JAX trainer's arguments; ``parallel/mesh.py``): under ``tpu_xla`` this
@@ -280,6 +285,7 @@ class Trainer:
         strategy: str = "auto",
         n_devices: int | None = None,
         shard_axis: str = "window",
+        preflight: bool = False,
     ):
         if epoch_mode not in EPOCH_MODES:
             raise ValueError(f"unknown epoch_mode: {epoch_mode!r} "
@@ -320,6 +326,8 @@ class Trainer:
         self.telemetry = telemetry
         #: The analytic cost profile; None follows ``telemetry``.
         self.cost_profile = cost_profile
+        #: Audit the training step before ``fit`` (``analysis/traceaudit``).
+        self.preflight = preflight
         self.profile = profile
         self.profile_steps = (
             (int(profile_steps[0]), int(profile_steps[1]))
@@ -367,6 +375,8 @@ class Trainer:
                 flight = tel.attach_flight_recorder(
                     hang_timeout_s=self.hang_timeout_s)
                 flight.beat(phase="setup")
+        if self.preflight:
+            self._preflight(spec)
         dm.prepare_data()
         dm.setup("fit")
         module = self.build(spec)
@@ -705,6 +715,25 @@ class Trainer:
             windows_per_sec=windows_per_sec,
             cost_profile=cost_payload,
         )
+
+    def _preflight(self, spec: ModelSpec) -> None:
+        """The trace audit of ``spec``'s training step on this trainer's
+        device and mesh, before any real epoch: a ``preflight`` event
+        either way, and ``PreflightError`` on a finding. The stream epoch
+        is skipped: its step takes host batches by design."""
+        tel = self.telemetry
+        if self.epoch_mode == "stream":
+            self._print("preflight: skipped (epoch_mode='stream' streams "
+                        "batches through the host by design)")
+            if tel:
+                tel.event("preflight", status="skipped",
+                          reason="epoch_mode=stream")
+            return
+        from masters_thesis_tpu_torch.analysis.traceaudit import preflight
+
+        preflight(tel, self._print, spec=spec, mesh=self.mesh,
+                  device=self.device, graphed=self.graphed,
+                  gradient_clip_val=self.gradient_clip_val)
 
     def _cost_profile(self, spec: ModelSpec, dm, steps_per_epoch: int
                       ) -> dict | None:

@@ -134,7 +134,7 @@ class GraphedCall:
             self.capture()
         else:
             with _GRAPH_LOCK:
-                self.graph.replay()
+                self.graph.replay()  # mtt: disable=CL503 -- one lock orders every capture and replay of the process: PyTorch refuses a replay during another thread's capture (module docstring)
             self.replays += 1
             lk.LAUNCHES.add(self.launches)
             COLLECTIVES.add(self.collectives)
@@ -178,7 +178,7 @@ class GraphedCall:
             try:
                 with collector_paused(), \
                         lk.capturing(stream, self.capture_error_mode), \
-                        torch.cuda.graph(
+                        torch.cuda.graph(  # mtt: disable=CL503 -- one lock orders every capture and replay of the process: PyTorch refuses a replay during another thread's capture (module docstring)
                             graph, stream=stream,
                             capture_error_mode=self.capture_error_mode):
                     try:

@@ -2408,3 +2408,117 @@ def test_engines_capture_while_a_sibling_replays_and_two_at_once(
             want_launches[name] = want_launches.get(name, 0) + n * k
     assert server._programs[8].run.replays - base[8] == replays
     assert {k: v for k, v in lk.LAUNCHES.items() if v} == want_launches
+
+
+# ------------------------------------------------- the trainer preflight
+
+
+def test_trace_audit_is_clean_on_the_card(cuda_device):
+    from masters_thesis_tpu_torch.analysis.traceaudit import run_trace_audit
+
+    facts: dict = {}
+    spec = ModelSpec(objective="mse", hidden_size=16, num_layers=2,
+                     dropout=0.2)
+    assert run_trace_audit(spec=spec, device=cuda_device, stacked_replicas=2,
+                           facts=facts) == []
+    assert facts["captures"] == 1 and facts["replays"] == facts["steps"]
+    assert facts["all_reduces_per_step"] == 1.0
+    assert "not_applicable" not in facts
+    stacked = facts["stacked"]
+    assert stacked["captures"] == 1 and stacked["replays"] == stacked["steps"]
+    assert stacked["all_reduces_per_step"] == 1.0
+    assert not torch.distributed.is_initialized()  # its group is left
+
+
+def test_trainer_preflights_are_clean_on_the_card(cuda_device, tmp_path):
+    import json
+
+    from masters_thesis_tpu_torch.data.pipeline import bootstrap_synthetic
+    from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+    from masters_thesis_tpu_torch.train.stacked import (
+        ReplicaSpec,
+        StackedTrainer,
+    )
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    bootstrap_synthetic(tmp_path / "data", n_stocks=4, n_samples=1200, seed=0)
+    spec = ModelSpec(objective="mse", hidden_size=8, num_layers=1)
+    runs = {
+        "solo": lambda tel: Trainer(max_epochs=1, device=cuda_device,
+                                    telemetry=tel, preflight=True).fit(
+            spec, _preflight_dm(tmp_path / "data")),
+        "stacked": lambda tel: StackedTrainer(
+            max_epochs=1, device=cuda_device, telemetry=tel,
+            preflight=True).fit(spec, _preflight_dm(tmp_path / "data"),
+                                [ReplicaSpec("a", 0, 1e-3),
+                                 ReplicaSpec("b", 1, 1e-4)]),
+    }
+    for name, fit in runs.items():
+        tel = TelemetryRun(tmp_path / name, run_id=name)
+        fit(tel)
+        tel.close()
+        events = [json.loads(line) for line in
+                  (tmp_path / name / "events.jsonl").read_text().splitlines()]
+        kinds = [e["kind"] for e in events]
+        assert kinds.index("preflight") < kinds.index("epoch"), name
+        assert events[kinds.index("preflight")]["status"] == "ok", name
+
+
+def _preflight_dm(data_dir):
+    from masters_thesis_tpu_torch.data.pipeline import (
+        FinancialWindowDataModule,
+    )
+
+    return FinancialWindowDataModule(data_dir, batch_size=4,
+                                     lookback_window=10, target_window=5,
+                                     stride=15)
+
+
+def test_a_host_read_in_the_step_is_ta202(cuda_device, monkeypatch):
+    from masters_thesis_tpu_torch.analysis.traceaudit import run_trace_audit
+    from masters_thesis_tpu_torch.train import steps
+
+    real = steps.train_step
+
+    def reading(*args, **kwargs):
+        sums = real(*args, **kwargs)
+        sums["total"][0].item()  # a planted host read
+        return sums
+
+    monkeypatch.setattr(steps, "train_step", reading)
+    findings = run_trace_audit(device=cuda_device)
+    assert {f.rule for f in findings} == {"TA202"}, findings
+
+
+def test_a_capture_failure_that_is_no_host_read_is_ta205(cuda_device,
+                                                         monkeypatch):
+    from masters_thesis_tpu_torch.analysis.traceaudit import run_trace_audit
+    from masters_thesis_tpu_torch.train import steps
+
+    real = steps.train_step
+
+    def refusing(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("planted capture failure")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(steps, "train_step", refusing)
+    findings = run_trace_audit(device=cuda_device)
+    assert [f.rule for f in findings] == ["TA205"], findings
+    assert "planted capture failure" in findings[0].message
+
+
+def test_an_ungraphed_trainer_is_audited_ungraphed(cuda_device):
+    # cuda_graphs=False: nothing is captured, so the capture counts have
+    # no object; the eager steps are still held to TA202 and TA206/TA207.
+    from masters_thesis_tpu_torch.analysis.traceaudit import run_trace_audit
+
+    facts: dict = {}
+    assert run_trace_audit(device=cuda_device, graphed=False,
+                           stacked_replicas=2, facts=facts) == []
+    assert facts["graphed"] is False and "captures" not in facts
+    assert facts["not_applicable"].keys() == {"TA201"}
+    assert facts["all_reduces_per_step"] == 1.0
+    stacked = facts["stacked"]
+    assert stacked["not_applicable"].keys() == {"TA207"}
+    assert stacked["all_reduces_per_step"] == 1.0

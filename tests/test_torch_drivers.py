@@ -248,19 +248,9 @@ def test_refused_keys_raise_and_name_themselves(data_dir, tmp_path, key,
 ])
 def test_observation_keys_are_named_and_ignored(capsys, data_dir, tmp_path,
                                                 monkeypatch, key, value):
-    """``preflight`` is named and ignored; every other observation key
-    reaches the trainer and leaves its trace in the run directory."""
-    if key == "preflight":
-        cfg = cli_train.compose_config(["trainer.telemetry=null",
-                                        f"+trainer.{key}={value}"])
-        cli_train.check_supported(cfg)
-        cli_train.report_ignored(cfg)
-        out = capsys.readouterr().out.splitlines()
-        assert out == [f"note: trainer.{key}={cfg.trainer[key]} only turns on "
-                       "observation, which masters_thesis_tpu_torch does not "
-                       "have; ignored (ROADMAP.md queue 1 item 6 (the analysis "
-                       "passes))"]
-        return
+    """Every observation key, ``preflight`` included, reaches the trainer
+    and leaves its trace in the run directory; none is reported as
+    ignored."""
     seen = {}
     real_init = trainer_mod.Trainer.__init__
 
@@ -293,6 +283,12 @@ def test_observation_keys_are_named_and_ignored(capsys, data_dir, tmp_path,
         # Two epochs: the window closes with the run.
         assert [p.name for p in (run / "profile").iterdir()] == [
             "trace_epochs_1_2.json"]
+    elif key == "preflight":
+        # The trace audit ran before the first epoch and passed.
+        assert seen["preflight"] is True
+        assert kinds.index("preflight") < kinds.index("epoch")
+        assert next(e for e in events
+                    if e["kind"] == "preflight")["status"] == "ok"
     else:
         assert seen["hang_timeout_s"] == 60
         heartbeat = json.loads((run / "heartbeat.json").read_text())

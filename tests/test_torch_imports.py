@@ -53,16 +53,22 @@ def test_port_imports_with_jax_blocked():
                  "utils.cuda_graph", "train.steps", "models.objectives",
                  "telemetry.schedule", "telemetry.aggregate",
                  "resilience.fleetsup", "serve.fleet", "telemetry.watch",
-                 "telemetry.signals", "utils.counts"):
+                 "telemetry.signals", "utils.counts", "analysis",
+                 "analysis.__main__", "analysis.astlint", "analysis.callgraph",
+                 "analysis.concurrency", "analysis.contracts",
+                 "analysis.spmd", "analysis.traceaudit", "viz", "viz.plots"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
+    # matplotlib is blocked too: the card's machine has none, and the
+    # figure modules import it only where they draw.
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'yaml',\n"
-        "             'masters_thesis_tpu'):\n"
+        "             'masters_thesis_tpu', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         f"import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'jaxlib', 'flax', 'yaml', 'masters_thesis_tpu')\n"
+        "       ('jax', 'jaxlib', 'flax', 'yaml', 'masters_thesis_tpu',\n"
+        "        'matplotlib')\n"
         "       and sys.modules[m]]\n"
         "assert not bad, bad\n"
     )

@@ -606,6 +606,18 @@ def test_sv306_is_clean_on_the_cpu():
     assert fleet["replicas"]["r0"]["generation"] >= 2
 
 
+def test_sv306_waits_for_the_victims_own_restart():
+    # A second generation that is still booting is no restart, whatever
+    # other replicas did meanwhile (here: the fleet counts two deaths).
+    from types import SimpleNamespace
+
+    booting = SimpleNamespace(generation=2, live_generation=1, state="dead")
+    fleet = SimpleNamespace(replicas={"r0": booting}, deaths=2)
+    assert not preflight._wait_restart(fleet, "r0", timeout_s=0.05)
+    booting.live_generation = 2  # it came up live, then died again
+    assert preflight._wait_restart(fleet, "r0", timeout_s=0.05)
+
+
 # ------------------------------------------------- watch console, signals
 
 
