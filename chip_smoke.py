@@ -131,8 +131,19 @@ resolved explicitly, none late, every ok answer within 1e-5 of a solo
 engine, the launch counts exactly each graph's runs times its launches;
 two stacked replicas of R = 4 lanes the same way; and the fleet's
 answers/s, p50 and p99 against one
-``PredictServer`` (off / on / on / off). ``serve_preflight`` also holds
-SV306 (two replicas of the preflight engine on the card, ``r0`` crashed).
+``PredictServer`` (off / on / on / off); ``r0``'s first restart boots
+warm from the factories' shared program cache (no capture, one hit a
+bucket). ``serve_preflight`` also holds SV306 (two replicas of the
+preflight engine on the card, ``r0`` crashed) and SV305 (a warm boot from
+the program cache captures nothing). ``serve_cache`` (after
+``serve_fleet``): model=small's ladder booted cold, closed into a
+``ProgramCache`` and booted warm (0 captures, 4 hits, answers bit for bit,
+the seconds of each bucket), a planted ``cache.load`` corruption refused,
+the card's probe (its seconds), and a planted probe wedge after a breaker
+trip that declares the device lost (``degradation`` with ``fallback:
+null``, ``device_lost``, no engine built). ``universe_serve`` closes its
+1-64 ladder into a cache and boots it again (``universe_serve_warm``:
+cold and warm boot seconds, the allocator's peak).
 ``preflight`` (after ``serve_fleet``) runs the trainer preflight
 (``analysis/traceaudit.py``) on the card at model=small and at R = 2
 stacked: one capture, every later step a replay under the raising sync
@@ -3783,6 +3794,12 @@ def phase_serve_preflight(child: subprocess.Popen) -> dict:
             or fleet.get("late_deliveries") or not fleet.get("survivors")
             or not fleet.get("launches", {}).get("lstm_fwd")):
         raise AssertionError(f"serve_preflight: SV306 not held: {fleet}")
+    # SV305: a warm boot from the program cache on the card.
+    cached = facts.get("program_cache", {})
+    if ((cached.get("cold_captures"), cached.get("warm_captures"),
+         cached.get("warm_programs_made"), cached.get("warm_hits"))
+            != (facts["captures"], 0, 0, facts["captures"])):
+        raise AssertionError(f"serve_preflight: SV305 not held: {cached}")
     return out
 
 
@@ -4696,16 +4713,22 @@ def phase_universe_serve(ckpt_dir: Path, reference: dict) -> dict:
     SERVE_TOL of the CPU engine's (``reference``: 16 val windows, tiled);
     bursts of 64 one-window requests through ``PredictServer``; the
     allocator's peak over the captures."""
+    from masters_thesis_tpu_torch.serve.program_cache import ProgramCache
+
     windows, ref_a, ref_b = (reference[k] for k in ("windows", "alpha",
                                                     "beta"))
     cpu_s = reference["seconds"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
+    cache = ProgramCache()
+    t0 = time.perf_counter()
     gpu = PredictEngine.from_checkpoint(ckpt_dir, "best", n_stocks=U_STOCKS,
                                         n_features=U_FEATURES,
-                                        buckets=U_BUCKETS, device=DEVICE)
+                                        buckets=U_BUCKETS, device=DEVICE,
+                                        program_cache=cache)
     warm_s = gpu.warmup()
+    cold_boot_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     errs = {}
     for n in (1, 2, 3, 4, 8, 16, 32, 48, 64):
@@ -4768,9 +4791,53 @@ def phase_universe_serve(ckpt_dir: Path, reference: dict) -> dict:
                              f"{stats}")
     if any(launches[k] for k in U_ABSENT + ("lstm_bwd",)):
         raise AssertionError(f"universe_serve left lstm_fwd: {launches}")
+    out["warm_boot"] = _universe_warm_boot(gpu, cache, ckpt_dir, windows,
+                                           cold_boot_s)
     del gpu, server
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _universe_warm_boot(gpu, cache, ckpt_dir: Path, windows: np.ndarray,
+                        cold_boot_s: float) -> dict:
+    """The ladder 1-64 closed into ``cache`` and booted again from it: the
+    cold and warm boot seconds (each bucket's, and the engine's from the
+    checkpoint), the allocator's peak over the warm boot, and the warm
+    engine's answers on every bucket bit for bit the cold engine's. Its
+    launches are counted apart (``universe_serve_warm``)."""
+    sizes = (1, 2, 3, 4, 8, 16, 32, 48, 64)
+    want = {n: gpu.predict(windows[:n]) for n in sizes}
+    cold_bucket_s = dict(gpu.boot_s)
+    lk.reset_launch_counts()
+    t0 = time.perf_counter()
+    gpu.close()
+    close_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = PredictEngine.from_checkpoint(ckpt_dir, "best", n_stocks=U_STOCKS,
+                                         n_features=U_FEATURES,
+                                         buckets=U_BUCKETS, device=DEVICE,
+                                         program_cache=cache)
+    warm.warmup()
+    warm_boot_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    bitwise = {n: all(np.array_equal(g, w) for g, w in
+                      zip(warm.predict(windows[:n]), want[n])) for n in sizes}
+    launches = {k: v for k, v in lk.LAUNCHES.items() if v}
+    out = {"phase": "universe_serve_warm", "buckets": list(U_BUCKETS),
+           "cold_boot_s": cold_boot_s, "cold_bucket_s": cold_bucket_s,
+           "close_s": close_s, "warm_boot_s": warm_boot_s,
+           "warm_bucket_s": dict(warm.boot_s),
+           "captures": warm.compile_events, "cache_hits": warm.cache_hits,
+           "max_memory_allocated_warm": peak, "bitwise": bitwise,
+           "cache": cache.stats(), "launches": launches, "card": _card()}
+    emit(out)
+    warm.close()
+    cache.close()
+    if (warm.compile_events, warm.cache_hits) != (0, len(U_BUCKETS)) or \
+            not all(bitwise.values()) or not launches.get("lstm_fwd"):
+        raise AssertionError(f"universe_serve_warm: {out}")
     return out
 
 
@@ -5772,10 +5839,15 @@ FLEET_BUDGET_S = 25.0  # the phase's wall, printed against it
 
 class _TimedWarmup:
     """An engine that keeps the wall window of its ``warmup`` (its
-    captures) and the error that failed it, if one did."""
+    captures) and the error that failed it, if one did, and the programs
+    it held when it was closed (``held``)."""
 
     warm_window: tuple | None = None
     warm_error: str | None = None
+
+    def close(self):
+        self.held = dict(self._programs)
+        super().close()
 
     def warmup(self):
         t0 = time.perf_counter()
@@ -5857,13 +5929,17 @@ def _wait_generation(fleet, want: dict, timeout_s: float = 60.0) -> bool:
 
 def _graph_launches(engines: list) -> dict:
     """The kernel launches the engines' graphs made: each graph's warm-up
-    run and replays times its own launches."""
-    out: dict = {}
+    run and replays times its own launches, each graph once (a warm
+    restart replays the graphs its closed predecessor captured)."""
+    graphs = {}
     for engine in engines:
-        for program in engine._programs.values():
-            runs = program.run.captures + program.run.replays
-            for name, k in program.run.launches.items():
-                out[name] = out.get(name, 0) + runs * k
+        for program in [*engine._programs.values(),
+                        *getattr(engine, "held", {}).values()]:
+            graphs[id(program.run)] = program.run
+    out: dict = {}
+    for run in graphs.values():
+        for name, k in run.launches.items():
+            out[name] = out.get(name, 0) + (run.captures + run.replays) * k
     return out
 
 
@@ -5922,10 +5998,13 @@ def phase_serve_fleet(windows: np.ndarray) -> dict:
     it) behind one FleetServer, under closed-loop bursts:
 
     - ``r0`` is crashed by an injected ``serve.replica_dispatch`` raise;
-      its batch is re-dispatched, it comes back at generation 2 on the card
-      (``boot_s``: its captures, the time to recover a replica) and serves;
+      its batch is re-dispatched, its engine is closed into the factories'
+      shared ``ProgramCache``, and it comes back at generation 2 on the card
+      warm (no capture, one hit a bucket; ``boot_s`` beside generation 1's
+      cold boot: the time to recover a replica) and serves;
     - ``r0`` and ``r1`` are crashed together, so that their two restarts
-      boot at once while ``r2`` serves (their captures take turns with
+      boot at once while ``r2`` serves (from factories without the cache
+      now, so that they capture: their captures take turns with
       each other and with ``r2``'s replays, ``utils/cuda_graph.py``): no
       capture fails (no boot failure, each generation the expected one),
       the boots overlap, the collector is on at the end, and the launches
@@ -5949,11 +6028,16 @@ def phase_serve_fleet(windows: np.ndarray) -> dict:
         device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
     kw = dict(n_stocks=K_STOCKS, lookback=T, n_features=3,
               buckets=(1, 2, 4, 8), device=DEVICE)
+    from masters_thesis_tpu_torch.serve.program_cache import ProgramCache
+
     reference = _reference(PredictEngine(spec, state, **kw), windows)
     built: list = []
+    cache = ProgramCache()
+    warm_restarts = [True]
 
     def factory():
-        engine = _FleetEngine(spec, state, **kw)
+        engine = _FleetEngine(spec, state, **kw, program_cache=(
+            cache if warm_restarts[0] else None))
         built.append(engine)
         return engine
 
@@ -5966,6 +6050,7 @@ def phase_serve_fleet(windows: np.ndarray) -> dict:
                             backoff_factor=1.0))
     lk.reset_launch_counts()
     fleet.start()
+    r0_gen1_boot_s = fleet.replicas["r0"].boot_s
     pairs: list = []
     try:
         warm, _, unresolved = _fleet_bursts(fleet, windows, 2)
@@ -5979,10 +6064,14 @@ def phase_serve_fleet(windows: np.ndarray) -> dict:
         pairs += more
         unresolved += lost
         r0_gen2 = {"boot_s": fleet.replicas["r0"].boot_s,
+                   "gen1_cold_boot_s": r0_gen1_boot_s,
                    "generation": fleet.replicas["r0"].generation,
                    "served": fleet.replicas["r0"].completed - served_before,
                    "platform": fleet.replicas["r0"].engine.platform,
-                   "device": str(fleet.replicas["r0"].engine.device)}
+                   "device": str(fleet.replicas["r0"].engine.device),
+                   "cache_hits": fleet.replicas["r0"].engine.cache_hits,
+                   "captures": fleet.replicas["r0"].engine.compile_events}
+        warm_restarts[0] = False
         two = _kill(fleet, ("r0", "r1"), windows, 6)
         pairs += two["pairs"]
         unresolved += two["unresolved"]
@@ -5998,6 +6087,8 @@ def phase_serve_fleet(windows: np.ndarray) -> dict:
         stats = fleet.stop()
     launches = {k: v for k, v in lk.LAUNCHES.items() if v}
     want_launches = _graph_launches(built)
+    cache_stats = cache.stats()
+    cache.close()
     boots = [e.warm_window for e in built[-2:]]
     overlap_s = (min(b[1] for b in boots) - max(b[0] for b in boots)
                  if all(boots) else None)
@@ -6020,6 +6111,7 @@ def phase_serve_fleet(windows: np.ndarray) -> dict:
         "handback_max_ms": stats["handback_max_ms"],
         "answers": answers, "collector_on": gc.isenabled(),
         "launches": launches, "want_launches": want_launches,
+        "cache": cache_stats,
     }
     stacked = _stacked_fleet(spec, windows)
     throughput = _fleet_throughput(lambda: PredictEngine(spec, state, **kw),
@@ -6036,6 +6128,8 @@ def phase_serve_fleet(windows: np.ndarray) -> dict:
     if (r0_gen2["generation"] != 2 or not r0_gen2["served"]
             or r0_gen2["platform"] != "gpu"):
         failed.append("r0 at generation 2 on the card")
+    if (r0_gen2["cache_hits"], r0_gen2["captures"]) != (4, 0):
+        failed.append("r0's restart did not boot warm from the cache")
     if kills["boot_errors"] or len(built) != FLEET_REPLICAS + 3:
         failed.append("a boot failed (a capture error)")
     if not (overlap_s or 0) > 0:
@@ -6114,6 +6208,165 @@ def _stacked_fleet(spec, windows: np.ndarray) -> dict:
             "boot_s": stats["replicas"]["r0"]["boot_s"],
             "launches": launches, "want_launches": want_launches,
             "failed": failed}
+
+
+CACHE_BUCKETS = (1, 2, 4, 8)  # the default ladder
+PROBE_TIMEOUT_S = 120.0
+
+
+def _cache_engine(spec, state, cache):
+    return PredictEngine(spec, state, n_stocks=K_STOCKS, lookback=T,
+                         n_features=3, buckets=CACHE_BUCKETS, device=DEVICE,
+                         program_cache=cache)
+
+
+def _booted(engine, seconds: float) -> dict:
+    return {"seconds": seconds, "bucket_s": dict(engine.boot_s),
+            "captures": engine.compile_events,
+            "programs_made": engine.programs_made,
+            "cache_hits": engine.cache_hits}
+
+
+def phase_serve_cache(windows: np.ndarray) -> dict:
+    """The program cache and the probe at model=small on the default
+    ladder, on the card:
+
+    - a cold engine boots (4 captures, its seconds a bucket), answers and
+      closes into a ``ProgramCache``; a warm engine boots from it: 0
+      captures, 4 hits, its seconds a bucket, its answers the cold
+      engine's bit for bit;
+    - a third engine boots with one ``cache.load`` corruption planted on
+      bucket 8's entry: refused (``golden_mismatch``), that bucket
+      captured afresh, the other three hit, the answers unchanged;
+    - the real probe (``probe_cuda_backend``, a child on the card) answers
+      in one attempt (its seconds);
+    - a server on that engine with a ``BackendHealth``: two wedged
+      dispatches trip its breaker, the probe's wedge is planted, and the
+      device is declared lost (one ``degradation``, ``fallback: null``,
+      ``device_lost``), no engine built and the server's engine still on
+      the card; the next dispatch serves and clears the state.
+    The launch counts are reset before and read after."""
+    from masters_thesis_tpu_torch.serve.program_cache import ProgramCache
+    from masters_thesis_tpu_torch.utils.backend_probe import (
+        BackendHealth,
+        probe_cuda_backend,
+    )
+
+    spec = _small_spec()
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    x = windows[:5]
+    cache = ProgramCache()
+    lk.reset_launch_counts()
+    t0 = time.perf_counter()
+    cold = _cache_engine(spec, state, cache)
+    cold.warmup()
+    cold_boot = _booted(cold, time.perf_counter() - t0)
+    want = cold.predict(x)
+    cold.close()
+    t0 = time.perf_counter()
+    warm = _cache_engine(spec, state, cache)
+    warm.warmup()
+    warm_boot = _booted(warm, time.perf_counter() - t0)
+    got = warm.predict(x)
+    bitwise = all(np.array_equal(g, w) for g, w in zip(got, want))
+    key8 = warm._cache_key(8)
+    warm.close()
+    plan = {"seed": 0, "faults": [{"point": "cache.load", "kind": "corrupt",
+                                   "attempt": None, "match": {"key": key8}}]}
+    with _fault_plan(plan):
+        t0 = time.perf_counter()
+        planted = _cache_engine(spec, state, cache)
+        planted.warmup()
+        planted_boot = _booted(planted, time.perf_counter() - t0)
+    planted_bitwise = all(np.array_equal(g, w)
+                          for g, w in zip(planted.predict(x), want))
+    rejections = [(e["reason"], e["key"] == key8) for e in cache.events
+                  if e["kind"] == "cache_rejected"]
+
+    t0 = time.perf_counter()
+    probe = probe_cuda_backend(timeout_s=PROBE_TIMEOUT_S)
+    probe_s = time.perf_counter() - t0
+    built = []
+    init = PredictEngine.__init__
+
+    def counting_init(self, *a, **kw):
+        built.append(kw.get("device"))
+        init(self, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tel = TelemetryRun(tmp, run_id="serve-cache-probe")
+        health = BackendHealth(Path(tmp) / "probe_cache.json", timeout_s=60.0)
+        server = PredictServer(planted, telemetry=tel, health=health,
+                               breaker_threshold=2, max_wait_s=0.002)
+        server.start()
+        lost_plan = {"seed": 0, "faults": [
+            {"point": "serve.dispatch", "kind": "wedge", "attempt": None,
+             "match": {"seq": seq}} for seq in (0, 1)] + [
+            {"point": "probe.attempt", "kind": "wedge", "attempt": None}]}
+        PredictEngine.__init__ = counting_init
+        try:
+            with _fault_plan(lost_plan):
+                failed = [server.submit(w, deadline_s=5.0).result(timeout=30.0)
+                          .status for w in windows[:2]]
+                deadline = time.monotonic() + 30.0
+                while (server.stats()["state"] != "device_lost"
+                       and time.monotonic() < deadline):
+                    time.sleep(0.005)
+                lost = server.stats()["state"]
+            after = server.submit(windows[2], deadline_s=5.0).result(
+                timeout=30.0)
+        finally:
+            PredictEngine.__init__ = init
+            stats = server.stop()
+            tel.close()
+        events = read_events(Path(tmp) / "events.jsonl")
+    launches = dict(lk.LAUNCHES)
+    degradations = [{k: e.get(k) for k in ("scope", "fallback",
+                                           "probe_attempts", "platform")}
+                    for e in events if e["kind"] == "degradation"]
+    device_lost = {
+        "failed": failed, "state_after_trip": lost,
+        "degradations": degradations, "after": after.status,
+        "state_after": stats["state"], "engines_built": len(built),
+        "engine_device": str(server.engine.device),
+        "same_engine": server.engine is planted,
+    }
+    out = {"phase": "serve_cache", "buckets": list(CACHE_BUCKETS),
+           "cold": cold_boot, "warm": warm_boot,
+           "warm_bitwise": bitwise, "planted": planted_boot,
+           "planted_rejections": rejections,
+           "planted_bitwise": planted_bitwise, "cache": cache.stats(),
+           "probe": {"ok": probe.ok, "attempts": probe.attempts,
+                     "seconds": probe_s, "detail": probe.detail[-300:]},
+           "device_lost": device_lost, "launches": launches,
+           "card": _card()}
+    emit(out)
+    cache.close()
+    failed_checks = []
+    if (cold_boot["captures"], cold_boot["cache_hits"]) != (4, 0):
+        failed_checks.append("cold boot")
+    if (warm_boot["captures"], warm_boot["programs_made"],
+            warm_boot["cache_hits"]) != (0, 0, 4) or not bitwise:
+        failed_checks.append("warm boot")
+    if (rejections != [("golden_mismatch", True)]
+            or (planted_boot["captures"], planted_boot["cache_hits"]) != (1, 3)
+            or not planted_bitwise):
+        failed_checks.append("planted corruption")
+    if not (probe.ok and probe.attempts == 1):
+        failed_checks.append("probe")
+    if (failed != ["error", "error"] or lost != "device_lost"
+            or degradations != [{"scope": "serve", "fallback": None,
+                                 "probe_attempts": 1, "platform": "gpu"}]
+            or built or not device_lost["same_engine"]
+            or not device_lost["engine_device"].startswith("cuda")
+            or after.status != "ok" or stats["state"] != "serving"):
+        failed_checks.append("device lost")
+    if not launches.get("lstm_pair_fwd"):
+        failed_checks.append("launch counts")
+    if failed_checks:
+        raise AssertionError(f"serve_cache: {failed_checks}")
+    return out
 
 
 def phase_ab(label: str) -> None:
@@ -6309,6 +6562,7 @@ def main() -> int:
         stacked_driver, windows, _synthetic_windows(K_MEDIUM),
         _synthetic_windows(lookback=T_LONG, stride=STRIDE_LONG))
     serve_fleet = phase_serve_fleet(windows)
+    serve_cache = phase_serve_cache(windows)
     phase_preflight()
     # The maskless pair forward's and the stack forward's launches on the
     # serving phases of this slice.
@@ -6316,7 +6570,8 @@ def main() -> int:
         "lstm_pair_fwd": {"serve_swap": serve_swap["small"],
                           "serve_faults": serve_faults,
                           "serve_knee": serve_knee,
-                          "serve_fleet": serve_fleet},
+                          "serve_fleet": serve_fleet,
+                          "serve_cache": serve_cache},
         "lstm_stack_fwd": {"serve_swap_medium": serve_swap["medium"]},
     }
     missed = {f"{phase}/{name}": path["launches"][name]
@@ -6416,7 +6671,9 @@ def main() -> int:
             measured = "lstm_wgrad_single" if name == "lstm_wgrad" else name
             summary[-1].setdefault("launches_by_path", {}).update({
                 "universe_train": universe_train["launches"]["train"][name],
-                "universe_serve": universe_serve["launches"][name]})
+                "universe_serve": universe_serve["launches"][name],
+                "universe_serve_warm":
+                    universe_serve["warm_boot"]["launches"].get(name, 0)})
             summary[-1]["universe"] = [
                 {k: r[k] for k in ("name", "rows", "T", "max_abs_err", "tol",
                                    "ms", "ms_spread", "device_ms", "plain_ms",

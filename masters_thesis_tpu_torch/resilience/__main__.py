@@ -43,8 +43,11 @@ Counterpart of ``masters_thesis_tpu/resilience/__main__.py``.
                   ``shard_bounds``, rank 0's atomic progress commit, a
                   crash or hang of one rank).
 
-``--probe`` (the backend probe and its CPU fallback) is refused:
-ROADMAP queue 1 item 5.
+``run --probe`` probes the card before each attempt (one attempt,
+``--probe-timeout-s``, the cache ``--probe-cache``); a failed probe is
+recorded as a ``degradation`` with ``fallback: null`` and the attempt runs
+on the card. ``--no-cpu-fallback`` is accepted so that JAX command lines
+run unchanged: it is what the port always does.
 """
 
 from __future__ import annotations
@@ -71,13 +74,18 @@ def _add_policy_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--probe",
         action="store_true",
-        help="refused: the backend probe and its CPU fallback are not "
-        "ported (" + PROBE_QUEUE + ")",
+        help="probe the card before each attempt (one attempt); a failed "
+        "probe is recorded as a degradation, and the attempt runs on the "
+        "card all the same",
     )
-
-
-#: Where what this command line does not do yet is queued.
-PROBE_QUEUE = "ROADMAP.md queue 1 item 5 (a loud CPU degradation)"
+    p.add_argument("--probe-timeout-s", type=float, default=120.0)
+    p.add_argument("--probe-cache", type=Path, default=None)
+    p.add_argument(
+        "--no-cpu-fallback",
+        action="store_true",
+        help="accepted for the JAX command line: the port never falls back "
+        "to the CPU",
+    )
 
 
 def _cfg_from_args(args):
@@ -93,6 +101,9 @@ def _cfg_from_args(args):
         rollback_attempts=args.rollback_attempts,
         lr_factor=args.lr_factor,
         hang_timeout_s=args.hang_timeout_s,
+        probe=args.probe,
+        probe_timeout_s=args.probe_timeout_s,
+        probe_cache=args.probe_cache,
     )
 
 
@@ -102,10 +113,6 @@ def _cfg_from_args(args):
 def _cmd_run(args) -> int:
     from masters_thesis_tpu_torch.resilience.supervisor import RunSupervisor
 
-    if args.probe:
-        print(f"run: --probe is not ported ({PROBE_QUEUE}); a child is never "
-              "moved to the CPU behind the user's back", file=sys.stderr)
-        return 1
     if not args.cmd:
         print("run: no command given (use `-- cmd ...`)", file=sys.stderr)
         return 2

@@ -30,9 +30,14 @@ stderr.
 Where it differs from the JAX supervisor: the hang watch reads only the
 heartbeats written during the current attempt (a dead attempt's stale
 heartbeat left in the watch dir no longer counts against the next
-attempt while it starts); the backend probe and its CPU fallback are not
-ported (a child pinned to the CPU without a word is the fallback the port
-forbids; ROADMAP queue 1 item 5). :class:`ReplicaRestartPolicy` is the
+attempt while it starts); with ``probe=True`` the card is probed before
+each attempt (one attempt of ``utils/backend_probe.py``'s
+``BackendHealth``; the supervisor owns the retries), and a failed probe is
+recorded as a ``degradation`` event with ``fallback: null`` and
+``probe_attempts``, after which the attempt runs on the card all the same:
+the JAX supervisor's ``cpu_fallback=False``, the port's only behaviour (a
+child pinned to the CPU is the fallback the port forbids; its environment
+is never changed). :class:`ReplicaRestartPolicy` is the
 serving fleet's (``serve/fleet.py``). N ranks are
 ``resilience/fleetsup.py``'s.
 ``metrics_port`` starts the telemetry plane over the children's streams
@@ -95,6 +100,9 @@ class SupervisorConfig:
     lr_factor: float = 0.5  # LR scale per rollback (1.0 = no change)
     hang_timeout_s: float | None = None  # heartbeat staleness -> kill
     term_grace_s: float = TERM_GRACE_S
+    probe: bool = False  # probe the card before each attempt
+    probe_timeout_s: float = 120.0
+    probe_cache: Path | str | None = None  # default: <run_dir>/probe_cache.json
 
 
 @dataclass
@@ -516,6 +524,27 @@ class RunSupervisor(SupervisorTelemetry):
                     break
         return None
 
+    # --------------------------------------------------------------- health
+
+    def _check_backend(self) -> None:
+        """The pre-attempt gate: one probe of the card. A failure is
+        recorded (``degradation``, ``fallback: null``) and the attempt runs
+        on the card as it would have: nothing is pinned to the CPU."""
+        from masters_thesis_tpu_torch.utils.backend_probe import BackendHealth
+
+        cache = self.cfg.probe_cache or self.run_dir / "probe_cache.json"
+        health = BackendHealth(cache, timeout_s=self.cfg.probe_timeout_s)
+        decision = health.ensure_responsive(single_attempt=True)
+        if decision.ok:
+            return
+        self._event("degradation", reason=decision.detail or
+                    "backend probe failed", fallback=None,
+                    probe_attempts=decision.attempts,
+                    known_wedged=decision.known_wedged)
+        print(f"[supervisor] backend probe failed ({decision.attempts} "
+              "attempt(s)); the attempt runs on the card all the same (no "
+              "CPU fallback)", file=sys.stderr, flush=True)
+
     # ------------------------------------------------------------ the child
 
     def _launch(self, attempt: int, lr_scale: float) -> AttemptOutcome:
@@ -716,7 +745,7 @@ class RunSupervisor(SupervisorTelemetry):
             rollback_attempts=cfg.rollback_attempts,
             lr_factor=cfg.lr_factor,
             retry_budget_s=cfg.retry_budget_s,
-            probe=False,
+            probe=bool(cfg.probe),
             trace_id=self.trace_id,
         )
         self._start_plane()
@@ -736,6 +765,8 @@ class RunSupervisor(SupervisorTelemetry):
 
         while True:
             attempt += 1
+            if cfg.probe:
+                self._check_backend()
             outcome = self._launch(attempt, lr_scale)
             result.attempts.append(outcome)
             result.lost_work_s += outcome.lost_work_s

@@ -9,10 +9,12 @@ Counterpart of ``python -m masters_thesis_tpu.serve``:
   control, dispatch loop and deadline enforcement with a fake engine, as
   the JAX selfcheck's checks 1–4 do: the happy path, overload (explicit
   sheds, no late answer), a shed forced by the ``serve.admit`` fault point
-  (category ``fault``), and the canary's verdict math; and the breaker half
-  of its check 5: scripted dispatch failures trip the breaker, the trip is
-  counted and traffic recovers on the same engine (the port has no CPU
-  degradation); its check 6, fleet failover: three fake replicas behind
+  (category ``fault``), and the canary's verdict math; its check 5, with a
+  canned probe that fails: scripted dispatch failures trip the breaker,
+  ONE single-attempt probe runs, one ``degradation`` with ``fallback:
+  null`` is written, the server is ``device_lost`` with the same engine
+  (no CPU engine), and the next dispatch that succeeds serves again; its
+  check 6, fleet failover: three fake replicas behind
   one ``FleetServer``, one crashed mid-traffic by ``serve.replica_dispatch``
   (every request resolved explicitly, none late, a survivor or a new
   generation), and the port's breaker rule: a replica whose breaker trips
@@ -23,9 +25,10 @@ Counterpart of ``python -m masters_thesis_tpu.serve``:
   per-tenant admission splits, and a stacked engine's ``(R, K)`` answer
   per window comes back through the unchanged dispatch loop
   (``stats()["lanes"]``). Exit 1 on any failure.
-- ``preflight`` runs ``serve/preflight.py`` (SV301–SV304, SV306 for a
-  fleet of two replicas on the device, SV307 over lane counts, and SV308
-  for one engine and for one lane of a stack) on the
+- ``preflight`` runs ``serve/preflight.py`` (SV301–SV304, SV305 for a
+  warm boot from the program cache, SV306 for a fleet of two replicas on
+  the device, SV307 over lane counts, and SV308 for one engine and for one
+  lane of a stack) on the
   card, or on the CPU with ``--device cpu``: one JSON line of what the
   rules measured, then the findings. Exit 1 on findings.
 """
@@ -80,6 +83,30 @@ class _FakeStackedEngine(_FakeEngine):
         a, _ = super().predict(x, params)
         a = self._np.repeat(a[:, None, :], self.num_lanes, axis=1)
         return a, a.copy()
+
+
+class _StubHealth:
+    """BackendHealth stand-in: a canned single-attempt probe decision."""
+
+    def __init__(self, ok: bool):
+        import threading
+
+        self._ok = ok
+        self.calls = 0
+        self._lock = threading.Lock()
+
+    def ensure_responsive(self, single_attempt: bool = False, log=None):
+        from masters_thesis_tpu_torch.utils.backend_probe import (
+            HealthDecision,
+        )
+
+        with self._lock:
+            self.calls += 1
+        assert single_attempt, "serve must probe with single_attempt=True"
+        return HealthDecision(
+            ok=self._ok, degraded=not self._ok, attempts=1,
+            detail="" if self._ok else "stubbed wedge",
+            known_wedged=False, cached_age_s=None)
 
 
 def _selfcheck(args) -> int:
@@ -157,28 +184,46 @@ def _selfcheck(args) -> int:
                      max_drift=0.5).ok:
         failures.append("canary: drift budget not enforced")
 
-    # 5. The breaker: two scripted failures trip it once; the same engine
-    #    then serves the next request.
+    # 5. The breaker and the probe: two scripted failures trip it once, ONE
+    #    probe runs and fails, the device is declared lost (one
+    #    degradation, fallback null, no CPU engine); the same engine then
+    #    serves the next request and the state clears.
     with tempfile.TemporaryDirectory() as tmp:
         tel = TelemetryRun(tmp, run_id="serve-selfcheck")
         engine = _FakeEngine(service_s=0.001)
+        health = _StubHealth(ok=False)
         server = PredictServer(engine, telemetry=tel, breaker_threshold=2,
-                               max_wait_s=0.001)
+                               max_wait_s=0.001, health=health)
         server.start()
         engine.fail_next = 2
         # Sequential submit/await: each failure is its own dispatch.
         failed = [server.submit(window, deadline_s=5.0).result(timeout=10.0)
                   for _ in range(2)]
+        # The probe runs after the failed answers went back: wait for it.
+        deadline = time.monotonic() + 5.0
+        while (server.stats()["state"] != "device_lost"
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        lost = server.stats()["state"]
         ok_after = server.submit(window, deadline_s=5.0).result(timeout=10.0)
         stats = server.stop()
         tel.close()
+        degradations = [e for e in read_events(Path(tmp) / "events.jsonl")
+                        if e.get("kind") == "degradation"]
     if [r.status for r in failed] != ["error", "error"]:
         failures.append(f"breaker: failed dispatches answered "
                         f"{[r.status for r in failed]}")
-    if stats["breaker_trips"] != 1:
-        failures.append(f"breaker: {stats['breaker_trips']} trips (wanted 1)")
-    if ok_after.status != STATUS_OK:
-        failures.append(f"breaker: request after the trip {ok_after.status!r}")
+    if stats["breaker_trips"] != 1 or health.calls != 1:
+        failures.append(f"breaker: {stats['breaker_trips']} trips, "
+                        f"{health.calls} probes (wanted 1 and 1)")
+    if (lost != "device_lost" or stats["degradations"] != 1
+            or [e.get("fallback", "missing") for e in degradations] != [None]
+            or server.engine is not engine):
+        failures.append(f"breaker: device not declared lost once, loudly "
+                        f"({lost}, {stats}, {degradations})")
+    if ok_after.status != STATUS_OK or stats["state"] != "serving":
+        failures.append(f"breaker: request after the trip {ok_after.status!r}"
+                        f", state {stats['state']!r}")
 
     # 6. Fleet failover: three fake replicas, one killed by an injected
     #    dispatch crash mid-traffic; survivors absorb the re-dispatched
@@ -315,7 +360,8 @@ def _preflight(args) -> int:
               "under load captures nothing and is never late; stacked: one "
               "capture a bucket at every lane count, a lane swap under load "
               "captures nothing, is never late and leaves its siblings "
-              "bitwise; a fleet survives a replica's death, nothing late)")
+              "bitwise; a fleet survives a replica's death, nothing late; "
+              "a warm boot from the program cache makes no program)")
     return 1 if findings else 0
 
 
@@ -329,8 +375,7 @@ def main(argv: list[str] | None = None) -> int:
         help="torch-free smoke of queue/admission/deadline/breaker/canary")
     p_check.set_defaults(fn=_selfcheck)
     p_pre = sub.add_parser(
-        "preflight", help="predict-path audit on the card (SV301-SV304, "
-        "SV306-SV308)")
+        "preflight", help="predict-path audit on the card (SV301-SV308)")
     p_pre.add_argument("--device", default=None,
                        help="cpu to run on the CPU (default: the card)")
     p_pre.add_argument("--requests", type=int, default=12, metavar="N",

@@ -34,11 +34,23 @@ serves from N replicas —
   server's hand-back rule (:class:`~.server.DeadlineServing`, shared):
   ``ok`` only with ``handback_guard_s`` left, checked answer by answer.
 
-Where it departs from the JAX fleet: a tripped breaker kills its replica
-(``replica_dead`` with ``cause="breaker"``) and the restart policy brings a
-new generation up on the factory's device; the JAX fleet rebuilds the
-replica on the CPU, which the port never does quietly. ``degradations``
-stays in ``stats()`` and stays 0, and ``STATE_DEGRADED`` is never entered.
+- **Warm restarts.** Factories that build their engines on one shared
+  ``serve/program_cache.py`` ``ProgramCache`` restart warm: a replica dead
+  by its breaker or a crash has no dispatch in flight, so its engine is
+  closed into the cache as it is declared dead, and the next generation's
+  ``warmup`` takes its graphs (``replica_started`` carries
+  ``cache_hits``). A hung replica gives nothing back.
+
+Where it departs from the JAX fleet: a tripped breaker first spends ONE
+probe of the card (``health=``, a ``utils.backend_probe.BackendHealth``).
+If it answers (``breaker_probe_ok``), or with ``health=None``, the breaker
+kills its replica (``replica_dead`` with ``cause="breaker"``) and the
+restart policy brings a new generation up on the factory's device. If it
+fails, the device is lost: ``degradations`` is counted, a ``degradation``
+event (``fallback: null``) is written and the replica is halted with
+``cause="device_lost"`` rather than restarted onto a dead card. The JAX
+fleet rebuilds the replica on the CPU, which the port never does:
+``STATE_DEGRADED`` is never entered.
 The JAX fleet checks a batch's deadline once before its answers go back;
 this one checks each answer (above). Latency quantiles come from the
 recent ok latencies, as in the port's server.
@@ -83,7 +95,7 @@ from masters_thesis_tpu_torch.serve.server import (
 #: Replica states.
 STATE_LIVE = "live"
 #: Kept for the JAX fleet's names; the port never enters it (a tripped
-#: breaker kills the replica instead).
+#: breaker kills the replica, or halts it when the card is lost).
 STATE_DEGRADED = "degraded"
 STATE_DRAINING = "draining"
 STATE_DEAD = "dead"
@@ -170,6 +182,7 @@ class FleetServer(DeadlineServing):
         metrics_port: int | None = None,
         slo_rules=None,
         quality_monitor=None,
+        health=None,
     ):
         if not engine_factories:
             raise ValueError("fleet needs at least one engine factory")
@@ -177,6 +190,8 @@ class FleetServer(DeadlineServing):
                          slo_rules=slo_rules, quality_monitor=quality_monitor)
         self.restart_policy = restart_policy or ReplicaRestartPolicy()
         self.hang_timeout_s = hang_timeout_s
+        #: The card's probe after a breaker trip (None: no probe).
+        self.health = health
         self.replicas: dict[str, Replica] = {
             name: Replica(name, factory, breaker_threshold)
             for name, factory in engine_factories.items()
@@ -196,8 +211,6 @@ class FleetServer(DeadlineServing):
         self._stop = threading.Event()
         self._dispatch_seq = 0
         self._shape: tuple | None = None
-        #: Always 0: a tripped breaker kills its replica (module docstring).
-        self.degradations = 0
         self.deaths = 0
         self.redispatched = 0
 
@@ -467,10 +480,10 @@ class FleetServer(DeadlineServing):
                 self._resolve(p, STATUS_ERROR,
                               f"{type(exc).__name__}: {exc}", **who)
             if replica.breaker.record_failure():
-                self._declare_dead(
-                    replica, fingerprint=self._fingerprint(exc),
-                    detail=f"circuit breaker tripped: "
-                    f"{type(exc).__name__}: {exc}", cause="breaker")
+                detail = f"circuit breaker tripped: {type(exc).__name__}: {exc}"
+                cause = self._probe_after_trip(replica, exc, detail)
+                self._declare_dead(replica, fingerprint=self._fingerprint(exc),
+                                   detail=detail, cause=cause)
             return
         device_s = time.perf_counter() - t0
         self.spans.stamp_many(live_rids, "t_predict_end", t0 + device_s)
@@ -502,6 +515,26 @@ class FleetServer(DeadlineServing):
         # or the deterministic halt could never trigger.
         norm = re.sub(r"\d+", "#", f"{type(exc).__name__}|{exc}")
         return hashlib.sha1(norm.encode()).hexdigest()[:12]
+
+    def _probe_after_trip(self, replica: Replica, exc: Exception,
+                          detail: str) -> str:
+        """One probe of the card after ``replica``'s breaker tripped: the
+        cause of its death, ``breaker`` (restarted by the policy) or
+        ``device_lost`` (halted; a ``degradation`` event)."""
+        if self.health is None:
+            return "breaker"
+        decision = self.health.ensure_responsive(single_attempt=True)
+        if decision.ok:
+            self._event("breaker_probe_ok", replica=replica.name,
+                        trips=replica.breaker.trips,
+                        attempts=decision.attempts, cause=repr(exc))
+            return "breaker"
+        self._bump("degradations")
+        self._event("degradation", scope="serve", replica=replica.name,
+                    reason=f"{detail}; probe: {decision.detail}",
+                    probe_attempts=decision.attempts, fallback=None,
+                    platform=replica.engine.platform)
+        return "device_lost"
 
     def _declare_dead(self, replica: Replica, *, fingerprint: str,
                       detail: str, cause: str) -> None:
@@ -538,6 +571,18 @@ class FleetServer(DeadlineServing):
                        completed=replica.completed, busy_s=replica.busy_s)  # mtt: disable=CL502 -- span attribute of a replica already declared dead; a stale total only skews the span
             replica.span = None
         self._redispatch(replica, orphans)
+        if cause in ("breaker", "crash"):
+            # No dispatch in flight: its programs go back to its engine's
+            # program cache, for the next generation's warm boot.
+            close = getattr(replica.engine, "close", None)
+            if close is not None:
+                close()
+        if cause == "device_lost":
+            with self._lock:
+                replica.halted = True
+            self._event("replica_halted", replica=replica.name,
+                        verdict="device_lost", detail=detail)
+            return
         self._after_failure(replica, fingerprint, detail)
 
     def _after_failure(self, replica: Replica, fingerprint: str,
@@ -652,6 +697,7 @@ class FleetServer(DeadlineServing):
                     replica_gen=generation, restart=not initial,
                     boot_s=boot_s, warmup_batch_ms=warm_s * 1e3,
                     compile_events=engine.compile_events,
+                    cache_hits=getattr(engine, "cache_hits", 0),
                     platform=engine.platform)
         replica.thread.start()
 

@@ -45,9 +45,11 @@ varied batch sizes and holds the serving contract:
   survives, every request resolves explicitly and no ``ok`` answer comes
   late.
 
-Not ported: **SV305** (a warm program-cache boot compiles nothing): a CUDA
-graph cannot be written to disk, so the port has no program cache to boot
-from.
+- **SV305** (``run_program_cache_preflight``): a cold engine warms up and
+  closes into a ``ProgramCache``, then a warm engine boots from it. The
+  warm engine must make no program (no capture on the card, no eager
+  program on the CPU), hit the cache once a bucket, and answer bit for bit
+  as the cold engine did. Failure to run is SV303, as in JAX.
 """
 
 from __future__ import annotations
@@ -182,7 +184,9 @@ def _run(device, requests, facts: dict) -> list[Finding]:
     findings += _swap_under_load(engine, spec, facts)
     findings += _stacked(engine.device, facts)
     findings += _fleet(spec, engine.device, facts)
-    return findings
+    sv305, facts["program_cache"] = run_program_cache_preflight(
+        device=engine.device)
+    return findings + sv305
 
 
 def _under_load(engine, spec, state: dict, swap, duration_s: float = 0.5,
@@ -485,4 +489,77 @@ def _fleet(spec, device, facts: dict) -> list[Finding]:
             rule="SV306", message=f"{stats['late_deliveries']} ok "
             "response(s) delivered past their deadline during failover (no "
             "late answers, fleet-wide)"))
+    return findings
+
+
+def run_program_cache_preflight(device=None,
+                                buckets: tuple = PREFLIGHT_BUCKETS
+                                ) -> tuple[list[Finding], dict]:
+    """SV305: a warm boot from the program cache makes no program, hits
+    once a bucket and answers bit for bit as the cold engine; ``(findings,
+    facts)``, SV303 when it cannot run."""
+    facts: dict = {}
+    try:
+        return _program_cache(device, buckets, facts), facts
+    except Exception as exc:  # noqa: BLE001 — SV303 carries the cause
+        return [Finding(rule="SV303", message="program-cache preflight "
+                        f"could not run: {type(exc).__name__}: {exc}")], facts
+
+
+def _program_cache(device, buckets: tuple, facts: dict) -> list[Finding]:
+    from masters_thesis_tpu_torch.serve.engine import PredictEngine
+    from masters_thesis_tpu_torch.serve.program_cache import ProgramCache
+
+    spec = _preflight_spec()
+    state = _state(spec, 0)
+    cache = ProgramCache()
+
+    def build():
+        return PredictEngine(spec, state, n_stocks=PREFLIGHT_STOCKS,
+                             lookback=PREFLIGHT_LOOKBACK,
+                             n_features=PREFLIGHT_FEATURES, buckets=buckets,
+                             device=device, program_cache=cache)
+
+    try:
+        cold = build()
+        t0 = time.perf_counter()
+        cold.warmup()
+        cold_s = time.perf_counter() - t0
+        x = cold.golden_batch(min(2, max(buckets)), seed=11)
+        want = cold.predict(x)
+        cold.close()
+        warm = build()
+        t0 = time.perf_counter()
+        warm.warmup()
+        warm_s = time.perf_counter() - t0
+        got = warm.predict(x)
+        warm.close()
+    finally:
+        cache.close()
+    facts.update(cold_captures=cold.compile_events, cold_boot_s=cold_s,
+                 warm_captures=warm.compile_events,
+                 warm_programs_made=warm.programs_made,
+                 warm_hits=warm.cache_hits, warm_boot_s=warm_s,
+                 cache=cache.stats())
+    findings = []
+    if warm.programs_made:
+        rejections = [e for e in cache.events
+                      if e["kind"] == "cache_rejected"]
+        findings.append(Finding(
+            rule="SV305",
+            message=f"warm-cache boot made {warm.programs_made} program(s) "
+            f"({warm.compile_events} captured) for buckets {warm.buckets} "
+            "(expected 0: every program must come from the cache); "
+            f"rejections: {rejections or 'none'}"))
+    if warm.cache_hits != len(warm.buckets):
+        findings.append(Finding(
+            rule="SV305",
+            message=f"warm-cache boot hit the cache {warm.cache_hits} "
+            f"time(s) for {len(warm.buckets)} buckets (expected one hit a "
+            "bucket)"))
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        findings.append(Finding(
+            rule="SV305",
+            message="the cached programs do not answer bit for bit as the "
+            "engine that gave them back"))
     return findings

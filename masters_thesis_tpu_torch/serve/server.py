@@ -20,15 +20,24 @@ torch). Invariants this module owns:
 - **Failures are answers.** A dispatch that raises resolves its requests as
   explicit ``error`` responses and feeds a :class:`CircuitBreaker`, whose
   trips are counted (``breaker_trips``). There is no CPU failover in the
-  port: after a trip the server keeps the same engine, answers each failed
-  dispatch with ``error`` and serves again as soon as a dispatch succeeds.
+  port. After a trip, with ``health=`` (a ``utils.backend_probe.
+  BackendHealth``), the server spends ONE single-attempt probe of the card:
+  if it answers, a ``breaker_probe_ok`` event and nothing else; if not, the
+  device is declared lost, loudly: ``degradations`` is counted, a
+  ``degradation`` event (``scope: "serve"``, ``fallback: null``, the
+  engine's ``platform``) is written, and ``stats()["state"]`` becomes
+  ``device_lost``, which ``/healthz`` reports as unhealthy. No CPU engine is
+  built: failed dispatches still answer ``error``, and the first dispatch
+  that succeeds sets the state back to ``serving``. With ``health=None``
+  nothing is probed and no device is declared lost (only on evidence).
 - **Non-finite outputs never leave.** A batch whose outputs contain
   NaN/inf resolves as ``error``.
 
 With ``telemetry=`` (a :class:`~masters_thesis_tpu_torch.telemetry.run.
 TelemetryRun`) the server writes the JAX server's events
 (``serve_started``, ``tenant_admitted``, ``request_shed``,
-``serve_finished``), mirrors its counters into ``serve/<name>`` of the
+``serve_finished``, one ``cost_profile`` a bucket at start from the
+engine's ``cost_profiles``), mirrors its counters into ``serve/<name>`` of the
 registry, observes ``serve/latency_s``, and writes spans: one
 ``serve.server`` span, one ``serve.request`` span a request whose
 components tile its wall (``serve/spans.py``) and one ``serve.device``
@@ -76,6 +85,12 @@ from masters_thesis_tpu_torch.serve.queue import (
     ServiceTimeModel,
 )
 from masters_thesis_tpu_torch.serve.spans import RequestSpans
+
+
+#: ``stats()["state"]``: serving, or the card declared lost after a trip
+#: and a failed probe.
+STATE_SERVING = "serving"
+STATE_DEVICE_LOST = "device_lost"
 
 
 class InjectedDeviceError(RuntimeError):
@@ -170,6 +185,9 @@ class DeadlineServing:
         )
         #: The front end's root span (``serve.server``, ``serve.fleet``).
         self._root_span = None
+        #: ``serving`` or ``device_lost`` (``/healthz`` reads it).
+        self.state = STATE_SERVING
+        self.degradations = 0
         self.spans = RequestSpans(self._tracer)
 
     # ------------------------------------------------------------ telemetry
@@ -198,7 +216,8 @@ class DeadlineServing:
             )
 
             self._exposition, self._slo_engine = start_telemetry_plane(
-                self.telemetry, self.metrics_port, rules=self._slo_rules)
+                self.telemetry, self.metrics_port, rules=self._slo_rules,
+                health=lambda: self.state)
 
     def _stop_plane(self) -> None:
         if self._exposition is not None or self._slo_engine is not None:
@@ -434,11 +453,15 @@ class PredictServer(DeadlineServing):
         metrics_port: int | None = None,
         slo_rules=None,
         quality_monitor=None,
+        health=None,
     ):
         super().__init__(telemetry=telemetry, metrics_port=metrics_port,
                          slo_rules=slo_rules, quality_monitor=quality_monitor)
         self.engine = engine
         self.breaker = CircuitBreaker(breaker_threshold)
+        #: The card's probe after a breaker trip (None: no probe, and no
+        #: device is ever declared lost).
+        self.health = health
         self.service_model = ServiceTimeModel()
         # The queue's micro-batch can never exceed the largest bucket.
         cap = engine.max_bucket
@@ -482,6 +505,17 @@ class PredictServer(DeadlineServing):
                 warmup_batch_ms=warm_s * 1e3,
                 compile_events=self.engine.compile_events,
             )
+            # One cost_profile a bucket (the engine's analytic costs); a
+            # cost_unavailable, once, for an engine without them.
+            profiles = getattr(self.engine, "cost_profiles", {})
+            warned = False
+            for b in self.engine.buckets:
+                if profiles.get(b):
+                    self._event("cost_profile", **profiles[b])
+                elif not warned:
+                    warned = True
+                    self._event("cost_unavailable",
+                                program=f"serve_bucket_{b}")
         self._thread = threading.Thread(
             target=self._worker, name="serve-dispatch", daemon=True
         )
@@ -525,6 +559,8 @@ class PredictServer(DeadlineServing):
                 "handback_max_ms": 1e3 * self.handback_max_s,
                 "dispatches": self.dispatches,
                 "breaker_trips": self.breaker.trips,
+                "degradations": self.degradations,
+                "state": self.state,
                 "batch_size_counts": dict(self.batch_size_counts),
             }
         stats.update(
@@ -583,7 +619,8 @@ class PredictServer(DeadlineServing):
                 self._resolve(
                     p, STATUS_ERROR, f"{type(exc).__name__}: {exc}"
                 )
-            self.breaker.record_failure()
+            if self.breaker.record_failure():
+                self._probe_after_trip(exc)
             return
         device_s = time.perf_counter() - t0
         self.spans.stamp_many(live_rids, "t_predict_end", t0 + device_s)
@@ -596,4 +633,29 @@ class PredictServer(DeadlineServing):
         self.queue.note_service({p.request.tenant for p in live}, device_s,
                                 replace=probe)
         self.breaker.record_success()
+        with self._stats_lock:
+            self.state = STATE_SERVING
         self._answer(live, alpha, beta)
+
+    def _probe_after_trip(self, cause: Exception) -> None:
+        """The breaker tripped: ONE probe of the card. It answers: a
+        ``breaker_probe_ok`` event. It fails: the device is declared lost
+        (the module docstring); nothing moves to the CPU."""
+        if self.health is None:
+            return
+        decision = self.health.ensure_responsive(single_attempt=True)
+        if decision.ok:
+            self._event("breaker_probe_ok", trips=self.breaker.trips,
+                        attempts=decision.attempts, cause=repr(cause))
+            return
+        self._bump("degradations")
+        with self._stats_lock:
+            self.state = STATE_DEVICE_LOST
+        self._event("degradation", scope="serve",
+                    reason=f"circuit breaker tripped: {cause!r}; probe: "
+                    f"{decision.detail}",
+                    probe_attempts=decision.attempts, fallback=None,
+                    platform=self.engine.platform)
+        print(f"[serve] device lost: the breaker tripped ({cause!r}) and "
+              f"the probe failed ({decision.detail}); answering error, no "
+              "CPU fallback", file=sys.stderr, flush=True)

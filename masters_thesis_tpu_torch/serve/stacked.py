@@ -27,15 +27,18 @@ weights back before the lock is released, and ``set_lane`` commits it by
 ``copy_`` into the lane's captured tensors under the engine lock: no
 capture, and every sibling lane's tensors are untouched. ``lane_digest``
 is a lane's content hash; ``ensemble_stats`` folds the lane axis into f64
-mean, spread and envelope. The program cache's lane-digest keys (SV305)
-are not ported: a CUDA graph cannot be written to disk.
+mean, spread and envelope.
+
+The program cache (``program_cache=``, ``close``) is the solo engine's
+(``engine.py`` ``BucketPrograms``), with the ordered lane digests in the
+key: when one lane's content changes the stack's entries get new keys,
+while a solo engine's entries for an unchanged lane still hit (the JAX
+rule). ``cost_profiles`` is the solo engine's cost times R.
 """
 
 from __future__ import annotations
 
 import hashlib
-import threading
-import time
 from pathlib import Path
 from typing import Mapping, Sequence
 
@@ -47,7 +50,8 @@ from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.serve.engine import (
     DEFAULT_BUCKETS,
-    BucketOverflowError,
+    BucketPrograms,
+    bucket_cost_profiles,
     state_signature,
 )
 from masters_thesis_tpu_torch.train.checkpoint import (
@@ -94,15 +98,19 @@ class LaneMismatchError(ValueError):
     """Lane weights that do not match the stack's shared architecture."""
 
 
-class StackedPredictEngine:
+class StackedPredictEngine(BucketPrograms):
     """Bucketed predict programs over R stacked model lanes on one device.
 
     The solo engine's API contract (``window_shape``, ``max_bucket``,
-    ``platform``, ``buckets``, ``compile_events``, ``warmup``,
-    ``bucket_for``, ``predict``, ``golden_batch``), plus the lanes'
-    (``num_lanes``, ``lanes``, ``predict_lane``, ``predict_ensemble``,
-    ``lane_params``, ``lane_digests``, ``stage_lane``, ``set_lane``).
+    ``platform``, ``buckets``, ``compile_events``, ``cache_hits``,
+    ``warmup``, ``close``, ``bucket_for``, ``predict``, ``golden_batch``,
+    ``cost_profiles``), plus the lanes' (``num_lanes``, ``lanes``,
+    ``predict_lane``, ``predict_ensemble``, ``lane_params``,
+    ``lane_digests``, ``stage_lane``, ``set_lane``).
     """
+
+    #: The JAX stacked engine's golden seeds (never a solo entry's).
+    GOLDEN_SEED = (2003, 11)
 
     def __init__(
         self,
@@ -116,6 +124,7 @@ class StackedPredictEngine:
         device=None,
         cuda_graphs: bool = True,
         lanes: Sequence[str] | None = None,
+        program_cache=None,
     ):
         if not state_dicts:
             raise ValueError("need at least one lane (R >= 1)")
@@ -134,33 +143,49 @@ class StackedPredictEngine:
         if len(self.lanes) != self.num_lanes:
             raise ValueError(f"{len(self.lanes)} lane names for "
                              f"{self.num_lanes} lanes")
+        self._init_stream()
         encoders = []
-        for i, state in enumerate(state_dicts):
-            enc = spec.build_module(device=self.device)
-            if i == 0:
-                self._signature = state_signature(enc.state_dict())
-            self._check_signature(state, f"lane {i} ({self.lanes[i]})")
-            enc.load_state_dict(state)
-            encoders.append(enc)
+        with self._on_stream():
+            for i, state in enumerate(state_dicts):
+                enc = spec.build_module(device=self.device)
+                if i == 0:
+                    self._signature = state_signature(enc.state_dict())
+                self._check_signature(state, f"lane {i} ({self.lanes[i]})")
+                enc.load_state_dict(state)
+                encoders.append(enc)
+        self._sync()
         self._module = StackedLstmEncoder(encoders)
         self._module.eval()
         self.graphed = cuda_graphs and self.device.type == "cuda"
-        self._lock = threading.Lock()
-        self._programs: dict[int, _StackedBucketProgram] = {}
+        self._lane_digests = [lane_digest(s) for s in state_dicts]
+        self._init_programs(program_cache)
+        self._bind_live()
+        #: One analytic cost a bucket: the solo engine's, R times.
+        self.cost_profiles = bucket_cost_profiles(
+            spec, self.buckets, n_stocks, lookback, self.platform,
+            lanes=self.num_lanes)
+
+    def _bind_live(self) -> None:
         #: Each lane's tensors the programs read (and the graphs were
         #: captured on), by state-dict key.
-        self._live = [enc.state_dict(keep_vars=True) for enc in encoders]
-        self._lane_digests = [lane_digest(s) for s in state_dicts]
-        #: The allocator's peak during each bucket's capture (``warmup``).
-        self.capture_peak_bytes: dict[int, int] = {}
+        self._live = [enc.state_dict(keep_vars=True)
+                      for enc in self._module.replicas]
+
+    def _identity_extra(self) -> dict:
+        return {"lanes": list(self._lane_digests)}
+
+    def _new_program(self, bucket: int) -> "_StackedBucketProgram":
+        return _StackedBucketProgram(self._module,
+                                     (bucket, *self.window_shape),
+                                     self.device, self.graphed)
 
     @classmethod
     def from_checkpoints(cls, ckpt_dirs: Sequence, tag: str = "best", *,
                          n_stocks: int, n_features: int = 3,
                          buckets: Sequence[int] = DEFAULT_BUCKETS,
                          device=None, cuda_graphs: bool = True,
-                         lanes: Sequence[str] | None = None
-                         ) -> "StackedPredictEngine":
+                         lanes: Sequence[str] | None = None,
+                         program_cache=None) -> "StackedPredictEngine":
         """A stack of R published checkpoints, each verified STRICTLY
         against its own manifest first (one unprovable lane keeps the whole
         stack from booting: ``CorruptCheckpointError``); their specs and
@@ -189,7 +214,8 @@ class StackedPredictEngine:
             states.append(state)
         return cls(spec0, states, n_stocks=n_stocks, lookback=lookback0,
                    n_features=n_features, buckets=buckets, device=device,
-                   cuda_graphs=cuda_graphs, lanes=lanes)
+                   cuda_graphs=cuda_graphs, lanes=lanes,
+                   program_cache=program_cache)
 
     def _check_signature(self, state, what: str) -> None:
         if state_signature(state) != self._signature:
@@ -197,68 +223,6 @@ class StackedPredictEngine:
                 f"{what} does not match the stack's shared architecture (a "
                 "lane cannot change shapes: the bucket programs are "
                 "shape-specialised)")
-
-    @property
-    def window_shape(self) -> tuple[int, int, int]:
-        return (self.n_stocks, self.lookback, self.n_features)
-
-    @property
-    def max_bucket(self) -> int:
-        return self.buckets[-1]
-
-    @property
-    def platform(self) -> str:
-        return "gpu" if self.device.type == "cuda" else "cpu"
-
-    def bucket_for(self, n: int) -> int:
-        for b in self.buckets:
-            if b >= n:
-                return b
-        raise BucketOverflowError(
-            f"batch of {n} exceeds largest bucket {self.max_bucket} "
-            f"(buckets: {self.buckets})")
-
-    @property
-    def compile_events(self) -> int:
-        """Buckets captured as CUDA graphs: ``len(buckets)`` after
-        ``warmup`` on the card, whatever the lane count (SV307)."""
-        return sum(1 for p in self._programs.values() if p.captured)
-
-    def warmup(self) -> float:
-        """Capture every bucket's graph on the card (each after one eager
-        run), then run the largest bucket twice; returns the wall seconds
-        of the second run."""
-        if self.graphed:
-            with self._lock, torch.inference_mode():
-                for b in self.buckets:
-                    program = self._program(b)
-                    if program.captured:
-                        continue
-                    torch.cuda.reset_peak_memory_stats(self.device)
-                    program.run()
-                    self.capture_peak_bytes[b] = int(
-                        torch.cuda.max_memory_allocated(self.device))
-        k, t, f = self.window_shape
-        x = np.zeros((self.max_bucket, k, t, f), np.float32)
-        self.predict(x)
-        t0 = time.perf_counter()
-        self.predict(x)
-        return time.perf_counter() - t0
-
-    def _program(self, bucket: int) -> "_StackedBucketProgram":
-        program = self._programs.get(bucket)
-        if program is None:
-            program = _StackedBucketProgram(
-                self._module, (bucket, *self.window_shape), self.device,
-                self.graphed)
-            self._programs[bucket] = program
-        return program
-
-    def golden_batch(self, n: int = 1, seed: int = 0) -> np.ndarray:
-        """Deterministic canary input of this engine's window shape."""
-        k, t, f = self.window_shape
-        rng = np.random.default_rng(seed)
-        return rng.standard_normal((n, k, t, f)).astype(np.float32)
 
     def predict(self, x: np.ndarray, params: tuple | None = None
                 ) -> tuple[np.ndarray, np.ndarray]:
@@ -277,7 +241,8 @@ class StackedPredictEngine:
         if n < b:
             pad = np.broadcast_to(x[:1], (b - n,) + x.shape[1:])
             x = np.concatenate([x, pad], axis=0)
-        with self._lock, torch.inference_mode():
+        with self._lock, self._on_stream(), torch.inference_mode():
+            self._check_open()
             program = self._program(b)
             program.load(x)
             saved = None
@@ -319,7 +284,7 @@ class StackedPredictEngine:
     def lane_params(self, lane: int) -> dict[str, torch.Tensor]:
         """The weights serving on lane ``lane`` (CPU copies)."""
         self._check_lane(lane)
-        with self._lock:
+        with self._lock, self._on_stream():
             return {k: v.detach().cpu().clone()
                     for k, v in self._live[int(lane)].items()}
 
@@ -335,9 +300,9 @@ class StackedPredictEngine:
         and dtypes are the lane's."""
         self._check_lane(lane)
         self._check_signature(state_dict, "the candidate lane")
-        return (int(lane), {k: torch.as_tensor(v).detach().to(self.device,
-                                                               copy=True)
-                            for k, v in state_dict.items()})
+        with self._on_stream():
+            return (int(lane), {k: torch.as_tensor(v).detach().to(
+                self.device, copy=True) for k, v in state_dict.items()})
 
     def set_lane(self, lane: int, state_dict: Mapping[str, torch.Tensor],
                  staged: tuple | None = None) -> str:
@@ -351,7 +316,7 @@ class StackedPredictEngine:
         elif staged[0] != int(lane):
             raise ValueError(f"staged for lane {staged[0]}, not lane {lane}")
         digest = lane_digest(state_dict)
-        with self._lock, torch.inference_mode():
+        with self._lock, self._on_stream(), torch.inference_mode():
             self._copy_in(*staged)
             self._lane_digests[int(lane)] = digest
         return digest
@@ -408,6 +373,6 @@ class _StackedBucketProgram:
         self.alpha_host.copy_(self.alpha, non_blocking=True)
         self.beta_host.copy_(self.beta, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(self.device))
         done.synchronize()
         return self.alpha_host.numpy().copy(), self.beta_host.numpy().copy()

@@ -9,7 +9,9 @@ whole. One ``ExpositionServer`` a process renders the run's live state:
   with ``quantile`` labels plus ``_sum`` / ``_count``, the registry's
   host/pid identity as labels), then the SLO engine's rules as
   ``mtt_slo_firing`` (1 while a rule fires) and ``mtt_slo_value`` gauges;
-- ``/healthz``: liveness JSON with the list of firing alerts;
+- ``/healthz``: liveness JSON with the list of firing alerts and, where the
+  component reports one, its ``state``: ``device_lost`` (a server whose
+  card failed its probe) answers 503 with ``ok: false``;
 - ``/slo``: the :class:`~.slo.SLOEngine`'s whole published state.
 
 The listener thread starts in :meth:`ExpositionServer.start`, never in
@@ -26,6 +28,9 @@ import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+#: Component states that ``/healthz`` answers 503 for.
+UNHEALTHY_STATES = ("device_lost",)
 
 _NAME_OK = set(
     "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789_:"
@@ -148,9 +153,12 @@ class ExpositionServer:
         slo=None,
         bind_host: str = "127.0.0.1",
         port: int = 0,
+        health=None,
     ):
         self._registry = registry
         self._slo = slo
+        #: A callable returning the component's state, or None.
+        self._health = health
         self._bind_host = bind_host
         self._requested_port = port
         self._httpd: ThreadingHTTPServer | None = None
@@ -175,14 +183,13 @@ class ExpositionServer:
             )
         if path == "/healthz":
             state = self._slo.state() if self._slo is not None else {}
-            body = json.dumps(
-                {
-                    "ok": True,
-                    "ts": time.time(),
-                    "firing": state.get("firing") or [],
-                }
-            )
-            return 200, "application/json", body
+            health = {"ok": True, "ts": time.time(),
+                      "firing": state.get("firing") or []}
+            if self._health is not None:
+                health["state"] = self._health()
+                health["ok"] = health["state"] not in UNHEALTHY_STATES
+            return (200 if health["ok"] else 503), "application/json", \
+                json.dumps(health)
         if path == "/slo":
             state = self._slo.state() if self._slo is not None else {}
             return 200, "application/json", json.dumps(state, default=str)
@@ -253,10 +260,12 @@ def start_telemetry_plane(
     rules=None,
     slo_interval_s: float = 2.0,
     root=None,
+    health=None,
 ):
     """The one-call attach point components share: an SLO engine tailing
     the run dir's streams plus an exposition server over the run's
-    registry. Returns ``(server, engine)`` — both ``None`` when the
+    registry (``health``: the component's state for ``/healthz``).
+    Returns ``(server, engine)`` — both ``None`` when the
     component has no telemetry or no port was requested (``port=0``
     binds an ephemeral port; ``None`` disables the plane). ``root``
     points the SLO engine at a different stream tree than the run dir —
@@ -270,7 +279,8 @@ def start_telemetry_plane(
         root or telemetry.run_dir, rules=rules, sink=telemetry.sink
     )
     engine.start(interval_s=slo_interval_s)
-    server = attach_exposition(telemetry, port=metrics_port, slo=engine)
+    server = attach_exposition(telemetry, port=metrics_port, slo=engine,
+                               health=health)
     return server, engine
 
 
@@ -283,14 +293,15 @@ def stop_telemetry_plane(server, engine) -> None:
 
 
 def attach_exposition(
-    telemetry, port: int = 0, bind_host: str = "127.0.0.1", slo=None
+    telemetry, port: int = 0, bind_host: str = "127.0.0.1", slo=None,
+    health=None,
 ) -> ExpositionServer:
     """Start an exposition server over a :class:`~.run.TelemetryRun`'s
     registry (plus an optional SLO engine) and record the bound URL in
     the event stream so operators and the watch console can find it."""
     server = ExpositionServer(
         registry=telemetry.registry, slo=slo, bind_host=bind_host,
-        port=port,
+        port=port, health=health,
     ).start()
     telemetry.event(
         "exposition_started",

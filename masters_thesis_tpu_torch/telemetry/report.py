@@ -472,7 +472,7 @@ def _fleet_stats(by_kind: dict) -> dict | None:
             int(b.get("compile_events") or 0) for b in restart_boots
         ),
         "restart_boot_cache_hits": sum(
-            int(b.get("cache_hits") or 0) for b in restart_boots  # mtt: disable=EC601 -- the JAX fleet's program-cache hits, read from its streams too; the port has no program cache (ROADMAP queue 1 item 5), so its streams sum 0
+            int(b.get("cache_hits") or 0) for b in restart_boots
         ),
         "cache": cache,
         "utilization": {

@@ -139,6 +139,15 @@ class GraphedCall:
             lk.LAUNCHES.add(self.launches)
             COLLECTIVES.add(self.collectives)
 
+    def release(self) -> None:
+        """Free the graph and its memory pool now, under the lock that
+        orders captures and replays, so never inside a capture; the next
+        call captures afresh."""
+        with _GRAPH_LOCK:
+            graph, self.graph = self.graph, None
+            if graph is not None:
+                graph.reset()
+
     def capture(self) -> None:
         """The warm-up run of ``body`` (real, counted), then its capture
         (nothing runs; its counts are the graph's own)."""

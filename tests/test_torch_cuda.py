@@ -2331,7 +2331,18 @@ def test_more_devices_than_the_card_are_refused(cuda_device, tmp_path):
     assert not (tmp_path / "logs").exists()
 
 
-def _small_serving_engine(device, seed=0):
+def test_an_engine_stream_is_never_a_capture_stream(cuda_device):
+    """A capture draws its stream from the default-priority pool (round
+    robin over its streams): however many it draws, none is an engine's
+    own stream, so no capture runs on a stream an engine records on."""
+    engine = _small_serving_engine(cuda_device)
+    drawn = {torch.cuda.Stream(cuda_device).cuda_stream for _ in range(256)}
+    assert engine._stream.cuda_stream not in drawn
+    assert engine._stream.cuda_stream != torch.cuda.default_stream(
+        cuda_device).cuda_stream
+
+
+def _small_serving_engine(device, seed=0, program_cache=None):
     """model=small's serving engine at full width (100 stocks, T=60, H=64,
     the 2 layers one pair), buckets 1-8, seeded weights."""
     spec = ModelSpec(objective="mse", hidden_size=64, num_layers=2,
@@ -2340,35 +2351,20 @@ def _small_serving_engine(device, seed=0):
         device="cpu",
         generator=torch.Generator().manual_seed(seed)).state_dict()
     return PredictEngine(spec, state, n_stocks=100, lookback=60,
-                         n_features=3, buckets=(1, 2, 4, 8), device=device)
+                         n_features=3, buckets=(1, 2, 4, 8), device=device,
+                         program_cache=program_cache)
 
 
-def test_engines_capture_while_a_sibling_replays_and_two_at_once(
-        cuda_device):
-    """The serving fleet on one card: new engines capture their buckets on
-    a thread while another engine replays in a loop (three rounds), then
-    two capture at once beside it. No capture fails, the collector is on
-    afterwards, each graph's own launches are a solo capture's, and the
-    launch counts are exactly each graph's runs (warm-up and replays)
-    times its launches."""
-    import gc
+def _boot_beside(server, x, want, groups, seeds):
+    """Engines of ``seeds`` boot (capture) on threads, group by group, while
+    ``server`` replays ``x`` in a loop on this thread, each answer ``want``
+    bit for bit. Returns the booted engines, the errors, the replays."""
     import threading
 
-    solo = _small_serving_engine(cuda_device)
-    solo.warmup()
-    solo_launches = {b: dict(p.run.launches)
-                     for b, p in solo._programs.items()}
-    assert all(v == {"lstm_pair_fwd": 1} for v in solo_launches.values())
-    server = _small_serving_engine(cuda_device, seed=1)
-    server.warmup()
-    x = np.random.default_rng(0).normal(size=(8, 100, 60, 3)).astype(
-        np.float32)
-    want = server.predict(x)
     errors: list[BaseException] = []
     booted: list[PredictEngine] = []
-    lk.reset_launch_counts()
-    base = {b: p.run.replays for b, p in server._programs.items()}
     replays = 0
+    seeds = iter(seeds)
 
     def boot(engine):
         try:
@@ -2376,8 +2372,9 @@ def test_engines_capture_while_a_sibling_replays_and_two_at_once(
         except BaseException as exc:  # noqa: BLE001 — reported below
             errors.append(exc)
 
-    for group in ([2], [3], [4], [5, 6]):
-        engines = [_small_serving_engine(cuda_device, seed=s) for s in group]
+    for size in groups:
+        engines = [_small_serving_engine(server.device, seed=next(seeds))
+                   for _ in range(size)]
         booted += engines
         threads = [threading.Thread(target=boot, args=(e,)) for e in engines]
         for t in threads:
@@ -2389,6 +2386,33 @@ def test_engines_capture_while_a_sibling_replays_and_two_at_once(
                 np.testing.assert_array_equal(g, w)
         for t in threads:
             t.join()
+    return booted, errors, replays
+
+
+def test_engines_capture_while_a_sibling_replays_and_two_at_once(
+        cuda_device):
+    """The serving fleet on one card: new engines capture their buckets on
+    a thread while another engine replays in a loop (three rounds), then
+    two capture at once beside it. No capture fails, the collector is on
+    afterwards, each graph's own launches are a solo capture's, and the
+    launch counts are exactly each graph's runs (warm-up and replays)
+    times its launches."""
+    import gc
+
+    solo = _small_serving_engine(cuda_device)
+    solo.warmup()
+    solo_launches = {b: dict(p.run.launches)
+                     for b, p in solo._programs.items()}
+    assert all(v == {"lstm_pair_fwd": 1} for v in solo_launches.values())
+    server = _small_serving_engine(cuda_device, seed=1)
+    server.warmup()
+    x = np.random.default_rng(0).normal(size=(8, 100, 60, 3)).astype(
+        np.float32)
+    want = server.predict(x)
+    lk.reset_launch_counts()
+    base = {b: p.run.replays for b, p in server._programs.items()}
+    booted, errors, replays = _boot_beside(server, x, want, [1, 1, 1, 2],
+                                           range(2, 7))
     assert not errors, errors
     assert gc.isenabled()
     assert replays > 0
@@ -2408,6 +2432,101 @@ def test_engines_capture_while_a_sibling_replays_and_two_at_once(
             want_launches[name] = want_launches.get(name, 0) + n * k
     assert server._programs[8].run.replays - base[8] == replays
     assert {k: v for k, v in lk.LAUNCHES.items() if v} == want_launches
+
+
+def test_sibling_captures_beside_replays_fifty_times(cuda_device):
+    """The scenario above 50 times over (one boot, then two at once, each
+    round): no ``cudaErrorCapturedEvent`` or other error. Each engine
+    records its ``done`` event on its own stream, never on the legacy
+    default stream while a sibling captures."""
+    server = _small_serving_engine(cuda_device, seed=1)
+    server.warmup()
+    x = np.random.default_rng(0).normal(size=(8, 100, 60, 3)).astype(
+        np.float32)
+    want = server.predict(x)
+    rounds = 0
+    for i in range(50):
+        booted, errors, replays = _boot_beside(server, x, want, [1, 2],
+                                               range(2 + 3 * i, 5 + 3 * i))
+        assert not errors, (i, errors)
+        assert all(e.compile_events == 4 for e in booted)
+        for engine in booted:
+            engine.close()
+        rounds += 1
+    assert rounds == 50
+
+
+def test_a_warm_boot_on_the_card_replays_the_cold_graphs(cuda_device):
+    """model=small's ladder: a cold engine captures 4 graphs and closes
+    into the cache; a warm engine on the same weights captures none, hits
+    once a bucket and answers bit for bit as the cold one; a third engine,
+    booted while the warm one lives, takes nothing of it (captures 4)."""
+    from masters_thesis_tpu_torch.serve.program_cache import ProgramCache
+
+    cache = ProgramCache()
+    cold, warm, third = (
+        _small_serving_engine(cuda_device, program_cache=cache)
+        for _ in range(3))
+    cold.warmup()
+    x = np.random.default_rng(3).normal(size=(5, 100, 60, 3)).astype(
+        np.float32)
+    want = cold.predict(x)
+    cold.close()
+    assert cold.compile_events == 4 and cache.stores == 4
+    warm.warmup()
+    assert (warm.compile_events, warm.cache_hits, warm.programs_made) == (
+        0, 4, 0)
+    assert all(p.captured for p in warm._programs.values())
+    for g, w in zip(warm.predict(x), want):
+        np.testing.assert_array_equal(g, w)
+    third.warmup()
+    assert (third.compile_events, third.cache_hits) == (4, 0)
+    assert not {id(p.run) for p in third._programs.values()} & {
+        id(p.run) for p in warm._programs.values()}
+    for g, w in zip(third.predict(x), want):
+        np.testing.assert_array_equal(g, w)
+    cache.close()
+
+
+def test_a_corrupted_entry_is_refused_on_the_card_and_captured_fresh(
+        cuda_device):
+    from masters_thesis_tpu_torch.resilience import faults
+    from masters_thesis_tpu_torch.serve.program_cache import ProgramCache
+
+    cache = ProgramCache()
+    cold, warm = (_small_serving_engine(cuda_device, program_cache=cache)
+                  for _ in range(2))
+    cold.warmup()
+    x = np.random.default_rng(4).normal(size=(3, 100, 60, 3)).astype(
+        np.float32)
+    want = cold.predict(x)
+    cold.close()
+    faults.install_plan(faults.FaultPlan(faults=[faults.FaultSpec(
+        point="cache.load", kind="corrupt", attempt=None)]))
+    try:
+        warm.warmup()
+    finally:
+        faults.clear_plan()
+    reasons = [e["reason"] for e in cache.events
+               if e["kind"] == "cache_rejected"]
+    assert reasons == ["golden_mismatch"] * 4
+    assert (warm.compile_events, warm.cache_hits) == (4, 0)
+    for g, w in zip(warm.predict(x), want):
+        np.testing.assert_array_equal(g, w)
+    cache.close()
+
+
+def test_the_probe_answers_on_the_card(cuda_device):
+    from masters_thesis_tpu_torch.utils.backend_probe import (
+        backend_fingerprint,
+        probe_cuda_backend,
+    )
+
+    probe = probe_cuda_backend(timeout_s=120.0)
+    assert probe.ok and probe.attempts == 1 and probe.detail == ""
+    fp = backend_fingerprint(cuda_device)
+    assert fp["platform"] == "cuda" and fp["device_index"] == 0
+    assert fp["device_name"] == torch.cuda.get_device_name(0)
 
 
 # ------------------------------------------------- the trainer preflight

@@ -39,7 +39,8 @@ def test_port_imports_with_jax_blocked():
                  "config.yaml_subset", "cli.train", "cli.test", "__main__",
                  "resilience.faults", "train.manifest", "data.fama_french",
                  "data.prefetch", "serve.spans", "serve.swap",
-                 "serve.preflight", "serve.__main__", "analysis.findings",
+                 "serve.preflight", "serve.__main__", "serve.program_cache",
+                 "analysis.findings",
                  "telemetry.registry", "telemetry.events", "telemetry.trace",
                  "telemetry.run", "telemetry.exposition",
                  "data.window_store", "native", "native.build",

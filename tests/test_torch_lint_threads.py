@@ -42,11 +42,9 @@ PACKAGE_ROOT = Path(__file__).resolve().parents[1] / "masters_thesis_tpu_torch"
 LOCKFILE = PACKAGE_ROOT / "analysis" / "event_schema.json"
 JAX_LOCKFILE = (Path(masters_thesis_tpu.__file__).parent / "analysis"
                 / "event_schema.json")
-#: Kinds only the JAX package emits: the program cache's, the CPU
-#: degradation's, the breaker's probe and the run metadata (none ported).
-JAX_ONLY_KINDS = {"breaker_probe_ok", "cache_hit", "cache_miss",
-                  "cache_rejected", "cache_store", "cache_store_failed",
-                  "degradation", "run_meta"}
+#: Kinds only the JAX package emits: the on-disk cache's failed store and
+#: the run metadata (neither ported).
+JAX_ONLY_KINDS = {"cache_store_failed", "run_meta"}
 #: Kinds only the port emits.
 PORT_ONLY_KINDS: set[str] = set()
 

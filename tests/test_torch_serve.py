@@ -499,3 +499,146 @@ def test_a_server_whose_forecast_went_stale_serves_again():
         server.stop()
     assert probe.status == STATUS_OK and after.status == STATUS_OK
     assert server.service_model.batch_s < 1.0
+
+
+# ---------------------------------------------- the probe after a breaker trip
+
+
+def _wait_state(server, state, timeout_s=30.0):
+    deadline = time.monotonic() + timeout_s
+    while server.stats()["state"] != state and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return server.stats()["state"]
+
+
+def test_a_failed_probe_declares_the_device_lost_and_builds_no_cpu_engine(
+        fault_plan, tmp_path, monkeypatch):
+    """JAX ``test_serve.py::test_wedge_degrades_to_cpu_after_one_probe`` in
+    the port's meaning: two wedged dispatches trip the breaker, the real
+    ``BackendHealth`` probe is wedged by its fault point, and the server
+    declares the device lost: one probe, one ``degradation`` with
+    ``fallback: null``, ``device_lost`` in ``stats()`` and ``/healthz``
+    (503), the same engine (none built on the CPU), errors answered; the
+    next dispatch that succeeds serves again."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from masters_thesis_tpu_torch.telemetry.events import read_events
+    from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+    from masters_thesis_tpu_torch.utils import backend_probe as bp
+
+    engine = _engine()
+    built, probes = [], []
+    init = PredictEngine.__init__
+    monkeypatch.setattr(PredictEngine, "__init__",
+                        lambda self, *a, **kw: (built.append(kw),
+                                                init(self, *a, **kw))[1])
+    real_probe = bp.probe_cuda_backend
+    monkeypatch.setattr(bp, "probe_cuda_backend",
+                        lambda **kw: probes.append(kw) or real_probe(**kw))
+    fault_plan(*({"point": "serve.dispatch", "kind": "wedge", "attempt": None,
+                  "match": {"seq": seq}} for seq in (0, 1)),
+               {"point": "probe.attempt", "kind": "wedge", "attempt": None})
+    tel = TelemetryRun(tmp_path / "tel", run_id="device-lost")
+    health = bp.BackendHealth(tmp_path / "probe_cache.json", timeout_s=5.0)
+    server = PredictServer(engine, telemetry=tel, health=health,
+                           breaker_threshold=2, max_wait_s=0.001,
+                           metrics_port=0)
+    server.start()
+    x = engine.golden_batch(1)[0]
+    try:
+        for _ in range(2):
+            r = server.submit(x, deadline_s=30.0).result(timeout=60.0)
+            assert r.status == STATUS_ERROR and "InjectedDeviceError" in r.detail
+        assert _wait_state(server, "device_lost") == "device_lost"
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(server.metrics_url + "/healthz", timeout=10)
+        assert err.value.code == 503
+        health_body = json.loads(err.value.read())
+        ok_after = server.submit(x, deadline_s=30.0).result(timeout=60.0)
+        healthy = json.loads(urllib.request.urlopen(
+            server.metrics_url + "/healthz", timeout=10).read())
+    finally:
+        stats = server.stop()
+        tel.close()
+    assert health_body["ok"] is False and health_body["state"] == "device_lost"
+    assert ok_after.status == STATUS_OK and server.engine is engine
+    assert healthy["ok"] is True and healthy["state"] == "serving"
+    assert stats["degradations"] == 1 and stats["state"] == "serving"
+    assert len(probes) == 1 and probes[0]["budget_s"] == 0.0
+    assert built == []  # no engine was built after the trip, on any device
+    events = read_events(tmp_path / "tel" / "events.jsonl")
+    degradations = [e for e in events if e["kind"] == "degradation"]
+    assert len(degradations) == 1
+    d = degradations[0]
+    assert d["fallback"] is None and d["scope"] == "serve"
+    assert d["probe_attempts"] == 1 and d["platform"] == engine.platform
+    assert not [e for e in events if e["kind"] == "breaker_probe_ok"]
+
+
+def test_a_probe_that_answers_changes_nothing(fault_plan, tmp_path):
+    from masters_thesis_tpu_torch.serve.__main__ import _StubHealth
+    from masters_thesis_tpu_torch.telemetry.events import read_events
+    from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+
+    fault_plan(*({"point": "serve.dispatch", "kind": "wedge", "attempt": None,
+                  "match": {"seq": seq}} for seq in (0, 1)))
+    health = _StubHealth(ok=True)
+    tel = TelemetryRun(tmp_path, run_id="probe-ok")
+    server = PredictServer(_engine(), telemetry=tel, health=health,
+                           breaker_threshold=2, max_wait_s=0.001)
+    server.start()
+    try:
+        statuses = [server.submit(w, deadline_s=30.0).result(timeout=60.0).status
+                    for w in _windows(3)]
+    finally:
+        stats = server.stop()
+        tel.close()
+    ok = [e for e in read_events(tmp_path / "events.jsonl")
+          if e["kind"] == "breaker_probe_ok"]
+    assert statuses == [STATUS_ERROR, STATUS_ERROR, STATUS_OK]
+    assert health.calls == 1 and stats["degradations"] == 0
+    assert stats["state"] == "serving"
+    assert len(ok) == 1 and ok[0]["trips"] == 1 and ok[0]["attempts"] == 1
+    assert "InjectedDeviceError" in ok[0]["cause"]
+
+
+def test_without_a_probe_no_device_is_declared_lost(fault_plan):
+    fault_plan(*({"point": "serve.dispatch", "kind": "wedge", "attempt": None,
+                  "match": {"seq": seq}} for seq in (0, 1, 2)))
+    server = PredictServer(_engine(), max_wait_s=0.001)
+    server.start()
+    try:
+        for w in _windows(3):
+            server.submit(w, deadline_s=30.0).result(timeout=60.0)
+    finally:
+        stats = server.stop()
+    assert stats["breaker_trips"] == 1
+    assert stats["degradations"] == 0 and stats["state"] == "serving"
+
+
+def test_the_server_writes_one_cost_profile_a_bucket(tmp_path):
+    """The engine's analytic cost of each bucket (``cost_of_step``'s
+    forward over ``b * K`` rows), one ``cost_profile`` event each at
+    start."""
+    from masters_thesis_tpu_torch.telemetry.costs import cost_of_step
+    from masters_thesis_tpu_torch.telemetry.events import read_events
+    from masters_thesis_tpu_torch.telemetry.run import TelemetryRun
+
+    engine = _engine()
+    tel = TelemetryRun(tmp_path, run_id="costs")
+    server = PredictServer(engine, telemetry=tel)
+    server.start()
+    server.stop()
+    tel.close()
+    profiles = [e for e in read_events(tmp_path / "events.jsonl")
+                if e["kind"] == "cost_profile"]
+    assert [p["program"] for p in profiles] == [
+        f"serve_bucket_{b}" for b in BUCKETS]
+    for p in profiles:
+        b = p["meta"]["bucket"]
+        want = cost_of_step(_spec(), b * K, T, window_rows=K, training=False)
+        assert p["flops"] == want["flops"] and p["bytes_accessed"] == want["bytes"]
+        assert p["source"] == "analytic" and p["meta"]["platform"] == "cpu"
+        assert p["meta"]["kernels_per_step"] == want["kernels"]

@@ -444,6 +444,89 @@ def test_a_breaker_trip_kills_the_replica_and_a_new_generation_serves(
     assert all(e.get("platform") != "cpu" for e in events)
 
 
+def _breaker_fleet(tmp_path, health, name):
+    """Two fake replicas, ``r0``'s first engine failing its first two
+    dispatches (a breaker of 2), ``health`` probing after the trip."""
+    built = []
+
+    def failing_first():
+        engine = FakeEngine()
+        engine.fail_next = 2 if not built else 0
+        built.append(engine)
+        return engine
+
+    tel = TelemetryRun(tmp_path, run_id=name)
+    fleet = FleetServer({"r0": failing_first, "r1": FakeEngine},
+                        telemetry=tel, breaker_threshold=2, max_wait_s=0.001,
+                        health=health,
+                        restart_policy=ReplicaRestartPolicy(backoff_s=0.01))
+    return fleet, tel, built
+
+
+def _fail_r0_twice(fleet):
+    """Two dispatches on r0 alone (r1 is made to look busy)."""
+    fleet.replicas["r1"].service_model.seed(60.0)
+    return [fleet.submit(_window(), deadline_s=600.0).result(timeout=10.0)
+            for _ in range(2)]
+
+
+def test_a_failed_probe_halts_the_replica_as_device_lost(tmp_path):
+    """A trip whose probe fails: one ``degradation`` (``fallback: null``),
+    the replica dead with cause ``device_lost`` and halted, never restarted
+    onto the lost card; the survivor serves; no CPU engine is built."""
+    from masters_thesis_tpu_torch.serve.__main__ import _StubHealth
+
+    health = _StubHealth(ok=False)
+    fleet, tel, built = _breaker_fleet(tmp_path, health, "device-lost")
+    fleet.start()
+    try:
+        failed = _fail_r0_twice(fleet)
+        assert _wait_for(lambda: fleet.replicas["r0"].halted)
+        fleet.replicas["r1"].service_model.seed(0.001)
+        ok = fleet.submit(_window(), deadline_s=5.0).result(timeout=5.0)
+        time.sleep(0.1)  # a restart, were one scheduled, would land here
+    finally:
+        stats = fleet.stop()
+        tel.close()
+    assert [r.status for r in failed] == [STATUS_ERROR] * 2
+    assert ok.status == STATUS_OK and health.calls == 1
+    assert stats["degradations"] == 1 and stats["deaths"] == 1
+    assert stats["replicas"]["r0"]["generation"] == 1 and len(built) == 1
+    events = read_events(tmp_path / "events.jsonl")
+    [degradation] = [e for e in events if e["kind"] == "degradation"]
+    assert degradation["fallback"] is None and degradation["replica"] == "r0"
+    assert degradation["probe_attempts"] == 1
+    assert degradation["scope"] == "serve"
+    dead = [(e["replica"], e["cause"]) for e in events
+            if e["kind"] == "replica_dead"]
+    assert dead == [("r0", "device_lost")]
+    halted = [e for e in events if e["kind"] == "replica_halted"]
+    assert [(e["replica"], e["verdict"]) for e in halted] == [
+        ("r0", "device_lost")]
+    assert not [e for e in events if e["kind"] == "replica_restart_scheduled"]
+
+
+def test_a_probe_that_answers_keeps_the_kill_and_restart_rule(tmp_path):
+    from masters_thesis_tpu_torch.serve.__main__ import _StubHealth
+
+    health = _StubHealth(ok=True)
+    fleet, tel, built = _breaker_fleet(tmp_path, health, "probe-ok")
+    fleet.start()
+    try:
+        _fail_r0_twice(fleet)
+        assert _wait_for(lambda: fleet.replicas["r0"].generation == 2
+                         and fleet.replicas["r0"].state == STATE_LIVE)
+    finally:
+        stats = fleet.stop()
+        tel.close()
+    assert health.calls == 1 and stats["degradations"] == 0
+    events = read_events(tmp_path / "events.jsonl")
+    assert [(e["replica"], e["attempts"]) for e in events
+            if e["kind"] == "breaker_probe_ok"] == [("r0", 1)]
+    assert [e["cause"] for e in events if e["kind"] == "replica_dead"] == [
+        "breaker"]
+
+
 def test_partition_devices_keeps_the_jax_rule():
     devices = [torch.device("cpu")] * 4
     groups = partition_devices(2, devices)
@@ -554,6 +637,98 @@ def test_real_engine_fleet_answers_match_jax_and_the_solo_engine(jax_params):
         ref = jax_engine.predict(w[None])
         for got, want_ref in zip(r.outputs, ref):
             np.testing.assert_allclose(got, want_ref[0], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("cause", ["crash", "breaker"])
+def test_a_killed_replica_restarts_warm_from_the_shared_cache(
+        jax_params, tmp_path, cause):
+    """Factories on one ``ProgramCache``: the dead replica's engine is
+    closed into it, and generation 2 boots with one hit a bucket and no
+    program made (``replica_started`` says so); its answers are the solo
+    engine's bit for bit."""
+    from masters_thesis_tpu_torch.serve.program_cache import ProgramCache
+
+    spec, trees = jax_params
+    state = params_from_jax(jax.tree_util.tree_map(np.asarray, trees[0]))
+    cache = ProgramCache()
+    engines = []
+
+    def factory():
+        engine = PredictEngine(_port_spec(), state, n_stocks=K, lookback=T,
+                               n_features=F, buckets=BUCKETS, device="cpu",
+                               program_cache=cache)
+        engines.append(engine)
+        return engine
+
+    tel = TelemetryRun(tmp_path, run_id=f"warm-{cause}")
+    fleet = FleetServer({"r0": factory, "r1": factory}, telemetry=tel,
+                        max_wait_s=0.002, breaker_threshold=1,
+                        hang_timeout_s=30.0,
+                        restart_policy=ReplicaRestartPolicy(backoff_s=0.01))
+    fleet.start()
+    kind = {"crash": "raise", "breaker": "wedge"}[cause]
+    faults.install_plan(faults.FaultPlan(faults=[faults.FaultSpec(
+        point="serve.replica_dispatch", kind=kind, attempt=1,
+        match={"replica": "r0"})]))
+    windows = _windows(12, seed=5)
+    try:
+        fleet.replicas["r1"].service_model.seed(60.0)  # r0 takes the batch
+        fleet.submit(windows[0], deadline_s=600.0).result(timeout=60.0)
+        assert _wait_for(lambda: fleet.replicas["r0"].state == "dead")
+        faults.clear_plan()
+        fleet.replicas["r1"].service_model.seed(0.001)
+        assert _wait_for(lambda: fleet.replicas["r0"].live_generation == 2,
+                         timeout=30.0)
+        results = [fleet.submit(w, deadline_s=30.0) for w in windows]
+        results = [p.result(timeout=60.0) for p in results]
+        r0 = fleet.replicas["r0"].engine
+        got = r0.predict(windows[:4])
+    finally:
+        faults.clear_plan()
+        stats = fleet.stop()
+        tel.close()
+    assert stats["deaths"] == 1 and stats["late_deliveries"] == 0
+    assert [r.status for r in results] == [STATUS_OK] * len(windows)
+    assert (r0.cache_hits, r0.programs_made, r0.compile_events) == (
+        len(BUCKETS), 0, 0)
+    assert len(engines) == 3 and engines[0]._closed
+    events = read_events(tmp_path / "events.jsonl")
+    started = [(e["replica"], e["replica_gen"], e["cache_hits"])
+               for e in events if e["kind"] == "replica_started"]
+    assert ("r0", 2, len(BUCKETS)) in started
+    assert [e["cause"] for e in events if e["kind"] == "replica_dead"] == [
+        cause]
+    solo = PredictEngine(_port_spec(), state, n_stocks=K, lookback=T,
+                         n_features=F, buckets=BUCKETS, device="cpu")
+    for g, w in zip(got, solo.predict(windows[:4])):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_a_hung_replica_gives_nothing_back():
+    """A hang death closes nothing into the cache: its dispatch may still
+    be on the device."""
+    closed = []
+
+    class Closing(FakeEngine):
+        def close(self):
+            closed.append(self)
+
+    fleet = FleetServer({"r0": Closing}, max_wait_s=0.001,
+                        hang_timeout_s=0.2,
+                        restart_policy=ReplicaRestartPolicy(backoff_s=0.01))
+    fleet.start()
+    faults.install_plan(faults.FaultPlan(faults=[faults.FaultSpec(
+        point="serve.replica_dispatch", kind="hang", attempt=1,
+        match={"replica": "r0", "seq": 0})]))
+    try:
+        fleet.submit(_window(), deadline_s=5.0)
+        assert _wait_for(lambda: fleet.deaths >= 1)
+        # The next generation's worker is the one stop() joins.
+        assert _wait_for(lambda: fleet.replicas["r0"].live_generation >= 2)
+    finally:
+        faults.clear_plan()
+        fleet.stop()
+    assert closed == []
 
 
 def test_stacked_fleet_replica_kill_zero_late(jax_params):

@@ -22,6 +22,7 @@ import os
 import random
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -271,6 +272,81 @@ def test_port_supervisor_imports_no_torch():
                           text=True, timeout=60, env=_env())
     assert proc.returncode == 0, proc.stderr
     assert "fleet selfcheck: 2 scenarios OK" in proc.stdout
+
+
+# ------------------------------------------------- the probe before attempts
+
+ENV_PROBE = ("import os; print(os.environ.get('JAX_PLATFORMS'), "
+             "os.environ.get('CUDA_VISIBLE_DEVICES'))")
+
+
+def test_a_wedged_probe_is_recorded_and_the_attempt_runs_on_the_card(
+        tmp_path):
+    """JAX ``test_resilience.py::TestWedgeFailover`` in the port's meaning,
+    the JAX supervisor's ``cpu_fallback=False``: ONE probe attempt (the
+    ``probe.attempt`` wedge), one ``degradation`` with ``fallback: null``
+    and ``probe_attempts`` 1, then the attempt runs with the environment
+    it was given (nothing pinned to the CPU), as the JAX supervisor's."""
+    from masters_thesis_tpu.resilience import faults as jax_faults
+
+    spec = dict(point="probe.attempt", kind="wedge", attempt=None)
+    env = _env()
+    env.pop("JAX_PLATFORMS")
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    runs = {}
+    for name, sup, plans, kw in (
+            ("port", port_sup, faults, {}),
+            ("jax", jax_sup, jax_faults, {"cpu_fallback": False})):
+        plans.install_plan(plans.FaultPlan(faults=[plans.FaultSpec(**spec)]))
+        t0 = time.monotonic()
+        try:
+            res = sup.RunSupervisor(
+                [sys.executable, "-c", ENV_PROBE], run_dir=tmp_path / name,
+                env=env, cfg=_cfg(sup, probe=True, probe_timeout_s=60.0,
+                                  probe_cache=tmp_path / f"{name}.json",
+                                  **kw)).run()
+        finally:
+            plans.clear_plan()
+        runs[name] = (res, time.monotonic() - t0,
+                      read_events(tmp_path / name / "events.jsonl"),
+                      (tmp_path / name / "attempt_1.out").read_text().strip())
+    for name, (res, seconds, events, out) in runs.items():
+        assert seconds < 30.0, name  # one attempt, no budget burnt
+        assert res.ok and res.n_attempts == 1, name
+        assert not getattr(res, "degraded", False), name
+        assert out == "None None", name  # the child's environment as given
+        [d] = [e for e in events if e["kind"] == "degradation"]
+        assert (d["fallback"], d["probe_attempts"]) == (None, 1), name
+        started = [e for e in events if e["kind"] == "supervisor_started"]
+        assert started[0]["probe"] is True, name
+    port_d, jax_d = ([e for e in runs[n][2] if e["kind"] == "degradation"][0]
+                     for n in ("port", "jax"))
+    assert port_d["reason"] == jax_d["reason"].replace("lease", "card")
+
+
+def test_the_run_command_line_takes_the_jax_probe_flags(tmp_path):
+    """``run --probe --probe-timeout-s --probe-cache --no-cpu-fallback`` as
+    the JAX command line has them, in a process that cannot import torch:
+    the wedge is recorded and the attempt completes."""
+    plan = [{"point": "probe.attempt", "kind": "wedge", "attempt": None}]
+    code = ("import sys\n"
+            "for m in ('torch', 'jax', 'masters_thesis_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "from masters_thesis_tpu_torch.resilience.__main__ import main\n"
+            "sys.exit(main(sys.argv[1:]))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "run", "--run-dir", str(tmp_path / "sup"),
+         "--probe", "--probe-timeout-s", "30", "--probe-cache",
+         str(tmp_path / "probe.json"), "--no-cpu-fallback", "--backoff-s",
+         "0.05", "--", sys.executable, "-c", "print('ran')"],
+        capture_output=True, text=True, timeout=60, env=_env(plan))
+    assert proc.returncode == 0, proc.stderr
+    assert "verdict=completed attempts=1" in proc.stderr
+    assert "no CPU fallback" in proc.stderr
+    events = read_events(tmp_path / "sup" / "events.jsonl")
+    assert [e["fallback"] for e in events if e["kind"] == "degradation"] == [
+        None]
+    assert json.loads((tmp_path / "probe.json").read_text())["ok"] is False
 
 
 # ------------------------------------------------------ the real trainee
