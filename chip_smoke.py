@@ -5894,6 +5894,7 @@ def _kill(fleet, names: tuple, windows: np.ndarray, first: int) -> dict:
     each has died once (so that the restarts serve), then the burst's
     answers and the deaths."""
     deaths = fleet.deaths
+    _even_forecasts(fleet)
     plan = faults.FaultPlan(faults=[faults.FaultSpec(
         point="serve.replica_dispatch", kind="raise", attempt=None,
         match={"replica": name}) for name in names])
@@ -5917,11 +5918,25 @@ def _kill(fleet, names: tuple, windows: np.ndarray, first: int) -> dict:
             "deaths": fleet.deaths - deaths}
 
 
+def _even_forecasts(fleet) -> None:
+    """Seed every replica's service-time forecast with the fastest one, so
+    that least-loaded dispatch breaks its ties in name order. Each forecast
+    starts from one timed warm-up batch: a slow one would keep a replica
+    idle (never the victim of a planted crash, never serving after its
+    restart) through a whole burst."""
+    forecast_s = min(r.service_model.batch_s for r in fleet.replicas.values())
+    for replica in fleet.replicas.values():
+        replica.service_model.seed(forecast_s)
+
+
 def _wait_generation(fleet, want: dict, timeout_s: float = 60.0) -> bool:
+    """Wait for each replica of ``want`` to be live at its generation, then
+    even the forecasts (``_even_forecasts``)."""
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
         if all(fleet.replicas[n].generation >= g
                and fleet.replicas[n].state == "live" for n, g in want.items()):
+            _even_forecasts(fleet)
             return True
         time.sleep(0.005)
     return False

@@ -428,6 +428,15 @@ def _fleet(spec, device, facts: dict) -> list[Finding]:
          PREFLIGHT_FEATURES)).astype(np.float32)
     try:
         fleet.start()
+        # Every replica gets the fastest forecast, so that the first batch
+        # goes to the victim (the first replica wins a tie). Each forecast
+        # is seeded from one timed warm-up batch: a slow one on the victim
+        # alone would keep it idle, and its death untested, for the whole
+        # run.
+        forecast_s = min(r.service_model.batch_s
+                         for r in fleet.replicas.values())
+        for replica in fleet.replicas.values():
+            replica.service_model.seed(forecast_s)
         faults.install_plan(plan)
         pendings = [fleet.submit(w, deadline_s=2.0) for w in windows]
         deadline = time.monotonic() + 10.0

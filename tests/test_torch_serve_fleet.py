@@ -781,6 +781,26 @@ def test_sv306_is_clean_on_the_cpu():
     assert fleet["replicas"]["r0"]["generation"] >= 2
 
 
+def test_sv306_kills_the_victim_after_a_slow_warmup(monkeypatch):
+    # The victim's forecast is seeded from its warm-up batch: one slow run
+    # there must not keep it idle (no death, no failover tested) while the
+    # other replica takes every batch.
+    warmup = PredictEngine.warmup
+    built = []
+
+    def slow_first(engine):
+        built.append(engine)
+        warm_s = warmup(engine)
+        return 10.0 if len(built) == 1 else warm_s
+
+    monkeypatch.setattr(PredictEngine, "warmup", slow_first)
+    facts: dict = {}
+    spec = preflight._preflight_spec()
+    assert preflight._fleet(spec, torch.device("cpu"), facts) == []
+    assert facts["fleet"]["deaths"] >= 1
+    assert facts["fleet"]["replicas"]["r0"]["generation"] >= 2
+
+
 def test_sv306_waits_for_the_victims_own_restart():
     # A second generation that is still booting is no restart, whatever
     # other replicas did meanwhile (here: the fleet counts two deaths).
