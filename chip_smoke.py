@@ -153,6 +153,14 @@ beside it, the port's lint gate (``python -m
 masters_thesis_tpu_torch.analysis --concurrency --contracts --spmd``, and
 the default run: the graph-path lint and the audit on the card) as
 children, both exit 0.
+``ledger`` (after ``serve_fleet``) writes one round of the run's own numbers
+to a perf ledger in a temporary directory (``telemetry/ledger.py``):
+``mse/bs=1`` from ``train`` (steps/s, the counted cost a step, its share
+of the card's peak, the allocator's peak), ``serve/knee_qps`` from
+``serve_knee`` and ``serve/restart_s`` from ``serve_fleet``'s warm
+restart; then ``python -m masters_thesis_tpu_torch.telemetry ledger``, as
+a child that cannot import torch or JAX, must pass it, pass a repeat of it,
+and exit 2 on a doctored third round naming exactly the four metrics moved.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -206,6 +214,8 @@ from masters_thesis_tpu_torch.serve.server import PredictServer
 from masters_thesis_tpu_torch.serve.stacked import StackedPredictEngine
 from masters_thesis_tpu_torch.serve.swap import CheckpointSwapper
 from masters_thesis_tpu_torch.telemetry import costs
+from masters_thesis_tpu_torch.telemetry import ledger
+from masters_thesis_tpu_torch.telemetry.signals import knee_from_ledger
 from masters_thesis_tpu_torch.telemetry.costs import (
     PEAK_SOURCE,
     bound_ms as bound,
@@ -1523,9 +1533,11 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple,
     val = device_split(dm.val_arrays(), DEVICE)
     init_val = metric_means(evaluate(module, spec.window_objective(), val))["total"]
     lk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(DEVICE)
     t0 = time.perf_counter()
     result = trainer.fit(spec, dm)  # from build(spec)'s seeded weights
     fit_s = time.perf_counter() - t0
+    peak_memory = torch.cuda.max_memory_allocated(DEVICE)
     launches = dict(lk.LAUNCHES)
     steps = TRAIN_EPOCHS * len(dm.train_range)
     for row in result.history:
@@ -1569,6 +1581,8 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple,
         "steps_per_s": result.steps_per_sec,
         "windows_per_s": result.windows_per_sec,
         "step_wall_ms": 1e3 / result.steps_per_sec,
+        # The allocator's peak over the fit.
+        "peak_memory_bytes": peak_memory,
         "val_loss_initial": init_val,
         "val_loss_final": final_val,
         "best_val_loss": result.best_val_loss,
@@ -6225,6 +6239,133 @@ def _stacked_fleet(spec, windows: np.ndarray) -> dict:
             "failed": failed}
 
 
+# The doctored third round: these metrics move past the gate, in their bad
+# direction (the throughput-like ones x0.6, restart time x1.6).
+LEDGER_DOCTORED = {"steps_per_sec": 0.6, "utilization_pct": 0.6,
+                   "knee_qps": 0.6, "restart_s": 1.6}
+
+
+def _ledger_rows(round_id: str, device: dict, train: dict, knee: dict,
+                 fleet: dict) -> list[dict]:
+    """One ledger round of this run's own numbers, its points named as the
+    JAX package's ``bench.py`` names them: ``mse/bs=1`` (``train``'s graphed
+    ``Trainer.fit`` at model=small, its counted cost a step and its share
+    of the card's peak), ``serve/knee_qps`` (``serve_knee``) and
+    ``serve/restart_s`` (``serve_fleet``'s ``r0``: the warm generation-2
+    boot, beside its cold generation 1)."""
+    _, power = device["nvidia_smi"].rsplit(",", 1)
+    common = dict(round_id=round_id, platform="gpu", mesh_shape=[1],
+                  pack_width=None, objective="mse", rev=ledger.git_rev(),
+                  device_kind=device["kind"],
+                  power_limit_w=float(power.split()[0]))
+    step = costs.cost_of_step(_train_spec(), K_STOCKS, T, window_rows=K_STOCKS)
+    util = costs.utilization(step["flops"], step["bytes"], train["steps_per_s"],
+                             "gpu", device=device["kind"])
+    r0 = fleet["one"]["r0_gen2"]
+    return [
+        ledger.ledger_record(
+            point="mse/bs=1", batch_size=1, steps_per_sec=train["steps_per_s"],
+            flops_per_step=step["flops"], bytes_per_step=step["bytes"],
+            peak_memory_bytes=train["peak_memory_bytes"],
+            utilization_pct=util["flops_utilization_pct"],
+            regime=util["regime"], **common),
+        ledger.ledger_record(
+            point="serve/knee_qps", steps_per_sec=None,
+            knee_qps=knee["knee_offered_per_s"],
+            p99_at_knee_ms=knee["knee"]["p99_ms"],
+            shed_pct_at_knee=knee["knee"]["shed_pct"], **common),
+        ledger.ledger_record(
+            point="serve/restart_s", steps_per_sec=None,
+            restart_s=r0["boot_s"], restart_cold_s=r0["gen1_cold_boot_s"],
+            warm_compiles=r0["captures"], warm_cache_hits=r0["cache_hits"],
+            **common),
+    ]
+
+
+def _ledger_cli(root: Path, *args: str) -> tuple[int, dict | None]:
+    """``python -m masters_thesis_tpu_torch.telemetry ledger *args`` as a
+    child in which torch, numpy and JAX cannot be imported: its exit code
+    and its JSON report (None without ``--json``)."""
+    poison = root / "poison"
+    poison.mkdir(exist_ok=True)
+    for name in ("torch", "numpy", "jax", "masters_thesis_tpu"):
+        (poison / f"{name}.py").write_text(
+            f"raise ImportError('the ledger CLI imported {name}')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(poison), str(Path(__file__).resolve().parent)]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "masters_thesis_tpu_torch.telemetry", "ledger",
+         *args], cwd=root, env=env, capture_output=True, text=True, timeout=60)
+    if proc.returncode not in (0, 2):
+        raise AssertionError(f"ledger {args}: rc {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return proc.returncode, (json.loads(proc.stdout) if "--json" in args
+                             else None)
+
+
+def phase_ledger(device: dict, train: dict, knee: dict, fleet: dict) -> dict:
+    """One ledger round of the card's own numbers (``_ledger_rows``),
+    written to a ledger in a temporary directory and gated by the port's
+    ``telemetry ledger`` as a child without torch or JAX: the first round
+    is 3 new configs (rc 0); a second with the same values compares all 3
+    and regresses none (rc 0); a third with steps/s, utilization and the
+    knee at 0.6x and restart time at 1.6x regresses exactly those four
+    metrics (rc 2). ``--selfcheck`` exits 0, and ``knee_from_ledger`` reads
+    ``serve_knee``'s knee back. Any failure raises, an I/O error too."""
+    t0 = time.perf_counter()
+    base = os.environ.get("MTT_BENCH_ROUND") or time.strftime("%Y%m%dT%H%M%S")
+    rounds = [base, f"{base}.repeat", f"{base}.doctored"]
+    rows = _ledger_rows(rounds[0], device, train, knee, fleet)
+    reports, knees = [], []
+    with tempfile.TemporaryDirectory(prefix="ledger_") as tmp:
+        root = Path(tmp)
+        path = root / ledger.DEFAULT_LEDGER_PATH.name
+        for round_id in rounds:
+            for row in rows:
+                rec = {**row, "round": round_id, "ts": time.time()}
+                if round_id == rounds[-1]:
+                    for metric, factor in LEDGER_DOCTORED.items():
+                        if rec.get(metric) is not None:
+                            rec[metric] *= factor
+                ledger.append_record(path, rec)
+            reports.append(_ledger_cli(root, str(path), "--json"))
+            knees.append(knee_from_ledger(path))
+        selfcheck, _ = _ledger_cli(root, "--selfcheck")
+        written = ledger.read_ledger(path)
+    (rc1, first), (rc2, repeat), (rc3, doctored) = reports
+    regressed = sorted({m for r in doctored["regressions"]
+                        for m in r["regressed_metrics"]})
+    out = {
+        "phase": "ledger", "rounds": rounds, "rows": rows,
+        "rows_written": len(written),
+        "rc": {"first": rc1, "repeat": rc2, "doctored": rc3,
+               "selfcheck": selfcheck},
+        "new_configs": [len(r["new_configs"]) for _, r in reports],
+        "compared": [len(r["compared"]) for _, r in reports],
+        "regressed_metrics": regressed,
+        "knee_from_ledger": knees,
+        "knee_offered_per_s": knee["knee_offered_per_s"],
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(out)
+    failed = []
+    if len(written) != 3 * len(rows):
+        failed.append(f"{len(written)} rows read back")
+    if (rc1, len(first["new_configs"]), len(first["compared"])) != (0, 3, 0):
+        failed.append("first round: not 3 new configs with rc 0")
+    if (rc2, len(repeat["compared"]), repeat["regressions"]) != (0, 3, []):
+        failed.append("repeated round: not 3 compared, none regressed, rc 0")
+    if rc3 != 2 or regressed != sorted(LEDGER_DOCTORED):
+        failed.append(f"doctored round: rc {rc3}, regressed {regressed}")
+    if selfcheck != 0:
+        failed.append("--selfcheck")
+    if knees[:2] != [knee["knee_offered_per_s"]] * 2:
+        failed.append(f"knee_from_ledger {knees[:2]}")
+    if failed:
+        raise AssertionError(f"ledger: {failed}")
+    return out
+
+
 CACHE_BUCKETS = (1, 2, 4, 8)  # the default ladder
 PROBE_TIMEOUT_S = 120.0
 
@@ -6577,6 +6718,7 @@ def main() -> int:
         stacked_driver, windows, _synthetic_windows(K_MEDIUM),
         _synthetic_windows(lookback=T_LONG, stride=STRIDE_LONG))
     serve_fleet = phase_serve_fleet(windows)
+    phase_ledger(device, train, serve_knee, serve_fleet)
     serve_cache = phase_serve_cache(windows)
     phase_preflight()
     # The maskless pair forward's and the stack forward's launches on the

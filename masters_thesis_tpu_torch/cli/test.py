@@ -117,7 +117,11 @@ def main(argv: list[str] | None = None) -> int:
     )
     from masters_thesis_tpu_torch.train.logging import RunLogger
     from masters_thesis_tpu_torch.train.trainer import Trainer
+    from masters_thesis_tpu_torch.utils.compilation_cache import (
+        enable_persistent_compilation_cache,
+    )
 
+    enable_persistent_compilation_cache()
     device = resolve_device(args.device)
     check_data_supported(cfg)
     t = cfg.trainer

@@ -367,7 +367,12 @@ def run(cfg: Config, device=None) -> float:
         data_mesh,
         distributed_initialize,
     )
+    from masters_thesis_tpu_torch.utils.compilation_cache import (
+        enable_persistent_compilation_cache,
+    )
 
+    # A run after the first loads the kernels nvcc built for it.
+    enable_persistent_compilation_cache()
     device = resolve_device(device)
     check_supported(cfg)
     t = cfg.trainer

@@ -199,6 +199,11 @@ class WindowStore:
                 dst[mask] = arrays[field][rel]
         return out
 
+    def load_all(self) -> tuple[np.ndarray, ...]:
+        """Every window of every field, in ``FIELDS`` order (copies, or one
+        shard's views when the store has one shard: for small stores)."""
+        return self.take(np.arange(self.n_windows))
+
     def iter_shards(self):
         """``(lo, hi, {field: memmap})`` of each shard, in layout order."""
         for shard in range(self.n_shards):

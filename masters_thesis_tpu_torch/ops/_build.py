@@ -6,7 +6,10 @@ by a hash of the source, the shared headers ``csrc/*.cuh`` and the flags:
 ``ops/_build/lib<stem>-<hash>.so``. A changed source or flag therefore gets a
 fresh build, and an unchanged one is reused. Stale sources compile in
 parallel, one ``nvcc`` each. A failed build raises with ``nvcc``'s output;
-nothing falls back to another implementation.
+nothing falls back to another implementation. The directory is ``BUILD_DIR``
+unless :func:`set_build_dir` names another
+(``utils/compilation_cache.py``: a cache directory of the caller's, or a
+private one that makes the process build afresh).
 
 The libraries are loaded with ``ctypes``; the kernel wrappers in
 ``ops/lstm_kernel.py`` declare each function's argument types.
@@ -35,6 +38,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_build_dir = BUILD_DIR
 
 
 class NvccError(RuntimeError):
@@ -54,6 +58,19 @@ def nvcc_path() -> str:
     )
 
 
+def build_dir() -> Path:
+    """The directory the libraries are built into and loaded from."""
+    return _build_dir
+
+
+def set_build_dir(path: str | Path) -> None:
+    """Build into and load from ``path`` from now on. A library this
+    process has already loaded stays loaded."""
+    global _build_dir
+    with _lock:
+        _build_dir = Path(path)
+
+
 def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
@@ -63,7 +80,7 @@ def library_path(source: Path) -> Path:
     digest = hashlib.sha256(
         source.read_bytes() + headers + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    return build_dir() / f"lib{source.stem}-{digest}.so"
 
 
 def build_log(name: str) -> str:
@@ -78,7 +95,7 @@ def build_all() -> dict[str, Path]:
     if not stale:
         return libs
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
     for src in stale:
         out = libs[src.stem]

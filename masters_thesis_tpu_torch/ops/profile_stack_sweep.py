@@ -50,9 +50,9 @@ def build(stem: str) -> ctypes.CDLL:
     headers = b"".join(h.read_bytes() for h in sorted(_build.CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(source.read_bytes() + headers
                             + "\0".join(FLAGS).encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"lib{stem}_stamps-{digest}.so"
+    out = _build.build_dir() / f"lib{stem}_stamps-{digest}.so"
     if not out.is_file():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _build.build_dir().mkdir(parents=True, exist_ok=True)
         subprocess.run([_build.nvcc_path(), *FLAGS, "-o", str(out), str(source)],
                        check=True, capture_output=True, text=True)
     lib = lk._declare_stack(ctypes.CDLL(str(out)))

@@ -40,9 +40,13 @@ Counterpart of ``masters_thesis_tpu/telemetry/__main__.py``.
   shed), the generation and the SLO alerts firing. ``--once`` renders one
   frame, ``--json`` one snapshot; ``--selfcheck`` runs a hermetic
   two-process fixture instead.
-
-Not ported, exiting 1 with where it waits: ``ledger``, which comes with
-the PR that writes the port's first ``BENCHMARK.json``.
+- ``ledger [path]`` — diff the perf ledger's latest round (default
+  ``results/perf_ledger_torch.jsonl``, the port's own) against its
+  baseline window at equal config (``telemetry/ledger.py``). Exit codes: 0
+  ok or nothing to gate, 1 the file does not exist, 2 a gated metric
+  regressed past ``--threshold``. ``--selfcheck`` fabricates a steady
+  two-round ledger, a round 30% slower and a config drift, and checks the
+  gate on each.
 """
 
 from __future__ import annotations
@@ -52,11 +56,10 @@ import json
 import sys
 import tempfile
 
-#: The subcommands this package does not have yet, and where each waits.
-NOT_PORTED = {
-    "ledger": "ROADMAP.md: the benchmark PR, with the port's first "
-              "BENCHMARK.json",
-}
+from masters_thesis_tpu_torch.telemetry.ledger import (
+    DEFAULT_LEDGER_PATH,
+    REGRESSION_PCT,
+)
 
 
 def _summarize(args) -> int:
@@ -211,6 +214,88 @@ def postmortem_selfcheck() -> int:
     return 0
 
 
+def _ledger(args) -> int:
+    if args.selfcheck:
+        return ledger_selfcheck()
+    from pathlib import Path
+
+    from masters_thesis_tpu_torch.telemetry.ledger import (
+        diff_path,
+        render_ledger_text,
+    )
+
+    path = Path(args.path)
+    if not path.exists():
+        print(f"ledger: {path} does not exist", file=sys.stderr)
+        return 1
+    report = diff_path(path, threshold_pct=args.threshold,
+                       baseline_rounds=args.baseline)
+    print(json.dumps(report, indent=2, default=str) if args.json
+          else render_ledger_text(report))
+    return 2 if report["regressed"] else 0
+
+
+def ledger_selfcheck() -> int:
+    """The gate on three fabricated ledgers: a steady two-round one must
+    pass and compare its config, a third round 30% slower at equal config
+    must regress steps/s and utilization exactly, and a changed batch size
+    must be a new config, never a regression."""
+    from pathlib import Path
+
+    from masters_thesis_tpu_torch.telemetry.ledger import (
+        append_record,
+        diff_path,
+        ledger_record,
+        read_ledger,
+    )
+
+    failures: list[str] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "perf_ledger.jsonl"
+
+        def point(round_id, sps, util, ts):
+            return ledger_record(
+                point="scan_bs2", round_id=round_id, platform="cpu",
+                steps_per_sec=sps, batch_size=2, mesh_shape=[8],
+                pack_width=4, objective="mse", flops_per_step=1.6e5,
+                bytes_per_step=7.2e5, utilization_pct=util,
+                regime="memory-bound", rev="deadbee", ts=ts,
+            )
+
+        append_record(path, point("r1", 100.0, 4.0, 1.0))
+        append_record(path, point("r2", 98.0, 3.9, 2.0))
+        if len(read_ledger(path)) != 2:
+            failures.append("append/read round-trip lost rows")
+        report = diff_path(path)
+        if report["regressed"] or report["rounds"] != 2:
+            failures.append(f"steady ledger flagged regressed: {report}")
+        if not report["compared"]:
+            failures.append("equal-config rounds were not compared")
+
+        append_record(path, point("r3", 60.0, 2.4, 3.0))
+        report = diff_path(path)
+        if not report["regressed"]:
+            failures.append("30% slower round did not trip the gate")
+        else:
+            metrics = report["regressions"][0]["regressed_metrics"]
+            if set(metrics) != {"steps_per_sec", "utilization_pct"}:
+                failures.append(f"unexpected regressed metrics: {metrics}")
+
+        path2 = Path(tmp) / "drift.jsonl"
+        append_record(path2, point("r1", 100.0, 4.0, 1.0))
+        rec = point("r2", 10.0, 0.4, 2.0)
+        rec["batch_size"] = 64
+        append_record(path2, rec)
+        report = diff_path(path2)
+        if report["regressed"] or not report["new_configs"]:
+            failures.append(f"config drift mis-gated: {report}")
+    if failures:
+        print("telemetry: ledger selfcheck FAILED: " + "; ".join(failures))
+        return 1
+    print("telemetry: ledger selfcheck ok")
+    return 0
+
+
 def _trace(args) -> int:
     from pathlib import Path
 
@@ -350,10 +435,6 @@ def _selfcheck(args) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"{argv[0]}: not ported yet ({NOT_PORTED[argv[0]]})",
-              file=sys.stderr)
-        return 1
     parser = argparse.ArgumentParser(
         prog="python -m masters_thesis_tpu_torch.telemetry",
         description="run reports over the port's event streams",
@@ -385,6 +466,22 @@ def main(argv: list[str] | None = None) -> int:
     p_post.add_argument("--selfcheck", action="store_true",
                         help="hermetic two-rank fixture instead of a run")
     p_post.set_defaults(fn=_postmortem)
+    p_led = sub.add_parser(
+        "ledger", help="diff the perf ledger's latest round against its "
+                       "baseline; exit 2 on a regression at equal config")
+    p_led.add_argument("path", nargs="?", default=str(DEFAULT_LEDGER_PATH),
+                       help=f"perf ledger JSONL (default: "
+                            f"{DEFAULT_LEDGER_PATH})")
+    p_led.add_argument("--json", action="store_true",
+                       help="machine-readable report")
+    p_led.add_argument("--threshold", type=float, default=REGRESSION_PCT,
+                       metavar="PCT", help="regression threshold in percent "
+                                           f"(default {REGRESSION_PCT:g})")
+    p_led.add_argument("--baseline", type=int, default=None, metavar="N",
+                       help="compare against only the last N baseline rounds")
+    p_led.add_argument("--selfcheck", action="store_true",
+                       help="hermetic gate fixture instead of a ledger")
+    p_led.set_defaults(fn=_ledger)
     p_trace = sub.add_parser(
         "trace", help="merged span timeline + attribution; exit 2 on a "
                       "broken span tree")
@@ -426,8 +523,6 @@ def main(argv: list[str] | None = None) -> int:
     p_check = sub.add_parser("selfcheck",
                              help="events -> report, quality and SLO smoke")
     p_check.set_defaults(fn=_selfcheck)
-    for name, item in NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported ({item})")
     args = parser.parse_args(argv)
     return args.fn(args)
 

@@ -4,13 +4,11 @@ Counterpart of ``masters_thesis_tpu/telemetry/signals.py``. One struct
 answers "how loaded is the fleet right now, and how much headroom is
 left?", from the three signal families the telemetry plane produces:
 
-- **measured capacity** — the knee rate from a perf ledger's
+- **measured capacity** — the knee rate from the perf ledger's
   ``serve/knee_qps`` rows (the last offered rate the fleet sustained
-  inside the deadline SLO). The port has no ledger of its own yet, so the
-  knee is read only from a ledger file the caller names: by default
-  nothing is read and ``knee_qps`` is None (the JAX package's default
-  ledger holds rows measured on other hardware, which are no knee of the
-  port's card);
+  inside the deadline SLO): by default the port's own ledger
+  (``ledger.DEFAULT_LEDGER_PATH``), never the JAX package's, whose rows
+  were measured on other hardware;
 - **live load** — offered QPS / p99 / shed% over the recent window, and
   the SLO alerts currently firing, from the event stream (the fold
   :mod:`watch` and :mod:`slo` share);
@@ -24,20 +22,22 @@ use) and ``headroom_qps`` is what is left. Stdlib only, no torch.
 
 from __future__ import annotations
 
-import json
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
 from masters_thesis_tpu_torch.telemetry.events import read_events
+from masters_thesis_tpu_torch.telemetry.ledger import (
+    DEFAULT_LEDGER_PATH,
+    read_ledger,
+)
 from masters_thesis_tpu_torch.telemetry.report import (
     EVENTS_FILENAME,
     alert_state,
 )
 from masters_thesis_tpu_torch.telemetry.slo import window_stats
 
-#: No ledger by default: a knee is passed in by path.
-DEFAULT_LEDGER = None
+DEFAULT_LEDGER = DEFAULT_LEDGER_PATH
 
 
 @dataclass(frozen=True)
@@ -77,28 +77,7 @@ class AutoscaleSignals:
         )
 
 
-def read_ledger(path: str | Path | None) -> list[dict]:
-    """Every parseable row of a JSONL ledger, in file order; a torn or
-    corrupt line is skipped, a missing file (or None) reads as empty."""
-    if path is None or not Path(path).is_file():
-        return []
-    rows: list[dict] = []
-    with Path(path).open("r", encoding="utf-8") as fh:
-        for line in fh:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                obj = json.loads(line)
-            except json.JSONDecodeError:
-                continue
-            if isinstance(obj, dict):
-                rows.append(obj)
-    return rows
-
-
-def knee_from_ledger(path: str | Path | None = DEFAULT_LEDGER
-                     ) -> float | None:
+def knee_from_ledger(path: str | Path = DEFAULT_LEDGER) -> float | None:
     """The most recent measured knee QPS (None: no ledger, or never
     benched)."""
     knee = None
@@ -134,7 +113,7 @@ def _replica_service(
 
 def collect_signals(
     root: str | Path,
-    ledger_path: str | Path | None = DEFAULT_LEDGER,
+    ledger_path: str | Path = DEFAULT_LEDGER,
     fleet_stats: dict | None = None,
     now: float | None = None,
     window_s: float = 60.0,

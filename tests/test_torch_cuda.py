@@ -2641,3 +2641,88 @@ def test_an_ungraphed_trainer_is_audited_ungraphed(cuda_device):
     stacked = facts["stacked"]
     assert stacked["not_applicable"].keys() == {"TA207"}
     assert stacked["all_reduces_per_step"] == 1.0
+
+
+# Forwards of three of the five libraries (lstm_fwd.cu, lstm_tb.cu,
+# lstm_stack.cu) on seeded inputs: run by a child that builds afresh and by
+# the test's own process, on the cached libraries.
+_FRESH_BUILD_FORWARDS = """
+import numpy as np
+import torch
+from masters_thesis_tpu_torch.ops import lstm_kernel as lk
+
+
+def forward_outputs(device):
+    rng = np.random.default_rng(25)
+    t = lambda *shape, s=1.0: torch.tensor(
+        rng.uniform(-s, s, size=shape), dtype=torch.float32, device=device)
+    n_t, hidden = 60, 64
+    s = 1.0 / np.sqrt(hidden)
+    x = t(n_t, 100, 4 * hidden)
+    w1, wi2, w2 = (t(hidden, 4 * hidden, s=s) for _ in range(3))
+    b2 = t(4 * hidden, s=s)
+    xs = t(n_t, 25, 4 * hidden)
+    w_hh = [t(hidden, 4 * hidden, s=s) for _ in range(4)]
+    w_in = [t(hidden, 4 * hidden, s=s) for _ in range(3)]
+    biases = [t(4 * hidden, s=s) for _ in range(3)]
+    return [lk.lstm_pair_fwd_cuda(x, w1, wi2, b2, w2),
+            *lk.lstm_fwd_cuda(x, w1, return_c=True),
+            *lk.lstm_tb_fwd_cuda(x, w1, return_c=True),
+            lk.lstm_stack_fwd_cuda(xs, w_hh, w_in, biases)]
+"""
+
+_FRESH_BUILD_CHILD = _FRESH_BUILD_FORWARDS + """
+import json, sys, time
+from pathlib import Path
+from masters_thesis_tpu_torch.ops import _build
+from masters_thesis_tpu_torch.utils.compilation_cache import (
+    enable_persistent_compilation_cache)
+enabled = enable_persistent_compilation_cache()
+t0 = time.perf_counter()
+libs = _build.build_all()
+build_s = time.perf_counter() - t0
+outputs = [o.cpu() for o in forward_outputs(torch.device("cuda"))]
+torch.save(outputs, sys.argv[1])
+print(json.dumps({"enabled": enabled, "build_s": build_s,
+                  "dir": str(_build.build_dir()),
+                  "loaded": sorted(str(Path(lib._name).parent)
+                                   for lib in _build._loaded.values()),
+                  "libs": sorted(p.name for p in libs.values())}))
+"""
+
+
+def test_a_fresh_build_without_the_cache_is_bit_equal(cuda_device, tmp_path):
+    """MT_NO_COMPILE_CACHE=1: a child builds every library into a directory
+    of its own (its seconds printed: the build alone), and its forwards
+    equal those of this process's cached libraries bit for bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from masters_thesis_tpu_torch.ops import _build
+
+    repo = Path(__file__).resolve().parent.parent
+    namespace: dict = {}
+    exec(_FRESH_BUILD_FORWARDS, namespace)
+    want = [o.cpu() for o in namespace["forward_outputs"](cuda_device)]
+    cached = {p.name for p in _build.build_all().values()}
+    env = dict(os.environ, MT_NO_COMPILE_CACHE="1", PYTHONPATH=str(repo))
+    out = tmp_path / "fresh.pt"
+    proc = subprocess.run([sys.executable, "-c", _FRESH_BUILD_CHILD, str(out)],
+                          cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    child = json.loads(proc.stdout.splitlines()[-1])
+    print(json.dumps({"fresh_build": child}))
+    assert child["enabled"] is False
+    fresh = Path(child["dir"])
+    assert fresh.resolve() != _build.BUILD_DIR.resolve()
+    assert child["loaded"] and set(child["loaded"]) == {str(fresh)}
+    assert set(child["libs"]) == cached
+    assert not fresh.exists()  # removed when the child exited
+    got = torch.load(out)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -367,9 +367,9 @@ def test_the_commands_exit_as_the_reports_say(tmp_path, capsys, name):
 def test_postmortem_selfcheck_and_the_watch_queue(capsys):
     assert telemetry_main(["postmortem", "--selfcheck"]) == 0
     assert "postmortem selfcheck ok" in capsys.readouterr().out
-    # The watch console is ported; the ledger still waits in its queue.
+    # The watch console and the ledger are ported: a missing ledger is rc 1.
     assert telemetry_main(["watch", "--selfcheck"]) == 0
     assert "watch selfcheck ok" in capsys.readouterr().out
     assert telemetry_main(["ledger", "x"]) == 1
-    assert "the benchmark PR" in capsys.readouterr().err
+    assert "does not exist" in capsys.readouterr().err
     assert telemetry_main(["aggregate", "/nonexistent/fleet"]) == 1

@@ -57,7 +57,8 @@ def test_port_imports_with_jax_blocked():
                  "telemetry.signals", "utils.counts", "analysis",
                  "analysis.__main__", "analysis.astlint", "analysis.callgraph",
                  "analysis.concurrency", "analysis.contracts",
-                 "analysis.spmd", "analysis.traceaudit", "viz", "viz.plots"):
+                 "analysis.spmd", "analysis.traceaudit", "viz", "viz.plots",
+                 "telemetry.ledger", "utils.compilation_cache"):
         assert f"masters_thesis_tpu_torch.{name}" in modules
     # matplotlib is blocked too: the card's machine has none, and the
     # figure modules import it only where they draw.
@@ -77,6 +78,17 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module file of the JAX package has one of the same path in the
+    port."""
+    def files(root: Path) -> set[str]:
+        return {str(p.relative_to(root)) for p in root.rglob("*.py")}
+
+    missing = files(REPO / "masters_thesis_tpu") - files(
+        REPO / "masters_thesis_tpu_torch")
+    assert not missing, sorted(missing)
 
 
 def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):

@@ -859,7 +859,7 @@ def test_fleet_watch_and_render_match_jax(tmp_path, with_fleet):
                 read_events(root / "p0" / "events.jsonl")))
 
 
-def test_collect_signals_matches_jax(tmp_path):
+def test_collect_signals_matches_jax(tmp_path, monkeypatch):
     root = _fixture(tmp_path)
     _add_fleet_events(root)
     ledger = tmp_path / "ledger.jsonl"
@@ -879,8 +879,17 @@ def test_collect_signals_matches_jax(tmp_path):
         assert got.knee_qps == 80.0
         assert got.wants_scale_up() == want.wants_scale_up()
         assert got.wants_scale_down() == want.wants_scale_down()
-    # The port reads no ledger unless it is given one.
+    # By default the port reads its own ledger, relative to the working
+    # directory, and never the JAX package's.
+    cwd = tmp_path / "cwd"
+    (cwd / "results").mkdir(parents=True)
+    monkeypatch.chdir(cwd)
+    (cwd / "results" / "perf_ledger.jsonl").write_text(
+        json.dumps({"point": "serve/knee_qps", "knee_qps": 120.0}) + "\n")
     assert signals.collect_signals(root, now=now).knee_qps is None
+    (cwd / "results" / "perf_ledger_torch.jsonl").write_text(
+        json.dumps({"point": "serve/knee_qps", "knee_qps": 90.0}) + "\n")
+    assert signals.collect_signals(root, now=now).knee_qps == 90.0
 
 
 # ------------------------------------------------------------ command lines

@@ -109,6 +109,22 @@ def test_stores_of_both_packages_agree_and_open_each_other(tmp_path, n_factors,
     JaxStore.open(tmp_path / "port", verify=True)
 
 
+@pytest.mark.parametrize("n_shards", [1, 3, 32])
+@pytest.mark.parametrize("built_by", ["port", "jax"])
+def test_load_all_is_the_jax_load_all_bit_for_bit(tmp_path, built_by,
+                                                   n_shards):
+    """Both packages' ``load_all`` over one store, whichever built it:
+    every window of every field, bit for bit."""
+    cls = WindowStore if built_by == "port" else JaxStore
+    _build(cls, tmp_path / "s", _series(3), n_shards)
+    got = WindowStore.open(tmp_path / "s").load_all()
+    want = JaxStore.open(tmp_path / "s").load_all()
+    assert len(got) == len(want) == len(FIELDS)
+    for g, w in zip(got, want):
+        assert g.shape[0] == 20 and g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
 def test_take_serves_memmap_views_and_gathers(tmp_path):
     store = _build(WindowStore, tmp_path / "s", _series(3), 4)
     assert [store.bounds(s) for s in range(4)] == [(0, 5), (5, 10), (10, 15),
