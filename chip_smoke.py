@@ -161,6 +161,16 @@ of the card's peak, the allocator's peak), ``serve/knee_qps`` from
 restart; then ``python -m masters_thesis_tpu_torch.telemetry ledger``, as
 a child that cannot import torch or JAX, must pass it, pass a repeat of it,
 and exit 2 on a doctored third round naming exactly the four metrics moved.
+``trainer.precision=bf16-mixed`` runs the pair's bf16 instances:
+``training_kernels`` holds each (the forward maskless and masked with its
+stashes, the sweep, the pass) against its plain bf16 version at 100 and 800
+rows (every stored entry within one bf16 ulp, at least 99% equal; the
+sweep's f32 d_pre planes as the f32 sweep's), beside cuDNN's bf16 LSTM as
+a time; ``train_bf16`` fits model=small for one graphed epoch in bf16 (the
+bf16 counters launched, no f32 pair kernel) and holds 5 card steps to the
+CPU port's bf16 steps; ``train_bf16_driver`` runs ``train
+trainer.precision=bf16-mixed`` as a child, and ``model=medium`` at bf16,
+which must be refused by key.
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -244,7 +254,7 @@ from masters_thesis_tpu_torch.train.manifest import (
     verify_checkpoint,
 )
 from masters_thesis_tpu_torch.train.logging import read_records
-from masters_thesis_tpu_torch.models.lstm import StackedLstmEncoder
+from masters_thesis_tpu_torch.models.lstm import LstmEncoder, StackedLstmEncoder
 from masters_thesis_tpu_torch.train.flatparams import StackedFlatAdam
 from masters_thesis_tpu_torch.train.optim import make_optimizer
 from masters_thesis_tpu_torch.train.stacked import ReplicaSpec, StackedTrainer
@@ -281,6 +291,8 @@ BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_bwd.cu"
 STACK_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack.cu"
 STACK_BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack_bwd.cu"
 TB_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_tb.cu"
+FWD_BF16_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_fwd_bf16.cu"
+BWD_BF16_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_bwd_bf16.cu"
 TPU = "masters_thesis_tpu/ops/lstm_kernel.py"
 # Each kernel of the port: (its source, the TPU kernel it replaces).
 # lstm_wgrad_stack is lstm_wgrad at a stack's 2L - 1 jobs, and
@@ -300,7 +312,27 @@ KERNELS = {
     "lstm_wgrad_single": (BWD_SOURCE, f"{TPU}:204"),
     "lstm_tb_fwd": (TB_SOURCE, f"{TPU}:339"),
     "lstm_tb_bwd": (TB_SOURCE, f"{TPU}:404"),
+    # The pair's bf16 instances (trainer.precision=bf16-mixed): the same TPU
+    # kernels at their bf16 compute dtype.
+    "lstm_pair_fwd_bf16": (FWD_BF16_SOURCE, f"{TPU}:719"),
+    "lstm_pair_fwd_masked_bf16": (FWD_BF16_SOURCE, f"{TPU}:719"),
+    "lstm_pair_bwd_bf16": (BWD_BF16_SOURCE, f"{TPU}:845"),
+    "lstm_wgrad_bf16": (BWD_BF16_SOURCE, f"{TPU}:845"),
 }
+#: The bf16 counters, which the bf16 fit must launch and the f32 pair
+#: counters, which it must not.
+BF16_COUNTERS = ("lstm_pair_fwd_bf16", "lstm_pair_fwd_masked_bf16",
+                 "lstm_pair_bwd_bf16", "lstm_wgrad_bf16")
+F32_PAIR_COUNTERS = ("lstm_pair_fwd", "lstm_pair_fwd_masked", "lstm_pair_bwd",
+                     "lstm_wgrad")
+# bf16 against its plain version: every stored entry within one bf16 ulp of
+# the plain entry (or 1e-6 abs), at least 99% of them equal; the f32 d_pre
+# planes as the f32 sweeps (KERNEL_TOL of the largest entry). Card against
+# CPU over 5 bf16 steps: 1e-5 relative on the losses, the CPU tests' bar for
+# the port against JAX; the card's f32 steps must fall outside it, so that a
+# fit that lost the bf16 semantics (f32 compute, other roundings) fails.
+BF16_EQUAL_SHARE = 0.99
+BF16_PARITY_RTOL = 1e-5
 # The kernels the stream epoch's phases run, by phase.
 STREAM_PATHS = {
     "lstm_pair_fwd": "stream", "lstm_pair_fwd_masked": "stream",
@@ -464,9 +496,12 @@ def cost(name: str, rows: int, n_t: int = T, n_layers: int = STACK_LAYERS,
          with_c: bool = False) -> tuple[int, int]:
     """A kernel row's operations and bytes at width H: the cost model of
     the run report (``telemetry/costs.py`` ``kernel_cost``), behind every
-    row's ``bound_ms`` (at the H100 peaks, ``bound``)."""
-    return costs.kernel_cost(name, rows, n_t, H, n_layers=n_layers,
-                             with_c=with_c)
+    row's ``bound_ms`` (at the H100 peaks, ``bound``); a ``_bf16`` name is
+    its kernel at itemsize 2."""
+    bf16 = name.endswith("_bf16")
+    return costs.kernel_cost(name.removesuffix("_bf16"), rows, n_t, H,
+                             n_layers=n_layers, with_c=with_c,
+                             itemsize=2 if bf16 else 4)
 
 
 # ------------------------------------------------------------------ phases
@@ -528,11 +563,12 @@ def _kernel_case(rows: int, seed: int):
     return x, w1, wi2, b2, w2
 
 
-def _cudnn_module(layers) -> torch.nn.LSTM:
+def _cudnn_module(layers, dtype=torch.float32) -> torch.nn.LSTM:
     """torch.nn.LSTM (cuDNN) computing the kernels' function: layer 1's
     input weight is the identity on the 4H-wide projections (one extra
     (T*B, 4H) @ (4H, 4H) product), all of layer 1's bias sits in x.
-    ``layers``: ``[(w_hh,), (w_hh, w_in, bias), ...]``, bottom first."""
+    ``layers``: ``[(w_hh,), (w_hh, w_in, bias), ...]``, bottom first; its
+    weights in ``dtype`` (bf16: cuDNN's bf16 LSTM, a time only)."""
     four_h = 4 * H
     lstm = torch.nn.LSTM(four_h, H, num_layers=len(layers)).cuda()
     with torch.no_grad():
@@ -545,14 +581,14 @@ def _cudnn_module(layers) -> torch.nn.LSTM:
             getattr(lstm, f"bias_ih_l{n}").copy_(bias)
             getattr(lstm, f"bias_hh_l{n}").zero_()
             getattr(lstm, f"weight_hh_l{n}").copy_(w_hh.T)
-    return lstm
+    return lstm.to(dtype)
 
 
 def _cudnn_forward(x, layers):
     """cuDNN's forward on a copy of x that asks for a gradient: under
     inference mode the inference forward, else the forward as training runs
     it (it keeps what its backward needs)."""
-    lstm = _cudnn_module(layers)
+    lstm = _cudnn_module(layers, x.dtype)
     xg = x.detach().clone().requires_grad_(True)
     return lambda: lstm(xg)[0]
 
@@ -571,7 +607,7 @@ def _cudnn_backward(x, layers, dh, weights: bool):
     outside the timed calls: the gradient of x (which, through the identity
     input weight, is layer 1's d_pre), and with ``weights`` every weight
     gradient too."""
-    lstm = _cudnn_module(layers)
+    lstm = _cudnn_module(layers, x.dtype)
     for p in lstm.parameters():
         p.requires_grad_(weights)
     xg = x.detach().clone().requires_grad_(True)
@@ -692,10 +728,62 @@ def _training_inputs(rows: int):
                 cs=cs, dx=dx)
 
 
+def _bf16_inputs(v: dict) -> dict:
+    """``_training_inputs``' operands rounded to bf16 (the mask's 0 and 1.25
+    are exact), and the stashes and planes the plain bf16 versions make from
+    them: h and c stashes and dx1 in bf16, both layers' d_pre in f32."""
+    b = {k: v[k].to(torch.bfloat16)
+         for k in ("x", "w1", "wi2", "b2", "w2", "mask", "dh")}
+    with torch.no_grad():
+        b["h2s"], b["h1s"], b["c1s"], b["c2s"] = lk.lstm_pair_ref(
+            b["x"], b["w1"], b["wi2"], b["b2"], b["w2"], b["mask"],
+            return_stash=True)
+        b["dx1"], b["d_pre1"], b["d_pre2"] = lk.lstm_pair_bwd_bf16_ref(
+            *_bf16_bwd_args(b))
+    return b
+
+
+def _bf16_bwd_args(b: dict) -> tuple:
+    return (b["dh"], b["x"], b["mask"], b["h1s"], b["c1s"], b["h2s"], b["c2s"],
+            b["w1"], b["wi2"], b["b2"], b["w2"])
+
+
+def _bf16_ulp(want: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each ``|want|`` (8 significant bits)."""
+    mag = want.double().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _bf16_judge(got, want) -> tuple[float, float, bool, dict]:
+    """A bf16 kernel row's check: each bf16 output within one bf16 ulp of
+    the plain version's entry (or 1e-6 abs) and at least BF16_EQUAL_SHARE
+    of its entries equal; each f32 output (the sweep's d_pre planes)
+    within KERNEL_TOL of its largest entry. ``(max abs err, the f32 tol,
+    ok, fields)``."""
+    ok, err, f32_tol, shares, ulps = True, 0.0, KERNEL_TOL, [], [0.0]
+    for g, w in zip(_as_tuple(got), _as_tuple(want)):
+        diff = (g.double() - w.double()).abs()
+        err = max(err, float(diff.max()))
+        if w.dtype == torch.bfloat16:
+            ulp = _bf16_ulp(w)
+            ok = ok and bool((diff <= torch.clamp(ulp, min=1e-6)).all())
+            shares.append(float((diff == 0).double().mean()))
+            # In ulps, over the entries beyond the 1e-6 floor.
+            ulps.append(float(torch.where(diff > 1e-6, diff / ulp, 0.0).max()))
+        else:
+            f32_tol = KERNEL_TOL * max(1.0, float(w.abs().max()))
+            ok = ok and float(diff.max()) <= f32_tol
+    ok = ok and min(shares) >= BF16_EQUAL_SHARE
+    return err, f32_tol, ok, {"bf16_equal_share": min(shares),
+                              "bf16_max_ulps": max(ulps),
+                              "bf16_equal_share_min": BF16_EQUAL_SHARE}
+
+
 def _measure(name: str, rows: int, kernel, plain, library, same: bool,
              flops: float, nbytes: float, relative: bool, full=None,
              note: str | None = None, check=None, n_t: int = T,
-             extra: dict | None = None, loop: dict | None = None) -> dict:
+             extra: dict | None = None, loop: dict | None = None,
+             judge=None) -> dict:
     """One kernel row: the kernel against its plain version on the same
     inputs, then the kernel's, the plain version's and the library call's
     times, and the bound. ``same`` says whether the library call computes
@@ -704,17 +792,23 @@ def _measure(name: str, rows: int, kernel, plain, library, same: bool,
     ``full`` is the whole cuDNN backward (data and weight gradients);
     ``check`` returns ``(got, want)`` of further outputs to hold; ``extra``
     fields join the row; ``loop`` sets the kernel's and the library's
-    timing loops (``cuda_ms``'s keywords)."""
+    timing loops (``cuda_ms``'s keywords); ``judge(got, want)`` replaces
+    the error check (``_bf16_judge``)."""
     with torch.no_grad():
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
-    err = _max_abs_err(got, want)
-    if check is not None:
-        extra_got, extra_want = check()
-        err = max(err, _max_abs_err(extra_got, extra_want))
-        want = _as_tuple(want) + _as_tuple(extra_want)
-    tol = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
+    judged = {}
+    if judge is not None:
+        err, tol, ok, judged = judge(got, want)
+    else:
+        err = _max_abs_err(got, want)
+        if check is not None:
+            extra_got, extra_want = check()
+            err = max(err, _max_abs_err(extra_got, extra_want))
+            want = _as_tuple(want) + _as_tuple(extra_want)
+        tol = KERNEL_TOL * (max(1.0, _largest(want)) if relative else 1.0)
+        ok = err <= tol
     row = {
         "phase": "kernel",
         "name": name,
@@ -723,6 +817,7 @@ def _measure(name: str, rows: int, kernel, plain, library, same: bool,
         "H": H,
         "max_abs_err": err,
         "tol": tol,
+        **judged,
         **(extra or {}),
         **timed("ms", kernel, **(loop or {})),
         **timed("plain_ms", plain, calls=1, spin=False, iters=3, loops=3,
@@ -740,14 +835,17 @@ def _measure(name: str, rows: int, kernel, plain, library, same: bool,
     row["bound_ms"], row["bound_by"] = bound(flops, nbytes)
     row.update({"flops": flops, "bytes": nbytes, "peaks": PEAK_SOURCE})
     emit(row)
-    if not err <= tol:
-        raise AssertionError(f"{name} at rows={rows}: max abs err {err} > {tol}")
+    if not ok:
+        raise AssertionError(f"{name} at rows={rows}: max abs err {err} "
+                             f"(tol {tol}, {judged})")
     return row
 
 
 def phase_training_kernels() -> dict:
     """The training kernels against their plain versions at the shapes of
-    the training path (100 rows: one window a step) and of 8 windows.
+    the training path (100 rows: one window a step) and of 8 windows; the
+    maskless bf16 forward also at its own path's, a bf16 fit's evaluation
+    chunk (EVAL_CHUNK windows, 3,200 rows).
 
     FLOPs (``cost``, from telemetry/costs.py) count each (rows, H) @ (H, 4H)
     product of a step as 2*H*4H a row:
@@ -805,9 +903,70 @@ def phase_training_kernels() -> dict:
                 full=_cudnn_backward(x, [(w1,)], dh, weights=True),
             ),
         ]
+        rows_out += _bf16_rows(v, rows)
         for row in rows_out:
             results[(row["name"], rows)] = row
+    # The maskless bf16 forward's own path: a bf16 fit's validation,
+    # fingerprint and test chunks, EVAL_CHUNK windows a launch.
+    rows = EVAL_CHUNK * K_STOCKS
+    _, w1, wi2, b2, w2 = _kernel_case(1, seed=rows)
+    x = torch.randn((T, rows, 4 * H), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(rows))
+    x, w1, wi2, b2, w2 = (t.to(torch.bfloat16) for t in (x, w1, wi2, b2, w2))
+    results[("lstm_pair_fwd_bf16", rows)] = _bf16_fwd_row(
+        rows, (x, w1, wi2, b2, w2), [(w1,), (w2, wi2, b2)])
     return results
+
+
+def _bf16_fwd_row(rows: int, pair: tuple, layers: list) -> dict:
+    """The maskless bf16 pair forward on ``pair`` (x1_proj and the weights,
+    bf16) against its plain bf16 version, beside cuDNN's bf16 LSTM on
+    ``layers`` under inference mode (a time only)."""
+    return _measure(
+        "lstm_pair_fwd_bf16", rows,
+        lambda: lk.lstm_pair_fwd_cuda(*pair),
+        lambda: lk.lstm_pair_ref(*pair),
+        _inference(_cudnn_forward(pair[0], layers)), False,
+        *cost("lstm_pair_fwd_bf16", rows), False,
+        note="cuDNN's bf16 LSTM (no seam mask), a time only",
+        judge=_bf16_judge)
+
+
+def _bf16_rows(v: dict, rows: int) -> list[dict]:
+    """The pair's bf16 instances (trainer.precision=bf16-mixed) on the
+    training inputs rounded to bf16 (``_bf16_inputs``), each against its
+    plain bf16 version (``_bf16_judge``), beside cuDNN's bf16 LSTM (a time
+    only) and the bound at itemsize 2."""
+    b = _bf16_inputs(v)
+    pair = (b["x"], b["w1"], b["wi2"], b["b2"], b["w2"])
+    layers = [(b["w1"],), (b["w2"], b["wi2"], b["b2"])]
+    wgrad = (b["d_pre1"], b["d_pre2"], b["h1s"], b["h2s"], b["mask"])
+    note = "cuDNN's bf16 LSTM (no seam mask), a time only"
+    return [
+        _bf16_fwd_row(rows, pair, layers),
+        _measure(
+            "lstm_pair_fwd_masked_bf16", rows,
+            lambda: lk.lstm_pair_fwd_cuda(*pair, b["mask"], stash=True),
+            lambda: lk.lstm_pair_ref(*pair, b["mask"], return_stash=True),
+            _cudnn_forward(b["x"], layers), False,
+            *cost("lstm_pair_fwd_masked_bf16", rows), False, note=note,
+            judge=_bf16_judge),
+        _measure(
+            "lstm_pair_bwd_bf16", rows,
+            lambda: lk.lstm_pair_bwd_bf16_cuda(*_bf16_bwd_args(b)),
+            lambda: lk.lstm_pair_bwd_bf16_ref(*_bf16_bwd_args(b)),
+            _cudnn_backward(b["x"], layers, b["dh"], False), False, *cost("lstm_pair_bwd_bf16", rows), True, note=note,
+            judge=_bf16_judge),
+        _measure(
+            "lstm_wgrad_bf16", rows,
+            lambda: lk.lstm_pair_wgrad(*wgrad),
+            lambda: lk.lstm_pair_wgrad_ref(*wgrad),
+            _wgrad_library(b["d_pre1"], b["d_pre2"], b["h1s"].float(),
+                           b["h2s"].float(), b["mask"].float()), False,
+            *cost("lstm_wgrad_bf16", rows), True,
+            note="cuBLAS f32 products on the stashes' values, unrounded",
+            judge=_bf16_judge),
+    ]
 
 
 # ------------------------------------------------------------ stack kernels
@@ -1420,12 +1579,13 @@ def _train_spec(num_layers: int = 2, dropout: float = 0.2) -> ModelSpec:
                      learning_rate=LR, weight_decay=WD)
 
 
-def _run_steps(spec, state, batches, device, masks=None, before=None):
+def _run_steps(spec, state, batches, device, masks=None, before=None,
+               compute_dtype=torch.float32):
     """``len(batches)`` train_step updates of a model with ``state`` on
-    ``device``: per-step losses, per-step flat gradients (CPU) and the
-    final parameters (CPU). ``before``, a list, gets each step's starting
-    weights (CPU)."""
-    module = spec.build_module(device=device)
+    ``device`` in ``compute_dtype``: per-step losses, per-step flat
+    gradients (CPU) and the final parameters (CPU). ``before``, a list,
+    gets each step's starting weights (CPU)."""
+    module = spec.build_module(device=device, compute_dtype=compute_dtype)
     module.load_state_dict(state)
     optimizer = make_optimizer(module, CLIP, spec.weight_decay)
     loss_fn = batched_objective(spec.window_objective())
@@ -1610,6 +1770,137 @@ def _train(dm, spec, phase: str, model: str, kernels: tuple,
 def phase_train(dm) -> dict:
     return _train(dm, _train_spec(), "train", "small",
                   ("lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad"))
+
+
+BF16_PARITY_STEPS = 5
+
+
+def phase_train_bf16(dm, train: dict) -> dict:
+    """trainer.precision=bf16-mixed on model=small at full width: a
+    graphed ``Trainer.fit`` of one epoch on the set ``train`` ran (its
+    windows/s, the bf16 counters, which must be > 0, and the f32 pair
+    counters, which must be 0; the allocator's peak beside ``train``'s),
+    ``Trainer.test``, the graphed step's breakdown (device idle share, one
+    replay under the raising sync check), and 5 steps of one window
+    (dropout 0) against the CPU port's bf16 steps from the same weights,
+    with the f32 steps' losses beside."""
+    spec = _train_spec()
+    ckpt_dir = Path(dm.data_dir) / "ckpt_train_bf16"
+    trainer = Trainer(max_epochs=1, gradient_clip_val=CLIP,
+                      check_val_every_n_epoch=1, ckpt_dir=ckpt_dir, seed=0,
+                      device=DEVICE, precision="bf16-mixed")
+    lk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(DEVICE)
+    t0 = time.perf_counter()
+    result = trainer.fit(spec, dm)
+    fit_s = time.perf_counter() - t0
+    peak_memory = torch.cuda.max_memory_allocated(DEVICE)
+    launches = dict(lk.LAUNCHES)
+    test_metrics = trainer.test(spec, result.state, dm)
+    breakdown = _graphed_step_breakdown(dm, spec, torch.bfloat16)
+
+    state = spec.build_module(
+        device="cpu", generator=torch.Generator().manual_seed(0)).state_dict()
+    batches = _window_batches(dm, BF16_PARITY_STEPS)
+    parity = dataclasses.replace(spec, dropout=0.0)
+    card, _, _, _ = _run_steps(parity, state, batches, DEVICE,
+                               compute_dtype=torch.bfloat16)
+    cpu, _, _, _ = _run_steps(parity, state, batches, "cpu",
+                              compute_dtype=torch.bfloat16)
+    f32, _, _, _ = _run_steps(parity, state, batches, DEVICE)
+    loss_gap = max(abs(g - c) / abs(c) for g, c in zip(card, cpu))
+    f32_gap = max(abs(g - c) / abs(c) for g, c in zip(f32, cpu))
+    losses = [v for row in result.history for k, v in row.items()
+              if k.startswith("loss/")] + list(test_metrics.values())
+    out = {
+        "phase": "train_bf16",
+        "model": "small",
+        "precision": "bf16-mixed",
+        "layer_groups": {
+            "train": LstmEncoder(hidden_size=H, num_layers=2, device=DEVICE,
+                                 compute_dtype=torch.bfloat16).layer_groups(
+                T, K_STOCKS, True, K_STOCKS)},
+        "epochs": 1,
+        "steps": len(dm.train_range),
+        "fit_seconds": fit_s,
+        "steps_per_s": result.steps_per_sec,
+        "windows_per_s": result.windows_per_sec,
+        "f32_windows_per_s": train["windows_per_s"],
+        "peak_memory_bytes": peak_memory,
+        "f32_peak_memory_bytes": train["peak_memory_bytes"],
+        "val_loss": result.history[-1]["loss/total/val"],
+        "test": test_metrics,
+        "device_idle_share": breakdown["device_idle_share"],
+        "step_breakdown": breakdown,
+        "parity_losses_card": card,
+        "parity_losses_cpu": cpu,
+        "parity_losses_f32_card": f32,
+        "parity_max_loss_rel_gap": loss_gap,
+        "parity_f32_max_loss_rel_gap": f32_gap,
+        "parity_rtol": BF16_PARITY_RTOL,
+        "launches": launches,
+    }
+    emit(out)
+    if not all(np.isfinite(losses)) or len(test_metrics) != 4:
+        raise AssertionError(f"train_bf16: non-finite or missing losses: {out}")
+    missed = [k for k in BF16_COUNTERS if not launches[k]]
+    f32_ran = {k: launches[k] for k in F32_PAIR_COUNTERS if launches[k]}
+    if missed or f32_ran:
+        raise AssertionError(f"train_bf16: bf16 counters not launched {missed}"
+                             f" or f32 pair kernels launched {f32_ran}")
+    if not loss_gap <= BF16_PARITY_RTOL:
+        raise AssertionError(f"train_bf16: card and CPU bf16 steps part: "
+                             f"{loss_gap} > {BF16_PARITY_RTOL}")
+    if not f32_gap > BF16_PARITY_RTOL:
+        raise AssertionError(f"train_bf16: the f32 steps are within "
+                             f"{BF16_PARITY_RTOL} of the CPU's bf16 steps "
+                             f"({f32_gap}): the bar cannot tell bf16 from f32")
+    return out
+
+
+def _start_bf16_driver() -> dict:
+    """The entry point with trainer.precision=bf16-mixed, 1 epoch on the
+    100 x 200,000 set, and model=medium at bf16, which must be refused by
+    key: two children, side by side."""
+    root = Path(__file__).resolve().parent / "data" / "chip_smoke"
+    save_dir = Path(tempfile.mkdtemp(prefix="bf16_driver_", dir=root))
+    common = [f"datamodule.data_dir={data_dir(K_STOCKS)}",
+              f"datamodule.n_samples={TRAIN_SAMPLES}",
+              f"logger.save_dir={save_dir}", "trainer.precision=bf16-mixed"]
+    return {"train": _Child("train", *common, "trainer.max_epochs=1",
+                            side_by_side=2),
+            "medium": _Child("train", *common, "model=medium",
+                             "logger.version=medium", side_by_side=2),
+            "save_dir": save_dir}
+
+
+def phase_train_bf16_driver(children: dict) -> dict:
+    """``train trainer.precision=bf16-mixed`` ends in its ``done:`` line
+    with the bf16 counters launched and no f32 pair kernel; ``model=medium``
+    at bf16 exits non-zero naming ``trainer.precision`` and writes no run."""
+    lines, launches, seconds = _cli_result(children["train"].wait())
+    refused, refused_s = children["medium"].wait()
+    medium_dir = children["save_dir"] / "FinancialLstm" / "synthetic" / "medium"
+    out = {
+        "phase": "train_bf16_driver",
+        "seconds": seconds,
+        "done": _done(lines),
+        "launches": launches,
+        "medium_refused": {
+            "exit": refused.returncode, "seconds": refused_s,
+            "stderr_last": (refused.stderr.strip().splitlines() or [""])[-1][:400],
+            "wrote": medium_dir.exists()},
+    }
+    emit(out)
+    missed = [k for k in BF16_COUNTERS if not launches[k]]
+    f32_ran = {k: launches[k] for k in F32_PAIR_COUNTERS if launches[k]}
+    if missed or f32_ran:
+        raise AssertionError(f"bf16 driver: {missed} not launched, f32 pair "
+                             f"kernels {f32_ran}")
+    if (refused.returncode == 0 or "trainer.precision=bf16-mixed" not in
+            refused.stderr or out["medium_refused"]["wrote"]):
+        raise AssertionError(f"model=medium at bf16 not refused: {out}")
+    return out
 
 
 def phase_train_medium(dm) -> dict:
@@ -1890,14 +2181,15 @@ def _train_breakdown(dm, spec, phase: str) -> dict:
     return out
 
 
-def _graphed_step_breakdown(dm, spec) -> dict:
+def _graphed_step_breakdown(dm, spec, compute_dtype=torch.float32) -> dict:
     """The same step as ``TrainProgram``'s CUDA graph (128 windows, one a
     step, re-shuffled when they run out): host wall clock per step, ending
     synchronized, split into the host's time to replay and its wait for
     the card, and the device time by kernel; one replay under the
     synchronisation check set to raise."""
     module = spec.build_module(device=DEVICE,
-                               generator=torch.Generator().manual_seed(0))
+                               generator=torch.Generator().manual_seed(0),
+                               compute_dtype=compute_dtype)
     optimizer = make_optimizer(module, CLIP, spec.weight_decay)
     data = device_split(Batch(*(a[:128] for a in dm.train_arrays())), DEVICE)
     program = TrainProgram(module, optimizer, spec.window_objective(), data, 1,
@@ -6564,6 +6856,25 @@ def phase_ab(label: str) -> None:
             long["dh"], long["x"], long["hs"], long["cs"], long["w"])
         calls["lstm_fwd_long"] = lambda: lk.lstm_fwd_cuda(
             long["x"], long["w"], return_c=True)
+        sp = _stacked_kernel_inputs(rows)
+        s_pair = (sp["x"], sp["w1"], sp["wi2"], sp["b2"], sp["w2"])
+        calls["lstm_pair_fwd_masked_stacked"] = lambda: lk.lstm_pair_fwd_stacked_cuda(
+            *s_pair, sp["mask"], stash=True)
+        calls["lstm_pair_bwd_stacked"] = lambda: lk.lstm_pair_bwd_stacked_cuda(
+            sp["dh"], sp["x"], sp["mask"], sp["h1s"], sp["c1s"], sp["h2s"],
+            sp["c2s"], *s_pair[1:])
+        calls["lstm_wgrad_stacked"] = lambda: lk.lstm_pair_wgrad_stacked(
+            sp["dx1"], sp["d_pre2"], sp["h1s"], sp["h2s"], sp["mask"])
+        if hasattr(lk, "lstm_pair_bwd_bf16_cuda"):  # not in a parent before it
+            b = _bf16_inputs(v)
+            b_pair = (b["x"], b["w1"], b["wi2"], b["b2"], b["w2"])
+            calls["lstm_pair_fwd_bf16"] = lambda: lk.lstm_pair_fwd_cuda(*b_pair)
+            calls["lstm_pair_fwd_masked_bf16"] = lambda: lk.lstm_pair_fwd_cuda(
+                *b_pair, b["mask"], stash=True)
+            calls["lstm_pair_bwd_bf16"] = lambda: lk.lstm_pair_bwd_bf16_cuda(
+                *_bf16_bwd_args(b))
+            calls["lstm_wgrad_bf16"] = lambda: lk.lstm_pair_wgrad(
+                b["d_pre1"], b["d_pre2"], b["h1s"], b["h2s"], b["mask"])
         if hasattr(lk, "lstm_tb_fwd_stacked_cuda"):  # not in a parent before it
             sv = _stacked_tb_inputs(rows)
             calls["lstm_tb_fwd_stacked"] = lambda: lk.lstm_tb_fwd_stacked_cuda(
@@ -6597,6 +6908,8 @@ def _ab_rows(label: str, rows: int, calls: dict) -> None:
         for name, call in calls.items():
             digest = hashlib.sha256()
             for t in _as_tuple(call()):
+                if t.dtype == torch.bfloat16:
+                    t = t.view(torch.int16)
                 digest.update(t.cpu().numpy().tobytes())
             emit({"phase": "ab", "label": label, "kernel": name,
                   "rows": rows, "device_ms": spin_ms(call),
@@ -6649,6 +6962,7 @@ def main() -> int:
     phase_graphs(dm, _train_spec(), "graphs_small",
                  {"lstm_pair_fwd_masked": 1, "lstm_pair_bwd": 1, "lstm_wgrad": 1})
     phase_driver(train)
+    train_bf16 = phase_train_bf16(dm, train)
     stacked_train = phase_stacked_train(dm, train)
     stream = phase_stream(dm)
     dm_medium = _train_datamodule(K_MEDIUM)
@@ -6672,17 +6986,20 @@ def main() -> int:
     stacked_child = _start_stacked_driver()
     profile_child = _start_telemetry_profile()
     sweeps = _start_data_parallel_sweeps()
+    bf16_children = _start_bf16_driver()
     try:
         fleet = phase_resilience(profile_child)["fleet"]
         preflight_out = phase_serve_preflight(preflight)
         stacked_driver = phase_stacked_driver(stacked_child)
         phase_data_parallel_sweeps(sweeps)
+        train_bf16_driver = phase_train_bf16_driver(bf16_children)
     finally:
         if preflight.poll() is None:
             preflight.kill()
             preflight.communicate()
         for child in (stacked_child, profile_child, sweeps["pool"],
-                      sweeps["sequential"], sweeps["refused"]):
+                      sweeps["sequential"], sweeps["refused"],
+                      bf16_children["train"], bf16_children["medium"]):
             if child.proc.poll() is None:
                 child.proc.kill()
                 child.proc.wait()
@@ -6754,6 +7071,13 @@ def main() -> int:
         "lstm_wgrad_stack": (train_medium, "lstm_wgrad", K_MEDIUM),
         "lstm_tb_fwd": (serve_long, "lstm_tb_fwd", 800),
         "lstm_tb_bwd": (train_long, "lstm_tb_bwd", 100),
+        # trainer.precision=bf16-mixed: its validation and test run the
+        # maskless bf16 forward, EVAL_CHUNK windows a chunk.
+        "lstm_pair_fwd_bf16": (train_bf16, "lstm_pair_fwd_bf16",
+                               EVAL_CHUNK * K_STOCKS),
+        "lstm_pair_fwd_masked_bf16": (train_bf16, "lstm_pair_fwd_masked_bf16", 100),
+        "lstm_pair_bwd_bf16": (train_bf16, "lstm_pair_bwd_bf16", 100),
+        "lstm_wgrad_bf16": (train_bf16, "lstm_wgrad_bf16", 100),
     }
     summary = []
     for name, (path, counter, rows) in paths.items():
@@ -6779,6 +7103,13 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"],
         })
+        if name in BF16_COUNTERS:
+            # Its launches in the bf16 entry point's child, and its row's
+            # check against the plain bf16 version.
+            summary[-1]["launches_by_path"] = {
+                "train_bf16_driver": train_bf16_driver["launches"][counter]}
+            summary[-1].update({k: row[k] for k in (
+                "bf16_equal_share", "bf16_max_ulps", "library_note")})
         if name in STREAM_PATHS:
             # Its launches on the stream epoch's path: ``stream``
             # (model=small, batch 3, the prefetcher two ahead) or

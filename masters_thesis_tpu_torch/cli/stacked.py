@@ -65,7 +65,9 @@ def main(argv: list[str] | None = None) -> int:
     from masters_thesis_tpu_torch.train.stacked import ReplicaSpec, StackedTrainer
 
     cfg = cli_train.compose_config(args.overrides)
-    cli_train.check_supported(cfg)
+    # Replicas build f32 whatever trainer.precision says, as the JAX
+    # stacked trainer does: only its value is checked.
+    cli_train.check_supported(cfg, precision_shapes=False)
     t = cfg.trainer
     if t.get("epoch_mode", "scan") != "scan":
         raise ValueError(f"trainer.epoch_mode={t.epoch_mode}: stacked training "

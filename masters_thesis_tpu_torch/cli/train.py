@@ -123,16 +123,65 @@ def data_factors(cfg: Config) -> int:
     return int(d.get("n_factors", 1)) if "n_stocks" in d else 1
 
 
-def check_supported(cfg: Config) -> None:
+#: Asset rows of a ``datamodule=real`` window: the 25 Fama-French
+#: portfolios.
+FAMA_FRENCH_ROWS = 25
+
+
+def window_rows(cfg: Config) -> int:
+    """Rows of one window of the configured data: ``datamodule.n_stocks``
+    (the synthetic and universe DGPs), or the 25 Fama-French portfolios."""
+    return int(cfg.datamodule.get("n_stocks", FAMA_FRENCH_ROWS))
+
+
+def check_precision(cfg: Config, shapes: bool = True) -> None:
+    """Raise, naming ``trainer.precision``, for a value the JAX trainer
+    does not take, and (with ``shapes``) for bf16 where the configured
+    model groups its layers into anything but pairs at itemsize 2, in
+    training or in evaluation: the pair's kernels are the port's only bf16
+    ones."""
+    import torch
+
+    from masters_thesis_tpu_torch.models.lstm import group_depths
+    from masters_thesis_tpu_torch.train.trainer import (
+        EVAL_CHUNK,
+        PRECISIONS,
+        precision_dtype,
+    )
+
+    precision = cfg.trainer.get("precision", "32-true")
+    if precision not in PRECISIONS:
+        _refuse("trainer.precision", precision, "the precisions are "
+                f"{', '.join(PRECISIONS)}")
+    if not shapes or precision_dtype(precision) != torch.bfloat16:
+        return
+    m, d = cfg.model, cfg.datamodule
+    k = window_rows(cfg)
+    runs = {"training": (int(d.batch_size) * k, float(m.dropout) > 0),
+            "evaluation": (EVAL_CHUNK * k, False)}
+    for run, (rows, has_mask) in runs.items():
+        groups = group_depths(int(m.num_layers), int(d.lookback_window), rows,
+                              int(m.hidden_size), has_mask, window_rows=k,
+                              itemsize=2)
+        if any(depth != 2 for depth in groups):
+            _refuse("trainer.precision", precision, f"in bf16 the "
+                    f"{m.num_layers} layers (H={m.hidden_size}) over "
+                    f"{k}-row windows of {d.lookback_window} steps group as "
+                    f"{groups} in {run}, and bf16 runs groups of two layers "
+                    "(the pair) only; the stack, single-layer and "
+                    "time-blocked kernels in bf16 are ROADMAP.md queue 2")
+
+
+def check_supported(cfg: Config, precision_shapes: bool = True) -> None:
     """Raise, naming the key, for every config value the port cannot
-    honour; nothing is dropped silently."""
+    honour; nothing is dropped silently. ``precision_shapes=False`` checks
+    ``trainer.precision``'s value only (a run that builds f32 whatever it
+    says: the stacked entry point)."""
     from masters_thesis_tpu_torch.parallel.mesh import SHARD_AXES, STRATEGIES
 
     check_data_supported(cfg)
+    check_precision(cfg, precision_shapes)
     t = cfg.trainer
-    if t.get("precision", "32-true") != "32-true":
-        _refuse("trainer.precision", t.precision, "the port trains in f32 "
-                "only (32-true)")
     if t.get("strategy", "auto") not in STRATEGIES:
         _refuse("trainer.strategy", t.strategy, f"the strategies are "
                 f"{', '.join(STRATEGIES)}")
@@ -413,6 +462,7 @@ def run(cfg: Config, device=None) -> float:
         strategy=t.get("strategy", "auto"),
         n_devices=t.get("n_devices", None),
         shard_axis=t.get("shard_axis", "window"),
+        precision=t.get("precision", "32-true"),
         **observation_kwargs(cfg),
     )
     init_state = None

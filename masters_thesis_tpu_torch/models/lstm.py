@@ -20,6 +20,15 @@ At the canonical window (T=60, 100 rows, H=64) that is pairs then one; at
 25-row windows a 4-layer model is one 4-deep stack; at a one-year lookback
 (T=252) on 100-row windows every layer runs alone, time-blocked.
 
+``compute_dtype=torch.bfloat16`` is the JAX encoder's bf16 compute dtype
+(``trainer.precision=bf16-mixed``): the parameters stay f32, the inputs,
+each group's input projection (``x.bf16 @ w_ih.T.bf16``, its products
+summed in f32 and rounded once, ``+ bias.bf16``), the
+recurrence weights and the dropout masks are bf16, the groups are taken
+at itemsize 2, and the last hidden state is cast to f32 for the heads. Only
+groups of two layers (the pair's bf16 kernels) run it; any other grouping
+raises, naming it.
+
 ``remat`` recomputes each group's recurrence in the backward pass
 (``torch.utils.checkpoint``, the counterpart of the JAX encoder's
 ``jax.checkpoint``): only the group's inputs are kept, not its h/c stashes.
@@ -46,6 +55,7 @@ included.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -56,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.ops.lstm_kernel import (
     MAX_STACK_LAYERS,
+    PAIR_DTYPES,
     lstm_pair_recurrence,
     lstm_pair_recurrence_stacked,
     lstm_recurrence,
@@ -68,18 +79,19 @@ from masters_thesis_tpu_torch.ops.lstm_kernel import (
 
 
 def fused_depth(layers_left: int, n_t: int, rows: int, hidden: int,
-                has_mask: bool, window_rows: int | None = None) -> int:
+                has_mask: bool, window_rows: int | None = None,
+                itemsize: int = 4) -> int:
     """Layers the next group takes: the JAX encoder's ``fused_depth``.
 
     The deepest wavefront, of at most ``layers_left`` layers, that the
     reference fuses over ``rows`` rows, or over one window of
-    ``window_rows`` when the rows are whole windows (f32, the port's only
-    compute type).
+    ``window_rows`` when the rows are whole windows, in a compute dtype of
+    ``itemsize`` bytes (4: f32, 2: bf16).
     """
     def depth_fits(depth: int) -> bool:
-        return stack_fits(n_t, rows, hidden, depth, has_mask) or (
+        return stack_fits(n_t, rows, hidden, depth, has_mask, itemsize) or (
             window_schedulable(rows, window_rows)
-            and stack_fits(n_t, window_rows, hidden, depth, has_mask)
+            and stack_fits(n_t, window_rows, hidden, depth, has_mask, itemsize)
         )
 
     # The stack kernel's limit; no config in configs/model goes deeper.
@@ -90,17 +102,102 @@ def fused_depth(layers_left: int, n_t: int, rows: int, hidden: int,
     return depth
 
 
-def _group_weights(layers: list, layer: int, depth: int):
+def group_depths(num_layers: int, n_t: int, rows: int, hidden: int,
+                 has_mask: bool, window_rows: int | None = None,
+                 itemsize: int = 4) -> list[int]:
+    """The depths of the wavefronts ``num_layers`` layers run over ``rows``
+    rows, bottom layer first (``fused_depth`` from each group's first
+    layer)."""
+    groups, layer = [], 0
+    while layer < num_layers:
+        groups.append(fused_depth(num_layers - layer, n_t, rows, hidden,
+                                  has_mask, window_rows, itemsize))
+        layer += groups[-1]
+    return groups
+
+
+#: Shape classes ``(min_layers, hidden)`` where bf16 measured faster than
+#: f32 on the card (the counterpart of the JAX constant, which holds the
+#: TPU's): empty until a card A/B records a win, so ``precision=auto``
+#: keeps f32 everywhere.
+MEASURED_BF16_WAVEFRONT_WINS: tuple[tuple[int, int], ...] = ()
+
+
+def preferred_compute_dtype(num_layers: int, hidden: int, n_t: int,
+                            rows: int, device=None) -> torch.dtype:
+    """``precision=auto`` for one model shape, the JAX policy on the card:
+    bf16 only where the shape class has a measured win
+    (``MEASURED_BF16_WAVEFRONT_WINS``), the device (None: the card) is a
+    card, itemsize 2 fuses a deeper wavefront over a window of ``rows``
+    than itemsize 4, and every group at itemsize 2 is a pair (the port's
+    bf16 kernels); f32 otherwise, the CPU included."""
+    qualifies = any(num_layers >= min_layers and hidden == h
+                    for min_layers, h in MEASURED_BF16_WAVEFRONT_WINS)
+    on_card = torch.device("cuda" if device is None else device).type == "cuda"
+    if not qualifies or not on_card:
+        return torch.float32
+    bf16 = group_depths(num_layers, n_t, rows, hidden, True, itemsize=2)
+    f32 = group_depths(num_layers, n_t, rows, hidden, True)
+    if max(bf16) > max(f32) and set(bf16) == {2}:
+        return torch.bfloat16
+    return torch.float32
+
+
+@contextlib.contextmanager
+def _f32_reduction():
+    """cuBLAS sums bf16 products in f32 inside the block (PyTorch's default
+    lets it reduce them in bf16); the process's setting is restored after
+    it. Only the bf16 projection's own products run inside it."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = before
+
+
+class _Bf16Projection(torch.autograd.Function):
+    """``inputs @ weight`` on bf16 operands as the JAX encoder's bf16 dot
+    computes it: the products summed in f32 and rounded to bf16 once, in
+    the forward and in both backward products (the weight's sums over
+    T * rows terms)."""
+
+    @staticmethod
+    def forward(ctx, inputs, weight):
+        ctx.save_for_backward(inputs, weight)
+        with _f32_reduction():
+            return torch.matmul(inputs, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs, weight = ctx.saved_tensors
+        d_inputs = d_weight = None
+        with _f32_reduction():
+            if ctx.needs_input_grad[0]:
+                d_inputs = torch.matmul(grad, weight.T)
+            if ctx.needs_input_grad[1]:
+                d_weight = (inputs.reshape(-1, inputs.shape[-1]).T
+                            @ grad.reshape(-1, grad.shape[-1]))
+        return d_inputs, d_weight
+
+
+def _group_weights(layers: list, layer: int, depth: int,
+                   dtype: torch.dtype | None = None):
     """A group's recurrence weights from the per-layer ``(w_ih, w_hh, b_ih,
     b_hh)`` of ``layers``: ``(w_hhs, w_ins, biases)``, the layout of the
-    kernels (transposed weights, combined seam biases)."""
-    w_hhs = [layers[layer][1].T.contiguous()]
+    kernels (transposed weights, combined seam biases), cast to ``dtype``
+    (None: the parameters' own)."""
+    def cast(t):
+        return t if dtype is None else t.to(dtype)
+
+    w_hhs = [cast(layers[layer][1].T).contiguous()]
     w_ins, biases = [], []
     for above in range(layer + 1, layer + depth):
         w_ih_a, w_hh_a, b_ih_a, b_hh_a = layers[above]
-        w_hhs.append(w_hh_a.T.contiguous())
-        w_ins.append(w_ih_a.T.contiguous())
-        biases.append((b_ih_a + b_hh_a).contiguous())
+        w_hhs.append(cast(w_hh_a.T).contiguous())
+        w_ins.append(cast(w_ih_a.T).contiguous())
+        biases.append(cast(b_ih_a + b_hh_a).contiguous())
     return w_hhs, w_ins, biases
 
 
@@ -118,14 +215,21 @@ class LstmEncoder(nn.Module):
         device=None,
         generator: torch.Generator | None = None,
         remat: bool = False,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         """Weights are drawn uniform(-1/sqrt(H), 1/sqrt(H)) on the CPU from
         ``generator`` (torch.nn.LSTM's and Linear's init), then moved to
         ``device`` (``cuda`` unless told otherwise). ``remat`` recomputes
-        each layer group's recurrence in the backward pass."""
+        each layer group's recurrence in the backward pass.
+        ``compute_dtype`` (f32 or bf16) is the recurrences' and the input
+        projections' type; the parameters are f32 either way."""
         super().__init__()
         if num_layers < 1:
             raise ValueError(f"num_layers must be >= 1, got {num_layers}")
+        if compute_dtype not in PAIR_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {PAIR_DTYPES}, "
+                             f"got {compute_dtype}")
+        self.compute_dtype = compute_dtype
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -174,14 +278,11 @@ class LstmEncoder(nn.Module):
     def layer_groups(self, n_t: int, rows: int, has_mask: bool,
                      window_rows: int | None = None) -> list[int]:
         """The depths of the wavefronts a forward over ``rows`` rows runs,
-        bottom layer first (``fused_depth`` from each group's first
-        layer)."""
-        groups, layer = [], 0
-        while layer < self.num_layers:
-            groups.append(fused_depth(self.num_layers - layer, n_t, rows,
-                                      self.hidden_size, has_mask, window_rows))
-            layer += groups[-1]
-        return groups
+        bottom layer first (``group_depths`` at the compute dtype's
+        itemsize)."""
+        return group_depths(self.num_layers, n_t, rows, self.hidden_size,
+                            has_mask, window_rows,
+                            self.compute_dtype.itemsize)
 
     def draw_masks(self, n_t: int, rows: int,
                    generator: torch.Generator | None = None) -> list:
@@ -191,10 +292,18 @@ class LstmEncoder(nn.Module):
         device = self.w_hh_l0.device
         keep = 1.0 - self.dropout
         return [
-            torch.empty((n_t, rows, self.hidden_size), device=device)
+            torch.empty((n_t, rows, self.hidden_size), device=device,
+                        dtype=self._low_dtype)
             .bernoulli_(keep, generator=generator) / keep
             for _ in range(self.n_masks)
         ]
+
+    @property
+    def _low_dtype(self) -> torch.dtype | None:
+        """The type the forward casts its inputs, projections, recurrence
+        weights and masks to: bf16, or None at f32 (no cast: the module
+        computes in its parameters' type, f64 included)."""
+        return None if self.compute_dtype == torch.float32 else self.compute_dtype
 
     def forward(
         self,
@@ -224,7 +333,12 @@ class LstmEncoder(nn.Module):
             ``(alpha, beta)``: ``(batch, 1)`` and ``(batch, n_factors)``.
         """
         # Time-major throughout, the kernels' layout: (T, B, ·).
-        inputs = x.transpose(0, 1)
+        dtype = self._low_dtype
+
+        def cast(t):
+            return t if dtype is None else t.to(dtype)
+
+        inputs = cast(x.transpose(0, 1))
         n_t, rows = inputs.shape[:2]
         if deterministic or self.dropout <= 0.0:
             masks = None
@@ -235,15 +349,28 @@ class LstmEncoder(nn.Module):
                 f"{self.num_layers} layers take {self.n_masks} masks, "
                 f"got {len(masks)}"
             )
+        else:
+            masks = [cast(m) for m in masks]
+        groups = self.layer_groups(n_t, rows, masks is not None, window_rows)
+        if dtype is not None and any(depth != 2 for depth in groups):
+            raise TypeError(
+                f"bf16 compute runs groups of two layers (the pair) only; "
+                f"{self.num_layers} layers over {rows} rows of {n_t} steps "
+                f"group as {groups} at itemsize 2 (ROADMAP.md, queue 2)")
         pending = iter(masks or ())
         layers = [self._layer(layer) for layer in range(self.num_layers)]
         layer = 0
-        for depth in self.layer_groups(n_t, rows, masks is not None, window_rows):
+        for depth in groups:
             w_ih, _, b_ih, b_hh = layers[layer]
-            # One matmul for every time step's input projection.
-            x_proj = torch.matmul(inputs, w_ih.T) + (b_ih + b_hh)  # (T, B, 4H)
+            # One matmul for every time step's input projection (at bf16
+            # the JAX encoder's bf16 dot, ``_Bf16Projection``).
+            if dtype is None:
+                x_proj = torch.matmul(inputs, w_ih.T)
+            else:
+                x_proj = _Bf16Projection.apply(inputs, cast(w_ih.T))
+            x_proj = x_proj + cast(b_ih + b_hh)  # (T, B, 4H)
             x_proj = x_proj.contiguous()
-            w_hhs, w_ins, biases = _group_weights(layers, layer, depth)
+            w_hhs, w_ins, biases = _group_weights(layers, layer, depth, dtype)
             seams = [next(pending) for _ in range(depth - 1)] if masks else None
             if depth >= 3:
                 run, args = lstm_stack_recurrence, (x_proj, (w_hhs, w_ins, biases),
@@ -266,7 +393,7 @@ class LstmEncoder(nn.Module):
             layer += depth
             if masks and layer < self.num_layers:
                 inputs = inputs * next(pending)
-        final_hidden = inputs[-1]
+        final_hidden = inputs[-1] if dtype is None else inputs[-1].float()
         return self.alpha_head(final_hidden), self.beta_head(final_hidden)
 
 

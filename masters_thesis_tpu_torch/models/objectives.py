@@ -131,7 +131,10 @@ class ModelSpec:
     mse_weight: float = 1e2
     remat: bool = False  # recompute recurrences in the backward (memory)
 
-    def build_module(self, device=None, generator: torch.Generator | None = None):
+    def build_module(self, device=None, generator: torch.Generator | None = None,
+                     compute_dtype: torch.dtype = torch.float32):
+        """The encoder; ``compute_dtype`` as ``LstmEncoder``'s (the JAX
+        ``build_module(compute_dtype=)``: f32 parameters either way)."""
         from masters_thesis_tpu_torch.models.lstm import LstmEncoder
 
         return LstmEncoder(
@@ -143,6 +146,7 @@ class ModelSpec:
             device=device,
             generator=generator,
             remat=self.remat,
+            compute_dtype=compute_dtype,
         )
 
     @property

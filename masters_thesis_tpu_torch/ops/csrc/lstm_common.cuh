@@ -4,15 +4,31 @@
 //
 // Layout is the JAX functions' own: time-major planes (T, B, ·), gate order
 // i, f, g, o, and transposed weights w_t (H, 4H) so that
-// gates = x_proj[t] + h @ w_t. Everything is f32.
+// gates = x_proj[t] + h @ w_t. The arithmetic is f32. The pair's kernels
+// also take bf16 planes and weights (the JAX kernels' bf16 compute dtype):
+// every load converts to f32 (load_f32), every store of a plane rounds to
+// nearest even (store_as), and the carried state stays f32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxHidden = 64;
+
+// One element of a plane or weight in f32, through the read-only cache.
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// v into *p in the plane's storage type (bf16: rounded to nearest even).
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));

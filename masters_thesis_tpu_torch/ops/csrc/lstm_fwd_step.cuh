@@ -66,9 +66,11 @@ size_t fwd_planes_bytes(int hidden, int rows, int n) {
 }
 
 // Quarter q of one weight in the registers of lane (j, q): wr[m][g] =
-// w[q kq + m][g H + j] for m < kq, zero beyond H. Read once from device
-// memory, so that the products with it read no weight from shared memory.
-__device__ __forceinline__ void load_quarter_weight(const float* __restrict__ w,
+// w[q kq + m][g H + j] for m < kq, zero beyond H, in f32. Read once from
+// device memory, so that the products with it read no weight from shared
+// memory.
+template <typename T>
+__device__ __forceinline__ void load_quarter_weight(const T* __restrict__ w,
                                                     int hidden, int kq, int q, int j,
                                                     float (&wr)[kMaxHidden / 4][4]) {
 #pragma unroll
@@ -77,7 +79,7 @@ __device__ __forceinline__ void load_quarter_weight(const float* __restrict__ w,
     const bool in = m < kq && k < hidden && j < hidden;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      wr[m][g] = in ? __ldg(w + k * 4 * hidden + g * hidden + j) : 0.0f;
+      wr[m][g] = in ? load_f32(w + k * 4 * hidden + g * hidden + j) : 0.0f;
     }
   }
 }
@@ -158,25 +160,27 @@ struct FwdLane {
     }
   }
 
-  // xv[g][i] = x[t][row i][g H + col], t clamped into 0 .. n_t - 1.
-  __device__ void load_x(const float* __restrict__ x, int t, int n_t, int n_rows,
+  // xv[g][i] = x[t][row i][g H + col] in f32, t clamped into 0 .. n_t - 1.
+  template <typename T>
+  __device__ void load_x(const T* __restrict__ x, int t, int n_t, int n_rows,
                          int hidden, float (&xv)[4][NR]) const {
-    const float* xt = x + static_cast<size_t>(min(max(t, 0), n_t - 1)) * n_rows * 4 * hidden;
+    const T* xt = x + static_cast<size_t>(min(max(t, 0), n_t - 1)) * n_rows * 4 * hidden;
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
-      const float* xr = xt + static_cast<size_t>(row[i]) * 4 * hidden + col;
+      const T* xr = xt + static_cast<size_t>(row[i]) * 4 * hidden + col;
 #pragma unroll
-      for (int g = 0; g < 4; ++g) xv[g][i] = __ldg(xr + g * hidden);
+      for (int g = 0; g < 4; ++g) xv[g][i] = load_f32(xr + g * hidden);
     }
   }
 
-  // v[i] = plane[t][row i][col] for a (T, B, H) plane, t clamped into
-  // 0 .. n_t - 1.
-  __device__ void load_h(const float* __restrict__ plane, int t, int n_t,
+  // v[i] = plane[t][row i][col] in f32 for a (T, B, H) plane, t clamped
+  // into 0 .. n_t - 1.
+  template <typename T>
+  __device__ void load_h(const T* __restrict__ plane, int t, int n_t,
                          int n_rows, int hidden, float (&v)[NR]) const {
-    const float* pt = plane + static_cast<size_t>(min(max(t, 0), n_t - 1)) * n_rows * hidden;
+    const T* pt = plane + static_cast<size_t>(min(max(t, 0), n_t - 1)) * n_rows * hidden;
 #pragma unroll
-    for (int i = 0; i < NR; ++i) v[i] = __ldg(pt + row[i] * hidden + col);
+    for (int i = 0; i < NR; ++i) v[i] = load_f32(pt + row[i] * hidden + col);
   }
 
   // v[i] into the h plane h_s, for the rows of the tile the lane owns.
@@ -187,13 +191,15 @@ struct FwdLane {
     }
   }
 
-  // v[i] into plane[t] (T, B, H), where the lane writes.
-  __device__ void store(const float (&v)[NR], float* __restrict__ plane, int t,
+  // v[i] into plane[t] (T, B, H) in the plane's type (store_as), where the
+  // lane writes.
+  template <typename T>
+  __device__ void store(const float (&v)[NR], T* __restrict__ plane, int t,
                         int n_rows, int hidden) const {
-    float* pt = plane + static_cast<size_t>(t) * n_rows * hidden;
+    T* pt = plane + static_cast<size_t>(t) * n_rows * hidden;
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
-      if (out[i] >= 0) pt[out[i]] = v[i];
+      if (out[i] >= 0) store_as(pt + out[i], v[i]);
     }
   }
 };

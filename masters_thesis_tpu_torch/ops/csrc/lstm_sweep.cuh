@@ -34,19 +34,20 @@ __host__ __device__ __forceinline__ int sweep_pad(int hidden) {
 // gate weights of unit j at k, for k, j < p = sweep_pad(H), zero beyond H.
 // The row stride p + 1 (odd) puts the 8 lanes of a quarter-warp on 8
 // distinct bank slots whether they walk j (gate products) or k (transposed
-// products) with the other index fixed.
-__device__ void stage_weight_padded(const float* __restrict__ w, float4* w_s,
+// products) with the other index fixed. A bf16 weight is staged in f32.
+template <typename T>
+__device__ void stage_weight_padded(const T* __restrict__ w, float4* w_s,
                                     int hidden, int p) {
   const int four_h = 4 * hidden;
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < p * p; idx += blockDim.x) {
     const int k = idx / p;
     const int j = idx - k * p;
-    const float* src = w + k * four_h + j;
+    const T* src = w + k * four_h + j;
     w_s[k * (p + 1) + j] =
         k < hidden && j < hidden
-            ? make_float4(__ldg(src), __ldg(src + hidden),
-                          __ldg(src + 2 * hidden), __ldg(src + 3 * hidden))
+            ? make_float4(load_f32(src), load_f32(src + hidden),
+                          load_f32(src + 2 * hidden), load_f32(src + 3 * hidden))
             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
@@ -61,9 +62,10 @@ __device__ __forceinline__ int h_col(int k, int kq) { return k + (k / kq) * 4; }
 __device__ __forceinline__ int dp_col(int j, int kq) { return j + j / kq; }
 
 // v[r] = plane[t][tile0 + q + 4 i][j] for the rows i a lane owns (q + 4 i <
-// ROWS), zero outside the plane, past the tile or for j >= H.
-template <int ROWS>
-__device__ __forceinline__ void load_owned(const float* __restrict__ plane,
+// ROWS), zero outside the plane, past the tile or for j >= H; in f32
+// whatever the plane's type.
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_owned(const T* __restrict__ plane,
                                            int t, int n_t, int n_rows,
                                            int hidden, int tile0, int q, int j,
                                            float (&v)[(ROWS + 3) / 4]) {
@@ -73,14 +75,14 @@ __device__ __forceinline__ void load_owned(const float* __restrict__ plane,
     const int lrow = q + 4 * i;
     const int row = tile0 + lrow;
     v[i] = in && lrow < ROWS && row < n_rows
-               ? __ldg(plane + (static_cast<size_t>(t) * n_rows + row) * hidden + j)
+               ? load_f32(plane + (static_cast<size_t>(t) * n_rows + row) * hidden + j)
                : 0.0f;
   }
 }
 
 // xv[g][i] = x[t][tile0 + q + 4 i][g * H + j], as load_owned.
-template <int ROWS>
-__device__ __forceinline__ void load_owned_x(const float* __restrict__ x, int t,
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_owned_x(const T* __restrict__ x, int t,
                                              int n_t, int n_rows, int hidden,
                                              int tile0, int q, int j,
                                              float (&xv)[4][(ROWS + 3) / 4]) {
@@ -93,8 +95,8 @@ __device__ __forceinline__ void load_owned_x(const float* __restrict__ x, int t,
     const bool ok = in && lrow < ROWS && row < n_rows;
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      xv[g][i] = ok ? __ldg(x + (static_cast<size_t>(t) * n_rows + row) * four_h +
-                            g * hidden + j)
+      xv[g][i] = ok ? load_f32(x + (static_cast<size_t>(t) * n_rows + row) * four_h +
+                               g * hidden + j)
                     : 0.0f;
     }
   }

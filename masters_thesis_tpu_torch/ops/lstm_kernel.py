@@ -17,7 +17,8 @@ to the next, the recurrent weight gradient accumulated inside the sweep).
 Otherwise dispatch is on the tensors' device and nothing else: a CUDA
 tensor goes to the hand-written kernels in ``csrc/lstm_fwd.cu``,
 ``csrc/lstm_bwd.cu``, ``csrc/lstm_stack.cu``, ``csrc/lstm_stack_bwd.cu``
-and ``csrc/lstm_tb.cu`` (or
+and ``csrc/lstm_tb.cu`` (the pair's bf16 instances in
+``csrc/lstm_fwd_bf16.cu`` and ``csrc/lstm_bwd_bf16.cu``) (or
 raises), a CPU tensor to the plain versions. When an input needs a gradient, the recurrence runs as a
 ``torch.autograd.Function`` whose forward also writes the stashes (h and c
 planes) and whose backward recomputes the gates from them, as the TPU
@@ -35,7 +36,14 @@ operands stacked on a leading axis, one launch of each kernel for all R,
 replica r's slice of every output the solo kernel's on its slices; so do
 the time-blocked kernels where the reference takes them.
 
-The CUDA kernels take f32 only and H <= 64; bf16 compute is not ported.
+The CUDA kernels take H <= 64, in f32. The layer pair also runs in bf16
+(the JAX kernels' bf16 compute dtype, ``trainer.precision=bf16-mixed``):
+its forward, sweep and weight-gradient pass take bf16 planes and weights,
+do their arithmetic in f32 with f32 state and round only what they store,
+as the TPU kernels do; the sweep also writes both layers' d_pre in f32 for
+the pass, which rounds each weight gradient once. A bf16 tensor at the
+single-layer, time-blocked or stack recurrences, or at the pair's replica
+axis, raises (``BF16_QUEUED``); nothing converts it to f32.
 """
 
 from __future__ import annotations
@@ -55,6 +63,13 @@ from masters_thesis_tpu_torch.utils.counts import CallCounts
 #: 192 KiB at H=64, the width of every model in configs/model.
 MAX_HIDDEN = 64
 
+#: The compute dtypes the pair's kernels take, and the one the others take.
+PAIR_DTYPES = (torch.float32, torch.bfloat16)
+
+#: Why a bf16 tensor at a route other than the solo pair raises.
+BF16_QUEUED = ("bf16 compute runs the layer pair only; the {route} in bf16 "
+               "is still to be ported (ROADMAP.md, queue 2)")
+
 #: Depths the stack kernels take: the pair kernel is the 2-deep wavefront,
 #: and a cluster holds at most 8 CTAs, one a layer (``kMinLayers`` and
 #: ``kMaxLayers`` in csrc/lstm_stack.cuh).
@@ -69,10 +84,16 @@ MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 #: it launches; a CUDA graph's replay adds the counts of its capture
 #: (``utils/cuda_graph.py``). The ``_stacked`` names count the replica-axis
 #: launches of the same kernels (R replicas in one launch, stacked training
-#: and serving), apart from their solo launches.
+#: and serving), apart from their solo launches. The ``_bf16`` names count
+#: the pair's bf16 instances (``trainer.precision=bf16-mixed``), apart from
+#: the f32 ones.
 LAUNCHES = CallCounts((
     "lstm_pair_fwd",
     "lstm_pair_fwd_masked",
+    "lstm_pair_fwd_bf16",
+    "lstm_pair_fwd_masked_bf16",
+    "lstm_pair_bwd_bf16",
+    "lstm_wgrad_bf16",
     "lstm_fwd",
     "lstm_pair_bwd",
     "lstm_bwd",
@@ -129,6 +150,11 @@ def lstm_recurrence_ref(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
     return (hs, torch.stack(cs)) if return_c else hs
 
 
+def _f32(*tensors):
+    """Each tensor in f32 (None stays None)."""
+    return [None if t is None else t.float() for t in tensors]
+
+
 def lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
                   return_stash: bool = False):
     """Plain version of the layer pair: two loops and a projection.
@@ -137,7 +163,15 @@ def lstm_pair_ref(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
     ``(T, B, H)``, pre-scaled) multiplies layer 1's output at the seam.
     Returns layer 2's ``h2s`` ``(T, B, H)``, or with ``return_stash``
     ``(h2s, h1s, c1s, c2s)``, the planes the backward recomputes from.
+    bf16 operands run the kernels' semantics: f32 arithmetic on their
+    values, h and c carried in f32 (the seam too), and the returned planes
+    rounded to bf16.
     """
+    if x1_proj.dtype == torch.bfloat16:
+        out = lstm_pair_ref(*_f32(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
+                                  mask), return_stash=return_stash)
+        return (tuple(t.to(torch.bfloat16) for t in out) if return_stash
+                else out.to(torch.bfloat16))
     h1s, c1s = lstm_recurrence_ref(x1_proj, w_hh1_t, return_c=True)
     seam = h1s if mask is None else h1s * mask
     h2s, c2s = lstm_recurrence_ref(seam @ w_ih2_t + bias2, w_hh2_t,
@@ -255,6 +289,21 @@ def lstm_pair_bwd_ref(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
     return lstm_bwd_ref(dh1, x1_proj, h1s, c1s, w_hh1_t), d_pre2
 
 
+def lstm_pair_bwd_bf16_ref(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                           w_ih2_t, bias2, w_hh2_t):
+    """Plain version of the pair's bf16 sweep: ``(dx1, d_pre1, d_pre2)``.
+
+    ``lstm_pair_bwd_ref`` on the bf16 operands' values in f32, so the gates
+    are recomputed from the rounded stashes, as ``_pair_bwd_kernel`` does
+    in bf16; ``dx1`` is layer 1's d_pre rounded to bf16 (the gradient of
+    the bf16 projection), ``d_pre1`` and ``d_pre2`` stay f32 (the
+    weight-gradient pass's operands)."""
+    d_pre1, d_pre2 = lstm_pair_bwd_ref(*_f32(dh2s, x1_proj, mask, h1s, c1s,
+                                             h2s, c2s, w_hh1_t, w_ih2_t,
+                                             bias2, w_hh2_t))
+    return d_pre1.to(torch.bfloat16), d_pre1, d_pre2
+
+
 def lstm_wgrad_ref(d_pre, src, shift: int, mask=None) -> torch.Tensor:
     """Plain version of one weight gradient of the reduction pass:
     ``sum_rows a[row]ᵀ d_pre[row]`` ``(H, 4H)`` with ``a = src[t - shift]``
@@ -269,7 +318,13 @@ def lstm_wgrad_ref(d_pre, src, shift: int, mask=None) -> torch.Tensor:
 
 def lstm_pair_wgrad_ref(dx1, d_pre2, h1s, h2s, mask=None):
     """Plain version of the pair's weight gradients:
-    ``(dW_hh1, dW_ih2, db2, dW_hh2)``."""
+    ``(dW_hh1, dW_ih2, db2, dW_hh2)``. With bf16 stashes (``dx1`` then
+    layer 1's f32 d_pre, ``d_pre2`` f32) the sums are taken in f32 and
+    each gradient rounded to bf16 once."""
+    if h1s.dtype == torch.bfloat16:
+        h1s, h2s, mask = _f32(h1s, h2s, mask)
+        return tuple(g.to(torch.bfloat16)
+                     for g in lstm_pair_wgrad_ref(dx1, d_pre2, h1s, h2s, mask))
     return (
         lstm_wgrad_ref(dx1, h1s, 1),
         lstm_wgrad_ref(d_pre2, h1s, 0, mask),
@@ -488,9 +543,10 @@ def lstm_stack_wgrad_stacked_ref(d_pres, hs, masks=None):
 
 
 def _stack_bwd_vmem_bytes(n_t: int, b_pad: int, hidden: int, n_layers: int,
-                          has_mask: bool) -> int:
-    """The reference's byte count of an L-layer wavefront backward program,
-    in f32 (the port's only compute type)."""
+                          has_mask: bool, itemsize: int = 4) -> int:
+    """The reference's byte count of an L-layer wavefront backward program:
+    planes and weights at ``itemsize`` (4 for f32, 2 for bf16), the
+    gradient scratch in f32."""
     four_h = 4 * hidden
     ell = n_layers
     planes = n_t * b_pad * hidden * (1 + 2 * ell + (ell - 1) * int(has_mask))
@@ -499,7 +555,7 @@ def _stack_bwd_vmem_bytes(n_t: int, b_pad: int, hidden: int, n_layers: int,
     scratch = (3 * ell - 1) * b_pad * hidden + (
         (2 * ell - 1) * hidden * four_h + (ell - 1) * four_h
     )
-    return (planes + weights + scratch) * 4
+    return (planes + weights) * itemsize + scratch * 4
 
 
 #: The reference's budget: the canonical pair (T=60, 104 rows, H=64, masked).
@@ -507,11 +563,12 @@ _PAIR_VMEM_BUDGET = _stack_bwd_vmem_bytes(60, 104, 64, 2, True)
 
 
 def stack_fits(n_t: int, b: int, hidden: int, n_layers: int,
-               has_mask: bool) -> bool:
-    """True when the reference fuses ``n_layers`` layers over ``b`` rows."""
+               has_mask: bool, itemsize: int = 4) -> bool:
+    """True when the reference fuses ``n_layers`` layers over ``b`` rows in
+    a compute dtype of ``itemsize`` bytes."""
     b_pad = -(-b // 8) * 8
-    return (_stack_bwd_vmem_bytes(n_t, b_pad, hidden, n_layers, has_mask)
-            <= _PAIR_VMEM_BUDGET)
+    return (_stack_bwd_vmem_bytes(n_t, b_pad, hidden, n_layers, has_mask,
+                                  itemsize) <= _PAIR_VMEM_BUDGET)
 
 
 def window_schedulable(b: int, window_rows: int | None) -> bool:
@@ -539,11 +596,12 @@ def _row_tile(b: int) -> int:
     return b_pad8 if b_pad8 <= SINGLE_TILE_MAX_ROWS else ROW_TILE
 
 
-def _single_layer_vmem_bytes(n_t: int, b: int, hidden: int) -> int:
-    """The reference's byte count of the single-layer backward program, in
-    f32: one aliased x/dx plane, three (T, tile, H) planes, the weight and
-    its gradient, and scratch; separate x and dx planes, double-buffered,
-    when the rows span more than one tile."""
+def _single_layer_vmem_bytes(n_t: int, b: int, hidden: int,
+                             itemsize: int = 4) -> int:
+    """The reference's byte count of the single-layer backward program: one
+    aliased x/dx plane, three (T, tile, H) planes, the weight and its
+    gradient at ``itemsize``, and f32 scratch; separate x and dx planes,
+    double-buffered, when the rows span more than one tile."""
     four_h = 4 * hidden
     tile = _row_tile(b)
     b_pad = -(-b // 8) * 8
@@ -553,7 +611,7 @@ def _single_layer_vmem_bytes(n_t: int, b: int, hidden: int) -> int:
         planes = n_t * tile * (2 * four_h + 3 * hidden) * 2
     scratch = 2 * tile * hidden + hidden * four_h
     weights = 2 * hidden * four_h
-    return (planes + weights + scratch) * 4
+    return (planes + weights) * itemsize + scratch * 4
 
 
 def single_layer_fits(n_t: int, b: int, hidden: int) -> bool:
@@ -624,11 +682,34 @@ def _bwd_library() -> ctypes.CDLL:
     _declare(lib, "lstm_bwd", 6, 6)
     lib.lstm_wgrad_splits.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
     lib.lstm_wgrad_splits.restype = i32
-    lib.lstm_wgrad.argtypes = [i32] + [ptr] * 7 + [i32] * 6 + [ptr]
-    lib.lstm_wgrad.restype = i32
+    _declare_wgrad(lib, "lstm_wgrad")
     lib.lstm_bwd_max_hidden.argtypes = []
     lib.lstm_bwd_max_hidden.restype = i32
     _check_max_hidden("lstm_bwd", lib.lstm_bwd_max_hidden())
+    return lib
+
+
+def _declare_wgrad(lib: ctypes.CDLL, name: str) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    getattr(lib, name).argtypes = [i32] + [ptr] * 7 + [i32] * 6 + [ptr]
+    getattr(lib, name).restype = i32
+
+
+@functools.cache
+def _fwd_bf16_library() -> ctypes.CDLL:
+    """csrc/lstm_fwd_bf16.cu (the pair's bf16 forward), built at first use."""
+    lib = load_library("lstm_fwd_bf16")
+    _declare(lib, "lstm_pair_fwd_bf16", 10, 6)
+    return lib
+
+
+@functools.cache
+def _bwd_bf16_library() -> ctypes.CDLL:
+    """csrc/lstm_bwd_bf16.cu (the pair's bf16 sweep and pass), built at
+    first use."""
+    lib = load_library("lstm_bwd_bf16")
+    _declare(lib, "lstm_pair_bwd_bf16", 14, 6)
+    _declare_wgrad(lib, "lstm_wgrad_bf16")
     return lib
 
 
@@ -697,9 +778,13 @@ def _check_max_hidden(name: str, got: int) -> None:
         )
 
 
-def _check_operand(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
+def _check_operand(name: str, t: torch.Tensor, shape: tuple, device,
+                   dtype: torch.dtype = torch.float32) -> None:
+    if t.dtype != dtype:
+        if dtype == torch.float32:
+            raise TypeError(f"{name}: the CUDA kernels take float32, got {t.dtype}")
+        raise TypeError(f"{name}: this launch takes {dtype} operands alike, "
+                        f"got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if tuple(t.shape) != shape:
@@ -913,11 +998,23 @@ def lstm_tb_time_chunk_cuda(n_t: int, rows: int, hidden: int,
 
 
 def _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev,
-                        lead: tuple = ()):
+                        lead: tuple = (), dtype: torch.dtype = torch.float32):
     for name, w in (("w_hh1_t", w_hh1_t), ("w_ih2_t", w_ih2_t),
                     ("w_hh2_t", w_hh2_t)):
-        _check_operand(name, w, lead + (hidden, 4 * hidden), dev)
-    _check_operand("bias2", bias2, lead + (4 * hidden,), dev)
+        _check_operand(name, w, lead + (hidden, 4 * hidden), dev, dtype)
+    _check_operand("bias2", bias2, lead + (4 * hidden,), dev, dtype)
+
+
+def _pair_dtype(x1_proj: torch.Tensor, lead: tuple) -> torch.dtype:
+    """The compute dtype of a pair launch, from its projection: f32, or
+    bf16 for a solo launch (the replica axis runs f32 only)."""
+    dtype = x1_proj.dtype
+    if dtype not in PAIR_DTYPES:
+        raise TypeError(f"x1_proj: the pair's kernels take float32 or "
+                        f"bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and lead:
+        raise TypeError(BF16_QUEUED.format(route="pair's replica axis"))
+    return dtype
 
 
 def _replicas(x1_proj: torch.Tensor) -> tuple[int, int, int, int]:
@@ -934,16 +1031,19 @@ def _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask, stash,
     replicas of ``(T, B)`` rows, after the wrappers' checks."""
     n_t, b, hidden = _shapes(x1_proj[0] if lead else x1_proj)
     dev = x1_proj.device
-    _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev)
-    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev, lead)
+    dtype = _pair_dtype(x1_proj, lead)
+    bf16 = dtype == torch.bfloat16
+    _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev, dtype)
+    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev, lead,
+                        dtype)
     if mask is not None:
-        _check_operand("mask", mask, lead + (n_t, b, hidden), dev)
-    lib = _library()
-    planes = [torch.empty(lead + (n_t, b, hidden), device=dev,
-                          dtype=torch.float32)
+        _check_operand("mask", mask, lead + (n_t, b, hidden), dev, dtype)
+    launch = (_fwd_bf16_library().lstm_pair_fwd_bf16 if bf16
+              else _library().lstm_pair_fwd)
+    planes = [torch.empty(lead + (n_t, b, hidden), device=dev, dtype=dtype)
               for _ in range(4 if stash else 1)]
     h1s, c1s, c2s = planes[1:] if stash else (None, None, None)
-    err = lib.lstm_pair_fwd(
+    err = launch(
         x1_proj.data_ptr(), _ptr(mask), w_hh1_t.data_ptr(), w_ih2_t.data_ptr(),
         bias2.data_ptr(), w_hh2_t.data_ptr(), planes[0].data_ptr(), _ptr(h1s),
         _ptr(c1s), _ptr(c2s), n_t, b, hidden, lead[0] if lead else 1, tile,
@@ -952,6 +1052,8 @@ def _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask, stash,
     name = "lstm_pair_fwd" if mask is None else "lstm_pair_fwd_masked"
     if lead:
         name += "_stacked"
+    if bf16:
+        name += "_bf16"
     _raise_on_error(name, err)
     LAUNCHES.count(name)
     return tuple(planes) if stash else planes[0]
@@ -961,7 +1063,9 @@ def lstm_pair_fwd_cuda(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask=None,
                        stash: bool = False):
     """Launch the pair kernel; returns ``h2s`` ``(T, B, H)``, or with
     ``stash`` ``(h2s, h1s, c1s, c2s)``. ``mask`` selects the masked
-    instance (counted as ``lstm_pair_fwd_masked``)."""
+    instance (counted as ``lstm_pair_fwd_masked``). Every operand f32, or
+    every operand bf16: the bf16 instance, whose planes are bf16 (counted
+    as ``lstm_pair_fwd_bf16`` or ``lstm_pair_fwd_masked_bf16``)."""
     return _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask,
                             stash, (), 0)
 
@@ -1012,6 +1116,34 @@ def lstm_pair_bwd_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
     ``(T, B, 4H)`` as ``lstm_pair_bwd_ref`` does."""
     return _launch_pair_bwd(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
                             w_ih2_t, bias2, w_hh2_t, (), 0)
+
+
+def lstm_pair_bwd_bf16_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w_hh1_t,
+                            w_ih2_t, bias2, w_hh2_t):
+    """Launch the pair's bf16 sweep on bf16 operands; returns ``(dx1 bf16,
+    d_pre1 f32, d_pre2 f32)`` ``(T, B, 4H)`` as ``lstm_pair_bwd_bf16_ref``
+    does. Counted as ``lstm_pair_bwd_bf16``."""
+    n_t, b, hidden = _shapes(x1_proj)
+    dev, bf16 = x1_proj.device, torch.bfloat16
+    _check_operand("x1_proj", x1_proj, (n_t, b, 4 * hidden), dev, bf16)
+    for name, t in (("dh2s", dh2s), ("h1s", h1s), ("c1s", c1s), ("h2s", h2s),
+                    ("c2s", c2s)) + ((("mask", mask),) if mask is not None else ()):
+        _check_operand(name, t, (n_t, b, hidden), dev, bf16)
+    _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev, (), bf16)
+    lib = _bwd_bf16_library()
+    dx1 = torch.empty_like(x1_proj)
+    d_pre1 = torch.empty(x1_proj.shape, device=dev, dtype=torch.float32)
+    d_pre2 = torch.empty_like(d_pre1)
+    err = lib.lstm_pair_bwd_bf16(
+        dh2s.data_ptr(), x1_proj.data_ptr(), _ptr(mask), h1s.data_ptr(),
+        c1s.data_ptr(), h2s.data_ptr(), c2s.data_ptr(), w_hh1_t.data_ptr(),
+        w_ih2_t.data_ptr(), bias2.data_ptr(), w_hh2_t.data_ptr(),
+        dx1.data_ptr(), d_pre1.data_ptr(), d_pre2.data_ptr(), n_t, b, hidden,
+        1, 0, dev.index, _stream(dev),
+    )
+    _raise_on_error("lstm_pair_bwd_bf16", err)
+    LAUNCHES.count("lstm_pair_bwd_bf16")
+    return dx1, d_pre1, d_pre2
 
 
 def lstm_pair_bwd_stacked_cuda(dh2s, x1_proj, mask, h1s, c1s, h2s, c2s,
@@ -1079,7 +1211,10 @@ def lstm_wgrad_cuda(jobs) -> list:
     rows.
 
     Returns one ``(dW (H, 4H), db (4H,) or None)`` per job, each as
-    ``lstm_wgrad_ref`` (and ``d_pre.sum((0, 1))``) computes it.
+    ``lstm_wgrad_ref`` (and ``d_pre.sum((0, 1))``) computes it. ``d_pre``
+    is f32; every ``src`` and mask f32, or every one bf16 (the pair's bf16
+    stashes: the bf16 instance, whose sums are f32 and whose outputs are
+    rounded to bf16 once, counted as ``lstm_wgrad_bf16``).
     """
     return _launch_wgrad(jobs, ())
 
@@ -1091,11 +1226,17 @@ def _launch_wgrad(jobs, lead: tuple) -> list:
     run in its solo pass's order."""
     n_t, b, hidden = _shapes(jobs[0][0][0] if lead else jobs[0][0])
     dev = jobs[0][0].device
+    dtype = jobs[0][1].dtype
+    if dtype not in PAIR_DTYPES:
+        raise TypeError(f"src: the pass takes float32 or bfloat16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and lead:
+        raise TypeError(BF16_QUEUED.format(route="replica axis"))
     for d_pre, src, _, mask, _ in jobs:
         _check_operand("d_pre", d_pre, lead + (n_t, b, 4 * hidden), dev)
-        _check_operand("src", src, lead + (n_t, b, hidden), dev)
+        _check_operand("src", src, lead + (n_t, b, hidden), dev, dtype)
         if mask is not None:
-            _check_operand("mask", mask, lead + (n_t, b, hidden), dev)
+            _check_operand("mask", mask, lead + (n_t, b, hidden), dev, dtype)
     lib = _bwd_library()
     n = len(jobs)
     replicas = lead[0] if lead else 1
@@ -1104,15 +1245,16 @@ def _launch_wgrad(jobs, lead: tuple) -> list:
         n, n_t, b, hidden, dev.index, ctypes.byref(splits)))
     part = torch.empty((replicas * n * splits.value * (hidden + 1) * 4 * hidden,),
                        device=dev, dtype=torch.float32)
-    outs = [torch.empty(lead + (hidden, 4 * hidden), device=dev,
-                        dtype=torch.float32) for _ in jobs]
-    biases = [torch.empty(lead + (4 * hidden,), device=dev, dtype=torch.float32)
+    outs = [torch.empty(lead + (hidden, 4 * hidden), device=dev, dtype=dtype)
+            for _ in jobs]
+    biases = [torch.empty(lead + (4 * hidden,), device=dev, dtype=dtype)
               if job[4] else None for job in jobs]
 
     def array(values, ctype=ctypes.c_void_p):
         return (ctype * n)(*values)
 
-    err = lib.lstm_wgrad(
+    launch = _bwd_bf16_library().lstm_wgrad_bf16 if bf16 else lib.lstm_wgrad
+    err = launch(
         n,
         array(_ptr(job[1]) for job in jobs),
         array(_ptr(job[3]) for job in jobs),
@@ -1123,7 +1265,8 @@ def _launch_wgrad(jobs, lead: tuple) -> list:
         part.data_ptr(), splits.value, n_t, b, hidden, replicas, dev.index,
         _stream(dev),
     )
-    name = "lstm_wgrad_stacked" if lead else "lstm_wgrad"
+    name = ("lstm_wgrad_stacked" if lead
+            else "lstm_wgrad_bf16" if bf16 else "lstm_wgrad")
     _raise_on_error(name, err)
     LAUNCHES.count(name)
     return list(zip(outs, biases))
@@ -1292,7 +1435,8 @@ def lstm_stack_wgrad(d_pres, hs, masks=None):
 def lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask=None):
     """The pair's weight gradients ``(dW_hh1, dW_ih2, db2, dW_hh2)``: one
     launch of the reduction pass for a CUDA tensor, the plain version for a
-    CPU tensor."""
+    CPU tensor. With bf16 stashes ``dx1`` is layer 1's f32 d_pre (the
+    sweep's ``d_pre1``) and the gradients are bf16."""
     if _device_type(dx1) == "cpu":
         return lstm_pair_wgrad_ref(dx1, d_pre2, h1s, h2s, mask)
     (dw1, _), (dwi2, db2), (dw2, _) = lstm_wgrad_cuda([
@@ -1382,11 +1526,17 @@ class _PairFunction(torch.autograd.Function):
         x1_proj, w1, wi2, b2, w2, mask, h1s, c1s, h2s, c2s = ctx.saved_tensors
         dh2s = dh2s.contiguous()
         args = (dh2s, x1_proj, mask, h1s, c1s, h2s, c2s, w1, wi2, b2, w2)
-        if _device_type(x1_proj) == "cuda":
-            dx1, d_pre2 = lstm_pair_bwd_cuda(*args)
+        cuda = _device_type(x1_proj) == "cuda"
+        if x1_proj.dtype == torch.bfloat16:
+            # bf16: the pass sums over layer 1's f32 d_pre, not over the
+            # rounded dx1 that the projection takes; every gradient bf16.
+            dx1, d_pre1, d_pre2 = (lstm_pair_bwd_bf16_cuda if cuda
+                                   else lstm_pair_bwd_bf16_ref)(*args)
         else:
-            dx1, d_pre2 = lstm_pair_bwd_ref(*args)
-        dw1, dwi2, db2, dw2 = lstm_pair_wgrad(dx1, d_pre2, h1s, h2s, mask)
+            dx1, d_pre2 = (lstm_pair_bwd_cuda if cuda
+                           else lstm_pair_bwd_ref)(*args)
+            d_pre1 = dx1  # f32: dx1 is layer 1's d_pre
+        dw1, dwi2, db2, dw2 = lstm_pair_wgrad(d_pre1, d_pre2, h1s, h2s, mask)
         return dx1, dw1, dwi2, db2, dw2, None
 
 
@@ -1607,6 +1757,13 @@ def _split_stack(tensors, n_layers: int, has_mask: bool):
     return w_hh, w_in, biases, masks
 
 
+def _refuse_bf16(x_proj: torch.Tensor, route: str) -> None:
+    """Raise for a bf16 projection at a route whose bf16 kernels are not
+    ported, on the CPU as on the card."""
+    if x_proj.dtype == torch.bfloat16:
+        raise TypeError(BF16_QUEUED.format(route=route))
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -1631,8 +1788,10 @@ def lstm_recurrence(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
         plain versions for a CPU tensor; differentiable through the
         hand-written backward when an input needs a gradient. Where the
         reference takes its time-blocked kernels (``single_layer_route``),
-        so does the port; otherwise the resident ones.
+        so does the port; otherwise the resident ones. f32 only: a bf16
+        tensor raises on either device (``BF16_QUEUED``).
     """
+    _refuse_bf16(x_proj, "single layer (resident or time-blocked)")
     n_t, b = x_proj.shape[:2]
     hidden = w_hh_t.shape[0]
     if single_layer_route(n_t, b, hidden, window_rows) == "pallas-timeblocked":
@@ -1664,8 +1823,9 @@ def lstm_recurrence_stacked(x_proj: torch.Tensor, w_hh_t: torch.Tensor,
         ``lstm_recurrence`` gives on replica r's slices. On the card each
         kernel launches once for all R replicas (the ``_stacked`` counts),
         the time-blocked ones where the reference takes them, or raises; a
-        CPU tensor runs the plain versions replica by replica.
+        CPU tensor runs the plain versions replica by replica. f32 only.
     """
+    _refuse_bf16(x_proj, "single layer's replica axis")
     n_t, b = x_proj.shape[1:3]
     hidden = w_hh_t.shape[-2]
     if single_layer_route(n_t, b, hidden, window_rows) == "pallas-timeblocked":
@@ -1699,7 +1859,8 @@ def lstm_pair_recurrence(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
         ``(T, B, H)`` layer-2 hidden states: the CUDA kernels for a CUDA
         tensor, the plain versions for a CPU tensor. Without a gradient to
         take, the stash-free forward runs; otherwise the autograd function
-        with the hand-written backward.
+        with the hand-written backward. Every operand f32, or every operand
+        bf16 (the kernels' bf16 instances; bf16 planes and gradients).
     """
     if _needs_grad(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t):
         return _PairFunction.apply(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
@@ -1726,8 +1887,9 @@ def lstm_pair_recurrence_stacked(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t,
         ``lstm_pair_recurrence`` gives on replica r's slices. On the card
         each kernel launches once for all R replicas (the ``_stacked``
         counts), or raises; a CPU tensor runs the plain versions replica by
-        replica.
+        replica. f32 only.
     """
+    _refuse_bf16(x1_proj, "pair's replica axis")
     if _needs_grad(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t):
         return _StackedPairFunction.apply(x1_proj, w_hh1_t, w_ih2_t, bias2,
                                           w_hh2_t, mask)
@@ -1755,8 +1917,9 @@ def lstm_stack_recurrence(x1_proj, weights, masks=None):
         ``(T, B, H)`` top-layer hidden states: the CUDA kernels for a CUDA
         tensor (3 <= L <= 8), the plain versions for a CPU tensor. Without a
         gradient to take, the stash-free forward runs; otherwise the
-        autograd function with the hand-written backward.
+        autograd function with the hand-written backward. f32 only.
     """
+    _refuse_bf16(x1_proj, "L-deep stack")
     w_hh_ts, w_in_ts, biases = (tuple(part) for part in weights)
     masks = None if masks is None else tuple(masks)
     if _needs_grad(x1_proj, *w_hh_ts, *w_in_ts, *biases):
@@ -1783,8 +1946,9 @@ def lstm_stack_recurrence_stacked(x1_proj, weights, masks=None):
         ``lstm_stack_recurrence`` gives on replica r's slices. On the card
         each kernel launches once for all R replicas (the ``_stacked``
         counts), or raises; a CPU tensor runs the plain versions replica by
-        replica.
+        replica. f32 only.
     """
+    _refuse_bf16(x1_proj, "stack's replica axis")
     w_hh_ts, w_in_ts, biases = (tuple(part) for part in weights)
     masks = None if masks is None else tuple(masks)
     if _needs_grad(x1_proj, *w_hh_ts, *w_in_ts, *biases):

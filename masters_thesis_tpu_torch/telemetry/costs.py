@@ -16,8 +16,12 @@ as a ``cost_profile`` event with ``source="analytic"``.
 
 Operations count each ``(rows, H) @ (H, 4H)`` product of a time step as
 ``2 * H * 4H`` a row; bytes count each input read once and each output
-written once (f32). ``bound_ms`` is the larger of the two roofline terms at
-the card's peaks.
+written once: planes and weights at the compute dtype's ``itemsize`` (4
+for f32, 2 for the pair's bf16 instances), the d_pre planes that the
+sweeps hand to the weight-gradient pass at 4 whatever it is (the
+counterpart of the JAX ``lstm_route_cost(itemsize=)``: operands at the
+compute dtype, scratch in f32). ``bound_ms`` is the larger of the two
+roofline terms at the card's peaks.
 
 Peaks exist only for the card the port is measured on, by
 ``torch.cuda.get_device_name``: NVIDIA H100 80GB HBM3 (the H100 SXM data
@@ -60,25 +64,30 @@ F32 = 4
 
 
 def kernel_cost(name: str, rows: int, n_t: int = 60, hidden: int = 64,
-                n_layers: int = 4, with_c: bool = False) -> tuple[int, int]:
+                n_layers: int = 4, with_c: bool = False,
+                itemsize: int = F32) -> tuple[int, int]:
     """``(operations, bytes)`` of one launch of kernel ``name`` over
     ``rows`` rows and ``n_t`` steps at width ``hidden``; ``n_layers`` is a
     stack kernel's depth, ``with_c`` a single-layer forward (resident or
-    time-blocked) that also writes its c plane.
+    time-blocked) that also writes its c plane; ``itemsize`` the bytes of
+    its planes and weights (the d_pre planes are f32 at any).
 
     Forwards: 1 product a step for one layer, 3 for the pair (both
     recurrences and the seam projection), 2L - 1 for an L-deep stack.
     Backward sweeps recompute the gates and form the transposed products:
     2 for one layer (3 time-blocked, where dW is summed in the sweep), 6
     for the pair, 4L - 2 for the stack. Weight-gradient passes: 1 a job
-    (1, 3, 2L - 1 jobs).
+    (1, 3, 2L - 1 jobs). In bf16 the pair's sweep writes layer 1's d_pre
+    twice: rounded (dx1, the projection's gradient) and in f32 (the
+    pass's operand).
     """
     h4 = 4 * hidden
     product = 2 * n_t * rows * hidden * h4
-    plane_h = F32 * n_t * rows * hidden
-    plane_x = F32 * n_t * rows * h4
-    weight = F32 * hidden * h4
-    bias = F32 * h4
+    plane_h = itemsize * n_t * rows * hidden
+    plane_x = itemsize * n_t * rows * h4
+    d_pre = F32 * n_t * rows * h4  # the sweeps' d_pre, the pass's operand
+    weight = itemsize * hidden * h4
+    bias = itemsize * h4
     n = n_layers
     stack_params = (2 * n - 1) * weight + (n - 1) * bias
     counts = {
@@ -87,16 +96,17 @@ def kernel_cost(name: str, rows: int, n_t: int = 60, hidden: int = 64,
         "lstm_tb_fwd": (product,
                         plane_x + weight + (2 if with_c else 1) * plane_h),
         "lstm_bwd": (2 * product, 3 * plane_h + 2 * plane_x + weight),
-        "lstm_wgrad_single": (product, plane_x + plane_h + weight),
+        "lstm_wgrad_single": (product, d_pre + plane_h + weight),
         "lstm_tb_bwd": (3 * product, 3 * plane_h + 2 * plane_x + 2 * weight),
         "lstm_pair_fwd": (3 * product,
                           plane_x + 3 * weight + bias + plane_h),
         "lstm_pair_fwd_masked": (3 * product, plane_x + plane_h + 3 * weight
                                  + bias + 4 * plane_h),
-        "lstm_pair_bwd": (6 * product, 6 * plane_h + 3 * plane_x
+        "lstm_pair_bwd": (6 * product, 6 * plane_h + 2 * plane_x + d_pre
+                          + (d_pre if itemsize != F32 else 0)
                           + 3 * weight + bias),
         "lstm_wgrad": (3 * product,
-                       2 * plane_x + 3 * plane_h + 3 * weight + bias),
+                       2 * d_pre + 3 * plane_h + 3 * weight + bias),
         "lstm_stack_fwd": ((2 * n - 1) * product,
                            plane_x + stack_params + plane_h),
         "lstm_stack_fwd_masked": ((2 * n - 1) * product,
@@ -106,7 +116,7 @@ def kernel_cost(name: str, rows: int, n_t: int = 60, hidden: int = 64,
                            plane_h + plane_x + (n - 1) * plane_h
                            + 2 * n * plane_h + stack_params + n * plane_x),
         "lstm_wgrad_stack": ((2 * n - 1) * product,
-                             n * plane_x + n * plane_h + (n - 1) * plane_h
+                             n * d_pre + n * plane_h + (n - 1) * plane_h
                              + stack_params),
     }
     if name not in counts:
@@ -132,7 +142,8 @@ def bound_ms(flops: float, nbytes: float,
 def _group_kernels(depth: int, route: str, training: bool, masked: bool
                    ) -> list[str]:
     """The kernels one layer group runs: its forward, and in training its
-    sweep and weight-gradient pass."""
+    sweep and weight-gradient pass (their cost names; a bf16 launch
+    counts under the name with ``_bf16``)."""
     if depth == 1:
         if route == "pallas-timeblocked":
             return ["lstm_tb_fwd", "lstm_tb_bwd"] if training else ["lstm_tb_fwd"]
@@ -146,33 +157,36 @@ def _group_kernels(depth: int, route: str, training: bool, masked: bool
 
 
 def cost_of_step(spec, rows: int, n_t: int, *, window_rows: int | None = None,
-                 training: bool = True) -> dict:
+                 training: bool = True, itemsize: int = F32) -> dict:
     """Operations and bytes of one step of ``spec``'s encoder over ``rows``
     rows of ``n_t`` steps (``window_rows`` a window's rows, as
-    ``forward_rows`` passes it): the layer groups ``fused_depth`` picks and
-    the single-layer route (``single_layer_route``), each group's input
-    projection (and its two backward products in training: the weight
-    gradient, and the input gradient above layer 0), each group's kernels,
-    and the heads. ``{"flops", "bytes", "transcendentals", "groups",
-    "kernels"}``; ``kernels`` counts launches by kernel name."""
+    ``forward_rows`` passes it) in a compute dtype of ``itemsize`` bytes:
+    the layer groups ``fused_depth`` picks and the single-layer route
+    (``single_layer_route``), each group's input projection (and its two
+    backward products in training: the weight gradient, and the input
+    gradient above layer 0), each group's kernels, and the heads (f32).
+    ``{"flops", "bytes", "transcendentals", "groups", "kernels"}``;
+    ``kernels`` counts launches by their ``LAUNCHES`` name (``_bf16``
+    names at itemsize 2)."""
     from masters_thesis_tpu_torch.models.lstm import fused_depth
     from masters_thesis_tpu_torch.ops.lstm_kernel import single_layer_route
 
     hidden, h4 = spec.hidden_size, 4 * spec.hidden_size
     masked = training and spec.dropout > 0
+    suffix = "_bf16" if itemsize != F32 else ""
     flops = nbytes = 0
     groups, kernels = [], {}
     layer = 0
     while layer < spec.num_layers:
         depth = fused_depth(spec.num_layers - layer, n_t, rows, hidden,
-                            masked, window_rows)
+                            masked, window_rows, itemsize)
         route = (single_layer_route(n_t, rows, hidden, window_rows)
                  if depth == 1 else ("pair" if depth == 2 else "stack"))
         groups.append({"layer": layer, "depth": depth, "route": route})
         in_dim = spec.input_size if layer == 0 else hidden
         proj = 2 * n_t * rows * in_dim * h4
-        proj_bytes = F32 * (n_t * rows * in_dim + in_dim * h4 + 2 * h4
-                            + n_t * rows * h4)
+        proj_bytes = itemsize * (n_t * rows * in_dim + in_dim * h4 + 2 * h4
+                                 + n_t * rows * h4)
         flops += proj
         nbytes += proj_bytes
         if training:
@@ -181,10 +195,11 @@ def cost_of_step(spec, rows: int, n_t: int, *, window_rows: int | None = None,
             nbytes += proj_bytes * (2 if layer > 0 else 1)
         for name in _group_kernels(depth, route, training, masked):
             f, b = kernel_cost(name, rows, n_t, hidden, n_layers=depth,
-                               with_c=training and name == "lstm_fwd")
+                               with_c=training and name == "lstm_fwd",
+                               itemsize=itemsize)
             flops += f
             nbytes += b
-            kernels[name] = kernels.get(name, 0) + 1
+            kernels[name + suffix] = kernels.get(name + suffix, 0) + 1
         layer += depth
     heads = 2 * rows * hidden * (1 + spec.n_factors)
     heads_bytes = F32 * (rows * hidden + hidden * (1 + spec.n_factors)
@@ -335,11 +350,13 @@ class CostModel:
 def step_cost_model(spec, rows: int, n_t: int, *, program: str,
                     steps_per_execution: int = 1,
                     window_rows: int | None = None,
-                    meta: dict | None = None) -> CostModel:
+                    meta: dict | None = None,
+                    itemsize: int = F32) -> CostModel:
     """:func:`cost_of_step` of one training step as a :class:`CostModel`
     over ``steps_per_execution`` steps (an epoch for ``train_epoch_scan``),
     the grouping and kernel launches in its ``meta``."""
-    step = cost_of_step(spec, rows, n_t, window_rows=window_rows)
+    step = cost_of_step(spec, rows, n_t, window_rows=window_rows,
+                        itemsize=itemsize)
     return CostModel(
         program=program,
         flops=float(step["flops"] * steps_per_execution),

@@ -1,7 +1,12 @@
 """The training loop: fit, validation, plateau LR, checkpoints, test.
 
 Counterpart of ``Trainer`` and ``TrainResult`` in
-``masters_thesis_tpu/train/trainer.py``, on one device, f32 only. Per epoch:
+``masters_thesis_tpu/train/trainer.py``, on one device. ``precision`` takes
+the JAX trainer's values: ``32-true`` (``32``, ``fp32``), ``bf16-mixed``
+(``bf16``: the encoder's recurrences and input projections in bf16 through
+the pair's bf16 kernels, f32 parameters, optimizer and loss; ``fit`` and
+``test`` build it so) and ``auto`` (``preferred_compute_dtype``: f32 until a
+card A/B records a bf16 win in ``MEASURED_BF16_WAVEFRONT_WINS``). Per epoch:
 one epoch of training steps, then one host read of its metric sums. The
 ``scan`` epoch (the default) trains on the device-resident train split
 (``train_epoch``), ``n // batch_size`` steps, the tail dropped; the
@@ -67,8 +72,8 @@ trace audit (``analysis/traceaudit.py``) of the configured model's step on
 this trainer's device and mesh before ``fit`` touches the data, writes the
 JAX trainer's ``preflight`` event (``ok``, ``failed`` with its rules and
 findings, or ``skipped`` for the stream epoch) and raises
-``PreflightError`` on a finding. bf16 is not ported; stacked replicas are
-``train/stacked.py``'s.
+``PreflightError`` on a finding. Stacked replicas are ``train/stacked.py``'s
+(f32 whatever the precision, as in the JAX package).
 
 Data-parallel training (``strategy``, ``n_devices``, ``shard_axis``, the
 JAX trainer's arguments; ``parallel/mesh.py``): under ``tpu_xla`` this
@@ -107,6 +112,7 @@ import torch
 
 from masters_thesis_tpu_torch.data.pipeline import Batch, FinancialWindowDataModule
 from masters_thesis_tpu_torch.data.prefetch import PrefetchStats, prefetch_to_device
+from masters_thesis_tpu_torch.models.lstm import preferred_compute_dtype
 from masters_thesis_tpu_torch.models.objectives import ModelSpec
 from masters_thesis_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -257,6 +263,20 @@ def epoch_seed(seed: int, epoch: int) -> int:
                .generate_state(1)[0])
 
 
+#: ``trainer.precision``'s values and their compute dtype (None: ``auto``,
+#: resolved a model and window shape at a time), the JAX trainer's.
+PRECISIONS = {"32-true": torch.float32, "32": torch.float32,
+              "fp32": torch.float32, "bf16-mixed": torch.bfloat16,
+              "bf16": torch.bfloat16, "auto": None}
+
+
+def precision_dtype(precision: str) -> torch.dtype | None:
+    """The compute dtype of ``precision`` (None for ``auto``)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision: {precision!r}")
+    return PRECISIONS[precision]
+
+
 class Trainer:
     def __init__(
         self,
@@ -286,6 +306,7 @@ class Trainer:
         n_devices: int | None = None,
         shard_axis: str = "window",
         preflight: bool = False,
+        precision: str = "32-true",
     ):
         if epoch_mode not in EPOCH_MODES:
             raise ValueError(f"unknown epoch_mode: {epoch_mode!r} "
@@ -297,6 +318,10 @@ class Trainer:
                 "shard_axis='asset' requires epoch_mode='scan' (the stream "
                 "path prefetches window batches, which shard on windows)")
         self.max_epochs = max_epochs
+        self.precision = precision
+        #: The encoder's compute dtype; None: ``auto``, resolved at fit
+        #: and test (``resolve_dtype``).
+        self.compute_dtype = precision_dtype(precision)
         self.gradient_clip_val = gradient_clip_val
         self.check_val_every_n_epoch = max(1, int(check_val_every_n_epoch))
         self.ckpt_dir = Path(ckpt_dir) if ckpt_dir else None
@@ -344,10 +369,24 @@ class Trainer:
         self._fit_span = None
         self._clock = HostClock()
 
-    def build(self, spec: ModelSpec):
-        """The encoder with its seeded initial weights, on the device."""
+    def resolve_dtype(self, spec: ModelSpec, dm) -> torch.dtype:
+        """The compute dtype for this model on ``dm``'s windows: the
+        precision's, or for ``auto`` the measured per-shape policy
+        (``preferred_compute_dtype``) at the windows' lookback and rows
+        (``dm`` set up, so that its windows' rows are known)."""
+        if self.compute_dtype is not None:
+            return self.compute_dtype
+        return preferred_compute_dtype(
+            spec.num_layers, spec.hidden_size, dm.lookback_window,
+            dm.n_stocks, device=self.device)
+
+    def build(self, spec: ModelSpec,
+              compute_dtype: torch.dtype = torch.float32):
+        """The encoder with its seeded initial weights (f32 at any
+        ``compute_dtype``), on the device."""
         init = torch.Generator().manual_seed(self.seed)
-        return spec.build_module(device=self.device, generator=init)
+        return spec.build_module(device=self.device, generator=init,
+                                 compute_dtype=compute_dtype)
 
     def fit(self, spec: ModelSpec, dm: FinancialWindowDataModule,
             init_state: tuple[dict, dict | None] | None = None) -> TrainResult:
@@ -379,7 +418,7 @@ class Trainer:
             self._preflight(spec)
         dm.prepare_data()
         dm.setup("fit")
-        module = self.build(spec)
+        module = self.build(spec, self.resolve_dtype(spec, dm))
         if init_state is not None:
             module.load_state_dict(init_state[0])
         optimizer = make_optimizer(module, self.gradient_clip_val,
@@ -507,7 +546,8 @@ class Trainer:
         if (self.cost_profile if self.cost_profile is not None
                 else bool(tel)):
             with clock:
-                cost_payload = self._cost_profile(spec, dm, steps_per_epoch)
+                cost_payload = self._cost_profile(
+                    spec, dm, steps_per_epoch, module.compute_dtype.itemsize)
         window = self.profile_steps
         if window is None and self.profile:
             # The legacy flag: the first epoch after the capture.
@@ -735,8 +775,8 @@ class Trainer:
                   device=self.device, graphed=self.graphed,
                   gradient_clip_val=self.gradient_clip_val)
 
-    def _cost_profile(self, spec: ModelSpec, dm, steps_per_epoch: int
-                      ) -> dict | None:
+    def _cost_profile(self, spec: ModelSpec, dm, steps_per_epoch: int,
+                      itemsize: int = 4) -> dict | None:
         """The analytic cost of the run's training program
         (``telemetry/costs.py``) as a ``cost_profile`` event: an epoch of
         ``train_epoch_scan`` steps, or one ``train_step_stream`` step, over
@@ -752,6 +792,7 @@ class Trainer:
                 spec, rows, n_t, window_rows=stocks,
                 program="train_epoch_scan" if scan else "train_step_stream",
                 steps_per_execution=steps_per_epoch if scan else 1,
+                itemsize=itemsize,
                 meta={
                     "platform": self.device.type,
                     "device": (torch.cuda.get_device_name(self.device)
@@ -762,6 +803,7 @@ class Trainer:
                     "batch_size": dm.batch_size,
                     "rows": rows,
                     "n_t": n_t,
+                    "precision": self.precision,
                 })
             if tel:
                 costs.emit_cost_profile(tel, cost)
@@ -790,7 +832,8 @@ class Trainer:
         encoder with ``state``; over a launch each rank evaluates its
         slice and the sums are all-reduced."""
         dm.setup("test")
-        module = spec.build_module(device=self.device)
+        module = spec.build_module(device=self.device,
+                                   compute_dtype=self.resolve_dtype(spec, dm))
         module.load_state_dict(state)
         arrays = dm.test_arrays()
         if arrays.x.shape[0] == 0:

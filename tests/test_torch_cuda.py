@@ -293,6 +293,10 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
         "lstm_stack_bwd_stacked": 0,
         "lstm_tb_fwd_stacked": 0,
         "lstm_tb_bwd_stacked": 0,
+        "lstm_pair_fwd_bf16": 0,
+        "lstm_pair_fwd_masked_bf16": 0,
+        "lstm_pair_bwd_bf16": 0,
+        "lstm_wgrad_bf16": 0,
     }
     ref = [t.clone().requires_grad_(True) for t in base]
     plain = lk.lstm_pair_ref(*ref, mask)
@@ -304,6 +308,199 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
 
 def _refuse(*args, **kwargs):
     raise AssertionError("a CUDA tensor reached a plain backward")
+
+
+# ---------------------------------------------------- the pair in bf16
+#
+# The bf16 instances against their plain versions on the card (f32
+# arithmetic on the bf16 values, rounded stores). A bf16 entry may sit one
+# bf16 ulp from the plain version's where the two f32 sums, taken in
+# another order, fall on both sides of a rounding boundary; so each entry
+# is held to the f32 bar (2e-5 abs for a forward, 2e-5 of the largest
+# entry for a gradient) or to one ulp of the plain entry, and at least 99%
+# to the bar. The f32 d_pre planes are held to the f32 bar.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_ulp(want):
+    mag = want.double().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _close_bf16(got, want, atol=2e-5, relative=False):
+    assert got.dtype == want.dtype == BF16
+    got, want_f = got.double(), want.double()
+    if relative:
+        atol = atol * max(float(want_f.abs().max()), 1.0)
+    diff = (got - want_f).abs()
+    beyond = diff > atol
+    assert not bool((beyond & (diff > _bf16_ulp(want))).any()), float(diff.max())
+    assert float(beyond.double().mean()) <= 0.01, float(beyond.double().mean())
+
+
+def _bf16_case(seed, rows, hidden, n_t, device):
+    x, w1, wi2, b2, w2 = (t.to(BF16) for t in _case(seed, rows, hidden, n_t=n_t,
+                                                     device=device))
+    mask, dh = (t.to(BF16) for t in _mask_and_cotangent(seed + 1, n_t, rows,
+                                                          hidden, device))
+    return (x, w1, wi2, b2, w2), mask, dh
+
+
+@pytest.mark.parametrize("n_t", [1, 60])
+@pytest.mark.parametrize("hidden", [1, 5, 13, 64])
+@pytest.mark.parametrize("rows", SWEEP_ROWS)
+def test_bf16_pair_kernels_match_plain(cuda_device, rows, hidden, n_t):
+    """Every bf16 forward instance (maskless, masked, each with and without
+    its stashes, again bit for bit), the bf16 sweep (dx1 bf16, both d_pre
+    f32) and the bf16 pass, each against its plain version, on the tiles
+    of SWEEP_ROWS and the H that pad the contraction."""
+    pair, mask, dh = _bf16_case(rows * hidden + n_t, rows, hidden, n_t,
+                                cuda_device)
+    for m in (None, mask):
+        want = lk.lstm_pair_ref(*pair, m, return_stash=True)
+        for stash in (False, True):
+            before = dict(lk.LAUNCHES)
+            got = _as_tuple(lk.lstm_pair_fwd_cuda(*pair, m, stash))
+            name = "lstm_pair_fwd_bf16" if m is None else "lstm_pair_fwd_masked_bf16"
+            assert lk.LAUNCHES[name] == before[name] + 1
+            for g, w in zip(got, want):
+                _close_bf16(g, w)
+            again = _as_tuple(lk.lstm_pair_fwd_cuda(*pair, m, stash))
+            for a, b in zip(got, again):
+                assert torch.equal(a, b)
+        h2s, h1s, c1s, c2s = want
+        args = (dh, pair[0], m, h1s, c1s, h2s, c2s, *pair[1:])
+        dx1, d_pre1, d_pre2 = lk.lstm_pair_bwd_bf16_cuda(*args)
+        dx1_ref, d_pre1_ref, d_pre2_ref = lk.lstm_pair_bwd_bf16_ref(*args)
+        _close_bf16(dx1, dx1_ref, relative=True)
+        _close_rel(d_pre1, d_pre1_ref)
+        _close_rel(d_pre2, d_pre2_ref)
+        got = lk.lstm_pair_wgrad(d_pre1_ref, d_pre2_ref, h1s, h2s, m)
+        for g, w in zip(got, lk.lstm_pair_wgrad_ref(d_pre1_ref, d_pre2_ref,
+                                                    h1s, h2s, m)):
+            _close_bf16(g, w, relative=True)
+
+
+def test_bf16_kernels_repeat_bit_for_bit(cuda_device):
+    pair, mask, dh = _bf16_case(11, 803, 64, 60, cuda_device)
+    h2s, h1s, c1s, c2s = lk.lstm_pair_ref(*pair, mask, return_stash=True)
+    args = (dh, pair[0], mask, h1s, c1s, h2s, c2s, *pair[1:])
+    first = lk.lstm_pair_bwd_bf16_cuda(*args)
+    second = lk.lstm_pair_bwd_bf16_cuda(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    grads = [lk.lstm_pair_wgrad(first[1], first[2], h1s, h2s, mask)
+             for _ in range(2)]
+    for a, b in zip(*grads):
+        assert a.dtype == BF16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_t,rows", [(1, 1), (2, 3), (60, 100), (60, 803)])
+@pytest.mark.parametrize("hidden", [1, 5, 13, 64])
+@pytest.mark.parametrize("n_jobs", [1, 3])
+def test_bf16_weight_gradient_pass_matches_plain(cuda_device, n_jobs, hidden,
+                                                 n_t, rows):
+    """The bf16 pass (bf16 src and mask, f32 d_pre, bf16 outputs) against
+    lstm_wgrad_ref on the same values in f32, rounded once; H 1, 5 and 13
+    take the one-value copies."""
+    jobs = [(d_pre, src.to(BF16), shift, None if m is None else m.to(BF16), b)
+            for d_pre, src, shift, m, b in _pass_jobs(
+                n_jobs * 100 + hidden + rows + 7, n_jobs, n_t, rows, hidden,
+                cuda_device)]
+    before = lk.LAUNCHES["lstm_wgrad_bf16"]
+    got = lk.lstm_wgrad_cuda(jobs)
+    assert lk.LAUNCHES["lstm_wgrad_bf16"] == before + 1
+    for (d_pre, src, shift, mask, with_bias), (dw, db) in zip(jobs, got):
+        want = lk.lstm_wgrad_ref(d_pre, src.float(), shift,
+                                 None if mask is None else mask.float())
+        _close_bf16(dw, want.to(BF16), relative=True)
+        if with_bias:
+            _close_bf16(db, d_pre.sum(dim=(0, 1)).to(BF16), relative=True)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_gradients_go_through_the_kernels(cuda_device, monkeypatch,
+                                               masked):
+    """bf16 leaves that need a gradient run the bf16 forward with stashes,
+    the bf16 sweep and the bf16 pass, never an f32 pair kernel or a plain
+    backward; the gradients are bf16 and match autograd through the plain
+    versions on the card (two ulps: a stash may flip)."""
+    for name in ("lstm_pair_bwd_ref", "lstm_pair_bwd_bf16_ref",
+                 "lstm_pair_wgrad_ref"):
+        monkeypatch.setattr(lk, name, _refuse)
+    pair, mask, dh = _bf16_case(5, 100, 64, 60, cuda_device)
+    mask = mask if masked else None
+    leaves = [t.clone().requires_grad_(True) for t in pair]
+    lk.reset_launch_counts()
+    (lk.lstm_pair_recurrence(*leaves, mask).float() * dh.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == dict.fromkeys(lk.LAUNCHES, 0) | {
+        "lstm_pair_fwd_masked_bf16" if masked else "lstm_pair_fwd_bf16": 1,
+        "lstm_pair_bwd_bf16": 1,
+        "lstm_wgrad_bf16": 1,
+    }
+    monkeypatch.undo()
+    ref = [t.detach().cpu().requires_grad_(True) for t in pair]
+    out = lk.lstm_pair_recurrence(*ref, None if mask is None else mask.cpu())
+    (out.float() * dh.float().cpu()).sum().backward()
+    for got, want in zip(leaves, ref):
+        assert got.grad.dtype == want.grad.dtype == BF16
+        diff = (got.grad.cpu().double() - want.grad.double()).abs()
+        bar = 2e-5 * max(float(want.grad.double().abs().max()), 1.0)
+        assert not bool(((diff > bar) & (diff > 2 * _bf16_ulp(want.grad))).any())
+
+
+def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """Mixed dtypes, another type, and bf16 at the f32-only routes raise
+    before any launch."""
+    pair, mask, dh = _bf16_case(1, 4, 8, 6, cuda_device)
+    x, w1, wi2, b2, w2 = pair
+    before = dict(lk.LAUNCHES)
+    with pytest.raises(TypeError, match="bfloat16 operands alike"):
+        lk.lstm_pair_fwd_cuda(x, w1.float(), wi2, b2, w2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lk.lstm_pair_fwd_cuda(x.half(), w1.half(), wi2.half(), b2.half(),
+                              w2.half())
+    with pytest.raises(TypeError):
+        lk.lstm_pair_bwd_cuda(dh, x, mask, dh, dh, dh, dh, w1, wi2, b2, w2)
+    with pytest.raises(TypeError, match="queue 2"):
+        lk.lstm_recurrence(x, w1)
+    with pytest.raises(TypeError):
+        lk.lstm_fwd_cuda(x, w1)
+    with pytest.raises(TypeError, match="queue 2"):
+        lk.lstm_pair_fwd_stacked_cuda(*(t[None] for t in pair))
+    assert lk.LAUNCHES == before
+
+
+def test_graphed_bf16_fit_equals_eager_fit(cuda_device, tmp_path):
+    """Trainer.fit with precision=bf16-mixed for 2 epochs, graphed against
+    eager from the same seed, dropout on: history, parameters and Adam
+    moments bit-equal, the bf16 counters alike and no f32 pair launch."""
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    dm = _toy_datamodule(tmp_path)
+    spec = ModelSpec(objective="combined", hidden_size=16, num_layers=2,
+                     dropout=0.3, learning_rate=1e-3)
+    runs, launches = {}, {}
+    for graphs in (True, False):
+        trainer = Trainer(max_epochs=2, gradient_clip_val=5.0, seed=3,
+                          device=cuda_device, cuda_graphs=graphs,
+                          precision="bf16-mixed")
+        lk.reset_launch_counts()
+        runs[graphs] = trainer.fit(spec, dm)
+        launches[graphs] = dict(lk.LAUNCHES)
+    assert launches[True] == launches[False]
+    assert launches[True]["lstm_pair_fwd_masked_bf16"] == 2 * len(dm.train_range)
+    assert launches[True]["lstm_pair_bwd_bf16"] == 2 * len(dm.train_range)
+    assert not any(launches[True][k] for k in (
+        "lstm_pair_fwd", "lstm_pair_fwd_masked", "lstm_pair_bwd", "lstm_wgrad"))
+    assert runs[True].history == runs[False].history
+    for name, value in runs[False].state.items():
+        assert value.dtype == torch.float32
+        assert torch.equal(runs[True].state[name], value), name
+    for key in ("mu", "nu"):
+        assert torch.equal(runs[True].opt_state[key], runs[False].opt_state[key])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):

@@ -211,7 +211,7 @@ def test_multirun_writes_numbered_job_dirs(data_dir, tmp_path):
 
 
 REFUSED = [
-    ("trainer.precision", ["trainer.precision=bf16-mixed"]),
+    ("trainer.precision", ["trainer.precision=16-mixed"]),
     ("trainer.n_devices", ["+trainer.n_devices=0"]),
     ("trainer.strategy", ["trainer.strategy=ddp"]),
     ("trainer.distributed", ["trainer.distributed=sometimes"]),
@@ -239,6 +239,24 @@ def test_refused_keys_raise_and_name_themselves(data_dir, tmp_path, key,
                         f"logger.save_dir={tmp_path}"])
         else:
             train_main(_args(data_dir, tmp_path, *overrides))
+    assert not (tmp_path / RUN_DIR[0]).exists()
+
+
+@pytest.mark.parametrize("overrides,groups", [
+    (["model=medium"], "[4]"),
+    (["model.num_layers=3"], "[3]"),
+    (["model=large"], "[8]"),
+])
+def test_bf16_is_refused_where_the_layers_group_past_the_pair(
+        data_dir, tmp_path, overrides, groups):
+    """bf16 runs the pair's kernels only: a shape that groups its layers
+    into anything else at itemsize 2 is refused by key, naming the
+    grouping, before any data is touched."""
+    with pytest.raises(ValueError, match=rf"^trainer\.precision=bf16-mixed: "
+                                         rf".*group as {re.escape(groups)}.*"
+                                         "cannot honour it"):
+        train_main(_args(data_dir, tmp_path, *overrides,
+                         "trainer.precision=bf16-mixed"))
     assert not (tmp_path / RUN_DIR[0]).exists()
 
 
