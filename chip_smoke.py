@@ -120,7 +120,8 @@ the universe test child), whose first row must be the universe child's bit
 for bit. ``sweeps`` (beside ``resilience``): ``-m seed=0,1`` through
 ``launcher=joblib launcher.n_jobs=2`` (two children on the card at once)
 equal to the sequential launcher's jobs (a job that parts prints the
-first differing key, both values and the worst abs and relative error),
+first differing key, both values, every differing key, the worst abs and
+relative error, and whether the two runs' weights are bit-equal),
 and ``trainer.n_devices=2`` on the one card refused, naming the key.
 The serving fleet (``serve_fleet``, last): three model=small replicas
 share the card behind one ``FleetServer``; ``r0`` is crashed under
@@ -169,8 +170,22 @@ sweep's f32 d_pre planes as the f32 sweep's), beside cuDNN's bf16 LSTM as
 a time; ``train_bf16`` fits model=small for one graphed epoch in bf16 (the
 bf16 counters launched, no f32 pair kernel) and holds 5 card steps to the
 CPU port's bf16 steps; ``train_bf16_driver`` runs ``train
-trainer.precision=bf16-mixed`` as a child, and ``model=medium`` at bf16,
-which must be refused by key.
+trainer.precision=bf16-mixed`` as a child, ``model=medium`` at bf16 as
+another (one 4-deep stack in bf16), and ``model.num_layers=5`` at bf16
+([4, 1]: a single layer), which must be refused by key.
+The L-deep stack's bf16 instances: ``stack_bf16_kernels`` holds
+each (the maskless forward, the masked forward with its stashes, the
+sweep, the pass over 2L - 1 jobs) against its plain bf16 version at the
+shapes a bf16 fit launches them (``BF16_STACK_SHAPES``: L = 4 at one
+100-row window and a 3,200-row evaluation chunk, L = 8 at 25 and 800 rows,
+L = 6 at 3,200), by the pair's bar, beside cuDNN's bf16 LSTM;
+``train_medium_bf16`` fits model=medium (one 4-deep stack in training and
+in evaluation) for one graphed epoch in bf16 and one in f32 (two pairs) on
+``train``'s set, their windows/s side by side, the bf16 stack counters
+launched and no f32 or pair kernel, and holds 5 card steps and an
+evaluation chunk to the CPU port's bf16; ``train_large_bf16`` does the
+same for model=large's 5 steps and a chunk on 25-row windows ([8]) and on
+100-row windows ([4, 4], evaluation [6, 2]).
 Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero; without CUDA the script exits 2 before doing anything. The
@@ -293,6 +308,8 @@ STACK_BWD_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack_bwd.cu"
 TB_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_tb.cu"
 FWD_BF16_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_fwd_bf16.cu"
 BWD_BF16_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_bwd_bf16.cu"
+STACK_BF16_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack_bf16.cu"
+STACK_BWD_BF16_SOURCE = "masters_thesis_tpu_torch/ops/csrc/lstm_stack_bwd_bf16.cu"
 TPU = "masters_thesis_tpu/ops/lstm_kernel.py"
 # Each kernel of the port: (its source, the TPU kernel it replaces).
 # lstm_wgrad_stack is lstm_wgrad at a stack's 2L - 1 jobs, and
@@ -318,6 +335,12 @@ KERNELS = {
     "lstm_pair_fwd_masked_bf16": (FWD_BF16_SOURCE, f"{TPU}:719"),
     "lstm_pair_bwd_bf16": (BWD_BF16_SOURCE, f"{TPU}:845"),
     "lstm_wgrad_bf16": (BWD_BF16_SOURCE, f"{TPU}:845"),
+    # The stack's bf16 instances; lstm_wgrad_stack_bf16 is
+    # lstm_wgrad_bf16 at the stack's 2L - 1 jobs.
+    "lstm_stack_fwd_bf16": (STACK_BF16_SOURCE, f"{TPU}:1118"),
+    "lstm_stack_fwd_masked_bf16": (STACK_BF16_SOURCE, f"{TPU}:1118"),
+    "lstm_stack_bwd_bf16": (STACK_BWD_BF16_SOURCE, f"{TPU}:1239"),
+    "lstm_wgrad_stack_bf16": (BWD_BF16_SOURCE, f"{TPU}:1239"),
 }
 #: The bf16 counters, which the bf16 fit must launch and the f32 pair
 #: counters, which it must not.
@@ -1161,6 +1184,140 @@ def phase_stack_vs_pairs() -> list[dict]:
     return out
 
 
+# ------------------------------------------------------ the stack in bf16
+
+#: The shapes a bf16 fit launches the stack's bf16 instances at (T=60,
+#: H=64): (depth, rows, training). model=medium groups [4] over one
+#: 100-row window (the masked forward with its stashes, the sweep, the pass
+#: over 7 jobs) and over an evaluation chunk of EVAL_CHUNK windows (the
+#: maskless forward); model=large groups [8] over one 25-row window (the
+#: pass over 15 jobs) and its chunk, and [6, 2] over a chunk of 100-row
+#: windows.
+BF16_STACK_ROWS = ("lstm_stack_fwd_bf16", "lstm_stack_fwd_masked_bf16",
+                   "lstm_stack_bwd_bf16", "lstm_wgrad_stack_bf16")
+BF16_STACK_SHAPES = ((4, K_STOCKS, True), (4, EVAL_CHUNK * K_STOCKS, False),
+                     (8, K_MEDIUM, True), (8, EVAL_CHUNK * K_MEDIUM, False),
+                     (6, EVAL_CHUNK * K_STOCKS, False))
+
+
+def _bf16_stack_inputs(n_layers: int, rows: int, seed: int, training: bool,
+                       bf16: bool = True) -> dict:
+    """An L-deep stack at T=60, H=64 drawn on the card (the scales of
+    ``_stack_inputs``) and rounded to bf16: under ``"f32"`` its operands'
+    values in f32 (and with ``training`` the masks, p = 0.3, a cotangent of
+    the top layer's h and the f32 stashes and d_pre planes); with ``bf16``
+    the bf16 operands, and with ``training`` the planes the plain bf16
+    versions make: h and c stashes and dx1 in bf16, every d_pre in f32 (a
+    parent checkout without the bf16 stack asks for none, ``--ab``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    scale = 1.0 / np.sqrt(H)
+
+    def draw(shape, kind="normal"):
+        if kind == "uniform":
+            t = (torch.rand(shape, device=DEVICE, generator=gen) * 2 - 1) * scale
+        elif kind == "mask":
+            t = (torch.rand(shape, device=DEVICE, generator=gen) >= 0.3) / 0.7
+        else:
+            t = torch.randn(shape, device=DEVICE, generator=gen)
+        return t.to(torch.bfloat16).float()
+
+    f = {"x": draw((T, rows, 4 * H)),
+         "weights": ([draw((H, 4 * H), "uniform") for _ in range(n_layers)],
+                     [draw((H, 4 * H), "uniform") for _ in range(n_layers - 1)],
+                     [draw((4 * H,), "uniform") for _ in range(n_layers - 1)])}
+    if training:
+        f["masks"] = [draw((T, rows, H), "mask") for _ in range(n_layers - 1)]
+        f["dh"] = (0.1 * draw((T, rows, H))).to(torch.bfloat16).float()
+        with torch.no_grad():
+            f["hs"], f["cs"] = lk.lstm_stack_ref(f["x"], *f["weights"],
+                                                 f["masks"], return_stash=True)
+            f["d_pres"] = lk.lstm_stack_bwd_ref(*_bf16_stack_bwd_args(f))
+    v = {"f32": f}
+    if bf16:
+        def low(t):
+            return t.to(torch.bfloat16)
+
+        v["x"] = low(f["x"])
+        v["weights"] = tuple([low(t) for t in group] for group in f["weights"])
+        w_hh, w_in, biases = v["weights"]
+        v["layers"] = [(w_hh[0],)] + list(zip(w_hh[1:], w_in, biases))
+        if training:
+            v["masks"] = [low(m) for m in f["masks"]]
+            v["dh"] = low(f["dh"])
+            with torch.no_grad():
+                v["hs"], v["cs"] = lk.lstm_stack_ref(v["x"], *v["weights"],
+                                                     v["masks"], return_stash=True)
+                v["dx1"], v["d_pres"] = lk.lstm_stack_bwd_bf16_ref(
+                    *_bf16_stack_bwd_args(v))
+    return v
+
+
+def _bf16_stack_bwd_args(v: dict) -> tuple:
+    return (v["dh"], v["x"], v["masks"], v["hs"], v["cs"], *v["weights"])
+
+
+def phase_stack_bf16_kernels() -> dict:
+    """The stack's bf16 instances (trainer.precision=bf16-mixed) at
+    ``BF16_STACK_SHAPES``, each against its plain bf16 version
+    (``_bf16_judge``: every bf16 entry within one bf16 ulp, at least 99%
+    equal; the sweep's f32 d_pre planes as the f32 sweep's), beside cuDNN's
+    bf16 LSTM (a time only) and the bound at itemsize 2; each row with the
+    row tile its launch takes. ``{(name, rows, depth): row}``."""
+    results = {}
+    note = "cuDNN's bf16 LSTM (no seam mask), a time only"
+    dev = torch.device(DEVICE)
+    for n, rows, training in BF16_STACK_SHAPES:
+        v = _bf16_stack_inputs(n, rows, seed=300 + n + rows, training=training)
+        x, weights = v["x"], v["weights"]
+
+        def tile(backward, masked, stash=False):
+            return {"n_layers": n, "tile": lk.lstm_stack_row_tile_cuda(
+                n, rows, H, dev, backward, masked, stash, dtype=torch.bfloat16)}
+
+        def stack_cost(name):
+            return cost(name, rows, n_layers=n)
+
+        measured = [_measure(
+            "lstm_stack_fwd_bf16", rows,
+            lambda: lk.lstm_stack_fwd_cuda(x, *weights),
+            lambda: lk.lstm_stack_ref(x, *weights),
+            _inference(_cudnn_forward(x, v["layers"])), False,
+            *stack_cost("lstm_stack_fwd_bf16"), False, note=note,
+            extra=tile(False, False), judge=_bf16_judge)]
+        if training:
+            masks = v["masks"]
+            wgrad = (v["d_pres"], v["hs"], masks)
+            measured += [
+                _measure(
+                    "lstm_stack_fwd_masked_bf16", rows,
+                    lambda: lk.lstm_stack_fwd_cuda(x, *weights, masks, stash=True),
+                    lambda: lk.lstm_stack_ref(x, *weights, masks, return_stash=True),
+                    _cudnn_forward(x, v["layers"]), False,
+                    *stack_cost("lstm_stack_fwd_masked_bf16"), False, note=note,
+                    extra=tile(False, True, stash=True), judge=_bf16_judge),
+                _measure(
+                    "lstm_stack_bwd_bf16", rows,
+                    lambda: lk.lstm_stack_bwd_bf16_cuda(*_bf16_stack_bwd_args(v)),
+                    lambda: lk.lstm_stack_bwd_bf16_ref(*_bf16_stack_bwd_args(v)),
+                    _cudnn_backward(x, v["layers"], v["dh"], weights=False),
+                    False, *stack_cost("lstm_stack_bwd_bf16"), True, note=note,
+                    extra=tile(True, True), judge=_bf16_judge),
+                _measure(
+                    "lstm_wgrad_stack_bf16", rows,
+                    lambda: lk.lstm_stack_wgrad(*wgrad),
+                    lambda: lk.lstm_stack_wgrad_ref(*wgrad),
+                    _stack_wgrad_library(v["d_pres"], [h.float() for h in v["hs"]],
+                                         [m.float() for m in masks]), False,
+                    *stack_cost("lstm_wgrad_stack_bf16"), True,
+                    note="cuBLAS f32 products on the stashes' values, unrounded",
+                    extra={"n_layers": n, "jobs": 2 * n - 1}, judge=_bf16_judge),
+            ]
+        for row in measured:
+            results[(row["name"], rows, n)] = row
+        del v
+    return results
+
+
 # -------------------------------------------------- time-blocked kernels
 
 
@@ -1860,36 +2017,44 @@ def phase_train_bf16(dm, train: dict) -> dict:
 
 def _start_bf16_driver() -> dict:
     """The entry point with trainer.precision=bf16-mixed, 1 epoch on the
-    100 x 200,000 set, and model=medium at bf16, which must be refused by
-    key: two children, side by side."""
+    100 x 200,000 set at model=small (the pair) and at model=medium (one
+    4-deep stack), and model.num_layers=5 at bf16 ([4, 1]), which must be
+    refused by key: three children, side by side."""
     root = Path(__file__).resolve().parent / "data" / "chip_smoke"
     save_dir = Path(tempfile.mkdtemp(prefix="bf16_driver_", dir=root))
     common = [f"datamodule.data_dir={data_dir(K_STOCKS)}",
               f"datamodule.n_samples={TRAIN_SAMPLES}",
               f"logger.save_dir={save_dir}", "trainer.precision=bf16-mixed"]
     return {"train": _Child("train", *common, "trainer.max_epochs=1",
-                            side_by_side=2),
+                            side_by_side=3),
             "medium": _Child("train", *common, "model=medium",
-                             "logger.version=medium", side_by_side=2),
+                             "trainer.max_epochs=1", side_by_side=3),
+            "refused": _Child("train", *common, "model.num_layers=5",
+                              "logger.version=five", side_by_side=3),
             "save_dir": save_dir}
 
 
 def phase_train_bf16_driver(children: dict) -> dict:
     """``train trainer.precision=bf16-mixed`` ends in its ``done:`` line
-    with the bf16 counters launched and no f32 pair kernel; ``model=medium``
-    at bf16 exits non-zero naming ``trainer.precision`` and writes no run."""
+    with the bf16 counters launched and no f32 pair kernel, at model=small
+    and (the stack's bf16 counters, no f32 or pair kernel) at model=medium;
+    ``model.num_layers=5`` at bf16 exits non-zero naming
+    ``trainer.precision`` and its grouping and writes no run."""
     lines, launches, seconds = _cli_result(children["train"].wait())
-    refused, refused_s = children["medium"].wait()
-    medium_dir = children["save_dir"] / "FinancialLstm" / "synthetic" / "medium"
+    m_lines, m_launches, m_seconds = _cli_result(children["medium"].wait())
+    refused, refused_s = children["refused"].wait()
+    refused_dir = children["save_dir"] / "FinancialLstm" / "synthetic" / "five"
     out = {
         "phase": "train_bf16_driver",
         "seconds": seconds,
         "done": _done(lines),
         "launches": launches,
-        "medium_refused": {
+        "medium": {"seconds": m_seconds, "done": _done(m_lines),
+                   "launches": m_launches},
+        "layers5_refused": {
             "exit": refused.returncode, "seconds": refused_s,
             "stderr_last": (refused.stderr.strip().splitlines() or [""])[-1][:400],
-            "wrote": medium_dir.exists()},
+            "wrote": refused_dir.exists()},
     }
     emit(out)
     missed = [k for k in BF16_COUNTERS if not launches[k]]
@@ -1897,9 +2062,219 @@ def phase_train_bf16_driver(children: dict) -> dict:
     if missed or f32_ran:
         raise AssertionError(f"bf16 driver: {missed} not launched, f32 pair "
                              f"kernels {f32_ran}")
+    medium_faults = _bf16_stack_fit_faults(m_launches)
+    if medium_faults["not_launched"] or medium_faults["launched"]:
+        raise AssertionError(f"bf16 driver at model=medium: {medium_faults}")
     if (refused.returncode == 0 or "trainer.precision=bf16-mixed" not in
-            refused.stderr or out["medium_refused"]["wrote"]):
-        raise AssertionError(f"model=medium at bf16 not refused: {out}")
+            refused.stderr or "group as [4, 1]" not in refused.stderr
+            or out["layers5_refused"]["wrote"]):
+        raise AssertionError(f"model.num_layers=5 at bf16 not refused: {out}")
+    return out
+
+
+#: The stack's bf16 counters, which a bf16 fit of model=medium must launch
+#: (the pass counts as lstm_wgrad_bf16 whatever its jobs), and what it must
+#: not: the f32 stack and pair counters and the pair's bf16 ones.
+BF16_STACK_COUNTERS = ("lstm_stack_fwd_bf16", "lstm_stack_fwd_masked_bf16",
+                       "lstm_stack_bwd_bf16", "lstm_wgrad_bf16")
+NOT_IN_BF16_STACK_FIT = ("lstm_stack_fwd", "lstm_stack_fwd_masked",
+                         "lstm_stack_bwd", "lstm_pair_fwd_bf16",
+                         "lstm_pair_fwd_masked_bf16", "lstm_pair_bwd_bf16"
+                         ) + F32_PAIR_COUNTERS
+
+
+def _bf16_stack_fit_faults(launches: dict) -> dict:
+    """The stack's bf16 counters that did not launch and the counters that
+    must not launch in a bf16 fit of model=medium but did."""
+    return {"not_launched": [k for k in BF16_STACK_COUNTERS if not launches[k]],
+            "launched": {k: launches[k] for k in NOT_IN_BF16_STACK_FIT
+                         if launches[k]}}
+
+
+def _bf16_parity(spec, data, seed: int, masks=None) -> dict:
+    """``BF16_PARITY_STEPS`` one-window steps of ``spec`` in bf16 on the
+    card and on the CPU (the port's plain versions) from the same weights,
+    on ``masks`` (bf16, one list a step) or dropout 0, and the card's f32
+    steps beside; then one evaluation chunk (EVAL_CHUNK validation windows)
+    on the trained card and CPU modules. The losses' and the chunk's
+    metrics' largest relative gaps, and the card's launches in each."""
+    init = spec.build_module(device="cpu",
+                             generator=torch.Generator().manual_seed(seed))
+    state = init.state_dict()
+    batches = _window_batches(data, BF16_PARITY_STEPS)
+    bf16 = torch.bfloat16
+    lk.reset_launch_counts()
+    card, _, _, module = _run_steps(spec, state, batches, DEVICE, masks,
+                                    compute_dtype=bf16)
+    launches = dict(lk.LAUNCHES)
+    cpu, _, _, cpu_module = _run_steps(spec, state, batches, "cpu", masks,
+                                       compute_dtype=bf16)
+    f32_masks = None if masks is None else [[m.float() for m in step]
+                                            for step in masks]
+    f32, _, _, _ = _run_steps(spec, state, batches, DEVICE, f32_masks)
+    chunk = Batch(*(np.ascontiguousarray(a[:EVAL_CHUNK])
+                    for a in data.val_arrays()))
+    lk.reset_launch_counts()
+    got = metric_means(evaluate(module, spec.window_objective(),
+                                device_split(chunk, DEVICE)))
+    eval_launches = dict(lk.LAUNCHES)
+    want = metric_means(evaluate(cpu_module, spec.window_objective(),
+                                 device_split(chunk, "cpu")))
+    stocks = chunk.x.shape[1]
+    return {
+        "rows_per_window": stocks,
+        "layer_groups": {
+            "train": module.layer_groups(T, stocks, masks is not None, stocks),
+            "eval": module.layer_groups(T, EVAL_CHUNK * stocks, False, stocks)},
+        "parity_losses_card": card,
+        "parity_losses_cpu": cpu,
+        "parity_losses_f32_card": f32,
+        "parity_max_loss_rel_gap": max(abs(g - c) / abs(c)
+                                       for g, c in zip(card, cpu)),
+        "parity_f32_max_loss_rel_gap": max(abs(g - c) / abs(c)
+                                           for g, c in zip(f32, cpu)),
+        "eval_chunk_card": got,
+        "eval_chunk_cpu": want,
+        "eval_chunk_total_rel_gap": (abs(float(got["total"]) - float(want["total"]))
+                                     / abs(float(want["total"]))),
+        "parity_rtol": BF16_PARITY_RTOL,
+        "launches": launches,
+        "eval_launches": eval_launches,
+    }
+
+
+def _check_bf16_parity(phase: str, run: dict) -> None:
+    if not (run["parity_max_loss_rel_gap"] <= BF16_PARITY_RTOL
+            and run["eval_chunk_total_rel_gap"] <= BF16_PARITY_RTOL):
+        raise AssertionError(f"{phase}: card and CPU bf16 part: {run}")
+    if not run["parity_f32_max_loss_rel_gap"] > BF16_PARITY_RTOL:
+        raise AssertionError(f"{phase}: the f32 steps are within "
+                             f"{BF16_PARITY_RTOL} of the CPU's bf16 steps: the "
+                             "bar cannot tell bf16 from f32")
+
+
+def phase_train_medium_bf16(dm) -> dict:
+    """trainer.precision=bf16-mixed on model=medium at full width (H=64, 4
+    layers, dropout 0.3) on the 100-stock set ``train`` uses: a graphed
+    ``Trainer.fit`` of one epoch in bf16 (one 4-deep stack in training and
+    in evaluation), then one in f32 (two pairs) in the same phase, windows/s
+    each; ``Trainer.test`` of the bf16 run; the graphed bf16 step's
+    breakdown (device idle share, one replay under the raising sync check);
+    and 5 one-window steps at dropout 0 on the card against the CPU port's
+    bf16 steps (the f32 steps outside the bar), with one evaluation chunk
+    after them."""
+    spec = _medium_spec()
+    fits, t_phase = {}, time.perf_counter()
+    for precision in ("bf16-mixed", "32-true"):
+        trainer = Trainer(max_epochs=1, gradient_clip_val=CLIP,
+                          check_val_every_n_epoch=1, seed=0, device=DEVICE,
+                          ckpt_dir=Path(dm.data_dir) / f"ckpt_medium_{precision}",
+                          precision=precision)
+        lk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(DEVICE)
+        t0 = time.perf_counter()
+        result = trainer.fit(spec, dm)
+        fits[precision] = {
+            "fit_seconds": time.perf_counter() - t0,
+            "steps_per_s": result.steps_per_sec,
+            "windows_per_s": result.windows_per_sec,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(DEVICE),
+            "val_loss": result.history[-1]["loss/total/val"],
+            "launches": dict(lk.LAUNCHES),
+        }
+        if precision == "bf16-mixed":
+            test_metrics = trainer.test(spec, result.state, dm)
+            history = result.history
+    breakdown = _graphed_step_breakdown(dm, spec, torch.bfloat16)
+    parity = _bf16_parity(dataclasses.replace(spec, dropout=0.0), dm, seed=0)
+    groups = {run: LstmEncoder(hidden_size=H, num_layers=STACK_LAYERS,
+                               device=DEVICE, compute_dtype=dtype).layer_groups(
+        T, rows, masked, K_STOCKS)
+        for run, dtype, rows, masked in (
+            ("train", torch.bfloat16, K_STOCKS, True),
+            ("eval", torch.bfloat16, EVAL_CHUNK * K_STOCKS, False),
+            ("f32_train", torch.float32, K_STOCKS, True),
+            ("f32_eval", torch.float32, EVAL_CHUNK * K_STOCKS, False))}
+    launches = fits["bf16-mixed"]["launches"]
+    losses = [v for row in history for k, v in row.items()
+              if k.startswith("loss/")] + list(test_metrics.values())
+    out = {
+        "phase": "train_medium_bf16",
+        "model": "medium",
+        "precision": "bf16-mixed",
+        "layer_groups": groups,
+        "epochs": 1,
+        "steps": len(dm.train_range),
+        "rows_per_step": K_STOCKS,
+        "fit": fits["bf16-mixed"],
+        "f32_fit": fits["32-true"],
+        "windows_per_s": fits["bf16-mixed"]["windows_per_s"],
+        "f32_windows_per_s": fits["32-true"]["windows_per_s"],
+        "bf16_over_f32_windows_per_s": (fits["bf16-mixed"]["windows_per_s"]
+                                        / fits["32-true"]["windows_per_s"]),
+        "test": test_metrics,
+        "device_idle_share": breakdown["device_idle_share"],
+        "step_breakdown": breakdown,
+        **{k: v for k, v in parity.items() if k != "layer_groups"},
+        "parity_layer_groups": parity["layer_groups"],
+        "launches": launches,
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    if not all(np.isfinite(losses)) or len(test_metrics) != 4:
+        raise AssertionError(f"train_medium_bf16: non-finite or missing losses: {out}")
+    want_groups = {"train": [4], "eval": [4], "f32_train": [2, 2],
+                   "f32_eval": [2, 2]}
+    if groups != want_groups or parity["layer_groups"] != {"train": [4],
+                                                           "eval": [4]}:
+        raise AssertionError(f"train_medium_bf16: grouped otherwise: {groups}, "
+                             f"{parity['layer_groups']}")
+    wrong = _bf16_stack_fit_faults(launches)
+    if wrong["not_launched"] or wrong["launched"]:
+        raise AssertionError(f"train_medium_bf16: {wrong}")
+    _check_bf16_parity("train_medium_bf16", parity)
+    return out
+
+
+def phase_train_large_bf16(dm_medium, dm) -> dict:
+    """model=large (8 layers, dropout 0.3) at bf16-mixed, on 25-row windows
+    ([8] in training and evaluation) and on 100-row windows ([4, 4] in
+    training, [6, 2] in evaluation): ``BF16_PARITY_STEPS`` one-window steps
+    on injected masks and one evaluation chunk, on the card against the CPU
+    port's bf16 (the card's f32 steps outside the bar), with the card's
+    launches: the bf16 stack's (and the bf16 pair's maskless forward in the
+    [6, 2] evaluation), nothing f32."""
+    spec = _medium_spec(num_layers=8)
+    t0 = time.perf_counter()
+    runs = {}
+    for data in (dm_medium, dm):
+        stocks = data.train_arrays().x.shape[1]
+        draw = spec.build_module(device="cpu", compute_dtype=torch.bfloat16)
+        masks = [draw.draw_masks(T, stocks, torch.Generator().manual_seed(20 + i))
+                 for i in range(BF16_PARITY_STEPS)]
+        runs[stocks] = _bf16_parity(spec, data, seed=2, masks=masks)
+    out = {"phase": "train_large_bf16", "model": "large",
+           "precision": "bf16-mixed", "windows": runs,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    want = {K_MEDIUM: ({"train": [8], "eval": [8]}, {"lstm_stack_fwd_bf16": 1}),
+            K_STOCKS: ({"train": [4, 4], "eval": [6, 2]},
+                       {"lstm_stack_fwd_bf16": 1, "lstm_pair_fwd_bf16": 1})}
+    for stocks, run in runs.items():
+        groups, eval_counts = want[stocks]
+        per_step = len(groups["train"]) * BF16_PARITY_STEPS
+        train_counts = {"lstm_stack_fwd_masked_bf16": per_step,
+                        "lstm_stack_bwd_bf16": per_step,
+                        "lstm_wgrad_bf16": per_step}
+        if run["layer_groups"] != groups:
+            raise AssertionError(f"train_large_bf16 at {stocks} rows: grouped "
+                                 f"{run['layer_groups']}, not {groups}")
+        for counts, got in ((train_counts, run["launches"]),
+                            (eval_counts, run["eval_launches"])):
+            if got != dict.fromkeys(got, 0) | counts:
+                raise AssertionError(f"train_large_bf16 at {stocks} rows: "
+                                     f"launches {got}, not {counts}")
+        _check_bf16_parity(f"train_large_bf16 at {stocks} rows", run)
     return out
 
 
@@ -2644,7 +3019,8 @@ def _history_rows(log_dir: Path) -> list:
 
 def _rows_mismatch(got: list, want: list) -> dict:
     """Where two runs' history rows part: the first row and key that
-    differ, both values, and the worst abs and relative error over every
+    differ, both values, every differing key of the first row that parts
+    (``keys``: got, want), and the worst abs and relative error over every
     numeric key the rows share."""
     out: dict = {"rows": [len(got), len(want)]}
     worst_abs = worst_rel = 0.0
@@ -2653,6 +3029,9 @@ def _rows_mismatch(got: list, want: list) -> dict:
             va, vb = a.get(key), b.get(key)
             if va != vb and "first" not in out:
                 out["first"] = {"row": i, "key": key, "got": va, "want": vb}
+                out["keys"] = {k: [a.get(k), b.get(k)]
+                               for k in sorted(set(a) | set(b))
+                               if a.get(k) != b.get(k)}
             if (isinstance(va, (int, float)) and isinstance(vb, (int, float))
                     and va != vb):
                 err = abs(float(va) - float(vb))
@@ -2825,12 +3204,20 @@ def phase_data_parallel_sweeps(children: dict) -> dict:
         jobs, spans = {}, []
         for job in ("0", "1"):
             pool_dir = root.joinpath("pool", job, *run)
+            seq_dir = root.joinpath("sequential", job, *run)
             rows = _history_rows(pool_dir)
-            want = _history_rows(root.joinpath("sequential", job, *run))
+            want = _history_rows(seq_dir)
             jobs[job] = {"rows": len(rows),
                          "bit_equal_to_sequential": rows == want}
             if rows != want:
-                jobs[job]["mismatch"] = _rows_mismatch(rows, want)
+                # Whether the weights parted too, or only the metric rows.
+                jobs[job]["mismatch"] = {
+                    **_rows_mismatch(rows, want),
+                    "weights_bit_equal": {
+                        tag: _tensors_equal(
+                            pool_dir / "checkpoints" / tag / "state.pt",
+                            seq_dir / "checkpoints" / tag / "state.pt")
+                        for tag in ("best", "last")}}
             events = read_events(pool_dir / "telemetry" / "events.jsonl")
             spans.append((next(e["ts"] for e in events
                                if e["kind"] == "run_started"),
@@ -6828,7 +7215,8 @@ def phase_ab(label: str) -> None:
     4-deep stack's
     forward (maskless, and masked with its stashes), sweep and
     weight-gradient pass at 25 and 200 rows on ``_stack_inputs``, and the
-    8-deep masked forward at 25 rows.
+    8-deep masked forward at 25 rows; the stack's f32 instances (and, in a
+    checkout that has them, its bf16 instances) at ``BF16_STACK_SHAPES``.
     Copy the script into each checkout's root and run ``python3
     chip_smoke.py --ab <label>`` there in turns (parent, change, change,
     parent) in one call: equal digests mean bit-equal outputs."""
@@ -6900,6 +7288,37 @@ def phase_ab(label: str) -> None:
             deep["x"], deep["w_hh"], deep["w_in"], deep["biases"],
             deep["masks"], stash=True),
     })
+    # The stack at the shapes a bf16 fit runs it (BF16_STACK_SHAPES): its
+    # f32 instances on the bf16 inputs' values, and (in a checkout that has
+    # them) its bf16 instances.
+    bf16 = hasattr(lk, "lstm_stack_bwd_bf16_cuda")  # not in a parent before it
+    for n, rows, training in BF16_STACK_SHAPES:
+        v = _bf16_stack_inputs(n, rows, 400 + n + rows, training, bf16)
+        f = v["f32"]
+        calls = {f"lstm_stack_fwd_L{n}": lambda: lk.lstm_stack_fwd_cuda(
+            f["x"], *f["weights"])}
+        if training:
+            calls.update({
+                f"lstm_stack_fwd_masked_L{n}": lambda: lk.lstm_stack_fwd_cuda(
+                    f["x"], *f["weights"], f["masks"], stash=True),
+                f"lstm_stack_bwd_L{n}": lambda: lk.lstm_stack_bwd_cuda(
+                    *_bf16_stack_bwd_args(f)),
+                f"lstm_wgrad_stack_L{n}": lambda: lk.lstm_stack_wgrad(
+                    f["d_pres"], f["hs"], f["masks"]),
+            })
+        if bf16:
+            calls[f"lstm_stack_fwd_bf16_L{n}"] = lambda: lk.lstm_stack_fwd_cuda(
+                v["x"], *v["weights"])
+            if training:
+                calls.update({
+                    f"lstm_stack_fwd_masked_bf16_L{n}": lambda: lk.lstm_stack_fwd_cuda(
+                        v["x"], *v["weights"], v["masks"], stash=True),
+                    f"lstm_stack_bwd_bf16_L{n}": lambda: lk.lstm_stack_bwd_bf16_cuda(
+                        *_bf16_stack_bwd_args(v)),
+                    f"lstm_wgrad_stack_bf16_L{n}": lambda: lk.lstm_stack_wgrad(
+                        v["d_pres"], v["hs"], v["masks"]),
+                })
+        _ab_rows(label, rows, calls)
 
 
 def _ab_rows(label: str, rows: int, calls: dict) -> None:
@@ -6946,6 +7365,9 @@ def main() -> int:
     kernels.update(phase_stack_kernels())
     phase_stack_depths()
     phase_stack_vs_pairs()
+    stack_bf16 = phase_stack_bf16_kernels()
+    kernels.update({(name, rows): row for (name, rows, n), row in
+                    stack_bf16.items() if n == STACK_LAYERS})
     kernels.update(phase_tblocked_kernels())
     stacked_kernels = phase_stacked_kernels(kernels)
     universe_kernels = phase_universe_kernels()
@@ -6963,12 +7385,14 @@ def main() -> int:
                  {"lstm_pair_fwd_masked": 1, "lstm_pair_bwd": 1, "lstm_wgrad": 1})
     phase_driver(train)
     train_bf16 = phase_train_bf16(dm, train)
+    train_medium_bf16 = phase_train_medium_bf16(dm)
     stacked_train = phase_stacked_train(dm, train)
     stream = phase_stream(dm)
     dm_medium = _train_datamodule(K_MEDIUM)
     phase_train_medium_parity(dm_medium)
     train_medium = phase_train_medium(dm_medium)
     phase_train_large(dm_medium)
+    train_large_bf16 = phase_train_large_bf16(dm_medium, dm)
     phase_train_medium_breakdown(dm_medium)
     phase_train_large_breakdown(dm_medium)
     phase_graphs(dm_medium, _medium_spec(), "graphs_medium",
@@ -6999,7 +7423,8 @@ def main() -> int:
             preflight.communicate()
         for child in (stacked_child, profile_child, sweeps["pool"],
                       sweeps["sequential"], sweeps["refused"],
-                      bf16_children["train"], bf16_children["medium"]):
+                      bf16_children["train"], bf16_children["medium"],
+                      bf16_children["refused"]):
             if child.proc.poll() is None:
                 child.proc.kill()
                 child.proc.wait()
@@ -7078,6 +7503,16 @@ def main() -> int:
         "lstm_pair_fwd_masked_bf16": (train_bf16, "lstm_pair_fwd_masked_bf16", 100),
         "lstm_pair_bwd_bf16": (train_bf16, "lstm_pair_bwd_bf16", 100),
         "lstm_wgrad_bf16": (train_bf16, "lstm_wgrad_bf16", 100),
+        # The stack's bf16 instances on model=medium's bf16 fit: its
+        # training steps (100 rows) and evaluation chunks (3,200 rows).
+        "lstm_stack_fwd_bf16": (train_medium_bf16, "lstm_stack_fwd_bf16",
+                                EVAL_CHUNK * K_STOCKS),
+        "lstm_stack_fwd_masked_bf16": (train_medium_bf16,
+                                       "lstm_stack_fwd_masked_bf16", K_STOCKS),
+        "lstm_stack_bwd_bf16": (train_medium_bf16, "lstm_stack_bwd_bf16",
+                                K_STOCKS),
+        "lstm_wgrad_stack_bf16": (train_medium_bf16, "lstm_wgrad_bf16",
+                                  K_STOCKS),
     }
     summary = []
     for name, (path, counter, rows) in paths.items():
@@ -7110,6 +7545,31 @@ def main() -> int:
                 "train_bf16_driver": train_bf16_driver["launches"][counter]}
             summary[-1].update({k: row[k] for k in (
                 "bf16_equal_share", "bf16_max_ulps", "library_note")})
+        if name in BF16_STACK_ROWS:
+            # Its launches in the model=medium bf16 driver child and in
+            # model=large's bf16 steps and chunks; its rows at the other
+            # depths a bf16 fit runs (model=large's 8 and 6).
+            summary[-1]["max_abs_err"] = max(
+                r["max_abs_err"] for (n, _, _), r in stack_bf16.items()
+                if n == name)
+            summary[-1]["launches_by_path"] = {
+                "train_bf16_driver_medium":
+                    train_bf16_driver["medium"]["launches"][counter],
+                "train_large_bf16": sum(
+                    run[key][counter]
+                    for run in train_large_bf16["windows"].values()
+                    for key in ("launches", "eval_launches"))}
+            summary[-1].update({k: row.get(k) for k in (
+                "n_layers", "tile", "jobs", "bf16_equal_share",
+                "bf16_max_ulps", "library_note")})
+            summary[-1]["other_depths"] = [
+                {k: r.get(k) for k in (
+                    "n_layers", "rows", "tile", "jobs", "max_abs_err",
+                    "bf16_equal_share", "bf16_max_ulps", "ms", "device_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms")}
+                for (n, _, depth), r in stack_bf16.items()
+                if n == name and depth != STACK_LAYERS]
         if name in STREAM_PATHS:
             # Its launches on the stream epoch's path: ``stream``
             # (model=small, batch 3, the prefetcher two ahead) or

@@ -137,9 +137,9 @@ def window_rows(cfg: Config) -> int:
 def check_precision(cfg: Config, shapes: bool = True) -> None:
     """Raise, naming ``trainer.precision``, for a value the JAX trainer
     does not take, and (with ``shapes``) for bf16 where the configured
-    model groups its layers into anything but pairs at itemsize 2, in
-    training or in evaluation: the pair's kernels are the port's only bf16
-    ones."""
+    model groups a single layer at itemsize 2, in training or in
+    evaluation: the pair's and the L-deep stack's kernels are the port's
+    only bf16 ones."""
     import torch
 
     from masters_thesis_tpu_torch.models.lstm import group_depths
@@ -163,13 +163,14 @@ def check_precision(cfg: Config, shapes: bool = True) -> None:
         groups = group_depths(int(m.num_layers), int(d.lookback_window), rows,
                               int(m.hidden_size), has_mask, window_rows=k,
                               itemsize=2)
-        if any(depth != 2 for depth in groups):
+        if 1 in groups:
             _refuse("trainer.precision", precision, f"in bf16 the "
                     f"{m.num_layers} layers (H={m.hidden_size}) over "
                     f"{k}-row windows of {d.lookback_window} steps group as "
-                    f"{groups} in {run}, and bf16 runs groups of two layers "
-                    "(the pair) only; the stack, single-layer and "
-                    "time-blocked kernels in bf16 are ROADMAP.md queue 2")
+                    f"{groups} in {run}, and bf16 runs groups of two or more "
+                    "layers (the pair and the L-deep stack) only; the "
+                    "single-layer and time-blocked kernels in bf16 are "
+                    "ROADMAP.md queue 2")
 
 
 def check_supported(cfg: Config, precision_shapes: bool = True) -> None:

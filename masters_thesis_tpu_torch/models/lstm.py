@@ -25,9 +25,9 @@ At the canonical window (T=60, 100 rows, H=64) that is pairs then one; at
 each group's input projection (``x.bf16 @ w_ih.T.bf16``, its products
 summed in f32 and rounded once, ``+ bias.bf16``), the
 recurrence weights and the dropout masks are bf16, the groups are taken
-at itemsize 2, and the last hidden state is cast to f32 for the heads. Only
-groups of two layers (the pair's bf16 kernels) run it; any other grouping
-raises, naming it.
+at itemsize 2, and the last hidden state is cast to f32 for the heads.
+Groups of two or more layers (the pair's and the L-deep stack's bf16
+kernels) run it; a grouping with a single layer raises, naming it.
 
 ``remat`` recomputes each group's recurrence in the backward pass
 (``torch.utils.checkpoint``, the counterpart of the JAX encoder's
@@ -65,8 +65,8 @@ from torch.utils.checkpoint import checkpoint
 
 from masters_thesis_tpu_torch import resolve_device
 from masters_thesis_tpu_torch.ops.lstm_kernel import (
+    COMPUTE_DTYPES,
     MAX_STACK_LAYERS,
-    PAIR_DTYPES,
     lstm_pair_recurrence,
     lstm_pair_recurrence_stacked,
     lstm_recurrence,
@@ -129,8 +129,9 @@ def preferred_compute_dtype(num_layers: int, hidden: int, n_t: int,
     bf16 only where the shape class has a measured win
     (``MEASURED_BF16_WAVEFRONT_WINS``), the device (None: the card) is a
     card, itemsize 2 fuses a deeper wavefront over a window of ``rows``
-    than itemsize 4, and every group at itemsize 2 is a pair (the port's
-    bf16 kernels); f32 otherwise, the CPU included."""
+    than itemsize 4, and no group at itemsize 2 is a single layer (the
+    port's bf16 kernels are the pair's and the stack's); f32 otherwise, the
+    CPU included."""
     qualifies = any(num_layers >= min_layers and hidden == h
                     for min_layers, h in MEASURED_BF16_WAVEFRONT_WINS)
     on_card = torch.device("cuda" if device is None else device).type == "cuda"
@@ -138,7 +139,7 @@ def preferred_compute_dtype(num_layers: int, hidden: int, n_t: int,
         return torch.float32
     bf16 = group_depths(num_layers, n_t, rows, hidden, True, itemsize=2)
     f32 = group_depths(num_layers, n_t, rows, hidden, True)
-    if max(bf16) > max(f32) and set(bf16) == {2}:
+    if max(bf16) > max(f32) and min(bf16) >= 2:
         return torch.bfloat16
     return torch.float32
 
@@ -226,8 +227,8 @@ class LstmEncoder(nn.Module):
         super().__init__()
         if num_layers < 1:
             raise ValueError(f"num_layers must be >= 1, got {num_layers}")
-        if compute_dtype not in PAIR_DTYPES:
-            raise ValueError(f"compute_dtype must be one of {PAIR_DTYPES}, "
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                              f"got {compute_dtype}")
         self.compute_dtype = compute_dtype
         self.input_size = input_size
@@ -352,11 +353,12 @@ class LstmEncoder(nn.Module):
         else:
             masks = [cast(m) for m in masks]
         groups = self.layer_groups(n_t, rows, masks is not None, window_rows)
-        if dtype is not None and any(depth != 2 for depth in groups):
+        if dtype is not None and 1 in groups:
             raise TypeError(
-                f"bf16 compute runs groups of two layers (the pair) only; "
-                f"{self.num_layers} layers over {rows} rows of {n_t} steps "
-                f"group as {groups} at itemsize 2 (ROADMAP.md, queue 2)")
+                f"bf16 compute runs groups of two or more layers (the pair "
+                f"and the L-deep stack) only; {self.num_layers} layers over "
+                f"{rows} rows of {n_t} steps group as {groups} at itemsize 2, "
+                f"and the single-layer kernels in bf16 are ROADMAP.md queue 2")
         pending = iter(masks or ())
         layers = [self._layer(layer) for layer in range(self.num_layers)]
         layer = 0

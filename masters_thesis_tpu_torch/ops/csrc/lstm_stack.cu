@@ -1,5 +1,6 @@
 // The L-deep stack's forward (lstm_stack_fwd_kernel, lstm_stack.cuh) with
-// a plain C interface; its backward is lstm_stack_bwd.cu.
+// a plain C interface, f32; its backward is lstm_stack_bwd.cu, and the
+// bf16 instances are lstm_stack_bf16.cu and lstm_stack_bwd_bf16.cu.
 
 #include "lstm_stack.cuh"
 
@@ -34,65 +35,16 @@ int lstm_stack_fwd(const float* x1, const float* const* mask,
                    const float* const* bias, float* const* hs, float* const* cs,
                    int n_layers, int n_t, int n_rows, int hidden, int replicas,
                    int tile, int device, cudaStream_t stream) {
-  if (bad_stack(n_layers, n_t, n_rows, hidden, replicas)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  StackFwdArgs a{};
-  a.x1 = x1;
-  a.n_layers = n_layers;
-  a.n_t = n_t;
-  a.n_rows = n_rows;
-  a.hidden = hidden;
-  a.replicas = replicas;
-  const bool has_mask = mask != nullptr;
-  const bool stash = cs[0] != nullptr;
-  for (int l = 0; l < n_layers; ++l) {
-    a.w_hh[l] = w_hh[l];
-    a.hs[l] = hs[l];
-    a.cs[l] = cs[l];
-    if (l + 1 < n_layers) {
-      a.w_in[l] = w_in[l];
-      a.bias[l] = bias[l];
-      a.mask[l] = has_mask ? mask[l] : nullptr;
-    }
-  }
-  const auto launch = [&](auto at) { return launch_tile<decltype(at)>(a, stream); };
-  cudaError_t err;
-  if (has_mask) {
-    err = stash ? with_fwd_tile<true, true>(a, device, tile, launch)
-                : with_fwd_tile<true, false>(a, device, tile, launch);
-  } else {
-    err = stash ? with_fwd_tile<false, true>(a, device, tile, launch)
-                : with_fwd_tile<false, false>(a, device, tile, launch);
-  }
-  return static_cast<int>(err);
+  return stack_fwd(x1, mask, w_hh, w_in, bias, hs, cs, n_layers, n_t, n_rows,
+                   hidden, replicas, tile, device, stream);
 }
 
 // *rows = the row tile a forward launch of n_layers layers on R replicas of
 // n_rows rows takes, with or without the mask and the stash.
 int lstm_stack_row_tile(int n_layers, int n_rows, int hidden, int masked,
                         int stash, int replicas, int device, int* rows) {
-  if (bad_stack(n_layers, 1, n_rows, hidden, replicas)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto tile = [&](auto at) {
-    *rows = decltype(at)::kRows;
-    return cudaSuccess;
-  };
-  StackFwdArgs a{};
-  a.n_layers = n_layers;
-  a.n_rows = n_rows;
-  a.hidden = hidden;
-  a.replicas = replicas;
-  cudaError_t err;
-  if (masked) {
-    err = stash ? with_fwd_tile<true, true>(a, device, 0, tile)
-                : with_fwd_tile<true, false>(a, device, 0, tile);
-  } else {
-    err = stash ? with_fwd_tile<false, true>(a, device, 0, tile)
-                : with_fwd_tile<false, false>(a, device, 0, tile);
-  }
-  return static_cast<int>(err);
+  return stack_row_tile<float>(n_layers, n_rows, hidden, masked, stash,
+                               replicas, device, rows);
 }
 
 }  // extern "C"

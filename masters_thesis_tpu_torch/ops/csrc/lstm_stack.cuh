@@ -1,7 +1,10 @@
 // The L-deep LSTM wavefront for Hopper (sm_90a), forward and backward: the
-// kernels and their launch machinery, shared by lstm_stack.cu (the
-// forward's plain C interface) and lstm_stack_bwd.cu (the backward's), two
-// sources so that nvcc builds the two sets of instances side by side.
+// kernels, their launch machinery and entry points, templated over the
+// storage type of the planes and weights (float, or bf16 at
+// trainer.precision=bf16-mixed). The plain C interfaces are lstm_stack.cu
+// and lstm_stack_bwd.cu (f32) and lstm_stack_bf16.cu and
+// lstm_stack_bwd_bf16.cu (bf16): four sources so that nvcc builds the four
+// sets of instances side by side.
 // Counterparts of two Pallas TPU kernels in
 // masters_thesis_tpu/ops/lstm_kernel.py:
 //
@@ -121,6 +124,7 @@
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 #include <vector>
 
 #include "lstm_fwd_step.cuh"
@@ -153,27 +157,38 @@ __host__ __device__ constexpr bool stack_fwd_in_registers(int rows) { return row
 
 // Pointers of one launch. Seam i joins layer i to layer i + 1 (i < L - 1):
 // w_in[i] (H, 4H), bias[i] (4H) and, when masked, mask[i] (T, B, H).
+// T is the storage type of every plane and weight: float, or bf16 (the
+// JAX kernels' bf16 compute dtype). Only the f32 kernels have the replica
+// axis (STACKED instances).
+template <typename T>
 struct StackFwdArgs {
-  const float* x1;  // (T, B, 4H) layer 0's input projections, biases included
-  const float* mask[kMaxLayers];
-  const float* w_hh[kMaxLayers];
-  const float* w_in[kMaxLayers];
-  const float* bias[kMaxLayers];
-  float* hs[kMaxLayers];  // (T, B, H): all L with the stash, else the top only
-  float* cs[kMaxLayers];  // (T, B, H): with the stash only
+  static constexpr bool kReplicaAxis = std::is_same_v<T, float>;
+  const T* x1;  // (T, B, 4H) layer 0's input projections, biases included
+  const T* mask[kMaxLayers];
+  const T* w_hh[kMaxLayers];
+  const T* w_in[kMaxLayers];
+  const T* bias[kMaxLayers];
+  T* hs[kMaxLayers];  // (T, B, H): all L with the stash, else the top only
+  T* cs[kMaxLayers];  // (T, B, H): with the stash only
   int n_layers, n_t, n_rows, hidden, replicas;
 };
 
+template <typename T>
 struct StackBwdArgs {
-  const float* dh_top;  // (T, B, H) cotangent of the top layer's h
-  const float* x1;
-  const float* mask[kMaxLayers];
-  const float* hs[kMaxLayers];
-  const float* cs[kMaxLayers];
-  const float* w_hh[kMaxLayers];
-  const float* w_in[kMaxLayers];
-  const float* bias[kMaxLayers];
-  float* d_pre[kMaxLayers];  // (T, B, 4H) per layer; d_pre[0] is dx1
+  static constexpr bool kReplicaAxis = std::is_same_v<T, float>;
+  const T* dh_top;  // (T, B, H) cotangent of the top layer's h
+  const T* x1;
+  const T* mask[kMaxLayers];
+  const T* hs[kMaxLayers];
+  const T* cs[kMaxLayers];
+  const T* w_hh[kMaxLayers];
+  const T* w_in[kMaxLayers];
+  const T* bias[kMaxLayers];
+  // (T, B, 4H) per layer in f32. With float d_pre[0] is dx1; with bf16 dx1
+  // is layer 0's d_pre rounded (the gradient of the bf16 projection), and
+  // d_pre[0] its f32 value, the weight-gradient pass's operand.
+  float* d_pre[kMaxLayers];
+  T* dx1;
   int n_layers, n_t, n_rows, hidden, replicas;
 };
 
@@ -326,9 +341,13 @@ __device__ __forceinline__ void one_row_cell(const float (&gates)[4][1], int q,
 // Shared memory (p = sweep_pad(H)): at 4 or 8 rows win_s, whh_s [p][p + 1]
 // float4; two buffers of the own h plane and the inbox [ROWS][p + 16]
 // floats; the inbox buffers' two mbarriers.
-template <int ROWS, bool HAS_MASK, bool STASH, bool STACKED>
+// With bf16 operands (T) every load converts to f32 (the weights once,
+// where they are staged or put in registers), h and c are carried in f32,
+// the seam pushed is the f32 h times the mask, and the h and c stores
+// round to nearest even: the TPU kernel's f32 scratch and rounded stores.
+template <int ROWS, bool HAS_MASK, bool STASH, bool STACKED, typename T>
 __global__ void __launch_bounds__(kSweepThreads, 1)
-lstm_stack_fwd_kernel(const StackFwdArgs a) {
+lstm_stack_fwd_kernel(const StackFwdArgs<T> a) {
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
   constexpr bool kRegs = stack_fwd_in_registers(ROWS);  // else staged
   cg::cluster_group cluster = cg::this_cluster();
@@ -340,10 +359,10 @@ lstm_stack_fwd_kernel(const StackFwdArgs a) {
   // This CTA's operands, replica blockIdx.y's with STACKED.
   const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
   const size_t weight = static_cast<size_t>(hidden) * 4 * hidden;
-  const float* x1 = replica_at<STACKED>(a.x1, 4 * plane);
-  const float* w_hh = replica_at<STACKED>(a.w_hh[layer], weight);
-  const float* w_seam = seam ? replica_at<STACKED>(a.w_in[layer - 1], weight) : nullptr;
-  const float* b_in = seam ? replica_at<STACKED>(a.bias[layer - 1], 4 * hidden) : nullptr;
+  const T* x1 = replica_at<STACKED>(a.x1, 4 * plane);
+  const T* w_hh = replica_at<STACKED>(a.w_hh[layer], weight);
+  const T* w_seam = seam ? replica_at<STACKED>(a.w_in[layer - 1], weight) : nullptr;
+  const T* b_in = seam ? replica_at<STACKED>(a.bias[layer - 1], 4 * hidden) : nullptr;
   extern __shared__ float4 smem[];
   const int p = sweep_pad(hidden);
   const int kq = p / 4;
@@ -376,12 +395,12 @@ lstm_stack_fwd_kernel(const StackFwdArgs a) {
   float bias[4];
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
-    bias[g] = seam ? __ldg(b_in + g * hidden + ln.col) : 0.0f;
+    bias[g] = seam ? load_f32(b_in + g * hidden + ln.col) : 0.0f;
   }
   // m_l, the seam mask on this layer's h where it enters layer l + 1.
-  const float* mask = HAS_MASK && !top ? replica_at<STACKED>(a.mask[layer], plane) : nullptr;
-  float* hs = STASH || top ? replica_at<STACKED>(a.hs[layer], plane) : nullptr;
-  float* cs = STASH ? replica_at<STACKED>(a.cs[layer], plane) : nullptr;
+  const T* mask = HAS_MASK && !top ? replica_at<STACKED>(a.mask[layer], plane) : nullptr;
+  T* hs = STASH || top ? replica_at<STACKED>(a.hs[layer], plane) : nullptr;
+  T* cs = STASH ? replica_at<STACKED>(a.cs[layer], plane) : nullptr;
   // Where this CTA pushes: plane 1 (the inbox) of CTA l + 1 and its mbarriers.
   const int to = top ? layer : layer + 1;
   const uint32_t push = cluster_addr(smem_addr(pl.base), to);
@@ -634,9 +653,16 @@ __device__ __forceinline__ void stack_sweep_pass(
 // d_pre planes [ROWS][p + 4] float4; two buffers of the hp and hm planes
 // [ROWS][p + 16] floats; two inboxes [ROWS][p + 8] floats and their two
 // mbarriers.
-template <int ROWS, bool HAS_MASK, bool STACKED>
+// With bf16 operands (T) every load converts to f32 (the weights once,
+// into shared memory), so the gates and the seam projection are
+// recomputed from the rounded stashes, as the TPU kernel recomputes them;
+// the sweep's state, products and cotangents stay f32. Every layer's d_pre
+// is written in f32 (the weight-gradient pass's operand), and layer 0's
+// also rounded into dx1.
+template <int ROWS, bool HAS_MASK, bool STACKED, typename T>
 __global__ void __launch_bounds__(kSweepThreads, 1)
-lstm_stack_bwd_kernel(const StackBwdArgs a) {
+lstm_stack_bwd_kernel(const StackBwdArgs<T> a) {
+  constexpr bool kF32 = std::is_same_v<T, float>;
   constexpr int NR = (ROWS + 3) / 4;  // rows a lane owns
   cg::cluster_group cluster = cg::this_cluster();
   const int layer = static_cast<int>(cluster.block_rank());
@@ -647,9 +673,9 @@ lstm_stack_bwd_kernel(const StackBwdArgs a) {
   // This CTA's operands, replica blockIdx.y's with STACKED.
   const size_t plane = static_cast<size_t>(n_t) * n_rows * hidden;
   const size_t weight = static_cast<size_t>(hidden) * 4 * hidden;
-  const float* x1 = replica_at<STACKED>(a.x1, 4 * plane);
-  const float* dh_top = replica_at<STACKED>(a.dh_top, plane);
-  const float* w_hh = replica_at<STACKED>(a.w_hh[layer], weight);
+  const T* x1 = replica_at<STACKED>(a.x1, 4 * plane);
+  const T* dh_top = replica_at<STACKED>(a.dh_top, plane);
+  const T* w_hh = replica_at<STACKED>(a.w_hh[layer], weight);
   const int lag = 2 * (n_layers - 1 - layer);  // even: the first step's parity is 0
   const int t_last = seam ? -1 : 0;
   extern __shared__ float4 smem[];
@@ -690,13 +716,15 @@ lstm_stack_bwd_kernel(const StackBwdArgs a) {
   const int tile0 = (blockIdx.x / n_layers) * ROWS;
   const FwdLane<ROWS> ln(n_rows, hidden, kq, tile0);
   const bool active = (threadIdx.x >> 5) * 8 < p;  // the same for a warp
-  const float* hs = replica_at<STACKED>(a.hs[layer], plane);
-  const float* cs = replica_at<STACKED>(a.cs[layer], plane);
+  const T* hs = replica_at<STACKED>(a.hs[layer], plane);
+  const T* cs = replica_at<STACKED>(a.cs[layer], plane);
   // layer 0: unused
-  const float* h_below = replica_at<STACKED>(a.hs[seam ? layer - 1 : layer], plane);
-  const float* mask =
+  const T* h_below = replica_at<STACKED>(a.hs[seam ? layer - 1 : layer], plane);
+  const T* mask =
       HAS_MASK ? replica_at<STACKED>(a.mask[seam ? layer - 1 : 0], plane) : nullptr;
   float* d_pre = replica_at<STACKED>(a.d_pre[layer], 4 * plane);
+  // bf16: layer 0's rounded d_pre, the gradient of the bf16 projection.
+  T* dx1 = !kF32 && !seam ? a.dx1 : nullptr;
   // Where this CTA pushes: CTA l - 1's inbox and its mbarriers.
   const uint32_t push = cluster_addr(smem_addr(inbox), seam ? layer - 1 : layer);
   const uint32_t push_full = cluster_addr(full, seam ? layer - 1 : layer);
@@ -715,8 +743,8 @@ lstm_stack_bwd_kernel(const StackBwdArgs a) {
   float bias[4];
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
-    bias[g] = seam ? __ldg(replica_at<STACKED>(a.bias[layer - 1], 4 * hidden) + g * hidden +
-                           ln.col)
+    bias[g] = seam ? load_f32(replica_at<STACKED>(a.bias[layer - 1], 4 * hidden) +
+                              g * hidden + ln.col)
                    : 0.0f;
   }
 
@@ -848,13 +876,20 @@ lstm_stack_bwd_kernel(const StackBwdArgs a) {
     STAMP(6)
     if (run) {
       if (active) {
-        float* plane = d_pre + static_cast<size_t>(max(s, 0)) * n_rows * 4 * hidden;
+        const size_t at = static_cast<size_t>(max(s, 0)) * n_rows * 4 * hidden;
+        float* plane = d_pre + at;
         float hm[NR];
 #pragma unroll
         for (int i = 0; i < NR; ++i) {
           if (s >= 0 && dout[i] >= 0) {
 #pragma unroll
             for (int g = 0; g < 4; ++g) plane[dout[i] + g * hidden] = d[g][i];
+            if constexpr (!kF32) {
+              if (dx1 != nullptr) {
+#pragma unroll
+                for (int g = 0; g < 4; ++g) store_as(dx1 + at + dout[i] + g * hidden, d[g][i]);
+              }
+            }
           }
           hm[i] = seam ? hbn[i] * mn[i] : 0.0f;
         }
@@ -938,22 +973,22 @@ cudaError_t cluster_capacity(void (*kernel)(Args), size_t max_smem,
 // A kernel instance and its launch shape (Fwd, Bwd; kSweepThreads a CTA):
 // At<ROWS, STACKED>::get() the kernel, At::kRows the rows of its tile and
 // At::smem(H) its dynamic shared memory.
-template <bool HAS_MASK, bool STASH>
+template <typename T, bool HAS_MASK, bool STASH>
 struct Fwd {
   template <int ROWS, bool STACKED>
   struct At {
     static constexpr int kRows = ROWS;
-    static auto get() { return lstm_stack_fwd_kernel<ROWS, HAS_MASK, STASH, STACKED>; }
+    static auto get() { return lstm_stack_fwd_kernel<ROWS, HAS_MASK, STASH, STACKED, T>; }
     static size_t smem(int hidden) { return fwd_smem(hidden, ROWS); }
   };
 };
 
-template <bool HAS_MASK>
+template <typename T, bool HAS_MASK>
 struct Bwd {
   template <int ROWS, bool STACKED>
   struct At {
     static constexpr int kRows = ROWS;
-    static auto get() { return lstm_stack_bwd_kernel<ROWS, HAS_MASK, STACKED>; }
+    static auto get() { return lstm_stack_bwd_kernel<ROWS, HAS_MASK, STACKED, T>; }
     static size_t smem(int hidden) { return bwd_smem(hidden, ROWS); }
   };
 };
@@ -1013,13 +1048,15 @@ cudaError_t tile_clusters(int rows, const Args& args, int device, int* clusters)
 // class, as sweep_rows keeps it for the pair (a row's bits are the same at
 // 1 and 2 rows, the card tests found 4 and 8 apart): a solo tile of 4 or 8
 // rows stays, one of 1 or 2 becomes 1 when the R replicas' clusters all fit
-// at once, else 2. STACKED is R > 1. Refuses a cluster the card cannot
-// place at all.
+// at once, else 2. STACKED is R > 1 (f32 only, Args::kReplicaAxis: the
+// bf16 entries refuse R > 1). Refuses a cluster the card cannot place at
+// all.
 template <template <int, bool> class At, typename Args, typename F>
 cudaError_t with_stack_tile(const Args& args, int device, int tile, F f) {
+  constexpr bool kAxis = Args::kReplicaAxis;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const bool stacked = args.replicas > 1;
+  const bool stacked = kAxis && args.replicas > 1;
   int rows = tile, clusters = 0;
   if (tile == 0) {
     for (rows = 1;; rows *= 2) {
@@ -1029,7 +1066,7 @@ cudaError_t with_stack_tile(const Args& args, int device, int tile, F f) {
       if (rows == kSweepMaxRows || ceil_div(args.n_rows, rows) <= clusters) break;
     }
     if (stacked && rows <= kButterflyMaxRows) {
-      err = tile_clusters<At, true>(1, args, device, &clusters);
+      err = tile_clusters<At, kAxis>(1, args, device, &clusters);
       if (err != cudaSuccess) return err;
       rows = static_cast<long long>(args.replicas) * args.n_rows <= clusters
                  ? 1 : kButterflyMaxRows;
@@ -1037,13 +1074,13 @@ cudaError_t with_stack_tile(const Args& args, int device, int tile, F f) {
   } else if (tile != 1 && tile != 2 && tile != 4 && tile != kSweepMaxRows) {
     return cudaErrorInvalidValue;
   }
-  err = stacked ? tile_clusters<At, true>(rows, args, device, &clusters)
+  err = stacked ? tile_clusters<At, kAxis>(rows, args, device, &clusters)
                 : tile_clusters<At, false>(rows, args, device, &clusters);
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorLaunchOutOfResources;
   return on_tile(rows, [&](auto rows_c) {
     constexpr int kRows = decltype(rows_c)::value;
-    return stacked ? f(At<kRows, true>{}) : f(At<kRows, false>{});
+    return stacked ? f(At<kRows, kAxis>{}) : f(At<kRows, false>{});
   });
 }
 
@@ -1056,19 +1093,160 @@ cudaError_t launch_tile(const Args& args, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool HAS_MASK, bool STASH, typename F>
-cudaError_t with_fwd_tile(const StackFwdArgs& args, int device, int tile, F f) {
-  return with_stack_tile<Fwd<HAS_MASK, STASH>::template At>(args, device, tile, f);
+template <bool HAS_MASK, bool STASH, typename T, typename F>
+cudaError_t with_fwd_tile(const StackFwdArgs<T>& args, int device, int tile, F f) {
+  return with_stack_tile<Fwd<T, HAS_MASK, STASH>::template At>(args, device, tile, f);
 }
 
-template <bool HAS_MASK, typename F>
-cudaError_t with_bwd_tile(const StackBwdArgs& args, int device, int tile, F f) {
-  return with_stack_tile<Bwd<HAS_MASK>::template At>(args, device, tile, f);
+template <bool HAS_MASK, typename T, typename F>
+cudaError_t with_bwd_tile(const StackBwdArgs<T>& args, int device, int tile, F f) {
+  return with_stack_tile<Bwd<T, HAS_MASK>::template At>(args, device, tile, f);
 }
 
+// A launch's sizes are out of range, or a bf16 launch (no replica axis)
+// names R > 1 replicas.
+template <typename T>
 bool bad_stack(int n_layers, int n_t, int n_rows, int hidden, int replicas) {
   return bad_shape(n_t, n_rows, hidden) || n_layers < kMinLayers ||
-         n_layers > kMaxLayers || replicas < 1;
+         n_layers > kMaxLayers || replicas < 1 ||
+         (!std::is_same_v<T, float> && replicas != 1);
+}
+
+// The entry points of both directions for either storage type T, which the
+// .cu files give their plain C interfaces. Pointer arrays hold n_layers
+// entries (w_hh, hs, cs, d_pre) or n_layers - 1 (w_in, bias, mask: seam i
+// between layers i and i + 1).
+
+// The top layer's h (R, T, B, H) into hs[n_layers - 1] from x1 (R, T, B, 4H),
+// the weights and, when mask is non-null, the seam masks (R, T, B, H). With
+// cs[0] non-null (the stash), every hs[l] and cs[l] is written.
+template <typename T>
+int stack_fwd(const T* x1, const T* const* mask, const T* const* w_hh,
+              const T* const* w_in, const T* const* bias, T* const* hs,
+              T* const* cs, int n_layers, int n_t, int n_rows, int hidden,
+              int replicas, int tile, int device, cudaStream_t stream) {
+  if (bad_stack<T>(n_layers, n_t, n_rows, hidden, replicas)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  StackFwdArgs<T> a{};
+  a.x1 = x1;
+  a.n_layers = n_layers;
+  a.n_t = n_t;
+  a.n_rows = n_rows;
+  a.hidden = hidden;
+  a.replicas = replicas;
+  const bool has_mask = mask != nullptr;
+  const bool stash = cs[0] != nullptr;
+  for (int l = 0; l < n_layers; ++l) {
+    a.w_hh[l] = w_hh[l];
+    a.hs[l] = hs[l];
+    a.cs[l] = cs[l];
+    if (l + 1 < n_layers) {
+      a.w_in[l] = w_in[l];
+      a.bias[l] = bias[l];
+      a.mask[l] = has_mask ? mask[l] : nullptr;
+    }
+  }
+  const auto launch = [&](auto at) { return launch_tile<decltype(at)>(a, stream); };
+  cudaError_t err;
+  if (has_mask) {
+    err = stash ? with_fwd_tile<true, true>(a, device, tile, launch)
+                : with_fwd_tile<true, false>(a, device, tile, launch);
+  } else {
+    err = stash ? with_fwd_tile<false, true>(a, device, tile, launch)
+                : with_fwd_tile<false, false>(a, device, tile, launch);
+  }
+  return static_cast<int>(err);
+}
+
+// *rows = the row tile a forward launch of n_layers layers on R replicas of
+// n_rows rows takes, with or without the mask and the stash.
+template <typename T>
+int stack_row_tile(int n_layers, int n_rows, int hidden, int masked, int stash,
+                   int replicas, int device, int* rows) {
+  if (bad_stack<T>(n_layers, 1, n_rows, hidden, replicas)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto tile = [&](auto at) {
+    *rows = decltype(at)::kRows;
+    return cudaSuccess;
+  };
+  StackFwdArgs<T> a{};
+  a.n_layers = n_layers;
+  a.n_rows = n_rows;
+  a.hidden = hidden;
+  a.replicas = replicas;
+  cudaError_t err;
+  if (masked) {
+    err = stash ? with_fwd_tile<true, true>(a, device, 0, tile)
+                : with_fwd_tile<true, false>(a, device, 0, tile);
+  } else {
+    err = stash ? with_fwd_tile<false, true>(a, device, 0, tile)
+                : with_fwd_tile<false, false>(a, device, 0, tile);
+  }
+  return static_cast<int>(err);
+}
+
+// d_pre[l] (R, T, B, 4H), f32, for every layer from dh_top (R, T, B, H),
+// x1, the optional seam masks, the stashes hs, cs and the weights; with
+// bf16 also dx1, layer 0's d_pre rounded (with float d_pre[0] is dx1, and
+// dx1 is not read).
+template <typename T>
+int stack_bwd(const T* dh_top, const T* x1, const T* const* mask,
+              const T* const* hs, const T* const* cs, const T* const* w_hh,
+              const T* const* w_in, const T* const* bias, T* dx1,
+              float* const* d_pre, int n_layers, int n_t, int n_rows,
+              int hidden, int replicas, int tile, int device,
+              cudaStream_t stream) {
+  if (bad_stack<T>(n_layers, n_t, n_rows, hidden, replicas) ||
+      (!std::is_same_v<T, float> && dx1 == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  StackBwdArgs<T> a{};
+  a.dh_top = dh_top;
+  a.x1 = x1;
+  a.dx1 = dx1;
+  a.n_layers = n_layers;
+  a.n_t = n_t;
+  a.n_rows = n_rows;
+  a.hidden = hidden;
+  a.replicas = replicas;
+  const bool has_mask = mask != nullptr;
+  for (int l = 0; l < n_layers; ++l) {
+    a.hs[l] = hs[l];
+    a.cs[l] = cs[l];
+    a.w_hh[l] = w_hh[l];
+    a.d_pre[l] = d_pre[l];
+    if (l + 1 < n_layers) {
+      a.w_in[l] = w_in[l];
+      a.bias[l] = bias[l];
+      a.mask[l] = has_mask ? mask[l] : nullptr;
+    }
+  }
+  const auto launch = [&](auto at) { return launch_tile<decltype(at)>(a, stream); };
+  return static_cast<int>(has_mask ? with_bwd_tile<true>(a, device, tile, launch)
+                                   : with_bwd_tile<false>(a, device, tile, launch));
+}
+
+// *rows = the row tile a backward launch of n_layers layers on R replicas
+// of n_rows rows takes, with or without the mask.
+template <typename T>
+int stack_bwd_row_tile(int n_layers, int n_rows, int hidden, int masked,
+                       int replicas, int device, int* rows) {
+  if (bad_stack<T>(n_layers, 1, n_rows, hidden, replicas)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto tile = [&](auto at) {
+    *rows = decltype(at)::kRows;
+    return cudaSuccess;
+  };
+  StackBwdArgs<T> a{};
+  a.n_layers = n_layers;
+  a.n_rows = n_rows;
+  a.hidden = hidden;
+  a.replicas = replicas;
+  return static_cast<int>(masked ? with_bwd_tile<true>(a, device, 0, tile)
+                                 : with_bwd_tile<false>(a, device, 0, tile));
 }
 
 #ifdef LSTM_STACK_STAMPS

@@ -17,9 +17,10 @@ to the next, the recurrent weight gradient accumulated inside the sweep).
 Otherwise dispatch is on the tensors' device and nothing else: a CUDA
 tensor goes to the hand-written kernels in ``csrc/lstm_fwd.cu``,
 ``csrc/lstm_bwd.cu``, ``csrc/lstm_stack.cu``, ``csrc/lstm_stack_bwd.cu``
-and ``csrc/lstm_tb.cu`` (the pair's bf16 instances in
-``csrc/lstm_fwd_bf16.cu`` and ``csrc/lstm_bwd_bf16.cu``) (or
-raises), a CPU tensor to the plain versions. When an input needs a gradient, the recurrence runs as a
+and ``csrc/lstm_tb.cu`` (the bf16 instances in ``csrc/lstm_fwd_bf16.cu``,
+``csrc/lstm_bwd_bf16.cu``, ``csrc/lstm_stack_bf16.cu`` and
+``csrc/lstm_stack_bwd_bf16.cu``) (or raises), a CPU tensor to the plain
+versions. When an input needs a gradient, the recurrence runs as a
 ``torch.autograd.Function`` whose forward also writes the stashes (h and c
 planes) and whose backward recomputes the gates from them, as the TPU
 kernels do: the serial sweep (``lstm_pair_bwd`` / ``lstm_bwd`` /
@@ -36,14 +37,16 @@ operands stacked on a leading axis, one launch of each kernel for all R,
 replica r's slice of every output the solo kernel's on its slices; so do
 the time-blocked kernels where the reference takes them.
 
-The CUDA kernels take H <= 64, in f32. The layer pair also runs in bf16
-(the JAX kernels' bf16 compute dtype, ``trainer.precision=bf16-mixed``):
-its forward, sweep and weight-gradient pass take bf16 planes and weights,
-do their arithmetic in f32 with f32 state and round only what they store,
-as the TPU kernels do; the sweep also writes both layers' d_pre in f32 for
-the pass, which rounds each weight gradient once. A bf16 tensor at the
-single-layer, time-blocked or stack recurrences, or at the pair's replica
-axis, raises (``BF16_QUEUED``); nothing converts it to f32.
+The CUDA kernels take H <= 64, in f32. The layer pair and the L-deep
+stack also run in bf16 (the JAX kernels' bf16 compute dtype,
+``trainer.precision=bf16-mixed``): their forwards, sweeps and the
+weight-gradient pass take bf16 planes and weights, do their arithmetic in
+f32 with f32 state (the seam from the f32 h) and round only what they
+store, as the TPU kernels do; each sweep recomputes the gates from the
+rounded stashes and also writes every layer's d_pre in f32 for the pass,
+which rounds each weight gradient once (the stack's pass runs its 2L - 1
+jobs). A bf16 tensor at the single-layer or time-blocked recurrences, or
+at a replica axis, raises (``BF16_QUEUED``); nothing converts it to f32.
 """
 
 from __future__ import annotations
@@ -63,12 +66,15 @@ from masters_thesis_tpu_torch.utils.counts import CallCounts
 #: 192 KiB at H=64, the width of every model in configs/model.
 MAX_HIDDEN = 64
 
-#: The compute dtypes the pair's kernels take, and the one the others take.
-PAIR_DTYPES = (torch.float32, torch.bfloat16)
+#: The compute dtypes the pair's and the stack's kernels take; the others
+#: take f32.
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
-#: Why a bf16 tensor at a route other than the solo pair raises.
-BF16_QUEUED = ("bf16 compute runs the layer pair only; the {route} in bf16 "
-               "is still to be ported (ROADMAP.md, queue 2)")
+#: Why a bf16 tensor at a route other than the solo pair and the solo stack
+#: raises.
+BF16_QUEUED = ("bf16 compute runs the layer pair and the L-deep stack only; "
+               "the {route} in bf16 is still to be ported (ROADMAP.md, "
+               "queue 2)")
 
 #: Depths the stack kernels take: the pair kernel is the 2-deep wavefront,
 #: and a cluster holds at most 8 CTAs, one a layer (``kMinLayers`` and
@@ -85,8 +91,9 @@ MIN_STACK_LAYERS, MAX_STACK_LAYERS = 3, 8
 #: (``utils/cuda_graph.py``). The ``_stacked`` names count the replica-axis
 #: launches of the same kernels (R replicas in one launch, stacked training
 #: and serving), apart from their solo launches. The ``_bf16`` names count
-#: the pair's bf16 instances (``trainer.precision=bf16-mixed``), apart from
-#: the f32 ones.
+#: the pair's and the stack's bf16 instances
+#: (``trainer.precision=bf16-mixed``), apart from the f32 ones; the bf16
+#: pass counts as ``lstm_wgrad_bf16`` at either's jobs.
 LAUNCHES = CallCounts((
     "lstm_pair_fwd",
     "lstm_pair_fwd_masked",
@@ -94,6 +101,9 @@ LAUNCHES = CallCounts((
     "lstm_pair_fwd_masked_bf16",
     "lstm_pair_bwd_bf16",
     "lstm_wgrad_bf16",
+    "lstm_stack_fwd_bf16",
+    "lstm_stack_fwd_masked_bf16",
+    "lstm_stack_bwd_bf16",
     "lstm_fwd",
     "lstm_pair_bwd",
     "lstm_bwd",
@@ -419,7 +429,17 @@ def lstm_stack_ref(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
     biases[l-1]``, with ``masks[l-1]`` (optional, pre-scaled) multiplying
     layer l-1's output. Returns the top layer's ``hs`` ``(T, B, H)``, or with
     ``return_stash`` ``(hs, cs)``, the lists of every layer's h and c planes.
+    bf16 operands run the kernels' semantics: f32 arithmetic on their
+    values, h and c carried in f32 (every seam too), and the returned
+    planes rounded to bf16.
     """
+    if x1_proj.dtype == torch.bfloat16:
+        out = lstm_stack_ref(*_f32(x1_proj), _f32(*w_hh_ts), _f32(*w_in_ts),
+                             _f32(*biases), None if masks is None
+                             else _f32(*masks), return_stash=return_stash)
+        if not return_stash:
+            return out.to(torch.bfloat16)
+        return tuple([t.to(torch.bfloat16) for t in group] for group in out)
     hs, cs = lstm_recurrence_ref(x1_proj, w_hh_ts[0], return_c=True)
     h_all, c_all = [hs], [cs]
     for layer in range(1, len(w_hh_ts)):
@@ -457,6 +477,21 @@ def lstm_stack_bwd_ref(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
     return d_pres
 
 
+def lstm_stack_bwd_bf16_ref(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
+                            biases):
+    """Plain version of the stack's bf16 sweep: ``(dx1, d_pres)``.
+
+    ``lstm_stack_bwd_ref`` on the bf16 operands' values in f32, so the
+    gates and seam projections are recomputed from the rounded stashes, as
+    ``_stack_bwd_kernel`` does in bf16; ``dx1`` is layer 0's d_pre rounded
+    to bf16 (the gradient of the bf16 projection), ``d_pres`` every
+    layer's d_pre in f32 (the weight-gradient pass's operands)."""
+    d_pres = lstm_stack_bwd_ref(
+        *_f32(dh_top, x1_proj), None if masks is None else _f32(*masks),
+        _f32(*hs), _f32(*cs), _f32(*w_hh_ts), _f32(*w_in_ts), _f32(*biases))
+    return d_pres[0].to(torch.bfloat16), d_pres
+
+
 def _stack_wgrad_jobs(d_pres, hs, masks):
     """The stack's 2L - 1 weight gradients as ``(d_pre, src, shift, mask,
     with_bias)`` jobs: dW_hh[l] = sum h_l[t-1]ᵀ d_pre_l[t], then
@@ -472,7 +507,13 @@ def _stack_wgrad_jobs(d_pres, hs, masks):
 
 def lstm_stack_wgrad_ref(d_pres, hs, masks=None):
     """Plain version of the stack's weight gradients:
-    ``(dW_hh list[L], dW_in list[L-1], db list[L-1])``."""
+    ``(dW_hh list[L], dW_in list[L-1], db list[L-1])``. With bf16 stashes
+    (``d_pres`` f32) the sums are taken in f32 and each gradient rounded to
+    bf16 once."""
+    if hs[0].dtype == torch.bfloat16:
+        out = lstm_stack_wgrad_ref(d_pres, _f32(*hs),
+                                   None if masks is None else _f32(*masks))
+        return tuple([g.to(torch.bfloat16) for g in group] for group in out)
     jobs = _stack_wgrad_jobs(d_pres, hs, masks)
     n_layers = len(d_pres)
     dw = [lstm_wgrad_ref(d_pre, src, shift, mask)
@@ -722,7 +763,12 @@ def _declare_stack(lib: ctypes.CDLL) -> ctypes.CDLL:
             ("lstm_stack_fwd", [ptr] + [arr] * 6 + [i32] * 7 + [ptr]),
             ("lstm_stack_row_tile", [i32] * 7 + [out]),
             ("lstm_stack_bwd", [ptr, ptr] + [arr] * 7 + [i32] * 7 + [ptr]),
-            ("lstm_stack_bwd_row_tile", [i32] * 6 + [out])):
+            ("lstm_stack_bwd_row_tile", [i32] * 6 + [out]),
+            ("lstm_stack_fwd_bf16", [ptr] + [arr] * 6 + [i32] * 7 + [ptr]),
+            ("lstm_stack_row_tile_bf16", [i32] * 7 + [out]),
+            ("lstm_stack_bwd_bf16",
+             [ptr, ptr] + [arr] * 6 + [ptr, arr] + [i32] * 7 + [ptr]),
+            ("lstm_stack_bwd_row_tile_bf16", [i32] * 6 + [out])):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i32
@@ -731,7 +777,7 @@ def _declare_stack(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.cache
 def _stack_library() -> ctypes.CDLL:
-    """csrc/lstm_stack.cu (the forward), built at first use, with its
+    """csrc/lstm_stack.cu (the forward, f32), built at first use, with its
     functions' types."""
     lib = _declare_stack(load_library("lstm_stack"))
     i32 = ctypes.c_int
@@ -749,9 +795,23 @@ def _stack_library() -> ctypes.CDLL:
 
 @functools.cache
 def _stack_bwd_library() -> ctypes.CDLL:
-    """csrc/lstm_stack_bwd.cu (the backward sweep), built at first use,
-    with its functions' types."""
+    """csrc/lstm_stack_bwd.cu (the backward sweep, f32), built at first
+    use, with its functions' types."""
     return _declare_stack(load_library("lstm_stack_bwd"))
+
+
+@functools.cache
+def _stack_bf16_library() -> ctypes.CDLL:
+    """csrc/lstm_stack_bf16.cu (the stack's bf16 forward), built at first
+    use."""
+    return _declare_stack(load_library("lstm_stack_bf16"))
+
+
+@functools.cache
+def _stack_bwd_bf16_library() -> ctypes.CDLL:
+    """csrc/lstm_stack_bwd_bf16.cu (the stack's bf16 sweep), built at first
+    use."""
+    return _declare_stack(load_library("lstm_stack_bwd_bf16"))
 
 
 @functools.cache
@@ -1005,15 +1065,16 @@ def _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev,
     _check_operand("bias2", bias2, lead + (4 * hidden,), dev, dtype)
 
 
-def _pair_dtype(x1_proj: torch.Tensor, lead: tuple) -> torch.dtype:
-    """The compute dtype of a pair launch, from its projection: f32, or
-    bf16 for a solo launch (the replica axis runs f32 only)."""
+def _compute_dtype(x1_proj: torch.Tensor, lead: tuple, route: str
+                   ) -> torch.dtype:
+    """The compute dtype of a pair or stack launch, from its projection:
+    f32, or bf16 for a solo launch (the replica axes run f32 only)."""
     dtype = x1_proj.dtype
-    if dtype not in PAIR_DTYPES:
-        raise TypeError(f"x1_proj: the pair's kernels take float32 or "
+    if dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"x1_proj: the {route}'s kernels take float32 or "
                         f"bfloat16, got {dtype}")
     if dtype == torch.bfloat16 and lead:
-        raise TypeError(BF16_QUEUED.format(route="pair's replica axis"))
+        raise TypeError(BF16_QUEUED.format(route=f"{route}'s replica axis"))
     return dtype
 
 
@@ -1031,7 +1092,7 @@ def _launch_pair_fwd(x1_proj, w_hh1_t, w_ih2_t, bias2, w_hh2_t, mask, stash,
     replicas of ``(T, B)`` rows, after the wrappers' checks."""
     n_t, b, hidden = _shapes(x1_proj[0] if lead else x1_proj)
     dev = x1_proj.device
-    dtype = _pair_dtype(x1_proj, lead)
+    dtype = _compute_dtype(x1_proj, lead, "pair")
     bf16 = dtype == torch.bfloat16
     _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev, dtype)
     _check_pair_weights(w_hh1_t, w_ih2_t, bias2, w_hh2_t, hidden, dev, lead,
@@ -1212,9 +1273,10 @@ def lstm_wgrad_cuda(jobs) -> list:
 
     Returns one ``(dW (H, 4H), db (4H,) or None)`` per job, each as
     ``lstm_wgrad_ref`` (and ``d_pre.sum((0, 1))``) computes it. ``d_pre``
-    is f32; every ``src`` and mask f32, or every one bf16 (the pair's bf16
-    stashes: the bf16 instance, whose sums are f32 and whose outputs are
-    rounded to bf16 once, counted as ``lstm_wgrad_bf16``).
+    is f32; every ``src`` and mask f32, or every one bf16 (the pair's or
+    the stack's bf16 stashes: the bf16 instance, whose sums are f32 and
+    whose outputs are rounded to bf16 once, counted as
+    ``lstm_wgrad_bf16``).
     """
     return _launch_wgrad(jobs, ())
 
@@ -1227,7 +1289,7 @@ def _launch_wgrad(jobs, lead: tuple) -> list:
     n_t, b, hidden = _shapes(jobs[0][0][0] if lead else jobs[0][0])
     dev = jobs[0][0].device
     dtype = jobs[0][1].dtype
-    if dtype not in PAIR_DTYPES:
+    if dtype not in COMPUTE_DTYPES:
         raise TypeError(f"src: the pass takes float32 or bfloat16, got {dtype}")
     bf16 = dtype == torch.bfloat16
     if bf16 and lead:
@@ -1277,9 +1339,10 @@ def _pointers(tensors) -> ctypes.Array:
 
 
 def _check_stack(x1_proj, w_hh_ts, w_in_ts, biases, masks, planes=(),
-                 lead: tuple = ()) -> tuple[int, int, int, int, torch.device]:
-    """Shapes, device, dtype and contiguity of a stack call over ``lead``
-    (``()`` or ``(R,)``) replicas; its sizes."""
+                 lead: tuple = (), dtype: torch.dtype = torch.float32
+                 ) -> tuple[int, int, int, int, torch.device]:
+    """Shapes, device, dtype (every operand ``dtype``) and contiguity of a
+    stack call over ``lead`` (``()`` or ``(R,)``) replicas; its sizes."""
     n_t, b, hidden = _shapes(x1_proj[0] if lead else x1_proj)
     n_layers = len(w_hh_ts)
     if not MIN_STACK_LAYERS <= n_layers <= MAX_STACK_LAYERS:
@@ -1293,32 +1356,37 @@ def _check_stack(x1_proj, w_hh_ts, w_in_ts, biases, masks, planes=(),
         raise ValueError(f"{n_layers} layers take {seams} seam weights, "
                          f"biases and masks each")
     dev = x1_proj.device
-    _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev)
+    _check_operand("x1_proj", x1_proj, lead + (n_t, b, 4 * hidden), dev, dtype)
     for name, group in (("w_hh_ts", w_hh_ts), ("w_in_ts", w_in_ts)):
         for i, w in enumerate(group):
-            _check_operand(f"{name}[{i}]", w, lead + (hidden, 4 * hidden), dev)
+            _check_operand(f"{name}[{i}]", w, lead + (hidden, 4 * hidden), dev,
+                           dtype)
     for i, bias in enumerate(biases):
-        _check_operand(f"biases[{i}]", bias, lead + (4 * hidden,), dev)
+        _check_operand(f"biases[{i}]", bias, lead + (4 * hidden,), dev, dtype)
     for name, group in (("masks", masks or ()),) + tuple(planes):
         for i, t in enumerate(group):
-            _check_operand(f"{name}[{i}]", t, lead + (n_t, b, hidden), dev)
+            _check_operand(f"{name}[{i}]", t, lead + (n_t, b, hidden), dev,
+                           dtype)
     return n_t, b, hidden, n_layers, dev
 
 
 def _launch_stack_fwd(x1_proj, w_hh_ts, w_in_ts, biases, masks, stash: bool,
                       lead: tuple, tile: int):
+    dtype = _compute_dtype(x1_proj, lead, "stack")
+    bf16 = dtype == torch.bfloat16
     n_t, b, hidden, n_layers, dev = _check_stack(x1_proj, w_hh_ts, w_in_ts,
-                                                 biases, masks, lead=lead)
-    lib = _stack_library()
+                                                 biases, masks, lead=lead,
+                                                 dtype=dtype)
+    launch = (_stack_bf16_library().lstm_stack_fwd_bf16 if bf16
+              else _stack_library().lstm_stack_fwd)
 
     def plane():
-        return torch.empty(lead + (n_t, b, hidden), device=dev,
-                           dtype=torch.float32)
+        return torch.empty(lead + (n_t, b, hidden), device=dev, dtype=dtype)
 
     hs = [plane() if stash or layer == n_layers - 1 else None
           for layer in range(n_layers)]
     cs = [plane() if stash else None for _ in range(n_layers)]
-    err = lib.lstm_stack_fwd(
+    err = launch(
         x1_proj.data_ptr(), None if masks is None else _pointers(masks),
         _pointers(w_hh_ts), _pointers(w_in_ts), _pointers(biases),
         _pointers(hs), _pointers(cs), n_layers, n_t, b, hidden,
@@ -1327,6 +1395,8 @@ def _launch_stack_fwd(x1_proj, w_hh_ts, w_in_ts, biases, masks, stash: bool,
     name = "lstm_stack_fwd" if masks is None else "lstm_stack_fwd_masked"
     if lead:
         name += "_stacked"
+    if bf16:
+        name += "_bf16"
     _raise_on_error(name, err)
     LAUNCHES.count(name)
     return (hs, cs) if stash else hs[-1]
@@ -1337,7 +1407,9 @@ def lstm_stack_fwd_cuda(x1_proj, w_hh_ts, w_in_ts, biases, masks=None,
     """Launch the stack's forward kernel; returns the top layer's ``hs``
     ``(T, B, H)``, or with ``stash`` ``(hs, cs)`` as ``lstm_stack_ref``
     returns them. ``masks`` selects the masked instance (counted as
-    ``lstm_stack_fwd_masked``)."""
+    ``lstm_stack_fwd_masked``). Every operand f32, or every operand bf16:
+    the bf16 instance, whose planes are bf16 (counted as
+    ``lstm_stack_fwd_bf16`` or ``lstm_stack_fwd_masked_bf16``)."""
     return _launch_stack_fwd(x1_proj, w_hh_ts, w_in_ts, biases, masks, stash,
                              (), 0)
 
@@ -1385,6 +1457,33 @@ def lstm_stack_bwd_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts, w_in_ts,
                              biases, (), 0)
 
 
+def lstm_stack_bwd_bf16_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts,
+                             w_in_ts, biases):
+    """Launch the stack's bf16 sweep on bf16 operands; returns ``(dx1 bf16
+    (T, B, 4H), d_pres list[L] f32 (T, B, 4H))`` as
+    ``lstm_stack_bwd_bf16_ref`` does. Counted as ``lstm_stack_bwd_bf16``."""
+    bf16 = torch.bfloat16
+    n_t, b, hidden, n_layers, dev = _check_stack(
+        x1_proj, w_hh_ts, w_in_ts, biases, masks,
+        planes=(("dh_top", (dh_top,)), ("hs", hs), ("cs", cs)), dtype=bf16)
+    if len(hs) != n_layers or len(cs) != n_layers:
+        raise ValueError(f"{n_layers} layers take {n_layers} h and c stashes")
+    lib = _stack_bwd_bf16_library()
+    dx1 = torch.empty_like(x1_proj)
+    d_pres = [torch.empty(x1_proj.shape, device=dev, dtype=torch.float32)
+              for _ in range(n_layers)]
+    err = lib.lstm_stack_bwd_bf16(
+        dh_top.data_ptr(), x1_proj.data_ptr(),
+        None if masks is None else _pointers(masks), _pointers(hs),
+        _pointers(cs), _pointers(w_hh_ts), _pointers(w_in_ts),
+        _pointers(biases), dx1.data_ptr(), _pointers(d_pres), n_layers, n_t,
+        b, hidden, 1, 0, dev.index, _stream(dev),
+    )
+    _raise_on_error("lstm_stack_bwd_bf16", err)
+    LAUNCHES.count("lstm_stack_bwd_bf16")
+    return dx1, d_pres
+
+
 def lstm_stack_bwd_stacked_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts,
                                 w_in_ts, biases, tile: int = 0) -> list:
     """Launch the stack's backward sweep once for R replicas (every operand
@@ -1399,23 +1498,28 @@ def lstm_stack_bwd_stacked_cuda(dh_top, x1_proj, masks, hs, cs, w_hh_ts,
 def lstm_stack_row_tile_cuda(n_layers: int, rows: int, hidden: int,
                              device: torch.device, backward: bool,
                              masked: bool = False, stash: bool = False,
-                             replicas: int = 1) -> int:
+                             replicas: int = 1,
+                             dtype: torch.dtype = torch.float32) -> int:
     """The row tile a stack launch of ``n_layers`` layers on ``replicas``
     replicas of ``rows`` rows takes on ``device``: the forward's (with or
     without the mask and the stash) or the backward sweep's (with or
-    without the mask)."""
+    without the mask), of the f32 or the bf16 (``dtype``) instances."""
     _check_sizes(1, rows, hidden)
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
     tile = ctypes.c_int(0)
+    bf16 = dtype == torch.bfloat16
     if backward:
-        err = _stack_bwd_library().lstm_stack_bwd_row_tile(
-            n_layers, rows, hidden, int(masked), replicas, index,
-            ctypes.byref(tile))
+        lib = _stack_bwd_bf16_library() if bf16 else _stack_bwd_library()
+        query = (lib.lstm_stack_bwd_row_tile_bf16 if bf16
+                 else lib.lstm_stack_bwd_row_tile)
+        err = query(n_layers, rows, hidden, int(masked), replicas, index,
+                    ctypes.byref(tile))
     else:
-        err = _stack_library().lstm_stack_row_tile(
-            n_layers, rows, hidden, int(masked), int(stash), replicas, index,
-            ctypes.byref(tile))
+        lib = _stack_bf16_library() if bf16 else _stack_library()
+        query = lib.lstm_stack_row_tile_bf16 if bf16 else lib.lstm_stack_row_tile
+        err = query(n_layers, rows, hidden, int(masked), int(stash), replicas,
+                    index, ctypes.byref(tile))
     _raise_on_error("lstm_stack_row_tile", err)
     return tile.value
 
@@ -1423,7 +1527,9 @@ def lstm_stack_row_tile_cuda(n_layers: int, rows: int, hidden: int,
 def lstm_stack_wgrad(d_pres, hs, masks=None):
     """The stack's weight gradients ``(dW_hh list[L], dW_in list[L-1],
     db list[L-1])``: one launch of the reduction pass over its 2L - 1 jobs
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    for a CUDA tensor, the plain version for a CPU tensor. With bf16
+    stashes ``d_pres`` are the sweep's f32 planes and the gradients are
+    bf16 (``lstm_wgrad_bf16``)."""
     if _device_type(d_pres[0]) == "cpu":
         return lstm_stack_wgrad_ref(d_pres, hs, masks)
     n_layers = len(d_pres)
@@ -1701,13 +1807,19 @@ class _StackFunction(torch.autograd.Function):
                                                  ctx.has_mask)
         hs, cs = rest[n_in:n_in + n_layers], rest[n_in + n_layers:]
         args = (dh_top.contiguous(), x1_proj, masks, hs, cs, w_hh, w_in, biases)
-        if _device_type(x1_proj) == "cuda":
-            d_pres = lstm_stack_bwd_cuda(*args)
+        cuda = _device_type(x1_proj) == "cuda"
+        if x1_proj.dtype == torch.bfloat16:
+            # bf16: the pass sums over every layer's f32 d_pre, not over
+            # the rounded dx1 that the projection takes; every gradient
+            # bf16.
+            dx1, d_pres = (lstm_stack_bwd_bf16_cuda if cuda
+                           else lstm_stack_bwd_bf16_ref)(*args)
         else:
-            d_pres = lstm_stack_bwd_ref(*args)
+            d_pres = (lstm_stack_bwd_cuda if cuda else lstm_stack_bwd_ref)(*args)
+            dx1 = d_pres[0]  # f32: dx1 is layer 0's d_pre
         dw_hh, dw_in, db = lstm_stack_wgrad(d_pres, hs, masks)
         no_masks = [None] * (n_layers - 1 if ctx.has_mask else 0)
-        return (d_pres[0], None, None, *dw_hh, *dw_in, *db, *no_masks)
+        return (dx1, None, None, *dw_hh, *dw_in, *db, *no_masks)
 
 
 class _StackedStackFunction(torch.autograd.Function):
@@ -1917,9 +2029,10 @@ def lstm_stack_recurrence(x1_proj, weights, masks=None):
         ``(T, B, H)`` top-layer hidden states: the CUDA kernels for a CUDA
         tensor (3 <= L <= 8), the plain versions for a CPU tensor. Without a
         gradient to take, the stash-free forward runs; otherwise the
-        autograd function with the hand-written backward. f32 only.
+        autograd function with the hand-written backward. Every operand
+        f32, or every operand bf16 (the kernels' bf16 instances; bf16
+        planes and gradients).
     """
-    _refuse_bf16(x1_proj, "L-deep stack")
     w_hh_ts, w_in_ts, biases = (tuple(part) for part in weights)
     masks = None if masks is None else tuple(masks)
     if _needs_grad(x1_proj, *w_hh_ts, *w_in_ts, *biases):

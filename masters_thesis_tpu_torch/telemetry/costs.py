@@ -17,11 +17,11 @@ as a ``cost_profile`` event with ``source="analytic"``.
 Operations count each ``(rows, H) @ (H, 4H)`` product of a time step as
 ``2 * H * 4H`` a row; bytes count each input read once and each output
 written once: planes and weights at the compute dtype's ``itemsize`` (4
-for f32, 2 for the pair's bf16 instances), the d_pre planes that the
-sweeps hand to the weight-gradient pass at 4 whatever it is (the
-counterpart of the JAX ``lstm_route_cost(itemsize=)``: operands at the
-compute dtype, scratch in f32). ``bound_ms`` is the larger of the two
-roofline terms at the card's peaks.
+for f32, 2 for the pair's and the stack's bf16 instances), the d_pre
+planes that the sweeps hand to the weight-gradient pass at 4 whatever it
+is (the counterpart of the JAX ``lstm_route_cost(itemsize=)``: operands
+at the compute dtype, scratch in f32). ``bound_ms`` is the larger of the
+two roofline terms at the card's peaks.
 
 Peaks exist only for the card the port is measured on, by
 ``torch.cuda.get_device_name``: NVIDIA H100 80GB HBM3 (the H100 SXM data
@@ -77,9 +77,10 @@ def kernel_cost(name: str, rows: int, n_t: int = 60, hidden: int = 64,
     Backward sweeps recompute the gates and form the transposed products:
     2 for one layer (3 time-blocked, where dW is summed in the sweep), 6
     for the pair, 4L - 2 for the stack. Weight-gradient passes: 1 a job
-    (1, 3, 2L - 1 jobs). In bf16 the pair's sweep writes layer 1's d_pre
-    twice: rounded (dx1, the projection's gradient) and in f32 (the
-    pass's operand).
+    (1, 3, 2L - 1 jobs). In bf16 the pair's and the stack's sweeps write
+    the bottom layer's d_pre twice: rounded (dx1, the projection's
+    gradient) and in f32 (the pass's operand), and every other layer's in
+    f32.
     """
     h4 = 4 * hidden
     product = 2 * n_t * rows * hidden * h4
@@ -114,7 +115,8 @@ def kernel_cost(name: str, rows: int, n_t: int = 60, hidden: int = 64,
                                   + 2 * n * plane_h),
         "lstm_stack_bwd": ((4 * n - 2) * product,
                            plane_h + plane_x + (n - 1) * plane_h
-                           + 2 * n * plane_h + stack_params + n * plane_x),
+                           + 2 * n * plane_h + stack_params + n * d_pre
+                           + (plane_x if itemsize != F32 else 0)),
         "lstm_wgrad_stack": ((2 * n - 1) * product,
                              n * d_pre + n * plane_h + (n - 1) * plane_h
                              + stack_params),

@@ -4,7 +4,8 @@ Counterpart of ``Trainer`` and ``TrainResult`` in
 ``masters_thesis_tpu/train/trainer.py``, on one device. ``precision`` takes
 the JAX trainer's values: ``32-true`` (``32``, ``fp32``), ``bf16-mixed``
 (``bf16``: the encoder's recurrences and input projections in bf16 through
-the pair's bf16 kernels, f32 parameters, optimizer and loss; ``fit`` and
+the pair's and the stack's bf16 kernels, f32 parameters, optimizer and
+loss; ``fit`` and
 ``test`` build it so) and ``auto`` (``preferred_compute_dtype``: f32 until a
 card A/B records a bf16 win in ``MEASURED_BF16_WAVEFRONT_WINS``). Per epoch:
 one epoch of training steps, then one host read of its metric sums. The

@@ -22,6 +22,8 @@ The slice: ``Trainer(precision="bf16-mixed")`` fit and test against the
 JAX ``Trainer(precision="bf16-mixed")`` at toy shape.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -288,11 +290,24 @@ def test_encoder_masks_are_bf16_and_non_pair_groupings_raise():
                     generator=torch.Generator().manual_seed(0))
     assert alpha.dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in port.parameters())
-    for layers in (1, 3, 4):
+    # Since the stack's bf16 kernels, 3 and 4 layers (one stack at this
+    # toy shape) run; a grouping with a single layer raises, naming it.
+    for layers in (3, 4):
         deep = LstmEncoder(input_size=F, hidden_size=H, num_layers=layers,
-                           dropout=0.0, device="cpu", compute_dtype=BF16)
-        with pytest.raises(TypeError, match="groups of two layers"):
-            deep(torch.zeros(4, 6, F))
+                           dropout=0.2, device="cpu", compute_dtype=BF16)
+        assert deep.layer_groups(6, 4, True) == [layers]
+        alpha, _ = deep(torch.zeros(4, 6, F), deterministic=False,
+                        generator=torch.Generator().manual_seed(0))
+        assert alpha.dtype == torch.float32 and alpha.shape == (4, 1)
+    for layers, hidden, n_t, rows, groups in ((1, H, 6, 4, "[1]"),
+                                              (9, H, 6, 4, "[8, 1]"),
+                                              (5, 64, 60, 100, "[4, 1]")):
+        single = LstmEncoder(input_size=F, hidden_size=hidden,
+                             num_layers=layers, dropout=0.3, device="cpu",
+                             compute_dtype=BF16)
+        with pytest.raises(TypeError, match=rf"group as {re.escape(groups)}"):
+            single(torch.zeros(rows, n_t, F), deterministic=False,
+                   generator=torch.Generator().manual_seed(0))
 
 
 def test_the_f32_encoder_casts_nothing():
@@ -313,9 +328,9 @@ def test_the_f32_encoder_casts_nothing():
 
 
 def test_bf16_at_other_routes_raises_on_the_cpu():
-    """A bf16 projection at the single-layer (resident or time-blocked),
-    stack or replica-axis recurrences raises, naming the queue; nothing
-    converts it to f32."""
+    """A bf16 projection at the single-layer (resident or time-blocked) or
+    replica-axis recurrences raises, naming the queue; nothing converts it
+    to f32."""
     (x, w1, wi2, b2, w2), masks, _ = _case(1, 4, 6)
     xb, w1b, wi2b, b2b, w2b = _port((x, w1, wi2, b2, w2))
     long_x = torch.zeros((252, 100, 4 * 64), dtype=BF16)
@@ -323,8 +338,6 @@ def test_bf16_at_other_routes_raises_on_the_cpu():
     calls = {
         "single layer": lambda: lk.lstm_recurrence(xb, w1b),
         "time-blocked": lambda: lk.lstm_recurrence(long_x, long_w),
-        "L-deep stack": lambda: lk.lstm_stack_recurrence(
-            xb, ((w1b, w2b, w1b), (wi2b, wi2b), (b2b, b2b))),
         "pair's replica axis": lambda: lk.lstm_pair_recurrence_stacked(
             *(t[None] for t in (xb, w1b, wi2b, b2b, w2b))),
         "single layer's replica axis": lambda: lk.lstm_recurrence_stacked(
@@ -523,7 +536,8 @@ def test_precision_auto_resolves_to_f32_on_both_sides(tmp_path):
     (((2, 64),), 2, 64, 200, "cuda", BF16),         # [1, 1] -> [2]
     (((2, 64),), 4, 64, 200, "cuda", BF16),         # [1]*4 -> [2, 2]
     (((2, 64),), 2, 64, 100, "cuda", torch.float32),  # [2] either way
-    (((2, 64),), 4, 64, 100, "cuda", torch.float32),  # [4]: not pairs
+    (((2, 64),), 4, 64, 100, "cuda", BF16),         # [2, 2] -> [4], the stack
+    (((2, 64),), 5, 64, 100, "cuda", torch.float32),  # [4, 1]: a single layer
     (((2, 64),), 2, 32, 200, "cuda", torch.float32),  # another width
     (((2, 64),), 2, 64, 200, "cpu", torch.float32),   # the CPU
 ])
@@ -531,7 +545,7 @@ def test_precision_auto_takes_bf16_only_where_a_card_win_is_recorded(
         monkeypatch, wins, layers, hidden, rows, device, want):
     """The ``auto`` policy over a recorded win (T=60): bf16 on the card
     only where itemsize 2 fuses a deeper wavefront over the window's rows
-    and every group at itemsize 2 is a pair; f32 otherwise."""
+    and no group at itemsize 2 is a single layer; f32 otherwise."""
     import masters_thesis_tpu_torch.models.lstm as port_lstm
 
     monkeypatch.setattr(port_lstm, "MEASURED_BF16_WAVEFRONT_WINS", wins)
@@ -613,6 +627,39 @@ def test_cost_model_counts_bf16_planes_at_two_bytes():
                                "lstm_pair_bwd_bf16": 1, "lstm_wgrad_bf16": 1}
     assert bf16["groups"] == f32["groups"]
     assert bf16["flops"] == f32["flops"] and bf16["bytes"] < f32["bytes"]
+    # The stack (model=medium's depth): planes and weights at 2 bytes; its
+    # sweep writes dx1 at 2 and the L f32 d_pre planes at 4.
+    n = 4
+    params = (2 * n - 1) * weight + (n - 1) * bias
+    for name in ("lstm_stack_fwd", "lstm_stack_fwd_masked", "lstm_stack_bwd",
+                 "lstm_wgrad_stack"):
+        f32 = costs.kernel_cost(name, rows, n_t, hidden, n_layers=n)
+        bf16 = costs.kernel_cost(name, rows, n_t, hidden, n_layers=n,
+                                 itemsize=2)
+        assert bf16[0] == f32[0]
+        assert bf16[1] < f32[1]
+    assert costs.kernel_cost("lstm_stack_bwd", rows, n_t, hidden, n_layers=n)[1] == (
+        4 * (3 * n * plane_h + (n + 1) * plane_x + params))
+    assert costs.kernel_cost("lstm_stack_bwd", rows, n_t, hidden, n_layers=n,
+                             itemsize=2)[1] == (
+        2 * (3 * n * plane_h + 2 * plane_x + params) + 4 * n * plane_x)
+    assert costs.kernel_cost("lstm_stack_fwd_masked", rows, n_t, hidden,
+                             n_layers=n, itemsize=2)[1] == 2 * (
+        plane_x + (3 * n - 1) * plane_h + params)
+    assert costs.kernel_cost("lstm_wgrad_stack", rows, n_t, hidden, n_layers=n,
+                             itemsize=2)[1] == (
+        4 * n * plane_x + 2 * ((2 * n - 1) * plane_h + params))
+    medium = ModelSpec(objective="mse", num_layers=4, dropout=0.3)
+    f32 = costs.cost_of_step(medium, rows, n_t, window_rows=rows)
+    bf16 = costs.cost_of_step(medium, rows, n_t, window_rows=rows, itemsize=2)
+    assert [g["depth"] for g in f32["groups"]] == [2, 2]
+    assert [g["depth"] for g in bf16["groups"]] == [4]
+    assert bf16["kernels"] == {"lstm_stack_fwd_masked_bf16": 1,
+                               "lstm_stack_bwd_bf16": 1,
+                               "lstm_wgrad_stack_bf16": 1}
+    evaluation = costs.cost_of_step(medium, 32 * rows, n_t, window_rows=rows,
+                                    training=False, itemsize=2)
+    assert evaluation["kernels"] == {"lstm_stack_fwd_bf16": 1}
 
 
 @pytest.mark.parametrize("overrides,accepted", [
@@ -621,15 +668,20 @@ def test_cost_model_counts_bf16_planes_at_two_bytes():
     (["trainer.epoch_mode=stream", "loss=nll"], True),
     (["trainer.precision=bf16"], True),
     (["trainer.precision=auto", "model=medium"], True),  # auto is f32
-    (["model=medium"], False),                    # [4] at itemsize 2
+    (["model=medium"], True),                     # [4] at itemsize 2
+    (["model=large"], True),                      # [4, 4] / [6, 2]
+    (["datamodule=real", "model=medium"], True),  # [4]
+    (["datamodule=real", "model=large"], True),   # [8]
+    (["model.num_layers=5"], False),              # [4, 1]
+    (["model.num_layers=7"], False),              # [4, 3] / [6, 1]
     (["datamodule=universe", "model=kfactor"], False),   # [1, 1]
     (["datamodule.lookback_window=252"], False),  # [1, 1]
 ])
 def test_the_driver_takes_bf16_where_the_layers_pair(overrides, accepted):
     """``check_supported`` at ``trainer.precision=bf16-mixed``: the
-    configurations that group into pairs at itemsize 2 pass, the others are
-    refused by key; the stacked entry point (f32 whatever the precision)
-    checks the value only."""
+    configurations whose groups at itemsize 2 are pairs or stacks pass,
+    those with a single-layer group are refused by key; the stacked entry
+    point (f32 whatever the precision) checks the value only."""
     from masters_thesis_tpu_torch.cli.train import check_supported, compose_config
 
     cfg = compose_config(["trainer.precision=bf16-mixed", *overrides])

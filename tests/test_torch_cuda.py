@@ -297,6 +297,9 @@ def test_cuda_gradients_go_through_the_kernels(cuda_device, monkeypatch,
         "lstm_pair_fwd_masked_bf16": 0,
         "lstm_pair_bwd_bf16": 0,
         "lstm_wgrad_bf16": 0,
+        "lstm_stack_fwd_bf16": 0,
+        "lstm_stack_fwd_masked_bf16": 0,
+        "lstm_stack_bwd_bf16": 0,
     }
     ref = [t.clone().requires_grad_(True) for t in base]
     plain = lk.lstm_pair_ref(*ref, mask)
@@ -712,6 +715,214 @@ def test_stack_gradients_go_through_the_kernels(cuda_device, monkeypatch,
     (plain * dh).sum().backward()
     for got, want in zip(leaves, ref):
         _close_rel(got.grad, want.grad)
+
+
+# ---------------------------------------------------- the stack in bf16
+#
+# The stack's bf16 instances against their plain versions on the card, by
+# the pair's bf16 bar (_close_bf16): one ulp of the plain entry where the
+# f32 bar misses, at least 99% within the bar; the sweep's f32 d_pre planes
+# by the f32 bar.
+
+# Depths 3, 4, 6 and 8 on the tiles of 1, 2, 4 and 8 rows (the training
+# path's 25 and 100 rows among them); H 5, 13 (not a multiple of 4) and 64.
+BF16_STACK_CASES = [(3, 1, 5), (3, 9, 16), (4, 25, 64), (4, 100, 64),
+                    (6, 37, 13), (6, 203, 64), (8, 2, 64), (8, 25, 64),
+                    (4, 803, 64)]
+
+
+def _bf16_stack_case(seed, n_layers, rows, hidden, n_t=12, masked=True,
+                     device="cuda"):
+    x, (w_hh, w_in, biases), masks, dh = _stack_case(
+        seed, n_layers, rows, hidden, n_t=n_t, masked=masked, device=device)
+
+    def bf(group):
+        return None if group is None else [t.to(BF16) for t in group]
+
+    return (x.to(BF16), (bf(w_hh), bf(w_in), bf(biases)), bf(masks),
+            dh.to(BF16))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n_layers,rows,hidden", BF16_STACK_CASES)
+def test_bf16_stack_kernels_match_plain(cuda_device, n_layers, rows, hidden,
+                                        masked):
+    """The bf16 stack forward (with and without its stashes, a second
+    stashed launch bit for bit), its bf16 sweep (dx1 bf16, every d_pre f32;
+    a second launch bit for bit) and the bf16 pass over its 2L - 1 jobs,
+    each against its plain version, each launch counted under its _bf16
+    name."""
+    x, weights, masks, dh = _bf16_stack_case(rows + n_layers + 1, n_layers,
+                                             rows, hidden, masked=masked,
+                                             device=cuda_device)
+    want_hs, want_cs = lk.lstm_stack_ref(x, *weights, masks, return_stash=True)
+    name = "lstm_stack_fwd_bf16" if masks is None else "lstm_stack_fwd_masked_bf16"
+    before = dict(lk.LAUNCHES)
+    got_hs, got_cs = lk.lstm_stack_fwd_cuda(x, *weights, masks, stash=True)
+    assert lk.LAUNCHES[name] == before[name] + 1
+    for g, w in zip(got_hs + got_cs, want_hs + want_cs):
+        _close_bf16(g, w)
+    again_hs, again_cs = lk.lstm_stack_fwd_cuda(x, *weights, masks, stash=True)
+    for a, b in zip(again_hs + again_cs, got_hs + got_cs):
+        assert torch.equal(a, b)
+    _close_bf16(lk.lstm_stack_fwd_cuda(x, *weights, masks), want_hs[-1])
+    args = (dh, x, masks, want_hs, want_cs, *weights)
+    dx1, d_pres = lk.lstm_stack_bwd_bf16_cuda(*args)
+    want_dx1, want_d_pres = lk.lstm_stack_bwd_bf16_ref(*args)
+    _close_bf16(dx1, want_dx1, relative=True)
+    assert len(d_pres) == n_layers
+    for g, w in zip(d_pres, want_d_pres):
+        assert g.dtype == torch.float32
+        _close_rel(g, w)
+    again = lk.lstm_stack_bwd_bf16_cuda(*args)
+    assert torch.equal(again[0], dx1)
+    for a, b in zip(again[1], d_pres):
+        assert torch.equal(a, b)
+    before = lk.LAUNCHES["lstm_wgrad_bf16"]
+    got = lk.lstm_stack_wgrad(want_d_pres, want_hs, masks)
+    assert lk.LAUNCHES["lstm_wgrad_bf16"] == before + 1
+    want = lk.lstm_stack_wgrad_ref(want_d_pres, want_hs, masks)
+    for got_group, want_group in zip(got, want):
+        assert len(got_group) == len(want_group)
+        for g, w in zip(got_group, want_group):
+            _close_bf16(g, w, relative=True)
+
+
+@pytest.mark.parametrize("n_layers,rows", [(4, 3200), (6, 3200), (8, 800)])
+def test_bf16_stack_forward_at_evaluation_chunks(cuda_device, n_layers, rows):
+    """The maskless bf16 forward at the evaluation chunks of a bf16 fit at
+    T=60, H=64 (32 windows of 100 rows: model=medium's [4] and
+    model=large's [6, 2]; 32 windows of 25 rows: model=large's [8]) against
+    its plain version. At 3,200 rows no tile's clusters all fit at once, so
+    the launch takes 8 rows in waves, as the f32 instance does."""
+    x, weights, _, _ = _bf16_stack_case(rows + n_layers, n_layers, rows, 64,
+                                        n_t=60, masked=False,
+                                        device=cuda_device)
+    tile = lk.lstm_stack_row_tile_cuda(n_layers, rows, 64, cuda_device,
+                                       backward=False, dtype=BF16)
+    assert tile == lk.lstm_stack_row_tile_cuda(n_layers, rows, 64, cuda_device,
+                                               backward=False)
+    if rows == 3200:
+        assert tile == 8
+    _close_bf16(lk.lstm_stack_fwd_cuda(x, *weights),
+                lk.lstm_stack_ref(x, *weights))
+
+
+def test_bf16_stack_tiles_are_the_f32_ones(cuda_device):
+    """The bf16 instances take the f32 instances' row tiles (the same
+    shared memory and cluster), for both directions, at every case."""
+    for n_layers, rows, hidden in BF16_STACK_CASES:
+        for backward, masked, stash in ((True, True, False), (False, True, True),
+                                        (False, False, False)):
+            tiles = [lk.lstm_stack_row_tile_cuda(
+                n_layers, rows, hidden, cuda_device, backward=backward,
+                masked=masked, stash=stash, dtype=dtype)
+                for dtype in (torch.float32, BF16)]
+            assert tiles[0] == tiles[1], (n_layers, rows, hidden, backward)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_stack_gradients_go_through_the_kernels(cuda_device, monkeypatch,
+                                                     masked):
+    """bf16 leaves that need a gradient run the bf16 stack forward with
+    stashes, the bf16 sweep and one bf16 pass, never an f32 kernel or a
+    plain backward, at model=medium's training shape (T=60, one 100-row
+    window); the gradients are bf16 and match the plain sweep and pass on
+    the forward kernel's own stashes (it repeats bit for bit). Against a
+    CPU forward the stashes may flip a bf16 ulp, and at this depth and
+    length a flip in a lower layer reaches the gates of the layers above:
+    the forward is held to its plain version in
+    test_bf16_stack_kernels_match_plain."""
+    for name in ("lstm_stack_bwd_ref", "lstm_stack_bwd_bf16_ref",
+                 "lstm_stack_wgrad_ref", "lstm_bwd_ref", "lstm_stack_ref"):
+        monkeypatch.setattr(lk, name, _refuse)
+    x, weights, masks, dh = _bf16_stack_case(13, 4, 100, 64, n_t=60,
+                                             masked=masked, device=cuda_device)
+    flat = [x, *weights[0], *weights[1], *weights[2]]
+    leaves = [t.clone().requires_grad_(True) for t in flat]
+    lk.reset_launch_counts()
+    out = lk.lstm_stack_recurrence(
+        leaves[0], (leaves[1:5], leaves[5:8], leaves[8:11]), masks)
+    (out.float() * dh.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == dict.fromkeys(lk.LAUNCHES, 0) | {
+        "lstm_stack_fwd_masked_bf16" if masked else "lstm_stack_fwd_bf16": 1,
+        "lstm_stack_bwd_bf16": 1,
+        "lstm_wgrad_bf16": 1,
+    }
+    monkeypatch.undo()
+    with torch.no_grad():
+        hs, cs = lk.lstm_stack_fwd_cuda(x, *weights, masks, stash=True)
+        _close_bf16(out.detach(), hs[-1])
+        assert torch.equal(out.detach(), hs[-1])
+        dx1, d_pres = lk.lstm_stack_bwd_bf16_ref(dh, x, masks, hs, cs, *weights)
+        dw_hh, dw_in, db = lk.lstm_stack_wgrad_ref(d_pres, hs, masks)
+    for got, want in zip(leaves, [dx1, *dw_hh, *dw_in, *db]):
+        assert got.grad.dtype == BF16
+        _close_bf16(got.grad, want, relative=True)
+
+
+def test_bf16_stack_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """Mixed dtypes and the stack's replica axis in bf16 raise before any
+    launch."""
+    x, (w_hh, w_in, biases), masks, dh = _bf16_stack_case(3, 4, 9, 16,
+                                                          device=cuda_device)
+    before = dict(lk.LAUNCHES)
+    with pytest.raises(TypeError, match="bfloat16 operands alike"):
+        lk.lstm_stack_fwd_cuda(x, [w_hh[0].float(), *w_hh[1:]], w_in, biases)
+    with pytest.raises(TypeError, match="bfloat16 operands alike"):
+        lk.lstm_stack_fwd_cuda(x, w_hh, w_in, biases, [m.float() for m in masks])
+    hs, cs = lk.lstm_stack_ref(x, w_hh, w_in, biases, masks, return_stash=True)
+    with pytest.raises(TypeError, match="bfloat16 operands alike"):
+        lk.lstm_stack_bwd_bf16_cuda(dh.float(), x, masks, hs, cs, w_hh, w_in,
+                                    biases)
+    with pytest.raises(TypeError):
+        lk.lstm_stack_bwd_cuda(dh, x, masks, hs, cs, w_hh, w_in, biases)
+    with pytest.raises(TypeError, match="queue 2"):
+        lk.lstm_stack_fwd_stacked_cuda(x[None], [w[None] for w in w_hh],
+                                       [w[None] for w in w_in],
+                                       [b[None] for b in biases])
+    with pytest.raises(TypeError, match="queue 2"):
+        lk.lstm_stack_recurrence_stacked(x[None], ([w[None] for w in w_hh],
+                                                   [w[None] for w in w_in],
+                                                   [b[None] for b in biases]))
+    assert lk.LAUNCHES == before
+
+
+def test_graphed_bf16_medium_fit_equals_eager_fit(cuda_device, tmp_path):
+    """Trainer.fit at precision=bf16-mixed on a 4-layer model (one 4-deep
+    stack) for 2 epochs, graphed against eager from the same seed, dropout
+    on: history, parameters and Adam moments bit-equal; each step launches
+    the masked bf16 stack forward, the bf16 sweep and one bf16 pass, the
+    validation the maskless bf16 forward, and nothing f32 or of the pair."""
+    from masters_thesis_tpu_torch.train.trainer import Trainer
+
+    dm = _toy_datamodule(tmp_path)
+    spec = ModelSpec(objective="combined", hidden_size=16, num_layers=4,
+                     dropout=0.3, learning_rate=1e-3)
+    runs, launches = {}, {}
+    for graphs in (True, False):
+        trainer = Trainer(max_epochs=2, gradient_clip_val=5.0, seed=3,
+                          device=cuda_device, cuda_graphs=graphs,
+                          precision="bf16-mixed")
+        lk.reset_launch_counts()
+        runs[graphs] = trainer.fit(spec, dm)
+        launches[graphs] = dict(lk.LAUNCHES)
+    assert launches[True] == launches[False]
+    steps = 2 * len(dm.train_range)
+    trained = ("lstm_stack_fwd_masked_bf16", "lstm_stack_bwd_bf16",
+               "lstm_wgrad_bf16")
+    for name in trained:
+        assert launches[True][name] == steps, name
+    assert launches[True]["lstm_stack_fwd_bf16"] > 0
+    assert not any(v for k, v in launches[True].items()
+                   if k not in trained + ("lstm_stack_fwd_bf16",))
+    assert runs[True].history == runs[False].history
+    for name, value in runs[False].state.items():
+        assert value.dtype == torch.float32
+        assert torch.equal(runs[True].state[name], value), name
+    for key in ("mu", "nu"):
+        assert torch.equal(runs[True].opt_state[key], runs[False].opt_state[key])
 
 
 def test_stack_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):

@@ -242,15 +242,22 @@ def test_refused_keys_raise_and_name_themselves(data_dir, tmp_path, key,
     assert not (tmp_path / RUN_DIR[0]).exists()
 
 
+#: The toy keys put back at full width (H=64, T=60, 100 stocks), where
+#: the grouping rule leaves a layer alone.
+FULL_WIDTH = ["model.hidden_size=64", "datamodule.lookback_window=60",
+              "datamodule.n_stocks=100"]
+
+
 @pytest.mark.parametrize("overrides,groups", [
-    (["model=medium"], "[4]"),
-    (["model.num_layers=3"], "[3]"),
-    (["model=large"], "[8]"),
+    (["model.num_layers=5", *FULL_WIDTH], "[4, 1]"),
+    ([*FULL_WIDTH, "datamodule.lookback_window=252"], "[1, 1]"),
+    (["datamodule=universe", "model=kfactor", "model.hidden_size=64",
+      "datamodule.lookback_window=32", "datamodule.n_stocks=2048"], "[1, 1]"),
 ])
 def test_bf16_is_refused_where_the_layers_group_past_the_pair(
         data_dir, tmp_path, overrides, groups):
-    """bf16 runs the pair's kernels only: a shape that groups its layers
-    into anything else at itemsize 2 is refused by key, naming the
+    """bf16 runs the pair's and the L-deep stack's kernels only: a shape
+    that groups a single layer at itemsize 2 is refused by key, naming the
     grouping, before any data is touched."""
     with pytest.raises(ValueError, match=rf"^trainer\.precision=bf16-mixed: "
                                          rf".*group as {re.escape(groups)}.*"

@@ -129,7 +129,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 def test_build_covers_every_cuda_source(monkeypatch, tmp_path):
     names = {src.stem for src in _build.sources()}
     assert names == {"lstm_fwd", "lstm_bwd", "lstm_stack", "lstm_stack_bwd",
-                     "lstm_tb", "lstm_fwd_bf16", "lstm_bwd_bf16"}
+                     "lstm_tb", "lstm_fwd_bf16", "lstm_bwd_bf16",
+                     "lstm_stack_bf16", "lstm_stack_bwd_bf16"}
     for src in _build.sources():
         lib = _build.library_path(src)
         assert lib.parent == _build.BUILD_DIR and src.stem in lib.name

@@ -125,7 +125,8 @@ def test_cpu_dispatch_launches_no_kernel():
         "lstm_stack_fwd_masked_stacked", "lstm_stack_bwd_stacked",
         "lstm_tb_fwd_stacked", "lstm_tb_bwd_stacked",
         "lstm_pair_fwd_bf16", "lstm_pair_fwd_masked_bf16",
-        "lstm_pair_bwd_bf16", "lstm_wgrad_bf16",
+        "lstm_pair_bwd_bf16", "lstm_wgrad_bf16", "lstm_stack_fwd_bf16",
+        "lstm_stack_fwd_masked_bf16", "lstm_stack_bwd_bf16",
     }
     assert not any(lk.LAUNCHES.values())
 
